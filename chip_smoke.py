@@ -53,7 +53,8 @@ import numpy as np
 import torch
 
 from lightgbmv1_tpu_torch import Booster
-from lightgbmv1_tpu_torch.io.binning import K_ZERO_THRESHOLD
+from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
+                                             MISSING_ZERO)
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
 from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import HostTree
@@ -65,8 +66,6 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
 # 4-byte shared-memory / L1 gathers a second: 132 SMs x 32 banks x
 # 1.98 GHz boost clock (Hopper: 32 banks of 4 B per SM per clock)
 GATHERS_PER_S = 132 * 32 * 1.98e9
-GATHERS_PER_STEP = 8        # feature, code, missing type, default-left /
-                            # zero bin / threshold bin (2), child (+1 slack)
 SRC = "lightgbmv1_tpu_torch/csrc/predict_walk.cu"
 
 
@@ -158,6 +157,40 @@ def leaf_depths(trees, L):
                 else:
                     out[ti, ~c] = d + 1
     return out
+
+
+def walk_loads(tables, codes, n_steps, zero_code, nan_code,
+               chunk=16384):
+    """Leaf ids, steps and four-byte table/code loads of every (row, tree)
+    walk of ``codes``, counted as walk_tree in predict_walk.cu makes
+    them: each step loads the split feature, the row's code, the missing
+    type and the child; then default_left for a missing value, else the
+    threshold bin and, for a NaN or zero code, the zero bin (5 or 6)."""
+    T, L1 = tables.split_feature.shape
+    off = torch.arange(T, device=codes.device)[None, :] * L1
+    feat, tbin, zbin, dl, mt, lc, rc = (a.reshape(-1) for a in tables[1:8])
+    root = (tables.num_leaves > 1).long() - 1          # 0, or -1: leaf 0
+    leaves, steps, loads = [], 0, 0
+    for lo in range(0, codes.shape[0], chunk):
+        c = codes[lo: lo + chunk].long()
+        node = root.expand(c.shape[0], T)
+        for _ in range(max(int(n_steps), 1)):
+            act = node >= 0
+            i = node.clamp(min=0) + off
+            b = torch.gather(c, 1, feat[i].long())
+            is_nan = b == nan_code
+            special = is_nan | (b == zero_code)
+            m = mt[i]
+            missing = torch.where(m == MISSING_NAN, is_nan,
+                                  (m == MISSING_ZERO) & special)
+            left = torch.where(missing, dl[i] != 0,
+                               torch.where(special, zbin[i], b) <= tbin[i])
+            steps += int(act.sum())
+            loads += int((act & ~missing & special).sum())
+            node = torch.where(act, torch.where(left, lc[i], rc[i]).long(),
+                               node)
+        leaves.append((-node - 1).to(torch.int32))
+    return torch.cat(leaves), steps, 5 * steps + loads
 
 
 # ---------------------------------------------------------------------------
@@ -397,10 +430,10 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     leaf_tables = pc.walk_tables(bp.arrays)
     T, L = len(trees), bp.arrays.leaf_value.shape[1]
     L1 = bp.arrays.split_feature.shape[1]
-    leaf = pc.serving_leaf(leaf_tables, codes, **kw)
-    depth = torch.from_numpy(leaf_depths(trees, L)).to(dev)
-    steps = int(depth[torch.arange(T, device=dev)[None, :],
-                      leaf.long()].sum())
+    # the work this run's data needs, counted from the walks themselves
+    leaf, steps, walk = walk_loads(leaf_tables, codes, **kw)
+    check(torch.equal(leaf, pc.serving_leaf(leaf_tables, codes, **kw)),
+          "load count walked other leaves than the kernel")
     fkw = dict(kw, K=1, tree_tile=bp.fused_plan["tree_tile"])
     rows = []
     specs = [
@@ -410,12 +443,12 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
          # codes in, tables (7 node tables + leaf values + num_leaves) in,
          # (N, 1) f32 out; a leaf-value gather a walk on top of the steps
          n * F + tables.split_feature.shape[0] * (7 * L1 + L + 1) * 4 + n * 4,
-         steps * GATHERS_PER_STEP + n * T),
+         walk + n * T),
         ("serving_leaf", "lightgbmv1_tpu/ops/predict_pallas.py:55",
          lambda: pc.serving_leaf(leaf_tables, codes, **kw),
          lambda: pc.serving_leaf_ref(leaf_tables, codes, **kw),
          n * F + T * (7 * L1 + 1) * 4 + n * T * 4,
-         steps * GATHERS_PER_STEP),
+         walk),
     ]
     for name, replaces, kern, plain, nbytes, gathers in specs:
         ms = time_ms(kern, 10)

@@ -11,13 +11,14 @@
 //
 // What bounds them on this card.  A walk step is a chain of dependent
 // gathers from the node tables: the split feature, the row's code for
-// that feature, then missing type, default-left / zero-bin / threshold
-// bin, then the child.  Codes in and scores out are ~32 B a row, so HBM
-// is idle; the work is rows x trees x steps x 8 four-byte gathers from
-// shared memory (K4) or L1 (K5), which the SM serves at 32 words a clock.
-// The bound is that gather count over 132 SMs x 32 words x 1.98 GHz
-// (8.36e12 gathers/s); chip_smoke.py computes it from the real depth of
-// every (row, tree) walk of its input.
+// that feature, the missing type, then default-left (a missing value) or
+// the threshold bin (plus the zero bin for a NaN/zero code), then the
+// child: 5 or 6 four-byte loads a step.  Codes in and scores out are
+// ~32 B a row, so HBM is idle; the work is those loads over every
+// (row, tree) walk, from shared memory (K4) or L1 (K5), which the SM
+// serves at 32 words a clock.  The bound is that load count over 132 SMs
+// x 32 words x 1.98 GHz (8.36e12 gathers/s); chip_smoke.py counts the
+// loads of every walk of its input (walk_loads).
 //
 // K4 design.  One block per row tile, one thread per row, no atomics:
 //  * the block's codes are staged in shared memory once (the feature

@@ -32,11 +32,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..io.binning import MISSING_NAN, MISSING_ZERO
 from . import _build
 
-# per-block shared memory of an H100 (227 KB usable by one block)
-SMEM_LIMIT = 232_448
 # the tree-tile budget: two 256-row blocks of the fused kernel fit one SM
 # (228 KB), so a block is never alone with its tile copies
 SMEM_BUDGET = 96 * 1024
@@ -152,40 +149,16 @@ def plan_predict_tiles(*, T, L1, L, F, K, depth, has_cat=False,
 
 def _walk_ref(tables: WalkTables, codes: torch.Tensor, *, n_steps: int,
               zero_code: int, nan_code: int, packed: bool) -> torch.Tensor:
-    """The Pallas walk body over all (row, tree) pairs: ``n_steps``
-    depth steps of gathers on the flattened tables; finished walks
-    self-loop on their negative leaf code."""
-    N = codes.shape[0]
-    T, L1 = tables.split_feature.shape
-    dev = codes.device
-    c = codes.to(torch.int64)
-    flat_tables = [a.reshape(-1).to(torch.int64) for a in (
-        tables.split_feature, tables.threshold_bin, tables.zero_bin,
-        tables.default_left, tables.missing_type, tables.left_child,
-        tables.right_child)]
-    feat, tbin, zbin, dl, mt, lc, rc = flat_tables
-    t_off = torch.arange(T, device=dev, dtype=torch.int64)[None, :] * L1
-    node = torch.where(tables.num_leaves.to(dev)[None, :] > 1,
-                       torch.zeros((N, T), dtype=torch.int64, device=dev),
-                       torch.full((N, T), -1, dtype=torch.int64, device=dev))
-    for _ in range(max(int(n_steps), 1)):
-        flat = node.clamp(min=0) + t_off
-        f = feat[flat]
-        if packed:
-            byte = torch.gather(c, 1, f >> 1)
-            b = torch.where((f & 1) == 1, byte >> 4, byte) & 15
-        else:
-            b = torch.gather(c, 1, f)
-        is_nan = b == nan_code
-        is_zero = b == zero_code
-        b0 = torch.where(is_nan | is_zero, zbin[flat], b)
-        mtype = mt[flat]
-        is_missing = torch.where(mtype == MISSING_NAN, is_nan,
-                                 (mtype == MISSING_ZERO) & (is_nan | is_zero))
-        go_left = torch.where(is_missing, dl[flat] != 0, b0 <= tbin[flat])
-        nxt = torch.where(go_left, lc[flat], rc[flat])
-        node = torch.where(node >= 0, nxt, node)
-    return (-node - 1).to(torch.int32)
+    """The Pallas walk body over all (row, tree) pairs: the depth-stepped
+    walk of models/predict.py on the kernels' tables.  Packed codes are
+    unpacked first (every nibble column; the tables index only real
+    features)."""
+    # models/predict.py imports this module, so its walk is imported here
+    from ..models.predict import serving_leaf_binned, unpack_serving_codes
+    if packed:
+        codes = unpack_serving_codes(codes, 2 * codes.shape[1])
+    sm = tables._replace(default_left=tables.default_left != 0)
+    return serving_leaf_binned(sm, codes, n_steps, zero_code, nan_code)
 
 
 def apply_transform(acc: torch.Tensor,
@@ -316,14 +289,6 @@ def serving_fused(tables: WalkTables, codes: torch.Tensor, *, n_steps: int,
     kind = _check_cuda(tables, codes, packed)
     N, Fc = codes.shape
     scores_mode = mode == "scores"
-    smem = (7 * tree_tile * L1 + tree_tile) * 4 + ROW_TILE * Fc \
-        * codes.element_size()
-    if scores_mode:
-        smem += tree_tile * L * 4 + (K * ROW_TILE * 4 if K > 1 else 0)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"serving_fused: {smem} B of shared memory a block "
-                         f"exceeds the card's {SMEM_LIMIT} B (re-plan the "
-                         "tree tile)")
     if scores_mode:
         out = torch.empty((N, K), dtype=torch.float32, device=codes.device)
         scores_ptr, leaves_ptr = out.data_ptr(), None

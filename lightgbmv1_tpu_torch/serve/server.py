@@ -208,7 +208,11 @@ class Server:
     def _collect_batch(self) -> Optional[List[_Request]]:
         """Deadline-aware collection: return a batch when the pending rows
         fill ``max_batch_rows`` or the oldest request's delay budget is
-        spent; otherwise keep waiting on the condition."""
+        spent; otherwise keep waiting on the condition.
+
+        The oldest request always rides; a later request that does not
+        fit the batch keeps its queue order for the next collection while
+        smaller requests behind it still fill the batch."""
         cfg = self.config
         delay_s = cfg.max_batch_delay_ms / 1e3
         with self._cond:
@@ -221,13 +225,16 @@ class Server:
                     if (self._queue_rows >= cfg.max_batch_rows
                             or now >= dispatch_at):
                         batch: List[_Request] = []
+                        keep: deque = deque()
                         rows = 0
-                        while self._queue and (
-                                not batch or rows + self._queue[0].n
-                                <= cfg.max_batch_rows):
+                        while self._queue:
                             r = self._queue.popleft()
-                            batch.append(r)
-                            rows += r.n
+                            if not batch or rows + r.n <= cfg.max_batch_rows:
+                                batch.append(r)
+                                rows += r.n
+                            else:
+                                keep.append(r)
+                        self._queue = keep
                         self._queue_rows -= rows
                         return batch
                     self._cond.wait(dispatch_at - now)

@@ -29,6 +29,7 @@ from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.serve import (PublishValidationError, ServeConfig,
                                         Server, ServerOverloaded,
                                         build_server, serve_config_from)
+from lightgbmv1_tpu_torch.serve.server import _Request
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 # golden model -> its rows (binary+categorical, multiclass softmax,
@@ -281,6 +282,27 @@ def test_server_sheds_over_depth_and_validates_publish(two_versions):
             server.submit(np.zeros((2, 5)))
         res = server.submit(np.zeros((3, 28)))
         assert res.version == "v1" and res.values.shape == (3, 1)
+
+
+def test_server_batch_fills_past_a_request_that_does_not_fit(two_versions):
+    """A request too big for the batch keeps its place in the queue while
+    smaller ones behind it still ride (the JAX ``_collect_batch`` rule)."""
+    a, _ = two_versions
+    with Server(a, ServeConfig(max_batch_rows=256, max_batch_delay_ms=1.0),
+                device="cpu") as server:
+        reqs = [_Request(np.zeros((n, 28)), None) for n in (100, 200, 50, 30)]
+        for r in reqs:
+            r.t_enq -= 1.0                 # every delay budget is spent
+        # holding the (re-entrant) lock keeps the dispatcher out
+        with server._cond:
+            server._queue.extend(reqs)
+            server._queue_rows = 380
+            batch = server._collect_batch()
+            left, left_rows = list(server._queue), server._queue_rows
+            server._queue.clear()
+            server._queue_rows = 0
+    assert [r.n for r in batch] == [100, 50, 30]
+    assert [r.n for r in left] == [200] and left_rows == 200
 
 
 def test_serve_config_from_and_build_server(two_versions):
