@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Smoke run of the PyTorch/CUDA port's serving and training paths on one
+NVIDIA card.
 
     python3 chip_smoke.py [--seed 0] [--rows 1048576] [--requests 500]
+                          [--train-rows 1048576] [--iters 50]
 
 Phases (any failure exits non-zero with no ``ok`` line):
 
@@ -34,7 +36,40 @@ Phases (any failure exits non-zero with no ``ok`` line):
 7. launches — both kernels' counts moved in phases 5-6, the fused plan is
               eligible; then each kernel is timed (CUDA events) at the
               main path's chunk shape beside its plain version and its
-              bound, and the ``kernels`` line is printed.
+              bound.
+8. data     — ``--train-rows`` x 28 training rows and 131,072 valid rows
+              from the port's copy of bench.py:42 make_data, binned at
+              max_bin=63 (B = 64) by ``Dataset.construct``.
+9. K1       — the histogram kernel against its plain version on the card
+              at F = 28, N = --train-rows, B = 64, L in {2, 5, 17, 64} on
+              signed, varied rows, and at N = 4,096, L = 64, in each of
+              bf16x2 / bf16 / f32: counts exact, every cell of n rows
+              within 2 (n + 1) 2^-24 of its absolute sum (+1e-6; the f32
+              bound of a sum of n terms, for each side), two launches on
+              the same input bitwise equal.  Each case names the pairs of
+              precisions the tolerance tells apart; the small case must
+              tell all three apart.
+10. train   — the training main path, launch counts reset first:
+              ``train`` on the headline configuration (binary, 255 leaves,
+              max_bin 63, defaults) for ``--iters`` iterations with the
+              valid set; K1 launched (its launches by slot count and
+              precision add up) and no plain histogram; s/iter,
+              M row-trees/s and the held-out AUC (> 0.90).  Then K1 is
+              held to its plain version, as in phase 9, on the inputs of
+              the path's last call at each slot count.  The saved model
+              text is loaded by ``Booster(model_file=...)`` and serves the
+              valid rows through K4 within the serving tolerance of the
+              trainer's own valid scores.
+11. parity  — 65,536 x 28 rows, 63 leaves in waves of 32 (slot buckets
+              {4, 16, 32}, deep rounds), hist_dtype=f32, 5 iterations, on
+              the card and on the CPU (plain versions): split features
+              and threshold bins identical at every node of every tree.
+12. timing  — K1 at each slot bucket of the main path (its own last
+              inputs, recorded in phase 10) beside its plain version, one
+              ``index_add_`` and its bound.
+13. profile — five headline iterations under torch.profiler: device time
+              by kernel and the device's busy share; then the
+              ``kernels`` line (K1, K4, K5) is printed.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -52,21 +87,31 @@ import time
 import numpy as np
 import torch
 
-from lightgbmv1_tpu_torch import Booster
+from lightgbmv1_tpu_torch import Booster, Dataset, train
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
                                              MISSING_ZERO)
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
+from lightgbmv1_tpu_torch.models import grower_wave
 from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import HostTree
-from lightgbmv1_tpu_torch.ops import _build, predict_cuda as pc
+from lightgbmv1_tpu_torch.ops import _build, hist_cuda as hc
+from lightgbmv1_tpu_torch.ops import predict_cuda as pc
 from lightgbmv1_tpu_torch.serve import ServeConfig, Server
 
 F = 28                      # features of the bench headline model
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
+F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 # 4-byte shared-memory / L1 gathers a second: 132 SMs x 32 banks x
 # 1.98 GHz boost clock (Hopper: 32 banks of 4 B per SM per clock)
 GATHERS_PER_S = 132 * 32 * 1.98e9
 SRC = "lightgbmv1_tpu_torch/csrc/predict_walk.cu"
+HIST_SRC = "lightgbmv1_tpu_torch/csrc/hist.cu"
+# the bench headline training configuration (root PERF.md "Headline"):
+# binary, 255 leaves (waves of 63, slot buckets {4, 16, 63}), max_bin 63
+# (a 64-bin axis), every other knob at its default
+TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
+                "metric": "auc,binary_logloss", "verbosity": -1}
+VALID_ROWS = 131072
 
 
 def log(msg: str) -> None:
@@ -475,6 +520,323 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     return rows
 
 
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+
+def make_data(n, seed):
+    """The JAX package's bench.py:42 make_data, copied: 28 standard-normal
+    f32 features and a label from a noisy logit of six of them."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 28).astype(np.float32)
+    logit = (X[:, 0] * 1.2 - X[:, 1] + 0.6 * X[:, 2] * X[:, 3]
+             + 0.4 * X[:, 4] + 0.3 * np.sin(3.0 * X[:, 5]))
+    y = (logit + rng.randn(n).astype(np.float32) > 0).astype(np.float64)
+    return X, y
+
+
+def k1_tol(absum: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """K1 against its plain version: both sum the same rounded parts in
+    f32, in other orders (the plain version's index_add_ in atomic
+    order).  A recursive f32 sum of n terms is off by at most n * 2^-24
+    of the terms' absolute sum, so a cell of n rows agrees within twice
+    that (+1e-6); a constant column (the first iteration's hessians) does
+    drift that way, by its rounding bias."""
+    return 2.0 * (count + 1.0) * 2.0 ** -24 * absum + 1e-6
+
+
+def signed_rows(rng, n, dev) -> torch.Tensor:
+    """(n, 3) f32 rows with signed normal grads, varied positive hessians
+    and a count of 1 (tests/test_torch_hist.py's inputs, count aside)."""
+    g3 = rng.randn(n, 3).astype(np.float32)
+    g3[:, 1] = np.abs(g3[:, 1]) * 0.25
+    g3[:, 2] = 1.0
+    return torch.from_numpy(g3).to(dev).contiguous()
+
+
+def check_k1(tag, binned, g3, lid, L, B=64) -> dict:
+    """K1 against its plain version on one input in all three precisions:
+    counts exact, every cell within ``k1_tol``, two launches bitwise
+    equal.  Also names the pairs of precisions whose plain versions
+    differ past the tolerance in some cell: on such an input the check
+    would catch a kernel that computed the other precision."""
+    absum = hc.index_add_hist(binned, [g3.abs()], lid, L, B)
+    tol = k1_tol(absum, absum[..., 2:3])       # the count column is >= 0
+    wants, err, rel_max = {}, 0.0, 0.0
+    for prec in hc.PRECISIONS:
+        got = hc.hist_leaves(binned, g3, lid, L, B, prec)
+        again = hc.hist_leaves(binned, g3, lid, L, B, prec)
+        want = wants[prec] = hc.hist_leaves_ref(binned, g3, lid, L, B, prec)
+        check(torch.equal(got[..., 2], want[..., 2]),
+              f"K1 {tag} {prec}: counts differ")
+        diff = (got - want).abs()
+        over = int((diff > tol).sum())
+        check(over == 0, f"K1 {tag} {prec}: {over} cells off tolerance")
+        check(torch.equal(got, again), f"K1 {tag} {prec}: two launches "
+              "differ")
+        err = max(err, float(diff.max()))
+        rel_max = max(rel_max, float((diff / (absum + 1e-30)).max()))
+    seps = [f"{p}|{q}" for i, p in enumerate(hc.PRECISIONS)
+            for q in hc.PRECISIONS[i + 1:]
+            if bool(((wants[p] - wants[q]).abs() > tol).any())]
+    log(f"  K1 {tag}: counts exact, bitwise repeatable, max_abs_err="
+        f"{err:.3e}, max err/abs-sum {rel_max:.2e}; separates "
+        f"{', '.join(seps) or 'no pair of precisions'}")
+    return {"case": tag, "max_abs_err": err, "max_err_over_abs_sum": rel_max,
+            "separates": seps}
+
+
+def phase_hist_kernel(binned, dev, rng) -> list:
+    """K1 against its plain version on the card at the main path's shape
+    (the headline bins, random slots, signed varied rows) at each slot
+    count of the path, and on the first 4,096 rows at 64 slots, where a
+    cell holds a row or two: there the tolerance must tell every pair of
+    precisions apart."""
+    N = binned.shape[1]
+    out = []
+    for L in (2, 5, 17, 64):
+        lid = torch.from_numpy(rng.randint(0, L, N).astype(np.int32)).to(dev)
+        out.append(check_k1(f"N={N} L={L} signed rows", binned,
+                            signed_rows(rng, N, dev), lid, L))
+    n = 4096
+    small = binned[:, :n].contiguous()
+    lid = torch.from_numpy(rng.randint(0, 64, n).astype(np.int32)).to(dev)
+    out.append(check_k1(f"N={n} L=64 signed rows", small,
+                        signed_rows(rng, n, dev), lid, 64))
+    check(len(out[-1]["separates"]) == 3, "the small K1 case does not tell "
+          f"every pair of precisions apart: {out[-1]['separates']}")
+    return out
+
+
+class HistRecorder:
+    """Keeps the inputs of the last K1 call at each (slots, precision) of a
+    run: the main path's own shapes and data, at its latest iteration, for
+    the checks and the timing after it.  It counts nothing; the wrapper
+    counts its launches."""
+
+    def __init__(self):
+        self.last = {}
+
+    def __enter__(self):
+        self._orig = hc.hist_leaves
+
+        def wrapped(binned, g3, leaf_id, num_leaves, num_bins,
+                    precision="bf16x2"):
+            self.last[(int(num_leaves), precision)] = (binned, g3, leaf_id,
+                                                       num_bins)
+            return self._orig(binned, g3, leaf_id, num_leaves, num_bins,
+                              precision)
+
+        hc.hist_leaves = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        hc.hist_leaves = self._orig
+
+
+def phase_hist_main_inputs(rec: HistRecorder) -> list:
+    """K1 against its plain version on the main path's own inputs at each
+    of its (slots, precision) keys, as its last iteration gave them."""
+    out = []
+    for (L, prec), (binned, g3, label, B) in sorted(rec.last.items()):
+        out.append(check_k1(f"main path L={L} ({prec} on the path)", binned,
+                            g3, label, L, B))
+    return out
+
+
+def _on(dev) -> dict:
+    """The entry points' own default is the card; name any other device."""
+    return {} if torch.device(dev).type == "cuda" else {"device": dev}
+
+
+def _sync(dev) -> None:
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_train(ds, dv, Xv, iters, dev):
+    """The training main path (counts reset before, read after), then the
+    saved model served through K4.  Returns its numbers and the K1 call
+    record."""
+    hc.reset_launch_counts()
+    pc.reset_launch_counts()
+    ev = {}
+    with HistRecorder() as rec:
+        t0 = time.perf_counter()
+        booster = train(TRAIN_PARAMS, ds, iters, valid_sets=[dv],
+                        evals_result=ev, **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    launches = hc.launch_counts["hist_leaves"]
+    buckets = {f"{L}:{prec}": v for (L, prec), v
+               in sorted(hc.bucket_launch_counts.items())}
+    plain = dict(hc.plain_counts)
+    log(f"  K1 launches on the training path: {launches} "
+        f"({json.dumps(buckets)}); plain-version calls: {plain}")
+    check(launches > 0, "K1 never launched on the training path")
+    check(sum(buckets.values()) == launches,
+          "K1's launches by bucket do not add up to its launches")
+    check(set(rec.last) == set(hc.bucket_launch_counts),
+          f"K1 was called at {sorted(rec.last)} but launched at "
+          f"{sorted(hc.bucket_launch_counts)}")
+    check(not any(plain.values()),
+          "a plain histogram ran on the training path")
+    n = ds.num_data()
+    trees = booster.num_trees()
+    auc = ev["valid_0"]["auc"][-1]
+    out = {"seconds": secs, "iters": iters, "s_per_iter": secs / iters,
+           "M_row_trees_per_s": n * trees / secs / 1e6,
+           "valid_auc": auc, "valid_logloss": ev["valid_0"]["binary_logloss"][-1],
+           "trees": trees, "leaves": [int(t.num_leaves) for t in
+                                      booster._gbdt._device_trees[:3]],
+           "k1_launches": launches, "k1_launches_by_bucket": buckets}
+    log(f"  {iters} iterations of {n} rows in {secs:.2f} s: "
+        f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
+        f"row-trees/s; valid AUC {auc:.5f} logloss "
+        f"{out['valid_logloss']:.5f}")
+    check(trees == iters, f"{trees} trees for {iters} iterations")
+    check(auc > 0.90, f"valid AUC {auc} <= 0.90")
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    path = os.path.join(_build.BUILD_DIR, "trained_model.txt")
+    booster.save_model(path)
+    served = Booster(model_file=path, **_on(dev))
+    check(served.num_trees() == trees, "saved model lost trees")
+    raw = served.predict(Xv, predict_method="fused", raw_score=True)
+    want = booster._gbdt._valid_scores[0].score[:, 0].cpu().numpy()
+    tol = raw_tol(served._all_trees())
+    e = float(np.abs(raw - want).max())
+    log(f"  saved model served through K4: max_abs_err vs the trainer's "
+        f"valid scores {e:.3e} (tol {tol:.3e})")
+    check(e <= tol, f"served model differs from the trainer by {e}")
+    out["served_max_abs_err"] = e
+    return out, rec
+
+
+def phase_parity(seed, dev, n=65536) -> dict:
+    """f32 trees on the card and on the CPU must split identically."""
+    X, y = make_data(n, seed + 7)
+    params = dict(TRAIN_PARAMS, num_leaves=63, leafwise_wave_size=32,
+                  hist_dtype="f32", hist_method="pallas", metric="auc")
+    saved = grower_wave._BUCKET_MIN_N
+    grower_wave._BUCKET_MIN_N = 1
+    try:
+        boosters = {d: train(params, Dataset(X, label=y), 5, device=d)
+                    for d in (dev, "cpu")}
+    finally:
+        grower_wave._BUCKET_MIN_N = saved
+    nodes, leaf_err = 0, 0.0
+    for tg, tc in zip(boosters[dev]._all_trees(),
+                      boosters["cpu"]._all_trees()):
+        n = tc.num_leaves - 1
+        check(tg.num_leaves == tc.num_leaves, "parity: leaf counts differ")
+        check(np.array_equal(tg.split_feature, tc.split_feature)
+              and np.array_equal(tg.threshold_bin, tc.threshold_bin),
+              "parity: split features / threshold bins differ")
+        nodes += n
+        leaf_err = max(leaf_err, float(np.abs(tg.leaf_value
+                                              - tc.leaf_value).max()))
+    log(f"  f32 trees, card vs CPU: {nodes} nodes of 5 trees identical "
+        f"(features, threshold bins); max leaf-value diff {leaf_err:.3e}")
+    return {"nodes": nodes, "max_leaf_diff": leaf_err}
+
+
+def phase_hist_timing(rec: HistRecorder, trained: dict, checks: list
+                      ) -> dict:
+    """K1 at each slot bucket of the main path, on the inputs of its last
+    call there, beside its plain version, one ``index_add_`` and its
+    bound; returns the kernels-line row (top level: the largest
+    bucket)."""
+    buckets = []
+    n_trees = trained["trees"]
+    for (L, prec), (binned, g3, label, B) in sorted(rec.last.items()):
+        Fn, N = binned.shape
+        ms = time_ms(lambda: hc.hist_leaves(binned, g3, label, L, B, prec),
+                     10)
+        plain_ms = time_ms(
+            lambda: hc.hist_leaves_ref(binned, g3, label, L, B, prec), 2)
+        flat = ((torch.arange(Fn, device=binned.device)[:, None] * L
+                 + label.long()[None, :]) * B + binned.long()).reshape(-1)
+        vals = g3.repeat(Fn, 1)
+        acc = torch.zeros((Fn * L * B, 3), dtype=torch.float32,
+                          device=binned.device)
+        library_ms = time_ms(lambda: acc.index_add_(0, flat, vals), 5)
+        # the path's last slot is its dead one (hist_wave): the live rows
+        # are those of the other slots
+        live = int(((label >= 0) & (label < L - 1)).sum())
+        nbytes = Fn * N + N * 12 + N * 4 + L * Fn * B * 3 * 4
+        ops = (2 if prec == "bf16x2" else 1) * 3 * live * Fn
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        b = {"slots": L - 1, "L": L, "precision": prec, "ms": ms,
+             "plain_ms": plain_ms, "library_ms": library_ms,
+             "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": nbytes, "ops": ops,
+             "launches": trained["k1_launches_by_bucket"].get(f"{L}:{prec}",
+                                                              0)}
+        b["launches_per_tree"] = b["launches"] / n_trees
+        buckets.append(b)
+        log(f"  K1 L={L} ({prec}): {ms:.3f} ms (plain {plain_ms:.1f} ms, "
+            f"index_add_ {library_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+            f"by {b['bound_by']}), {b['launches_per_tree']:.2f} launches "
+            f"a tree")
+    top = max(buckets, key=lambda b: b["L"])
+    return {"name": "hist_leaves", "route": "cuda", "source": HIST_SRC,
+            "replaces": "lightgbmv1_tpu/ops/hist_pallas.py:95",
+            "launches": int(trained["k1_launches"]),
+            "max_abs_err": max(c["max_abs_err"] for c in checks),
+            "max_err_over_abs_sum": max(c["max_err_over_abs_sum"]
+                                        for c in checks),
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": top["library_ms"], "at": f"L={top['L']} "
+            f"{top['precision']}", "buckets": buckets, "checks": checks}
+
+def phase_profile(ds, iters, dev) -> dict:
+    """Where an iteration's time goes: ``iters`` headline iterations
+    under torch.profiler (after one warm-up), device time by kernel and
+    the device's busy share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+
+    booster = Booster(TRAIN_PARAMS, train_set=ds, **_on(dev))
+    booster.update()
+    _sync(dev)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            booster.update()
+        _sync(dev)
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return float(getattr(e, "self_device_time_total",
+                             getattr(e, "self_cuda_time_total", 0.0)))
+
+    # the kernels themselves (the ops that launched them carry the same
+    # device time again)
+    kern = sorted(((e.key, dev_us(e), e.count) for e in prof.key_averages()
+                   if e.device_type != torch.autograd.DeviceType.CPU
+                   and dev_us(e) > 0), key=lambda r: -r[1])
+    total_us = sum(us for _, us, _ in kern)
+    out = {"iters": iters, "wall_ms_per_iter": wall / iters * 1e3,
+           "device_ms_per_iter": total_us / iters / 1e3,
+           "device_busy_share": (total_us / 1e6 / wall) if kern else None,
+           "top": [{"kernel": k[:80], "ms_per_iter": us / iters / 1e3,
+                    "calls_per_iter": c / iters} for k, us, c in kern[:10]]}
+    if not kern:
+        log("  the profiler recorded no device time: not measured")
+        return out
+    log(f"  {iters} iterations profiled: {out['wall_ms_per_iter']:.1f} ms "
+        f"wall, {out['device_ms_per_iter']:.1f} ms device an iteration "
+        f"(busy {out['device_busy_share']:.1%})")
+    for r in out["top"]:
+        log(f"    {r['ms_per_iter']:8.3f} ms  {r['calls_per_iter']:7.1f}x  "
+            f"{r['kernel']}")
+    return out
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -488,6 +850,8 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--rows", type=int, default=1 << 20)
     ap.add_argument("--requests", type=int, default=500)
+    ap.add_argument("--train-rows", type=int, default=1 << 20)
+    ap.add_argument("--iters", type=int, default=50)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this runs "
@@ -504,7 +868,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("== phase 2: build")
-    secs = _build.build(["predict_walk"])
+    secs = _build.build(["predict_walk", "hist"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["log"].splitlines():
@@ -553,6 +917,39 @@ def main(argv=None) -> int:
     check(bp.fused_plan["eligible"], f"fused plan: {bp.fused_plan}")
     log(f"  fused plan: {json.dumps(bp.fused_plan)}")
     rows = phase_timing(booster, trees, dev, launches, errs, rng)
+
+    log("== phase 8: training data")
+    t0 = time.perf_counter()
+    X, y = make_data(args.train_rows, args.seed)
+    Xv, yv = make_data(VALID_ROWS, args.seed + 1)
+    ds = Dataset(X, label=y, params=TRAIN_PARAMS)
+    dv = Dataset(Xv, label=yv, reference=ds)
+    ds.construct()
+    dv.construct()
+    bin_s = time.perf_counter() - t0
+    log(f"  {args.train_rows} + {VALID_ROWS} rows x {F} made and binned "
+        f"in {bin_s:.1f} s (bin axis {ds._binned.padded_bin})")
+    check(ds._binned.padded_bin == 64, "bin axis is not 64")
+
+    log("== phase 9: K1 against its plain version")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    k1_checks = phase_hist_kernel(binned, dev, rng)
+    del binned
+
+    log("== phase 10: training (main path; launch counts reset)")
+    trained, rec = phase_train(ds, dv, Xv, args.iters, dev)
+    log("  K1 against its plain version on the main path's last inputs")
+    k1_checks += phase_hist_main_inputs(rec)
+
+    log("== phase 11: f32 parity, card vs CPU")
+    parity = phase_parity(args.seed, dev)
+
+    log("== phase 12: K1 timing at the main path's buckets")
+    k1_row = phase_hist_timing(rec, trained, k1_checks)
+    del rec
+
+    log("== phase 13: where a training iteration's time goes")
+    prof = phase_profile(ds, 5, dev)
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -560,8 +957,11 @@ def main(argv=None) -> int:
                     "server": {k: snap[k] for k in (
                         "qps", "p50_ms", "p99_ms", "batches",
                         "batch_occupancy", "steady")},
+                    "train": trained,
+                    "train_binning_s": bin_s, "parity": parity,
+                    "train_profile": prof,
                     "seconds": time.perf_counter() - t_start}))
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": [k1_row] + rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

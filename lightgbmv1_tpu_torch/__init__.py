@@ -6,11 +6,18 @@ its counterpart for an NVIDIA Hopper card.  It imports ``torch`` and never
 as its own copy, under the same module path (``lightgbmv1_tpu/X`` ->
 ``lightgbmv1_tpu_torch/X``).
 
-This slice ports the serving path: model text -> ``HostTree`` -> serving
-binner and stacked tables -> the hand-written CUDA walk kernels
-(``ops/predict_cuda.py``) -> ``BatchPredictor`` -> ``Booster.predict`` ->
-``serve.Server``.  Entry points run on the card unless the caller passes
-``device="cpu"``; without a card they raise instead of falling back.
+Ported so far:
+
+* serving: model text -> ``HostTree`` -> serving binner and stacked
+  tables -> the hand-written CUDA walk kernels (``ops/predict_cuda.py``)
+  -> ``BatchPredictor`` -> ``Booster.predict`` -> ``serve.Server``;
+* binary leaf-wise training: ``train(params, Dataset(X, y))`` -> binning
+  (``io/binning.py``) -> the wave grower (``models/grower_wave.py``) ->
+  the hand-written CUDA histogram kernel (``ops/hist_cuda.py``) -> v3
+  model text.
+
+Entry points run on the card unless the caller passes ``device="cpu"``;
+without a card they raise instead of falling back.
 """
 
 from .device import resolve_device
@@ -18,12 +25,17 @@ from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "LightGBMError", "resolve_device", "__version__"]
+__all__ = ["Booster", "Dataset", "LightGBMError", "resolve_device", "train",
+           "__version__"]
 
 
 def __getattr__(name):
-    if name == "Booster":
-        from .basic import Booster
+    if name in ("Booster", "Dataset"):
+        from . import basic
 
-        return Booster
+        return getattr(basic, name)
+    if name == "train":
+        from .engine import train
+
+        return train
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -1,14 +1,25 @@
-"""The serving ``Booster``: a model loaded from v3 model text.
+"""``Dataset`` and ``Booster``: the lightgbm-compatible API of the port.
 
-Port of the prediction half of lightgbmv1_tpu/basic.py's ``Booster``
-(``predict`` :655-800): raw and converted scores, ``pred_leaf``,
-``start_iteration``/``num_iteration`` slicing and ``average_output``.
-``predict_method`` picks the walk with the JAX package's meaning:
-``auto``/``host`` is the exact host walk (numpy ``HostTree``, float64 in
-tree order), ``depthwise``/``pallas``/``fused`` go through the device
-``BatchPredictor`` (models/predict.py), cached per (slice, method).
-Training, ``update`` and the native C++ predictor come with later
-slices (ROADMAP queue 1).
+Port of lightgbmv1_tpu/basic.py for the ported paths:
+
+* ``Dataset`` (:107, ``construct`` :250): lazy binning of a dense numeric
+  matrix, a valid set sharing its reference's bins;
+* ``Booster(params, train_set=...)`` (:430) over the GBDT core
+  (models/gbdt.py) with ``update`` (:541), ``eval_valid``,
+  ``model_to_string`` (:947, through io/model_text.model_to_string) and
+  ``save_model`` (:1001);
+* the serving half (``predict`` :655-800) for a loaded model and for a
+  trained one: raw and converted scores, ``pred_leaf``,
+  ``start_iteration`` / ``num_iteration`` slicing and ``average_output``.
+  ``predict_method`` picks the walk with the JAX package's meaning:
+  ``auto``/``host`` is the exact host walk (numpy ``HostTree``, float64 in
+  tree order), ``depthwise``/``pallas``/``fused`` go through the device
+  ``BatchPredictor`` (models/predict.py), cached per (slice, method).
+
+Training and prediction run on ``device`` (default: the card; without one
+they raise — pass ``device="cpu"`` for the CPU).  Files, sparse input,
+categorical features, custom objectives and the native C++ predictor are
+not ported yet (ROADMAP queue 1).
 """
 
 from __future__ import annotations
@@ -17,9 +28,10 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .config import Config
+from .config import BREADTH, Config, not_ported
 from .device import DeviceLike, resolve_device
-from .io.model_text import LoadedModel, model_from_string
+from .io.dataset import BinnedDataset
+from .io.model_text import LoadedModel, model_from_string, model_to_string
 from .models.tree import HostTree
 from .objectives import convert_output
 
@@ -41,24 +53,97 @@ def _to_2d_numpy(data) -> np.ndarray:
     return arr
 
 
+def _objective_string(config: Config) -> str:
+    """The model file's objective line (binary: 'binary sigmoid:1')."""
+    return f"binary sigmoid:{config.sigmoid:g}"
+
+
+class Dataset:
+    """Training or valid data with lazy binning (reference basic.py:909).
+    ``data`` is a dense numeric (rows, features) array."""
+
+    def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
+                 weight=None, init_score=None, feature_name="auto",
+                 categorical_feature="auto",
+                 params: Optional[Dict[str, Any]] = None,
+                 free_raw_data: bool = False):
+        if isinstance(data, (str, bytes)) or hasattr(data, "__fspath__"):
+            raise not_ported("loading a Dataset from a file", BREADTH)
+        if type(data).__module__.split(".")[0] == "scipy":
+            raise not_ported("sparse Dataset input", BREADTH)
+        if categorical_feature not in ("auto", None, [], ()):
+            raise not_ported("categorical features", BREADTH)
+        self.params = dict(params or {})
+        self.reference = reference
+        self.free_raw_data = free_raw_data
+        self.feature_name = feature_name
+        self._binned: Optional[BinnedDataset] = None
+        self.data = _to_2d_numpy(data) if data is not None else None
+        self.label = (None if label is None
+                      else np.asarray(label, dtype=np.float64).ravel())
+        self.weight = (None if weight is None
+                       else np.asarray(weight, dtype=np.float64).ravel())
+        self.init_score = (None if init_score is None
+                           else np.asarray(init_score, dtype=np.float64))
+
+    def construct(self) -> "Dataset":
+        if self._binned is not None:
+            return self
+        if self.data is None:
+            raise ValueError("Cannot construct Dataset: raw data was freed")
+        ref = (self.reference.construct()._binned
+               if self.reference is not None else None)
+        names = (list(self.feature_name)
+                 if isinstance(self.feature_name, (list, tuple)) else None)
+        self._binned = BinnedDataset.from_numpy(
+            self.data, label=self.label, weight=self.weight,
+            init_score=self.init_score, config=Config.from_dict(self.params),
+            feature_names=names, reference=ref)
+        if self.free_raw_data:
+            self.data = None
+        return self
+
+    def num_data(self) -> int:
+        if self._binned is not None:
+            return self._binned.num_data
+        return 0 if self.data is None else self.data.shape[0]
+
+
 class Booster:
-    """A loaded model that predicts on ``device`` (default: the card;
-    raises when there is none — pass ``device="cpu"`` for the CPU)."""
+    """A model that trains and predicts on ``device`` (default: the card;
+    raises when there is none — pass ``device="cpu"`` for the CPU): from
+    ``train_set`` (training), or loaded from ``model_file`` /
+    ``model_str``."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
+                 train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None,
                  device: DeviceLike = None):
         self.params = dict(params or {})
         self.device = resolve_device(device)
         self._device_pred_cache: Dict[tuple, Any] = {}
+        self._gbdt = None
+        self._loaded: Optional[LoadedModel] = None
+        self._name_valid_sets: List[str] = []
+        if train_set is not None:
+            if not isinstance(train_set, Dataset):
+                raise TypeError("train_set must be a Dataset")
+            from .models.gbdt import GBDT
+
+            train_set.params = {**train_set.params, **self.params}
+            train_set.construct()
+            self.train_set = train_set
+            self.config = Config.from_dict(self.params)
+            self._gbdt = GBDT(self.config, train_set._binned, self.device)
+            return
         if model_file is not None:
             with open(model_file) as fh:
                 model_str = fh.read()
         if model_str is None:
-            raise TypeError("Need model_file or model_str (training comes "
-                            "with a later slice of the port)")
-        self._loaded: LoadedModel = model_from_string(model_str)
+            raise TypeError("Need at least one of train_set, model_file, "
+                            "model_str")
+        self._loaded = model_from_string(model_str)
         cfg = {"objective": self._loaded.objective}
         if self._loaded.num_class > 1:
             cfg["num_class"] = self._loaded.num_class
@@ -67,17 +152,104 @@ class Booster:
         self.config = Config.from_dict({**cfg, **self.params})
 
     # ------------------------------------------------------------------
+    def add_valid(self, data: Dataset, name: str) -> "Booster":
+        if self._gbdt is None:
+            raise RuntimeError("Cannot add validation data to a loaded "
+                               "model")
+        if data.reference is None and data._binned is None:
+            data.reference = self.train_set
+        data.construct()
+        self._gbdt.add_valid(data._binned, name)
+        self._name_valid_sets.append(name)
+        return self
+
+    def update(self, train_set: Optional[Dataset] = None,
+               fobj=None) -> bool:
+        """One boosting iteration; True when no further split is possible
+        (reference basic.py:2315)."""
+        if self._gbdt is None:
+            raise RuntimeError("Cannot update a loaded model")
+        if train_set is not None:
+            raise ValueError("Resetting train_set is not supported")
+        if fobj is not None:
+            raise not_ported("custom objectives (fobj)", BREADTH)
+        return self._gbdt.train_one_iter()
+
+    def eval_valid(self):
+        return self._gbdt.eval_valid()
+
+    def current_iteration(self) -> int:
+        if self._gbdt is not None:
+            return self._gbdt.iter
+        return self._loaded.num_iterations
+
+    # ------------------------------------------------------------------
     def num_trees(self) -> int:
-        return len(self._loaded.trees)
+        return len(self._all_trees())
 
     def num_model_per_iteration(self) -> int:
+        if self._gbdt is not None:
+            return self._gbdt.num_class
         return self._loaded.num_tree_per_iteration
 
     def num_feature(self) -> int:
+        if self._gbdt is not None:
+            return self._gbdt.train_set.num_features
         return self._loaded.max_feature_idx + 1
 
     def _all_trees(self) -> List[HostTree]:
+        if self._gbdt is not None:
+            return list(self._gbdt.materialize_host_trees())
         return list(self._loaded.trees)
+
+    def _average_output(self) -> bool:
+        return self._loaded is not None and self._loaded.average_output
+
+    # ------------------------------------------------------------------
+    def model_to_string(self, num_iteration: Optional[int] = None,
+                        start_iteration: int = 0) -> str:
+        """v3 model text (reference GBDT::SaveModelToString)."""
+        trees = self._all_trees()
+        K = self.num_model_per_iteration()
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = len(trees) // K
+        trees = trees[start_iteration * K:
+                      (start_iteration + num_iteration) * K]
+        if self._gbdt is not None:
+            cfg = self.config
+            ds = self._gbdt.train_set
+            return model_to_string(
+                trees, objective_string=_objective_string(cfg),
+                num_class=cfg.num_class, num_tree_per_iteration=K,
+                feature_names=list(ds.feature_names),
+                feature_infos=ds.feature_infos(),
+                parameters={
+                    "boosting": cfg.boosting, "objective": cfg.objective,
+                    "metric": ",".join(cfg.metric),
+                    "learning_rate": cfg.learning_rate,
+                    "num_leaves": cfg.num_leaves,
+                    "max_depth": cfg.max_depth,
+                    "min_data_in_leaf": cfg.min_data_in_leaf,
+                    "min_sum_hessian_in_leaf": cfg.min_sum_hessian_in_leaf,
+                    "bagging_fraction": cfg.bagging_fraction,
+                    "bagging_freq": cfg.bagging_freq,
+                    "feature_fraction": cfg.feature_fraction,
+                    "lambda_l1": cfg.lambda_l1, "lambda_l2": cfg.lambda_l2,
+                    "max_bin": cfg.max_bin, "seed": cfg.seed})
+        lm = self._loaded
+        return model_to_string(
+            trees, objective_string=lm.objective + "".join(
+                f" {k}:{v}" for k, v in lm.objective_params.items()),
+            num_class=lm.num_class, num_tree_per_iteration=K,
+            feature_names=lm.feature_names, feature_infos=lm.feature_infos,
+            average_output=lm.average_output, parameters=lm.parameters)
+
+    def save_model(self, filename, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> "Booster":
+        text = self.model_to_string(num_iteration, start_iteration)
+        with open(filename, "w") as fh:
+            fh.write(text)
+        return self
 
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
@@ -134,7 +306,7 @@ class Booster:
             for i, t in enumerate(trees):
                 raw[:, i % K] += t.predict(X)
         # the boost-from-average constant lives inside the leaf values
-        if self._loaded.average_output and trees:
+        if self._average_output() and trees:
             raw = raw / (len(trees) // K)
         if raw_score:
             return raw[:, 0] if K == 1 else raw

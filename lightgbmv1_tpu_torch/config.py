@@ -1,30 +1,173 @@
-"""Configuration of the serving slice.
+"""Configuration of the ported paths (serving and binary training).
 
-Port of the part of lightgbmv1_tpu/config.py that the serving path reads:
-the objective fields a loaded model sets, and the ``predict_*`` and
-``serve_*`` knobs with the JAX package's names, defaults and validation
-(``config.py:477-545``, ``:823-860``).  Unknown keys warn, as there.
-The training knobs come with the training slice.
+Port of the part of lightgbmv1_tpu/config.py that these paths read: the
+objective fields a loaded model sets, the training knobs of the binary
+leaf-wise path with the reference's aliases (``eta``, ``num_iterations``,
+...) and the ``predict_*`` and ``serve_*`` knobs, with the JAX package's
+names, defaults and validation (``config.py:27-184``, ``:221-366``,
+``:477-545``, ``:779-949``).  Unknown keys warn, as there.
+
+Knobs the JAX package has but the port does not yet run are known here
+only to refuse them: ``unported_reason`` names the ROADMAP item of every
+one a config sets away from its default, and the trainer raises
+``NotImplementedError`` with it instead of training something else.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from dataclasses import dataclass
-from typing import Any, Dict
+from dataclasses import dataclass, field
+from typing import Any, Dict, List, Optional
 
-from .utils.log import log_warning
+from .utils.log import log_warning, set_verbosity
 
 _BOOL_TRUE = {"true", "1", "yes", "on", "+", "t", "y"}
 _BOOL_FALSE = {"false", "0", "no", "off", "-", "f", "n"}
 
+# the reference's alias table for the knobs below (JAX config.py:27-184)
+_ALIASES: Dict[str, str] = {
+    "objective_type": "objective", "app": "objective",
+    "application": "objective", "boosting_type": "boosting",
+    "boost": "boosting",
+    "num_trees": "num_iterations", "num_iteration": "num_iterations",
+    "num_tree": "num_iterations", "num_round": "num_iterations",
+    "num_rounds": "num_iterations", "num_boost_round": "num_iterations",
+    "n_iter": "num_iterations", "n_estimators": "num_iterations",
+    "shrinkage_rate": "learning_rate", "eta": "learning_rate",
+    "num_leaf": "num_leaves", "max_leaves": "num_leaves",
+    "max_leaf": "num_leaves",
+    "tree": "tree_learner", "tree_type": "tree_learner",
+    "tree_learner_type": "tree_learner",
+    "random_seed": "seed", "random_state": "seed",
+    "min_data_per_leaf": "min_data_in_leaf", "min_data": "min_data_in_leaf",
+    "min_child_samples": "min_data_in_leaf",
+    "min_sum_hessian_per_leaf": "min_sum_hessian_in_leaf",
+    "min_sum_hessian": "min_sum_hessian_in_leaf",
+    "min_hessian": "min_sum_hessian_in_leaf",
+    "min_child_weight": "min_sum_hessian_in_leaf",
+    "sub_row": "bagging_fraction", "subsample": "bagging_fraction",
+    "bagging": "bagging_fraction",
+    "pos_sub_row": "pos_bagging_fraction",
+    "pos_subsample": "pos_bagging_fraction",
+    "pos_bagging": "pos_bagging_fraction",
+    "neg_sub_row": "neg_bagging_fraction",
+    "neg_subsample": "neg_bagging_fraction",
+    "neg_bagging": "neg_bagging_fraction",
+    "subsample_freq": "bagging_freq",
+    "sub_feature": "feature_fraction", "colsample_bytree": "feature_fraction",
+    "sub_feature_bynode": "feature_fraction_bynode",
+    "colsample_bynode": "feature_fraction_bynode",
+    "early_stopping_rounds": "early_stopping_round",
+    "early_stopping": "early_stopping_round",
+    "n_iter_no_change": "early_stopping_round",
+    "max_tree_output": "max_delta_step", "max_leaf_output": "max_delta_step",
+    "reg_alpha": "lambda_l1", "l1_regularization": "lambda_l1",
+    "reg_lambda": "lambda_l2", "lambda": "lambda_l2",
+    "l2_regularization": "lambda_l2", "min_split_gain": "min_gain_to_split",
+    "mc": "monotone_constraints",
+    "monotone_constraint": "monotone_constraints",
+    "verbose": "verbosity", "max_bins": "max_bin",
+    "subsample_for_bin": "bin_construct_sample_cnt",
+    "data_seed": "data_random_seed",
+    "is_enable_bundle": "enable_bundle", "bundle": "enable_bundle",
+    "categorical_column": "categorical_feature",
+    "cat_column": "categorical_feature",
+    "categorical_columns": "categorical_feature",
+    "cat_feature": "categorical_feature",
+    "cat_features": "categorical_feature",
+    "num_classes": "num_class", "unbalance": "is_unbalance",
+    "unbalanced_sets": "is_unbalance", "sigmoid_": "sigmoid",
+    "metrics": "metric", "metric_types": "metric",
+}
+
+# the JAX package's objective aliases (config.py:186-210)
+_OBJECTIVE_ALIASES: Dict[str, str] = {
+    "regression_l2": "regression", "l2": "regression",
+    "mean_squared_error": "regression", "mse": "regression",
+    "l2_root": "regression", "root_mean_squared_error": "regression",
+    "rmse": "regression", "l1": "regression_l1",
+    "mean_absolute_error": "regression_l1", "mae": "regression_l1",
+    "mean_absolute_percentage_error": "mape",
+    "multiclass_ova": "multiclassova", "ova": "multiclassova",
+    "ovr": "multiclassova", "xentropy": "cross_entropy",
+    "xentlambda": "cross_entropy_lambda",
+    "mean_average_precision": "map", "xendcg": "rank_xendcg",
+    "xe_ndcg": "rank_xendcg", "xe_ndcg_mart": "rank_xendcg",
+    "xendcg_mart": "rank_xendcg",
+}
+
+
+def canonical_objective(name: str) -> str:
+    return _OBJECTIVE_ALIASES.get(name, name)
+
 
 @dataclass
 class Config:
-    # -- the objective of a loaded model ---------------------------------
+    # -- core -------------------------------------------------------------
     objective: str = "regression"
+    boosting: str = "gbdt"
+    num_iterations: int = 100
+    learning_rate: float = 0.1
+    num_leaves: int = 31
+    tree_learner: str = "serial"
+    seed: int = 0
+    # -- learning control -------------------------------------------------
+    max_depth: int = -1
+    min_data_in_leaf: int = 20
+    min_sum_hessian_in_leaf: float = 1e-3
+    lambda_l1: float = 0.0
+    lambda_l2: float = 0.0
+    min_gain_to_split: float = 0.0
+    verbosity: int = 1
+    # -- knobs of the JAX package the port refuses (see unported_reason) --
+    bagging_fraction: float = 1.0
+    pos_bagging_fraction: float = 1.0
+    neg_bagging_fraction: float = 1.0
+    bagging_freq: int = 0
+    feature_fraction: float = 1.0
+    feature_fraction_bynode: float = 1.0
+    extra_trees: bool = False
+    early_stopping_round: int = 0
+    max_delta_step: float = 0.0
+    path_smooth: float = 0.0
+    monotone_constraints: List[int] = field(default_factory=list)
+    interaction_constraints: str = ""
+    forcedsplits_filename: str = ""
+    cegb_penalty_split: float = 0.0
+    linear_tree: bool = False
+    # -- tree growth and histograms (JAX config.py:306-366) ---------------
+    tree_growth: str = "leafwise"
+    # 0 = auto (num_leaves // 4; the sequential grower below 8 leaves,
+    # not ported); >= 1 forces the wave grower at that wave size
+    leafwise_wave_size: int = 0
+    # auto | scatter | pallas (onehot, fused and bench are not ported):
+    # auto is the CUDA kernel K1 for a CUDA tensor, the plain scatter for
+    # a CPU one (ops/histogram.default_hist_method)
+    hist_method: str = "auto"
+    bin_layout: str = "auto"         # auto | u8 (packed4 not ported)
+    hist_dtype: str = "bf16x2"       # f32 | bf16 | bf16x2
+    # sustained (largest-bucket) wave rounds: "" drops bf16x2 to bf16
+    # there; "auto" is bf16x2 off the TPU; else the named dtype
+    hist_dtype_deep: str = ""
+    # -- dataset and binning (JAX config.py:686-733) ----------------------
+    max_bin: int = 255
+    min_data_in_bin: int = 3
+    bin_construct_sample_cnt: int = 200000
+    feature_pre_filter: bool = True
+    data_random_seed: int = 1
+    enable_bundle: bool = True
+    max_conflict_rate: float = 0.0
+    use_missing: bool = True
+    zero_as_missing: bool = False
+    categorical_feature: str = ""
+    # -- objective --------------------------------------------------------
     num_class: int = 1
+    is_unbalance: bool = False
+    scale_pos_weight: float = 1.0
     sigmoid: float = 1.0
+    boost_from_average: bool = True
+    # -- metric -----------------------------------------------------------
+    metric: List[str] = field(default_factory=list)
     # -- serving engine (models/predict.py) -------------------------------
     # "auto"/"host": the exact host walk (numpy HostTree); "depthwise":
     # the depth-stepped all-trees walk in plain torch; "pallas": leaf ids
@@ -57,6 +200,30 @@ class Config:
     registry_keep_versions: int = 4
 
     def __post_init__(self):
+        set_verbosity(self.verbosity)
+        self.objective = canonical_objective(self.objective)
+        if self.objective in ("multiclass", "multiclassova") \
+                and self.num_class <= 1:
+            raise ValueError("num_class must be >1 for multiclass objectives")
+        if self.hist_method not in (
+                "auto", "bench", "scatter", "onehot", "pallas", "fused"):
+            raise ValueError(
+                f"hist_method={self.hist_method!r}: expected auto | bench "
+                "| scatter | onehot | pallas | fused")
+        if self.bin_layout not in ("auto", "u8", "packed4"):
+            raise ValueError(f"bin_layout={self.bin_layout!r}: expected "
+                             "auto | u8 | packed4")
+        if self.hist_dtype not in ("f32", "bf16", "bf16x2", "int8"):
+            raise ValueError(f"hist_dtype={self.hist_dtype!r}: expected "
+                             "f32 | bf16 | bf16x2 | int8")
+        if self.hist_dtype_deep not in (
+                "", "auto", "f32", "bf16", "bf16x2", "int8", "int8sr"):
+            raise ValueError(
+                f"hist_dtype_deep={self.hist_dtype_deep!r}: expected one of "
+                "auto | f32 | bf16 | bf16x2 | int8 | int8sr (or empty for "
+                "the bf16-drop policy)")
+        if self.num_leaves < 2:
+            raise ValueError("num_leaves must be >= 2")
         if self.predict_method not in (
                 "auto", "native", "host", "depthwise", "pallas", "fused",
                 "scan"):
@@ -90,19 +257,119 @@ class Config:
 
     @classmethod
     def from_dict(cls, params: Dict[str, Any]) -> "Config":
-        """Defaults, then ``params`` coerced to each field's type; unknown
-        keys warn and are skipped (reference ``Config::Set``)."""
+        """Defaults, then ``params`` (aliases resolved, an explicit name
+        beating its alias) coerced to each field's type; unknown keys warn
+        and are skipped (reference ``Config::Set``)."""
+        resolved: Dict[str, Any] = {}
+        for key, value in params.items():
+            name = _ALIASES.get(key, key)
+            if name in resolved and key != name:
+                continue
+            resolved[name] = value
         fields = {f.name: f for f in dataclasses.fields(cls)}
         kwargs = {}
-        for name, value in params.items():
+        for name, value in resolved.items():
             if name not in fields:
                 log_warning(f"Unknown parameter: {name}")
                 continue
-            kwargs[name] = _coerce(value, fields[name].default, name)
+            kwargs[name] = _coerce(value, fields[name], name)
         return cls(**kwargs)
 
+    @property
+    def num_tree_per_iteration(self) -> int:
+        if self.objective in ("multiclass", "multiclassova"):
+            return self.num_class
+        return 1
 
-def _coerce(value: Any, default: Any, name: str) -> Any:
+
+# ROADMAP queue 1 items that port what the training slice refuses
+GROWERS = "sequential and level-wise growers"
+SAMPLING = "bagging and feature fraction"
+CALLBACKS = "callbacks and early stopping"
+PACKED4 = "packed4 bins"
+INT8 = "int8 and int8sr histograms"
+FUSED = "fused training: histogram methods onehot, bench, fused (K2, K3, K6)"
+BREADTH = "breadth of objectives and boosting"
+PARALLEL = "parallel learners"
+
+# knob -> (is it set away from its default?, what it is, ROADMAP item)
+_UNPORTED = (
+    ("objective", lambda c: c.objective != "binary", "objective={v}",
+     BREADTH),
+    ("boosting", lambda c: c.boosting != "gbdt",
+     "boosting={v} (GOSS, DART, RF)", BREADTH),
+    ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
+     "tree_learner={v}", PARALLEL),
+    ("tree_growth", lambda c: c.tree_growth != "leafwise",
+     "tree_growth={v}", GROWERS),
+    ("bagging_freq", lambda c: (c.bagging_freq > 0 and (
+        c.bagging_fraction < 1.0 or c.pos_bagging_fraction < 1.0
+        or c.neg_bagging_fraction < 1.0)), "bagging", SAMPLING),
+    ("feature_fraction", lambda c: (c.feature_fraction < 1.0
+                                    or c.feature_fraction_bynode < 1.0),
+     "feature_fraction < 1", SAMPLING),
+    ("extra_trees", lambda c: c.extra_trees, "extra_trees", SAMPLING),
+    ("early_stopping_round", lambda c: c.early_stopping_round > 0,
+     "early stopping", CALLBACKS),
+    ("max_delta_step", lambda c: c.max_delta_step > 0, "max_delta_step",
+     BREADTH),
+    ("path_smooth", lambda c: c.path_smooth > 0, "path_smooth", BREADTH),
+    ("monotone_constraints", lambda c: any(c.monotone_constraints),
+     "monotone constraints", BREADTH),
+    ("interaction_constraints", lambda c: bool(c.interaction_constraints),
+     "interaction constraints", BREADTH),
+    ("forcedsplits_filename", lambda c: bool(c.forcedsplits_filename),
+     "forced splits", BREADTH),
+    ("cegb_penalty_split", lambda c: c.cegb_penalty_split > 0, "CEGB",
+     BREADTH),
+    ("linear_tree", lambda c: c.linear_tree, "linear_tree", BREADTH),
+    ("categorical_feature", lambda c: bool(c.categorical_feature),
+     "categorical features", BREADTH),
+    ("hist_method", lambda c: c.hist_method in ("onehot", "bench",
+                                                "fused"),
+     "hist_method={v}", FUSED),
+    ("bin_layout", lambda c: c.bin_layout == "packed4",
+     "bin_layout=packed4", PACKED4),
+    ("hist_dtype", lambda c: c.hist_dtype == "int8", "hist_dtype=int8",
+     INT8),
+    ("hist_dtype_deep", lambda c: c.hist_dtype_deep in ("int8", "int8sr"),
+     "hist_dtype_deep={v}", INT8),
+)
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    """The error every refused training configuration raises."""
+    return NotImplementedError(
+        f"{what} is not ported to lightgbmv1_tpu_torch yet: ROADMAP "
+        f"queue 1, {item}")
+
+
+def unported_reason(config: Config) -> Optional[str]:
+    """``None`` when every knob the config sets is one the port trains
+    with; else one line naming the first knob that is not and the ROADMAP
+    item that will port it."""
+    for name, is_set, what, item in _UNPORTED:
+        if is_set(config):
+            return str(not_ported(what.format(v=getattr(config, name)),
+                                  item))
+    return None
+
+
+def _coerce(value: Any, f: dataclasses.Field, name: str) -> Any:
+    if f.default is dataclasses.MISSING:          # a list field
+        if isinstance(value, (list, tuple)):
+            items = list(value)
+        elif isinstance(value, str):
+            items = [s for s in value.replace(",", " ").split() if s]
+        else:
+            items = [value]
+        kind = str(f.type)
+        if "int" in kind:
+            return [int(float(x)) for x in items]
+        if "float" in kind:
+            return [float(x) for x in items]
+        return [str(x) for x in items]
+    default = f.default
     if isinstance(default, bool):
         if isinstance(value, str):
             lv = value.strip().lower()
@@ -116,4 +383,6 @@ def _coerce(value: Any, default: Any, name: str) -> Any:
         return int(float(value))
     if isinstance(default, float):
         return float(value)
+    if name == "categorical_feature" and isinstance(value, (list, tuple)):
+        return ",".join(str(x) for x in value)
     return str(value)

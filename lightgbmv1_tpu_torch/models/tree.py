@@ -1,11 +1,12 @@
 """Host trees and the stacked-table helpers of the serving path.
 
-Port of the host half of lightgbmv1_tpu/models/tree.py: the numpy
-``HostTree`` (the object model text is parsed into and written from, and
-the exact f64 oracle every device walk is held to), the structural
-validators, and the two stacked-table helpers the serving walks use
-(``leaves_to_scores``, ``pad_tree_axis``) in torch.  The training-side
-``TreeArrays`` and its walks come with the training slice.
+Port of lightgbmv1_tpu/models/tree.py: the numpy ``HostTree`` (the
+object model text is parsed into and written from, and the exact f64
+oracle every device walk is held to), the structural validators, the two
+stacked-table helpers the serving walks use (``leaves_to_scores``,
+``pad_tree_axis``), and the training side's ``TreeArrays`` (:33),
+``empty_tree`` (:106) and ``leaf_lookup`` (:65) in torch, with
+``host_tree_from_arrays`` from a grown tree to its ``HostTree``.
 
 Node encoding follows the reference exactly so the v3 model text
 round-trips: internal nodes are numbered in split order;
@@ -15,12 +16,74 @@ round-trips: internal nodes are numbered in split order;
 
 from __future__ import annotations
 
-from typing import Any, Optional
+from typing import Any, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from ..io.binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
+
+
+class TreeArrays(NamedTuple):
+    """One grown tree on the training device, arrays padded to
+    ``max_leaves`` (nodes: L - 1).  Thresholds are bin ids here; the real
+    thresholds are filled from the bin mappers on the host."""
+
+    num_leaves: torch.Tensor       # () int32 — actual leaves
+    split_feature: torch.Tensor    # (L-1,) int32
+    threshold_bin: torch.Tensor    # (L-1,) int32
+    threshold: torch.Tensor        # (L-1,) float32
+    default_left: torch.Tensor     # (L-1,) bool
+    missing_type: torch.Tensor     # (L-1,) int32 — of the split feature
+    left_child: torch.Tensor       # (L-1,) int32 (>= 0 node, < 0 ~leaf)
+    right_child: torch.Tensor      # (L-1,) int32
+    split_gain: torch.Tensor       # (L-1,) float32
+    internal_value: torch.Tensor   # (L-1,) float32
+    internal_weight: torch.Tensor  # (L-1,) float32
+    internal_count: torch.Tensor   # (L-1,) float32
+    leaf_value: torch.Tensor       # (L,) float32
+    leaf_weight: torch.Tensor      # (L,) float32
+    leaf_count: torch.Tensor       # (L,) float32
+    leaf_parent: torch.Tensor      # (L,) int32
+
+
+def empty_tree(max_leaves: int, device=None) -> TreeArrays:
+    """A one-leaf tree with room for ``max_leaves`` leaves."""
+    L = max_leaves
+    L1 = max(L - 1, 1)
+
+    def full(n, v, dtype):
+        return torch.full((n,), v, dtype=dtype, device=device)
+
+    i32, f32 = torch.int32, torch.float32
+    return TreeArrays(
+        num_leaves=torch.tensor(1, dtype=i32, device=device),
+        split_feature=full(L1, 0, i32), threshold_bin=full(L1, 0, i32),
+        threshold=full(L1, 0.0, f32),
+        default_left=full(L1, False, torch.bool),
+        missing_type=full(L1, 0, i32), left_child=full(L1, -1, i32),
+        right_child=full(L1, -2, i32), split_gain=full(L1, 0.0, f32),
+        internal_value=full(L1, 0.0, f32),
+        internal_weight=full(L1, 0.0, f32),
+        internal_count=full(L1, 0.0, f32), leaf_value=full(L, 0.0, f32),
+        leaf_weight=full(L, 0.0, f32), leaf_count=full(L, 0.0, f32),
+        leaf_parent=full(L, -1, i32))
+
+
+def leaf_lookup(table: torch.Tensor, leaf_id: torch.Tensor) -> torch.Tensor:
+    """``table[leaf_id]``: each row's leaf value.  A plain gather on the
+    card; the JAX package's broadcast-compare form is a TPU workaround
+    with equal values.  Every id must be in ``[0, len(table))``."""
+    return table[leaf_id.long()]
+
+
+def host_tree_from_arrays(arrays: TreeArrays,
+                          shrinkage: float = 1.0) -> "HostTree":
+    """A grown tree (on any device) -> its numpy ``HostTree``, cut to its
+    node and leaf counts (JAX ``HostTree(arrays)``)."""
+    fields = {k: getattr(arrays, k).detach().cpu().numpy()
+              for k in HostTree.FIELDS}
+    return HostTree(int(arrays.num_leaves), shrinkage=shrinkage, **fields)
 
 
 def leaves_to_scores(leaf_value: torch.Tensor, leaf: torch.Tensor,
@@ -183,6 +246,16 @@ class HostTree:
         self.cat_sets = (list(cat_sets)[:n_nodes] if cat_sets is not None
                          else [None] * n_nodes)
         self.shrinkage = float(shrinkage)
+
+    def add_bias(self, val: float) -> None:
+        """Fold a constant score into the tree (reference Tree::AddBias,
+        tree.h:198-211: embeds the boost-from-average score in the saved
+        model; forces shrinkage to 1)."""
+        if val == 0.0:
+            return
+        self.leaf_value = self.leaf_value + val
+        self.internal_value = self.internal_value + val
+        self.shrinkage = 1.0
 
     def cat_bins_of(self, node: int) -> np.ndarray:
         """Bins in node's left set, decoded from the bin-space bitset."""

@@ -1,0 +1,94 @@
+"""Tree-learner construction: the serial learner over the wave grower.
+
+Port of lightgbmv1_tpu/parallel/trainer.py ``resolve_deep_dtype`` (:269),
+``select_bin_layout`` (:286) and the serial branch of ``build_trainer``
+(:334; the wave branch :629-731): resolve the histogram method and the
+two precisions, and wire ``hist_wave`` into the wave grower, with the
+``deep`` precision on the sustained rounds of a big wave.
+
+What the JAX package routes elsewhere raises here, naming its ROADMAP
+item: the sequential grower (auto ``leafwise_wave_size`` at
+``num_leaves <= 7``; an explicit ``leafwise_wave_size >= 1`` forces the
+wave grower, as there), the level-wise grower, ``packed4`` bins (which
+``auto`` picks on the card at ``max_bin <= 15``), the int8 / int8sr
+precisions and the fused round kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+
+from ..config import (FUSED, GROWERS, INT8, PACKED4, Config, not_ported)
+from ..models.grower_wave import auto_wave_size, make_wave_grower
+from ..ops.histogram import default_hist_method, hist_wave
+from ..ops.split import FeatureMeta, SplitParams
+from ..utils.log import log_warning
+
+
+def resolve_deep_dtype(requested: str, precision: str, backend: str) -> str:
+    """``hist_dtype_deep``: ``"auto"`` is int8sr on a TPU and bf16x2
+    elsewhere (so bf16x2 on the card); ``""`` drops bf16x2 to single-pass
+    bf16 on sustained rounds and keeps any other ``hist_dtype``."""
+    if requested == "auto":
+        requested = "int8sr" if backend == "tpu" else "bf16x2"
+    return requested or ("bf16" if precision == "bf16x2" else precision)
+
+
+def select_bin_layout(config: Config, *, num_total_bin: int,
+                      device: torch.device) -> str:
+    """``bin_layout``: ``u8``, or ``packed4`` where the JAX package would
+    pack (``auto`` with every feature in 4 bits on the kernel's method);
+    packed bins are not ported, so that case raises."""
+    if config.bin_layout == "u8":
+        return "u8"
+    method = default_hist_method(config.hist_method, device)
+    if config.bin_layout == "packed4" or (num_total_bin <= 16
+                                          and method == "pallas"):
+        raise not_ported(f"bin_layout=packed4 (max {num_total_bin} bins a "
+                         "feature; pass bin_layout=u8 to train on byte "
+                         "bins)", PACKED4)
+    return "u8"
+
+
+def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
+                  num_bins: int, device: torch.device) -> Callable:
+    """The serial learner's ``grow(binned, g3, base_mask, valids)``
+    for the configured growth (models/grower_wave.make_wave_grower)."""
+    method = default_hist_method(config.hist_method, device)
+    precision = config.hist_dtype
+    if precision not in ("f32", "bf16", "bf16x2"):
+        raise not_ported(f"hist_dtype={precision}", INT8)
+    deep_precision = resolve_deep_dtype(config.hist_dtype_deep, precision,
+                                        torch.device(device).type)
+    if deep_precision in ("int8", "int8sr"):
+        raise not_ported(f"hist_dtype_deep={deep_precision}", INT8)
+    if config.hist_method == "fused":
+        raise not_ported("hist_method=fused (K2, K3, K6)", FUSED)
+
+    if config.tree_growth != "leafwise":
+        raise not_ported(f"tree_growth={config.tree_growth}", GROWERS)
+    wave_size = config.leafwise_wave_size
+    if wave_size == 0:
+        # auto: num_leaves // 4; K = 1 (num_leaves <= 7) routes the JAX
+        # package to its sequential grower
+        wave_size = auto_wave_size(config.num_leaves)
+        if wave_size <= 1:
+            raise not_ported(
+                f"the sequential grower (auto leafwise_wave_size at "
+                f"num_leaves={config.num_leaves} <= 7; set "
+                "leafwise_wave_size >= 1 for the wave grower)", GROWERS)
+    if wave_size > 128:
+        log_warning(f"leafwise_wave_size={wave_size} capped to 128")
+        wave_size = 128
+
+    def local_wave(binned, g3, label, nslots, deep=False):
+        return hist_wave(binned, g3, label, nslots, num_bins, method=method,
+                         precision=deep_precision if deep else precision)
+
+    return make_wave_grower(num_leaves=config.num_leaves, num_bins=num_bins,
+                            meta=meta, params=params,
+                            max_depth=config.max_depth, wave_size=wave_size,
+                            hist_wave_fn=local_wave)
+

@@ -37,6 +37,11 @@ def test_runtime_never_imports_jax():
         "with Server(b, ServeConfig(predictor_kwargs={'method': 'fused'}),\n"
         "            device='cpu') as s:\n"
         "    assert s.submit(X[:3]).version == 'v1'\n"
+        "from lightgbmv1_tpu_torch import Dataset, train\n"
+        "y = (X[:, 0] > 0).astype(float)\n"
+        "t = train({'objective': 'binary', 'num_leaves': 8, 'verbosity': -1},\n"
+        "          Dataset(X, label=y), 2, device='cpu')\n"
+        "assert t.num_trees() == 2\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in\n"
         "       ('jax', 'jaxlib', 'lightgbmv1_tpu')]\n"
         "assert not bad, bad\n"
@@ -65,12 +70,23 @@ def test_sources_import_neither_jax_nor_the_jax_package():
 
 
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
-    from lightgbmv1_tpu_torch import Booster, resolve_device
+    import numpy as np
+
+    from lightgbmv1_tpu_torch import Booster, Dataset, resolve_device, train
     from lightgbmv1_tpu_torch.serve import Server
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Booster(model_file=GOLDEN)
+    rng = np.random.RandomState(0)
+    X, y = rng.randn(200, 4), (rng.rand(200) < 0.5).astype(float)
+    params = {"objective": "binary", "num_leaves": 8, "verbosity": -1}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(params, Dataset(X, label=y), 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Booster(params, train_set=Dataset(X, label=y))
+    assert train(params, Dataset(X, label=y), 2, device="cpu").num_trees() \
+        == 2
     with pytest.raises(RuntimeError, match="is_available"):
         Server()
     with pytest.raises(RuntimeError):
