@@ -68,8 +68,32 @@ Phases (any failure exits non-zero with no ``ok`` line):
               inputs, recorded in phase 10) beside its plain version, one
               ``index_add_`` and its bound.
 13. profile — five headline iterations under torch.profiler: device time
-              by kernel and the device's busy share; then the
-              ``kernels`` line (K1, K4, K5) is printed.
+              by kernel and the device's busy share.
+14. K2/K3   — the fused round K2 and the valid routing K3 against their
+              plain versions on the card, on phase 8's bins with signed,
+              varied rows: S in {4, 16, 63} in subtraction mode and S = 63
+              pool-free, each in bf16x2 / bf16 / f32.  New leaf ids,
+              labels and K3 exact (K3 also equal to K2's own new leaf
+              ids); hsmall bitwise equal to K1 on the emitted label; the
+              residue against the plain scan run on the CPU on the same
+              histograms (bitwise equality reported) and against the
+              plain version on the card: picks identical outside ties,
+              values within four tie bands; two launches bitwise equal.
+15. fused   — the fused training main path, launch counts reset first:
+              ``train`` at the headline configuration with
+              ``hist_method=fused`` for ``--iters`` iterations with the
+              valid set.  K2 launched once a non-root round (its launches
+              by bucket add up), K3 once a round, K1 once a tree, no plain
+              version called; s/iter, M row-trees/s, AUC > 0.90 and within
+              2e-3 of phase 10's; the saved model served through K4.  K2
+              held to its plain version on the path's last inputs.
+16. parity  — phase 11's configuration on the card, ``hist_method=fused``
+              against ``pallas``: the same split feature and threshold at
+              every node of every tree; the largest leaf-value difference.
+17. timing  — K2 at each slot bucket and K3 on the main path's last
+              inputs, beside their plain versions and bounds.
+18. profile — five fused headline iterations, as phase 13; then the
+              ``kernels`` line (K1, K2, K3, K4, K5) is printed.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -95,7 +119,13 @@ from lightgbmv1_tpu_torch.models import grower_wave
 from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import HostTree
 from lightgbmv1_tpu_torch.ops import _build, hist_cuda as hc
+from lightgbmv1_tpu_torch.ops import fused_cuda as fc
 from lightgbmv1_tpu_torch.ops import predict_cuda as pc
+from lightgbmv1_tpu_torch.ops import wave_fused as wf
+from lightgbmv1_tpu_torch.ops.split import (TIE_RTOL, SplitParams,
+                                            gain_shift, make_feature_meta,
+                                            scan_direction_gains,
+                                            scan_left_sums)
 from lightgbmv1_tpu_torch.serve import ServeConfig, Server
 
 F = 28                      # features of the bench headline model
@@ -106,11 +136,13 @@ F32_OPS_PER_S = 67e12       # H100 SXM f32 outside the tensor cores
 GATHERS_PER_S = 132 * 32 * 1.98e9
 SRC = "lightgbmv1_tpu_torch/csrc/predict_walk.cu"
 HIST_SRC = "lightgbmv1_tpu_torch/csrc/hist.cu"
+FUSED_SRC = "lightgbmv1_tpu_torch/csrc/wave_fused.cu"
 # the bench headline training configuration (root PERF.md "Headline"):
 # binary, 255 leaves (waves of 63, slot buckets {4, 16, 63}), max_bin 63
 # (a 64-bin axis), every other knob at its default
 TRAIN_PARAMS = {"objective": "binary", "num_leaves": 255, "max_bin": 63,
                 "metric": "auc,binary_logloss", "verbosity": -1}
+FUSED_PARAMS = dict(TRAIN_PARAMS, hist_method="fused")
 VALID_ROWS = 131072
 
 
@@ -697,11 +729,20 @@ def phase_train(ds, dv, Xv, iters, dev):
         f"{out['valid_logloss']:.5f}")
     check(trees == iters, f"{trees} trees for {iters} iterations")
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
+    out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
+                                              "trained_model.txt")
+    return out, rec
+
+
+def serve_trained(booster, Xv, dev, name) -> float:
+    """The trained model's text, loaded by ``Booster(model_file=...)``,
+    serves the valid rows through K4 within the serving tolerance of the
+    trainer's own valid scores; returns the largest difference."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    path = os.path.join(_build.BUILD_DIR, "trained_model.txt")
+    path = os.path.join(_build.BUILD_DIR, name)
     booster.save_model(path)
     served = Booster(model_file=path, **_on(dev))
-    check(served.num_trees() == trees, "saved model lost trees")
+    check(served.num_trees() == booster.num_trees(), "saved model lost trees")
     raw = served.predict(Xv, predict_method="fused", raw_score=True)
     want = booster._gbdt._valid_scores[0].score[:, 0].cpu().numpy()
     tol = raw_tol(served._all_trees())
@@ -709,25 +750,32 @@ def phase_train(ds, dv, Xv, iters, dev):
     log(f"  saved model served through K4: max_abs_err vs the trainer's "
         f"valid scores {e:.3e} (tol {tol:.3e})")
     check(e <= tol, f"served model differs from the trainer by {e}")
-    out["served_max_abs_err"] = e
-    return out, rec
+    return e
+
+
+PARITY_PARAMS = dict(TRAIN_PARAMS, num_leaves=63, leafwise_wave_size=32,
+                     hist_dtype="f32", hist_method="pallas", metric="auc")
 
 
 def phase_parity(seed, dev, n=65536) -> dict:
     """f32 trees on the card and on the CPU must split identically."""
+    return same_splits(seed, n, {"card": (PARITY_PARAMS, dev),
+                                 "CPU": (PARITY_PARAMS, "cpu")})
+
+
+def same_splits(seed, n, runs) -> dict:
+    """Two 5-iteration f32 trainings of ``n`` rows (``runs``: two labels
+    -> (params, device)) must split identically at every node."""
     X, y = make_data(n, seed + 7)
-    params = dict(TRAIN_PARAMS, num_leaves=63, leafwise_wave_size=32,
-                  hist_dtype="f32", hist_method="pallas", metric="auc")
     saved = grower_wave._BUCKET_MIN_N
     grower_wave._BUCKET_MIN_N = 1
     try:
-        boosters = {d: train(params, Dataset(X, label=y), 5, device=d)
-                    for d in (dev, "cpu")}
+        boosters = [train(p, Dataset(X, label=y), 5, device=d)
+                    for p, d in runs.values()]
     finally:
         grower_wave._BUCKET_MIN_N = saved
     nodes, leaf_err = 0, 0.0
-    for tg, tc in zip(boosters[dev]._all_trees(),
-                      boosters["cpu"]._all_trees()):
+    for tg, tc in zip(boosters[0]._all_trees(), boosters[1]._all_trees()):
         n = tc.num_leaves - 1
         check(tg.num_leaves == tc.num_leaves, "parity: leaf counts differ")
         check(np.array_equal(tg.split_feature, tc.split_feature)
@@ -736,8 +784,9 @@ def phase_parity(seed, dev, n=65536) -> dict:
         nodes += n
         leaf_err = max(leaf_err, float(np.abs(tg.leaf_value
                                               - tc.leaf_value).max()))
-    log(f"  f32 trees, card vs CPU: {nodes} nodes of 5 trees identical "
-        f"(features, threshold bins); max leaf-value diff {leaf_err:.3e}")
+    log(f"  f32 trees, {' vs '.join(runs)}: {nodes} nodes of 5 trees "
+        f"identical (features, threshold bins); max leaf-value diff "
+        f"{leaf_err:.3e}")
     return {"nodes": nodes, "max_leaf_diff": leaf_err}
 
 
@@ -793,13 +842,13 @@ def phase_hist_timing(rec: HistRecorder, trained: dict, checks: list
             "library_ms": top["library_ms"], "at": f"L={top['L']} "
             f"{top['precision']}", "buckets": buckets, "checks": checks}
 
-def phase_profile(ds, iters, dev) -> dict:
+def phase_profile(ds, iters, dev, params=TRAIN_PARAMS) -> dict:
     """Where an iteration's time goes: ``iters`` headline iterations
     under torch.profiler (after one warm-up), device time by kernel and
     the device's busy share of the wall."""
     from torch.profiler import ProfilerActivity, profile
 
-    booster = Booster(TRAIN_PARAMS, train_set=ds, **_on(dev))
+    booster = Booster(params, train_set=ds, **_on(dev))
     booster.update()
     _sync(dev)
     with profile(activities=[ProfilerActivity.CPU,
@@ -837,6 +886,370 @@ def phase_profile(ds, iters, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the fused round (K2) and the valid routing (K3)
+# ---------------------------------------------------------------------------
+
+
+def round_inputs(binned, meta, S, n_live, sub, prec, rng):
+    """One wave round's inputs at ``S`` slots (``n_live`` splits, the rest
+    dead): rows spread over ``2S + 7`` current leaves, random splits on
+    the dataset's own features (real missing types), signed varied rows,
+    the children's exact sums and, in subtraction mode, the parents'
+    histograms.  Returns the keyword arguments of ``fc.fused_round``."""
+    F, N = binned.shape
+    dev = binned.device
+    B = 64
+    n_cur = 2 * S + 7
+    L = n_cur + S                     # dead slots carry leaf L: no row's
+
+    def t(a, dt=torch.int32):
+        return torch.as_tensor(a, dtype=dt, device=dev)
+
+    oleaf = t(rng.randint(0, n_cur, N))
+    nb = meta.num_bins.cpu().numpy()
+    feats = rng.randint(0, F, n_live)
+    thrs = np.array([rng.randint(0, max(int(nb[f]) - 1, 1)) for f in feats])
+
+    def pad(v, fill):
+        return np.concatenate([v, np.full(S - n_live, fill, v.dtype)])
+
+    feats_s = t(pad(feats, 0))
+    rmeta = wf.pack_route_meta(
+        feats_s, t(pad(thrs, 0)), t(pad(rng.rand(n_live) < 0.5, False),
+                                    torch.bool),
+        t(pad(rng.choice(n_cur, n_live, replace=False), L)),
+        t(pad(n_cur + np.arange(n_live), 0)), meta,
+        sml=t(pad(rng.rand(n_live) < 0.5, False), torch.bool))
+    route = {"oleaf": oleaf, "feats": feats_s, "rmeta": rmeta,
+             "num_leaves": L}
+    g3 = signed_rows(rng, N, dev)
+    dbin = wf.decision_bins(binned, oleaf, feats_s, rmeta[:, 0], L)
+    _, child = wf.route_tile(dbin, oleaf, rmeta, nslots=2 * S, sub=False)
+    csums = torch.zeros((2 * S + 1, 3), dtype=torch.float32,
+                        device=dev).index_add_(0, child.long(), g3)[:2 * S]
+    live_c = torch.arange(2 * S, device=dev) < 2 * n_live
+    csums[~live_c] = 1.0
+    kw = dict(nslots=S if sub else 2 * S, num_bins=B, precision=prec,
+              meta=meta, params=SplitParams(min_data_in_leaf=20.0),
+              mask=live_c[:, None].expand(2 * S, F).contiguous(),
+              csums=csums, route=route)
+    if sub:
+        # each live slot's parent: the histogram of its leaf's rows
+        slot_of = torch.full((n_cur + 1,), S, dtype=torch.int32, device=dev)
+        slot_of[rmeta[:n_live, 0].long()] = torch.arange(
+            n_live, dtype=torch.int32, device=dev)
+        kw["parent"] = hc.index_add_hist(binned, [g3], slot_of[oleaf.long()],
+                                         S + 1, B)[:S].contiguous()
+        kw["sml"] = rmeta[:, 7] != 0
+    return g3, kw
+
+
+def plain_kw(kw) -> dict:
+    """K2's keyword arguments as its plain version takes them (the
+    kernel's feature table is the kernel's own)."""
+    return {k: v for k, v in kw.items() if k != "fmeta"}
+
+
+def same_value(a, b) -> torch.Tensor:
+    """Elementwise: equal, or both NaN."""
+    return (a == b) | (torch.isnan(a) & torch.isnan(b))
+
+
+def gain_bound(left2, csums, gains, shift, lbound, params) -> torch.Tensor:
+    """(C, F) bound on a gain's difference between two scans whose left
+    sums differ by at most ``lbound`` (C, F, 3): over the feature's valid
+    candidates, the gain's derivative in the left grad and hessian sums
+    times that, plus eight f32 roundings of its terms on each side."""
+    L = left2.double()                                   # (C, 2, F, B, 3)
+    R = csums.double()[:, None, None, None, :] - L
+    hl = L[..., 1] + params.lambda_l2
+    hr = R[..., 1] + params.lambda_l2
+    ql, qr = L[..., 0].abs() / hl, R[..., 0].abs() / hr
+    dg = lbound.double()[:, None, :, None, 0]
+    dh = lbound.double()[:, None, :, None, 1]
+    b = (2 * (ql + qr) * dg + (ql * ql + qr * qr) * dh
+         + 8 * 2.0 ** -24 * (ql * L[..., 0].abs() + qr * R[..., 0].abs()
+                             + shift.double().abs()[:, None, None, None]))
+    b = torch.where(torch.isfinite(gains), b, torch.zeros_like(b))
+    return b.amax(dim=(1, 3)) + 1e-6
+
+
+def check_k2(tag, binned, g3, kw) -> dict:
+    """K2 (and K3 on the same rows) against the plain versions on one
+    round's inputs; returns what was measured."""
+    S = kw["nslots"] if kw.get("parent") is not None else kw["nslots"] // 2
+    C, F, B = 2 * S, binned.shape[0], kw["num_bins"]
+    prec, meta, params = kw["precision"], kw["meta"], kw["params"]
+    got = fc.fused_round(binned, g3, **kw)
+    again = fc.fused_round(binned, g3, **kw)
+    want = fc.fused_round_ref(binned, g3, **plain_kw(kw))
+    res, hsm, nleaf, label = got
+    for a, b, what in zip(got, again, ("residue", "hsmall", "new leaf ids",
+                                       "label")):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K2 {tag}: two launches differ in {what}")
+    check(torch.equal(nleaf, want[2]), f"K2 {tag}: new leaf ids differ")
+    check(torch.equal(label, want[3]), f"K2 {tag}: labels differ")
+    route = kw["route"]
+    k3 = fc.route_rows(binned, route["oleaf"], route["feats"],
+                       route["rmeta"], route["num_leaves"])
+    check(torch.equal(k3, nleaf), f"K3 {tag}: differs from K2's leaf ids")
+    check(torch.equal(k3, fc.route_rows_ref(
+        binned, route["oleaf"], route["feats"], route["rmeta"],
+        route["num_leaves"])), f"K3 {tag}: differs from its plain version")
+    # K2's histograms are K1's on the emitted label, bit for bit
+    k1 = hc.hist_leaves(binned, g3, label, kw["nslots"] + 1, B,
+                        prec)[:kw["nslots"]]
+    if hsm is not None:
+        check(torch.equal(hsm, k1), f"K2 {tag}: hsmall differs from K1")
+        children = wf.subtract_children(hsm, kw["parent"], kw["sml"])
+    else:
+        children = k1
+    # the plain scan on the CPU, on the same histograms
+    res_cpu = wf.child_scan_residue(
+        children.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
+        meta_blk=type(meta)(*(x.cpu() for x in meta)), params=params,
+        num_bins=B, fblk=F).to(binned.device)
+    bitwise_cpu = bool(same_value(res, res_cpu).all())
+    # the plain version on the card: picks outside ties, values in bound
+    left2 = scan_left_sums(children, meta)
+    gains, shift = scan_direction_gains(left2, kw["csums"], meta,
+                                        kw["mask"], params)
+    gains_f = torch.cat([gains[:, 0], gains[:, 1]], dim=2)
+    pres = want[0]
+    fbest_p = pres[..., 0]
+    band = TIE_RTOL * (shift.abs()[:, None] + torch.where(
+        torch.isfinite(fbest_p), fbest_p.abs(), torch.zeros_like(fbest_p)))
+    sel_k, sel_p = res[..., 2].long(), pres[..., 2].long()
+    g_at_k = torch.gather(gains_f, 2, sel_k[..., None])[..., 0]
+    pick_off = (sel_k != sel_p) & ~(g_at_k >= fbest_p - 2 * band)
+    check(not bool(pick_off.any()), f"K2 {tag}: {int(pick_off.sum())} "
+          "picks differ from the plain version outside the tie band")
+    fin = torch.isfinite(fbest_p) & (sel_k == sel_p)
+    # the card's plain version scans its left sums in f32 in another
+    # order: each is within 2 B 2^-24 of its channel's absolute sum
+    absum = children.abs().sum(dim=2)                    # (C, F, 3)
+    lbound = 2 * B * 2.0 ** -24 * absum + 1e-6
+    err_l = torch.where(fin[..., None], (res[..., 3:] - pres[..., 3:]).abs(),
+                        torch.zeros_like(lbound))
+    check(bool((err_l <= lbound).all()), f"K2 {tag}: left sums off by "
+          f"{float(err_l.max()):.3e} past 2 B 2^-24 of their absolute sum")
+    bound = gain_bound(left2, kw["csums"], gains, shift, lbound, params)
+    err_g = torch.where(fin, (res[..., :2] - pres[..., :2]).abs().amax(-1),
+                        torch.zeros_like(fbest_p))
+    check(bool(((err_g <= bound) | ~fin).all()), f"K2 {tag}: gains off by "
+          f"{float(err_g.max()):.3e} past the bound the left sums' carries")
+    # the cross-feature half on both residues
+    shift_c = gain_shift(kw["csums"], params)
+    pk = wf._pick_pack(res, shift_c, kw["csums"], meta, B)
+    pp = wf._pick_pack(pres, shift_c, kw["csums"], meta, B)
+    fk, fp = pk[:, 1].long(), pp[:, 1].long()
+    ci = torch.arange(C, device=binned.device)
+    gb = fbest_p.max(dim=1).values
+    gband = TIE_RTOL * (shift_c.abs() + torch.where(
+        torch.isfinite(gb), gb.abs(), torch.zeros_like(gb)))
+    feat_off = (fk != fp) & ~(fbest_p[ci, fk] >= gb - 2 * gband)
+    check(not bool(feat_off.any()), f"K2 {tag}: {int(feat_off.sum())} "
+          "children pick another feature outside the tie band")
+    out = {"case": tag, "residue_bitwise_cpu_plain": bitwise_cpu,
+           "sel_diff_in_band": int((sel_k != sel_p).sum()),
+           "feature_diff_in_band": int((fk != fp).sum()),
+           "max_gain_err": float(err_g.max()),
+           "max_left_err": float(err_l.max()),
+           "rows_in_slots": int((label < kw["nslots"]).sum())}
+    log(f"  K2 {tag}: leaf ids, labels, K3 exact; hsmall "
+        f"{'== K1' if hsm is not None else '(pool-free)'}; residue "
+        f"{'bitwise equal to' if bitwise_cpu else 'differs from'} the CPU "
+        f"plain scan; vs the card's plain version {out['sel_diff_in_band']}"
+        f" picks / {out['feature_diff_in_band']} features differ in the "
+        f"tie band, max gain err {out['max_gain_err']:.2e}, left "
+        f"{out['max_left_err']:.2e}")
+    return out
+
+
+def phase_fused_kernels(binned, meta, rng) -> list:
+    """K2 and K3 against their plain versions on the headline bins."""
+    out = []
+    for S, n_live, sub in ((4, 3, True), (16, 16, True), (63, 63, True),
+                           (63, 63, False)):
+        for prec in hc.PRECISIONS:
+            g3, kw = round_inputs(binned, meta, S, n_live, sub, prec, rng)
+            out.append(check_k2(f"S={S} {'sub' if sub else 'pool-free'} "
+                                f"{prec}", binned, g3, kw))
+    return out
+
+
+class FusedRecorder:
+    """Keeps the inputs of the last K2 call at each (nslots, precision,
+    mode) of a run, and of the last K3 call: the main path's own shapes
+    and data, for the checks and the timing after it.  It counts nothing;
+    the wrappers count their launches."""
+
+    def __init__(self):
+        self.last = {}
+        self.route = None
+
+    def __enter__(self):
+        self._orig = fc.fused_round, fc.route_rows
+
+        def fused(binned, g3, **kw):
+            mode = "sub" if kw.get("parent") is not None else "pool"
+            self.last[(kw["nslots"], kw["precision"], mode)] = (binned, g3,
+                                                                kw)
+            return self._orig[0](binned, g3, **kw)
+
+        def route(binned, lids, feats, rmeta, num_leaves):
+            self.route = (binned, lids, feats, rmeta, num_leaves)
+            return self._orig[1](binned, lids, feats, rmeta, num_leaves)
+
+        fc.fused_round, fc.route_rows = fused, route
+        return self
+
+    def __exit__(self, *exc):
+        fc.fused_round, fc.route_rows = self._orig
+
+
+def reset_counts() -> None:
+    for mod in (hc, fc, pc):
+        mod.reset_launch_counts()
+
+
+def phase_fused_train(ds, dv, Xv, iters, dev, staged):
+    """The fused training main path (counts reset before, read after),
+    then the saved model served through K4."""
+    reset_counts()
+    ev = {}
+    with FusedRecorder() as rec:
+        t0 = time.perf_counter()
+        booster = train(FUSED_PARAMS, ds, iters, valid_sets=[dv],
+                        evals_result=ev, **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    k2 = fc.launch_counts["fused_round"]
+    k3 = fc.launch_counts["route_rows"]
+    k1 = hc.launch_counts["hist_leaves"]
+    buckets = {f"{ns}:{prec}:{mode}": v for (ns, prec, mode), v
+               in sorted(fc.bucket_launch_counts.items())}
+    plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
+             **{f"fused.{k}": v for k, v in fc.plain_counts.items()}}
+    trees = booster.num_trees()
+    log(f"  launches on the fused path: K2 {k2} ({json.dumps(buckets)}), "
+        f"K3 {k3}, K1 {k1}; plain-version calls: {plain}")
+    check(trees == iters, f"{trees} trees for {iters} iterations")
+    check(k2 > 0, "K2 never launched on the fused path")
+    check(sum(buckets.values()) == k2,
+          "K2's launches by bucket do not add up to its launches")
+    check(set(rec.last) == set(fc.bucket_launch_counts),
+          f"K2 was called at {sorted(rec.last)} but launched at "
+          f"{sorted(fc.bucket_launch_counts)}")
+    check(k3 == k2, f"K3 launched {k3} times for {k2} rounds")
+    check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
+    check(not any(plain.values()), "a plain version ran on the fused path")
+    n = ds.num_data()
+    auc = ev["valid_0"]["auc"][-1]
+    out = {"seconds": secs, "iters": iters, "s_per_iter": secs / iters,
+           "M_row_trees_per_s": n * trees / secs / 1e6, "valid_auc": auc,
+           "valid_logloss": ev["valid_0"]["binary_logloss"][-1],
+           "auc_minus_staged": auc - staged["valid_auc"], "trees": trees,
+           "k2_launches": k2, "k2_launches_by_bucket": buckets,
+           "k2_launches_per_tree": k2 / trees, "k3_launches": k3,
+           "k1_launches": k1}
+    log(f"  {iters} fused iterations of {n} rows in {secs:.2f} s: "
+        f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
+        f"row-trees/s; valid AUC {auc:.5f} (staged {staged['valid_auc']:.5f}"
+        f"), logloss {out['valid_logloss']:.5f}; K2 "
+        f"{out['k2_launches_per_tree']:.2f} launches a tree")
+    check(auc > 0.90, f"valid AUC {auc} <= 0.90")
+    check(abs(auc - staged["valid_auc"]) <= 2e-3,
+          f"fused AUC {auc} is more than 2e-3 from the staged {staged}")
+    out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
+                                              "fused_model.txt")
+    return out, rec
+
+
+def phase_fused_main_inputs(rec: FusedRecorder) -> list:
+    """K2 against its plain version on the main path's last inputs at each
+    of its (nslots, precision, mode) keys."""
+    return [check_k2(f"main path nslots={ns} {prec} {mode}", binned, g3, kw)
+            for (ns, prec, mode), (binned, g3, kw) in sorted(rec.last.items())]
+
+
+def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
+                       ) -> list:
+    """K2 at each slot bucket of the main path and K3, on their last
+    inputs, beside their plain versions and bounds by bytes."""
+    rows, buckets = [], []
+    n_trees = trained["trees"]
+    for (ns, prec, mode), (binned, g3, kw) in sorted(rec.last.items()):
+        Fn, N = binned.shape
+        B = kw["num_bins"]
+        S = ns if mode == "sub" else ns // 2
+        ms = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
+        plain_ms = time_ms(
+            lambda: fc.fused_round_ref(binned, g3, **plain_kw(kw)), 2)
+        _, _, _, label = fc.fused_round(binned, g3, **kw)
+        live = int((label < ns).sum())
+        hist = S * Fn * B * 3 * 4
+        # bins, rows, old leaf ids read; label and new leaf ids written;
+        # parents read and hsmall written (subtraction mode); the
+        # children's mask and sums read, the residue written
+        nbytes = (Fn * N + N * 12 + N * 4 + 2 * N * 4
+                  + (2 * hist if mode == "sub" else 0)
+                  + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4)
+        ops = ((2 if prec == "bf16x2" else 1) * 3 * live * Fn
+               + 2 * S * Fn * B * 2 * 12)
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        launches = trained["k2_launches_by_bucket"].get(f"{ns}:{prec}:{mode}",
+                                                         0)
+        b = {"nslots": ns, "S": S, "precision": prec, "mode": mode, "ms": ms,
+             "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+             "bytes": nbytes, "ops": ops, "launches": launches,
+             "launches_per_tree": launches / n_trees}
+        buckets.append(b)
+        log(f"  K2 S={S} {mode} ({prec}): {ms:.3f} ms (plain {plain_ms:.1f} "
+            f"ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}), "
+            f"{b['launches_per_tree']:.2f} launches a tree")
+    top = max(buckets, key=lambda b: b["nslots"])
+    rows.append({
+        "name": "fused_round", "route": "cuda", "source": FUSED_SRC,
+        "replaces": "lightgbmv1_tpu/ops/wave_fused.py:238",
+        "launches": int(trained["k2_launches"]),
+        "max_abs_err": max(max(c["max_gain_err"], c["max_left_err"])
+                           for c in checks),
+        "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "library_note": "none: no single PyTorch call "
+        "computes a route + histogram + split scan",
+        "at": f"S={top['S']} {top['precision']} {top['mode']}",
+        "residue_bitwise_cpu_plain": all(c["residue_bitwise_cpu_plain"]
+                                         for c in checks),
+        "buckets": buckets, "checks": checks})
+    binned, lids, feats, rmeta, num_leaves = rec.route
+    N = binned.shape[1]
+    ms = time_ms(lambda: fc.route_rows(binned, lids, feats, rmeta,
+                                       num_leaves), 20)
+    plain_ms = time_ms(lambda: fc.route_rows_ref(binned, lids, feats, rmeta,
+                                                 num_leaves), 2)
+    # one decision byte and one leaf id read, one leaf id written a row;
+    # the round's splits read once
+    nbytes = N * (1 + 4 + 4) + rmeta.numel() * 4 + feats.numel() * 4
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    rows.append({
+        "name": "route_rows", "route": "cuda", "source": FUSED_SRC,
+        "replaces": "lightgbmv1_tpu/ops/wave_fused.py:558",
+        "launches": int(trained["k3_launches"]), "max_abs_err": 0.0,
+        "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
+        "bound_by": "bytes", "library_ms": None,
+        "library_note": "none: no single PyTorch call routes rows through "
+        "a tree's splits", "rows": N, "slots": int(rmeta.shape[0])})
+    log(f"  K3 on {N} valid rows, {rmeta.shape[0]} slots: {ms:.4f} ms (plain "
+        f"{plain_ms:.2f} ms, bound {t_bytes:.5f} ms by bytes)")
+    return rows
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -868,7 +1281,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("== phase 2: build")
-    secs = _build.build(["predict_walk", "hist"])
+    secs = _build.build(["predict_walk", "hist", "wave_fused"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["log"].splitlines():
@@ -950,6 +1363,29 @@ def main(argv=None) -> int:
 
     log("== phase 13: where a training iteration's time goes")
     prof = phase_profile(ds, 5, dev)
+
+    log("== phase 14: K2 and K3 against their plain versions")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    k2_checks = phase_fused_kernels(binned, make_feature_meta(ds._binned,
+                                                              dev), rng)
+    del binned
+
+    log("== phase 15: fused training (main path; launch counts reset)")
+    fused, frec = phase_fused_train(ds, dv, Xv, args.iters, dev, trained)
+    log("  K2 against its plain version on the main path's last inputs")
+    k2_checks += phase_fused_main_inputs(frec)
+
+    log("== phase 16: f32 parity on the card, fused vs staged")
+    fparity = same_splits(args.seed, 65536, {
+        "fused": (dict(PARITY_PARAMS, hist_method="fused"), dev),
+        "staged": (PARITY_PARAMS, dev)})
+
+    log("== phase 17: K2 and K3 timing at the main path's buckets")
+    fused_rows = phase_fused_timing(frec, fused, k2_checks)
+    del frec
+
+    log("== phase 18: where a fused training iteration's time goes")
+    fprof = phase_profile(ds, 5, dev, FUSED_PARAMS)
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -959,9 +1395,10 @@ def main(argv=None) -> int:
                         "batch_occupancy", "steady")},
                     "train": trained,
                     "train_binning_s": bin_s, "parity": parity,
-                    "train_profile": prof,
+                    "train_profile": prof, "fused_train": fused,
+                    "fused_parity": fparity, "fused_profile": fprof,
                     "seconds": time.perf_counter() - t_start}))
-    print(json.dumps({"kernels": [k1_row] + rows}), flush=True)
+    print(json.dumps({"kernels": [k1_row] + fused_rows + rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

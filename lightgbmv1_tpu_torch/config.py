@@ -140,10 +140,14 @@ class Config:
     # 0 = auto (num_leaves // 4; the sequential grower below 8 leaves,
     # not ported); >= 1 forces the wave grower at that wave size
     leafwise_wave_size: int = 0
-    # auto | scatter | pallas (onehot, fused and bench are not ported):
+    # auto | scatter | pallas | fused (onehot and bench are not ported):
     # auto is the CUDA kernel K1 for a CUDA tensor, the plain scatter for
-    # a CPU one (ops/histogram.default_hist_method)
+    # a CPU one (ops/histogram.default_hist_method); fused runs the wave
+    # rounds through the fused round K2 and the valid routing K3
     hist_method: str = "auto"
+    # fused rounds a launch: 1 = the single-round kernel K2; > 1 is the
+    # persistent wave loop K6 (not ported; JAX config.py:402)
+    wave_loop_rounds: int = 1
     bin_layout: str = "auto"         # auto | u8 (packed4 not ported)
     hist_dtype: str = "bf16x2"       # f32 | bf16 | bf16x2
     # sustained (largest-bucket) wave rounds: "" drops bf16x2 to bf16
@@ -224,6 +228,9 @@ class Config:
                 "the bf16-drop policy)")
         if self.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
+        if self.wave_loop_rounds < 1:
+            raise ValueError("wave_loop_rounds must be >= 1 (1 = the "
+                             "single-round fused kernel)")
         if self.predict_method not in (
                 "auto", "native", "host", "depthwise", "pallas", "fused",
                 "scan"):
@@ -288,7 +295,8 @@ SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 PACKED4 = "packed4 bins"
 INT8 = "int8 and int8sr histograms"
-FUSED = "fused training: histogram methods onehot, bench, fused (K2, K3, K6)"
+WAVE_LOOP = "persistent wave loop (K6)"
+HIST_METHODS = "histogram methods onehot and bench"
 BREADTH = "breadth of objectives and boosting"
 PARALLEL = "parallel learners"
 
@@ -325,9 +333,8 @@ _UNPORTED = (
     ("linear_tree", lambda c: c.linear_tree, "linear_tree", BREADTH),
     ("categorical_feature", lambda c: bool(c.categorical_feature),
      "categorical features", BREADTH),
-    ("hist_method", lambda c: c.hist_method in ("onehot", "bench",
-                                                "fused"),
-     "hist_method={v}", FUSED),
+    ("hist_method", lambda c: c.hist_method in ("onehot", "bench"),
+     "hist_method={v}", HIST_METHODS),
     ("bin_layout", lambda c: c.bin_layout == "packed4",
      "bin_layout=packed4", PACKED4),
     ("hist_dtype", lambda c: c.hist_dtype == "int8", "hist_dtype=int8",

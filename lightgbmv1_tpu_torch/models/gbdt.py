@@ -72,7 +72,8 @@ class GBDT:
             min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
             min_gain_to_split=config.min_gain_to_split)
         self._grow = build_trainer(config, self.meta, self.split_params,
-                                   self.num_bins, self.device)
+                                   self.num_bins, self.device,
+                                   bin_dtype=self.binned.dtype)
         # the per-tree feature mask at feature_fraction 1: usable features
         self._base_mask = self.meta.usable
 

@@ -34,9 +34,20 @@ computed there and dropped, so the values kept are the same.  The
 partition is written per row (each row looks up its leaf's slot) instead
 of the JAX version's (S, N) compare: the same integer decisions.
 
+With ``fused_round_fn`` (``hist_method=fused``, ops/wave_fused.py) a
+round is the JAX package's single-pass routed round (JAX :787-799,
+:1258-1272, :1318-1370, :1402-1429): no separate partition and histogram
+pass — the fused round (the CUDA kernel K2 on the card) routes the rows,
+histograms the label it made, subtracts and scans, and returns the new
+leaf ids and the packed SplitInfo of the 2S slot children; the valid sets
+go through ``fused_round_fn.route_rows`` (K3).  Dead slots carry leaf id
+``L`` and child sums 1.0, as the JAX ``to_slot`` / ``to_cslot`` fill them;
+a round's slot k is its rank k, so the slot -> rank gather is a prefix.
+The root pass stays on ``hist_wave_fn`` (K1).
+
 Categorical splits, monotone constraints, CEGB, per-node feature
 sampling, interaction constraints, the quantized int8sr rounds and the
-fused round / loop kernels are not ported (the config refuses them):
+persistent wave loop (K6) are not ported (the config refuses them):
 every child's feature mask is the tree's, and the split scan and the root
 sums are the serial learner's own (the JAX version's ``split_fn`` /
 ``sums_fn`` hooks carry the cross-chip reductions, which the port has
@@ -45,13 +56,14 @@ not).
 
 from __future__ import annotations
 
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from ..ops.split import (NEG_INF, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output)
+from ..ops.wave_fused import subtract_children, unpack_children
 from .tree import TreeArrays
 
 # Slot bucketing starts at this many rows (each bucket is one more
@@ -83,13 +95,7 @@ def subtract_child_hists(h_slot, leaf_hist, leafs, order_c, sm_left):
     ``h_slot`` holds the measured smaller children in slot order, the
     larger sibling is the parent's stored histogram minus the smaller.
     Returns the rank-order interleaved (2K, F, B, 3) child stack."""
-    h_small = h_slot[order_c]
-    h_parent = leaf_hist[leafs]
-    smL = sm_left[:, None, None, None]
-    h_left = torch.where(smL, h_small, h_parent - h_small)
-    h_right = h_parent - h_left
-    return torch.stack([h_left, h_right], dim=1).reshape(
-        (2 * h_left.shape[0],) + tuple(h_left.shape[1:]))
+    return subtract_children(h_slot[order_c], leaf_hist[leafs], sm_left)
 
 
 class _PackedStore:
@@ -222,13 +228,16 @@ def _topk_by_rank(gains: torch.Tensor, K: int):
 
 def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      params: SplitParams, hist_wave_fn: Callable,
-                     max_depth: int = -1, wave_size: int = 32):
+                     max_depth: int = -1, wave_size: int = 32,
+                     fused_round_fn: Optional[Callable] = None):
     """Build ``grow(binned, g3, base_mask, valids=())``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False) -> (nslots, F,
     B, 3)``: histograms of the rows labelled 0..nslots-1 (``nslots`` is
     dead); ``deep`` marks a sustained round that may run the cheaper deep
-    precision.  ``grow`` returns ``(tree, leaf_id, root_sum, valid_leaf_ids)``:
+    precision.  ``fused_round_fn`` (ops/wave_fused.make_fused_round) runs
+    every round after the root as one routed fused round.  ``grow``
+    returns ``(tree, leaf_id, root_sum, valid_leaf_ids)``:
     each valid set's rows routed through the same splits, so its score
     update is a leaf-value gather."""
     L = num_leaves
@@ -299,35 +308,67 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             depth_ok = (max_depth <= 0) | (cdepth < max_depth)
             cmask = base_mask[None, :].expand(2 * n, F)
 
-            # ---- partition + labelling + histogram at bucket S ----------
             S = slot_buckets[sum(n > b for b in slot_buckets[:-1])]
-            slot_of = torch.full((L + 1,), -1, dtype=torch.long, device=dev)
-            slot_of[leafs] = order
-            new_leaf_id, gl, in_split, rs = route(
-                binned, leaf_id, feats, thrs, dls, leafs, nls, slot_of)
-            if use_sub:
-                # label only the SMALLER child of each split
-                in_small = gl == sm_left[rs]
-                label = torch.where(in_split & in_small, rs, S)
-                nsl = S
-            else:
-                label = torch.where(in_split, 2 * rs + (~gl).long(), 2 * S)
-                nsl = 2 * S
-            vlids = [route(vb, vl, feats, thrs, dls, leafs, nls,
-                           slot_of)[0] for vb, vl in zip(valids, vlids)]
             # sustained rounds of a big wave may run the deep precision
             deep = S == K and K >= 32 and len(slot_buckets) > 1
-            h_slot = hist_wave_fn(binned, g3,
-                                  label.to(torch.int32).contiguous(), nsl,
-                                  deep=deep)
-            leaf_id = new_leaf_id
+            if fused_round_fn is not None:
+                # ---- the routed fused round (K2) + valid routing (K3) ----
+                def to_slot(v, fill, width=S):
+                    out = torch.full((width,) + tuple(v.shape[1:]), fill,
+                                     dtype=v.dtype, device=dev)
+                    out[:v.shape[0]] = v
+                    return out
 
-            if use_sub:
-                hist = subtract_child_hists(h_slot, leaf_hist, leafs, order,
-                                            sm_left)
+                rt = dict(feats=to_slot(feats, 0), thrs=to_slot(thrs, 0),
+                          dls=to_slot(dls, False), leafs=to_slot(leafs, L),
+                          nls=to_slot(nls, 0), num_leaves=L)
+                parent = None
+                if use_sub:
+                    parent = to_slot(leaf_hist[leafs], 0.0)
+                packed, h_slot, leaf_id = fused_round_fn(
+                    binned, g3, S, deep=deep,
+                    mask=to_slot(cmask, False, 2 * S),
+                    csums=to_slot(csums, 1.0, 2 * S),
+                    sml=to_slot(sm_left, False) if use_sub else None,
+                    parent=parent,
+                    route=dict(rt, leaf_id=leaf_id))
+                vlids = [fused_round_fn.route_rows(vb, vl, **rt)
+                         for vb, vl in zip(valids, vlids)]
+                if use_sub:
+                    # the subtraction the round ran, again on the emitted
+                    # smaller children, for the per-leaf state
+                    hist = subtract_child_hists(h_slot, leaf_hist, leafs,
+                                                order, sm_left)
+                res = unpack_children(packed[:2 * n], num_bins)
             else:
-                hist = h_slot[:2 * n]            # slot 2s + side = child
-            res = find_best_split(hist, csums, meta, cmask, params)
+                # ---- partition + labelling + histogram at bucket S ------
+                slot_of = torch.full((L + 1,), -1, dtype=torch.long,
+                                     device=dev)
+                slot_of[leafs] = order
+                new_leaf_id, gl, in_split, rs = route(
+                    binned, leaf_id, feats, thrs, dls, leafs, nls, slot_of)
+                if use_sub:
+                    # label only the SMALLER child of each split
+                    in_small = gl == sm_left[rs]
+                    label = torch.where(in_split & in_small, rs, S)
+                    nsl = S
+                else:
+                    label = torch.where(in_split, 2 * rs + (~gl).long(),
+                                        2 * S)
+                    nsl = 2 * S
+                vlids = [route(vb, vl, feats, thrs, dls, leafs, nls,
+                               slot_of)[0] for vb, vl in zip(valids, vlids)]
+                h_slot = hist_wave_fn(binned, g3,
+                                      label.to(torch.int32).contiguous(),
+                                      nsl, deep=deep)
+                leaf_id = new_leaf_id
+
+                if use_sub:
+                    hist = subtract_child_hists(h_slot, leaf_hist, leafs,
+                                                order, sm_left)
+                else:
+                    hist = h_slot[:2 * n]        # slot 2s + side = child
+                res = find_best_split(hist, csums, meta, cmask, params)
             cgain = torch.where(depth_ok, res.gain,
                                 torch.full_like(res.gain, NEG_INF))
 

@@ -3,8 +3,10 @@
 At first use every ``csrc/<name>.cu`` the caller asks for is compiled by
 ``nvcc`` for ``sm_90a`` into ``lightgbmv1_tpu_torch/build/lib<name>_<hash>.so``
 (a plain C interface, no PyTorch headers, so a build takes seconds) and
-loaded with ``ctypes``.  The hash covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Sources
+loaded with ``ctypes``.  The hash covers the source, every ``csrc/*.cuh``
+header it includes (``hist_tile.cuh`` is shared by ``hist.cu`` and
+``wave_fused.cu``) and the flags, so an edited source or header is rebuilt
+and a stale library is never loaded.  Sources
 that are built together start together: one ``nvcc`` per source.
 
 A build or load error raises; nothing falls back.
@@ -15,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -27,6 +30,8 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -44,11 +49,25 @@ def nvcc_path() -> str:
                        "port's CUDA kernels are built from csrc/ at first use")
 
 
+def sources(name: str) -> list:
+    """``csrc/<name>.cu`` and the ``csrc/`` headers it includes, directly
+    or through another header, each once."""
+    out, todo = [], [CSRC / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in out:
+            continue
+        out.append(path)
+        todo += [CSRC / inc for inc in _INCLUDE.findall(path.read_text())
+                 if (CSRC / inc).exists()]
+    return out
+
+
 def lib_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in sources(name):
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

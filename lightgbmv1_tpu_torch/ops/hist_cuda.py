@@ -37,7 +37,7 @@ import torch
 from . import _build
 
 PRECISIONS = ("f32", "bf16", "bf16x2")
-_PREC_ID = {"f32": 0, "bf16": 1, "bf16x2": 2}
+PREC_ID = {"f32": 0, "bf16": 1, "bf16x2": 2}
 # the sub-histograms of one block: two 256-thread blocks share an SM
 HIST_SMEM_BUDGET = 96 * 1024
 # the chunk count targets this many blocks: a fixed number (two resident
@@ -198,7 +198,7 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
             binned.data_ptr(), g3.data_ptr(), leaf_id.data_ptr(),
             partial.data_ptr(), out.data_ptr(), N, F, L, p["nb"], B,
             p["ls_max"], p["n_chunks"], p["chunk_rows"],
-            _PREC_ID[precision], stream)
+            PREC_ID[precision], stream)
     if err != 0:
         raise RuntimeError(f"hist_leaves: CUDA launch failed (cudaError "
                            f"{err})")

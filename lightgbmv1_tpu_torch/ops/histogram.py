@@ -13,7 +13,9 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
   sliced away;
 * ``default_hist_method`` (:380) — ``auto`` is ``pallas`` (K1) for a CUDA
   tensor, as on the TPU, and ``scatter`` for a CPU one, as on the JAX
-  package's CPU backend.
+  package's CPU backend; ``fused`` resolves to its base method ``pallas``,
+  the one its root pass runs (the wave rounds' fused dispatch is in
+  parallel/trainer.py).
 
 Output layout: (L, F, B, 3) float32 — [sum_grad, sum_hess, count].
 """
@@ -22,7 +24,7 @@ from __future__ import annotations
 
 import torch
 
-from ..config import FUSED, not_ported
+from ..config import HIST_METHODS, not_ported
 from . import hist_cuda
 
 
@@ -45,7 +47,7 @@ def hist_frontier(binned: torch.Tensor, g3: torch.Tensor,
                                      num_bins, precision=precision)
     if method == "scatter":
         return hist_leaves_scatter(binned, g3, leaf_id, num_leaves, num_bins)
-    raise not_ported(f"hist_method={method}", FUSED)
+    raise not_ported(f"hist_method={method}", HIST_METHODS)
 
 
 def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,
@@ -62,9 +64,13 @@ def default_hist_method(config_method: str = "auto",
     """Resolve ``hist_method``: ``auto`` is the CUDA kernel K1
     (``pallas``) on a CUDA device and the scatter oracle on the CPU; an
     explicit ``scatter`` or ``pallas`` stays as it is (``pallas`` on the
-    CPU runs K1's plain version, the precision-faithful lane)."""
+    CPU runs K1's plain version, the precision-faithful lane); ``fused``
+    is its base method ``pallas``, so a fused tree's root pass is the
+    staged one's and the trees compare bit for bit."""
     if config_method in ("scatter", "pallas"):
         return config_method
+    if config_method == "fused":
+        return "pallas"
     if config_method != "auto":
-        raise not_ported(f"hist_method={config_method}", FUSED)
+        raise not_ported(f"hist_method={config_method}", HIST_METHODS)
     return "pallas" if torch.device(device).type == "cuda" else "scatter"

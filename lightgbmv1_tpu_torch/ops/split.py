@@ -12,7 +12,8 @@ Ported: ``tie_tol`` (:56, ``TIE_RTOL``), ``go_left_rule`` (:65),
 ``SplitParams`` (:85), ``SplitResult`` (:112), ``leaf_gain`` /
 ``leaf_output`` (:130/:145), ``FeatureMeta`` / ``make_feature_meta``
 (:157/:173), ``child_leaf_output`` (:216), ``scan_left_sums`` (:459),
-``scan_direction_gains`` (:532), ``scan_pick`` (:667) and
+``scan_direction_gains`` (:532), ``scan_pick_feature`` (:636),
+``scan_pick`` (:667), ``gain_shift`` and
 ``find_best_split`` (:437).  The tie-breaking is kept exactly: it decides
 the tree.  Categorical splits, monotone constraints, path smoothing,
 max_delta_step, feature_contri, CEGB and extra_trees are not ported
@@ -176,13 +177,16 @@ def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
     return gains2 - shift[:, None, None, None], shift
 
 
-def scan_pick(gains: torch.Tensor, shift: torch.Tensor, meta: FeatureMeta):
-    """The tie-band preference argmax over (C, 2, F, B) gains -> (best
-    gain, feature, threshold, direction), each (C,).  Within a feature the
-    reference's scan order decides a tie (the reverse scan's highest
-    threshold first for a missing-none or 2-bin feature, else the forward
-    scan's lowest); across features the lowest feature in the band wins
-    (reference SplitInfo::operator>)."""
+def scan_pick_feature(gains: torch.Tensor, shift: torch.Tensor,
+                      meta: FeatureMeta):
+    """The per-feature half of the tie-band preference argmax (JAX :636):
+    (C, 2, F, B) gains -> each feature's best gain ``fbest`` (C, F) and
+    its preferred in-band candidate ``sel_f`` (C, F), encoded
+    ``direction * B + threshold``.  Within a feature the reference's scan
+    order decides a tie: the reverse scan's highest threshold first for a
+    missing-none or 2-bin feature, else the forward scan's lowest.  The
+    fused round (ops/wave_fused.py) runs this half per feature and leaves
+    only its O(F) residue for the cross-feature half."""
     C, _, F, B = gains.shape
     dev = gains.device
     t_idx = torch.arange(B, device=dev)[None, :]
@@ -197,6 +201,18 @@ def scan_pick(gains: torch.Tensor, shift: torch.Tensor, meta: FeatureMeta):
     sel_f = torch.argmax(torch.where(gains_f >= (fbest - tol_f)[..., None],
                                      pref_f, torch.full_like(pref_f, -1)),
                          dim=2)                                  # (C, F)
+    return fbest, sel_f
+
+
+def scan_pick(gains: torch.Tensor, shift: torch.Tensor, meta: FeatureMeta):
+    """The tie-band preference argmax over (C, 2, F, B) gains -> (best
+    gain, feature, threshold, direction), each (C,): the per-feature half
+    (``scan_pick_feature``), then across features the lowest feature in
+    the band wins (reference SplitInfo::operator>)."""
+    C, _, F, B = gains.shape
+    dev = gains.device
+    fbest, sel_f = scan_pick_feature(gains, shift, meta)
+    gains_f = torch.cat([gains[:, 0], gains[:, 1]], dim=2)       # (C, F, 2B)
     gbest = fbest.max(dim=1).values                              # (C,)
     in_band = fbest >= (gbest - tie_tol(gbest, shift))[:, None]
     feature = torch.argmax(in_band.to(torch.uint8), dim=1)       # first

@@ -6,12 +6,20 @@ Port of lightgbmv1_tpu/parallel/trainer.py ``resolve_deep_dtype`` (:269),
 two precisions, and wire ``hist_wave`` into the wave grower, with the
 ``deep`` precision on the sustained rounds of a big wave.
 
+``hist_method=fused`` is the fused dispatch of the JAX ``build_trainer``
+(:591-646): the wave rounds run ``ops/wave_fused.make_fused_round`` (K2
+on the card, K3 for the valid sets), the root pass the base method
+``pallas`` (K1).  Where the JAX package logs an ineligible configuration
+and falls back to the staged path, the port raises
+``NotImplementedError`` with the reason: nothing silently trains
+something else.
+
 What the JAX package routes elsewhere raises here, naming its ROADMAP
 item: the sequential grower (auto ``leafwise_wave_size`` at
 ``num_leaves <= 7``; an explicit ``leafwise_wave_size >= 1`` forces the
 wave grower, as there), the level-wise grower, ``packed4`` bins (which
 ``auto`` picks on the card at ``max_bin <= 15``), the int8 / int8sr
-precisions and the fused round kernels.
+precisions and the persistent wave loop (``wave_loop_rounds > 1``, K6).
 """
 
 from __future__ import annotations
@@ -20,10 +28,12 @@ from typing import Callable
 
 import torch
 
-from ..config import (FUSED, GROWERS, INT8, PACKED4, Config, not_ported)
+from ..config import (GROWERS, INT8, PACKED4, WAVE_LOOP, Config,
+                      not_ported)
 from ..models.grower_wave import auto_wave_size, make_wave_grower
 from ..ops.histogram import default_hist_method, hist_wave
 from ..ops.split import FeatureMeta, SplitParams
+from ..ops.wave_fused import fused_ineligible_reason, make_fused_round
 from ..utils.log import log_warning
 
 
@@ -53,9 +63,11 @@ def select_bin_layout(config: Config, *, num_total_bin: int,
 
 
 def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
-                  num_bins: int, device: torch.device) -> Callable:
+                  num_bins: int, device: torch.device,
+                  bin_dtype: torch.dtype = torch.uint8) -> Callable:
     """The serial learner's ``grow(binned, g3, base_mask, valids)``
-    for the configured growth (models/grower_wave.make_wave_grower)."""
+    for the configured growth (models/grower_wave.make_wave_grower) over
+    ``bin_dtype`` bins."""
     method = default_hist_method(config.hist_method, device)
     precision = config.hist_dtype
     if precision not in ("f32", "bf16", "bf16x2"):
@@ -64,8 +76,6 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                                         torch.device(device).type)
     if deep_precision in ("int8", "int8sr"):
         raise not_ported(f"hist_dtype_deep={deep_precision}", INT8)
-    if config.hist_method == "fused":
-        raise not_ported("hist_method=fused (K2, K3, K6)", FUSED)
 
     if config.tree_growth != "leafwise":
         raise not_ported(f"tree_growth={config.tree_growth}", GROWERS)
@@ -87,8 +97,23 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
         return hist_wave(binned, g3, label, nslots, num_bins, method=method,
                          precision=deep_precision if deep else precision)
 
+    # ---- hist_method=fused: the routed fused round (K2, K3) -------------
+    fused_fn = None
+    if config.hist_method == "fused":
+        reason = fused_ineligible_reason(bin_dtype=bin_dtype,
+                                         num_bins=num_bins)
+        if reason:
+            raise NotImplementedError(f"hist_method=fused: {reason}")
+        if config.wave_loop_rounds > 1:
+            raise not_ported(f"wave_loop_rounds={config.wave_loop_rounds}",
+                             WAVE_LOOP)
+        fused_fn = make_fused_round(meta=meta, params=params,
+                                    num_bins=num_bins, precision=precision,
+                                    deep_precision=deep_precision)
+
     return make_wave_grower(num_leaves=config.num_leaves, num_bins=num_bins,
                             meta=meta, params=params,
                             max_depth=config.max_depth, wave_size=wave_size,
-                            hist_wave_fn=local_wave)
+                            hist_wave_fn=local_wave,
+                            fused_round_fn=fused_fn)
 

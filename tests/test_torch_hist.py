@@ -153,8 +153,8 @@ def test_hist_wave_slices_the_dead_slot(method):
 
 def test_default_hist_method_resolution():
     """auto is the CUDA kernel K1 (method pallas) for a CUDA device and
-    the scatter oracle for the CPU; explicit methods stay; the unported
-    ones raise."""
+    the scatter oracle for the CPU; explicit methods stay; fused is its
+    base method pallas (its root pass); the unported ones raise."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert default_hist_method("auto", cuda) == "pallas"
     assert default_hist_method("auto", "cuda:0") == "pallas"
@@ -162,8 +162,10 @@ def test_default_hist_method_resolution():
     for m in ("scatter", "pallas"):
         assert default_hist_method(m, cuda) == m
         assert default_hist_method(m, cpu) == m
-    for m in ("onehot", "bench", "fused"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for dev in (cuda, cpu):
+        assert default_hist_method("fused", dev) == "pallas"
+    for m in ("onehot", "bench"):
+        with pytest.raises(NotImplementedError, match="onehot and bench"):
             default_hist_method(m, cuda)
     assert Config().hist_method == "auto"
 

@@ -395,7 +395,8 @@ def test_golden_zero_as_missing_training_parity():
     {"extra_trees": True}, {"early_stopping_round": 2},
     {"bin_layout": "packed4"}, {"hist_dtype": "int8"},
     {"hist_dtype_deep": "int8sr"}, {"hist_dtype_deep": "int8"},
-    {"hist_method": "fused"}, {"hist_method": "onehot"},
+    {"hist_method": "fused", "wave_loop_rounds": 2},
+    {"hist_method": "onehot"},
     {"hist_method": "bench"}, {"objective": "regression"},
     {"boosting": "dart"}, {"boosting": "goss"}, {"boosting": "rf"},
     {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
