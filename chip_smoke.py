@@ -92,8 +92,32 @@ Phases (any failure exits non-zero with no ``ok`` line):
               every node of every tree; the largest leaf-value difference.
 17. timing  — K2 at each slot bucket and K3 on the main path's last
               inputs, beside their plain versions and bounds.
-18. profile — five fused headline iterations, as phase 13; then the
-              ``kernels`` line (K1, K2, K3, K4, K5) is printed.
+18. profile — five fused headline iterations, as phase 13.
+19. K6      — the persistent wave loop's plan at the headline shape
+              (eligible), then K6 on the headline bins and phase 14's
+              signed, varied rows from a frontier captured after the root
+              and two single rounds of a headline tree grown on them,
+              R = 4, subtraction and pool-free, bf16x2 and f32:
+              against R launches of K2 with the PyTorch pick and replay
+              (packed rows, leaf ids, pool and split counts bitwise, and
+              two launches bitwise equal) and against its plain version
+              on the card (split counts exact; picks identical outside the
+              tie band; gains and sums within phase 14's bounds; leaf ids
+              exact while the picks agree).
+20. looped  — the looped training main path, launch counts reset first:
+              ``train`` at the headline configuration with
+              ``hist_method=fused, hist_dtype_deep=bf16x2,
+              wave_loop_rounds=4`` for ``--iters`` iterations with the
+              valid set.  K6 launched once a segment (at least once a
+              tree), K2 never, K3 once a replayed round, K1 once a tree, no
+              plain version; the model text byte-identical to the single
+              round's with the same knobs, trained in the same phase (one
+              run each: s/iter, M row-trees/s); AUC > 0.90; the model
+              served through K4.
+21. timing  — K6 on the main path's last inputs beside its plain version,
+              R K2 rounds on the same inputs and its bound; five looped
+              iterations profiled, as phase 13; then the ``kernels`` line
+              (K1, K2, K3, K6, K4, K5) is printed.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -112,6 +136,7 @@ import numpy as np
 import torch
 
 from lightgbmv1_tpu_torch import Booster, Dataset, train
+from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
                                              MISSING_ZERO)
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
@@ -120,12 +145,14 @@ from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import HostTree
 from lightgbmv1_tpu_torch.ops import _build, hist_cuda as hc
 from lightgbmv1_tpu_torch.ops import fused_cuda as fc
+from lightgbmv1_tpu_torch.ops import loop_cuda as lc
 from lightgbmv1_tpu_torch.ops import predict_cuda as pc
 from lightgbmv1_tpu_torch.ops import wave_fused as wf
 from lightgbmv1_tpu_torch.ops.split import (TIE_RTOL, SplitParams,
                                             gain_shift, make_feature_meta,
                                             scan_direction_gains,
                                             scan_left_sums)
+from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
 from lightgbmv1_tpu_torch.serve import ServeConfig, Server
 
 F = 28                      # features of the bench headline model
@@ -137,6 +164,7 @@ GATHERS_PER_S = 132 * 32 * 1.98e9
 SRC = "lightgbmv1_tpu_torch/csrc/predict_walk.cu"
 HIST_SRC = "lightgbmv1_tpu_torch/csrc/hist.cu"
 FUSED_SRC = "lightgbmv1_tpu_torch/csrc/wave_fused.cu"
+LOOP_SRC = "lightgbmv1_tpu_torch/csrc/wave_loop.cu"
 # the bench headline training configuration (root PERF.md "Headline"):
 # binary, 255 leaves (waves of 63, slot buckets {4, 16, 63}), max_bin 63
 # (a 64-bin axis), every other knob at its default
@@ -1111,7 +1139,7 @@ class FusedRecorder:
 
 
 def reset_counts() -> None:
-    for mod in (hc, fc, pc):
+    for mod in (hc, fc, pc, lc):
         mod.reset_launch_counts()
 
 
@@ -1250,6 +1278,366 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
     return rows
 
 
+# ---------------------------------------------------------------------------
+# the persistent wave loop (K6)
+# ---------------------------------------------------------------------------
+
+
+class LoopRecorder:
+    """Keeps the inputs of the second and the last K6 call of a run (the
+    main path's own state, for the checks and the timing after it) and
+    every call's split counts.  With ``k2_rounds`` the loop runs as R
+    launches of K2 with the PyTorch pick and replay
+    (``loop_cuda.loop_rounds``): single rounds, no K6.  It counts
+    nothing; the wrappers count their launches."""
+
+    def __init__(self, k2_rounds=False):
+        self.k2_rounds = k2_rounds
+        self.n_split = []
+        self.second = self.last = None
+
+    def __enter__(self):
+        self._orig = lc.fused_wave_loop
+
+        def wrapped(binned, g3, leaf_id, ft12, num_leaves, **kw):
+            if self.k2_rounds:
+                kw.pop("fmeta", None)
+                out = lc.loop_rounds(binned, g3, leaf_id, ft12, num_leaves,
+                                     round_fn=fc.fused_round, **kw)
+            else:
+                out = self._orig(binned, g3, leaf_id, ft12, num_leaves, **kw)
+            self.last = (binned, g3, leaf_id, ft12, num_leaves, kw)
+            if len(self.n_split) == 1:
+                self.second = self.last
+            self.n_split.append(out[3])
+            return out
+
+        lc.fused_wave_loop = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        lc.fused_wave_loop = self._orig
+
+
+def loop_call(args, **over):
+    """K6's keyword arguments of a recorded call, with ``over``."""
+    binned, g3, leaf_id, ft12, num_leaves, kw = args
+    kw = dict(kw, **over)
+    kw.pop("fmeta", None)
+    return (binned, g3, leaf_id, ft12, num_leaves), kw
+
+
+class RoundRecorder:
+    """A K2 round function for ``loop_rounds`` that keeps each round's
+    inputs and outputs: the children's histograms and the bounds of
+    phase 14 come from them."""
+
+    def __init__(self):
+        self.rounds = []
+
+    def __call__(self, binned, g3, **kw):
+        out = fc.fused_round(binned, g3, **kw)
+        self.rounds.append((kw, out))
+        return out
+
+
+def children_of(binned, g3, kw, out):
+    """A recorded K2 round's (2S, F, B, 3) children histograms: K1's
+    histogram of the label (K2's, bit for bit), subtracted from the
+    parents in subtraction mode."""
+    _, hsm, _, label = out
+    if hsm is not None:
+        return wf.subtract_children(hsm, kw["parent"], kw["sml"])
+    return hc.hist_leaves(binned, g3, label, kw["nslots"] + 1,
+                          kw["num_bins"], kw["precision"])[:kw["nslots"]]
+
+
+def check_k6(tag, args, rounds, meta, params) -> dict:
+    """K6 on one segment's inputs against R launches of K2 with the
+    PyTorch pick and replay (bit for bit) and against its plain version
+    on the card (split counts exact; round by round, the picks identical
+    outside the tie band and the values within phase 14's gain bound; the
+    leaf ids exact while every pick agrees).
+
+    The two sides sum each histogram cell in other f32 orders, and a
+    larger child is its parent minus the smaller, so by round r a cell may
+    carry r + 1 such differences: each within 2 (n + 1) 2^-24 of the
+    absolute sum of the n rows of its leaf at the segment's start (phase
+    9's bound).  A child's left sums then differ by at most those cells'
+    bounds summed over the bins, plus the prefix's own 2 B 2^-24 of its
+    absolute sum; the gains by what ``gain_bound`` carries from that."""
+    pos, kw = args
+    got = lc.fused_wave_loop(*pos, **kw)
+    again = lc.fused_wave_loop(*pos, **kw)
+    rec = RoundRecorder()
+    k2 = lc.loop_rounds(*pos, round_fn=rec, **kw)
+    plain = lc.fused_wave_loop_ref(*pos, **kw)
+    names = ("packed rows", "new leaf ids", "pool", "split counts")
+    for a, b, c, what in zip(got, again, k2, names):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K6 {tag}: two launches differ in {what}")
+        check(a is None or bool(same_value(a, c).all()),
+              f"K6 {tag}: {what} differ from R K2 rounds")
+    packed, n_split = got[0], got[3].tolist()
+    check(n_split == plain[3].tolist(), f"K6 {tag}: split counts {n_split} "
+          f"against the plain version's {plain[3].tolist()}")
+    live = [n for n in n_split if n > 0]
+    check(len(live) == len(rec.rounds) and len(live) >= 2,
+          f"K6 {tag}: {len(live)} live rounds, {len(rec.rounds)} K2 rounds")
+    binned, g3, lid0 = pos[0], pos[1], pos[2].long()
+    B, L = kw["num_bins"], pos[3].shape[0]
+    absum0 = hc.index_add_hist(binned, [g3.abs()], lid0, L, B)
+    before = lid0
+    err_g = err_s = 0.0
+    diverged = None
+    for r, (n, (rkw, out)) in enumerate(zip(live, rec.rounds)):
+        ch = children_of(binned, g3, rkw, out)[:2 * n]
+        csums, mask = rkw["csums"][:2 * n], rkw["mask"][:2 * n]
+        left2 = scan_left_sums(ch, meta)
+        gains, shift = scan_direction_gains(left2, csums, meta, mask, params)
+        # each child's leaf at the segment's start, through its parent
+        anc = torch.zeros(L + 1, dtype=torch.long, device=binned.device)
+        anc[before] = lid0
+        a0 = absum0[anc[rkw["route"]["rmeta"][:n, 0].long()]
+                    .repeat_interleave(2)]                # (2n, F, B, 3)
+        cell = (r + 1) * 2 * (a0[..., 2:3] + 1) * 2.0 ** -24 * a0
+        lbound = (cell.sum(dim=2) + 2 * B * 2.0 ** -24 * ch.abs().sum(dim=2)
+                  + 1e-6)
+        gbound = gain_bound(left2, csums, gains, shift, lbound, params)
+        before = out[2].long()
+        pk, pp = packed[r, :2 * n], plain[0][r, :2 * n]
+        fk = pk[:, 1].long()
+        ci = torch.arange(2 * n, device=pk.device)
+        same = (pk[:, 1:4] == pp[:, 1:4]).all(dim=1)
+        if not bool(same.all()):
+            # a pick inside the tie band: the plain version's gain there
+            # must be within the band of K6's; later rounds split other
+            # leaves and are not compared
+            band = TIE_RTOL * (shift.abs() + pk[:, 0].abs())
+            check(bool(((pk[:, 0] - pp[:, 0]).abs()[~same]
+                        <= 4 * band[~same]).all()),
+                  f"K6 {tag}: round {r} picks differ outside the tie band")
+            diverged = r
+            break
+        fin = torch.isfinite(pk[:, 0])
+        eg = torch.where(fin, (pk[:, 0] - pp[:, 0]).abs(),
+                         torch.zeros_like(pk[:, 0]))
+        check(bool((eg <= gbound[ci, fk]).all()), f"K6 {tag}: round {r} "
+              f"gains off by {float(eg.max()):.3e} past phase 14's bound")
+        lb = lbound[ci, fk]
+        es = torch.where(fin[:, None], (pk[:, 4:] - pp[:, 4:]).abs(),
+                         torch.zeros_like(pk[:, 4:]))
+        rb = lb + 2.0 ** -23 * csums.abs()
+        check(bool((es <= torch.cat([lb, rb], dim=1)).all()),
+              f"K6 {tag}: round {r} sums off by {float(es.max()):.3e}")
+        err_g, err_s = max(err_g, float(eg.max())), max(err_s,
+                                                       float(es.max()))
+    if diverged is None:
+        check(torch.equal(got[1], plain[1]), f"K6 {tag}: leaf ids differ "
+              "from the plain version")
+    out = {"case": tag, "n_split": n_split, "max_gain_err": err_g,
+           "max_sum_err": err_s, "plain_diverged_at_round": diverged,
+           "buckets": [rkw["nslots"] for rkw, _ in rec.rounds]}
+    log(f"  K6 {tag}: split counts {n_split}; packed rows, leaf ids and "
+        f"pool bitwise equal to {len(live)} K2 rounds and across two "
+        f"launches; vs the plain version: "
+        + ("picks identical, " if diverged is None else
+           f"a tie-band pick at round {diverged}, ")
+        + f"max gain err {err_g:.2e}, sums {err_s:.2e}")
+    return out
+
+
+LOOP_PARAMS = dict(FUSED_PARAMS, hist_dtype_deep="bf16x2",
+                   wave_loop_rounds=4)
+
+
+def phase_loop_kernels(binned, meta, rng) -> list:
+    """K6 against R K2 rounds and its plain version on the headline bins
+    with phase 14's signed, varied rows, from a frontier captured after
+    the root and two single rounds of a headline tree grown on those rows:
+    R = 4, subtraction and pool-free, bf16x2 and f32."""
+    N = binned.shape[1]
+    config = Config.from_dict(dict(LOOP_PARAMS, wave_loop_rounds=2))
+    params = SplitParams(min_data_in_leaf=float(config.min_data_in_leaf))
+    grow = build_trainer(config, meta, params, 64, binned.device,
+                         num_data=N)
+    with LoopRecorder(k2_rounds=True) as cap:
+        grow(binned, signed_rows(rng, N, binned.device), meta.usable)
+    check(cap.second is not None, "one segment in a tree")
+    seg = cap.second
+    out = []
+    for prec in ("bf16x2", "f32"):
+        for sub in (True, False):
+            args = loop_call(seg, rounds=4, precision=prec,
+                             pool=seg[5]["pool"] if sub else None)
+            out.append(check_k6(f"R=4 {'sub' if sub else 'pool-free'} "
+                                f"{prec}", args, 4, meta, params))
+    return out
+
+
+def phase_loop_train(ds, dv, Xv, iters, dev):
+    """The looped training main path (counts reset before, read after),
+    then the single round with the same knobs in the same phase: the
+    model texts byte-identical; the looped model served through K4."""
+    reset_counts()
+    ev = {}
+    with LoopRecorder() as rec:
+        t0 = time.perf_counter()
+        booster = train(LOOP_PARAMS, ds, iters, valid_sets=[dv],
+                        evals_result=ev, **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    k6 = lc.launch_counts["fused_wave_loop"]
+    k2 = fc.launch_counts["fused_round"]
+    k3 = fc.launch_counts["route_rows"]
+    k1 = hc.launch_counts["hist_leaves"]
+    plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
+             **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
+             **{f"loop.{k}": v for k, v in lc.plain_counts.items()}}
+    trees = booster.num_trees()
+    replayed = sum(int((c > 0).sum()) for c in rec.n_split)
+    log(f"  launches on the looped path: K6 {k6} "
+        f"({json.dumps({str(k): v for k, v in lc.bucket_launch_counts.items()})}"
+        f"), K2 {k2}, K3 {k3} ({replayed} replayed rounds), K1 {k1}; "
+        f"plain-version calls: {plain}")
+    check(trees == iters, f"{trees} trees for {iters} iterations")
+    check(k6 == len(rec.n_split) and k6 >= trees,
+          f"K6 launched {k6} times, {len(rec.n_split)} calls, {trees} trees")
+    check(k2 == 0, f"K2 launched {k2} times on the looped path")
+    check(k3 == replayed, f"K3 launched {k3} times for {replayed} rounds")
+    check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
+    check(not any(plain.values()), "a plain version ran on the looped path")
+    auc = ev["valid_0"]["auc"][-1]
+    n = ds.num_data()
+    ev1 = {}
+    t0 = time.perf_counter()
+    single = train(dict(LOOP_PARAMS, wave_loop_rounds=1), ds, iters,
+                   valid_sets=[dv], evals_result=ev1, **_on(dev))
+    _sync(dev)
+    secs1 = time.perf_counter() - t0
+    text, text1 = booster.model_to_string(), single.model_to_string()
+    check(text == text1, "the looped model text differs from the single "
+          "round's")
+    check(ev == ev1, "the looped metrics differ from the single round's")
+    out = {"seconds": secs, "iters": iters, "s_per_iter": secs / iters,
+           "M_row_trees_per_s": n * trees / secs / 1e6,
+           "single_round_s_per_iter": secs1 / iters,
+           "single_round_M_row_trees_per_s": n * trees / secs1 / 1e6,
+           "valid_auc": auc, "trees": trees, "k6_launches": k6,
+           "k6_launches_per_tree": k6 / trees, "k3_launches": k3,
+           "k1_launches": k1, "replayed_rounds": replayed,
+           "model_text_bytes": len(text), "model_text_identical": True}
+    log(f"  {iters} looped iterations of {n} rows in {secs:.2f} s: "
+        f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
+        f"row-trees/s; single round, same knobs: {secs1 / iters:.3f} s/iter"
+        f", {out['single_round_M_row_trees_per_s']:.2f} M row-trees/s (one "
+        f"run each); model text byte-identical ({len(text)} bytes), valid "
+        f"AUC {auc:.5f}; K6 {out['k6_launches_per_tree']:.2f} launches a "
+        "tree")
+    check(auc > 0.90, f"valid AUC {auc} <= 0.90")
+    out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
+                                              "loop_model.txt")
+    return out, rec
+
+
+def loop_plan(ds, dev) -> dict:
+    """``plan_wave_loop`` at the headline shape on this card."""
+    meta = make_feature_meta(ds._binned, dev)
+    fn = wf.make_fused_wave_loop(
+        meta=meta, params=SplitParams(), num_bins=64, precision="bf16x2",
+        deep_precision="bf16x2", rounds=LOOP_PARAMS["wave_loop_rounds"])
+    return fn.plan(N=ds.num_data(), F=F, K=63, L=255, use_sub=True,
+                   slot_buckets=(4, 16, 63), device=dev)
+
+
+def phase_loop_timing(rec: LoopRecorder, trained: dict, checks: list
+                      ) -> dict:
+    """K6 on the main path's last inputs (CUDA events over 10 launches
+    after a warm-up) beside its plain version, R K2 rounds on the same
+    inputs and its bound by bytes; returns the kernels-line row."""
+    spos, skw = loop_call(rec.second)
+    full_ms = time_ms(lambda: lc.fused_wave_loop(*spos, **skw), 10)
+    full_k2_ms = time_ms(lambda: lc.loop_rounds(
+        *spos, round_fn=fc.fused_round, **skw), 3)
+    # one round alone (R = 1) at the first round's bucket of each segment,
+    # K6 against K2 with the PyTorch pick: the cost of the loop's grid
+    one_round = []
+    for name, call in (("second", rec.second), ("last", rec.last)):
+        opos, okw = loop_call(call, rounds=1)
+        n = int(lc.fused_wave_loop(*opos, **okw)[3][0])
+        one_round.append({
+            "segment": name, "n_split": n,
+            "S": okw["slot_buckets"][sum(n > b for b in
+                                         okw["slot_buckets"][:-1])],
+            "k6_ms": time_ms(lambda: lc.fused_wave_loop(*opos, **okw), 10),
+            "k2_ms": time_ms(lambda: lc.loop_rounds(
+                *opos, round_fn=fc.fused_round, **okw), 10)})
+    pos, kw = loop_call(rec.last)
+    ms = time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10)
+    plain_ms = time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 2)
+    k2_ms = time_ms(lambda: lc.loop_rounds(*pos, round_fn=fc.fused_round,
+                                           **kw), 3)
+    rr = RoundRecorder()
+    _, _, _, n_split = lc.loop_rounds(*pos, round_fn=rr, **kw)
+    binned, g3 = pos[0], pos[1]
+    Fn, N = binned.shape
+    B, L = kw["num_bins"], pos[3].shape[0]
+    nbytes = ops = 0
+    rounds = []
+    for n, (rkw, out) in zip([n for n in n_split.tolist() if n > 0],
+                             rr.rounds):
+        ns, sub = rkw["nslots"], rkw.get("parent") is not None
+        S = ns if sub else ns // 2
+        live = int((out[3] < ns).sum())
+        row = Fn * B * 3 * 4
+        # K2's round: bins, rows, old leaf ids read, label and new leaf
+        # ids written, parents read (subtraction), children's mask and
+        # sums read, residue written; then the packed rows, the
+        # children's frontier rows and (subtraction) pool rows written
+        nbytes += (Fn * N + N * 12 + N * 4 + 2 * N * 4
+                   + (S * row if sub else 0)
+                   + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4
+                   + 2 * S * wf.PACK_COLS * 4 + 2 * n * 12 * 4
+                   + (2 * n * row if sub else 0))
+        ops += ((2 if kw["precision"] == "bf16x2" else 1) * 3 * live * Fn
+                + 2 * S * Fn * B * 2 * 12)
+        rounds.append({"S": S, "n_split": n, "live_rows": live})
+    nbytes += L * 12 * 4 * 2          # the frontier read once, written once
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    n_trees = trained["trees"]
+    row = {"name": "fused_wave_loop", "route": "cuda", "source": LOOP_SRC,
+           "replaces": "lightgbmv1_tpu/ops/wave_fused.py:904",
+           "launches": int(trained["k6_launches"]),
+           "max_abs_err": max(max(c["max_gain_err"], c["max_sum_err"])
+                              for c in checks),
+           "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "library_ms": None, "library_note": "none: no single PyTorch "
+           "call runs a wave round", "k2_rounds_ms": k2_ms,
+           "rounds": rounds, "R": len(n_split), "bytes": nbytes, "ops": ops,
+           "launches_per_tree": trained["k6_launches"] / n_trees,
+           "precision": kw["precision"],
+           "mode": "sub" if kw.get("pool") is not None else "pool",
+           "ms_second_segment": full_ms,
+           "k2_rounds_ms_second_segment": full_k2_ms,
+           "n_split_second_segment": rec.n_split[1].tolist(),
+           "one_round": one_round, "checks": checks}
+    log(f"  K6 ({row['precision']}, {row['mode']}, rounds "
+        f"{[r['S'] for r in rounds]} of R={row['R']}): {ms:.3f} ms a launch "
+        f"(plain {plain_ms:.1f} ms, {len(rounds)} K2 rounds + PyTorch pick "
+        f"and replay {k2_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by "
+        f"{row['bound_by']}), {row['launches_per_tree']:.2f} launches a "
+        f"tree; on the run's second segment (tree 1, rounds 5-8, split "
+        f"counts {row['n_split_second_segment']}) {full_ms:.3f} ms, its K2 "
+        f"rounds + PyTorch pick and replay {full_k2_ms:.3f} ms")
+    for o in one_round:
+        log(f"  one round alone, {o['segment']} segment's first (S="
+            f"{o['S']}, {o['n_split']} splits): K6 {o['k6_ms']:.3f} ms, K2 + "
+            f"PyTorch pick and replay {o['k2_ms']:.3f} ms")
+    return row
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1281,7 +1669,7 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("== phase 2: build")
-    secs = _build.build(["predict_walk", "hist", "wave_fused"])
+    secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["log"].splitlines():
@@ -1386,6 +1774,24 @@ def main(argv=None) -> int:
 
     log("== phase 18: where a fused training iteration's time goes")
     fprof = phase_profile(ds, 5, dev, FUSED_PARAMS)
+
+    log("== phase 19: K6 against R K2 rounds and its plain version")
+    plan = loop_plan(ds, dev)
+    log(f"  plan at the headline: {json.dumps(plan)}")
+    check(plan["eligible"], f"the loop's plan refuses: {plan['reason']}")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    k6_checks = phase_loop_kernels(binned, make_feature_meta(ds._binned,
+                                                             dev), rng)
+    del binned
+
+    log("== phase 20: looped training (main path; launch counts reset)")
+    looped, lrec = phase_loop_train(ds, dv, Xv, args.iters, dev)
+
+    log("== phase 21: K6 timing and where a looped iteration's time goes")
+    k6_row = phase_loop_timing(lrec, looped, k6_checks)
+    k6_row["plan"] = plan
+    del lrec
+    lprof = phase_profile(ds, 5, dev, LOOP_PARAMS)
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -1397,8 +1803,10 @@ def main(argv=None) -> int:
                     "train_binning_s": bin_s, "parity": parity,
                     "train_profile": prof, "fused_train": fused,
                     "fused_parity": fparity, "fused_profile": fprof,
+                    "loop_train": looped, "loop_profile": lprof,
                     "seconds": time.perf_counter() - t_start}))
-    print(json.dumps({"kernels": [k1_row] + fused_rows + rows}), flush=True)
+    print(json.dumps({"kernels": [k1_row] + fused_rows + [k6_row] + rows}),
+          flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -295,7 +295,6 @@ SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 PACKED4 = "packed4 bins"
 INT8 = "int8 and int8sr histograms"
-WAVE_LOOP = "persistent wave loop (K6)"
 HIST_METHODS = "histogram methods onehot and bench"
 BREADTH = "breadth of objectives and boosting"
 PARALLEL = "parallel learners"

@@ -1,10 +1,12 @@
-// The histogram device code shared by K1 (csrc/hist.cu) and K2
-// (csrc/wave_fused.cu): both .cu files include this header, so K2's
+// The histogram device code shared by K1 (csrc/hist.cu), K2
+// (csrc/wave_fused.cu) and K6 (csrc/wave_loop.cu), which include this
+// header (the last two through wave_round.cuh), so K2's and K6's
 // smaller-child histograms are K1's histograms of the same slot label and
 // precision, bit for bit.  ops/_build.py hashes every csrc/*.cuh a source
-// includes into the library's name, so an edit here rebuilds both.
+// includes into the library's name, so an edit here rebuilds all three.
 //
-// hist_partial_kernel: per-block shared-memory sub-histograms of one
+// hist_partial_item (run one block an item by hist_partial_kernel, and
+// in a grid-stride loop by K6): shared-memory sub-histograms of one
 // feature, one row chunk and one group of slots.  Every histogram cell
 // (slot, bin) has one owner: warp key % 8, lane (key / 8) % 32 with
 // key = slot * nb + bin.  A tile's 256 rows are partitioned by owner warp
@@ -44,19 +46,22 @@ inline size_t hist_partial_smem(int ls_max, int nb, int nc) {
          static_cast<size_t>(kWarps) * kThreads * sizeof(uint16_t);
 }
 
+// One work item of the partial stage: the sub-histograms of feature `f`,
+// row chunk `chunk` and slot group `group` (slots [group * ls_max, ...)),
+// written to partial[chunk][f][slot][bin][NC].  Run by all kThreads
+// threads of a block on `smem` (hist_partial_smem(ls_max, nb, NC) bytes).
 // NC f32 accumulators a cell: 3 (f32, bf16) or 6 (bf16x2: hi, then lo).
 // Rows whose slot is outside [0, nl) or whose bin is >= nb add nothing.
+// `leaf_id` and `partial` carry no __restrict__: the persistent loop
+// (wave_loop.cu) rewrites the labels and re-reads the partials between
+// grid barriers of one launch, so they must not go through the
+// read-only cache.
 template <int PREC, int NC>
-__global__ void __launch_bounds__(kThreads)
-hist_partial_kernel(const uint8_t* __restrict__ binned,
-                    const float* __restrict__ g3,
-                    const int* __restrict__ leaf_id,
-                    float* __restrict__ partial, int n, int nf, int nl,
-                    int nb, int ls_max, int chunk_rows) {
-  extern __shared__ float smem[];
-  const int f = blockIdx.x;
-  const int chunk = blockIdx.y;
-  const int s0 = blockIdx.z * ls_max;
+__device__ __forceinline__ void hist_partial_item(
+    int f, int chunk, int group, const uint8_t* __restrict__ binned,
+    const float* __restrict__ g3, const int* leaf_id, float* partial, int n,
+    int nf, int nl, int nb, int ls_max, int chunk_rows, float* smem) {
+  const int s0 = group * ls_max;
   const int ls = min(ls_max, nl - s0);
   const int cells = ls * nb;
 
@@ -146,12 +151,27 @@ hist_partial_kernel(const uint8_t* __restrict__ binned,
   for (int i = tid; i < cells * NC; i += kThreads) out[i] = hist[i];
 }
 
+// The partial stage as a kernel: one block a work item on the grid
+// (nf, n_chunks, slot groups).
+template <int PREC, int NC>
+__global__ void __launch_bounds__(kThreads)
+hist_partial_kernel(const uint8_t* __restrict__ binned,
+                    const float* __restrict__ g3,
+                    const int* __restrict__ leaf_id,
+                    float* __restrict__ partial, int n, int nf, int nl,
+                    int nb, int ls_max, int chunk_rows) {
+  extern __shared__ float smem[];
+  hist_partial_item<PREC, NC>(blockIdx.x, blockIdx.y, blockIdx.z, binned, g3,
+                              leaf_id, partial, n, nf, nl, nb, ls_max,
+                              chunk_rows, smem);
+}
+
 // One channel of one cell, summed over the chunks in chunk order: the hi
 // partials, plus (bf16x2) the same sum of the lo partials.  `p` points at
 // the cell's channel in chunk 0; `stride` is one chunk's partial size.
 template <int NC>
-__device__ __forceinline__ float merge_cell(const float* __restrict__ p,
-                                            size_t stride, int n_chunks) {
+__device__ __forceinline__ float merge_cell(const float* p, size_t stride,
+                                            int n_chunks) {
   float hi = 0.f, lo = 0.f;
   for (int ch = 0; ch < n_chunks; ++ch, p += stride) {
     hi += p[0];

@@ -32,6 +32,12 @@
 //    through fused_route_rows): the valid set routed through one round's
 //    splits, launch (a)'s device function without the label.
 //
+// The three stages are __device__ functions of one work item each
+// (route_row and scan_item in wave_round.cuh, hist_partial_item in
+// hist_tile.cuh); the kernels here run them one block an item, and the
+// persistent wave loop K6 (wave_loop.cu) runs the same functions R rounds
+// in one launch.
+//
 // Numbers.  The scan's arithmetic is written with __fadd_rn / __fsub_rn /
 // __fmul_rn / __fdiv_rn, so nothing is contracted into an fma and the
 // division is IEEE, and the left sums accumulate in double and round each
@@ -52,39 +58,18 @@
 // times the useful work, and a block cannot hold a round's histograms, so
 // the partials go through device memory (L2) between (b) and (c).
 
-#include <math.h>
-
-#include "hist_tile.cuh"
+#include "wave_round.cuh"
 
 using namespace lgbm;
 
 namespace {
 
-constexpr int kRmetaCols = 8;
-constexpr int kMissingNone = 0;  // io/binning.py MISSING_*
-constexpr int kMissingZero = 1;
-constexpr int kMissingNan = 2;
 constexpr int kRouteThreads = 256;
 // the routing grid strides over the rows with at most this many blocks
 constexpr int kRouteMaxBlocks = 8 * 132;
 constexpr int kScanThreads = 64;  // one warp a child of the block's slot
-constexpr int kMaxBins = 256;
-constexpr float kTieRtol = 4e-6f;  // ops/split.py TIE_RTOL
 
-struct Slot {
-  int leaf, nl, thr, dl, mt, nanb, zb, sml, feat;
-};
-
-// ops/split.py go_left_rule on one bin.
-__device__ __forceinline__ bool go_left(int bin, const Slot& m) {
-  const bool na = (m.mt == kMissingNan && bin == m.nanb) ||
-                  (m.mt == kMissingZero && bin == m.zb);
-  return na ? m.dl != 0 : bin <= m.thr;
-}
-
-// route_tile on the rows of the grid: the sums over the slots a row's
-// leaf matches (one at most: live slots hold distinct leaves, dead slots
-// a leaf no row has), term for term.
+// route_tile on the rows of the grid (route_row, wave_round.cuh).
 template <bool WANT_LABEL, bool SUB>
 __global__ void __launch_bounds__(kRouteThreads)
 route_kernel(const uint8_t* __restrict__ binned,
@@ -93,32 +78,12 @@ route_kernel(const uint8_t* __restrict__ binned,
              int* __restrict__ label, int n, int ns, int nslots) {
   extern __shared__ int route_smem[];
   Slot* slots = reinterpret_cast<Slot*>(route_smem);
-  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    const int* m = rmeta + static_cast<size_t>(s) * kRmetaCols;
-    slots[s] = Slot{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
-                    feats[s]};
-  }
+  load_slots(rmeta, feats, ns, slots);
   __syncthreads();
   const int step = gridDim.x * blockDim.x;
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += step) {
-    const int lf = oleaf[r];
-    int dleaf = 0, dlab = 0;
-    for (int s = 0; s < ns; ++s) {
-      const Slot& m = slots[s];
-      if (m.leaf != lf) continue;
-      const bool g = go_left(binned[static_cast<size_t>(m.feat) * n + r], m);
-      if (!g) dleaf += m.nl - lf;
-      if (WANT_LABEL) {
-        if (SUB) {
-          if (g == (m.sml != 0)) dlab += s - nslots;
-        } else {
-          dlab += 2 * s + (g ? 0 : 1) - nslots;
-        }
-      }
-    }
-    new_leaf[r] = lf + dleaf;
-    if (WANT_LABEL) label[r] = nslots + dlab;
-  }
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += step)
+    route_row<WANT_LABEL, SUB>(r, binned, oleaf, slots, n, ns, nslots,
+                               new_leaf, label);
 }
 
 template <bool WANT_LABEL, bool SUB>
@@ -134,33 +99,7 @@ int launch_route(const uint8_t* binned, const int* oleaf, const int* feats,
   return static_cast<int>(cudaGetLastError());
 }
 
-struct ScanParams {
-  float l1, l2, min_data, min_hess, min_gain;
-};
-
-// ops/split.py threshold_l1: sign(s) * clamp(|s| - l1, min=0).
-__device__ __forceinline__ float threshold_l1(float s, float l1) {
-  const float sg = static_cast<float>(0.f < s) - static_cast<float>(s < 0.f);
-  float a = __fsub_rn(fabsf(s), l1);
-  a = a < 0.f ? 0.f : a;  // a NaN passes, as torch.clamp lets it
-  return __fmul_rn(sg, a);
-}
-
-// ops/split.py leaf_gain: t * t / (h + l2).
-__device__ __forceinline__ float leaf_gain(float g, float h,
-                                           const ScanParams& p) {
-  const float t = threshold_l1(g, p.l1);
-  return __fdiv_rn(__fmul_rn(t, t), __fadd_rn(h, p.l2));
-}
-
-// max that lets a NaN through, as torch's max reduction does
-__device__ __forceinline__ float nan_max(float a, float b) {
-  if (a != a) return a;
-  if (b != b) return b;
-  return a > b ? a : b;
-}
-
-// Block (s, f): the children 2s and 2s + 1 of feature f, one warp each.
+// Block (s, f): scan_item (wave_round.cuh) with one warp a child.
 template <int NC, bool SUB>
 __global__ void __launch_bounds__(kScanThreads)
 scan_kernel(const float* __restrict__ partial, int n_chunks, int nf, int nl,
@@ -169,128 +108,14 @@ scan_kernel(const float* __restrict__ partial, int n_chunks, int nf, int nl,
             const uint8_t* __restrict__ sml, const float* __restrict__ parent,
             float* __restrict__ hsmall, float* __restrict__ residue,
             ScanParams prm) {
-  __shared__ float h2[2][kMaxBins][3];          // [child][bin][channel]
-  __shared__ float left2[2][2][kMaxBins][3];    // [child][direction][bin]
-  __shared__ float gains[2][2 * kMaxBins];      // [child][dir * B + bin]
+  __shared__ float sm[kScanSmemFloats];
   const int s = blockIdx.x;
   const int f = blockIdx.y;
-  const int tid = threadIdx.x;
-  const size_t stride = static_cast<size_t>(nf) * nl * nb * NC;
-
-  // ---- merge the partials; subtraction mode subtracts from the parent --
-  if (SUB) {
-    for (int i = tid; i < B * 3; i += kScanThreads) {
-      const int b = i / 3, c = i % 3;
-      const float v = merge_cell<NC>(
-          partial + ((static_cast<size_t>(f) * nl + s) * nb + b) * NC + c,
-          stride, n_chunks);
-      const size_t o = ((static_cast<size_t>(s) * nf + f) * B + b) * 3 + c;
-      hsmall[o] = v;
-      const float p = parent[o];
-      const float hl = sml[s] ? v : __fsub_rn(p, v);
-      h2[0][b][c] = hl;
-      h2[1][b][c] = __fsub_rn(p, hl);
-    }
-  } else {
-    for (int i = tid; i < 2 * B * 3; i += kScanThreads) {
-      const int w = i / (B * 3), b = (i / 3) % B, c = i % 3;
-      h2[w][b][c] = merge_cell<NC>(
-          partial +
-              ((static_cast<size_t>(f) * nl + 2 * s + w) * nb + b) * NC + c,
-          stride, n_chunks);
-    }
-  }
-  __syncthreads();
-
-  const int w = tid >> 5;
-  const int lane = tid & 31;
-  const int child = 2 * s + w;
-  const int nbins_f = fmeta[f];
-  const int mt = fmeta[nf + f];
-  const int nanb = fmeta[2 * nf + f];
-  const int zb = fmeta[3 * nf + f];
-  const bool usable = fmeta[4 * nf + f] != 0 && mask[child * nf + f] != 0;
-  const bool is_nan_f = mt == kMissingNan;
-  const bool is_zero_f = mt == kMissingZero;
-
-  // ---- scan_left_sums: both directions' left sums in bin order ---------
-  if (lane < 3) {
-    const int ch = lane;
-    const float nan_c = h2[w][nanb < 0 ? 0 : nanb][ch];
-    const float zero_c = h2[w][zb][ch];
-    double acc = 0.0;
-    for (int b = 0; b < B; ++b) {
-      acc += static_cast<double>(h2[w][b][ch]);
-      const float cum = static_cast<float>(acc);
-      left2[w][0][b][ch] =
-          __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
-      left2[w][1][b][ch] = __fadd_rn(
-          cum, is_nan_f ? nan_c : ((is_zero_f && b < zb) ? zero_c : 0.f));
-    }
-  }
-  __syncwarp();
-
-  // ---- scan_direction_gains ---------------------------------------------
-  const float tg = csums[child * 3], th = csums[child * 3 + 1],
-              tc = csums[child * 3 + 2];
-  const float shift = __fadd_rn(leaf_gain(tg, th, prm), prm.min_gain);
-  const bool has_miss = is_nan_f || is_zero_f;
-  float fbest = -INFINITY;
-  for (int j = lane; j < 2 * B; j += 32) {
-    const int dir = j >= B;
-    const int t = j - dir * B;
-    const float lg = left2[w][dir][t][0], lh = left2[w][dir][t][1],
-                lc = left2[w][dir][t][2];
-    const float rg = __fsub_rn(tg, lg), rh = __fsub_rn(th, lh),
-                rc = __fsub_rn(tc, lc);
-    const bool ok = lc >= prm.min_data && rc >= prm.min_data &&
-                    lh >= prm.min_hess && rh >= prm.min_hess;
-    const float gain = __fadd_rn(leaf_gain(lg, lh, prm),
-                                 leaf_gain(rg, rh, prm));
-    const bool valid = t <= nbins_f - 2 && usable && (dir == 0 || has_miss);
-    const float g = __fsub_rn((valid && ok) ? gain : -INFINITY, shift);
-    gains[w][j] = g;
-    fbest = nan_max(fbest, g);
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    fbest = nan_max(fbest, __shfl_xor_sync(0xffffffffu, fbest, o));
-  __syncwarp();
-
-  // ---- scan_pick_feature: the tie-band preference pick ------------------
-  const float babs = isfinite(fbest) ? fabsf(fbest) : 0.f;
-  const float floor_g =
-      __fsub_rn(fbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
-  const bool rev_like_a = mt == kMissingNone || nbins_f <= 2;
-  int best_pref = -2, best_j = 0;
-  for (int j = lane; j < 2 * B; j += 32) {
-    const int dir = j >= B;
-    const int t = j - dir * B;
-    const int pref = (dir || rev_like_a) ? 2 * B + t : B - 1 - t;
-    const int v = gains[w][j] >= floor_g ? pref : -1;
-    if (v > best_pref) {  // strictly: the first index of the best wins
-      best_pref = v;
-      best_j = j;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const int op = __shfl_xor_sync(0xffffffffu, best_pref, o);
-    const int oj = __shfl_xor_sync(0xffffffffu, best_j, o);
-    if (op > best_pref || (op == best_pref && oj < best_j)) {
-      best_pref = op;
-      best_j = oj;
-    }
-  }
-  if (lane == 0) {
-    const int dir = best_j >= B;
-    const int t = best_j - dir * B;
-    float* r = residue + (static_cast<size_t>(child) * nf + f) * 6;
-    r[0] = fbest;
-    r[1] = gains[w][best_j];
-    r[2] = static_cast<float>(best_j);
-    r[3] = left2[w][dir][t][0];
-    r[4] = left2[w][dir][t][1];
-    r[5] = left2[w][dir][t][2];
-  }
+  const size_t o = (static_cast<size_t>(s) * nf + f) * B * 3;
+  scan_item<NC, SUB>(s, f, kScanThreads, partial, n_chunks, nf, nl, nb, B,
+                     fmeta, mask, csums, SUB && sml[s] != 0,
+                     SUB ? parent + o : nullptr, SUB ? hsmall + o : nullptr,
+                     nullptr, nullptr, residue, prm, sm);
 }
 
 template <int PREC, int NC, bool SUB>

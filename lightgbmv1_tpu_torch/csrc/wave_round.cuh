@@ -1,0 +1,270 @@
+// The device code of one wave round, shared by the fused round K2 / K3
+// (csrc/wave_fused.cu) and the persistent wave loop K6
+// (csrc/wave_loop.cu).  Each stage is a __device__ function that takes its
+// work item as an argument — a row (route_row), a (feature, chunk, slot
+// group) (hist_partial_item, in hist_tile.cuh) or a (slot, feature)
+// (scan_item) — so the kernels compute the same values from the same
+// inputs whatever grid runs them.  ops/_build.py hashes every csrc/*.cuh
+// a source includes into the library's name.
+//
+// Buffers the loop rewrites inside one launch (leaf ids, labels,
+// partials, the round's slots, mask and sums, the pool, the residue) are
+// plain pointers here, never const __restrict__: the loop reads them
+// again after a grid barrier, so they must not go through the read-only
+// cache.
+
+#pragma once
+
+#include <math.h>
+
+#include "hist_tile.cuh"
+
+namespace lgbm {
+
+constexpr int kRmetaCols = 8;
+constexpr int kMissingNone = 0;  // io/binning.py MISSING_*
+constexpr int kMissingZero = 1;
+constexpr int kMissingNan = 2;
+constexpr int kMaxBins = 256;
+constexpr float kTieRtol = 4e-6f;  // ops/split.py TIE_RTOL
+
+// One slot of a round: its split (leaf, new leaf, threshold, default
+// left, the feature's missing type, NaN bin and zero bin, smaller is
+// left) and the split's feature.
+struct Slot {
+  int leaf, nl, thr, dl, mt, nanb, zb, sml, feat;
+};
+
+// rmeta (ns, kRmetaCols) i32 + feats (ns,) -> slots, by the block.
+__device__ __forceinline__ void load_slots(const int* rmeta, const int* feats,
+                                           int ns, Slot* slots) {
+  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+    const int* m = rmeta + static_cast<size_t>(s) * kRmetaCols;
+    slots[s] = Slot{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+                    feats[s]};
+  }
+}
+
+// ops/split.py go_left_rule on one bin.
+__device__ __forceinline__ bool go_left(int bin, const Slot& m) {
+  const bool na = (m.mt == kMissingNan && bin == m.nanb) ||
+                  (m.mt == kMissingZero && bin == m.zb);
+  return na ? m.dl != 0 : bin <= m.thr;
+}
+
+// route_tile on row r: the sums over the slots its leaf matches (one at
+// most: live slots hold distinct leaves, dead slots a leaf no row has),
+// term for term.  Reads the row's leaf id before it writes the new one,
+// so `new_leaf` may be `oleaf`.
+template <bool WANT_LABEL, bool SUB>
+__device__ __forceinline__ void route_row(int r,
+                                          const uint8_t* __restrict__ binned,
+                                          const int* oleaf, const Slot* slots,
+                                          int n, int ns, int nslots,
+                                          int* new_leaf, int* label) {
+  const int lf = oleaf[r];
+  int dleaf = 0, dlab = 0;
+  for (int s = 0; s < ns; ++s) {
+    const Slot& m = slots[s];
+    if (m.leaf != lf) continue;
+    const bool g = go_left(binned[static_cast<size_t>(m.feat) * n + r], m);
+    if (!g) dleaf += m.nl - lf;
+    if (WANT_LABEL) {
+      if (SUB) {
+        if (g == (m.sml != 0)) dlab += s - nslots;
+      } else {
+        dlab += 2 * s + (g ? 0 : 1) - nslots;
+      }
+    }
+  }
+  new_leaf[r] = lf + dleaf;
+  if (WANT_LABEL) label[r] = nslots + dlab;
+}
+
+struct ScanParams {
+  float l1, l2, min_data, min_hess, min_gain;
+};
+
+// ops/split.py threshold_l1: sign(s) * clamp(|s| - l1, min=0).
+__device__ __forceinline__ float threshold_l1(float s, float l1) {
+  const float sg = static_cast<float>(0.f < s) - static_cast<float>(s < 0.f);
+  float a = __fsub_rn(fabsf(s), l1);
+  a = a < 0.f ? 0.f : a;  // a NaN passes, as torch.clamp lets it
+  return __fmul_rn(sg, a);
+}
+
+// ops/split.py leaf_gain: t * t / (h + l2).
+__device__ __forceinline__ float leaf_gain(float g, float h,
+                                           const ScanParams& p) {
+  const float t = threshold_l1(g, p.l1);
+  return __fdiv_rn(__fmul_rn(t, t), __fadd_rn(h, p.l2));
+}
+
+// ops/split.py gain_shift: the parent's gain + min_gain_to_split.
+__device__ __forceinline__ float gain_shift(float g, float h,
+                                            const ScanParams& p) {
+  return __fadd_rn(leaf_gain(g, h, p), p.min_gain);
+}
+
+// ops/split.py leaf_output: -threshold_l1(g) / (h + l2).
+__device__ __forceinline__ float leaf_output(float g, float h,
+                                             const ScanParams& p) {
+  return __fdiv_rn(-threshold_l1(g, p.l1), __fadd_rn(h, p.l2));
+}
+
+// max that lets a NaN through, as torch's max reduction does
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a) return a;
+  if (b != b) return b;
+  return a > b ? a : b;
+}
+
+// Shared memory of scan_item: h2 [2][kMaxBins][3], left2
+// [2][2][kMaxBins][3], gains [2][2 kMaxBins] floats.
+constexpr int kScanSmemFloats =
+    2 * kMaxBins * 3 + 2 * 2 * kMaxBins * 3 + 2 * 2 * kMaxBins;
+
+// Work item (s, f): the children 2s and 2s + 1 of feature f.  All
+// `nthreads` threads of the block merge the partials (merge_cell, in chunk
+// order); warps 0 and 1 (one a child) scan.  In subtraction mode `par`
+// is the slot's parent histogram of feature f ((B, 3), or null for a zero
+// parent) and `sml` says the smaller child is the left one; `hs` (the
+// smaller child) and `out_l` / `out_r` (the children) receive their
+// (B, 3) rows when not null — `out_l` may be `par`.  Writes the residue
+// rows [best gain, gain at the pick, pick, left g/h/c] of both children.
+template <int NC, bool SUB>
+__device__ __forceinline__ void scan_item(
+    int s, int f, int nthreads, const float* partial, int n_chunks, int nf,
+    int nl, int nb, int B, const int* __restrict__ fmeta, const uint8_t* mask,
+    const float* csums, bool sml, const float* par, float* hs, float* out_l,
+    float* out_r, float* residue, const ScanParams& prm, float* sm) {
+  float(*h2)[kMaxBins][3] = reinterpret_cast<float(*)[kMaxBins][3]>(sm);
+  float(*left2)[2][kMaxBins][3] =
+      reinterpret_cast<float(*)[2][kMaxBins][3]>(sm + 2 * kMaxBins * 3);
+  float(*gains)[2 * kMaxBins] = reinterpret_cast<float(*)[2 * kMaxBins]>(
+      sm + 2 * kMaxBins * 3 + 2 * 2 * kMaxBins * 3);
+  const int tid = threadIdx.x;
+  const size_t stride = static_cast<size_t>(nf) * nl * nb * NC;
+
+  // ---- merge the partials; subtraction mode subtracts from the parent --
+  if (SUB) {
+    for (int i = tid; i < B * 3; i += nthreads) {
+      const int b = i / 3, c = i % 3;
+      const float v = merge_cell<NC>(
+          partial + ((static_cast<size_t>(f) * nl + s) * nb + b) * NC + c,
+          stride, n_chunks);
+      if (hs) hs[i] = v;
+      const float p = par ? par[i] : 0.f;
+      const float hl = sml ? v : __fsub_rn(p, v);
+      const float hr = __fsub_rn(p, hl);
+      h2[0][b][c] = hl;
+      h2[1][b][c] = hr;
+      if (out_l) {
+        out_l[i] = hl;
+        out_r[i] = hr;
+      }
+    }
+  } else {
+    for (int i = tid; i < 2 * B * 3; i += nthreads) {
+      const int w = i / (B * 3), b = (i / 3) % B, c = i % 3;
+      h2[w][b][c] = merge_cell<NC>(
+          partial +
+              ((static_cast<size_t>(f) * nl + 2 * s + w) * nb + b) * NC + c,
+          stride, n_chunks);
+    }
+  }
+  __syncthreads();
+  if (tid >= 64) return;
+
+  const int w = tid >> 5;
+  const int lane = tid & 31;
+  const int child = 2 * s + w;
+  const int nbins_f = fmeta[f];
+  const int mt = fmeta[nf + f];
+  const int nanb = fmeta[2 * nf + f];
+  const int zb = fmeta[3 * nf + f];
+  const bool usable = fmeta[4 * nf + f] != 0 && mask[child * nf + f] != 0;
+  const bool is_nan_f = mt == kMissingNan;
+  const bool is_zero_f = mt == kMissingZero;
+
+  // ---- scan_left_sums: both directions' left sums in bin order ---------
+  if (lane < 3) {
+    const int ch = lane;
+    const float nan_c = h2[w][nanb < 0 ? 0 : nanb][ch];
+    const float zero_c = h2[w][zb][ch];
+    double acc = 0.0;
+    for (int b = 0; b < B; ++b) {
+      acc += static_cast<double>(h2[w][b][ch]);
+      const float cum = static_cast<float>(acc);
+      left2[w][0][b][ch] =
+          __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
+      left2[w][1][b][ch] = __fadd_rn(
+          cum, is_nan_f ? nan_c : ((is_zero_f && b < zb) ? zero_c : 0.f));
+    }
+  }
+  __syncwarp();
+
+  // ---- scan_direction_gains ---------------------------------------------
+  const float tg = csums[child * 3], th = csums[child * 3 + 1],
+              tc = csums[child * 3 + 2];
+  const float shift = gain_shift(tg, th, prm);
+  const bool has_miss = is_nan_f || is_zero_f;
+  float fbest = -INFINITY;
+  for (int j = lane; j < 2 * B; j += 32) {
+    const int dir = j >= B;
+    const int t = j - dir * B;
+    const float lg = left2[w][dir][t][0], lh = left2[w][dir][t][1],
+                lc = left2[w][dir][t][2];
+    const float rg = __fsub_rn(tg, lg), rh = __fsub_rn(th, lh),
+                rc = __fsub_rn(tc, lc);
+    const bool ok = lc >= prm.min_data && rc >= prm.min_data &&
+                    lh >= prm.min_hess && rh >= prm.min_hess;
+    const float gain = __fadd_rn(leaf_gain(lg, lh, prm),
+                                 leaf_gain(rg, rh, prm));
+    const bool valid = t <= nbins_f - 2 && usable && (dir == 0 || has_miss);
+    const float g = __fsub_rn((valid && ok) ? gain : -INFINITY, shift);
+    gains[w][j] = g;
+    fbest = nan_max(fbest, g);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    fbest = nan_max(fbest, __shfl_xor_sync(0xffffffffu, fbest, o));
+  __syncwarp();
+
+  // ---- scan_pick_feature: the tie-band preference pick ------------------
+  const float babs = isfinite(fbest) ? fabsf(fbest) : 0.f;
+  const float floor_g =
+      __fsub_rn(fbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
+  const bool rev_like_a = mt == kMissingNone || nbins_f <= 2;
+  int best_pref = -2, best_j = 0;
+  for (int j = lane; j < 2 * B; j += 32) {
+    const int dir = j >= B;
+    const int t = j - dir * B;
+    const int pref = (dir || rev_like_a) ? 2 * B + t : B - 1 - t;
+    const int v = gains[w][j] >= floor_g ? pref : -1;
+    if (v > best_pref) {  // strictly: the first index of the best wins
+      best_pref = v;
+      best_j = j;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const int op = __shfl_xor_sync(0xffffffffu, best_pref, o);
+    const int oj = __shfl_xor_sync(0xffffffffu, best_j, o);
+    if (op > best_pref || (op == best_pref && oj < best_j)) {
+      best_pref = op;
+      best_j = oj;
+    }
+  }
+  if (lane == 0) {
+    const int dir = best_j >= B;
+    const int t = best_j - dir * B;
+    float* r = residue + (static_cast<size_t>(child) * nf + f) * 6;
+    r[0] = fbest;
+    r[1] = gains[w][best_j];
+    r[2] = static_cast<float>(best_j);
+    r[3] = left2[w][dir][t][0];
+    r[4] = left2[w][dir][t][1];
+    r[5] = left2[w][dir][t][2];
+  }
+}
+
+}  // namespace lgbm

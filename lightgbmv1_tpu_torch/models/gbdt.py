@@ -73,7 +73,8 @@ class GBDT:
             min_gain_to_split=config.min_gain_to_split)
         self._grow = build_trainer(config, self.meta, self.split_params,
                                    self.num_bins, self.device,
-                                   bin_dtype=self.binned.dtype)
+                                   bin_dtype=self.binned.dtype,
+                                   num_data=self.num_data)
         # the per-tree feature mask at feature_fraction 1: usable features
         self._base_mask = self.meta.usable
 

@@ -45,9 +45,17 @@ go through ``fused_round_fn.route_rows`` (K3).  Dead slots carry leaf id
 a round's slot k is its rank k, so the slot -> rank gather is a prefix.
 The root pass stays on ``hist_wave_fn`` (K1).
 
+With ``fused_loop_fn`` as well (``wave_loop_rounds > 1``) the rounds run
+as segments (JAX :1547-1659): one launch of the persistent loop (K6 on
+the card) runs R rounds from the frontier columns of the store, and the
+grower reads the segment's split counts once and replays each round that
+split through the same boundary, valid-set routing and store commit as
+the single round, from the round's packed SplitInfo.  The segments end at
+a round of no split or at ``num_leaves``.
+
 Categorical splits, monotone constraints, CEGB, per-node feature
-sampling, interaction constraints, the quantized int8sr rounds and the
-persistent wave loop (K6) are not ported (the config refuses them):
+sampling, interaction constraints and the quantized int8sr rounds are
+not ported (the config refuses them):
 every child's feature mask is the tree's, and the split scan and the root
 sums are the serial learner's own (the JAX version's ``split_fn`` /
 ``sums_fn`` hooks carry the cross-chip reductions, which the port has
@@ -229,17 +237,22 @@ def _topk_by_rank(gains: torch.Tensor, K: int):
 def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      params: SplitParams, hist_wave_fn: Callable,
                      max_depth: int = -1, wave_size: int = 32,
-                     fused_round_fn: Optional[Callable] = None):
+                     fused_round_fn: Optional[Callable] = None,
+                     fused_loop_fn: Optional[Callable] = None):
     """Build ``grow(binned, g3, base_mask, valids=())``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False) -> (nslots, F,
     B, 3)``: histograms of the rows labelled 0..nslots-1 (``nslots`` is
     dead); ``deep`` marks a sustained round that may run the cheaper deep
     precision.  ``fused_round_fn`` (ops/wave_fused.make_fused_round) runs
-    every round after the root as one routed fused round.  ``grow``
-    returns ``(tree, leaf_id, root_sum, valid_leaf_ids)``:
-    each valid set's rows routed through the same splits, so its score
-    update is a leaf-value gather."""
+    every round after the root as one routed fused round; with
+    ``fused_loop_fn`` (ops/wave_fused.make_fused_wave_loop, which the
+    trainer builds only where its plan is eligible) the rounds run as
+    segments of ``fused_loop_fn.rounds`` rounds a launch, replayed here
+    from their packed SplitInfo (JAX :1547-1659), and ``fused_round_fn``
+    routes the valid sets.  ``grow`` returns ``(tree, leaf_id, root_sum,
+    valid_leaf_ids)``: each valid set's rows routed through the same
+    splits, so its score update is a leaf-value gather."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
@@ -284,53 +297,106 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             new = torch.where(in_split & ~gl, nls[rs].to(torch.int32), lid)
             return new, gl, in_split, rs
 
+        def to_slot(v, fill, width):
+            out = torch.full((width,) + tuple(v.shape[1:]), fill,
+                             dtype=v.dtype, device=dev)
+            out[:v.shape[0]] = v
+            return out
+
+        def boundary(vals, leafs, n):
+            """A round of ``n`` splits, the first ``n`` ranks (the picks
+            are a prefix of the ranking: gains sorted, budget a prefix):
+            their store rows, the children's sums, outputs, depths and
+            mask and the slot bucket S."""
+            order = torch.arange(n, device=dev)
+            b = dict(vals=vals[:n], leafs=leafs[:n], order=order,
+                     nodes=nl - 1 + order, nls=nl + order)
+            rd = store.read(st, b["leafs"])
+            b.update(rd)
+            lsums, rsums = rd["lsums"], rd["rsums"]
+            b["sm_left"] = lsums[:, 2] <= rsums[:, 2]    # smaller child
+            b["cleafs"] = torch.stack([b["leafs"], b["nls"]],
+                                      dim=1).reshape(2 * n)
+            b["csums"] = torch.stack([lsums, rsums], dim=1).reshape(2 * n, 3)
+            b["couts"] = torch.stack([child_leaf_output(lsums, params),
+                                      child_leaf_output(rsums, params)],
+                                     dim=1).reshape(2 * n)
+            b["cdepth"] = (rd["pdepth"] + 1).repeat_interleave(2)
+            b["cmask"] = base_mask[None, :].expand(2 * n, F)
+            b["S"] = slot_buckets[sum(n > s for s in slot_buckets[:-1])]
+            return b
+
+        def slot_route(b):
+            """The round's splits as (S,) slot arrays, the fused round's
+            and the valid sets' routing input (dead slots carry leaf id L,
+            the JAX ``to_slot`` fill)."""
+            S = b["S"]
+            return dict(feats=to_slot(b["feats"], 0, S),
+                        thrs=to_slot(b["thrs"], 0, S),
+                        dls=to_slot(b["dls"], False, S),
+                        leafs=to_slot(b["leafs"], L, S),
+                        nls=to_slot(b["nls"], 0, S), num_leaves=L)
+
+        def commit(b, res):
+            """Tree assembly + frontier commit of a round's children."""
+            depth_ok = (max_depth <= 0) | (b["cdepth"] < max_depth)
+            cgain = torch.where(depth_ok, res.gain,
+                                torch.full_like(res.gain, NEG_INF))
+            lsums, rsums = b["lsums"], b["rsums"]
+            store.write(st, dict(
+                res=res, cgain=cgain, cidx=b["cleafs"], nidx=b["nodes"],
+                leafs=b["leafs"], nls=b["nls"], feats=b["feats"],
+                thrs=b["thrs"], dls=b["dls"],
+                mtypes=meta.missing_type[b["feats"]], vals=b["vals"],
+                pout=b["pout"], psum=lsums + rsums, csums=b["csums"],
+                couts=b["couts"], cdepth=b["cdepth"], parent=b["parent"],
+                was_left=b["was_left"]))
+
         while nl < L:
+            if fused_loop_fn is not None:
+                # ---- a segment: R rounds in one launch (K6), replayed ----
+                packed_r, leaf_id, pool, n_split = fused_loop_fn(
+                    binned, g3, leaf_id,
+                    st["ft"][:, store.GAIN:store.DEPTH + 1], nl,
+                    K=K, slot_buckets=slot_buckets, max_depth=max_depth,
+                    base_mask=base_mask, pool=leaf_hist)
+                counts = n_split.tolist()        # the segment's host read
+                for r, n in enumerate(counts):
+                    if n == 0:
+                        break
+                    vals, leafs = _topk_by_rank(store.gains(st), K)
+                    b = boundary(vals, leafs, n)
+                    rt = slot_route(b)
+                    vlids = [fused_round_fn.route_rows(vb, vl, **rt)
+                             for vb, vl in zip(valids, vlids)]
+                    commit(b, unpack_children(packed_r[r][:2 * n],
+                                              num_bins))
+                    nl += n
+                leaf_hist = pool
+                if 0 in counts:
+                    break
+                continue
+
             vals, leafs = _topk_by_rank(store.gains(st), K)
             valid = (vals > 0) & (kiota < L - nl)
             n = int(valid.sum())                 # the round's host read
             if n == 0:
                 break
-            # the picks are a prefix of the ranking: keep the n live ranks
-            vals, leafs = vals[:n], leafs[:n]
-            order = torch.arange(n, device=dev)
-            nodes = nl - 1 + order
-            nls = nl + order
-            rd = store.read(st, leafs)
-            feats, thrs, dls = rd["feats"], rd["thrs"], rd["dls"]
-            lsums, rsums = rd["lsums"], rd["rsums"]
-            sm_left = lsums[:, 2] <= rsums[:, 2]         # smaller child
-            cleafs = torch.stack([leafs, nls], dim=1).reshape(2 * n)
-            csums = torch.stack([lsums, rsums], dim=1).reshape(2 * n, 3)
-            out_l = child_leaf_output(lsums, params)
-            out_r = child_leaf_output(rsums, params)
-            couts = torch.stack([out_l, out_r], dim=1).reshape(2 * n)
-            cdepth = (rd["pdepth"] + 1).repeat_interleave(2)
-            depth_ok = (max_depth <= 0) | (cdepth < max_depth)
-            cmask = base_mask[None, :].expand(2 * n, F)
-
-            S = slot_buckets[sum(n > b for b in slot_buckets[:-1])]
+            b = boundary(vals, leafs, n)
+            S = b["S"]
+            leafs, order, sm_left = b["leafs"], b["order"], b["sm_left"]
             # sustained rounds of a big wave may run the deep precision
             deep = S == K and K >= 32 and len(slot_buckets) > 1
             if fused_round_fn is not None:
                 # ---- the routed fused round (K2) + valid routing (K3) ----
-                def to_slot(v, fill, width=S):
-                    out = torch.full((width,) + tuple(v.shape[1:]), fill,
-                                     dtype=v.dtype, device=dev)
-                    out[:v.shape[0]] = v
-                    return out
-
-                rt = dict(feats=to_slot(feats, 0), thrs=to_slot(thrs, 0),
-                          dls=to_slot(dls, False), leafs=to_slot(leafs, L),
-                          nls=to_slot(nls, 0), num_leaves=L)
-                parent = None
-                if use_sub:
-                    parent = to_slot(leaf_hist[leafs], 0.0)
+                rt = slot_route(b)
                 packed, h_slot, leaf_id = fused_round_fn(
                     binned, g3, S, deep=deep,
-                    mask=to_slot(cmask, False, 2 * S),
-                    csums=to_slot(csums, 1.0, 2 * S),
-                    sml=to_slot(sm_left, False) if use_sub else None,
-                    parent=parent,
+                    mask=to_slot(b["cmask"], False, 2 * S),
+                    csums=to_slot(b["csums"], 1.0, 2 * S),
+                    sml=to_slot(sm_left, False, S) if use_sub else None,
+                    parent=(to_slot(leaf_hist[leafs], 0.0, S) if use_sub
+                            else None),
                     route=dict(rt, leaf_id=leaf_id))
                 vlids = [fused_round_fn.route_rows(vb, vl, **rt)
                          for vb, vl in zip(valids, vlids)]
@@ -342,6 +408,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 res = unpack_children(packed[:2 * n], num_bins)
             else:
                 # ---- partition + labelling + histogram at bucket S ------
+                feats, thrs, dls, nls = b["feats"], b["thrs"], b["dls"], \
+                    b["nls"]
                 slot_of = torch.full((L + 1,), -1, dtype=torch.long,
                                      device=dev)
                 slot_of[leafs] = order
@@ -368,19 +436,11 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                                                 order, sm_left)
                 else:
                     hist = h_slot[:2 * n]        # slot 2s + side = child
-                res = find_best_split(hist, csums, meta, cmask, params)
-            cgain = torch.where(depth_ok, res.gain,
-                                torch.full_like(res.gain, NEG_INF))
-
-            # ---- tree assembly + frontier commit -------------------------
-            store.write(st, dict(
-                res=res, cgain=cgain, cidx=cleafs, nidx=nodes,
-                leafs=leafs, nls=nls, feats=feats, thrs=thrs, dls=dls,
-                mtypes=meta.missing_type[feats], vals=vals, pout=rd["pout"],
-                psum=lsums + rsums, csums=csums, couts=couts, cdepth=cdepth,
-                parent=rd["parent"], was_left=rd["was_left"]))
+                res = find_best_split(hist, b["csums"], meta, b["cmask"],
+                                      params)
+            commit(b, res)
             if use_sub:
-                leaf_hist[cleafs] = hist
+                leaf_hist[b["cleafs"]] = hist
             nl += n
 
         tree = store.finalize(st, nl)

@@ -73,6 +73,17 @@ def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
     plain histogram of the label, the subtraction and
     ``child_scan_residue``."""
     count_plain("fused_round")
+    return round_ref(binned, g3, nslots=nslots, num_bins=num_bins,
+                     precision=precision, meta=meta, params=params,
+                     mask=mask, csums=csums, route=route, sml=sml,
+                     parent=parent)
+
+
+def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
+              params: SplitParams, mask, csums, route, sml=None,
+              parent=None):
+    """``fused_round_ref`` uncounted: the round the persistent loop's plain
+    version (ops/loop_cuda.py) runs R times."""
     sub = parent is not None
     dbin = wf.decision_bins(binned, route["oleaf"], route["feats"],
                             route["rmeta"][:, 0], route["num_leaves"])

@@ -1,0 +1,270 @@
+"""The persistent wave loop (K6) on the card, and its plain version.
+
+Counterpart of lightgbmv1_tpu/ops/wave_fused.py ``_loop_kernel`` (reached
+through ``make_fused_wave_loop``): R consecutive wave rounds in one launch,
+the frontier state kept on the device between them.  A round is the
+single round K2 runs (ops/fused_cuda.py) plus the boundary before it and
+the pick and commit after it: top-k over the frontier gains, the live
+count and its slot bucket, route + label, the smaller children's (or,
+pool-free, all children's) histograms, subtraction, split scan, the
+cross-feature pick (``wave_fused._pick_pack``), then the children's
+frontier rows and, in subtraction mode, their pool rows.  The kernel is
+written by hand in CUDA C++ (``csrc/wave_loop.cu``; its head note says
+what bounds it and how the design answers it) and launched cooperatively:
+its stages are K2's device code, separated by grid barriers.
+
+``fused_wave_loop_ref`` is the plain PyTorch version: ``loop_rounds``
+with K2's plain round (``fused_cuda.round_ref``).  ``loop_rounds`` with
+``round_fn=fused_cuda.fused_round`` is R launches of K2 with the same
+boundary, pick and commit in PyTorch, which the kernel equals bit for bit
+on the card.  A CPU tensor takes the plain version; a CUDA tensor
+launches the kernel or raises.  Each launch adds one to
+``launch_counts["fused_wave_loop"]`` and to ``bucket_launch_counts[(R,
+precision, "sub" | "pool")]``; each plain call adds one to
+``plain_counts["fused_wave_loop"]``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import threading
+
+import torch
+
+from . import _build, fused_cuda, hist_cuda
+from . import wave_fused as wf
+from .split import (NEG_INF, FeatureMeta, SplitParams, child_leaf_output,
+                    gain_shift)
+
+launch_counts = {"fused_wave_loop": 0}
+# the launches of ``launch_counts["fused_wave_loop"]`` by (rounds,
+# precision, "sub" | "pool")
+bucket_launch_counts: dict = {}
+plain_counts = {"fused_wave_loop": 0}
+_count_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    with _count_lock:
+        launch_counts["fused_wave_loop"] = 0
+        plain_counts["fused_wave_loop"] = 0
+        bucket_launch_counts.clear()
+
+
+def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
+                slot_buckets, max_depth, base_mask, num_bins, precision,
+                meta: FeatureMeta, params: SplitParams, pool=None,
+                round_fn=fused_cuda.round_ref):
+    """``rounds`` wave rounds from the frontier ``ft12`` (L, 12) at
+    ``num_leaves`` leaves, each through ``round_fn`` (a fused round's
+    signature) -> ``(packed (R, 2K, PACK_COLS), new_leaf (N,), pool or
+    None, n_split (R,) i32)``.  Round r's packed rows [0, 2 S_r) are its
+    slots' picks (the live ones first), the rest zero; a round with no
+    split ends the loop, and it and the rounds after it stay zero.  The
+    boundary, pick and commit are the grower's (models/grower_wave.py)
+    op for op, so the frontier after a round is the split store's."""
+    from ..models.grower_wave import _topk_by_rank
+
+    dev = binned.device
+    L = ft12.shape[0]
+    C = 2 * K
+    sub = pool is not None
+    ft = ft12.clone()
+    pool = pool.clone() if sub else None
+    leaf = leaf_id
+    packed = torch.zeros((rounds, C, wf.PACK_COLS), dtype=torch.float32,
+                         device=dev)
+    n_split = torch.zeros(rounds, dtype=torch.int32, device=dev)
+    kiota = torch.arange(K, device=dev)
+    nl = int(num_leaves)
+    for r in range(rounds):
+        vals, leafs = _topk_by_rank(ft[:, 0], K)
+        n = int(((vals > 0) & (kiota < L - nl)).sum())
+        if n == 0:
+            break
+        S = slot_buckets[sum(n > b for b in slot_buckets[:-1])]
+        leafs = leafs[:n]
+        rows = ft[leafs]
+        feats, thrs = rows[:, 1].long(), rows[:, 2].long()
+        dls = rows[:, 3] != 0
+        lsums, rsums = rows[:, 4:7], rows[:, 7:10]
+        sml = lsums[:, 2] <= rsums[:, 2]
+        nls = nl + torch.arange(n, device=dev)
+
+        def to_slot(v, fill, width=S):
+            out = torch.full((width,) + tuple(v.shape[1:]), fill,
+                             dtype=v.dtype, device=dev)
+            out[:v.shape[0]] = v
+            return out
+
+        feats_s = to_slot(feats, 0)
+        rmeta = wf.pack_route_meta(feats_s, to_slot(thrs, 0),
+                                   to_slot(dls, False), to_slot(leafs, L),
+                                   to_slot(nls, 0), meta,
+                                   sml=to_slot(sml, False))
+        csums = torch.stack([lsums, rsums], dim=1).reshape(2 * n, 3)
+        csums_s = to_slot(csums, 1.0, 2 * S)
+        mask = to_slot(base_mask[None, :].expand(2 * n, base_mask.shape[0]),
+                       False, 2 * S)
+        residue, hsm, leaf, _ = round_fn(
+            binned, g3, nslots=S if sub else 2 * S, num_bins=num_bins,
+            precision=precision, meta=meta, params=params, mask=mask,
+            csums=csums_s, sml=to_slot(sml, False) if sub else None,
+            parent=to_slot(pool[leafs], 0.0) if sub else None,
+            route=dict(oleaf=leaf, feats=feats_s.to(torch.int32), rmeta=rmeta,
+                       num_leaves=L))
+        pk = wf._pick_pack(residue, gain_shift(csums_s, params), csums_s,
+                           meta, num_bins)
+        packed[r, :2 * S] = pk
+        n_split[r] = n
+        # ---- the commit: the store's frontier columns, the pool --------
+        cidx = torch.stack([leafs, nls], dim=1).reshape(2 * n)
+        cdepth = (rows[:, 11].long() + 1).repeat_interleave(2)
+        depth_ok = (max_depth <= 0) | (cdepth < max_depth)
+        live = pk[:2 * n]
+        cgain = torch.where(depth_ok, live[:, 0],
+                            torch.full_like(live[:, 0], NEG_INF))
+        ft[cidx] = torch.cat([cgain[:, None], live[:, 1:],
+                              child_leaf_output(csums, params)[:, None],
+                              cdepth.to(torch.float32)[:, None]], dim=1)
+        if sub:
+            pool[cidx] = wf.subtract_children(hsm[:n], pool[leafs], sml)
+        nl += n
+    return packed, leaf, pool, n_split
+
+
+def fused_wave_loop_ref(binned, g3, leaf_id, ft12, num_leaves, **kw):
+    """Plain version of ``fused_wave_loop``: ``loop_rounds`` on K2's plain
+    round."""
+    with _count_lock:
+        plain_counts["fused_wave_loop"] += 1
+    return loop_rounds(binned, g3, leaf_id, ft12, num_leaves, **kw)
+
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = _build.load("wave_loop")
+    lib.lgbm_fused_wave_loop.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 5 \
+        + [_P]
+    lib.lgbm_fused_wave_loop.restype = _I
+    lib.lgbm_wave_loop_limits.argtypes = [_I] * 6 + [_P, _P]
+    lib.lgbm_wave_loop_limits.restype = _I
+    lib.lgbm_wave_loop_bnd_ints.argtypes = [_I, _I]
+    lib.lgbm_wave_loop_bnd_ints.restype = _I
+    return lib
+
+
+def bucket_plans(N, F, num_bins, precision, slot_buckets, sub) -> list:
+    """K2's histogram plan (``hist_cuda.plan``) at each ladder bucket's
+    nslots + 1 slots: the loop runs a round under its bucket's plan."""
+    return [hist_cuda.plan(N, F, (S if sub else 2 * S) + 1, num_bins,
+                           precision) for S in slot_buckets]
+
+
+def partial_floats(N, F, num_bins, precision, slot_buckets, sub) -> int:
+    """The partial scratch of the largest bucket's plan."""
+    return max(p["n_chunks"] * F * ((S if sub else 2 * S) + 1) * p["nb"]
+               * p["nc"] for S, p in zip(slot_buckets, bucket_plans(
+                   N, F, num_bins, precision, slot_buckets, sub)))
+
+
+def limits(device, *, precision, sub, num_bins, N, F, L, K,
+           slot_buckets) -> dict:
+    """The card's limits on the loop kernel at this shape: shared memory a
+    block, resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+    SMs, cooperative launch (``cudaDevAttrCooperativeLaunch``) and the
+    device memory free to the loop."""
+    plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub)
+    ls_max = (ctypes.c_int * len(plans))(*[p["ls_max"] for p in plans])
+    out = (ctypes.c_int * 4)()
+    with torch.cuda.device(device):
+        fused_cuda._raise_on(_lib().lgbm_wave_loop_limits(
+            hist_cuda.PREC_ID[precision], int(sub),
+            hist_cuda.kernel_width(num_bins), L, K, len(plans), ls_max, out),
+            "fused_wave_loop limits")
+        free = torch.cuda.mem_get_info(device)[0] + (
+            torch.cuda.memory_reserved(device)
+            - torch.cuda.memory_allocated(device))
+    return {"smem_bytes": out[0], "blocks_per_sm": out[1], "sms": out[2],
+            "cooperative": bool(out[3]), "free_bytes": int(free)}
+
+
+def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
+                    slot_buckets, max_depth, base_mask, num_bins, precision,
+                    meta: FeatureMeta, params: SplitParams, pool=None,
+                    fmeta=None):
+    """K6: ``rounds`` wave rounds in one launch -> ``(packed (R, 2K,
+    PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``, as
+    ``loop_rounds`` computes them.
+
+    ``ft12`` (L, 12) f32 is the frontier (the split store's columns gain
+    .. depth), ``num_leaves`` the leaf count, ``base_mask`` (F,) bool the
+    features a child may split on, ``slot_buckets`` the ladder; ``pool``
+    (L, F, B, 3) f32 selects the subtraction mode.  The inputs are not
+    modified.  ``fmeta`` is ``fused_cuda.feature_table(meta)``, made once
+    by a caller that launches many times."""
+    if binned.device.type == "cpu":
+        return fused_wave_loop_ref(
+            binned, g3, leaf_id, ft12, num_leaves, rounds=rounds, K=K,
+            slot_buckets=slot_buckets, max_depth=max_depth,
+            base_mask=base_mask, num_bins=num_bins, precision=precision,
+            meta=meta, params=params, pool=pool)
+    F, N = fused_cuda._check_bins(binned)
+    if precision not in hist_cuda.PRECISIONS:
+        raise ValueError(f"precision={precision!r}: expected one of "
+                         f"{hist_cuda.PRECISIONS}")
+    L, B, C, R, dev = ft12.shape[0], int(num_bins), 2 * K, int(rounds), \
+        binned.device
+    sub = pool is not None
+    if R < 1 or not 1 <= len(slot_buckets) <= 8 or max(slot_buckets) > K:
+        raise ValueError(f"rounds={R}, slot_buckets={slot_buckets}, K={K}: "
+                         "expected rounds >= 1 and 1-8 buckets <= K")
+    fused_cuda._need(g3, "g3", torch.float32, (N, 3), dev)
+    fused_cuda._need(leaf_id, "leaf_id", torch.int32, (N,), dev)
+    fused_cuda._need(ft12, "ft12", torch.float32, (L, 12), dev)
+    fused_cuda._need(base_mask, "base_mask", torch.bool, (F,), dev)
+    if sub:
+        fused_cuda._need(pool, "pool", torch.float32, (L, F, B, 3), dev)
+    plans = bucket_plans(N, F, B, precision, slot_buckets, sub)
+    tables = (ctypes.c_int * (4 * len(plans)))(
+        *slot_buckets, *[p["ls_max"] for p in plans],
+        *[p["n_chunks"] for p in plans], *[p["chunk_rows"] for p in plans])
+    lib = _lib()
+    f32, i32 = torch.float32, torch.int32
+    new_leaf = leaf_id.clone()
+    ft = ft12.clone()
+    pool_out = pool.clone() if sub else None
+    packed = torch.zeros((R, C, wf.PACK_COLS), dtype=f32, device=dev)
+    n_split = torch.zeros(R, dtype=i32, device=dev)
+    label = torch.empty(N, dtype=i32, device=dev)
+    partial = torch.empty(partial_floats(N, F, B, precision, slot_buckets,
+                                         sub), dtype=f32, device=dev)
+    residue = torch.empty((C, F, wf.RES_COLS), dtype=f32, device=dev)
+    bnd = torch.empty(lib.lgbm_wave_loop_bnd_ints(K, F), dtype=i32,
+                      device=dev)
+    mask = base_mask.to(torch.uint8)
+    if fmeta is None:
+        fmeta = fused_cuda.feature_table(meta)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = lib.lgbm_fused_wave_loop(
+            binned.data_ptr(), g3.data_ptr(), new_leaf.data_ptr(),
+            ft.data_ptr(), pool_out.data_ptr() if sub else 0,
+            fmeta.data_ptr(), mask.data_ptr(), packed.data_ptr(),
+            n_split.data_ptr(), label.data_ptr(), partial.data_ptr(),
+            residue.data_ptr(), bnd.data_ptr(), tables, N, F, B,
+            hist_cuda.kernel_width(B), L, K, R, int(num_leaves),
+            int(max_depth), len(plans), hist_cuda.PREC_ID[precision],
+            int(sub), params.lambda_l1, params.lambda_l2,
+            params.min_data_in_leaf, params.min_sum_hessian_in_leaf,
+            params.min_gain_to_split, stream)
+    fused_cuda._raise_on(err, "fused_wave_loop")
+    with _count_lock:
+        launch_counts["fused_wave_loop"] += 1
+        key = (R, precision, "sub" if sub else "pool")
+        bucket_launch_counts[key] = bucket_launch_counts.get(key, 0) + 1
+    return packed, new_leaf, pool_out, n_split

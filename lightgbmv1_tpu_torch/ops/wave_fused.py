@@ -1,23 +1,27 @@
 """The single-pass wave round: route + histogram + subtraction + split scan.
 
-Port of lightgbmv1_tpu/ops/wave_fused.py for the routed single round
-(``hist_method=fused`` at ``wave_loop_rounds=1``).  One round reads the
-binned matrix once: the committed splits' go-left decisions relabel the
-rows, the smaller children (or, pool-free, all children) are histogrammed
-from that label, the larger sibling is its parent minus the smaller, and
-each child's split scan runs per feature.  Only an O(F) residue a child
-(``RES_COLS`` floats a feature) leaves the scan; the cross-feature half of
-the pick runs on it outside.  On the card that round is the hand-written
-CUDA kernel K2 and the valid-set routing K3 (``ops/fused_cuda.py``,
+Port of lightgbmv1_tpu/ops/wave_fused.py for the routed wave round
+(``hist_method=fused``).  One round reads the binned matrix once: the
+committed splits' go-left decisions relabel the rows, the smaller
+children (or, pool-free, all children) are histogrammed from that label,
+the larger sibling is its parent minus the smaller, and each child's
+split scan runs per feature.  Only an O(F) residue a child (``RES_COLS``
+floats a feature) leaves the scan; the cross-feature half of the pick
+runs on it outside.  On the card that round is the hand-written CUDA
+kernel K2 and the valid-set routing K3 (``ops/fused_cuda.py``,
 ``csrc/wave_fused.cu``); the functions here are the plain arithmetic both
-share with the staged path, so a fused tree equals a staged one.
+share with the staged path, so a fused tree equals a staged one.  The
+persistent loop (``wave_loop_rounds > 1``) runs R such rounds in one
+launch, the hand-written kernel K6 on the card (``ops/loop_cuda.py``,
+``csrc/wave_loop.cu``).
 
 Ported: ``RES_COLS`` / ``PACK_COLS`` / ``RMETA_COLS`` (:126-128),
 ``route_tile`` (:134), ``pack_route_meta`` (:179), ``decision_bins``
 (:197), ``child_scan_residue`` (:215), ``fused_route_rows`` (:567),
 ``_pick_pack`` (:610), ``pack_children`` / ``unpack_children`` (:641 /
-:652), ``make_fused_round`` (:669) and ``fused_ineligible_reason``
-(:1356).  The arguments the port's scan never reads are gone: monotone
+:652), ``make_fused_round`` (:669), ``plan_wave_loop`` (:804),
+``make_fused_wave_loop`` (:1183) and ``fused_ineligible_reason`` (:1356).
+The arguments the port's scan never reads are gone: monotone
 constraints, path smoothing, int8sr and packed4 bins are refused by the
 config, so ``constr``, ``depth``, ``pout``, ``cscale`` / ``sscale``,
 ``quant_key``, ``meta_override`` and ``packed`` do not exist here.  The
@@ -251,6 +255,130 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
     fused_round.supports_route = True
     fused_round.route_rows = functools.partial(fused_route_rows, meta=meta)
     return fused_round
+
+
+_LOOP_MAX_ROUNDS = 64
+
+
+def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
+                   precision, deep_precision, use_mc=False, limits=None):
+    """Eligibility and size of the persistent wave loop (JAX :804), decided
+    from shapes and knobs: the JAX dict's keys (``eligible``, ``rounds``,
+    ``reason``, ``ladder`` and the byte counts) and the card's limits.
+
+    Kept from the JAX planner, with its reasons word for word: ``rounds <=
+    1`` is the single round, ``rounds`` is capped at ``_LOOP_MAX_ROUNDS``,
+    monotone constraints keep the single round, and a reachable deep
+    bucket (K >= 32, a multi-bucket ladder) needs ``deep_precision ==
+    precision``: one precision, one kernel instance, for the whole launch.
+
+    Replaced: the JAX lane, row-tile and VMEM gates are facts of Pallas on
+    a TPU.  The card's own stand in their place when ``limits``
+    (``loop_cuda.limits``) is given: cooperative launch, at least one
+    resident block an SM at the kernel's shared memory, and the resident
+    state and scratch within the device's free memory.  The row-tile gate
+    has no counterpart: the loop runs each round at the bucket the single
+    round picks and under that bucket's histogram plan, so its sums are
+    partitioned exactly as K2's.  Without ``limits`` (the plain version on
+    the CPU) the card's gates are not asked."""
+    from .loop_cuda import partial_floats
+
+    R = int(min(rounds, _LOOP_MAX_ROUNDS))
+    B, C = num_bins, 2 * K
+    state_bytes = L * 12 * 4 + 2 * N * 4 + (L * F * B * 3 * 4 if use_sub
+                                            else 0)
+    partial_bytes = 4 * partial_floats(N, F, B, precision, slot_buckets,
+                                       use_sub)
+    scratch_bytes = (N * 4 + partial_bytes + C * F * RES_COLS * 4
+                     + R * C * PACK_COLS * 4)
+    plan = dict(eligible=False, rounds=1, reason="",
+                ladder=tuple(int(s) for s in slot_buckets),
+                state_bytes=int(state_bytes),
+                partial_bytes=int(partial_bytes),
+                total_bytes=int(state_bytes + scratch_bytes))
+    if limits is not None:
+        plan.update({k: limits[k] for k in ("smem_bytes", "blocks_per_sm",
+                                            "sms", "cooperative")})
+    if rounds <= 1:
+        plan["reason"] = "wave_loop_rounds=1 (single-round dispatch)"
+        return plan
+    if use_mc:
+        plan["reason"] = ("monotone constraints propagate per-round "
+                          "bounds outside the kernel")
+        return plan
+    if K >= 32 and len(slot_buckets) > 1 and deep_precision != precision:
+        plan["reason"] = ("deep-precision drop would change the "
+                          "accumulate dtype mid-loop")
+        return plan
+    if limits is not None:
+        if not limits["cooperative"]:
+            plan["reason"] = ("the device does not support cooperative "
+                              "launch (cudaDevAttrCooperativeLaunch)")
+            return plan
+        if limits["blocks_per_sm"] < 1:
+            plan["reason"] = (
+                f"no block of the loop kernel is resident on an SM at "
+                f"{limits['smem_bytes']} B of shared memory "
+                "(cudaOccupancyMaxActiveBlocksPerMultiprocessor)")
+            return plan
+        if plan["total_bytes"] > limits["free_bytes"]:
+            plan["reason"] = (
+                f"resident state + scratch ({plan['total_bytes']} B) "
+                f"exceeds the device's free memory "
+                f"({limits['free_bytes']} B)")
+            return plan
+    plan["eligible"] = True
+    plan["rounds"] = R
+    return plan
+
+
+def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
+                         num_bins, precision, deep_precision, rounds):
+    """Build the grower-facing persistent wave loop (JAX :1183).
+
+    ``fused_loop(binned, g3, leaf_id, ft12, num_leaves, *, K,
+    slot_buckets, max_depth, base_mask, pool=None) -> (packed (R, 2K,
+    PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``: R
+    rounds in one launch (K6 on the card, ``ops/loop_cuda.py``), R =
+    ``rounds`` capped at ``_LOOP_MAX_ROUNDS``.  ``ft12`` (L, 12) f32 is
+    the frontier (the split store's columns gain .. depth); ``pool``
+    selects the subtraction mode.  The per-round packed SplitInfo rows and
+    split counts are all the grower's replay needs; the JAX package has no
+    ``n_split`` output (its replay is traced), here it is the one host
+    read of a segment.  The loop runs at ``precision``: the planner
+    refuses a reachable deep bucket at another precision.
+
+    ``fused_loop.rounds`` is R; ``fused_loop.plan(N=, F=, K=, L=,
+    use_sub=, slot_buckets=, device=)`` is ``plan_wave_loop`` with the
+    knobs bound here and, on a CUDA device, the card's limits.  ``rounds
+    == 1`` is never built: the trainer runs the single round."""
+    from . import fused_cuda, loop_cuda
+
+    fmeta = fused_cuda.feature_table(meta)
+    R = int(min(rounds, _LOOP_MAX_ROUNDS))
+
+    def fused_loop(binned, g3, leaf_id, ft12, num_leaves, *, K,
+                   slot_buckets, max_depth, base_mask, pool=None):
+        return loop_cuda.fused_wave_loop(
+            binned, g3, leaf_id, ft12.contiguous(), num_leaves, rounds=R,
+            K=K, slot_buckets=tuple(slot_buckets), max_depth=max_depth,
+            base_mask=base_mask, num_bins=num_bins, precision=precision,
+            meta=meta, params=params, pool=pool, fmeta=fmeta)
+
+    def plan(*, N, F, K, L, use_sub, slot_buckets, device):
+        limits = None
+        if torch.device(device).type == "cuda":
+            limits = loop_cuda.limits(
+                device, precision=precision, sub=use_sub, num_bins=num_bins,
+                N=N, F=F, L=L, K=K, slot_buckets=tuple(slot_buckets))
+        return plan_wave_loop(rounds=rounds, N=N, F=F, num_bins=num_bins,
+                              K=K, L=L, use_sub=use_sub,
+                              slot_buckets=slot_buckets, precision=precision,
+                              deep_precision=deep_precision, limits=limits)
+
+    fused_loop.rounds = R
+    fused_loop.plan = plan
+    return fused_loop
 
 
 def fused_ineligible_reason(*, bin_dtype, num_bins) -> str:

@@ -9,17 +9,21 @@ two precisions, and wire ``hist_wave`` into the wave grower, with the
 ``hist_method=fused`` is the fused dispatch of the JAX ``build_trainer``
 (:591-646): the wave rounds run ``ops/wave_fused.make_fused_round`` (K2
 on the card, K3 for the valid sets), the root pass the base method
-``pallas`` (K1).  Where the JAX package logs an ineligible configuration
-and falls back to the staged path, the port raises
-``NotImplementedError`` with the reason: nothing silently trains
-something else.
+``pallas`` (K1).  With ``wave_loop_rounds > 1`` (JAX :647-722) they run
+as segments of the persistent loop ``make_fused_wave_loop`` (K6), where
+its plan (``plan_wave_loop``) is eligible.  Where the JAX package logs an
+ineligible configuration and falls back to the staged path or to the
+single round, the port raises ``NotImplementedError`` with the JAX
+reason: nothing silently trains something else.
 
 What the JAX package routes elsewhere raises here, naming its ROADMAP
 item: the sequential grower (auto ``leafwise_wave_size`` at
 ``num_leaves <= 7``; an explicit ``leafwise_wave_size >= 1`` forces the
 wave grower, as there), the level-wise grower, ``packed4`` bins (which
-``auto`` picks on the card at ``max_bin <= 15``), the int8 / int8sr
-precisions and the persistent wave loop (``wave_loop_rounds > 1``, K6).
+``auto`` picks on the card at ``max_bin <= 15``) and the int8 / int8sr
+precisions.  The loop's other JAX fallbacks (interaction constraints,
+``feature_fraction_bynode``, monotone constraints) are refused before,
+by ``config.unported_reason``.
 """
 
 from __future__ import annotations
@@ -28,12 +32,14 @@ from typing import Callable
 
 import torch
 
-from ..config import (GROWERS, INT8, PACKED4, WAVE_LOOP, Config,
-                      not_ported)
-from ..models.grower_wave import auto_wave_size, make_wave_grower
+from ..config import GROWERS, INT8, PACKED4, Config, not_ported
+from ..models import grower_wave
+from ..models.grower_wave import (auto_wave_size, make_wave_grower,
+                                  slot_buckets_for)
 from ..ops.histogram import default_hist_method, hist_wave
 from ..ops.split import FeatureMeta, SplitParams
-from ..ops.wave_fused import fused_ineligible_reason, make_fused_round
+from ..ops.wave_fused import (fused_ineligible_reason, make_fused_round,
+                              make_fused_wave_loop)
 from ..utils.log import log_warning
 
 
@@ -64,10 +70,11 @@ def select_bin_layout(config: Config, *, num_total_bin: int,
 
 def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                   num_bins: int, device: torch.device,
-                  bin_dtype: torch.dtype = torch.uint8) -> Callable:
+                  bin_dtype: torch.dtype = torch.uint8,
+                  num_data: int = 0) -> Callable:
     """The serial learner's ``grow(binned, g3, base_mask, valids)``
     for the configured growth (models/grower_wave.make_wave_grower) over
-    ``bin_dtype`` bins."""
+    ``num_data`` rows of ``bin_dtype`` bins."""
     method = default_hist_method(config.hist_method, device)
     precision = config.hist_dtype
     if precision not in ("f32", "bf16", "bf16x2"):
@@ -98,22 +105,37 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                          precision=deep_precision if deep else precision)
 
     # ---- hist_method=fused: the routed fused round (K2, K3) -------------
-    fused_fn = None
+    fused_fn = fused_loop = None
     if config.hist_method == "fused":
         reason = fused_ineligible_reason(bin_dtype=bin_dtype,
                                          num_bins=num_bins)
         if reason:
             raise NotImplementedError(f"hist_method=fused: {reason}")
-        if config.wave_loop_rounds > 1:
-            raise not_ported(f"wave_loop_rounds={config.wave_loop_rounds}",
-                             WAVE_LOOP)
         fused_fn = make_fused_round(meta=meta, params=params,
                                     num_bins=num_bins, precision=precision,
                                     deep_precision=deep_precision)
+        if config.wave_loop_rounds > 1:
+            # ---- the persistent wave loop (K6), planned at this shape ---
+            fused_loop = make_fused_wave_loop(
+                meta=meta, params=params, num_bins=num_bins,
+                precision=precision, deep_precision=deep_precision,
+                rounds=config.wave_loop_rounds)
+            L, F = config.num_leaves, meta.num_bins.shape[0]
+            K = max(1, min(wave_size, max(L - 1, 1)))
+            plan = fused_loop.plan(
+                N=num_data, F=F, K=K, L=L,
+                use_sub=(L * F * num_bins * 3 * 4
+                         <= grower_wave._SUB_STATE_CAP_BYTES),
+                slot_buckets=slot_buckets_for(K, num_data), device=device)
+            if not plan["eligible"]:
+                raise NotImplementedError(
+                    f"wave_loop_rounds={config.wave_loop_rounds}: "
+                    f"{plan['reason']}")
 
     return make_wave_grower(num_leaves=config.num_leaves, num_bins=num_bins,
                             meta=meta, params=params,
                             max_depth=config.max_depth, wave_size=wave_size,
                             hist_wave_fn=local_wave,
-                            fused_round_fn=fused_fn)
+                            fused_round_fn=fused_fn,
+                            fused_loop_fn=fused_loop)
 

@@ -402,16 +402,18 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    names = ("hist", "wave_fused", "predict_walk")
-    before = {n: _build.lib_path(n) for n in names}
+    names = ("hist", "wave_fused", "wave_loop", "predict_walk")
     assert [p.name for p in _build.sources("wave_fused")] == [
-        "wave_fused.cu", "hist_tile.cuh"]
-    hdr = tmp_path / "hist_tile.cuh"
-    hdr.write_bytes(hdr.read_bytes() + b"\n// edited\n")
-    after = {n: _build.lib_path(n) for n in names}
-    assert after["hist"] != before["hist"]
-    assert after["wave_fused"] != before["wave_fused"]
-    assert after["predict_walk"] == before["predict_walk"]
+        "wave_fused.cu", "wave_round.cuh", "hist_tile.cuh"]
+    assert [p.name for p in _build.sources("wave_loop")] == [
+        "wave_loop.cu", "wave_round.cuh", "hist_tile.cuh"]
+    for hdr, moved in (("hist_tile.cuh", {"hist", "wave_fused", "wave_loop"}),
+                       ("wave_round.cuh", {"wave_fused", "wave_loop"})):
+        before = {n: _build.lib_path(n) for n in names}
+        path = tmp_path / hdr
+        path.write_bytes(path.read_bytes() + b"\n// edited\n")
+        after = {n: _build.lib_path(n) for n in names}
+        assert {n for n in names if after[n] != before[n]} == moved, hdr
 
 
 # ---------------------------------------------------------------------------
@@ -523,14 +525,19 @@ def test_fused_training_matches_jax_predictions(jax_fused_run):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("params,item", [
-    ({"hist_method": "fused", "wave_loop_rounds": 2},
-     "persistent wave loop \\(K6\\)"),
-    ({"hist_method": "onehot"}, "histogram methods onehot and bench"),
-    ({"hist_method": "bench"}, "histogram methods onehot and bench")])
-def test_unported_fused_configurations_raise(params, item):
+@pytest.mark.parametrize("params,match", [
+    # bf16x2 with a bf16 deep bucket reachable: the loop's refusal, with
+    # the JAX planner's reason (tests/test_torch_wave_loop.py)
+    ({"hist_method": "fused", "wave_loop_rounds": 2, "num_leaves": 33,
+      "leafwise_wave_size": 32},
+     "deep-precision drop would change the accumulate dtype mid-loop"),
+    ({"hist_method": "onehot"},
+     "ROADMAP queue 1, histogram methods onehot and bench"),
+    ({"hist_method": "bench"},
+     "ROADMAP queue 1, histogram methods onehot and bench")])
+def test_unported_fused_configurations_raise(low_buckets, params, match):
     X, y = _data(24, 512)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP queue 1, {item}"):
+    with pytest.raises(NotImplementedError, match=match):
         lt.train({**BASE, "num_leaves": 15, **params},
                  lt.Dataset(X, label=y), 2, device="cpu")
 
