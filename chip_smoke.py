@@ -40,26 +40,32 @@ Phases (any failure exits non-zero with no ``ok`` line):
 8. data     — ``--train-rows`` x 28 training rows and 131,072 valid rows
               from the port's copy of bench.py:42 make_data, binned at
               max_bin=63 (B = 64) by ``Dataset.construct``.
-9. K1       — the histogram kernel against its plain version on the card
+9. K1       — the histogram kernel against its plain versions on the card
               at F = 28, N = --train-rows, B = 64, L in {2, 5, 17, 64} on
               signed, varied rows, and at N = 4,096, L = 64, in each of
-              bf16x2 / bf16 / f32: counts exact, every cell of n rows
-              within 2 (n + 1) 2^-24 of its absolute sum (+1e-6; the f32
-              bound of a sum of n terms, for each side), two launches on
-              the same input bitwise equal.  Each case names the pairs of
-              precisions the tolerance tells apart; the small case must
-              tell all three apart.
+              bf16x2 / bf16 / f32: bit for bit the row-order version
+              (``hist_leaves_roworder_ref``: each chunk's cell summed in
+              row order from 0, the chunks in order, hi and lo apart);
+              against the index_add_ version counts exact and every cell
+              of n rows within 2 (n + 1) 2^-24 of its absolute sum
+              (+1e-6; the f32 bound of a sum of n terms, for each side);
+              two launches on the same input bitwise equal; with the last
+              slot dead (``live_slots = L - 1``) the other slots' cells
+              bitwise the all-live ones and the dead slot +0.0.  Each case
+              names the pairs of precisions the tolerance tells apart;
+              the small case must tell all three apart.
 10. train   — the training main path, launch counts reset first:
               ``train`` on the headline configuration (binary, 255 leaves,
               max_bin 63, defaults) for ``--iters`` iterations with the
               valid set; K1 launched (its launches by slot count and
               precision add up) and no plain histogram; s/iter,
-              M row-trees/s and the held-out AUC (> 0.90).  Then K1 is
-              held to its plain version, as in phase 9, on the inputs of
-              the path's last call at each slot count.  The saved model
-              text is loaded by ``Booster(model_file=...)`` and serves the
-              valid rows through K4 within the serving tolerance of the
-              trainer's own valid scores.
+              M row-trees/s, the held-out AUC (> 0.90) and the model
+              text's sha256 and length.  Then K1 is held to its plain
+              versions, as in phase 9, on the inputs of the path's last
+              call at each slot count (with the call's live slots).  The
+              saved model text is loaded by ``Booster(model_file=...)``
+              and serves the valid rows through K4 within the serving
+              tolerance of the trainer's own valid scores.
 11. parity  — 65,536 x 28 rows, 63 leaves in waves of 32 (slot buckets
               {4, 16, 32}, deep rounds), hist_dtype=f32, 5 iterations, on
               the card and on the CPU (plain versions): split features
@@ -85,7 +91,8 @@ Phases (any failure exits non-zero with no ``ok`` line):
               valid set.  K2 launched once a non-root round (its launches
               by bucket add up), K3 once a round, K1 once a tree, no plain
               version called; s/iter, M row-trees/s, AUC > 0.90 and within
-              2e-3 of phase 10's; the saved model served through K4.  K2
+              2e-3 of phase 10's, the model text's sha256 and length; the
+              saved model served through K4.  K2
               held to its plain version on the path's last inputs.
 16. parity  — phase 11's configuration on the card, ``hist_method=fused``
               against ``pallas``: the same split feature and threshold at
@@ -113,7 +120,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               plain version; the model text byte-identical to the single
               round's with the same knobs, trained in the same phase (one
               run each: s/iter, M row-trees/s); AUC > 0.90; the model
-              served through K4.
+              text's sha256 and length; the model served through K4.
 21. timing  — K6 on the main path's last inputs beside its plain version,
               R K2 rounds on the same inputs and its bound; five looped
               iterations profiled, as phase 13; then the ``kernels`` line
@@ -125,6 +132,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -615,36 +623,56 @@ def signed_rows(rng, n, dev) -> torch.Tensor:
     return torch.from_numpy(g3).to(dev).contiguous()
 
 
-def check_k1(tag, binned, g3, lid, L, B=64) -> dict:
-    """K1 against its plain version on one input in all three precisions:
-    counts exact, every cell within ``k1_tol``, two launches bitwise
-    equal.  Also names the pairs of precisions whose plain versions
-    differ past the tolerance in some cell: on such an input the check
-    would catch a kernel that computed the other precision."""
-    absum = hc.index_add_hist(binned, [g3.abs()], lid, L, B)
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def check_k1(tag, binned, g3, lid, L, B=64, live=None) -> dict:
+    """K1 against its plain versions on one input in all three precisions
+    (``live``: the slots whose rows add, as the call gave it): bit for bit
+    the row-order version (the kernel's order), and against the
+    index_add_ version counts exact and every cell within ``k1_tol``; two
+    launches bitwise equal; and the dead-slot limit — K1 with the last
+    slot dead gives the all-live cells of the other slots bit for bit and
+    a +0.0 dead slot.  Also names the pairs of precisions whose plain
+    versions differ past the tolerance in some cell: on such an input the
+    check would catch a kernel that computed the other precision."""
+    absum = hc.index_add_hist(binned, [g3.abs()], lid, L, B, live)
     tol = k1_tol(absum, absum[..., 2:3])       # the count column is >= 0
     wants, err, rel_max = {}, 0.0, 0.0
     for prec in hc.PRECISIONS:
-        got = hc.hist_leaves(binned, g3, lid, L, B, prec)
-        again = hc.hist_leaves(binned, g3, lid, L, B, prec)
-        want = wants[prec] = hc.hist_leaves_ref(binned, g3, lid, L, B, prec)
+        got = hc.hist_leaves(binned, g3, lid, L, B, prec, live)
+        again = hc.hist_leaves(binned, g3, lid, L, B, prec, live)
+        want = wants[prec] = hc.hist_leaves_ref(binned, g3, lid, L, B, prec,
+                                                live)
+        row = hc.hist_leaves_roworder_ref(binned, g3, lid, L, B, prec, live)
+        check(same_bits(got, row), f"K1 {tag} {prec}: not bitwise the "
+              f"row-order version ({int((got != row).sum())} cells differ)")
         check(torch.equal(got[..., 2], want[..., 2]),
               f"K1 {tag} {prec}: counts differ")
         diff = (got - want).abs()
         over = int((diff > tol).sum())
         check(over == 0, f"K1 {tag} {prec}: {over} cells off tolerance")
-        check(torch.equal(got, again), f"K1 {tag} {prec}: two launches "
+        check(same_bits(got, again), f"K1 {tag} {prec}: two launches "
               "differ")
+        full = hc.hist_leaves(binned, g3, lid, L, B, prec)
+        dead = hc.hist_leaves(binned, g3, lid, L, B, prec, L - 1)
+        check(same_bits(dead[:L - 1], full[:L - 1])
+              and not bool(dead[L - 1].view(torch.int32).any()),
+              f"K1 {tag} {prec}: the dead slot's rows changed a live cell "
+              "or the dead slot is not 0")
         err = max(err, float(diff.max()))
         rel_max = max(rel_max, float((diff / (absum + 1e-30)).max()))
     seps = [f"{p}|{q}" for i, p in enumerate(hc.PRECISIONS)
             for q in hc.PRECISIONS[i + 1:]
             if bool(((wants[p] - wants[q]).abs() > tol).any())]
-    log(f"  K1 {tag}: counts exact, bitwise repeatable, max_abs_err="
-        f"{err:.3e}, max err/abs-sum {rel_max:.2e}; separates "
+    log(f"  K1 {tag}: bitwise the row-order version, dead slot 0 and live "
+        f"cells unchanged, counts exact, bitwise repeatable; vs index_add_ "
+        f"max_abs_err={err:.3e}, max err/abs-sum {rel_max:.2e}; separates "
         f"{', '.join(seps) or 'no pair of precisions'}")
     return {"case": tag, "max_abs_err": err, "max_err_over_abs_sum": rel_max,
-            "separates": seps}
+            "separates": seps, "bitwise_roworder": True,
+            "dead_slot_ok": True}
 
 
 def phase_hist_kernel(binned, dev, rng) -> list:
@@ -682,11 +710,11 @@ class HistRecorder:
         self._orig = hc.hist_leaves
 
         def wrapped(binned, g3, leaf_id, num_leaves, num_bins,
-                    precision="bf16x2"):
+                    precision="bf16x2", live_slots=None):
             self.last[(int(num_leaves), precision)] = (binned, g3, leaf_id,
-                                                       num_bins)
+                                                       num_bins, live_slots)
             return self._orig(binned, g3, leaf_id, num_leaves, num_bins,
-                              precision)
+                              precision, live_slots)
 
         hc.hist_leaves = wrapped
         return self
@@ -696,12 +724,13 @@ class HistRecorder:
 
 
 def phase_hist_main_inputs(rec: HistRecorder) -> list:
-    """K1 against its plain version on the main path's own inputs at each
-    of its (slots, precision) keys, as its last iteration gave them."""
+    """K1 against its plain versions on the main path's own inputs at each
+    of its (slots, precision) keys, as its last iteration gave them (the
+    live slots too)."""
     out = []
-    for (L, prec), (binned, g3, label, B) in sorted(rec.last.items()):
-        out.append(check_k1(f"main path L={L} ({prec} on the path)", binned,
-                            g3, label, L, B))
+    for (L, prec), (binned, g3, label, B, live) in sorted(rec.last.items()):
+        out.append(check_k1(f"main path L={L} live={live} ({prec} on the "
+                            "path)", binned, g3, label, L, B, live))
     return out
 
 
@@ -757,9 +786,20 @@ def phase_train(ds, dv, Xv, iters, dev):
         f"{out['valid_logloss']:.5f}")
     check(trees == iters, f"{trees} trees for {iters} iterations")
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
+    out.update(text_hash(booster.model_to_string(), "staged"))
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "trained_model.txt")
     return out, rec
+
+
+def text_hash(text: str, tag: str) -> dict:
+    """The sha256 and length of a model text: the same bits from another
+    build of the kernels give the same hash."""
+    out = {"model_text_sha256": hashlib.sha256(text.encode()).hexdigest(),
+           "model_text_bytes": len(text)}
+    log(f"  {tag} model text: sha256 {out['model_text_sha256']}, "
+        f"{out['model_text_bytes']} bytes")
+    return out
 
 
 def serve_trained(booster, Xv, dev, name) -> float:
@@ -826,20 +866,21 @@ def phase_hist_timing(rec: HistRecorder, trained: dict, checks: list
     bucket)."""
     buckets = []
     n_trees = trained["trees"]
-    for (L, prec), (binned, g3, label, B) in sorted(rec.last.items()):
+    for (L, prec), (binned, g3, label, B, live_slots) in sorted(
+            rec.last.items()):
         Fn, N = binned.shape
-        ms = time_ms(lambda: hc.hist_leaves(binned, g3, label, L, B, prec),
-                     10)
-        plain_ms = time_ms(
-            lambda: hc.hist_leaves_ref(binned, g3, label, L, B, prec), 2)
+        ms = time_ms(lambda: hc.hist_leaves(binned, g3, label, L, B, prec,
+                                            live_slots), 10)
+        plain_ms = time_ms(lambda: hc.hist_leaves_ref(
+            binned, g3, label, L, B, prec, live_slots), 2)
         flat = ((torch.arange(Fn, device=binned.device)[:, None] * L
                  + label.long()[None, :]) * B + binned.long()).reshape(-1)
         vals = g3.repeat(Fn, 1)
         acc = torch.zeros((Fn * L * B, 3), dtype=torch.float32,
                           device=binned.device)
         library_ms = time_ms(lambda: acc.index_add_(0, flat, vals), 5)
-        # the path's last slot is its dead one (hist_wave): the live rows
-        # are those of the other slots
+        # the path's last slot is its dead one (hist_wave, live_slots =
+        # L - 1): the live rows are those of the other slots
         live = int(((label >= 0) & (label < L - 1)).sum())
         nbytes = Fn * N + N * 12 + N * 4 + L * Fn * B * 3 * 4
         ops = (2 if prec == "bf16x2" else 1) * 3 * live * Fn
@@ -1191,6 +1232,7 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
     check(abs(auc - staged["valid_auc"]) <= 2e-3,
           f"fused AUC {auc} is more than 2e-3 from the staged {staged}")
+    out.update(text_hash(booster.model_to_string(), "fused"))
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "fused_model.txt")
     return out, rec
@@ -1526,7 +1568,7 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
            "valid_auc": auc, "trees": trees, "k6_launches": k6,
            "k6_launches_per_tree": k6 / trees, "k3_launches": k3,
            "k1_launches": k1, "replayed_rounds": replayed,
-           "model_text_bytes": len(text), "model_text_identical": True}
+           "model_text_identical": True, **text_hash(text, "looped")}
     log(f"  {iters} looped iterations of {n} rows in {secs:.2f} s: "
         f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
         f"row-trees/s; single round, same knobs: {secs1 / iters:.3f} s/iter"

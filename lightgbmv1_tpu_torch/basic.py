@@ -19,7 +19,7 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 Training and prediction run on ``device`` (default: the card; without one
 they raise — pass ``device="cpu"`` for the CPU).  Files, sparse input,
 categorical features, custom objectives and the native C++ predictor are
-not ported yet (ROADMAP queue 1).
+not ported yet (ROADMAP queue 1, items 8 and 9).
 """
 
 from __future__ import annotations
@@ -28,7 +28,7 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .config import BREADTH, Config, not_ported
+from .config import BREADTH, NATIVE, TREESHAP, Config, not_ported
 from .device import DeviceLike, resolve_device
 from .io.dataset import BinnedDataset
 from .io.model_text import LoadedModel, model_from_string, model_to_string
@@ -259,8 +259,7 @@ class Booster:
         Predictor); ``kwargs`` override the ``predict_*`` params."""
         for key, what in _NOT_PORTED.items():
             if kwargs.get(key, self.params.get(key, False)):
-                raise NotImplementedError(
-                    f"{what} is not ported yet: ROADMAP queue 1")
+                raise not_ported(what, TREESHAP)
         X = _to_2d_numpy(data)
         if X.shape[1] != self.num_feature():
             disable = bool(kwargs.get(
@@ -286,9 +285,8 @@ class Booster:
         method = str(kwargs.get("predict_method",
                                 self.params.get("predict_method", "auto")))
         if method == "native":
-            raise NotImplementedError(
-                "predict_method=native (the C++ bulk predictor) is not "
-                "ported yet: ROADMAP queue 1")
+            raise not_ported("predict_method=native (the C++ bulk "
+                             "predictor)", NATIVE)
         raw = None
         if method in _DEVICE_METHODS and trees:
             bp = self._device_predictor(trees, K, start_iteration, method,

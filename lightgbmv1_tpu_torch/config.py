@@ -7,10 +7,12 @@ leaf-wise path with the reference's aliases (``eta``, ``num_iterations``,
 names, defaults and validation (``config.py:27-184``, ``:221-366``,
 ``:477-545``, ``:779-949``).  Unknown keys warn, as there.
 
-Knobs the JAX package has but the port does not yet run are known here
-only to refuse them: ``unported_reason`` names the ROADMAP item of every
-one a config sets away from its default, and the trainer raises
-``NotImplementedError`` with it instead of training something else.
+Every knob of the JAX ``Config`` is a field here.  Those the port does
+not yet run are known only to refuse them: ``unported_reason`` names the
+ROADMAP item of every one a config sets away from its default (``_UNPORTED``
+and ``_REFUSED``), and the trainer raises ``NotImplementedError`` with it
+instead of training something else.  ``gpu_use_dp`` is mapped as there;
+a few knobs change no model in the JAX package either and are accepted.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from .utils.log import log_warning, set_verbosity
 _BOOL_TRUE = {"true", "1", "yes", "on", "+", "t", "y"}
 _BOOL_FALSE = {"false", "0", "no", "off", "-", "f", "n"}
 
-# the reference's alias table for the knobs below (JAX config.py:27-184)
+# the reference's alias table (JAX config.py:27-184)
 _ALIASES: Dict[str, str] = {
     "objective_type": "objective", "app": "objective",
     "application": "objective", "boosting_type": "boosting",
@@ -78,6 +80,48 @@ _ALIASES: Dict[str, str] = {
     "num_classes": "num_class", "unbalance": "is_unbalance",
     "unbalanced_sets": "is_unbalance", "sigmoid_": "sigmoid",
     "metrics": "metric", "metric_types": "metric",
+    # the aliases of the knobs below that the port refuses or that change
+    # no model (the rest of JAX config.py:27-184)
+    "config_file": "config", "task_type": "task", "train": "data",
+    "train_data": "data", "train_data_file": "data", "data_filename": "data",
+    "test": "valid", "valid_data": "valid", "valid_data_file": "valid",
+    "test_data": "valid", "test_data_file": "valid",
+    "valid_filenames": "valid", "num_thread": "num_threads",
+    "nthread": "num_threads", "nthreads": "num_threads",
+    "n_jobs": "num_threads", "device": "device_type",
+    "bagging_fraction_seed": "bagging_seed", "rate_drop": "drop_rate",
+    "topk": "top_k", "cegb_penalty_feature_lazy": "cegb_penalty_feature_lazy",
+    "fc": "forcedsplits_filename",
+    "forced_splits_filename": "forcedsplits_filename",
+    "forced_splits_file": "forcedsplits_filename",
+    "forced_splits": "forcedsplits_filename", "model_output": "output_model",
+    "model_out": "output_model", "model_input": "input_model",
+    "model_in": "input_model", "predict_result": "output_result",
+    "prediction_result": "output_result", "predict_name": "output_result",
+    "prediction_name": "output_result", "pred_name": "output_result",
+    "name_pred": "output_result", "is_sparse": "is_enable_sparse",
+    "enable_sparse": "is_enable_sparse", "sparse": "is_enable_sparse",
+    "is_pre_partition": "pre_partition", "two_round_loading": "two_round",
+    "use_two_round_loading": "two_round", "is_save_binary": "save_binary",
+    "is_save_binary_file": "save_binary", "has_header": "header",
+    "label": "label_column", "weight": "weight_column",
+    "group": "group_column", "group_id": "group_column",
+    "query_column": "group_column", "query": "group_column",
+    "query_id": "group_column", "ignore_feature": "ignore_column",
+    "blacklist": "ignore_column", "is_predict_raw_score": "predict_raw_score",
+    "predict_rawscore": "predict_raw_score", "raw_score": "predict_raw_score",
+    "is_predict_leaf_index": "predict_leaf_index",
+    "leaf_index": "predict_leaf_index",
+    "is_predict_contrib": "predict_contrib", "contrib": "predict_contrib",
+    "output_freq": "metric_freq",
+    "training_metric": "is_provide_training_metric",
+    "is_training_metric": "is_provide_training_metric",
+    "train_metric": "is_provide_training_metric", "ndcg_eval_at": "eval_at",
+    "ndcg_at": "eval_at", "map_eval_at": "eval_at", "map_at": "eval_at",
+    "num_machine": "num_machines", "local_port": "local_listen_port",
+    "port": "local_listen_port", "machine_list_file": "machine_list_filename",
+    "machine_list": "machine_list_filename", "mlist": "machine_list_filename",
+    "workers": "machines", "nodes": "machines",
 }
 
 # the JAX package's objective aliases (config.py:186-210)
@@ -146,7 +190,7 @@ class Config:
     # rounds through the fused round K2 and the valid routing K3
     hist_method: str = "auto"
     # fused rounds a launch: 1 = the single-round kernel K2; > 1 is the
-    # persistent wave loop K6 (not ported; JAX config.py:402)
+    # persistent wave loop K6 (ops/loop_cuda.py; JAX config.py:402)
     wave_loop_rounds: int = 1
     bin_layout: str = "auto"         # auto | u8 (packed4 not ported)
     hist_dtype: str = "bf16x2"       # f32 | bf16 | bf16x2
@@ -178,7 +222,7 @@ class Config:
     # from the CUDA leaf-walk kernel (ops/predict_cuda.serving_leaf);
     # "fused": the serving megakernel (ops/predict_cuda.serving_fused)
     # walking every tree and summing the scores in one launch.  "native"
-    # and "scan" are not ported yet (ROADMAP queue 1)
+    # and "scan" are not ported yet (ROADMAP queue 1, items 9 and 20)
     predict_method: str = "auto"
     # prebinned serving codes: "auto" = on whenever the thresholds admit
     # an EXACT serving binning, else the raw f32 walk; "on"/"off" force it
@@ -189,7 +233,7 @@ class Config:
     predict_code_layout: str = "auto"
     predict_bucket_min: int = 256    # smallest power-of-two row bucket
     predict_chunk_rows: int = 131072  # streaming chunk (bounds device memory)
-    predict_num_shards: int = 0      # >1: row-sharded predict (not ported)
+    predict_num_shards: int = 0      # >1: row-sharded predict (item 20)
     # reconstruct raw scores host-side in float64 from device leaf ids
     # (bit-identical to the host walk); off = the on-device f32 sum
     predict_f64_scores: bool = False
@@ -202,6 +246,170 @@ class Config:
     serve_retry_backoff_ms: float = 5.0
     serve_probe_rows: int = 64       # publish-time golden probe rows
     registry_keep_versions: int = 4
+    # -- more knobs of the JAX package the port refuses (_REFUSED): --------
+    # objectives and metrics (items 1 and 8)
+    reg_sqrt: bool = False
+    alpha: float = 0.9
+    fair_c: float = 1.0
+    poisson_max_delta_step: float = 0.7
+    tweedie_variance_power: float = 1.5
+    lambdarank_truncation_level: int = 20
+    lambdarank_norm: bool = True
+    label_gain: List[float] = field(default_factory=list)
+    objective_seed: int = 5
+    eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
+    multi_error_top_k: int = 1
+    auc_mu_weights: List[float] = field(default_factory=list)
+    # sampling seeds (item 3)
+    bagging_seed: int = 3
+    feature_fraction_seed: int = 2
+    extra_seed: int = 6
+    # callbacks (item 4)
+    first_metric_only: bool = False
+    # boosting, categorical, constraints, penalties, binning, model
+    # lifecycle (item 8)
+    drop_rate: float = 0.1
+    max_drop: int = 50
+    skip_drop: float = 0.5
+    xgboost_dart_mode: bool = False
+    uniform_drop: bool = False
+    drop_seed: int = 4
+    top_rate: float = 0.2
+    other_rate: float = 0.1
+    min_data_per_group: int = 100
+    max_cat_threshold: int = 32
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_to_onehot: int = 4
+    monotone_constraints_method: str = "basic"
+    monotone_penalty: float = 0.0
+    feature_contri: List[float] = field(default_factory=list)
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_feature_lazy: List[float] = field(default_factory=list)
+    cegb_penalty_feature_coupled: List[float] = field(default_factory=list)
+    forcedbins_filename: str = ""
+    max_bin_by_feature: List[int] = field(default_factory=list)
+    saved_feature_importance_type: int = 0
+    snapshot_freq: int = -1
+    finite_guard: str = "off"
+    # the sequential grower (item 2)
+    histogram_pool_size: float = -1.0
+    # histogram methods (item 7)
+    force_col_wise: bool = False
+    force_row_wise: bool = False
+    # TreeSHAP and prediction early stopping (item 10)
+    predict_contrib: bool = False
+    pred_early_stop: bool = False
+    pred_early_stop_freq: int = 10
+    pred_early_stop_margin: float = 10.0
+    # the CLI and file I/O (item 11)
+    config: str = ""
+    task: str = "train"
+    data: str = ""
+    valid: List[str] = field(default_factory=list)
+    num_threads: int = 0
+    output_model: str = "LightGBM_model.txt"
+    input_model: str = ""
+    output_result: str = "LightGBM_predict_result.txt"
+    initscore_filename: str = ""
+    valid_data_initscores: List[str] = field(default_factory=list)
+    two_round: bool = False
+    save_binary: bool = False
+    header: bool = False
+    label_column: str = ""
+    weight_column: str = ""
+    group_column: str = ""
+    ignore_column: str = ""
+    predict_raw_score: bool = False
+    predict_leaf_index: bool = False
+    start_iteration_predict: int = 0
+    num_iteration_predict: int = -1
+    convert_model_language: str = ""
+    convert_model: str = "gbdt_prediction.cpp"
+    metric_freq: int = 1
+    is_provide_training_metric: bool = False
+    refit_decay_rate: float = 0.9
+    snapshot_keep: int = 2
+    # HTTP front-end (item 13)
+    serve_http_port: int = 8080
+    serve_duration_s: float = 0.0
+    # fleet and router (item 14)
+    serve_replicas: int = 1
+    router_health_period_ms: float = 25.0
+    router_eject_after: int = 2
+    router_readmit_after: int = 2
+    router_retry_max: int = 2
+    router_hedge_ms: float = 0.0
+    router_deadline_ms: float = 0.0
+    # tenants and placement (item 15)
+    tenant_manifest: str = ""
+    placement_replicas_per_tenant: int = 0
+    placement_burn_threshold: float = 2.0
+    placement_occupancy_frac: float = 0.75
+    placement_cooldown_s: float = 30.0
+    # SLOs (item 16)
+    serve_slo_availability_target: float = 0.999
+    serve_slo_latency_ms: float = 50.0
+    serve_slo_latency_target: float = 0.99
+    serve_slo_fast_window_s: float = 60.0
+    serve_slo_slow_window_s: float = 600.0
+    # drift (item 17)
+    drift_sample_rows: int = 0
+    drift_per_batch_rows: int = 64
+    drift_min_rows: int = 256
+    drift_psi_threshold: float = 0.25
+    drift_top_k: int = 8
+    drift_psi_groups: int = 16
+    drift_sample_stride: int = 4
+    drift_score_bins: int = 16
+    # failure domains of the server (item 18)
+    serve_degrade_trees: int = 0
+    serve_breaker_failures: int = 3
+    serve_watchdog_ms: float = 0.0
+    # observability (item 19)
+    profile_dir: str = ""
+    obs_trace: bool = False
+    trace_out: str = ""
+    obs_ring_events: int = 65536
+    obs_event_ring: int = 4096
+    crash_dir: str = ""
+    obs_dir: str = ""
+    # parallel learners, streaming, elastic (item 21)
+    top_k: int = 20
+    num_machines: int = 1
+    local_listen_port: int = 12400
+    machines: str = ""
+    time_out: int = 120
+    machine_list_filename: str = ""
+    pre_partition: bool = False
+    data_parallel_collective: str = "reduce_scatter"
+    num_shards: int = 0
+    num_hosts: int = 0
+    hier_ici_gbps: float = 100.0
+    hier_dcn_gbps: float = 10.0
+    elastic_lease_timeout_s: float = 3.0
+    elastic_max_restarts: int = 2
+    stream_enable: bool = False
+    stream_block_rows: int = 65536
+    stream_prefetch: bool = True
+    stream_cache_dir: str = ""
+    # -- knobs that change no model in the JAX package either: device
+    # selection and XLA execution knobs (results pinned equal there),
+    # and knobs it reads nowhere; accepted, as there ----------------------
+    device_type: str = "tpu"
+    deterministic: bool = False
+    is_enable_sparse: bool = True
+    gpu_platform_id: int = -1
+    gpu_device_id: int = -1
+    fused_bookkeeping: bool = True
+    async_wave_pipeline: bool = True
+    donate_buffers: bool = True
+    predict_cache_entries: int = 64
+    # -- prediction (basic.Booster.predict reads it) ----------------------
+    predict_disable_shape_check: bool = False
+    # double-precision histograms: mapped onto f32 histograms in
+    # __post_init__, as the JAX package maps it (JAX config.py:940-947)
+    gpu_use_dp: bool = False
 
     def __post_init__(self):
         set_verbosity(self.verbosity)
@@ -226,6 +434,11 @@ class Config:
                 f"hist_dtype_deep={self.hist_dtype_deep!r}: expected one of "
                 "auto | f32 | bf16 | bf16x2 | int8 | int8sr (or empty for "
                 "the bf16-drop policy)")
+        if self.gpu_use_dp and not self.hist_dtype_deep:
+            # an explicit hist_dtype_deep wins (JAX config.py:940-947)
+            self.hist_dtype_deep = "f32"
+        if self.gpu_use_dp and self.hist_dtype in ("bf16", "bf16x2", "int8"):
+            self.hist_dtype = "f32"
         if self.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
         if self.wave_loop_rounds < 1:
@@ -297,6 +510,18 @@ PACKED4 = "packed4 bins"
 INT8 = "int8 and int8sr histograms"
 HIST_METHODS = "histogram methods onehot and bench"
 BREADTH = "breadth of objectives and boosting"
+OBJECTIVES = "regression, multiclass and lambdarank objectives"
+NATIVE = "native C++ bulk predictor"
+TREESHAP = "TreeSHAP and prediction early stopping"
+CLI = "CLI"
+HTTP = "HTTP front-end"
+FLEET = "fleet and router"
+TENANTS = "tenants and placement"
+SLOS = "SLOs"
+DRIFT = "drift"
+FAILURE = "failure domains of the server"
+OBSERVABILITY = "observability"
+SHARDED_PREDICT = "row-sharded predict"
 PARALLEL = "parallel learners"
 
 # knob -> (is it set away from its default?, what it is, ROADMAP item)
@@ -334,12 +559,70 @@ _UNPORTED = (
      "categorical features", BREADTH),
     ("hist_method", lambda c: c.hist_method in ("onehot", "bench"),
      "hist_method={v}", HIST_METHODS),
-    ("bin_layout", lambda c: c.bin_layout == "packed4",
+    ("bin_layout", lambda c: c.bin_layout == "packed4" and not c.gpu_use_dp,
      "bin_layout=packed4", PACKED4),
     ("hist_dtype", lambda c: c.hist_dtype == "int8", "hist_dtype=int8",
      INT8),
-    ("hist_dtype_deep", lambda c: c.hist_dtype_deep in ("int8", "int8sr"),
+    ("hist_dtype_deep", lambda c: (c.hist_dtype_deep == "int8" or (
+        c.hist_dtype_deep == "int8sr" and not c.gpu_use_dp)),
      "hist_dtype_deep={v}", INT8),
+)
+
+
+# the other knobs of the JAX package the port does not run, by ROADMAP
+# item: each is refused when a config sets it away from its default
+_REFUSED = (
+    (OBJECTIVES, ("reg_sqrt", "alpha", "fair_c", "poisson_max_delta_step",
+                  "tweedie_variance_power", "lambdarank_truncation_level",
+                  "lambdarank_norm", "label_gain", "objective_seed",
+                  "eval_at", "multi_error_top_k", "auc_mu_weights")),
+    (SAMPLING, ("bagging_seed", "feature_fraction_seed", "extra_seed")),
+    (CALLBACKS, ("first_metric_only",)),
+    (BREADTH, ("drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
+               "uniform_drop", "drop_seed", "top_rate", "other_rate",
+               "min_data_per_group", "max_cat_threshold", "cat_l2",
+               "cat_smooth", "max_cat_to_onehot",
+               "monotone_constraints_method", "monotone_penalty",
+               "feature_contri", "cegb_tradeoff", "cegb_penalty_feature_lazy",
+               "cegb_penalty_feature_coupled", "forcedbins_filename",
+               "max_bin_by_feature", "saved_feature_importance_type",
+               "snapshot_freq", "finite_guard")),
+    (GROWERS, ("histogram_pool_size",)),
+    (HIST_METHODS, ("force_col_wise", "force_row_wise")),
+    (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
+                "pred_early_stop_margin")),
+    (CLI, ("config", "task", "data", "valid", "num_threads", "output_model",
+           "input_model", "output_result", "initscore_filename",
+           "valid_data_initscores", "two_round", "save_binary", "header",
+           "label_column", "weight_column", "group_column", "ignore_column",
+           "predict_raw_score", "predict_leaf_index",
+           "start_iteration_predict", "num_iteration_predict",
+           "convert_model_language", "convert_model", "metric_freq",
+           "is_provide_training_metric", "refit_decay_rate", "snapshot_keep")),
+    (HTTP, ("serve_http_port", "serve_duration_s")),
+    (FLEET, ("serve_replicas", "router_health_period_ms",
+             "router_eject_after", "router_readmit_after", "router_retry_max",
+             "router_hedge_ms", "router_deadline_ms")),
+    (TENANTS, ("tenant_manifest", "placement_replicas_per_tenant",
+               "placement_burn_threshold", "placement_occupancy_frac",
+               "placement_cooldown_s")),
+    (SLOS, ("serve_slo_availability_target", "serve_slo_latency_ms",
+            "serve_slo_latency_target", "serve_slo_fast_window_s",
+            "serve_slo_slow_window_s")),
+    (DRIFT, ("drift_sample_rows", "drift_per_batch_rows", "drift_min_rows",
+             "drift_psi_threshold", "drift_top_k", "drift_psi_groups",
+             "drift_sample_stride", "drift_score_bins")),
+    (FAILURE, ("serve_degrade_trees", "serve_breaker_failures",
+               "serve_watchdog_ms")),
+    (OBSERVABILITY, ("profile_dir", "obs_trace", "trace_out",
+                     "obs_ring_events", "obs_event_ring", "crash_dir",
+                     "obs_dir")),
+    (PARALLEL, ("top_k", "num_machines", "local_listen_port", "machines",
+                "time_out", "machine_list_filename", "pre_partition",
+                "data_parallel_collective", "num_shards", "num_hosts",
+                "hier_ici_gbps", "hier_dcn_gbps", "elastic_lease_timeout_s",
+                "elastic_max_restarts", "stream_enable", "stream_block_rows",
+                "stream_prefetch", "stream_cache_dir")),
 )
 
 
@@ -358,6 +641,14 @@ def unported_reason(config: Config) -> Optional[str]:
         if is_set(config):
             return str(not_ported(what.format(v=getattr(config, name)),
                                   item))
+    fields = {f.name: f for f in dataclasses.fields(Config)}
+    for item, names in _REFUSED:
+        for name in names:
+            f, v = fields[name], getattr(config, name)
+            default = (f.default_factory() if f.default is dataclasses.MISSING
+                       else f.default)
+            if v != default:
+                return str(not_ported(f"{name}={v}", item))
     return None
 
 

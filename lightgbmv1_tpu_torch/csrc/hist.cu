@@ -28,14 +28,24 @@
 //  * Grid (F, chunks, slot groups): a block owns one feature, one row
 //    chunk and a group of slots whose f32 sub-histograms (hi and lo kept
 //    apart in bf16x2) fit a 96 KiB shared-memory budget — all 64 slots of
-//    64 bins at the headline shape, so two blocks share an SM.
+//    64 bins at the headline shape, so two blocks share an SM (the 2 to
+//    17 slots of the root and the small rounds fit many more).
 //  * Rows stream through in tiles of 256 (coalesced u8 / f32 / i32
-//    loads).  Every histogram cell (slot, bin) has one owner: warp
-//    key % 8, lane (key / 8) % 32 with key = slot * B + bin.  A tile's
-//    rows are partitioned by owner warp with a stable ballot count, and
-//    each warp walks its rows in row order; only the owner lane adds.
-//    A cell is therefore updated by one thread, in row order: no atomics,
-//    no races, deterministic.  The price: a warp adds one row at a time.
+//    loads, the next tile's in flight while this one adds).  Every
+//    histogram cell (slot, bin) has one owner warp, key % 8 with
+//    key = slot * B + bin.  A tile's adding rows are compacted by owner
+//    warp with a stable ballot count; each warp takes its rows 32 at a
+//    time, groups the lanes of one cell with __match_any_sync, and the
+//    group's lowest lane adds its peers' values in lane order (= row
+//    order) in registers, one load and one store of the cell a batch.  A
+//    cell is therefore updated one add at a time in row order from 0: no
+//    atomics, no races, deterministic, and the same bits as one thread
+//    walking the rows.  The serial depth is the largest count of one
+//    cell's rows in a batch, not a warp's whole row count.
+//  * A wave round's dead slot (its rows split nothing) is named by the
+//    caller (`nl_add`): its rows are dropped at the load, so they cost
+//    one label and one bin read, and its cells come out 0.  The plan
+//    stays the one for all nl slots, so the live cells keep their bits.
 //  * The chunk count is fixed by the shape (a constant SM count, not the
 //    card's), so the order of the cross-block sum never changes.  Each
 //    block writes its partial sub-histograms; a second kernel sums them
@@ -68,11 +78,11 @@ __global__ void hist_merge_kernel(const float* __restrict__ partial,
 
 template <int PREC, int NC>
 int launch(const uint8_t* binned, const float* g3, const int* leaf_id,
-           float* partial, float* out, int n, int nf, int nl, int nb,
-           int nb_out, int ls_max, int n_chunks, int chunk_rows,
+           float* partial, float* out, int n, int nf, int nl, int nl_add,
+           int nb, int nb_out, int ls_max, int n_chunks, int chunk_rows,
            cudaStream_t stream) {
   const int err = launch_hist_partial<PREC, NC>(
-      binned, g3, leaf_id, partial, n, nf, nl, nb, ls_max, n_chunks,
+      binned, g3, leaf_id, partial, n, nf, nl, nl_add, nb, ls_max, n_chunks,
       chunk_rows, stream);
   if (err != 0) return err;
   const size_t total = static_cast<size_t>(nl) * nf * nb_out * 3;
@@ -89,11 +99,12 @@ extern "C" {
 
 // Returns the cudaError_t of the launches (0 = both launched).  `partial`
 // is (n_chunks, nf, nl, nb, 6 or 3) f32 scratch; `out` is (nl, nf, nb_out,
-// 3) f32 with nb_out <= nb (the bins past nb_out are dropped).
+// 3) f32 with nb_out <= nb (the bins past nb_out are dropped).  Rows of
+// slots [nl_add, nl) add nothing (0 <= nl_add <= nl).
 int lgbm_hist_leaves(const void* binned, const void* g3, const void* leaf_id,
-                     void* partial, void* out, int n, int nf, int nl, int nb,
-                     int nb_out, int ls_max, int n_chunks, int chunk_rows,
-                     int precision, void* stream) {
+                     void* partial, void* out, int n, int nf, int nl,
+                     int nl_add, int nb, int nb_out, int ls_max, int n_chunks,
+                     int chunk_rows, int precision, void* stream) {
   const uint8_t* bn = static_cast<const uint8_t*>(binned);
   const float* g = static_cast<const float*>(g3);
   const int* lid = static_cast<const int*>(leaf_id);
@@ -102,14 +113,14 @@ int lgbm_hist_leaves(const void* binned, const void* g3, const void* leaf_id,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (precision) {
     case kF32:
-      return launch<kF32, 3>(bn, g, lid, p, o, n, nf, nl, nb, nb_out, ls_max,
-                             n_chunks, chunk_rows, st);
+      return launch<kF32, 3>(bn, g, lid, p, o, n, nf, nl, nl_add, nb, nb_out,
+                             ls_max, n_chunks, chunk_rows, st);
     case kBf16:
-      return launch<kBf16, 3>(bn, g, lid, p, o, n, nf, nl, nb, nb_out, ls_max,
-                              n_chunks, chunk_rows, st);
+      return launch<kBf16, 3>(bn, g, lid, p, o, n, nf, nl, nl_add, nb, nb_out,
+                              ls_max, n_chunks, chunk_rows, st);
     case kBf16x2:
-      return launch<kBf16x2, 6>(bn, g, lid, p, o, n, nf, nl, nb, nb_out,
-                                ls_max, n_chunks, chunk_rows, st);
+      return launch<kBf16x2, 6>(bn, g, lid, p, o, n, nf, nl, nl_add, nb,
+                                nb_out, ls_max, n_chunks, chunk_rows, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

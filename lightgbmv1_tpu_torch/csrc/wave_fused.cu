@@ -19,7 +19,9 @@
 //        nslots for a row of no split.  Integer only, so exact.
 //    (b) K1's hist_partial_kernel (hist_tile.cuh) on that label, under
 //        the plan K1 takes for nslots + 1 slots (ops/hist_cuda.plan), so
-//        hsmall equals K1's histogram of the label bit for bit.
+//        hsmall equals K1's histogram of the label bit for bit; the rows
+//        of no split (slot nslots, read by nothing) are dropped at the
+//        load, as hist_wave drops them in K1.
 //    (c) scan_kernel: one block a (slot, feature), one warp a child.  It
 //        merges the partials in chunk order (merge_cell, as K1's merge
 //        kernel), writes hsmall, subtracts (h_left = sml ? hsm : parent -
@@ -52,7 +54,7 @@
 // slots of 64 bins, 15 us at 3.35 TB/s; its arithmetic (3 or 6 f32 adds a
 // live row and feature, and the scan's O(2S F B)) is far below the f32
 // rate, so the bound is by bytes.  The time goes to (b), K1's partial
-// kernel (a warp adds one row at a time).  The TPU kernel instead runs
+// kernel.  The TPU kernel instead runs
 // the histogram as a one-hot product on the MXU and the scan on the
 // VMEM-resident accumulator; on Hopper the one-hot product would do L
 // times the useful work, and a block cannot hold a round's histograms, so
@@ -131,9 +133,11 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
                                     label, n, S, nslots, stream);
   if (err != 0) return err;
   const int nl = nslots + 1;  // slot nslots: the rows of no split
+  // the rows of no split are dropped at the load: nothing reads slot
+  // nslots, whose cells come out 0
   err = launch_hist_partial<PREC, NC>(binned, g3, label, partial, n, nf, nl,
-                                      nb, ls_max, n_chunks, chunk_rows,
-                                      stream);
+                                      nslots, nb, ls_max, n_chunks,
+                                      chunk_rows, stream);
   if (err != 0) return err;
   dim3 grid(S, nf);
   scan_kernel<NC, SUB><<<grid, kScanThreads, 0, stream>>>(

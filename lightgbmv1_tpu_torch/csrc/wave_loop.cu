@@ -47,8 +47,8 @@
 // (about 49 MB at 1,048,576 rows x 28 features and 63 slots of 64 bins,
 // 15 us at 3.35 TB/s) plus the frontier and pool commits (the children's
 // (F, B, 3) rows); its arithmetic is far below the f32 rate, so the bound
-// is by bytes.  The time goes, as in K2, to the histogram partials (a warp
-// adds one row at a time), R times.  The TPU kernel keeps the frontier,
+// is by bytes.  The time goes, as in K2, to the histogram partials, R
+// times.  The TPU kernel keeps the frontier,
 // the pool and the labels in VMEM across its (R, row tiles) grid; no
 // Hopper block holds a round's histograms (5.5 MB of pool and 52 MB of
 // partials at 64 slots), so the state stays in device memory (50 MB of
@@ -260,7 +260,8 @@ wave_loop_kernel(LoopArgs a) {
                            a.leaf, a.label);
     grid.sync();
 
-    // ---- 2. histogram partials under the bucket's plan ----------------
+    // ---- 2. histogram partials under the bucket's plan (slot nslots,
+    //      the rows of no split, dropped at the load) -------------------
     const int ls_max = a.ls_max[bi], n_chunks = a.n_chunks[bi];
     const int groups = (nlh + ls_max - 1) / ls_max;
     const int items = nf * n_chunks * groups;
@@ -268,8 +269,8 @@ wave_loop_kernel(LoopArgs a) {
       __syncthreads();
       hist_partial_item<PREC, NC>(w % nf, (w / nf) % n_chunks,
                                   w / (nf * n_chunks), a.binned, a.g3,
-                                  a.label, a.partial, a.n, nf, nlh, a.nb,
-                                  ls_max, a.chunk_rows[bi], smem);
+                                  a.label, a.partial, a.n, nf, nlh, nslots,
+                                  a.nb, ls_max, a.chunk_rows[bi], smem);
     }
     grid.sync();
 

@@ -102,6 +102,9 @@ class BinnedDataset:
                 raise ValueError(f"{num_features} features against the "
                                  f"reference's {len(mappers)}")
         else:
+            for knob in ("max_bin_by_feature", "forcedbins_filename"):
+                if getattr(config, knob):
+                    raise not_ported(knob, BREADTH)
             # the sample (reference bin_construct_sample_cnt,
             # dataset_loader.cpp:823), drawn as the JAX package draws it
             sample_cnt = min(num_data, config.bin_construct_sample_cnt)

@@ -1,11 +1,12 @@
 """Evaluation metrics of the binary path (host numpy float64).
 
 Port of lightgbmv1_tpu/metrics.py ``BinaryLoglossMetric`` (:159),
-``AUCMetric`` (:174) and ``create_metrics`` (:415) for those two: the
-same formulas on the same float64 inputs (reference binary_metric.hpp;
-AUC exact under ties by the grouped-rank formulation).  Other metric
-names are not ported yet and are skipped with a warning, as the JAX
-package skips a name it does not know.
+``BinaryErrorMetric`` (:167), ``AUCMetric`` (:174) and ``create_metrics``
+(:415) for those three: the same formulas on the same float64 inputs
+(reference binary_metric.hpp; AUC exact under ties by the grouped-rank
+formulation).  A metric the JAX package has and the port does not yet
+raises ``NotImplementedError`` with its ROADMAP item; a name the JAX
+package does not know is skipped with a warning, as there (:431).
 """
 
 from __future__ import annotations
@@ -14,7 +15,7 @@ from typing import List
 
 import numpy as np
 
-from .config import Config
+from .config import BREADTH, OBJECTIVES, Config, not_ported
 from .utils.log import log_warning
 
 
@@ -52,6 +53,15 @@ class BinaryLoglossMetric(Metric):
         return [(self.name, self._avg(loss), self.higher_better)]
 
 
+class BinaryErrorMetric(Metric):
+    name = "binary_error"
+
+    def eval(self, pred):
+        loss = np.where(pred > 0.5, self.label <= 0.5,
+                        self.label > 0.5).astype(np.float64)
+        return [(self.name, self._avg(loss), self.higher_better)]
+
+
 class AUCMetric(Metric):
     name = "auc"
     higher_better = True
@@ -83,7 +93,23 @@ class AUCMetric(Metric):
 _METRICS = {
     "binary_logloss": BinaryLoglossMetric,
     "binary": BinaryLoglossMetric,
+    "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+}
+
+# the JAX package's other metric names (its metrics.py:353-389), by the
+# ROADMAP queue 1 item that ports them
+_UNPORTED_METRICS = {
+    **dict.fromkeys(
+        ("l2", "mse", "mean_squared_error", "regression", "rmse", "l2_root",
+         "root_mean_squared_error", "multi_logloss", "multiclass", "softmax",
+         "multiclassova", "multi_error", "ndcg", "lambdarank", "rank_xendcg",
+         "map", "mean_average_precision"), OBJECTIVES),
+    **dict.fromkeys(
+        ("l1", "mae", "mean_absolute_error", "regression_l1", "quantile",
+         "huber", "fair", "poisson", "mape", "mean_absolute_percentage_error",
+         "gamma", "gamma_deviance", "tweedie", "auc_mu", "cross_entropy",
+         "xentropy"), BREADTH),
 }
 
 _DEFAULT_METRIC_FOR_OBJECTIVE = {"binary": "binary_logloss"}
@@ -100,9 +126,11 @@ def create_metrics(config: Config) -> List[Metric]:
         name = name.strip().lower()
         if name in ("", "none", "null", "na", "custom"):
             continue
+        base = name.split("@", 1)[0]
+        if base in ("ndcg", "map") or name in _UNPORTED_METRICS:
+            raise not_ported(f"metric={name}", _UNPORTED_METRICS[base])
         if name not in _METRICS:
-            log_warning(f"Unknown metric {name} (not ported to "
-                        "lightgbmv1_tpu_torch yet)")
+            log_warning(f"Unknown metric {name}")
             continue
         cls = _METRICS[name]
         if cls.name in seen:

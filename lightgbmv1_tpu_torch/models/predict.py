@@ -27,8 +27,9 @@ package's:
   asynchronously and the host encodes the next chunk while the card
   walks the current one.
 
-Not ported yet (ROADMAP queue 1): ``predict_method=scan`` and row-sharded
-predict (``num_shards > 1``); both raise ``NotImplementedError``.
+Not ported yet (ROADMAP queue 1, item 20): ``predict_method=scan`` and
+row-sharded predict (``num_shards > 1``); both raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -39,6 +40,7 @@ from typing import Any, List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..config import SHARDED_PREDICT, not_ported
 from ..device import DeviceLike, resolve_device
 from ..io.binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
 from ..ops.predict_cuda import (apply_transform, plan_predict_tiles,
@@ -394,9 +396,8 @@ class BatchPredictor:
         if not trees:
             raise ValueError("BatchPredictor needs at least one tree")
         if method == "scan":
-            raise NotImplementedError(
-                "predict_method=scan (the per-tree scan parity pin) is not "
-                "ported yet: ROADMAP queue 1")
+            raise not_ported("predict_method=scan (the per-tree scan parity "
+                             "pin)", SHARDED_PREDICT)
         if method not in ("depthwise", "pallas", "fused"):
             raise ValueError(f"predict_method={method!r}: expected "
                              "depthwise | pallas | fused")
@@ -406,9 +407,8 @@ class BatchPredictor:
         if prebin not in ("auto", "on", "off"):
             raise ValueError(f"predict_prebin={prebin!r}")
         if int(num_shards) > 1:
-            raise NotImplementedError(
-                "row-sharded predict (predict_num_shards > 1) is not ported "
-                "yet: ROADMAP queue 1")
+            raise not_ported("row-sharded predict (predict_num_shards > 1)",
+                             SHARDED_PREDICT)
         self.device = resolve_device(device)
         self.K = max(int(K), 1)
         self.T = len(trees)

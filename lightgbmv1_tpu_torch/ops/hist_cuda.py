@@ -5,25 +5,36 @@ replaces ``hist_pallas._kernel`` (reached through ``hist_leaves_pallas``):
 (F, N) u8 bins, (N, 3) f32 [grad, hess, count] rows and (N,) i32 slot ids
 -> (L, F, B, 3) f32 per-slot histograms.  The kernel is written by hand in
 CUDA C++ (``csrc/hist.cu``; its head note says what bounds it and how the
-design answers it): per-block shared-memory sub-histograms filled in row
-order by one owner thread a cell, then a fixed-order merge, so a result is
-the same to the bit from run to run.
+design answers it): per-block shared-memory sub-histograms whose cells
+each take their rows one add at a time in row order (warp-cooperative
+batches: one owner warp a cell, the lowest lane of a cell's lanes adding
+its peers in lane order), then a fixed-order merge, so a result is the same
+to the bit from run to run.  ``live_slots`` names the slots whose rows add
+(a wave round's dead slot is dropped at the load and comes out 0).
 
 Precision keeps the Pallas kernel's semantics: ``bf16x2`` splits each row
 value into ``hi = bf16(v)`` (round to nearest even) and
 ``lo = bf16(v - hi)``, sums the hi and the lo terms apart in f32 and
 returns ``sum_hi + sum_lo``; ``bf16`` sums hi alone; ``f32`` sums the
 values.  Counts are exact in every mode.  The sums run in another order
-than the TPU's (and than the plain version's), so two results agree to
-f32 rounding of the cells' absolute sums, not to the bit.
+than the TPU's, so the two agree to f32 rounding of the cells' absolute
+sums, not to the bit.
 
-``hist_leaves_ref`` is the plain PyTorch version: the same hi/lo values
-accumulated with one ``index_add_`` per part.  A CPU tensor takes it; a
-CUDA tensor launches the kernel or raises.  Each launch adds one to
-``launch_counts["hist_leaves"]`` and to ``bucket_launch_counts[(L,
-precision)]``; each plain call adds one to ``plain_counts`` under its
-function's name (``hist_leaves`` here, ``hist_leaves_scatter`` for the
-exact oracle in ops/histogram.py).
+Two plain PyTorch versions:
+
+* ``hist_leaves_ref``: the same hi/lo values accumulated with one
+  ``index_add_`` per part — the tolerance version, and the one a CPU tensor
+  takes (a CUDA tensor launches the kernel or raises);
+* ``hist_leaves_roworder_ref``: the kernel's own order, stated plainly —
+  each (chunk, cell) summed in row order from 0 under ``plan``, the chunks
+  merged in chunk order, hi and lo apart — so the kernel equals it bit for
+  bit.  Only checks call it.
+
+Each launch adds one to ``launch_counts["hist_leaves"]`` and to
+``bucket_launch_counts[(L, precision)]``; each plain call adds one to
+``plain_counts`` under its function's name (``hist_leaves`` and
+``hist_leaves_roworder`` here, ``hist_leaves_scatter`` for the exact oracle
+in ops/histogram.py).
 """
 
 from __future__ import annotations
@@ -49,7 +60,8 @@ ROW_TILE = 256
 launch_counts = {"hist_leaves": 0}
 # the launches of ``launch_counts["hist_leaves"]`` by (slots L, precision)
 bucket_launch_counts: dict = {}
-plain_counts = {"hist_leaves": 0, "hist_leaves_scatter": 0}
+plain_counts = {"hist_leaves": 0, "hist_leaves_roworder": 0,
+                "hist_leaves_scatter": 0}
 _count_lock = threading.Lock()
 
 
@@ -97,12 +109,14 @@ def split_parts(g3: torch.Tensor, precision: str):
 
 
 def index_add_hist(binned: torch.Tensor, parts, leaf_id: torch.Tensor,
-                   num_leaves: int, num_bins: int) -> torch.Tensor:
+                   num_leaves: int, num_bins: int,
+                   live_slots=None) -> torch.Tensor:
     """(L, F, B, 3) sums of each (N, 3) f32 value part over the rows of
     each slot: one ``index_add_`` a part over the flattened (feature, slot,
     bin) index, the parts' sums added at the end.  Rows with a slot
     outside [0, L) or a bin outside [0, B) land in a sacrificial cell that
-    is dropped."""
+    is dropped; the slots from ``live_slots`` on (None: none) are zeroed,
+    as if their rows added nothing (they touch no other cell)."""
     F, N = binned.shape
     L, B = int(num_leaves), int(num_bins)
     dev = binned.device
@@ -118,17 +132,74 @@ def index_add_hist(binned: torch.Tensor, parts, leaf_id: torch.Tensor,
         h = torch.zeros((dump + 1, 3), dtype=torch.float32, device=dev)
         h.index_add_(0, idx, part.repeat(F, 1))
         out = h if out is None else out + h
-    return out[:dump].reshape(F, L, B, 3).permute(1, 0, 2, 3).contiguous()
+    out = out[:dump].reshape(F, L, B, 3).permute(1, 0, 2, 3).contiguous()
+    if live_slots is not None:
+        out[int(live_slots):] = 0.0
+    return out
 
 
 def hist_leaves_ref(binned: torch.Tensor, g3: torch.Tensor,
                     leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
-                    precision: str = "bf16x2") -> torch.Tensor:
+                    precision: str = "bf16x2",
+                    live_slots=None) -> torch.Tensor:
     """Plain version of ``hist_leaves``: the kernel's hi/lo (or f32)
     value parts summed by ``index_add_hist``."""
     count_plain("hist_leaves")
     return index_add_hist(binned, split_parts(g3, precision), leaf_id,
-                          num_leaves, num_bins)
+                          num_leaves, num_bins, live_slots)
+
+
+def hist_leaves_roworder_ref(binned: torch.Tensor, g3: torch.Tensor,
+                             leaf_id: torch.Tensor, num_leaves: int,
+                             num_bins: int, precision: str = "bf16x2",
+                             live_slots=None) -> torch.Tensor:
+    """Plain version of ``hist_leaves`` in the kernel's order: under
+    ``plan``'s row chunks, every (chunk, feature, slot, bin) cell sums its
+    rows' value parts in row order in f32 from a 0 start, one rounding an
+    add; the chunks' cells are then summed in chunk order from 0, hi and lo
+    apart, and ``hi + lo`` returned (bf16x2).  Vectorised rank by rank: a
+    stable sort of the cell keys gives each row its rank in its cell, and
+    step r adds every cell's r-th row (one row a cell a step, so each add
+    rounds once).  No pairwise sum anywhere."""
+    count_plain("hist_leaves_roworder")
+    F, N = binned.shape
+    L, B = int(num_leaves), int(num_bins)
+    p = plan(N, F, L, B, precision)
+    dev = binned.device
+    parts = torch.cat(split_parts(g3, precision), dim=1)     # (N, NC)
+    nc = parts.shape[1]
+    live = L if live_slots is None else min(int(live_slots), L)
+    lid = leaf_id.to(torch.int64)
+    bins = binned.to(torch.int64)                              # (F, N)
+    ok = ((lid >= 0) & (lid < live))[None, :] & (bins < B)
+    f_idx, rows = ok.nonzero(as_tuple=True)    # feature-major, rows rising
+    cell = (((rows // p["chunk_rows"]) * F + f_idx) * L + lid[rows]) * B \
+        + bins[f_idx, rows]
+    cell, order = torch.sort(cell, stable=True)  # rows rising in a cell
+    vals = parts[rows[order]]
+    pos = torch.arange(cell.numel(), device=dev)
+    first = torch.ones_like(cell, dtype=torch.bool)
+    first[1:] = cell[1:] != cell[:-1]
+    rank = pos - torch.cummax(torch.where(first, pos, torch.zeros_like(pos)),
+                              dim=0).values
+    by_rank = torch.sort(rank, stable=True).indices
+    acc = torch.zeros((p["n_chunks"] * F * L * B, nc), dtype=torch.float32,
+                      device=dev)
+    start = 0
+    for n_r in torch.bincount(rank).tolist():
+        sel = by_rank[start:start + n_r]
+        start += n_r
+        idx = cell[sel]
+        acc[idx] = acc[idx] + vals[sel]
+    acc = acc.view(p["n_chunks"], F, L, B, nc)
+    hi = torch.zeros((F, L, B, 3), dtype=torch.float32, device=dev)
+    lo = torch.zeros_like(hi)
+    for ch in range(p["n_chunks"]):
+        hi = hi + acc[ch, ..., :3]
+        if nc == 6:
+            lo = lo + acc[ch, ..., 3:]
+    out = hi + lo if nc == 6 else hi
+    return out.permute(1, 0, 2, 3).contiguous()
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -137,7 +208,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("hist")
-    lib.lgbm_hist_leaves.argtypes = [_P] * 5 + [_I] * 9 + [_P]
+    lib.lgbm_hist_leaves.argtypes = [_P] * 5 + [_I] * 10 + [_P]
     lib.lgbm_hist_leaves.restype = _I
     return lib
 
@@ -161,11 +232,13 @@ def plan(N: int, F: int, L: int, num_bins: int, precision: str) -> dict:
 
 def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
                 leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
-                precision: str = "bf16x2") -> torch.Tensor:
-    """K1: (L, F, num_bins, 3) f32 histograms of the rows of each slot."""
+                precision: str = "bf16x2", live_slots=None) -> torch.Tensor:
+    """K1: (L, F, num_bins, 3) f32 histograms of the rows of each slot.
+    With ``live_slots`` only the rows of slots below it add; the others'
+    cells are 0, and the plan (so the live cells' bits) is L's."""
     if binned.device.type == "cpu":
         return hist_leaves_ref(binned, g3, leaf_id, num_leaves, num_bins,
-                               precision)
+                               precision, live_slots)
     if binned.device.type != "cuda":
         raise ValueError(f"binned on {binned.device}: expected cpu or cuda")
     if precision not in PRECISIONS:
@@ -184,6 +257,9 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
         raise ValueError(f"leaf_id must be a contiguous ({N},) int32 tensor "
                          f"on {binned.device}")
     L, B = int(num_leaves), int(num_bins)
+    live = L if live_slots is None else int(live_slots)
+    if not 0 <= live <= L:
+        raise ValueError(f"live_slots={live_slots}: expected 0..{L}")
     p = plan(N, F, L, B, precision)
     if F * max(N, 1) >= 2 ** 31:
         raise ValueError("binned exceeds the kernel's int32 row indexing")
@@ -196,7 +272,7 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         err = _lib().lgbm_hist_leaves(
             binned.data_ptr(), g3.data_ptr(), leaf_id.data_ptr(),
-            partial.data_ptr(), out.data_ptr(), N, F, L, p["nb"], B,
+            partial.data_ptr(), out.data_ptr(), N, F, L, live, p["nb"], B,
             p["ls_max"], p["n_chunks"], p["chunk_rows"],
             PREC_ID[precision], stream)
     if err != 0:

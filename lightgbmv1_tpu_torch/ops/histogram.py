@@ -9,8 +9,10 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
   kernel K1 (``ops/hist_cuda.hist_leaves``, whose plain version a CPU
   tensor takes), ``scatter`` the oracle above;
 * ``hist_wave`` (:312) — the wave round's ``nslots`` histograms: rows
-  labelled ``nslots`` are dead and land in a sacrificial slot that is
-  sliced away;
+  labelled ``nslots`` are dead; the histogram runs at ``nslots + 1``
+  slots (the plan, so the bits, of the JAX package's sacrificial slot)
+  with only the first ``nslots`` live, so K1 drops the dead rows at the
+  load, and the dead slot is sliced away;
 * ``default_hist_method`` (:380) — ``auto`` is ``pallas`` (K1) for a CUDA
   tensor, as on the TPU, and ``scatter`` for a CPU one, as on the JAX
   package's CPU backend; ``fused`` resolves to its base method ``pallas``,
@@ -30,23 +32,27 @@ from . import hist_cuda
 
 def hist_leaves_scatter(binned: torch.Tensor, g3: torch.Tensor,
                         leaf_id: torch.Tensor, num_leaves: int,
-                        num_bins: int) -> torch.Tensor:
+                        num_bins: int, live_slots=None) -> torch.Tensor:
     """Exact f32 histograms of every slot (the oracle of the kernels)."""
     hist_cuda.count_plain("hist_leaves_scatter")
     return hist_cuda.index_add_hist(binned, [g3.to(torch.float32)],
-                                    leaf_id, num_leaves, num_bins)
+                                    leaf_id, num_leaves, num_bins,
+                                    live_slots)
 
 
 def hist_frontier(binned: torch.Tensor, g3: torch.Tensor,
                   leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
-                  method: str = "scatter",
-                  precision: str = "bf16x2") -> torch.Tensor:
-    """All slots' histograms in a single pass."""
+                  method: str = "scatter", precision: str = "bf16x2",
+                  live_slots=None) -> torch.Tensor:
+    """All slots' histograms in a single pass; with ``live_slots`` only
+    the rows of the slots below it add."""
     if method == "pallas":
         return hist_cuda.hist_leaves(binned, g3, leaf_id, num_leaves,
-                                     num_bins, precision=precision)
+                                     num_bins, precision=precision,
+                                     live_slots=live_slots)
     if method == "scatter":
-        return hist_leaves_scatter(binned, g3, leaf_id, num_leaves, num_bins)
+        return hist_leaves_scatter(binned, g3, leaf_id, num_leaves, num_bins,
+                                   live_slots)
     raise not_ported(f"hist_method={method}", HIST_METHODS)
 
 
@@ -56,7 +62,8 @@ def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,
     """(nslots, F, B, 3) histograms of the rows labelled 0..nslots-1;
     rows labelled ``nslots`` (not in this wave) contribute nothing."""
     return hist_frontier(binned, g3, label, nslots + 1, num_bins,
-                         method=method, precision=precision)[:nslots]
+                         method=method, precision=precision,
+                         live_slots=nslots)[:nslots]
 
 
 def default_hist_method(config_method: str = "auto",

@@ -387,7 +387,7 @@ def fused_ineligible_reason(*, bin_dtype, num_bins) -> str:
     bundles, packed bins and extra_trees before any round (config.py,
     io/dataset.py), so what remains to check is the bin type."""
     if torch.iinfo(bin_dtype).bits > 8:
-        return "int16 bins exceed the uint8 kernel family"
+        return "int16 bins exceed the uint8 one-hot kernel family"
     if num_bins > 256:
         return "num_bins > 256 exceeds the uint8 kernel family"
     return ""

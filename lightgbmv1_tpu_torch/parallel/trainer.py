@@ -56,8 +56,16 @@ def select_bin_layout(config: Config, *, num_total_bin: int,
                       device: torch.device) -> str:
     """``bin_layout``: ``u8``, or ``packed4`` where the JAX package would
     pack (``auto`` with every feature in 4 bits on the kernel's method);
-    packed bins are not ported, so that case raises."""
+    packed bins are not ported, so that case raises.  ``gpu_use_dp`` asks
+    for the widest histogram datapath and keeps byte bins, as there (an
+    explicit ``packed4`` warns)."""
     if config.bin_layout == "u8":
+        return "u8"
+    if config.gpu_use_dp:
+        if config.bin_layout == "packed4":
+            log_warning("bin_layout=packed4: gpu_use_dp requests the widest "
+                        "histogram datapath; packed bins narrow the read "
+                        "stream; storing u8 bins")
         return "u8"
     method = default_hist_method(config.hist_method, device)
     if config.bin_layout == "packed4" or (num_total_bin <= 16
@@ -81,6 +89,11 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
         raise not_ported(f"hist_dtype={precision}", INT8)
     deep_precision = resolve_deep_dtype(config.hist_dtype_deep, precision,
                                         torch.device(device).type)
+    if deep_precision == "int8sr" and config.gpu_use_dp:
+        log_warning("hist_dtype_deep=int8sr conflicts with gpu_use_dp "
+                    "(double-precision histograms requested); int8sr "
+                    "disabled, deep rounds run f32")
+        deep_precision = "f32"
     if deep_precision in ("int8", "int8sr"):
         raise not_ported(f"hist_dtype_deep={deep_precision}", INT8)
 

@@ -384,13 +384,17 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
 def test_fused_ineligible_reason():
     assert twf.fused_ineligible_reason(bin_dtype=torch.uint8,
                                        num_bins=64) == ""
-    assert "int16" in twf.fused_ineligible_reason(bin_dtype=torch.int16,
-                                                  num_bins=64)
-    assert "256" in twf.fused_ineligible_reason(bin_dtype=torch.uint8,
-                                                num_bins=512)
+    # the JAX package's reasons, word for word (JAX wave_fused.py:1367,
+    # :1369)
+    assert twf.fused_ineligible_reason(bin_dtype=torch.int16, num_bins=64) \
+        == "int16 bins exceed the uint8 one-hot kernel family"
+    assert twf.fused_ineligible_reason(bin_dtype=torch.uint8, num_bins=512) \
+        == "num_bins > 256 exceeds the uint8 kernel family"
     meta = tsplit.FeatureMeta(*(torch.zeros(2, dtype=torch.int64),) * 4,
                               usable=torch.ones(2, dtype=torch.bool))
-    with pytest.raises(NotImplementedError, match="int16"):
+    with pytest.raises(NotImplementedError,
+                       match="int16 bins exceed the uint8 one-hot kernel "
+                       "family"):
         build_trainer(Config.from_dict({"hist_method": "fused",
                                         "num_leaves": 15}), meta,
                       tsplit.SplitParams(), 64, CPU, bin_dtype=torch.int16)

@@ -208,9 +208,168 @@ def test_plain_calls_are_counted_and_launch_counts_stay():
     assert hist_cuda.bucket_launch_counts == {}
     hist_frontier(binned, g3, leaf, 3, 16, method="pallas")
     hist_wave(binned, g3, leaf, 2, 16, method="scatter")
+    hist_cuda.hist_leaves_roworder_ref(binned, g3, leaf, 3, 16)
     assert hist_cuda.plain_counts == {"hist_leaves": 1,
+                                      "hist_leaves_roworder": 1,
                                       "hist_leaves_scatter": 1}
     assert hist_cuda.launch_counts == {"hist_leaves": 0}
     assert hist_cuda.bucket_launch_counts == {}
     hist_cuda.reset_launch_counts()
     assert not any(hist_cuda.plain_counts.values())
+
+
+# ---------------------------------------------------------------------------
+# the row-order plain version (the kernel's order) and the dead slot
+# ---------------------------------------------------------------------------
+
+
+def _order_inputs(precision):
+    """Two features, 700 rows (three 256-row chunks under the plan), three
+    slots of 16 bins, with cells where the order of the adds decides the
+    bits: 1e8, 1, -1e8 in one cell (1 is lost or kept by the order), a
+    cell of -0.0 values only, and +-1e-3 noise elsewhere."""
+    rng = np.random.RandomState(5)
+    n, L = 700, 3
+    binned = rng.randint(0, 16, size=(2, n)).astype(np.uint8)
+    leaf = rng.randint(0, L, size=n).astype(np.int32)
+    g3 = (rng.randn(n, 3) * 1e-3).astype(np.float32)
+    g3[:, 2] = 1.0
+    # rows 10, 20, 30 of chunk 0 and 300, 310 of chunk 1: slot 1, bin 7,
+    # and no other row there
+    big = [10, 20, 30, 300, 310]
+    binned[:, leaf == 1] = np.where(binned[:, leaf == 1] == 7, 6,
+                                    binned[:, leaf == 1])
+    binned[:, big] = 7
+    leaf[big] = 1
+    g3[big, 0] = [1e8, 1.0, -1e8, 1.0, 3.0]
+    g3[big, 1] = [1.0, 1e8, 1.0, -1e8, 1.0]
+    # slot 2, bin 15: -0.0 rows only (a +0.0 cell, as the kernel's 0.f
+    # start gives), and bin 15 nowhere else
+    binned[binned == 15] = 14
+    neg = [5, 6, 400]
+    binned[:, neg] = 15
+    leaf[neg] = 2
+    g3[neg, :2] = -0.0
+    return binned, g3, leaf, L, 16
+
+
+def _per_cell_loop(binned, g3, leaf, L, B, precision, live=None):
+    """The kernel's order written as a pure-Python loop over cells."""
+    F, N = binned.shape
+    p = hist_cuda.plan(N, F, L, B, precision)
+    parts = [x.numpy() for x in hist_cuda.split_parts(torch.from_numpy(g3),
+                                                       precision)]
+    live = L if live is None else live
+    out = np.zeros((L, F, B, 3), dtype=np.float32)
+    for f in range(F):
+        for s in range(L):
+            for b in range(B):
+                tot = [np.float32(0.0)] * (3 * len(parts))
+                for ch in range(p["n_chunks"]):
+                    r0 = ch * p["chunk_rows"]
+                    rows = [r for r in range(r0, min(N, r0 + p["chunk_rows"]))
+                            if leaf[r] == s and s < live and binned[f, r] == b]
+                    for k, part in enumerate(parts):
+                        for c in range(3):
+                            acc = np.float32(0.0)
+                            for r in rows:
+                                acc = np.float32(acc + part[r, c])
+                            tot[3 * k + c] = np.float32(tot[3 * k + c] + acc)
+                for c in range(3):
+                    v = tot[c]
+                    if len(parts) == 2:
+                        v = np.float32(v + tot[3 + c])
+                    out[s, f, b, c] = v
+    return out
+
+
+def _bits(a):
+    return np.ascontiguousarray(a, dtype=np.float32).view(np.int32)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+def test_roworder_equals_per_cell_loop(precision):
+    """hist_leaves_roworder_ref is the kernel's order: bit for bit a
+    Python loop that adds each cell's rows in row order from 0 in f32 per
+    chunk and sums the chunks in order, hi and lo apart — with more than
+    one chunk, order-sensitive sums, and -0.0 rows (a +0.0 cell)."""
+    binned, g3, leaf, L, B = _order_inputs(precision)
+    assert hist_cuda.plan(binned.shape[1], 2, L, B, precision)["n_chunks"] \
+        == 3
+    got = hist_cuda.hist_leaves_roworder_ref(
+        torch.from_numpy(binned), torch.from_numpy(g3),
+        torch.from_numpy(leaf), L, B, precision).numpy()
+    want = _per_cell_loop(binned, g3, leaf, L, B, precision)
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    # the order mattered: 1e8 + 1 - 1e8 in chunk 0 is 0 in f32, and the
+    # chunk sums 0 + 4 give 4, where the exact sum is 5
+    assert got[1, 0, 7, 0] == 4.0 or precision != "f32"
+    assert not np.signbit(got[2, :, 15, :2]).any()
+    assert (got[2, :, 15, 2] == 3.0).all()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("B", [16, 64])
+def test_roworder_within_tolerance(B, precision):
+    """The row-order version against the index_add_ version (within the
+    card check's K1 bound 2 (n + 1) 2^-24 of a cell's absolute sum, the
+    f32 bound of two orders of n adds) and against the JAX Pallas kernel
+    in interpret mode (within 4e-6 of the mass, as
+    test_plain_matches_pallas); counts exact."""
+    L = 5
+    binned, g3, leaf = _inputs(B + 1, B, L)
+    tb, tg, tl = map(torch.from_numpy, (binned, g3, leaf))
+    got = hist_cuda.hist_leaves_roworder_ref(tb, tg, tl, L, B,
+                                             precision).numpy()
+    ref = hist_cuda.hist_leaves_ref(tb, tg, tl, L, B, precision).numpy()
+    np.testing.assert_array_equal(got[..., 2], ref[..., 2])
+    absum = hist_leaves_scatter(tb, torch.from_numpy(np.abs(g3)), tl, L,
+                                B).numpy()
+    k1_tol = 2.0 * (absum[..., 2:3] + 1.0) * 2.0 ** -24 * absum + 1e-6
+    assert (np.abs(got - ref) <= k1_tol).all()
+    want = np.asarray(hist_leaves_pallas(
+        jnp.asarray(binned), jnp.asarray(g3), jnp.asarray(leaf), L, B,
+        precision=precision, interpret=True))
+    np.testing.assert_array_equal(got[..., 2], want[..., 2])
+    assert (np.abs(got - want) <= _tol(binned, g3, leaf, L, B)).all()
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+def test_dead_slot_adds_nothing(precision):
+    """With live_slots = L - 1 the last slot's rows add nothing: its cells
+    are +0.0 and every live cell is bitwise the all-live result, in the
+    row-order version, the wrapper's CPU path and the scatter oracle; the
+    per-cell loop agrees."""
+    L, B = 5, 16
+    binned, g3, leaf = _inputs(21, B, L)
+    tb, tg, tl = map(torch.from_numpy, (binned, g3, leaf))
+    for fn in (hist_cuda.hist_leaves_roworder_ref, hist_cuda.hist_leaves):
+        full = fn(tb, tg, tl, L, B, precision).numpy()
+        dead = fn(tb, tg, tl, L, B, precision, live_slots=L - 1).numpy()
+        np.testing.assert_array_equal(_bits(dead[:L - 1]),
+                                      _bits(full[:L - 1]))
+        assert (_bits(dead[L - 1]) == 0).all()
+        assert full[L - 1, ..., 2].sum() > 0
+    np.testing.assert_array_equal(
+        _bits(hist_cuda.hist_leaves_roworder_ref(tb[:, :300], tg[:300],
+                                                 tl[:300], L, B, precision,
+                                                 live_slots=L - 1).numpy()),
+        _bits(_per_cell_loop(binned[:, :300], g3[:300], leaf[:300], L, B,
+                             precision, live=L - 1)))
+    full = hist_leaves_scatter(tb, tg, tl, L, B).numpy()
+    dead = hist_leaves_scatter(tb, tg, tl, L, B, live_slots=L - 1).numpy()
+    np.testing.assert_array_equal(_bits(dead[:L - 1]), _bits(full[:L - 1]))
+    assert (_bits(dead[L - 1]) == 0).all()
+
+
+@pytest.mark.parametrize("L", [2, 5, 17, 64])
+@pytest.mark.parametrize("precision", ["f32", "bf16", "bf16x2"])
+def test_plan_of_the_wave_slots_is_kept(L, precision):
+    """The headline's K1 plans at nslots + 1 = 2, 5, 17 and 64 slots are
+    the ones the row chunks (so the merge order, so the bits) came from
+    before the dead slot was dropped at the load: 19 chunks of 55,296
+    rows, one slot group."""
+    p = hist_cuda.plan(1 << 20, 28, L, 64, precision)
+    assert p == {"nb": 64, "nc": 6 if precision == "bf16x2" else 3,
+                 "ls_max": L, "groups": 1, "n_chunks": 19,
+                 "chunk_rows": 55296}
