@@ -19,11 +19,16 @@ Phases (any failure exits non-zero with no ``ok`` line):
               as v3 model text by the port's ``model_to_string`` and
               loaded with ``Booster(model_file=...)`` on ``cuda``.
 4. kernels  — each kernel against its plain PyTorch version on the card:
-              K4 scores (raw, sigmoid), K4 leaf, K4 on uint16/int32 codes,
-              K4 packed codes (a second model with <= 13 thresholds a
-              feature), K4 with K = 3 and softmax (a 60-tree model), and
-              K5.  Leaves exact; raw scores within
-              1e-6 * sum_t max_l |leaf_value| + 1e-7; transformed 1e-6.
+              K4 on the full-width model A (u8 codes, and the same codes
+              as uint16 and int32), on model B (packed codes: <= 13
+              thresholds a feature) and on model C (K = 3, softmax, 60
+              trees), each at 131,072, 1,000 (ragged) and 256 rows: raw
+              scores bit for bit (the plain version adds in K4's order),
+              sigmoid/softmax within 1e-6, leaf ids exact.  Then K4's
+              raw scores bitwise equal at every row-tiles-a-block the
+              wrapper picks for the buckets 256 ... 131,072 and at the
+              extremes, and for rows scored as a 256-row bucket or
+              inside the 131,072-row chunk.  K5's leaf ids exact.
 5. bulk     — the main path, launch counts reset first:
               ``Booster.predict(X, predict_method="fused", raw_score=True)``
               on ``--rows`` rows with NaNs and zeros, ``pred_leaf`` on a
@@ -31,12 +36,16 @@ Phases (any failure exits non-zero with no ``ok`` line):
               against the numpy HostTree oracle on a subset.
 6. server   — ``Server`` with predict_method=fused answers ``--requests``
               requests of 1-256 rows from 8 threads, with one publish and
-              one rollback in mid-traffic; every answer checked against
-              ``Booster.predict`` of the version it names.
+              one rollback in mid-traffic; every answer equal bit for bit
+              to ``Booster.predict`` of the version it names.
 7. launches — both kernels' counts moved in phases 5-6, the fused plan is
               eligible; then each kernel is timed (CUDA events) at the
               main path's chunk shape beside its plain version and its
-              bound.
+              bound, and K4 also at 256, 512 and 1,024 rows, each size
+              with its device time by torch.profiler (walk and combine),
+              the walks' load bound (walk_loads), K4's own shared-memory
+              words and its lane efficiency (thread steps over 32 x warp
+              steps under its mapping, from the per-walk step counts).
 8. data     — ``--train-rows`` x 28 training rows and 131,072 valid rows
               from the port's copy of bench.py:42 make_data, binned at
               max_bin=63 (B = 64) by ``Dataset.construct``.
@@ -272,21 +281,24 @@ def leaf_depths(trees, L):
     return out
 
 
-def walk_loads(tables, codes, n_steps, zero_code, nan_code,
-               chunk=16384):
-    """Leaf ids, steps and four-byte table/code loads of every (row, tree)
-    walk of ``codes``, counted as walk_tree in predict_walk.cu makes
-    them: each step loads the split feature, the row's code, the missing
-    type and the child; then default_left for a missing value, else the
-    threshold bin and, for a NaN or zero code, the zero bin (5 or 6)."""
+def walk_counts(tables, codes, n_steps, zero_code, nan_code,
+                chunk=16384):
+    """Leaf ids (N, T), and the steps and extra zero-bin loads of every
+    (row, tree) walk of ``codes`` (each (N, T) int16), counted as
+    walk_tree in predict_walk.cu makes them: each step loads the split
+    feature, the row's code, the missing type and the child; then
+    default_left for a missing value, else the threshold bin and, for a
+    NaN or zero code, the zero bin."""
     T, L1 = tables.split_feature.shape
     off = torch.arange(T, device=codes.device)[None, :] * L1
     feat, tbin, zbin, dl, mt, lc, rc = (a.reshape(-1) for a in tables[1:8])
     root = (tables.num_leaves > 1).long() - 1          # 0, or -1: leaf 0
-    leaves, steps, loads = [], 0, 0
+    leaves, steps, zloads = [], [], []
     for lo in range(0, codes.shape[0], chunk):
         c = codes[lo: lo + chunk].long()
         node = root.expand(c.shape[0], T)
+        st = torch.zeros(node.shape, dtype=torch.int16, device=c.device)
+        zl = torch.zeros_like(st)
         for _ in range(max(int(n_steps), 1)):
             act = node >= 0
             i = node.clamp(min=0) + off
@@ -298,12 +310,25 @@ def walk_loads(tables, codes, n_steps, zero_code, nan_code,
                                   (m == MISSING_ZERO) & special)
             left = torch.where(missing, dl[i] != 0,
                                torch.where(special, zbin[i], b) <= tbin[i])
-            steps += int(act.sum())
-            loads += int((act & ~missing & special).sum())
+            st += act.to(torch.int16)
+            zl += (act & ~missing & special).to(torch.int16)
             node = torch.where(act, torch.where(left, lc[i], rc[i]).long(),
                                node)
         leaves.append((-node - 1).to(torch.int32))
-    return torch.cat(leaves), steps, 5 * steps + loads
+        steps.append(st)
+        zloads.append(zl)
+    return torch.cat(leaves), torch.cat(steps), torch.cat(zloads)
+
+
+def walk_loads(tables, codes, n_steps, zero_code, nan_code,
+               chunk=16384):
+    """Leaf ids, steps and four-byte table/code loads of every (row, tree)
+    walk of ``codes`` (walk_counts): 5 loads a step, 6 where the zero bin
+    is read."""
+    leaf, steps, zloads = walk_counts(tables, codes, n_steps, zero_code,
+                                      nan_code, chunk)
+    n = int(steps.sum())
+    return leaf, n, 5 * n + int(zloads.sum())
 
 
 # ---------------------------------------------------------------------------
@@ -320,9 +345,20 @@ def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a.double() - b.double()).abs().max())
 
 
+def k4_shapes(nr, n, row_bytes, dev) -> list:
+    """Every row-tiles-a-block the wrapper picks for the BatchPredictor's
+    buckets (256 ... n rows), and the extremes: one tile a block and all
+    of n's tiles in one block."""
+    picks = {pc.launch_shape(b, nr, row_bytes, dev)
+             for b in (1 << i for i in range(8, 18)) if b <= n}
+    return sorted(picks | {1, 2, 3, -(-n // pc.ROW_TILE)})
+
+
 def phase_kernels(models, dev, n_rows, rng) -> dict:
-    """Each kernel against its plain version on the same card inputs;
-    returns the max abs score error per kernel."""
+    """Each kernel against its plain version on the same card inputs: K4's
+    raw scores bit for bit (its plain version adds in the kernel's
+    order), at n_rows, 1,000 (ragged) and 256 rows, on every code width,
+    and at every launch shape; returns the max abs error per kernel."""
     err = {"serving_fused": 0.0, "serving_leaf": 0.0}
     X = make_rows(rng, n_rows)
     for name, (text, trees, K, method_kw) in models.items():
@@ -330,43 +366,49 @@ def phase_kernels(models, dev, n_rows, rng) -> dict:
                             **method_kw)
         check(bp.fused_plan["eligible"], f"{name}: fused plan refused "
               f"({bp.fused_plan['reason']})")
+        nr = bp._fused_tables
         codes = torch.from_numpy(bp.encode(X)).to(dev)
         kw = dict(n_steps=bp.depth, zero_code=bp.binner.zero_code,
-                  nan_code=bp.binner.nan_code, K=K,
-                  tree_tile=bp.fused_plan["tree_tile"], packed=bp.packed)
-        tol = raw_tol(trees)
+                  nan_code=bp.binner.nan_code, K=K, packed=bp.packed)
         transforms = [None, "sigmoid"] if K == 1 else [None, "softmax"]
-        for tr in transforms:
-            got = pc.serving_fused(bp._fused_tables, codes, transform=tr, **kw)
-            want = pc.serving_fused_ref(bp._fused_tables, codes,
-                                        transform=tr, **kw)
-            e = max_err(got, want)
-            limit = tol if tr is None else 1e-6
-            log(f"  K4 {name} scores[{tr or 'raw'}] max_abs_err={e:.3e} "
-                f"(tol {limit:.3e})")
-            check(e <= limit, f"K4 {name} {tr}: {e} > {limit}")
-            err["serving_fused"] = max(err["serving_fused"], e)
-        got = pc.serving_fused(bp._fused_tables, codes, mode="leaf", **kw)
-        want = pc.serving_fused_ref(bp._fused_tables, codes, mode="leaf", **kw)
-        check(torch.equal(got, want), f"K4 {name} leaf ids differ")
-        log(f"  K4 {name} leaf: exact ({tuple(got.shape)})")
-        # a ragged row count (the last block half full) and the server's
-        # small buckets go through the same masks
-        for n in (1000, 256):
-            part = codes[:n]
-            for mode in ("scores", "leaf"):
-                got = pc.serving_fused(bp._fused_tables, part, mode=mode, **kw)
-                want = pc.serving_fused_ref(bp._fused_tables, part,
-                                            mode=mode, **kw)
-                check(max_err(got, want) <= tol,
-                      f"K4 {name} {mode} at {n} rows differs")
-        log(f"  K4 {name} at 1000 (ragged) and 256 rows: ok")
-        if not bp.packed:
-            base = pc.serving_fused(bp._fused_tables, codes, **kw)
-            for dt in (torch.uint16, torch.int32):
-                other = pc.serving_fused(bp._fused_tables, codes.to(dt), **kw)
-                check(torch.equal(other, base), f"K4 {name} {dt} codes differ")
-            log(f"  K4 {name} uint16/int32 codes: identical to uint8")
+        widths = [codes] if bp.packed else [
+            codes, codes.to(torch.uint16), codes.to(torch.int32)]
+        for wide in widths:
+            tag = (f"{name} {str(wide.dtype)[6:]}"
+                   f"{' packed' if bp.packed else ''}")
+            for n in (n_rows, 1000, 256):
+                part = wide[:n]
+                for tr in transforms:
+                    got = pc.serving_fused(nr, part, transform=tr, **kw)
+                    want = pc.serving_fused_ref(nr, part, transform=tr, **kw)
+                    e = max_err(got, want)
+                    err["serving_fused"] = max(err["serving_fused"], e)
+                    if tr is None:
+                        check(same_bits(got, want), f"K4 {tag} raw at {n} "
+                              f"rows: not bitwise its plain version ({e})")
+                    else:
+                        check(e <= 1e-6, f"K4 {tag} {tr} at {n}: {e}")
+                got = pc.serving_fused(nr, part, mode="leaf", **kw)
+                want = pc.serving_fused_ref(nr, part, mode="leaf", **kw)
+                check(torch.equal(got, want), f"K4 {tag} leaf ids at {n}")
+            log(f"  K4 {tag}: raw bitwise, {transforms[1]} within 1e-6, "
+                f"leaf ids exact at {n_rows}, 1000 and 256 rows")
+        # the bits do not follow the launch shape: every tiling the wrapper
+        # picks, and rows scored as a 256-row bucket or inside the chunk
+        row_bytes = codes.shape[1] * codes.element_size()
+        base = pc.serving_fused(nr, codes, **kw)
+        shapes = k4_shapes(nr, n_rows, row_bytes, dev)
+        for m in shapes:
+            check(same_bits(pc.serving_fused(nr, codes, tiles_per_block=m,
+                                             **kw), base),
+                  f"K4 {name}: {m} row tiles a block changed the bits")
+        for lo in (0, 256, n_rows - 256):
+            bucket = codes[lo: lo + 256].clone()
+            check(same_bits(pc.serving_fused(nr, bucket, **kw),
+                            base[lo: lo + 256]),
+                  f"K4 {name}: rows {lo}.. as a 256-row bucket differ")
+        log(f"  K4 {name}: bitwise equal at row tiles a block {shapes} and "
+            "as 256-row buckets")
         unpacked = torch.from_numpy(bp.binner.prebin(X)).to(dev)
         leaf_tables = pc.walk_tables(bp.arrays)
         kw5 = dict(n_steps=bp.depth, zero_code=bp.binner.zero_code,
@@ -492,7 +534,7 @@ def phase_server(booster_a, booster_b, n_requests, rng, dev) -> dict:
         want = booster.predict(X, predict_method="fused", raw_score=True)
         got = np.concatenate([res.values[:, 0] for _, res in mine])
         e = float(np.abs(got - want).max())
-        check(e <= raw_tol(booster._all_trees()),
+        check(np.array_equal(got, want),
               f"server answers of {tag} differ from Booster.predict by {e}")
         log(f"  {len(mine)} answers tagged {tag}: max_abs_err vs "
             f"Booster.predict = {e:.3e}")
@@ -531,9 +573,69 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+def kernel_steps(tables, steps: torch.Tensor, t_pad: int) -> torch.Tensor:
+    """(N, t_pad) steps K4 takes on each walk, from walk_counts' steps:
+    a tree of <= 1 leaf, or a pad tree, takes one (its first step reads
+    the parked flag)."""
+    out = torch.ones((steps.shape[0], t_pad), dtype=torch.int16,
+                     device=steps.device)
+    out[:, : steps.shape[1]] = torch.where(tables.num_leaves > 1, steps, 1)
+    return out
+
+
+def lane_efficiency(steps: torch.Tensor, tree_tile: int, K: int) -> float:
+    """Thread steps over 32 x warp steps under K4's mapping: a warp is 32
+    neighbouring rows, and each of its lanes walks WALKS trees of one
+    class of a group at once (trees j, j + K, ...), so a warp runs as
+    many iterations as its deepest (lane, tree) walk of the set, each
+    iteration WALKS step slots a lane."""
+    N, t_pad = steps.shape
+    n32 = -(-N // 32) * 32
+    s = torch.zeros((n32, t_pad), dtype=torch.int16, device=steps.device)
+    s[:N] = steps
+    s = s.view(n32 // 32, 32, t_pad)
+    slots = 0
+    for g0 in range(0, t_pad, tree_tile):
+        for c in range(K):
+            trees = list(range(g0 + (c - g0) % K, g0 + tree_tile, K))
+            for q in range(0, len(trees), pc.WALKS):
+                it = s[:, :, trees[q: q + pc.WALKS]].amax(dim=(1, 2))
+                slots += int(it.sum()) * 32 * pc.WALKS
+    return int(steps.sum()) / slots
+
+
+def k4_device_ms(fn, reps: int = 20) -> dict:
+    """K4's device time a call by torch.profiler over ``reps`` calls after
+    a warm-up: its walk and combine kernels apart (CUDA events around a
+    small call also count the host's launch gaps)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {"walk_device_ms": 0.0, "combine_device_ms": 0.0}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0.0)))
+        if "serving_fused_kernel" in e.key:
+            out["walk_device_ms"] += us / reps / 1e3
+        elif "serving_combine" in e.key:
+            out["combine_device_ms"] += us / reps / 1e3
+    out["device_ms"] = out["walk_device_ms"] + out["combine_device_ms"]
+    if out["device_ms"] == 0.0:
+        out = {k: None for k in out}        # the profiler saw no kernel
+    return out
+
+
 def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     """Each kernel at the main path's chunk shape (131,072 rows of u8
-    codes of the 500-tree model) beside its plain version and bound."""
+    codes of the 500-tree model) beside its plain version and bound; K4
+    also at the server's 256-, 512- and 1,024-row buckets, each size with
+    its walk_loads bound, K4's own shared-memory words and the lane
+    efficiency of its mapping."""
     bp = booster._device_predictor(trees, 1, 0, "fused", {})
     n = bp.chunk_rows
     codes = torch.from_numpy(bp.encode(make_rows(rng, n))).to(dev)
@@ -543,19 +645,21 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     leaf_tables = pc.walk_tables(bp.arrays)
     T, L = len(trees), bp.arrays.leaf_value.shape[1]
     L1 = bp.arrays.split_feature.shape[1]
+    t_pad, tree_tile = bp.fused_plan["t_pad"], bp.fused_plan["tree_tile"]
     # the work this run's data needs, counted from the walks themselves
     leaf, steps, walk = walk_loads(leaf_tables, codes, **kw)
     check(torch.equal(leaf, pc.serving_leaf(leaf_tables, codes, **kw)),
           "load count walked other leaves than the kernel")
-    fkw = dict(kw, K=1, tree_tile=bp.fused_plan["tree_tile"])
+    fkw = dict(kw, K=1)
     rows = []
     specs = [
         ("serving_fused", "lightgbmv1_tpu/ops/predict_pallas.py:202",
          lambda: pc.serving_fused(tables, codes, **fkw),
          lambda: pc.serving_fused_ref(tables, codes, **fkw),
-         # codes in, tables (7 node tables + leaf values + num_leaves) in,
-         # (N, 1) f32 out; a leaf-value gather a walk on top of the steps
-         n * F + tables.split_feature.shape[0] * (7 * L1 + L + 1) * 4 + n * 4,
+         # the seven-table walk's formula: codes in, the seven tables +
+         # leaf values + num_leaves in, (N, 1) f32 out; a leaf-value
+         # gather a walk on top of the steps' loads
+         n * F + t_pad * (7 * L1 + L + 1) * 4 + n * 4,
          walk + n * T),
         ("serving_leaf", "lightgbmv1_tpu/ops/predict_pallas.py:55",
          lambda: pc.serving_leaf(leaf_tables, codes, **kw),
@@ -579,12 +683,42 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
             f"{row['bound_ms']:.3f} ms by {row['bound_by']}, "
             f"{n / ms * 1e3:.3e} rows/s)")
         rows.append(row)
-    # the server's largest bucket: 4 blocks of 256 rows on a 132-SM card
-    small = codes[:1024]
-    rows[0]["ms_at_1024_rows"] = time_ms(
-        lambda: pc.serving_fused(tables, small, **fkw), 20)
-    log(f"  serving_fused on a 1024-row server batch: "
-        f"{rows[0]['ms_at_1024_rows']:.3f} ms")
+    # K4 at the server's buckets and the bulk chunk: the seven-table
+    # walk's bound formula (walk_loads) beside K4's own words a step (a
+    # 16-byte record and the code; a leaf value a walk) and its lanes'
+    # use of the steps
+    sizes = []
+    for m in (256, 512, 1024, n):
+        sub = codes[:m]
+        _, st, zl = walk_counts(leaf_tables, sub, **kw)
+        m_steps = int(st.sum())
+        m_walk = 5 * m_steps + int(zl.sum())
+        per_walk = kernel_steps(leaf_tables, st, t_pad)
+        k_steps = int(per_walk.sum())
+        ms = time_ms(lambda: pc.serving_fused(tables, sub, **fkw),
+                     10 if m == n else 50)
+        rec = {"rows": m, "ms": ms,
+               "bound_ms": (m_walk + m * T) / GATHERS_PER_S * 1e3,
+               "walk_loads": m_walk, "walk_steps": m_steps,
+               "kernel_steps": k_steps, "smem_words_per_step": 5,
+               "kernel_smem_words": 5 * k_steps + m * t_pad,
+               "lane_efficiency": lane_efficiency(per_walk, tree_tile, 1),
+               "tiles_per_block": pc.launch_shape(
+                   m, tables, codes.shape[1] * codes.element_size(), dev)}
+        rec.update(k4_device_ms(lambda: pc.serving_fused(tables, sub, **fkw)))
+        dms = ("not measured" if rec["device_ms"] is None else
+               f"{rec['device_ms']:.4f} ms on the device (walk "
+               f"{rec['walk_device_ms']:.4f}, combine "
+               f"{rec['combine_device_ms']:.4f})")
+        log(f"  serving_fused at {m} rows: {ms:.4f} ms a call, {dms}, "
+            f"bound {rec['bound_ms']:.4f} ms, lane efficiency "
+            f"{rec['lane_efficiency']:.3f}, {rec['tiles_per_block']} row "
+            "tiles a block")
+        sizes.append(rec)
+        rows[0][f"ms_at_{m}_rows"] = ms
+    rows[0]["sizes"] = sizes
+    rows[0]["lane_efficiency"] = sizes[-1]["lane_efficiency"]
+    rows[0]["plan"] = bp.fused_plan
     return rows
 
 

@@ -4,37 +4,53 @@
 // K4 serving_fused — replaces lightgbmv1_tpu/ops/predict_pallas.py
 //    _fused_kernel (reached through serving_fused_pallas): walk every tree
 //    of the ensemble over prebinned serving codes and either sum the leaf
-//    values per class in tree order (mode "scores", optional sigmoid /
-//    softmax epilogue) or write the leaf ids (mode "leaf").
+//    values per class (mode "scores", optional sigmoid / softmax epilogue)
+//    or write the leaf ids (mode "leaf").
 // K5 serving_leaf — replaces lightgbmv1_tpu/ops/predict_pallas.py _kernel
 //    (reached through serving_leaf_pallas): (N, F) codes -> (N, T) leaf ids.
 //
 // What bounds them on this card.  A walk step is a chain of dependent
-// gathers from the node tables: the split feature, the row's code for
-// that feature, the missing type, then default-left (a missing value) or
-// the threshold bin (plus the zero bin for a NaN/zero code), then the
-// child: 5 or 6 four-byte loads a step.  Codes in and scores out are
-// ~32 B a row, so HBM is idle; the work is those loads over every
-// (row, tree) walk, from shared memory (K4) or L1 (K5), which the SM
-// serves at 32 words a clock.  The bound is that load count over 132 SMs
-// x 32 words x 1.98 GHz (8.36e12 gathers/s); chip_smoke.py counts the
-// loads of every walk of its input (walk_loads).
+// shared-memory (K4) or L1 (K5) loads: the node, the row's code for the
+// node's split feature, then the child.  Codes in and scores out are
+// ~32 B a row, so HBM is idle; the work is the loads of every (row, tree)
+// walk, which an SM serves at 32 four-byte words a clock.  chip_smoke.py
+// prices the bound with the seven-table walk's load count (walk_loads: 5
+// or 6 words a step) over 132 SMs x 32 words x 1.98 GHz, the same formula
+// for every version of K4, and reports K4's own words a step beside it.
+// Below that rate a walk is latency-bound: each step waits for its node,
+// then for its code, and a warp steps until its deepest lane is done.
 //
-// K4 design.  One block per row tile, one thread per row, no atomics:
-//  * the block's codes are staged in shared memory once (the feature
-//    index depends on the data, and registers cannot be indexed that way);
-//  * the block loops over tree tiles: it copies the tile's seven node
-//    tables, num_leaves and leaf values into shared memory, syncs, and
-//    every thread walks its row through the tile's trees, adding leaf
-//    values in tree order into one f32 register (K == 1) or its own
-//    column of a shared (K, rows) accumulator (class of tree g is g % K);
-//  * the epilogue runs once, after the last tile.
-//  The tree tile is priced against a shared-memory budget by
-//  ops/predict_cuda.plan_predict_tiles (an L = 255 tree is 8,136 B), and
-//  the tree axis is padded to a tile multiple with num_leaves = 0 trees
-//  that park on leaf 0 (value 0.0).  Each block re-reads the whole table
-//  set from L2 (4 MB for the 500-tree model): the price of per-tile
-//  staging, and the first thing a faster version would cut.
+// K4 design.
+//  * The tree axis is cut into G fixed groups of tree_tile consecutive
+//    trees (ops/predict_cuda.plan_predict_tiles: from the model and the
+//    shared-memory budget, never from the batch).  Grid = groups x row
+//    chunks: block (g, c) walks group g for the rows of chunk c, 256 rows
+//    a tile, so a server batch of 512 rows is 2 row tiles x 63 groups =
+//    126 blocks, where one block used to walk all trees for 256 rows.
+//  * Compact node records (ops/predict_cuda.node_records, built once a
+//    predictor): 16 B a node, int4 {split feature | missing type << 28 |
+//    default_left << 30 | parked << 31, threshold bin, zero bin, left
+//    child in the low and right child in the high 16 bits}; bit 31 marks
+//    node 0 of a tree of <= 1 leaf, which parks on leaf 0.  A step is one
+//    16-byte load and the code load, where the seven tables took 5-6
+//    loads; a 255-leaf tree is 5,088 B with its leaf values (8,136 B
+//    before), so a group of 8 trees and two code buffers take 55,040 B
+//    and four blocks (32 warps) share an SM.
+//  * Staging overlaps the walk: the group's records and leaf values
+//    (contiguous, tree-major) and the first row tile's codes arrive by
+//    cp.async; each next tile's codes are copied while the current tile
+//    is walked (two buffers).  A block reads its group once for all the
+//    rows of its chunk; the wrapper sizes chunks from N so that a
+//    131,072-row chunk reads the tables about 35 times, not 512.
+//  * Each thread walks its row through kWalks trees of one class at once,
+//    their steps interleaved, so four independent load chains are in
+//    flight a thread.
+//  * Fixed order, whatever the launch shape: a group's partial of class c
+//    is the sum over its trees t with t % K == c, in tree order, from
+//    0.f; partials go to a (G, N, K) f32 buffer; the combine kernel adds
+//    them in group order from 0.f and runs the epilogue.  So the bits
+//    do not depend on N, on the chunking or on the block order, and a
+//    server's answer equals Booster.predict bit for bit.
 //
 // K5 design.  The node tables stay in global memory (the 500-tree model's
 // 3.5 MB sit in the 50 MB L2, and hot upper levels in L1); a block stages
@@ -49,6 +65,13 @@ namespace {
 
 constexpr int kMissingZero = 1;
 constexpr int kMissingNan = 2;
+// K4: one thread a row of a row tile (ops/predict_cuda.ROW_TILE) and
+// kWalks walks in flight a thread (ops/predict_cuda.WALKS)
+constexpr int kRowTile = 256;
+constexpr int kWalks = 4;
+constexpr int kMaxDevices = 64;
+// node record word 0: the split feature in bits 0-27
+constexpr int kFeatMask = 0x0FFFFFFF;
 
 enum CodeKind { kU8 = 0, kU16 = 1, kI32 = 2, kPacked4 = 3 };
 enum Transform { kNone = 0, kSigmoid = 1, kSoftmax = 2 };
@@ -62,12 +85,12 @@ __device__ __forceinline__ int code_of(const CodeT* row, int f) {
   return static_cast<int>(row[f]);
 }
 
-// One root-to-leaf walk of the tree whose nodes start at index `base` of
-// the seven tables; exactly the decision of the Pallas kernels (and of
-// models/predict.serving_leaf_binned): NaN and zero ride two reserved
-// codes, a missing value goes default_left, any other compares its code
-// (NaN/zero taken as the bin of 0.0) with the node's threshold bin.
-// A tree of <= 1 leaf parks on leaf 0.  At most n_steps decisions.
+// One root-to-leaf walk (K5) of the tree whose nodes start at index
+// `base` of the seven tables; exactly the decision of the Pallas kernels
+// (and of models/predict.serving_leaf_binned): NaN and zero ride two
+// reserved codes, a missing value goes default_left, any other compares
+// its code (NaN/zero taken as the bin of 0.0) with the node's threshold
+// bin.  A tree of <= 1 leaf parks on leaf 0.  At most n_steps decisions.
 template <typename CodeT, bool PACKED>
 __device__ __forceinline__ int walk_tree(
     const int* __restrict__ feat, const int* __restrict__ tbin,
@@ -97,147 +120,287 @@ __device__ __forceinline__ int walk_tree(
 
 // ---------------------------------------------------------------- K4 ----
 
-__host__ __device__ inline size_t fused_smem_bytes(int rows, int fc,
-                                                   int code_bytes,
-                                                   int tree_tile, int l1,
-                                                   int l, int k,
-                                                   bool scores) {
-  size_t b = static_cast<size_t>(7 * tree_tile * l1 + tree_tile) * 4;
-  if (scores) {
-    b += static_cast<size_t>(tree_tile) * l * 4;
-    if (k > 1) b += static_cast<size_t>(k) * rows * 4;
-  }
-  return b + static_cast<size_t>(rows) * fc * code_bytes;
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-template <typename CodeT, bool PACKED>
-__global__ void serving_fused_kernel(
-    const int* __restrict__ nl, const int* __restrict__ feat,
-    const int* __restrict__ tbin, const int* __restrict__ zbin,
-    const int* __restrict__ dl, const int* __restrict__ mt,
-    const int* __restrict__ lc, const int* __restrict__ rc,
-    const float* __restrict__ lv, const CodeT* __restrict__ codes,
-    float* __restrict__ scores, int* __restrict__ leaves, int n, int fc,
-    int t_pad, int l1, int l, int k, int tree_tile, int n_steps,
-    int zero_code, int nan_code, int transform) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int rows = blockDim.x;
-  const int tid = threadIdx.x;
-  const int row0 = blockIdx.x * rows;
-  const int row = row0 + tid;
-  const bool score_mode = leaves == nullptr;
-  const int tl = tree_tile * l1;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
 
-  int* s_feat = reinterpret_cast<int*>(smem);
-  int* s_tbin = s_feat + tl;
-  int* s_zbin = s_tbin + tl;
-  int* s_dl = s_zbin + tl;
-  int* s_mt = s_dl + tl;
-  int* s_lc = s_mt + tl;
-  int* s_rc = s_lc + tl;
-  int* s_nl = s_rc + tl;
-  float* s_lv = reinterpret_cast<float*>(s_nl + tree_tile);
-  float* s_acc = s_lv + (score_mode ? tree_tile * l : 0);
-  CodeT* s_codes = reinterpret_cast<CodeT*>(
-      s_acc + ((score_mode && k > 1) ? k * rows : 0));
+// all but the most recent commit group have landed
+__device__ __forceinline__ void cp_async_wait_all_but_last() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
 
-  const int n_rows = min(rows, n - row0);
-  const int64_t code_base = static_cast<int64_t>(row0) * fc;
-  for (int i = tid; i < n_rows * fc; i += rows) s_codes[i] = codes[code_base + i];
-  if (score_mode && k > 1) {
-    for (int c = 0; c < k; ++c) s_acc[c * rows + tid] = 0.f;
+// The block's threads copy `bytes` bytes in 16-byte cp.async chunks; both
+// addresses are 16-aligned and the last chunk zero-fills past `bytes`.
+__device__ __forceinline__ void copy_async(void* dst, const void* src,
+                                           int64_t bytes) {
+  char* d = static_cast<char*>(dst);
+  const char* s = static_cast<const char*>(src);
+  for (int64_t i = threadIdx.x * 16LL; i < bytes; i += kRowTile * 16LL) {
+    const int64_t left = bytes - i;
+    cp_async16(d + i, s + i, left < 16 ? static_cast<int>(left) : 16);
   }
-  const bool active = tid < n_rows;
-  const CodeT* my_codes = s_codes + tid * fc;
-  float acc = 0.f;
+}
 
-  for (int t0 = 0; t0 < t_pad; t0 += tree_tile) {
-    __syncthreads();  // the previous tile's walks are done with the tables
-    const int64_t tb = static_cast<int64_t>(t0) * l1;
-    for (int i = tid; i < tl; i += rows) {
-      s_feat[i] = feat[tb + i];
-      s_tbin[i] = tbin[tb + i];
-      s_zbin[i] = zbin[tb + i];
-      s_dl[i] = dl[tb + i];
-      s_mt[i] = mt[tb + i];
-      s_lc[i] = lc[tb + i];
-      s_rc[i] = rc[tb + i];
+__host__ __device__ inline int codes_buf_bytes(int row_bytes) {
+  return (kRowTile * row_bytes + 15) / 16 * 16;
+}
+
+// the block's shared memory: the group's records and leaf values, then
+// two code buffers (ops/predict_cuda.plan_predict_tiles prices the same)
+inline size_t fused_smem_bytes(int tree_tile, int l1, int lp, int row_bytes) {
+  return static_cast<size_t>(tree_tile) * l1 * 16 +
+         static_cast<size_t>(tree_tile) * lp * 4 +
+         2 * static_cast<size_t>(codes_buf_bytes(row_bytes));
+}
+
+// Walks one row through `count` <= kWalks trees of the staged group, tree
+// j0 + w * stride for walk w, the walks' steps interleaved so that their
+// independent loads overlap.  The decision is walk_tree's; a parked tree
+// (bit 31 of its root's word 0) takes its first step to leaf 0.
+// leaf[w] = -node - 1, as the Pallas kernel writes it.
+template <typename CodeT, bool PACKED>
+__device__ __forceinline__ void walk_trees(const int4* __restrict__ s_rec,
+                                           int l1, int j0, int stride,
+                                           int count, const CodeT* row,
+                                           int n_steps, int zero_code,
+                                           int nan_code, int (&leaf)[kWalks]) {
+  int node[kWalks];
+  int off[kWalks];
+#pragma unroll
+  for (int w = 0; w < kWalks; ++w) {
+    node[w] = w < count ? 0 : -1;
+    off[w] = (j0 + w * stride) * l1;
+  }
+  for (int s = 0; s < n_steps; ++s) {
+    bool act[kWalks];
+    bool any = false;
+#pragma unroll
+    for (int w = 0; w < kWalks; ++w) {
+      act[w] = node[w] >= 0;
+      any = any || act[w];
     }
-    for (int i = tid; i < tree_tile; i += rows) s_nl[i] = nl[t0 + i];
-    if (score_mode) {
-      const int64_t vb = static_cast<int64_t>(t0) * l;
-      for (int i = tid; i < tree_tile * l; i += rows) s_lv[i] = lv[vb + i];
+    if (!any) break;
+    int4 r[kWalks];
+#pragma unroll
+    for (int w = 0; w < kWalks; ++w) {
+      if (act[w]) r[w] = s_rec[off[w] + node[w]];
     }
+    int b[kWalks];
+#pragma unroll
+    for (int w = 0; w < kWalks; ++w) {
+      if (act[w]) b[w] = code_of<CodeT, PACKED>(row, r[w].x & kFeatMask);
+    }
+#pragma unroll
+    for (int w = 0; w < kWalks; ++w) {
+      if (!act[w]) continue;
+      const int x = r[w].x;
+      const bool is_nan = b[w] == nan_code;
+      const bool is_zero = b[w] == zero_code;
+      const int m = (x >> 28) & 3;
+      const bool missing = (m == kMissingNan)
+                               ? is_nan
+                               : (m == kMissingZero && (is_nan || is_zero));
+      const bool left = missing ? ((x >> 30) & 1) != 0
+                                : ((is_nan || is_zero) ? r[w].z : b[w]) <= r[w].y;
+      const int child = left ? static_cast<int>(static_cast<short>(r[w].w & 0xFFFF))
+                             : (r[w].w >> 16);
+      node[w] = x < 0 ? -1 : child;
+    }
+  }
+#pragma unroll
+  for (int w = 0; w < kWalks; ++w) leaf[w] = -node[w] - 1;
+}
+
+// Block (g, c): tree group g (trees g * tree_tile ...) over the row tiles
+// of row chunk c.  Mode "leaf" writes (n, t_pad) leaf ids; mode "scores"
+// writes the group's per-class partials to partial[g][row][class].
+template <typename CodeT, bool PACKED, bool LEAF>
+__global__ void __launch_bounds__(kRowTile) serving_fused_kernel(
+    const int4* __restrict__ rec, const float* __restrict__ lv,
+    const unsigned char* __restrict__ codes, float* __restrict__ partial,
+    int* __restrict__ leaves, int n, int row_bytes, int t_pad, int l1, int lp,
+    int k, int tree_tile, int tiles_per_block, int n_steps, int zero_code,
+    int nan_code) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int g = blockIdx.x;
+  const int tid = threadIdx.x;
+  int4* s_rec = reinterpret_cast<int4*>(smem);
+  float* s_lv = reinterpret_cast<float*>(s_rec + tree_tile * l1);
+  unsigned char* s_codes =
+      reinterpret_cast<unsigned char*>(s_lv + tree_tile * lp);
+  const int buf_bytes = codes_buf_bytes(row_bytes);
+  const int n_tiles = (n + kRowTile - 1) / kRowTile;
+  const int tile0 = blockIdx.y * tiles_per_block;
+  const int tile_end = min(tile0 + tiles_per_block, n_tiles);
+  const int t_base = g * tree_tile;
+
+  auto stage_codes = [&](int tile, unsigned char* dst) {
+    const int rows = min(kRowTile, n - tile * kRowTile);
+    copy_async(dst, codes + static_cast<int64_t>(tile) * kRowTile * row_bytes,
+               static_cast<int64_t>(rows) * row_bytes);
+  };
+  copy_async(s_rec, rec + static_cast<int64_t>(t_base) * l1,
+             static_cast<int64_t>(tree_tile) * l1 * 16);
+  if (!LEAF) {
+    copy_async(s_lv, lv + static_cast<int64_t>(t_base) * lp,
+               static_cast<int64_t>(tree_tile) * lp * 4);
+  }
+  stage_codes(tile0, s_codes);
+  cp_async_commit();
+
+  for (int t = tile0; t < tile_end; ++t) {
+    const int buf = (t - tile0) & 1;
+    if (t + 1 < tile_end) stage_codes(t + 1, s_codes + (buf ^ 1) * buf_bytes);
+    cp_async_commit();
+    cp_async_wait_all_but_last();  // the group and tile t have landed
     __syncthreads();
-    if (!active) continue;
-    for (int j = 0; j < tree_tile; ++j) {
-      const int leaf = walk_tree<CodeT, PACKED>(
-          s_feat, s_tbin, s_zbin, s_dl, s_mt, s_lc, s_rc, j * l1, s_nl[j],
-          my_codes, n_steps, zero_code, nan_code);
-      const int g = t0 + j;
-      if (!score_mode) {
-        leaves[static_cast<int64_t>(row) * t_pad + g] = leaf;
+    const int row = t * kRowTile + tid;
+    if (row < n) {
+      const CodeT* my = reinterpret_cast<const CodeT*>(
+          s_codes + buf * buf_bytes + tid * row_bytes);
+      int leaf[kWalks];
+      if (LEAF) {
+        int* out = leaves + static_cast<int64_t>(row) * t_pad + t_base;
+        for (int j = 0; j < tree_tile; j += kWalks) {
+          walk_trees<CodeT, PACKED>(s_rec, l1, j, 1,
+                                    min(kWalks, tree_tile - j), my, n_steps,
+                                    zero_code, nan_code, leaf);
+#pragma unroll
+          for (int w = 0; w < kWalks; ++w) {
+            if (j + w < tree_tile) out[j + w] = leaf[w];
+          }
+        }
       } else {
-        const float v = s_lv[j * l + max(leaf, 0)];
-        if (k == 1) {
-          acc += v;
-        } else {
-          s_acc[(g % k) * rows + tid] += v;
+        float* out = partial + (static_cast<int64_t>(g) * n + row) * k;
+        const int c0 = t_base % k;  // the class of the group's first tree
+        for (int c = 0; c < k; ++c) {
+          const int j0 = c >= c0 ? c - c0 : c - c0 + k;
+          float acc = 0.f;
+          for (int j = j0; j < tree_tile; j += kWalks * k) {
+            const int count = min(kWalks, (tree_tile - j + k - 1) / k);
+            walk_trees<CodeT, PACKED>(s_rec, l1, j, k, count, my, n_steps,
+                                      zero_code, nan_code, leaf);
+#pragma unroll
+            for (int w = 0; w < kWalks; ++w) {
+              if (w < count) acc += s_lv[(j + w * k) * lp + max(leaf[w], 0)];
+            }
+          }
+          out[c] = acc;
         }
       }
     }
-  }
-  if (!score_mode || !active) return;
-
-  float* out = scores + static_cast<int64_t>(row) * k;
-  if (k == 1) {
-    if (transform == kSigmoid) {
-      acc = 1.f / (1.f + expf(-acc));
-    } else if (transform == kSoftmax) {
-      acc = 1.f;  // exp(acc - acc) / exp(acc - acc)
-    }
-    out[0] = acc;
-    return;
-  }
-  if (transform == kSoftmax) {
-    float mx = s_acc[tid];
-    for (int c = 1; c < k; ++c) mx = fmaxf(mx, s_acc[c * rows + tid]);
-    float sum = 0.f;
-    for (int c = 0; c < k; ++c) {
-      const float e = expf(s_acc[c * rows + tid] - mx);
-      s_acc[c * rows + tid] = e;
-      sum += e;
-    }
-    for (int c = 0; c < k; ++c) out[c] = s_acc[c * rows + tid] / sum;
-  } else {
-    for (int c = 0; c < k; ++c) {
-      const float a = s_acc[c * rows + tid];
-      out[c] = transform == kSigmoid ? 1.f / (1.f + expf(-a)) : a;
-    }
+    __syncthreads();  // tile t's buffer is refilled at tile t + 2
   }
 }
 
-template <typename CodeT, bool PACKED>
-cudaError_t launch_fused(const int* nl, const int* feat, const int* tbin,
-                         const int* zbin, const int* dl, const int* mt,
-                         const int* lc, const int* rc, const float* lv,
-                         const void* codes, float* scores, int* leaves,
-                         int n, int fc, int t_pad, int l1, int l, int k,
-                         int tree_tile, int n_steps, int zero_code,
-                         int nan_code, int transform, int row_tile,
-                         cudaStream_t stream) {
-  const size_t smem = fused_smem_bytes(row_tile, fc, sizeof(CodeT), tree_tile,
-                                       l1, l, k, leaves == nullptr);
-  cudaError_t err = cudaFuncSetAttribute(
-      serving_fused_kernel<CodeT, PACKED>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+// The objective epilogue on one row's k finished scores.
+__device__ __forceinline__ void epilogue(float* o, int k, int transform) {
+  if (k == 1) {
+    if (transform == kSigmoid) {
+      o[0] = 1.f / (1.f + expf(-o[0]));
+    } else if (transform == kSoftmax) {
+      o[0] = 1.f;  // exp(acc - acc) / exp(acc - acc)
+    }
+    return;
+  }
+  if (transform == kSoftmax) {
+    float mx = o[0];
+    for (int c = 1; c < k; ++c) mx = fmaxf(mx, o[c]);
+    float sum = 0.f;
+    for (int c = 0; c < k; ++c) {
+      const float e = expf(o[c] - mx);
+      o[c] = e;
+      sum += e;
+    }
+    for (int c = 0; c < k; ++c) o[c] = o[c] / sum;
+  } else if (transform == kSigmoid) {
+    for (int c = 0; c < k; ++c) o[c] = 1.f / (1.f + expf(-o[c]));
+  }
+}
+
+// One thread a row: the group partials added in group order from 0.f
+// (neighbouring rows' loads coalesce), then the epilogue.
+__global__ void serving_combine_kernel(const float* __restrict__ partial,
+                                       float* __restrict__ out, int n, int k,
+                                       int n_groups, int transform) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= n) return;
+  float* o = out + static_cast<int64_t>(row) * k;
+  for (int c = 0; c < k; ++c) {
+    float acc = 0.f;
+    for (int g = 0; g < n_groups; ++g) {
+      acc += partial[(static_cast<int64_t>(g) * n + row) * k + c];
+    }
+    o[c] = acc;
+  }
+  epilogue(o, k, transform);
+}
+
+template <typename CodeT, bool PACKED, bool LEAF>
+cudaError_t launch_walk(const int4* rec, const float* lv, const void* codes,
+                        float* partial, int* leaves, int n, int row_bytes,
+                        int t_pad, int l1, int lp, int k, int tree_tile,
+                        int tiles_per_block, int n_steps, int zero_code,
+                        int nan_code, cudaStream_t stream) {
+  const size_t smem = fused_smem_bytes(tree_tile, l1, lp, row_bytes);
+  // raise the instance's shared-memory cap once a device, not every call
+  static size_t cap[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return err;
-  const dim3 grid((n + row_tile - 1) / row_tile);
-  serving_fused_kernel<CodeT, PACKED><<<grid, row_tile, smem, stream>>>(
-      nl, feat, tbin, zbin, dl, mt, lc, rc, lv,
-      static_cast<const CodeT*>(codes), scores, leaves, n, fc, t_pad, l1, l,
-      k, tree_tile, n_steps, zero_code, nan_code, transform);
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > cap[device]) {
+    err = cudaFuncSetAttribute(serving_fused_kernel<CodeT, PACKED, LEAF>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cap[device] = smem;
+  }
+  const int n_tiles = (n + kRowTile - 1) / kRowTile;
+  const dim3 grid(t_pad / tree_tile,
+                  (n_tiles + tiles_per_block - 1) / tiles_per_block);
+  serving_fused_kernel<CodeT, PACKED, LEAF><<<grid, kRowTile, smem, stream>>>(
+      rec, lv, static_cast<const unsigned char*>(codes), partial, leaves, n,
+      row_bytes, t_pad, l1, lp, k, tree_tile, tiles_per_block, n_steps,
+      zero_code, nan_code);
   return cudaGetLastError();
+}
+
+template <bool LEAF>
+cudaError_t launch_walk_kind(int code_kind, const int4* rec, const float* lv,
+                             const void* codes, float* partial, int* leaves,
+                             int n, int row_bytes, int t_pad, int l1, int lp,
+                             int k, int tree_tile, int tiles_per_block,
+                             int n_steps, int zero_code, int nan_code,
+                             cudaStream_t st) {
+  switch (code_kind) {
+    case kU8:
+      return launch_walk<uint8_t, false, LEAF>(
+          rec, lv, codes, partial, leaves, n, row_bytes, t_pad, l1, lp, k,
+          tree_tile, tiles_per_block, n_steps, zero_code, nan_code, st);
+    case kU16:
+      return launch_walk<uint16_t, false, LEAF>(
+          rec, lv, codes, partial, leaves, n, row_bytes, t_pad, l1, lp, k,
+          tree_tile, tiles_per_block, n_steps, zero_code, nan_code, st);
+    case kI32:
+      return launch_walk<int32_t, false, LEAF>(
+          rec, lv, codes, partial, leaves, n, row_bytes, t_pad, l1, lp, k,
+          tree_tile, tiles_per_block, n_steps, zero_code, nan_code, st);
+    case kPacked4:
+      return launch_walk<uint8_t, true, LEAF>(
+          rec, lv, codes, partial, leaves, n, row_bytes, t_pad, l1, lp, k,
+          tree_tile, tiles_per_block, n_steps, zero_code, nan_code, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 // ---------------------------------------------------------------- K5 ----
@@ -290,54 +453,40 @@ cudaError_t launch_leaf(const int* nl, const int* feat, const int* tbin,
 
 extern "C" {
 
-// Returns the cudaError_t of the launch (0 = launched).  `leaves` null
-// selects mode "scores" (writes `scores`, (n, k) f32); non-null selects
-// mode "leaf" (writes `leaves`, (n, t_pad) i32).
-int lgbm_serving_fused(const void* nl, const void* feat, const void* tbin,
-                       const void* zbin, const void* dl, const void* mt,
-                       const void* lc, const void* rc, const void* lv,
-                       const void* codes, int code_kind, void* scores,
-                       void* leaves, int n, int fc, int t_pad, int l1, int l,
-                       int k, int tree_tile, int n_steps, int zero_code,
-                       int nan_code, int transform, int row_tile,
-                       void* stream) {
+// Returns the cudaError_t of the launches (0 = launched).  `leaves` null
+// selects mode "scores": the walk writes the (n_groups, n, k) f32
+// `partial` buffer and the combine writes `scores`, (n, k) f32; non-null
+// selects mode "leaf" (writes `leaves`, (n, t_pad) i32).  All pointers
+// are 16-byte aligned.
+int lgbm_serving_fused(const void* rec, const void* lv, const void* codes,
+                       int code_kind, void* partial, void* scores,
+                       void* leaves, int n, int row_bytes, int t_pad, int l1,
+                       int lp, int k, int tree_tile, int tiles_per_block,
+                       int n_steps, int zero_code, int nan_code,
+                       int transform, void* stream) {
   if (n <= 0) return 0;
-  const int* a[8] = {static_cast<const int*>(nl), static_cast<const int*>(feat),
-                     static_cast<const int*>(tbin), static_cast<const int*>(zbin),
-                     static_cast<const int*>(dl), static_cast<const int*>(mt),
-                     static_cast<const int*>(lc), static_cast<const int*>(rc)};
-  const float* v = static_cast<const float*>(lv);
-  float* s = static_cast<float*>(scores);
-  int* o = static_cast<int*>(leaves);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (code_kind) {
-    case kU8:
-      return launch_fused<uint8_t, false>(a[0], a[1], a[2], a[3], a[4], a[5],
-                                          a[6], a[7], v, codes, s, o, n, fc,
-                                          t_pad, l1, l, k, tree_tile, n_steps,
-                                          zero_code, nan_code, transform,
-                                          row_tile, st);
-    case kU16:
-      return launch_fused<uint16_t, false>(a[0], a[1], a[2], a[3], a[4], a[5],
-                                           a[6], a[7], v, codes, s, o, n, fc,
-                                           t_pad, l1, l, k, tree_tile, n_steps,
-                                           zero_code, nan_code, transform,
-                                           row_tile, st);
-    case kI32:
-      return launch_fused<int32_t, false>(a[0], a[1], a[2], a[3], a[4], a[5],
-                                          a[6], a[7], v, codes, s, o, n, fc,
-                                          t_pad, l1, l, k, tree_tile, n_steps,
-                                          zero_code, nan_code, transform,
-                                          row_tile, st);
-    case kPacked4:
-      return launch_fused<uint8_t, true>(a[0], a[1], a[2], a[3], a[4], a[5],
-                                         a[6], a[7], v, codes, s, o, n, fc,
-                                         t_pad, l1, l, k, tree_tile, n_steps,
-                                         zero_code, nan_code, transform,
-                                         row_tile, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (tree_tile <= 0 || t_pad % tree_tile || tiles_per_block <= 0 || k <= 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
+  const int4* r = static_cast<const int4*>(rec);
+  const float* v = static_cast<const float*>(lv);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (leaves != nullptr) {
+    return launch_walk_kind<true>(code_kind, r, v, codes, nullptr,
+                                  static_cast<int*>(leaves), n, row_bytes,
+                                  t_pad, l1, lp, k, tree_tile,
+                                  tiles_per_block, n_steps, zero_code,
+                                  nan_code, st);
+  }
+  float* p = static_cast<float*>(partial);
+  cudaError_t err = launch_walk_kind<false>(
+      code_kind, r, v, codes, p, nullptr, n, row_bytes, t_pad, l1, lp, k,
+      tree_tile, tiles_per_block, n_steps, zero_code, nan_code, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = 256;
+  serving_combine_kernel<<<(n + threads - 1) / threads, threads, 0, st>>>(
+      p, static_cast<float*>(scores), n, k, t_pad / tree_tile, transform);
+  return static_cast<int>(cudaGetLastError());
 }
 
 int lgbm_serving_leaf(const void* nl, const void* feat, const void* tbin,

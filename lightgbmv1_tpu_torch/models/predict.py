@@ -43,8 +43,9 @@ import torch
 from ..config import SHARDED_PREDICT, not_ported
 from ..device import DeviceLike, resolve_device
 from ..io.binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
-from ..ops.predict_cuda import (apply_transform, plan_predict_tiles,
-                                serving_fused, serving_leaf, walk_tables)
+from ..ops.predict_cuda import (apply_transform, node_records,
+                                plan_predict_tiles, serving_fused,
+                                serving_leaf, walk_tables)
 from ..utils.log import log_info, log_warning
 from .tree import (HostTree, host_tree_depth, leaves_to_scores,
                    pad_tree_axis, validate_host_tree)
@@ -466,8 +467,10 @@ class BatchPredictor:
         self._leaf_tables = None
         if method == "pallas" and self.prebin and not self.has_cat:
             self._leaf_tables = walk_tables(self.arrays)
-        # serving-megakernel plan: tiles trees into shared-memory-sized
-        # groups; a refusal = the staged walk + one honest reason line
+        # serving-megakernel plan: cuts the tree axis into fixed
+        # shared-memory-sized groups; a refusal = the staged walk + one
+        # honest reason line.  The kernel's 16-byte node records are
+        # packed here, once a predictor (a publish), not per call
         self.fused_plan = None
         self._fused_tables = None
         if method == "fused":
@@ -478,8 +481,10 @@ class BatchPredictor:
                 prebin=self.prebin, packed=self.packed,
                 code_bytes=code_bytes)
             if self.fused_plan["eligible"]:
-                self._fused_tables = pad_tree_axis(
-                    walk_tables(self.arrays), self.fused_plan["t_pad"])
+                self._fused_tables = node_records(
+                    pad_tree_axis(walk_tables(self.arrays),
+                                  self.fused_plan["t_pad"]),
+                    self.fused_plan["tree_tile"])
             else:
                 _log_once("fused:refuse:" + self.fused_plan["reason"],
                           f"predict_method=fused: "
@@ -532,8 +537,7 @@ class BatchPredictor:
         out = serving_fused(
             self._fused_tables, xb, n_steps=self.depth,
             zero_code=self.binner.zero_code, nan_code=self.binner.nan_code,
-            K=self.K, tree_tile=self.fused_plan["tree_tile"], mode=mode,
-            packed=self.packed, transform=transform)
+            K=self.K, mode=mode, packed=self.packed, transform=transform)
         if mode == "leaf":
             out = out[:, : self.T]        # slice the tree-tile pad away
         return out

@@ -103,7 +103,7 @@ def pad_tree_axis(tables, t_pad: int):
     the tree axis to be a multiple of the planner's tree tile.  A padded
     tree has ``num_leaves == 0``, so the walks park it on leaf 0 whose
     value is 0.0: scores are unchanged and leaf-mode callers slice the pad
-    away."""
+    away.  Fields that are not tensors are kept as they are."""
     T = int(tables.num_leaves.shape[0])
     if t_pad < T:
         raise ValueError(f"t_pad={t_pad} < T={T}")
@@ -111,7 +111,7 @@ def pad_tree_axis(tables, t_pad: int):
         return tables
     return type(tables)(*(
         torch.cat([a, a.new_zeros((t_pad - T,) + tuple(a.shape[1:]))])
-        for a in tables))
+        if torch.is_tensor(a) else a for a in tables))
 
 
 def validate_host_tree(t, index: int = -1) -> None:

@@ -68,6 +68,12 @@ def ens(request):
                 nc=binner.nan_code)
 
 
+def _records(e, tree_tile=TREE_TILE):
+    tables = pc.walk_tables(e["parr"])
+    t_pad = -(-len(e["trees"]) // tree_tile) * tree_tile
+    return pc.node_records(pad_tree_axis(tables, t_pad), tree_tile)
+
+
 def _codes(e, layout):
     c = e["codes"]
     if layout == "u16":
@@ -92,9 +98,8 @@ def test_fused_plain_matches_pallas(ens, layout, mode):
         jax_pad(e["jarr"], e["t_pad"]), jnp.asarray(codes), interpret=True,
         **kw))
     before = dict(pc.launch_counts)
-    got = pc.serving_fused(
-        pad_tree_axis(pc.walk_tables(e["parr"]), e["t_pad"]),
-        torch.from_numpy(codes), **kw).numpy()
+    kw.pop("tree_tile")                       # the port's is in the records
+    got = pc.serving_fused(_records(e), torch.from_numpy(codes), **kw).numpy()
     assert pc.launch_counts == before       # the CPU computes, never counts
     assert got.shape == want.shape
     if mode == "leaf":
@@ -119,6 +124,181 @@ def test_leaf_plain_matches_pallas(ens, layout):
     X = chip_smoke.make_rows(np.random.RandomState(e["K"]), N)
     host = np.stack([t.predict_leaf_index(X) for t in e["trees"]], axis=1)
     np.testing.assert_array_equal(got, host)
+
+
+@pytest.mark.parametrize("tree_tile", [3, 4, 8])
+@pytest.mark.parametrize("layout", ["u8", "packed"])
+def test_fused_plain_is_the_group_order_loop(ens, layout, tree_tile):
+    """K4's order of f32 adds, written out per (row, group, tree) in
+    Python: a group's partial of class c adds its trees t with t % K == c
+    in tree order from 0, and the groups' partials add in group order
+    from 0.  The plain version equals it bit for bit; tree tiles that are
+    no multiple of K start groups on every class."""
+    e = ens
+    K, trees = e["K"], e["trees"]
+    nr = _records(e, tree_tile)
+    got = pc.serving_fused(
+        nr, torch.from_numpy(_codes(e, layout)), n_steps=e["depth"],
+        zero_code=e["zc"], nan_code=e["nc"], K=K,
+        packed=layout == "packed").numpy()
+    X = chip_smoke.make_rows(np.random.RandomState(K), N)
+    leaf = np.stack([t.predict_leaf_index(X) for t in trees], axis=1)
+    f32 = np.float32
+    t_pad = nr.records.shape[0]
+    want = np.zeros((N, K), np.float32)
+    for r in range(N):
+        acc = [f32(0.0)] * K
+        for g0 in range(0, t_pad, tree_tile):
+            part = [f32(0.0)] * K
+            for t in range(g0, g0 + tree_tile):
+                v = (f32(trees[t].leaf_value[leaf[r, t]]) if t < len(trees)
+                     else f32(0.0))              # a pad tree: leaf 0, 0.0
+                part[t % K] = f32(part[t % K] + v)
+            acc = [f32(a + p) for a, p in zip(acc, part)]
+        want[r] = acc
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got.view(np.uint32), want.view(np.uint32))
+
+
+def _random_tables(rng, T, L1, F):
+    """Seven node tables spanning each record field's whole range."""
+    L = L1 + 1
+    i32 = np.iinfo(np.int32)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+    nl = rng.randint(0, L + 1, size=T)
+    nl[:2] = [0, L]
+    return pc.WalkTables(
+        num_leaves=t(nl),
+        split_feature=t(rng.randint(0, F, size=(T, L1))),
+        threshold_bin=t(rng.randint(i32.min, i32.max, size=(T, L1))),
+        zero_bin=t(rng.randint(i32.min, i32.max, size=(T, L1))),
+        default_left=t(rng.randint(0, 2, size=(T, L1))),
+        missing_type=t(rng.randint(0, 3, size=(T, L1))),
+        left_child=t(rng.randint(-L, L1, size=(T, L1))),
+        right_child=t(rng.randint(-L, L1, size=(T, L1))),
+        leaf_value=torch.from_numpy(rng.randn(T, L).astype(np.float32)),
+        max_feature=F - 1)
+
+
+def _largest_l1(F=1):
+    """The largest node count a tree may have for the plan to accept it."""
+    lo, hi = 1, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        ok = pc.plan_predict_tiles(**dict(FULL, T=2, L1=mid, L=mid + 1,
+                                          F=F))["eligible"]
+        lo, hi = (mid, hi) if ok else (lo, mid - 1)
+    return lo
+
+
+@pytest.mark.parametrize("case", ["ensemble", "largest_l1"])
+def test_node_records_round_trip(ens, case):
+    """The 16-byte records give back the seven node tables exactly, the
+    parked flag says num_leaves <= 1, and the leaf values are kept; at
+    the largest L1 the plan accepts too, with every field at its
+    extremes (children across the int16 halves, 32-bit bins)."""
+    if case == "ensemble":
+        tables = pad_tree_axis(pc.walk_tables(ens["parr"]), ens["t_pad"])
+        tree_tile = TREE_TILE
+    else:
+        L1 = _largest_l1()
+        assert L1 > 11000          # 16 L1 + 4 Lp + the codes <= 227 KB
+        assert not pc.plan_predict_tiles(
+            **dict(FULL, T=2, L1=L1 + 1, L=L1 + 2, F=1))["eligible"]
+        tables = _random_tables(np.random.RandomState(L1), 4, L1, F)
+        tree_tile = 2
+    nr = pc.node_records(tables, tree_tile)
+    T, L1 = tables.split_feature.shape
+    L = tables.leaf_value.shape[1]
+    assert nr.records.shape == (T, L1, 4) and nr.records.dtype == torch.int32
+    assert nr.leaf_value.shape == (T, -(-L // 4) * 4)
+    assert nr.max_feature == tables.max_feature
+    back = pc.decode_records(nr)
+    for name in ("split_feature", "threshold_bin", "zero_bin",
+                 "default_left", "missing_type", "left_child",
+                 "right_child"):
+        assert torch.equal(getattr(back, name), getattr(tables, name)), name
+    assert torch.equal(back.num_leaves > 1, tables.num_leaves > 1)
+    assert torch.equal(back.leaf_value[:, :L], tables.leaf_value)
+    assert (back.leaf_value[:, L:] == 0).all()
+
+
+def test_group_size_does_not_follow_the_batch(ens):
+    """The plan takes no batch size, so BatchPredictors with other
+    buckets and chunks plan the same groups; and a row's scores have the
+    same bits whichever batch it is scored in."""
+    import inspect
+    assert not {"N", "n", "rows", "n_rows"} & set(
+        inspect.signature(pc.plan_predict_tiles).parameters)
+    e = ens
+    plans = [port_predict.BatchPredictor(
+        e["trees"], e["K"], F, method="fused", device="cpu",
+        bucket_min=b, chunk_rows=c).fused_plan
+        for b, c in ((16, 64), (256, 1 << 17), (1024, 4096))]
+    assert plans[0] == plans[1] == plans[2]
+    nr = _records(e)
+    kw = dict(n_steps=e["depth"], zero_code=e["zc"], nan_code=e["nc"],
+              K=e["K"])
+    codes = torch.from_numpy(e["codes"])
+    whole = pc.serving_fused(nr, codes, **kw)
+    for lo, hi in ((0, 1), (5, 37), (17, N)):
+        part = pc.serving_fused(nr, codes[lo:hi].contiguous(), **kw)
+        assert torch.equal(part.view(torch.int32),
+                           whole[lo:hi].view(torch.int32))
+
+
+@pytest.mark.parametrize("layout", ["u8", "packed"])
+def test_codes_narrower_than_the_split_features_raise(ens, layout):
+    """Both wrappers refuse codes without a column for the largest split
+    feature (F columns, ceil(F/2) packed), on the CPU as on the card;
+    the exact width is accepted."""
+    e = ens
+    packed = layout == "packed"
+    tables = pc.walk_tables(e["parr"])
+    mf = tables.max_feature
+    assert 0 <= mf < F
+    need = -(-(mf + 1) // 2) if packed else mf + 1
+    codes = torch.from_numpy(_codes(e, layout))
+    kw = dict(n_steps=e["depth"], zero_code=e["zc"], nan_code=e["nc"])
+    narrow, exact = codes[:, :need - 1], codes[:, :need].contiguous()
+    with pytest.raises(ValueError, match="too narrow"):
+        pc.serving_fused(_records(e), narrow, K=e["K"], packed=packed, **kw)
+    want = pc.serving_fused(_records(e), codes, K=e["K"], packed=packed,
+                            **kw)
+    assert torch.equal(pc.serving_fused(_records(e), exact, K=e["K"],
+                                        packed=packed, **kw), want)
+    if not packed:
+        with pytest.raises(ValueError, match="too narrow"):
+            pc.serving_leaf(tables, narrow, **kw)
+        assert torch.equal(pc.serving_leaf(tables, exact, **kw),
+                           pc.serving_leaf(tables, codes, **kw))
+
+
+def test_launch_shape_fills_the_card(ens, monkeypatch):
+    """One row tile a block for a server batch (4 tiles x 63 groups of
+    the full-width model fill a 132-SM card); several tiles a block for
+    a 131,072-row chunk, so each group's records are staged once a
+    chunk of tiles; never more blocks than the grid's y axis holds."""
+    monkeypatch.setattr(pc, "_sm_count", lambda index: 132)
+    plan = pc.plan_predict_tiles(**FULL)
+    T, tt = plan["t_pad"], plan["tree_tile"]
+    nr = pc.NodeRecords(records=torch.zeros((T, 254, 4), dtype=torch.int32),
+                        leaf_value=torch.zeros((T, 256)), tree_tile=tt,
+                        max_feature=27)
+    dev = torch.device("cuda", 0)
+    assert pc.fused_smem_bytes(nr, 28) == plan["total_bytes"]
+    assert [pc.launch_shape(n, nr, 28, dev) for n in (1, 256, 512, 1024)] \
+        == [1, 1, 1, 1]
+    m = pc.launch_shape(1 << 17, nr, 28, dev)
+    n_tiles = (1 << 17) // pc.ROW_TILE
+    blocks = -(-n_tiles // m) * (T // tt)
+    assert m > 1
+    assert 2 * 528 <= blocks <= (pc.LAUNCH_WAVES + 1) * 528
+    assert -(-(1 << 30) // pc.ROW_TILE // pc.launch_shape(
+        1 << 30, nr, 28, dev)) <= 65535
 
 
 def test_smoke_load_count_matches_the_paths_walked(ens):
@@ -158,12 +338,10 @@ def test_wrappers_refuse_other_devices_and_bad_tiles(ens):
     kw = dict(n_steps=e["depth"], zero_code=e["zc"], nan_code=e["nc"])
     with pytest.raises(ValueError, match="expected cpu or cuda"):
         pc.serving_leaf(tables, meta, **kw)
-    padded = pad_tree_axis(tables, e["t_pad"])
     with pytest.raises(ValueError, match="expected cpu or cuda"):
-        pc.serving_fused(padded, meta, K=e["K"], tree_tile=TREE_TILE, **kw)
+        pc.serving_fused(_records(e), meta, K=e["K"], **kw)
     with pytest.raises(ValueError, match="multiple of the tree tile"):
-        pc.serving_fused(tables, torch.from_numpy(e["codes"]), K=e["K"],
-                         tree_tile=TREE_TILE, **kw)
+        pc.node_records(tables, TREE_TILE)
 
 
 # ---------------------------------------------------------------------------
@@ -176,30 +354,74 @@ FULL = dict(T=500, L1=254, L=255, F=28, K=1, depth=23)
 def test_plan_full_width_model():
     plan = pc.plan_predict_tiles(**FULL)
     assert plan["eligible"] and plan["reason"] == ""
-    per_tree = (7 * 254 + 255 + 1) * 4
-    assert per_tree == 8136
-    assert plan["tree_tile"] == 8 and plan["t_pad"] == 504
-    assert plan["n_tree_tiles"] == 63
+    # a 16-byte record a node and the leaf values padded to 4 columns
+    per_tree = 16 * 254 + 4 * 256
+    assert per_tree == plan["per_tree_bytes"] == 5088
+    codes = 2 * pc.ROW_TILE * 28                 # two u8 code buffers
+    assert plan["codes_tile_bytes"] == codes
+    # the most trees under the budget, cut to whole sets of WALKS trees
+    most = (pc.SMEM_BUDGET - codes) // per_tree
+    assert plan["tree_tile"] == most - most % pc.WALKS == 8
+    assert plan["n_tree_tiles"] == 63 and plan["t_pad"] == 504
     assert plan["table_tile_bytes"] == 8 * per_tree
-    assert plan["codes_tile_bytes"] == pc.ROW_TILE * 28
-    assert plan["acc_bytes"] == 0                    # K = 1: a register
+    assert plan["acc_bytes"] == 0                # partials: registers
+    assert plan["total_bytes"] == 8 * per_tree + codes
     assert plan["total_bytes"] <= plan["smem_budget"] <= 227 * 1024
+    # four blocks share an SM's 228 KB (1 KB of it reserved a block)
+    assert 4 * (plan["total_bytes"] + 1024) <= 228 * 1024
 
 
 def test_plan_prices_packed_codes_and_class_accumulator():
     packed = pc.plan_predict_tiles(**FULL, packed=True)
-    assert packed["codes_tile_bytes"] == pc.ROW_TILE * 14
+    assert packed["codes_tile_bytes"] == 2 * pc.ROW_TILE * 14
     wide = pc.plan_predict_tiles(**FULL, code_bytes=2)
-    assert wide["codes_tile_bytes"] == pc.ROW_TILE * 28 * 2
+    assert wide["codes_tile_bytes"] == 2 * pc.ROW_TILE * 28 * 2
     k3 = pc.plan_predict_tiles(**dict(FULL, K=3))
-    assert k3["acc_bytes"] == pc.ROW_TILE * 3 * 4
+    # the class partials go to a (G, N, K) buffer, not shared memory; a
+    # group holds whole classes when it cannot hold WALKS trees of each
+    assert k3["acc_bytes"] == 0
+    assert k3["tree_tile"] % 3 == 0
     assert k3["total_bytes"] <= k3["smem_budget"]
+
+
+def _seven_table_plan_serves(T, L1, L, F, K, packed=False, code_bytes=1):
+    """The seven-table design's refusal line, priced as its plan priced one
+    tree: seven int32 node tables, the leaf values and num_leaves, 256
+    rows of codes and, for K > 1, a (K, 256) f32 accumulator, under
+    96 KiB."""
+    Fc = -(-F // 2) if packed else F
+    one = ((7 * L1 + L + 1) * 4 + 256 * Fc * (1 if packed else code_bytes)
+           + (256 * K * 4 if K > 1 else 0))
+    return one <= 96 * 1024
+
+
+def test_plan_refuses_nothing_the_seven_table_plan_served():
+    """Every shape the seven-table plan served is still eligible: over
+    node counts, widths, code widths and class counts up to its
+    refusal line and past it."""
+    served = 0
+    for L1 in (1, 2, 254, 1000, 2000, 3000, 3400, 3500, 4000, 6000):
+        for F in (1, 28, 100, 200, 300, 360, 380):
+            for cb, packed in ((1, False), (2, False), (4, False),
+                               (1, True)):
+                for K in (1, 3, 10):
+                    kw = dict(T=500, L1=L1, L=L1 + 1, F=F, K=K)
+                    if not _seven_table_plan_serves(**kw, packed=packed,
+                                               code_bytes=cb):
+                        continue
+                    served += 1
+                    plan = pc.plan_predict_tiles(
+                        **kw, depth=20, packed=packed, code_bytes=cb)
+                    assert plan["eligible"], (kw, cb, packed,
+                                              plan["reason"])
+                    assert plan["total_bytes"] <= pc.SMEM_LIMIT
+    assert served > 200
 
 
 @pytest.mark.parametrize("kw,reason", [
     (dict(prebin=False), "raw-feature walk"),
     (dict(has_cat=True), "categorical bitset"),
-    (dict(L1=9999, L=10000), "shared-memory budget"),
+    (dict(L1=19999, L=20000), "shared-memory budget"),
 ])
 def test_plan_refusal_reasons(kw, reason):
     plan = pc.plan_predict_tiles(**{**FULL, **kw})
