@@ -94,6 +94,10 @@ Phases (any failure exits non-zero with no ``ok`` line):
               histograms (bitwise equality reported) and against the
               plain version on the card: picks identical outside ties,
               values within four tie bands; two launches bitwise equal.
+              Then sparse-live rounds (S = 4, one split of leaf 1): one
+              live row, the live rows of one row chunk, none, and every
+              row (a root-sized round), each held as above and to its
+              live-row count.
 15. fused   — the fused training main path, launch counts reset first:
               ``train`` at the headline configuration with
               ``hist_method=fused`` for ``--iters`` iterations with the
@@ -101,13 +105,19 @@ Phases (any failure exits non-zero with no ``ok`` line):
               by bucket add up), K3 once a round, K1 once a tree, no plain
               version called; s/iter, M row-trees/s, AUC > 0.90 and within
               2e-3 of phase 10's, the model text's sha256 and length; the
-              saved model served through K4.  K2
-              held to its plain version on the path's last inputs.
+              saved model served through K4.  Then the same training
+              again, untimed, counting each K2 launch's live rows (label
+              below nslots; its model text must be the timed run's),
+              printed per bucket as the mean live share and its
+              distribution.  K2 held to its plain version on the path's
+              last inputs.
 16. parity  — phase 11's configuration on the card, ``hist_method=fused``
               against ``pallas``: the same split feature and threshold at
               every node of every tree; the largest leaf-value difference.
 17. timing  — K2 at each slot bucket and K3 on the main path's last
-              inputs, beside their plain versions and bounds.
+              inputs, beside their plain versions and bounds (K2: the
+              all-rows bound and the live-row bound, from the inputs'
+              live rows).
 18. profile — five fused headline iterations, as phase 13.
 19. K6      — the persistent wave loop's plan at the headline shape
               (eligible), then K6 on the headline bins and phase 14's
@@ -119,7 +129,11 @@ Phases (any failure exits non-zero with no ``ok`` line):
               two launches bitwise equal) and against its plain version
               on the card (split counts exact; picks identical outside the
               tie band; gains and sums within phase 14's bounds; leaf ids
-              exact while the picks agree).
+              exact while the picks agree); then the same frontier with
+              rows parked in an unused leaf: one live row, one chunk's
+              rows, none, and every row in the first split, each leaf's
+              sums and pool rebuilt from the rows it holds, at
+              lambda_l2 = 1.
 20. looped  — the looped training main path, launch counts reset first:
               ``train`` at the headline configuration with
               ``hist_method=fused, hist_dtype_deep=bf16x2,
@@ -130,10 +144,20 @@ Phases (any failure exits non-zero with no ``ok`` line):
               round's with the same knobs, trained in the same phase (one
               run each: s/iter, M row-trees/s); AUC > 0.90; the model
               text's sha256 and length; the model served through K4.
-21. timing  — K6 on the main path's last inputs beside its plain version,
-              R K2 rounds on the same inputs and its bound; five looped
-              iterations profiled, as phase 13; then the ``kernels`` line
-              (K1, K2, K3, K6, K4, K5) is printed.
+              Then both trainings again, untimed, with the probes (model
+              texts the timed runs'): every K6 launch takes a debug buffer
+              (block 0's stamps after each grid barrier, each round's live
+              rows), and the single round counts K2's live rows; K6's
+              list counts equal K2's round by round, printed as live
+              shares per bucket.
+21. timing  — K6's stage split from phase 20's stamped run (median us of
+              route, list, partials, scan, pick + boundary, a round, at
+              each bucket); K6 on the main path's last inputs beside its
+              plain version, R K2 rounds on the same inputs, its all-rows
+              and live-row bounds, and one round alone against K2 alone
+              on that round's inputs; five looped iterations profiled, as
+              phase 13; then the ``kernels`` line (K1, K2, K3, K6, K4, K5)
+              is printed.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -166,7 +190,8 @@ from lightgbmv1_tpu_torch.ops import loop_cuda as lc
 from lightgbmv1_tpu_torch.ops import predict_cuda as pc
 from lightgbmv1_tpu_torch.ops import wave_fused as wf
 from lightgbmv1_tpu_torch.ops.split import (TIE_RTOL, SplitParams,
-                                            gain_shift, make_feature_meta,
+                                            child_leaf_output, gain_shift,
+                                            go_left_rule, make_feature_meta,
                                             scan_direction_gains,
                                             scan_left_sums)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
@@ -604,10 +629,10 @@ def lane_efficiency(steps: torch.Tensor, tree_tile: int, K: int) -> float:
     return int(steps.sum()) / slots
 
 
-def k4_device_ms(fn, reps: int = 20) -> dict:
-    """K4's device time a call by torch.profiler over ``reps`` calls after
-    a warm-up: its walk and combine kernels apart (CUDA events around a
-    small call also count the host's launch gaps)."""
+def kernel_device_ms(fn, names, reps: int = 20) -> dict:
+    """The device time a call of the kernels whose names hold each of
+    ``names``, by torch.profiler over ``reps`` calls after a warm-up (CUDA
+    events around a small call also count the host's launch gaps)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -616,14 +641,23 @@ def k4_device_ms(fn, reps: int = 20) -> dict:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    out = {"walk_device_ms": 0.0, "combine_device_ms": 0.0}
+    out = dict.fromkeys(names, 0.0)
     for e in prof.key_averages():
         us = float(getattr(e, "self_device_time_total",
                            getattr(e, "self_cuda_time_total", 0.0)))
-        if "serving_fused_kernel" in e.key:
-            out["walk_device_ms"] += us / reps / 1e3
-        elif "serving_combine" in e.key:
-            out["combine_device_ms"] += us / reps / 1e3
+        for name in names:
+            if name in e.key:
+                out[name] += us / reps / 1e3
+                break
+    return out
+
+
+def k4_device_ms(fn, reps: int = 20) -> dict:
+    """K4's device time a call: its walk and combine kernels apart."""
+    d = kernel_device_ms(fn, ("serving_fused_kernel", "serving_combine"),
+                         reps)
+    out = {"walk_device_ms": d["serving_fused_kernel"],
+           "combine_device_ms": d["serving_combine"]}
     out["device_ms"] = out["walk_device_ms"] + out["combine_device_ms"]
     if out["device_ms"] == 0.0:
         out = {k: None for k in out}        # the profiler saw no kernel
@@ -1094,12 +1128,14 @@ def phase_profile(ds, iters, dev, params=TRAIN_PARAMS) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def round_inputs(binned, meta, S, n_live, sub, prec, rng):
+def round_inputs(binned, meta, S, n_live, sub, prec, rng, oleaf=None,
+                 leafs=None):
     """One wave round's inputs at ``S`` slots (``n_live`` splits, the rest
-    dead): rows spread over ``2S + 7`` current leaves, random splits on
-    the dataset's own features (real missing types), signed varied rows,
-    the children's exact sums and, in subtraction mode, the parents'
-    histograms.  Returns the keyword arguments of ``fc.fused_round``."""
+    dead): rows spread over ``2S + 7`` current leaves (or ``oleaf``),
+    random splits (of the leaves ``leafs``) on the dataset's own features
+    (real missing types), signed varied rows, the children's exact sums
+    and, in subtraction mode, the parents' histograms.  Returns the
+    keyword arguments of ``fc.fused_round``."""
     F, N = binned.shape
     dev = binned.device
     B = 64
@@ -1109,7 +1145,7 @@ def round_inputs(binned, meta, S, n_live, sub, prec, rng):
     def t(a, dt=torch.int32):
         return torch.as_tensor(a, dtype=dt, device=dev)
 
-    oleaf = t(rng.randint(0, n_cur, N))
+    oleaf = t(rng.randint(0, n_cur, N) if oleaf is None else oleaf)
     nb = meta.num_bins.cpu().numpy()
     feats = rng.randint(0, F, n_live)
     thrs = np.array([rng.randint(0, max(int(nb[f]) - 1, 1)) for f in feats])
@@ -1121,7 +1157,8 @@ def round_inputs(binned, meta, S, n_live, sub, prec, rng):
     rmeta = wf.pack_route_meta(
         feats_s, t(pad(thrs, 0)), t(pad(rng.rand(n_live) < 0.5, False),
                                     torch.bool),
-        t(pad(rng.choice(n_cur, n_live, replace=False), L)),
+        t(pad(rng.choice(n_cur, n_live, replace=False) if leafs is None
+              else np.asarray(leafs), L)),
         t(pad(n_cur + np.arange(n_live), 0)), meta,
         sml=t(pad(rng.rand(n_live) < 0.5, False), torch.bool))
     route = {"oleaf": oleaf, "feats": feats_s, "rmeta": rmeta,
@@ -1261,7 +1298,8 @@ def check_k2(tag, binned, g3, kw) -> dict:
            "max_gain_err": float(err_g.max()),
            "max_left_err": float(err_l.max()),
            "rows_in_slots": int((label < kw["nslots"]).sum())}
-    log(f"  K2 {tag}: leaf ids, labels, K3 exact; hsmall "
+    log(f"  K2 {tag}: {out['rows_in_slots']} live rows; leaf ids, labels, "
+        "K3 exact; hsmall "
         f"{'== K1' if hsm is not None else '(pool-free)'}; residue "
         f"{'bitwise equal to' if bitwise_cpu else 'differs from'} the CPU "
         f"plain scan; vs the card's plain version {out['sel_diff_in_band']}"
@@ -1271,8 +1309,27 @@ def check_k2(tag, binned, g3, kw) -> dict:
     return out
 
 
+def sparse_leaves(N, chunk_rows, case):
+    """Leaf ids for a sparse-live round whose one split takes leaf 1: the
+    rows that stay in leaf 0 add to no histogram.  ``one row``: a single
+    row in leaf 1; ``one chunk``: the rows of one row chunk of the plan;
+    ``none``: no row (the split's leaf is empty); ``root``: every row in
+    leaf 1, a root-sized round."""
+    oleaf = np.zeros(N, np.int64)
+    if case == "one row":
+        oleaf[N // 2 + 17] = 1
+    elif case == "one chunk":
+        c = (N // chunk_rows) // 2
+        oleaf[c * chunk_rows:(c + 1) * chunk_rows] = 1
+    elif case == "root":
+        oleaf[:] = 1
+    return oleaf
+
+
 def phase_fused_kernels(binned, meta, rng) -> list:
-    """K2 and K3 against their plain versions on the headline bins."""
+    """K2 and K3 against their plain versions on the headline bins; then
+    the sparse-live rounds (``sparse_leaves``: one live row, live rows in
+    one chunk only, none, and every row live), each bitwise as above."""
     out = []
     for S, n_live, sub in ((4, 3, True), (16, 16, True), (63, 63, True),
                            (63, 63, False)):
@@ -1280,27 +1337,52 @@ def phase_fused_kernels(binned, meta, rng) -> list:
             g3, kw = round_inputs(binned, meta, S, n_live, sub, prec, rng)
             out.append(check_k2(f"S={S} {'sub' if sub else 'pool-free'} "
                                 f"{prec}", binned, g3, kw))
+    F, N = binned.shape
+    for case, sub in (("one row", False), ("one chunk", True),
+                      ("none", True), ("root", False)):
+        for prec in hc.PRECISIONS:
+            chunk_rows = hc.plan(N, F, (4 if sub else 8) + 1, 64,
+                                 prec)["chunk_rows"]
+            g3, kw = round_inputs(binned, meta, 4, 1, sub, prec, rng,
+                                  oleaf=sparse_leaves(N, chunk_rows, case),
+                                  leafs=[1])
+            out.append(check_k2(f"sparse {case}, S=4 "
+                                f"{'sub' if sub else 'pool-free'} {prec}",
+                                binned, g3, kw))
+            live = out[-1]["rows_in_slots"]
+            want = {"one row": live == 1, "one chunk": 0 < live <= chunk_rows,
+                    "none": live == 0, "root": live == N}[case]
+            check(want, f"K2 sparse {case}: {live} live rows")
     return out
 
 
 class FusedRecorder:
     """Keeps the inputs of the last K2 call at each (nslots, precision,
     mode) of a run, and of the last K3 call: the main path's own shapes
-    and data, for the checks and the timing after it.  It counts nothing;
-    the wrappers count their launches."""
+    and data, for the checks and the timing after it; and, with ``live``,
+    each K2 launch's live rows (label below nslots: the rows its
+    histograms add), in launch order, summed on the card: a probe that
+    costs a reduction a launch, so a timed run goes without it.  It
+    counts nothing; the wrappers count their launches."""
 
-    def __init__(self):
+    def __init__(self, live=False):
         self.last = {}
         self.route = None
+        self.count_live = live
+        self.live = []      # (nslots, precision, mode), live rows, N
 
     def __enter__(self):
         self._orig = fc.fused_round, fc.route_rows
 
         def fused(binned, g3, **kw):
             mode = "sub" if kw.get("parent") is not None else "pool"
-            self.last[(kw["nslots"], kw["precision"], mode)] = (binned, g3,
-                                                                kw)
-            return self._orig[0](binned, g3, **kw)
+            key = (kw["nslots"], kw["precision"], mode)
+            self.last[key] = (binned, g3, kw)
+            out = self._orig[0](binned, g3, **kw)
+            if self.count_live:
+                self.live.append((key, (out[3] < kw["nslots"]).sum(),
+                                  binned.shape[1]))
+            return out
 
         def route(binned, lids, feats, rmeta, num_leaves):
             self.route = (binned, lids, feats, rmeta, num_leaves)
@@ -1311,6 +1393,38 @@ class FusedRecorder:
 
     def __exit__(self, *exc):
         fc.fused_round, fc.route_rows = self._orig
+
+
+def live_share(records) -> dict:
+    """Per slot bucket ("nslots:precision:mode"): the rounds, their mean
+    live share (live rows over N) and its distribution, from (key, live
+    rows, N) records."""
+    by = {}
+    for (ns, prec, mode), live, n in records:
+        by.setdefault(f"{ns}:{prec}:{mode}", []).append(int(live) / n)
+    out = {}
+    for key, v in sorted(by.items()):
+        a = np.asarray(v)
+        out[key] = {"rounds": len(v), "mean": float(a.mean()),
+                    **{f"p{q}": float(np.percentile(a, q))
+                       for q in (0, 10, 50, 90, 100)}}
+        log(f"  live share {key}: {len(v)} rounds, mean {a.mean():.4f}, "
+            "p0/p10/p50/p90/p100 " + " / ".join(
+                f"{out[key][f'p{q}']:.4f}" for q in (0, 10, 50, 90, 100)))
+    return out
+
+
+def live_rows_run(params, ds, iters, dev, text):
+    """The training of a timed run again, untimed, with each K2 launch's
+    live rows counted (``FusedRecorder(live=True)``): training is
+    deterministic, so its rounds are the timed run's, and its model text
+    must be ``text``.  Returns the recorder and the live shares."""
+    with FusedRecorder(live=True) as rec:
+        probe = train(params, ds, iters, **_on(dev))
+        _sync(dev)
+    check(probe.model_to_string() == text, "the live-row probe's model "
+          "text differs from the timed run's")
+    return rec, live_share(rec.live)
 
 
 def reset_counts() -> None:
@@ -1349,6 +1463,10 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     check(k3 == k2, f"K3 launched {k3} times for {k2} rounds")
     check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
     check(not any(plain.values()), "a plain version ran on the fused path")
+    text = booster.model_to_string()
+    log("  K2's live rows on the fused path (label below nslots), from a "
+        "second, untimed run of the same training:")
+    live = live_rows_run(FUSED_PARAMS, ds, iters, dev, text)[1]
     n = ds.num_data()
     auc = ev["valid_0"]["auc"][-1]
     out = {"seconds": secs, "iters": iters, "s_per_iter": secs / iters,
@@ -1357,7 +1475,7 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
            "auc_minus_staged": auc - staged["valid_auc"], "trees": trees,
            "k2_launches": k2, "k2_launches_by_bucket": buckets,
            "k2_launches_per_tree": k2 / trees, "k3_launches": k3,
-           "k1_launches": k1}
+           "k1_launches": k1, "live_share": live}
     log(f"  {iters} fused iterations of {n} rows in {secs:.2f} s: "
         f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
         f"row-trees/s; valid AUC {auc:.5f} (staged {staged['valid_auc']:.5f}"
@@ -1366,7 +1484,7 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
     check(abs(auc - staged["valid_auc"]) <= 2e-3,
           f"fused AUC {auc} is more than 2e-3 from the staged {staged}")
-    out.update(text_hash(booster.model_to_string(), "fused"))
+    out.update(text_hash(text, "fused"))
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "fused_model.txt")
     return out, rec
@@ -1377,6 +1495,14 @@ def phase_fused_main_inputs(rec: FusedRecorder) -> list:
     of its (nslots, precision, mode) keys."""
     return [check_k2(f"main path nslots={ns} {prec} {mode}", binned, g3, kw)
             for (ns, prec, mode), (binned, g3, kw) in sorted(rec.last.items())]
+
+
+def live_row_bytes(N, Fn, live) -> int:
+    """The row bytes of a round's work when only its live rows are read
+    (the live-row bound): one pass over the leaf ids (read and written)
+    and the labels (written), and the live rows' bins and (N, 3) rows.
+    The all-rows bound reads every row's bins and rows instead."""
+    return 3 * N * 4 + live * (Fn + 12)
 
 
 def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
@@ -1398,9 +1524,11 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
         # bins, rows, old leaf ids read; label and new leaf ids written;
         # parents read and hsmall written (subtraction mode); the
         # children's mask and sums read, the residue written
-        nbytes = (Fn * N + N * 12 + N * 4 + 2 * N * 4
-                  + (2 * hist if mode == "sub" else 0)
-                  + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4)
+        other = ((2 * hist if mode == "sub" else 0)
+                 + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4)
+        nbytes = Fn * N + N * 12 + N * 4 + 2 * N * 4 + other
+        live_ms = (live_row_bytes(N, Fn, live) + other) / HBM_BYTES_PER_S \
+            * 1e3
         ops = ((2 if prec == "bf16x2" else 1) * 3 * live * Fn
                + 2 * S * Fn * B * 2 * 12)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1411,10 +1539,12 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
              "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
              "bytes": nbytes, "ops": ops, "launches": launches,
-             "launches_per_tree": launches / n_trees}
+             "launches_per_tree": launches / n_trees, "live_rows": live,
+             "live_bound_ms": max(live_ms, t_ops)}
         buckets.append(b)
-        log(f"  K2 S={S} {mode} ({prec}): {ms:.3f} ms (plain {plain_ms:.1f} "
-            f"ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']}), "
+        log(f"  K2 S={S} {mode} ({prec}), {live} live rows: {ms:.3f} ms "
+            f"(plain {plain_ms:.1f} ms, bound {b['bound_ms']:.4f} ms by "
+            f"{b['bound_by']}, live-row bound {b['live_bound_ms']:.4f} ms), "
             f"{b['launches_per_tree']:.2f} launches a tree")
     top = max(buckets, key=lambda b: b["nslots"])
     rows.append({
@@ -1425,6 +1555,7 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
                            for c in checks),
         "ms": top["ms"], "plain_ms": top["plain_ms"],
         "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "live_bound_ms": top["live_bound_ms"],
         "library_ms": None, "library_note": "none: no single PyTorch call "
         "computes a route + histogram + split scan",
         "at": f"S={top['S']} {top['precision']} {top['mode']}",
@@ -1437,6 +1568,9 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
                                        num_leaves), 20)
     plain_ms = time_ms(lambda: fc.route_rows_ref(binned, lids, feats, rmeta,
                                                  num_leaves), 2)
+    device_ms = kernel_device_ms(lambda: fc.route_rows(
+        binned, lids, feats, rmeta, num_leaves), ("route_kernel",))[
+            "route_kernel"] or None         # None: the profiler saw none
     # one decision byte and one leaf id read, one leaf id written a row;
     # the round's splits read once
     nbytes = N * (1 + 4 + 4) + rmeta.numel() * 4 + feats.numel() * 4
@@ -1448,9 +1582,11 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
         "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
         "bound_by": "bytes", "library_ms": None,
         "library_note": "none: no single PyTorch call routes rows through "
-        "a tree's splits", "rows": N, "slots": int(rmeta.shape[0])})
-    log(f"  K3 on {N} valid rows, {rmeta.shape[0]} slots: {ms:.4f} ms (plain "
-        f"{plain_ms:.2f} ms, bound {t_bytes:.5f} ms by bytes)")
+        "a tree's splits", "rows": N, "slots": int(rmeta.shape[0]),
+        "device_ms": device_ms})
+    log(f"  K3 on {N} valid rows, {rmeta.shape[0]} slots: {ms:.4f} ms, "
+        f"device {device_ms} ms (plain {plain_ms:.2f} ms, bound "
+        f"{t_bytes:.5f} ms by bytes)")
     return rows
 
 
@@ -1462,14 +1598,19 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
 class LoopRecorder:
     """Keeps the inputs of the second and the last K6 call of a run (the
     main path's own state, for the checks and the timing after it) and
-    every call's split counts.  With ``k2_rounds`` the loop runs as R
-    launches of K2 with the PyTorch pick and replay
-    (``loop_cuda.loop_rounds``): single rounds, no K6.  It counts
-    nothing; the wrappers count their launches."""
+    every call's split counts.  With ``debug`` each K6 launch gets a
+    debug buffer (``loop_cuda.debug_buffer``): its stage stamps and live
+    rows are kept with the call's ladder; a probe that allocates and
+    zeroes a buffer a launch, so a timed run goes without it.  With
+    ``k2_rounds`` the loop runs as R launches of K2 with the PyTorch pick
+    and replay (``loop_cuda.loop_rounds``): single rounds, no K6.  It
+    counts nothing; the wrappers count their launches."""
 
-    def __init__(self, k2_rounds=False):
+    def __init__(self, k2_rounds=False, debug=False):
         self.k2_rounds = k2_rounds
+        self.stamp = debug
         self.n_split = []
+        self.debug = []     # (debug buffer, split counts, ladder)
         self.second = self.last = None
 
     def __enter__(self):
@@ -1481,7 +1622,15 @@ class LoopRecorder:
                 out = lc.loop_rounds(binned, g3, leaf_id, ft12, num_leaves,
                                      round_fn=fc.fused_round, **kw)
             else:
-                out = self._orig(binned, g3, leaf_id, ft12, num_leaves, **kw)
+                dbg = None
+                if self.stamp and binned.device.type == "cuda":
+                    # the stamps are the card kernel's
+                    dbg = lc.debug_buffer(kw["rounds"], binned.device)
+                out = self._orig(binned, g3, leaf_id, ft12, num_leaves,
+                                 debug=dbg, **kw)
+                if dbg is not None:
+                    self.debug.append((dbg, out[3],
+                                       tuple(kw["slot_buckets"])))
             self.last = (binned, g3, leaf_id, ft12, num_leaves, kw)
             if len(self.n_split) == 1:
                 self.second = self.last
@@ -1528,7 +1677,7 @@ def children_of(binned, g3, kw, out):
                           kw["num_bins"], kw["precision"])[:kw["nslots"]]
 
 
-def check_k6(tag, args, rounds, meta, params) -> dict:
+def check_k6(tag, args, rounds, meta, params, min_rounds=2) -> dict:
     """K6 on one segment's inputs against R launches of K2 with the
     PyTorch pick and replay (bit for bit) and against its plain version
     on the card (split counts exact; round by round, the picks identical
@@ -1541,7 +1690,8 @@ def check_k6(tag, args, rounds, meta, params) -> dict:
     absolute sum of the n rows of its leaf at the segment's start (phase
     9's bound).  A child's left sums then differ by at most those cells'
     bounds summed over the bins, plus the prefix's own 2 B 2^-24 of its
-    absolute sum; the gains by what ``gain_bound`` carries from that."""
+    absolute sum; the gains by what ``gain_bound`` carries from that.
+    The segment must run ``min_rounds`` live rounds."""
     pos, kw = args
     got = lc.fused_wave_loop(*pos, **kw)
     again = lc.fused_wave_loop(*pos, **kw)
@@ -1558,7 +1708,7 @@ def check_k6(tag, args, rounds, meta, params) -> dict:
     check(n_split == plain[3].tolist(), f"K6 {tag}: split counts {n_split} "
           f"against the plain version's {plain[3].tolist()}")
     live = [n for n in n_split if n > 0]
-    check(len(live) == len(rec.rounds) and len(live) >= 2,
+    check(len(live) == len(rec.rounds) and len(live) >= min_rounds,
           f"K6 {tag}: {len(live)} live rounds, {len(rec.rounds)} K2 rounds")
     binned, g3, lid0 = pos[0], pos[1], pos[2].long()
     B, L = kw["num_bins"], pos[3].shape[0]
@@ -1613,8 +1763,11 @@ def check_k6(tag, args, rounds, meta, params) -> dict:
               "from the plain version")
     out = {"case": tag, "n_split": n_split, "max_gain_err": err_g,
            "max_sum_err": err_s, "plain_diverged_at_round": diverged,
-           "buckets": [rkw["nslots"] for rkw, _ in rec.rounds]}
-    log(f"  K6 {tag}: split counts {n_split}; packed rows, leaf ids and "
+           "buckets": [rkw["nslots"] for rkw, _ in rec.rounds],
+           "live_rows": [int((o[3] < rkw["nslots"]).sum())
+                         for rkw, o in rec.rounds]}
+    log(f"  K6 {tag}: split counts {n_split}, live rows "
+        f"{out['live_rows']}; packed rows, leaf ids and "
         f"pool bitwise equal to {len(live)} K2 rounds and across two "
         f"launches; vs the plain version: "
         + ("picks identical, " if diverged is None else
@@ -1625,6 +1778,31 @@ def check_k6(tag, args, rounds, meta, params) -> dict:
 
 LOOP_PARAMS = dict(FUSED_PARAMS, hist_dtype_deep="bf16x2",
                    wave_loop_rounds=4)
+
+
+def parked_state(binned, g3, lid, ft, nl, meta, params, B):
+    """A frontier and pool rebuilt from moved leaf ids ``lid``: each
+    current leaf keeps its recorded split (gain, feature, threshold,
+    default left, depth), and its left and right sums, its output and its
+    histograms (the pool) become those of the rows it now holds, so a
+    round's children sum to their rows.  A leaf left empty keeps its gain
+    and still splits."""
+    L, F = ft.shape[0], binned.shape[0]
+    lid = lid.long()
+    ft = ft.clone()
+    feat = ft[:, 1].long().clamp(0, F - 1)[lid]                  # (N,)
+    bins = binned.gather(0, feat[None]).squeeze(0).long()
+    left = go_left_rule(bins, ft[lid, 2].long(), ft[lid, 3] != 0,
+                        meta.missing_type[feat], meta.nan_bin[feat],
+                        meta.zero_bin[feat])
+    sums = torch.zeros((2 * L, 3), dtype=torch.float64, device=g3.device)
+    sums.index_add_(0, 2 * lid + (~left).long(), g3.double())
+    sums = sums.reshape(L, 2, 3)[:nl]
+    ft[:nl, 4:7] = sums[:, 0].float()
+    ft[:nl, 7:10] = sums[:, 1].float()
+    ft[:nl, 10] = child_leaf_output(sums.sum(dim=1).float(), params)
+    pool = hc.index_add_hist(binned, [g3], lid, L, B)
+    return ft, pool
 
 
 def phase_loop_kernels(binned, meta, rng) -> list:
@@ -1648,13 +1826,56 @@ def phase_loop_kernels(binned, meta, rng) -> list:
                              pool=seg[5]["pool"] if sub else None)
             out.append(check_k6(f"R=4 {'sub' if sub else 'pool-free'} "
                                 f"{prec}", args, 4, meta, params))
+    # sparse-live segments: the same frontier with rows parked in a leaf
+    # no round splits (the frontier's last, unused): one live row, one
+    # chunk's rows, none, or every row in the first round's split; the
+    # sums and the pool rebuilt from the moved rows (parked_state), with
+    # lambda_l2 = 1 so an empty child's scan gives -inf past its gates,
+    # not 0 / 0
+    F = binned.shape[0]
+    lid, ft, nl = seg[2], seg[3], seg[4]
+    sparams = seg[5]["params"]._replace(lambda_l2=1.0)
+    park = ft.shape[0] - 1
+    top = int(ft[:nl, 0].argmax())
+    chunk_rows = lc.bucket_plans(N, F, 64, "bf16x2", seg[5]["slot_buckets"],
+                                 True)[0]["chunk_rows"]
+    for case, sub in (("one row", False), ("one chunk", True),
+                      ("none", True), ("root", False)):
+        if case == "root":
+            moved = torch.full_like(lid, top)
+        else:
+            keep = torch.zeros_like(lid, dtype=torch.bool)
+            if case == "one row":
+                keep[int((lid == top).nonzero()[0, 0])] = True
+            elif case == "one chunk":
+                c = (N // chunk_rows) // 2
+                keep[c * chunk_rows:(c + 1) * chunk_rows] = True
+            moved = torch.where(keep, lid, torch.full_like(lid, park))
+        mft, mpool = parked_state(binned, seg[1], moved, ft, nl, meta,
+                                  sparams, 64)
+        for prec in ("bf16x2", "f32"):
+            args = loop_call(seg[:2] + (moved, mft) + seg[4:], rounds=4,
+                             precision=prec, params=sparams,
+                             pool=mpool if sub else None)
+            # empty children split no further, and a pool-free segment of
+            # one leaf's rows may leave no child a split: one round
+            out.append(check_k6(f"sparse {case}, R=4 "
+                                f"{'sub' if sub else 'pool-free'} {prec}",
+                                args, 4, meta, sparams,
+                                2 if case == "one chunk" else 1))
+            live = out[-1]["live_rows"][0]
+            want = {"one row": live == 1, "one chunk": 0 < live <= chunk_rows,
+                    "none": live == 0, "root": live == N}[case]
+            check(want, f"K6 sparse {case}: {live} live rows in round 1")
     return out
 
 
 def phase_loop_train(ds, dv, Xv, iters, dev):
     """The looped training main path (counts reset before, read after),
     then the single round with the same knobs in the same phase: the
-    model texts byte-identical; the looped model served through K4."""
+    model texts byte-identical; the looped model served through K4.  The
+    probes (K6's debug stamps, K2's live rows) run in a second, untimed
+    run of each, so the timed windows carry none."""
     reset_counts()
     ev = {}
     with LoopRecorder() as rec:
@@ -1686,15 +1907,31 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
     auc = ev["valid_0"]["auc"][-1]
     n = ds.num_data()
     ev1 = {}
+    single_params = dict(LOOP_PARAMS, wave_loop_rounds=1)
     t0 = time.perf_counter()
-    single = train(dict(LOOP_PARAMS, wave_loop_rounds=1), ds, iters,
-                   valid_sets=[dv], evals_result=ev1, **_on(dev))
+    single = train(single_params, ds, iters, valid_sets=[dv],
+                   evals_result=ev1, **_on(dev))
     _sync(dev)
     secs1 = time.perf_counter() - t0
     text, text1 = booster.model_to_string(), single.model_to_string()
     check(text == text1, "the looped model text differs from the single "
           "round's")
     check(ev == ev1, "the looped metrics differ from the single round's")
+    with LoopRecorder(debug=True) as drec:
+        probe = train(LOOP_PARAMS, ds, iters, **_on(dev))
+        _sync(dev)
+    check(probe.model_to_string() == text, "the stamped looped run's "
+          "model text differs from the timed run's")
+    log("  the single round's live rows (the looped trees' rounds), from "
+        "an untimed run:")
+    srec, live = live_rows_run(single_params, ds, iters, dev, text)
+    k6_live = [r["live_rows"] for dbg, n_split, _ in drec.debug
+               for r in lc.stage_split(dbg, n_split.tolist())]
+    k2_live = [int(v) for _, v, _ in srec.live]
+    check(k6_live == k2_live, "K6's live rows a round (its list stage's "
+          "counts) differ from the single round's K2 labels'")
+    log(f"  K6's list stage counted the same live rows as K2's labels in "
+        f"all {len(k6_live)} rounds")
     out = {"seconds": secs, "iters": iters, "s_per_iter": secs / iters,
            "M_row_trees_per_s": n * trees / secs / 1e6,
            "single_round_s_per_iter": secs1 / iters,
@@ -1702,7 +1939,8 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
            "valid_auc": auc, "trees": trees, "k6_launches": k6,
            "k6_launches_per_tree": k6 / trees, "k3_launches": k3,
            "k1_launches": k1, "replayed_rounds": replayed,
-           "model_text_identical": True, **text_hash(text, "looped")}
+           "model_text_identical": True, "live_share": live,
+           **text_hash(text, "looped")}
     log(f"  {iters} looped iterations of {n} rows in {secs:.2f} s: "
         f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
         f"row-trees/s; single round, same knobs: {secs1 / iters:.3f} s/iter"
@@ -1713,7 +1951,7 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "loop_model.txt")
-    return out, rec
+    return out, rec, drec
 
 
 def loop_plan(ds, dev) -> dict:
@@ -1726,28 +1964,64 @@ def loop_plan(ds, dev) -> dict:
                    slot_buckets=(4, 16, 63), device=dev)
 
 
-def phase_loop_timing(rec: LoopRecorder, trained: dict, checks: list
-                      ) -> dict:
-    """K6 on the main path's last inputs (CUDA events over 10 launches
-    after a warm-up) beside its plain version, R K2 rounds on the same
-    inputs and its bound by bytes; returns the kernels-line row."""
+def loop_stage_split(rec: LoopRecorder) -> dict:
+    """K6's stage split on the main path: per slot bucket, the rounds and
+    the median microseconds of each stage (``loop_cuda.LOOP_STAGES``) and
+    of the whole round, from the debug stamps of every launch of phase
+    20's stamped run; and the median entry + first boundary of a
+    launch."""
+    by, entry = {}, []
+    for dbg, n_split, ladder in rec.debug:
+        entry.append((int(dbg[1]) - int(dbg[0])) / 1e3)
+        for r in lc.stage_split(dbg, n_split.tolist()):
+            S = ladder[sum(r["n_split"] > b for b in ladder[:-1])]
+            by.setdefault(S, []).append(r)
+    out = {"entry_boundary_us": float(np.median(entry)) if entry
+           else float("nan"), "buckets": {}}
+    for S, rs in sorted(by.items()):
+        med = {k: float(np.median([r[k] for r in rs]))
+               for k in lc.LOOP_STAGES}
+        med["round"] = float(np.median([sum(r[k] for k in lc.LOOP_STAGES)
+                                        for r in rs]))
+        out["buckets"][str(S)] = {"rounds": len(rs), "median_us": med}
+        log(f"  K6 stage split at S={S} ({len(rs)} rounds), median us: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in med.items()))
+    log(f"  K6 entry + first boundary, median {out['entry_boundary_us']:.1f}"
+        " us a launch")
+    return out
+
+
+def phase_loop_timing(rec: LoopRecorder, drec: LoopRecorder, trained: dict,
+                      checks: list) -> dict:
+    """K6's stage split from the stamped run ``drec``; K6 on the main
+    path's last inputs (CUDA events over 10 launches after a warm-up)
+    beside its plain version, R K2 rounds on the same inputs and its bound
+    by bytes; returns the kernels-line row."""
+    split = loop_stage_split(drec)
     spos, skw = loop_call(rec.second)
     full_ms = time_ms(lambda: lc.fused_wave_loop(*spos, **skw), 10)
     full_k2_ms = time_ms(lambda: lc.loop_rounds(
         *spos, round_fn=fc.fused_round, **skw), 3)
     # one round alone (R = 1) at the first round's bucket of each segment,
-    # K6 against K2 with the PyTorch pick: the cost of the loop's grid
+    # K6 against K2 with the PyTorch pick, and against K2 alone on the
+    # same round's inputs: the cost of the loop's grid
     one_round = []
     for name, call in (("second", rec.second), ("last", rec.last)):
         opos, okw = loop_call(call, rounds=1)
         n = int(lc.fused_wave_loop(*opos, **okw)[3][0])
+        rr = RoundRecorder()
+        lc.loop_rounds(*opos, round_fn=rr, **okw)
+        rkw = rr.rounds[0][0]
         one_round.append({
             "segment": name, "n_split": n,
             "S": okw["slot_buckets"][sum(n > b for b in
                                          okw["slot_buckets"][:-1])],
+            "live_rows": int((rr.rounds[0][1][3] < rkw["nslots"]).sum()),
             "k6_ms": time_ms(lambda: lc.fused_wave_loop(*opos, **okw), 10),
             "k2_ms": time_ms(lambda: lc.loop_rounds(
-                *opos, round_fn=fc.fused_round, **okw), 10)})
+                *opos, round_fn=fc.fused_round, **okw), 10),
+            "k2_alone_ms": time_ms(lambda: fc.fused_round(
+                opos[0], opos[1], **rkw), 10)})
     pos, kw = loop_call(rec.last)
     ms = time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10)
     plain_ms = time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 2)
@@ -1758,7 +2032,7 @@ def phase_loop_timing(rec: LoopRecorder, trained: dict, checks: list
     binned, g3 = pos[0], pos[1]
     Fn, N = binned.shape
     B, L = kw["num_bins"], pos[3].shape[0]
-    nbytes = ops = 0
+    nbytes = ops = live_bytes = 0
     rounds = []
     for n, (rkw, out) in zip([n for n in n_split.tolist() if n > 0],
                              rr.rounds):
@@ -1770,16 +2044,19 @@ def phase_loop_timing(rec: LoopRecorder, trained: dict, checks: list
         # ids written, parents read (subtraction), children's mask and
         # sums read, residue written; then the packed rows, the
         # children's frontier rows and (subtraction) pool rows written
-        nbytes += (Fn * N + N * 12 + N * 4 + 2 * N * 4
-                   + (S * row if sub else 0)
-                   + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4
-                   + 2 * S * wf.PACK_COLS * 4 + 2 * n * 12 * 4
-                   + (2 * n * row if sub else 0))
+        other = ((S * row if sub else 0)
+                 + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4
+                 + 2 * S * wf.PACK_COLS * 4 + 2 * n * 12 * 4
+                 + (2 * n * row if sub else 0))
+        nbytes += Fn * N + N * 12 + N * 4 + 2 * N * 4 + other
+        live_bytes += live_row_bytes(N, Fn, live) + other
         ops += ((2 if kw["precision"] == "bf16x2" else 1) * 3 * live * Fn
                 + 2 * S * Fn * B * 2 * 12)
         rounds.append({"S": S, "n_split": n, "live_rows": live})
     nbytes += L * 12 * 4 * 2          # the frontier read once, written once
+    live_bytes += L * 12 * 4 * 2
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_live = live_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
     n_trees = trained["trees"]
     row = {"name": "fused_wave_loop", "route": "cuda", "source": LOOP_SRC,
@@ -1789,6 +2066,7 @@ def phase_loop_timing(rec: LoopRecorder, trained: dict, checks: list
                               for c in checks),
            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "live_bound_ms": max(t_live, t_ops),
            "library_ms": None, "library_note": "none: no single PyTorch "
            "call runs a wave round", "k2_rounds_ms": k2_ms,
            "rounds": rounds, "R": len(n_split), "bytes": nbytes, "ops": ops,
@@ -1798,19 +2076,22 @@ def phase_loop_timing(rec: LoopRecorder, trained: dict, checks: list
            "ms_second_segment": full_ms,
            "k2_rounds_ms_second_segment": full_k2_ms,
            "n_split_second_segment": rec.n_split[1].tolist(),
-           "one_round": one_round, "checks": checks}
+           "one_round": one_round, "stage_split": split, "checks": checks}
     log(f"  K6 ({row['precision']}, {row['mode']}, rounds "
         f"{[r['S'] for r in rounds]} of R={row['R']}): {ms:.3f} ms a launch "
         f"(plain {plain_ms:.1f} ms, {len(rounds)} K2 rounds + PyTorch pick "
         f"and replay {k2_ms:.3f} ms, bound {row['bound_ms']:.4f} ms by "
-        f"{row['bound_by']}), {row['launches_per_tree']:.2f} launches a "
+        f"{row['bound_by']}, live-row bound {row['live_bound_ms']:.4f} ms "
+        f"for live rows {[r['live_rows'] for r in rounds]}), "
+        f"{row['launches_per_tree']:.2f} launches a "
         f"tree; on the run's second segment (tree 1, rounds 5-8, split "
         f"counts {row['n_split_second_segment']}) {full_ms:.3f} ms, its K2 "
         f"rounds + PyTorch pick and replay {full_k2_ms:.3f} ms")
     for o in one_round:
         log(f"  one round alone, {o['segment']} segment's first (S="
-            f"{o['S']}, {o['n_split']} splits): K6 {o['k6_ms']:.3f} ms, K2 + "
-            f"PyTorch pick and replay {o['k2_ms']:.3f} ms")
+            f"{o['S']}, {o['n_split']} splits, {o['live_rows']} live rows): "
+            f"K6 {o['k6_ms']:.3f} ms, K2 alone {o['k2_alone_ms']:.3f} ms, "
+            f"K2 + PyTorch pick and replay {o['k2_ms']:.3f} ms")
     return row
 
 
@@ -1961,12 +2242,12 @@ def main(argv=None) -> int:
     del binned
 
     log("== phase 20: looped training (main path; launch counts reset)")
-    looped, lrec = phase_loop_train(ds, dv, Xv, args.iters, dev)
+    looped, lrec, drec = phase_loop_train(ds, dv, Xv, args.iters, dev)
 
     log("== phase 21: K6 timing and where a looped iteration's time goes")
-    k6_row = phase_loop_timing(lrec, looped, k6_checks)
+    k6_row = phase_loop_timing(lrec, drec, looped, k6_checks)
     k6_row["plan"] = plan
-    del lrec
+    del lrec, drec
     lprof = phase_profile(ds, 5, dev, LOOP_PARAMS)
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},

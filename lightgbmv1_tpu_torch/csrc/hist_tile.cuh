@@ -270,6 +270,86 @@ __device__ __forceinline__ void hist_partial_item(
   }
 }
 
+// The same work item over a row chunk's list of live rows (K2 and K6):
+// `lrow` / `lslot` hold, from chunk * chunk_rows on, the chunk's rows
+// whose slot is below the round's live limit, in row order, and each
+// one's slot; `lcnt[chunk]` counts them (the list stage, wave_round.cuh
+// list_tile).  The walk takes them 256 at a time through the same
+// hist_add_tile, so every cell still receives its rows one f32 add at a
+// time, in row order, from 0.f: the bits of hist_partial_item on the
+// rows' labels, at a cost that follows the live rows.  Slots [nl_add, nl)
+// are listed by no row and come out 0; an empty chunk writes its zero
+// partial and ends.
+template <int PREC, int NC>
+__device__ __forceinline__ void hist_partial_list_item(
+    int f, int chunk, int group, const uint8_t* __restrict__ binned,
+    const float* __restrict__ g3, const int* lrow, const int* lslot,
+    const int* lcnt, float* partial, int n, int nf, int nl, int nb,
+    int ls_max, int chunk_rows, float* smem) {
+  const int s0 = group * ls_max;
+  const int ls = min(ls_max, nl - s0);
+  const int cells = ls * nb;
+  const int wcells = cells / kWarps;
+  const int tid = threadIdx.x;
+  float* out = partial +
+               ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
+  const int cnt = lcnt[chunk];
+  if (cnt == 0) {
+    for (int i = tid; i < cells * NC; i += kThreads) out[i] = 0.f;
+    return;
+  }
+  float* hist = smem;
+  float* tval = hist + static_cast<size_t>(ls_max) * nb * NC;
+  int* tkey = reinterpret_cast<int*>(tval + kThreads * NC);
+  for (int i = tid; i < cells * NC; i += kThreads) hist[i] = 0.f;
+
+  const size_t base = static_cast<size_t>(chunk) * chunk_rows;
+  const int* rows = lrow + base;
+  const int* slots = lslot + base;
+  const uint8_t* brow = binned + static_cast<size_t>(f) * n;
+  // A ring of this thread's list entries (row, slot) of the next kDepth
+  // tiles (row -1 past the list), and the bin and values of the current
+  // tile's row, gathered one tile ahead and judged at use.
+  int rw[kDepth], sl[kDepth];
+#pragma unroll
+  for (int d = 0; d < kDepth; ++d) {
+    const int j = d * kThreads + tid;
+    rw[d] = j < cnt ? rows[j] : -1;
+    sl[d] = j < cnt ? slots[j] : 0;
+  }
+  int bn = 0;
+  float vn[3] = {0.f, 0.f, 0.f};
+  if (rw[0] >= 0) {
+    bn = brow[rw[0]];
+    for (int c = 0; c < 3; ++c) vn[c] = g3[static_cast<size_t>(rw[0]) * 3 + c];
+  }
+  for (int t0 = 0; t0 < cnt; t0 += kDepth * kThreads) {
+#pragma unroll
+    for (int d = 0; d < kDepth; ++d) {
+      if (t0 + d * kThreads >= cnt) break;
+      const int key = rw[d] >= 0 ? row_key(sl[d], bn, s0, ls, nb) : -1;
+      const float v[3] = {vn[0], vn[1], vn[2]};
+      // the next tile's bin and values, in flight while this one adds
+      const int rn = rw[(d + 1) % kDepth];
+      if (rn >= 0) {
+        bn = brow[rn];
+        for (int c = 0; c < 3; ++c) vn[c] = g3[static_cast<size_t>(rn) * 3 + c];
+      }
+      // refill ring slot d with the entry kDepth tiles ahead
+      const int j = t0 + (d + kDepth) * kThreads + tid;
+      rw[d] = j < cnt ? rows[j] : -1;
+      sl[d] = j < cnt ? slots[j] : 0;
+      hist_add_tile<PREC, NC>(key, v, hist, tval, tkey, wcells);
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < cells * NC; i += kThreads) {
+    const int k = i / NC;
+    const int c = i - k * NC;
+    out[i] = hist[((k % kWarps) * NC + c) * wcells + k / kWarps];
+  }
+}
+
 // The partial stage as a kernel: one block a work item on the grid
 // (nf, n_chunks, slot groups).  MANY: a block small enough in shared
 // memory for five an SM is held to the registers of five (the plan's 532
@@ -285,6 +365,22 @@ hist_partial_kernel(const uint8_t* __restrict__ binned,
   hist_partial_item<PREC, NC>(blockIdx.x, blockIdx.y, blockIdx.z, binned, g3,
                               leaf_id, partial, n, nf, nl, nl_add, nb,
                               ls_max, chunk_rows, smem);
+}
+
+// The list walk as a kernel, on the grid (nf, n_chunks, slot groups).
+template <int PREC, int NC, bool MANY>
+__global__ void __launch_bounds__(kThreads, MANY ? 5 : 1)
+hist_partial_list_kernel(const uint8_t* __restrict__ binned,
+                         const float* __restrict__ g3,
+                         const int* __restrict__ lrow,
+                         const int* __restrict__ lslot,
+                         const int* __restrict__ lcnt,
+                         float* __restrict__ partial, int n, int nf, int nl,
+                         int nb, int ls_max, int chunk_rows) {
+  extern __shared__ float smem[];
+  hist_partial_list_item<PREC, NC>(blockIdx.x, blockIdx.y, blockIdx.z, binned,
+                                   g3, lrow, lslot, lcnt, partial, n, nf, nl,
+                                   nb, ls_max, chunk_rows, smem);
 }
 
 // One channel of one cell, summed over the chunks in chunk order: the hi
@@ -324,6 +420,30 @@ int launch_hist_partial(const uint8_t* binned, const float* g3,
   dim3 grid(nf, n_chunks, groups);
   kernel<<<grid, kThreads, smem, stream>>>(binned, g3, leaf_id, partial, n,
                                            nf, nl, nl_add, nb, ls_max,
+                                           chunk_rows);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Sets the list walk's shared memory and launches it on the grid (nf,
+// n_chunks, slot groups).  Returns the cudaError_t.
+template <int PREC, int NC>
+int launch_hist_partial_list(const uint8_t* binned, const float* g3,
+                             const int* lrow, const int* lslot,
+                             const int* lcnt, float* partial, int n, int nf,
+                             int nl, int nb, int ls_max, int n_chunks,
+                             int chunk_rows, cudaStream_t stream) {
+  const size_t smem = hist_partial_smem(ls_max, nb, NC);
+  const auto kernel = smem <= kManySmem
+                          ? hist_partial_list_kernel<PREC, NC, true>
+                          : hist_partial_list_kernel<PREC, NC, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int groups = (nl + ls_max - 1) / ls_max;
+  dim3 grid(nf, n_chunks, groups);
+  kernel<<<grid, kThreads, smem, stream>>>(binned, g3, lrow, lslot, lcnt,
+                                           partial, n, nf, nl, nb, ls_max,
                                            chunk_rows);
   return static_cast<int>(cudaGetLastError());
 }

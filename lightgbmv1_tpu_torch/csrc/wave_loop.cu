@@ -16,16 +16,21 @@
 //       the slot bucket the single round would pick, S = ladder[#{b <
 //       last: n > b}], and the S slots' splits, children's sums and
 //       feature mask, as the grower's to_slot fills them;
-//    1. route: route_row over the rows, new leaf ids in place and the
-//       label at S slots;
-//    2. histogram partials: hist_partial_item over the (feature, chunk,
-//       slot group) items of ops/hist_cuda.plan at the bucket's slot
-//       count;
-//    3. scan_item over the (slot, feature) items: merge, subtract, scan;
-//       in subtraction mode it also commits the pool, pool[leaf] = h_left
-//       and pool[new leaf] = h_right, in place (an item owns its parent's
-//       (leaf, feature) rows, and new leaves are no parent's);
-//    4. pick + commit (block 0, one thread a child): the cross-feature
+//    1. route: route_label_tile over the rows (each row's slot found by
+//       a binary search of the slots sorted by leaf), new leaf ids in
+//       place, the label at S slots and each tile's live rows;
+//    2. list: list_tile over the tiles, each row chunk's live rows in
+//       row order under ops/hist_cuda.plan at the bucket's slot count;
+//    3. histogram partials: hist_partial_list_item over the (feature,
+//       chunk, slot group) items of that plan, each walking its chunk's
+//       list, handed to the blocks one at a time from a counter;
+//    4. scan_item over the (slot, feature) items, up to four a block at
+//       once (one a 64-thread scan group on its own shared memory):
+//       merge, subtract, scan; in subtraction mode it also commits the
+//       pool, pool[leaf] = h_left and pool[new leaf] = h_right, in place
+//       (an item owns its parent's (leaf, feature) rows, and new leaves
+//       are no parent's);
+//    5. pick + commit (block 0, one thread a child): the cross-feature
 //       tie-band pick, right sums and default direction as _pick_pack
 //       computes them, the packed row, then the children's frontier rows
 //       (cgain = -inf past max_depth) and the next round's boundary.
@@ -38,24 +43,28 @@
 //    the loop in every block (all read the same n after a barrier), and
 //    its rows stay the zeros the wrapper wrote.
 //
-// Numbers.  Stage 4 is written with __fadd_rn / __fsub_rn / __fmul_rn /
+// Numbers.  Stage 5 is written with __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn, one rounding an op, as the PyTorch ops of _pick_pack and the
 // grower's commit each round once: the packed rows equal the pick the
 // single round runs on the card, bit for bit.
 //
 // What bounds it on this card.  A round moves what K2 moves at its bucket
 // (about 49 MB at 1,048,576 rows x 28 features and 63 slots of 64 bins,
-// 15 us at 3.35 TB/s) plus the frontier and pool commits (the children's
-// (F, B, 3) rows); its arithmetic is far below the f32 rate, so the bound
-// is by bytes.  The time goes, as in K2, to the histogram partials, R
-// times.  The TPU kernel keeps the frontier,
-// the pool and the labels in VMEM across its (R, row tiles) grid; no
-// Hopper block holds a round's histograms (5.5 MB of pool and 52 MB of
-// partials at 64 slots), so the state stays in device memory (50 MB of
-// L2) and grid barriers take the place of the TPU grid's order.  The grid
-// is one block an SM times the blocks the occupancy query allows at the
-// largest stage's shared memory (K1's partials: 107 KiB at 64 slots in
-// bf16x2); the boundary and pick run in one block while the others wait.
+// 15 us at 3.35 TB/s; its live rows' share of that, as in K2) plus the
+// frontier and pool commits (the children's (F, B, 3) rows); its
+// arithmetic is far below the f32 rate, so the bound is by bytes.  The
+// time goes, as in K2, to the histogram partials, R times.  The TPU
+// kernel keeps the frontier, the pool and the labels in VMEM across its
+// (R, row tiles) grid; no Hopper block holds a round's histograms (5.5 MB
+// of pool and 52 MB of partials at 64 slots), so the state stays in
+// device memory (50 MB of L2) and grid barriers take the place of the TPU
+// grid's order.  The grid is one block an SM times the blocks the
+// occupancy query allows at the largest stage's shared memory (K1's
+// partials: 107 KiB at 64 slots in bf16x2, so two an SM); the scan packs
+// as many 22.5 KB scan groups into a block as fit (four), and the
+// boundary and pick run in one block while the others wait.  An opt-in
+// debug buffer takes block 0's globaltimer stamps after each barrier, so
+// the stages' split is measured inside a launch.
 
 #include <cooperative_groups.h>
 
@@ -69,7 +78,16 @@ namespace {
 constexpr int kMaxLadder = 8;
 constexpr int kFtCols = 12;
 constexpr int kPackCols = 10;
-constexpr int kBndHdr = 4;  // n_split, S, bucket, leaf count
+// n_split, S, bucket, leaf count, the partial stage's next item
+constexpr int kBndHdr = 5;
+// The opt-in debug buffer: [0] block 0's entry, [1] the first boundary's
+// barrier, then a round's kStages stamps (the end of route, list,
+// partials, scan, pick + boundary: each after its grid barrier) and its
+// live rows.
+constexpr int kStages = 5;
+__host__ __device__ inline int debug_words(int R) {
+  return 2 + R * (kStages + 1);
+}
 
 // The boundary record of a round in device memory (ints): the header,
 // then K slots, K parent depths, 2K x 3 children's sums (f32) and the
@@ -94,10 +112,16 @@ struct LoopArgs {
   float* packed;             // (R, 2K, 10), zeroed
   int* n_split;              // (R,), zeroed
   int* label;                // (n,) scratch
+  int* tile_cnt;             // (ceil(n / 256),) scratch
+  int* lrow;                 // the largest bucket's row lists, scratch
+  int* lslot;                // and their slots, scratch
+  int* lcnt;                 // the largest bucket's chunk counts, scratch
   float* partial;            // the largest bucket's partials, scratch
   float* residue;            // (2K, nf, 6) scratch
   int* bnd;                  // bnd_ints(K, nf) scratch
+  unsigned long long* debug;  // stamps and live rows, or null (debug_words)
   int n, nf, B, nb, L, K, R, nl0, max_depth, n_buckets;
+  int scan_groups;           // scan groups a block runs at once
   int ladder[kMaxLadder], ls_max[kMaxLadder], n_chunks[kMaxLadder],
       chunk_rows[kMaxLadder];
   ScanParams prm;
@@ -228,6 +252,18 @@ __device__ void pick_commit(const LoopArgs& a, int r) {
   if (threadIdx.x == 0) a.n_split[r] = n;
 }
 
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// Block 0's thread 0 stamps debug word i, when the buffer is given.
+__device__ __forceinline__ void stamp(const LoopArgs& a, int i) {
+  if (a.debug && blockIdx.x == 0 && threadIdx.x == 0)
+    a.debug[i] = global_ns();
+}
+
 template <int PREC, int NC, bool SUB>
 __global__ void __launch_bounds__(kThreads, 2)
 wave_loop_kernel(LoopArgs a) {
@@ -240,65 +276,104 @@ wave_loop_kernel(LoopArgs a) {
       reinterpret_cast<const float*>(a.bnd + bnd_csums_off(a.K));
   const uint8_t* mask =
       reinterpret_cast<const uint8_t*>(a.bnd + bnd_mask_off(a.K));
+  stamp(a, 0);
   if (blockIdx.x == 0) boundary(a, a.nl0, smem);
   grid.sync();
+  stamp(a, 1);
   for (int r = 0; r < a.R; ++r) {
+    const int st = 2 + r * (kStages + 1);  // this round's debug words
     const int n = a.bnd[0];
     if (n == 0) break;  // every block read the same n after the barrier
     const int S = a.bnd[1], bi = a.bnd[2], nl = a.bnd[3];
     const int nslots = SUB ? S : 2 * S;
     const int nlh = nslots + 1;  // slot nslots: the rows of no split
 
-    // ---- 1. route: new leaf ids in place, the label ------------------
+    // ---- 1. route: new leaf ids in place, the label, tile counts -----
     Slot* slots = reinterpret_cast<Slot*>(smem);
+    int* sleaf = reinterpret_cast<int*>(slots + S);
+    int* sidx = sleaf + S;
     for (int s = threadIdx.x; s < S; s += blockDim.x) slots[s] = gslots[s];
     __syncthreads();
-    const int step = gridDim.x * blockDim.x;
-    for (int row = blockIdx.x * blockDim.x + threadIdx.x; row < a.n;
-         row += step)
-      route_row<true, SUB>(row, a.binned, a.leaf, slots, a.n, S, nslots,
-                           a.leaf, a.label);
+    sort_slots(slots, S, sleaf, sidx);
+    __syncthreads();
+    const int tiles = (a.n + kThreads - 1) / kThreads;
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      route_label_tile<SUB>(t, a.binned, a.leaf, slots, sleaf, sidx, a.n, S,
+                            nslots, a.leaf, a.label, a.tile_cnt);
+    if (blockIdx.x == 0 && threadIdx.x == 0) a.bnd[4] = 0;  // stage 3's
     grid.sync();
+    stamp(a, st);
 
-    // ---- 2. histogram partials under the bucket's plan (slot nslots,
-    //      the rows of no split, dropped at the load) -------------------
+    // ---- 2. the chunks' live-row lists under the bucket's plan --------
     const int ls_max = a.ls_max[bi], n_chunks = a.n_chunks[bi];
+    const int chunk_rows = a.chunk_rows[bi];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+      list_tile(t, a.label, a.tile_cnt, a.lrow, a.lslot, a.lcnt, a.n, nslots,
+                chunk_rows);
+    grid.sync();
+    stamp(a, st + 1);
+    if (a.debug && blockIdx.x == 0 && threadIdx.x == 0) {
+      int live = 0;
+      for (int c = 0; c < n_chunks; ++c) live += a.lcnt[c];
+      a.debug[st + kStages] = live;
+    }
+
+    // ---- 3. histogram partials over the lists (slot nslots, the rows
+    //      of no split, in no list); a block takes the next item when it
+    //      is done with one, as the block scheduler hands out K2's, so
+    //      items of short lists make room for long ones -----------------
     const int groups = (nlh + ls_max - 1) / ls_max;
     const int items = nf * n_chunks * groups;
-    for (int w = blockIdx.x; w < items; w += gridDim.x) {
+    __shared__ int s_item;
+    for (;;) {
+      __syncthreads();  // the last item no longer reads s_item or smem
+      if (threadIdx.x == 0) s_item = atomicAdd(a.bnd + 4, 1);
       __syncthreads();
-      hist_partial_item<PREC, NC>(w % nf, (w / nf) % n_chunks,
-                                  w / (nf * n_chunks), a.binned, a.g3,
-                                  a.label, a.partial, a.n, nf, nlh, nslots,
-                                  a.nb, ls_max, a.chunk_rows[bi], smem);
+      const int w = s_item;
+      if (w >= items) break;
+      hist_partial_list_item<PREC, NC>(w % nf, (w / nf) % n_chunks,
+                                       w / (nf * n_chunks), a.binned, a.g3,
+                                       a.lrow, a.lslot, a.lcnt, a.partial,
+                                       a.n, nf, nlh, a.nb, ls_max, chunk_rows,
+                                       smem);
     }
     grid.sync();
+    stamp(a, st + 2);
 
-    // ---- 3. merge + subtract + scan, and the pool commit --------------
+    // ---- 4. merge + subtract + scan, and the pool commit: scan_groups
+    //      (slot, feature) items a block at once, one a scan group on its
+    //      own kScanSmemFloats -------------------------------------------
     const size_t hrow = static_cast<size_t>(a.B) * 3;
-    for (int w = blockIdx.x; w < S * nf; w += gridDim.x) {
-      const int s = w / nf, f = w % nf;
-      const Slot m = gslots[s];
-      float* par = nullptr;
-      float* out_r = nullptr;
-      if (SUB && s < n) {
-        par = a.pool + (static_cast<size_t>(m.leaf) * nf + f) * hrow;
-        out_r = a.pool + (static_cast<size_t>(m.nl) * nf + f) * hrow;
+    const int g = threadIdx.x / kScanGroup;
+    if (g < a.scan_groups) {
+      const int slots_all = gridDim.x * a.scan_groups;
+      for (int w = blockIdx.x * a.scan_groups + g; w < S * nf;
+           w += slots_all) {
+        const int s = w / nf, f = w % nf;
+        const Slot m = gslots[s];
+        float* par = nullptr;
+        float* out_r = nullptr;
+        if (SUB && s < n) {
+          par = a.pool + (static_cast<size_t>(m.leaf) * nf + f) * hrow;
+          out_r = a.pool + (static_cast<size_t>(m.nl) * nf + f) * hrow;
+        }
+        scan_item<NC, SUB>(s, f, threadIdx.x % kScanGroup, 1 + g, a.partial,
+                           n_chunks, nf, nlh, a.nb, a.B, a.fmeta, mask, csums,
+                           SUB && m.sml != 0, par, nullptr, par, out_r,
+                           a.residue, a.prm, smem + g * kScanSmemFloats);
       }
-      __syncthreads();
-      scan_item<NC, SUB>(s, f, blockDim.x, a.partial, n_chunks, nf, nlh, a.nb,
-                         a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par,
-                         nullptr, par, out_r, a.residue, a.prm, smem);
     }
     grid.sync();
+    stamp(a, st + 3);
 
-    // ---- 4. pick + frontier commit, the next round's boundary ---------
+    // ---- 5. pick + frontier commit, the next round's boundary ---------
     if (blockIdx.x == 0) {
       pick_commit(a, r);
       __syncthreads();
       if (r + 1 < a.R) boundary(a, nl + n, smem);
     }
     grid.sync();
+    stamp(a, st + 4);
   }
 }
 
@@ -317,7 +392,7 @@ LoopKernel kernel_for(int precision, int sub) {
 }
 
 // The largest stage's dynamic shared memory: the partials of any bucket,
-// the scan, the route's slots or the boundary's gains.
+// one scan group's, the route's slots or the boundary's gains.
 size_t loop_smem(int nc, int nb, int L, int K, int n_buckets,
                  const int* ls_max) {
   size_t m = kScanSmemFloats * sizeof(float);
@@ -325,7 +400,7 @@ size_t loop_smem(int nc, int nb, int L, int K, int n_buckets,
     const size_t h = hist_partial_smem(ls_max[b], nb, nc);
     m = h > m ? h : m;
   }
-  const size_t route = static_cast<size_t>(K) * sizeof(Slot);
+  const size_t route = static_cast<size_t>(K) * (sizeof(Slot) + 8);
   const size_t bnd = static_cast<size_t>(L + 2 * K) * sizeof(float);
   m = route > m ? route : m;
   m = bnd > m ? bnd : m;
@@ -365,6 +440,9 @@ extern "C" {
 // Ints of the boundary scratch `bnd` of lgbm_fused_wave_loop.
 int lgbm_wave_loop_bnd_ints(int K, int nf) { return bnd_ints(K, nf); }
 
+// 64-bit words of the debug buffer of an R-round launch.
+int lgbm_wave_loop_debug_words(int R) { return debug_words(R); }
+
 // The launch's limits on the current device (out: shared memory a block,
 // resident blocks an SM, SMs, cooperative launch supported); returns the
 // cudaError_t of the queries.  `ls_max` holds each ladder bucket's
@@ -381,15 +459,22 @@ int lgbm_wave_loop_limits(int precision, int sub, int nb, int L, int K,
 // K6.  Returns the cudaError_t of the launch (0 = launched).  `tables`
 // (host) holds 4 rows of n_buckets ints: the slot ladder and each
 // bucket's ls_max, n_chunks and chunk_rows (ops/hist_cuda.plan at its
-// nslots + 1 slots).  `leaf`, `ft` and `pool` are updated in place;
-// `packed` (R, 2K, 10) and `n_split` (R,) must be zeroed; `label` (N,),
+// nslots + 1 slots).
+// `leaf`, `ft` and `pool` are updated in place; `packed` (R, 2K, 10) and
+// `n_split` (R,) must be zeroed; `label` (N,), `tile_cnt`, `lrow`,
+// `lslot`, `lcnt` (fused_cuda.list_scratch at the largest bucket's plan),
 // `partial` (the largest bucket's), `residue` (2K, nf, 6) and `bnd`
 // (lgbm_wave_loop_bnd_ints) are scratch.  Pool-free when `sub` is 0.
+// `debug` (null, or lgbm_wave_loop_debug_words(R) zeroed words) receives
+// block 0's globaltimer stamps (ns) after each grid barrier and each
+// round's live rows.
 int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          void* ft, void* pool, const void* fmeta,
                          const void* base_mask, void* packed, void* n_split,
-                         void* label, void* partial, void* residue, void* bnd,
-                         const void* tables, int n, int nf, int B, int nb,
+                         void* label, void* tile_cnt, void* lrow, void* lslot,
+                         void* lcnt, void* partial, void* residue, void* bnd,
+                         void* debug, const void* tables, int n, int nf,
+                         int B, int nb,
                          int L, int K, int R, int num_leaves, int max_depth,
                          int n_buckets, int precision, int sub, float l1,
                          float l2, float min_data, float min_hess,
@@ -409,9 +494,14 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
   a.packed = static_cast<float*>(packed);
   a.n_split = static_cast<int*>(n_split);
   a.label = static_cast<int*>(label);
+  a.tile_cnt = static_cast<int*>(tile_cnt);
+  a.lrow = static_cast<int*>(lrow);
+  a.lslot = static_cast<int*>(lslot);
+  a.lcnt = static_cast<int*>(lcnt);
   a.partial = static_cast<float*>(partial);
   a.residue = static_cast<float*>(residue);
   a.bnd = static_cast<int*>(bnd);
+  a.debug = static_cast<unsigned long long*>(debug);
   a.n = n;
   a.nf = nf;
   a.B = B;
@@ -428,7 +518,8 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
     a.ls_max[b] = t[n_buckets + b];
     a.n_chunks[b] = t[2 * n_buckets + b];
     a.chunk_rows[b] = t[3 * n_buckets + b];
-    if (a.ladder[b] > K || a.ls_max[b] < 1)
+    if (a.ladder[b] > K || a.ls_max[b] < 1 ||
+        a.chunk_rows[b] % kThreads != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   a.prm = ScanParams{l1, l2, min_data, min_hess, min_gain};
@@ -439,6 +530,17 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
   if (err != 0) return err;
   if (!lim[3] || lim[1] < 1)
     return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  if (n == 0) {  // no tile to list: every chunk's list is empty
+    int chunks = 0;
+    for (int b = 0; b < n_buckets; ++b)
+      chunks = a.n_chunks[b] > chunks ? a.n_chunks[b] : chunks;
+    err = static_cast<int>(cudaMemsetAsync(lcnt, 0, chunks * sizeof(int),
+                                           static_cast<cudaStream_t>(stream)));
+    if (err != 0) return err;
+  }
+  const int fit = static_cast<int>(smem / (kScanSmemFloats * sizeof(float)));
+  const int most = kThreads / kScanGroup;
+  a.scan_groups = fit < most ? fit : most;
   void* args[] = {&a};
   return static_cast<int>(cudaLaunchCooperativeKernel(
       reinterpret_cast<const void*>(kern), dim3(lim[1] * lim[2]),

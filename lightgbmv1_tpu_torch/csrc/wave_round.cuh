@@ -1,17 +1,18 @@
 // The device code of one wave round, shared by the fused round K2 / K3
 // (csrc/wave_fused.cu) and the persistent wave loop K6
 // (csrc/wave_loop.cu).  Each stage is a __device__ function that takes its
-// work item as an argument — a row (route_row), a (feature, chunk, slot
-// group) (hist_partial_item, in hist_tile.cuh) or a (slot, feature)
+// work item as an argument — a row or a 256-row tile (route_row,
+// route_label_tile, list_tile), a (feature, chunk, slot group)
+// (hist_partial_list_item, in hist_tile.cuh) or a (slot, feature)
 // (scan_item) — so the kernels compute the same values from the same
 // inputs whatever grid runs them.  ops/_build.py hashes every csrc/*.cuh
 // a source includes into the library's name.
 //
-// Buffers the loop rewrites inside one launch (leaf ids, labels,
-// partials, the round's slots, mask and sums, the pool, the residue) are
-// plain pointers here, never const __restrict__: the loop reads them
-// again after a grid barrier, so they must not go through the read-only
-// cache.
+// Buffers the loop rewrites inside one launch (leaf ids, labels, tile
+// counts, lists, partials, the round's slots, mask and sums, the pool,
+// the residue) are plain pointers here, never const __restrict__: the
+// loop reads them again after a grid barrier, so they must not go
+// through the read-only cache.
 
 #pragma once
 
@@ -52,33 +53,143 @@ __device__ __forceinline__ bool go_left(int bin, const Slot& m) {
   return na ? m.dl != 0 : bin <= m.thr;
 }
 
+// The leaf-sorted order of a round's ns slots, by the block: sleaf[k] is
+// the k-th smallest slot leaf (ties in slot order), sidx[k] its slot.
+__device__ __forceinline__ void sort_slots(const Slot* slots, int ns,
+                                           int* sleaf, int* sidx) {
+  for (int s = threadIdx.x; s < ns; s += blockDim.x) {
+    const int lf = slots[s].leaf;
+    int rank = 0;
+    for (int t = 0; t < ns; ++t) {
+      const int o = slots[t].leaf;
+      rank += o < lf || (o == lf && t < s);
+    }
+    sleaf[rank] = lf;
+    sidx[rank] = s;
+  }
+}
+
+// Slot s's terms of route_tile on a row of leaf lf whose bin of the
+// slot's feature is `bin`: the new leaf id's and, WANT_LABEL, the label's.
+template <bool WANT_LABEL, bool SUB>
+__device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
+                                           int lf, int nslots, int& dleaf,
+                                           int& dlab) {
+  const bool g = go_left(bin, m);
+  if (!g) dleaf += m.nl - lf;
+  if (WANT_LABEL) {
+    if (SUB) {
+      if (g == (m.sml != 0)) dlab += s - nslots;
+    } else {
+      dlab += 2 * s + (g ? 0 : 1) - nslots;
+    }
+  }
+}
+
 // route_tile on row r: the sums over the slots its leaf matches (one at
 // most: live slots hold distinct leaves, dead slots a leaf no row has),
-// term for term.  Reads the row's leaf id before it writes the new one,
-// so `new_leaf` may be `oleaf`.
+// term for term, those slots found by a binary search of the leaf-sorted
+// order (sort_slots), so a row costs log2(ns) steps, not ns.  Reads the
+// row's leaf id before it writes the new one, so `new_leaf` may be
+// `oleaf`.  WANT_LABEL (K2 and K6; K3 routes without it) also writes and
+// returns the label: the smaller child's slot in subtraction mode, 2s +
+// right pool-free, nslots for a row of no split.
 template <bool WANT_LABEL, bool SUB>
-__device__ __forceinline__ void route_row(int r,
-                                          const uint8_t* __restrict__ binned,
-                                          const int* oleaf, const Slot* slots,
-                                          int n, int ns, int nslots,
-                                          int* new_leaf, int* label) {
+__device__ __forceinline__ int route_row(
+    int r, const uint8_t* __restrict__ binned, const int* oleaf,
+    const Slot* slots, const int* sleaf, const int* sidx, int n, int ns,
+    int nslots, int* new_leaf, int* label) {
   const int lf = oleaf[r];
-  int dleaf = 0, dlab = 0;
-  for (int s = 0; s < ns; ++s) {
-    const Slot& m = slots[s];
-    if (m.leaf != lf) continue;
-    const bool g = go_left(binned[static_cast<size_t>(m.feat) * n + r], m);
-    if (!g) dleaf += m.nl - lf;
-    if (WANT_LABEL) {
-      if (SUB) {
-        if (g == (m.sml != 0)) dlab += s - nslots;
-      } else {
-        dlab += 2 * s + (g ? 0 : 1) - nslots;
-      }
+  int lo = 0, hi = ns;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (sleaf[mid] < lf) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
     }
+  }
+  int dleaf = 0, dlab = 0;
+  for (int p = lo; p < ns && sleaf[p] == lf; ++p) {
+    const int s = sidx[p];
+    const Slot& m = slots[s];
+    slot_terms<WANT_LABEL, SUB>(
+        s, m, binned[static_cast<size_t>(m.feat) * n + r], lf, nslots, dleaf,
+        dlab);
   }
   new_leaf[r] = lf + dleaf;
   if (WANT_LABEL) label[r] = nslots + dlab;
+  return nslots + dlab;
+}
+
+// route_row with the label on the rows of 256-row tile t, by all
+// kThreads threads of the block, and the tile's live rows (label below
+// nslots: the rows the round's histograms add) into tile_cnt[t].
+template <bool SUB>
+__device__ __forceinline__ void route_label_tile(
+    int t, const uint8_t* __restrict__ binned, const int* oleaf,
+    const Slot* slots, const int* sleaf, const int* sidx, int n, int ns,
+    int nslots, int* new_leaf, int* label, int* tile_cnt) {
+  const int r = t * kThreads + threadIdx.x;
+  bool live = false;
+  if (r < n)
+    live = route_row<true, SUB>(r, binned, oleaf, slots, sleaf, sidx, n, ns,
+                                nslots, new_leaf, label) < nslots;
+  const int c = __syncthreads_count(live);
+  if (threadIdx.x == 0) tile_cnt[t] = c;
+}
+
+// The list stage on 256-row tile t, by all kThreads threads of the block
+// (K2 and K6, after the route and its tile counts): the tile's live rows,
+// in row order, after those of the earlier tiles of its row chunk
+// (ops/hist_cuda.plan's chunks of chunk_rows, a multiple of the tile), at
+// lrow[chunk * chunk_rows + offset + rank], each one's slot beside it in
+// lslot; the chunk's last tile writes the chunk's count to lcnt (with no
+// rows there is no tile: the caller zeroes lcnt).  A stable ballot ranks
+// a warp's rows, the warps' counts rank the warps, and the earlier tiles'
+// counts give the offset, so the list is in row order whatever block runs
+// which tile.  A tile with no live row reads no label.
+__device__ __forceinline__ void list_tile(int t, const int* label,
+                                          const int* tile_cnt, int* lrow,
+                                          int* lslot, int* lcnt, int n,
+                                          int nslots, int chunk_rows) {
+  __shared__ int red[2 * kWarps];  // the warps' offset parts, live counts
+  const int tpc = chunk_rows / kThreads;
+  const int chunk = t / tpc;
+  const int t0 = chunk * tpc;
+  const int t_last = min(t0 + tpc, (n + kThreads - 1) / kThreads) - 1;
+  if (tile_cnt[t] == 0 && t != t_last) return;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  int part = 0;  // the live rows of the chunk's tiles before t
+  for (int i = t0 + tid; i < t; i += kThreads) part += tile_cnt[i];
+  for (int o = 16; o > 0; o >>= 1)
+    part += __shfl_xor_sync(0xffffffffu, part, o);
+  const int r = t * kThreads + tid;
+  const int lab = r < n ? label[r] : nslots;
+  const bool live = lab < nslots;
+  const unsigned m = __ballot_sync(0xffffffffu, live);
+  if (lane == 0) {
+    red[warp] = part;
+    red[kWarps + warp] = __popc(m);
+  }
+  __syncthreads();
+  int offset = 0, before = 0, tot = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    offset += red[w];
+    tot += red[kWarps + w];
+    if (w < warp) before += red[kWarps + w];
+  }
+  if (live) {
+    const size_t p = static_cast<size_t>(chunk) * chunk_rows + offset +
+                     before + __popc(m & ((1u << lane) - 1u));
+    lrow[p] = r;
+    lslot[p] = lab;
+  }
+  if (t == t_last && tid == 0) lcnt[chunk] = offset + tot;
+  __syncthreads();  // red is read before the next tile writes it
 }
 
 struct ScanParams {
@@ -123,10 +234,22 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // [2][2][kMaxBins][3], gains [2][2 kMaxBins] floats.
 constexpr int kScanSmemFloats =
     2 * kMaxBins * 3 + 2 * 2 * kMaxBins * 3 + 2 * 2 * kMaxBins;
+// The threads of a scan group: two warps, one a child.
+constexpr int kScanGroup = 64;
 
-// Work item (s, f): the children 2s and 2s + 1 of feature f.  All
-// `nthreads` threads of the block merge the partials (merge_cell, in chunk
-// order); warps 0 and 1 (one a child) scan.  In subtraction mode `par`
+// A barrier of the kScanGroup threads of scan group `id` - 1 (named
+// barrier `id`, 1..15; 0 is __syncthreads'), so groups of one block run
+// their items apart.
+__device__ __forceinline__ void group_sync(int id) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(kScanGroup) : "memory");
+}
+
+// Work item (s, f): the children 2s and 2s + 1 of feature f, by one scan
+// group (gtid its thread, `bar` its named barrier, `sm` its
+// kScanSmemFloats of shared memory): its kScanGroup threads merge the
+// partials (merge_cell, in chunk order), then warp 0 scans the left child
+// and warp 1 the right.  It opens with a group barrier, so a group may run
+// items back to back.  In subtraction mode `par`
 // is the slot's parent histogram of feature f ((B, 3), or null for a zero
 // parent) and `sml` says the smaller child is the left one; `hs` (the
 // smaller child) and `out_l` / `out_r` (the children) receive their
@@ -134,8 +257,9 @@ constexpr int kScanSmemFloats =
 // rows [best gain, gain at the pick, pick, left g/h/c] of both children.
 template <int NC, bool SUB>
 __device__ __forceinline__ void scan_item(
-    int s, int f, int nthreads, const float* partial, int n_chunks, int nf,
-    int nl, int nb, int B, const int* __restrict__ fmeta, const uint8_t* mask,
+    int s, int f, int gtid, int bar, const float* partial, int n_chunks,
+    int nf, int nl, int nb, int B, const int* __restrict__ fmeta,
+    const uint8_t* mask,
     const float* csums, bool sml, const float* par, float* hs, float* out_l,
     float* out_r, float* residue, const ScanParams& prm, float* sm) {
   float(*h2)[kMaxBins][3] = reinterpret_cast<float(*)[kMaxBins][3]>(sm);
@@ -143,12 +267,13 @@ __device__ __forceinline__ void scan_item(
       reinterpret_cast<float(*)[2][kMaxBins][3]>(sm + 2 * kMaxBins * 3);
   float(*gains)[2 * kMaxBins] = reinterpret_cast<float(*)[2 * kMaxBins]>(
       sm + 2 * kMaxBins * 3 + 2 * 2 * kMaxBins * 3);
-  const int tid = threadIdx.x;
+  const int tid = gtid;
   const size_t stride = static_cast<size_t>(nf) * nl * nb * NC;
+  group_sync(bar);  // the group's last item no longer reads `sm`
 
   // ---- merge the partials; subtraction mode subtracts from the parent --
   if (SUB) {
-    for (int i = tid; i < B * 3; i += nthreads) {
+    for (int i = tid; i < B * 3; i += kScanGroup) {
       const int b = i / 3, c = i % 3;
       const float v = merge_cell<NC>(
           partial + ((static_cast<size_t>(f) * nl + s) * nb + b) * NC + c,
@@ -165,7 +290,7 @@ __device__ __forceinline__ void scan_item(
       }
     }
   } else {
-    for (int i = tid; i < 2 * B * 3; i += nthreads) {
+    for (int i = tid; i < 2 * B * 3; i += kScanGroup) {
       const int w = i / (B * 3), b = (i / 3) % B, c = i % 3;
       h2[w][b][c] = merge_cell<NC>(
           partial +
@@ -173,8 +298,7 @@ __device__ __forceinline__ void scan_item(
           stride, n_chunks);
     }
   }
-  __syncthreads();
-  if (tid >= 64) return;
+  group_sync(bar);
 
   const int w = tid >> 5;
   const int lane = tid & 31;

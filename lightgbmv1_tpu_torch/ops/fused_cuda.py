@@ -4,24 +4,25 @@ and their plain versions.
 Counterpart of the two Pallas kernels of lightgbmv1_tpu/ops/wave_fused.py.
 ``fused_round`` replaces ``_fused_kernel`` (reached through
 ``fused_wave_scan`` / ``make_fused_round``): one routed wave round —
-go-left decisions -> new leaf ids and the row -> slot label, the slots'
-histograms, the parent subtraction and each child's per-feature split scan
--> a (2S, F, ``RES_COLS``) residue.  ``route_rows`` replaces
+go-left decisions -> new leaf ids and the row -> slot label, each row
+chunk's list of live rows (label below nslots), the slots' histograms over
+those lists, the parent subtraction and each child's per-feature split
+scan -> a (2S, F, ``RES_COLS``) residue.  ``route_rows`` replaces
 ``_route_only_kernel`` (``fused_route_rows``): a valid set routed through
 one round's splits.  Both are written by hand in CUDA C++
 (``csrc/wave_fused.cu``; its head note says what bounds them and how the
 design answers it).  K2's histograms are K1's device code on the same
-label under K1's plan (``hist_cuda.plan`` at nslots + 1 slots), so they
-equal K1's bit for bit.
+label under K1's plan (``hist_cuda.plan`` at nslots + 1 slots), walking
+only the listed rows in row order, so they equal K1's bit for bit.
 
 ``fused_round_ref`` and ``route_rows_ref`` are the plain PyTorch versions:
-``route_tile`` on the decision bins, K1's plain histogram
-(``hist_cuda.index_add_hist`` on the precision's parts), the subtraction
-and the staged scan's stages (``wave_fused.child_scan_residue``).  A CPU
-tensor takes them; a CUDA tensor launches the kernel or raises.  Each
-launch adds one to ``launch_counts[name]``, and K2's also to
-``bucket_launch_counts[(nslots, precision, mode)]``; each plain call adds
-one to ``plain_counts[name]``.
+``route_tile`` on the decision bins, the list (``live_rows_ref``), K1's
+plain histogram of the listed rows (``hist_cuda.index_add_hist`` on the
+precision's parts), the subtraction and the staged scan's stages
+(``wave_fused.child_scan_residue``).  A CPU tensor takes them; a CUDA
+tensor launches the kernel or raises.  Each launch adds one to
+``launch_counts[name]``, and K2's also to ``bucket_launch_counts[(nslots,
+precision, mode)]``; each plain call adds one to ``plain_counts[name]``.
 """
 
 from __future__ import annotations
@@ -66,6 +67,24 @@ def route_rows_ref(binned, lids, feats, rmeta, num_leaves):
                          want_label=False)[0]
 
 
+def live_rows_ref(label, nslots, n_chunks, chunk_rows):
+    """Plain version of K2's and K6's list stage: for each row chunk of
+    the histogram plan, the rows whose label is below ``nslots`` (the rows
+    the round's histograms add), in row order -> ``(rows (n_chunks *
+    chunk_rows,) i32, counts (n_chunks,) i32)``.  Chunk c's rows are
+    ``rows[c * chunk_rows:][:counts[c]]``; the rest of its span is -1."""
+    live = (label < nslots).nonzero()[:, 0]            # rows, rising
+    chunk = live // chunk_rows
+    counts = torch.bincount(chunk, minlength=n_chunks)
+    start = torch.cumsum(counts, 0) - counts
+    pos = chunk * chunk_rows + torch.arange(live.numel(),
+                                            device=label.device) - start[chunk]
+    rows = torch.full((n_chunks * chunk_rows,), -1, dtype=torch.int32,
+                      device=label.device)
+    rows[pos] = live.to(torch.int32)
+    return rows, counts.to(torch.int32)
+
+
 def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, mask, csums,
                     route, sml=None, parent=None):
@@ -83,14 +102,22 @@ def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
               params: SplitParams, mask, csums, route, sml=None,
               parent=None):
     """``fused_round_ref`` uncounted: the round the persistent loop's plain
-    version (ops/loop_cuda.py) runs R times."""
+    version (ops/loop_cuda.py) runs R times.  The histograms sum the
+    listed rows only, in row order (``live_rows_ref`` under K2's plan):
+    the rows of no split add nothing either way."""
     sub = parent is not None
     dbin = wf.decision_bins(binned, route["oleaf"], route["feats"],
                             route["rmeta"][:, 0], route["num_leaves"])
     new_leaf, label = wf.route_tile(dbin, route["oleaf"], route["rmeta"],
                                     nslots=nslots, sub=sub)
-    h = hist_cuda.index_add_hist(binned, hist_cuda.split_parts(g3, precision),
-                                 label, nslots + 1, num_bins)[:nslots]
+    F, N = binned.shape
+    p = hist_cuda.plan(N, F, nslots + 1, num_bins, precision)
+    rows, _ = live_rows_ref(label, nslots, p["n_chunks"], p["chunk_rows"])
+    rows = rows[rows >= 0].long()
+    h = hist_cuda.index_add_hist(
+        binned[:, rows], [v[rows] for v in hist_cuda.split_parts(g3,
+                                                                 precision)],
+        label[rows], nslots + 1, num_bins)[:nslots]
     hc = wf.subtract_children(h, parent, sml) if sub else h
     residue = wf.child_scan_residue(hc, mask, csums, meta_blk=meta,
                                     params=params, num_bins=num_bins,
@@ -104,7 +131,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_fused")
-    lib.lgbm_fused_round.argtypes = [_P] * 15 + [_I] * 10 + [_F] * 5 + [_P]
+    lib.lgbm_fused_round.argtypes = [_P] * 19 + [_I] * 10 + [_F] * 5 + [_P]
     lib.lgbm_fused_round.restype = _I
     lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 2 + [_P]
     lib.lgbm_route_rows.restype = _I
@@ -141,6 +168,19 @@ def _check_bins(binned):
 def _raise_on(err: int, name: str) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA launch failed (cudaError {err})")
+
+
+def list_scratch_sizes(N, n_chunks, span) -> tuple:
+    """The i32 words of the list stage's scratch: the 256-row tiles' live
+    counts, the chunks' row lists and their slots (``span`` = n_chunks x
+    chunk_rows each) and the chunks' counts."""
+    return (-(-N // hist_cuda.ROW_TILE), span, span, n_chunks)
+
+
+def list_scratch(N, n_chunks, span, device) -> list:
+    """The list stage's scratch (``list_scratch_sizes``), uninitialised."""
+    return [torch.empty(n, dtype=torch.int32, device=device)
+            for n in list_scratch_sizes(N, n_chunks, span)]
 
 
 def route_rows(binned, lids, feats, rmeta, num_leaves):
@@ -208,6 +248,8 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     label = torch.empty(N, dtype=torch.int32, device=dev)
     new_leaf = torch.empty(N, dtype=torch.int32, device=dev)
     p = hist_cuda.plan(N, F, nslots + 1, B, precision)
+    lists = list_scratch(N, p["n_chunks"], p["n_chunks"] * p["chunk_rows"],
+                         dev)
     partial = torch.empty((p["n_chunks"], F, nslots + 1, p["nb"], p["nc"]),
                           dtype=torch.float32, device=dev)
     residue = torch.empty((C, F, wf.RES_COLS), dtype=torch.float32,
@@ -225,7 +267,8 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
         err = _lib().lgbm_fused_round(
             binned.data_ptr(), g3.data_ptr(), route["oleaf"].data_ptr(),
             route["feats"].data_ptr(), route["rmeta"].data_ptr(),
-            label.data_ptr(), new_leaf.data_ptr(), partial.data_ptr(),
+            label.data_ptr(), new_leaf.data_ptr(),
+            *[t.data_ptr() for t in lists], partial.data_ptr(),
             fmeta.data_ptr(), mask.data_ptr(), csums.data_ptr(), ptr(sml),
             ptr(parent), residue.data_ptr(), ptr(hsmall), N, F, S, p["nb"],
             B, p["ls_max"], p["n_chunks"], p["chunk_rows"],

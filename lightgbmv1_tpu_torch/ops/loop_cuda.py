@@ -18,7 +18,9 @@ with K2's plain round (``fused_cuda.round_ref``).  ``loop_rounds`` with
 ``round_fn=fused_cuda.fused_round`` is R launches of K2 with the same
 boundary, pick and commit in PyTorch, which the kernel equals bit for bit
 on the card.  A CPU tensor takes the plain version; a CUDA tensor
-launches the kernel or raises.  Each launch adds one to
+launches the kernel or raises.  On the card an opt-in ``debug`` buffer
+takes block 0's stamps after each grid barrier and each round's live
+rows; ``stage_split`` reads it.  Each launch adds one to
 ``launch_counts["fused_wave_loop"]`` and to ``bucket_launch_counts[(R,
 precision, "sub" | "pool")]``; each plain call adds one to
 ``plain_counts["fused_wave_loop"]``.
@@ -36,6 +38,11 @@ from . import _build, fused_cuda, hist_cuda
 from . import wave_fused as wf
 from .split import (NEG_INF, FeatureMeta, SplitParams, child_leaf_output,
                     gain_shift)
+
+# the stages of a round in the kernel's debug stamps, in order: each
+# ends at a grid barrier ("pick": the pick, the commit and the next
+# round's boundary)
+LOOP_STAGES = ("route", "list", "partials", "scan", "pick")
 
 launch_counts = {"fused_wave_loop": 0}
 # the launches of ``launch_counts["fused_wave_loop"]`` by (rounds,
@@ -148,14 +155,42 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_loop")
-    lib.lgbm_fused_wave_loop.argtypes = [_P] * 14 + [_I] * 12 + [_F] * 5 \
+    lib.lgbm_fused_wave_loop.argtypes = [_P] * 19 + [_I] * 12 + [_F] * 5 \
         + [_P]
     lib.lgbm_fused_wave_loop.restype = _I
     lib.lgbm_wave_loop_limits.argtypes = [_I] * 6 + [_P, _P]
     lib.lgbm_wave_loop_limits.restype = _I
     lib.lgbm_wave_loop_bnd_ints.argtypes = [_I, _I]
     lib.lgbm_wave_loop_bnd_ints.restype = _I
+    lib.lgbm_wave_loop_debug_words.argtypes = [_I]
+    lib.lgbm_wave_loop_debug_words.restype = _I
     return lib
+
+
+def debug_buffer(rounds: int, device) -> torch.Tensor:
+    """K6's debug buffer for ``rounds`` rounds on a card, sized by the
+    kernel's library (``lgbm_wave_loop_debug_words``): block 0's entry
+    stamp, the first boundary's, then each round's ``LOOP_STAGES`` stamps
+    and its live rows, as ``stage_split`` reads them."""
+    return torch.zeros(_lib().lgbm_wave_loop_debug_words(int(rounds)),
+                       dtype=torch.int64, device=device)
+
+
+def stage_split(debug: torch.Tensor, n_split) -> list:
+    """Per live round of a launch: its stages' durations in microseconds
+    (``LOOP_STAGES``) and its live rows, from the debug buffer."""
+    d = [int(x) for x in debug.tolist()]
+    w = len(LOOP_STAGES) + 1
+    out, prev = [], d[1]
+    for r, n in enumerate(int(x) for x in n_split):
+        if n == 0:
+            break
+        st = d[2 + r * w: 2 + (r + 1) * w]
+        out.append({"n_split": n, "live_rows": st[-1], **{
+            name: (st[i] - (prev if i == 0 else st[i - 1])) / 1e3
+            for i, name in enumerate(LOOP_STAGES)}})
+        prev = st[len(LOOP_STAGES) - 1]
+    return out
 
 
 def bucket_plans(N, F, num_bins, precision, slot_buckets, sub) -> list:
@@ -170,6 +205,14 @@ def partial_floats(N, F, num_bins, precision, slot_buckets, sub) -> int:
     return max(p["n_chunks"] * F * ((S if sub else 2 * S) + 1) * p["nb"]
                * p["nc"] for S, p in zip(slot_buckets, bucket_plans(
                    N, F, num_bins, precision, slot_buckets, sub)))
+
+
+def list_sizes(N, F, num_bins, precision, slot_buckets, sub) -> tuple:
+    """The list scratch of the buckets' largest plans: (chunks, chunks x
+    chunk_rows); ``fused_cuda.list_scratch`` allocates it."""
+    plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub)
+    return (max(p["n_chunks"] for p in plans),
+            max(p["n_chunks"] * p["chunk_rows"] for p in plans))
 
 
 def limits(device, *, precision, sub, num_bins, N, F, L, K,
@@ -196,7 +239,7 @@ def limits(device, *, precision, sub, num_bins, N, F, L, K,
 def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                     slot_buckets, max_depth, base_mask, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, pool=None,
-                    fmeta=None):
+                    fmeta=None, debug=None):
     """K6: ``rounds`` wave rounds in one launch -> ``(packed (R, 2K,
     PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``, as
     ``loop_rounds`` computes them.
@@ -206,7 +249,11 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     features a child may split on, ``slot_buckets`` the ladder; ``pool``
     (L, F, B, 3) f32 selects the subtraction mode.  The inputs are not
     modified.  ``fmeta`` is ``fused_cuda.feature_table(meta)``, made once
-    by a caller that launches many times."""
+    by a caller that launches many times.  ``debug`` (card only): a
+    ``debug_buffer(rounds, ...)`` that receives the stage stamps and live
+    rows ``stage_split`` reads."""
+    if debug is not None and binned.device.type != "cuda":
+        raise ValueError("debug: the stage stamps are the card kernel's")
     if binned.device.type == "cpu":
         return fused_wave_loop_ref(
             binned, g3, leaf_id, ft12, num_leaves, rounds=rounds, K=K,
@@ -229,6 +276,10 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     fused_cuda._need(base_mask, "base_mask", torch.bool, (F,), dev)
     if sub:
         fused_cuda._need(pool, "pool", torch.float32, (L, F, B, 3), dev)
+    if debug is not None:
+        fused_cuda._need(debug, "debug", torch.int64,
+                         (_lib().lgbm_wave_loop_debug_words(R),), dev)
+        debug.zero_()
     plans = bucket_plans(N, F, B, precision, slot_buckets, sub)
     tables = (ctypes.c_int * (4 * len(plans)))(
         *slot_buckets, *[p["ls_max"] for p in plans],
@@ -241,6 +292,8 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     packed = torch.zeros((R, C, wf.PACK_COLS), dtype=f32, device=dev)
     n_split = torch.zeros(R, dtype=i32, device=dev)
     label = torch.empty(N, dtype=i32, device=dev)
+    lists = fused_cuda.list_scratch(
+        N, *list_sizes(N, F, B, precision, slot_buckets, sub), dev)
     partial = torch.empty(partial_floats(N, F, B, precision, slot_buckets,
                                          sub), dtype=f32, device=dev)
     residue = torch.empty((C, F, wf.RES_COLS), dtype=f32, device=dev)
@@ -255,8 +308,10 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             binned.data_ptr(), g3.data_ptr(), new_leaf.data_ptr(),
             ft.data_ptr(), pool_out.data_ptr() if sub else 0,
             fmeta.data_ptr(), mask.data_ptr(), packed.data_ptr(),
-            n_split.data_ptr(), label.data_ptr(), partial.data_ptr(),
-            residue.data_ptr(), bnd.data_ptr(), tables, N, F, B,
+            n_split.data_ptr(), label.data_ptr(),
+            *[t.data_ptr() for t in lists], partial.data_ptr(),
+            residue.data_ptr(), bnd.data_ptr(),
+            0 if debug is None else debug.data_ptr(), tables, N, F, B,
             hist_cuda.kernel_width(B), L, K, R, int(num_leaves),
             int(max_depth), len(plans), hist_cuda.PREC_ID[precision],
             int(sub), params.lambda_l1, params.lambda_l2,

@@ -281,7 +281,8 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
     round picks and under that bucket's histogram plan, so its sums are
     partitioned exactly as K2's.  Without ``limits`` (the plain version on
     the CPU) the card's gates are not asked."""
-    from .loop_cuda import partial_floats
+    from .fused_cuda import list_scratch_sizes
+    from .loop_cuda import list_sizes, partial_floats
 
     R = int(min(rounds, _LOOP_MAX_ROUNDS))
     B, C = num_bins, 2 * K
@@ -289,8 +290,10 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
                                             else 0)
     partial_bytes = 4 * partial_floats(N, F, B, precision, slot_buckets,
                                        use_sub)
-    scratch_bytes = (N * 4 + partial_bytes + C * F * RES_COLS * 4
-                     + R * C * PACK_COLS * 4)
+    list_bytes = 4 * sum(list_scratch_sizes(
+        N, *list_sizes(N, F, B, precision, slot_buckets, use_sub)))
+    scratch_bytes = (N * 4 + list_bytes + partial_bytes
+                     + C * F * RES_COLS * 4 + R * C * PACK_COLS * 4)
     plan = dict(eligible=False, rounds=1, reason="",
                 ladder=tuple(int(s) for s in slot_buckets),
                 state_bytes=int(state_bytes),

@@ -83,11 +83,15 @@ def _metas(F, B, rng):
     return j, t, nb
 
 
-def _round(seed, F, B, N, S, L, sub):
+def _round(seed, F, B, N, S, L, sub, rows=None):
     """One routed round's inputs, as numpy: rows over L current leaves
     (bins within each feature's own bin count), S slots of which the last
     is dead (leaf id ``L + S``, no row's), the children's exact sums and,
-    in subtraction mode, each slot's parent histogram."""
+    in subtraction mode, each slot's parent histogram.  ``rows`` makes the
+    round sparse-live by moving rows to a leaf no slot splits: all of
+    them (``"none"``), all but one row of the first split (``"one
+    row"``), all outside the second 256-row chunk (``"one chunk"``); or
+    every row into the first split (``"root"``)."""
     rng = np.random.RandomState(seed)
     jmeta, tmeta, nb = _metas(F, B, rng)
     binned = (rng.randint(0, 1 << 16, (F, N)) % nb[:, None]).astype(np.uint8)
@@ -101,6 +105,18 @@ def _round(seed, F, B, N, S, L, sub):
     dls = rng.rand(S) < 0.5
     leafs = rng.choice(L, S, replace=False).astype(np.int32)
     leafs[live:] = L + S                               # dead slot
+    if rows is not None:
+        idle = np.setdiff1d(np.arange(L), leafs[:live])[0]
+        keep = np.zeros(N, bool)
+        if rows == "one row":
+            keep[N // 3] = True
+            lids[N // 3] = leafs[0]
+        elif rows == "one chunk":
+            keep[256:512] = True
+        elif rows == "root":
+            keep[:] = True
+            lids[:] = leafs[0]
+        lids = np.where(keep, lids, idle).astype(np.int32)
     nls = (np.arange(S) + L).astype(np.int32)
     sml = rng.rand(S) < 0.5
     sml[live:] = False
@@ -321,6 +337,121 @@ def test_fused_round_is_the_staged_composition(shape, precision):
         assert a.dtype == b.dtype, name
         assert torch.equal(a, b), name
     np.testing.assert_array_equal(nleaf.numpy(), r["want_leaf"])
+
+
+# ---------------------------------------------------------------------------
+# (d) the live-row lists of K2's and K6's list stage
+# ---------------------------------------------------------------------------
+
+
+def _every_row(label, nslots, n_chunks, chunk_rows):
+    """A list of every row, live or not: through it the plain round sums
+    the label's histograms over all rows, the sum the lists must keep."""
+    rows = torch.full((n_chunks * chunk_rows,), -1, dtype=torch.int32)
+    rows[:label.shape[0]] = torch.arange(label.shape[0], dtype=torch.int32)
+    return rows, None
+
+
+def _labels(case, N, chunk_rows, nslots, rng):
+    """Slot labels (``nslots``: a row of no split) whose live rows are
+    ``case``'s; ``"jax route"`` takes the JAX package's ``route_tile`` on
+    a round's decision bins."""
+    lab = np.full(N, nslots, np.int32)
+    if case == "one row":
+        lab[N // 3] = 1
+    elif case == "full chunk":
+        lab[chunk_rows:2 * chunk_rows] = rng.randint(0, nslots, chunk_rows)
+    elif case == "last partial chunk":
+        tail = N - (N // chunk_rows) * chunk_rows
+        lab[N - tail:] = np.where(rng.rand(tail) < 0.5,
+                                  rng.randint(0, nslots, tail), nslots)
+    elif case == "jax route":
+        r = _round(41, 5, 16, N, nslots, 12, sub=True)
+        j = jnp.asarray
+        rmeta = jwf.pack_route_meta(j(r["feats"]), j(r["thrs"]), j(r["dls"]),
+                                    j(r["leafs"]), j(r["nls"]), r["jmeta"],
+                                    sml=j(r["sml"]))
+        dbin = jwf.decision_bins(j(r["binned"]), j(r["lids"]),
+                                 j(r["feats"]), j(r["leafs"]),
+                                 r["num_leaves"])
+        lab = np.asarray(jwf.route_tile(
+            dbin.reshape(1, N), j(r["lids"]).reshape(1, N), rmeta,
+            nslots=nslots, sub=True)[1]).reshape(N)
+    return lab.astype(np.int32)
+
+
+@pytest.mark.parametrize("case", ["none", "one row", "full chunk",
+                                  "last partial chunk", "jax route"])
+def test_live_rows_ref(case):
+    """The plain list stage: each chunk's span holds exactly its rows
+    whose label is below nslots, in row order, then -1; the counts are
+    theirs.  N is no multiple of the chunk, so the last chunk is partial."""
+    N, chunk_rows, nslots = 1000, 256, 3
+    n_chunks = -(-N // chunk_rows)
+    lab = _labels(case, N, chunk_rows, nslots, np.random.RandomState(7))
+    rows, counts = fused_cuda.live_rows_ref(torch.from_numpy(lab), nslots,
+                                            n_chunks, chunk_rows)
+    assert rows.dtype == counts.dtype == torch.int32
+    assert rows.shape == (n_chunks * chunk_rows,) and counts.shape == (4,)
+    for c in range(n_chunks):
+        want = [r for r in range(c * chunk_rows, min(N, (c + 1) * chunk_rows))
+                if lab[r] < nslots]
+        span = rows[c * chunk_rows:(c + 1) * chunk_rows].tolist()
+        assert int(counts[c]) == len(want)
+        assert span == want + [-1] * (chunk_rows - len(want))
+    live = counts.tolist()
+    assert {"none": live == [0] * 4, "one row": live == [0, 1, 0, 0],
+            "full chunk": live == [0, 256, 0, 0],
+            "last partial chunk": live[:3] == [0] * 3 and live[3] > 0,
+            "jax route": 0 < sum(live) < N}[case]
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x2"])
+@pytest.mark.parametrize("rows", [None, "none", "one row", "one chunk",
+                                  "root"])
+@pytest.mark.parametrize("sub", [True, False], ids=["sub", "pool-free"])
+def test_round_through_the_list_is_the_row_walk(monkeypatch, sub, rows,
+                                                precision):
+    """K2's plain version sums its histograms over the listed rows; it
+    equals the same round summed over every row, bit for bit: residue,
+    hsmall, new leaf ids and labels, on dense and sparse-live rounds."""
+    r = _round(23, 5, 16, 2048, 3, 12, sub, rows)
+    got = _port_call(r, precision)
+    monkeypatch.setattr(fused_cuda, "live_rows_ref", _every_row)
+    want = _port_call(r, precision)
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+@pytest.mark.parametrize("rows", ["none", "one row", "one chunk", "root"])
+@pytest.mark.parametrize("sub", [True, False], ids=["sub", "pool-free"])
+def test_sparse_round_matches_jax(sub, rows):
+    """Sparse-live rounds through the lists against the JAX package's
+    fused round (interpret mode): leaf ids exact, picks identical, values
+    within the tolerance of test_fused_round_matches_jax."""
+    F, B, N, S = 5, 16, 2048, 3
+    r = _round(29, F, B, N, S, 12, sub, rows)
+    ptab, hsm, nleaf = (x if x is None else x.numpy()
+                        for x in _port_call(r, "bf16x2"))
+    jtab, jhsm, jleaf = _jax_call(r, "bf16x2")
+    np.testing.assert_array_equal(nleaf, jleaf)
+    np.testing.assert_array_equal(nleaf, r["want_leaf"])
+    np.testing.assert_array_equal(ptab[:, 1:4], jtab[:, 1:4])
+    fin = np.isfinite(jtab[:, 0])
+    np.testing.assert_array_equal(np.isfinite(ptab[:, 0]), fin)
+    jshift = np.asarray(jax.vmap(lambda p: jsplit.gain_shift(
+        p, 0.0, jsplit.SplitParams(min_data_in_leaf=5.0)))(
+            jnp.asarray(r["csums"])))
+    tol_g = 4e-6 * (np.abs(jtab[:, 0]) + np.abs(jshift)) + 1e-6
+    assert (np.abs(ptab[fin, 0] - jtab[fin, 0]) <= tol_g[fin]).all()
+    tol_s = 4e-6 * np.concatenate([r["child_absum"]] * 2, 1) + 1e-6
+    assert (np.abs(ptab[:, 4:] - jtab[:, 4:]) <= tol_s)[fin].all()
+    live = int((r["child"] < 2 * S).sum())
+    assert {"none": live == 0, "one row": live == 1,
+            "one chunk": 0 < live <= 256, "root": live == N}[rows]
+    if sub:
+        np.testing.assert_array_equal(hsm[..., 2], jhsm[..., 2])
+        assert np.abs(hsm - jhsm).max() <= 4e-6 * np.abs(r["g3"]).sum() + 1e-6
 
 
 def test_scan_pick_is_its_two_halves():

@@ -42,7 +42,7 @@ import lightgbmv1_tpu_torch as lt
 from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.models import grower_wave as tgw
 from lightgbmv1_tpu_torch.models.convert import tree_arrays_from_numpy
-from lightgbmv1_tpu_torch.ops import loop_cuda
+from lightgbmv1_tpu_torch.ops import fused_cuda, loop_cuda
 from lightgbmv1_tpu_torch.ops import split as tsplit
 from lightgbmv1_tpu_torch.ops import wave_fused as twf
 from lightgbmv1_tpu_torch.parallel import trainer as ttrainer
@@ -146,7 +146,7 @@ def _port_loop(s, rounds, precision, **over):
     kw = dict(rounds=rounds, K=s["K"], slot_buckets=s["ladder"],
               max_depth=s["max_depth"], base_mask=t(s["mask"]),
               num_bins=s["B"], precision=precision, meta=s["tmeta"],
-              params=tsplit.SplitParams(**PARAMS),
+              params=tsplit.SplitParams(**s.get("params", PARAMS)),
               pool=t(s["pool"]) if s["sub"] else None)
     kw.update(over)
     return loop_cuda.fused_wave_loop(t(s["binned"]), t(s["g3"]),
@@ -155,7 +155,7 @@ def _port_loop(s, rounds, precision, **over):
 
 def _jax_loop(s, rounds, precision):
     fn = jwf.make_fused_wave_loop(
-        meta=s["jmeta"], params=jsplit.SplitParams(**PARAMS),
+        meta=s["jmeta"], params=jsplit.SplitParams(**s.get("params", PARAMS)),
         num_bins=s["B"], precision=precision, deep_precision=precision,
         rounds=rounds, interpret=True)
     j = jnp.asarray
@@ -214,23 +214,22 @@ _CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(_CASES))
-def test_loop_matches_jax(case):
-    F, B, N, K, L, nl, sub, ladder, max_depth, R, prec = _CASES[case]
-    s = _segment(sum(map(ord, case)), F, B, N, K, L, nl, sub, ladder,
-                 max_depth)
+def _check_against_jax(s, R, prec, min_rounds=2):
+    """The port's loop against the JAX loop on segment ``s``: leaf ids
+    and picks exact, split counts exact (replayed from the packed rows),
+    gains within the tie band's 4e-6 and sums and the pool within 4e-6 of
+    their rows' absolute sums.  Returns the live rounds."""
     packed, new_leaf, pool, n_split = (
         x if x is None else x.numpy() for x in _port_loop(s, R, prec))
     jpacked, jleaf, jpool = _jax_loop(s, R, prec)
     np.testing.assert_array_equal(new_leaf, jleaf)
+    K, L, F, B = s["K"], s["L"], s["F"], s["B"]
     assert packed.shape == jpacked.shape == (R, 2 * K, twf.PACK_COLS)
     leaf_after = [_port_loop(s, r + 1, prec)[1].numpy()
                   for r in range(R - 1)] + [new_leaf]
     rounds = _rounds_by_numpy(s, packed, n_split, leaf_after)
-    assert len(rounds) >= 2
-    if case.endswith("exhausted"):
-        assert len(rounds) < R and n_split[len(rounds)] == 0
-    params = jsplit.SplitParams(**PARAMS)
+    assert len(rounds) >= min_rounds
+    params = jsplit.SplitParams(**s.get("params", PARAMS))
     for r, (n, _, absum) in enumerate(rounds):
         p, q = packed[r, :2 * n], jpacked[r, :2 * n]
         np.testing.assert_array_equal(p[:, 1:4], q[:, 1:4])
@@ -242,7 +241,7 @@ def test_loop_matches_jax(case):
         assert (np.abs(p[fin, 0] - q[fin, 0]) <= tol_g[fin]).all()
         tol_s = 4e-6 * np.concatenate([absum] * 2, 1) + 1e-6
         assert (np.abs(p[:, 4:] - q[:, 4:]) <= tol_s)[fin].all()
-    if sub:
+    if s["sub"]:
         # every leaf's rows sat in one leaf at the segment's start
         anc = np.zeros(L, np.int64)
         anc[new_leaf] = s["lids"]
@@ -252,9 +251,37 @@ def test_loop_matches_jax(case):
                       np.abs(s["g3"]))
         np.testing.assert_array_equal(pool[..., 2], jpool[..., 2])
         assert (np.abs(pool - jpool) <= 4e-6 * absum[anc] + 1e-6).all()
-        assert not np.array_equal(pool, s["pool"])
     else:
         assert pool is None and jpool is None
+    return rounds, n_split, pool
+
+
+@pytest.mark.parametrize("case", list(_CASES))
+def test_loop_matches_jax(case):
+    F, B, N, K, L, nl, sub, ladder, max_depth, R, prec = _CASES[case]
+    s = _segment(sum(map(ord, case)), F, B, N, K, L, nl, sub, ladder,
+                 max_depth)
+    rounds, n_split, pool = _check_against_jax(s, R, prec)
+    if case.endswith("exhausted"):
+        assert len(rounds) < R and n_split[len(rounds)] == 0
+    if sub:
+        assert not np.array_equal(pool, s["pool"])
+
+
+@pytest.mark.parametrize("rows", ["none", "one row", "one chunk", "root"])
+@pytest.mark.parametrize("sub", [True, False], ids=["sub", "pool-free"])
+def test_sparse_loop_matches_jax(sub, rows):
+    """Sparse-live segments (``_parked``: no row held, one, one chunk's,
+    every row in the best leaf) against the JAX loop with
+    ``test_loop_matches_jax``'s tolerances."""
+    s = _parked(_segment(41 + sub, 6, 64, 1024, 8, 32, 5, sub, (4, 8)),
+                rows)
+    rounds, _, _ = _check_against_jax(s, 4, "bf16x2" if sub else "f32", 1)
+    held = int((s["lids"] != s["L"] - 1).sum())
+    assert held == {"none": 0, "one row": 1, "one chunk": 256,
+                    "root": 1024}[rows]
+    top = int(np.argmax(s["ft"][:s["nl"], 0]))
+    assert top in rounds[0][1]      # the first round splits the best leaf
 
 
 # ---------------------------------------------------------------------------
@@ -597,3 +624,102 @@ def test_plain_loop_leaves_its_inputs():
     assert all(torch.equal(a, b) for a, b in zip(ins, before))
     assert n_split.dtype == torch.int32 and int(n_split[0]) > 0
     assert not torch.equal(new_leaf, ins[0])
+
+
+# ---------------------------------------------------------------------------
+# (g) the rounds through the live-row lists, and the stage stamps
+# ---------------------------------------------------------------------------
+
+
+def _every_row(label, nslots, n_chunks, chunk_rows):
+    """A list of every row, live or not: through it the plain round sums
+    the label's histograms over all rows, the sum the lists must keep."""
+    rows = torch.full((n_chunks * chunk_rows,), -1, dtype=torch.int32)
+    rows[:label.shape[0]] = torch.arange(label.shape[0], dtype=torch.int32)
+    return rows, None
+
+
+def _parked(s, rows):
+    """The segment with rows moved to the frontier's last leaf, which no
+    round splits: all of them (``"none"``), all but one row of the best
+    leaf (``"one row"``), all outside the second 256-row chunk (``"one
+    chunk"``); or every row moved into the best leaf (``"root"``).  Each
+    current leaf keeps its recorded split (gain, feature, threshold,
+    default left, depth); its sums, output and pool histograms become
+    those of the rows it now holds, so a leaf left empty still splits.
+    ``lambda_l2 = 1``: an empty child's scan gives -inf past its gates,
+    not 0 / 0."""
+    lids = s["lids"].copy()
+    L, nl, F, B = s["L"], s["nl"], s["F"], s["B"]
+    top = int(np.argmax(s["ft"][:nl, 0]))
+    keep = np.zeros(lids.shape[0], bool)
+    if rows == "one row":
+        keep[np.flatnonzero(lids == top)[0]] = True
+    elif rows == "one chunk":
+        keep[256:512] = True
+    elif rows == "root":
+        lids[:] = top
+        keep[:] = True
+    lids = np.where(keep, lids, L - 1).astype(np.int32)
+    pool = np.zeros((L, F, B, 3), np.float64)
+    for f in range(F):
+        np.add.at(pool, (lids, f, s["binned"][f]), s["g3"])
+    ft, m, t = s["ft"].copy(), s["tmeta"], torch.from_numpy
+    feat = ft[:nl, 1].astype(np.int64)
+    tf = t(feat)[:, None]
+    left = tsplit.go_left_rule(
+        torch.arange(B)[None], t(ft[:nl, 2:3].astype(np.int64)),
+        t(ft[:nl, 3:4] != 0), m.missing_type[tf], m.nan_bin[tf],
+        m.zero_bin[tf]).numpy()                                  # (nl, B)
+    h = pool[np.arange(nl), feat]                                # (nl, B, 3)
+    lsum, tot = (h * left[..., None]).sum(1), h.sum(1)
+    params = dict(PARAMS, lambda_l2=1.0)
+    ft[:nl, 4:7], ft[:nl, 7:10] = lsum, tot - lsum
+    ft[:nl, 10] = tsplit.child_leaf_output(
+        t(tot.astype(np.float32)), tsplit.SplitParams(**params)).numpy()
+    return dict(s, lids=lids, pool=pool.astype(np.float32), ft=ft,
+                params=params)
+
+
+@pytest.mark.parametrize("rows", [None, "none", "one row", "one chunk",
+                                  "root"])
+@pytest.mark.parametrize("sub", [True, False], ids=["sub", "pool-free"])
+def test_loop_through_the_list_is_the_row_walk(monkeypatch, sub, rows):
+    """K6's plain version runs R plain rounds, each summing its
+    histograms over its listed rows; it equals the same rounds summed over
+    every row, bit for bit (packed rows, leaf ids, pool, split counts), on
+    dense and sparse-live segments over a multi-bucket ladder."""
+    s = _segment(37 + sub, 6, 64, 2048, 24, 96, 3, sub, (4, 16, 24))
+    if rows is not None:
+        s = _parked(s, rows)
+    got = _port_loop(s, 4, "bf16x2")
+    monkeypatch.setattr(fused_cuda, "live_rows_ref", _every_row)
+    want = _port_loop(s, 4, "bf16x2")
+    assert int(got[3][0]) > 0
+    for a, b in zip(got, want):
+        assert (a is None and b is None) or torch.equal(a, b)
+
+
+def test_stage_split_reads_the_debug_words():
+    """``stage_split`` turns K6's debug words (entry and first boundary
+    stamps, then each round's stage stamps in ns and its live rows) into
+    each live round's stage microseconds; a round of no split ends it.
+    The stamps are the card kernel's: a CPU tensor refuses them."""
+    stages = loop_cuda.LOOP_STAGES
+    R, w = 3, len(stages) + 1
+    d = torch.zeros(2 + R * w, dtype=torch.int64)
+    d[0], d[1] = 1000, 5000
+    t = 5000
+    for r in range(2):
+        for i in range(len(stages)):
+            t += 1000 * (i + 1 + r)
+            d[2 + r * w + i] = t
+        d[2 + r * w + w - 1] = 100 + r
+    out = loop_cuda.stage_split(d, [7, 3, 0])
+    assert out == [{"n_split": (7, 3)[r], "live_rows": 100 + r,
+                    **{k: float(i + 1 + r) for i, k in enumerate(stages)}}
+                   for r in range(2)]
+    s = _segment(3, 5, 16, 300, 4, 16, 4, True, (4,))
+    with pytest.raises(ValueError, match="card"):
+        _port_loop(s, 2, "f32", debug=torch.zeros(2 + 2 * w,
+                                                  dtype=torch.int64))
