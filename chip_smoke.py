@@ -50,8 +50,11 @@ Phases (any failure exits non-zero with no ``ok`` line):
               from the port's copy of bench.py:42 make_data, binned at
               max_bin=63 (B = 64) by ``Dataset.construct``.
 9. K1       — the histogram kernel against its plain versions on the card
-              at F = 28, N = --train-rows, B = 64, L in {2, 5, 17, 64} on
-              signed, varied rows, and at N = 4,096, L = 64, in each of
+              at F = 28, N = --train-rows, B = 64, L in {2, 5, 17, 64}
+              (the headline wave's slot counts), 1 (the sequential
+              grower's), 65 and 128 (the level-wise grower's) and 256
+              (four slot groups at bf16x2) on signed, varied rows, and at
+              N = 4,096, L = 64, in each of
               bf16x2 / bf16 / f32: bit for bit the row-order version
               (``hist_leaves_roworder_ref``: each chunk's cell summed in
               row order from 0, the chunks in order, hi and lo apart);
@@ -156,8 +159,44 @@ Phases (any failure exits non-zero with no ``ok`` line):
               plain version, R K2 rounds on the same inputs, its all-rows
               and live-row bounds, and one round alone against K2 alone
               on that round's inputs; five looped iterations profiled, as
-              phase 13; then the ``kernels`` line (K1, K2, K3, K6, K4, K5)
-              is printed.
+              phase 13.
+22. regression — the sequential grower's main path, launch counts reset
+              first: phase 8's rows with a continuous target (make_data's
+              logit plus noise), binned on phase 8's bins; ``train`` with
+              NO objective (the default, regression: l2 from the label
+              mean) and 7 leaves, where the auto wave size 1 routes to
+              the sequential grower, for --reg-iters iterations with the
+              valid set: K1 launched, at one slot only (the root over
+              every row, then each split's smaller child gathered from
+              its segment), no plain version; s/iteration, s/tree, K1
+              launches a tree, the valid l2, the model text's hash, the
+              model served through K4.  Then K1 against its plain
+              versions on the path's last inputs and timed there; five
+              iterations profiled; and the path in f32 on the card and on
+              the CPU on 65,536 of the rows, the CPU's K1 the row-order
+              plain version (``card_vs_cpu`` says why): every split
+              identical, leaves within 2e-3 of max(1, |leaf|).
+23. level-wise — phase 22's steps for ``tree_growth=levelwise`` at the
+              headline configuration on phase 8's data, --level-iters
+              iterations: K1 at each level (the root, then the last
+              level's splits' smaller children with a dead slot); valid
+              AUC beside the JAX package's level-wise 0.91267.
+24. multiclass — the bench parity config (bench.py:2854-2861): the port's
+              copy of make_multiclass_data, 250,000 x 28 rows, 5 classes,
+              127 leaves, max_bin 63, --mc-iters iterations, a valid set
+              of 50,000; phase 22's steps, multi_logloss beside the JAX
+              package's 0.85144 and the reference C++'s 0.830193; the
+              model served through K4, held to its plain version (phase
+              4's checks) and to the port's CPU predict (raw within the
+              serving tolerance, softmax within 1e-6).
+25. lambdarank — the bench parity config (bench.py:2906-2913): the port's
+              copy of make_rank_data, 2,000 queries x 100 documents x 64
+              features, 63 leaves, --rank-iters iterations, ndcg@10 on a
+              valid set of 400 queries beside the JAX package's 0.61497
+              and the reference C++'s 0.613977; phase 24's steps.
+              Then the ``kernels`` line (K1, K2, K3, K6, K4, K5) is
+              printed; K1's row carries phases 22-25's K1 shapes too
+              (``paths``).
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -165,6 +204,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -280,10 +320,10 @@ def make_model(seed, n_trees=500, n_leaves=255, n_grid=63, num_class=1):
     return text, trees
 
 
-def make_rows(rng, n):
-    X = rng.standard_normal((n, F))
-    X[rng.rand(n, F) < 0.10] = np.nan
-    X[rng.rand(n, F) < 0.05] = 0.0
+def make_rows(rng, n, n_features=F):
+    X = rng.standard_normal((n, n_features))
+    X[rng.rand(n, n_features) < 0.10] = np.nan
+    X[rng.rand(n, n_features) < 0.05] = 0.0
     return X
 
 
@@ -379,15 +419,15 @@ def k4_shapes(nr, n, row_bytes, dev) -> list:
     return sorted(picks | {1, 2, 3, -(-n // pc.ROW_TILE)})
 
 
-def phase_kernels(models, dev, n_rows, rng) -> dict:
+def phase_kernels(models, dev, n_rows, rng, n_features=F) -> dict:
     """Each kernel against its plain version on the same card inputs: K4's
     raw scores bit for bit (its plain version adds in the kernel's
     order), at n_rows, 1,000 (ragged) and 256 rows, on every code width,
     and at every launch shape; returns the max abs error per kernel."""
     err = {"serving_fused": 0.0, "serving_leaf": 0.0}
-    X = make_rows(rng, n_rows)
+    X = make_rows(rng, n_rows, n_features)
     for name, (text, trees, K, method_kw) in models.items():
-        bp = BatchPredictor(trees, K, F, method="fused", device=dev,
+        bp = BatchPredictor(trees, K, n_features, method="fused", device=dev,
                             **method_kw)
         check(bp.fused_plan["eligible"], f"{name}: fused plan refused "
               f"({bp.fused_plan['reason']})")
@@ -761,14 +801,19 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
 # ---------------------------------------------------------------------------
 
 
+def headline_logit(X):
+    """bench.py:42 make_data's logit of six of the 28 features."""
+    return (X[:, 0] * 1.2 - X[:, 1] + 0.6 * X[:, 2] * X[:, 3]
+            + 0.4 * X[:, 4] + 0.3 * np.sin(3.0 * X[:, 5]))
+
+
 def make_data(n, seed):
     """The JAX package's bench.py:42 make_data, copied: 28 standard-normal
     f32 features and a label from a noisy logit of six of them."""
     rng = np.random.RandomState(seed)
     X = rng.randn(n, 28).astype(np.float32)
-    logit = (X[:, 0] * 1.2 - X[:, 1] + 0.6 * X[:, 2] * X[:, 3]
-             + 0.4 * X[:, 4] + 0.3 * np.sin(3.0 * X[:, 5]))
-    y = (logit + rng.randn(n).astype(np.float32) > 0).astype(np.float64)
+    y = (headline_logit(X) + rng.randn(n).astype(np.float32) > 0) \
+        .astype(np.float64)
     return X, y
 
 
@@ -851,7 +896,11 @@ def phase_hist_kernel(binned, dev, rng) -> list:
     precisions apart."""
     N = binned.shape[1]
     out = []
-    for L in (2, 5, 17, 64):
+    # the headline wave's slot counts, then the sequential grower's one
+    # slot and the level-wise grower's 65 (parents + the dead slot) and
+    # 128 (a whole level), and 256: more than one slot group (64 slots a
+    # block at bf16x2, 128 at bf16 and f32)
+    for L in (2, 5, 17, 64, 1, 65, 128, 256):
         lid = torch.from_numpy(rng.randint(0, L, N).astype(np.int32)).to(dev)
         out.append(check_k1(f"N={N} L={L} signed rows", binned,
                             signed_rows(rng, N, dev), lid, L))
@@ -973,16 +1022,16 @@ def text_hash(text: str, tag: str) -> dict:
 def serve_trained(booster, Xv, dev, name) -> float:
     """The trained model's text, loaded by ``Booster(model_file=...)``,
     serves the valid rows through K4 within the serving tolerance of the
-    trainer's own valid scores; returns the largest difference."""
+    trainer's own (N, K) valid scores; returns the largest difference."""
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
     path = os.path.join(_build.BUILD_DIR, name)
     booster.save_model(path)
     served = Booster(model_file=path, **_on(dev))
     check(served.num_trees() == booster.num_trees(), "saved model lost trees")
     raw = served.predict(Xv, predict_method="fused", raw_score=True)
-    want = booster._gbdt._valid_scores[0].score[:, 0].cpu().numpy()
+    want = booster._gbdt._valid_scores[0].score.cpu().numpy()
     tol = raw_tol(served._all_trees())
-    e = float(np.abs(raw - want).max())
+    e = float(np.abs(raw.reshape(want.shape) - want).max())
     log(f"  saved model served through K4: max_abs_err vs the trainer's "
         f"valid scores {e:.3e} (tol {tol:.3e})")
     check(e <= tol, f"served model differs from the trainer by {e}")
@@ -1003,27 +1052,62 @@ def same_splits(seed, n, runs) -> dict:
     """Two 5-iteration f32 trainings of ``n`` rows (``runs``: two labels
     -> (params, device)) must split identically at every node."""
     X, y = make_data(n, seed + 7)
+    return split_parity(X, y, runs)
+
+
+@contextlib.contextmanager
+def roworder_plain():
+    """K1's plain version on the CPU in the kernel's own order
+    (``hist_leaves_roworder_ref``, which K1 equals bit for bit) instead
+    of the index_add_ one."""
+    saved = hc.hist_leaves_ref
+    hc.hist_leaves_ref = hc.hist_leaves_roworder_ref
+    try:
+        yield
+    finally:
+        hc.hist_leaves_ref = saved
+
+
+def split_parity(X, y, runs, iters=5, group=None, leaf_tol=None,
+                 roworder=False) -> dict:
+    """Two f32 trainings of the same rows (``runs``: two labels ->
+    (params, device)) must split identically at every node of every tree;
+    with ``leaf_tol`` every leaf value within ``leaf_tol`` of
+    max(1, |leaf|) of the other's; with ``roworder`` a CPU run sums its
+    histograms in K1's order (``roworder_plain``)."""
     saved = grower_wave._BUCKET_MIN_N
     grower_wave._BUCKET_MIN_N = 1
+    boosters = []
     try:
-        boosters = [train(p, Dataset(X, label=y), 5, device=d)
-                    for p, d in runs.values()]
+        for p, d in runs.values():
+            on_cpu = torch.device(d).type == "cpu"
+            with (roworder_plain() if roworder and on_cpu
+                  else contextlib.nullcontext()):
+                boosters.append(train(p, Dataset(X, label=y, group=group),
+                                      iters, device=d))
     finally:
         grower_wave._BUCKET_MIN_N = saved
-    nodes, leaf_err = 0, 0.0
-    for tg, tc in zip(boosters[0]._all_trees(), boosters[1]._all_trees()):
+    nodes, leaf_err, leaf_rel = 0, 0.0, 0.0
+    trees = list(zip(boosters[0]._all_trees(), boosters[1]._all_trees()))
+    for tg, tc in trees:
         n = tc.num_leaves - 1
         check(tg.num_leaves == tc.num_leaves, "parity: leaf counts differ")
         check(np.array_equal(tg.split_feature, tc.split_feature)
               and np.array_equal(tg.threshold_bin, tc.threshold_bin),
               "parity: split features / threshold bins differ")
         nodes += n
-        leaf_err = max(leaf_err, float(np.abs(tg.leaf_value
-                                              - tc.leaf_value).max()))
-    log(f"  f32 trees, {' vs '.join(runs)}: {nodes} nodes of 5 trees "
-        f"identical (features, threshold bins); max leaf-value diff "
-        f"{leaf_err:.3e}")
-    return {"nodes": nodes, "max_leaf_diff": leaf_err}
+        d = np.abs(tg.leaf_value - tc.leaf_value)
+        leaf_err = max(leaf_err, float(d.max()))
+        leaf_rel = max(leaf_rel, float((d / np.maximum(
+            1.0, np.abs(tc.leaf_value))).max()))
+    log(f"  f32 trees, {' vs '.join(runs)}: {nodes} nodes of {len(trees)} "
+        f"trees identical (features, threshold bins); max leaf-value diff "
+        f"{leaf_err:.3e} ({leaf_rel:.3e} of max(1, |leaf|))")
+    if leaf_tol is not None:
+        check(leaf_rel <= leaf_tol, f"parity: leaf values {leaf_rel:.3e} "
+              f"of max(1, |leaf|) apart, past {leaf_tol}")
+    return {"nodes": nodes, "trees": len(trees), "max_leaf_diff": leaf_err,
+            "max_leaf_diff_rel": leaf_rel}
 
 
 def phase_hist_timing(rec: HistRecorder, trained: dict, checks: list
@@ -1047,14 +1131,15 @@ def phase_hist_timing(rec: HistRecorder, trained: dict, checks: list
         acc = torch.zeros((Fn * L * B, 3), dtype=torch.float32,
                           device=binned.device)
         library_ms = time_ms(lambda: acc.index_add_(0, flat, vals), 5)
-        # the path's last slot is its dead one (hist_wave, live_slots =
-        # L - 1): the live rows are those of the other slots
-        live = int(((label >= 0) & (label < L - 1)).sum())
+        # the live rows: those of the slots below live_slots (a wave
+        # round's last slot is its dead one, hist_wave)
+        lim = L if live_slots is None else int(live_slots)
+        live = int(((label >= 0) & (label < lim)).sum())
         nbytes = Fn * N + N * 12 + N * 4 + L * Fn * B * 3 * 4
         ops = (2 if prec == "bf16x2" else 1) * 3 * live * Fn
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
-        b = {"slots": L - 1, "L": L, "precision": prec, "ms": ms,
+        b = {"slots": lim, "L": L, "N": N, "precision": prec, "ms": ms,
              "plain_ms": plain_ms, "library_ms": library_ms,
              "bound_ms": max(t_bytes, t_ops),
              "bound_by": "bytes" if t_bytes >= t_ops else "operations",
@@ -2095,6 +2180,188 @@ def phase_loop_timing(rec: LoopRecorder, drec: LoopRecorder, trained: dict,
     return row
 
 
+# ---------------------------------------------------------------------------
+# the sequential and level-wise growers; regression, multiclass, lambdarank
+# ---------------------------------------------------------------------------
+
+# phase 22: no objective (the default, regression) and 7 leaves, where the
+# auto wave size 1 routes to the sequential grower
+REG_PARAMS = {"num_leaves": 7, "max_bin": 63, "verbosity": -1}
+# phase 23: the root PERF.md level-wise row (bench.py:2488-2497)
+LEVEL_PARAMS = dict(TRAIN_PARAMS, tree_growth="levelwise", metric="auc")
+# phases 24 and 25: the bench parity configs (bench.py:2854-2861,
+# :2906-2913)
+MC_PARAMS = {"objective": "multiclass", "num_class": 5, "num_leaves": 127,
+             "max_bin": 63, "learning_rate": 0.1, "min_data_in_leaf": 20,
+             "metric": "multi_logloss", "verbosity": -1}
+RANK_PARAMS = {"objective": "lambdarank", "num_leaves": 63, "max_bin": 63,
+               "learning_rate": 0.1, "min_data_in_leaf": 20,
+               "metric": "ndcg", "eval_at": [10], "verbosity": -1}
+# quality figures to print beside the port's, never times: the JAX
+# package's (root PERF.md, BENCH_r05.json) and the reference C++'s
+# (bench.py REF_MC_LOGLOSS, REF_RK_NDCG10) on the same generators
+JAX_LEVEL_AUC = 0.91267          # 100 iterations, 1,000,000 rows
+JAX_MC_LOGLOSS, REF_MC_LOGLOSS = 0.85144, 0.830193
+JAX_RANK_NDCG10, REF_RANK_NDCG10 = 0.61497, 0.613977
+# the card-against-CPU checks: f32 leaves within this share of
+# max(1, |leaf|) (the f32 sums of the two devices run in other orders,
+# and a larger child is its parent minus the smaller: phase 11 reads
+# 3.9e-4 on the binary path)
+PARITY_LEAF_TOL = 2e-3
+PARITY_ROWS = 65536
+
+
+def regression_target(X, seed):
+    """make_data's logit of the rows plus unit noise: a continuous
+    target for the headline rows."""
+    rng = np.random.RandomState(seed)
+    return (headline_logit(X) + rng.randn(len(X)).astype(np.float32)) \
+        .astype(np.float64)
+
+
+def make_multiclass_data(n, seed, n_class=5, f=28):
+    """The JAX package's bench.py:51 make_multiclass_data, copied: linear
+    class logits from fixed centres, two nonlinear terms, noise, argmax."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, f).astype(np.float32)
+    centers = np.random.RandomState(12345).randn(n_class, f) \
+        .astype(np.float32) * 0.6
+    logits = X @ centers.T
+    logits[:, 0] += 0.8 * X[:, 0] * X[:, 1]
+    logits[:, 1] += 0.6 * np.sin(2.0 * X[:, 2])
+    logits += rng.randn(n, n_class).astype(np.float32) * 1.5
+    return X, logits.argmax(axis=1).astype(np.float64)
+
+
+def make_rank_data(n_query, docs, seed, f=64):
+    """The JAX package's bench.py:68 make_rank_data, copied: fixed-size
+    queries, relevance 0..4 by within-query score quantiles."""
+    rng = np.random.RandomState(seed)
+    n = n_query * docs
+    X = rng.randn(n, f).astype(np.float32)
+    score = (X[:, 0] + 0.6 * X[:, 1] * X[:, 2] - 0.4 * X[:, 3]
+             + 0.3 * np.sin(2.0 * X[:, 4])
+             + rng.randn(n).astype(np.float32) * 1.2)
+    s = score.reshape(n_query, docs)
+    ranks = s.argsort(axis=1).argsort(axis=1) / (docs - 1)
+    y = np.digitize(ranks.reshape(-1), [0.5, 0.75, 0.9, 0.97]) \
+        .astype(np.float64)
+    return X, y, np.full(n_query, docs, dtype=np.int64)
+
+
+def phase_path(tag, params, ds, dv, Xv, iters, dev, metric):
+    """A training path, counts reset before and read after: ``train``
+    for ``iters`` iterations with the valid set, then its saved model
+    served through K4.  K1 launched (its launches by slot count and
+    precision add up), no plain histogram, K4 launched; s/iteration,
+    s/tree, M row-trees/s, K1 launches a tree, the last valid ``metric``
+    and the model text's hash.  Returns its numbers, the K1 call record
+    and the booster."""
+    hc.reset_launch_counts()
+    pc.reset_launch_counts()
+    ev = {}
+    with HistRecorder() as rec:
+        t0 = time.perf_counter()
+        booster = train(params, ds, iters, valid_sets=[dv],
+                        evals_result=ev, **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    launches = hc.launch_counts["hist_leaves"]
+    buckets = {f"{L}:{prec}": v for (L, prec), v
+               in sorted(hc.bucket_launch_counts.items())}
+    plain = dict(hc.plain_counts)
+    n, trees = ds.num_data(), booster.num_trees()
+    value = ev["valid_0"][metric][-1]
+    out = {"seconds": secs, "iters": iters, "s_per_iter": secs / iters,
+           "s_per_tree": secs / trees,
+           "M_row_trees_per_s": n * trees / secs / 1e6, metric: value,
+           "trees": trees, "k1_launches": launches,
+           "k1_launches_per_tree": launches / trees,
+           "k1_launches_by_bucket": buckets}
+    log(f"  {tag}: {iters} iterations, {trees} trees of {n} rows in "
+        f"{secs:.2f} s: {out['s_per_iter']:.4f} s/iter, "
+        f"{out['s_per_tree']:.4f} s/tree, {out['M_row_trees_per_s']:.2f} M "
+        f"row-trees/s; valid {metric} {value:.5f}")
+    log(f"  K1 launches: {launches} ({out['k1_launches_per_tree']:.2f} a "
+        f"tree; {json.dumps(buckets)}); plain-version calls: {plain}")
+    check(launches > 0, f"K1 never launched on the {tag} path")
+    check(sum(buckets.values()) == launches,
+          "K1's launches by bucket do not add up to its launches")
+    check(set(rec.last) == set(hc.bucket_launch_counts),
+          f"K1 was called at {sorted(rec.last)} but launched at "
+          f"{sorted(hc.bucket_launch_counts)}")
+    check(not any(plain.values()),
+          f"a plain histogram ran on the {tag} path")
+    check(trees == iters * booster.num_model_per_iteration(),
+          f"{trees} trees for {iters} iterations")
+    out.update(text_hash(booster.model_to_string(), tag))
+    out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
+                                              f"{tag}_model.txt")
+    out["k4_launches"] = pc.launch_counts["serving_fused"]
+    check(out["k4_launches"] > 0, f"K4 never launched serving the {tag} "
+          "model")
+    return out, rec, booster
+
+
+def phase_path_kernels(tag, rec, trained, checks):
+    """K1 against its plain versions on the path's own last inputs at each
+    (slots, precision), then timed there (phase 12's row, its buckets)."""
+    checks = checks + phase_hist_main_inputs(rec)
+    row = phase_hist_timing(rec, trained, checks)
+    return {"path": tag, "buckets": row["buckets"],
+            "max_abs_err": row["max_abs_err"],
+            "max_err_over_abs_sum": row["max_err_over_abs_sum"]}
+
+
+def phase_trained_k4(booster, Xv, dev, rng, tag) -> dict:
+    """The trained model served on the card: K4 against its plain version
+    (phase 4's checks, at the model's own width and classes), and the
+    served raw and converted scores against the port's CPU predict (the
+    float64 host walk) within the serving tolerance (softmax and sigmoid
+    outputs within 1e-6)."""
+    text = booster.model_to_string()
+    card = Booster(model_str=text, **_on(dev))
+    cpu = Booster(model_str=text, device="cpu")
+    trees, K = card._all_trees(), card.num_model_per_iteration()
+    errs = phase_kernels({tag: (text, trees, K, {})}, dev, 1 << 17, rng,
+                         n_features=card.num_feature())
+    raw = card.predict(Xv, predict_method="fused", raw_score=True)
+    e_raw = float(np.abs(raw - cpu.predict(Xv, raw_score=True)).max())
+    e_out = float(np.abs(card.predict(Xv, predict_method="fused")
+                         - cpu.predict(Xv)).max())
+    tol = raw_tol(trees)
+    # an output the objective maps into [0, 1] is held to 1e-6; the
+    # identity outputs (regression, lambdarank) are the raw scores
+    out_tol = (tol if card.config.objective in ("regression", "lambdarank")
+               else 1e-6)
+    log(f"  {tag} served through K4 against the CPU host walk: raw "
+        f"{e_raw:.3e} (tol {tol:.3e}), converted {e_out:.3e} (tol "
+        f"{out_tol:.3e})")
+    check(e_raw <= tol and e_out <= out_tol,
+          f"{tag}: K4 against the CPU predict {e_raw}, {e_out}")
+    return {"k4_max_abs_err": errs["serving_fused"], "vs_cpu_raw": e_raw,
+            "vs_cpu_converted": e_out}
+
+
+def card_vs_cpu(tag, params, X, y, dev, iters=5, group=None) -> dict:
+    """The path in f32 on the card and on the CPU (the plain versions, K1's
+    in the kernel's order): every split identical, leaves within
+    PARITY_LEAF_TOL.  The CPU sums its histograms in K1's order because
+    the split picks of these paths follow the order of the f32 sums: the
+    first iteration's hessians are one constant a class (a softmax of
+    equal scores), whose f32 sums drift with their order by up to 1e-5
+    of the sum, and a small child's histogram is its parent's minus its
+    sibling's, so that drift reaches 1e-3 of a deep leaf's gains; trained
+    on the CPU with the index_add_ version and with the row-order one,
+    9 of 10 multiclass trees at this shape split differently."""
+    p = dict(params, hist_dtype="f32", hist_method="pallas")
+    log(f"  {tag}, card against CPU (K1's order): {len(X)} rows, {iters} "
+        "iterations")
+    return split_parity(X, y, {"card": (p, dev), "CPU": (p, "cpu")},
+                        iters=iters, group=group, leaf_tol=PARITY_LEAF_TOL,
+                        roworder=True)
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2110,6 +2377,10 @@ def main(argv=None) -> int:
     ap.add_argument("--requests", type=int, default=500)
     ap.add_argument("--train-rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=50)
+    ap.add_argument("--reg-iters", type=int, default=20)
+    ap.add_argument("--level-iters", type=int, default=100)
+    ap.add_argument("--mc-iters", type=int, default=50)
+    ap.add_argument("--rank-iters", type=int, default=100)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this runs "
@@ -2249,6 +2520,96 @@ def main(argv=None) -> int:
     k6_row["plan"] = plan
     del lrec, drec
     lprof = phase_profile(ds, 5, dev, LOOP_PARAMS)
+
+    paths, path_k1 = {}, []
+    log("== phase 22: regression, the sequential grower (main path; launch "
+        "counts reset)")
+    t0 = time.perf_counter()
+    y_reg, yv_reg = (regression_target(X, args.seed + 2),
+                     regression_target(Xv, args.seed + 3))
+    dreg = Dataset(X, label=y_reg, reference=ds)
+    dvreg = Dataset(Xv, label=yv_reg, reference=dreg)
+    dreg.construct()
+    dvreg.construct()
+    log(f"  continuous targets, rows binned on phase 8's bins in "
+        f"{time.perf_counter() - t0:.1f} s")
+    reg, rec, _ = phase_path("regression", REG_PARAMS, dreg, dvreg, Xv,
+                             args.reg_iters, dev, "l2")
+    check(all(L == 1 for L, _ in rec.last),
+          f"the sequential grower called K1 at {sorted(rec.last)}")
+    path_k1.append(phase_path_kernels("sequential", rec, reg, []))
+    reg["profile"] = phase_profile(dreg, 5, dev, REG_PARAMS)
+    reg["parity"] = card_vs_cpu("sequential", REG_PARAMS, X[:PARITY_ROWS],
+                                y_reg[:PARITY_ROWS], dev)
+    paths["regression"] = reg
+    del rec, dreg, dvreg
+
+    log("== phase 23: level-wise at the headline (main path; launch counts "
+        "reset)")
+    lvl, rec, _ = phase_path("levelwise", LEVEL_PARAMS, ds, dv, Xv,
+                             args.level_iters, dev, "auc")
+    log(f"  valid AUC {lvl['auc']:.5f} after {args.level_iters} iterations;"
+        f" the JAX package's level-wise AUC {JAX_LEVEL_AUC} (root PERF.md,"
+        f" 100 iterations of 1,000,000 rows; a quality figure)")
+    check(lvl["auc"] > 0.90, f"level-wise valid AUC {lvl['auc']} <= 0.90")
+    path_k1.append(phase_path_kernels("level-wise", rec, lvl, []))
+    lvl["profile"] = phase_profile(ds, 5, dev, LEVEL_PARAMS)
+    lvl["parity"] = card_vs_cpu("level-wise", LEVEL_PARAMS, X[:PARITY_ROWS],
+                                y[:PARITY_ROWS], dev)
+    paths["levelwise"] = lvl
+    del rec, X, Xv
+
+    log("== phase 24: multiclass at the bench parity config (main path; "
+        "launch counts reset)")
+    t0 = time.perf_counter()
+    Xm, ym = make_multiclass_data(250_000, 10)
+    Xmv, ymv = make_multiclass_data(50_000, 11)
+    dm = Dataset(Xm, label=ym, params=MC_PARAMS)
+    dmv = Dataset(Xmv, label=ymv, reference=dm)
+    dm.construct()
+    dmv.construct()
+    log(f"  250,000 + 50,000 rows x 28, 5 classes, made and binned in "
+        f"{time.perf_counter() - t0:.1f} s")
+    mc, rec, booster_mc = phase_path("multiclass", MC_PARAMS, dm, dmv, Xmv,
+                                     args.mc_iters, dev, "multi_logloss")
+    log(f"  multi_logloss {mc['multi_logloss']:.5f} after {args.mc_iters} "
+        f"iterations; the JAX package's {JAX_MC_LOGLOSS}, the reference "
+        f"C++'s {REF_MC_LOGLOSS} (root PERF.md parity set, 50 iterations; "
+        "quality figures)")
+    mc["served"] = phase_trained_k4(booster_mc, Xmv, dev, rng, "multiclass")
+    path_k1.append(phase_path_kernels("multiclass", rec, mc, []))
+    mc["profile"] = phase_profile(dm, 5, dev, MC_PARAMS)
+    mc["parity"] = card_vs_cpu("multiclass", MC_PARAMS, Xm[:PARITY_ROWS],
+                               ym[:PARITY_ROWS], dev, iters=2)
+    paths["multiclass"] = mc
+    del rec, booster_mc, dm, dmv, Xm, Xmv
+
+    log("== phase 25: lambdarank at the bench parity config (main path; "
+        "launch counts reset)")
+    t0 = time.perf_counter()
+    Xr, yr, gr = make_rank_data(2000, 100, 20)
+    Xrv, yrv, grv = make_rank_data(400, 100, 21)
+    dr = Dataset(Xr, label=yr, group=gr, params=RANK_PARAMS)
+    drv = Dataset(Xrv, label=yrv, group=grv, reference=dr)
+    dr.construct()
+    drv.construct()
+    log(f"  2,000 + 400 queries x 100 documents x 64 features made and "
+        f"binned in {time.perf_counter() - t0:.1f} s")
+    rk, rec, booster_rk = phase_path("lambdarank", RANK_PARAMS, dr, drv,
+                                     Xrv, args.rank_iters, dev, "ndcg@10")
+    log(f"  ndcg@10 {rk['ndcg@10']:.5f} after {args.rank_iters} iterations;"
+        f" the JAX package's {JAX_RANK_NDCG10}, the reference C++'s "
+        f"{REF_RANK_NDCG10} (root PERF.md parity set, 100 iterations; "
+        "quality figures)")
+    rk["served"] = phase_trained_k4(booster_rk, Xrv, dev, rng, "lambdarank")
+    path_k1.append(phase_path_kernels("lambdarank", rec, rk, []))
+    rk["profile"] = phase_profile(dr, 5, dev, RANK_PARAMS)
+    rk["parity"] = card_vs_cpu("lambdarank", RANK_PARAMS, Xr[:40000],
+                               yr[:40000], dev, group=gr[:400])
+    paths["lambdarank"] = rk
+    del rec, booster_rk, dr, drv
+    k1_row["paths"] = path_k1
+
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -2261,6 +2622,7 @@ def main(argv=None) -> int:
                     "train_profile": prof, "fused_train": fused,
                     "fused_parity": fparity, "fused_profile": fprof,
                     "loop_train": looped, "loop_profile": lprof,
+                    "paths": paths,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [k1_row] + fused_rows + [k6_row] + rows}),
           flush=True)

@@ -2,8 +2,9 @@
 
 Port of lightgbmv1_tpu/basic.py for the ported paths:
 
-* ``Dataset`` (:107, ``construct`` :250): lazy binning of a dense numeric
-  matrix, a valid set sharing its reference's bins;
+* ``Dataset`` (:107, ``construct`` :250, ``set_group`` :346): lazy
+  binning of a dense numeric matrix with its query groups, a valid set
+  sharing its reference's bins and taking its own groups;
 * ``Booster(params, train_set=...)`` (:430) over the GBDT core
   (models/gbdt.py) with ``update`` (:541), ``eval_valid``,
   ``model_to_string`` (:947, through io/model_text.model_to_string) and
@@ -54,16 +55,28 @@ def _to_2d_numpy(data) -> np.ndarray:
 
 
 def _objective_string(config: Config) -> str:
-    """The model file's objective line (binary: 'binary sigmoid:1')."""
-    return f"binary sigmoid:{config.sigmoid:g}"
+    """The model file's objective line, for the objectives the port
+    trains (JAX basic.py:85-104; reference gbdt.cpp ObjectiveName and each
+    objective's ToString): 'binary sigmoid:1', 'multiclass num_class:5',
+    'multiclassova num_class:5 sigmoid:1', 'lambdarank', 'regression'."""
+    obj = config.objective
+    if obj == "binary":
+        return f"binary sigmoid:{config.sigmoid:g}"
+    if obj in ("multiclass", "multiclassova"):
+        extra = (f" sigmoid:{config.sigmoid:g}" if obj == "multiclassova"
+                 else "")
+        return f"{obj} num_class:{config.num_class}{extra}"
+    return obj
 
 
 class Dataset:
     """Training or valid data with lazy binning (reference basic.py:909).
-    ``data`` is a dense numeric (rows, features) array."""
+    ``data`` is a dense numeric (rows, features) array; ``group`` the
+    query sizes of a ranking set, in row order."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
-                 weight=None, init_score=None, feature_name="auto",
+                 weight=None, group=None, init_score=None,
+                 feature_name="auto",
                  categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = False):
@@ -85,6 +98,17 @@ class Dataset:
                        else np.asarray(weight, dtype=np.float64).ravel())
         self.init_score = (None if init_score is None
                            else np.asarray(init_score, dtype=np.float64))
+        self.group = (None if group is None
+                      else np.asarray(group, dtype=np.int64).ravel())
+
+    def set_group(self, group) -> "Dataset":
+        """The query sizes of a ranking set (reference basic.py
+        set_group); a constructed set takes them too."""
+        self.group = (None if group is None
+                      else np.asarray(group, dtype=np.int64).ravel())
+        if self._binned is not None:
+            self._binned.metadata.set_group(self.group)
+        return self
 
     def construct(self) -> "Dataset":
         if self._binned is not None:
@@ -97,7 +121,8 @@ class Dataset:
                  if isinstance(self.feature_name, (list, tuple)) else None)
         self._binned = BinnedDataset.from_numpy(
             self.data, label=self.label, weight=self.weight,
-            init_score=self.init_score, config=Config.from_dict(self.params),
+            init_score=self.init_score, group=self.group,
+            config=Config.from_dict(self.params),
             feature_names=names, reference=ref)
         if self.free_raw_data:
             self.data = None

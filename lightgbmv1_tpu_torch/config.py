@@ -1,9 +1,10 @@
-"""Configuration of the ported paths (serving and binary training).
+"""Configuration of the ported paths (serving and training).
 
 Port of the part of lightgbmv1_tpu/config.py that these paths read: the
-objective fields a loaded model sets, the training knobs of the binary
-leaf-wise path with the reference's aliases (``eta``, ``num_iterations``,
-...) and the ``predict_*`` and ``serve_*`` knobs, with the JAX package's
+objective fields a loaded model sets, the training knobs of the ported
+objectives and growers with the reference's aliases (``eta``,
+``num_iterations``, ...), ``label_gain_or_default`` (:963) and the
+``predict_*`` and ``serve_*`` knobs, with the JAX package's
 names, defaults and validation (``config.py:27-184``, ``:221-366``,
 ``:477-545``, ``:779-949``).  Unknown keys warn, as there.
 
@@ -11,7 +12,8 @@ Every knob of the JAX ``Config`` is a field here.  Those the port does
 not yet run are known only to refuse them: ``unported_reason`` names the
 ROADMAP item of every one a config sets away from its default (``_UNPORTED``
 and ``_REFUSED``), and the trainer raises ``NotImplementedError`` with it
-instead of training something else.  ``gpu_use_dp`` is mapped as there;
+instead of training something else (an objective the port does not train
+is refused by ``objectives.create_objective``).  ``gpu_use_dp`` is mapped as there;
 a few knobs change no model in the JAX package either and are accepted.
 """
 
@@ -501,16 +503,22 @@ class Config:
             return self.num_class
         return 1
 
+    @property
+    def label_gain_or_default(self) -> List[float]:
+        """lambdarank's and ndcg's gain of each label: ``label_gain``, or
+        2^i - 1 for the labels 0..30 (JAX config.py:963)."""
+        if self.label_gain:
+            return list(self.label_gain)
+        return [float((1 << i) - 1) for i in range(31)]
+
 
 # ROADMAP queue 1 items that port what the training slice refuses
-GROWERS = "sequential and level-wise growers"
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 PACKED4 = "packed4 bins"
 INT8 = "int8 and int8sr histograms"
 HIST_METHODS = "histogram methods onehot and bench"
 BREADTH = "breadth of objectives and boosting"
-OBJECTIVES = "regression, multiclass and lambdarank objectives"
 NATIVE = "native C++ bulk predictor"
 TREESHAP = "TreeSHAP and prediction early stopping"
 CLI = "CLI"
@@ -526,14 +534,10 @@ PARALLEL = "parallel learners"
 
 # knob -> (is it set away from its default?, what it is, ROADMAP item)
 _UNPORTED = (
-    ("objective", lambda c: c.objective != "binary", "objective={v}",
-     BREADTH),
     ("boosting", lambda c: c.boosting != "gbdt",
      "boosting={v} (GOSS, DART, RF)", BREADTH),
     ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
      "tree_learner={v}", PARALLEL),
-    ("tree_growth", lambda c: c.tree_growth != "leafwise",
-     "tree_growth={v}", GROWERS),
     ("bagging_freq", lambda c: (c.bagging_freq > 0 and (
         c.bagging_fraction < 1.0 or c.pos_bagging_fraction < 1.0
         or c.neg_bagging_fraction < 1.0)), "bagging", SAMPLING),
@@ -572,13 +576,11 @@ _UNPORTED = (
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (OBJECTIVES, ("reg_sqrt", "alpha", "fair_c", "poisson_max_delta_step",
-                  "tweedie_variance_power", "lambdarank_truncation_level",
-                  "lambdarank_norm", "label_gain", "objective_seed",
-                  "eval_at", "multi_error_top_k", "auc_mu_weights")),
     (SAMPLING, ("bagging_seed", "feature_fraction_seed", "extra_seed")),
     (CALLBACKS, ("first_metric_only",)),
-    (BREADTH, ("drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
+    (BREADTH, ("alpha", "fair_c", "poisson_max_delta_step",
+               "tweedie_variance_power", "objective_seed", "auc_mu_weights",
+               "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
                "uniform_drop", "drop_seed", "top_rate", "other_rate",
                "min_data_per_group", "max_cat_threshold", "cat_l2",
                "cat_smooth", "max_cat_to_onehot",
@@ -587,7 +589,6 @@ _REFUSED = (
                "cegb_penalty_feature_coupled", "forcedbins_filename",
                "max_bin_by_feature", "saved_feature_importance_type",
                "snapshot_freq", "finite_guard")),
-    (GROWERS, ("histogram_pool_size",)),
     (HIST_METHODS, ("force_col_wise", "force_row_wise")),
     (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
                 "pred_early_stop_margin")),

@@ -1,10 +1,11 @@
 """Binned dataset: the training representation (host numpy).
 
-Port of lightgbmv1_tpu/io/dataset.py ``Metadata`` (:46) and
-``BinnedDataset`` (``from_numpy`` :159, ``train_matrix`` :104,
-``_build_feature_meta`` :137) for dense numerical features: a bin-mapper
-per feature found on a seeded row sample, the (F, N) uint8 bin matrix and
-the per-feature bin metadata the split scan reads.  The trainer moves the
+Port of lightgbmv1_tpu/io/dataset.py ``Metadata`` (:46, with the query
+groups of ``set_group`` :60) and ``BinnedDataset`` (``from_numpy`` :159,
+``train_matrix`` :104, ``_build_feature_meta`` :137) for dense numerical
+features: a bin-mapper per feature found on a seeded row sample, the
+(F, N) uint8 bin matrix and the per-feature bin metadata the split scan
+reads.  The trainer moves the
 matrix to the device.  Categorical features, more than 256 bins a feature
 and bundled (EFB) columns are not ported yet and raise.
 """
@@ -16,7 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..config import BREADTH, Config, not_ported
+from ..config import BREADTH, HIST_METHODS, Config, not_ported
 from ..utils.log import log_info
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 
@@ -27,12 +28,22 @@ def _next_pow2(x: int) -> int:
 
 @dataclass
 class Metadata:
-    """Labels, weights and init scores (reference Metadata,
+    """Labels, weights, query groups and init scores (reference Metadata,
     dataset.h:40-248)."""
 
     label: Optional[np.ndarray] = None
     weight: Optional[np.ndarray] = None
+    group: Optional[np.ndarray] = None              # per-query sizes
+    query_boundaries: Optional[np.ndarray] = None   # cumulative, Q + 1
     init_score: Optional[np.ndarray] = None
+
+    def set_group(self, group: Optional[np.ndarray]) -> None:
+        if group is None:
+            self.group = self.query_boundaries = None
+            return
+        self.group = np.asarray(group, dtype=np.int64).ravel()
+        self.query_boundaries = np.concatenate([[0],
+                                                np.cumsum(self.group)])
 
 
 class BinnedDataset:
@@ -83,13 +94,15 @@ class BinnedDataset:
     def from_numpy(cls, X: np.ndarray, label: Optional[np.ndarray] = None,
                    weight: Optional[np.ndarray] = None,
                    init_score: Optional[np.ndarray] = None,
+                   group: Optional[np.ndarray] = None,
                    config: Optional[Config] = None,
                    feature_names: Optional[List[str]] = None,
                    reference: Optional["BinnedDataset"] = None
                    ) -> "BinnedDataset":
         """Bin a dense (rows, features) float matrix.  ``reference``
         reuses another dataset's bin mappers (a valid set shares the
-        training bins)."""
+        training bins); ``group`` holds the query sizes of a ranking
+        set, in row order."""
         config = config or Config()
         X = np.asarray(X)
         if X.ndim != 2:
@@ -128,8 +141,9 @@ class BinnedDataset:
                 for j in range(num_features)]
         max_nb = max(m.num_bin for m in mappers) if mappers else 2
         if max_nb > 256:
-            raise not_ported(f"{max_nb} bins a feature (int16 bins)",
-                             BREADTH)
+            raise not_ported(f"{max_nb} bins a feature (int16 bins, which "
+                             "the JAX package trains through onehot)",
+                             HIST_METHODS)
         binned = np.empty((num_features, num_data), dtype=np.uint8)
         for j, m in enumerate(mappers):
             binned[j] = m.value_to_bin(X[:, j]).astype(np.uint8)
@@ -143,6 +157,11 @@ class BinnedDataset:
             meta.weight = np.asarray(weight, dtype=np.float32).ravel()
         if init_score is not None:
             meta.init_score = np.asarray(init_score, dtype=np.float64)
+        meta.set_group(group)
+        if group is not None and meta.query_boundaries[-1] != num_data:
+            raise ValueError(f"query sizes sum to "
+                             f"{int(meta.query_boundaries[-1])}, not the "
+                             f"{num_data} rows")
         ds = cls(binned, mappers, meta, feature_names,
                  max_bin=config.max_bin)
         log_info(f"Constructed binned dataset: {num_data} rows, "

@@ -1,22 +1,28 @@
-"""Evaluation metrics of the binary path (host numpy float64).
+"""Evaluation metrics of the ported objectives (host numpy float64).
 
-Port of lightgbmv1_tpu/metrics.py ``BinaryLoglossMetric`` (:159),
-``BinaryErrorMetric`` (:167), ``AUCMetric`` (:174) and ``create_metrics``
-(:415) for those three: the same formulas on the same float64 inputs
-(reference binary_metric.hpp; AUC exact under ties by the grouped-rank
-formulation).  A metric the JAX package has and the port does not yet
-raises ``NotImplementedError`` with its ROADMAP item; a name the JAX
-package does not know is skipped with a warning, as there (:431).
+Port of lightgbmv1_tpu/metrics.py ``L2Metric`` (:66), ``RMSEMetric``
+(:73), ``BinaryLoglossMetric`` (:159), ``BinaryErrorMetric`` (:167),
+``AUCMetric`` (:174), ``MultiLoglossMetric`` (:263), ``MultiErrorMetric``
+(:272), ``NDCGMetric`` (:294) and ``MapMetric`` (:327) with ``eval_at``,
+and ``create_metrics`` (:415) with each ported objective's default
+metric: the same formulas on the same float64 inputs (reference
+regression_metric.hpp, binary_metric.hpp, multiclass_metric.hpp,
+rank_metric.hpp, map_metric.hpp; AUC exact under ties by the
+grouped-rank formulation).  A metric the JAX package has and the port
+does not yet raises ``NotImplementedError`` with its ROADMAP item; a name
+the JAX package does not know is skipped with a warning, as there (:431).
 """
 
 from __future__ import annotations
 
 from typing import List
 
+import math
+
 import numpy as np
 
-from .config import BREADTH, OBJECTIVES, Config, not_ported
-from .utils.log import log_warning
+from .config import BREADTH, Config, not_ported
+from .utils.log import log_fatal, log_warning
 
 
 class Metric:
@@ -32,6 +38,7 @@ class Metric:
                        if metadata.weight is not None else None)
         self.sum_weight = (float(self.weight.sum())
                            if self.weight is not None else float(num_data))
+        self.metadata = metadata
         self.num_data = num_data
 
     def eval(self, pred: np.ndarray) -> List[tuple]:
@@ -41,6 +48,21 @@ class Metric:
         if self.weight is not None:
             return float((losses * self.weight).sum() / self.sum_weight)
         return float(losses.mean())
+
+
+class L2Metric(Metric):
+    name = "l2"
+
+    def eval(self, pred):
+        return [(self.name, self._avg((self.label - pred) ** 2), False)]
+
+
+class RMSEMetric(Metric):
+    name = "rmse"
+
+    def eval(self, pred):
+        return [(self.name, math.sqrt(self._avg((self.label - pred) ** 2)),
+                 False)]
 
 
 class BinaryLoglossMetric(Metric):
@@ -90,29 +112,118 @@ class AUCMetric(Metric):
         return [(self.name, auc, True)]
 
 
+class MultiLoglossMetric(Metric):
+    name = "multi_logloss"
+
+    def eval(self, pred):                        # (N, K) probabilities
+        lbl = self.label.astype(np.int64)
+        p = np.clip(pred[np.arange(len(lbl)), lbl], 1e-15, None)
+        return [(self.name, self._avg(-np.log(p)), False)]
+
+
+class MultiErrorMetric(Metric):
+    name = "multi_error"
+
+    def eval(self, pred):
+        lbl = self.label.astype(np.int64)
+        k = self.config.multi_error_top_k
+        if k <= 1:
+            err = (pred.argmax(axis=1) != lbl).astype(np.float64)
+        else:
+            topk = np.argsort(-pred, axis=1)[:, :k]
+            err = (~(topk == lbl[:, None]).any(axis=1)).astype(np.float64)
+        return [(self.name, self._avg(err), False)]
+
+
+class NDCGMetric(Metric):
+    """ndcg@k for each k of ``eval_at``, averaged over the queries; a
+    query without a relevant document scores 1."""
+
+    name = "ndcg"
+    higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log_fatal("[ndcg]: query data (group) is required")
+        self.qb = np.asarray(metadata.query_boundaries, dtype=np.int64)
+        self.gains = np.asarray(self.config.label_gain_or_default,
+                                dtype=np.float64)
+
+    def eval(self, pred):
+        ks = self.config.eval_at
+        results = {k: [] for k in ks}
+        lbl = self.label.astype(np.int64)
+        for b, e in zip(self.qb[:-1], self.qb[1:]):
+            labels = lbl[b:e]
+            order = np.argsort(-pred[b:e], kind="mergesort")
+            g_sorted = self.gains[labels[order]]
+            ideal = np.sort(self.gains[labels])[::-1]
+            disc = 1.0 / np.log2(np.arange(2, len(g_sorted) + 2))
+            for k in ks:
+                kk = min(k, len(g_sorted))
+                idcg = float((ideal[:kk] * disc[:kk]).sum())
+                results[k].append(
+                    1.0 if idcg <= 0 else
+                    float((g_sorted[:kk] * disc[:kk]).sum()) / idcg)
+        return [(f"ndcg@{k}", float(np.mean(results[k])), True) for k in ks]
+
+
+class MapMetric(Metric):
+    """map@k (mean average precision) for each k of ``eval_at``."""
+
+    name = "map"
+    higher_better = True
+
+    def init(self, metadata, num_data):
+        super().init(metadata, num_data)
+        if metadata.query_boundaries is None:
+            log_fatal("[map]: query data (group) is required")
+        self.qb = np.asarray(metadata.query_boundaries, dtype=np.int64)
+
+    def eval(self, pred):
+        ks = self.config.eval_at
+        results = {k: [] for k in ks}
+        for b, e in zip(self.qb[:-1], self.qb[1:]):
+            order = np.argsort(-pred[b:e], kind="mergesort")
+            rel = (self.label[b:e][order] > 0).astype(np.float64)
+            prec = np.cumsum(rel) / np.arange(1, len(rel) + 1)
+            for k in ks:
+                kk = min(k, len(rel))
+                nrel = rel[:kk].sum()
+                results[k].append(float((prec[:kk] * rel[:kk]).sum() / nrel)
+                                  if nrel > 0 else 0.0)
+        return [(f"map@{k}", float(np.mean(results[k])), True) for k in ks]
+
+
 _METRICS = {
+    **dict.fromkeys(("l2", "mse", "mean_squared_error", "regression"),
+                    L2Metric),
+    **dict.fromkeys(("rmse", "l2_root", "root_mean_squared_error"),
+                    RMSEMetric),
     "binary_logloss": BinaryLoglossMetric,
     "binary": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
     "auc": AUCMetric,
+    **dict.fromkeys(("multi_logloss", "multiclass", "softmax",
+                     "multiclassova"), MultiLoglossMetric),
+    "multi_error": MultiErrorMetric,
+    **dict.fromkeys(("ndcg", "lambdarank", "rank_xendcg"), NDCGMetric),
+    **dict.fromkeys(("map", "mean_average_precision"), MapMetric),
 }
 
 # the JAX package's other metric names (its metrics.py:353-389), by the
 # ROADMAP queue 1 item that ports them
-_UNPORTED_METRICS = {
-    **dict.fromkeys(
-        ("l2", "mse", "mean_squared_error", "regression", "rmse", "l2_root",
-         "root_mean_squared_error", "multi_logloss", "multiclass", "softmax",
-         "multiclassova", "multi_error", "ndcg", "lambdarank", "rank_xendcg",
-         "map", "mean_average_precision"), OBJECTIVES),
-    **dict.fromkeys(
-        ("l1", "mae", "mean_absolute_error", "regression_l1", "quantile",
-         "huber", "fair", "poisson", "mape", "mean_absolute_percentage_error",
-         "gamma", "gamma_deviance", "tweedie", "auc_mu", "cross_entropy",
-         "xentropy"), BREADTH),
-}
+_UNPORTED_METRICS = dict.fromkeys(
+    ("l1", "mae", "mean_absolute_error", "regression_l1", "quantile",
+     "huber", "fair", "poisson", "mape", "mean_absolute_percentage_error",
+     "gamma", "gamma_deviance", "tweedie", "auc_mu", "cross_entropy",
+     "xentropy"), BREADTH)
 
-_DEFAULT_METRIC_FOR_OBJECTIVE = {"binary": "binary_logloss"}
+_DEFAULT_METRIC_FOR_OBJECTIVE = {
+    "regression": "l2", "binary": "binary_logloss",
+    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
+    "lambdarank": "ndcg"}
 
 
 def create_metrics(config: Config) -> List[Metric]:
@@ -126,9 +237,11 @@ def create_metrics(config: Config) -> List[Metric]:
         name = name.strip().lower()
         if name in ("", "none", "null", "na", "custom"):
             continue
-        base = name.split("@", 1)[0]
-        if base in ("ndcg", "map") or name in _UNPORTED_METRICS:
-            raise not_ported(f"metric={name}", _UNPORTED_METRICS[base])
+        if name.startswith(("ndcg@", "map@")):
+            name, at = name.split("@", 1)
+            config.eval_at = [int(x) for x in at.split(",")]
+        if name in _UNPORTED_METRICS:
+            raise not_ported(f"metric={name}", _UNPORTED_METRICS[name])
         if name not in _METRICS:
             log_warning(f"Unknown metric {name}")
             continue

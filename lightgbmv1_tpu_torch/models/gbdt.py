@@ -1,16 +1,20 @@
-"""The GBDT boosting loop (binary, eager PyTorch on the training device).
+"""The GBDT boosting loop (eager PyTorch on the training device).
 
 Port of the core of lightgbmv1_tpu/models/gbdt.py: ``_ScoreUpdater``
-(:60) and ``GBDT`` (:76) — ``__init__`` with boost-from-average, the
-per-iteration step ``_build_step`` (:356) run eagerly (gradients ->
-g3 rows -> one tree -> score updates), ``train_one_iter`` (:765),
-``add_valid`` (:633) and ``eval_valid`` (:1223) — plus the lazy host-tree
-materialization (:881) the model text is written from.
+(:60) and ``GBDT`` (:76) — ``__init__`` with each class's boost-from-
+average score, the per-iteration step ``_build_step`` (:356) run eagerly
+(gradients of the whole (N,) or (N, K) score -> per class g3 rows -> one
+tree -> score updates), ``train_one_iter`` (:765), ``add_valid`` (:633)
+and ``eval_valid`` (:1223), on the (N, K) scores the objective converts
+(softmax for multiclass) — plus the lazy host-tree materialization
+(:881) the model text is written from.
 
 The JAX step is one jitted dispatch; here it is a Python function whose
-ops run on the card (the histogram through the CUDA kernel K1).  Valid
-rows are routed through each round's splits by the grower, so a valid
-score update is a leaf-value gather, as in the JAX step.  DART, GOSS,
+ops run on the card (the histogram through the CUDA kernel K1).  The wave
+grower routes the valid rows through each round's splits, so a valid
+score update is a leaf-value gather, as in the JAX step; the sequential
+and level-wise growers' valid sets walk each tree on their bins
+(``tree_predict_binned``, JAX :405).  DART, GOSS,
 RF, bagging, feature fraction, rollback and checkpoints are not ported
 (the config refuses them).
 """
@@ -29,7 +33,8 @@ from ..objectives import create_objective
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
 from ..utils.log import log_info, log_warning
-from .tree import HostTree, TreeArrays, host_tree_from_arrays, leaf_lookup
+from .tree import (HostTree, TreeArrays, host_tree_from_arrays, leaf_lookup,
+                   tree_predict_binned)
 
 
 class _ScoreUpdater:
@@ -148,13 +153,22 @@ class GBDT:
         for k in range(K):
             g3 = torch.stack([grad[:, k], hess[:, k],
                               torch.ones_like(grad[:, k])], dim=1)
-            tree, leaf_id, _, vlids = self._grow(
-                self.binned, g3.contiguous(), self._base_mask,
-                valids=self._valid_binned)
+            if getattr(self._grow, "routes_valids", False):
+                tree, leaf_id, _, vlids = self._grow(
+                    self.binned, g3.contiguous(), self._base_mask,
+                    valids=self._valid_binned)
+            else:
+                tree, leaf_id, _ = self._grow(self.binned, g3.contiguous(),
+                                              self._base_mask)
+                vlids = None
             shrunk = tree._replace(leaf_value=tree.leaf_value * rate)
             train_preds.append(leaf_lookup(shrunk.leaf_value, leaf_id))
-            for vi, vl in enumerate(vlids):
-                valid_preds[vi].append(shrunk.leaf_value[vl.long()])
+            for vi, vb in enumerate(self._valid_binned):
+                valid_preds[vi].append(
+                    shrunk.leaf_value[vlids[vi].long()] if vlids is not None
+                    else tree_predict_binned(shrunk, vb, self.meta.nan_bin,
+                                             self.meta.missing_type,
+                                             self.meta.zero_bin))
             trees.append(shrunk)
         # one (N, K) add per score cache: this iteration's gradients were
         # taken before the class loop, so deferring is exact

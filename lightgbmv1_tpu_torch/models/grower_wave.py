@@ -446,4 +446,5 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         tree = store.finalize(st, nl)
         return tree, leaf_id, root_sum, vlids
 
+    grow.routes_valids = True
     return grow

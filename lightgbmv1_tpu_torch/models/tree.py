@@ -5,7 +5,9 @@ object model text is parsed into and written from, and the exact f64
 oracle every device walk is held to), the structural validators, the two
 stacked-table helpers the serving walks use (``leaves_to_scores``,
 ``pad_tree_axis``), and the training side's ``TreeArrays`` (:33),
-``empty_tree`` (:106) and ``leaf_lookup`` (:65) in torch, with
+``empty_tree`` (:106), ``leaf_lookup`` (:65) and the binned walk
+``tree_leaf_index_binned`` / ``tree_predict_binned`` (:136, :233; the valid
+sets of the sequential and level-wise growers) in torch, with
 ``host_tree_from_arrays`` from a grown tree to its ``HostTree``.
 
 Node encoding follows the reference exactly so the v3 model text
@@ -75,6 +77,43 @@ def leaf_lookup(table: torch.Tensor, leaf_id: torch.Tensor) -> torch.Tensor:
     card; the JAX package's broadcast-compare form is a TPU workaround
     with equal values.  Every id must be in ``[0, len(table))``."""
     return table[leaf_id.long()]
+
+
+def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
+                           nan_bins: torch.Tensor,
+                           missing_types: torch.Tensor,
+                           zero_bins: torch.Tensor) -> torch.Tensor:
+    """(N,) int64 leaf of each row of (F, N) bins, walked from the root on
+    the bin thresholds with the NaN and zero-as-missing rows sent their
+    node's default way.  Bounded by the node count, so malformed child
+    pointers end the walk."""
+    N = binned.shape[1]
+    node = torch.zeros(N, dtype=torch.int64, device=binned.device)
+    if int(tree.num_leaves) <= 1:
+        return node
+    for _ in range(int(tree.split_feature.shape[0]) + 1):
+        active = node >= 0
+        if not bool(active.any()):
+            break
+        nd = node.clamp(min=0)
+        f = tree.split_feature.long()[nd]
+        b = torch.gather(binned, 0, f[None, :])[0].long()
+        mt = missing_types[f]
+        na = ((mt == MISSING_NAN) & (b == nan_bins[f])) | (
+            (mt == MISSING_ZERO) & (b == zero_bins[f]))
+        go_left = torch.where(na, tree.default_left[nd],
+                              b <= tree.threshold_bin.long()[nd])
+        nxt = torch.where(go_left, tree.left_child[nd],
+                          tree.right_child[nd]).long()
+        node = torch.where(active, nxt, node)
+    return -node - 1
+
+
+def tree_predict_binned(tree: TreeArrays, binned: torch.Tensor,
+                        nan_bins, missing_types, zero_bins) -> torch.Tensor:
+    """Each row's leaf value (``tree_leaf_index_binned``)."""
+    return tree.leaf_value[tree_leaf_index_binned(
+        tree, binned, nan_bins, missing_types, zero_bins)]
 
 
 def host_tree_from_arrays(arrays: TreeArrays,

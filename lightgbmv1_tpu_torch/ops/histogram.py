@@ -4,6 +4,9 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
 
 * ``hist_leaves_scatter`` (:53) — the exact f32 oracle, one
   ``index_add_`` over the flattened (feature, slot, bin) index;
+* ``hist_one_leaf`` (:153) — the sequential grower's histogram of one
+  leaf's rows: K1 with L = 1 over the rows masked to the leaf (on a
+  compacted segment's gathered rows, every row is the leaf's);
 * ``hist_frontier`` (:272) — all slots' histograms in one pass, through
   the method the trainer resolved: ``pallas`` is the hand-written CUDA
   kernel K1 (``ops/hist_cuda.hist_leaves``, whose plain version a CPU
@@ -54,6 +57,19 @@ def hist_frontier(binned: torch.Tensor, g3: torch.Tensor,
         return hist_leaves_scatter(binned, g3, leaf_id, num_leaves, num_bins,
                                    live_slots)
     raise not_ported(f"hist_method={method}", HIST_METHODS)
+
+
+def hist_one_leaf(binned: torch.Tensor, g3: torch.Tensor,
+                  leaf_id: torch.Tensor, target_leaf: int, num_bins: int,
+                  method: str = "scatter",
+                  precision: str = "bf16x2") -> torch.Tensor:
+    """(F, B, 3) histogram of the rows in ``target_leaf``: one slot over
+    the rows' values masked to the leaf (the smaller-child pass of the
+    reference's BeforeFindBestSplit, serial_tree_learner.cpp:274-314)."""
+    mask = (leaf_id == target_leaf).to(torch.float32)
+    g3m = (g3 * mask[:, None]).contiguous()
+    return hist_frontier(binned, g3m, torch.zeros_like(leaf_id), 1,
+                         num_bins, method=method, precision=precision)[0]
 
 
 def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,

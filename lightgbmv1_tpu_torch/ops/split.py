@@ -14,7 +14,8 @@ Ported: ``tie_tol`` (:56, ``TIE_RTOL``), ``go_left_rule`` (:65),
 (:157/:173), ``child_leaf_output`` (:216), ``scan_left_sums`` (:459),
 ``scan_direction_gains`` (:532), ``scan_pick_feature`` (:636),
 ``scan_pick`` (:667), ``gain_shift`` and
-``find_best_split`` (:437).  The tie-breaking is kept exactly: it decides
+``find_best_split`` (:437), which takes its leaves as a batch and so is
+also ``find_best_split_batch`` (:837, the JAX vmap over a frontier).  The tie-breaking is kept exactly: it decides
 the tree.  Categorical splits, monotone constraints, path smoothing,
 max_delta_step, feature_contri, CEGB and extra_trees are not ported
 (the config refuses them).
@@ -244,3 +245,4 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
                        threshold_bin=threshold, default_left=default_left,
                        left_sum=left.to(torch.float32),
                        right_sum=right.to(torch.float32))
+

@@ -1,10 +1,16 @@
-"""Tree-learner construction: the serial learner over the wave grower.
+"""Tree-learner construction: the serial learner over its grower.
 
 Port of lightgbmv1_tpu/parallel/trainer.py ``resolve_deep_dtype`` (:269),
 ``select_bin_layout`` (:286) and the serial branch of ``build_trainer``
-(:334; the wave branch :629-731): resolve the histogram method and the
-two precisions, and wire ``hist_wave`` into the wave grower, with the
-``deep`` precision on the sustained rounds of a big wave.
+(:334; the growers :542-560, :628-636, :733-743): resolve the histogram
+method and the two precisions, and pick the grower as the JAX package
+does — ``tree_growth=levelwise`` the level-wise grower over
+``hist_frontier``; ``leafwise`` the wave grower over ``hist_wave``, with
+the ``deep`` precision on the sustained rounds of a big wave, unless the
+auto wave size is 1 (``num_leaves <= 7``); that case and every other
+``tree_growth`` (``leafwise_masked``: rows masked, not partitioned) the
+sequential grower over ``hist_one_leaf``.  An explicit
+``leafwise_wave_size >= 1`` keeps ``leafwise`` on the wave grower.
 
 ``hist_method=fused`` is the fused dispatch of the JAX ``build_trainer``
 (:591-646): the wave rounds run ``ops/wave_fused.make_fused_round`` (K2
@@ -17,11 +23,9 @@ single round, the port raises ``NotImplementedError`` with the JAX
 reason: nothing silently trains something else.
 
 What the JAX package routes elsewhere raises here, naming its ROADMAP
-item: the sequential grower (auto ``leafwise_wave_size`` at
-``num_leaves <= 7``; an explicit ``leafwise_wave_size >= 1`` forces the
-wave grower, as there), the level-wise grower, ``packed4`` bins (which
-``auto`` picks on the card at ``max_bin <= 15``) and the int8 / int8sr
-precisions.  The loop's other JAX fallbacks (interaction constraints,
+item: ``packed4`` bins (which ``auto`` picks on the card at
+``max_bin <= 15``) and the int8 / int8sr precisions; ``hist_method=fused``
+on the sequential or level-wise grower raises with the JAX reason.  The loop's other JAX fallbacks (interaction constraints,
 ``feature_fraction_bynode``, monotone constraints) are refused before,
 by ``config.unported_reason``.
 """
@@ -32,11 +36,13 @@ from typing import Callable
 
 import torch
 
-from ..config import GROWERS, INT8, PACKED4, Config, not_ported
+from ..config import INT8, PACKED4, Config, not_ported
 from ..models import grower_wave
+from ..models.grower import make_leafwise_grower, make_levelwise_grower
 from ..models.grower_wave import (auto_wave_size, make_wave_grower,
                                   slot_buckets_for)
-from ..ops.histogram import default_hist_method, hist_wave
+from ..ops.histogram import (default_hist_method, hist_frontier,
+                             hist_one_leaf, hist_wave)
 from ..ops.split import FeatureMeta, SplitParams
 from ..ops.wave_fused import (fused_ineligible_reason, make_fused_round,
                               make_fused_wave_loop)
@@ -80,9 +86,10 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                   num_bins: int, device: torch.device,
                   bin_dtype: torch.dtype = torch.uint8,
                   num_data: int = 0) -> Callable:
-    """The serial learner's ``grow(binned, g3, base_mask, valids)``
-    for the configured growth (models/grower_wave.make_wave_grower) over
-    ``num_data`` rows of ``bin_dtype`` bins."""
+    """The serial learner's ``grow(binned, g3, base_mask, ...)`` for the
+    configured growth over ``num_data`` rows of ``bin_dtype`` bins: the
+    wave grower's ``grow(..., valids)`` routes the valid sets too
+    (``grow.routes_valids``), the others' return no valid leaf ids."""
     method = default_hist_method(config.hist_method, device)
     precision = config.hist_dtype
     if precision not in ("f32", "bf16", "bf16x2"):
@@ -97,21 +104,17 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     if deep_precision in ("int8", "int8sr"):
         raise not_ported(f"hist_dtype_deep={deep_precision}", INT8)
 
-    if config.tree_growth != "leafwise":
-        raise not_ported(f"tree_growth={config.tree_growth}", GROWERS)
+    levelwise = config.tree_growth == "levelwise"
     wave_size = config.leafwise_wave_size
     if wave_size == 0:
-        # auto: num_leaves // 4; K = 1 (num_leaves <= 7) routes the JAX
-        # package to its sequential grower
+        # auto: num_leaves // 4; K = 1 (num_leaves <= 7) is the sequential
+        # grower's exact best-first order
         wave_size = auto_wave_size(config.num_leaves)
-        if wave_size <= 1:
-            raise not_ported(
-                f"the sequential grower (auto leafwise_wave_size at "
-                f"num_leaves={config.num_leaves} <= 7; set "
-                "leafwise_wave_size >= 1 for the wave grower)", GROWERS)
     if wave_size > 128:
         log_warning(f"leafwise_wave_size={wave_size} capped to 128")
         wave_size = 128
+    use_wave = config.tree_growth == "leafwise" and (
+        config.leafwise_wave_size >= 1 or wave_size > 1)
 
     def local_wave(binned, g3, label, nslots, deep=False):
         return hist_wave(binned, g3, label, nslots, num_bins, method=method,
@@ -122,6 +125,10 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     if config.hist_method == "fused":
         reason = fused_ineligible_reason(bin_dtype=bin_dtype,
                                          num_bins=num_bins)
+        if not reason and not use_wave:
+            reason = ("the fused kernel is a wave-round kernel; this config "
+                      "routes to the " + ("level-wise" if levelwise
+                                          else "sequential") + " grower")
         if reason:
             raise NotImplementedError(f"hist_method=fused: {reason}")
         fused_fn = make_fused_round(meta=meta, params=params,
@@ -145,10 +152,26 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                     f"wave_loop_rounds={config.wave_loop_rounds}: "
                     f"{plan['reason']}")
 
-    return make_wave_grower(num_leaves=config.num_leaves, num_bins=num_bins,
-                            meta=meta, params=params,
-                            max_depth=config.max_depth, wave_size=wave_size,
-                            hist_wave_fn=local_wave,
+    common = dict(num_leaves=config.num_leaves, num_bins=num_bins, meta=meta,
+                  params=params, max_depth=config.max_depth)
+    if levelwise:
+        def local_frontier(binned, g3, label, L, live_slots=None):
+            return hist_frontier(binned, g3, label, L, num_bins,
+                                 method=method, precision=precision,
+                                 live_slots=live_slots)
+
+        return make_levelwise_grower(hist_frontier_fn=local_frontier,
+                                     **common)
+    if not use_wave:
+        def local_hist(binned, g3, leaf_id, target):
+            return hist_one_leaf(binned, g3, leaf_id, target, num_bins,
+                                 method=method, precision=precision)
+
+        return make_leafwise_grower(
+            hist_fn=local_hist,
+            partition=config.tree_growth != "leafwise_masked",
+            hist_pool_mb=config.histogram_pool_size, **common)
+    return make_wave_grower(wave_size=wave_size, hist_wave_fn=local_wave,
                             fused_round_fn=fused_fn,
-                            fused_loop_fn=fused_loop)
+                            fused_loop_fn=fused_loop, **common)
 

@@ -91,7 +91,9 @@ def test_every_jax_knob_and_alias_is_known():
             "data_random_seed", "enable_bundle", "max_conflict_rate",
             "use_missing", "zero_as_missing", "num_class", "is_unbalance",
             "scale_pos_weight", "sigmoid", "boost_from_average", "metric",
-            "gpu_use_dp", "predict_disable_shape_check"}
+            "gpu_use_dp", "predict_disable_shape_check", "tree_growth",
+            "histogram_pool_size", "reg_sqrt", "lambdarank_truncation_level",
+            "lambdarank_norm", "label_gain", "eval_at", "multi_error_top_k"}
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -233,8 +235,8 @@ def test_binary_error_is_evaluated_in_training():
 
 
 @pytest.mark.parametrize("name,item", [
-    ("l2", tconfig.OBJECTIVES), ("multi_logloss", tconfig.OBJECTIVES),
-    ("ndcg@3,5", tconfig.OBJECTIVES), ("map", tconfig.OBJECTIVES),
+    ("l1", tconfig.BREADTH), ("poisson", tconfig.BREADTH),
+    ("gamma_deviance", tconfig.BREADTH), ("cross_entropy", tconfig.BREADTH),
     ("quantile", tconfig.BREADTH), ("auc_mu", tconfig.BREADTH)])
 def test_unported_jax_metric_raises(name, item):
     with pytest.raises(NotImplementedError,

@@ -23,6 +23,7 @@ Tolerances:
 """
 
 import os
+import re
 
 import numpy as np
 import pytest
@@ -37,6 +38,7 @@ from lightgbmv1_tpu.objectives import create_objective as jcreate_objective
 from lightgbmv1_tpu.ops import split as jsplit
 
 import lightgbmv1_tpu_torch as lt
+from lightgbmv1_tpu_torch import config as tconfig
 from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.io.dataset import BinnedDataset
 from lightgbmv1_tpu_torch.models import grower_wave as tgw
@@ -387,26 +389,46 @@ def test_golden_zero_as_missing_training_parity():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("params", [
-    {"num_leaves": 7},                              # auto K=1: sequential
-    {"tree_growth": "levelwise"}, {"tree_growth": "leafwise_serial"},
-    {"bagging_fraction": 0.5, "bagging_freq": 1},
-    {"feature_fraction": 0.8}, {"feature_fraction_bynode": 0.5},
-    {"extra_trees": True}, {"early_stopping_round": 2},
-    {"bin_layout": "packed4"}, {"hist_dtype": "int8"},
-    {"hist_dtype_deep": "int8sr"}, {"hist_dtype_deep": "int8"},
-    {"hist_method": "fused", "wave_loop_rounds": 2,
-     "feature_fraction_bynode": 0.5},
-    {"hist_method": "onehot"},
-    {"hist_method": "bench"}, {"objective": "regression"},
-    {"boosting": "dart"}, {"boosting": "goss"}, {"boosting": "rf"},
-    {"tree_learner": "data"}, {"monotone_constraints": [1, 0, 0, 0, 0, 0]},
-    {"path_smooth": 1.0}, {"max_delta_step": 0.5},
-    {"interaction_constraints": "[0,1]"}, {"cegb_penalty_split": 0.1},
-    {"categorical_feature": "0"}])
-def test_unported_configurations_raise(params):
+_UNPORTED_CASES = [
+    ({"objective": "huber"}, tconfig.BREADTH),
+    ({"objective": "rank_xendcg"}, tconfig.BREADTH),
+    ({"max_bin": 300, "min_data_in_bin": 1}, tconfig.HIST_METHODS),
+    ({"bagging_fraction": 0.5, "bagging_freq": 1}, tconfig.SAMPLING),
+    ({"feature_fraction": 0.8}, tconfig.SAMPLING),
+    ({"feature_fraction_bynode": 0.5}, tconfig.SAMPLING),
+    ({"extra_trees": True}, tconfig.SAMPLING),
+    ({"early_stopping_round": 2}, tconfig.CALLBACKS),
+    ({"bin_layout": "packed4"}, tconfig.PACKED4),
+    ({"hist_dtype": "int8"}, tconfig.INT8),
+    ({"hist_dtype_deep": "int8sr"}, tconfig.INT8),
+    ({"hist_dtype_deep": "int8"}, tconfig.INT8),
+    ({"hist_method": "fused", "wave_loop_rounds": 2,
+      "feature_fraction_bynode": 0.5}, tconfig.SAMPLING),
+    ({"hist_method": "onehot"}, tconfig.HIST_METHODS),
+    ({"hist_method": "bench"}, tconfig.HIST_METHODS),
+    ({"objective": "poisson"}, tconfig.BREADTH),
+    ({"boosting": "dart"}, tconfig.BREADTH),
+    ({"boosting": "goss"}, tconfig.BREADTH),
+    ({"boosting": "rf"}, tconfig.BREADTH),
+    ({"tree_learner": "data"}, tconfig.PARALLEL),
+    ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, tconfig.BREADTH),
+    ({"path_smooth": 1.0}, tconfig.BREADTH),
+    ({"max_delta_step": 0.5}, tconfig.BREADTH),
+    ({"interaction_constraints": "[0,1]"}, tconfig.BREADTH),
+    ({"cegb_penalty_split": 0.1}, tconfig.BREADTH),
+    ({"categorical_feature": "0"}, tconfig.BREADTH)]
+
+
+@pytest.mark.parametrize("params,item", _UNPORTED_CASES, ids=[
+    f"params{i}" for i in range(len(_UNPORTED_CASES))])
+def test_unported_configurations_raise(params, item):
+    """Each refusal names its ROADMAP queue 1 item by its title: the
+    objectives the slice does not port and their knobs the breadth item,
+    int16 bins (max_bin > 255) the histogram methods item, which ports the
+    onehot path the JAX package trains them through."""
     X, y = _data(13, 512)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    with pytest.raises(NotImplementedError,
+                       match=re.escape(f"ROADMAP queue 1, {item}") + "$"):
         lt.train({**BASE, "num_leaves": 15, **params},
                  lt.Dataset(X, label=y), 2, device="cpu")
 
