@@ -194,9 +194,37 @@ Phases (any failure exits non-zero with no ``ok`` line):
               features, 63 leaves, --rank-iters iterations, ndcg@10 on a
               valid set of 400 queries beside the JAX package's 0.61497
               and the reference C++'s 0.613977; phase 24's steps.
+26. packed  — 4-bit packed bins (bin_layout=packed4): phase 8's rows
+              binned at max_bin=15 (a 16-bin axis) and packed two
+              features a byte (14 x N bytes).  K1's packed leg against its
+              u8 leg and the row-order plain version bit for bit (so the
+              u8 leg at B = 16 too) at L in {1, 2, 5, 17, 64} in bf16x2 /
+              bf16 / f32, at F = 28 and at F = 27 (odd: the phantom hi
+              nibble); K2 and K3's packed legs bit for bit their u8 legs
+              and, against their plain versions, leaf ids and labels
+              exact, hsmall the row-order plain histogram of the label
+              and the residue the CPU plain scan's, at S = 4 / 16 / 63 in
+              each precision, S = 63 pool-free and phase 14's sparse-live
+              rounds; K6 at R = 4 from a frontier grown on these bins: its
+              u8 leg against R K2 rounds and its plain version (phase
+              19's checks) and its packed leg bit for bit the u8 leg.
+27. packed training — the slice's main path, launch counts reset first:
+              the headline configuration at max_bin=15 with the default
+              bin_layout (auto packs on the card): staged for --iters
+              iterations, ``hist_method=fused`` and the looped fused path
+              (``hist_dtype_deep=bf16x2, wave_loop_rounds=4``) for 20
+              each; each stores a (14, N) matrix, launches only the
+              packed legs (K1; K2 and K3; K6 and K3) and no plain
+              version, and writes the model text of the same training
+              with bin_layout=u8 byte for byte (s/iteration of both
+              printed); the staged model's AUC > 0.90 and served through
+              K4.  Then each packed leg timed on the path's last inputs
+              beside its u8 leg, its plain version, the unpack alone and
+              (K1) one ``index_add_`` on the unpacked bins, with its
+              bound (the bins stream at ceil(F/2) bytes a row).
               Then the ``kernels`` line (K1, K2, K3, K6, K4, K5) is
               printed; K1's row carries phases 22-25's K1 shapes too
-              (``paths``).
+              (``paths``), and K1, K2, K3 and K6 a ``packed`` record.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -922,16 +950,24 @@ class HistRecorder:
 
     def __init__(self):
         self.last = {}
+        # the packed leg's calls: (binned, g3, leaf_id, num_bins,
+        # live_slots, num_features)
+        self.packed_last = {}
 
     def __enter__(self):
         self._orig = hc.hist_leaves
 
         def wrapped(binned, g3, leaf_id, num_leaves, num_bins,
-                    precision="bf16x2", live_slots=None):
-            self.last[(int(num_leaves), precision)] = (binned, g3, leaf_id,
-                                                       num_bins, live_slots)
+                    precision="bf16x2", live_slots=None, packed=False,
+                    num_features=None):
+            key = (int(num_leaves), precision)
+            if packed:
+                self.packed_last[key] = (binned, g3, leaf_id, num_bins,
+                                         live_slots, num_features)
+            else:
+                self.last[key] = (binned, g3, leaf_id, num_bins, live_slots)
             return self._orig(binned, g3, leaf_id, num_leaves, num_bins,
-                              precision, live_slots)
+                              precision, live_slots, packed, num_features)
 
         hc.hist_leaves = wrapped
         return self
@@ -1214,16 +1250,16 @@ def phase_profile(ds, iters, dev, params=TRAIN_PARAMS) -> dict:
 
 
 def round_inputs(binned, meta, S, n_live, sub, prec, rng, oleaf=None,
-                 leafs=None):
+                 leafs=None, B=64):
     """One wave round's inputs at ``S`` slots (``n_live`` splits, the rest
     dead): rows spread over ``2S + 7`` current leaves (or ``oleaf``),
     random splits (of the leaves ``leafs``) on the dataset's own features
     (real missing types), signed varied rows, the children's exact sums
     and, in subtraction mode, the parents' histograms.  Returns the
-    keyword arguments of ``fc.fused_round``."""
+    keyword arguments of ``fc.fused_round`` on the (F, N) byte bins
+    ``binned`` of a ``B``-bin axis."""
     F, N = binned.shape
     dev = binned.device
-    B = 64
     n_cur = 2 * S + 7
     L = n_cur + S                     # dead slots carry leaf L: no row's
 
@@ -1452,7 +1488,7 @@ class FusedRecorder:
 
     def __init__(self, live=False):
         self.last = {}
-        self.route = None
+        self.route = self.packed_route = None
         self.count_live = live
         self.live = []      # (nslots, precision, mode), live rows, N
 
@@ -1460,7 +1496,8 @@ class FusedRecorder:
         self._orig = fc.fused_round, fc.route_rows
 
         def fused(binned, g3, **kw):
-            mode = "sub" if kw.get("parent") is not None else "pool"
+            mode = ("sub" if kw.get("parent") is not None else "pool") + (
+                ":packed" if kw.get("packed") else "")
             key = (kw["nslots"], kw["precision"], mode)
             self.last[key] = (binned, g3, kw)
             out = self._orig[0](binned, g3, **kw)
@@ -1469,9 +1506,13 @@ class FusedRecorder:
                                   binned.shape[1]))
             return out
 
-        def route(binned, lids, feats, rmeta, num_leaves):
-            self.route = (binned, lids, feats, rmeta, num_leaves)
-            return self._orig[1](binned, lids, feats, rmeta, num_leaves)
+        def route(binned, lids, feats, rmeta, num_leaves, packed=False):
+            args = (binned, lids, feats, rmeta, num_leaves)
+            if packed:
+                self.packed_route = args
+            else:
+                self.route = args
+            return self._orig[1](*args, packed=packed)
 
         fc.fused_round, fc.route_rows = fused, route
         return self
@@ -2076,6 +2117,43 @@ def loop_stage_split(rec: LoopRecorder) -> dict:
     return out
 
 
+def loop_work(pos, kw):
+    """The work of K6 on one segment's inputs, from its R K2 rounds: the
+    bytes it must move (all rows and live rows only), its f32 operations,
+    each round's bucket, splits and live rows, and the split counts.
+    Packed bins (``kw["packed"]``) move ceil(F/2) bytes a row."""
+    rr = RoundRecorder()
+    _, _, _, n_split = lc.loop_rounds(*pos, round_fn=rr, **kw)
+    N = pos[0].shape[1]
+    Fn = kw["base_mask"].shape[0]
+    Fb = -(-Fn // 2) if kw.get("packed") else Fn
+    B, L = kw["num_bins"], pos[3].shape[0]
+    nbytes = ops = live_bytes = 0
+    rounds = []
+    for n, (rkw, out) in zip([n for n in n_split.tolist() if n > 0],
+                             rr.rounds):
+        ns, sub = rkw["nslots"], rkw.get("parent") is not None
+        S = ns if sub else ns // 2
+        live = int((out[3] < ns).sum())
+        row = Fn * B * 3 * 4
+        # K2's round: bins, rows, old leaf ids read, label and new leaf
+        # ids written, parents read (subtraction), children's mask and
+        # sums read, residue written; then the packed rows, the
+        # children's frontier rows and (subtraction) pool rows written
+        other = ((S * row if sub else 0)
+                 + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4
+                 + 2 * S * wf.PACK_COLS * 4 + 2 * n * 12 * 4
+                 + (2 * n * row if sub else 0))
+        nbytes += Fb * N + N * 12 + N * 4 + 2 * N * 4 + other
+        live_bytes += live_row_bytes(N, Fb, live) + other
+        ops += ((2 if kw["precision"] == "bf16x2" else 1) * 3 * live * Fn
+                + 2 * S * Fn * B * 2 * 12)
+        rounds.append({"S": S, "n_split": n, "live_rows": live})
+    nbytes += L * 12 * 4 * 2          # the frontier read once, written once
+    live_bytes += L * 12 * 4 * 2
+    return nbytes, live_bytes, ops, rounds, n_split
+
+
 def phase_loop_timing(rec: LoopRecorder, drec: LoopRecorder, trained: dict,
                       checks: list) -> dict:
     """K6's stage split from the stamped run ``drec``; K6 on the main
@@ -2112,34 +2190,7 @@ def phase_loop_timing(rec: LoopRecorder, drec: LoopRecorder, trained: dict,
     plain_ms = time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 2)
     k2_ms = time_ms(lambda: lc.loop_rounds(*pos, round_fn=fc.fused_round,
                                            **kw), 3)
-    rr = RoundRecorder()
-    _, _, _, n_split = lc.loop_rounds(*pos, round_fn=rr, **kw)
-    binned, g3 = pos[0], pos[1]
-    Fn, N = binned.shape
-    B, L = kw["num_bins"], pos[3].shape[0]
-    nbytes = ops = live_bytes = 0
-    rounds = []
-    for n, (rkw, out) in zip([n for n in n_split.tolist() if n > 0],
-                             rr.rounds):
-        ns, sub = rkw["nslots"], rkw.get("parent") is not None
-        S = ns if sub else ns // 2
-        live = int((out[3] < ns).sum())
-        row = Fn * B * 3 * 4
-        # K2's round: bins, rows, old leaf ids read, label and new leaf
-        # ids written, parents read (subtraction), children's mask and
-        # sums read, residue written; then the packed rows, the
-        # children's frontier rows and (subtraction) pool rows written
-        other = ((S * row if sub else 0)
-                 + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4
-                 + 2 * S * wf.PACK_COLS * 4 + 2 * n * 12 * 4
-                 + (2 * n * row if sub else 0))
-        nbytes += Fn * N + N * 12 + N * 4 + 2 * N * 4 + other
-        live_bytes += live_row_bytes(N, Fn, live) + other
-        ops += ((2 if kw["precision"] == "bf16x2" else 1) * 3 * live * Fn
-                + 2 * S * Fn * B * 2 * 12)
-        rounds.append({"S": S, "n_split": n, "live_rows": live})
-    nbytes += L * 12 * 4 * 2          # the frontier read once, written once
-    live_bytes += L * 12 * 4 * 2
+    nbytes, live_bytes, ops, rounds, n_split = loop_work(pos, kw)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_live = live_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -2360,6 +2411,376 @@ def card_vs_cpu(tag, params, X, y, dev, iters=5, group=None) -> dict:
     return split_parity(X, y, {"card": (p, dev), "CPU": (p, "cpu")},
                         iters=iters, group=group, leaf_tol=PARITY_LEAF_TOL,
                         roworder=True)
+
+
+# ---------------------------------------------------------------------------
+# 4-bit packed bins (bin_layout=packed4): the packed legs of K1, K2, K3, K6
+# ---------------------------------------------------------------------------
+
+# phase 27: the headline configuration at max_bin 15 (a 16-bin axis), where
+# the default bin_layout=auto packs two features a byte on the card
+PACKED_PARAMS = dict(TRAIN_PARAMS, max_bin=15)
+PACKED_RUNS = (("staged", {}),
+               ("fused", {"hist_method": "fused"}),
+               ("looped", {"hist_method": "fused", "hist_dtype_deep": "bf16x2",
+                           "wave_loop_rounds": 4}))
+PACKED_SHORT_ITERS = 20     # the fused and looped packed trainings
+SPARSE_CASES = (("one row", False), ("one chunk", True), ("none", True),
+                ("root", False))
+
+
+def check_packed_k1(tag, u8, packed, g3, lid, L, B=16) -> dict:
+    """K1's packed leg on ``packed`` (``pack4bit(u8)``) against its u8 leg
+    on ``u8`` and the row-order plain version bit for bit, in all three
+    precisions (so the u8 leg at this bin axis too); counts exact against
+    the index_add_ version; two launches bitwise equal; the dead slot
+    (``live_slots = L - 1``) as phase 9."""
+    pk = dict(packed=True, num_features=u8.shape[0])
+    for prec in hc.PRECISIONS:
+        got = hc.hist_leaves(packed, g3, lid, L, B, prec, **pk)
+        again = hc.hist_leaves(packed, g3, lid, L, B, prec, **pk)
+        u = hc.hist_leaves(u8, g3, lid, L, B, prec)
+        row = hc.hist_leaves_roworder_ref(packed, g3, lid, L, B, prec, **pk)
+        check(same_bits(got, u), f"K1 packed {tag} {prec}: not bitwise the "
+              f"u8 leg ({int((got != u).sum())} cells differ)")
+        check(same_bits(u, row), f"K1 u8 B={B} {tag} {prec}: not bitwise "
+              f"the row-order version ({int((u != row).sum())} cells differ)")
+        check(same_bits(got, again), f"K1 packed {tag} {prec}: two launches "
+              "differ")
+        want = hc.hist_leaves_ref(packed, g3, lid, L, B, prec, **pk)
+        check(torch.equal(got[..., 2], want[..., 2]),
+              f"K1 packed {tag} {prec}: counts differ")
+        if L > 1:
+            dead = hc.hist_leaves(packed, g3, lid, L, B, prec, L - 1, **pk)
+            check(same_bits(dead[:L - 1], got[:L - 1])
+                  and not bool(dead[L - 1].view(torch.int32).any()),
+                  f"K1 packed {tag} {prec}: the dead slot's rows changed a "
+                  "live cell or the dead slot is not 0")
+    log(f"  K1 packed {tag}: bitwise the u8 leg and the row-order version "
+        "in bf16x2 / bf16 / f32, counts exact, repeatable, dead slot 0")
+    return {"case": tag, "bitwise_u8": True, "bitwise_roworder": True}
+
+
+def check_packed_k2(tag, u8, packed, g3, kw) -> dict:
+    """K2 and K3's packed legs on one round's inputs, bit for bit: against
+    their u8 legs on the same bins (residue, hsmall, new leaf ids, label;
+    K3's leaf ids) and across two launches; against their plain versions,
+    leaf ids and labels exact, the smaller children's histograms the
+    row-order plain version of the emitted label (K1's order) and the
+    residue the plain scan run on the CPU on those histograms (phase 14's
+    ``residue_bitwise_cpu_plain``)."""
+    pkw = dict(kw, packed=True)
+    F, B = kw["mask"].shape[1], kw["num_bins"]
+    ns = kw["nslots"]
+    got = fc.fused_round(packed, g3, **pkw)
+    names = ("residue", "hsmall", "new leaf ids", "label")
+    for other, what in ((fc.fused_round(packed, g3, **pkw), "a second "
+                         "launch"), (fc.fused_round(u8, g3, **kw),
+                                     "the u8 leg")):
+        for a, b, name in zip(got, other, names):
+            check(a is None or bool(same_value(a, b).all()),
+                  f"K2 packed {tag}: {name} differ from {what}")
+    res, hsm, nleaf, label = got
+    plain = fc.fused_round_ref(packed, g3, **plain_kw(pkw))
+    check(torch.equal(nleaf, plain[2]) and torch.equal(label, plain[3]),
+          f"K2 packed {tag}: leaf ids or labels differ from the plain "
+          "version")
+    r = kw["route"]
+    args = (r["oleaf"], r["feats"], r["rmeta"], r["num_leaves"])
+    k3 = fc.route_rows(packed, *args, packed=True)
+    check(torch.equal(k3, nleaf) and torch.equal(k3, fc.route_rows(u8, *args))
+          and torch.equal(k3, fc.route_rows_ref(packed, *args, True)),
+          f"K3 packed {tag}: differs from K2's leaf ids, the u8 leg or the "
+          "plain version")
+    h = hc.hist_leaves_roworder_ref(packed, g3, label, ns + 1, B,
+                                    kw["precision"], packed=True,
+                                    num_features=F)[:ns]
+    if hsm is not None:
+        check(same_bits(hsm, h), f"K2 packed {tag}: hsmall is not the "
+              "row-order plain histogram of its label")
+        h = wf.subtract_children(hsm, kw["parent"], kw["sml"])
+    meta = kw["meta"]
+    res_cpu = wf.child_scan_residue(
+        h.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
+        meta_blk=type(meta)(*(x.cpu() for x in meta)), params=kw["params"],
+        num_bins=B, fblk=F).to(res.device)
+    check(bool(same_value(res, res_cpu).all()), f"K2 packed {tag}: the "
+          "residue is not the CPU plain scan of the plain histograms")
+    live = int((label < ns).sum())
+    log(f"  K2 / K3 packed {tag}: {live} live rows; bitwise the u8 legs and"
+        " repeatable; leaf ids, labels, K3 the plain versions'; hsmall the "
+        "row-order plain histogram, residue the CPU plain scan's")
+    return {"case": tag, "bitwise_u8": True, "rows_in_slots": live,
+            "residue_bitwise_cpu_plain": True, "max_abs_err": 0.0}
+
+
+def phase_packed_kernels(binned, meta, rng) -> dict:
+    """Phase 26: the packed legs on the headline rows binned at max_bin 15
+    (``binned``: (F, N) byte bins of a 16-bin axis) against their u8 legs
+    and plain versions.  K1 at L in {1, 2, 5, 17, 64} at F and at F - 1
+    (odd: the last byte's hi nibble is the phantom feature); K2 and K3 at
+    S = 4 / 16 / 63 (subtraction) in each precision, S = 63 pool-free and
+    phase 14's sparse-live rounds; K6 at R = 4 (subtraction and pool-free,
+    bf16x2 and f32) from a frontier grown on these bins: its u8 leg
+    against R K2 rounds and its plain version (``check_k6``), its packed
+    leg bitwise the u8 leg."""
+    Fn, N = binned.shape
+    dev = binned.device
+    out = {"k1": [], "k2": [], "k6": []}
+    for f in (Fn, Fn - 1):
+        u8 = binned[:f].contiguous()
+        packed = hc.pack4bit(u8)
+        check(tuple(packed.shape) == (-(-f // 2), N)
+              and torch.equal(hc.unpack4bit(packed, f), u8),
+              f"pack4bit at F={f}: {tuple(packed.shape)}, not the bins back")
+        if f % 2:
+            check(not bool((packed[-1] >> 4).any()),
+                  "the phantom hi nibble of an odd F is not 0")
+        for L in (1, 2, 5, 17, 64):
+            lid = torch.from_numpy(rng.randint(0, L, N).astype(np.int32)) \
+                .to(dev)
+            out["k1"].append(check_packed_k1(f"F={f} N={N} L={L}", u8,
+                                             packed, signed_rows(rng, N, dev),
+                                             lid, L))
+    packed = hc.pack4bit(binned)
+    cases = [(S, True, prec) for S in (4, 16, 63) for prec in hc.PRECISIONS]
+    for S, sub, prec in cases + [(63, False, "bf16x2")]:
+        g3, kw = round_inputs(binned, meta, S, S, sub, prec, rng, B=16)
+        out["k2"].append(check_packed_k2(
+            f"S={S} {'sub' if sub else 'pool-free'} {prec}", binned, packed,
+            g3, kw))
+    for case, sub in SPARSE_CASES:
+        chunk_rows = hc.plan(N, Fn, (4 if sub else 8) + 1, 16,
+                             "bf16x2")["chunk_rows"]
+        g3, kw = round_inputs(binned, meta, 4, 1, sub, "bf16x2", rng,
+                              oleaf=sparse_leaves(N, chunk_rows, case),
+                              leafs=[1], B=16)
+        out["k2"].append(check_packed_k2(
+            f"sparse {case}, S=4 {'sub' if sub else 'pool-free'} bf16x2",
+            binned, packed, g3, kw))
+        live = out["k2"][-1]["rows_in_slots"]
+        check({"one row": live == 1, "one chunk": 0 < live <= chunk_rows,
+               "none": live == 0, "root": live == N}[case],
+              f"K2 packed sparse {case}: {live} live rows")
+    config = Config.from_dict(dict(LOOP_PARAMS, max_bin=15,
+                                   wave_loop_rounds=2))
+    params = SplitParams(min_data_in_leaf=float(config.min_data_in_leaf))
+    grow = build_trainer(config, meta, params, 16, dev, num_data=N)
+    with LoopRecorder(k2_rounds=True) as cap:
+        grow(binned, signed_rows(rng, N, dev), meta.usable)
+    check(cap.second is not None, "one segment in a tree at 16 bins")
+    seg = cap.second
+    for prec in ("bf16x2", "f32"):
+        for sub in (True, False):
+            pos, kw = loop_call(seg, rounds=4, precision=prec,
+                                pool=seg[5]["pool"] if sub else None)
+            tag = f"R=4 {'sub' if sub else 'pool-free'} {prec}"
+            out["k6"].append(check_k6(f"u8 B=16 {tag}", (pos, kw), 4, meta,
+                                      params))
+            got = lc.fused_wave_loop(packed, *pos[1:], **dict(kw,
+                                                               packed=True))
+            want = lc.fused_wave_loop(*pos, **kw)
+            for a, b, what in zip(got, want, ("packed rows", "new leaf ids",
+                                              "pool", "split counts")):
+                check(a is None or bool(same_value(a, b).all()),
+                      f"K6 packed {tag}: {what} differ from the u8 leg")
+            log(f"  K6 packed {tag}: bitwise the u8 leg")
+            out["k6"][-1]["packed_bitwise_u8"] = True
+    return out
+
+
+def packed_run(params, ds, dv, iters, dev):
+    """One training with the valid set, launch counts reset first, under
+    the three call recorders; returns the booster, its seconds, metrics,
+    launch and plain-version counts and the recorders."""
+    reset_counts()
+    ev = {}
+    with HistRecorder() as hrec, FusedRecorder() as frec, \
+            LoopRecorder() as lrec:
+        t0 = time.perf_counter()
+        booster = train(params, ds, iters, valid_sets=[dv], evals_result=ev,
+                        **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    launches = {**hc.launch_counts, **fc.launch_counts, **lc.launch_counts}
+    plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
+             **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
+             **{f"loop.{k}": v for k, v in lc.plain_counts.items()}}
+    return booster, secs, ev, launches, plain, (hrec, frec, lrec)
+
+
+# the packed launches each training must show, and the u8 ones it must not
+PACKED_LEGS = {
+    "staged": (("hist_leaves_packed",), ("hist_leaves",)),
+    "fused": (("hist_leaves_packed", "fused_round_packed",
+               "route_rows_packed"),
+              ("hist_leaves", "fused_round", "route_rows")),
+    "looped": (("hist_leaves_packed", "fused_wave_loop_packed",
+                "route_rows_packed"),
+               ("hist_leaves", "fused_wave_loop", "fused_round",
+                "fused_round_packed", "route_rows"))}
+
+
+def phase_packed_train(ds, dv, Xv, iters, dev):
+    """Phase 27, the packed training main path at full width: the headline
+    configuration at max_bin 15 with the default bin_layout (auto), staged
+    for ``iters`` iterations, ``hist_method=fused`` and the looped fused
+    path for PACKED_SHORT_ITERS each, each with its launch counts reset
+    first; each trained again with ``bin_layout=u8``, whose model text
+    must be the packed one byte for byte.  Returns the numbers and each
+    packed run's recorders."""
+    out, recs = {}, {}
+    N, Fn = ds.num_data(), ds._binned.num_features
+    for name, extra in PACKED_RUNS:
+        n_it = iters if name == "staged" else PACKED_SHORT_ITERS
+        params = dict(PACKED_PARAMS, **extra)
+        bst, secs, ev, launches, plain, rec = packed_run(params, ds, dv, n_it,
+                                                         dev)
+        g = bst._gbdt
+        check(g._packed and tuple(g.binned.shape) == (-(-Fn // 2), N),
+              f"packed {name}: bin_layout=auto did not pack "
+              f"({g._packed}, {tuple(g.binned.shape)})")
+        want, never = PACKED_LEGS[name]
+        log(f"  packed {name}: launches {json.dumps(launches)}; plain-version"
+            f" calls: {plain}")
+        check(all(launches[k] > 0 for k in want),
+              f"packed {name}: a packed leg of {want} never launched")
+        check(not any(launches[k] for k in never),
+              f"packed {name}: a u8 leg of {never} launched")
+        check(not any(plain.values()),
+              f"packed {name}: a plain version ran on the path")
+        ubst, usecs, uev, _, _, _ = packed_run(dict(params, bin_layout="u8"),
+                                               ds, dv, n_it, dev)
+        check(not ubst._gbdt._packed, f"u8 {name}: packed")
+        text = bst.model_to_string()
+        check(text == ubst.model_to_string(), f"packed {name}: the model text "
+              "differs from bin_layout=u8's")
+        check(ev == uev, f"packed {name}: the metrics differ from u8's")
+        auc = ev["valid_0"]["auc"][-1]
+        r = {"iters": n_it, "s_per_iter": secs / n_it,
+             "u8_s_per_iter": usecs / n_it, "valid_auc": auc,
+             "launches": {k: launches[k] for k in want},
+             "model_text_identical_to_u8": True,
+             **text_hash(text, f"packed {name}")}
+        log(f"  packed {name}: {n_it} iterations of {N} rows, "
+            f"{r['s_per_iter']:.4f} s/iter packed, {r['u8_s_per_iter']:.4f} "
+            f"s/iter u8 (one run each); valid AUC {auc:.5f}; model text "
+            "byte-identical to bin_layout=u8's")
+        if name == "staged":
+            check(auc > 0.90, f"packed staged: valid AUC {auc} <= 0.90")
+            r["served_max_abs_err"] = serve_trained(bst, Xv, dev,
+                                                    "packed_model.txt")
+        out[name] = r
+        recs[name] = rec
+    return out, recs
+
+
+def packed_bound(nbytes, ops) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bytes": nbytes, "ops": ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_packed_timing(recs, trained) -> dict:
+    """Each packed leg on phase 27's last inputs (its largest bucket)
+    beside its u8 leg on the unpacked bins, its plain version, the unpack
+    alone and, for K1, one ``index_add_`` on the unpacked bins; the bound
+    by bytes with the bins stream at ceil(F/2) bytes a row.  Returns the
+    ``packed`` record of each kernel (K1, K2, K3, K6)."""
+    out = {}
+    hrec = recs["staged"][0]
+    (L, prec), (binned, g3, lid, B, live, Fn) = max(
+        hrec.packed_last.items(), key=lambda kv: kv[0][0])
+    Fb, N = binned.shape
+    u8 = hc.unpack4bit(binned, Fn)
+    pk = dict(packed=True, num_features=Fn)
+    unpack_ms = time_ms(lambda: hc.unpack4bit(binned, Fn), 10)
+    flat = ((torch.arange(Fn, device=binned.device)[:, None] * L
+             + lid.long()[None, :]) * B + u8.long()).reshape(-1)
+    vals = g3.repeat(Fn, 1)
+    acc = torch.zeros((Fn * L * B, 3), dtype=torch.float32,
+                      device=binned.device)
+    lim = L if live is None else int(live)
+    n_live = int(((lid >= 0) & (lid < lim)).sum())
+    out["hist_leaves"] = {
+        "at": f"L={L} {prec}", "N": N, "F": Fn, "stored_columns": Fb,
+        "launches": int(trained["staged"]["launches"]["hist_leaves_packed"]),
+        "ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B, prec,
+                                             live, **pk), 10),
+        "u8_ms": time_ms(lambda: hc.hist_leaves(u8, g3, lid, L, B, prec,
+                                                live), 10),
+        "plain_ms": time_ms(lambda: hc.hist_leaves_ref(
+            binned, g3, lid, L, B, prec, live, **pk), 2),
+        "library_ms": time_ms(lambda: acc.index_add_(0, flat, vals), 5),
+        "unpack_ms": unpack_ms,
+        **packed_bound(Fb * N + N * 12 + N * 4 + L * Fn * B * 3 * 4,
+                       (2 if prec == "bf16x2" else 1) * 3 * n_live * Fn)}
+    frec = recs["fused"][1]
+    (ns, prec, mode), (binned, g3, kw) = max(frec.last.items(),
+                                             key=lambda kv: kv[0][0])
+    Fn = kw["mask"].shape[1]
+    Fb, N = binned.shape
+    u8 = hc.unpack4bit(binned, Fn)
+    ukw = dict(kw, packed=False)
+    sub = kw.get("parent") is not None
+    S = ns if sub else ns // 2
+    label = fc.fused_round(binned, g3, **kw)[3]
+    n_live = int((label < ns).sum())
+    other = ((2 * S * Fn * B * 3 * 4 if sub else 0)
+             + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4)
+    out["fused_round"] = {
+        "at": f"S={S} {prec} {mode}", "N": N, "F": Fn, "stored_columns": Fb,
+        "launches": int(trained["fused"]["launches"]["fused_round_packed"]),
+        "ms": time_ms(lambda: fc.fused_round(binned, g3, **kw), 10),
+        "u8_ms": time_ms(lambda: fc.fused_round(u8, g3, **ukw), 10),
+        "plain_ms": time_ms(lambda: fc.fused_round_ref(
+            binned, g3, **plain_kw(kw)), 2),
+        "library_ms": None, "unpack_ms": unpack_ms, "live_rows": n_live,
+        "live_bound_ms": (live_row_bytes(N, Fb, n_live) + other)
+        / HBM_BYTES_PER_S * 1e3,
+        **packed_bound(Fb * N + N * 12 + N * 4 + 2 * N * 4 + other,
+                       (2 if prec == "bf16x2" else 1) * 3 * n_live * Fn
+                       + 2 * S * Fn * B * 2 * 12)}
+    binned, lids, feats, rmeta, num_leaves = frec.packed_route
+    Fb, N = binned.shape
+    u8 = hc.unpack4bit(binned, Fn)
+    out["route_rows"] = {
+        "N": N, "slots": int(rmeta.shape[0]), "stored_columns": Fb,
+        "launches": int(trained["fused"]["launches"]["route_rows_packed"]),
+        "ms": time_ms(lambda: fc.route_rows(binned, lids, feats, rmeta,
+                                            num_leaves, packed=True), 20),
+        "u8_ms": time_ms(lambda: fc.route_rows(u8, lids, feats, rmeta,
+                                               num_leaves), 20),
+        "plain_ms": time_ms(lambda: fc.route_rows_ref(
+            binned, lids, feats, rmeta, num_leaves, True), 2),
+        "library_ms": None,
+        **packed_bound(N * (1 + 4 + 4) + rmeta.numel() * 4
+                       + feats.numel() * 4, 0)}
+    pos, kw = loop_call(recs["looped"][2].last)
+    Fn = kw["base_mask"].shape[0]
+    u8 = hc.unpack4bit(pos[0], Fn)
+    ukw = dict(kw, packed=False)
+    nbytes, live_bytes, ops, rounds, _ = loop_work(pos, kw)
+    out["fused_wave_loop"] = {
+        "R": kw["rounds"], "rounds": rounds, "N": pos[0].shape[1], "F": Fn,
+        "stored_columns": pos[0].shape[0],
+        "launches": int(trained["looped"]["launches"][
+            "fused_wave_loop_packed"]),
+        "ms": time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10),
+        "u8_ms": time_ms(lambda: lc.fused_wave_loop(u8, *pos[1:], **ukw),
+                         10),
+        "plain_ms": time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 2),
+        "library_ms": None, "unpack_ms": unpack_ms,
+        "live_bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3,
+        **packed_bound(nbytes, ops)}
+    for name, r in out.items():
+        log(f"  {name} packed ({r.get('at', '')}): {r['ms']:.4f} ms, u8 leg "
+            f"{r['u8_ms']:.4f} ms, plain {r['plain_ms']:.2f} ms, bound "
+            f"{r['bound_ms']:.5f} ms by {r['bound_by']}, library "
+            f"{r['library_ms']}, unpack alone {r.get('unpack_ms')}; "
+            f"{r['launches']} launches on phase 27's path")
+    return out
 
 
 def nvidia_smi() -> str:
@@ -2610,6 +3031,38 @@ def main(argv=None) -> int:
     del rec, booster_rk, dr, drv
     k1_row["paths"] = path_k1
 
+    log("== phase 26: packed bins: K1, K2, K3 and K6 against their u8 legs "
+        "and plain versions")
+    t0 = time.perf_counter()
+    X, y = make_data(args.train_rows, args.seed)
+    Xv, yv = make_data(VALID_ROWS, args.seed + 1)
+    dp = Dataset(X, label=y, params=PACKED_PARAMS)
+    dpv = Dataset(Xv, label=yv, reference=dp)
+    dp.construct()
+    dpv.construct()
+    log(f"  phase 8's rows binned at max_bin=15 in "
+        f"{time.perf_counter() - t0:.1f} s (bin axis "
+        f"{dp._binned.padded_bin})")
+    check(dp._binned.padded_bin == 16, "bin axis is not 16")
+    binned = torch.as_tensor(dp._binned.binned, device=dev).contiguous()
+    pchecks = phase_packed_kernels(binned, make_feature_meta(dp._binned,
+                                                             dev), rng)
+    del binned
+
+    log("== phase 27: packed training (main path; launch counts reset)")
+    packed, precs = phase_packed_train(dp, dpv, Xv, args.iters, dev)
+    prow = phase_packed_timing(precs, packed)
+    del precs, dp, dpv, X, Xv
+    k1_row["packed"] = dict(prow["hist_leaves"], max_abs_err=0.0,
+                            checks=pchecks["k1"])
+    fused_rows[0]["packed"] = dict(prow["fused_round"], max_abs_err=0.0,
+                                   checks=pchecks["k2"])
+    fused_rows[1]["packed"] = dict(prow["route_rows"], max_abs_err=0.0)
+    k6_row["packed"] = dict(
+        prow["fused_wave_loop"], checks=pchecks["k6"],
+        max_abs_err=max(max(c["max_gain_err"], c["max_sum_err"])
+                        for c in pchecks["k6"]))
+
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -2622,7 +3075,7 @@ def main(argv=None) -> int:
                     "train_profile": prof, "fused_train": fused,
                     "fused_parity": fparity, "fused_profile": fprof,
                     "loop_train": looped, "loop_profile": lprof,
-                    "paths": paths,
+                    "paths": paths, "packed_train": packed,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [k1_row] + fused_rows + [k6_row] + rows}),
           flush=True)

@@ -194,7 +194,7 @@ class Config:
     # fused rounds a launch: 1 = the single-round kernel K2; > 1 is the
     # persistent wave loop K6 (ops/loop_cuda.py; JAX config.py:402)
     wave_loop_rounds: int = 1
-    bin_layout: str = "auto"         # auto | u8 (packed4 not ported)
+    bin_layout: str = "auto"         # auto | u8 | packed4
     hist_dtype: str = "bf16x2"       # f32 | bf16 | bf16x2
     # sustained (largest-bucket) wave rounds: "" drops bf16x2 to bf16
     # there; "auto" is bf16x2 off the TPU; else the named dtype
@@ -515,7 +515,6 @@ class Config:
 # ROADMAP queue 1 items that port what the training slice refuses
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
-PACKED4 = "packed4 bins"
 INT8 = "int8 and int8sr histograms"
 HIST_METHODS = "histogram methods onehot and bench"
 BREADTH = "breadth of objectives and boosting"
@@ -563,8 +562,6 @@ _UNPORTED = (
      "categorical features", BREADTH),
     ("hist_method", lambda c: c.hist_method in ("onehot", "bench"),
      "hist_method={v}", HIST_METHODS),
-    ("bin_layout", lambda c: c.bin_layout == "packed4" and not c.gpu_use_dp,
-     "bin_layout=packed4", PACKED4),
     ("hist_dtype", lambda c: c.hist_dtype == "int8", "hist_dtype=int8",
      INT8),
     ("hist_dtype_deep", lambda c: (c.hist_dtype_deep == "int8" or (

@@ -7,6 +7,11 @@
 //    (L, F, B, 3) = [sum grad, sum hess, count] over the rows of each slot,
 //    from (F, N) u8 bins, (N, 3) f32 rows and (N,) i32 slot ids.  Rows
 //    whose id is outside [0, L) and bins outside [0, B) contribute nothing.
+//    The packed leg (the Pallas kernel's `packed=True`, bin_layout=packed4)
+//    reads (ceil(F/2), N) bytes of two 4-bit bins each, lo nibble = feature
+//    2p, hi = 2p + 1, and decodes the nibble at the load (bin_of,
+//    hist_tile.cuh); F is the real feature count, so its items, plan and
+//    cell order, and with them its bits, are the u8 leg's.
 //
 // Precision (the Pallas kernel's semantics): "f32" sums the f32 values;
 // "bf16" sums hi = bf16_rn(v); "bf16x2" sums hi and lo = bf16_rn(v - hi)
@@ -16,8 +21,9 @@
 // What bounds it on this card.  The function reads each bin byte, each
 // g3 row and each slot id once and writes the histogram once (about
 // 47.5 MB at 1,048,576 rows x 28 features, 64 slots of 64 bins): 14 us at
-// 3.35 TB/s.  Its arithmetic is a few f32 adds per (row, feature), far
-// below the f32 rate, so the bound is by bytes.  The TPU kernel instead
+// 3.35 TB/s; packed, the bins stream halves (F/2 bytes a row).  Its
+// arithmetic is a few f32 adds per (row, feature), far below the f32
+// rate, so the bound is by bytes.  The TPU kernel instead
 // multiplies a (3 L, rows) masked-gradient block by a (rows, F B) one-hot
 // on the MXU; on Hopper that product would do L times the useful work.
 //
@@ -76,12 +82,12 @@ __global__ void hist_merge_kernel(const float* __restrict__ partial,
       n_chunks);
 }
 
-template <int PREC, int NC>
+template <int PREC, int NC, bool PACKED>
 int launch(const uint8_t* binned, const float* g3, const int* leaf_id,
            float* partial, float* out, int n, int nf, int nl, int nl_add,
            int nb, int nb_out, int ls_max, int n_chunks, int chunk_rows,
            cudaStream_t stream) {
-  const int err = launch_hist_partial<PREC, NC>(
+  const int err = launch_hist_partial<PREC, NC, PACKED>(
       binned, g3, leaf_id, partial, n, nf, nl, nl_add, nb, ls_max, n_chunks,
       chunk_rows, stream);
   if (err != 0) return err;
@@ -93,6 +99,29 @@ int launch(const uint8_t* binned, const float* g3, const int* leaf_id,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool PACKED>
+int dispatch(int precision, const uint8_t* bn, const float* g,
+             const int* lid, float* p, float* o, int n, int nf, int nl,
+             int nl_add, int nb, int nb_out, int ls_max, int n_chunks,
+             int chunk_rows, cudaStream_t st) {
+  switch (precision) {
+    case kF32:
+      return launch<kF32, 3, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add, nb,
+                                     nb_out, ls_max, n_chunks, chunk_rows,
+                                     st);
+    case kBf16:
+      return launch<kBf16, 3, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
+                                      nb, nb_out, ls_max, n_chunks,
+                                      chunk_rows, st);
+    case kBf16x2:
+      return launch<kBf16x2, 6, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
+                                        nb, nb_out, ls_max, n_chunks,
+                                        chunk_rows, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -100,30 +129,27 @@ extern "C" {
 // Returns the cudaError_t of the launches (0 = both launched).  `partial`
 // is (n_chunks, nf, nl, nb, 6 or 3) f32 scratch; `out` is (nl, nf, nb_out,
 // 3) f32 with nb_out <= nb (the bins past nb_out are dropped).  Rows of
-// slots [nl_add, nl) add nothing (0 <= nl_add <= nl).
+// slots [nl_add, nl) add nothing (0 <= nl_add <= nl).  `binned` is (nf,
+// n) bytes, or with `packed` != 0 the (ceil(nf/2), n) packed bytes of the
+// nf features (nb must then be 16).
 int lgbm_hist_leaves(const void* binned, const void* g3, const void* leaf_id,
                      void* partial, void* out, int n, int nf, int nl,
                      int nl_add, int nb, int nb_out, int ls_max, int n_chunks,
-                     int chunk_rows, int precision, void* stream) {
+                     int chunk_rows, int precision, int packed,
+                     void* stream) {
   const uint8_t* bn = static_cast<const uint8_t*>(binned);
   const float* g = static_cast<const float*>(g3);
   const int* lid = static_cast<const int*>(leaf_id);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (precision) {
-    case kF32:
-      return launch<kF32, 3>(bn, g, lid, p, o, n, nf, nl, nl_add, nb, nb_out,
-                             ls_max, n_chunks, chunk_rows, st);
-    case kBf16:
-      return launch<kBf16, 3>(bn, g, lid, p, o, n, nf, nl, nl_add, nb, nb_out,
-                              ls_max, n_chunks, chunk_rows, st);
-    case kBf16x2:
-      return launch<kBf16x2, 6>(bn, g, lid, p, o, n, nf, nl, nl_add, nb,
-                                nb_out, ls_max, n_chunks, chunk_rows, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
+  if (packed) {
+    if (nb != 16) return static_cast<int>(cudaErrorInvalidValue);
+    return dispatch<true>(precision, bn, g, lid, p, o, n, nf, nl, nl_add, nb,
+                          nb_out, ls_max, n_chunks, chunk_rows, st);
   }
+  return dispatch<false>(precision, bn, g, lid, p, o, n, nf, nl, nl_add, nb,
+                         nb_out, ls_max, n_chunks, chunk_rows, st);
 }
 
 }  // extern "C"

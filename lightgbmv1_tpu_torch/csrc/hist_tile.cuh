@@ -26,6 +26,13 @@
 // "bf16" sums hi = bf16_rn(v); "bf16x2" sums hi and lo = bf16_rn(v - hi)
 // separately (NC = 6 accumulators a cell: hi, then lo).  The kernel only
 // adds and subtracts, so floating-point contraction cannot change it.
+//
+// Bins: (nf, n) bytes, or (PACKED, bin_layout=packed4) the (ceil(nf/2), n)
+// bytes of two features each, lo nibble = feature 2p, hi = 2p + 1
+// (ops/hist_cuda.pack4bit).  A packed item reads its feature's pair
+// column and takes the nibble at use (bin_of); nf is the real feature
+// count, so the items, the partial layout and every cell's rows and their
+// order are the byte leg's, and so are the bits.
 
 #pragma once
 
@@ -59,6 +66,21 @@ __device__ __forceinline__ int row_key(int leaf, int bin, int s0, int s_add,
                                        int nb) {
   const int s = leaf - s0;
   return s >= 0 && s < s_add && bin < nb ? s * nb + bin : -1;
+}
+
+// The stored byte column of feature f: its own row of the (nf, n) bins,
+// or (PACKED) its pair's row of the (ceil(nf/2), n) packed bytes.
+template <bool PACKED>
+__device__ __forceinline__ const uint8_t* bin_column(const uint8_t* binned,
+                                                     int f, int n) {
+  return binned + static_cast<size_t>(PACKED ? f >> 1 : f) * n;
+}
+
+// Feature f's bin in a byte of its column (PACKED: the lo nibble for an
+// even f, the hi one for an odd f).
+template <bool PACKED>
+__device__ __forceinline__ int bin_of(int byte, int f) {
+  return PACKED ? (byte >> ((f & 1) * 4)) & 15 : byte;
 }
 
 // Tiles of slot ids and bins a thread keeps in flight ahead of its adds
@@ -190,7 +212,7 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
 // (wave_loop.cu) rewrites the labels and re-reads the partials between
 // grid barriers of one launch, so they must not go through the
 // read-only cache.
-template <int PREC, int NC>
+template <int PREC, int NC, bool PACKED>
 __device__ __forceinline__ void hist_partial_item(
     int f, int chunk, int group, const uint8_t* __restrict__ binned,
     const float* __restrict__ g3, const int* leaf_id, float* partial, int n,
@@ -213,11 +235,12 @@ __device__ __forceinline__ void hist_partial_item(
 
   const int r_begin = chunk * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
-  const uint8_t* brow = binned + static_cast<size_t>(f) * n;
+  const uint8_t* brow = bin_column<PACKED>(binned, f, n);
 
   // A ring of this thread's rows of the next kDepth tiles (slot ids and
-  // bins, loaded unconditionally from a clamped row and judged at use, so
-  // no instruction waits on a load before its tile), and the values of
+  // bin bytes, loaded unconditionally from a clamped row and judged and
+  // decoded at use, so no instruction waits on a load before its tile),
+  // and the values of
   // the current and the next tile, by the parity of the tile (kDepth is
   // even, so the parity of a ring slot is fixed).
   if (r_begin < r_end) {
@@ -230,8 +253,8 @@ __device__ __forceinline__ void hist_partial_item(
     }
     int key[2];
     float v[2][3];
-    key[0] = row_key(r_begin + tid < r_end ? lf[0] : -1, bn[0], s0, s_add,
-                     nb);
+    key[0] = row_key(r_begin + tid < r_end ? lf[0] : -1,
+                     bin_of<PACKED>(bn[0], f), s0, s_add, nb);
     if (key[0] >= 0)
       for (int c = 0; c < 3; ++c)
         v[0][c] = g3[static_cast<size_t>(r_begin + tid) * 3 + c];
@@ -245,8 +268,8 @@ __device__ __forceinline__ void hist_partial_item(
         const int dn = (d + 1) % kDepth;
         // the next tile's key, and its values in flight while this one
         // adds
-        key[nxt] = row_key(r + kThreads < r_end ? lf[dn] : -1, bn[dn], s0,
-                           s_add, nb);
+        key[nxt] = row_key(r + kThreads < r_end ? lf[dn] : -1,
+                           bin_of<PACKED>(bn[dn], f), s0, s_add, nb);
         if (key[nxt] >= 0)
           for (int c = 0; c < 3; ++c)
             v[nxt][c] = g3[static_cast<size_t>(r + kThreads) * 3 + c];
@@ -280,7 +303,7 @@ __device__ __forceinline__ void hist_partial_item(
 // rows' labels, at a cost that follows the live rows.  Slots [nl_add, nl)
 // are listed by no row and come out 0; an empty chunk writes its zero
 // partial and ends.
-template <int PREC, int NC>
+template <int PREC, int NC, bool PACKED>
 __device__ __forceinline__ void hist_partial_list_item(
     int f, int chunk, int group, const uint8_t* __restrict__ binned,
     const float* __restrict__ g3, const int* lrow, const int* lslot,
@@ -306,10 +329,11 @@ __device__ __forceinline__ void hist_partial_list_item(
   const size_t base = static_cast<size_t>(chunk) * chunk_rows;
   const int* rows = lrow + base;
   const int* slots = lslot + base;
-  const uint8_t* brow = binned + static_cast<size_t>(f) * n;
+  const uint8_t* brow = bin_column<PACKED>(binned, f, n);
   // A ring of this thread's list entries (row, slot) of the next kDepth
-  // tiles (row -1 past the list), and the bin and values of the current
-  // tile's row, gathered one tile ahead and judged at use.
+  // tiles (row -1 past the list), and the bin byte and values of the
+  // current tile's row, gathered one tile ahead and judged and decoded at
+  // use.
   int rw[kDepth], sl[kDepth];
 #pragma unroll
   for (int d = 0; d < kDepth; ++d) {
@@ -327,7 +351,9 @@ __device__ __forceinline__ void hist_partial_list_item(
 #pragma unroll
     for (int d = 0; d < kDepth; ++d) {
       if (t0 + d * kThreads >= cnt) break;
-      const int key = rw[d] >= 0 ? row_key(sl[d], bn, s0, ls, nb) : -1;
+      const int key =
+          rw[d] >= 0 ? row_key(sl[d], bin_of<PACKED>(bn, f), s0, ls, nb)
+                     : -1;
       const float v[3] = {vn[0], vn[1], vn[2]};
       // the next tile's bin and values, in flight while this one adds
       const int rn = rw[(d + 1) % kDepth];
@@ -354,7 +380,7 @@ __device__ __forceinline__ void hist_partial_list_item(
 // (nf, n_chunks, slot groups).  MANY: a block small enough in shared
 // memory for five an SM is held to the registers of five (the plan's 532
 // blocks at the headline then run in one wave of 660, not 528 + 4).
-template <int PREC, int NC, bool MANY>
+template <int PREC, int NC, bool MANY, bool PACKED>
 __global__ void __launch_bounds__(kThreads, MANY ? 5 : 1)
 hist_partial_kernel(const uint8_t* __restrict__ binned,
                     const float* __restrict__ g3,
@@ -362,13 +388,14 @@ hist_partial_kernel(const uint8_t* __restrict__ binned,
                     float* __restrict__ partial, int n, int nf, int nl,
                     int nl_add, int nb, int ls_max, int chunk_rows) {
   extern __shared__ float smem[];
-  hist_partial_item<PREC, NC>(blockIdx.x, blockIdx.y, blockIdx.z, binned, g3,
-                              leaf_id, partial, n, nf, nl, nl_add, nb,
-                              ls_max, chunk_rows, smem);
+  hist_partial_item<PREC, NC, PACKED>(blockIdx.x, blockIdx.y, blockIdx.z,
+                                      binned, g3, leaf_id, partial, n, nf,
+                                      nl, nl_add, nb, ls_max, chunk_rows,
+                                      smem);
 }
 
 // The list walk as a kernel, on the grid (nf, n_chunks, slot groups).
-template <int PREC, int NC, bool MANY>
+template <int PREC, int NC, bool MANY, bool PACKED>
 __global__ void __launch_bounds__(kThreads, MANY ? 5 : 1)
 hist_partial_list_kernel(const uint8_t* __restrict__ binned,
                          const float* __restrict__ g3,
@@ -378,9 +405,9 @@ hist_partial_list_kernel(const uint8_t* __restrict__ binned,
                          float* __restrict__ partial, int n, int nf, int nl,
                          int nb, int ls_max, int chunk_rows) {
   extern __shared__ float smem[];
-  hist_partial_list_item<PREC, NC>(blockIdx.x, blockIdx.y, blockIdx.z, binned,
-                                   g3, lrow, lslot, lcnt, partial, n, nf, nl,
-                                   nb, ls_max, chunk_rows, smem);
+  hist_partial_list_item<PREC, NC, PACKED>(
+      blockIdx.x, blockIdx.y, blockIdx.z, binned, g3, lrow, lslot, lcnt,
+      partial, n, nf, nl, nb, ls_max, chunk_rows, smem);
 }
 
 // One channel of one cell, summed over the chunks in chunk order: the hi
@@ -404,14 +431,15 @@ constexpr size_t kManySmem = 44 * 1024;
 // Sets the partial kernel's shared memory and launches it on the grid
 // (nf, n_chunks, slot groups): nl slots of which [0, nl_add) add.
 // Returns the cudaError_t.
-template <int PREC, int NC>
+template <int PREC, int NC, bool PACKED>
 int launch_hist_partial(const uint8_t* binned, const float* g3,
                         const int* leaf_id, float* partial, int n, int nf,
                         int nl, int nl_add, int nb, int ls_max, int n_chunks,
                         int chunk_rows, cudaStream_t stream) {
   const size_t smem = hist_partial_smem(ls_max, nb, NC);
-  const auto kernel = smem <= kManySmem ? hist_partial_kernel<PREC, NC, true>
-                                        : hist_partial_kernel<PREC, NC, false>;
+  const auto kernel = smem <= kManySmem
+                          ? hist_partial_kernel<PREC, NC, true, PACKED>
+                          : hist_partial_kernel<PREC, NC, false, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -426,7 +454,7 @@ int launch_hist_partial(const uint8_t* binned, const float* g3,
 
 // Sets the list walk's shared memory and launches it on the grid (nf,
 // n_chunks, slot groups).  Returns the cudaError_t.
-template <int PREC, int NC>
+template <int PREC, int NC, bool PACKED>
 int launch_hist_partial_list(const uint8_t* binned, const float* g3,
                              const int* lrow, const int* lslot,
                              const int* lcnt, float* partial, int n, int nf,
@@ -434,8 +462,8 @@ int launch_hist_partial_list(const uint8_t* binned, const float* g3,
                              int chunk_rows, cudaStream_t stream) {
   const size_t smem = hist_partial_smem(ls_max, nb, NC);
   const auto kernel = smem <= kManySmem
-                          ? hist_partial_list_kernel<PREC, NC, true>
-                          : hist_partial_list_kernel<PREC, NC, false>;
+                          ? hist_partial_list_kernel<PREC, NC, true, PACKED>
+                          : hist_partial_list_kernel<PREC, NC, false, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -40,6 +40,12 @@
 //    through fused_route_rows): the valid set routed through one round's
 //    splits by launch (a)'s row function (route_row, the same binary
 //    search) without the label or the tile counts.
+// Both take 4-bit packed bins (`packed`, the Pallas kernels' `fpb > 0` /
+//    `decision_bins(packed=True)` legs, bin_layout=packed4): (ceil(F/2), N)
+//    bytes of two features each.  Only the loads in (a) and (c) differ
+//    (bin_of, hist_tile.cuh); F is the real feature count, so the grid,
+//    the plan, the lists and the cell order, and with them the bits, are
+//    the u8 leg's.
 //
 // The stages are __device__ functions of one work item each
 // (route_label_tile, list_tile and scan_item in wave_round.cuh,
@@ -91,6 +97,7 @@ constexpr size_t kRouteSlotBytes = sizeof(Slot) + 2 * sizeof(int);
 
 // K3: route_tile on the rows of the grid (route_row, wave_round.cuh),
 // without the label.
+template <bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 route_kernel(const uint8_t* __restrict__ binned,
              const int* __restrict__ oleaf, const int* __restrict__ feats,
@@ -106,13 +113,13 @@ route_kernel(const uint8_t* __restrict__ binned,
   __syncthreads();
   const int step = gridDim.x * blockDim.x;
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += step)
-    route_row<false, false>(r, binned, oleaf, slots, sleaf, sidx, n, ns, 0,
-                            new_leaf, nullptr);
+    route_row<false, false, PACKED>(r, binned, oleaf, slots, sleaf, sidx, n,
+                                    ns, 0, new_leaf, nullptr);
 }
 
 // K2 (a): route_label_tile on the tiles of the grid: new leaf ids, the
 // label and each tile's live rows.
-template <bool SUB>
+template <bool SUB, bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 route_label_kernel(const uint8_t* __restrict__ binned,
                    const int* __restrict__ oleaf,
@@ -130,8 +137,8 @@ route_label_kernel(const uint8_t* __restrict__ binned,
   __syncthreads();
   const int tiles = (n + kThreads - 1) / kThreads;
   for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-    route_label_tile<SUB>(t, binned, oleaf, slots, sleaf, sidx, n, ns,
-                          nslots, new_leaf, label, tile_cnt);
+    route_label_tile<SUB, PACKED>(t, binned, oleaf, slots, sleaf, sidx, n,
+                                  ns, nslots, new_leaf, label, tile_cnt);
 }
 
 // K2 (b): list_tile on the tiles of the grid.
@@ -173,7 +180,7 @@ struct RoundScratch {
   float* partial;
 };
 
-template <int PREC, int NC, bool SUB>
+template <int PREC, int NC, bool SUB, bool PACKED>
 int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
                  const int* feats, const int* rmeta, int* label,
                  int* new_leaf, const RoundScratch& w, const int* fmeta,
@@ -190,10 +197,12 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
     err = static_cast<int>(
         cudaMemsetAsync(w.lcnt, 0, n_chunks * sizeof(int), stream));
   } else {
-    route_label_kernel<SUB><<<route_blocks(tiles), kThreads,
-                              static_cast<size_t>(S) * kRouteSlotBytes,
-                              stream>>>(binned, oleaf, feats, rmeta, new_leaf,
-                                        label, w.tile_cnt, n, S, nslots);
+    route_label_kernel<SUB, PACKED><<<route_blocks(tiles), kThreads,
+                                      static_cast<size_t>(S) *
+                                          kRouteSlotBytes,
+                                      stream>>>(binned, oleaf, feats, rmeta,
+                                                new_leaf, label, w.tile_cnt,
+                                                n, S, nslots);
     err = static_cast<int>(cudaGetLastError());
     if (err != 0) return err;
     list_kernel<<<route_blocks(tiles), kThreads, 0, stream>>>(
@@ -202,10 +211,9 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
   }
   if (err != 0) return err;
   const int nl = nslots + 1;  // slot nslots: the rows of no split, unlisted
-  err = launch_hist_partial_list<PREC, NC>(binned, g3, w.lrow, w.lslot,
-                                           w.lcnt, w.partial, n, nf, nl, nb,
-                                           ls_max, n_chunks, chunk_rows,
-                                           stream);
+  err = launch_hist_partial_list<PREC, NC, PACKED>(
+      binned, g3, w.lrow, w.lslot, w.lcnt, w.partial, n, nf, nl, nb, ls_max,
+      n_chunks, chunk_rows, stream);
   if (err != 0) return err;
   dim3 grid(S, nf);
   scan_kernel<NC, SUB><<<grid, kScanGroup, 0, stream>>>(
@@ -214,7 +222,7 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool SUB>
+template <bool SUB, bool PACKED>
 int dispatch_precision(int precision, const uint8_t* binned, const float* g3,
                        const int* oleaf, const int* feats, const int* rmeta,
                        int* label, int* new_leaf, const RoundScratch& w,
@@ -226,17 +234,17 @@ int dispatch_precision(int precision, const uint8_t* binned, const float* g3,
                        const ScanParams& prm, cudaStream_t stream) {
   switch (precision) {
     case kF32:
-      return launch_round<kF32, 3, SUB>(
+      return launch_round<kF32, 3, SUB, PACKED>(
           binned, g3, oleaf, feats, rmeta, label, new_leaf, w, fmeta, mask,
           csums, sml, parent, residue, hsmall, n, nf, S, nslots, nb, B,
           ls_max, n_chunks, chunk_rows, prm, stream);
     case kBf16:
-      return launch_round<kBf16, 3, SUB>(
+      return launch_round<kBf16, 3, SUB, PACKED>(
           binned, g3, oleaf, feats, rmeta, label, new_leaf, w, fmeta, mask,
           csums, sml, parent, residue, hsmall, n, nf, S, nslots, nb, B,
           ls_max, n_chunks, chunk_rows, prm, stream);
     case kBf16x2:
-      return launch_round<kBf16x2, 6, SUB>(
+      return launch_round<kBf16x2, 6, SUB, PACKED>(
           binned, g3, oleaf, feats, rmeta, label, new_leaf, w, fmeta, mask,
           csums, sml, parent, residue, hsmall, n, nf, S, nslots, nb, B,
           ls_max, n_chunks, chunk_rows, prm, stream);
@@ -257,7 +265,9 @@ extern "C" {
 // `fmeta` (5, nf) i32 [num_bins, missing_type, nan_bin, zero_bin,
 // usable]; `mask` (2S, nf) and `sml` (S,) bytes; `csums` (2S, 3);
 // `parent` / `hsmall` (S, nf, B, 3) in subtraction mode (`sub` != 0,
-// nslots = S; else nslots = 2S); `residue` (2S, nf, 6).
+// nslots = S; else nslots = 2S); `residue` (2S, nf, 6).  `binned` is
+// (nf, N) bytes, or with `packed` != 0 the (ceil(nf/2), N) packed bytes
+// of the nf features (nb must then be 16).
 int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      const void* feats, const void* rmeta, void* label,
                      void* new_leaf, void* tile_cnt, void* lrow, void* lslot,
@@ -265,10 +275,11 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      const void* mask, const void* csums, const void* sml,
                      const void* parent, void* residue, void* hsmall, int n,
                      int nf, int S, int nb, int B, int ls_max, int n_chunks,
-                     int chunk_rows, int precision, int sub, float l1,
-                     float l2, float min_data, float min_hess,
+                     int chunk_rows, int precision, int sub, int packed,
+                     float l1, float l2, float min_data, float min_hess,
                      float min_gain, void* stream) {
-  if (B > kMaxBins || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (B > kMaxBins || S <= 0 || (packed && nb != 16))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ScanParams prm{l1, l2, min_data, min_hess, min_gain};
   const RoundScratch w{static_cast<int*>(tile_cnt), static_cast<int*>(lrow),
                        static_cast<int*>(lslot), static_cast<int*>(lcnt),
@@ -288,23 +299,25 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
   auto* res = static_cast<float*>(residue);
   auto* hs = static_cast<float*>(hsmall);
   auto st = static_cast<cudaStream_t>(stream);
-  if (sub)
-    return dispatch_precision<true>(
-        precision, bn, g, ol, ft, rm, lab, nlf, w, fm, mk, cs, sm, pr, res,
-        hs, n, nf, S, S, nb, B, ls_max, n_chunks, chunk_rows, prm, st);
-  return dispatch_precision<false>(
-      precision, bn, g, ol, ft, rm, lab, nlf, w, fm, mk, cs, sm, pr, res, hs,
-      n, nf, S, 2 * S, nb, B, ls_max, n_chunks, chunk_rows, prm, st);
+  const auto run = sub ? (packed ? dispatch_precision<true, true>
+                                 : dispatch_precision<true, false>)
+                       : (packed ? dispatch_precision<false, true>
+                                 : dispatch_precision<false, false>);
+  return run(precision, bn, g, ol, ft, rm, lab, nlf, w, fm, mk, cs, sm, pr,
+             res, hs, n, nf, S, sub ? S : 2 * S, nb, B, ls_max, n_chunks,
+             chunk_rows, prm, st);
 }
 
-// K3.  (N,) leaf ids of `binned`'s rows after the S splits of `rmeta`.
+// K3.  (N,) leaf ids of `binned`'s rows after the S splits of `rmeta`
+// (`packed` != 0: `binned` holds packed bytes).
 int lgbm_route_rows(const void* binned, const void* oleaf, const void* feats,
-                    const void* rmeta, void* out, int n, int S,
+                    const void* rmeta, void* out, int n, int S, int packed,
                     void* stream) {
   if (n == 0) return 0;
-  route_kernel<<<route_blocks((n + kThreads - 1) / kThreads), kThreads,
-                 static_cast<size_t>(S) * kRouteSlotBytes,
-                 static_cast<cudaStream_t>(stream)>>>(
+  const auto kernel = packed ? route_kernel<true> : route_kernel<false>;
+  kernel<<<route_blocks((n + kThreads - 1) / kThreads), kThreads,
+           static_cast<size_t>(S) * kRouteSlotBytes,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(binned), static_cast<const int*>(oleaf),
       static_cast<const int*>(feats), static_cast<const int*>(rmeta),
       static_cast<int*>(out), n, S);

@@ -38,7 +38,11 @@
 //    run (csrc/wave_fused.cu, csrc/hist.cu), on the same work items under
 //    the same plan, so every round equals the single round K2 runs at the
 //    same bucket, bit for bit, whatever the grid: the grid only decides
-//    which block runs an item.  Stages are separated by grid barriers
+//    which block runs an item.  The packed leg (`packed`, the Pallas
+//    kernel's `packed` / bin_layout=packed4) runs the headers' packed
+//    route and list walk on (ceil(F/2), N) bytes of two 4-bit bins each;
+//    its plans are the real F's, so its rounds are the u8 leg's, bit for
+//    bit.  Stages are separated by grid barriers
 //    (cooperative_groups::this_grid().sync()); a round whose n is 0 ends
 //    the loop in every block (all read the same n after a barrier), and
 //    its rows stay the zeros the wrapper wrote.
@@ -102,7 +106,7 @@ inline int bnd_ints(int K, int nf) {
 }
 
 struct LoopArgs {
-  const uint8_t* binned;     // (nf, n)
+  const uint8_t* binned;     // (nf, n), or packed (ceil(nf/2), n)
   const float* g3;           // (n, 3)
   int* leaf;                 // (n,) leaf ids, routed in place
   float* ft;                 // (L, 12) frontier, committed in place
@@ -264,7 +268,7 @@ __device__ __forceinline__ void stamp(const LoopArgs& a, int i) {
     a.debug[i] = global_ns();
 }
 
-template <int PREC, int NC, bool SUB>
+template <int PREC, int NC, bool SUB, bool PACKED>
 __global__ void __launch_bounds__(kThreads, 2)
 wave_loop_kernel(LoopArgs a) {
   extern __shared__ float kernel_smem[];
@@ -298,8 +302,9 @@ wave_loop_kernel(LoopArgs a) {
     __syncthreads();
     const int tiles = (a.n + kThreads - 1) / kThreads;
     for (int t = blockIdx.x; t < tiles; t += gridDim.x)
-      route_label_tile<SUB>(t, a.binned, a.leaf, slots, sleaf, sidx, a.n, S,
-                            nslots, a.leaf, a.label, a.tile_cnt);
+      route_label_tile<SUB, PACKED>(t, a.binned, a.leaf, slots, sleaf, sidx,
+                                    a.n, S, nslots, a.leaf, a.label,
+                                    a.tile_cnt);
     if (blockIdx.x == 0 && threadIdx.x == 0) a.bnd[4] = 0;  // stage 3's
     grid.sync();
     stamp(a, st);
@@ -331,11 +336,10 @@ wave_loop_kernel(LoopArgs a) {
       __syncthreads();
       const int w = s_item;
       if (w >= items) break;
-      hist_partial_list_item<PREC, NC>(w % nf, (w / nf) % n_chunks,
-                                       w / (nf * n_chunks), a.binned, a.g3,
-                                       a.lrow, a.lslot, a.lcnt, a.partial,
-                                       a.n, nf, nlh, a.nb, ls_max, chunk_rows,
-                                       smem);
+      hist_partial_list_item<PREC, NC, PACKED>(
+          w % nf, (w / nf) % n_chunks, w / (nf * n_chunks), a.binned, a.g3,
+          a.lrow, a.lslot, a.lcnt, a.partial, a.n, nf, nlh, a.nb, ls_max,
+          chunk_rows, smem);
     }
     grid.sync();
     stamp(a, st + 2);
@@ -379,16 +383,22 @@ wave_loop_kernel(LoopArgs a) {
 
 using LoopKernel = void (*)(LoopArgs);
 
-LoopKernel kernel_for(int precision, int sub) {
-  switch (precision * 2 + (sub ? 1 : 0)) {
-    case kF32 * 2: return wave_loop_kernel<kF32, 3, false>;
-    case kF32 * 2 + 1: return wave_loop_kernel<kF32, 3, true>;
-    case kBf16 * 2: return wave_loop_kernel<kBf16, 3, false>;
-    case kBf16 * 2 + 1: return wave_loop_kernel<kBf16, 3, true>;
-    case kBf16x2 * 2: return wave_loop_kernel<kBf16x2, 6, false>;
-    case kBf16x2 * 2 + 1: return wave_loop_kernel<kBf16x2, 6, true>;
+template <bool SUB, bool PACKED>
+LoopKernel kernel_of(int precision) {
+  switch (precision) {
+    case kF32: return wave_loop_kernel<kF32, 3, SUB, PACKED>;
+    case kBf16: return wave_loop_kernel<kBf16, 3, SUB, PACKED>;
+    case kBf16x2: return wave_loop_kernel<kBf16x2, 6, SUB, PACKED>;
     default: return nullptr;
   }
+}
+
+LoopKernel kernel_for(int precision, int sub, int packed_bins) {
+  if (sub)
+    return packed_bins ? kernel_of<true, true>(precision)
+                       : kernel_of<true, false>(precision);
+  return packed_bins ? kernel_of<false, true>(precision)
+                     : kernel_of<false, false>(precision);
 }
 
 // The largest stage's dynamic shared memory: the partials of any bucket,
@@ -446,10 +456,12 @@ int lgbm_wave_loop_debug_words(int R) { return debug_words(R); }
 // The launch's limits on the current device (out: shared memory a block,
 // resident blocks an SM, SMs, cooperative launch supported); returns the
 // cudaError_t of the queries.  `ls_max` holds each ladder bucket's
-// partial-stage slot group (ops/hist_cuda.plan).
-int lgbm_wave_loop_limits(int precision, int sub, int nb, int L, int K,
-                          int n_buckets, const int* ls_max, int* out) {
-  const LoopKernel kern = kernel_for(precision, sub);
+// partial-stage slot group (ops/hist_cuda.plan); `packed_bins` selects the
+// packed leg's kernel.
+int lgbm_wave_loop_limits(int precision, int sub, int packed_bins, int nb,
+                          int L, int K, int n_buckets, const int* ls_max,
+                          int* out) {
+  const LoopKernel kern = kernel_for(precision, sub, packed_bins);
   if (!kern || n_buckets < 1 || n_buckets > kMaxLadder)
     return static_cast<int>(cudaErrorInvalidValue);
   const int nc = precision == kBf16x2 ? 6 : 3;
@@ -465,6 +477,8 @@ int lgbm_wave_loop_limits(int precision, int sub, int nb, int L, int K,
 // `lslot`, `lcnt` (fused_cuda.list_scratch at the largest bucket's plan),
 // `partial` (the largest bucket's), `residue` (2K, nf, 6) and `bnd`
 // (lgbm_wave_loop_bnd_ints) are scratch.  Pool-free when `sub` is 0.
+// `binned` is (nf, n) bytes, or with `packed_bins` != 0 the (ceil(nf/2),
+// n) packed bytes of the nf features (nb must then be 16).
 // `debug` (null, or lgbm_wave_loop_debug_words(R) zeroed words) receives
 // block 0's globaltimer stamps (ns) after each grid barrier and each
 // round's live rows.
@@ -476,12 +490,14 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          void* debug, const void* tables, int n, int nf,
                          int B, int nb,
                          int L, int K, int R, int num_leaves, int max_depth,
-                         int n_buckets, int precision, int sub, float l1,
-                         float l2, float min_data, float min_hess,
-                         float min_gain, void* stream) {
-  const LoopKernel kern = kernel_for(precision, sub);
+                         int n_buckets, int precision, int sub,
+                         int packed_bins, float l1, float l2,
+                         float min_data, float min_hess, float min_gain,
+                         void* stream) {
+  const LoopKernel kern = kernel_for(precision, sub, packed_bins);
   if (!kern || B > kMaxBins || K < 1 || R < 1 || n_buckets < 1 ||
-      n_buckets > kMaxLadder || (sub && !pool))
+      n_buckets > kMaxLadder || (sub && !pool) ||
+      (packed_bins && nb != 16))
     return static_cast<int>(cudaErrorInvalidValue);
   LoopArgs a{};
   a.binned = static_cast<const uint8_t*>(binned);

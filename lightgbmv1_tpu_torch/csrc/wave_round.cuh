@@ -6,7 +6,10 @@
 // (hist_partial_list_item, in hist_tile.cuh) or a (slot, feature)
 // (scan_item) — so the kernels compute the same values from the same
 // inputs whatever grid runs them.  ops/_build.py hashes every csrc/*.cuh
-// a source includes into the library's name.
+// a source includes into the library's name.  The two stages that read
+// bins (route_row's decision bin, hist_partial_list_item's ring) take a
+// PACKED leg for 4-bit packed bins (bin_layout=packed4); every stage after
+// the load is the same code.
 //
 // Buffers the loop rewrites inside one launch (leaf ids, labels, tile
 // counts, lists, partials, the round's slots, mask and sums, the pool,
@@ -93,8 +96,10 @@ __device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
 // row's leaf id before it writes the new one, so `new_leaf` may be
 // `oleaf`.  WANT_LABEL (K2 and K6; K3 routes without it) also writes and
 // returns the label: the smaller child's slot in subtraction mode, 2s +
-// right pool-free, nslots for a row of no split.
-template <bool WANT_LABEL, bool SUB>
+// right pool-free, nslots for a row of no split.  PACKED: `binned` holds
+// the packed bytes, and the decision bin is the nibble of the slot's
+// feature (bin_column / bin_of, hist_tile.cuh).
+template <bool WANT_LABEL, bool SUB, bool PACKED>
 __device__ __forceinline__ int route_row(
     int r, const uint8_t* __restrict__ binned, const int* oleaf,
     const Slot* slots, const int* sleaf, const int* sidx, int n, int ns,
@@ -114,8 +119,8 @@ __device__ __forceinline__ int route_row(
     const int s = sidx[p];
     const Slot& m = slots[s];
     slot_terms<WANT_LABEL, SUB>(
-        s, m, binned[static_cast<size_t>(m.feat) * n + r], lf, nslots, dleaf,
-        dlab);
+        s, m, bin_of<PACKED>(bin_column<PACKED>(binned, m.feat, n)[r], m.feat),
+        lf, nslots, dleaf, dlab);
   }
   new_leaf[r] = lf + dleaf;
   if (WANT_LABEL) label[r] = nslots + dlab;
@@ -125,7 +130,7 @@ __device__ __forceinline__ int route_row(
 // route_row with the label on the rows of 256-row tile t, by all
 // kThreads threads of the block, and the tile's live rows (label below
 // nslots: the rows the round's histograms add) into tile_cnt[t].
-template <bool SUB>
+template <bool SUB, bool PACKED>
 __device__ __forceinline__ void route_label_tile(
     int t, const uint8_t* __restrict__ binned, const int* oleaf,
     const Slot* slots, const int* sleaf, const int* sidx, int n, int ns,
@@ -133,8 +138,9 @@ __device__ __forceinline__ void route_label_tile(
   const int r = t * kThreads + threadIdx.x;
   bool live = false;
   if (r < n)
-    live = route_row<true, SUB>(r, binned, oleaf, slots, sleaf, sidx, n, ns,
-                                nslots, new_leaf, label) < nslots;
+    live = route_row<true, SUB, PACKED>(r, binned, oleaf, slots, sleaf,
+                                        sidx, n, ns, nslots, new_leaf,
+                                        label) < nslots;
   const int c = __syncthreads_count(live);
   if (threadIdx.x == 0) tile_cnt[t] = c;
 }

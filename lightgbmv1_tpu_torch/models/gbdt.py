@@ -14,7 +14,9 @@ ops run on the card (the histogram through the CUDA kernel K1).  The wave
 grower routes the valid rows through each round's splits, so a valid
 score update is a leaf-value gather, as in the JAX step; the sequential
 and level-wise growers' valid sets walk each tree on their bins
-(``tree_predict_binned``, JAX :405).  DART, GOSS,
+(``tree_predict_binned``, JAX :405).  Where ``select_bin_layout`` picks
+``packed4`` the training matrix is packed once (``pack4bit``, JAX
+:143-153) and every valid matrix with it (:674-678).  DART, GOSS,
 RF, bagging, feature fraction, rollback and checkpoints are not ported
 (the config refuses them).
 """
@@ -30,6 +32,7 @@ from ..config import Config, unported_reason
 from ..io.dataset import BinnedDataset
 from ..metrics import Metric, create_metrics
 from ..objectives import create_objective
+from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
 from ..utils.log import log_info, log_warning
@@ -65,10 +68,12 @@ class GBDT:
         self.objective = create_objective(config)
         self.objective.init(train_set.metadata, self.num_data, self.device)
 
-        select_bin_layout(config, num_total_bin=train_set.num_total_bin,
-                          device=self.device)
-        self.binned = torch.as_tensor(train_set.train_matrix,
-                                      device=self.device).contiguous()
+        binned = torch.as_tensor(train_set.train_matrix,
+                                 device=self.device).contiguous()
+        self._packed = select_bin_layout(
+            config, num_total_bin=train_set.num_total_bin,
+            device=self.device, bin_dtype=binned.dtype) == "packed4"
+        self.binned = pack4bit(binned) if self._packed else binned
         self.meta = make_feature_meta(train_set, self.device)
         self.num_bins = train_set.padded_bin
         self.split_params = SplitParams(
@@ -79,7 +84,8 @@ class GBDT:
         self._grow = build_trainer(config, self.meta, self.split_params,
                                    self.num_bins, self.device,
                                    bin_dtype=self.binned.dtype,
-                                   num_data=self.num_data)
+                                   num_data=self.num_data,
+                                   packed=self._packed)
         # the per-tree feature mask at feature_fraction 1: usable features
         self._base_mask = self.meta.usable
 
@@ -131,8 +137,9 @@ class GBDT:
             init = self._init_scores[None, :]
         self._valid_sets.append(valid_set)
         self._valid_names.append(name)
-        self._valid_binned.append(torch.as_tensor(
-            valid_set.train_matrix, device=self.device).contiguous())
+        vb = torch.as_tensor(valid_set.train_matrix,
+                             device=self.device).contiguous()
+        self._valid_binned.append(pack4bit(vb) if self._packed else vb)
         self._valid_scores.append(_ScoreUpdater(
             valid_set.num_data, self.num_class, init, self.device))
         self._valid_metrics.append(metrics)
@@ -168,7 +175,8 @@ class GBDT:
                     shrunk.leaf_value[vlids[vi].long()] if vlids is not None
                     else tree_predict_binned(shrunk, vb, self.meta.nan_bin,
                                              self.meta.missing_type,
-                                             self.meta.zero_bin))
+                                             self.meta.zero_bin,
+                                             self._packed))
             trees.append(shrunk)
         # one (N, K) add per score cache: this iteration's gradients were
         # taken before the class loop, so deferring is exact

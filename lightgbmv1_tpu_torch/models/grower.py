@@ -33,6 +33,11 @@ batched ``ops/split.py`` call a step.
   the sibling is the parent's histogram minus it (JAX :880-920), while
   the level's histogram state stays under 512 MB.
 
+Both take ``packed``: ``binned`` holds 4-bit packed bytes
+(``bin_layout=packed4``), the histograms' callables read them (K1's packed
+leg) and the partitions decode their split feature's nibble
+(``hist_cuda.bins_of_feat`` / ``bins_of_rows``).
+
 Forced splits, CEGB, monotone and interaction constraints, per-node
 feature sampling and extra_trees are not ported (the config refuses
 them): every node's feature mask is the tree's.
@@ -45,6 +50,7 @@ from typing import Callable
 
 import torch
 
+from ..ops.hist_cuda import bins_of_feat, bins_of_rows
 from ..ops.split import (NEG_INF, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output)
@@ -59,7 +65,8 @@ _POOL_AUTO_BYTES = 512.0 * (1 << 20)
 def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                          meta: FeatureMeta, params: SplitParams,
                          hist_fn: Callable, max_depth: int = -1,
-                         partition: bool = True, hist_pool_mb: float = -1.0):
+                         partition: bool = True, hist_pool_mb: float = -1.0,
+                         packed: bool = False):
     """Build ``grow(binned, g3, base_mask) -> (tree, leaf_id, root_sum)``.
 
     ``hist_fn(binned, g3, leaf_id, target) -> (F, B, 3)``: the histogram
@@ -144,7 +151,7 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             if partition:
                 b0, n_p = begin[leaf], phys[leaf]
                 seg = order[b0:b0 + n_p]
-                bseg = binned[feat][seg].long()
+                bseg = bins_of_feat(binned, feat, packed)[seg].long()
                 gl = go_left_rule(bseg, thr, dl, mt, nanb, zb)
                 left_rows, right_rows = seg[gl], seg[~gl]    # stable
                 n_l = int(left_rows.shape[0])
@@ -157,7 +164,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                 h_large = None if use_pool else hist_rows(lg_b, lg_n)
                 begin[nl], phys[leaf], phys[nl] = b0 + n_l, n_l, n_r
             else:
-                gl = go_left_rule(binned[feat].long(), thr, dl, mt, nanb, zb)
+                gl = go_left_rule(bins_of_feat(binned, feat, packed).long(),
+                                  thr, dl, mt, nanb, zb)
                 leaf_id = torch.where((leaf_id == leaf) & ~gl,
                                       torch.full_like(leaf_id, nl), leaf_id)
                 sm_left = bool(lsum[2] <= rsum[2])
@@ -229,7 +237,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
 
 def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                           meta: FeatureMeta, params: SplitParams,
-                          hist_frontier_fn: Callable, max_depth: int = -1):
+                          hist_frontier_fn: Callable, max_depth: int = -1,
+                          packed: bool = False):
     """Build ``grow(binned, g3, base_mask) -> (tree, leaf_id, root_sum)``.
 
     ``hist_frontier_fn(binned, g3, label, L, live_slots=None) -> (L, F,
@@ -310,7 +319,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
             # partition: the split leaves' rows that go right move
             k = leaf_id.long()
             f_row = res.feature[k]
-            b_row = torch.gather(binned, 0, f_row[None, :])[0].long()
+            b_row = bins_of_rows(binned, f_row, packed).long()
             gl = go_left_rule(b_row, res.threshold_bin[k],
                               res.default_left[k], meta.missing_type[f_row],
                               meta.nan_bin[f_row], meta.zero_bin[f_row])

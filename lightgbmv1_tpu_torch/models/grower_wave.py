@@ -68,6 +68,7 @@ from typing import Callable, List, Optional, Sequence
 
 import torch
 
+from ..ops.hist_cuda import bins_of_rows
 from ..ops.split import (NEG_INF, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output)
@@ -238,7 +239,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      params: SplitParams, hist_wave_fn: Callable,
                      max_depth: int = -1, wave_size: int = 32,
                      fused_round_fn: Optional[Callable] = None,
-                     fused_loop_fn: Optional[Callable] = None):
+                     fused_loop_fn: Optional[Callable] = None,
+                     packed: bool = False):
     """Build ``grow(binned, g3, base_mask, valids=())``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False) -> (nslots, F,
@@ -252,7 +254,10 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     from their packed SplitInfo (JAX :1547-1659), and ``fused_round_fn``
     routes the valid sets.  ``grow`` returns ``(tree, leaf_id, root_sum,
     valid_leaf_ids)``: each valid set's rows routed through the same
-    splits, so its score update is a leaf-value gather."""
+    splits, so its score update is a leaf-value gather.  ``packed``:
+    ``binned`` and the valid sets hold 4-bit packed bytes, which the
+    staged round's partition and valid routing decode
+    (``hist_cuda.bins_of_rows``); the callables read them themselves."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
@@ -290,7 +295,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             in_split = row_slot >= 0
             rs = row_slot.clamp(min=0)
             f_row = feats[rs]
-            b_row = torch.gather(matrix, 0, f_row[None, :])[0].long()
+            b_row = bins_of_rows(matrix, f_row, packed).long()
             gl = go_left_rule(b_row, thrs[rs], dls[rs],
                               meta.missing_type[f_row], meta.nan_bin[f_row],
                               meta.zero_bin[f_row])
@@ -390,7 +395,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             if fused_round_fn is not None:
                 # ---- the routed fused round (K2) + valid routing (K3) ----
                 rt = slot_route(b)
-                packed, h_slot, leaf_id = fused_round_fn(
+                picks, h_slot, leaf_id = fused_round_fn(
                     binned, g3, S, deep=deep,
                     mask=to_slot(b["cmask"], False, 2 * S),
                     csums=to_slot(b["csums"], 1.0, 2 * S),
@@ -405,7 +410,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     # smaller children, for the per-leaf state
                     hist = subtract_child_hists(h_slot, leaf_hist, leafs,
                                                 order, sm_left)
-                res = unpack_children(packed[:2 * n], num_bins)
+                res = unpack_children(picks[:2 * n], num_bins)
             else:
                 # ---- partition + labelling + histogram at bucket S ------
                 feats, thrs, dls, nls = b["feats"], b["thrs"], b["dls"], \

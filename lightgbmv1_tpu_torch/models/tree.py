@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from ..io.binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
+from ..ops.hist_cuda import bins_of_rows
 
 
 class TreeArrays(NamedTuple):
@@ -82,11 +83,13 @@ def leaf_lookup(table: torch.Tensor, leaf_id: torch.Tensor) -> torch.Tensor:
 def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
                            nan_bins: torch.Tensor,
                            missing_types: torch.Tensor,
-                           zero_bins: torch.Tensor) -> torch.Tensor:
-    """(N,) int64 leaf of each row of (F, N) bins, walked from the root on
-    the bin thresholds with the NaN and zero-as-missing rows sent their
-    node's default way.  Bounded by the node count, so malformed child
-    pointers end the walk."""
+                           zero_bins: torch.Tensor,
+                           packed: bool = False) -> torch.Tensor:
+    """(N,) int64 leaf of each row of (F, N) bins (``packed``: the
+    (ceil(F/2), N) 4-bit packed bytes), walked from the root on the bin
+    thresholds with the NaN and zero-as-missing rows sent their node's
+    default way.  Bounded by the node count, so malformed child pointers
+    end the walk."""
     N = binned.shape[1]
     node = torch.zeros(N, dtype=torch.int64, device=binned.device)
     if int(tree.num_leaves) <= 1:
@@ -97,7 +100,7 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
             break
         nd = node.clamp(min=0)
         f = tree.split_feature.long()[nd]
-        b = torch.gather(binned, 0, f[None, :])[0].long()
+        b = bins_of_rows(binned, f, packed).long()
         mt = missing_types[f]
         na = ((mt == MISSING_NAN) & (b == nan_bins[f])) | (
             (mt == MISSING_ZERO) & (b == zero_bins[f]))
@@ -110,10 +113,11 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
 
 
 def tree_predict_binned(tree: TreeArrays, binned: torch.Tensor,
-                        nan_bins, missing_types, zero_bins) -> torch.Tensor:
+                        nan_bins, missing_types, zero_bins,
+                        packed: bool = False) -> torch.Tensor:
     """Each row's leaf value (``tree_leaf_index_binned``)."""
     return tree.leaf_value[tree_leaf_index_binned(
-        tree, binned, nan_bins, missing_types, zero_bins)]
+        tree, binned, nan_bins, missing_types, zero_bins, packed)]
 
 
 def host_tree_from_arrays(arrays: TreeArrays,

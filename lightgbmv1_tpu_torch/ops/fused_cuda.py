@@ -20,9 +20,20 @@ only the listed rows in row order, so they equal K1's bit for bit.
 plain histogram of the listed rows (``hist_cuda.index_add_hist`` on the
 precision's parts), the subtraction and the staged scan's stages
 (``wave_fused.child_scan_residue``).  A CPU tensor takes them; a CUDA
-tensor launches the kernel or raises.  Each launch adds one to
-``launch_counts[name]``, and K2's also to ``bucket_launch_counts[(nslots,
-precision, mode)]``; each plain call adds one to ``plain_counts[name]``.
+tensor launches the kernel or raises.
+
+4-bit packed bins (``packed=True``, ``bin_layout=packed4``): both
+kernels take the (ceil(F/2), N) bytes of ``hist_cuda.pack4bit`` and
+decode the nibble at the load; F is the real feature count (the mask's
+width), so the plan, the lists and every cell's row order, and with them
+the bits, are the u8 leg's.  The plain versions unpack
+(``hist_cuda.unpack4bit``) or decode the decision bins
+(``wave_fused.decision_bins(..., packed=True)``).
+
+Each launch adds one to ``launch_counts[name]`` (the packed leg's to
+``name + "_packed"``), and K2's also to ``bucket_launch_counts[(nslots,
+precision, mode)]`` (mode ``"sub"`` / ``"pool"``, packed ``"sub:packed"``
+/ ``"pool:packed"``); each plain call adds one to ``plain_counts[name]``.
 """
 
 from __future__ import annotations
@@ -37,9 +48,9 @@ from . import _build, hist_cuda
 from . import wave_fused as wf
 from .split import FeatureMeta, SplitParams
 
-launch_counts = {"fused_round": 0, "route_rows": 0}
-# the launches of ``launch_counts["fused_round"]`` by (nslots, precision,
-# "sub" | "pool")
+launch_counts = {"fused_round": 0, "route_rows": 0, "fused_round_packed": 0,
+                 "route_rows_packed": 0}
+# the launches of K2 by (nslots, precision, mode)
 bucket_launch_counts: dict = {}
 plain_counts = {"fused_round": 0, "route_rows": 0}
 _count_lock = threading.Lock()
@@ -58,11 +69,12 @@ def count_plain(name: str) -> None:
         plain_counts[name] += 1
 
 
-def route_rows_ref(binned, lids, feats, rmeta, num_leaves):
+def route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed=False):
     """Plain version of ``route_rows``: ``route_tile`` on each row's
     decision bin."""
     count_plain("route_rows")
-    dbin = wf.decision_bins(binned, lids, feats, rmeta[:, 0], num_leaves)
+    dbin = wf.decision_bins(binned, lids, feats, rmeta[:, 0], num_leaves,
+                            packed=packed)
     return wf.route_tile(dbin, lids, rmeta, nslots=0, sub=False,
                          want_label=False)[0]
 
@@ -87,7 +99,7 @@ def live_rows_ref(label, nslots, n_chunks, chunk_rows):
 
 def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, mask, csums,
-                    route, sml=None, parent=None):
+                    route, sml=None, parent=None, packed=False):
     """Plain version of ``fused_round``: the route (``route_tile``), K1's
     plain histogram of the label, the subtraction and
     ``child_scan_residue``."""
@@ -95,16 +107,19 @@ def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
     return round_ref(binned, g3, nslots=nslots, num_bins=num_bins,
                      precision=precision, meta=meta, params=params,
                      mask=mask, csums=csums, route=route, sml=sml,
-                     parent=parent)
+                     parent=parent, packed=packed)
 
 
 def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
               params: SplitParams, mask, csums, route, sml=None,
-              parent=None):
+              parent=None, packed=False):
     """``fused_round_ref`` uncounted: the round the persistent loop's plain
     version (ops/loop_cuda.py) runs R times.  The histograms sum the
     listed rows only, in row order (``live_rows_ref`` under K2's plan):
-    the rows of no split add nothing either way."""
+    the rows of no split add nothing either way.  Packed bins are
+    unpacked first (F is the mask's width)."""
+    if packed:
+        binned = hist_cuda.unpack4bit(binned, mask.shape[1])
     sub = parent is not None
     dbin = wf.decision_bins(binned, route["oleaf"], route["feats"],
                             route["rmeta"][:, 0], route["num_leaves"])
@@ -131,9 +146,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_fused")
-    lib.lgbm_fused_round.argtypes = [_P] * 19 + [_I] * 10 + [_F] * 5 + [_P]
+    lib.lgbm_fused_round.argtypes = [_P] * 19 + [_I] * 11 + [_F] * 5 + [_P]
     lib.lgbm_fused_round.restype = _I
-    lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 2 + [_P]
+    lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.lgbm_route_rows.restype = _I
     return lib
 
@@ -153,16 +168,11 @@ def _need(t, name, dtype, shape, device):
                          f"{dtype} tensor on {device}")
 
 
-def _check_bins(binned):
+def _check_bins(binned, packed=False, num_features=None):
+    """(stored columns, N) of bins on the card (``hist_cuda.check_bins``)."""
     if binned.device.type != "cuda":
         raise ValueError(f"binned on {binned.device}: expected cpu or cuda")
-    if binned.dtype != torch.uint8 or binned.dim() != 2 \
-            or not binned.is_contiguous():
-        raise ValueError("binned must be a contiguous (F, N) uint8 tensor")
-    F, N = binned.shape
-    if F * max(N, 1) >= 2 ** 31:
-        raise ValueError("binned exceeds the kernel's int32 row indexing")
-    return F, N
+    return hist_cuda.check_bins(binned, packed, num_features)
 
 
 def _raise_on(err: int, name: str) -> None:
@@ -183,12 +193,13 @@ def list_scratch(N, n_chunks, span, device) -> list:
             for n in list_scratch_sizes(N, n_chunks, span)]
 
 
-def route_rows(binned, lids, feats, rmeta, num_leaves):
+def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False):
     """K3: (N,) leaf ids of ``binned``'s rows after the splits of
-    ``rmeta`` (S, RMETA_COLS) on the features ``feats`` (S,)."""
+    ``rmeta`` (S, RMETA_COLS) on the features ``feats`` (S,); ``packed``:
+    ``binned`` holds packed bytes."""
     if binned.device.type == "cpu":
-        return route_rows_ref(binned, lids, feats, rmeta, num_leaves)
-    F, N = _check_bins(binned)
+        return route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed)
+    _, N = _check_bins(binned)
     S = rmeta.shape[0]
     dev = binned.device
     _need(lids, "lids", torch.int32, (N,), dev)
@@ -199,16 +210,17 @@ def route_rows(binned, lids, feats, rmeta, num_leaves):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().lgbm_route_rows(binned.data_ptr(), lids.data_ptr(),
                                      feats.data_ptr(), rmeta.data_ptr(),
-                                     out.data_ptr(), N, S, stream)
+                                     out.data_ptr(), N, S, int(packed),
+                                     stream)
     _raise_on(err, "route_rows")
     with _count_lock:
-        launch_counts["route_rows"] += 1
+        launch_counts["route_rows_packed" if packed else "route_rows"] += 1
     return out
 
 
 def fused_round(binned, g3, *, nslots, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, mask, csums, route,
-                sml=None, parent=None, fmeta=None):
+                sml=None, parent=None, fmeta=None, packed=False):
     """K2: one wave round -> ``(residue (2S, F, RES_COLS), hsmall (S, F,
     B, 3) or None, new_leaf (N,), label (N,))``.
 
@@ -219,17 +231,24 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     gives the label and the new leaf ids from the current ones.  ``mask``
     (2S, F) bool and ``csums`` (2S, 3) f32 are the children's.
     ``fmeta`` is ``feature_table(meta)``, made once by a caller that runs
-    many rounds."""
+    many rounds.  ``packed``: ``binned`` holds the (ceil(F/2), N) packed
+    bytes of the F = ``mask.shape[1]`` features (num_bins <= 16)."""
     if binned.device.type == "cpu":
         return fused_round_ref(binned, g3, nslots=nslots,
                                num_bins=num_bins, precision=precision,
                                meta=meta, params=params, mask=mask,
                                csums=csums, route=route, sml=sml,
-                               parent=parent)
-    F, N = _check_bins(binned)
+                               parent=parent, packed=packed)
+    F = mask.shape[1]
+    _, N = _check_bins(binned, packed, F)
+    if not packed and binned.shape[0] != F:
+        raise ValueError(f"binned has {binned.shape[0]} features, the mask "
+                         f"{F}")
     if precision not in hist_cuda.PRECISIONS:
         raise ValueError(f"precision={precision!r}: expected one of "
                          f"{hist_cuda.PRECISIONS}")
+    if packed and num_bins > 16:
+        raise ValueError(f"num_bins={num_bins}: packed bins hold <= 16")
     sub = parent is not None
     S = nslots if sub else nslots // 2
     if S < 1 or (not sub and nslots % 2):
@@ -272,13 +291,14 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
             fmeta.data_ptr(), mask.data_ptr(), csums.data_ptr(), ptr(sml),
             ptr(parent), residue.data_ptr(), ptr(hsmall), N, F, S, p["nb"],
             B, p["ls_max"], p["n_chunks"], p["chunk_rows"],
-            hist_cuda.PREC_ID[precision], int(sub),
+            hist_cuda.PREC_ID[precision], int(sub), int(packed),
             params.lambda_l1, params.lambda_l2, params.min_data_in_leaf,
             params.min_sum_hessian_in_leaf, params.min_gain_to_split,
             stream)
     _raise_on(err, "fused_round")
     with _count_lock:
-        launch_counts["fused_round"] += 1
-        key = (nslots, precision, "sub" if sub else "pool")
+        launch_counts["fused_round_packed" if packed else "fused_round"] += 1
+        mode = ("sub" if sub else "pool") + (":packed" if packed else "")
+        key = (nslots, precision, mode)
         bucket_launch_counts[key] = bucket_launch_counts.get(key, 0) + 1
     return residue, hsmall, new_leaf, label

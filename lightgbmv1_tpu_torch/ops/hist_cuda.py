@@ -30,11 +30,21 @@ Two plain PyTorch versions:
   merged in chunk order, hi and lo apart — so the kernel equals it bit for
   bit.  Only checks call it.
 
-Each launch adds one to ``launch_counts["hist_leaves"]`` and to
-``bucket_launch_counts[(L, precision)]``; each plain call adds one to
-``plain_counts`` under its function's name (``hist_leaves`` and
-``hist_leaves_roworder`` here, ``hist_leaves_scatter`` for the exact oracle
-in ops/histogram.py).
+4-bit packed bins (``packed=True``, ``bin_layout=packed4``): two
+features a byte, lo nibble = feature 2p, hi = 2p + 1 (``pack4bit``, the
+JAX package's layout byte for byte).  The kernel's packed leg takes the
+(ceil(F/2), N) bytes and decodes the nibble at the load; it plans from
+the real feature count F (``num_features``), so its cells take the same
+rows in the same order as the u8 leg's and its histograms are the u8
+leg's bit for bit.  The plain versions unpack (``unpack4bit``) and run
+the u8 plain version.
+
+Each launch adds one to ``launch_counts["hist_leaves"]`` (u8) or
+``launch_counts["hist_leaves_packed"]`` (packed) and to
+``bucket_launch_counts[(L, precision)]`` (u8) or ``[(L, precision,
+"packed")]``; each plain call adds one to ``plain_counts`` under its
+function's name (``hist_leaves`` and ``hist_leaves_roworder`` here,
+``hist_leaves_scatter`` for the exact oracle in ops/histogram.py).
 """
 
 from __future__ import annotations
@@ -57,8 +67,8 @@ HIST_SMEM_BUDGET = 96 * 1024
 TARGET_BLOCKS = 2 * 2 * 132
 ROW_TILE = 256
 
-launch_counts = {"hist_leaves": 0}
-# the launches of ``launch_counts["hist_leaves"]`` by (slots L, precision)
+launch_counts = {"hist_leaves": 0, "hist_leaves_packed": 0}
+# the launches by (slots L, precision), and (L, precision, "packed")
 bucket_launch_counts: dict = {}
 plain_counts = {"hist_leaves": 0, "hist_leaves_roworder": 0,
                 "hist_leaves_scatter": 0}
@@ -89,7 +99,65 @@ def kernel_width(num_bins: int) -> int:
         return 64
     if num_bins <= 256:
         return 256
-    raise ValueError("the u8 histogram kernel holds num_bins <= 256")
+    raise ValueError("the histogram kernel holds num_bins <= 256")
+
+
+def pack4bit(binned: torch.Tensor) -> torch.Tensor:
+    """(F, N) uint8 bins < 16 -> (ceil(F/2), N) packed bytes, two features
+    a byte (lo nibble = feature 2p, hi = 2p + 1; an odd F's last hi nibble
+    is 0): the JAX package's ``hist_pallas.pack4bit`` layout."""
+    F, N = binned.shape
+    if F % 2:
+        binned = torch.cat([binned, binned.new_zeros((1, N))])
+    return (binned[0::2] | (binned[1::2] << 4)).to(torch.uint8).contiguous()
+
+
+def unpack4bit(packed: torch.Tensor, num_features: int) -> torch.Tensor:
+    """``pack4bit``'s inverse: (ceil(F/2), N) bytes -> (F, N) uint8 bins,
+    the phantom hi nibble of an odd F dropped."""
+    un = torch.stack([packed & 15, packed >> 4], dim=1)
+    return un.reshape(2 * packed.shape[0], packed.shape[1])[
+        :int(num_features)].to(torch.uint8).contiguous()
+
+
+def packed_bins_of_feat(binned: torch.Tensor, feat) -> torch.Tensor:
+    """(N,) int32 bins of feature ``feat`` from the packed bytes."""
+    byte = binned[feat >> 1].to(torch.int32)
+    return (byte >> (4 * (feat & 1))) & 15
+
+
+def packed_bins_of_rows(binned: torch.Tensor,
+                        f_row: torch.Tensor) -> torch.Tensor:
+    """(N,) int32 bins of feature ``f_row[r]`` at each row r from the
+    packed bytes."""
+    f_row = f_row.long()
+    byte = torch.gather(binned, 0, (f_row >> 1)[None, :])[0].to(torch.int32)
+    return (byte >> (4 * (f_row & 1))) & 15
+
+
+def bins_of_rows(binned: torch.Tensor, f_row: torch.Tensor,
+                 packed: bool = False) -> torch.Tensor:
+    """(N,) int32 bins of feature ``f_row[r]`` at each row r, from byte
+    bins or (``packed``) from the packed bytes."""
+    if packed:
+        return packed_bins_of_rows(binned, f_row)
+    return torch.gather(binned, 0, f_row.long()[None, :])[0].to(torch.int32)
+
+
+def bins_of_feat(binned: torch.Tensor, feat, packed: bool = False):
+    """(N,) bins of feature ``feat``, from byte bins (uint8) or
+    (``packed``) from the packed bytes (int32)."""
+    return packed_bins_of_feat(binned, feat) if packed else binned[feat]
+
+
+def _unpacked(binned: torch.Tensor, packed: bool, num_features):
+    """The (F, N) byte bins of a packed matrix (``unpack4bit``), or
+    ``binned`` itself."""
+    if not packed:
+        return binned
+    if num_features is None:
+        raise ValueError("packed bins need num_features (the real F)")
+    return unpack4bit(binned, num_features)
 
 
 def split_parts(g3: torch.Tensor, precision: str):
@@ -140,19 +208,23 @@ def index_add_hist(binned: torch.Tensor, parts, leaf_id: torch.Tensor,
 
 def hist_leaves_ref(binned: torch.Tensor, g3: torch.Tensor,
                     leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
-                    precision: str = "bf16x2",
-                    live_slots=None) -> torch.Tensor:
+                    precision: str = "bf16x2", live_slots=None,
+                    packed: bool = False, num_features=None
+                    ) -> torch.Tensor:
     """Plain version of ``hist_leaves``: the kernel's hi/lo (or f32)
-    value parts summed by ``index_add_hist``."""
+    value parts summed by ``index_add_hist`` (packed bins unpacked
+    first)."""
     count_plain("hist_leaves")
-    return index_add_hist(binned, split_parts(g3, precision), leaf_id,
-                          num_leaves, num_bins, live_slots)
+    return index_add_hist(_unpacked(binned, packed, num_features),
+                          split_parts(g3, precision), leaf_id, num_leaves,
+                          num_bins, live_slots)
 
 
 def hist_leaves_roworder_ref(binned: torch.Tensor, g3: torch.Tensor,
                              leaf_id: torch.Tensor, num_leaves: int,
                              num_bins: int, precision: str = "bf16x2",
-                             live_slots=None) -> torch.Tensor:
+                             live_slots=None, packed: bool = False,
+                             num_features=None) -> torch.Tensor:
     """Plain version of ``hist_leaves`` in the kernel's order: under
     ``plan``'s row chunks, every (chunk, feature, slot, bin) cell sums its
     rows' value parts in row order in f32 from a 0 start, one rounding an
@@ -160,8 +232,10 @@ def hist_leaves_roworder_ref(binned: torch.Tensor, g3: torch.Tensor,
     apart, and ``hi + lo`` returned (bf16x2).  Vectorised rank by rank: a
     stable sort of the cell keys gives each row its rank in its cell, and
     step r adds every cell's r-th row (one row a cell a step, so each add
-    rounds once).  No pairwise sum anywhere."""
+    rounds once).  No pairwise sum anywhere.  Packed bins are unpacked
+    first: the plan is the real F's, as the kernel's."""
     count_plain("hist_leaves_roworder")
+    binned = _unpacked(binned, packed, num_features)
     F, N = binned.shape
     L, B = int(num_leaves), int(num_bins)
     p = plan(N, F, L, B, precision)
@@ -202,13 +276,33 @@ def hist_leaves_roworder_ref(binned: torch.Tensor, g3: torch.Tensor,
     return out.permute(1, 0, 2, 3).contiguous()
 
 
+def check_bins(binned: torch.Tensor, packed: bool = False,
+               num_features=None) -> tuple:
+    """The (stored columns, N) of a contiguous 2-D uint8 bins tensor, as
+    the kernels take it: (F, N) byte bins, or (``packed``) the (ceil(F/2),
+    N) bytes of ``num_features`` = F features.  The kernels index the
+    stored bytes with int32."""
+    if binned.dtype != torch.uint8 or binned.dim() != 2 \
+            or not binned.is_contiguous():
+        raise ValueError("binned must be a contiguous 2-D uint8 tensor")
+    Fb, N = binned.shape
+    if packed and (num_features is None
+                   or Fb != -(-int(num_features) // 2)):
+        raise ValueError(f"packed bins of num_features={num_features} "
+                         f"features are (ceil(F/2), N) bytes, not {Fb} "
+                         "columns")
+    if Fb * max(N, 1) >= 2 ** 31:
+        raise ValueError("binned exceeds the kernel's int32 row indexing")
+    return Fb, N
+
+
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("hist")
-    lib.lgbm_hist_leaves.argtypes = [_P] * 5 + [_I] * 10 + [_P]
+    lib.lgbm_hist_leaves.argtypes = [_P] * 5 + [_I] * 11 + [_P]
     lib.lgbm_hist_leaves.restype = _I
     return lib
 
@@ -232,22 +326,25 @@ def plan(N: int, F: int, L: int, num_bins: int, precision: str) -> dict:
 
 def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
                 leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
-                precision: str = "bf16x2", live_slots=None) -> torch.Tensor:
+                precision: str = "bf16x2", live_slots=None,
+                packed: bool = False, num_features=None) -> torch.Tensor:
     """K1: (L, F, num_bins, 3) f32 histograms of the rows of each slot.
     With ``live_slots`` only the rows of slots below it add; the others'
-    cells are 0, and the plan (so the live cells' bits) is L's."""
+    cells are 0, and the plan (so the live cells' bits) is L's.  With
+    ``packed`` ``binned`` holds the (ceil(F/2), N) packed bytes of
+    ``num_features`` = F features (``pack4bit``, num_bins <= 16)."""
     if binned.device.type == "cpu":
         return hist_leaves_ref(binned, g3, leaf_id, num_leaves, num_bins,
-                               precision, live_slots)
+                               precision, live_slots, packed, num_features)
     if binned.device.type != "cuda":
         raise ValueError(f"binned on {binned.device}: expected cpu or cuda")
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r}: expected one of "
                          f"{PRECISIONS}")
-    if binned.dtype != torch.uint8 or binned.dim() != 2 \
-            or not binned.is_contiguous():
-        raise ValueError("binned must be a contiguous (F, N) uint8 tensor")
-    F, N = binned.shape
+    Fb, N = check_bins(binned, packed, num_features)
+    F = int(num_features) if packed else Fb
+    if packed and num_bins > 16:
+        raise ValueError(f"num_bins={num_bins}: packed bins hold <= 16")
     if g3.dtype != torch.float32 or tuple(g3.shape) != (N, 3) \
             or not g3.is_contiguous() or g3.device != binned.device:
         raise ValueError(f"g3 must be a contiguous ({N}, 3) float32 tensor "
@@ -261,8 +358,6 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
     if not 0 <= live <= L:
         raise ValueError(f"live_slots={live_slots}: expected 0..{L}")
     p = plan(N, F, L, B, precision)
-    if F * max(N, 1) >= 2 ** 31:
-        raise ValueError("binned exceeds the kernel's int32 row indexing")
     out = torch.empty((L, F, B, 3), dtype=torch.float32, device=binned.device)
     partial = torch.empty((p["n_chunks"], F, L, p["nb"], p["nc"]),
                           dtype=torch.float32, device=binned.device)
@@ -274,12 +369,12 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
             binned.data_ptr(), g3.data_ptr(), leaf_id.data_ptr(),
             partial.data_ptr(), out.data_ptr(), N, F, L, live, p["nb"], B,
             p["ls_max"], p["n_chunks"], p["chunk_rows"],
-            PREC_ID[precision], stream)
+            PREC_ID[precision], int(packed), stream)
     if err != 0:
         raise RuntimeError(f"hist_leaves: CUDA launch failed (cudaError "
                            f"{err})")
     with _count_lock:
-        launch_counts["hist_leaves"] += 1
-        key = (L, precision)
+        launch_counts["hist_leaves_packed" if packed else "hist_leaves"] += 1
+        key = (L, precision, "packed") if packed else (L, precision)
         bucket_launch_counts[key] = bucket_launch_counts.get(key, 0) + 1
     return out

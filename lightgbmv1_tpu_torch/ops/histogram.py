@@ -22,6 +22,11 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
   the one its root pass runs (the wave rounds' fused dispatch is in
   parallel/trainer.py).
 
+``packed`` / ``num_features``: ``binned`` holds the (ceil(F/2), N) 4-bit
+packed bytes of F features (``bin_layout=packed4``); only ``pallas``
+reads them (K1's packed leg), ``scatter`` refuses them, as in the JAX
+package (:182-184, :303-305).
+
 Output layout: (L, F, B, 3) float32 — [sum_grad, sum_hess, count].
 """
 
@@ -46,13 +51,17 @@ def hist_leaves_scatter(binned: torch.Tensor, g3: torch.Tensor,
 def hist_frontier(binned: torch.Tensor, g3: torch.Tensor,
                   leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
                   method: str = "scatter", precision: str = "bf16x2",
-                  live_slots=None) -> torch.Tensor:
+                  live_slots=None, packed: bool = False,
+                  num_features=None) -> torch.Tensor:
     """All slots' histograms in a single pass; with ``live_slots`` only
     the rows of the slots below it add."""
     if method == "pallas":
         return hist_cuda.hist_leaves(binned, g3, leaf_id, num_leaves,
                                      num_bins, precision=precision,
-                                     live_slots=live_slots)
+                                     live_slots=live_slots, packed=packed,
+                                     num_features=num_features)
+    if packed:
+        raise ValueError("4-bit packed bins require the pallas hist method")
     if method == "scatter":
         return hist_leaves_scatter(binned, g3, leaf_id, num_leaves, num_bins,
                                    live_slots)
@@ -61,25 +70,28 @@ def hist_frontier(binned: torch.Tensor, g3: torch.Tensor,
 
 def hist_one_leaf(binned: torch.Tensor, g3: torch.Tensor,
                   leaf_id: torch.Tensor, target_leaf: int, num_bins: int,
-                  method: str = "scatter",
-                  precision: str = "bf16x2") -> torch.Tensor:
+                  method: str = "scatter", precision: str = "bf16x2",
+                  packed: bool = False, num_features=None) -> torch.Tensor:
     """(F, B, 3) histogram of the rows in ``target_leaf``: one slot over
     the rows' values masked to the leaf (the smaller-child pass of the
     reference's BeforeFindBestSplit, serial_tree_learner.cpp:274-314)."""
     mask = (leaf_id == target_leaf).to(torch.float32)
     g3m = (g3 * mask[:, None]).contiguous()
     return hist_frontier(binned, g3m, torch.zeros_like(leaf_id), 1,
-                         num_bins, method=method, precision=precision)[0]
+                         num_bins, method=method, precision=precision,
+                         packed=packed, num_features=num_features)[0]
 
 
 def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,
               nslots: int, num_bins: int, method: str = "scatter",
-              precision: str = "bf16x2") -> torch.Tensor:
+              precision: str = "bf16x2", packed: bool = False,
+              num_features=None) -> torch.Tensor:
     """(nslots, F, B, 3) histograms of the rows labelled 0..nslots-1;
     rows labelled ``nslots`` (not in this wave) contribute nothing."""
     return hist_frontier(binned, g3, label, nslots + 1, num_bins,
                          method=method, precision=precision,
-                         live_slots=nslots)[:nslots]
+                         live_slots=nslots, packed=packed,
+                         num_features=num_features)[:nslots]
 
 
 def default_hist_method(config_method: str = "auto",

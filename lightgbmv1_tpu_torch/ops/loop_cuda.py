@@ -20,9 +20,19 @@ boundary, pick and commit in PyTorch, which the kernel equals bit for bit
 on the card.  A CPU tensor takes the plain version; a CUDA tensor
 launches the kernel or raises.  On the card an opt-in ``debug`` buffer
 takes block 0's stamps after each grid barrier and each round's live
-rows; ``stage_split`` reads it.  Each launch adds one to
-``launch_counts["fused_wave_loop"]`` and to ``bucket_launch_counts[(R,
-precision, "sub" | "pool")]``; each plain call adds one to
+rows; ``stage_split`` reads it.
+
+4-bit packed bins (``packed=True``, ``bin_layout=packed4``): the kernel's
+packed leg runs the packed route and list walk of K2's device code on the
+(ceil(F/2), N) bytes of ``hist_cuda.pack4bit``; its plans are the real F's
+(``base_mask``'s width), so its rounds are the u8 leg's, bit for bit.  The
+plain version unpacks once (``hist_cuda.unpack4bit``) and runs the u8
+plain version.
+
+Each launch adds one to ``launch_counts["fused_wave_loop"]`` (packed:
+``"fused_wave_loop_packed"``) and to ``bucket_launch_counts[(R,
+precision, mode)]`` (mode ``"sub"`` / ``"pool"``, packed ``"sub:packed"``
+/ ``"pool:packed"``); each plain call adds one to
 ``plain_counts["fused_wave_loop"]``.
 """
 
@@ -44,9 +54,8 @@ from .split import (NEG_INF, FeatureMeta, SplitParams, child_leaf_output,
 # round's boundary)
 LOOP_STAGES = ("route", "list", "partials", "scan", "pick")
 
-launch_counts = {"fused_wave_loop": 0}
-# the launches of ``launch_counts["fused_wave_loop"]`` by (rounds,
-# precision, "sub" | "pool")
+launch_counts = {"fused_wave_loop": 0, "fused_wave_loop_packed": 0}
+# the launches of K6 by (rounds, precision, mode)
 bucket_launch_counts: dict = {}
 plain_counts = {"fused_wave_loop": 0}
 _count_lock = threading.Lock()
@@ -54,7 +63,8 @@ _count_lock = threading.Lock()
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        launch_counts["fused_wave_loop"] = 0
+        for k in launch_counts:
+            launch_counts[k] = 0
         plain_counts["fused_wave_loop"] = 0
         bucket_launch_counts.clear()
 
@@ -62,15 +72,16 @@ def reset_launch_counts() -> None:
 def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                 slot_buckets, max_depth, base_mask, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, pool=None,
-                round_fn=fused_cuda.round_ref):
+                round_fn=fused_cuda.round_ref, packed=False):
     """``rounds`` wave rounds from the frontier ``ft12`` (L, 12) at
     ``num_leaves`` leaves, each through ``round_fn`` (a fused round's
-    signature) -> ``(packed (R, 2K, PACK_COLS), new_leaf (N,), pool or
-    None, n_split (R,) i32)``.  Round r's packed rows [0, 2 S_r) are its
-    slots' picks (the live ones first), the rest zero; a round with no
-    split ends the loop, and it and the rounds after it stay zero.  The
-    boundary, pick and commit are the grower's (models/grower_wave.py)
-    op for op, so the frontier after a round is the split store's."""
+    signature, given ``packed``) -> ``(packed (R, 2K, PACK_COLS),
+    new_leaf (N,), pool or None, n_split (R,) i32)``.  Round r's packed
+    rows [0, 2 S_r) are its slots' picks (the live ones first), the rest
+    zero; a round with no split ends the loop, and it and the rounds
+    after it stay zero.  The boundary, pick and commit are the grower's
+    (models/grower_wave.py) op for op, so the frontier after a round is
+    the split store's."""
     from ..models.grower_wave import _topk_by_rank
 
     dev = binned.device
@@ -80,7 +91,7 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     ft = ft12.clone()
     pool = pool.clone() if sub else None
     leaf = leaf_id
-    packed = torch.zeros((rounds, C, wf.PACK_COLS), dtype=torch.float32,
+    picks = torch.zeros((rounds, C, wf.PACK_COLS), dtype=torch.float32,
                          device=dev)
     n_split = torch.zeros(rounds, dtype=torch.int32, device=dev)
     kiota = torch.arange(K, device=dev)
@@ -120,10 +131,10 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             csums=csums_s, sml=to_slot(sml, False) if sub else None,
             parent=to_slot(pool[leafs], 0.0) if sub else None,
             route=dict(oleaf=leaf, feats=feats_s.to(torch.int32), rmeta=rmeta,
-                       num_leaves=L))
+                       num_leaves=L), packed=packed)
         pk = wf._pick_pack(residue, gain_shift(csums_s, params), csums_s,
                            meta, num_bins)
-        packed[r, :2 * S] = pk
+        picks[r, :2 * S] = pk
         n_split[r] = n
         # ---- the commit: the store's frontier columns, the pool --------
         cidx = torch.stack([leafs, nls], dim=1).reshape(2 * n)
@@ -138,14 +149,17 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         if sub:
             pool[cidx] = wf.subtract_children(hsm[:n], pool[leafs], sml)
         nl += n
-    return packed, leaf, pool, n_split
+    return picks, leaf, pool, n_split
 
 
-def fused_wave_loop_ref(binned, g3, leaf_id, ft12, num_leaves, **kw):
+def fused_wave_loop_ref(binned, g3, leaf_id, ft12, num_leaves,
+                        packed=False, **kw):
     """Plain version of ``fused_wave_loop``: ``loop_rounds`` on K2's plain
-    round."""
+    round (packed bins unpacked once)."""
     with _count_lock:
         plain_counts["fused_wave_loop"] += 1
+    if packed:
+        binned = hist_cuda.unpack4bit(binned, kw["base_mask"].shape[0])
     return loop_rounds(binned, g3, leaf_id, ft12, num_leaves, **kw)
 
 
@@ -155,10 +169,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_loop")
-    lib.lgbm_fused_wave_loop.argtypes = [_P] * 19 + [_I] * 12 + [_F] * 5 \
+    lib.lgbm_fused_wave_loop.argtypes = [_P] * 19 + [_I] * 13 + [_F] * 5 \
         + [_P]
     lib.lgbm_fused_wave_loop.restype = _I
-    lib.lgbm_wave_loop_limits.argtypes = [_I] * 6 + [_P, _P]
+    lib.lgbm_wave_loop_limits.argtypes = [_I] * 7 + [_P, _P]
     lib.lgbm_wave_loop_limits.restype = _I
     lib.lgbm_wave_loop_bnd_ints.argtypes = [_I, _I]
     lib.lgbm_wave_loop_bnd_ints.restype = _I
@@ -215,10 +229,11 @@ def list_sizes(N, F, num_bins, precision, slot_buckets, sub) -> tuple:
             max(p["n_chunks"] * p["chunk_rows"] for p in plans))
 
 
-def limits(device, *, precision, sub, num_bins, N, F, L, K,
-           slot_buckets) -> dict:
-    """The card's limits on the loop kernel at this shape: shared memory a
-    block, resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
+def limits(device, *, precision, sub, num_bins, N, F, L, K, slot_buckets,
+           packed=False) -> dict:
+    """The card's limits on the loop kernel (``packed``: its packed leg)
+    at this shape, F the real feature count: shared memory a block,
+    resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     SMs, cooperative launch (``cudaDevAttrCooperativeLaunch``) and the
     device memory free to the loop."""
     plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub)
@@ -226,7 +241,7 @@ def limits(device, *, precision, sub, num_bins, N, F, L, K,
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         fused_cuda._raise_on(_lib().lgbm_wave_loop_limits(
-            hist_cuda.PREC_ID[precision], int(sub),
+            hist_cuda.PREC_ID[precision], int(sub), int(packed),
             hist_cuda.kernel_width(num_bins), L, K, len(plans), ls_max, out),
             "fused_wave_loop limits")
         free = torch.cuda.mem_get_info(device)[0] + (
@@ -239,7 +254,7 @@ def limits(device, *, precision, sub, num_bins, N, F, L, K,
 def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                     slot_buckets, max_depth, base_mask, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, pool=None,
-                    fmeta=None, debug=None):
+                    fmeta=None, debug=None, packed=False):
     """K6: ``rounds`` wave rounds in one launch -> ``(packed (R, 2K,
     PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``, as
     ``loop_rounds`` computes them.
@@ -251,7 +266,9 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     modified.  ``fmeta`` is ``fused_cuda.feature_table(meta)``, made once
     by a caller that launches many times.  ``debug`` (card only): a
     ``debug_buffer(rounds, ...)`` that receives the stage stamps and live
-    rows ``stage_split`` reads."""
+    rows ``stage_split`` reads.  ``packed``: ``binned`` holds the
+    (ceil(F/2), N) packed bytes of the F = ``base_mask.shape[0]``
+    features (num_bins <= 16)."""
     if debug is not None and binned.device.type != "cuda":
         raise ValueError("debug: the stage stamps are the card kernel's")
     if binned.device.type == "cpu":
@@ -259,8 +276,14 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             binned, g3, leaf_id, ft12, num_leaves, rounds=rounds, K=K,
             slot_buckets=slot_buckets, max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
-            meta=meta, params=params, pool=pool)
-    F, N = fused_cuda._check_bins(binned)
+            meta=meta, params=params, pool=pool, packed=packed)
+    F = base_mask.shape[0]
+    _, N = fused_cuda._check_bins(binned, packed, F)
+    if not packed and binned.shape[0] != F:
+        raise ValueError(f"binned has {binned.shape[0]} features, base_mask "
+                         f"{F}")
+    if packed and num_bins > 16:
+        raise ValueError(f"num_bins={num_bins}: packed bins hold <= 16")
     if precision not in hist_cuda.PRECISIONS:
         raise ValueError(f"precision={precision!r}: expected one of "
                          f"{hist_cuda.PRECISIONS}")
@@ -289,7 +312,7 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     new_leaf = leaf_id.clone()
     ft = ft12.clone()
     pool_out = pool.clone() if sub else None
-    packed = torch.zeros((R, C, wf.PACK_COLS), dtype=f32, device=dev)
+    picks = torch.zeros((R, C, wf.PACK_COLS), dtype=f32, device=dev)
     n_split = torch.zeros(R, dtype=i32, device=dev)
     label = torch.empty(N, dtype=i32, device=dev)
     lists = fused_cuda.list_scratch(
@@ -307,19 +330,21 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         err = lib.lgbm_fused_wave_loop(
             binned.data_ptr(), g3.data_ptr(), new_leaf.data_ptr(),
             ft.data_ptr(), pool_out.data_ptr() if sub else 0,
-            fmeta.data_ptr(), mask.data_ptr(), packed.data_ptr(),
+            fmeta.data_ptr(), mask.data_ptr(), picks.data_ptr(),
             n_split.data_ptr(), label.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
             residue.data_ptr(), bnd.data_ptr(),
             0 if debug is None else debug.data_ptr(), tables, N, F, B,
             hist_cuda.kernel_width(B), L, K, R, int(num_leaves),
             int(max_depth), len(plans), hist_cuda.PREC_ID[precision],
-            int(sub), params.lambda_l1, params.lambda_l2,
+            int(sub), int(packed), params.lambda_l1, params.lambda_l2,
             params.min_data_in_leaf, params.min_sum_hessian_in_leaf,
             params.min_gain_to_split, stream)
     fused_cuda._raise_on(err, "fused_wave_loop")
     with _count_lock:
-        launch_counts["fused_wave_loop"] += 1
-        key = (R, precision, "sub" if sub else "pool")
+        launch_counts["fused_wave_loop_packed" if packed
+                      else "fused_wave_loop"] += 1
+        key = (R, precision,
+               ("sub" if sub else "pool") + (":packed" if packed else ""))
         bucket_launch_counts[key] = bucket_launch_counts.get(key, 0) + 1
-    return packed, new_leaf, pool_out, n_split
+    return picks, new_leaf, pool_out, n_split

@@ -22,9 +22,12 @@ Ported: ``RES_COLS`` / ``PACK_COLS`` / ``RMETA_COLS`` (:126-128),
 :652), ``make_fused_round`` (:669), ``plan_wave_loop`` (:804),
 ``make_fused_wave_loop`` (:1183) and ``fused_ineligible_reason`` (:1356).
 The arguments the port's scan never reads are gone: monotone
-constraints, path smoothing, int8sr and packed4 bins are refused by the
-config, so ``constr``, ``depth``, ``pout``, ``cscale`` / ``sscale``,
-``quant_key``, ``meta_override`` and ``packed`` do not exist here.  The
+constraints, path smoothing and int8sr are refused by the config, so
+``constr``, ``depth``, ``pout``, ``cscale`` / ``sscale``, ``quant_key``
+and ``meta_override`` do not exist here.  ``packed`` (4-bit packed bins,
+``bin_layout=packed4``) is kept: the kernels' packed legs decode the
+nibble at the load and plan from the real feature count, so a packed
+round is the u8 round bit for bit.  The
 JAX package's (1, T) row tiles are 1-D (T,) rows, and its per-child
 ``vmap`` is the leading batch axis C, as in ops/split.py.  There is no
 counterpart of ``backend_lowers_fused``: the kernel builds and launches,
@@ -38,6 +41,7 @@ import functools
 import torch
 
 from ..io.binning import MISSING_NAN, MISSING_ZERO
+from .hist_cuda import bins_of_rows
 from .split import (NEG_INF, FeatureMeta, SplitParams, SplitResult,
                     gain_shift, go_left_rule, scan_direction_gains,
                     scan_left_sums, scan_pick_feature, tie_tol)
@@ -101,14 +105,14 @@ def pack_route_meta(feats, thrs, dls, leafs, nls, meta: FeatureMeta,
         sml.to(i32) if sml is not None else z], dim=1).contiguous()
 
 
-def decision_bins(binned, lids, feats, leafs, num_leaves):
+def decision_bins(binned, lids, feats, leafs, num_leaves, packed=False):
     """Each row's decision bin ``binned[f(leaf(row)), row]`` through a
     leaf -> feature table and one gather; rows of non-splitting leaves
-    read feature 0 (their slot mask is False)."""
+    read feature 0 (their slot mask is False).  ``packed``: the nibble of
+    the feature in its packed byte (``hist_cuda.packed_bins_of_rows``)."""
     tab = torch.zeros(num_leaves + 1, dtype=torch.long, device=lids.device)
     tab[leafs.long()] = feats.long()
-    f_of = tab[lids.long()]                                  # (N,)
-    return torch.gather(binned, 0, f_of[None, :])[0].to(torch.int32)
+    return bins_of_rows(binned, tab[lids.long()], packed)
 
 
 def child_scan_residue(hc, mask_c, csum_c, *, meta_blk: FeatureMeta,
@@ -145,11 +149,11 @@ def subtract_children(hsm, parent, sml):
 
 
 def fused_route_rows(binned, lids, *, feats, thrs, dls, leafs, nls,
-                     num_leaves, meta: FeatureMeta):
+                     num_leaves, meta: FeatureMeta, packed=False):
     """Route one row set through a round's committed splits with the same
     decision stage the round runs on the train rows — the valid-set lane
-    (K3 on the card, ``fused_cuda.route_rows``).  Integer only, so equal
-    to the staged routing."""
+    (K3 on the card, ``fused_cuda.route_rows``; ``packed``: its packed
+    leg).  Integer only, so equal to the staged routing."""
     from . import fused_cuda
 
     if lids.shape[0] == 0:
@@ -157,7 +161,7 @@ def fused_route_rows(binned, lids, *, feats, thrs, dls, leafs, nls,
     rmeta = pack_route_meta(feats, thrs, dls, leafs, nls, meta)
     return fused_cuda.route_rows(binned, lids,
                                  feats.to(torch.int32).contiguous(), rmeta,
-                                 num_leaves)
+                                 num_leaves, packed=packed)
 
 
 def _pick_pack(residue_c, shift_c, parent_sum_c, meta: FeatureMeta,
@@ -210,7 +214,7 @@ def unpack_children(packed: torch.Tensor, num_bins: int) -> SplitResult:
 
 
 def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
-                     precision, deep_precision):
+                     precision, deep_precision, packed=False):
     """Build the grower-facing ``fused_round_fn`` (JAX :669).
 
     ``fused_round(binned, g3, S, *, deep, mask, csums, sml, parent, route)
@@ -228,6 +232,8 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       mode (S smaller-child slots, and ``hsmall`` out); without it the
       round is pool-free (2S slots, ``hsmall`` None).
     * ``deep`` — a sustained-bucket round: it sums at ``deep_precision``.
+    * ``packed`` — ``binned`` (and the valid sets) hold 4-bit packed
+      bytes: the round and the valid router run their packed legs.
     """
     from . import fused_cuda
 
@@ -247,13 +253,14 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
             binned, g3, nslots=nslots, num_bins=num_bins,
             precision=deep_precision if deep else precision, meta=meta,
             params=params, mask=mask, csums=csums, sml=sml, parent=parent,
-            route=route_in, fmeta=fmeta)
+            route=route_in, fmeta=fmeta, packed=packed)
         shift = gain_shift(csums, params)
         return _pick_pack(residue, shift, csums, meta, num_bins), hsmall, \
             new_leaf
 
     fused_round.supports_route = True
-    fused_round.route_rows = functools.partial(fused_route_rows, meta=meta)
+    fused_round.route_rows = functools.partial(fused_route_rows, meta=meta,
+                                               packed=packed)
     return fused_round
 
 
@@ -261,7 +268,8 @@ _LOOP_MAX_ROUNDS = 64
 
 
 def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
-                   precision, deep_precision, use_mc=False, limits=None):
+                   precision, deep_precision, use_mc=False, packed=False,
+                   limits=None):
     """Eligibility and size of the persistent wave loop (JAX :804), decided
     from shapes and knobs: the JAX dict's keys (``eligible``, ``rounds``,
     ``reason``, ``ladder`` and the byte counts) and the card's limits.
@@ -280,7 +288,10 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
     has no counterpart: the loop runs each round at the bucket the single
     round picks and under that bucket's histogram plan, so its sums are
     partitioned exactly as K2's.  Without ``limits`` (the plain version on
-    the CPU) the card's gates are not asked."""
+    the CPU) the card's gates are not asked.  ``packed`` (as the JAX
+    planner): the resident bins are the packed bytes (``binned_bytes``);
+    the plans stay the real F's, so packed and u8 loops share their
+    partition."""
     from .fused_cuda import list_scratch_sizes
     from .loop_cuda import list_sizes, partial_floats
 
@@ -298,7 +309,9 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
                 ladder=tuple(int(s) for s in slot_buckets),
                 state_bytes=int(state_bytes),
                 partial_bytes=int(partial_bytes),
-                total_bytes=int(state_bytes + scratch_bytes))
+                total_bytes=int(state_bytes + scratch_bytes),
+                packed=bool(packed),
+                binned_bytes=int((-(-F // 2) if packed else F) * max(N, 1)))
     if limits is not None:
         plan.update({k: limits[k] for k in ("smem_bytes", "blocks_per_sm",
                                             "sms", "cooperative")})
@@ -336,7 +349,8 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
 
 
 def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
-                         num_bins, precision, deep_precision, rounds):
+                         num_bins, precision, deep_precision, rounds,
+                         packed=False):
     """Build the grower-facing persistent wave loop (JAX :1183).
 
     ``fused_loop(binned, g3, leaf_id, ft12, num_leaves, *, K,
@@ -354,7 +368,8 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     ``fused_loop.rounds`` is R; ``fused_loop.plan(N=, F=, K=, L=,
     use_sub=, slot_buckets=, device=)`` is ``plan_wave_loop`` with the
     knobs bound here and, on a CUDA device, the card's limits.  ``rounds
-    == 1`` is never built: the trainer runs the single round."""
+    == 1`` is never built: the trainer runs the single round.  ``packed``:
+    ``binned`` holds 4-bit packed bytes, and K6 runs its packed leg."""
     from . import fused_cuda, loop_cuda
 
     fmeta = fused_cuda.feature_table(meta)
@@ -366,18 +381,20 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
             binned, g3, leaf_id, ft12.contiguous(), num_leaves, rounds=R,
             K=K, slot_buckets=tuple(slot_buckets), max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
-            meta=meta, params=params, pool=pool, fmeta=fmeta)
+            meta=meta, params=params, pool=pool, fmeta=fmeta, packed=packed)
 
     def plan(*, N, F, K, L, use_sub, slot_buckets, device):
         limits = None
         if torch.device(device).type == "cuda":
             limits = loop_cuda.limits(
                 device, precision=precision, sub=use_sub, num_bins=num_bins,
-                N=N, F=F, L=L, K=K, slot_buckets=tuple(slot_buckets))
+                N=N, F=F, L=L, K=K, slot_buckets=tuple(slot_buckets),
+                packed=packed)
         return plan_wave_loop(rounds=rounds, N=N, F=F, num_bins=num_bins,
                               K=K, L=L, use_sub=use_sub,
                               slot_buckets=slot_buckets, precision=precision,
-                              deep_precision=deep_precision, limits=limits)
+                              deep_precision=deep_precision, packed=packed,
+                              limits=limits)
 
     fused_loop.rounds = R
     fused_loop.plan = plan
@@ -387,8 +404,9 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
 def fused_ineligible_reason(*, bin_dtype, num_bins) -> str:
     """Static eligibility gate (JAX :1356): the reason the fused round
     cannot run, or ``""``.  The port refuses categorical features, EFB
-    bundles, packed bins and extra_trees before any round (config.py,
-    io/dataset.py), so what remains to check is the bin type."""
+    bundles and extra_trees before any round (config.py, io/dataset.py),
+    and packed bins run the kernels' packed legs, so what remains to
+    check is the bin type."""
     if torch.iinfo(bin_dtype).bits > 8:
         return "int16 bins exceed the uint8 one-hot kernel family"
     if num_bins > 256:

@@ -22,12 +22,16 @@ ineligible configuration and falls back to the staged path or to the
 single round, the port raises ``NotImplementedError`` with the JAX
 reason: nothing silently trains something else.
 
+4-bit packed bins (``bin_layout=packed4``, which ``auto`` picks where
+every feature fits 16 bins on the kernel's method, so at ``max_bin <=
+15`` on the card) train through the kernels' packed legs on every grower;
+``build_trainer(packed=True)`` hands them the real feature count.
+
 What the JAX package routes elsewhere raises here, naming its ROADMAP
-item: ``packed4`` bins (which ``auto`` picks on the card at
-``max_bin <= 15``) and the int8 / int8sr precisions; ``hist_method=fused``
-on the sequential or level-wise grower raises with the JAX reason.  The loop's other JAX fallbacks (interaction constraints,
-``feature_fraction_bynode``, monotone constraints) are refused before,
-by ``config.unported_reason``.
+item: the int8 / int8sr precisions; ``hist_method=fused`` on the
+sequential or level-wise grower raises with the JAX reason.  The loop's
+other JAX fallbacks (interaction constraints, ``feature_fraction_bynode``,
+monotone constraints) are refused before, by ``config.unported_reason``.
 """
 
 from __future__ import annotations
@@ -36,7 +40,7 @@ from typing import Callable
 
 import torch
 
-from ..config import INT8, PACKED4, Config, not_ported
+from ..config import INT8, Config, not_ported
 from ..models import grower_wave
 from ..models.grower import make_leafwise_grower, make_levelwise_grower
 from ..models.grower_wave import (auto_wave_size, make_wave_grower,
@@ -46,7 +50,7 @@ from ..ops.histogram import (default_hist_method, hist_frontier,
 from ..ops.split import FeatureMeta, SplitParams
 from ..ops.wave_fused import (fused_ineligible_reason, make_fused_round,
                               make_fused_wave_loop)
-from ..utils.log import log_warning
+from ..utils.log import log_info, log_warning
 
 
 def resolve_deep_dtype(requested: str, precision: str, backend: str) -> str:
@@ -59,38 +63,59 @@ def resolve_deep_dtype(requested: str, precision: str, backend: str) -> str:
 
 
 def select_bin_layout(config: Config, *, num_total_bin: int,
-                      device: torch.device) -> str:
-    """``bin_layout``: ``u8``, or ``packed4`` where the JAX package would
-    pack (``auto`` with every feature in 4 bits on the kernel's method);
-    packed bins are not ported, so that case raises.  ``gpu_use_dp`` asks
-    for the widest histogram datapath and keeps byte bins, as there (an
-    explicit ``packed4`` warns)."""
+                      device: torch.device, bin_dtype=torch.uint8,
+                      bundled: bool = False) -> str:
+    """``bin_layout`` resolved to the layout the trainer stores (``"u8"``
+    or ``"packed4"``), with the JAX package's eligibility checks in its
+    order and its log lines: every feature in 4 bits (``num_total_bin <=
+    16``) of uint8 bins, no EFB bundle, the kernel's method (``pallas``,
+    from ``default_hist_method``: so ``auto`` packs on the card and not on
+    the CPU, as the JAX package packs on a TPU), not ``tree_learner=
+    feature`` and not ``gpu_use_dp``.  ``auto`` packs exactly when
+    eligible and is silent otherwise; an explicit ``packed4`` that is
+    refused warns and stores u8."""
     if config.bin_layout == "u8":
         return "u8"
-    if config.gpu_use_dp:
-        if config.bin_layout == "packed4":
-            log_warning("bin_layout=packed4: gpu_use_dp requests the widest "
-                        "histogram datapath; packed bins narrow the read "
-                        "stream; storing u8 bins")
-        return "u8"
     method = default_hist_method(config.hist_method, device)
-    if config.bin_layout == "packed4" or (num_total_bin <= 16
-                                          and method == "pallas"):
-        raise not_ported(f"bin_layout=packed4 (max {num_total_bin} bins a "
-                         "feature; pass bin_layout=u8 to train on byte "
-                         "bins)", PACKED4)
-    return "u8"
+    reason = ""
+    if torch.iinfo(bin_dtype).bits > 8:
+        reason = "int16-binned data exceeds the 4-bit nibble"
+    elif num_total_bin > 16:
+        reason = (f"num_total_bin={num_total_bin} needs more than 4 bits "
+                  "per bin")
+    elif bundled:
+        reason = "EFB bundle offsets address unpacked byte bins"
+    elif method != "pallas":
+        reason = (f"hist method {method!r} gathers unpacked bins "
+                  "(pallas-family kernels unpack nibbles at the load)")
+    elif config.tree_learner == "feature":
+        reason = "tree_learner=feature shards features, not byte pairs"
+    elif config.gpu_use_dp:
+        reason = ("gpu_use_dp requests the widest histogram datapath; "
+                  "packed bins narrow the read stream")
+    if reason:
+        if config.bin_layout == "packed4":
+            log_warning(f"bin_layout=packed4: {reason}; storing u8 bins")
+        return "u8"
+    log_info("bin_layout=packed4: 4-bit packed bins engaged — two bins "
+             "per byte, the (F, N) binned read halves "
+             "(ops/hist_cuda.pack4bit)")
+    return "packed4"
 
 
 def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                   num_bins: int, device: torch.device,
                   bin_dtype: torch.dtype = torch.uint8,
-                  num_data: int = 0) -> Callable:
+                  num_data: int = 0, packed: bool = False) -> Callable:
     """The serial learner's ``grow(binned, g3, base_mask, ...)`` for the
     configured growth over ``num_data`` rows of ``bin_dtype`` bins: the
     wave grower's ``grow(..., valids)`` routes the valid sets too
-    (``grow.routes_valids``), the others' return no valid leaf ids."""
+    (``grow.routes_valids``), the others' return no valid leaf ids.
+    ``packed``: the bins are the 4-bit packed bytes of the F =
+    ``meta.num_bins.shape[0]`` features (JAX :497-507)."""
     method = default_hist_method(config.hist_method, device)
+    F = meta.num_bins.shape[0]
+    bins = dict(packed=packed, num_features=F)
     precision = config.hist_dtype
     if precision not in ("f32", "bf16", "bf16x2"):
         raise not_ported(f"hist_dtype={precision}", INT8)
@@ -118,7 +143,8 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
 
     def local_wave(binned, g3, label, nslots, deep=False):
         return hist_wave(binned, g3, label, nslots, num_bins, method=method,
-                         precision=deep_precision if deep else precision)
+                         precision=deep_precision if deep else precision,
+                         **bins)
 
     # ---- hist_method=fused: the routed fused round (K2, K3) -------------
     fused_fn = fused_loop = None
@@ -133,14 +159,15 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
             raise NotImplementedError(f"hist_method=fused: {reason}")
         fused_fn = make_fused_round(meta=meta, params=params,
                                     num_bins=num_bins, precision=precision,
-                                    deep_precision=deep_precision)
+                                    deep_precision=deep_precision,
+                                    packed=packed)
         if config.wave_loop_rounds > 1:
             # ---- the persistent wave loop (K6), planned at this shape ---
             fused_loop = make_fused_wave_loop(
                 meta=meta, params=params, num_bins=num_bins,
                 precision=precision, deep_precision=deep_precision,
-                rounds=config.wave_loop_rounds)
-            L, F = config.num_leaves, meta.num_bins.shape[0]
+                rounds=config.wave_loop_rounds, packed=packed)
+            L = config.num_leaves
             K = max(1, min(wave_size, max(L - 1, 1)))
             plan = fused_loop.plan(
                 N=num_data, F=F, K=K, L=L,
@@ -158,20 +185,21 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
         def local_frontier(binned, g3, label, L, live_slots=None):
             return hist_frontier(binned, g3, label, L, num_bins,
                                  method=method, precision=precision,
-                                 live_slots=live_slots)
+                                 live_slots=live_slots, **bins)
 
         return make_levelwise_grower(hist_frontier_fn=local_frontier,
-                                     **common)
+                                     packed=packed, **common)
     if not use_wave:
         def local_hist(binned, g3, leaf_id, target):
             return hist_one_leaf(binned, g3, leaf_id, target, num_bins,
-                                 method=method, precision=precision)
+                                 method=method, precision=precision, **bins)
 
         return make_leafwise_grower(
             hist_fn=local_hist,
             partition=config.tree_growth != "leafwise_masked",
-            hist_pool_mb=config.histogram_pool_size, **common)
+            hist_pool_mb=config.histogram_pool_size, packed=packed,
+            **common)
     return make_wave_grower(wave_size=wave_size, hist_wave_fn=local_wave,
                             fused_round_fn=fused_fn,
-                            fused_loop_fn=fused_loop, **common)
+                            fused_loop_fn=fused_loop, packed=packed, **common)
 

@@ -86,7 +86,8 @@ def test_every_jax_knob_and_alias_is_known():
             "lambda_l2", "min_gain_to_split", "verbosity", "bagging_fraction",
             "pos_bagging_fraction", "neg_bagging_fraction",
             "feature_fraction_bynode", "leafwise_wave_size",
-            "wave_loop_rounds", "hist_dtype", "max_bin", "min_data_in_bin",
+            "wave_loop_rounds", "hist_dtype", "bin_layout", "max_bin",
+            "min_data_in_bin",
             "bin_construct_sample_cnt", "feature_pre_filter",
             "data_random_seed", "enable_bundle", "max_conflict_rate",
             "use_missing", "zero_as_missing", "num_class", "is_unbalance",
@@ -163,9 +164,8 @@ def test_gpu_use_dp_keeps_byte_bins_and_f32_deep_rounds(capsys):
     dp = Config.from_dict({"objective": "binary", "gpu_use_dp": True,
                            "hist_method": "pallas"})
     assert select_bin_layout(dp, num_total_bin=15, device=CPU) == "u8"
-    with pytest.raises(NotImplementedError, match="packed4"):
-        select_bin_layout(Config.from_dict({"hist_method": "pallas"}),
-                          num_total_bin=15, device=CPU)
+    assert select_bin_layout(Config.from_dict({"hist_method": "pallas"}),
+                             num_total_bin=15, device=CPU) == "packed4"
     packed = Config.from_dict({"objective": "binary", "gpu_use_dp": True,
                                "bin_layout": "packed4"})
     assert unported_reason(packed) is None

@@ -499,7 +499,9 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
     fused_cuda.reset_launch_counts()
     _port_call(r, "bf16x2")
     assert fused_cuda.plain_counts == {"fused_round": 1, "route_rows": 0}
-    assert fused_cuda.launch_counts == {"fused_round": 0, "route_rows": 0}
+    assert fused_cuda.launch_counts == {"fused_round": 0, "route_rows": 0,
+                                        "fused_round_packed": 0,
+                                        "route_rows_packed": 0}
     assert fused_cuda.bucket_launch_counts == {}
     t = torch.from_numpy
     with pytest.raises(ValueError, match="cpu or cuda"):

@@ -217,9 +217,10 @@ def test_k1_call_shapes_of_the_growers(monkeypatch):
     calls = []
     real = hist_cuda.hist_leaves
 
-    def spy(binned, g3, leaf_id, L, B, precision="bf16x2", live_slots=None):
+    def spy(binned, g3, leaf_id, L, B, precision="bf16x2", live_slots=None,
+            **kw):
         calls.append((int(L), int(binned.shape[1]), live_slots))
-        return real(binned, g3, leaf_id, L, B, precision, live_slots)
+        return real(binned, g3, leaf_id, L, B, precision, live_slots, **kw)
 
     monkeypatch.setattr(hist_cuda, "hist_leaves", spy)
     _, _, tt, tleaf, _ = _grow_both({"num_leaves": 7})

@@ -212,7 +212,8 @@ def test_plain_calls_are_counted_and_launch_counts_stay():
     assert hist_cuda.plain_counts == {"hist_leaves": 1,
                                       "hist_leaves_roworder": 1,
                                       "hist_leaves_scatter": 1}
-    assert hist_cuda.launch_counts == {"hist_leaves": 0}
+    assert hist_cuda.launch_counts == {"hist_leaves": 0,
+                                       "hist_leaves_packed": 0}
     assert hist_cuda.bucket_launch_counts == {}
     hist_cuda.reset_launch_counts()
     assert not any(hist_cuda.plain_counts.values())

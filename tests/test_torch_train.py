@@ -398,7 +398,6 @@ _UNPORTED_CASES = [
     ({"feature_fraction_bynode": 0.5}, tconfig.SAMPLING),
     ({"extra_trees": True}, tconfig.SAMPLING),
     ({"early_stopping_round": 2}, tconfig.CALLBACKS),
-    ({"bin_layout": "packed4"}, tconfig.PACKED4),
     ({"hist_dtype": "int8"}, tconfig.INT8),
     ({"hist_dtype_deep": "int8sr"}, tconfig.INT8),
     ({"hist_dtype_deep": "int8"}, tconfig.INT8),
@@ -449,9 +448,9 @@ def test_unported_entry_points_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b.update(fobj=lambda p, d: (p, p))
     # auto bin layout packs 4-bit bins on the card at max_bin <= 15
-    with pytest.raises(NotImplementedError, match="packed4"):
-        select_bin_layout(Config.from_dict({"max_bin": 15}),
-                          num_total_bin=16, device=torch.device("cuda"))
+    assert select_bin_layout(Config.from_dict({"max_bin": 15}),
+                             num_total_bin=16,
+                             device=torch.device("cuda")) == "packed4"
     assert select_bin_layout(Config.from_dict({"max_bin": 15}),
                              num_total_bin=16, device=CPU) == "u8"
     assert select_bin_layout(Config.from_dict({"bin_layout": "u8"}),

@@ -597,7 +597,8 @@ def test_wrapper_takes_the_plain_version_on_the_cpu_only():
     loop_cuda.reset_launch_counts()
     _port_loop(s, 2, "bf16x2")
     assert loop_cuda.plain_counts == {"fused_wave_loop": 1}
-    assert loop_cuda.launch_counts == {"fused_wave_loop": 0}
+    assert loop_cuda.launch_counts == {"fused_wave_loop": 0,
+                                       "fused_wave_loop_packed": 0}
     assert loop_cuda.bucket_launch_counts == {}
     t = torch.from_numpy
     with pytest.raises(ValueError, match="cpu or cuda"):
