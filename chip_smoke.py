@@ -222,9 +222,52 @@ Phases (any failure exits non-zero with no ``ok`` line):
               beside its u8 leg, its plain version, the unpack alone and
               (K1) one ``index_add_`` on the unpacked bins, with its
               bound (the bins stream at ceil(F/2) bytes a row).
-              Then the ``kernels`` line (K1, K2, K3, K6, K4, K5) is
-              printed; K1's row carries phases 22-25's K1 shapes too
-              (``paths``), and K1, K2, K3 and K6 a ``packed`` record.
+28. int8sr  — stochastic-rounded int8 histograms
+              (hist_dtype_deep=int8sr) against their plain versions: the
+              quantize kernel bit for bit its plain version on the card
+              and on the CPU (and the prequantized rows and scales the
+              CPU's) at --train-rows rows and an odd count with weighted
+              counts and a zero hessian column; K1's int8sr leg exact
+              (integer plain versions) at L in {1, 17, 64}, byte bins and
+              a packed 16-bin axis, every cell below 2^24; K2's at S = 16
+              and 63 (subtraction: apply_scale) and 63 pool-free
+              (child_scale), and phase 14's sparse-live rounds: leaf ids,
+              labels and K3 exact, hsmall K1's int8sr histogram, the
+              residue the CPU plain scan's of the plain dequantization;
+              K6 at R = 4 on a segment of a headline int8sr tree whose
+              rounds mix bf16x2 and int8sr, subtraction and pool-free, and
+              a sparse-live segment: bit for bit R K2 rounds (each
+              quantized by the quantize kernel), the rows K6 drew for its
+              last quantized round the quantize kernel's for that key.
+29. int8sr training — the headline configuration with
+              hist_dtype_deep=int8sr for --iters iterations, staged,
+              fused and looped (wave_loop_rounds=4), launch counts reset
+              around each: the int8sr legs launch only at the 16- and
+              63-slot buckets (K1 at L = 17, 64 with one quantize launch
+              each; K2 at nslots 16, 63 likewise; K6 with the quantized
+              ladder and no quantize launch), no plain version; the
+              looped model text its single round's (the fused one) byte
+              for byte, a second staged training the same; AUC > 0.90;
+              each model served through K4.  Whether the staged text
+              equals the fused one is printed, not gated: on the card it
+              does not (ROADMAP queue 3: the staged scan's torch.cumsum
+              sums f32 in the card's order, K2 in double rounded each
+              prefix; the bf16x2 headline texts differ the same way).  Then each int8sr leg
+              timed on the path's last inputs beside its bf16x2 / bf16
+              leg, its plain version and (K1) one index_add_ of the
+              integer rows, and the quantize kernel beside its plain
+              version, with bounds.
+30. int8sr parity — phase 11's card-against-CPU check on 65,536 of the
+              rows with hist_dtype_deep=int8sr (f32 otherwise): every split
+              identical, leaves within 2e-3 of max(1, |leaf|); then phase
+              16's fused-against-staged check on the card (its 63 leaves
+              in waves of 32) with hist_dtype_deep=int8sr, each run
+              through its int8sr legs: every split identical, leaves
+              within 2e-3 of max(1, |leaf|).
+              Then the ``kernels`` line (K1, K2, K3, K6, the quantize
+              kernel, K4, K5) is printed; K1's row carries phases 22-25's
+              K1 shapes too (``paths``), K1, K2, K3 and K6 a ``packed``
+              record and K1, K2 and K6 an ``int8sr`` one.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -256,6 +299,7 @@ from lightgbmv1_tpu_torch.ops import _build, hist_cuda as hc
 from lightgbmv1_tpu_torch.ops import fused_cuda as fc
 from lightgbmv1_tpu_torch.ops import loop_cuda as lc
 from lightgbmv1_tpu_torch.ops import predict_cuda as pc
+from lightgbmv1_tpu_torch.ops import quantize as qz
 from lightgbmv1_tpu_torch.ops import wave_fused as wf
 from lightgbmv1_tpu_torch.ops.split import (TIE_RTOL, SplitParams,
                                             child_leaf_output, gain_shift,
@@ -264,6 +308,7 @@ from lightgbmv1_tpu_torch.ops.split import (TIE_RTOL, SplitParams,
                                             scan_left_sums)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
 from lightgbmv1_tpu_torch.serve import ServeConfig, Server
+from lightgbmv1_tpu_torch.utils import prng
 
 F = 28                      # features of the bench headline model
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (data sheet)
@@ -881,7 +926,7 @@ def check_k1(tag, binned, g3, lid, L, B=64, live=None) -> dict:
     absum = hc.index_add_hist(binned, [g3.abs()], lid, L, B, live)
     tol = k1_tol(absum, absum[..., 2:3])       # the count column is >= 0
     wants, err, rel_max = {}, 0.0, 0.0
-    for prec in hc.PRECISIONS:
+    for prec in hc.FLOAT_PRECISIONS:
         got = hc.hist_leaves(binned, g3, lid, L, B, prec, live)
         again = hc.hist_leaves(binned, g3, lid, L, B, prec, live)
         want = wants[prec] = hc.hist_leaves_ref(binned, g3, lid, L, B, prec,
@@ -904,8 +949,8 @@ def check_k1(tag, binned, g3, lid, L, B=64, live=None) -> dict:
               "or the dead slot is not 0")
         err = max(err, float(diff.max()))
         rel_max = max(rel_max, float((diff / (absum + 1e-30)).max()))
-    seps = [f"{p}|{q}" for i, p in enumerate(hc.PRECISIONS)
-            for q in hc.PRECISIONS[i + 1:]
+    seps = [f"{p}|{q}" for i, p in enumerate(hc.FLOAT_PRECISIONS)
+            for q in hc.FLOAT_PRECISIONS[i + 1:]
             if bool(((wants[p] - wants[q]).abs() > tol).any())]
     log(f"  K1 {tag}: bitwise the row-order version, dead slot 0 and live "
         f"cells unchanged, counts exact, bitwise repeatable; vs index_add_ "
@@ -1454,14 +1499,14 @@ def phase_fused_kernels(binned, meta, rng) -> list:
     out = []
     for S, n_live, sub in ((4, 3, True), (16, 16, True), (63, 63, True),
                            (63, 63, False)):
-        for prec in hc.PRECISIONS:
+        for prec in hc.FLOAT_PRECISIONS:
             g3, kw = round_inputs(binned, meta, S, n_live, sub, prec, rng)
             out.append(check_k2(f"S={S} {'sub' if sub else 'pool-free'} "
                                 f"{prec}", binned, g3, kw))
     F, N = binned.shape
     for case, sub in (("one row", False), ("one chunk", True),
                       ("none", True), ("root", False)):
-        for prec in hc.PRECISIONS:
+        for prec in hc.FLOAT_PRECISIONS:
             chunk_rows = hc.plan(N, F, (4 if sub else 8) + 1, 64,
                                  prec)["chunk_rows"]
             g3, kw = round_inputs(binned, meta, 4, 1, sub, prec, rng,
@@ -1554,7 +1599,7 @@ def live_rows_run(params, ds, iters, dev, text):
 
 
 def reset_counts() -> None:
-    for mod in (hc, fc, pc, lc):
+    for mod in (hc, fc, pc, lc, qz):
         mod.reset_launch_counts()
 
 
@@ -1732,12 +1777,14 @@ class LoopRecorder:
     and replay (``loop_cuda.loop_rounds``): single rounds, no K6.  It
     counts nothing; the wrappers count their launches."""
 
-    def __init__(self, k2_rounds=False, debug=False):
+    def __init__(self, k2_rounds=False, debug=False, keep=0):
         self.k2_rounds = k2_rounds
         self.stamp = debug
         self.n_split = []
         self.debug = []     # (debug buffer, split counts, ladder)
         self.second = self.last = None
+        self.keep = keep    # the inputs of the first ``keep`` calls too
+        self.kept = []
 
     def __enter__(self):
         self._orig = lc.fused_wave_loop
@@ -1760,6 +1807,8 @@ class LoopRecorder:
             self.last = (binned, g3, leaf_id, ft12, num_leaves, kw)
             if len(self.n_split) == 1:
                 self.second = self.last
+            if len(self.kept) < self.keep:
+                self.kept.append(self.last)
             self.n_split.append(out[3])
             return out
 
@@ -2436,7 +2485,7 @@ def check_packed_k1(tag, u8, packed, g3, lid, L, B=16) -> dict:
     the index_add_ version; two launches bitwise equal; the dead slot
     (``live_slots = L - 1``) as phase 9."""
     pk = dict(packed=True, num_features=u8.shape[0])
-    for prec in hc.PRECISIONS:
+    for prec in hc.FLOAT_PRECISIONS:
         got = hc.hist_leaves(packed, g3, lid, L, B, prec, **pk)
         again = hc.hist_leaves(packed, g3, lid, L, B, prec, **pk)
         u = hc.hist_leaves(u8, g3, lid, L, B, prec)
@@ -2543,7 +2592,8 @@ def phase_packed_kernels(binned, meta, rng) -> dict:
                                              packed, signed_rows(rng, N, dev),
                                              lid, L))
     packed = hc.pack4bit(binned)
-    cases = [(S, True, prec) for S in (4, 16, 63) for prec in hc.PRECISIONS]
+    cases = [(S, True, prec) for S in (4, 16, 63)
+             for prec in hc.FLOAT_PRECISIONS]
     for S, sub, prec in cases + [(63, False, "bf16x2")]:
         g3, kw = round_inputs(binned, meta, S, S, sub, prec, rng, B=16)
         out["k2"].append(check_packed_k2(
@@ -2783,6 +2833,569 @@ def phase_packed_timing(recs, trained) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# stochastic-rounded int8 histograms (hist_dtype_deep=int8sr): the quantize
+# kernel and the int8sr legs of K1, K2 and K6
+# ---------------------------------------------------------------------------
+
+# phase 29: the headline configuration with hist_dtype_deep=int8sr, the
+# knob whose automatic value is int8sr on the JAX package's TPU: the
+# 16-slot ramp and the sustained 63-slot rounds quantize
+INT8SR_PARAMS = dict(TRAIN_PARAMS, hist_dtype_deep="int8sr")
+INT8SR_RUNS = (("staged", {}), ("fused", {"hist_method": "fused"}),
+               ("looped", {"hist_method": "fused", "wave_loop_rounds": 4}))
+QUANT_SRC = "lightgbmv1_tpu_torch/csrc/quantize.cu"
+# H100 SXM int32 operations a second outside the tensor cores: 64 INT32
+# lanes an SM x 132 SMs x 1.98 GHz boost clock
+INT32_OPS_PER_S = 64 * 132 * 1.98e9
+# integer operations of one threefry2x32 draw (csrc/prng.cuh): 20 rounds
+# of an add, a funnel-shift rotation and an XOR, the 2 initial key adds,
+# 5 injections of 2 adds each (a key word plus its round constant is one
+# word a launch, so one add), and the XOR, shift, OR of the float bits;
+# the key schedule itself is made once a launch and not counted
+DRAW_OPS = 20 * 3 + 2 + 5 * 2 + 3
+# the tree key of the kernel checks (utils/prng.py)
+CHECK_KEY = prng.fold_in(prng.prng_key(7), 3)
+
+
+def quant_rows(g3, key):
+    """The prequantized rows, the scales and the quantize kernel's rows."""
+    zq, scale3 = qz.prequantize_rows(g3)
+    return zq, scale3, qz.sr_quantize(zq, key)
+
+
+def check_quantize(tag, g3, key) -> dict:
+    """The quantize kernel against its plain version on the card and on
+    the CPU, and the prequantized rows and scales of the card against the
+    CPU's: bit for bit; the rows integers in [-127, 127]."""
+    zq, sc, got = quant_rows(g3, key)
+    zq_c, sc_c = qz.prequantize_rows(g3.cpu())
+    check(same_bits(zq.cpu(), zq_c) and same_bits(sc.cpu(), sc_c),
+          f"quantize {tag}: the prequantized rows or scales differ from "
+          "the CPU's")
+    again = qz.sr_quantize(zq, key)
+    plain = qz.sr_quantize_ref(zq, key)
+    cpu = qz.sr_quantize_ref(zq_c, key)
+    check(same_bits(got, again), f"quantize {tag}: two launches differ")
+    check(same_bits(got, plain), f"quantize {tag}: not bitwise the plain "
+          f"version ({int((got != plain).sum())} values differ)")
+    check(same_bits(got.cpu(), cpu), f"quantize {tag}: not bitwise the "
+          "plain version on the CPU")
+    q = got[:, :2]
+    check(bool((q == q.round()).all()) and float(q.abs().max()) <= 127,
+          f"quantize {tag}: rows not integers in [-127, 127]")
+    log(f"  quantize {tag}: {g3.shape[0]} rows bitwise the plain version on "
+        f"the card and the CPU, scales {sc.tolist()}")
+    return {"case": tag, "N": int(g3.shape[0]), "scales": sc.tolist(),
+            "max_abs_err": 0.0}
+
+
+def check_k1_int8sr(tag, binned, q3, lid, L, B=64, packed=None) -> dict:
+    """K1's int8sr leg on quantized rows against its integer plain
+    versions (exact), across two launches, with the dead slot; with
+    ``packed`` (the pack4bit bytes of ``binned``) its packed leg bitwise
+    the u8 leg.  Every cell below 2^24 in magnitude."""
+    got = hc.hist_leaves(binned, q3, lid, L, B, "int8sr")
+    check(torch.equal(got, hc.hist_leaves(binned, q3, lid, L, B, "int8sr")),
+          f"K1 int8sr {tag}: two launches differ")
+    want = hc.hist_leaves_ref(binned, q3, lid, L, B, "int8sr")
+    check(torch.equal(got, want), f"K1 int8sr {tag}: not the integer plain "
+          f"version ({int((got != want).sum())} cells differ)")
+    check(torch.equal(got, hc.hist_leaves_roworder_ref(
+        binned, q3, lid, L, B, "int8sr")), f"K1 int8sr {tag}: not the "
+        "row-order plain version")
+    check(float(got.abs().max()) < 2 ** 24, f"K1 int8sr {tag}: a cell "
+          "reaches 2^24")
+    if L > 1:
+        dead = hc.hist_leaves(binned, q3, lid, L, B, "int8sr", L - 1)
+        check(torch.equal(dead[:L - 1], got[:L - 1])
+              and not bool(dead[L - 1].any()),
+              f"K1 int8sr {tag}: the dead slot changed a live cell or is "
+              "not 0")
+    if packed is not None:
+        pk = hc.hist_leaves(packed, q3, lid, L, B, "int8sr", packed=True,
+                            num_features=binned.shape[0])
+        check(torch.equal(pk, got), f"K1 int8sr {tag}: the packed leg "
+              "differs from the u8 leg")
+    log(f"  K1 int8sr {tag}: exact, the integer plain versions', "
+        f"repeatable{', packed leg the u8 leg' if packed is not None else ''}"
+        f"; largest cell {float(got.abs().max()):.0f}")
+    return {"case": tag, "max_abs_err": 0.0, "packed": packed is not None}
+
+
+def check_k2_int8sr(tag, binned, q3, kw) -> dict:
+    """K2's int8sr leg on one round's quantized rows, bit for bit: leaf
+    ids, labels and K3 as the plain version; hsmall K1's int8sr histogram
+    of the emitted label; the residue the CPU plain scan's of the plain
+    dequantization (the smaller child scaled, then subtracted; pool-free
+    the integer prefix sums scaled); two launches equal."""
+    B, F = kw["num_bins"], binned.shape[0]
+    got = fc.fused_round(binned, q3, **kw)
+    again = fc.fused_round(binned, q3, **kw)
+    for a, b, what in zip(got, again, ("residue", "hsmall", "new leaf ids",
+                                       "label")):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K2 int8sr {tag}: two launches differ in {what}")
+    res, hsm, nleaf, label = got
+    want = fc.fused_round_ref(binned, q3, **plain_kw(kw))
+    check(torch.equal(nleaf, want[2]) and torch.equal(label, want[3]),
+          f"K2 int8sr {tag}: leaf ids or labels differ from the plain "
+          "version")
+    r = kw["route"]
+    check(torch.equal(fc.route_rows(binned, r["oleaf"], r["feats"],
+                                    r["rmeta"], r["num_leaves"]), nleaf),
+          f"K3 {tag}: differs from K2's leaf ids")
+    ns = kw["nslots"]
+    k1 = hc.hist_leaves(binned, q3, label, ns + 1, B, "int8sr")[:ns]
+    scale = kw["scale"]
+    if hsm is not None:
+        check(torch.equal(hsm, k1), f"K2 int8sr {tag}: hsmall is not K1's "
+              "int8sr histogram of its label")
+        children = wf.subtract_children(hsm, kw["parent"], kw["sml"], scale)
+        hscale = None
+    else:
+        children, hscale = k1, scale
+    meta = kw["meta"]
+    res_cpu = wf.child_scan_residue(
+        children.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
+        meta_blk=type(meta)(*(x.cpu() for x in meta)), params=kw["params"],
+        num_bins=B, fblk=F,
+        hist_scale=None if hscale is None else hscale.cpu()).to(res.device)
+    check(bool(same_value(res, res_cpu).all()), f"K2 int8sr {tag}: the "
+          "residue is not the CPU plain scan of the plain dequantization")
+    live = int((label < ns).sum())
+    log(f"  K2 int8sr {tag}: {live} live rows; leaf ids, labels, K3 exact; "
+        "hsmall K1's int8sr histogram; residue the CPU plain scan's; "
+        "repeatable")
+    return {"case": tag, "rows_in_slots": live, "max_abs_err": 0.0,
+            "residue_bitwise_cpu_plain": True}
+
+
+def int8sr_round(binned, meta, S, n_live, sub, rng, **kw):
+    """One quantized round's inputs (``round_inputs``) at int8sr: the
+    quantize kernel's rows under a key of the round and the slots'
+    scales."""
+    g3, rkw = round_inputs(binned, meta, S, n_live, sub, "int8sr", rng, **kw)
+    _, scale3, q3 = quant_rows(g3, prng.fold_in(CHECK_KEY, S))
+    rkw["scale"] = scale3[None, :].expand(rkw["nslots"], 3).contiguous()
+    return q3, rkw
+
+
+def last_quant_nl(kw, nl0, n_split) -> int:
+    """The leaf count at the start of a launch's last quantized round."""
+    nl, last = nl0, None
+    ladder, qb = kw["slot_buckets"], kw["quant_buckets"]
+    for n in n_split.tolist():
+        if n == 0:
+            break
+        if ladder[sum(n > b for b in ladder[:-1])] in qb:
+            last = nl
+        nl += n
+    return last
+
+
+def check_k6_int8sr(tag, args, min_rounds=2) -> dict:
+    """K6 with quantized buckets against R launches of K2 (each quantized
+    round's rows from the quantize kernel) with the PyTorch pick and
+    replay: packed rows, leaf ids, pool and split counts bit for bit;
+    two launches equal; the rows K6 drew for its last quantized round
+    equal the quantize kernel's for the same key; split counts equal the
+    plain version's.  The segment mixes quantized and unquantized
+    rounds."""
+    pos, kw = args
+    dev = pos[0].device
+    # the kernel's quantized rows (a CPU rehearsal runs the plain version)
+    q3 = torch.empty((pos[0].shape[1], 3), dtype=torch.float32,
+                     device=dev) if dev.type == "cuda" else None
+    got = lc.fused_wave_loop(*pos, q3=q3, **kw)
+    again = lc.fused_wave_loop(*pos, **kw)
+    rec = RoundRecorder()
+    k2 = lc.loop_rounds(*pos, round_fn=rec, **kw)
+    plain = lc.fused_wave_loop_ref(*pos, **kw)
+    names = ("packed rows", "new leaf ids", "pool", "split counts")
+    for a, b, c, what in zip(got, again, k2, names):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K6 int8sr {tag}: two launches differ in {what}")
+        check(a is None or bool(same_value(a, c).all()),
+              f"K6 int8sr {tag}: {what} differ from R K2 rounds")
+    n_split = got[3].tolist()
+    check(n_split == plain[3].tolist(), f"K6 int8sr {tag}: split counts "
+          f"{n_split} against the plain version's {plain[3].tolist()}")
+    precs = [rkw["precision"] for rkw, _ in rec.rounds]
+    check(len(precs) >= min_rounds, f"K6 int8sr {tag}: {len(precs)} live "
+          "rounds")
+    nl = last_quant_nl(kw, pos[4], got[3])
+    drew = nl is not None and q3 is not None
+    if drew:
+        want = qz.sr_quantize(kw["quant"][0],
+                              prng.fold_in(kw["key"], 8_000_011 + nl))
+        check(same_bits(q3, want), f"K6 int8sr {tag}: its draw at {nl} "
+              "leaves differs from the quantize kernel's")
+    log(f"  K6 int8sr {tag}: split counts {n_split}, rounds {precs}; packed "
+        f"rows, leaf ids and pool bitwise {len(precs)} K2 rounds and across "
+        "two launches; "
+        + (f"its draw at {nl} leaves the quantize kernel's" if drew
+           else "no quantized round" if nl is None
+           else "its draw is the card's to check"))
+    return {"case": tag, "n_split": n_split, "rounds": precs,
+            "draw_bitwise_quantize": drew, "max_abs_err": 0.0}
+
+
+def phase_int8sr_kernels(binned, meta, rng) -> dict:
+    """Phase 28: the quantize kernel at N rows and an odd N (weighted
+    counts, a zero hessian column); K1's int8sr leg at L = 1, 17, 64 on
+    byte bins and (a 16-bin axis) packed bins; K2's at S = 16 and 63 in
+    subtraction mode, 63 pool-free and the sparse-live rounds; K6 at R = 4
+    on a segment of a headline int8sr tree (bf16x2 and int8sr rounds),
+    subtraction and pool-free, and a sparse-live segment."""
+    Fn, N = binned.shape
+    dev = binned.device
+    out = {"quantize": [], "k1": [], "k2": [], "k6": []}
+    g3 = signed_rows(rng, N, dev)
+    out["quantize"].append(check_quantize(f"N={N}", g3, CHECK_KEY))
+    odd = (N * 3 // 4) | 1
+    w = signed_rows(rng, odd, dev)
+    w[:, 1] = 0.0
+    w[:, 2] = torch.from_numpy(rng.rand(odd).astype(np.float32) * 3).to(dev)
+    out["quantize"].append(check_quantize(
+        f"N={odd} weighted counts, zero hessians", w, CHECK_KEY))
+    b16 = (binned % 16).to(torch.uint8).contiguous()
+    p16 = hc.pack4bit(b16)
+    for L in (1, 17, 64):
+        lid = torch.from_numpy(rng.randint(0, L, N).astype(np.int32)).to(dev)
+        q3 = quant_rows(signed_rows(rng, N, dev), prng.fold_in(CHECK_KEY,
+                                                               L))[2]
+        out["k1"].append(check_k1_int8sr(f"L={L} B=64", binned, q3, lid, L))
+        out["k1"].append(check_k1_int8sr(f"L={L} B=16", b16, q3, lid, L, 16,
+                                         p16))
+    for S, sub in ((16, True), (63, True), (63, False)):
+        q3, kw = int8sr_round(binned, meta, S, S, sub, rng)
+        out["k2"].append(check_k2_int8sr(
+            f"S={S} {'sub' if sub else 'pool-free'}", binned, q3, kw))
+    for case, sub in SPARSE_CASES:
+        chunk_rows = hc.plan(N, Fn, (16 if sub else 32) + 1, 64,
+                             "int8sr")["chunk_rows"]
+        q3, kw = int8sr_round(binned, meta, 16, 1, sub, rng,
+                              oleaf=sparse_leaves(N, chunk_rows, case),
+                              leafs=[1])
+        out["k2"].append(check_k2_int8sr(
+            f"sparse {case}, S=16 {'sub' if sub else 'pool-free'}", binned,
+            q3, kw))
+        live = out["k2"][-1]["rows_in_slots"]
+        check({"one row": live == 1, "one chunk": 0 < live <= chunk_rows,
+               "none": live == 0, "root": live == N}[case],
+              f"K2 int8sr sparse {case}: {live} live rows")
+    config = Config.from_dict(dict(INT8SR_PARAMS, hist_method="fused",
+                                   wave_loop_rounds=2))
+    params = SplitParams(min_data_in_leaf=float(config.min_data_in_leaf))
+    grow = build_trainer(config, meta, params, 64, dev, num_data=N)
+    with LoopRecorder(k2_rounds=True, keep=3) as cap:
+        grow(binned, signed_rows(rng, N, dev), meta.usable, key=CHECK_KEY)
+    check(len(cap.kept) == 3, "three segments in an int8sr tree")
+    seg = cap.second
+    check(tuple(seg[5]["quant_buckets"]) == (16, 63),
+          f"the loop's quantized buckets {seg[5]['quant_buckets']}")
+    for sub in (True, False):
+        args = loop_call(seg, rounds=4, pool=seg[5]["pool"] if sub else None)
+        out["k6"].append(check_k6_int8sr(
+            f"R=4 {'sub' if sub else 'pool-free'} bf16x2 + int8sr", args))
+    # the third segment (16 leaves: its first round quantizes) with the
+    # rows of one row chunk left in their leaves and the rest parked
+    seg = cap.kept[2]
+    lid, ft, nl = seg[2], seg[3], seg[4]
+    sparams = seg[5]["params"]._replace(lambda_l2=1.0)
+    chunk_rows = lc.bucket_plans(N, Fn, 64, "bf16x2", seg[5]["slot_buckets"],
+                                 True, (16, 63))[1]["chunk_rows"]
+    keep = torch.zeros_like(lid, dtype=torch.bool)
+    c = (N // chunk_rows) // 2
+    keep[c * chunk_rows:(c + 1) * chunk_rows] = True
+    moved = torch.where(keep, lid, torch.full_like(lid, ft.shape[0] - 1))
+    mft, mpool = parked_state(binned, seg[1], moved, ft, nl, meta, sparams,
+                              64)
+    args = loop_call(seg[:2] + (moved, mft) + seg[4:], rounds=4,
+                     params=sparams, pool=mpool)
+    out["k6"].append(check_k6_int8sr("sparse one chunk, R=4 sub", args, 1))
+    return out
+
+
+# the int8sr launches each training must show and the counts that must
+# stay 0; the quantized buckets' K1 slots are S + 1 (the dead slot)
+INT8SR_K1_L = {17, 64}
+INT8SR_K2_NS = {16, 63}
+
+
+def int8sr_run(params, ds, dv, iters, dev):
+    """One int8sr training with the valid set, launch counts reset first,
+    under the call recorders; returns the booster, its seconds, metrics,
+    launch counts (K1, K2, K6 by bucket; the quantize kernel), plain-
+    version counts and the recorders."""
+    reset_counts()
+    ev = {}
+    with HistRecorder() as hrec, FusedRecorder() as frec, \
+            LoopRecorder() as lrec, QuantRecorder() as qrec:
+        t0 = time.perf_counter()
+        booster = train(params, ds, iters, valid_sets=[dv], evals_result=ev,
+                        **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    counts = {
+        "k1": {f"{k[0]}:{k[1]}": v
+               for k, v in sorted(hc.bucket_launch_counts.items())},
+        "k2": {f"{k[0]}:{k[1]}:{k[2]}": v
+               for k, v in sorted(fc.bucket_launch_counts.items())},
+        "k6": {f"{k[0]}:{k[1]}:{k[2]}": v
+               for k, v in sorted(lc.bucket_launch_counts.items())},
+        "sr_quantize": qz.launch_counts["sr_quantize"]}
+    plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
+             **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
+             **{f"loop.{k}": v for k, v in lc.plain_counts.items()},
+             **{f"quantize.{k}": v for k, v in qz.plain_counts.items()}}
+    return booster, secs, ev, counts, plain, (hrec, frec, lrec, qrec)
+
+
+class QuantRecorder:
+    """Keeps the inputs of the last quantize-kernel call of a run (the main
+    path's prequantized rows and key).  It counts nothing."""
+
+    def __init__(self):
+        self.last = None
+
+    def __enter__(self):
+        self._orig = qz.sr_quantize
+
+        def wrapped(zq, key):
+            self.last = (zq, key)
+            return self._orig(zq, key)
+
+        qz.sr_quantize = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        qz.sr_quantize = self._orig
+
+
+def check_int8sr_launches(name, counts):
+    """The int8sr legs launched at the quantized buckets only, and each
+    path through its own kernels: staged K1's int8sr leg at L = 17 and 64
+    with one quantize launch each; fused K2's at nslots 16 and 63 with one
+    quantize launch each; looped K6 with its quantized ladder (the draw in
+    the kernel: no quantize launch)."""
+    k1q = {k: v for k, v in counts["k1"].items() if k.endswith(":int8sr")}
+    k2q = {k: v for k, v in counts["k2"].items() if ":int8sr:" in k}
+    k6q = {k: v for k, v in counts["k6"].items() if k.endswith(":int8sr")}
+    q = counts["sr_quantize"]
+    if name == "staged":
+        check({int(k.split(":")[0]) for k in k1q} == INT8SR_K1_L,
+              f"staged int8sr: K1's int8sr leg at {sorted(k1q)}")
+        check(q == sum(k1q.values()) and not k2q and not k6q,
+              f"staged int8sr: {q} quantize launches for {k1q}")
+    elif name == "fused":
+        check({int(k.split(":")[0]) for k in k2q} == INT8SR_K2_NS,
+              f"fused int8sr: K2's int8sr leg at {sorted(k2q)}")
+        check(q == sum(k2q.values()) and not k1q and not k6q,
+              f"fused int8sr: {q} quantize launches for {k2q}")
+    else:
+        check(k6q and sum(k6q.values()) == sum(counts["k6"].values())
+              and not k1q and not k2q and q == 0,
+              f"looped int8sr: K6 {counts['k6']}, K2 {k2q}, K1 {k1q}, "
+              f"quantize {q}")
+    # the root pass and the 4-slot rounds never quantize
+    check(not any(k.startswith(("2:", "5:")) for k in k1q)
+          and not any(k.startswith(("4:", "8:")) for k in k2q),
+          f"{name} int8sr: a root or 4-slot round quantized")
+
+
+def phase_int8sr_train(ds, dv, Xv, iters, dev):
+    """Phase 29, the int8sr training main path at the headline: staged,
+    fused and looped, each with its launch counts reset around it; the
+    int8sr legs only at the quantized buckets; the looped text its single
+    round's (the fused one) byte for byte; a second staged training
+    hashes the same; AUC > 0.90; each model served through K4.  Whether
+    the staged text is the fused one is recorded, not gated: on the card
+    the staged scan's torch.cumsum sums f32 in another order than K2's
+    (ROADMAP queue 3); phase 30 gates their f32 splits.
+    Returns the numbers and each run's recorders."""
+    out, recs, texts = {}, {}, {}
+    for name, extra in INT8SR_RUNS:
+        params = dict(INT8SR_PARAMS, **extra)
+        bst, secs, ev, counts, plain, rec = int8sr_run(params, ds, dv, iters,
+                                                       dev)
+        log(f"  int8sr {name}: launches {json.dumps(counts)}; plain-version"
+            f" calls: {plain}")
+        check(not any(plain.values()),
+              f"int8sr {name}: a plain version ran on the path")
+        check_int8sr_launches(name, counts)
+        text = bst.model_to_string()
+        texts[name] = text
+        auc = ev["valid_0"]["auc"][-1]
+        r = {"iters": iters, "s_per_iter": secs / iters, "valid_auc": auc,
+             "launches": counts, **text_hash(text, f"int8sr {name}")}
+        log(f"  int8sr {name}: {iters} iterations, {r['s_per_iter']:.4f} "
+            f"s/iter; valid AUC {auc:.5f}")
+        check(auc > 0.90, f"int8sr {name}: valid AUC {auc} <= 0.90")
+        r["served_max_abs_err"] = serve_trained(bst, Xv, dev,
+                                                f"int8sr_{name}_model.txt")
+        out[name] = r
+        recs[name] = rec
+    check(texts["looped"] == texts["fused"], "int8sr: the looped model text "
+          "differs from its single round's")
+    again = train(INT8SR_PARAMS, ds, iters, **_on(dev)).model_to_string()
+    check(again == texts["staged"], "int8sr: a second staged training "
+          "writes another model text")
+    same = texts["staged"] == texts["fused"]
+    out["staged"]["staged_equals_fused"] = same
+    log("  int8sr: looped == its single round and a second staged training "
+        f"the same text, byte for byte; staged {'==' if same else '!='} "
+        "fused (not gated: the staged scan's torch.cumsum order, ROADMAP "
+        "queue 3)")
+    return out, recs
+
+
+def int8sr_fused_vs_staged(X, y, dev) -> dict:
+    """Phase 16's check at int8sr (its configuration: waves of 32, so the
+    16- and 32-slot buckets quantize): f32 trainings on the card, fused
+    against staged, split identically at every node with leaves within
+    PARITY_LEAF_TOL, each through its int8sr legs (K2's at the fused run,
+    K1's at the staged run)."""
+    p = dict(PARITY_PARAMS, hist_dtype_deep="int8sr")
+    log(f"  int8sr, fused against staged on the card: {len(X)} rows, f32, "
+        f"{p['num_leaves']} leaves in waves of {p['leafwise_wave_size']}")
+    reset_counts()
+    out = split_parity(X, y, {"fused": (dict(p, hist_method="fused"), dev),
+                              "staged": (p, dev)}, leaf_tol=PARITY_LEAF_TOL)
+    k1q = sum(v for k, v in hc.bucket_launch_counts.items()
+              if k[1] == "int8sr")
+    k2q = sum(v for k, v in fc.bucket_launch_counts.items()
+              if k[1] == "int8sr")
+    check(k1q > 0 and k2q > 0, f"int8sr fused vs staged: int8sr launches "
+          f"K1 {k1q}, K2 {k2q}")
+    return dict(out, k1_int8sr_launches=k1q, k2_int8sr_launches=k2q)
+
+
+def int8sr_bound(nbytes, f32_ops, int_ops) -> dict:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (f32_ops / F32_OPS_PER_S + int_ops / INT32_OPS_PER_S) * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bytes": nbytes,
+            "f32_ops": f32_ops, "int_ops": int_ops,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def phase_int8sr_timing(recs, trained) -> dict:
+    """Each int8sr leg on phase 29's last inputs (its largest bucket)
+    beside its bf16x2 / bf16 leg on the same inputs, its plain version
+    and, for K1, one ``index_add_`` of the integer rows; the quantize
+    kernel beside its plain version.  Bounds: bytes of each input read
+    once and output written once at 3.35 TB/s, and operations (f32 adds,
+    and the draws' integer operations at the int32 rate).  Returns the
+    ``int8sr`` record of K1, K2 and K6 and the quantize kernel's row."""
+    out = {}
+    hrec, _, _, qrec = recs["staged"]
+    (L, _), (binned, q3, lid, B, live) = max(
+        ((k, v) for k, v in hrec.last.items() if k[1] == "int8sr"),
+        key=lambda kv: kv[0][0])
+    Fn, N = binned.shape
+    n_live = int(((lid >= 0) & (lid < (L if live is None else live))).sum())
+    flat = ((torch.arange(Fn, device=binned.device)[:, None] * L
+             + lid.long()[None, :]) * B + binned.long()).reshape(-1)
+    ivals = q3.to(torch.int32).repeat(Fn, 1)
+    iacc = torch.zeros((Fn * L * B, 3), dtype=torch.int32,
+                       device=binned.device)
+    k1 = trained["staged"]["launches"]["k1"]
+    out["hist_leaves"] = {
+        "at": f"L={L} int8sr", "N": N,
+        "launches": sum(v for k, v in k1.items() if k.endswith(":int8sr")),
+        "ms": time_ms(lambda: hc.hist_leaves(binned, q3, lid, L, B,
+                                             "int8sr", live), 10),
+        "bf16_ms": time_ms(lambda: hc.hist_leaves(binned, q3, lid, L, B,
+                                                  "bf16", live), 10),
+        "bf16x2_ms": time_ms(lambda: hc.hist_leaves(binned, q3, lid, L, B,
+                                                    "bf16x2", live), 10),
+        "plain_ms": time_ms(lambda: hc.hist_leaves_ref(
+            binned, q3, lid, L, B, "int8sr", live), 2),
+        "library_ms": time_ms(lambda: iacc.index_add_(0, flat, ivals), 5),
+        **int8sr_bound(Fn * N + N * 12 + N * 4 + L * Fn * B * 3 * 4, 0,
+                       3 * n_live * Fn)}
+    _, frec, _, _ = recs["fused"]
+    (ns, prec, mode), (binned, q3, kw) = max(
+        ((k, v) for k, v in frec.last.items() if k[1] == "int8sr"),
+        key=lambda kv: kv[0][0])
+    Fn, N = binned.shape
+    sub = kw.get("parent") is not None
+    S = ns if sub else ns // 2
+    label = fc.fused_round(binned, q3, **kw)[3]
+    n_live = int((label < ns).sum())
+    other = ((2 * S * Fn * B * 3 * 4 if sub else 0) + ns * 12
+             + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4)
+    bkw = dict(kw, precision="bf16x2", scale=None)
+    k2 = trained["fused"]["launches"]["k2"]
+    out["fused_round"] = {
+        "at": f"S={S} int8sr {mode}", "N": N,
+        "launches": sum(v for k, v in k2.items() if ":int8sr:" in k),
+        "ms": time_ms(lambda: fc.fused_round(binned, q3, **kw), 10),
+        "bf16x2_ms": time_ms(lambda: fc.fused_round(binned, q3, **bkw), 10),
+        "plain_ms": time_ms(lambda: fc.fused_round_ref(
+            binned, q3, **plain_kw(kw)), 2),
+        "library_ms": None, "live_rows": n_live,
+        "live_bound_ms": (live_row_bytes(N, Fn, n_live) + other)
+        / HBM_BYTES_PER_S * 1e3,
+        **int8sr_bound(Fn * N + N * 12 + N * 4 + 2 * N * 4 + other,
+                       2 * S * Fn * B * 2 * 12, 3 * n_live * Fn)}
+    pos, kw = loop_call(recs["looped"][2].last)
+    nbytes, live_bytes, f32_ops, rounds, n_split = loop_work(pos, kw)
+    N = pos[0].shape[1]
+    n_quant = sum(1 for r in rounds if r["S"] in kw["quant_buckets"])
+    # a quantized round's draws, and its adds counted as integer ones
+    int_ops = sum(2 * N * DRAW_OPS + 3 * r["live_rows"] * pos[0].shape[0]
+                  for r in rounds if r["S"] in kw["quant_buckets"])
+    f32_ops -= sum(3 * r["live_rows"] * pos[0].shape[0]
+                   for r in rounds if r["S"] in kw["quant_buckets"])
+    k6 = trained["looped"]["launches"]["k6"]
+    ukw = dict(kw, quant_buckets=())
+    # each round's stages from the debug stamps (a separate, untimed
+    # launch each), quantized and not
+    splits = {}
+    for name, skw in (("stage_split", kw), ("unquantized_stage_split", ukw)):
+        dbg = lc.debug_buffer(kw["rounds"], pos[0].device)
+        ns = lc.fused_wave_loop(*pos, debug=dbg, **skw)[3]
+        splits[name] = lc.stage_split(dbg, ns)
+        log(f"  K6 {name.replace('_', ' ')} (us a round): " + "; ".join(
+            ", ".join(f"{k} {v:.1f}" if isinstance(v, float) else f"{k} {v}"
+                      for k, v in r.items()) for r in splits[name]))
+    out["fused_wave_loop"] = {
+        "R": kw["rounds"], "rounds": rounds, "quantized_rounds": n_quant,
+        "N": N, "launches": sum(k6.values()), **splits,
+        "ms": time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10),
+        "unquantized_ms": time_ms(lambda: lc.fused_wave_loop(*pos, **ukw),
+                                  10),
+        "plain_ms": time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 2),
+        "library_ms": None,
+        "live_bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3,
+        **int8sr_bound(nbytes, f32_ops, int_ops)}
+    zq, key = qrec.last
+    N = zq.shape[0]
+    qrow = {
+        "name": "sr_quantize", "route": "cuda", "source": QUANT_SRC,
+        "replaces": "lightgbmv1_tpu/ops/quantize.py:56 sr_quantize_g3 (XLA "
+                    "in the JAX package; the draw K6 inlines)",
+        "N": N, "launches": int(trained["staged"]["launches"]["sr_quantize"]),
+        "launches_by_path": {k: int(v["launches"]["sr_quantize"])
+                             for k, v in trained.items()},
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: qz.sr_quantize(zq, key), 20),
+        "plain_ms": time_ms(lambda: qz.sr_quantize_ref(zq, key), 2),
+        "library_ms": None,
+        **int8sr_bound(N * 24, 2 * N * 2, 2 * N * DRAW_OPS)}
+    for name, r in list(out.items()) + [("sr_quantize", qrow)]:
+        legs = ", ".join(f"{k} {r[k]:.4f} ms" for k in
+                         ("bf16_ms", "bf16x2_ms", "unquantized_ms") if k in r)
+        log(f"  {name} int8sr ({r.get('at', '')}): {r['ms']:.4f} ms"
+            + (f" beside {legs}" if legs else "")
+            + f", plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']}, library {r['library_ms']}; "
+            f"{r['launches']} launches on phase 29's path")
+    return out, qrow
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2818,7 +3431,8 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("== phase 2: build")
-    secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop"])
+    secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop",
+                         "quantize"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["log"].splitlines():
@@ -3052,7 +3666,7 @@ def main(argv=None) -> int:
     log("== phase 27: packed training (main path; launch counts reset)")
     packed, precs = phase_packed_train(dp, dpv, Xv, args.iters, dev)
     prow = phase_packed_timing(precs, packed)
-    del precs, dp, dpv, X, Xv
+    del precs, dp, dpv
     k1_row["packed"] = dict(prow["hist_leaves"], max_abs_err=0.0,
                             checks=pchecks["k1"])
     fused_rows[0]["packed"] = dict(prow["fused_round"], max_abs_err=0.0,
@@ -3062,6 +3676,32 @@ def main(argv=None) -> int:
         prow["fused_wave_loop"], checks=pchecks["k6"],
         max_abs_err=max(max(c["max_gain_err"], c["max_sum_err"])
                         for c in pchecks["k6"]))
+
+    log("== phase 28: int8sr: the quantize kernel, K1, K2 and K6 against "
+        "their plain versions")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    ichecks = phase_int8sr_kernels(binned, make_feature_meta(ds._binned,
+                                                             dev), rng)
+    del binned
+
+    log("== phase 29: int8sr training (main path; launch counts reset)")
+    int8sr, irecs = phase_int8sr_train(ds, dv, Xv, args.iters, dev)
+    irow, qrow = phase_int8sr_timing(irecs, int8sr)
+    del irecs
+
+    log("== phase 30: int8sr parity, card vs CPU")
+    iparity = card_vs_cpu("int8sr", INT8SR_PARAMS, X[:PARITY_ROWS],
+                          y[:PARITY_ROWS], dev)
+    iparity["fused_vs_staged"] = int8sr_fused_vs_staged(
+        X[:PARITY_ROWS], y[:PARITY_ROWS], dev)
+    del X, Xv
+    k1_row["int8sr"] = dict(irow["hist_leaves"], max_abs_err=0.0,
+                            checks=ichecks["k1"])
+    fused_rows[0]["int8sr"] = dict(irow["fused_round"], max_abs_err=0.0,
+                                   checks=ichecks["k2"])
+    k6_row["int8sr"] = dict(irow["fused_wave_loop"], max_abs_err=0.0,
+                            checks=ichecks["k6"])
+    qrow["checks"] = ichecks["quantize"]
 
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
@@ -3076,9 +3716,10 @@ def main(argv=None) -> int:
                     "fused_parity": fparity, "fused_profile": fprof,
                     "loop_train": looped, "loop_profile": lprof,
                     "paths": paths, "packed_train": packed,
+                    "int8sr_train": int8sr, "int8sr_parity": iparity,
                     "seconds": time.perf_counter() - t_start}))
-    print(json.dumps({"kernels": [k1_row] + fused_rows + [k6_row] + rows}),
-          flush=True)
+    print(json.dumps({"kernels": [k1_row] + fused_rows + [k6_row, qrow]
+                      + rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

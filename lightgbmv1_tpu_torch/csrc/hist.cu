@@ -16,7 +16,14 @@
 // Precision (the Pallas kernel's semantics): "f32" sums the f32 values;
 // "bf16" sums hi = bf16_rn(v); "bf16x2" sums hi and lo = bf16_rn(v - hi)
 // separately in f32 and returns sum_hi + sum_lo.  Counts (0/1 row masks)
-// are exact in every mode.
+// are exact in every mode.  "int8sr" (the Pallas kernel's
+// precision="int8sr", hist_dtype_deep=int8sr) takes rows quantized to
+// exact integers in [-127, 127] (csrc/quantize.cu) and returns their
+// integer histogram: int32 in shared memory, in the partials and in the
+// merge, rounded to f32 once at the output (exact below 2^24, where the
+// Pallas kernel's f32 adds of its tiles' int32 products are exact too).
+// The rows stay (N, 3) f32, so the leg reads what the others read; its
+// integer adds are exact in any order.
 //
 // What bounds it on this card.  The function reads each bin byte, each
 // g3 row and each slot id once and writes the histogram once (about
@@ -65,7 +72,7 @@ namespace {
 
 // out[l][f][b][c] = sum over chunks (in chunk order) of the hi partials,
 // plus (bf16x2) the same sum of the lo partials.
-template <int NC>
+template <int PREC, int NC>
 __global__ void hist_merge_kernel(const float* __restrict__ partial,
                                   float* __restrict__ out, int n_chunks,
                                   int nf, int nl, int nb, int nb_out) {
@@ -77,7 +84,7 @@ __global__ void hist_merge_kernel(const float* __restrict__ partial,
   const int f = static_cast<int>((i / (3 * static_cast<size_t>(nb_out))) % nf);
   const int l = static_cast<int>(i / (3 * static_cast<size_t>(nb_out) * nf));
   const size_t stride = static_cast<size_t>(nf) * nl * nb * NC;
-  out[i] = merge_cell<NC>(
+  out[i] = merge_cell<PREC, NC>(
       partial + ((static_cast<size_t>(f) * nl + l) * nb + b) * NC + c, stride,
       n_chunks);
 }
@@ -94,7 +101,7 @@ int launch(const uint8_t* binned, const float* g3, const int* leaf_id,
   const size_t total = static_cast<size_t>(nl) * nf * nb_out * 3;
   if (total == 0) return 0;
   const unsigned blocks = static_cast<unsigned>((total + 255) / 256);
-  hist_merge_kernel<NC><<<blocks, 256, 0, stream>>>(partial, out, n_chunks,
+  hist_merge_kernel<PREC, NC><<<blocks, 256, 0, stream>>>(partial, out, n_chunks,
                                                     nf, nl, nb, nb_out);
   return static_cast<int>(cudaGetLastError());
 }
@@ -117,6 +124,10 @@ int dispatch(int precision, const uint8_t* bn, const float* g,
       return launch<kBf16x2, 6, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
                                         nb, nb_out, ls_max, n_chunks,
                                         chunk_rows, st);
+    case kInt8sr:
+      return launch<kInt8sr, 3, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
+                                        nb, nb_out, ls_max, n_chunks,
+                                        chunk_rows, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -127,7 +138,7 @@ int dispatch(int precision, const uint8_t* bn, const float* g,
 extern "C" {
 
 // Returns the cudaError_t of the launches (0 = both launched).  `partial`
-// is (n_chunks, nf, nl, nb, 6 or 3) f32 scratch; `out` is (nl, nf, nb_out,
+// is (n_chunks, nf, nl, nb, 6 or 3) f32 (int8sr: int32) scratch; `out` is (nl, nf, nb_out,
 // 3) f32 with nb_out <= nb (the bins past nb_out are dropped).  Rows of
 // slots [nl_add, nl) add nothing (0 <= nl_add <= nl).  `binned` is (nf,
 // n) bytes, or with `packed` != 0 the (ceil(nf/2), n) packed bytes of the

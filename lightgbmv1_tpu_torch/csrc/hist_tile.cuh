@@ -26,6 +26,14 @@
 // "bf16" sums hi = bf16_rn(v); "bf16x2" sums hi and lo = bf16_rn(v - hi)
 // separately (NC = 6 accumulators a cell: hi, then lo).  The kernel only
 // adds and subtracts, so floating-point contraction cannot change it.
+// "int8sr" (hist_dtype_deep=int8sr, the Pallas kernel's
+// precision="int8sr") takes rows already quantized to exact integers in
+// [-127, 127] (ops/quantize.py; f32 holding integers) and sums them as
+// int32 (NC = 3): the shared sub-histograms, the partials and the merge
+// are integer, so a cell's sum is exact and the same in any order, and
+// it becomes f32 once, at the merge.  The Pallas kernel adds each row
+// tile's int32 product into an f32 output, exact while every cell stays
+// below 2^24 in magnitude; the two agree there.
 //
 // Bins: (nf, n) bytes, or (PACKED, bin_layout=packed4) the (ceil(nf/2), n)
 // bytes of two features each, lo nibble = feature 2p, hi = 2p + 1
@@ -45,14 +53,27 @@ namespace lgbm {
 constexpr int kThreads = 256;  // = rows a tile
 constexpr int kWarps = kThreads / 32;
 
-enum Precision { kF32 = 0, kBf16 = 1, kBf16x2 = 2 };
+enum Precision { kF32 = 0, kBf16 = 1, kBf16x2 = 2, kInt8sr = 3 };
+
+// The accumulator of a precision: int32 for int8sr, f32 otherwise.  The
+// shared sub-histograms, a tile's compacted values and the partials are
+// 4-byte words either way, read through this type.
+template <int PREC>
+struct AccOf {
+  using T = float;
+};
+template <>
+struct AccOf<kInt8sr> {
+  using T = int;
+};
 
 __device__ __forceinline__ float bf16_rn(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 // Dynamic shared memory of one hist_partial_kernel block: the
-// sub-histograms and one tile's compacted rows (NC values and a key each).
+// sub-histograms and one tile's compacted rows (NC values and a key each),
+// 4-byte words whatever the accumulator.
 inline size_t hist_partial_smem(int ls_max, int nb, int nc) {
   return (static_cast<size_t>(ls_max) * nb * nc +
           static_cast<size_t>(kThreads) * nc) * sizeof(float) +
@@ -97,8 +118,12 @@ constexpr int kDepth = 4;
 // reads.
 template <int PREC, int NC>
 __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
-                                              float* hist, float* tval,
-                                              int* tkey, int wcells) {
+                                              float* hist_words,
+                                              float* tval_words, int* tkey,
+                                              int wcells) {
+  using A = typename AccOf<PREC>::T;
+  A* hist = reinterpret_cast<A*>(hist_words);
+  A* tval = reinterpret_cast<A*>(tval_words);
   __shared__ int wcnt[kWarps][kWarps];   // [source warp][owner warp]
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -149,7 +174,9 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
     tkey[p] = key;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      if (PREC == kF32) {
+      if constexpr (PREC == kInt8sr) {
+        tval[c * kThreads + p] = __float2int_rn(v[c]);
+      } else if constexpr (PREC == kF32) {
         tval[c * kThreads + p] = v[c];
       } else {
         const float hi = bf16_rn(v[c]);
@@ -161,17 +188,17 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
   __syncthreads();
 
   // ---- each warp adds its rows, 32 at a time, in row order -------------
-  float* hw = hist + static_cast<size_t>(warp) * NC * wcells;
+  A* hw = hist + static_cast<size_t>(warp) * NC * wcells;
   for (int b0 = 0; b0 < cnt; b0 += 32) {
     const int i = b0 + lane;
     const int k = i < cnt ? tkey[base + i] : -1;  // -1: an idle lane
-    float* h = hw + (k >= 0 ? k / kWarps : 0);
-    float acc[NC];
+    A* h = hw + (k >= 0 ? k / kWarps : 0);
+    A acc[NC];
 #pragma unroll
-    for (int c = 0; c < NC; ++c) acc[c] = k >= 0 ? h[c * wcells] : 0.f;
+    for (int c = 0; c < NC; ++c) acc[c] = k >= 0 ? h[c * wcells] : A(0);
     const unsigned grp = __match_any_sync(0xffffffffu, k);
     if (k >= 0 && (grp & lt_mask) == 0) {  // the group's lowest lane
-      const float* tv = tval + base + b0;
+      const A* tv = tval + base + b0;
       unsigned m = grp;
       while (m) {  // the group's lanes in order, two loads ahead
         int j[2];
@@ -180,7 +207,7 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
           j[u] = m ? __ffs(m) - 1 : -1;
           m &= m - 1u;
         }
-        float x[2][NC];
+        A x[2][NC];
 #pragma unroll
         for (int u = 0; u < 2; ++u)
           if (j[u] >= 0)
@@ -223,15 +250,17 @@ __device__ __forceinline__ void hist_partial_item(
   const int s_add = min(ls, nl_add - s0);
   const int cells = ls * nb;
   const int wcells = cells / kWarps;  // the cells a warp owns (nb % 8 == 0)
+  using A = typename AccOf<PREC>::T;
 
   // hist[owner warp][channel][key / kWarps]: a warp's lanes hold distinct
   // keys of one residue mod 8, so key / 8 spreads them over the banks
   float* hist = smem;
   float* tval = hist + static_cast<size_t>(ls_max) * nb * NC;  // [NC][tile]
   int* tkey = reinterpret_cast<int*>(tval + kThreads * NC);     // [tile]
+  A* hacc = reinterpret_cast<A*>(hist);
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < cells * NC; i += kThreads) hist[i] = 0.f;
+  for (int i = tid; i < cells * NC; i += kThreads) hacc[i] = A(0);
 
   const int r_begin = chunk * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
@@ -284,16 +313,19 @@ __device__ __forceinline__ void hist_partial_item(
   __syncthreads();
 
   // ---- this block's partial: partial[chunk][f][s0 + s][b][NC] ---------
-  float* out = partial +
-               ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
+  A* out = reinterpret_cast<A*>(partial) +
+           ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
   for (int i = tid; i < cells * NC; i += kThreads) {
     const int k = i / NC;
     const int c = i - k * NC;
-    out[i] = hist[((k % kWarps) * NC + c) * wcells + k / kWarps];
+    out[i] = hacc[((k % kWarps) * NC + c) * wcells + k / kWarps];
   }
 }
 
-// The same work item over a row chunk's list of live rows (K2 and K6):
+// The same work item over a row chunk's list of live rows (K2 and K6).
+// `g3` is a plain pointer: K6's int8sr rounds pass the rows it quantized
+// earlier in the same launch, which must not come through the read-only
+// cache (K2's kernel parameter keeps its __restrict__):
 // `lrow` / `lslot` hold, from chunk * chunk_rows on, the chunk's rows
 // whose slot is below the round's live limit, in row order, and each
 // one's slot; `lcnt[chunk]` counts them (the list stage, wave_round.cuh
@@ -306,7 +338,7 @@ __device__ __forceinline__ void hist_partial_item(
 template <int PREC, int NC, bool PACKED>
 __device__ __forceinline__ void hist_partial_list_item(
     int f, int chunk, int group, const uint8_t* __restrict__ binned,
-    const float* __restrict__ g3, const int* lrow, const int* lslot,
+    const float* g3, const int* lrow, const int* lslot,
     const int* lcnt, float* partial, int n, int nf, int nl, int nb,
     int ls_max, int chunk_rows, float* smem) {
   const int s0 = group * ls_max;
@@ -314,17 +346,19 @@ __device__ __forceinline__ void hist_partial_list_item(
   const int cells = ls * nb;
   const int wcells = cells / kWarps;
   const int tid = threadIdx.x;
-  float* out = partial +
-               ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
+  using A = typename AccOf<PREC>::T;
+  A* out = reinterpret_cast<A*>(partial) +
+           ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
   const int cnt = lcnt[chunk];
   if (cnt == 0) {
-    for (int i = tid; i < cells * NC; i += kThreads) out[i] = 0.f;
+    for (int i = tid; i < cells * NC; i += kThreads) out[i] = A(0);
     return;
   }
   float* hist = smem;
   float* tval = hist + static_cast<size_t>(ls_max) * nb * NC;
   int* tkey = reinterpret_cast<int*>(tval + kThreads * NC);
-  for (int i = tid; i < cells * NC; i += kThreads) hist[i] = 0.f;
+  A* hacc = reinterpret_cast<A*>(hist);
+  for (int i = tid; i < cells * NC; i += kThreads) hacc[i] = A(0);
 
   const size_t base = static_cast<size_t>(chunk) * chunk_rows;
   const int* rows = lrow + base;
@@ -372,7 +406,7 @@ __device__ __forceinline__ void hist_partial_list_item(
   for (int i = tid; i < cells * NC; i += kThreads) {
     const int k = i / NC;
     const int c = i - k * NC;
-    out[i] = hist[((k % kWarps) * NC + c) * wcells + k / kWarps];
+    out[i] = hacc[((k % kWarps) * NC + c) * wcells + k / kWarps];
   }
 }
 
@@ -411,11 +445,18 @@ hist_partial_list_kernel(const uint8_t* __restrict__ binned,
 }
 
 // One channel of one cell, summed over the chunks in chunk order: the hi
-// partials, plus (bf16x2) the same sum of the lo partials.  `p` points at
-// the cell's channel in chunk 0; `stride` is one chunk's partial size.
-template <int NC>
+// partials, plus (bf16x2) the same sum of the lo partials; int8sr sums the
+// int32 partials and rounds the sum to f32 once.  `p` points at the
+// cell's channel in chunk 0; `stride` is one chunk's partial size.
+template <int PREC, int NC>
 __device__ __forceinline__ float merge_cell(const float* p, size_t stride,
                                             int n_chunks) {
+  if constexpr (PREC == kInt8sr) {
+    const int* q = reinterpret_cast<const int*>(p);
+    int s = 0;
+    for (int ch = 0; ch < n_chunks; ++ch, q += stride) s += q[0];
+    return __int2float_rn(s);
+  }
   float hi = 0.f, lo = 0.f;
   for (int ch = 0; ch < n_chunks; ++ch, p += stride) {
     hi += p[0];

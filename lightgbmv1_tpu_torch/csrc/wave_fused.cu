@@ -36,6 +36,14 @@
 //        gates and validity mask, and the per-feature tie-band pick, and
 //        writes the residue row.  The cross-feature half of the pick
 //        stays outside, as in the JAX package.
+//    int8sr rounds (hist_dtype_deep=int8sr; the Pallas kernel's
+//    precision="int8sr" with apply_scale / child_scale): (c) sums the
+//    quantized rows (exact integers, csrc/quantize.cu) as int32, K1's
+//    int8sr leg, (d) merges them as int32 and rounds once to f32, writes
+//    hsmall raw, and multiplies by the round's power-of-two scales: the
+//    smaller child before the subtraction, or pool-free the prefix sums
+//    after the cumulative sum (scan_item, wave_round.cuh).  `scale` also
+//    carries the ones of a quantized grow's other rounds.
 // K3 lgbm_route_rows — replaces wave_fused.py _route_only_kernel (reached
 //    through fused_route_rows): the valid set routed through one round's
 //    splits by launch (a)'s row function (route_row, the same binary
@@ -152,22 +160,25 @@ list_kernel(const int* __restrict__ label, const int* __restrict__ tile_cnt,
 }
 
 // K2 (d): block (s, f) runs scan_item (wave_round.cuh) as one scan group.
-template <int NC, bool SUB>
+template <int PREC, int NC, bool SUB>
 __global__ void __launch_bounds__(kScanGroup)
 scan_kernel(const float* __restrict__ partial, int n_chunks, int nf, int nl,
             int nb, int B, const int* __restrict__ fmeta,
             const uint8_t* __restrict__ mask, const float* __restrict__ csums,
             const uint8_t* __restrict__ sml, const float* __restrict__ parent,
-            float* __restrict__ hsmall, float* __restrict__ residue,
-            ScanParams prm) {
+            const float* __restrict__ scale, float* __restrict__ hsmall,
+            float* __restrict__ residue, ScanParams prm) {
   __shared__ float sm[kScanSmemFloats];
   const int s = blockIdx.x;
   const int f = blockIdx.y;
   const size_t o = (static_cast<size_t>(s) * nf + f) * B * 3;
-  scan_item<NC, SUB>(s, f, threadIdx.x, 1, partial, n_chunks, nf, nl, nb, B,
-                     fmeta, mask, csums, SUB && sml[s] != 0,
-                     SUB ? parent + o : nullptr, SUB ? hsmall + o : nullptr,
-                     nullptr, nullptr, residue, prm, sm);
+  // the slot's scales (subtraction) or its two children's (pool-free)
+  const float* sc = scale ? scale + (SUB ? 3 * s : 6 * s) : nullptr;
+  scan_item<PREC, NC, SUB>(s, f, threadIdx.x, 1, partial, n_chunks, nf, nl,
+                           nb, B, fmeta, mask, csums, SUB && sml[s] != 0,
+                           SUB ? parent + o : nullptr, sc,
+                           SUB ? hsmall + o : nullptr, nullptr, nullptr,
+                           residue, prm, sm);
 }
 
 // The round's scratch: tile counts, the chunks' row lists and slots, the
@@ -185,10 +196,10 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
                  const int* feats, const int* rmeta, int* label,
                  int* new_leaf, const RoundScratch& w, const int* fmeta,
                  const uint8_t* mask, const float* csums, const uint8_t* sml,
-                 const float* parent, float* residue, float* hsmall, int n,
-                 int nf, int S, int nslots, int nb, int B, int ls_max,
-                 int n_chunks, int chunk_rows, const ScanParams& prm,
-                 cudaStream_t stream) {
+                 const float* parent, const float* scale, float* residue,
+                 float* hsmall, int n, int nf, int S, int nslots, int nb,
+                 int B, int ls_max, int n_chunks, int chunk_rows,
+                 const ScanParams& prm, cudaStream_t stream) {
   if (chunk_rows % kThreads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (n + kThreads - 1) / kThreads;
@@ -216,9 +227,9 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
       n_chunks, chunk_rows, stream);
   if (err != 0) return err;
   dim3 grid(S, nf);
-  scan_kernel<NC, SUB><<<grid, kScanGroup, 0, stream>>>(
+  scan_kernel<PREC, NC, SUB><<<grid, kScanGroup, 0, stream>>>(
       w.partial, n_chunks, nf, nl, nb, B, fmeta, mask, csums, sml, parent,
-      hsmall, residue, prm);
+      scale, hsmall, residue, prm);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -228,29 +239,30 @@ int dispatch_precision(int precision, const uint8_t* binned, const float* g3,
                        int* label, int* new_leaf, const RoundScratch& w,
                        const int* fmeta, const uint8_t* mask,
                        const float* csums, const uint8_t* sml,
-                       const float* parent, float* residue, float* hsmall,
-                       int n, int nf, int S, int nslots, int nb, int B,
-                       int ls_max, int n_chunks, int chunk_rows,
-                       const ScanParams& prm, cudaStream_t stream) {
+                       const float* parent, const float* scale,
+                       float* residue, float* hsmall, int n, int nf, int S,
+                       int nslots, int nb, int B, int ls_max, int n_chunks,
+                       int chunk_rows, const ScanParams& prm,
+                       cudaStream_t stream) {
+#define LGBM_ROUND(P, C)                                                   \
+  launch_round<P, C, SUB, PACKED>(binned, g3, oleaf, feats, rmeta, label,  \
+                                  new_leaf, w, fmeta, mask, csums, sml,     \
+                                  parent, scale, residue, hsmall, n, nf, S, \
+                                  nslots, nb, B, ls_max, n_chunks,          \
+                                  chunk_rows, prm, stream)
   switch (precision) {
     case kF32:
-      return launch_round<kF32, 3, SUB, PACKED>(
-          binned, g3, oleaf, feats, rmeta, label, new_leaf, w, fmeta, mask,
-          csums, sml, parent, residue, hsmall, n, nf, S, nslots, nb, B,
-          ls_max, n_chunks, chunk_rows, prm, stream);
+      return LGBM_ROUND(kF32, 3);
     case kBf16:
-      return launch_round<kBf16, 3, SUB, PACKED>(
-          binned, g3, oleaf, feats, rmeta, label, new_leaf, w, fmeta, mask,
-          csums, sml, parent, residue, hsmall, n, nf, S, nslots, nb, B,
-          ls_max, n_chunks, chunk_rows, prm, stream);
+      return LGBM_ROUND(kBf16, 3);
     case kBf16x2:
-      return launch_round<kBf16x2, 6, SUB, PACKED>(
-          binned, g3, oleaf, feats, rmeta, label, new_leaf, w, fmeta, mask,
-          csums, sml, parent, residue, hsmall, n, nf, S, nslots, nb, B,
-          ls_max, n_chunks, chunk_rows, prm, stream);
+      return LGBM_ROUND(kBf16x2, 6);
+    case kInt8sr:
+      return LGBM_ROUND(kInt8sr, 3);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LGBM_ROUND
 }
 
 }  // namespace
@@ -261,11 +273,12 @@ extern "C" {
 // `oleaf` (N,), `feats` (S,) and `rmeta` (S, 8) are read and `label` /
 // `new_leaf` (N,) written.  Scratch: `tile_cnt` (ceil(N / 256),) i32,
 // `lrow` and `lslot` (n_chunks * chunk_rows,) i32, `lcnt` (n_chunks,)
-// i32, and `partial` (n_chunks, nf, nslots + 1, nb, 6 or 3) f32.
-// `fmeta` (5, nf) i32 [num_bins, missing_type, nan_bin, zero_bin,
-// usable]; `mask` (2S, nf) and `sml` (S,) bytes; `csums` (2S, 3);
-// `parent` / `hsmall` (S, nf, B, 3) in subtraction mode (`sub` != 0,
-// nslots = S; else nslots = 2S); `residue` (2S, nf, 6).  `binned` is
+// i32, and `partial` (n_chunks, nf, nslots + 1, nb, 6 or 3) f32 (int8sr:
+// int32).  `fmeta` (5, nf) i32 [num_bins, missing_type, nan_bin,
+// zero_bin, usable]; `mask` (2S, nf) and `sml` (S,) bytes; `csums` (2S,
+// 3); `parent` / `hsmall` (S, nf, B, 3) in subtraction mode (`sub` != 0,
+// nslots = S; else nslots = 2S); `scale` (nslots, 3) f32 or null, the
+// slots' dequantization; `residue` (2S, nf, 6).  `binned` is
 // (nf, N) bytes, or with `packed` != 0 the (ceil(nf/2), N) packed bytes
 // of the nf features (nb must then be 16).
 int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
@@ -273,7 +286,8 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      void* new_leaf, void* tile_cnt, void* lrow, void* lslot,
                      void* lcnt, void* partial, const void* fmeta,
                      const void* mask, const void* csums, const void* sml,
-                     const void* parent, void* residue, void* hsmall, int n,
+                     const void* parent, const void* scale, void* residue,
+                     void* hsmall, int n,
                      int nf, int S, int nb, int B, int ls_max, int n_chunks,
                      int chunk_rows, int precision, int sub, int packed,
                      float l1, float l2, float min_data, float min_hess,
@@ -296,6 +310,7 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
   const auto* cs = static_cast<const float*>(csums);
   const auto* sm = static_cast<const uint8_t*>(sml);
   const auto* pr = static_cast<const float*>(parent);
+  const auto* sc = static_cast<const float*>(scale);
   auto* res = static_cast<float*>(residue);
   auto* hs = static_cast<float*>(hsmall);
   auto st = static_cast<cudaStream_t>(stream);
@@ -304,7 +319,7 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                        : (packed ? dispatch_precision<false, true>
                                  : dispatch_precision<false, false>);
   return run(precision, bn, g, ol, ft, rm, lab, nlf, w, fm, mk, cs, sm, pr,
-             res, hs, n, nf, S, sub ? S : 2 * S, nb, B, ls_max, n_chunks,
+             sc, res, hs, n, nf, S, sub ? S : 2 * S, nb, B, ls_max, n_chunks,
              chunk_rows, prm, st);
 }
 

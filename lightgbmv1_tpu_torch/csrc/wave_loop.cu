@@ -46,6 +46,19 @@
 //    (cooperative_groups::this_grid().sync()); a round whose n is 0 ends
 //    the loop in every block (all read the same n after a barrier), and
 //    its rows stay the zeros the wrapper wrote.
+//    int8sr (QUANT: hist_dtype_deep=int8sr, the Pallas kernel's
+//    quant_ladder / qmax): a round whose bucket quantizes (the `quant`
+//    row of the tables) draws its uniforms in the kernel.  Stage 1's
+//    threads also quantize their rows from the prequantized rows zq
+//    (ops/quantize.prequantize_rows) under fold_in(key, 8_000_011 + nl),
+//    nl the round's leaf count, with csrc/prng.cuh's functions, the ones
+//    the quantize kernel runs, on the same counters 2 row + channel over
+//    every row; stage 3 runs the int8sr leg of the partials (int32) on
+//    those rows and stage 4 merges them as int32 and applies the round's
+//    scales (the slots' before the subtraction, pool-free the children's
+//    after the cumulative sum).  The other rounds of the segment run at
+//    the launch's precision with ones scales, as the single round of a
+//    quantized grow does; shared memory is sized for the larger leg.
 //
 // Numbers.  Stage 5 is written with __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn, one rounding an op, as the PyTorch ops of _pick_pack and the
@@ -72,6 +85,7 @@
 
 #include <cooperative_groups.h>
 
+#include "prng.cuh"
 #include "wave_round.cuh"
 
 namespace cg = cooperative_groups;
@@ -113,6 +127,10 @@ struct LoopArgs {
   float* pool;               // (L, nf, B, 3), or null (pool-free)
   const int* fmeta;          // (5, nf) num_bins, mtype, nan/zero bin, usable
   const uint8_t* base_mask;  // (nf,)
+  const float* zq;           // (n, 3) prequantized rows, or null
+  float* q3;                 // (n, 3) a quantized round's rows, scratch
+  const float* qscale;       // (12,) the scales twice, then ones twice
+  uint32_t key0, key1;       // the tree's rounding key
   float* packed;             // (R, 2K, 10), zeroed
   int* n_split;              // (R,), zeroed
   int* label;                // (n,) scratch
@@ -127,7 +145,7 @@ struct LoopArgs {
   int n, nf, B, nb, L, K, R, nl0, max_depth, n_buckets;
   int scan_groups;           // scan groups a block runs at once
   int ladder[kMaxLadder], ls_max[kMaxLadder], n_chunks[kMaxLadder],
-      chunk_rows[kMaxLadder];
+      chunk_rows[kMaxLadder], quant[kMaxLadder];
   ScanParams prm;
 };
 
@@ -268,7 +286,7 @@ __device__ __forceinline__ void stamp(const LoopArgs& a, int i) {
     a.debug[i] = global_ns();
 }
 
-template <int PREC, int NC, bool SUB, bool PACKED>
+template <int PREC, int NC, bool SUB, bool PACKED, bool QUANT>
 __global__ void __launch_bounds__(kThreads, 2)
 wave_loop_kernel(LoopArgs a) {
   extern __shared__ float kernel_smem[];
@@ -291,6 +309,9 @@ wave_loop_kernel(LoopArgs a) {
     const int S = a.bnd[1], bi = a.bnd[2], nl = a.bnd[3];
     const int nslots = SUB ? S : 2 * S;
     const int nlh = nslots + 1;  // slot nslots: the rows of no split
+    const bool quant_r = QUANT && a.quant[bi] != 0;
+    uint32_t rk0 = a.key0, rk1 = a.key1;  // the round's rounding key
+    if (quant_r) fold_in(rk0, rk1, static_cast<uint32_t>(8000011 + nl));
 
     // ---- 1. route: new leaf ids in place, the label, tile counts -----
     Slot* slots = reinterpret_cast<Slot*>(smem);
@@ -301,10 +322,15 @@ wave_loop_kernel(LoopArgs a) {
     sort_slots(slots, S, sleaf, sidx);
     __syncthreads();
     const int tiles = (a.n + kThreads - 1) / kThreads;
-    for (int t = blockIdx.x; t < tiles; t += gridDim.x)
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       route_label_tile<SUB, PACKED>(t, a.binned, a.leaf, slots, sleaf, sidx,
                                     a.n, S, nslots, a.leaf, a.label,
                                     a.tile_cnt);
+      const int r = t * kThreads + threadIdx.x;
+      if (quant_r && r < a.n)  // every row, as the staged draw
+        sr_quantize_row(a.zq + static_cast<size_t>(r) * 3, r, rk0, rk1,
+                        a.q3 + static_cast<size_t>(r) * 3);
+    }
     if (blockIdx.x == 0 && threadIdx.x == 0) a.bnd[4] = 0;  // stage 3's
     grid.sync();
     stamp(a, st);
@@ -336,10 +362,17 @@ wave_loop_kernel(LoopArgs a) {
       __syncthreads();
       const int w = s_item;
       if (w >= items) break;
-      hist_partial_list_item<PREC, NC, PACKED>(
-          w % nf, (w / nf) % n_chunks, w / (nf * n_chunks), a.binned, a.g3,
-          a.lrow, a.lslot, a.lcnt, a.partial, a.n, nf, nlh, a.nb, ls_max,
-          chunk_rows, smem);
+      if (quant_r) {
+        hist_partial_list_item<kInt8sr, 3, PACKED>(
+            w % nf, (w / nf) % n_chunks, w / (nf * n_chunks), a.binned,
+            a.q3, a.lrow, a.lslot, a.lcnt, a.partial, a.n, nf, nlh, a.nb,
+            ls_max, chunk_rows, smem);
+      } else {
+        hist_partial_list_item<PREC, NC, PACKED>(
+            w % nf, (w / nf) % n_chunks, w / (nf * n_chunks), a.binned,
+            a.g3, a.lrow, a.lslot, a.lcnt, a.partial, a.n, nf, nlh, a.nb,
+            ls_max, chunk_rows, smem);
+      }
     }
     grid.sync();
     stamp(a, st + 2);
@@ -361,10 +394,21 @@ wave_loop_kernel(LoopArgs a) {
           par = a.pool + (static_cast<size_t>(m.leaf) * nf + f) * hrow;
           out_r = a.pool + (static_cast<size_t>(m.nl) * nf + f) * hrow;
         }
-        scan_item<NC, SUB>(s, f, threadIdx.x % kScanGroup, 1 + g, a.partial,
-                           n_chunks, nf, nlh, a.nb, a.B, a.fmeta, mask, csums,
-                           SUB && m.sml != 0, par, nullptr, par, out_r,
-                           a.residue, a.prm, smem + g * kScanSmemFloats);
+        // a quantized grow's scales: the round's, or ones (QUANT only)
+        const float* sc = QUANT ? a.qscale + (quant_r ? 0 : 6) : nullptr;
+        if (quant_r) {
+          scan_item<kInt8sr, 3, SUB>(
+              s, f, threadIdx.x % kScanGroup, 1 + g, a.partial, n_chunks, nf,
+              nlh, a.nb, a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par,
+              sc, nullptr, par, out_r, a.residue, a.prm,
+              smem + g * kScanSmemFloats);
+        } else {
+          scan_item<PREC, NC, SUB>(
+              s, f, threadIdx.x % kScanGroup, 1 + g, a.partial, n_chunks, nf,
+              nlh, a.nb, a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par,
+              sc, nullptr, par, out_r, a.residue, a.prm,
+              smem + g * kScanSmemFloats);
+        }
       }
     }
     grid.sync();
@@ -383,31 +427,49 @@ wave_loop_kernel(LoopArgs a) {
 
 using LoopKernel = void (*)(LoopArgs);
 
-template <bool SUB, bool PACKED>
+template <bool SUB, bool PACKED, bool QUANT>
 LoopKernel kernel_of(int precision) {
   switch (precision) {
-    case kF32: return wave_loop_kernel<kF32, 3, SUB, PACKED>;
-    case kBf16: return wave_loop_kernel<kBf16, 3, SUB, PACKED>;
-    case kBf16x2: return wave_loop_kernel<kBf16x2, 6, SUB, PACKED>;
+    case kF32: return wave_loop_kernel<kF32, 3, SUB, PACKED, QUANT>;
+    case kBf16: return wave_loop_kernel<kBf16, 3, SUB, PACKED, QUANT>;
+    case kBf16x2: return wave_loop_kernel<kBf16x2, 6, SUB, PACKED, QUANT>;
     default: return nullptr;
   }
 }
 
-LoopKernel kernel_for(int precision, int sub, int packed_bins) {
+template <bool QUANT>
+LoopKernel kernel_for_q(int precision, int sub, int packed_bins) {
   if (sub)
-    return packed_bins ? kernel_of<true, true>(precision)
-                       : kernel_of<true, false>(precision);
-  return packed_bins ? kernel_of<false, true>(precision)
-                     : kernel_of<false, false>(precision);
+    return packed_bins ? kernel_of<true, true, QUANT>(precision)
+                       : kernel_of<true, false, QUANT>(precision);
+  return packed_bins ? kernel_of<false, true, QUANT>(precision)
+                     : kernel_of<false, false, QUANT>(precision);
 }
 
-// The largest stage's dynamic shared memory: the partials of any bucket,
-// one scan group's, the route's slots or the boundary's gains.
+// `quant`: a bucket of the ladder quantizes (the QUANT kernels).  The
+// QUANT=false kernels keep the int8sr leg out of the unquantized ladders:
+// one kernel for both, the bucket read at run time, took 2-3% more per
+// unquantized launch on an H100 (106 -> 118 registers on some variants;
+// k6_ab.py, the headline's ladder).
+LoopKernel kernel_for(int precision, int sub, int packed_bins, bool quant) {
+  return quant ? kernel_for_q<true>(precision, sub, packed_bins)
+               : kernel_for_q<false>(precision, sub, packed_bins);
+}
+
+bool any_quant(int n_buckets, const int* quant) {
+  for (int b = 0; b < n_buckets; ++b)
+    if (quant[b]) return true;
+  return false;
+}
+
+// The largest stage's dynamic shared memory: the partials of any bucket
+// (a quantized bucket's at 3 int32 channels), one scan group's, the
+// route's slots or the boundary's gains.
 size_t loop_smem(int nc, int nb, int L, int K, int n_buckets,
-                 const int* ls_max) {
+                 const int* ls_max, const int* quant) {
   size_t m = kScanSmemFloats * sizeof(float);
   for (int b = 0; b < n_buckets; ++b) {
-    const size_t h = hist_partial_smem(ls_max[b], nb, nc);
+    const size_t h = hist_partial_smem(ls_max[b], nb, quant[b] ? 3 : nc);
     m = h > m ? h : m;
   }
   const size_t route = static_cast<size_t>(K) * (sizeof(Slot) + 8);
@@ -456,22 +518,29 @@ int lgbm_wave_loop_debug_words(int R) { return debug_words(R); }
 // The launch's limits on the current device (out: shared memory a block,
 // resident blocks an SM, SMs, cooperative launch supported); returns the
 // cudaError_t of the queries.  `ls_max` holds each ladder bucket's
-// partial-stage slot group (ops/hist_cuda.plan); `packed_bins` selects the
-// packed leg's kernel.
+// partial-stage slot group (ops/hist_cuda.plan) and `quant` whether it
+// quantizes (int8sr); `packed_bins` selects the packed leg's kernel.
 int lgbm_wave_loop_limits(int precision, int sub, int packed_bins, int nb,
                           int L, int K, int n_buckets, const int* ls_max,
-                          int* out) {
-  const LoopKernel kern = kernel_for(precision, sub, packed_bins);
-  if (!kern || n_buckets < 1 || n_buckets > kMaxLadder)
+                          const int* quant, int* out) {
+  if (n_buckets < 1 || n_buckets > kMaxLadder)
     return static_cast<int>(cudaErrorInvalidValue);
+  const LoopKernel kern = kernel_for(precision, sub, packed_bins,
+                                     any_quant(n_buckets, quant));
+  if (!kern) return static_cast<int>(cudaErrorInvalidValue);
   const int nc = precision == kBf16x2 ? 6 : 3;
-  return limits(kern, loop_smem(nc, nb, L, K, n_buckets, ls_max), out);
+  return limits(kern, loop_smem(nc, nb, L, K, n_buckets, ls_max, quant),
+                out);
 }
 
 // K6.  Returns the cudaError_t of the launch (0 = launched).  `tables`
-// (host) holds 4 rows of n_buckets ints: the slot ladder and each
-// bucket's ls_max, n_chunks and chunk_rows (ops/hist_cuda.plan at its
-// nslots + 1 slots).
+// (host) holds 5 rows of n_buckets ints: the slot ladder, each bucket's
+// ls_max, n_chunks and chunk_rows (ops/hist_cuda.plan at its nslots + 1
+// slots, int8sr for a quantized bucket) and whether it quantizes.  With
+// a quantized bucket `zq` (n, 3) holds the prequantized rows, `q3` (n, 3)
+// is scratch (after the launch: the last quantized round's rows),
+// `qscale` (12,) f32 the round scales twice and then six ones, and
+// (key0, key1) the tree's rounding key; else all three may be null.
 // `leaf`, `ft` and `pool` are updated in place; `packed` (R, 2K, 10) and
 // `n_split` (R,) must be zeroed; `label` (N,), `tile_cnt`, `lrow`,
 // `lslot`, `lcnt` (fused_cuda.list_scratch at the largest bucket's plan),
@@ -484,7 +553,9 @@ int lgbm_wave_loop_limits(int precision, int sub, int packed_bins, int nb,
 // round's live rows.
 int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          void* ft, void* pool, const void* fmeta,
-                         const void* base_mask, void* packed, void* n_split,
+                         const void* base_mask, const void* zq, void* q3,
+                         const void* qscale, unsigned key0, unsigned key1,
+                         void* packed, void* n_split,
                          void* label, void* tile_cnt, void* lrow, void* lslot,
                          void* lcnt, void* partial, void* residue, void* bnd,
                          void* debug, const void* tables, int n, int nf,
@@ -494,10 +565,13 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          int packed_bins, float l1, float l2,
                          float min_data, float min_hess, float min_gain,
                          void* stream) {
-  const LoopKernel kern = kernel_for(precision, sub, packed_bins);
-  if (!kern || B > kMaxBins || K < 1 || R < 1 || n_buckets < 1 ||
-      n_buckets > kMaxLadder || (sub && !pool) ||
-      (packed_bins && nb != 16))
+  if (n_buckets < 1 || n_buckets > kMaxLadder)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int* t = static_cast<const int*>(tables);
+  const bool quant = any_quant(n_buckets, t + 4 * n_buckets);
+  const LoopKernel kern = kernel_for(precision, sub, packed_bins, quant);
+  if (!kern || B > kMaxBins || K < 1 || R < 1 || (sub && !pool) ||
+      (packed_bins && nb != 16) || (quant && (!zq || !q3 || !qscale)))
     return static_cast<int>(cudaErrorInvalidValue);
   LoopArgs a{};
   a.binned = static_cast<const uint8_t*>(binned);
@@ -507,6 +581,11 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
   a.pool = static_cast<float*>(pool);
   a.fmeta = static_cast<const int*>(fmeta);
   a.base_mask = static_cast<const uint8_t*>(base_mask);
+  a.zq = static_cast<const float*>(zq);
+  a.q3 = static_cast<float*>(q3);
+  a.qscale = static_cast<const float*>(qscale);
+  a.key0 = key0;
+  a.key1 = key1;
   a.packed = static_cast<float*>(packed);
   a.n_split = static_cast<int*>(n_split);
   a.label = static_cast<int*>(label);
@@ -528,19 +607,19 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
   a.nl0 = num_leaves;
   a.max_depth = max_depth;
   a.n_buckets = n_buckets;
-  const int* t = static_cast<const int*>(tables);
   for (int b = 0; b < n_buckets; ++b) {
     a.ladder[b] = t[b];
     a.ls_max[b] = t[n_buckets + b];
     a.n_chunks[b] = t[2 * n_buckets + b];
     a.chunk_rows[b] = t[3 * n_buckets + b];
+    a.quant[b] = t[4 * n_buckets + b];
     if (a.ladder[b] > K || a.ls_max[b] < 1 ||
         a.chunk_rows[b] % kThreads != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
   a.prm = ScanParams{l1, l2, min_data, min_hess, min_gain};
   const int nc = precision == kBf16x2 ? 6 : 3;
-  const size_t smem = loop_smem(nc, nb, L, K, n_buckets, a.ls_max);
+  const size_t smem = loop_smem(nc, nb, L, K, n_buckets, a.ls_max, a.quant);
   int lim[4];
   int err = limits(kern, smem, lim);
   if (err != 0) return err;

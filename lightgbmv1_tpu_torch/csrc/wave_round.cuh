@@ -261,13 +261,21 @@ __device__ __forceinline__ void group_sync(int id) {
 // smaller child) and `out_l` / `out_r` (the children) receive their
 // (B, 3) rows when not null — `out_l` may be `par`.  Writes the residue
 // rows [best gain, gain at the pick, pick, left g/h/c] of both children.
-template <int NC, bool SUB>
+// `scale` (null: none) dequantizes an int8sr round (PREC kInt8sr: the
+// partials are int32) or carries a quantized grow's ones: in subtraction
+// mode the slot's 3 scales multiply the smaller child before the
+// subtraction (the Pallas kernel's apply_scale, hsmall stays raw);
+// pool-free the two children's 3 scales each multiply the prefix sums
+// after the cumulative sum and the missing-mass reads (child_scale).
+// Every scale is a power of two, so each multiply is exact.
+template <int PREC, int NC, bool SUB>
 __device__ __forceinline__ void scan_item(
     int s, int f, int gtid, int bar, const float* partial, int n_chunks,
     int nf, int nl, int nb, int B, const int* __restrict__ fmeta,
     const uint8_t* mask,
-    const float* csums, bool sml, const float* par, float* hs, float* out_l,
-    float* out_r, float* residue, const ScanParams& prm, float* sm) {
+    const float* csums, bool sml, const float* par, const float* scale,
+    float* hs, float* out_l, float* out_r, float* residue,
+    const ScanParams& prm, float* sm) {
   float(*h2)[kMaxBins][3] = reinterpret_cast<float(*)[kMaxBins][3]>(sm);
   float(*left2)[2][kMaxBins][3] =
       reinterpret_cast<float(*)[2][kMaxBins][3]>(sm + 2 * kMaxBins * 3);
@@ -281,12 +289,13 @@ __device__ __forceinline__ void scan_item(
   if (SUB) {
     for (int i = tid; i < B * 3; i += kScanGroup) {
       const int b = i / 3, c = i % 3;
-      const float v = merge_cell<NC>(
+      const float v = merge_cell<PREC, NC>(
           partial + ((static_cast<size_t>(f) * nl + s) * nb + b) * NC + c,
           stride, n_chunks);
       if (hs) hs[i] = v;
+      const float vs = scale ? __fmul_rn(v, scale[c]) : v;
       const float p = par ? par[i] : 0.f;
-      const float hl = sml ? v : __fsub_rn(p, v);
+      const float hl = sml ? vs : __fsub_rn(p, vs);
       const float hr = __fsub_rn(p, hl);
       h2[0][b][c] = hl;
       h2[1][b][c] = hr;
@@ -298,7 +307,7 @@ __device__ __forceinline__ void scan_item(
   } else {
     for (int i = tid; i < 2 * B * 3; i += kScanGroup) {
       const int w = i / (B * 3), b = (i / 3) % B, c = i % 3;
-      h2[w][b][c] = merge_cell<NC>(
+      h2[w][b][c] = merge_cell<PREC, NC>(
           partial +
               ((static_cast<size_t>(f) * nl + 2 * s + w) * nb + b) * NC + c,
           stride, n_chunks);
@@ -320,12 +329,18 @@ __device__ __forceinline__ void scan_item(
   // ---- scan_left_sums: both directions' left sums in bin order ---------
   if (lane < 3) {
     const int ch = lane;
-    const float nan_c = h2[w][nanb < 0 ? 0 : nanb][ch];
-    const float zero_c = h2[w][zb][ch];
+    const float sc = !SUB && scale ? scale[3 * w + ch] : 1.f;
+    float nan_c = h2[w][nanb < 0 ? 0 : nanb][ch];
+    float zero_c = h2[w][zb][ch];
+    if (!SUB && scale) {
+      nan_c = __fmul_rn(nan_c, sc);
+      zero_c = __fmul_rn(zero_c, sc);
+    }
     double acc = 0.0;
     for (int b = 0; b < B; ++b) {
       acc += static_cast<double>(h2[w][b][ch]);
-      const float cum = static_cast<float>(acc);
+      float cum = static_cast<float>(acc);
+      if (!SUB && scale) cum = __fmul_rn(cum, sc);
       left2[w][0][b][ch] =
           __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
       left2[w][1][b][ch] = __fadd_rn(

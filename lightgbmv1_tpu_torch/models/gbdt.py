@@ -14,7 +14,10 @@ ops run on the card (the histogram through the CUDA kernel K1).  The wave
 grower routes the valid rows through each round's splits, so a valid
 score update is a leaf-value gather, as in the JAX step; the sequential
 and level-wise growers' valid sets walk each tree on their bins
-(``tree_predict_binned``, JAX :405).  Where ``select_bin_layout`` picks
+(``tree_predict_binned``, JAX :405).  Each tree's key is the JAX
+package's ``fold_in(PRNGKey(seed), iteration * num_class + k)`` (JAX
+:257, :378; utils/prng.py), which the wave grower folds into the int8sr
+rounds' rounding keys.  Where ``select_bin_layout`` picks
 ``packed4`` the training matrix is packed once (``pack4bit``, JAX
 :143-153) and every valid matrix with it (:674-678).  DART, GOSS,
 RF, bagging, feature fraction, rollback and checkpoints are not ported
@@ -36,6 +39,7 @@ from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
 from ..utils.log import log_info, log_warning
+from ..utils.prng import fold_in, prng_key
 from .tree import (HostTree, TreeArrays, host_tree_from_arrays, leaf_lookup,
                    tree_predict_binned)
 
@@ -88,6 +92,7 @@ class GBDT:
                                    packed=self._packed)
         # the per-tree feature mask at feature_fraction 1: usable features
         self._base_mask = self.meta.usable
+        self._rng_key = prng_key(config.seed)
 
         # initial scores (reference BoostFromAverage gbdt.cpp:312-335)
         self._init_scores = np.zeros(self.num_class, dtype=np.float64)
@@ -163,7 +168,8 @@ class GBDT:
             if getattr(self._grow, "routes_valids", False):
                 tree, leaf_id, _, vlids = self._grow(
                     self.binned, g3.contiguous(), self._base_mask,
-                    valids=self._valid_binned)
+                    valids=self._valid_binned,
+                    key=fold_in(self._rng_key, self.iter * K + k))
             else:
                 tree, leaf_id, _ = self._grow(self.binned, g3.contiguous(),
                                               self._base_mask)

@@ -53,13 +53,25 @@ split through the same boundary, valid-set routing and store commit as
 the single round, from the round's packed SplitInfo.  The segments end at
 a round of no split or at ``num_leaves``.
 
+Quantized rounds (``hist_dtype_deep=int8sr``, JAX :49-58, :855-863,
+:1078-1085, :1371-1465): with ``hist_wave_quant_fn`` the sustained
+bucket (``S == K >= 32``) and the 16-slot ramp of a wave of K > 16 run
+the stochastic-rounded integer histogram (ops/quantize.py), keyed by
+``fold_in(tree_key, 8_000_011 + num_leaves)`` at the round's start; the
+root pass and buckets of 4 slots never quantize.  The per-slot
+dequantization folds into the subtraction (``subtract_child_hists(...,
+slot_scale)``) or, pool-free, into the split scan after its integer
+cumulative sum (``find_best_split(..., hist_scale)``); once a grow has
+quantized buckets every round carries scales, ones on the others, as
+the JAX package does.  The fused round and the loop quantize with the
+same stream (the quantize kernel and K6's in-kernel draw on the card).
+
 Categorical splits, monotone constraints, CEGB, per-node feature
-sampling, interaction constraints and the quantized int8sr rounds are
-not ported (the config refuses them):
-every child's feature mask is the tree's, and the split scan and the root
-sums are the serial learner's own (the JAX version's ``split_fn`` /
-``sums_fn`` hooks carry the cross-chip reductions, which the port has
-not).
+sampling and interaction constraints are not ported (the config refuses
+them): every child's feature mask is the tree's, and the split scan and
+the root sums are the serial learner's own (the JAX version's
+``split_fn`` / ``sums_fn`` hooks carry the cross-chip reductions, which
+the port has not).
 """
 
 from __future__ import annotations
@@ -69,10 +81,12 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..ops.hist_cuda import bins_of_rows
+from ..ops.quantize import prequantize_rows
 from ..ops.split import (NEG_INF, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output)
 from ..ops.wave_fused import subtract_children, unpack_children
+from ..utils.prng import fold_in
 from .tree import TreeArrays
 
 # Slot bucketing starts at this many rows (each bucket is one more
@@ -98,13 +112,36 @@ def slot_buckets_for(K: int, N: int) -> List[int]:
     return [K]
 
 
-def subtract_child_hists(h_slot, leaf_hist, leafs, order_c, sm_left):
+def quant_buckets_for(slot_buckets: Sequence[int], K: int) -> tuple:
+    """The buckets whose rounds quantize under int8sr (JAX :855-863): the
+    sustained bucket of a wave of K >= 32 and the 16-slot ramp of a wave
+    of K > 16; never the root pass, a 4-slot bucket or a one-bucket
+    ladder."""
+    if len(slot_buckets) <= 1:
+        return ()
+    return tuple(S for S in slot_buckets
+                 if (S == K and K >= 32) or (S == 16 and S < K))
+
+
+def round_key(tree_key, num_leaves: int):
+    """The rounding key of the round that starts at ``num_leaves`` leaves
+    (JAX :1084): ``fold_in(tree_key, 8_000_011 + num_leaves)``."""
+    return fold_in(tree_key, 8_000_011 + int(num_leaves))
+
+
+def subtract_child_hists(h_slot, leaf_hist, leafs, order_c, sm_left,
+                         slot_scale=None):
     """Smaller-child + parent-subtraction child histograms of one round
     (reference BeforeFindBestSplit + FeatureHistogram::Subtract):
     ``h_slot`` holds the measured smaller children in slot order, the
     larger sibling is the parent's stored histogram minus the smaller.
-    Returns the rank-order interleaved (2K, F, B, 3) child stack."""
-    return subtract_children(h_slot[order_c], leaf_hist[leafs], sm_left)
+    ``slot_scale`` (K, 3): a quantized round's dequantization, one
+    multiply before the subtraction (exact: every scale is a power of
+    two).  Returns the rank-order interleaved (2K, F, B, 3) child
+    stack."""
+    return subtract_children(h_slot[order_c], leaf_hist[leafs], sm_left,
+                             None if slot_scale is None
+                             else slot_scale[order_c])
 
 
 class _PackedStore:
@@ -240,8 +277,9 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      max_depth: int = -1, wave_size: int = 32,
                      fused_round_fn: Optional[Callable] = None,
                      fused_loop_fn: Optional[Callable] = None,
+                     hist_wave_quant_fn: Optional[Callable] = None,
                      packed: bool = False):
-    """Build ``grow(binned, g3, base_mask, valids=())``.
+    """Build ``grow(binned, g3, base_mask, valids=(), key=None)``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False) -> (nslots, F,
     B, 3)``: histograms of the rows labelled 0..nslots-1 (``nslots`` is
@@ -257,17 +295,37 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     splits, so its score update is a leaf-value gather.  ``packed``:
     ``binned`` and the valid sets hold 4-bit packed bytes, which the
     staged round's partition and valid routing decode
-    (``hist_cuda.bins_of_rows``); the callables read them themselves."""
+    (``hist_cuda.bins_of_rows``); the callables read them themselves.
+    ``hist_wave_quant_fn(binned, zq, label, nslots, key) -> hist_q``
+    (``hist_dtype_deep=int8sr``) runs the quantized buckets' staged
+    rounds on the tree's prequantized rows ``zq``
+    (``quantize.prequantize_rows``, made once a grow); its presence also
+    quantizes the fused and looped rounds of those buckets, keyed by
+    ``grow``'s per-tree ``key`` (two uint32 words, utils/prng.py)."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
-             base_mask: torch.Tensor, valids: Sequence[torch.Tensor] = ()):
+             base_mask: torch.Tensor, valids: Sequence[torch.Tensor] = (),
+             key=None):
         dev = binned.device
         N = binned.shape[1]
         F = base_mask.shape[0]
         slot_buckets = slot_buckets_for(K, N)
+        quant_buckets = quant_buckets_for(slot_buckets, K) \
+            if hist_wave_quant_fn is not None else ()
+        if quant_buckets and key is None:
+            raise ValueError("int8sr rounds need the per-tree key")
+        quant = scale_rows = None
+        if quant_buckets:
+            # the rows' key-independent half and the scales depend on g3
+            # alone: made once a tree, each quantized round only draws
+            quant = prequantize_rows(g3)
+            # a round's slot scales: the tree's where it quantized, ones
+            # on the others (the JAX ``scaled`` rounds)
+            qrows = quant[1].expand(2 * K, 3).contiguous()
+            scale_rows = (qrows, torch.ones_like(qrows))
         store = _PackedStore(L, L1, dev)
 
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
@@ -362,8 +420,10 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 # ---- a segment: R rounds in one launch (K6), replayed ----
                 packed_r, leaf_id, pool, n_split = fused_loop_fn(
                     binned, g3, leaf_id,
-                    st["ft"][:, store.GAIN:store.DEPTH + 1], nl,
-                    K=K, slot_buckets=slot_buckets, max_depth=max_depth,
+                    st["ft"][:, store.GAIN:store.DEPTH + 1], nl, key,
+                    K=K, slot_buckets=slot_buckets,
+                    quant_buckets=quant_buckets, quant=quant,
+                    max_depth=max_depth,
                     base_mask=base_mask, pool=leaf_hist)
                 counts = n_split.tolist()        # the segment's host read
                 for r, n in enumerate(counts):
@@ -392,11 +452,18 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             leafs, order, sm_left = b["leafs"], b["order"], b["sm_left"]
             # sustained rounds of a big wave may run the deep precision
             deep = S == K and K >= 32 and len(slot_buckets) > 1
+            # the quantized buckets' rounding key (per tree and round)
+            rkey = round_key(key, nl) if S in quant_buckets else None
+            nsl = S if use_sub else 2 * S
+            # quantized grows fold the scales in (ones on the rounds that
+            # did not quantize), the dequantization never a pass of its own
+            scale = scale_rows[rkey is None][:nsl] if quant_buckets else None
             if fused_round_fn is not None:
                 # ---- the routed fused round (K2) + valid routing (K3) ----
                 rt = slot_route(b)
                 picks, h_slot, leaf_id = fused_round_fn(
-                    binned, g3, S, deep=deep,
+                    binned, g3, S, deep=deep, quant_key=rkey,
+                    zq=None if quant is None else quant[0], scale=scale,
                     mask=to_slot(b["cmask"], False, 2 * S),
                     csums=to_slot(b["csums"], 1.0, 2 * S),
                     sml=to_slot(sm_left, False, S) if use_sub else None,
@@ -409,7 +476,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     # the subtraction the round ran, again on the emitted
                     # smaller children, for the per-leaf state
                     hist = subtract_child_hists(h_slot, leaf_hist, leafs,
-                                                order, sm_left)
+                                                order, sm_left,
+                                                slot_scale=scale)
                 res = unpack_children(picks[:2 * n], num_bins)
             else:
                 # ---- partition + labelling + histogram at bucket S ------
@@ -424,25 +492,31 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     # label only the SMALLER child of each split
                     in_small = gl == sm_left[rs]
                     label = torch.where(in_split & in_small, rs, S)
-                    nsl = S
                 else:
                     label = torch.where(in_split, 2 * rs + (~gl).long(),
                                         2 * S)
-                    nsl = 2 * S
                 vlids = [route(vb, vl, feats, thrs, dls, leafs, nls,
                                slot_of)[0] for vb, vl in zip(valids, vlids)]
-                h_slot = hist_wave_fn(binned, g3,
-                                      label.to(torch.int32).contiguous(),
-                                      nsl, deep=deep)
+                label = label.to(torch.int32).contiguous()
+                if rkey is not None:
+                    # stochastic-rounded integer histograms
+                    h_slot = hist_wave_quant_fn(binned, quant[0], label, nsl,
+                                                rkey)
+                else:
+                    h_slot = hist_wave_fn(binned, g3, label, nsl, deep=deep)
                 leaf_id = new_leaf_id
 
                 if use_sub:
                     hist = subtract_child_hists(h_slot, leaf_hist, leafs,
-                                                order, sm_left)
+                                                order, sm_left,
+                                                slot_scale=scale)
+                    scale = None
                 else:
                     hist = h_slot[:2 * n]        # slot 2s + side = child
+                    if scale is not None:
+                        scale = scale[:2 * n]
                 res = find_best_split(hist, b["csums"], meta, b["cmask"],
-                                      params)
+                                      params, hist_scale=scale)
             commit(b, res)
             if use_sub:
                 leaf_hist[b["cleafs"]] = hist

@@ -22,6 +22,16 @@ precision's parts), the subtraction and the staged scan's stages
 (``wave_fused.child_scan_residue``).  A CPU tensor takes them; a CUDA
 tensor launches the kernel or raises.
 
+int8sr rounds (``precision="int8sr"``, ``hist_dtype_deep=int8sr``): K2
+takes the quantized rows (exact integers, ops/quantize.py) and sums its
+histograms as int32 (K1's ``int8sr`` leg), ``hsmall`` is the raw integer
+histogram, and ``scale`` carries the dequantization: the slots' (S, 3)
+scales multiply the smaller child before the subtraction (the Pallas
+kernel's ``apply_scale``), or pool-free the children's (2S, 3) scales
+multiply the prefix sums after the integer cumulative sum
+(``child_scale``).  Every scale is a power of two, so each multiply is
+exact.
+
 4-bit packed bins (``packed=True``, ``bin_layout=packed4``): both
 kernels take the (ceil(F/2), N) bytes of ``hist_cuda.pack4bit`` and
 decode the nibble at the load; F is the real feature count (the mask's
@@ -99,7 +109,7 @@ def live_rows_ref(label, nslots, n_chunks, chunk_rows):
 
 def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, mask, csums,
-                    route, sml=None, parent=None, packed=False):
+                    route, sml=None, parent=None, packed=False, scale=None):
     """Plain version of ``fused_round``: the route (``route_tile``), K1's
     plain histogram of the label, the subtraction and
     ``child_scan_residue``."""
@@ -107,12 +117,12 @@ def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
     return round_ref(binned, g3, nslots=nslots, num_bins=num_bins,
                      precision=precision, meta=meta, params=params,
                      mask=mask, csums=csums, route=route, sml=sml,
-                     parent=parent, packed=packed)
+                     parent=parent, packed=packed, scale=scale)
 
 
 def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
               params: SplitParams, mask, csums, route, sml=None,
-              parent=None, packed=False):
+              parent=None, packed=False, scale=None):
     """``fused_round_ref`` uncounted: the round the persistent loop's plain
     version (ops/loop_cuda.py) runs R times.  The histograms sum the
     listed rows only, in row order (``live_rows_ref`` under K2's plan):
@@ -133,10 +143,11 @@ def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
         binned[:, rows], [v[rows] for v in hist_cuda.split_parts(g3,
                                                                  precision)],
         label[rows], nslots + 1, num_bins)[:nslots]
-    hc = wf.subtract_children(h, parent, sml) if sub else h
+    hc = wf.subtract_children(h, parent, sml, scale) if sub else h
     residue = wf.child_scan_residue(hc, mask, csums, meta_blk=meta,
                                     params=params, num_bins=num_bins,
-                                    fblk=binned.shape[0])
+                                    fblk=binned.shape[0],
+                                    hist_scale=None if sub else scale)
     return residue, (h if sub else None), new_leaf, label
 
 
@@ -146,7 +157,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_fused")
-    lib.lgbm_fused_round.argtypes = [_P] * 19 + [_I] * 11 + [_F] * 5 + [_P]
+    lib.lgbm_fused_round.argtypes = [_P] * 20 + [_I] * 11 + [_F] * 5 + [_P]
     lib.lgbm_fused_round.restype = _I
     lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.lgbm_route_rows.restype = _I
@@ -220,7 +231,7 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False):
 
 def fused_round(binned, g3, *, nslots, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, mask, csums, route,
-                sml=None, parent=None, fmeta=None, packed=False):
+                sml=None, parent=None, fmeta=None, packed=False, scale=None):
     """K2: one wave round -> ``(residue (2S, F, RES_COLS), hsmall (S, F,
     B, 3) or None, new_leaf (N,), label (N,))``.
 
@@ -232,13 +243,17 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     (2S, F) bool and ``csums`` (2S, 3) f32 are the children's.
     ``fmeta`` is ``feature_table(meta)``, made once by a caller that runs
     many rounds.  ``packed``: ``binned`` holds the (ceil(F/2), N) packed
-    bytes of the F = ``mask.shape[1]`` features (num_bins <= 16)."""
+    bytes of the F = ``mask.shape[1]`` features (num_bins <= 16).
+    ``scale`` (nslots, 3) f32: the slots' dequantization (the subtraction
+    mode's smaller children, or pool-free every child after its integer
+    cumulative sum); ``precision="int8sr"``: ``g3`` holds quantized rows
+    and the histograms are integer."""
     if binned.device.type == "cpu":
         return fused_round_ref(binned, g3, nslots=nslots,
                                num_bins=num_bins, precision=precision,
                                meta=meta, params=params, mask=mask,
                                csums=csums, route=route, sml=sml,
-                               parent=parent, packed=packed)
+                               parent=parent, packed=packed, scale=scale)
     F = mask.shape[1]
     _, N = _check_bins(binned, packed, F)
     if not packed and binned.shape[0] != F:
@@ -258,6 +273,8 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     _need(g3, "g3", torch.float32, (N, 3), dev)
     _need(mask, "mask", torch.bool, (C, F), dev)
     _need(csums, "csums", torch.float32, (C, 3), dev)
+    if scale is not None:
+        _need(scale, "scale", torch.float32, (nslots, 3), dev)
     if sub:
         _need(sml, "sml", torch.bool, (S,), dev)
         _need(parent, "parent", torch.float32, (S, F, B, 3), dev)
@@ -270,7 +287,8 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     lists = list_scratch(N, p["n_chunks"], p["n_chunks"] * p["chunk_rows"],
                          dev)
     partial = torch.empty((p["n_chunks"], F, nslots + 1, p["nb"], p["nc"]),
-                          dtype=torch.float32, device=dev)
+                          dtype=hist_cuda.partial_dtype(precision),
+                          device=dev)
     residue = torch.empty((C, F, wf.RES_COLS), dtype=torch.float32,
                           device=dev)
     hsmall = torch.empty((S, F, B, 3), dtype=torch.float32, device=dev) \
@@ -289,7 +307,8 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
             label.data_ptr(), new_leaf.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
             fmeta.data_ptr(), mask.data_ptr(), csums.data_ptr(), ptr(sml),
-            ptr(parent), residue.data_ptr(), ptr(hsmall), N, F, S, p["nb"],
+            ptr(parent), ptr(scale), residue.data_ptr(), ptr(hsmall), N, F,
+            S, p["nb"],
             B, p["ls_max"], p["n_chunks"], p["chunk_rows"],
             hist_cuda.PREC_ID[precision], int(sub), int(packed),
             params.lambda_l1, params.lambda_l2, params.min_data_in_leaf,

@@ -18,7 +18,13 @@ value into ``hi = bf16(v)`` (round to nearest even) and
 returns ``sum_hi + sum_lo``; ``bf16`` sums hi alone; ``f32`` sums the
 values.  Counts are exact in every mode.  The sums run in another order
 than the TPU's, so the two agree to f32 rounding of the cells' absolute
-sums, not to the bit.
+sums, not to the bit.  ``int8sr`` (``hist_dtype_deep=int8sr``) takes
+rows already quantized to exact integers in [-127, 127]
+(``ops/quantize.sr_quantize``) and returns their integer histogram,
+summed as int32 and rounded to f32 once at the output: exact, the same
+in any order, and the Pallas kernel's bits while every cell stays below
+2^24 in magnitude (the Pallas kernel adds its tiles' int32 products into
+an f32 output).
 
 Two plain PyTorch versions:
 
@@ -29,6 +35,9 @@ Two plain PyTorch versions:
   each (chunk, cell) summed in row order from 0 under ``plan``, the chunks
   merged in chunk order, hi and lo apart — so the kernel equals it bit for
   bit.  Only checks call it.
+
+At ``int8sr`` both sum the integers exactly (int64 ``index_add_``), which
+is every order's sum.
 
 4-bit packed bins (``packed=True``, ``bin_layout=packed4``): two
 features a byte, lo nibble = feature 2p, hi = 2p + 1 (``pack4bit``, the
@@ -57,8 +66,10 @@ import torch
 
 from . import _build
 
-PRECISIONS = ("f32", "bf16", "bf16x2")
-PREC_ID = {"f32": 0, "bf16": 1, "bf16x2": 2}
+# the float legs, and int8sr's integer one (quantized rows)
+FLOAT_PRECISIONS = ("f32", "bf16", "bf16x2")
+PRECISIONS = FLOAT_PRECISIONS + ("int8sr",)
+PREC_ID = {"f32": 0, "bf16": 1, "bf16x2": 2, "int8sr": 3}
 # the sub-histograms of one block: two 256-thread blocks share an SM
 HIST_SMEM_BUDGET = 96 * 1024
 # the chunk count targets this many blocks: a fixed number (two resident
@@ -161,11 +172,14 @@ def _unpacked(binned: torch.Tensor, packed: bool, num_features):
 
 
 def split_parts(g3: torch.Tensor, precision: str):
-    """The f32 value parts the histogram sums: [g3] (f32), [hi] (bf16) or
-    [hi, lo] (bf16x2), each rounded exactly as the kernel rounds."""
+    """The value parts the histogram sums: [g3] (f32), [hi] (bf16) or
+    [hi, lo] (bf16x2), each rounded exactly as the kernel rounds, or the
+    rows as int64 integers (int8sr: the kernel's __float2int_rn)."""
     if precision not in PRECISIONS:
         raise ValueError(f"precision={precision!r}: expected one of "
                          f"{PRECISIONS}")
+    if precision == "int8sr":
+        return [torch.round(g3.to(torch.float32)).to(torch.int64)]
     g3 = g3.to(torch.float32)
     if precision == "f32":
         return [g3]
@@ -179,9 +193,10 @@ def split_parts(g3: torch.Tensor, precision: str):
 def index_add_hist(binned: torch.Tensor, parts, leaf_id: torch.Tensor,
                    num_leaves: int, num_bins: int,
                    live_slots=None) -> torch.Tensor:
-    """(L, F, B, 3) sums of each (N, 3) f32 value part over the rows of
+    """(L, F, B, 3) f32 sums of each (N, 3) value part over the rows of
     each slot: one ``index_add_`` a part over the flattened (feature, slot,
-    bin) index, the parts' sums added at the end.  Rows with a slot
+    bin) index in the part's type (int64 parts sum exactly and round to
+    f32 once), the parts' sums added at the end.  Rows with a slot
     outside [0, L) or a bin outside [0, B) land in a sacrificial cell that
     is dropped; the slots from ``live_slots`` on (None: none) are zeroed,
     as if their rows added nothing (they touch no other cell)."""
@@ -197,10 +212,11 @@ def index_add_hist(binned: torch.Tensor, parts, leaf_id: torch.Tensor,
     idx = torch.where(ok, cell, torch.full_like(cell, dump)).reshape(-1)
     out = None
     for part in parts:
-        h = torch.zeros((dump + 1, 3), dtype=torch.float32, device=dev)
+        h = torch.zeros((dump + 1, 3), dtype=part.dtype, device=dev)
         h.index_add_(0, idx, part.repeat(F, 1))
         out = h if out is None else out + h
-    out = out[:dump].reshape(F, L, B, 3).permute(1, 0, 2, 3).contiguous()
+    out = out[:dump].reshape(F, L, B, 3).permute(1, 0, 2, 3) \
+        .to(torch.float32).contiguous()
     if live_slots is not None:
         out[int(live_slots):] = 0.0
     return out
@@ -236,6 +252,9 @@ def hist_leaves_roworder_ref(binned: torch.Tensor, g3: torch.Tensor,
     first: the plan is the real F's, as the kernel's."""
     count_plain("hist_leaves_roworder")
     binned = _unpacked(binned, packed, num_features)
+    if precision == "int8sr":     # exact integers: every order's sum
+        return index_add_hist(binned, split_parts(g3, precision), leaf_id,
+                              num_leaves, num_bins, live_slots)
     F, N = binned.shape
     L, B = int(num_leaves), int(num_bins)
     p = plan(N, F, L, B, precision)
@@ -324,13 +343,19 @@ def plan(N: int, F: int, L: int, num_bins: int, precision: str) -> dict:
                 n_chunks=n_chunks, chunk_rows=chunk_rows)
 
 
+def partial_dtype(precision: str) -> torch.dtype:
+    """The partial stage's accumulator type: int32 at int8sr, else f32."""
+    return torch.int32 if precision == "int8sr" else torch.float32
+
+
 def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
                 leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
                 precision: str = "bf16x2", live_slots=None,
                 packed: bool = False, num_features=None) -> torch.Tensor:
     """K1: (L, F, num_bins, 3) f32 histograms of the rows of each slot.
     With ``live_slots`` only the rows of slots below it add; the others'
-    cells are 0, and the plan (so the live cells' bits) is L's.  With
+    cells are 0, and the plan (so the live cells' bits) is L's.  At
+    ``int8sr`` ``g3`` holds quantized rows (exact integers).  With
     ``packed`` ``binned`` holds the (ceil(F/2), N) packed bytes of
     ``num_features`` = F features (``pack4bit``, num_bins <= 16)."""
     if binned.device.type == "cpu":
@@ -360,7 +385,8 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
     p = plan(N, F, L, B, precision)
     out = torch.empty((L, F, B, 3), dtype=torch.float32, device=binned.device)
     partial = torch.empty((p["n_chunks"], F, L, p["nb"], p["nc"]),
-                          dtype=torch.float32, device=binned.device)
+                          dtype=partial_dtype(precision),
+                          device=binned.device)
     if L == 0 or F == 0:
         return out.zero_()
     with torch.cuda.device(binned.device):

@@ -16,6 +16,15 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
   slots (the plan, so the bits, of the JAX package's sacrificial slot)
   with only the first ``nslots`` live, so K1 drops the dead rows at the
   load, and the dead slot is sliced away;
+* ``hist_wave_quant`` (:334) — the quantized wave round
+  (``hist_dtype_deep=int8sr``): the tree's prequantized rows
+  (``ops/quantize.prequantize_rows``, made once a tree) stochastically
+  rounded to integers (``ops/quantize.sr_quantize``, the quantize kernel
+  on the card) and their integer histogram, K1's ``int8sr`` leg on
+  ``pallas``, the exact f32 scatter of the integers on ``scatter`` (the
+  same values while a cell stays below 2^24); the dequantization scales
+  are the tree's, which the grower keeps (the JAX function returns them
+  with the histogram);
 * ``default_hist_method`` (:380) — ``auto`` is ``pallas`` (K1) for a CUDA
   tensor, as on the TPU, and ``scatter`` for a CPU one, as on the JAX
   package's CPU backend; ``fused`` resolves to its base method ``pallas``,
@@ -92,6 +101,24 @@ def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,
                          method=method, precision=precision,
                          live_slots=nslots, packed=packed,
                          num_features=num_features)[:nslots]
+
+
+def hist_wave_quant(binned: torch.Tensor, zq: torch.Tensor,
+                    label: torch.Tensor, nslots: int, num_bins: int, key,
+                    method: str = "scatter", packed: bool = False,
+                    num_features=None) -> torch.Tensor:
+    """``hist_q (nslots, F, B, 3)``: the integer histograms of the rows
+    labelled 0..nslots-1 after stochastic rounding of the prequantized
+    rows ``zq`` (N, 3) under the round key ``key``; the real histogram is
+    ``hist_q`` times the tree's scales, which the grower folds into the
+    subtraction or the split scan."""
+    from .quantize import sr_quantize
+
+    q3 = sr_quantize(zq, key)
+    prec = "int8sr" if method == "pallas" else "f32"
+    return hist_wave(binned, q3, label, nslots, num_bins, method=method,
+                     precision=prec, packed=packed,
+                     num_features=num_features)
 
 
 def default_hist_method(config_method: str = "auto",

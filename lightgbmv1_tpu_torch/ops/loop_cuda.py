@@ -22,6 +22,16 @@ launches the kernel or raises.  On the card an opt-in ``debug`` buffer
 takes block 0's stamps after each grid barrier and each round's live
 rows; ``stage_split`` reads it.
 
+int8sr (``quant_buckets``, ``hist_dtype_deep=int8sr``): a round whose
+bucket quantizes draws its uniforms in the kernel from ``fold_in(key,
+8_000_011 + nl)`` (csrc/prng.cuh, the quantize kernel's functions) on
+the tree's prequantized rows (``quant = quantize.prequantize_rows(g3)``,
+made once a tree by the grower) and sums them as integers; the launch's
+other rounds run at ``precision``, and every round carries the grow's
+scales (ones where it did not quantize), as the single round does.
+``loop_rounds`` quantizes each such round with ``quantize.sr_quantize``
+(its plain version under the plain round) before the round.
+
 4-bit packed bins (``packed=True``, ``bin_layout=packed4``): the kernel's
 packed leg runs the packed route and list walk of K2's device code on the
 (ceil(F/2), N) bytes of ``hist_cuda.pack4bit``; its plans are the real F's
@@ -32,8 +42,8 @@ plain version.
 Each launch adds one to ``launch_counts["fused_wave_loop"]`` (packed:
 ``"fused_wave_loop_packed"``) and to ``bucket_launch_counts[(R,
 precision, mode)]`` (mode ``"sub"`` / ``"pool"``, packed ``"sub:packed"``
-/ ``"pool:packed"``); each plain call adds one to
-``plain_counts["fused_wave_loop"]``.
+/ ``"pool:packed"``, with ``":int8sr"`` after it when a bucket
+quantizes); each plain call adds one to ``plain_counts["fused_wave_loop"]``.
 """
 
 from __future__ import annotations
@@ -44,7 +54,8 @@ import threading
 
 import torch
 
-from . import _build, fused_cuda, hist_cuda
+from ..utils import prng
+from . import _build, fused_cuda, hist_cuda, quantize
 from . import wave_fused as wf
 from .split import (NEG_INF, FeatureMeta, SplitParams, child_leaf_output,
                     gain_shift)
@@ -72,7 +83,8 @@ def reset_launch_counts() -> None:
 def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                 slot_buckets, max_depth, base_mask, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, pool=None,
-                round_fn=fused_cuda.round_ref, packed=False):
+                round_fn=fused_cuda.round_ref, packed=False, key=None,
+                quant_buckets=(), quant=None):
     """``rounds`` wave rounds from the frontier ``ft12`` (L, 12) at
     ``num_leaves`` leaves, each through ``round_fn`` (a fused round's
     signature, given ``packed``) -> ``(packed (R, 2K, PACK_COLS),
@@ -81,7 +93,10 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     zero; a round with no split ends the loop, and it and the rounds
     after it stay zero.  The boundary, pick and commit are the grower's
     (models/grower_wave.py) op for op, so the frontier after a round is
-    the split store's."""
+    the split store's.  A round of a bucket in ``quant_buckets`` runs on
+    the prequantized rows ``quant = (zq, scale3)`` rounded under
+    ``fold_in(key, 8_000_011 + nl)`` at ``int8sr``; with quantized
+    buckets every round carries scales."""
     from ..models.grower_wave import _topk_by_rank
 
     dev = binned.device
@@ -96,6 +111,12 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     n_split = torch.zeros(rounds, dtype=torch.int32, device=dev)
     kiota = torch.arange(K, device=dev)
     nl = int(num_leaves)
+    scaled = bool(quant_buckets)
+    if scaled:
+        zq, scale3 = quant
+        ones3 = torch.ones_like(scale3)
+        draw = (quantize.sr_quantize_ref if round_fn is fused_cuda.round_ref
+                else quantize.sr_quantize)
     for r in range(rounds):
         vals, leafs = _topk_by_rank(ft[:, 0], K)
         n = int(((vals > 0) & (kiota < L - nl)).sum())
@@ -125,13 +146,21 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         csums_s = to_slot(csums, 1.0, 2 * S)
         mask = to_slot(base_mask[None, :].expand(2 * n, base_mask.shape[0]),
                        False, 2 * S)
+        nsl = S if sub else 2 * S
+        g3r, prec, scale = g3, precision, None
+        if scaled:
+            sc3 = ones3
+            if S in quant_buckets:
+                g3r = draw(zq, prng.fold_in(key, 8_000_011 + nl))
+                prec, sc3 = "int8sr", scale3
+            scale = sc3[None, :].expand(nsl, 3).contiguous()
         residue, hsm, leaf, _ = round_fn(
-            binned, g3, nslots=S if sub else 2 * S, num_bins=num_bins,
-            precision=precision, meta=meta, params=params, mask=mask,
+            binned, g3r, nslots=nsl, num_bins=num_bins,
+            precision=prec, meta=meta, params=params, mask=mask,
             csums=csums_s, sml=to_slot(sml, False) if sub else None,
             parent=to_slot(pool[leafs], 0.0) if sub else None,
             route=dict(oleaf=leaf, feats=feats_s.to(torch.int32), rmeta=rmeta,
-                       num_leaves=L), packed=packed)
+                       num_leaves=L), packed=packed, scale=scale)
         pk = wf._pick_pack(residue, gain_shift(csums_s, params), csums_s,
                            meta, num_bins)
         picks[r, :2 * S] = pk
@@ -147,7 +176,9 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                               child_leaf_output(csums, params)[:, None],
                               cdepth.to(torch.float32)[:, None]], dim=1)
         if sub:
-            pool[cidx] = wf.subtract_children(hsm[:n], pool[leafs], sml)
+            pool[cidx] = wf.subtract_children(
+                hsm[:n], pool[leafs], sml,
+                None if scale is None else scale[:n])
         nl += n
     return picks, leaf, pool, n_split
 
@@ -163,16 +194,17 @@ def fused_wave_loop_ref(binned, g3, leaf_id, ft12, num_leaves,
     return loop_rounds(binned, g3, leaf_id, ft12, num_leaves, **kw)
 
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
+    ctypes.c_uint
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_loop")
-    lib.lgbm_fused_wave_loop.argtypes = [_P] * 19 + [_I] * 13 + [_F] * 5 \
-        + [_P]
+    lib.lgbm_fused_wave_loop.argtypes = [_P] * 10 + [_U] * 2 + [_P] * 12 \
+        + [_I] * 13 + [_F] * 5 + [_P]
     lib.lgbm_fused_wave_loop.restype = _I
-    lib.lgbm_wave_loop_limits.argtypes = [_I] * 7 + [_P, _P]
+    lib.lgbm_wave_loop_limits.argtypes = [_I] * 7 + [_P, _P, _P]
     lib.lgbm_wave_loop_limits.restype = _I
     lib.lgbm_wave_loop_bnd_ints.argtypes = [_I, _I]
     lib.lgbm_wave_loop_bnd_ints.restype = _I
@@ -207,43 +239,53 @@ def stage_split(debug: torch.Tensor, n_split) -> list:
     return out
 
 
-def bucket_plans(N, F, num_bins, precision, slot_buckets, sub) -> list:
+def bucket_plans(N, F, num_bins, precision, slot_buckets, sub,
+                 quant_buckets=()) -> list:
     """K2's histogram plan (``hist_cuda.plan``) at each ladder bucket's
-    nslots + 1 slots: the loop runs a round under its bucket's plan."""
+    nslots + 1 slots and precision (``int8sr`` for a quantized bucket):
+    the loop runs a round under its bucket's plan."""
     return [hist_cuda.plan(N, F, (S if sub else 2 * S) + 1, num_bins,
-                           precision) for S in slot_buckets]
+                           "int8sr" if S in quant_buckets else precision)
+            for S in slot_buckets]
 
 
-def partial_floats(N, F, num_bins, precision, slot_buckets, sub) -> int:
-    """The partial scratch of the largest bucket's plan."""
+def partial_floats(N, F, num_bins, precision, slot_buckets, sub,
+                   quant_buckets=()) -> int:
+    """The partial scratch (4-byte words) of the largest bucket's plan."""
     return max(p["n_chunks"] * F * ((S if sub else 2 * S) + 1) * p["nb"]
                * p["nc"] for S, p in zip(slot_buckets, bucket_plans(
-                   N, F, num_bins, precision, slot_buckets, sub)))
+                   N, F, num_bins, precision, slot_buckets, sub,
+                   quant_buckets)))
 
 
-def list_sizes(N, F, num_bins, precision, slot_buckets, sub) -> tuple:
+def list_sizes(N, F, num_bins, precision, slot_buckets, sub,
+               quant_buckets=()) -> tuple:
     """The list scratch of the buckets' largest plans: (chunks, chunks x
     chunk_rows); ``fused_cuda.list_scratch`` allocates it."""
-    plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub)
+    plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub,
+                         quant_buckets)
     return (max(p["n_chunks"] for p in plans),
             max(p["n_chunks"] * p["chunk_rows"] for p in plans))
 
 
 def limits(device, *, precision, sub, num_bins, N, F, L, K, slot_buckets,
-           packed=False) -> dict:
+           packed=False, quant_buckets=()) -> dict:
     """The card's limits on the loop kernel (``packed``: its packed leg)
     at this shape, F the real feature count: shared memory a block,
     resident blocks an SM (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``),
     SMs, cooperative launch (``cudaDevAttrCooperativeLaunch``) and the
     device memory free to the loop."""
-    plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub)
+    plans = bucket_plans(N, F, num_bins, precision, slot_buckets, sub,
+                         quant_buckets)
     ls_max = (ctypes.c_int * len(plans))(*[p["ls_max"] for p in plans])
+    quant = (ctypes.c_int * len(plans))(*[int(S in quant_buckets)
+                                          for S in slot_buckets])
     out = (ctypes.c_int * 4)()
     with torch.cuda.device(device):
         fused_cuda._raise_on(_lib().lgbm_wave_loop_limits(
             hist_cuda.PREC_ID[precision], int(sub), int(packed),
-            hist_cuda.kernel_width(num_bins), L, K, len(plans), ls_max, out),
-            "fused_wave_loop limits")
+            hist_cuda.kernel_width(num_bins), L, K, len(plans), ls_max,
+            quant, out), "fused_wave_loop limits")
         free = torch.cuda.mem_get_info(device)[0] + (
             torch.cuda.memory_reserved(device)
             - torch.cuda.memory_allocated(device))
@@ -254,7 +296,8 @@ def limits(device, *, precision, sub, num_bins, N, F, L, K, slot_buckets,
 def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                     slot_buckets, max_depth, base_mask, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, pool=None,
-                    fmeta=None, debug=None, packed=False):
+                    fmeta=None, debug=None, packed=False, key=None,
+                    quant_buckets=(), quant=None, q3=None):
     """K6: ``rounds`` wave rounds in one launch -> ``(packed (R, 2K,
     PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``, as
     ``loop_rounds`` computes them.
@@ -268,15 +311,29 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     ``debug_buffer(rounds, ...)`` that receives the stage stamps and live
     rows ``stage_split`` reads.  ``packed``: ``binned`` holds the
     (ceil(F/2), N) packed bytes of the F = ``base_mask.shape[0]``
-    features (num_bins <= 16)."""
-    if debug is not None and binned.device.type != "cuda":
-        raise ValueError("debug: the stage stamps are the card kernel's")
+    features (num_bins <= 16).  ``quant_buckets`` (a subset of the
+    ladder) quantize their rounds under the tree's rounding ``key`` (two
+    uint32 words) from ``quant`` = ``quantize.prequantize_rows(g3)``
+    (the rows ``zq`` (N, 3) and the scales (3,)); ``q3`` (card only): an
+    (N, 3) f32 buffer for the
+    quantized rows, which after the launch holds the last quantized
+    round's."""
+    if (debug is not None or q3 is not None) \
+            and binned.device.type != "cuda":
+        raise ValueError("debug / q3: the card kernel's buffers")
+    quant_buckets = tuple(int(S) for S in quant_buckets)
+    if quant_buckets and (key is None or quant is None
+                          or not set(quant_buckets) <= set(slot_buckets)):
+        raise ValueError(f"quant_buckets={quant_buckets}: need the tree "
+                         f"key, the prequantized rows and buckets of the "
+                         f"ladder {slot_buckets}")
     if binned.device.type == "cpu":
         return fused_wave_loop_ref(
             binned, g3, leaf_id, ft12, num_leaves, rounds=rounds, K=K,
             slot_buckets=slot_buckets, max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
-            meta=meta, params=params, pool=pool, packed=packed)
+            meta=meta, params=params, pool=pool, packed=packed, key=key,
+            quant_buckets=quant_buckets, quant=quant)
     F = base_mask.shape[0]
     _, N = fused_cuda._check_bins(binned, packed, F)
     if not packed and binned.shape[0] != F:
@@ -284,9 +341,10 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                          f"{F}")
     if packed and num_bins > 16:
         raise ValueError(f"num_bins={num_bins}: packed bins hold <= 16")
-    if precision not in hist_cuda.PRECISIONS:
+    if precision not in hist_cuda.FLOAT_PRECISIONS:
         raise ValueError(f"precision={precision!r}: expected one of "
-                         f"{hist_cuda.PRECISIONS}")
+                         f"{hist_cuda.FLOAT_PRECISIONS} (a quantized "
+                         "bucket's rounds: quant_buckets)")
     L, B, C, R, dev = ft12.shape[0], int(num_bins), 2 * K, int(rounds), \
         binned.device
     sub = pool is not None
@@ -303,10 +361,12 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         fused_cuda._need(debug, "debug", torch.int64,
                          (_lib().lgbm_wave_loop_debug_words(R),), dev)
         debug.zero_()
-    plans = bucket_plans(N, F, B, precision, slot_buckets, sub)
-    tables = (ctypes.c_int * (4 * len(plans)))(
+    plans = bucket_plans(N, F, B, precision, slot_buckets, sub,
+                         quant_buckets)
+    tables = (ctypes.c_int * (5 * len(plans)))(
         *slot_buckets, *[p["ls_max"] for p in plans],
-        *[p["n_chunks"] for p in plans], *[p["chunk_rows"] for p in plans])
+        *[p["n_chunks"] for p in plans], *[p["chunk_rows"] for p in plans],
+        *[int(S in quant_buckets) for S in slot_buckets])
     lib = _lib()
     f32, i32 = torch.float32, torch.int32
     new_leaf = leaf_id.clone()
@@ -316,9 +376,24 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     n_split = torch.zeros(R, dtype=i32, device=dev)
     label = torch.empty(N, dtype=i32, device=dev)
     lists = fused_cuda.list_scratch(
-        N, *list_sizes(N, F, B, precision, slot_buckets, sub), dev)
+        N, *list_sizes(N, F, B, precision, slot_buckets, sub, quant_buckets),
+        dev)
     partial = torch.empty(partial_floats(N, F, B, precision, slot_buckets,
-                                         sub), dtype=f32, device=dev)
+                                         sub, quant_buckets), dtype=f32,
+                          device=dev)
+    zq = qscale = None
+    key_words = (0, 0)
+    if quant_buckets:
+        zq, scale3 = quant
+        fused_cuda._need(zq, "zq", f32, (N, 3), dev)
+        qscale = torch.cat([scale3, scale3, torch.ones(6, dtype=f32,
+                                                       device=dev)])
+        if q3 is None:
+            q3 = torch.empty_like(zq)
+        fused_cuda._need(q3, "q3", f32, (N, 3), dev)
+        key_words = (int(key[0]) & prng.MASK32, int(key[1]) & prng.MASK32)
+    else:
+        q3 = None
     residue = torch.empty((C, F, wf.RES_COLS), dtype=f32, device=dev)
     bnd = torch.empty(lib.lgbm_wave_loop_bnd_ints(K, F), dtype=i32,
                       device=dev)
@@ -330,7 +405,9 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         err = lib.lgbm_fused_wave_loop(
             binned.data_ptr(), g3.data_ptr(), new_leaf.data_ptr(),
             ft.data_ptr(), pool_out.data_ptr() if sub else 0,
-            fmeta.data_ptr(), mask.data_ptr(), picks.data_ptr(),
+            fmeta.data_ptr(), mask.data_ptr(),
+            *[0 if t is None else t.data_ptr() for t in (zq, q3, qscale)],
+            *key_words, picks.data_ptr(),
             n_split.data_ptr(), label.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
             residue.data_ptr(), bnd.data_ptr(),
@@ -344,7 +421,8 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     with _count_lock:
         launch_counts["fused_wave_loop_packed" if packed
                       else "fused_wave_loop"] += 1
-        key = (R, precision,
-               ("sub" if sub else "pool") + (":packed" if packed else ""))
-        bucket_launch_counts[key] = bucket_launch_counts.get(key, 0) + 1
+        bkey = (R, precision,
+                ("sub" if sub else "pool") + (":packed" if packed else "")
+                + (":int8sr" if quant_buckets else ""))
+        bucket_launch_counts[bkey] = bucket_launch_counts.get(bkey, 0) + 1
     return picks, new_leaf, pool_out, n_split

@@ -14,7 +14,8 @@ Ported: ``tie_tol`` (:56, ``TIE_RTOL``), ``go_left_rule`` (:65),
 (:157/:173), ``child_leaf_output`` (:216), ``scan_left_sums`` (:459),
 ``scan_direction_gains`` (:532), ``scan_pick_feature`` (:636),
 ``scan_pick`` (:667), ``gain_shift`` and
-``find_best_split`` (:437), which takes its leaves as a batch and so is
+``find_best_split`` (:437; both with ``hist_scale``, the int8sr rounds'
+dequantize-aware scan), which takes its leaves as a batch and so is
 also ``find_best_split_batch`` (:837, the JAX vmap over a frontier).  The tie-breaking is kept exactly: it decides
 the tree.  Categorical splits, monotone constraints, path smoothing,
 max_delta_step, feature_contri, CEGB and extra_trees are not ported
@@ -120,14 +121,23 @@ def make_feature_meta(dataset, device) -> FeatureMeta:
                        usable=t(~np.asarray(dataset.is_trivial), torch.bool))
 
 
-def scan_left_sums(hist: torch.Tensor, meta: FeatureMeta) -> torch.Tensor:
+def scan_left_sums(hist: torch.Tensor, meta: FeatureMeta,
+                   hist_scale=None) -> torch.Tensor:
     """(C, F, B, 3) histograms -> (C, 2, F, B, 3) left sums of both scan
     directions: direction 0 sends the missing mass right (the forward
     scan), direction 1 sends it left.  Zero-as-missing features skip the
     zero bin while accumulating, so its mass rides the missing direction
-    (reference SKIP_DEFAULT_BIN, feature_histogram.hpp:879-882)."""
+    (reference SKIP_DEFAULT_BIN, feature_histogram.hpp:879-882).
+
+    Dequantize-aware (JAX :459, int8sr): with ``hist_scale`` (C, 3) the
+    histograms hold integer sums, the cumulative sum runs on them (exact)
+    and one multiply dequantizes the prefix sums, and the point reads of
+    the missing mass."""
     C, F, B, _ = hist.shape
     cum = torch.cumsum(hist, dim=2)                      # inclusive
+    if hist_scale is not None:
+        cum = cum * hist_scale[:, None, None, :]
+        hist = hist * hist_scale[:, None, None, :]       # point reads below
     t_idx = torch.arange(B, device=hist.device)[None, :]          # (1, B)
     fi = torch.arange(F, device=hist.device)
     nan_contrib = hist[:, fi, meta.nan_bin.clamp(min=0)]          # (C, F, 3)
@@ -225,11 +235,13 @@ def scan_pick(gains: torch.Tensor, shift: torch.Tensor, meta: FeatureMeta):
 
 def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
                     meta: FeatureMeta, feature_mask: torch.Tensor,
-                    params: SplitParams) -> SplitResult:
+                    params: SplitParams, hist_scale=None) -> SplitResult:
     """Best numerical split of each of C leaves: ``hist`` (C, F, B, 3),
-    ``parent_sum`` (C, 3), ``feature_mask`` (C, F) bool."""
+    ``parent_sum`` (C, 3), ``feature_mask`` (C, F) bool; ``hist_scale``
+    (C, 3): ``hist`` holds quantized integer sums, dequantized after the
+    cumulative sum (``scan_left_sums``)."""
     C = hist.shape[0]
-    left2 = scan_left_sums(hist, meta)
+    left2 = scan_left_sums(hist, meta, hist_scale)
     gains, shift = scan_direction_gains(left2, parent_sum, meta,
                                         feature_mask, params)
     best_gain, feature, threshold, direction = scan_pick(gains, shift, meta)

@@ -22,12 +22,18 @@ Ported: ``RES_COLS`` / ``PACK_COLS`` / ``RMETA_COLS`` (:126-128),
 :652), ``make_fused_round`` (:669), ``plan_wave_loop`` (:804),
 ``make_fused_wave_loop`` (:1183) and ``fused_ineligible_reason`` (:1356).
 The arguments the port's scan never reads are gone: monotone
-constraints, path smoothing and int8sr are refused by the config, so
-``constr``, ``depth``, ``pout``, ``cscale`` / ``sscale``, ``quant_key``
-and ``meta_override`` do not exist here.  ``packed`` (4-bit packed bins,
-``bin_layout=packed4``) is kept: the kernels' packed legs decode the
-nibble at the load and plan from the real feature count, so a packed
-round is the u8 round bit for bit.  The
+constraints and path smoothing are refused by the config, so ``constr``,
+``depth``, ``pout`` and ``meta_override`` do not exist here.  ``packed``
+(4-bit packed bins, ``bin_layout=packed4``) is kept: the kernels' packed
+legs decode the nibble at the load and plan from the real feature count,
+so a packed round is the u8 round bit for bit.  So are the int8sr
+rounds' ``quant_key`` / ``scale`` (``hist_dtype_deep=int8sr``): a
+quantized round histograms the stochastically rounded rows
+(ops/quantize.py) as exact integers and folds the dequantization into
+the subtraction (``apply_scale``, the slots' scales) or, pool-free, into
+the scan after its integer cumulative sum (``child_scale``); the loop
+draws a quantized round's uniforms in its kernel from the same stream
+(``quant_buckets``).  The
 JAX package's (1, T) row tiles are 1-D (T,) rows, and its per-child
 ``vmap`` is the leading batch axis C, as in ops/split.py.  There is no
 counterpart of ``backend_lowers_fused``: the kernel builds and launches,
@@ -116,14 +122,16 @@ def decision_bins(binned, lids, feats, leafs, num_leaves, packed=False):
 
 
 def child_scan_residue(hc, mask_c, csum_c, *, meta_blk: FeatureMeta,
-                       params: SplitParams, num_bins, fblk):
+                       params: SplitParams, num_bins, fblk, hist_scale=None):
     """The children's split scan -> their (C, fblk, RES_COLS) residue: the
     staged scan's own stages (``scan_left_sums`` ->
     ``scan_direction_gains`` -> ``scan_pick_feature``) on ``hc`` (C, fblk,
     B, 3), so the fused and the staged paths compute the same values.
     Columns: the feature's best gain, the gain at its pick, the pick
-    ``direction * B + threshold`` and the left sums there."""
-    left2 = scan_left_sums(hc, meta_blk)
+    ``direction * B + threshold`` and the left sums there.
+    ``hist_scale`` (C, 3): ``hc`` holds integer sums, dequantized after
+    the cumulative sum (JAX ``child_scale``)."""
+    left2 = scan_left_sums(hc, meta_blk, hist_scale)
     gains, shift = scan_direction_gains(left2, csum_c, meta_blk, mask_c,
                                         params)
     fbest, sel = scan_pick_feature(gains, shift, meta_blk)
@@ -137,10 +145,13 @@ def child_scan_residue(hc, mask_c, csum_c, *, meta_blk: FeatureMeta,
                       sel.to(torch.float32)[..., None], lsel], dim=2)
 
 
-def subtract_children(hsm, parent, sml):
+def subtract_children(hsm, parent, sml, slot_scale=None):
     """(2S, F, B, 3) child stack of a subtraction round: ``hsm`` the
     smaller children in slot order, the larger sibling its parent minus
-    the smaller — the op order of ``subtract_child_hists``."""
+    the smaller — the op order of ``subtract_child_hists``, the
+    dequantization (``slot_scale`` (S, 3), a quantized round's) first."""
+    if slot_scale is not None:
+        hsm = hsm * slot_scale[:, None, None, :]
     smL = (sml != 0)[:, None, None, None]
     h_left = torch.where(smL, hsm, parent - hsm)
     h_right = parent - h_left
@@ -217,9 +228,9 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
                      precision, deep_precision, packed=False):
     """Build the grower-facing ``fused_round_fn`` (JAX :669).
 
-    ``fused_round(binned, g3, S, *, deep, mask, csums, sml, parent, route)
-    -> (packed (2S, PACK_COLS), hsmall (S, F, B, 3) or None, new_leaf
-    (N,))``.
+    ``fused_round(binned, g3, S, *, deep, quant_key, zq, scale, mask,
+    csums, sml, parent, route) -> (packed (2S, PACK_COLS), hsmall (S, F,
+    B, 3) or None, new_leaf (N,))``.
 
     * ``route`` (dict ``leaf_id (N,) / feats / thrs / dls / leafs / nls
       (S,) / num_leaves``) is the round's partition: the round evaluates
@@ -232,16 +243,29 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       mode (S smaller-child slots, and ``hsmall`` out); without it the
       round is pool-free (2S slots, ``hsmall`` None).
     * ``deep`` — a sustained-bucket round: it sums at ``deep_precision``.
+    * ``quant_key`` (the round key, two uint32 words) — an int8sr bucket:
+      the tree's prequantized rows ``zq`` (``quantize.prequantize_rows``,
+      made once a tree) are rounded under the key (``sr_quantize``, the
+      quantize kernel on the card), the round sums them as integers
+      (K2's ``int8sr`` leg) and ``hsmall`` is the raw integer histogram.
+    * ``scale`` (nslots, 3) — the grow has quantized buckets: the round's
+      dequantization scales (ones when it did not quantize), applied in
+      the subtraction, or pool-free in the scan (the JAX ``scaled``
+      rounds; JAX returns them, here the grower makes them once a tree).
     * ``packed`` — ``binned`` (and the valid sets) hold 4-bit packed
       bytes: the round and the valid router run their packed legs.
     """
-    from . import fused_cuda
+    from . import fused_cuda, quantize
 
     fmeta = fused_cuda.feature_table(meta)
 
-    def fused_round(binned, g3, S, *, deep=False, mask, csums, sml=None,
-                    parent=None, route):
+    def fused_round(binned, g3, S, *, deep=False, quant_key=None, zq=None,
+                    scale=None, mask, csums, sml=None, parent=None, route):
         nslots = S if parent is not None else 2 * S
+        if quant_key is not None:
+            g3u, prec = quantize.sr_quantize(zq, quant_key), "int8sr"
+        else:
+            g3u, prec = g3, deep_precision if deep else precision
         route_in = dict(
             oleaf=route["leaf_id"],
             feats=route["feats"].to(torch.int32).contiguous(),
@@ -250,10 +274,10 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
                                   route["nls"], meta, sml=sml),
             num_leaves=route["num_leaves"])
         residue, hsmall, new_leaf, _ = fused_cuda.fused_round(
-            binned, g3, nslots=nslots, num_bins=num_bins,
-            precision=deep_precision if deep else precision, meta=meta,
-            params=params, mask=mask, csums=csums, sml=sml, parent=parent,
-            route=route_in, fmeta=fmeta, packed=packed)
+            binned, g3u, nslots=nslots, num_bins=num_bins, precision=prec,
+            meta=meta, params=params, mask=mask, csums=csums, sml=sml,
+            parent=parent, route=route_in, fmeta=fmeta, packed=packed,
+            scale=scale)
         shift = gain_shift(csums, params)
         return _pick_pack(residue, shift, csums, meta, num_bins), hsmall, \
             new_leaf
@@ -268,8 +292,8 @@ _LOOP_MAX_ROUNDS = 64
 
 
 def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
-                   precision, deep_precision, use_mc=False, packed=False,
-                   limits=None):
+                   precision, deep_precision, quant_buckets=(), use_mc=False,
+                   packed=False, limits=None):
     """Eligibility and size of the persistent wave loop (JAX :804), decided
     from shapes and knobs: the JAX dict's keys (``eligible``, ``rounds``,
     ``reason``, ``ladder`` and the byte counts) and the card's limits.
@@ -277,8 +301,13 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
     Kept from the JAX planner, with its reasons word for word: ``rounds <=
     1`` is the single round, ``rounds`` is capped at ``_LOOP_MAX_ROUNDS``,
     monotone constraints keep the single round, and a reachable deep
-    bucket (K >= 32, a multi-bucket ladder) needs ``deep_precision ==
-    precision``: one precision, one kernel instance, for the whole launch.
+    bucket (K >= 32, a multi-bucket ladder, no quantized bucket) needs
+    ``deep_precision == precision``: one precision, one kernel instance,
+    for the whole launch.  The JAX gate that int8sr rounds need
+    ``hist_dtype=f32`` is a fact of its f32 MXU accumulate: the card's
+    kernel runs a quantized bucket's rounds on its int32 leg beside the
+    launch's precision (``quant_buckets``), its shared memory sized for
+    the larger of the two legs.
 
     Replaced: the JAX lane, row-tile and VMEM gates are facts of Pallas on
     a TPU.  The card's own stand in their place when ``limits``
@@ -297,16 +326,21 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
 
     R = int(min(rounds, _LOOP_MAX_ROUNDS))
     B, C = num_bins, 2 * K
+    quant_buckets = tuple(int(S) for S in quant_buckets)
     state_bytes = L * 12 * 4 + 2 * N * 4 + (L * F * B * 3 * 4 if use_sub
                                             else 0)
     partial_bytes = 4 * partial_floats(N, F, B, precision, slot_buckets,
-                                       use_sub)
+                                       use_sub, quant_buckets)
     list_bytes = 4 * sum(list_scratch_sizes(
-        N, *list_sizes(N, F, B, precision, slot_buckets, use_sub)))
-    scratch_bytes = (N * 4 + list_bytes + partial_bytes
+        N, *list_sizes(N, F, B, precision, slot_buckets, use_sub,
+                       quant_buckets)))
+    # the prequantized rows and a quantized round's rows
+    quant_bytes = 2 * N * 12 if quant_buckets else 0
+    scratch_bytes = (N * 4 + list_bytes + partial_bytes + quant_bytes
                      + C * F * RES_COLS * 4 + R * C * PACK_COLS * 4)
     plan = dict(eligible=False, rounds=1, reason="",
                 ladder=tuple(int(s) for s in slot_buckets),
+                quant_ladder=quant_buckets,
                 state_bytes=int(state_bytes),
                 partial_bytes=int(partial_bytes),
                 total_bytes=int(state_bytes + scratch_bytes),
@@ -322,7 +356,8 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
         plan["reason"] = ("monotone constraints propagate per-round "
                           "bounds outside the kernel")
         return plan
-    if K >= 32 and len(slot_buckets) > 1 and deep_precision != precision:
+    if (not quant_buckets and K >= 32 and len(slot_buckets) > 1
+            and deep_precision != precision):
         plan["reason"] = ("deep-precision drop would change the "
                           "accumulate dtype mid-loop")
         return plan
@@ -353,9 +388,11 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
                          packed=False):
     """Build the grower-facing persistent wave loop (JAX :1183).
 
-    ``fused_loop(binned, g3, leaf_id, ft12, num_leaves, *, K,
-    slot_buckets, max_depth, base_mask, pool=None) -> (packed (R, 2K,
-    PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``: R
+    ``fused_loop(binned, g3, leaf_id, ft12, num_leaves, key=None, *, K,
+    slot_buckets, quant_buckets=(), quant=None, max_depth, base_mask,
+    pool=None) ->
+    (packed (R, 2K, PACK_COLS), new_leaf (N,), pool or None, n_split (R,)
+    i32)``: R
     rounds in one launch (K6 on the card, ``ops/loop_cuda.py``), R =
     ``rounds`` capped at ``_LOOP_MAX_ROUNDS``.  ``ft12`` (L, 12) f32 is
     the frontier (the split store's columns gain .. depth); ``pool``
@@ -363,10 +400,15 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     split counts are all the grower's replay needs; the JAX package has no
     ``n_split`` output (its replay is traced), here it is the one host
     read of a segment.  The loop runs at ``precision``: the planner
-    refuses a reachable deep bucket at another precision.
+    refuses a reachable deep bucket at another precision.  The rounds of
+    the ``quant_buckets`` (int8sr) run quantized under ``fold_in(key,
+    8_000_011 + num_leaves)``, ``key`` the tree's, drawn in the kernel
+    from ``quant`` = ``quantize.prequantize_rows(g3)``, made once a
+    tree.
 
     ``fused_loop.rounds`` is R; ``fused_loop.plan(N=, F=, K=, L=,
-    use_sub=, slot_buckets=, device=)`` is ``plan_wave_loop`` with the
+    use_sub=, slot_buckets=, device=, quant_buckets=())`` is
+    ``plan_wave_loop`` with the
     knobs bound here and, on a CUDA device, the card's limits.  ``rounds
     == 1`` is never built: the trainer runs the single round.  ``packed``:
     ``binned`` holds 4-bit packed bytes, and K6 runs its packed leg."""
@@ -375,25 +417,29 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     fmeta = fused_cuda.feature_table(meta)
     R = int(min(rounds, _LOOP_MAX_ROUNDS))
 
-    def fused_loop(binned, g3, leaf_id, ft12, num_leaves, *, K,
-                   slot_buckets, max_depth, base_mask, pool=None):
+    def fused_loop(binned, g3, leaf_id, ft12, num_leaves, key=None, *, K,
+                   slot_buckets, quant_buckets=(), quant=None, max_depth,
+                   base_mask, pool=None):
         return loop_cuda.fused_wave_loop(
             binned, g3, leaf_id, ft12.contiguous(), num_leaves, rounds=R,
             K=K, slot_buckets=tuple(slot_buckets), max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
-            meta=meta, params=params, pool=pool, fmeta=fmeta, packed=packed)
+            meta=meta, params=params, pool=pool, fmeta=fmeta, packed=packed,
+            key=key, quant_buckets=tuple(quant_buckets), quant=quant)
 
-    def plan(*, N, F, K, L, use_sub, slot_buckets, device):
+    def plan(*, N, F, K, L, use_sub, slot_buckets, device,
+             quant_buckets=()):
         limits = None
         if torch.device(device).type == "cuda":
             limits = loop_cuda.limits(
                 device, precision=precision, sub=use_sub, num_bins=num_bins,
                 N=N, F=F, L=L, K=K, slot_buckets=tuple(slot_buckets),
-                packed=packed)
+                packed=packed, quant_buckets=tuple(quant_buckets))
         return plan_wave_loop(rounds=rounds, N=N, F=F, num_bins=num_bins,
                               K=K, L=L, use_sub=use_sub,
                               slot_buckets=slot_buckets, precision=precision,
-                              deep_precision=deep_precision, packed=packed,
+                              deep_precision=deep_precision,
+                              quant_buckets=quant_buckets, packed=packed,
                               limits=limits)
 
     fused_loop.rounds = R

@@ -27,9 +27,16 @@ every feature fits 16 bins on the kernel's method, so at ``max_bin <=
 15`` on the card) train through the kernels' packed legs on every grower;
 ``build_trainer(packed=True)`` hands them the real feature count.
 
+``hist_dtype_deep=int8sr`` (JAX :440-480, :1408) quantizes the wave
+grower's sustained and 16-slot ramp buckets (``hist_wave_quant``, the
+fused round's and the loop's ``quant_key`` / ``quant_buckets``); the
+other rounds, and the sequential and level-wise growers, train at
+``hist_dtype`` (int8sr sets the deep precision to it), and ``gpu_use_dp``
+turns the mode off with the JAX package's warning.
+
 What the JAX package routes elsewhere raises here, naming its ROADMAP
-item: the int8 / int8sr precisions; ``hist_method=fused`` on the
-sequential or level-wise grower raises with the JAX reason.  The loop's
+item: the plain int8 precision; ``hist_method=fused`` on the sequential
+or level-wise grower raises with the JAX reason.  The loop's
 other JAX fallbacks (interaction constraints, ``feature_fraction_bynode``,
 monotone constraints) are refused before, by ``config.unported_reason``.
 """
@@ -40,13 +47,13 @@ from typing import Callable
 
 import torch
 
-from ..config import INT8, Config, not_ported
+from ..config import INT8_PLAIN, Config, not_ported
 from ..models import grower_wave
 from ..models.grower import make_leafwise_grower, make_levelwise_grower
 from ..models.grower_wave import (auto_wave_size, make_wave_grower,
-                                  slot_buckets_for)
+                                  quant_buckets_for, slot_buckets_for)
 from ..ops.histogram import (default_hist_method, hist_frontier,
-                             hist_one_leaf, hist_wave)
+                             hist_one_leaf, hist_wave, hist_wave_quant)
 from ..ops.split import FeatureMeta, SplitParams
 from ..ops.wave_fused import (fused_ineligible_reason, make_fused_round,
                               make_fused_wave_loop)
@@ -118,16 +125,22 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     bins = dict(packed=packed, num_features=F)
     precision = config.hist_dtype
     if precision not in ("f32", "bf16", "bf16x2"):
-        raise not_ported(f"hist_dtype={precision}", INT8)
+        raise not_ported(f"hist_dtype={precision}", INT8_PLAIN)
     deep_precision = resolve_deep_dtype(config.hist_dtype_deep, precision,
                                         torch.device(device).type)
-    if deep_precision == "int8sr" and config.gpu_use_dp:
+    # int8sr: the quantized buckets run hist_wave_quant; every other
+    # round, and the other growers, keep full precision (JAX :455-463)
+    use_int8sr = deep_precision == "int8sr"
+    if use_int8sr and config.gpu_use_dp:
         log_warning("hist_dtype_deep=int8sr conflicts with gpu_use_dp "
                     "(double-precision histograms requested); int8sr "
                     "disabled, deep rounds run f32")
+        use_int8sr = False
         deep_precision = "f32"
-    if deep_precision in ("int8", "int8sr"):
-        raise not_ported(f"hist_dtype_deep={deep_precision}", INT8)
+    elif use_int8sr:
+        deep_precision = precision
+    if deep_precision == "int8":
+        raise not_ported(f"hist_dtype_deep={deep_precision}", INT8_PLAIN)
 
     levelwise = config.tree_growth == "levelwise"
     wave_size = config.leafwise_wave_size
@@ -145,6 +158,10 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
         return hist_wave(binned, g3, label, nslots, num_bins, method=method,
                          precision=deep_precision if deep else precision,
                          **bins)
+
+    def local_wave_quant(binned, zq, label, nslots, key):
+        return hist_wave_quant(binned, zq, label, nslots, num_bins, key,
+                               method=method, **bins)
 
     # ---- hist_method=fused: the routed fused round (K2, K3) -------------
     fused_fn = fused_loop = None
@@ -169,11 +186,14 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                 rounds=config.wave_loop_rounds, packed=packed)
             L = config.num_leaves
             K = max(1, min(wave_size, max(L - 1, 1)))
+            ladder = slot_buckets_for(K, num_data)
             plan = fused_loop.plan(
                 N=num_data, F=F, K=K, L=L,
                 use_sub=(L * F * num_bins * 3 * 4
                          <= grower_wave._SUB_STATE_CAP_BYTES),
-                slot_buckets=slot_buckets_for(K, num_data), device=device)
+                slot_buckets=ladder, device=device,
+                quant_buckets=(quant_buckets_for(ladder, K) if use_int8sr
+                               else ()))
             if not plan["eligible"]:
                 raise NotImplementedError(
                     f"wave_loop_rounds={config.wave_loop_rounds}: "
@@ -201,5 +221,8 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
             **common)
     return make_wave_grower(wave_size=wave_size, hist_wave_fn=local_wave,
                             fused_round_fn=fused_fn,
-                            fused_loop_fn=fused_loop, packed=packed, **common)
+                            fused_loop_fn=fused_loop,
+                            hist_wave_quant_fn=(local_wave_quant if use_int8sr
+                                                else None),
+                            packed=packed, **common)
 

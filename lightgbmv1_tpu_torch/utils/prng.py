@@ -1,0 +1,76 @@
+"""The JAX package's threefry rounding stream, reproduced bit for bit.
+
+The JAX package keys its stochastic rounding (ops/quantize.py) with
+``jax.random``: ``PRNGKey(seed)``, ``fold_in`` and ``uniform`` over the
+default threefry2x32 generator, with ``jax_threefry_partitionable`` on
+(the default since JAX 0.5).  This module is that stream without JAX:
+
+* a key is two uint32 words ``(k0, k1)``; ``prng_key(s)`` is ``(0, s &
+  0xffffffff)``: the JAX package runs with 64-bit types off, so a seed
+  is taken as an int32 (its high word dropped, a negative seed in two's
+  complement) before threefry's seed split ``(s >> 32, s & 0xffffffff)``;
+* ``fold_in(key, d)`` is ``threefry2x32(key, (0, d))``: the data as a
+  uint32 seed ``(d >> 32, d & 0xffffffff)`` = ``(0, d)`` hashed under
+  the key;
+* ``uniform(key, n_rows)`` is the (n_rows, 2) float32 draw
+  ``jax.random.uniform(key, (n_rows, 2))``: element ``i = 2 row +
+  channel`` hashes the counter ``(i >> 32, i & 0xffffffff)``, XORs the
+  two output words, keeps the top 23 bits as a mantissa of [1, 2) and
+  subtracts 1.
+
+``threefry2x32`` is the 20-round Random123 function (rotations
+[13, 15, 26, 6] / [17, 29, 16, 24], key-schedule constant 0x1BD11BDA).
+It is written with ``+ & ^ | << >>`` only, so one body runs on Python
+ints (the keys) and on int64 tensors (the draw) of any device, every
+word held in [0, 2^32) by masking: the CPU and the card give the same
+bits.  The card's kernels carry the same function in CUDA C
+(``csrc/prng.cuh``).
+"""
+
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+_ROT = ((13, 15, 26, 6), (17, 29, 16, 24))
+_PARITY = 0x1BD11BDA
+
+
+def _rotl(x, r):
+    return ((x << r) | (x >> (32 - r))) & MASK32
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """threefry2x32 of the counter words ``(x0, x1)`` under the key
+    ``(k0, k1)``: uint32 values held in Python ints or int64 tensors."""
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _ROT[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def prng_key(seed: int) -> tuple:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off: ``(0, seed
+    mod 2^32)``."""
+    return (0, int(seed) & MASK32)
+
+
+def fold_in(key: tuple, data: int) -> tuple:
+    """``jax.random.fold_in(key, data)`` (``data`` as a uint32)."""
+    return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & MASK32)
+
+
+def uniform(key: tuple, n_rows: int, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n_rows, 2))``: (n_rows, 2) float32 in
+    [0, 1), element ``(row, c)`` from counter ``2 row + c``."""
+    i = torch.arange(2 * int(n_rows), dtype=torch.int64, device=device)
+    b0, b1 = threefry2x32(int(key[0]), int(key[1]), i >> 32, i & MASK32)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    one = bits.to(torch.int32).view(torch.float32)
+    return (one - 1.0).reshape(int(n_rows), 2)

@@ -178,8 +178,10 @@ def test_gpu_use_dp_keeps_byte_bins_and_f32_deep_rounds(capsys):
                        usable=torch.ones(2, dtype=torch.bool))
     build_trainer(sr, meta, SplitParams(), 64, CPU)
     assert "int8sr disabled, deep rounds run f32" in capsys.readouterr().err
-    assert "int8sr" in unported_reason(Config.from_dict(
-        {"objective": "binary", "hist_dtype_deep": "int8sr"}))
+    assert unported_reason(Config.from_dict(
+        {"objective": "binary", "hist_dtype_deep": "int8sr"})) is None
+    assert "plain int8 histograms" in unported_reason(Config.from_dict(
+        {"objective": "binary", "hist_dtype_deep": "int8"}))
 
 
 def test_gpu_use_dp_trains_the_f32_model():

@@ -539,13 +539,16 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
     for p in _build.CSRC.iterdir():
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
-    names = ("hist", "wave_fused", "wave_loop", "predict_walk")
+    names = ("hist", "wave_fused", "wave_loop", "predict_walk", "quantize")
     assert [p.name for p in _build.sources("wave_fused")] == [
         "wave_fused.cu", "wave_round.cuh", "hist_tile.cuh"]
     assert [p.name for p in _build.sources("wave_loop")] == [
-        "wave_loop.cu", "wave_round.cuh", "hist_tile.cuh"]
+        "wave_loop.cu", "prng.cuh", "wave_round.cuh", "hist_tile.cuh"]
+    assert [p.name for p in _build.sources("quantize")] == [
+        "quantize.cu", "prng.cuh"]
     for hdr, moved in (("hist_tile.cuh", {"hist", "wave_fused", "wave_loop"}),
-                       ("wave_round.cuh", {"wave_fused", "wave_loop"})):
+                       ("wave_round.cuh", {"wave_fused", "wave_loop"}),
+                       ("prng.cuh", {"quantize", "wave_loop"})):
         before = {n: _build.lib_path(n) for n in names}
         path = tmp_path / hdr
         path.write_bytes(path.read_bytes() + b"\n// edited\n")

@@ -398,9 +398,8 @@ _UNPORTED_CASES = [
     ({"feature_fraction_bynode": 0.5}, tconfig.SAMPLING),
     ({"extra_trees": True}, tconfig.SAMPLING),
     ({"early_stopping_round": 2}, tconfig.CALLBACKS),
-    ({"hist_dtype": "int8"}, tconfig.INT8),
-    ({"hist_dtype_deep": "int8sr"}, tconfig.INT8),
-    ({"hist_dtype_deep": "int8"}, tconfig.INT8),
+    ({"hist_dtype": "int8"}, tconfig.INT8_PLAIN),
+    ({"hist_dtype_deep": "int8"}, tconfig.INT8_PLAIN),
     ({"hist_method": "fused", "wave_loop_rounds": 2,
       "feature_fraction_bynode": 0.5}, tconfig.SAMPLING),
     ({"hist_method": "onehot"}, tconfig.HIST_METHODS),

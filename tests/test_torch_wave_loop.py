@@ -13,7 +13,10 @@ Tolerances:
 * routing (new leaf ids) and the split counts are integer: exact;
 * the picks (feature, threshold bin, default direction): identical (a
   tie band absorbs f32 summation order);
-* gains within ``4e-6 (|gain| + |shift|) + 1e-6``, child sums within
+* gains within ``4e-6 (GL^2 / (HL + l2) + GR^2 / (HR + l2) + |shift|)
+  + 1e-6`` from the JAX row's left and right sums (the terms whose f32
+  rounding a gain carries: it is two leaf gains minus the shift, and may
+  cancel to far less than them), child sums within
   ``4e-6`` of the absolute mass of the child's rows plus 1e-6, the pool
   within ``4e-6`` of the absolute mass of its leaf's rows at the
   segment's start plus 1e-6 (both packages round each row the same way
@@ -42,7 +45,7 @@ import lightgbmv1_tpu_torch as lt
 from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.models import grower_wave as tgw
 from lightgbmv1_tpu_torch.models.convert import tree_arrays_from_numpy
-from lightgbmv1_tpu_torch.ops import fused_cuda, loop_cuda
+from lightgbmv1_tpu_torch.ops import fused_cuda, loop_cuda, quantize
 from lightgbmv1_tpu_torch.ops import split as tsplit
 from lightgbmv1_tpu_torch.ops import wave_fused as twf
 from lightgbmv1_tpu_torch.parallel import trainer as ttrainer
@@ -211,14 +214,20 @@ _CASES = {
                                "f32"),
     "F5-B16-K4-R4-exhausted": (5, 16, 700, 4, 9, 4, True, (4,), -1, 4,
                                "bf16x2"),
+    # a gain that cancels: 1.39e-4 from the JAX loop, within its terms'
+    # bound, past one scaled by the gain itself
+    "F6-B16-K8-R4-pool-free-bf16x2": (6, 16, 1024, 8, 32, 5, False, (4, 8),
+                                      -1, 4, "bf16x2"),
 }
 
 
 def _check_against_jax(s, R, prec, min_rounds=2):
     """The port's loop against the JAX loop on segment ``s``: leaf ids
     and picks exact, split counts exact (replayed from the packed rows),
-    gains within the tie band's 4e-6 and sums and the pool within 4e-6 of
-    their rows' absolute sums.  Returns the live rounds."""
+    gains within 4e-6 of the terms that cancel in them (the two leaf gains
+    of the JAX row's left and right sums, and the shift) and sums and the
+    pool within 4e-6 of their rows' absolute sums.  Returns the live
+    rounds."""
     packed, new_leaf, pool, n_split = (
         x if x is None else x.numpy() for x in _port_loop(s, R, prec))
     jpacked, jleaf, jpool = _jax_loop(s, R, prec)
@@ -237,7 +246,11 @@ def _check_against_jax(s, R, prec, min_rounds=2):
         np.testing.assert_array_equal(np.isfinite(p[:, 0]), fin)
         shift = np.asarray(jax.vmap(lambda c: jsplit.gain_shift(
             c, 0.0, params))(jnp.asarray(q[:, 4:7] + q[:, 7:10])))
-        tol_g = 4e-6 * (np.abs(q[:, 0]) + np.abs(shift)) + 1e-6
+        lgain, rgain = (np.asarray(jax.vmap(lambda c: jsplit.leaf_gain(
+            c[0], c[1], params))(jnp.asarray(q[:, cols])))
+            for cols in (slice(4, 7), slice(7, 10)))
+        tol_g = 4e-6 * (np.abs(lgain) + np.abs(rgain) + np.abs(shift)) \
+            + 1e-6
         assert (np.abs(p[fin, 0] - q[fin, 0]) <= tol_g[fin]).all()
         tol_s = 4e-6 * np.concatenate([absum] * 2, 1) + 1e-6
         assert (np.abs(p[:, 4:] - q[:, 4:]) <= tol_s)[fin].all()
@@ -289,11 +302,14 @@ def test_sparse_loop_matches_jax(sub, rows):
 # ---------------------------------------------------------------------------
 
 
-def _single_rounds(s, R, precision):
+def _single_rounds(s, R, precision, key=None, quant_buckets=()):
     """R calls of the port's grower-facing single round
     (``make_fused_round``) with the frontier kept in numpy between them:
     top-k by sort, the live count, the bucket, the slots, then the commit
-    of the children's rows and pool."""
+    of the children's rows and pool.  A round of a bucket in
+    ``quant_buckets`` is quantized under its round key from the tree key
+    ``key``, and every round carries its scales (the tree's, or ones), as
+    the grower runs them."""
     t = torch.from_numpy
     meta, params = s["tmeta"], tsplit.SplitParams(**PARAMS)
     fn = twf.make_fused_round(meta=meta, params=params, num_bins=s["B"],
@@ -302,6 +318,9 @@ def _single_rounds(s, R, precision):
     leaf = t(s["lids"])
     pool = t(s["pool"].copy()) if s["sub"] else None
     packed = torch.zeros((R, 2 * K, twf.PACK_COLS))
+    zq = scale3 = None
+    if quant_buckets:
+        zq, scale3 = quantize.prequantize_rows(t(s["g3"]))
     for r in range(R):
         order = np.lexsort((np.arange(L), -ft[:, 0]))[:K]
         n = int(np.sum((ft[order, 0] > 0) & (np.arange(K) < L - nl)))
@@ -323,8 +342,15 @@ def _single_rounds(s, R, precision):
                      dls=slot(rows[:, 3] != 0, False),
                      leafs=slot(leafs.astype(np.int64), L),
                      nls=slot(nls.astype(np.int64), 0), num_leaves=L)
+        quant = S in quant_buckets
+        sc = None
+        if quant_buckets:
+            sc = (scale3 if quant else torch.ones(3)).expand(
+                S if s["sub"] else 2 * S, 3).contiguous()
         pk, hsm, leaf = fn(
             t(s["binned"]), t(s["g3"]), S,
+            quant_key=tgw.round_key(key, nl) if quant else None, zq=zq,
+            scale=sc,
             mask=slot(np.ones((2 * n, F), bool), False, 2 * S),
             csums=slot(csums, np.float32(1.0), 2 * S),
             sml=slot(sml, False) if s["sub"] else None,
@@ -340,7 +366,8 @@ def _single_rounds(s, R, precision):
         ft[cleafs, 11] = depth
         if s["sub"]:
             pool[t(cleafs)] = twf.subtract_children(
-                hsm[:n], pool[t(leafs)], t(sml))
+                hsm[:n], pool[t(leafs)], t(sml),
+                None if sc is None else sc[:n])
         nl += n
     return packed, leaf, pool
 
