@@ -105,10 +105,12 @@ Phases (any failure exits non-zero with no ``ok`` line):
               ``train`` at the headline configuration with
               ``hist_method=fused`` for ``--iters`` iterations with the
               valid set.  K2 launched once a non-root round (its launches
-              by bucket add up), K3 once a round, K1 once a tree, no plain
-              version called; s/iter, M row-trees/s, AUC > 0.90 and within
-              2e-3 of phase 10's, the model text's sha256 and length; the
-              saved model served through K4.  Then the same training
+              by bucket add up), K3 once a round, K1 and the split-scan
+              kernel once a tree, no plain version called; s/iter, M
+              row-trees/s, AUC > 0.90 and within 2e-3 of phase 10's, the
+              model text's sha256 and length, which must be phase 10's
+              (the staged scan is the split-scan kernel, K2's scan stage:
+              one model text); the saved model served through K4.  Then the same training
               again, untimed, counting each K2 launch's live rows (label
               below nslots; its model text must be the timed run's),
               printed per bucket as the mean live share and its
@@ -247,12 +249,9 @@ Phases (any failure exits non-zero with no ``ok`` line):
               each; K2 at nslots 16, 63 likewise; K6 with the quantized
               ladder and no quantize launch), no plain version; the
               looped model text its single round's (the fused one) byte
-              for byte, a second staged training the same; AUC > 0.90;
-              each model served through K4.  Whether the staged text
-              equals the fused one is printed, not gated: on the card it
-              does not (ROADMAP queue 3: the staged scan's torch.cumsum
-              sums f32 in the card's order, K2 in double rounded each
-              prefix; the bf16x2 headline texts differ the same way).  Then each int8sr leg
+              for byte, the staged text the fused one, a second staged
+              training the same; AUC > 0.90; each model served through
+              K4.  Then each int8sr leg
               timed on the path's last inputs beside its bf16x2 / bf16
               leg, its plain version and (K1) one index_add_ of the
               integer rows, and the quantize kernel beside its plain
@@ -264,10 +263,57 @@ Phases (any failure exits non-zero with no ``ok`` line):
               in waves of 32) with hist_dtype_deep=int8sr, each run
               through its int8sr legs: every split identical, leaves
               within 2e-3 of max(1, |leaf|).
+31. scan    — the split-scan kernel (``ops/scan_cuda.split_scan``,
+              ``csrc/split_scan.cu``: K2's scan stage, ``scan_child``, on
+              staged histograms) bit for bit the plain scan run on the
+              CPU on the same inputs: on a real round of a monotone
+              training (its bounds bind), then at C in {1, 2, 8, 32, 126},
+              B in {16, 64, 256}, F = 28 and 27, NaN- and zero-missing
+              features, with no option, each option alone (monotone
+              bounds — the real round's —, monotone_penalty=1.0 at depths
+              1-8, contri, path_smooth=1.0, max_delta_step=0.7) and all
+              of them, and with int8sr scales.  K2's constrained legs at
+              S = 4 / 16 / 63 (subtraction; S = 63 pool-free and each
+              option alone) and phase 14's sparse-live rounds: leaf ids,
+              labels and K3 exact, hsmall K1's, the residue bit for bit
+              the CPU plain scan of the children with the same legs.  K6
+              with contri / smooth / max output on a segment of a
+              headline tree grown with them (R = 4, subtraction and
+              pool-free) and a sparse-live segment: bit for bit R K2
+              rounds, each round's residue and pick the CPU plain scan's.
+              Then the split-scan kernel timed on phase 10's last inputs
+              at C = 8 / 32 / 126 beside its plain version and its bound
+              by bytes, with its launches a tree on phases 10, 15, 20 and
+              22-25.
+32. constrained training — the slice's main path, launch counts reset
+              around each training: the headline configuration with
+              monotone_constraints = [1, -1, 0, 0, 1] + [0] * 23 (the
+              generator's logit rises in X0 and X4, falls in X1) in
+              ``basic`` and in ``intermediate`` mode, staged and fused,
+              and with feature_contri (0.5 on features 5-27),
+              path_smooth=1.0 and max_delta_step=0.7 staged, fused and
+              looped (wave_loop_rounds=4), --iters iterations each: each
+              set's model texts one, byte for byte; the split scan at the
+              run's options and K2 / K6 at theirs launched, no plain
+              version; the monotone models' AUC above MONO_AUC_MIN and,
+              served through K4, monotone on grids of 64 points along X0,
+              X1 and X4 at 64 probe rows.  Then K2's and K6's
+              constrained legs timed on these runs' last inputs beside
+              the same launches unconstrained.
+33. constrained parity — phase 11's card-against-CPU check (65,536 rows,
+              f32, 5 iterations) with intermediate monotone constraints,
+              monotone_penalty=1.0, feature_contri, path_smooth=1.0 and
+              max_delta_step=0.7, the CPU training taking the card's
+              gradients and root sums (``CardRounding``: the two f32
+              roundings outside the kernels that differ by device, which
+              a monotone bound's strict compare turns into another
+              split): every split identical, leaves within 2e-3 of
+              max(1, |leaf|).
               Then the ``kernels`` line (K1, K2, K3, K6, the quantize
-              kernel, K4, K5) is printed; K1's row carries phases 22-25's
-              K1 shapes too (``paths``), K1, K2, K3 and K6 a ``packed``
-              record and K1, K2 and K6 an ``int8sr`` one.
+              kernel, the split-scan kernel, K4, K5) is printed; K1's row
+              carries phases 22-25's K1 shapes too (``paths``), K1, K2, K3
+              and K6 a ``packed`` record, K1, K2 and K6 an ``int8sr`` one
+              and K2 and K6 a ``constrained`` one.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -287,7 +333,7 @@ import time
 import numpy as np
 import torch
 
-from lightgbmv1_tpu_torch import Booster, Dataset, train
+from lightgbmv1_tpu_torch import Booster, Dataset, objectives, train
 from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
                                              MISSING_ZERO)
@@ -300,12 +346,15 @@ from lightgbmv1_tpu_torch.ops import fused_cuda as fc
 from lightgbmv1_tpu_torch.ops import loop_cuda as lc
 from lightgbmv1_tpu_torch.ops import predict_cuda as pc
 from lightgbmv1_tpu_torch.ops import quantize as qz
+from lightgbmv1_tpu_torch.ops import scan_cuda as sc
 from lightgbmv1_tpu_torch.ops import wave_fused as wf
-from lightgbmv1_tpu_torch.ops.split import (TIE_RTOL, SplitParams,
+from lightgbmv1_tpu_torch.ops.split import (NO_CONSTRAINT, TIE_RTOL,
+                                            FeatureMeta, SplitParams,
                                             child_leaf_output, gain_shift,
                                             go_left_rule, make_feature_meta,
-                                            scan_direction_gains,
-                                            scan_left_sums)
+                                            pick_pack, scan_direction_gains,
+                                            scan_inputs, scan_left_sums,
+                                            scan_residue)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
 from lightgbmv1_tpu_torch.serve import ServeConfig, Server
 from lightgbmv1_tpu_torch.utils import prng
@@ -329,7 +378,13 @@ FUSED_PARAMS = dict(TRAIN_PARAMS, hist_method="fused")
 VALID_ROWS = 131072
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
+    """Print a line; a phase's heading also gets the run's seconds so far."""
+    if msg.startswith("== phase"):
+        msg += f" [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
 
 
@@ -1046,15 +1101,15 @@ def phase_train(ds, dv, Xv, iters, dev):
     """The training main path (counts reset before, read after), then the
     saved model served through K4.  Returns its numbers and the K1 call
     record."""
-    hc.reset_launch_counts()
-    pc.reset_launch_counts()
+    reset_counts()
     ev = {}
-    with HistRecorder() as rec:
+    with HistRecorder() as rec, ScanRecorder() as srec:
         t0 = time.perf_counter()
         booster = train(TRAIN_PARAMS, ds, iters, valid_sets=[dv],
                         evals_result=ev, **_on(dev))
         _sync(dev)
         secs = time.perf_counter() - t0
+    rec.scan_last = srec.last           # phase 31 times the split scan here
     launches = hc.launch_counts["hist_leaves"]
     buckets = {f"{L}:{prec}": v for (L, prec), v
                in sorted(hc.bucket_launch_counts.items())}
@@ -1084,6 +1139,9 @@ def phase_train(ds, dv, Xv, iters, dev):
         f"{out['valid_logloss']:.5f}")
     check(trees == iters, f"{trees} trees for {iters} iterations")
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
+    out["split_scan"] = scan_launches(trees)
+    log(f"  split-scan launches: {out['split_scan']['launches']} "
+        f"({out['split_scan']['per_tree']:.2f} a tree)")
     out.update(text_hash(booster.model_to_string(), "staged"))
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "trained_model.txt")
@@ -1168,24 +1226,31 @@ def split_parity(X, y, runs, iters=5, group=None, leaf_tol=None,
                                       iters, device=d))
     finally:
         grower_wave._BUCKET_MIN_N = saved
+    return compare_splits("parity", *boosters, tuple(runs), leaf_tol)
+
+
+def compare_splits(tag, a, b, names, leaf_tol=None) -> dict:
+    """Two boosters' trees split identically at every node; with
+    ``leaf_tol`` every leaf value within ``leaf_tol`` of max(1, |leaf|)
+    of the other's."""
     nodes, leaf_err, leaf_rel = 0, 0.0, 0.0
-    trees = list(zip(boosters[0]._all_trees(), boosters[1]._all_trees()))
+    trees = list(zip(a._all_trees(), b._all_trees()))
     for tg, tc in trees:
         n = tc.num_leaves - 1
-        check(tg.num_leaves == tc.num_leaves, "parity: leaf counts differ")
+        check(tg.num_leaves == tc.num_leaves, f"{tag}: leaf counts differ")
         check(np.array_equal(tg.split_feature, tc.split_feature)
               and np.array_equal(tg.threshold_bin, tc.threshold_bin),
-              "parity: split features / threshold bins differ")
+              f"{tag}: split features / threshold bins differ")
         nodes += n
         d = np.abs(tg.leaf_value - tc.leaf_value)
         leaf_err = max(leaf_err, float(d.max()))
         leaf_rel = max(leaf_rel, float((d / np.maximum(
             1.0, np.abs(tc.leaf_value))).max()))
-    log(f"  f32 trees, {' vs '.join(runs)}: {nodes} nodes of {len(trees)} "
+    log(f"  f32 trees, {' vs '.join(names)}: {nodes} nodes of {len(trees)} "
         f"trees identical (features, threshold bins); max leaf-value diff "
         f"{leaf_err:.3e} ({leaf_rel:.3e} of max(1, |leaf|))")
     if leaf_tol is not None:
-        check(leaf_rel <= leaf_tol, f"parity: leaf values {leaf_rel:.3e} "
+        check(leaf_rel <= leaf_tol, f"{tag}: leaf values {leaf_rel:.3e} "
               f"of max(1, |leaf|) apart, past {leaf_tol}")
     return {"nodes": nodes, "trees": len(trees), "max_leaf_diff": leaf_err,
             "max_leaf_diff_rel": leaf_rel}
@@ -1413,10 +1478,9 @@ def check_k2(tag, binned, g3, kw) -> dict:
     else:
         children = k1
     # the plain scan on the CPU, on the same histograms
-    res_cpu = wf.child_scan_residue(
-        children.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
-        meta_blk=type(meta)(*(x.cpu() for x in meta)), params=params,
-        num_bins=B, fblk=F).to(binned.device)
+    res_cpu = scan_residue(children.cpu(), kw["mask"].cpu(),
+                           kw["csums"].cpu(), meta=to_cpu(meta),
+                           params=params).to(binned.device)
     bitwise_cpu = bool(same_value(res, res_cpu).all())
     # the plain version on the card: picks outside ties, values in bound
     left2 = scan_left_sums(children, meta)
@@ -1448,8 +1512,8 @@ def check_k2(tag, binned, g3, kw) -> dict:
           f"{float(err_g.max()):.3e} past the bound the left sums' carries")
     # the cross-feature half on both residues
     shift_c = gain_shift(kw["csums"], params)
-    pk = wf._pick_pack(res, shift_c, kw["csums"], meta, B)
-    pp = wf._pick_pack(pres, shift_c, kw["csums"], meta, B)
+    pk = pick_pack(res, shift_c, kw["csums"], meta, B)
+    pp = pick_pack(pres, shift_c, kw["csums"], meta, B)
     fk, fp = pk[:, 1].long(), pp[:, 1].long()
     ci = torch.arange(C, device=binned.device)
     gb = fbest_p.max(dim=1).values
@@ -1599,7 +1663,7 @@ def live_rows_run(params, ds, iters, dev, text):
 
 
 def reset_counts() -> None:
-    for mod in (hc, fc, pc, lc, qz):
+    for mod in (hc, fc, pc, lc, qz, sc):
         mod.reset_launch_counts()
 
 
@@ -1634,6 +1698,9 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     check(k3 == k2, f"K3 launched {k3} times for {k2} rounds")
     check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
     check(not any(plain.values()), "a plain version ran on the fused path")
+    scan = scan_launches(trees)
+    check(scan["launches"] == trees, "the fused path's split scans: "
+          f"{scan['launches']} for {trees} root passes")
     text = booster.model_to_string()
     log("  K2's live rows on the fused path (label below nslots), from a "
         "second, untimed run of the same training:")
@@ -1655,7 +1722,11 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     check(auc > 0.90, f"valid AUC {auc} <= 0.90")
     check(abs(auc - staged["valid_auc"]) <= 2e-3,
           f"fused AUC {auc} is more than 2e-3 from the staged {staged}")
+    out["split_scan"] = scan
     out.update(text_hash(text, "fused"))
+    check(out["model_text_sha256"] == staged["model_text_sha256"],
+          "the fused model text differs from the staged one")
+    log("  fused model text == staged model text, byte for byte")
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "fused_model.txt")
     return out, rec
@@ -2079,6 +2150,9 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
     check(k3 == replayed, f"K3 launched {k3} times for {replayed} rounds")
     check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
     check(not any(plain.values()), "a plain version ran on the looped path")
+    scan = scan_launches(trees)
+    check(scan["launches"] == trees, "the looped path's split scans: "
+          f"{scan['launches']} for {trees} root passes")
     auc = ev["valid_0"]["auc"][-1]
     n = ds.num_data()
     ev1 = {}
@@ -2115,6 +2189,7 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
            "k6_launches_per_tree": k6 / trees, "k3_launches": k3,
            "k1_launches": k1, "replayed_rounds": replayed,
            "model_text_identical": True, "live_share": live,
+           "split_scan": scan,
            **text_hash(text, "looped")}
     log(f"  {iters} looped iterations of {n} rows in {secs:.2f} s: "
         f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
@@ -2357,8 +2432,7 @@ def phase_path(tag, params, ds, dv, Xv, iters, dev, metric):
     s/tree, M row-trees/s, K1 launches a tree, the last valid ``metric``
     and the model text's hash.  Returns its numbers, the K1 call record
     and the booster."""
-    hc.reset_launch_counts()
-    pc.reset_launch_counts()
+    reset_counts()
     ev = {}
     with HistRecorder() as rec:
         t0 = time.perf_counter()
@@ -2394,6 +2468,9 @@ def phase_path(tag, params, ds, dv, Xv, iters, dev, metric):
           f"a plain histogram ran on the {tag} path")
     check(trees == iters * booster.num_model_per_iteration(),
           f"{trees} trees for {iters} iterations")
+    out["split_scan"] = scan_launches(trees)
+    log(f"  split-scan launches: {out['split_scan']['launches']} "
+        f"({out['split_scan']['per_tree']:.2f} a tree)")
     out.update(text_hash(booster.model_to_string(), tag))
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               f"{tag}_model.txt")
@@ -2549,10 +2626,9 @@ def check_packed_k2(tag, u8, packed, g3, kw) -> dict:
               "row-order plain histogram of its label")
         h = wf.subtract_children(hsm, kw["parent"], kw["sml"])
     meta = kw["meta"]
-    res_cpu = wf.child_scan_residue(
-        h.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
-        meta_blk=type(meta)(*(x.cpu() for x in meta)), params=kw["params"],
-        num_bins=B, fblk=F).to(res.device)
+    res_cpu = scan_residue(h.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
+                           meta=to_cpu(meta),
+                           params=kw["params"]).to(res.device)
     check(bool(same_value(res, res_cpu).all()), f"K2 packed {tag}: the "
           "residue is not the CPU plain scan of the plain histograms")
     live = int((label < ns).sum())
@@ -2868,9 +2944,9 @@ def check_quantize(tag, g3, key) -> dict:
     """The quantize kernel against its plain version on the card and on
     the CPU, and the prequantized rows and scales of the card against the
     CPU's: bit for bit; the rows integers in [-127, 127]."""
-    zq, sc, got = quant_rows(g3, key)
+    zq, scales, got = quant_rows(g3, key)
     zq_c, sc_c = qz.prequantize_rows(g3.cpu())
-    check(same_bits(zq.cpu(), zq_c) and same_bits(sc.cpu(), sc_c),
+    check(same_bits(zq.cpu(), zq_c) and same_bits(scales.cpu(), sc_c),
           f"quantize {tag}: the prequantized rows or scales differ from "
           "the CPU's")
     again = qz.sr_quantize(zq, key)
@@ -2885,8 +2961,8 @@ def check_quantize(tag, g3, key) -> dict:
     check(bool((q == q.round()).all()) and float(q.abs().max()) <= 127,
           f"quantize {tag}: rows not integers in [-127, 127]")
     log(f"  quantize {tag}: {g3.shape[0]} rows bitwise the plain version on "
-        f"the card and the CPU, scales {sc.tolist()}")
-    return {"case": tag, "N": int(g3.shape[0]), "scales": sc.tolist(),
+        f"the card and the CPU, scales {scales.tolist()}")
+    return {"case": tag, "N": int(g3.shape[0]), "scales": scales.tolist(),
             "max_abs_err": 0.0}
 
 
@@ -2956,10 +3032,9 @@ def check_k2_int8sr(tag, binned, q3, kw) -> dict:
     else:
         children, hscale = k1, scale
     meta = kw["meta"]
-    res_cpu = wf.child_scan_residue(
+    res_cpu = scan_residue(
         children.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
-        meta_blk=type(meta)(*(x.cpu() for x in meta)), params=kw["params"],
-        num_bins=B, fblk=F,
+        meta=to_cpu(meta), params=kw["params"],
         hist_scale=None if hscale is None else hscale.cpu()).to(res.device)
     check(bool(same_value(res, res_cpu).all()), f"K2 int8sr {tag}: the "
           "residue is not the CPU plain scan of the plain dequantization")
@@ -3210,11 +3285,9 @@ def phase_int8sr_train(ds, dv, Xv, iters, dev):
     fused and looped, each with its launch counts reset around it; the
     int8sr legs only at the quantized buckets; the looped text its single
     round's (the fused one) byte for byte; a second staged training
-    hashes the same; AUC > 0.90; each model served through K4.  Whether
-    the staged text is the fused one is recorded, not gated: on the card
-    the staged scan's torch.cumsum sums f32 in another order than K2's
-    (ROADMAP queue 3); phase 30 gates their f32 splits.
-    Returns the numbers and each run's recorders."""
+    hashes the same; the staged text the fused one (the staged scan is
+    the split-scan kernel, K2's scan stage); AUC > 0.90; each model
+    served through K4.  Returns the numbers and each run's recorders."""
     out, recs, texts = {}, {}, {}
     for name, extra in INT8SR_RUNS:
         params = dict(INT8SR_PARAMS, **extra)
@@ -3242,12 +3315,11 @@ def phase_int8sr_train(ds, dv, Xv, iters, dev):
     again = train(INT8SR_PARAMS, ds, iters, **_on(dev)).model_to_string()
     check(again == texts["staged"], "int8sr: a second staged training "
           "writes another model text")
-    same = texts["staged"] == texts["fused"]
-    out["staged"]["staged_equals_fused"] = same
-    log("  int8sr: looped == its single round and a second staged training "
-        f"the same text, byte for byte; staged {'==' if same else '!='} "
-        "fused (not gated: the staged scan's torch.cumsum order, ROADMAP "
-        "queue 3)")
+    check(texts["staged"] == texts["fused"], "int8sr: the staged model text "
+          "differs from the fused one")
+    out["staged"]["staged_equals_fused"] = True
+    log("  int8sr: staged == fused == looped, and a second staged training "
+        "the same text, byte for byte")
     return out, recs
 
 
@@ -3396,6 +3468,656 @@ def phase_int8sr_timing(recs, trained) -> dict:
     return out, qrow
 
 
+# ---------------------------------------------------------------------------
+# the split-scan kernel and the constrained legs of K2 and K6 (phases 31-33)
+# ---------------------------------------------------------------------------
+
+SCAN_SRC = "lightgbmv1_tpu_torch/csrc/split_scan.cu"
+# phase 32's monotone directions: make_data's logit rises in X0 and X4 and
+# falls in X1 (bench.py:42-48)
+MONO = [1, -1, 0, 0, 1] + [0] * (F - 5)
+CONTRI = [1.0] * 5 + [0.5] * (F - 5)
+MONO_PARAMS = dict(TRAIN_PARAMS, monotone_constraints=MONO)
+# phase 32's AUC gate of the monotone models, under phase 10's 0.90: the
+# bounds cost the model accuracy by design.  mono_auc.py (this generator
+# and configuration, 262,144 rows, 50 iterations, on the CPU) reads the
+# JAX package at 0.8893 in basic mode and 0.8930 in intermediate mode,
+# 0.9077 unconstrained
+MONO_AUC_MIN = 0.88
+# the looped path needs one precision for the whole launch (phase 20's
+# knob), so the three paths of this set all run bf16x2 deep rounds
+OPTS_PARAMS = dict(TRAIN_PARAMS, feature_contri=CONTRI, path_smooth=1.0,
+                   max_delta_step=0.7, hist_dtype_deep="bf16x2")
+CONSTRAINED_RUNS = (
+    ("basic", MONO_PARAMS, ("staged", "fused")),
+    ("intermediate", dict(MONO_PARAMS,
+                          monotone_constraints_method="intermediate"),
+     ("staged", "fused")),
+    ("contri+smooth+max_output", OPTS_PARAMS, ("staged", "fused", "looped")))
+PATH_EXTRA = {"staged": {}, "fused": {"hist_method": "fused"},
+              "looped": {"hist_method": "fused", "hist_dtype_deep": "bf16x2",
+                         "wave_loop_rounds": 4}}
+# the scan options phase 31 holds the kernels to: (monotone, penalty,
+# contri, path smoothing, max output)
+SCAN_OPTIONS = {
+    "none": (False, 0.0, False, 0.0, 0.0),
+    "monotone": (True, 0.0, False, 0.0, 0.0),
+    "penalty": (True, 1.0, False, 0.0, 0.0),
+    "contri": (False, 0.0, True, 0.0, 0.0),
+    "smooth": (False, 0.0, False, 1.0, 0.0),
+    "max_output": (False, 0.0, False, 0.0, 0.7),
+    "all": (True, 1.0, True, 1.0, 0.7),
+}
+LOOP_OPTIONS = (False, 0.0, True, 1.0, 0.7)   # K6 runs no monotone leg
+
+
+def option_meta(meta, opts):
+    """``meta`` with the option's monotone types (+1, -1, 0 in turn) and
+    contri multipliers (0.5 past the fifth feature)."""
+    mono_on, _, contri_on, _, _ = opts
+    F_ = meta.num_bins.shape[0]
+    dev = meta.num_bins.device
+    mono = torch.tensor(([1, -1, 0] * F_)[:F_], dtype=torch.int64,
+                        device=dev) if mono_on else None
+    contri = torch.tensor(([1.0] * 5 + [0.5] * F_)[:F_],
+                          dtype=torch.float32, device=dev) \
+        if contri_on else None
+    return meta._replace(monotone_type=mono, contri=contri)
+
+
+def option_params(opts, **kw) -> SplitParams:
+    _, pen, _, smooth, mds = opts
+    return SplitParams(**dict(dict(min_data_in_leaf=20.0), **kw),
+                       max_delta_step=mds, path_smooth=smooth,
+                       monotone_penalty=pen)
+
+
+def to_cpu(v):
+    """A tensor, a FeatureMeta or a dict of them, on the CPU."""
+    if torch.is_tensor(v):
+        return v.cpu()
+    if isinstance(v, FeatureMeta):
+        return FeatureMeta(*(None if x is None else x.cpu() for x in v))
+    if isinstance(v, dict):
+        return {k: to_cpu(x) for k, x in v.items()}
+    return v
+
+
+def child_legs(csums, meta, params, rng, constr=None, depth=None):
+    """The constrained legs' inputs of C children (``split.scan_inputs``):
+    binding bounds 0.05 either side of each child's own output (every
+    fourth child unbounded) unless ``constr`` is given, depths 1-8, and
+    parent outputs at 0.8 of the child's."""
+    C, dev = csums.shape[0], csums.device
+    out = -csums[:, 0] / (csums[:, 1] + params.lambda_l2 + 1.0)
+    if constr is None:
+        constr = torch.stack([out - 0.05, out + 0.05], dim=1)
+        constr[::4] = torch.tensor(NO_CONSTRAINT, device=dev)
+    if depth is None:
+        depth = torch.as_tensor(rng.randint(1, 9, C), device=dev)
+    return scan_inputs(meta, params, C, dev, constr.contiguous(), depth,
+                       (0.8 * out).contiguous())
+
+
+def scan_children(C, F_, B, rng, dev, scaled=False):
+    """C children's (C, F, B, 3) histograms binned from 200 signed, varied
+    rows each (every feature sums to its child's totals), their sums and
+    mask, and a feature meta of every missing type (zero, NaN, none; a
+    2-bin feature and a narrower bin axis).  ``scaled``: the histograms
+    hold integer sums and (C, 3) power-of-two scales (int8sr)."""
+    mt = np.array([1, 2, 0, 0, 0] * F_)[:F_]
+    nb = np.full(F_, B)
+    nb[3] = 2
+    nb[4] = max(2, B - 5)
+    nanb = np.where(mt == 2, nb - 1, -1)
+    zb = np.where(mt == 1, np.minimum(3, nb - 1), 0)
+    t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+    meta = FeatureMeta(num_bins=t(nb), missing_type=t(mt), nan_bin=t(nanb),
+                       zero_bin=t(zb),
+                       usable=torch.ones(F_, dtype=torch.bool, device=dev))
+    N = 200 * C
+    rows = signed_rows(rng, N, dev)
+    child = torch.as_tensor(rng.randint(0, C, N), device=dev)
+    bins = torch.as_tensor(rng.randint(0, 1 << 16, (F_, N)) % nb[:, None],
+                           device=dev)
+    hist = torch.zeros((C, F_, B, 3), dtype=torch.float32, device=dev)
+    for f in range(F_):
+        hist[:, f].index_put_((child, bins[f]), rows, accumulate=True)
+    csums = hist[:, 0].double().sum(dim=1).float()
+    mask = torch.ones((C, F_), dtype=torch.bool, device=dev)
+    mask[C // 2, 2] = False
+    scale = None
+    if scaled:
+        scale = torch.tensor([2.0 ** -6, 2.0 ** -9, 1.0],
+                             device=dev).expand(C, 3).contiguous()
+        hist = torch.round(hist / scale[:, None, None, :])
+    return hist.contiguous(), csums, mask, meta, scale
+
+
+class ScanRecorder:
+    """Keeps the inputs of the last split-scan call at each child count C
+    of a run (the main path's own, for the checks and the timing after
+    it).  It counts nothing; the wrapper counts its launches."""
+
+    def __init__(self):
+        self.last = {}
+
+    def __enter__(self):
+        self._orig = sc.split_scan
+
+        def wrapped(hist, mask, csums, **kw):
+            self.last[hist.shape[0]] = (hist, mask, csums, kw)
+            return self._orig(hist, mask, csums, **kw)
+
+        sc.split_scan = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        sc.split_scan = self._orig
+
+
+def check_scan(tag, hist, mask, csums, kw) -> dict:
+    """The split-scan kernel bit for bit the plain scan run on the CPU on
+    the same inputs (copied there), and two launches bitwise equal."""
+    got = sc.split_scan(hist, mask, csums, **kw)
+    again = sc.split_scan(hist, mask, csums, **kw)
+    check(bool(same_value(got, again).all()),
+          f"split scan {tag}: two launches differ")
+    ckw = to_cpu({k: v for k, v in kw.items() if k != "fmeta"})
+    want = sc.split_scan_ref(hist.cpu(), mask.cpu(), csums.cpu(), **ckw)
+    bad = int((~same_value(got.cpu(), want)).sum())
+    check(bad == 0, f"split scan {tag}: {bad} residue values differ from "
+          "the CPU plain scan")
+    return {"case": tag, "finite": int(torch.isfinite(want[..., 0]).sum()),
+            "cells": int(want[..., 0].numel())}
+
+
+def scan_case_kw(meta, opts, csums, rng, scale=None, constr=None):
+    params = option_params(opts, lambda_l1=0.1, lambda_l2=1.0)
+    m = option_meta(meta, opts)
+    return dict(meta=m, params=params, hist_scale=scale,
+                **child_legs(csums, m, params, rng, constr))
+
+
+def phase_scan_kernels(ds, binned, meta, rng, dev) -> dict:
+    """Phase 31: the split-scan kernel against the CPU plain scan on a
+    real round's inputs and on synthetic children at C in {1, 2, 8, 32,
+    126}, B in {16, 64, 256}, F = 28 and 27, each option set and with
+    int8sr scales; K2's constrained legs at S = 4 / 16 / 63 and on
+    phase 14's sparse-live rounds; K6's contri / smooth / max-output
+    legs against R K2 rounds and the plain scan.  Every check bit for
+    bit."""
+    out = {"scan": [], "k2": [], "k6": []}
+    # a real round's bounds: two headline iterations with phase 32's
+    # monotone constraints, staged, recorded at their largest round
+    with ScanRecorder() as srec:
+        train(MONO_PARAMS, ds, 2, **_on(dev))
+        _sync(dev)
+    C_r = max(srec.last)
+    hist, mask, csums, kw = srec.last[C_r]
+    real = kw["constraint"]
+    bound = ((real[:, 0] > NO_CONSTRAINT[0]) | (real[:, 1]
+                                                < NO_CONSTRAINT[1]))
+    log(f"  a real round: C = {C_r}, {int(bound.sum())} children bounded")
+    check(bool(bound.any()), "no bounded child in the real round")
+    for name in ("monotone", "all"):
+        opts = SCAN_OPTIONS[name]
+        ckw = scan_case_kw(meta, opts, csums, rng, constr=real)
+        out["scan"].append(check_scan(f"real round C={C_r} {name}", hist,
+                                      mask, csums, ckw))
+    for B in (16, 64, 256):
+        for C in (1, 2, 8, 32, 126):
+            hist, csums, mask, m, _ = scan_children(C, F, B, rng, dev)
+            for name, opts in SCAN_OPTIONS.items():
+                out["scan"].append(check_scan(
+                    f"C={C} B={B} F={F} {name}", hist, mask, csums,
+                    scan_case_kw(m, opts, csums, rng,
+                                 constr=real[torch.arange(C) % C_r]
+                                 if name == "monotone" else None)))
+            hist, csums, mask, m, scale = scan_children(C, F, B, rng, dev,
+                                                        scaled=True)
+            for name in ("none", "all"):
+                out["scan"].append(check_scan(
+                    f"C={C} B={B} F={F} {name} int8sr scales", hist, mask,
+                    csums, scan_case_kw(m, SCAN_OPTIONS[name], csums, rng,
+                                        scale)))
+    for name in ("none", "all"):        # an odd feature count
+        hist, csums, mask, m, _ = scan_children(32, F - 1, 64, rng, dev)
+        out["scan"].append(check_scan(
+            f"C=32 B=64 F={F - 1} {name}", hist, mask, csums,
+            scan_case_kw(m, SCAN_OPTIONS[name], csums, rng)))
+    fin = sum(c["finite"] for c in out["scan"])
+    log(f"  split scan: {len(out['scan'])} cases bit for bit the CPU plain "
+        f"scan ({fin} finite feature picks)")
+    # K2's constrained legs
+    N = binned.shape[1]
+    cases = [(S, S, True) for S in (4, 16, 63)] + [(63, 63, False)]
+    for S, n_live, sub in cases:
+        for name in (("all",) if S < 63 or not sub else SCAN_OPTIONS):
+            if name == "none":
+                continue
+            g3, kw = round_inputs(binned, meta, S, n_live, sub, "bf16x2",
+                                  rng)
+            out["k2"].append(check_k2_legs(
+                f"S={S} {'sub' if sub else 'pool-free'} {name}", binned,
+                g3, legs_kw(kw, SCAN_OPTIONS[name], rng)))
+    for case, sub in SPARSE_CASES:
+        chunk_rows = hc.plan(N, F, (4 if sub else 8) + 1, 64,
+                             "bf16x2")["chunk_rows"]
+        g3, kw = round_inputs(binned, meta, 4, 1, sub, "bf16x2", rng,
+                              oleaf=sparse_leaves(N, chunk_rows, case),
+                              leafs=[1])
+        out["k2"].append(check_k2_legs(
+            f"sparse {case} {'sub' if sub else 'pool-free'} all", binned,
+            g3, legs_kw(kw, SCAN_OPTIONS["all"], rng)))
+        live = out["k2"][-1]["live_rows"]
+        want = {"one row": live == 1, "one chunk": 0 < live <= chunk_rows,
+                "none": live == 0, "root": live == N}[case]
+        check(want, f"K2 legs sparse {case}: {live} live rows")
+    # K6's legs on a segment of a headline tree grown with them
+    out["k6"] = loop_legs_kernels(binned, meta, rng)
+    return out
+
+
+def legs_kw(kw, opts, rng) -> dict:
+    """A round's K2 keyword arguments with the option's meta, params and
+    the children's legs (dead children as the grower fills them)."""
+    params = option_params(opts)
+    m = option_meta(kw["meta"], opts)
+    legs = child_legs(kw["csums"], m, params, rng)
+    return dict(kw, meta=m, params=params, **legs)
+
+
+def check_k2_legs(tag, binned, g3, kw) -> dict:
+    """K2 with constrained legs: leaf ids and labels its plain version's
+    and K3's, hsmall K1's on the emitted label, the residue bit for bit
+    the CPU plain scan (with the same legs) of its children, two launches
+    bitwise equal."""
+    got = fc.fused_round(binned, g3, **kw)
+    again = fc.fused_round(binned, g3, **kw)
+    for a, b, what in zip(got, again, ("residue", "hsmall", "new leaf ids",
+                                       "label")):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K2 {tag}: two launches differ in {what}")
+    res, hsm, nleaf, label = got
+    want = fc.fused_round_ref(binned, g3, **plain_kw(kw))
+    check(torch.equal(nleaf, want[2]) and torch.equal(label, want[3]),
+          f"K2 {tag}: leaf ids or labels differ from the plain version")
+    route = kw["route"]
+    check(torch.equal(fc.route_rows(binned, route["oleaf"], route["feats"],
+                                    route["rmeta"], route["num_leaves"]),
+                      nleaf), f"K3 {tag}: differs from K2's leaf ids")
+    k1 = hc.hist_leaves(binned, g3, label, kw["nslots"] + 1,
+                        kw["num_bins"], kw["precision"])[:kw["nslots"]]
+    if hsm is not None:
+        check(torch.equal(hsm, k1), f"K2 {tag}: hsmall differs from K1")
+        children = wf.subtract_children(hsm, kw["parent"], kw["sml"])
+    else:
+        children = k1
+    res_cpu = scan_residue(
+        children.cpu(), kw["mask"].cpu(), kw["csums"].cpu(),
+        meta=to_cpu(kw["meta"]), params=kw["params"],
+        **to_cpu({k: kw[k] for k in ("constraint", "pfac",
+                                     "parent_output")}))
+    bad = int((~same_value(res.cpu(), res_cpu)).sum())
+    check(bad == 0, f"K2 {tag}: {bad} residue values differ from the CPU "
+          "plain scan")
+    live = int((label < kw["nslots"]).sum())
+    log(f"  K2 legs {tag}: {live} live rows; leaf ids, labels, K3 exact; "
+        "hsmall == K1; residue bit for bit the CPU plain scan")
+    return {"case": tag, "live_rows": live}
+
+
+def check_k6_legs(tag, args, min_rounds=2) -> dict:
+    """K6 with its legs against R K2 rounds with the PyTorch pick and
+    replay (bit for bit; two launches too) and, round by round, each K2
+    round's residue and K6's packed rows bit for bit the CPU plain scan
+    and pick of the round's children (phase 19's chain, its plain scan on
+    the CPU)."""
+    pos, kw = args
+    got = lc.fused_wave_loop(*pos, **kw)
+    again = lc.fused_wave_loop(*pos, **kw)
+    rec = RoundRecorder()
+    k2 = lc.loop_rounds(*pos, round_fn=rec, **kw)
+    for a, b, c, what in zip(got, again, k2, ("packed rows", "new leaf ids",
+                                              "pool", "split counts")):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K6 {tag}: two launches differ in {what}")
+        check(a is None or bool(same_value(a, c).all()),
+              f"K6 {tag}: {what} differ from R K2 rounds")
+    live = [n for n in got[3].tolist() if n > 0]
+    check(len(live) == len(rec.rounds) and len(live) >= min_rounds,
+          f"K6 {tag}: {len(live)} live rounds, {len(rec.rounds)} K2 rounds")
+    meta_c, params = to_cpu(kw["meta"]), kw["params"]
+    for r, (rkw, out) in enumerate(rec.rounds):
+        ch = children_of(pos[0], pos[1], rkw, out)
+        legs = to_cpu({k: rkw.get(k) for k in ("constraint", "pfac",
+                                               "parent_output")})
+        res_cpu = scan_residue(ch.cpu(), rkw["mask"].cpu(),
+                               rkw["csums"].cpu(), meta=meta_c,
+                               params=params, **legs)
+        check(bool(same_value(out[0].cpu(), res_cpu).all()),
+              f"K6 {tag}: round {r}'s residue differs from the CPU scan")
+        cs = rkw["csums"].cpu()
+        pk = pick_pack(res_cpu, gain_shift(cs, params,
+                                           legs["parent_output"]), cs,
+                       meta_c, kw["num_bins"])
+        check(bool(same_value(got[0][r, :pk.shape[0]].cpu(), pk).all()),
+              f"K6 {tag}: round {r}'s packed rows differ from the CPU pick")
+    log(f"  K6 legs {tag}: split counts {got[3].tolist()}; packed rows, "
+        f"leaf ids and pool bitwise equal to {len(live)} K2 rounds and "
+        "across two launches; each round's residue and pick bit for bit "
+        "the CPU plain scan's")
+    return {"case": tag, "n_split": got[3].tolist()}
+
+
+def loop_legs_kernels(binned, meta, rng) -> list:
+    """K6's contri / smooth / max-output legs: a segment of a headline
+    tree grown with them (phase 19's capture), R = 4, subtraction and
+    pool-free, bf16x2; then a sparse-live segment (one chunk's rows)."""
+    N = binned.shape[1]
+    m = option_meta(meta, LOOP_OPTIONS)
+    config = Config.from_dict(dict(LOOP_PARAMS, wave_loop_rounds=2))
+    params = option_params(LOOP_OPTIONS,
+                           min_data_in_leaf=float(config.min_data_in_leaf))
+    grow = build_trainer(config, m, params, 64, binned.device, num_data=N)
+    with LoopRecorder(k2_rounds=True) as cap:
+        grow(binned, signed_rows(rng, N, binned.device), m.usable)
+    check(cap.second is not None, "one segment in a tree")
+    seg = cap.second
+    out = [check_k6_legs(f"R=4 {'sub' if sub else 'pool-free'} bf16x2",
+                         loop_call(seg, rounds=4,
+                                   pool=seg[5]["pool"] if sub else None))
+           for sub in (True, False)]
+    lid, ft, nl = seg[2], seg[3], seg[4]
+    sparams = params._replace(lambda_l2=1.0)
+    chunk_rows = lc.bucket_plans(N, F, 64, "bf16x2", seg[5]["slot_buckets"],
+                                 True)[0]["chunk_rows"]
+    keep = torch.zeros_like(lid, dtype=torch.bool)
+    c = (N // chunk_rows) // 2
+    keep[c * chunk_rows:(c + 1) * chunk_rows] = True
+    moved = torch.where(keep, lid, torch.full_like(lid, ft.shape[0] - 1))
+    mft, mpool = parked_state(binned, seg[1], moved, ft, nl, m, sparams, 64)
+    out.append(check_k6_legs(
+        "sparse one chunk, R=4 sub bf16x2",
+        loop_call(seg[:2] + (moved, mft) + seg[4:], rounds=4,
+                  params=sparams, pool=mpool), 1))
+    return out
+
+
+def scan_timing(last: dict, launches: dict) -> dict:
+    """Phase 31's timing: the split-scan kernel on phase 10's last inputs
+    at C = 8, 32 and 126 (the staged rounds of 4, 16 and 63 splits)
+    beside its plain version on the card and its bound by bytes (each
+    histogram cell read once, the residue written once); its launches a
+    tree on the main paths.  No single PyTorch call computes a split
+    scan."""
+    rows = []
+    for C in (8, 32, 126):
+        if C not in last:
+            continue
+        hist, mask, csums, kw = last[C]
+        _, F_, B, _ = hist.shape
+        ms = time_ms(lambda: sc.split_scan(hist, mask, csums, **kw), 20)
+        device_ms = kernel_device_ms(lambda: sc.split_scan(
+            hist, mask, csums, **kw), ("split_scan_kernel",))[
+                "split_scan_kernel"] or None   # None: the profiler saw none
+        plain_ms = time_ms(lambda: sc.split_scan_ref(hist, mask, csums,
+                                                     **kw), 3)
+        nbytes = C * F_ * B * 12 + C * F_ * 24 + C * 12 + C * F_
+        ops = 2 * C * F_ * B * 20
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        rows.append({"C": C, "ms": ms, "device_ms": device_ms,
+                     "plain_ms": plain_ms,
+                     "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "ops": ops})
+        log(f"  split scan C={C} (F={F_}, B={B}): {ms:.4f} ms, device "
+            f"{device_ms} ms (plain "
+            f"{plain_ms:.3f} ms on the card, bound {rows[-1]['bound_ms']:.5f}"
+            f" ms by {rows[-1]['bound_by']})")
+    top = rows[-1]
+    log(f"  split-scan launches a tree: {json.dumps(launches)}")
+    return {"name": "split_scan", "route": "cuda", "source": SCAN_SRC,
+            "replaces": "lightgbmv1_tpu/ops/split.py:459 scan_left_sums, "
+            ":533 scan_direction_gains, :636 scan_pick_feature (XLA; "
+            "ops/wave_fused.py:215 child_scan_residue inside K2)",
+            "launches": int(launches["staged"]["launches"]),
+            "max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+            "library_ms": None, "library_note": "none: no single PyTorch "
+            "call computes a split scan", "at": f"C={top['C']}",
+            "buckets": rows, "launches_per_tree": launches}
+
+
+def scan_launches(trees) -> dict:
+    """The split-scan launches since the counts were reset, and a tree's;
+    no plain scan ran."""
+    n = sc.launch_counts["split_scan"]
+    check(n > 0, "the split-scan kernel never launched")
+    check(sc.plain_counts["split_scan"] == 0, "a plain scan ran on the path")
+    return {"launches": n, "per_tree": n / trees,
+            "by_opts": {str(k): v for k, v in
+                        sorted(sc.opt_launch_counts.items())}}
+
+
+def monotone_on_grid(text, Xv, dev, mono) -> dict:
+    """The model served through K4 (raw scores) is monotone along every
+    constrained feature on a grid of 64 points (the feature's 1st to 99th
+    percentile) at 64 probe rows: non-decreasing where +1, non-increasing
+    where -1 (tests/test_monotone.py's check)."""
+    bst = Booster(model_str=text, **_on(dev))
+    base = Xv[:64]
+    out = {}
+    for f, sign in enumerate(mono):
+        if sign == 0:
+            continue
+        grid = np.quantile(Xv[:, f], np.linspace(0.01, 0.99, 64))
+        pts = np.repeat(base, 64, axis=0)
+        pts[:, f] = np.tile(grid, 64)
+        p = bst.predict(pts, predict_method="fused",
+                        raw_score=True).reshape(64, 64)
+        d = np.diff(p, axis=1) * sign
+        out[f"X{f}"] = float(d.min())
+        check(bool((d >= -1e-10).all()), f"monotone X{f}: the served model "
+              f"moves against its constraint by {float(-d.min()):.3e}")
+    return out
+
+
+def phase_constrained_train(ds, dv, Xv, iters, dev):
+    """Phase 32, the slice's main path: monotone basic and intermediate
+    trainings staged and fused, and contri + path smoothing + max output
+    staged, fused and looped, launch counts reset around each; each
+    pair's or triple's texts equal, only kernels on the path, the split
+    scan and the legs each needs launched; the monotone models AUC >
+    0.90 and monotone on the grids.  Returns the numbers and each run's
+    recorders."""
+    out, recs = {}, {}
+    for name, params, paths in CONSTRAINED_RUNS:
+        texts = {}
+        for path in paths:
+            p = dict(params, **PATH_EXTRA[path])
+            reset_counts()
+            ev = {}
+            with FusedRecorder() as frec, LoopRecorder() as lrec:
+                t0 = time.perf_counter()
+                bst = train(p, ds, iters, valid_sets=[dv], evals_result=ev,
+                            **_on(dev))
+                _sync(dev)
+                secs = time.perf_counter() - t0
+            trees = bst.num_trees()
+            plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
+                     **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
+                     **{f"loop.{k}": v for k, v in lc.plain_counts.items()},
+                     **{f"scan.{k}": v for k, v in sc.plain_counts.items()}}
+            check(not any(plain.values()),
+                  f"{name} {path}: a plain version ran: {plain}")
+            scan = scan_launches(trees)
+            k2 = {f"{k[0]}:{k[1]}:{k[2]}": v
+                  for k, v in sorted(fc.bucket_launch_counts.items())}
+            k6 = {f"{k[0]}:{k[1]}:{k[2]}": v
+                  for k, v in sorted(lc.bucket_launch_counts.items())}
+            opts = sc.scan_options(
+                make_feature_meta(ds._binned, dev,
+                                  p.get("monotone_constraints"),
+                                  p.get("feature_contri")),
+                bst._gbdt.split_params)
+            check(set(scan["by_opts"]) == {str(opts)}, f"{name} {path}: "
+                  f"split scans at options {scan['by_opts']}, not {opts}")
+            if path == "fused":
+                check(k2 and all(k.endswith(f":opts{opts}") for k in k2),
+                      f"{name} fused: K2 launches {k2}")
+            if path == "looped":
+                check(k6 and all(k.endswith(f":opts{opts}") for k in k6)
+                      and not k2, f"{name} looped: K6 {k6}, K2 {k2}")
+            text = bst.model_to_string()
+            texts[path] = text
+            auc = ev["valid_0"]["auc"][-1]
+            r = {"iters": iters, "s_per_iter": secs / iters,
+                 "valid_auc": auc, "split_scan": scan, "k2": k2, "k6": k6,
+                 **text_hash(text, f"{name} {path}")}
+            log(f"  {name} {path}: {iters} iterations, "
+                f"{r['s_per_iter']:.4f} s/iter; valid AUC {auc:.5f}; "
+                f"split scans {scan['per_tree']:.2f} a tree "
+                f"({json.dumps(scan['by_opts'])}), K2 {json.dumps(k2)}, K6 "
+                f"{json.dumps(k6)}")
+            if params is not OPTS_PARAMS:
+                check(auc > MONO_AUC_MIN, f"{name} {path}: valid AUC {auc} "
+                      f"<= {MONO_AUC_MIN}")
+                r["monotone_min_step"] = monotone_on_grid(text, Xv, dev,
+                                                          MONO)
+            out[f"{name} {path}"] = r
+            recs[(name, path)] = (frec, lrec)
+        check(all(t == texts[paths[0]] for t in texts.values()),
+              f"{name}: the {', '.join(paths)} model texts differ")
+        log(f"  {name}: the {', '.join(paths)} model texts are one, byte "
+            "for byte")
+    return out, recs
+
+
+def legs_timing(recs) -> dict:
+    """K2's and K6's constrained legs on phase 32's last inputs (the
+    contri + smooth + max-output fused and looped runs, the monotone
+    basic fused run) beside the same launch unconstrained (the options'
+    meta and params off) on the same inputs."""
+    out = {}
+    name = "contri+smooth+max_output"
+    for tag, key in (("k2 monotone", ("basic", "fused")),
+                     ("k2 contri+smooth+max_output", (name, "fused"))):
+        frec = recs[key][0]
+        ns, prec, mode = max(frec.last)
+        binned, g3, kw = frec.last[(ns, prec, mode)]
+        plain = dict(kw, meta=kw["meta"]._replace(monotone_type=None,
+                                                  contri=None),
+                     params=SplitParams(*kw["params"][:5]), constraint=None,
+                     pfac=None, parent_output=None)
+        plain.pop("fmeta", None)
+        ms = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
+        ms0 = time_ms(lambda: fc.fused_round(binned, g3, **plain), 10)
+        ms_b = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
+        out[tag] = {"nslots": ns, "precision": prec, "mode": mode,
+                    "ms": (ms + ms_b) / 2, "unconstrained_ms": ms0}
+        log(f"  {tag} at nslots={ns} {prec} {mode}: {out[tag]['ms']:.4f} ms"
+            f" beside {ms0:.4f} ms unconstrained on the same inputs")
+    lrec = recs[(name, "looped")][1]
+    pos, kw = loop_call(lrec.last)
+    plain = dict(kw, meta=kw["meta"]._replace(contri=None),
+                 params=SplitParams(*kw["params"][:5]))
+    ms = time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10)
+    ms0 = time_ms(lambda: lc.fused_wave_loop(*pos, **plain), 10)
+    ms_b = time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10)
+    out["k6 contri+smooth+max_output"] = {"ms": (ms + ms_b) / 2,
+                                          "unconstrained_ms": ms0}
+    log(f"  k6 contri+smooth+max_output on the looped run's last inputs: "
+        f"{(ms + ms_b) / 2:.4f} ms beside {ms0:.4f} ms unconstrained")
+    return out
+
+
+class CardRounding:
+    """The two f32 roundings of a training that differ between the card
+    and the CPU outside the ported kernels: the objective's gradients
+    (the card's and the CPU's f32 exp round differently) and each tree's
+    root sums (``models/grower.root_sums``, an f32 reduction in each
+    device's own order).  ``record()`` keeps a card training's, in call
+    order; ``replay()`` hands them to a CPU training of the same
+    configuration, whose plain versions then see the card's inputs.
+    Phase 33 needs it: a monotone bound's strict output compare (the
+    reference's, in the scan) flips on a one-ulp difference of its
+    inputs, where phase 11's unconstrained gains only move in the tie
+    band."""
+
+    def __init__(self):
+        self.grads, self.sums = [], []
+
+    @contextlib.contextmanager
+    def _patched(self, grads, sums):
+        saved = objectives.ObjectiveFunction.get_gradients, \
+            grower_wave.root_sums
+        objectives.ObjectiveFunction.get_gradients = grads
+        grower_wave.root_sums = sums
+        try:
+            yield self
+        finally:
+            objectives.ObjectiveFunction.get_gradients, \
+                grower_wave.root_sums = saved
+
+    def record(self):
+        grads0, sums0 = objectives.ObjectiveFunction.get_gradients, \
+            grower_wave.root_sums
+
+        def grads(obj, score):
+            out = grads0(obj, score)
+            self.grads.append(tuple(t.cpu() for t in out))
+            return out
+
+        def sums(g3):
+            out = sums0(g3)
+            self.sums.append(out.cpu())
+            return out
+
+        return self._patched(grads, sums)
+
+    def replay(self):
+        it_g, it_s = iter(self.grads), iter(self.sums)
+
+        def grads(obj, score):
+            return tuple(t.to(score.device) for t in next(it_g))
+
+        def sums(g3):
+            return next(it_s).to(g3.device)
+
+        return self._patched(grads, sums)
+
+
+def card_vs_cpu_replay(tag, params, X, y, dev, iters=5) -> dict:
+    """``card_vs_cpu`` with the CPU training taking the card training's
+    gradients and root sums (``CardRounding``): every split identical,
+    leaves within PARITY_LEAF_TOL."""
+    p = dict(params, hist_dtype="f32", hist_method="pallas")
+    log(f"  {tag}, card against CPU (K1's order, the card's gradients and "
+        f"root sums): {len(X)} rows, {iters} iterations")
+    rounding = CardRounding()
+    saved = grower_wave._BUCKET_MIN_N
+    grower_wave._BUCKET_MIN_N = 1
+    try:
+        with rounding.record(), (roworder_plain() if torch.device(
+                dev).type == "cpu" else contextlib.nullcontext()):
+            card = train(p, Dataset(X, label=y), iters, **_on(dev))
+            _sync(dev)
+        with rounding.replay(), roworder_plain():
+            cpu = train(p, Dataset(X, label=y), iters, device="cpu")
+    finally:
+        grower_wave._BUCKET_MIN_N = saved
+    return compare_splits(tag, card, cpu, ("card", "CPU"), PARITY_LEAF_TOL)
+
+
+CONSTRAINED_PARITY = dict(monotone_constraints=MONO,
+                          monotone_constraints_method="intermediate",
+                          monotone_penalty=1.0, feature_contri=CONTRI,
+                          path_smooth=1.0, max_delta_step=0.7)
+
+
 def nvidia_smi() -> str:
     res = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3432,7 +4154,7 @@ def main(argv=None) -> int:
 
     log("== phase 2: build")
     secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop",
-                         "quantize"])
+                         "quantize", "split_scan"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["log"].splitlines():
@@ -3502,6 +4224,7 @@ def main(argv=None) -> int:
 
     log("== phase 10: training (main path; launch counts reset)")
     trained, rec = phase_train(ds, dv, Xv, args.iters, dev)
+    trained_scan_last = rec.scan_last
     log("  K1 against its plain version on the main path's last inputs")
     k1_checks += phase_hist_main_inputs(rec)
 
@@ -3694,7 +4417,7 @@ def main(argv=None) -> int:
                           y[:PARITY_ROWS], dev)
     iparity["fused_vs_staged"] = int8sr_fused_vs_staged(
         X[:PARITY_ROWS], y[:PARITY_ROWS], dev)
-    del X, Xv
+    del X
     k1_row["int8sr"] = dict(irow["hist_leaves"], max_abs_err=0.0,
                             checks=ichecks["k1"])
     fused_rows[0]["int8sr"] = dict(irow["fused_round"], max_abs_err=0.0,
@@ -3702,6 +4425,40 @@ def main(argv=None) -> int:
     k6_row["int8sr"] = dict(irow["fused_wave_loop"], max_abs_err=0.0,
                             checks=ichecks["k6"])
     qrow["checks"] = ichecks["quantize"]
+
+    log("== phase 31: the split-scan kernel and K2's and K6's constrained "
+        "legs against their plain versions")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    schecks = phase_scan_kernels(ds, binned, make_feature_meta(ds._binned,
+                                                               dev), rng, dev)
+    del binned
+    log("  the split-scan kernel on phase 10's last inputs")
+    scan_row = scan_timing(trained_scan_last, {
+        "staged": trained["split_scan"], "fused": fused["split_scan"],
+        "looped": looped["split_scan"],
+        **{k: paths[k]["split_scan"] for k in paths}})
+    scan_row["checks"] = schecks["scan"]
+
+    log("== phase 32: constrained training (main path; launch counts "
+        "reset)")
+    constrained, crecs = phase_constrained_train(ds, dv, Xv, args.iters, dev)
+    legs = legs_timing(crecs)
+    del crecs
+    fused_rows[0]["constrained"] = dict(
+        legs["k2 contri+smooth+max_output"], max_abs_err=0.0,
+        monotone=legs["k2 monotone"], checks=schecks["k2"],
+        launches={k: v["k2"] for k, v in constrained.items() if v["k2"]})
+    k6_row["constrained"] = dict(
+        legs["k6 contri+smooth+max_output"], max_abs_err=0.0,
+        checks=schecks["k6"],
+        launches={k: v["k6"] for k, v in constrained.items() if v["k6"]})
+
+    log("== phase 33: constrained parity, card vs CPU")
+    Xp, yp = make_data(PARITY_ROWS, args.seed + 7)
+    cparity = card_vs_cpu_replay("constrained", dict(PARITY_PARAMS,
+                                                     **CONSTRAINED_PARITY),
+                                 Xp, yp, dev)
+    del Xp, yp
 
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
@@ -3717,9 +4474,11 @@ def main(argv=None) -> int:
                     "loop_train": looped, "loop_profile": lprof,
                     "paths": paths, "packed_train": packed,
                     "int8sr_train": int8sr, "int8sr_parity": iparity,
+                    "constrained_train": constrained,
+                    "constrained_parity": cparity,
                     "seconds": time.perf_counter() - t_start}))
-    print(json.dumps({"kernels": [k1_row] + fused_rows + [k6_row, qrow]
-                      + rows}), flush=True)
+    print(json.dumps({"kernels": [k1_row] + fused_rows
+                      + [k6_row, qrow, scan_row] + rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -549,11 +549,6 @@ _UNPORTED = (
     ("extra_trees", lambda c: c.extra_trees, "extra_trees", SAMPLING),
     ("early_stopping_round", lambda c: c.early_stopping_round > 0,
      "early stopping", CALLBACKS),
-    ("max_delta_step", lambda c: c.max_delta_step > 0, "max_delta_step",
-     BREADTH),
-    ("path_smooth", lambda c: c.path_smooth > 0, "path_smooth", BREADTH),
-    ("monotone_constraints", lambda c: any(c.monotone_constraints),
-     "monotone constraints", BREADTH),
     ("interaction_constraints", lambda c: bool(c.interaction_constraints),
      "interaction constraints", BREADTH),
     ("forcedsplits_filename", lambda c: bool(c.forcedsplits_filename),
@@ -583,8 +578,7 @@ _REFUSED = (
                "uniform_drop", "drop_seed", "top_rate", "other_rate",
                "min_data_per_group", "max_cat_threshold", "cat_l2",
                "cat_smooth", "max_cat_to_onehot",
-               "monotone_constraints_method", "monotone_penalty",
-               "feature_contri", "cegb_tradeoff", "cegb_penalty_feature_lazy",
+               "cegb_tradeoff", "cegb_penalty_feature_lazy",
                "cegb_penalty_feature_coupled", "forcedbins_filename",
                "max_bin_by_feature", "saved_feature_importance_type",
                "snapshot_freq", "finite_guard")),

@@ -44,6 +44,14 @@
 //    smaller child before the subtraction, or pool-free the prefix sums
 //    after the cumulative sum (scan_item, wave_round.cuh).  `scale` also
 //    carries the ones of a quantized grow's other rounds.
+//    The constrained legs (the Pallas kernel's use_mc / monotone_penalty,
+//    has_contri, path smoothing and max_delta_step; `opts`, kOpt* of
+//    wave_round.cuh): (d) runs scan_child with them compiled in (the
+//    kOptAll instance of scan_kernel, each leg switched by `opts`), on
+//    the children's bounds, penalty factors and parent outputs; an
+//    unconstrained round runs the instance without them.  The split-scan
+//    kernel (split_scan.cu) runs the same scan_child on staged
+//    histograms, so every pick on the card is made from K2's bits.
 // K3 lgbm_route_rows — replaces wave_fused.py _route_only_kernel (reached
 //    through fused_route_rows): the valid set routed through one round's
 //    splits by launch (a)'s row function (route_row, the same binary
@@ -160,25 +168,27 @@ list_kernel(const int* __restrict__ label, const int* __restrict__ tile_cnt,
 }
 
 // K2 (d): block (s, f) runs scan_item (wave_round.cuh) as one scan group.
-template <int PREC, int NC, bool SUB>
+// OPTS: the scan's options compiled in (0, or kOptAll with prm.opts
+// choosing the legs), so the unconstrained round runs the unconstrained
+// code.
+template <int PREC, int NC, bool SUB, int OPTS>
 __global__ void __launch_bounds__(kScanGroup)
 scan_kernel(const float* __restrict__ partial, int n_chunks, int nf, int nl,
             int nb, int B, const int* __restrict__ fmeta,
             const uint8_t* __restrict__ mask, const float* __restrict__ csums,
             const uint8_t* __restrict__ sml, const float* __restrict__ parent,
             const float* __restrict__ scale, float* __restrict__ hsmall,
-            float* __restrict__ residue, ScanParams prm) {
+            float* __restrict__ residue, ScanParams prm, ScanLegs legs) {
   __shared__ float sm[kScanSmemFloats];
   const int s = blockIdx.x;
   const int f = blockIdx.y;
   const size_t o = (static_cast<size_t>(s) * nf + f) * B * 3;
   // the slot's scales (subtraction) or its two children's (pool-free)
   const float* sc = scale ? scale + (SUB ? 3 * s : 6 * s) : nullptr;
-  scan_item<PREC, NC, SUB>(s, f, threadIdx.x, 1, partial, n_chunks, nf, nl,
-                           nb, B, fmeta, mask, csums, SUB && sml[s] != 0,
-                           SUB ? parent + o : nullptr, sc,
-                           SUB ? hsmall + o : nullptr, nullptr, nullptr,
-                           residue, prm, sm);
+  scan_item<PREC, NC, SUB, OPTS>(
+      s, f, threadIdx.x, 1, partial, n_chunks, nf, nl, nb, B, fmeta, mask,
+      csums, SUB && sml[s] != 0, SUB ? parent + o : nullptr, sc,
+      SUB ? hsmall + o : nullptr, nullptr, nullptr, residue, prm, legs, sm);
 }
 
 // The round's scratch: tile counts, the chunks' row lists and slots, the
@@ -199,7 +209,8 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
                  const float* parent, const float* scale, float* residue,
                  float* hsmall, int n, int nf, int S, int nslots, int nb,
                  int B, int ls_max, int n_chunks, int chunk_rows,
-                 const ScanParams& prm, cudaStream_t stream) {
+                 const ScanParams& prm, const ScanLegs& legs,
+                 cudaStream_t stream) {
   if (chunk_rows % kThreads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (n + kThreads - 1) / kThreads;
@@ -227,9 +238,11 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
       n_chunks, chunk_rows, stream);
   if (err != 0) return err;
   dim3 grid(S, nf);
-  scan_kernel<PREC, NC, SUB><<<grid, kScanGroup, 0, stream>>>(
-      w.partial, n_chunks, nf, nl, nb, B, fmeta, mask, csums, sml, parent,
-      scale, hsmall, residue, prm);
+  const auto scan = prm.opts ? scan_kernel<PREC, NC, SUB, kOptAll>
+                             : scan_kernel<PREC, NC, SUB, 0>;
+  scan<<<grid, kScanGroup, 0, stream>>>(w.partial, n_chunks, nf, nl, nb, B,
+                                        fmeta, mask, csums, sml, parent,
+                                        scale, hsmall, residue, prm, legs);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -243,13 +256,13 @@ int dispatch_precision(int precision, const uint8_t* binned, const float* g3,
                        float* residue, float* hsmall, int n, int nf, int S,
                        int nslots, int nb, int B, int ls_max, int n_chunks,
                        int chunk_rows, const ScanParams& prm,
-                       cudaStream_t stream) {
+                       const ScanLegs& legs, cudaStream_t stream) {
 #define LGBM_ROUND(P, C)                                                   \
   launch_round<P, C, SUB, PACKED>(binned, g3, oleaf, feats, rmeta, label,  \
                                   new_leaf, w, fmeta, mask, csums, sml,     \
                                   parent, scale, residue, hsmall, n, nf, S, \
                                   nslots, nb, B, ls_max, n_chunks,          \
-                                  chunk_rows, prm, stream)
+                                  chunk_rows, prm, legs, stream)
   switch (precision) {
     case kF32:
       return LGBM_ROUND(kF32, 3);
@@ -280,21 +293,37 @@ extern "C" {
 // nslots = S; else nslots = 2S); `scale` (nslots, 3) f32 or null, the
 // slots' dequantization; `residue` (2S, nf, 6).  `binned` is
 // (nf, N) bytes, or with `packed` != 0 the (ceil(nf/2), N) packed bytes
-// of the nf features (nb must then be 16).
+// of the nf features (nb must then be 16).  `opts` (kOpt*, wave_round.cuh)
+// names the scan's constrained legs and `constr` (2S, 2), `pfac` (2S,),
+// `pout` (2S,), `mono` (nf,) i32, `contri` (nf,) their inputs, null
+// where a leg is off (`pfac` also without a monotone penalty).
 int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      const void* feats, const void* rmeta, void* label,
                      void* new_leaf, void* tile_cnt, void* lrow, void* lslot,
                      void* lcnt, void* partial, const void* fmeta,
                      const void* mask, const void* csums, const void* sml,
                      const void* parent, const void* scale, void* residue,
-                     void* hsmall, int n,
+                     void* hsmall, const void* constr, const void* pfac,
+                     const void* pout, const void* mono, const void* contri,
+                     int n,
                      int nf, int S, int nb, int B, int ls_max, int n_chunks,
                      int chunk_rows, int precision, int sub, int packed,
                      float l1, float l2, float min_data, float min_hess,
-                     float min_gain, void* stream) {
-  if (B > kMaxBins || S <= 0 || (packed && nb != 16))
+                     float min_gain, float max_delta_step, float path_smooth,
+                     float monotone_penalty, int opts, void* stream) {
+  if (B > kMaxBins || S <= 0 || (packed && nb != 16) || opts < 0 ||
+      opts > kOptAll ||
+      ((opts & kOptMc) &&
+       (!constr || !mono || (monotone_penalty > 0.f && !pfac))) ||
+      ((opts & kOptSmooth) && !pout) || ((opts & kOptContri) && !contri))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ScanParams prm{l1, l2, min_data, min_hess, min_gain};
+  const ScanParams prm{l1, l2, min_data, min_hess, min_gain,
+                       max_delta_step, path_smooth, monotone_penalty, opts};
+  const ScanLegs legs{static_cast<const float*>(constr),
+                      static_cast<const float*>(pfac),
+                      static_cast<const float*>(pout),
+                      static_cast<const int*>(mono),
+                      static_cast<const float*>(contri)};
   const RoundScratch w{static_cast<int*>(tile_cnt), static_cast<int*>(lrow),
                        static_cast<int*>(lslot), static_cast<int*>(lcnt),
                        static_cast<float*>(partial)};
@@ -320,7 +349,7 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                                  : dispatch_precision<false, false>);
   return run(precision, bn, g, ol, ft, rm, lab, nlf, w, fm, mk, cs, sm, pr,
              sc, res, hs, n, nf, S, sub ? S : 2 * S, nb, B, ls_max, n_chunks,
-             chunk_rows, prm, st);
+             chunk_rows, prm, legs, st);
 }
 
 // K3.  (N,) leaf ids of `binned`'s rows after the S splits of `rmeta`

@@ -59,6 +59,15 @@
 //    after the cumulative sum).  The other rounds of the segment run at
 //    the launch's precision with ones scales, as the single round of a
 //    quantized grow does; shared memory is sized for the larger leg.
+//    The constrained legs (the Pallas kernel's has_contri, path
+//    smoothing and max_delta_step; `opts`, at most kLoopOpts): stage 0
+//    also makes each child's output, leaf_output clamped to
+//    +-max_delta_step and smoothed toward its parent's output (ft col
+//    10), which stage 4's scan takes as the parent output it smooths
+//    toward and stage 5 commits as the child's output column; stage 4
+//    runs the kLoopOpts instance of its scan when the launch runs a leg,
+//    the unconstrained one else.  Monotone constraints stay out of the
+//    loop, as the JAX planner keeps them.
 //
 // Numbers.  Stage 5 is written with __fadd_rn / __fsub_rn / __fmul_rn /
 // __fdiv_rn, one rounding an op, as the PyTorch ops of _pick_pack and the
@@ -107,14 +116,23 @@ __host__ __device__ inline int debug_words(int R) {
   return 2 + R * (kStages + 1);
 }
 
+// The scan options the loop compiles in beside the unconstrained scan
+// (kOpt*, wave_round.cuh): every leg but the monotone one, which the
+// planner keeps out of the loop.
+constexpr int kLoopOpts = kOptSmooth | kOptMaxOut | kOptContri;
+
 // The boundary record of a round in device memory (ints): the header,
-// then K slots, K parent depths, 2K x 3 children's sums (f32) and the
-// 2K x nf feature mask (bytes).
+// then K slots, K parent depths, 2K x 3 children's sums (f32), the 2K
+// children's outputs (f32: the frontier commit's, and the scan's parent
+// outputs under path smoothing) and the 2K x nf feature mask (bytes).
 __host__ __device__ inline int bnd_depth_off(int K) { return kBndHdr + 9 * K; }
 __host__ __device__ inline int bnd_csums_off(int K) {
   return kBndHdr + 10 * K;
 }
-__host__ __device__ inline int bnd_mask_off(int K) { return kBndHdr + 16 * K; }
+__host__ __device__ inline int bnd_couts_off(int K) {
+  return kBndHdr + 16 * K;
+}
+__host__ __device__ inline int bnd_mask_off(int K) { return kBndHdr + 18 * K; }
 inline int bnd_ints(int K, int nf) {
   return bnd_mask_off(K) + (2 * K * nf + 3) / 4;
 }
@@ -146,7 +164,8 @@ struct LoopArgs {
   int scan_groups;           // scan groups a block runs at once
   int ladder[kMaxLadder], ls_max[kMaxLadder], n_chunks[kMaxLadder],
       chunk_rows[kMaxLadder], quant[kMaxLadder];
-  ScanParams prm;
+  ScanParams prm;            // opts: kLoopOpts bits at most
+  const float* contri;       // (nf,) feature_contri, or null
 };
 
 // Stage 0 for a round that starts at leaf count nl, by block 0: the
@@ -195,6 +214,7 @@ __device__ void boundary(const LoopArgs& a, int nl, float* sm) {
   Slot* slots = reinterpret_cast<Slot*>(a.bnd + kBndHdr);
   int* pdepth = a.bnd + bnd_depth_off(a.K);
   float* csums = reinterpret_cast<float*>(a.bnd + bnd_csums_off(a.K));
+  float* couts = reinterpret_cast<float*>(a.bnd + bnd_couts_off(a.K));
   uint8_t* mask = reinterpret_cast<uint8_t*>(a.bnd + bnd_mask_off(a.K));
   for (int s = tid; s < S; s += blockDim.x) {
     if (s < n) {
@@ -206,11 +226,16 @@ __device__ void boundary(const LoopArgs& a, int nl, float* sm) {
                       a.fmeta[3 * nf + f], row[6] <= row[9], f};
       pdepth[s] = static_cast<int>(row[11]);
       for (int c = 0; c < 6; ++c) csums[6 * s + c] = row[4 + c];
-    } else {  // a dead slot: leaf L (no row's), sums 1.0
+      // the children's outputs, smoothed toward the parent's (row[10])
+      for (int c = 0; c < 2; ++c)
+        couts[2 * s + c] = child_output<kLoopOpts>(
+            row[4 + 3 * c], row[5 + 3 * c], row[6 + 3 * c], row[10], a.prm);
+    } else {  // a dead slot: leaf L (no row's), sums 1.0, outputs 0.0
       slots[s] = Slot{a.L, 0, 0, 0, a.fmeta[nf], a.fmeta[2 * nf],
                       a.fmeta[3 * nf], 0, 0};
       pdepth[s] = 0;
       for (int c = 0; c < 6; ++c) csums[6 * s + c] = 1.f;
+      couts[2 * s] = couts[2 * s + 1] = 0.f;
     }
   }
   for (int i = tid; i < 2 * S * nf; i += blockDim.x)
@@ -225,13 +250,15 @@ __device__ void pick_commit(const LoopArgs& a, int r) {
   const int* pdepth = a.bnd + bnd_depth_off(a.K);
   const float* csums =
       reinterpret_cast<const float*>(a.bnd + bnd_csums_off(a.K));
+  const float* couts =
+      reinterpret_cast<const float*>(a.bnd + bnd_couts_off(a.K));
   float* out = a.packed + static_cast<size_t>(r) * 2 * a.K * kPackCols;
   for (int c = threadIdx.x; c < 2 * S; c += blockDim.x) {
     const float* res = a.residue + static_cast<size_t>(c) * nf * 6;
     const float* cs = csums + 3 * c;
     float gbest = res[0];
     for (int f = 1; f < nf; ++f) gbest = nan_max(gbest, res[f * 6]);
-    const float shift = gain_shift(cs[0], cs[1], a.prm);
+    const float shift = gain_shift<kLoopOpts>(cs[0], cs[1], couts[c], a.prm);
     const float babs = isfinite(gbest) ? fabsf(gbest) : 0.f;
     const float floor_g =
         __fsub_rn(gbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
@@ -267,7 +294,7 @@ __device__ void pick_commit(const LoopArgs& a, int r) {
       float* ft = a.ft + static_cast<size_t>(cleaf) * kFtCols;
       ft[0] = depth_ok ? row[0] : -INFINITY;
       for (int k = 1; k < kPackCols; ++k) ft[k] = row[k];
-      ft[10] = leaf_output(cs[0], cs[1], a.prm);
+      ft[10] = couts[c];
       ft[11] = static_cast<float>(depth);
     }
   }
@@ -286,6 +313,57 @@ __device__ __forceinline__ void stamp(const LoopArgs& a, int i) {
     a.debug[i] = global_ns();
 }
 
+// Stage 4 of a round, by every block: scan_groups (slot, feature) items
+// a block at once, one a scan group (scan_item, wave_round.cuh) on its own
+// kScanSmemFloats; in subtraction mode an item also commits its pool rows
+// in place.  OPTS: the scan options compiled in.
+template <int PREC, int NC, bool SUB, bool QUANT, int OPTS>
+__device__ __forceinline__ void scan_stage(const LoopArgs& a, int n, int S,
+                                           int n_chunks, int nlh,
+                                           bool quant_r, float* smem) {
+  const int nf = a.nf;
+  const Slot* gslots = reinterpret_cast<const Slot*>(a.bnd + kBndHdr);
+  const float* csums =
+      reinterpret_cast<const float*>(a.bnd + bnd_csums_off(a.K));
+  const uint8_t* mask =
+      reinterpret_cast<const uint8_t*>(a.bnd + bnd_mask_off(a.K));
+  // the scan's parent outputs are the children's own outputs (JAX
+  // wave_fused.py:1140-1151)
+  const ScanLegs legs{nullptr, nullptr,
+                      reinterpret_cast<const float*>(a.bnd +
+                                                     bnd_couts_off(a.K)),
+                      nullptr, a.contri};
+  const size_t hrow = static_cast<size_t>(a.B) * 3;
+  const int g = threadIdx.x / kScanGroup;
+  if (g >= a.scan_groups) return;
+  const int slots_all = gridDim.x * a.scan_groups;
+  for (int w = blockIdx.x * a.scan_groups + g; w < S * nf; w += slots_all) {
+    const int s = w / nf, f = w % nf;
+    const Slot m = gslots[s];
+    float* par = nullptr;
+    float* out_r = nullptr;
+    if (SUB && s < n) {
+      par = a.pool + (static_cast<size_t>(m.leaf) * nf + f) * hrow;
+      out_r = a.pool + (static_cast<size_t>(m.nl) * nf + f) * hrow;
+    }
+    // a quantized grow's scales: the round's, or ones (QUANT only)
+    const float* sc = QUANT ? a.qscale + (quant_r ? 0 : 6) : nullptr;
+    if (quant_r) {
+      scan_item<kInt8sr, 3, SUB, OPTS>(
+          s, f, threadIdx.x % kScanGroup, 1 + g, a.partial, n_chunks, nf,
+          nlh, a.nb, a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par, sc,
+          nullptr, par, out_r, a.residue, a.prm, legs,
+          smem + g * kScanSmemFloats);
+    } else {
+      scan_item<PREC, NC, SUB, OPTS>(
+          s, f, threadIdx.x % kScanGroup, 1 + g, a.partial, n_chunks, nf,
+          nlh, a.nb, a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par, sc,
+          nullptr, par, out_r, a.residue, a.prm, legs,
+          smem + g * kScanSmemFloats);
+    }
+  }
+}
+
 template <int PREC, int NC, bool SUB, bool PACKED, bool QUANT>
 __global__ void __launch_bounds__(kThreads, 2)
 wave_loop_kernel(LoopArgs a) {
@@ -294,10 +372,6 @@ wave_loop_kernel(LoopArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int nf = a.nf;
   const Slot* gslots = reinterpret_cast<const Slot*>(a.bnd + kBndHdr);
-  const float* csums =
-      reinterpret_cast<const float*>(a.bnd + bnd_csums_off(a.K));
-  const uint8_t* mask =
-      reinterpret_cast<const uint8_t*>(a.bnd + bnd_mask_off(a.K));
   stamp(a, 0);
   if (blockIdx.x == 0) boundary(a, a.nl0, smem);
   grid.sync();
@@ -379,37 +453,14 @@ wave_loop_kernel(LoopArgs a) {
 
     // ---- 4. merge + subtract + scan, and the pool commit: scan_groups
     //      (slot, feature) items a block at once, one a scan group on its
-    //      own kScanSmemFloats -------------------------------------------
-    const size_t hrow = static_cast<size_t>(a.B) * 3;
-    const int g = threadIdx.x / kScanGroup;
-    if (g < a.scan_groups) {
-      const int slots_all = gridDim.x * a.scan_groups;
-      for (int w = blockIdx.x * a.scan_groups + g; w < S * nf;
-           w += slots_all) {
-        const int s = w / nf, f = w % nf;
-        const Slot m = gslots[s];
-        float* par = nullptr;
-        float* out_r = nullptr;
-        if (SUB && s < n) {
-          par = a.pool + (static_cast<size_t>(m.leaf) * nf + f) * hrow;
-          out_r = a.pool + (static_cast<size_t>(m.nl) * nf + f) * hrow;
-        }
-        // a quantized grow's scales: the round's, or ones (QUANT only)
-        const float* sc = QUANT ? a.qscale + (quant_r ? 0 : 6) : nullptr;
-        if (quant_r) {
-          scan_item<kInt8sr, 3, SUB>(
-              s, f, threadIdx.x % kScanGroup, 1 + g, a.partial, n_chunks, nf,
-              nlh, a.nb, a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par,
-              sc, nullptr, par, out_r, a.residue, a.prm,
-              smem + g * kScanSmemFloats);
-        } else {
-          scan_item<PREC, NC, SUB>(
-              s, f, threadIdx.x % kScanGroup, 1 + g, a.partial, n_chunks, nf,
-              nlh, a.nb, a.B, a.fmeta, mask, csums, SUB && m.sml != 0, par,
-              sc, nullptr, par, out_r, a.residue, a.prm,
-              smem + g * kScanSmemFloats);
-        }
-      }
+    //      own kScanSmemFloats; the constrained legs' instance when the
+    //      launch runs one -------------------------------------------------
+    if (a.prm.opts) {
+      scan_stage<PREC, NC, SUB, QUANT, kLoopOpts>(a, n, S, n_chunks, nlh,
+                                                  quant_r, smem);
+    } else {
+      scan_stage<PREC, NC, SUB, QUANT, 0>(a, n, S, n_chunks, nlh, quant_r,
+                                          smem);
     }
     grid.sync();
     stamp(a, st + 3);
@@ -550,7 +601,9 @@ int lgbm_wave_loop_limits(int precision, int sub, int packed_bins, int nb,
 // n) packed bytes of the nf features (nb must then be 16).
 // `debug` (null, or lgbm_wave_loop_debug_words(R) zeroed words) receives
 // block 0's globaltimer stamps (ns) after each grid barrier and each
-// round's live rows.
+// round's live rows.  `opts` (kLoopOpts bits at most) names the scan's
+// legs, with max_delta_step / path_smooth their values and `contri`
+// (nf,) f32 the contri multipliers (null without kOptContri).
 int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          void* ft, void* pool, const void* fmeta,
                          const void* base_mask, const void* zq, void* q3,
@@ -558,14 +611,16 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          void* packed, void* n_split,
                          void* label, void* tile_cnt, void* lrow, void* lslot,
                          void* lcnt, void* partial, void* residue, void* bnd,
-                         void* debug, const void* tables, int n, int nf,
-                         int B, int nb,
+                         void* debug, const void* tables, const void* contri,
+                         int n, int nf, int B, int nb,
                          int L, int K, int R, int num_leaves, int max_depth,
                          int n_buckets, int precision, int sub,
                          int packed_bins, float l1, float l2,
                          float min_data, float min_hess, float min_gain,
-                         void* stream) {
-  if (n_buckets < 1 || n_buckets > kMaxLadder)
+                         float max_delta_step, float path_smooth,
+                         float monotone_penalty, int opts, void* stream) {
+  if (n_buckets < 1 || n_buckets > kMaxLadder || (opts & ~kLoopOpts) ||
+      ((opts & kOptContri) && !contri))
     return static_cast<int>(cudaErrorInvalidValue);
   const int* t = static_cast<const int*>(tables);
   const bool quant = any_quant(n_buckets, t + 4 * n_buckets);
@@ -617,7 +672,10 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
         a.chunk_rows[b] % kThreads != 0)
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  a.prm = ScanParams{l1, l2, min_data, min_hess, min_gain};
+  a.prm = ScanParams{l1,        l2,          min_data,
+                     min_hess,  min_gain,    max_delta_step,
+                     path_smooth, monotone_penalty, opts};
+  a.contri = static_cast<const float*>(contri);
   const int nc = precision == kBf16x2 ? 6 : 3;
   const size_t smem = loop_smem(nc, nb, L, K, n_buckets, a.ls_max, a.quant);
   int lim[4];

@@ -198,9 +198,49 @@ __device__ __forceinline__ void list_tile(int t, const int* label,
   __syncthreads();  // red is read before the next tile writes it
 }
 
+
+// The scan's options (the reference GetSplitGains<USE_MC, USE_MAX_OUTPUT,
+// USE_SMOOTHING>, feature_histogram.hpp:740-839, and the feature_contri
+// multiply): bits of the OPTS template of scan_child and of
+// ScanParams::opts (ops/scan_cuda.py OPT_*).  A kernel instantiated with
+// a bit compiles that leg in and runs it when the launch's opts has the
+// bit too; OPTS = 0 is the unconstrained scan's code alone.
+constexpr int kOptMc = 1;      // monotone constraints
+constexpr int kOptSmooth = 2;  // path_smooth
+constexpr int kOptMaxOut = 4;  // max_delta_step
+constexpr int kOptContri = 8;  // feature_contri
+constexpr int kOptAll = 15;
+
 struct ScanParams {
   float l1, l2, min_data, min_hess, min_gain;
+  float max_delta_step, path_smooth, monotone_penalty;
+  int opts;  // the kOpt* legs this launch runs
 };
+
+// The options' per-child and per-feature inputs (null where off): the
+// children's [min, max] output bounds (C, 2) and monotone penalty
+// factors (C,) (ops/split.py monotone_penalty_factors, read when
+// ScanParams::monotone_penalty > 0), the parents' outputs (C,) the
+// children smooth toward, the features' monotone types (nf,) i32
+// (kOptMc) and contri multipliers (nf,).
+struct ScanLegs {
+  const float* constr;
+  const float* pfac;
+  const float* pout;
+  const int* mono;
+  const float* contri;
+};
+
+template <int OPTS>
+__device__ __forceinline__ bool leg_on(const ScanParams& p, int bit) {
+  return (OPTS & bit) != 0 && (p.opts & bit) != 0;
+}
+
+// torch.clamp(x, lo, hi): max then min, a NaN passes.
+__device__ __forceinline__ float clamp_nan(float x, float lo, float hi) {
+  x = x < lo ? lo : x;
+  return x > hi ? hi : x;
+}
 
 // ops/split.py threshold_l1: sign(s) * clamp(|s| - l1, min=0).
 __device__ __forceinline__ float threshold_l1(float s, float l1) {
@@ -210,23 +250,67 @@ __device__ __forceinline__ float threshold_l1(float s, float l1) {
   return __fmul_rn(sg, a);
 }
 
-// ops/split.py leaf_gain: t * t / (h + l2).
+// ops/split.py leaf_output: -threshold_l1(g) / (h + l2), clamped to
+// +-max_delta_step under kOptMaxOut.
+template <int OPTS>
+__device__ __forceinline__ float leaf_output(float g, float h,
+                                             const ScanParams& p) {
+  const float out = __fdiv_rn(-threshold_l1(g, p.l1), __fadd_rn(h, p.l2));
+  if (leg_on<OPTS>(p, kOptMaxOut))
+    return clamp_nan(out, -p.max_delta_step, p.max_delta_step);
+  return out;
+}
+
+// ops/split.py leaf_gain_given_output: -(2 t out + (h + l2) out out).
+__device__ __forceinline__ float leaf_gain_given_output(float g, float h,
+                                                        float out,
+                                                        const ScanParams& p) {
+  const float t = threshold_l1(g, p.l1);
+  return -__fadd_rn(__fmul_rn(__fmul_rn(2.f, t), out),
+                    __fmul_rn(__fmul_rn(__fadd_rn(h, p.l2), out), out));
+}
+
+// ops/split.py leaf_gain: t * t / (h + l2); under kOptMaxOut the gain at
+// the clamped output.
+template <int OPTS>
 __device__ __forceinline__ float leaf_gain(float g, float h,
                                            const ScanParams& p) {
+  if (leg_on<OPTS>(p, kOptMaxOut))
+    return leaf_gain_given_output(g, h, leaf_output<OPTS>(g, h, p), p);
   const float t = threshold_l1(g, p.l1);
   return __fdiv_rn(__fmul_rn(t, t), __fadd_rn(h, p.l2));
 }
 
-// ops/split.py gain_shift: the parent's gain + min_gain_to_split.
-__device__ __forceinline__ float gain_shift(float g, float h,
-                                            const ScanParams& p) {
-  return __fadd_rn(leaf_gain(g, h, p), p.min_gain);
+// ops/split.py smooth_output: out w / (w + 1) + parent / (w + 1), w =
+// count / path_smooth.
+__device__ __forceinline__ float smooth_output(float out, float count,
+                                               float parent,
+                                               const ScanParams& p) {
+  const float w = __fdiv_rn(count, p.path_smooth);
+  const float w1 = __fadd_rn(w, 1.f);
+  return __fadd_rn(__fdiv_rn(__fmul_rn(out, w), w1), __fdiv_rn(parent, w1));
 }
 
-// ops/split.py leaf_output: -threshold_l1(g) / (h + l2).
-__device__ __forceinline__ float leaf_output(float g, float h,
-                                             const ScanParams& p) {
-  return __fdiv_rn(-threshold_l1(g, p.l1), __fadd_rn(h, p.l2));
+// ops/split.py child_leaf_output without a bound: a child's output from
+// its sums, smoothed toward the parent's output `parent` under
+// kOptSmooth (K6's commit; the loop runs no monotone leg).
+template <int OPTS>
+__device__ __forceinline__ float child_output(float g, float h, float c,
+                                              float parent,
+                                              const ScanParams& p) {
+  const float out = leaf_output<OPTS>(g, h, p);
+  return leg_on<OPTS>(p, kOptSmooth) ? smooth_output(out, c, parent, p) : out;
+}
+
+// ops/split.py gain_shift: the parent's gain (under kOptSmooth at its
+// output `pout`) + min_gain_to_split.
+template <int OPTS>
+__device__ __forceinline__ float gain_shift(float g, float h, float pout,
+                                            const ScanParams& p) {
+  const float pg = leg_on<OPTS>(p, kOptSmooth)
+                       ? leaf_gain_given_output(g, h, pout, p)
+                       : leaf_gain<OPTS>(g, h, p);
+  return __fadd_rn(pg, p.min_gain);
 }
 
 // max that lets a NaN through, as torch's max reduction does
@@ -234,6 +318,145 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   if (a != a) return a;
   if (b != b) return b;
   return a > b ? a : b;
+}
+
+// One child's split scan of feature f by one warp (lane its thread):
+// ops/split.py scan_residue on the child's (B, 3) row `h` in shared
+// memory, with `left` [2][kMaxBins][3] and `gains` [2 kMaxBins] its
+// shared scratch.  `sc` (null: none) holds the child's 3 scales, which
+// multiply the prefix sums after the cumulative sum and the
+// missing-mass reads (an int8sr child pool-free); `cs` its sums.  Writes
+// the residue row [best gain, gain at the pick, pick, left g/h/c] of
+// (child, f).  The split-scan kernel (split_scan.cu), K2 and K6 run this
+// one function.
+template <int OPTS>
+__device__ __forceinline__ void scan_child(
+    const float (*h)[3], float (*left)[kMaxBins][3], float* gains, int lane,
+    int child, int f, int nf, int B, const int* __restrict__ fmeta,
+    bool usable, const float* sc, const float* cs, const ScanParams& prm,
+    const ScanLegs& legs, float* residue) {
+  const int nbins_f = fmeta[f];
+  const int mt = fmeta[nf + f];
+  const int nanb = fmeta[2 * nf + f];
+  const int zb = fmeta[3 * nf + f];
+  const bool is_nan_f = mt == kMissingNan;
+  const bool is_zero_f = mt == kMissingZero;
+
+  // ---- scan_left_sums: both directions' left sums in bin order ---------
+  if (lane < 3) {
+    const int ch = lane;
+    float nan_c = h[nanb < 0 ? 0 : nanb][ch];
+    float zero_c = h[zb][ch];
+    if (sc) {
+      nan_c = __fmul_rn(nan_c, sc[ch]);
+      zero_c = __fmul_rn(zero_c, sc[ch]);
+    }
+    double acc = 0.0;
+    for (int b = 0; b < B; ++b) {
+      acc += static_cast<double>(h[b][ch]);
+      float cum = static_cast<float>(acc);
+      if (sc) cum = __fmul_rn(cum, sc[ch]);
+      left[0][b][ch] = __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
+      left[1][b][ch] = __fadd_rn(
+          cum, is_nan_f ? nan_c : ((is_zero_f && b < zb) ? zero_c : 0.f));
+    }
+  }
+  __syncwarp();
+
+  // ---- scan_direction_gains ---------------------------------------------
+  const bool mc = leg_on<OPTS>(prm, kOptMc);
+  const bool smooth = leg_on<OPTS>(prm, kOptSmooth);
+  const float tg = cs[0], th = cs[1], tc = cs[2];
+  const float pout = smooth ? legs.pout[child] : 0.f;
+  const float lo = mc ? legs.constr[2 * child] : 0.f;
+  const float hi = mc ? legs.constr[2 * child + 1] : 0.f;
+  const int mono = mc ? legs.mono[f] : 0;
+  // the relative-gain multipliers of finite gains: contri, then the
+  // monotone depth penalty on a monotone feature
+  const bool contri = leg_on<OPTS>(prm, kOptContri);
+  const float cf = contri ? legs.contri[f] : 1.f;
+  const bool pen = mc && prm.monotone_penalty > 0.f && mono != 0;
+  const float pf = pen ? legs.pfac[child] : 1.f;
+  const float shift = gain_shift<OPTS>(tg, th, pout, prm);
+  const bool has_miss = is_nan_f || is_zero_f;
+  float fbest = -INFINITY;
+  for (int j = lane; j < 2 * B; j += 32) {
+    const int dir = j >= B;
+    const int t = j - dir * B;
+    const float lg = left[dir][t][0], lh = left[dir][t][1],
+                lc = left[dir][t][2];
+    const float rg = __fsub_rn(tg, lg), rh = __fsub_rn(th, lh),
+                rc = __fsub_rn(tc, lc);
+    bool ok = lc >= prm.min_data && rc >= prm.min_data &&
+              lh >= prm.min_hess && rh >= prm.min_hess;
+    float gain;
+    if (!mc && !smooth) {
+      gain = __fadd_rn(leaf_gain<OPTS>(lg, lh, prm),
+                       leaf_gain<OPTS>(rg, rh, prm));
+    } else {
+      float ol = leaf_output<OPTS>(lg, lh, prm);
+      float orr = leaf_output<OPTS>(rg, rh, prm);
+      if (smooth) {
+        ol = smooth_output(ol, lc, pout, prm);
+        orr = smooth_output(orr, rc, pout, prm);
+      }
+      if (mc) {
+        ol = clamp_nan(ol, lo, hi);
+        orr = clamp_nan(orr, lo, hi);
+      }
+      gain = __fadd_rn(leaf_gain_given_output(lg, lh, ol, prm),
+                       leaf_gain_given_output(rg, rh, orr, prm));
+      if (mc && ((mono > 0 && ol > orr) || (mono < 0 && ol < orr)))
+        ok = false;
+    }
+    const bool valid = t <= nbins_f - 2 && usable && (dir == 0 || has_miss);
+    float g = __fsub_rn((valid && ok) ? gain : -INFINITY, shift);
+    if (isfinite(g)) {
+      if (contri) g = __fmul_rn(g, cf);
+      if (pen) g = __fmul_rn(g, pf);
+    }
+    gains[j] = g;
+    fbest = nan_max(fbest, g);
+  }
+  for (int o = 16; o > 0; o >>= 1)
+    fbest = nan_max(fbest, __shfl_xor_sync(0xffffffffu, fbest, o));
+  __syncwarp();
+
+  // ---- scan_pick_feature: the tie-band preference pick ------------------
+  const float babs = isfinite(fbest) ? fabsf(fbest) : 0.f;
+  const float floor_g =
+      __fsub_rn(fbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
+  const bool rev_like_a = mt == kMissingNone || nbins_f <= 2;
+  int best_pref = -2, best_j = 0;
+  for (int j = lane; j < 2 * B; j += 32) {
+    const int dir = j >= B;
+    const int t = j - dir * B;
+    const int pref = (dir || rev_like_a) ? 2 * B + t : B - 1 - t;
+    const int v = gains[j] >= floor_g ? pref : -1;
+    if (v > best_pref) {  // strictly: the first index of the best wins
+      best_pref = v;
+      best_j = j;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const int op = __shfl_xor_sync(0xffffffffu, best_pref, o);
+    const int oj = __shfl_xor_sync(0xffffffffu, best_j, o);
+    if (op > best_pref || (op == best_pref && oj < best_j)) {
+      best_pref = op;
+      best_j = oj;
+    }
+  }
+  if (lane == 0) {
+    const int dir = best_j >= B;
+    const int t = best_j - dir * B;
+    float* r = residue + (static_cast<size_t>(child) * nf + f) * 6;
+    r[0] = fbest;
+    r[1] = gains[best_j];
+    r[2] = static_cast<float>(best_j);
+    r[3] = left[dir][t][0];
+    r[4] = left[dir][t][1];
+    r[5] = left[dir][t][2];
+  }
 }
 
 // Shared memory of scan_item: h2 [2][kMaxBins][3], left2
@@ -254,8 +477,8 @@ __device__ __forceinline__ void group_sync(int id) {
 // group (gtid its thread, `bar` its named barrier, `sm` its
 // kScanSmemFloats of shared memory): its kScanGroup threads merge the
 // partials (merge_cell, in chunk order), then warp 0 scans the left child
-// and warp 1 the right.  It opens with a group barrier, so a group may run
-// items back to back.  In subtraction mode `par`
+// and warp 1 the right (scan_child).  It opens with a group barrier, so a
+// group may run items back to back.  In subtraction mode `par`
 // is the slot's parent histogram of feature f ((B, 3), or null for a zero
 // parent) and `sml` says the smaller child is the left one; `hs` (the
 // smaller child) and `out_l` / `out_r` (the children) receive their
@@ -267,15 +490,16 @@ __device__ __forceinline__ void group_sync(int id) {
 // subtraction (the Pallas kernel's apply_scale, hsmall stays raw);
 // pool-free the two children's 3 scales each multiply the prefix sums
 // after the cumulative sum and the missing-mass reads (child_scale).
-// Every scale is a power of two, so each multiply is exact.
-template <int PREC, int NC, bool SUB>
+// Every scale is a power of two, so each multiply is exact.  OPTS /
+// prm.opts / legs: the scan's options (scan_child).
+template <int PREC, int NC, bool SUB, int OPTS>
 __device__ __forceinline__ void scan_item(
     int s, int f, int gtid, int bar, const float* partial, int n_chunks,
     int nf, int nl, int nb, int B, const int* __restrict__ fmeta,
     const uint8_t* mask,
     const float* csums, bool sml, const float* par, const float* scale,
     float* hs, float* out_l, float* out_r, float* residue,
-    const ScanParams& prm, float* sm) {
+    const ScanParams& prm, const ScanLegs& legs, float* sm) {
   float(*h2)[kMaxBins][3] = reinterpret_cast<float(*)[kMaxBins][3]>(sm);
   float(*left2)[2][kMaxBins][3] =
       reinterpret_cast<float(*)[2][kMaxBins][3]>(sm + 2 * kMaxBins * 3);
@@ -316,100 +540,11 @@ __device__ __forceinline__ void scan_item(
   group_sync(bar);
 
   const int w = tid >> 5;
-  const int lane = tid & 31;
   const int child = 2 * s + w;
-  const int nbins_f = fmeta[f];
-  const int mt = fmeta[nf + f];
-  const int nanb = fmeta[2 * nf + f];
-  const int zb = fmeta[3 * nf + f];
   const bool usable = fmeta[4 * nf + f] != 0 && mask[child * nf + f] != 0;
-  const bool is_nan_f = mt == kMissingNan;
-  const bool is_zero_f = mt == kMissingZero;
-
-  // ---- scan_left_sums: both directions' left sums in bin order ---------
-  if (lane < 3) {
-    const int ch = lane;
-    const float sc = !SUB && scale ? scale[3 * w + ch] : 1.f;
-    float nan_c = h2[w][nanb < 0 ? 0 : nanb][ch];
-    float zero_c = h2[w][zb][ch];
-    if (!SUB && scale) {
-      nan_c = __fmul_rn(nan_c, sc);
-      zero_c = __fmul_rn(zero_c, sc);
-    }
-    double acc = 0.0;
-    for (int b = 0; b < B; ++b) {
-      acc += static_cast<double>(h2[w][b][ch]);
-      float cum = static_cast<float>(acc);
-      if (!SUB && scale) cum = __fmul_rn(cum, sc);
-      left2[w][0][b][ch] =
-          __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
-      left2[w][1][b][ch] = __fadd_rn(
-          cum, is_nan_f ? nan_c : ((is_zero_f && b < zb) ? zero_c : 0.f));
-    }
-  }
-  __syncwarp();
-
-  // ---- scan_direction_gains ---------------------------------------------
-  const float tg = csums[child * 3], th = csums[child * 3 + 1],
-              tc = csums[child * 3 + 2];
-  const float shift = gain_shift(tg, th, prm);
-  const bool has_miss = is_nan_f || is_zero_f;
-  float fbest = -INFINITY;
-  for (int j = lane; j < 2 * B; j += 32) {
-    const int dir = j >= B;
-    const int t = j - dir * B;
-    const float lg = left2[w][dir][t][0], lh = left2[w][dir][t][1],
-                lc = left2[w][dir][t][2];
-    const float rg = __fsub_rn(tg, lg), rh = __fsub_rn(th, lh),
-                rc = __fsub_rn(tc, lc);
-    const bool ok = lc >= prm.min_data && rc >= prm.min_data &&
-                    lh >= prm.min_hess && rh >= prm.min_hess;
-    const float gain = __fadd_rn(leaf_gain(lg, lh, prm),
-                                 leaf_gain(rg, rh, prm));
-    const bool valid = t <= nbins_f - 2 && usable && (dir == 0 || has_miss);
-    const float g = __fsub_rn((valid && ok) ? gain : -INFINITY, shift);
-    gains[w][j] = g;
-    fbest = nan_max(fbest, g);
-  }
-  for (int o = 16; o > 0; o >>= 1)
-    fbest = nan_max(fbest, __shfl_xor_sync(0xffffffffu, fbest, o));
-  __syncwarp();
-
-  // ---- scan_pick_feature: the tie-band preference pick ------------------
-  const float babs = isfinite(fbest) ? fabsf(fbest) : 0.f;
-  const float floor_g =
-      __fsub_rn(fbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
-  const bool rev_like_a = mt == kMissingNone || nbins_f <= 2;
-  int best_pref = -2, best_j = 0;
-  for (int j = lane; j < 2 * B; j += 32) {
-    const int dir = j >= B;
-    const int t = j - dir * B;
-    const int pref = (dir || rev_like_a) ? 2 * B + t : B - 1 - t;
-    const int v = gains[w][j] >= floor_g ? pref : -1;
-    if (v > best_pref) {  // strictly: the first index of the best wins
-      best_pref = v;
-      best_j = j;
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) {
-    const int op = __shfl_xor_sync(0xffffffffu, best_pref, o);
-    const int oj = __shfl_xor_sync(0xffffffffu, best_j, o);
-    if (op > best_pref || (op == best_pref && oj < best_j)) {
-      best_pref = op;
-      best_j = oj;
-    }
-  }
-  if (lane == 0) {
-    const int dir = best_j >= B;
-    const int t = best_j - dir * B;
-    float* r = residue + (static_cast<size_t>(child) * nf + f) * 6;
-    r[0] = fbest;
-    r[1] = gains[w][best_j];
-    r[2] = static_cast<float>(best_j);
-    r[3] = left2[w][dir][t][0];
-    r[4] = left2[w][dir][t][1];
-    r[5] = left2[w][dir][t][2];
-  }
+  scan_child<OPTS>(h2[w], left2[w], gains[w], tid & 31, child, f, nf, B,
+                   fmeta, usable, !SUB && scale ? scale + 3 * w : nullptr,
+                   csums + 3 * child, prm, legs, residue);
 }
 
 }  // namespace lgbm

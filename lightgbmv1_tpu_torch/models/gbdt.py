@@ -78,13 +78,18 @@ class GBDT:
             config, num_total_bin=train_set.num_total_bin,
             device=self.device, bin_dtype=binned.dtype) == "packed4"
         self.binned = pack4bit(binned) if self._packed else binned
-        self.meta = make_feature_meta(train_set, self.device)
+        self.meta = make_feature_meta(train_set, self.device,
+                                      config.monotone_constraints,
+                                      config.feature_contri)
         self.num_bins = train_set.padded_bin
         self.split_params = SplitParams(
             lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
             min_data_in_leaf=float(config.min_data_in_leaf),
             min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-            min_gain_to_split=config.min_gain_to_split)
+            min_gain_to_split=config.min_gain_to_split,
+            max_delta_step=float(config.max_delta_step),
+            path_smooth=float(config.path_smooth),
+            monotone_penalty=float(config.monotone_penalty))
         self._grow = build_trainer(config, self.meta, self.split_params,
                                    self.num_bins, self.device,
                                    bin_dtype=self.binned.dtype,

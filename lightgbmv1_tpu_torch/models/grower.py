@@ -38,9 +38,18 @@ Both take ``packed``: ``binned`` holds 4-bit packed bytes
 leg) and the partitions decode their split feature's nibble
 (``hist_cuda.bins_of_feat`` / ``bins_of_rows``).
 
-Forced splits, CEGB, monotone and interaction constraints, per-node
-feature sampling and extra_trees are not ported (the config refuses
-them): every node's feature mask is the tree's.
+Both run ``basic`` monotone constraints (JAX :549-570, :1053-1073;
+``intermediate`` runs on the wave grower, the trainer resolves it):
+each leaf's [min, max] output bound, its children's outputs clamped to
+it and their bounds cut at the midpoint of the two outputs
+(``BasicLeafConstraints::Update``); a scan takes its leaves' bounds,
+depths (the sequential grower's own, the level's on the level-wise one,
+as the JAX package passes them) and current outputs (path smoothing).
+The root's output is smoothed toward 0 under ``path_smooth``.
+
+Forced splits, CEGB, interaction constraints, per-node feature sampling
+and extra_trees are not ported (the config refuses them): every node's
+feature mask is the tree's.
 """
 
 from __future__ import annotations
@@ -51,15 +60,56 @@ from typing import Callable
 import torch
 
 from ..ops.hist_cuda import bins_of_feat, bins_of_rows
-from ..ops.split import (NEG_INF, FeatureMeta, SplitParams,
+from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
-                         leaf_output)
+                         leaf_output, smooth_output)
 from ..utils.log import log_info
 from .tree import empty_tree
 
 # the auto cap of the sequential grower's histogram pool and of the
 # level-wise grower's carried level histograms (JAX :281, :878)
 _POOL_AUTO_BYTES = 512.0 * (1 << 20)
+
+
+def root_sums(g3):
+    """The rows' (3,) [g, h, c] sums: an f32 reduction, as the JAX
+    package's ``sums_fn``, rounded in the device's own order (the one
+    place a grower sums rows outside K1)."""
+    return g3.sum(dim=0)
+
+
+def root_output(root_sum, params: SplitParams):
+    """The root's output, smoothed toward 0 under path smoothing (JAX
+    :437-439)."""
+    out = leaf_output(root_sum[0], root_sum[1], params)
+    if params.path_smooth > 0:
+        out = smooth_output(out, root_sum[2], 0.0, params)
+    return out
+
+
+def child_constraints(pconstr, out_l, out_r, mono, intermediate):
+    """The children's (n, 2) bounds from their parents' ``pconstr`` (n,
+    2), their outputs and the split features' monotone types ``mono``
+    (n,): ``BasicLeafConstraints::Update`` (the midpoint; JAX grower.py
+    :549-570, grower_wave.py :1151-1165) or, ``intermediate``, the
+    sibling's output (JAX grower_wave.py :1131-1150)."""
+    lo, hi = pconstr[:, 0], pconstr[:, 1]
+    inc, dec = mono > 0, mono < 0
+    if intermediate:
+        bound_l, bound_r = out_r, out_l
+    else:
+        bound_l = bound_r = 0.5 * (out_l + out_r)
+    max_l = torch.where(inc, torch.minimum(hi, bound_l), hi)
+    min_l = torch.where(dec, torch.maximum(lo, bound_l), lo)
+    max_r = torch.where(dec, torch.minimum(hi, bound_r), hi)
+    min_r = torch.where(inc, torch.maximum(lo, bound_r), lo)
+    return (torch.stack([min_l, max_l], dim=1),
+            torch.stack([min_r, max_r], dim=1))
+
+
+def no_constraints(n, dev):
+    return torch.tensor(NO_CONSTRAINT, dtype=torch.float32,
+                        device=dev).repeat(n, 1)
 
 
 def make_leafwise_grower(*, num_leaves: int, num_bins: int,
@@ -78,6 +128,7 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
     cap_bytes = (hist_pool_mb * (1 << 20) if hist_pool_mb > 0
                  else _POOL_AUTO_BYTES)
     use_pool = pool_bytes <= cap_bytes
+    use_mc = meta.monotone_type is not None
     if not use_pool:
         log_info(f"Histogram pool would need {pool_bytes / (1 << 20):.0f} "
                  f"MB (> {cap_bytes / (1 << 20):.0f} MB cap); using "
@@ -90,10 +141,14 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
         F = base_mask.shape[0]
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
         hist0 = hist_fn(binned, g3, leaf_id, 0)
-        root_sum = g3.sum(dim=0)
+        root_sum = root_sums(g3)
         masks2 = base_mask[None, :].expand(2, F)
+        out0 = root_output(root_sum, params)
         res0 = find_best_split(hist0[None], root_sum[None], meta,
-                               base_mask[None], params)
+                               base_mask[None], params,
+                               depth=torch.zeros(1, dtype=torch.int64,
+                                                 device=dev),
+                               parent_output=out0[None])
         tree = empty_tree(L, dev)
         f32 = torch.float32
         pool = (torch.zeros((L,) + tuple(hist0.shape), dtype=f32, device=dev)
@@ -104,7 +159,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
         leaf_sums = torch.zeros((L, 3), dtype=f32, device=dev)
         leaf_sums[0] = root_sum
         leaf_out = torch.zeros(L, dtype=f32, device=dev)
-        leaf_out[0] = leaf_output(root_sum[0], root_sum[1], params)
+        leaf_out[0] = out0
+        leaf_constr = no_constraints(L, dev) if use_mc else None
         best_gain = torch.full((L,), NEG_INF, dtype=f32, device=dev)
         best_feat = torch.zeros(L, dtype=torch.int64, device=dev)
         best_bin = torch.zeros(L, dtype=torch.int64, device=dev)
@@ -186,9 +242,19 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                                    else (h_large, h_small))
             d = depth[leaf] + 1
             csums = torch.stack([lsum, rsum])
-            couts = child_leaf_output(csums, params)
-            res = find_best_split(torch.stack([h_left, h_right]), csums,
-                                  meta, masks2, params)
+            pconstr = leaf_constr[li][None] if use_mc else None
+            couts = child_leaf_output(csums, params, pconstr, leaf_out[li])
+            cconstr = None
+            if use_mc:
+                c_l, c_r = child_constraints(
+                    pconstr, couts[0:1], couts[1:2],
+                    meta.monotone_type[feat][None], intermediate=False)
+                cconstr = torch.cat([c_l, c_r])
+            res = find_best_split(
+                torch.stack([h_left, h_right]), csums, meta, masks2, params,
+                constraint=cconstr,
+                depth=torch.full((2,), d, dtype=torch.int64, device=dev),
+                parent_output=couts)
             gains = (res.gain if max_depth <= 0 or d < max_depth
                      else torch.full_like(res.gain, NEG_INF))
 
@@ -213,6 +279,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             tree.leaf_parent[idx] = node
             leaf_sums[idx] = csums
             leaf_out[idx] = couts
+            if use_mc:
+                leaf_constr[idx] = cconstr
             store_best(idx, res, gains)
             depth[leaf] = depth[nl] = d
             parent[leaf] = parent[nl] = node
@@ -248,6 +316,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
     levels = math.ceil(math.log2(max(L, 2)))
     if max_depth > 0:
         levels = min(levels, max_depth)
+    use_mc = meta.monotone_type is not None
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
              base_mask: torch.Tensor):
@@ -256,12 +325,13 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
         F = base_mask.shape[0]
         f32 = torch.float32
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
-        root_sum = g3.sum(dim=0)
+        root_sum = root_sums(g3)
         tree = empty_tree(L, dev)
         leaf_sums = torch.zeros((L, 3), dtype=f32, device=dev)
         leaf_sums[0] = root_sum
         leaf_out = torch.zeros(L, dtype=f32, device=dev)
-        leaf_out[0] = leaf_output(root_sum[0], root_sum[1], params)
+        leaf_out[0] = root_output(root_sum, params)
+        leaf_constr = no_constraints(L, dev) if use_mc else None
         leaf_active = torch.zeros(L, dtype=torch.bool, device=dev)
         leaf_active[0] = True
         leaf_is_left = torch.zeros(L, dtype=torch.bool, device=dev)
@@ -296,8 +366,11 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                 hist[p_new[p_sel]] = h_right[p_sel]
             # the whole level in one batched scan (JAX
             # find_best_split_batch, a vmap)
-            res = find_best_split(hist, leaf_sums[:Ld], meta,
-                                  base_mask[None, :].expand(Ld, F), params)
+            res = find_best_split(
+                hist, leaf_sums[:Ld], meta, base_mask[None, :].expand(Ld, F),
+                params, constraint=leaf_constr[:Ld] if use_mc else None,
+                depth=torch.full((Ld,), d, dtype=torch.int64, device=dev),
+                parent_output=leaf_out[:Ld])
             gains = torch.where(leaf_active[:Ld], res.gain,
                                 torch.full_like(res.gain, NEG_INF))
             want = gains > 0
@@ -328,8 +401,13 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
 
             nlf = new_leaf[sel]
             lsum, rsum = res.left_sum[sel], res.right_sum[sel]
-            lout = child_leaf_output(lsum, params)
-            rout = child_leaf_output(rsum, params)
+            pconstr = leaf_constr[sel] if use_mc else None
+            lout = child_leaf_output(lsum, params, pconstr, leaf_out[sel])
+            rout = child_leaf_output(rsum, params, pconstr, leaf_out[sel])
+            if use_mc:
+                lcon, rcon = child_constraints(
+                    pconstr, lout, rout, meta.monotone_type[res.feature[sel]],
+                    intermediate=False)
             # each split leaf's parent pointer now names its node, whose
             # children are the leaf (left) and the new leaf, as ~leaf
             par, was_left = tree.leaf_parent[sel].long(), leaf_is_left[sel]
@@ -347,6 +425,9 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
             tree.internal_value[nd] = leaf_out[sel]
             tree.internal_weight[nd] = leaf_sums[sel, 1]
             tree.internal_count[nd] = leaf_sums[sel, 2]
+            if use_mc:
+                leaf_constr[sel] = lcon
+                leaf_constr[nlf] = rcon
             for leafs, sums, outs, left in ((sel, lsum, lout, True),
                                             (nlf, rsum, rout, False)):
                 tree.leaf_value[leafs] = outs

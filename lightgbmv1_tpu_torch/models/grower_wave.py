@@ -66,12 +66,25 @@ quantized buckets every round carries scales, ones on the others, as
 the JAX package does.  The fused round and the loop quantize with the
 same stream (the quantize kernel and K6's in-kernel draw on the card).
 
-Categorical splits, monotone constraints, CEGB, per-node feature
-sampling and interaction constraints are not ported (the config refuses
-them): every child's feature mask is the tree's, and the split scan and
-the root sums are the serial learner's own (the JAX version's
-``split_fn`` / ``sums_fn`` hooks carry the cross-chip reductions, which
-the port has not).
+Monotone constraints (JAX :216-252, :490-586, :1040-1060, :1111-1165):
+``basic`` mode bounds each child by the midpoint of the two children's
+outputs (``BasicLeafConstraints::Update``); ``intermediate`` mode keeps a
+bin-space box a leaf, recomputes every frontier leaf's bounds a round
+from the outputs of the leaves adjacent to it along a monotone feature
+(``intermediate_constraints``), bounds each child by its sibling's
+output, and defers a leaf adjacent to a higher-ranked pick of the same
+round (in rank order, as the JAX loop does: it decides which leaves
+split).  The bounds ride in two more store columns; each child's output
+is clamped to its parent's bound (``clamp_out``), and the children's
+bounds, depths and outputs feed the scan (staged and fused).  Path
+smoothing, ``max_delta_step`` and ``feature_contri`` are the scan's and
+``clamp_out``'s; the root's output is smoothed toward 0.
+
+Categorical splits, CEGB, per-node feature sampling and interaction
+constraints are not ported (the config refuses them): every child's
+feature mask is the tree's, and the split scan and the root sums are the
+serial learner's own (the JAX version's ``split_fn`` / ``sums_fn`` hooks
+carry the cross-chip reductions, which the port has not).
 """
 
 from __future__ import annotations
@@ -82,11 +95,12 @@ import torch
 
 from ..ops.hist_cuda import bins_of_rows
 from ..ops.quantize import prequantize_rows
-from ..ops.split import (NEG_INF, FeatureMeta, SplitParams,
+from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
-                         leaf_output)
+                         leaf_output, smooth_output)
 from ..ops.wave_fused import subtract_children, unpack_children
 from ..utils.prng import fold_in
+from .grower import child_constraints, root_sums
 from .tree import TreeArrays
 
 # Slot bucketing starts at this many rows (each bucket is one more
@@ -144,34 +158,109 @@ def subtract_child_hists(h_slot, leaf_hist, leafs, order_c, sm_left,
                              else slot_scale[order_c])
 
 
+def _box_adjacency_per_feature(lo, hi, feats):
+    """``(f, adj_up, adj_dn)`` (L, L) adjacency of leaf boxes along each
+    feature of ``feats`` (JAX :191): A -> B adjacent-up along f when
+    hi_A[f] == lo_B[f] and the boxes overlap in every other feature; the
+    overlap counts accumulate in blocks of 256 features."""
+    L, F = lo.shape
+    ov_cnt = torch.zeros((L, L), dtype=torch.int64, device=lo.device)
+    for c0 in range(0, F, 256):
+        c1 = min(c0 + 256, F)
+        ov_cnt += ((lo[:, None, c0:c1] < hi[None, :, c0:c1])
+                   & (lo[None, :, c0:c1] < hi[:, None, c0:c1])).sum(dim=2)
+    for f in feats:
+        ov_f = (lo[:, None, f] < hi[None, :, f]) & (lo[None, :, f]
+                                                     < hi[:, None, f])
+        other = (ov_cnt - ov_f.long()) == F - 1
+        yield (f, (hi[:, None, f] == lo[None, :, f]) & other,
+               (lo[:, None, f] == hi[None, :, f]) & other)
+
+
+def intermediate_constraints(boxes, outs, num_leaves, mono_feats,
+                             mono_types):
+    """Every leaf's [min, max] output bound (L, 2) in intermediate mode
+    (JAX :216, the reference's IntermediateLeafConstraints as a pairwise
+    reduction): a leaf's upper bound along an increasing feature is the
+    least output of the leaves adjacent above it, its lower bound the
+    largest below (roles swapped on a decreasing feature), over the
+    ``num_leaves`` leaves of ``boxes`` (L, F, 2) [lo, hi) and ``outs``
+    (L,)."""
+    L = boxes.shape[0]
+    dev = boxes.device
+    lo, hi = boxes[..., 0], boxes[..., 1]
+    iota = torch.arange(L, device=dev)
+    valid_b = (iota[None, :] < num_leaves) & (iota[:, None] != iota[None, :])
+    max_c = torch.full((L,), NO_CONSTRAINT[1], dtype=torch.float32,
+                       device=dev)
+    min_c = torch.full((L,), NO_CONSTRAINT[0], dtype=torch.float32,
+                       device=dev)
+    types = dict(zip(mono_feats, mono_types))
+    inf = torch.tensor(float("inf"), dtype=torch.float32, device=dev)
+    for f, adj_up, adj_dn in _box_adjacency_per_feature(lo, hi, mono_feats):
+        adj_up, adj_dn = adj_up & valid_b, adj_dn & valid_b
+        if types[f] < 0:           # decreasing: roles of up/down swap
+            adj_up, adj_dn = adj_dn, adj_up
+        max_c = torch.minimum(max_c, torch.where(
+            adj_up, outs[None, :], inf).min(dim=1).values)
+        min_c = torch.maximum(min_c, torch.where(
+            adj_dn, outs[None, :], -inf).max(dim=1).values)
+    return torch.stack([min_c, max_c], dim=1)
+
+
+def defer_adjacent(valid, boxes, mono_feats):
+    """Intermediate mode's same-round deferral (JAX :1040-1060): a pick
+    adjacent along a monotone feature to a kept pick of higher rank waits
+    for a later round.  ``valid`` (K,) bool by rank, ``boxes`` (K, F, 2)
+    the picks' boxes; the ranks are walked in order on the host, as the
+    JAX loop walks them."""
+    K = valid.shape[0]
+    adj = torch.zeros((K, K), dtype=torch.bool, device=valid.device)
+    for _f, up, dn in _box_adjacency_per_feature(boxes[..., 0],
+                                                 boxes[..., 1], mono_feats):
+        adj |= up | dn
+    kept = valid.cpu().tolist()
+    adj_h = adj.cpu().tolist()
+    for j in range(1, K):
+        if kept[j] and any(kept[i] and adj_h[j][i] for i in range(j)):
+            kept[j] = False
+    return torch.tensor(kept, dtype=torch.bool, device=valid.device)
+
+
 class _PackedStore:
     """The per-leaf frontier + tree-leaf state in one (L, 17) f32 table
-    and the per-node tree state in one (L1, 10) f32 table (JAX :472).
-    Ids, bins, depths and child indices ride as exact small f32 values;
-    a round commits with one 2K-row frontier write, one K-row node write
-    and one child-pointer fixup."""
+    (19 with monotone constraints: their bounds) and the per-node tree
+    state in one (L1, 10) f32 table (JAX :472).  Ids, bins, depths and
+    child indices ride as exact small f32 values; a round commits with
+    one 2K-row frontier write, one K-row node write and one child-pointer
+    fixup."""
 
     # frontier-table columns (per leaf)
     GAIN, FEAT, BIN, DL = 0, 1, 2, 3
     LS, RS = 4, 7                    # [4:7) left sums, [7:10) right sums
     OUT, DEPTH, ISLEFT = 10, 11, 12
     LVAL, LWEIGHT, LCNT, LPAR = 13, 14, 15, 16
-    CF = 17
+    CMIN, CMAX = 17, 18              # only with monotone constraints
     # node-table columns (per internal node)
     NFEAT, NBIN, NDL, NMT, NGAIN, NIVAL, NIW, NIC, NLC, NRC = range(10)
 
     # The grower owns the tables, so a round's commit writes them in place
     # (the JAX version's functional update would copy both a round).
-    def __init__(self, L, L1, device):
+    def __init__(self, L, L1, device, use_mc=False):
         self.L, self.L1, self.device = L, L1, device
+        self.use_mc = use_mc
+        self.CF = 19 if use_mc else 17
 
     def init(self, res0, out0):
         ft = torch.zeros((self.L, self.CF), dtype=torch.float32,
                          device=self.device)
         ft[:, self.GAIN] = NEG_INF
         ft[:, self.LPAR] = -1.0
+        if self.use_mc:
+            ft[:, self.CMIN] = NO_CONSTRAINT[0]
+            ft[:, self.CMAX] = NO_CONSTRAINT[1]
         z = torch.zeros((), dtype=torch.float32, device=self.device)
-        ft[0] = torch.stack([
+        ft[0, :17] = torch.stack([
             res0.gain[0], res0.feature[0].float(),
             res0.threshold_bin[0].float(), res0.default_left[0].float(),
             *res0.left_sum[0], *res0.right_sum[0],
@@ -197,6 +286,8 @@ class _PackedStore:
             pdepth=rows[:, self.DEPTH].long(),
             was_left=rows[:, self.ISLEFT] != 0,
             parent=rows[:, self.LPAR].long(),
+            pconstr=(rows[:, self.CMIN:self.CMAX + 1] if self.use_mc
+                     else None),
         )
 
     def write(self, s, r):
@@ -213,7 +304,8 @@ class _PackedStore:
             isleft[:, None],
             r["couts"][:, None],                 # leaf_value == leaf_out
             r["csums"][:, 1:2], r["csums"][:, 2:3],
-            r["nidx"].repeat_interleave(2).to(f32)[:, None]], dim=1)
+            r["nidx"].repeat_interleave(2).to(f32)[:, None]]
+            + ([r["cconstr"]] if self.use_mc else []), dim=1)
         s["ft"][r["cidx"]] = crows
         nrows = torch.cat([
             r["feats"].to(f32)[:, None], r["thrs"].to(f32)[:, None],
@@ -278,7 +370,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      fused_round_fn: Optional[Callable] = None,
                      fused_loop_fn: Optional[Callable] = None,
                      hist_wave_quant_fn: Optional[Callable] = None,
-                     packed: bool = False):
+                     packed: bool = False, monotone_mode: str = "basic"):
     """Build ``grow(binned, g3, base_mask, valids=(), key=None)``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False) -> (nslots, F,
@@ -301,10 +393,27 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     rounds on the tree's prequantized rows ``zq``
     (``quantize.prequantize_rows``, made once a grow); its presence also
     quantizes the fused and looped rounds of those buckets, keyed by
-    ``grow``'s per-tree ``key`` (two uint32 words, utils/prng.py)."""
+    ``grow``'s per-tree ``key`` (two uint32 words, utils/prng.py).
+    ``monotone_mode`` (``basic`` / ``intermediate``, as the trainer
+    resolved it) is read when ``meta.monotone_type`` is set; the
+    persistent loop does not run them (the trainer refuses it)."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
+    use_mc = meta.monotone_type is not None
+    use_inter = use_mc and monotone_mode == "intermediate"
+    if use_mc and fused_loop_fn is not None:
+        raise ValueError("the persistent loop runs no monotone constraints")
+    inter_feats = inter_types = ()
+    if use_inter:
+        mono_h = meta.monotone_type.cpu()
+        inter_feats = [int(f) for f in (mono_h != 0).nonzero()[:, 0]]
+        inter_types = [int(mono_h[f]) for f in inter_feats]
+
+    def clamp_out(sums, pconstr, pout):
+        """Children's outputs under their parents' bounds and outputs (JAX
+        ``clamp_out``, :833)."""
+        return child_leaf_output(sums, params, pconstr, pout)
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
              base_mask: torch.Tensor, valids: Sequence[torch.Tensor] = (),
@@ -326,16 +435,26 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             # on the others (the JAX ``scaled`` rounds)
             qrows = quant[1].expand(2 * K, 3).contiguous()
             scale_rows = (qrows, torch.ones_like(qrows))
-        store = _PackedStore(L, L1, dev)
+        store = _PackedStore(L, L1, dev, use_mc)
 
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
         hist0 = hist_wave_fn(binned, g3, leaf_id, 1, deep=False)[0]
         use_sub = L * hist0.numel() * 4 <= _SUB_STATE_CAP_BYTES
-        root_sum = g3.sum(dim=0)
+        root_sum = root_sums(g3)
         out0 = leaf_output(root_sum[0], root_sum[1], params)
+        if params.path_smooth > 0:
+            out0 = smooth_output(out0, root_sum[2], 0.0, params)
         res0 = find_best_split(hist0[None], root_sum[None], meta,
-                               base_mask[None], params)
+                               base_mask[None], params,
+                               depth=torch.zeros(1, dtype=torch.int64,
+                                                 device=dev),
+                               parent_output=out0[None])
         st = store.init(res0, out0)
+        leaf_box = None
+        if use_inter:
+            # each leaf's bin-space box [lo, hi) along every feature
+            leaf_box = torch.zeros((L, F, 2), dtype=torch.int64, device=dev)
+            leaf_box[0, :, 1] = meta.num_bins
         leaf_hist = None
         if use_sub:
             leaf_hist = torch.zeros((L,) + tuple(hist0.shape),
@@ -366,13 +485,15 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             out[:v.shape[0]] = v
             return out
 
-        def boundary(vals, leafs, n):
-            """A round of ``n`` splits, the first ``n`` ranks (the picks
-            are a prefix of the ranking: gains sorted, budget a prefix):
-            their store rows, the children's sums, outputs, depths and
-            mask and the slot bucket S."""
+        def boundary(vals, leafs):
+            """A round of ``n`` splits, the kept ranks' gains and leaves
+            (a prefix of the ranking — gains sorted, budget a prefix —
+            but for intermediate mode's deferrals): their store rows, the
+            children's sums, outputs, bounds, depths and mask and the
+            slot bucket S."""
+            n = vals.shape[0]
             order = torch.arange(n, device=dev)
-            b = dict(vals=vals[:n], leafs=leafs[:n], order=order,
+            b = dict(vals=vals, leafs=leafs, order=order,
                      nodes=nl - 1 + order, nls=nl + order)
             rd = store.read(st, b["leafs"])
             b.update(rd)
@@ -381,9 +502,22 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             b["cleafs"] = torch.stack([b["leafs"], b["nls"]],
                                       dim=1).reshape(2 * n)
             b["csums"] = torch.stack([lsums, rsums], dim=1).reshape(2 * n, 3)
-            b["couts"] = torch.stack([child_leaf_output(lsums, params),
-                                      child_leaf_output(rsums, params)],
-                                     dim=1).reshape(2 * n)
+            pconstr = rd["pconstr"]
+            if use_inter:
+                # fresh bounds from the adjacent leaves' current outputs
+                pconstr = intermediate_constraints(
+                    leaf_box, st["ft"][:, store.OUT], nl, inter_feats,
+                    inter_types)[leafs]
+            out_l = clamp_out(lsums, pconstr, rd["pout"])
+            out_r = clamp_out(rsums, pconstr, rd["pout"])
+            b["couts"] = torch.stack([out_l, out_r], dim=1).reshape(2 * n)
+            b["cconstr"] = None
+            if use_mc:
+                c_l, c_r = child_constraints(
+                    pconstr, out_l, out_r, meta.monotone_type[rd["feats"]],
+                    use_inter)
+                b["cconstr"] = torch.stack([c_l, c_r], dim=1) \
+                    .reshape(2 * n, 2)
             b["cdepth"] = (rd["pdepth"] + 1).repeat_interleave(2)
             b["cmask"] = base_mask[None, :].expand(2 * n, F)
             b["S"] = slot_buckets[sum(n > s for s in slot_buckets[:-1])]
@@ -413,7 +547,17 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 mtypes=meta.missing_type[b["feats"]], vals=b["vals"],
                 pout=b["pout"], psum=lsums + rsums, csums=b["csums"],
                 couts=b["couts"], cdepth=b["cdepth"], parent=b["parent"],
-                was_left=b["was_left"]))
+                was_left=b["was_left"], cconstr=b["cconstr"]))
+            if use_inter:
+                # the children's boxes: the parent's cut at thr + 1 along
+                # the split feature
+                ki = torch.arange(b["leafs"].shape[0], device=dev)
+                pbox = leaf_box[b["leafs"]]
+                box_l, box_r = pbox.clone(), pbox.clone()
+                box_l[ki, b["feats"], 1] = b["thrs"] + 1
+                box_r[ki, b["feats"], 0] = b["thrs"] + 1
+                leaf_box[b["leafs"]] = box_l
+                leaf_box[b["nls"]] = box_r
 
         while nl < L:
             if fused_loop_fn is not None:
@@ -430,7 +574,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     if n == 0:
                         break
                     vals, leafs = _topk_by_rank(store.gains(st), K)
-                    b = boundary(vals, leafs, n)
+                    b = boundary(vals[:n], leafs[:n])
                     rt = slot_route(b)
                     vlids = [fused_round_fn.route_rows(vb, vl, **rt)
                              for vb, vl in zip(valids, vlids)]
@@ -444,10 +588,14 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
 
             vals, leafs = _topk_by_rank(store.gains(st), K)
             valid = (vals > 0) & (kiota < L - nl)
+            if use_inter and K > 1:
+                valid = defer_adjacent(valid, leaf_box[leafs], inter_feats)
+                keep = valid.nonzero()[:, 0]
+                vals, leafs = vals[keep], leafs[keep]
             n = int(valid.sum())                 # the round's host read
             if n == 0:
                 break
-            b = boundary(vals, leafs, n)
+            b = boundary(vals[:n], leafs[:n])
             S = b["S"]
             leafs, order, sm_left = b["leafs"], b["order"], b["sm_left"]
             # sustained rounds of a big wave may run the deep precision
@@ -469,7 +617,11 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     sml=to_slot(sm_left, False, S) if use_sub else None,
                     parent=(to_slot(leaf_hist[leafs], 0.0, S) if use_sub
                             else None),
-                    route=dict(rt, leaf_id=leaf_id))
+                    route=dict(rt, leaf_id=leaf_id),
+                    constr=(to_slot(b["cconstr"], 0.0, 2 * S) if use_mc
+                            else None),
+                    depth=to_slot(b["cdepth"], 1, 2 * S),
+                    pout=to_slot(b["couts"], 0.0, 2 * S))
                 vlids = [fused_round_fn.route_rows(vb, vl, **rt)
                          for vb, vl in zip(valids, vlids)]
                 if use_sub:
@@ -516,7 +668,10 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     if scale is not None:
                         scale = scale[:2 * n]
                 res = find_best_split(hist, b["csums"], meta, b["cmask"],
-                                      params, hist_scale=scale)
+                                      params, hist_scale=scale,
+                                      constraint=b["cconstr"],
+                                      depth=b["cdepth"],
+                                      parent_output=b["couts"])
             commit(b, res)
             if use_sub:
                 leaf_hist[b["cleafs"]] = hist

@@ -19,8 +19,18 @@ only the listed rows in row order, so they equal K1's bit for bit.
 ``route_tile`` on the decision bins, the list (``live_rows_ref``), K1's
 plain histogram of the listed rows (``hist_cuda.index_add_hist`` on the
 precision's parts), the subtraction and the staged scan's stages
-(``wave_fused.child_scan_residue``).  A CPU tensor takes them; a CUDA
-tensor launches the kernel or raises.
+(``split.scan_residue``).  A CPU tensor takes them; a CUDA tensor
+launches the kernel or raises.
+
+The constrained legs (JAX :346-357, :440-475: ``use_mc`` with
+``monotone_penalty``, path smoothing, ``max_delta_step``, ``has_contri``)
+are the scan's options (``scan_cuda.scan_options``): K2 takes the
+children's bounds ``constraint``, penalty factors ``pfac`` and parent
+outputs ``parent_output`` (``split.scan_inputs``), and its scan stage is
+the split-scan kernel's device code (``scan_child``), compiled with the
+legs in (instance ``kOptAll``) for a launch that runs any; the
+unconstrained round keeps the unconstrained instance.  Such a launch's
+bucket mode ends ``":opts<bits>"``.
 
 int8sr rounds (``precision="int8sr"``, ``hist_dtype_deep=int8sr``): K2
 takes the quantized rows (exact integers, ops/quantize.py) and sums its
@@ -56,7 +66,7 @@ import torch
 
 from . import _build, hist_cuda
 from . import wave_fused as wf
-from .split import FeatureMeta, SplitParams
+from .split import FeatureMeta, SplitParams, scan_residue
 
 launch_counts = {"fused_round": 0, "route_rows": 0, "fused_round_packed": 0,
                  "route_rows_packed": 0}
@@ -109,20 +119,24 @@ def live_rows_ref(label, nslots, n_chunks, chunk_rows):
 
 def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, mask, csums,
-                    route, sml=None, parent=None, packed=False, scale=None):
+                    route, sml=None, parent=None, packed=False, scale=None,
+                    constraint=None, pfac=None, parent_output=None):
     """Plain version of ``fused_round``: the route (``route_tile``), K1's
     plain histogram of the label, the subtraction and
-    ``child_scan_residue``."""
+    ``split.scan_residue``."""
     count_plain("fused_round")
     return round_ref(binned, g3, nslots=nslots, num_bins=num_bins,
                      precision=precision, meta=meta, params=params,
                      mask=mask, csums=csums, route=route, sml=sml,
-                     parent=parent, packed=packed, scale=scale)
+                     parent=parent, packed=packed, scale=scale,
+                     constraint=constraint, pfac=pfac,
+                     parent_output=parent_output)
 
 
 def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
               params: SplitParams, mask, csums, route, sml=None,
-              parent=None, packed=False, scale=None):
+              parent=None, packed=False, scale=None, constraint=None,
+              pfac=None, parent_output=None):
     """``fused_round_ref`` uncounted: the round the persistent loop's plain
     version (ops/loop_cuda.py) runs R times.  The histograms sum the
     listed rows only, in row order (``live_rows_ref`` under K2's plan):
@@ -144,10 +158,10 @@ def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
                                                                  precision)],
         label[rows], nslots + 1, num_bins)[:nslots]
     hc = wf.subtract_children(h, parent, sml, scale) if sub else h
-    residue = wf.child_scan_residue(hc, mask, csums, meta_blk=meta,
-                                    params=params, num_bins=num_bins,
-                                    fblk=binned.shape[0],
-                                    hist_scale=None if sub else scale)
+    residue = scan_residue(hc, mask, csums, meta=meta, params=params,
+                           hist_scale=None if sub else scale,
+                           constraint=constraint, pfac=pfac,
+                           parent_output=parent_output)
     return residue, (h if sub else None), new_leaf, label
 
 
@@ -157,7 +171,8 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_fused")
-    lib.lgbm_fused_round.argtypes = [_P] * 20 + [_I] * 11 + [_F] * 5 + [_P]
+    lib.lgbm_fused_round.argtypes = [_P] * 25 + [_I] * 11 + [_F] * 8 \
+        + [_I, _P]
     lib.lgbm_fused_round.restype = _I
     lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.lgbm_route_rows.restype = _I
@@ -165,8 +180,9 @@ def _lib() -> ctypes.CDLL:
 
 
 def feature_table(meta: FeatureMeta) -> torch.Tensor:
-    """The (5, F) int32 feature table K2's scan reads: num_bins,
-    missing_type, nan_bin, zero_bin, usable."""
+    """The (5, F) int32 feature table the scans of K2, K6 and the
+    split-scan kernel read: num_bins, missing_type, nan_bin, zero_bin,
+    usable."""
     return torch.stack([meta.num_bins, meta.missing_type, meta.nan_bin,
                         meta.zero_bin, meta.usable.long()]) \
         .to(torch.int32).contiguous()
@@ -231,7 +247,8 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False):
 
 def fused_round(binned, g3, *, nslots, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, mask, csums, route,
-                sml=None, parent=None, fmeta=None, packed=False, scale=None):
+                sml=None, parent=None, fmeta=None, packed=False, scale=None,
+                constraint=None, pfac=None, parent_output=None):
     """K2: one wave round -> ``(residue (2S, F, RES_COLS), hsmall (S, F,
     B, 3) or None, new_leaf (N,), label (N,))``.
 
@@ -247,13 +264,20 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     ``scale`` (nslots, 3) f32: the slots' dequantization (the subtraction
     mode's smaller children, or pool-free every child after its integer
     cumulative sum); ``precision="int8sr"``: ``g3`` holds quantized rows
-    and the histograms are integer."""
+    and the histograms are integer.  ``constraint`` (2S, 2), ``pfac``
+    (2S,) and ``parent_output`` (2S,): the children's inputs of the scan's
+    constrained legs (``split.scan_inputs``), None where a leg is off;
+    the legs themselves follow ``meta`` and ``params``
+    (``scan_cuda.scan_options``)."""
     if binned.device.type == "cpu":
         return fused_round_ref(binned, g3, nslots=nslots,
                                num_bins=num_bins, precision=precision,
                                meta=meta, params=params, mask=mask,
                                csums=csums, route=route, sml=sml,
-                               parent=parent, packed=packed, scale=scale)
+                               parent=parent, packed=packed, scale=scale,
+                               constraint=constraint, pfac=pfac,
+                               parent_output=parent_output)
+    from .scan_cuda import leg_args, scan_floats
     F = mask.shape[1]
     _, N = _check_bins(binned, packed, F)
     if not packed and binned.shape[0] != F:
@@ -295,6 +319,9 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
         if sub else None
     if fmeta is None:
         fmeta = feature_table(meta)
+    _need(fmeta, "fmeta", torch.int32, (5, F), dev)
+    opts, legs = leg_args(meta, params, C, dev, constraint, pfac,
+                          parent_output)
 
     def ptr(t):
         return 0 if t is None else t.data_ptr()
@@ -307,17 +334,17 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
             label.data_ptr(), new_leaf.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
             fmeta.data_ptr(), mask.data_ptr(), csums.data_ptr(), ptr(sml),
-            ptr(parent), ptr(scale), residue.data_ptr(), ptr(hsmall), N, F,
-            S, p["nb"],
-            B, p["ls_max"], p["n_chunks"], p["chunk_rows"],
-            hist_cuda.PREC_ID[precision], int(sub), int(packed),
-            params.lambda_l1, params.lambda_l2, params.min_data_in_leaf,
-            params.min_sum_hessian_in_leaf, params.min_gain_to_split,
-            stream)
+            ptr(parent), ptr(scale), residue.data_ptr(), ptr(hsmall),
+            legs["constraint"], legs["pfac"], legs["parent_output"],
+            legs["mono"], legs["contri"], N, F, S, p["nb"], B, p["ls_max"],
+            p["n_chunks"],
+            p["chunk_rows"], hist_cuda.PREC_ID[precision], int(sub),
+            int(packed), *scan_floats(params), opts, stream)
     _raise_on(err, "fused_round")
     with _count_lock:
         launch_counts["fused_round_packed" if packed else "fused_round"] += 1
-        mode = ("sub" if sub else "pool") + (":packed" if packed else "")
+        mode = ("sub" if sub else "pool") + (":packed" if packed else "") \
+            + (f":opts{opts}" if opts else "")
         key = (nslots, precision, mode)
         bucket_launch_counts[key] = bucket_launch_counts.get(key, 0) + 1
     return residue, hsmall, new_leaf, label

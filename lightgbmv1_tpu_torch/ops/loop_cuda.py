@@ -39,11 +39,21 @@ packed leg runs the packed route and list walk of K2's device code on the
 plain version unpacks once (``hist_cuda.unpack4bit``) and runs the u8
 plain version.
 
+The constrained legs K6 runs (JAX :951, :1127-1151: ``has_contri``,
+path smoothing, ``max_delta_step``): each child's output is smoothed
+toward its parent's and clamped (``split.child_leaf_output``, the
+frontier commit's output column) and is the scan's parent output, the
+scan's options are those of ``scan_cuda.scan_options`` (the kernel's
+``kLoopOpts`` instance of its scan stage beside the unconstrained one).
+Monotone constraints stay out of the loop, as the JAX planner keeps them
+(``MONOTONE_REASON``); ``fused_wave_loop`` raises on them.
+
 Each launch adds one to ``launch_counts["fused_wave_loop"]`` (packed:
 ``"fused_wave_loop_packed"``) and to ``bucket_launch_counts[(R,
 precision, mode)]`` (mode ``"sub"`` / ``"pool"``, packed ``"sub:packed"``
 / ``"pool:packed"``, with ``":int8sr"`` after it when a bucket
-quantizes); each plain call adds one to ``plain_counts["fused_wave_loop"]``.
+quantizes, then ``":opts<bits>"`` when the scan runs its legs); each plain
+call adds one to ``plain_counts["fused_wave_loop"]``.
 """
 
 from __future__ import annotations
@@ -55,10 +65,14 @@ import threading
 import torch
 
 from ..utils import prng
-from . import _build, fused_cuda, hist_cuda, quantize
+from . import _build, fused_cuda, hist_cuda, quantize, scan_cuda
 from . import wave_fused as wf
 from .split import (NEG_INF, FeatureMeta, SplitParams, child_leaf_output,
-                    gain_shift)
+                    gain_shift, pick_pack)
+
+# plan_wave_loop's reason word for word (JAX wave_fused.py:876-877)
+MONOTONE_REASON = ("monotone constraints propagate per-round bounds "
+                   "outside the kernel")
 
 # the stages of a round in the kernel's debug stamps, in order: each
 # ends at a grid barrier ("pick": the pick, the commit and the next
@@ -130,6 +144,9 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         lsums, rsums = rows[:, 4:7], rows[:, 7:10]
         sml = lsums[:, 2] <= rsums[:, 2]
         nls = nl + torch.arange(n, device=dev)
+        # the children's outputs, smoothed toward their parent's: the
+        # commit's and, under path smoothing, the scan's parent outputs
+        pout = rows[:, 10].repeat_interleave(2)
 
         def to_slot(v, fill, width=S):
             out = torch.full((width,) + tuple(v.shape[1:]), fill,
@@ -144,6 +161,9 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                                    sml=to_slot(sml, False))
         csums = torch.stack([lsums, rsums], dim=1).reshape(2 * n, 3)
         csums_s = to_slot(csums, 1.0, 2 * S)
+        couts = child_leaf_output(csums, params, parent_out=pout)
+        pout_s = (to_slot(couts, 0.0, 2 * S) if params.path_smooth > 0
+                  else None)
         mask = to_slot(base_mask[None, :].expand(2 * n, base_mask.shape[0]),
                        False, 2 * S)
         nsl = S if sub else 2 * S
@@ -160,9 +180,10 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             csums=csums_s, sml=to_slot(sml, False) if sub else None,
             parent=to_slot(pool[leafs], 0.0) if sub else None,
             route=dict(oleaf=leaf, feats=feats_s.to(torch.int32), rmeta=rmeta,
-                       num_leaves=L), packed=packed, scale=scale)
-        pk = wf._pick_pack(residue, gain_shift(csums_s, params), csums_s,
-                           meta, num_bins)
+                       num_leaves=L), packed=packed, scale=scale,
+            parent_output=pout_s)
+        pk = pick_pack(residue, gain_shift(csums_s, params, pout_s), csums_s,
+                       meta, num_bins)
         picks[r, :2 * S] = pk
         n_split[r] = n
         # ---- the commit: the store's frontier columns, the pool --------
@@ -172,8 +193,7 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         live = pk[:2 * n]
         cgain = torch.where(depth_ok, live[:, 0],
                             torch.full_like(live[:, 0], NEG_INF))
-        ft[cidx] = torch.cat([cgain[:, None], live[:, 1:],
-                              child_leaf_output(csums, params)[:, None],
+        ft[cidx] = torch.cat([cgain[:, None], live[:, 1:], couts[:, None],
                               cdepth.to(torch.float32)[:, None]], dim=1)
         if sub:
             pool[cidx] = wf.subtract_children(
@@ -201,8 +221,8 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_loop")
-    lib.lgbm_fused_wave_loop.argtypes = [_P] * 10 + [_U] * 2 + [_P] * 12 \
-        + [_I] * 13 + [_F] * 5 + [_P]
+    lib.lgbm_fused_wave_loop.argtypes = [_P] * 10 + [_U] * 2 + [_P] * 13 \
+        + [_I] * 13 + [_F] * 8 + [_I, _P]
     lib.lgbm_fused_wave_loop.restype = _I
     lib.lgbm_wave_loop_limits.argtypes = [_I] * 7 + [_P, _P, _P]
     lib.lgbm_wave_loop_limits.restype = _I
@@ -321,6 +341,8 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     if (debug is not None or q3 is not None) \
             and binned.device.type != "cuda":
         raise ValueError("debug / q3: the card kernel's buffers")
+    if meta.monotone_type is not None:
+        raise ValueError(f"fused_wave_loop: {MONOTONE_REASON}")
     quant_buckets = tuple(int(S) for S in quant_buckets)
     if quant_buckets and (key is None or quant is None
                           or not set(quant_buckets) <= set(slot_buckets)):
@@ -400,6 +422,14 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     mask = base_mask.to(torch.uint8)
     if fmeta is None:
         fmeta = fused_cuda.feature_table(meta)
+    fused_cuda._need(fmeta, "fmeta", torch.int32, (5, F), dev)
+    # the scan's legs; the kernel makes the children's outputs it smooths
+    # toward (no monotone leg: refused above)
+    opts = scan_cuda.scan_options(meta, params)
+    contri = 0
+    if opts & scan_cuda.OPT_CONTRI:
+        fused_cuda._need(meta.contri, "meta.contri", f32, (F,), dev)
+        contri = meta.contri.data_ptr()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lgbm_fused_wave_loop(
@@ -411,18 +441,18 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             n_split.data_ptr(), label.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
             residue.data_ptr(), bnd.data_ptr(),
-            0 if debug is None else debug.data_ptr(), tables, N, F, B,
-            hist_cuda.kernel_width(B), L, K, R, int(num_leaves),
+            0 if debug is None else debug.data_ptr(), tables, contri,
+            N, F, B, hist_cuda.kernel_width(B), L, K, R, int(num_leaves),
             int(max_depth), len(plans), hist_cuda.PREC_ID[precision],
-            int(sub), int(packed), params.lambda_l1, params.lambda_l2,
-            params.min_data_in_leaf, params.min_sum_hessian_in_leaf,
-            params.min_gain_to_split, stream)
+            int(sub), int(packed), *scan_cuda.scan_floats(params), opts,
+            stream)
     fused_cuda._raise_on(err, "fused_wave_loop")
     with _count_lock:
         launch_counts["fused_wave_loop_packed" if packed
                       else "fused_wave_loop"] += 1
         bkey = (R, precision,
                 ("sub" if sub else "pool") + (":packed" if packed else "")
-                + (":int8sr" if quant_buckets else ""))
+                + (":int8sr" if quant_buckets else "")
+                + (f":opts{opts}" if opts else ""))
         bucket_launch_counts[bkey] = bucket_launch_counts.get(bkey, 0) + 1
     return picks, new_leaf, pool_out, n_split

@@ -17,13 +17,18 @@ launch, the hand-written kernel K6 on the card (``ops/loop_cuda.py``,
 
 Ported: ``RES_COLS`` / ``PACK_COLS`` / ``RMETA_COLS`` (:126-128),
 ``route_tile`` (:134), ``pack_route_meta`` (:179), ``decision_bins``
-(:197), ``child_scan_residue`` (:215), ``fused_route_rows`` (:567),
-``_pick_pack`` (:610), ``pack_children`` / ``unpack_children`` (:641 /
-:652), ``make_fused_round`` (:669), ``plan_wave_loop`` (:804),
+(:197), ``fused_route_rows`` (:567), ``pack_children`` (:641),
+``make_fused_round`` (:669), ``plan_wave_loop`` (:804),
 ``make_fused_wave_loop`` (:1183) and ``fused_ineligible_reason`` (:1356).
-The arguments the port's scan never reads are gone: monotone
-constraints and path smoothing are refused by the config, so ``constr``,
-``depth``, ``pout`` and ``meta_override`` do not exist here.  ``packed``
+``child_scan_residue`` (:215), ``_pick_pack`` (:610) and
+``unpack_children`` (:652) live in ops/split.py (``scan_residue``,
+``pick_pack``, ``unpack_children``), where ``find_best_split`` finishes
+its picks through the same functions.  The round's scan takes the
+children's monotone bounds ``constr``, depths ``depth`` and parent
+outputs ``pout`` (the constrained legs, JAX :346-357, :440-475: monotone
+constraints with ``monotone_penalty``, path smoothing, ``max_delta_step``
+and ``feature_contri``); ``meta_override`` (the feature-parallel
+learner's) is not ported.  ``packed``
 (4-bit packed bins, ``bin_layout=packed4``) is kept: the kernels' packed
 legs decode the nibble at the load and plan from the real feature count,
 so a packed round is the u8 round bit for bit.  So are the int8sr
@@ -46,11 +51,10 @@ import functools
 
 import torch
 
-from ..io.binning import MISSING_NAN, MISSING_ZERO
 from .hist_cuda import bins_of_rows
-from .split import (NEG_INF, FeatureMeta, SplitParams, SplitResult,
-                    gain_shift, go_left_rule, scan_direction_gains,
-                    scan_left_sums, scan_pick_feature, tie_tol)
+from .split import (FeatureMeta, SplitParams, SplitResult, gain_shift,
+                    go_left_rule, pick_pack, scan_inputs)
+from .split import unpack_children  # noqa: F401  (the fused path's name)
 
 RES_COLS = 6    # fbest, gain_at_sel, sel (direction*B+thr), left g/h/c
 PACK_COLS = 10  # gain, feature, threshold, default_left, left(3), right(3)
@@ -121,30 +125,6 @@ def decision_bins(binned, lids, feats, leafs, num_leaves, packed=False):
     return bins_of_rows(binned, tab[lids.long()], packed)
 
 
-def child_scan_residue(hc, mask_c, csum_c, *, meta_blk: FeatureMeta,
-                       params: SplitParams, num_bins, fblk, hist_scale=None):
-    """The children's split scan -> their (C, fblk, RES_COLS) residue: the
-    staged scan's own stages (``scan_left_sums`` ->
-    ``scan_direction_gains`` -> ``scan_pick_feature``) on ``hc`` (C, fblk,
-    B, 3), so the fused and the staged paths compute the same values.
-    Columns: the feature's best gain, the gain at its pick, the pick
-    ``direction * B + threshold`` and the left sums there.
-    ``hist_scale`` (C, 3): ``hc`` holds integer sums, dequantized after
-    the cumulative sum (JAX ``child_scale``)."""
-    left2 = scan_left_sums(hc, meta_blk, hist_scale)
-    gains, shift = scan_direction_gains(left2, csum_c, meta_blk, mask_c,
-                                        params)
-    fbest, sel = scan_pick_feature(gains, shift, meta_blk)
-    gains_f = torch.cat([gains[:, 0], gains[:, 1]], dim=2)   # (C, F, 2B)
-    gsel = torch.gather(gains_f, 2, sel[..., None])[..., 0]
-    C = hc.shape[0]
-    ci = torch.arange(C, device=hc.device)[:, None]
-    fi = torch.arange(fblk, device=hc.device)[None, :]
-    lsel = left2[ci, sel // num_bins, fi, sel % num_bins]    # (C, F, 3)
-    return torch.cat([fbest[..., None], gsel[..., None],
-                      sel.to(torch.float32)[..., None], lsel], dim=2)
-
-
 def subtract_children(hsm, parent, sml, slot_scale=None):
     """(2S, F, B, 3) child stack of a subtraction round: ``hsm`` the
     smaller children in slot order, the larger sibling its parent minus
@@ -175,37 +155,6 @@ def fused_route_rows(binned, lids, *, feats, thrs, dls, leafs, nls,
                                  num_leaves, packed=packed)
 
 
-def _pick_pack(residue_c, shift_c, parent_sum_c, meta: FeatureMeta,
-               num_bins):
-    """Cross-feature half of ``scan_pick`` on the children's (C, F,
-    RES_COLS) residue, plus the tail of ``find_best_split`` (right sums,
-    missing default direction): the (C, PACK_COLS) packed SplitInfo.
-    Formula for formula the staged code on the same values."""
-    fbest = residue_c[..., 0]
-    gsel = residue_c[..., 1]
-    sel = residue_c[..., 2].long()
-    gbest = fbest.max(dim=1).values                          # (C,)
-    in_band = fbest >= (gbest - tie_tol(gbest, shift_c))[:, None]
-    feature = torch.argmax(in_band.to(torch.uint8), dim=1)   # first
-    ci = torch.arange(residue_c.shape[0], device=residue_c.device)
-    best_gain = gsel[ci, feature]
-    sc = sel[ci, feature]
-    direction = sc // num_bins
-    threshold = sc % num_bins
-    left = residue_c[ci, feature, 3:6]
-    right = parent_sum_c - left
-    mtype = meta.missing_type[feature]
-    default_left = ((mtype == MISSING_NAN) | (mtype == MISSING_ZERO)) \
-        & (direction == 1)
-    rel_gain = torch.where(torch.isfinite(best_gain), best_gain,
-                           torch.full_like(best_gain, NEG_INF))
-    f32 = torch.float32
-    return torch.cat([rel_gain.to(f32)[:, None], feature.to(f32)[:, None],
-                      threshold.to(f32)[:, None],
-                      default_left.to(f32)[:, None], left.to(f32),
-                      right.to(f32)], dim=1)
-
-
 def pack_children(res: SplitResult) -> torch.Tensor:
     """Batched SplitResult -> the (C, PACK_COLS) rows."""
     f32 = torch.float32
@@ -214,14 +163,6 @@ def pack_children(res: SplitResult) -> torch.Tensor:
                       res.threshold_bin.to(f32)[:, None],
                       res.default_left.to(f32)[:, None],
                       res.left_sum.to(f32), res.right_sum.to(f32)], dim=1)
-
-
-def unpack_children(packed: torch.Tensor, num_bins: int) -> SplitResult:
-    """(C, PACK_COLS) rows -> batched SplitResult."""
-    return SplitResult(gain=packed[:, 0], feature=packed[:, 1].long(),
-                       threshold_bin=packed[:, 2].long(),
-                       default_left=packed[:, 3] != 0,
-                       left_sum=packed[:, 4:7], right_sum=packed[:, 7:10])
 
 
 def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
@@ -254,13 +195,19 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       rounds; JAX returns them, here the grower makes them once a tree).
     * ``packed`` — ``binned`` (and the valid sets) hold 4-bit packed
       bytes: the round and the valid router run their packed legs.
+    * ``constr`` (2S, 2), ``depth`` (2S,), ``pout`` (2S,) — the children's
+      monotone bounds, depths (the monotone penalty) and parent outputs
+      (path smoothing), in child-slot order, dead children filled as the
+      JAX ``to_cslot`` fills them (0.0, 1, 0.0); read only by the legs
+      ``meta`` and ``params`` turn on (``split.scan_inputs``).
     """
     from . import fused_cuda, quantize
 
     fmeta = fused_cuda.feature_table(meta)
 
     def fused_round(binned, g3, S, *, deep=False, quant_key=None, zq=None,
-                    scale=None, mask, csums, sml=None, parent=None, route):
+                    scale=None, mask, csums, sml=None, parent=None, route,
+                    constr=None, depth=None, pout=None):
         nslots = S if parent is not None else 2 * S
         if quant_key is not None:
             g3u, prec = quantize.sr_quantize(zq, quant_key), "int8sr"
@@ -273,13 +220,15 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
                                   route["dls"], route["leafs"],
                                   route["nls"], meta, sml=sml),
             num_leaves=route["num_leaves"])
+        legs = scan_inputs(meta, params, 2 * S, binned.device, constr,
+                           depth, pout)
         residue, hsmall, new_leaf, _ = fused_cuda.fused_round(
             binned, g3u, nslots=nslots, num_bins=num_bins, precision=prec,
             meta=meta, params=params, mask=mask, csums=csums, sml=sml,
             parent=parent, route=route_in, fmeta=fmeta, packed=packed,
-            scale=scale)
-        shift = gain_shift(csums, params)
-        return _pick_pack(residue, shift, csums, meta, num_bins), hsmall, \
+            scale=scale, **legs)
+        shift = gain_shift(csums, params, legs["parent_output"])
+        return pick_pack(residue, shift, csums, meta, num_bins), hsmall, \
             new_leaf
 
     fused_round.supports_route = True

@@ -34,11 +34,18 @@ other rounds, and the sequential and level-wise growers, train at
 ``hist_dtype`` (int8sr sets the deep precision to it), and ``gpu_use_dp``
 turns the mode off with the JAX package's warning.
 
+Monotone constraints resolve their mode as the JAX package does (JAX
+:535-561, with its warnings): ``advanced`` runs as ``intermediate``;
+``intermediate`` takes the wave grower at any leaf count (``num_leaves
+<= 7`` too, at a wave of 1) and, on the level-wise grower, falls back to
+``basic``.  These decide the trees, so they are reproduced, not refused.
+
 What the JAX package routes elsewhere raises here, naming its ROADMAP
 item: the plain int8 precision; ``hist_method=fused`` on the sequential
-or level-wise grower raises with the JAX reason.  The loop's
-other JAX fallbacks (interaction constraints, ``feature_fraction_bynode``,
-monotone constraints) are refused before, by ``config.unported_reason``.
+or level-wise grower raises with the JAX reason, and so does the
+persistent loop under monotone constraints (JAX :669-672).  The loop's
+other JAX fallbacks (interaction constraints, ``feature_fraction_bynode``)
+are refused before, by ``config.unported_reason``.
 """
 
 from __future__ import annotations
@@ -151,8 +158,23 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     if wave_size > 128:
         log_warning(f"leafwise_wave_size={wave_size} capped to 128")
         wave_size = 128
+    mono_mode = config.monotone_constraints_method or "basic"
+    has_mono = any(config.monotone_constraints)
+    if has_mono and mono_mode == "advanced":
+        log_warning("monotone_constraints_method=advanced (slow constraint "
+                    "recomputation) is approximated by 'intermediate'")
+        mono_mode = "intermediate"
+    # intermediate-mode monotonicity runs on the wave grower, so it takes
+    # it at any wave size (JAX :548-551)
+    wants_inter = has_mono and mono_mode == "intermediate"
     use_wave = config.tree_growth == "leafwise" and (
-        config.leafwise_wave_size >= 1 or wave_size > 1)
+        config.leafwise_wave_size >= 1 or wave_size > 1 or wants_inter)
+    if wants_inter and not use_wave:
+        log_warning("monotone_constraints_method=intermediate is "
+                    "implemented by the wave-batched leaf-wise grower; "
+                    "falling back to 'basic' for this configuration "
+                    f"(tree_growth={config.tree_growth})")
+        mono_mode = "basic"
 
     def local_wave(binned, g3, label, nslots, deep=False):
         return hist_wave(binned, g3, label, nslots, num_bins, method=method,
@@ -178,6 +200,11 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                                     num_bins=num_bins, precision=precision,
                                     deep_precision=deep_precision,
                                     packed=packed)
+        if config.wave_loop_rounds > 1 and has_mono:
+            raise NotImplementedError(
+                f"wave_loop_rounds={config.wave_loop_rounds}: monotone "
+                "constraints propagate child bounds between rounds outside "
+                "the kernel")
         if config.wave_loop_rounds > 1:
             # ---- the persistent wave loop (K6), planned at this shape ---
             fused_loop = make_fused_wave_loop(
@@ -224,5 +251,5 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                             fused_loop_fn=fused_loop,
                             hist_wave_quant_fn=(local_wave_quant if use_int8sr
                                                 else None),
-                            packed=packed, **common)
+                            packed=packed, monotone_mode=mono_mode, **common)
 

@@ -94,7 +94,10 @@ def test_every_jax_knob_and_alias_is_known():
             "scale_pos_weight", "sigmoid", "boost_from_average", "metric",
             "gpu_use_dp", "predict_disable_shape_check", "tree_growth",
             "histogram_pool_size", "reg_sqrt", "lambdarank_truncation_level",
-            "lambdarank_norm", "label_gain", "eval_at", "multi_error_top_k"}
+            "lambdarank_norm", "label_gain", "eval_at", "multi_error_top_k",
+            "max_delta_step", "path_smooth", "monotone_constraints",
+            "monotone_constraints_method", "monotone_penalty",
+            "feature_contri"}
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -127,8 +130,9 @@ def test_training_refuses_a_dropped_knob():
     X = rng.randn(300, 3)
     y = (X[:, 0] > 0).astype(float)
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="feature_contri"):
-        train(dict(params, feature_contri=[1.0, 0.5, 1.0]),
+    with pytest.raises(NotImplementedError,
+                       match="cegb_penalty_feature_lazy"):
+        train(dict(params, cegb_penalty_feature_lazy=[1.0, 0.5, 1.0]),
               Dataset(X, label=y), 2, device="cpu")
     with pytest.raises(NotImplementedError, match="max_bin_by_feature"):
         Dataset(X, label=y, params={"max_bin_by_feature": [15, 15, 15]}

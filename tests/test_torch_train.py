@@ -409,9 +409,9 @@ _UNPORTED_CASES = [
     ({"boosting": "goss"}, tconfig.BREADTH),
     ({"boosting": "rf"}, tconfig.BREADTH),
     ({"tree_learner": "data"}, tconfig.PARALLEL),
-    ({"monotone_constraints": [1, 0, 0, 0, 0, 0]}, tconfig.BREADTH),
-    ({"path_smooth": 1.0}, tconfig.BREADTH),
-    ({"max_delta_step": 0.5}, tconfig.BREADTH),
+    ({"forcedsplits_filename": "forced.json"}, tconfig.BREADTH),
+    ({"cegb_penalty_feature_lazy": [0.5] * 6}, tconfig.BREADTH),
+    ({"objective": "huber"}, tconfig.BREADTH),
     ({"interaction_constraints": "[0,1]"}, tconfig.BREADTH),
     ({"cegb_penalty_split": 0.1}, tconfig.BREADTH),
     ({"categorical_feature": "0"}, tconfig.BREADTH)]
