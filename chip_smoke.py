@@ -309,11 +309,42 @@ Phases (any failure exits non-zero with no ``ok`` line):
               a monotone bound's strict compare turns into another
               split): every split identical, leaves within 2e-3 of
               max(1, |leaf|).
-              Then the ``kernels`` line (K1, K2, K3, K6, the quantize
-              kernel, the split-scan kernel, K4, K5) is printed; K1's row
+34. int8 kernels — the round-to-nearest quantize kernel bit for bit
+              its plain version on the card and the CPU at every scale
+              tile (128, 256, 512, 1024 rows; out-of-bag zero rows, an
+              all-zero tile, an odd N); K1's int8 leg (L = 2, 17, 64; byte
+              bins, and 16-bin byte and packed bins) bit for bit its
+              row-order plain version, counts exact and values within the
+              order bound of the Pallas kernel's order, the packed leg
+              the u8 leg; K2's (S = 16, 63, pool-free, sparse-live, and
+              the 16-bin packed leg the u8 leg) with hsmall the row-order
+              int8 histogram of its label and the residue the CPU plain
+              scan's; K6's (R = 4 on an int8 tree's segment, subtraction
+              and pool-free, and a packed 16-bin tree's) bit for bit R K2
+              rounds.
+35. int8 training — the headline at hist_dtype=int8 staged, fused
+              and looped, and hist_dtype_deep=int8 staged and fused, each
+              with its launch counts reset: only int8 legs (at int8 deep,
+              only at the sustained 63-slot bucket); looped text = fused
+              = staged, deep staged = deep fused, a second staged
+              training the same text; valid AUC above INT8_AUC_MIN beside
+              the JAX package's figure (int8_auc.py); each model served
+              through K4.  Then each int8 leg and the quantize kernel
+              timed beside its int8sr and bf16 / bf16x2 legs on the same
+              inputs.
+36. sampling training — bagging 0.8 every 5 iterations, feature
+              fraction 0.9 and feature_fraction_bynode 0.8, staged =
+              fused byte for byte; bagging with the per-tree mask looped
+              = fused byte for byte; the card's bag masks the CPU's bit
+              for bit; AUC > 0.90.
+37. int8 and sampled parity — phase 33's card-against-CPU replay at
+              hist_dtype=int8 (the CPU in K1's order) and with the
+              sampling of phase 36 (f32): every split identical.
+              Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
+              kernels, the split-scan kernel, K4, K5) is printed; K1's row
               carries phases 22-25's K1 shapes too (``paths``), K1, K2, K3
               and K6 a ``packed`` record, K1, K2 and K6 an ``int8sr`` one
-              and K2 and K6 a ``constrained`` one.
+              and an ``int8`` one, and K2 and K6 a ``constrained`` one.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -1053,21 +1084,26 @@ class HistRecorder:
         # the packed leg's calls: (binned, g3, leaf_id, num_bins,
         # live_slots, num_features)
         self.packed_last = {}
+        # an int8 call's rounded rows (the tree's quantize.NearestRows)
+        self.rows8 = {}
 
     def __enter__(self):
         self._orig = hc.hist_leaves
 
         def wrapped(binned, g3, leaf_id, num_leaves, num_bins,
                     precision="bf16x2", live_slots=None, packed=False,
-                    num_features=None):
+                    num_features=None, rows8=None, row_tile=None):
             key = (int(num_leaves), precision)
             if packed:
                 self.packed_last[key] = (binned, g3, leaf_id, num_bins,
                                          live_slots, num_features)
             else:
                 self.last[key] = (binned, g3, leaf_id, num_bins, live_slots)
+            if precision == "int8":
+                self.rows8[key] = rows8
             return self._orig(binned, g3, leaf_id, num_leaves, num_bins,
-                              precision, live_slots, packed, num_features)
+                              precision, live_slots, packed, num_features,
+                              rows8, row_tile)
 
         hc.hist_leaves = wrapped
         return self
@@ -4090,11 +4126,12 @@ class CardRounding:
         return self._patched(grads, sums)
 
 
-def card_vs_cpu_replay(tag, params, X, y, dev, iters=5) -> dict:
+def card_vs_cpu_replay(tag, params, X, y, dev, iters=5,
+                       precision="f32") -> dict:
     """``card_vs_cpu`` with the CPU training taking the card training's
     gradients and root sums (``CardRounding``): every split identical,
-    leaves within PARITY_LEAF_TOL."""
-    p = dict(params, hist_dtype="f32", hist_method="pallas")
+    leaves within PARITY_LEAF_TOL; at ``hist_dtype=precision``."""
+    p = dict(params, hist_dtype=precision, hist_method="pallas")
     log(f"  {tag}, card against CPU (K1's order, the card's gradients and "
         f"root sums): {len(X)} rows, {iters} iterations")
     rounding = CardRounding()
@@ -4126,6 +4163,603 @@ def nvidia_smi() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
+# ---------------------------------------------------------------------------
+# plain int8 histograms and sampling (phases 34-37)
+# ---------------------------------------------------------------------------
+
+INT8_PARAMS = dict(TRAIN_PARAMS, hist_dtype="int8")
+INT8_DEEP_PARAMS = dict(TRAIN_PARAMS, hist_dtype_deep="int8")
+INT8_RUNS = (
+    ("staged", INT8_PARAMS),
+    ("fused", dict(INT8_PARAMS, hist_method="fused")),
+    ("looped", dict(INT8_PARAMS, hist_method="fused", wave_loop_rounds=4)),
+    ("deep staged", INT8_DEEP_PARAMS),
+    ("deep fused", dict(INT8_DEEP_PARAMS, hist_method="fused")))
+# int8_auc.py (this generator, TRAIN_PARAMS with hist_method=pallas, 50
+# iterations; the JAX package's Pallas kernel interpreted on the CPU): the
+# JAX package's valid AUC at hist_dtype=int8 on phase 35's 1,048,576 rows
+# (4,246 s), and at int8 / bf16x2 on 65,536 rows.  The gate sits just
+# below the JAX figure: past the first trees the two packages' trees part
+# (a one-ulp gradient difference moves a rounding to 255 levels).
+JAX_INT8_AUC = 0.908416
+JAX_INT8_AUC_65K = (0.902336, 0.902183)
+INT8_AUC_MIN = 0.906
+SAMPLE = dict(bagging_fraction=0.8, bagging_freq=5, feature_fraction=0.9,
+              feature_fraction_bynode=0.8)
+BAG_TREE = dict(bagging_fraction=0.8, bagging_freq=5, feature_fraction=0.9)
+SAMPLE_RUNS = (
+    ("staged", dict(TRAIN_PARAMS, **SAMPLE)),
+    ("fused", dict(TRAIN_PARAMS, hist_method="fused", **SAMPLE)),
+    ("bag+tree fused", dict(LOOP_PARAMS, wave_loop_rounds=1, **BAG_TREE)),
+    ("bag+tree looped", dict(LOOP_PARAMS, **BAG_TREE)))
+
+
+def bagged_rows(rng, n, dev, frac=0.8) -> torch.Tensor:
+    """``signed_rows`` with the out-of-bag rows zeroed, as bagging leaves
+    them (count 0 too), and one all-zero 1,024-row tile (amax 0)."""
+    g3 = signed_rows(rng, n, dev)
+    g3 *= torch.from_numpy((rng.rand(n) < frac).astype(np.float32)).to(
+        dev)[:, None]
+    g3[1024:2048] = 0.0
+    return g3.contiguous()
+
+
+def check_rn_quantize(tag, g3, T) -> dict:
+    """The round-to-nearest quantize kernel against its plain version on
+    the card and on the CPU at the scale tile T: rows and scales bit for
+    bit, two launches equal; the rows integers in [-127, 127], the counts
+    0 or 64."""
+    q, scale = qz.rn_quantize(g3, T)
+    q2, s2 = qz.rn_quantize(g3, T)
+    pq, ps = qz.rn_quantize_ref(g3, T)
+    cq, cs = qz.rn_quantize_ref(g3.cpu(), T)
+    check(same_bits(q, q2) and same_bits(scale, s2),
+          f"rn_quantize {tag}: two launches differ")
+    check(same_bits(q, pq) and same_bits(scale, ps), f"rn_quantize {tag}: "
+          f"not bitwise the plain version ({int((q != pq).sum())} values, "
+          f"{int((scale != ps).sum())} scales differ)")
+    check(same_bits(q.cpu(), cq) and same_bits(scale.cpu(), cs),
+          f"rn_quantize {tag}: not bitwise the plain version on the CPU")
+    check(bool((q == q.round()).all()) and float(q[:, :2].abs().max()) <= 127
+          and bool(((q[:, 2] == 0) | (q[:, 2] == 64)).all()),
+          f"rn_quantize {tag}: rows not integers in [-127, 127] or counts "
+          "not 0 / 64")
+    zero = int((scale[:, 0] == 0).sum())
+    log(f"  rn_quantize {tag}: {g3.shape[0]} rows, {scale.shape[0]} tiles "
+        f"({zero} with amax 0) bitwise the plain version on the card and "
+        "the CPU")
+    return {"case": tag, "N": int(g3.shape[0]), "T": T,
+            "zero_tiles": zero, "max_abs_err": 0.0}
+
+
+def int8_bound(binned, g3, lid, L, B, T, live=None):
+    """A K1 int8 cell's bound against the Pallas kernel's order (the plain
+    version ``hist_leaves_ref``): each order rounds at most once a tile
+    and once a chunk, each rounding within 2^-24 of the cell's absolute
+    sum of products, at most (1 + 1/254) times the rows' absolute sum."""
+    absum = hc.index_add_hist(binned, [g3.abs()], lid, L, B, live)
+    N = g3.shape[0]
+    steps = 2 * (-(-N // T) + hc.plan(N, binned.shape[0], L, B, "int8",
+                                      T)["n_chunks"])
+    return steps * 2.0 ** -24 * (1 + 1 / 254) * absum + 1e-30
+
+
+def check_k1_int8(tag, binned, g3, lid, L, B=64, packed=None,
+                  live=None) -> dict:
+    """K1's int8 leg against its plain version in the kernel's order
+    (``hist_leaves_roworder_ref``): bit for bit; counts exact and values
+    within ``int8_bound`` of the Pallas kernel's order; two launches
+    equal; the dead slot; with ``packed`` (the pack4bit bytes of
+    ``binned``) its packed leg bitwise the u8 leg (F even: one scale
+    tile for both)."""
+    T = hc.hist_row_tile(L, binned.shape[0], B)
+    got = hc.hist_leaves(binned, g3, lid, L, B, "int8", live)
+    check(same_bits(got, hc.hist_leaves(binned, g3, lid, L, B, "int8",
+                                        live)),
+          f"K1 int8 {tag}: two launches differ")
+    row = hc.hist_leaves_roworder_ref(binned, g3, lid, L, B, "int8", live)
+    check(same_bits(got, row), f"K1 int8 {tag}: not bitwise the row-order "
+          f"version ({int((got != row).sum())} cells differ)")
+    want = hc.hist_leaves_ref(binned, g3, lid, L, B, "int8", live)
+    check(torch.equal(got[..., 2], want[..., 2]), f"K1 int8 {tag}: counts "
+          "differ from the Pallas kernel's order")
+    diff = (got - want).abs()
+    tol = int8_bound(binned, g3, lid, L, B, T, live)
+    over = int((diff > tol).sum())
+    check(over == 0, f"K1 int8 {tag}: {over} cells past the order bound")
+    if L > 1:
+        dead = hc.hist_leaves(binned, g3, lid, L, B, "int8", L - 1)
+        check(same_bits(dead[:L - 1], got[:L - 1])
+              and not bool(dead[L - 1].view(torch.int32).any()),
+              f"K1 int8 {tag}: the dead slot changed a live cell or is "
+              "not 0")
+    if packed is not None:
+        pk = hc.hist_leaves(packed, g3, lid, L, B, "int8", live, packed=True,
+                            num_features=binned.shape[0])
+        check(same_bits(pk, got), f"K1 int8 {tag}: the packed leg differs "
+              "from the u8 leg")
+    p = hc.plan(g3.shape[0], binned.shape[0], L, B, "int8", T)
+    log(f"  K1 int8 {tag}: T={T}, {p['n_chunks']} chunks of "
+        f"{p['chunk_rows']} rows; bitwise the row-order version, "
+        f"repeatable{', packed leg the u8 leg' if packed is not None else ''}"
+        f"; vs the Pallas order max_abs_err {float(diff.max()):.3e}")
+    return {"case": tag, "T": T, "n_chunks": p["n_chunks"],
+            "max_abs_err": 0.0, "max_err_vs_pallas_order": float(diff.max()),
+            "packed": packed is not None}
+
+
+def check_k2_int8(tag, binned, g3, kw, packed=None) -> dict:
+    """K2's int8 leg on one round, bit for bit: leaf ids, labels and K3 as
+    the plain version; hsmall K1's int8 histogram of the emitted label at
+    K2's scale tile, in the kernel's order (the row-order version and K1
+    itself); the residue the CPU plain scan's of those children; two
+    launches equal; with ``packed`` the packed leg the u8 leg."""
+    B, F_ = kw["num_bins"], binned.shape[0]
+    got = fc.fused_round(binned, g3, **kw)
+    again = fc.fused_round(binned, g3, **kw)
+    for a, b, what in zip(got, again, ("residue", "hsmall", "new leaf ids",
+                                       "label")):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K2 int8 {tag}: two launches differ in {what}")
+    res, hsm, nleaf, label = got
+    want = fc.fused_round_ref(binned, g3, **plain_kw(kw))
+    check(torch.equal(nleaf, want[2]) and torch.equal(label, want[3]),
+          f"K2 int8 {tag}: leaf ids or labels differ from the plain version")
+    r = kw["route"]
+    check(torch.equal(fc.route_rows(binned, r["oleaf"], r["feats"],
+                                    r["rmeta"], r["num_leaves"]), nleaf),
+          f"K3 {tag}: differs from K2's leaf ids")
+    ns = kw["nslots"]
+    T = hc.round_row_tile(ns, F_, B)
+    k1 = hc.hist_leaves_roworder_ref(binned, g3, label, ns + 1, B, "int8",
+                                     ns, row_tile=T)[:ns]
+    kk = hc.hist_leaves(binned, g3, label, ns + 1, B, "int8", ns,
+                        row_tile=T)[:ns]
+    check(same_bits(kk, k1), f"K2 int8 {tag}: K1 at K2's tile is not its "
+          "row-order version")
+    if hsm is not None:
+        check(same_bits(hsm, k1), f"K2 int8 {tag}: hsmall is not the int8 "
+              "histogram of its label in the kernel's order")
+        children = wf.subtract_children(hsm, kw["parent"], kw["sml"])
+    else:
+        children = k1
+    meta = kw["meta"]
+    res_cpu = scan_residue(children.cpu(), kw["mask"].cpu(),
+                           kw["csums"].cpu(), meta=to_cpu(meta),
+                           params=kw["params"]).to(res.device)
+    check(bool(same_value(res, res_cpu).all()), f"K2 int8 {tag}: the "
+          "residue is not the CPU plain scan of its children")
+    if packed is not None:
+        pgot = fc.fused_round(packed, g3, packed=True, **kw)
+        for a, b, what in zip(pgot, got, ("residue", "hsmall",
+                                          "new leaf ids", "label")):
+            check(a is None or bool(same_value(a, b).all()),
+                  f"K2 int8 {tag}: the packed leg differs in {what}")
+    live = int((label < ns).sum())
+    log(f"  K2 int8 {tag}: T={T}, {live} live rows; leaf ids, labels, K3 "
+        "exact; hsmall the row-order int8 histogram; residue the CPU plain "
+        "scan's; repeatable"
+        + ("; packed leg the u8 leg" if packed is not None else ""))
+    return {"case": tag, "T": T, "rows_in_slots": live, "max_abs_err": 0.0,
+            "packed": packed is not None}
+
+
+def check_k6_int8(tag, args, min_rounds=2) -> dict:
+    """K6's int8 leg against R launches of K2 with the PyTorch pick and
+    replay: packed rows, leaf ids, pool and split counts bit for bit; two
+    launches equal; split counts the plain version's."""
+    pos, kw = args
+    got = lc.fused_wave_loop(*pos, **kw)
+    again = lc.fused_wave_loop(*pos, **kw)
+    rec = RoundRecorder()
+    k2 = lc.loop_rounds(*pos, round_fn=rec, **kw)
+    plain = lc.fused_wave_loop_ref(*pos, **kw)
+    for a, b, c, what in zip(got, again, k2, ("packed rows", "new leaf ids",
+                                              "pool", "split counts")):
+        check(a is None or bool(same_value(a, b).all()),
+              f"K6 int8 {tag}: two launches differ in {what}")
+        check(a is None or bool(same_value(a, c).all()),
+              f"K6 int8 {tag}: {what} differ from R K2 rounds")
+    n_split = got[3].tolist()
+    check(n_split == plain[3].tolist(), f"K6 int8 {tag}: split counts "
+          f"{n_split} against the plain version's {plain[3].tolist()}")
+    precs = [rkw["precision"] for rkw, _ in rec.rounds]
+    check(len(precs) >= min_rounds and set(precs) == {"int8"},
+          f"K6 int8 {tag}: rounds {precs}")
+    tiles = [hc.round_row_tile(rkw["nslots"], kw["base_mask"].shape[0],
+                               kw["num_bins"]) for rkw, _ in rec.rounds]
+    log(f"  K6 int8 {tag}: split counts {n_split}, scale tiles {tiles}; "
+        f"packed rows, leaf ids and pool bitwise {len(precs)} K2 rounds and "
+        "across two launches")
+    return {"case": tag, "n_split": n_split, "tiles": tiles,
+            "max_abs_err": 0.0}
+
+
+def int8_segment(binned, meta, B, rng, packed=False):
+    """The second segment of a looped int8 grow (R = 2 a launch) on
+    ``binned``, recorded as R K2 rounds: K6's inputs at a tree's own
+    state."""
+    config = Config.from_dict(dict(INT8_PARAMS, hist_method="fused",
+                                   wave_loop_rounds=2))
+    params = SplitParams(min_data_in_leaf=float(config.min_data_in_leaf))
+    N = binned.shape[1]
+    grow = build_trainer(config, meta, params, B, binned.device, num_data=N,
+                         packed=packed)
+    with LoopRecorder(k2_rounds=True) as cap:
+        grow(binned, bagged_rows(rng, N, binned.device), meta.usable,
+             key=CHECK_KEY)
+    check(cap.second is not None, "an int8 tree of one segment")
+    return cap.second
+
+
+def phase_int8_kernels(binned, meta, rng, packed_ds) -> dict:
+    """Phase 34: the round-to-nearest quantize kernel at every scale tile
+    (out-of-bag zero rows, an all-zero tile, an odd N); K1's int8 leg at
+    L = 2, 17, 64 on byte bins and (16 bins) packed bins; K2's at S = 16
+    and 63 in subtraction mode, 63 pool-free, the sparse-live rounds and
+    (16 bins) its packed leg; K6 at R = 4 on a segment of a headline int8
+    tree, subtraction and pool-free, and its packed leg on a 16-bin
+    tree's segment."""
+    Fn, N = binned.shape
+    dev = binned.device
+    out = {"quantize": [], "k1": [], "k2": [], "k6": []}
+    for T in qz.ROW_TILES:
+        out["quantize"].append(check_rn_quantize(
+            f"N={N} T={T}", bagged_rows(rng, N, dev), T))
+    odd = (N * 3 // 4) | 1
+    out["quantize"].append(check_rn_quantize(
+        f"N={odd} T=512", bagged_rows(rng, odd, dev), 512))
+    b16 = (binned % 16).to(torch.uint8).contiguous()
+    p16 = hc.pack4bit(b16)
+    for L in (2, 17, 64):
+        lid = torch.from_numpy(rng.randint(0, L, N).astype(np.int32)).to(dev)
+        g3 = bagged_rows(rng, N, dev)
+        out["k1"].append(check_k1_int8(f"L={L} B=64", binned, g3, lid, L))
+        out["k1"].append(check_k1_int8(f"L={L} B=16", b16, g3, lid, L, 16,
+                                       p16))
+    for S, sub in ((16, True), (63, True), (63, False)):
+        g3, kw = round_inputs(binned, meta, S, S, sub, "int8", rng)
+        g3 = g3 * bagged_rows(rng, N, dev)[:, 2:3]
+        out["k2"].append(check_k2_int8(
+            f"S={S} {'sub' if sub else 'pool-free'}", binned, g3, kw))
+    for case, sub in SPARSE_CASES:
+        ns = 16 if sub else 32
+        chunk_rows = hc.plan(N, Fn, ns + 1, 64, "int8", hc.round_row_tile(
+            ns, Fn, 64))["chunk_rows"]
+        g3, kw = round_inputs(binned, meta, 16, 1, sub, "int8", rng,
+                              oleaf=sparse_leaves(N, chunk_rows, case),
+                              leafs=[1])
+        out["k2"].append(check_k2_int8(
+            f"sparse {case}, S=16 {'sub' if sub else 'pool-free'}", binned,
+            g3, kw))
+    # 16 bins: a packed dataset's meta, so every split is one of its bins
+    pb = torch.as_tensor(packed_ds.binned, device=dev).contiguous()
+    pmeta = make_feature_meta(packed_ds, dev)
+    ppk = hc.pack4bit(pb)
+    for S, sub in ((16, True), (63, False)):
+        g3, kw = round_inputs(pb, pmeta, S, S, sub, "int8", rng, B=16)
+        out["k2"].append(check_k2_int8(
+            f"S={S} {'sub' if sub else 'pool-free'} B=16", pb, g3, kw, ppk))
+    seg = int8_segment(binned, meta, 64, rng)
+    for sub in (True, False):
+        args = loop_call(seg, rounds=4, pool=seg[5]["pool"] if sub else None)
+        out["k6"].append(check_k6_int8(
+            f"R=4 {'sub' if sub else 'pool-free'}", args))
+    seg = int8_segment(ppk, pmeta, 16, rng, packed=True)
+    out["k6"].append(check_k6_int8("R=4 sub packed B=16",
+                                   loop_call(seg, rounds=4)))
+    return out
+
+
+def int8_counts() -> dict:
+    """The launch counts of a run by leg: K1, K2, K6 by bucket and the
+    quantize kernels."""
+    return {
+        "k1": {f"{k[0]}:{k[1]}": v
+               for k, v in sorted(hc.bucket_launch_counts.items())},
+        "k2": {f"{k[0]}:{k[1]}:{k[2]}": v
+               for k, v in sorted(fc.bucket_launch_counts.items())},
+        "k6": {f"{k[0]}:{k[1]}:{k[2]}": v
+               for k, v in sorted(lc.bucket_launch_counts.items())},
+        "rn_quantize": qz.launch_counts["rn_quantize"],
+        "sr_quantize": qz.launch_counts["sr_quantize"]}
+
+
+def plain_calls() -> dict:
+    return {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
+            **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
+            **{f"loop.{k}": v for k, v in lc.plain_counts.items()},
+            **{f"quantize.{k}": v for k, v in qz.plain_counts.items()}}
+
+
+def recorded_run(params, ds, dv, iters, dev):
+    """One training with the valid set, launch counts reset first, under
+    the call recorders; returns the booster, its seconds, the valid
+    metrics, launch and plain-version counts and the recorders."""
+    reset_counts()
+    ev = {}
+    with HistRecorder() as hrec, FusedRecorder() as frec, \
+            LoopRecorder() as lrec:
+        t0 = time.perf_counter()
+        booster = train(params, ds, iters, valid_sets=[dv], evals_result=ev,
+                        **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    return booster, secs, ev, int8_counts(), plain_calls(), (hrec, frec,
+                                                             lrec)
+
+
+def check_int8_launches(name, counts):
+    """Each int8 run through its int8 legs and no other leg of the
+    precision's: hist_dtype=int8 runs every K1, K2 and K6 launch at int8
+    (K1 the staged rounds and every root pass, K2 the fused rounds, K6
+    the looped segments); hist_dtype_deep=int8 runs int8 exactly at the
+    sustained 63-slot bucket (K1 at 64 slots, K2 at nslots 63) and
+    bf16x2 elsewhere; the quantize kernel ran."""
+    k1, k2, k6 = counts["k1"], counts["k2"], counts["k6"]
+    prec = {path: {k.split(":")[1] for k in d} for path, d in
+            (("k1", k1), ("k2", k2), ("k6", k6))}
+    check(counts["rn_quantize"] > 0 and counts["sr_quantize"] == 0,
+          f"int8 {name}: quantize launches {counts}")
+    if not name.startswith("deep"):
+        check(prec["k1"] == {"int8"} and prec["k2"] <= {"int8"}
+              and prec["k6"] <= {"int8"}, f"int8 {name}: legs {prec}")
+        check({"staged": not k2 and not k6, "fused": k2 and not k6,
+               "looped": k6 and not k2}[name],
+              f"int8 {name}: K2 {k2}, K6 {k6}")
+        check(name != "staged" or {int(k.split(":")[0]) for k in k1}
+              > {2}, f"int8 staged: K1 at {sorted(k1)}")
+        return
+    path = k2 if name == "deep fused" else k1
+    at = {k.split(":")[0] for k in path if k.split(":")[1] == "int8"}
+    check(at == ({"63"} if name == "deep fused" else {"64"}),
+          f"int8 {name}: int8 launches at {sorted(at)}")
+    check(prec["k1"] <= {"int8", "bf16x2"} and not k6
+          and (name == "deep fused") == bool(k2),
+          f"int8 {name}: legs {prec}")
+
+
+def phase_int8_train(ds, dv, Xv, iters, dev):
+    """Phase 35, the int8 training main path at the headline: staged,
+    fused and looped at hist_dtype=int8, staged and fused at
+    hist_dtype_deep=int8, each with its launch counts reset around it and
+    only its int8 legs; the looped text the fused one, the staged text
+    the fused one (K1's and K2's scale tiles and plans agree on byte
+    bins) and a second staged training the same text; the valid AUC
+    beside the JAX package's figure; each model served through K4."""
+    out, recs, texts = {}, {}, {}
+    for name, params in INT8_RUNS:
+        bst, secs, ev, counts, plain, rec = recorded_run(params, ds, dv,
+                                                         iters, dev)
+        log(f"  int8 {name}: launches {json.dumps(counts)}")
+        check(not any(plain.values()), f"int8 {name}: a plain version ran "
+              f"on the path: {plain}")
+        check_int8_launches(name, counts)
+        texts[name] = bst.model_to_string()
+        auc = ev["valid_0"]["auc"][-1]
+        r = {"iters": iters, "s_per_iter": secs / iters, "valid_auc": auc,
+             "launches": counts, **text_hash(texts[name], f"int8 {name}")}
+        log(f"  int8 {name}: {iters} iterations, {r['s_per_iter']:.4f} "
+            f"s/iter; valid AUC {auc:.5f} (the JAX package's int8 "
+            f"{JAX_INT8_AUC}; at 65,536 rows int8 / bf16x2 "
+            f"{JAX_INT8_AUC_65K[0]} / {JAX_INT8_AUC_65K[1]}; int8_auc.py)")
+        check(auc > INT8_AUC_MIN, f"int8 {name}: valid AUC {auc} <= "
+              f"{INT8_AUC_MIN}")
+        r["served_max_abs_err"] = serve_trained(
+            bst, Xv, dev, f"int8_{name.replace(' ', '_')}_model.txt")
+        out[name] = r
+        recs[name] = rec
+    check(texts["looped"] == texts["fused"], "int8: the looped model text "
+          "differs from its single round's")
+    check(texts["staged"] == texts["fused"], "int8: the staged model text "
+          "differs from the fused one")
+    check(texts["deep staged"] == texts["deep fused"], "int8 deep: the "
+          "staged model text differs from the fused one")
+    again = train(INT8_PARAMS, ds, iters, **_on(dev)).model_to_string()
+    check(again == texts["staged"], "int8: a second staged training writes "
+          "another model text")
+    log("  int8: staged == fused == looped, deep staged == deep fused, and "
+        "a second staged training the same text, byte for byte")
+    return out, recs
+
+
+def int8_ops(binned, lid, L, B, T, live=None):
+    """A K1 int8 pass's work on these inputs: its integer adds (3 a live
+    row and feature) and its fmas (3 a non-empty (cell, scale tile))."""
+    Fn, N = binned.shape
+    live = L if live is None else live
+    rows = ((lid >= 0) & (lid < live)).nonzero()[:, 0]
+    cells = 0
+    for f in range(Fn):
+        key = (rows // T) * (L * B) + lid[rows].long() * B \
+            + binned[f, rows].long()
+        cells += int(torch.unique(key).numel())
+    return 3 * rows.numel() * Fn, 3 * cells
+
+
+def phase_int8_timing(recs, trained) -> dict:
+    """Each int8 leg on phase 35's last inputs at its largest bucket beside
+    its int8sr and bf16 / bf16x2 legs on the same inputs, its plain
+    version and, for K1, one ``index_add_`` of the integer rows; the
+    quantize kernel beside its plain version.  Bounds: bytes (each input
+    read once, each output written once) at 3.35 TB/s, and operations
+    (integer adds at the int32 rate, one fma a non-empty cell and scale
+    tile at the f32 rate).  The int8 legs run on the tree's rounded rows
+    (``NearestRows``, quantized before the timing, as a tree does once)."""
+    out = {}
+    hrec = recs["staged"][0]
+    (L, _), (binned, g3, lid, B, live) = max(
+        ((k, v) for k, v in hrec.last.items() if k[1] == "int8"),
+        key=lambda kv: kv[0][0])
+    rows8 = hrec.rows8[(L, "int8")] or qz.NearestRows(g3)
+    Fn, N = binned.shape
+    T = hc.hist_row_tile(L, Fn, B)
+    q, _ = rows8(T)
+    q3 = qz.sr_quantize(qz.prequantize_rows(g3)[0], CHECK_KEY)
+    iadd, fmas = int8_ops(binned, lid, L, B, T, live)
+    flat = ((torch.arange(Fn, device=binned.device)[:, None] * L
+             + lid.long()[None, :]) * B + binned.long()).reshape(-1)
+    ivals = q.to(torch.int32).repeat(Fn, 1)
+    iacc = torch.zeros((Fn * L * B, 3), dtype=torch.int32,
+                       device=binned.device)
+    k1 = trained["staged"]["launches"]["k1"]
+    out["hist_leaves"] = {
+        "at": f"L={L} int8 T={T}", "N": N,
+        "launches": sum(v for k, v in k1.items() if k.endswith(":int8")),
+        "launches_by_bucket": k1,
+        "ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B, "int8",
+                                             live, rows8=rows8), 10),
+        "int8sr_ms": time_ms(lambda: hc.hist_leaves(binned, q3, lid, L, B,
+                                                    "int8sr", live), 10),
+        "bf16_ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B,
+                                                  "bf16", live), 10),
+        "bf16x2_ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B,
+                                                    "bf16x2", live), 10),
+        "plain_ms": time_ms(lambda: hc.hist_leaves_ref(
+            binned, g3, lid, L, B, "int8", live, rows8=rows8), 1),
+        "library_ms": time_ms(lambda: iacc.index_add_(0, flat, ivals), 5),
+        **int8sr_bound(Fn * N + N * 12 + N * 4 + -(-N // T) * 12
+                       + L * Fn * B * 3 * 4, 2 * fmas, iadd)}
+    frec = recs["fused"][1]
+    (ns, prec, mode), (binned, g3, kw) = max(
+        ((k, v) for k, v in frec.last.items() if k[1] == "int8"),
+        key=lambda kv: kv[0][0])
+    Fn, N = binned.shape
+    sub = kw.get("parent") is not None
+    S = ns if sub else ns // 2
+    T = hc.round_row_tile(ns, Fn, kw["num_bins"])
+    rows8 = kw.get("rows8") or qz.NearestRows(g3)
+    kw = dict(kw, rows8=rows8)
+    label = fc.fused_round(binned, g3, **kw)[3]
+    iadd, fmas = int8_ops(binned, label, ns + 1, kw["num_bins"], T, ns)
+    n_live = int((label < ns).sum())
+    Bn = kw["num_bins"]
+    other = ((2 * S * Fn * Bn * 3 * 4 if sub else 0) + ns * 12
+             + 2 * S * (Fn + 12) + 2 * S * Fn * wf.RES_COLS * 4)
+    q3 = qz.sr_quantize(qz.prequantize_rows(g3)[0], CHECK_KEY)
+    skw = dict(kw, precision="int8sr",
+               scale=torch.ones((ns, 3), dtype=torch.float32,
+                                device=binned.device))
+    bkw = dict(kw, precision="bf16x2")
+    k2 = trained["fused"]["launches"]["k2"]
+    out["fused_round"] = {
+        "at": f"S={S} int8 {mode} T={T}", "N": N,
+        "launches": sum(v for k, v in k2.items() if ":int8:" in k),
+        "ms": time_ms(lambda: fc.fused_round(binned, g3, **kw), 10),
+        "int8sr_ms": time_ms(lambda: fc.fused_round(binned, q3, **skw), 10),
+        "bf16x2_ms": time_ms(lambda: fc.fused_round(binned, g3, **bkw), 10),
+        "plain_ms": time_ms(lambda: fc.fused_round_ref(
+            binned, g3, **plain_kw(kw)), 1),
+        "library_ms": None, "live_rows": n_live,
+        "live_bound_ms": (live_row_bytes(N, Fn, n_live) + other)
+        / HBM_BYTES_PER_S * 1e3,
+        **int8sr_bound(Fn * N + N * 12 + N * 4 + 2 * N * 4 + other,
+                       2 * S * Fn * Bn * 2 * 12 + 2 * fmas, iadd)}
+    pos, kw = loop_call(recs["looped"][2].last)
+    rows8 = kw.get("rows8") or qz.NearestRows(pos[1])
+    kw = dict(kw, rows8=rows8)
+    nbytes, live_bytes, f32_ops, rounds, n_split = loop_work(pos, kw)
+    N = pos[0].shape[1]
+    Fn = pos[0].shape[0]
+    int_ops = sum(3 * r["live_rows"] * Fn for r in rounds)
+    f32_ops -= int_ops
+    bkw = dict(kw, precision="bf16x2")
+    qkw = dict(kw, precision="bf16x2", key=CHECK_KEY,
+               quant_buckets=tuple(S for S in kw["slot_buckets"] if S >= 16),
+               quant=qz.prequantize_rows(pos[1]))
+    k6 = trained["looped"]["launches"]["k6"]
+    out["fused_wave_loop"] = {
+        "R": kw["rounds"], "rounds": rounds, "N": N,
+        "launches": sum(k6.values()),
+        "ms": time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10),
+        "int8sr_ms": time_ms(lambda: lc.fused_wave_loop(*pos, **qkw), 10),
+        "bf16x2_ms": time_ms(lambda: lc.fused_wave_loop(*pos, **bkw), 10),
+        "plain_ms": time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 1),
+        "library_ms": None,
+        "live_bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3,
+        **int8sr_bound(nbytes, f32_ops, int_ops)}
+    g3 = recs["staged"][0].last[max(k for k in recs["staged"][0].last
+                                    if k[1] == "int8")][1]
+    N = g3.shape[0]
+    T = 512
+    qrow = {
+        "name": "rn_quantize", "route": "cuda", "source": QUANT_SRC,
+        "replaces": "lightgbmv1_tpu/ops/hist_pallas.py:144 _kernel "
+                    "(precision=\"int8\": the tile amax, scale and "
+                    "rounding; K2's and K6's tile of adds, "
+                    "wave_fused.py:110)",
+        "at": f"T={T}", "N": N,
+        "launches": int(trained["staged"]["launches"]["rn_quantize"]),
+        "launches_by_path": {k: int(v["launches"]["rn_quantize"])
+                             for k, v in trained.items()},
+        "max_abs_err": 0.0,
+        "ms": time_ms(lambda: qz.rn_quantize(g3, T), 20),
+        "plain_ms": time_ms(lambda: qz.rn_quantize_ref(g3, T), 1),
+        "library_ms": None,
+        **int8sr_bound(N * 24 + -(-N // T) * 12, N * 8, 0)}
+    for name, r in list(out.items()) + [("rn_quantize", qrow)]:
+        legs = ", ".join(f"{k} {r[k]:.4f} ms" for k in
+                         ("int8sr_ms", "bf16_ms", "bf16x2_ms") if k in r)
+        log(f"  {name} int8 ({r.get('at', '')}): {r['ms']:.4f} ms"
+            + (f" beside {legs}" if legs else "")
+            + f", plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
+            f"by {r['bound_by']}, library {r['library_ms']}; "
+            f"{r['launches']} launches on phase 35's path")
+    return out, qrow
+
+
+def phase_sample_train(ds, dv, Xv, iters, dev):
+    """Phase 36, the sampling main path at the headline: bagging 0.8 every
+    5 iterations, feature_fraction 0.9 and feature_fraction_bynode 0.8,
+    staged and fused (one model text); bagging with the per-tree mask
+    fused and looped (one model text); the card's bag masks (plain and
+    pos / neg, across bagging_freq boundaries) the CPU's bit for bit; AUC
+    > 0.90; s/iteration."""
+    out, texts = {}, {}
+    for name, params in SAMPLE_RUNS:
+        bst, secs, ev, counts, plain, _ = recorded_run(params, ds, dv, iters,
+                                                       dev)
+        check(not any(plain.values()), f"sampled {name}: a plain version "
+              f"ran on the path: {plain}")
+        texts[name] = bst.model_to_string()
+        auc = ev["valid_0"]["auc"][-1]
+        out[name] = {"iters": iters, "s_per_iter": secs / iters,
+                     "valid_auc": auc, "launches": counts,
+                     **text_hash(texts[name], f"sampled {name}")}
+        log(f"  sampled {name}: {iters} iterations, "
+            f"{out[name]['s_per_iter']:.4f} s/iter; valid AUC {auc:.5f}; "
+            f"launches {json.dumps(counts)}")
+        check(auc > 0.90, f"sampled {name}: valid AUC {auc} <= 0.90")
+        if name == "bag+tree looped":
+            check(bool(counts["k6"]), f"sampled {name}: no K6 launch")
+        gbdt = bst._gbdt
+    check(texts["staged"] == texts["fused"], "sampled: the staged model "
+          "text differs from the fused one")
+    check(texts["bag+tree looped"] == texts["bag+tree fused"], "sampled: "
+          "the looped model text differs from the fused one")
+    # the last run's bag stream on the card against the CPU's
+    N = gbdt.num_data
+    for it in (0, 4, 5, 49):
+        key = prng.fold_in(prng.prng_key(gbdt.config.bagging_seed), it // 5)
+        card = prng.bernoulli(key, 0.8, N, dev)
+        cpu = prng.bernoulli(key, 0.8, N, "cpu")
+        check(torch.equal(card.cpu(), cpu), f"sampled: the bag of iteration "
+              f"{it} differs between the card and the CPU")
+        gbdt._bag_mask = None
+        check(torch.equal(gbdt._bagging_mask(it).cpu() != 0, cpu),
+              f"sampled: GBDT's bag of iteration {it} is not the stream's")
+        pos = prng.bernoulli(key, 0.5, N, dev)
+        neg = prng.bernoulli(prng.fold_in(key, 1), 0.3, N, dev)
+        check(torch.equal(pos.cpu(), prng.bernoulli(key, 0.5, N, "cpu"))
+              and torch.equal(neg.cpu(), prng.bernoulli(
+                  prng.fold_in(key, 1), 0.3, N, "cpu")),
+              f"sampled: the pos / neg bags of iteration {it} differ")
+    log(f"  sampled: staged == fused and bag+tree looped == bag+tree fused "
+        f"byte for byte; the bag masks of iterations 0, 4, 5, 49 the CPU's "
+        f"bit for bit ({N} rows)")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4154,7 +4788,7 @@ def main(argv=None) -> int:
 
     log("== phase 2: build")
     secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop",
-                         "quantize", "split_scan"])
+                         "wave_loop_int8", "quantize", "split_scan"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for line in rec["log"].splitlines():
@@ -4458,6 +5092,42 @@ def main(argv=None) -> int:
     cparity = card_vs_cpu_replay("constrained", dict(PARITY_PARAMS,
                                                      **CONSTRAINED_PARITY),
                                  Xp, yp, dev)
+
+    log("== phase 34: plain int8: the quantize kernel, K1, K2 and K6 "
+        "against their plain versions")
+    t0 = time.perf_counter()
+    Xq, yq = make_data(1 << 18, args.seed + 9)
+    dq = Dataset(Xq, label=yq, params=PACKED_PARAMS)
+    dq.construct()
+    log(f"  262,144 rows binned at max_bin=15 for the 16-bin legs in "
+        f"{time.perf_counter() - t0:.1f} s")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    qchecks = phase_int8_kernels(binned, make_feature_meta(ds._binned, dev),
+                                 rng, dq._binned)
+    del binned, dq, Xq, yq
+
+    log("== phase 35: int8 training (main path; launch counts reset)")
+    int8, qrecs = phase_int8_train(ds, dv, Xv, args.iters, dev)
+    qrow8, rnrow = phase_int8_timing(qrecs, int8)
+    del qrecs
+    k1_row["int8"] = dict(qrow8["hist_leaves"], max_abs_err=0.0,
+                          checks=qchecks["k1"])
+    fused_rows[0]["int8"] = dict(qrow8["fused_round"], max_abs_err=0.0,
+                                 checks=qchecks["k2"])
+    k6_row["int8"] = dict(qrow8["fused_wave_loop"], max_abs_err=0.0,
+                          checks=qchecks["k6"])
+    rnrow["checks"] = qchecks["quantize"]
+
+    log("== phase 36: sampling training (main path; launch counts reset)")
+    sampled = phase_sample_train(ds, dv, Xv, args.iters, dev)
+
+    log("== phase 37: int8 and sampled parity, card vs CPU")
+    qparity = {
+        "int8": card_vs_cpu_replay("int8", PARITY_PARAMS, Xp, yp, dev,
+                                   precision="int8"),
+        "sampled": card_vs_cpu_replay("sampled", dict(PARITY_PARAMS,
+                                                      **SAMPLE), Xp, yp,
+                                      dev)}
     del Xp, yp
 
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
@@ -4476,9 +5146,11 @@ def main(argv=None) -> int:
                     "int8sr_train": int8sr, "int8sr_parity": iparity,
                     "constrained_train": constrained,
                     "constrained_parity": cparity,
+                    "int8_train": int8, "sampled_train": sampled,
+                    "int8_sampled_parity": qparity,
                     "seconds": time.perf_counter() - t_start}))
     print(json.dumps({"kernels": [k1_row] + fused_rows
-                      + [k6_row, qrow, scan_row] + rows}), flush=True)
+                      + [k6_row, qrow, rnrow, scan_row] + rows}), flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

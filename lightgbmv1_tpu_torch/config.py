@@ -165,13 +165,14 @@ class Config:
     lambda_l2: float = 0.0
     min_gain_to_split: float = 0.0
     verbosity: int = 1
-    # -- knobs of the JAX package the port refuses (see unported_reason) --
+    # -- sampling: bagging and feature fraction (JAX gbdt.py:684-724) -----
     bagging_fraction: float = 1.0
     pos_bagging_fraction: float = 1.0
     neg_bagging_fraction: float = 1.0
     bagging_freq: int = 0
     feature_fraction: float = 1.0
     feature_fraction_bynode: float = 1.0
+    # -- knobs of the JAX package the port refuses (see unported_reason) --
     extra_trees: bool = False
     early_stopping_round: int = 0
     max_delta_step: float = 0.0
@@ -195,7 +196,7 @@ class Config:
     # persistent wave loop K6 (ops/loop_cuda.py; JAX config.py:402)
     wave_loop_rounds: int = 1
     bin_layout: str = "auto"         # auto | u8 | packed4
-    hist_dtype: str = "bf16x2"       # f32 | bf16 | bf16x2
+    hist_dtype: str = "bf16x2"       # f32 | bf16 | bf16x2 | int8
     # sustained (largest-bucket) wave rounds: "" drops bf16x2 to bf16
     # there; "auto" is bf16x2 off the TPU; else the named dtype
     hist_dtype_deep: str = ""
@@ -262,7 +263,7 @@ class Config:
     eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
-    # sampling seeds (item 3)
+    # sampling seeds (extra_seed refused with extra_trees)
     bagging_seed: int = 3
     feature_fraction_seed: int = 2
     extra_seed: int = 6
@@ -515,8 +516,10 @@ class Config:
 # ROADMAP queue 1 items that port what the training slice refuses
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
-# ported: hist_dtype_deep=int8sr trains; the item keeps its name for
-# ROADMAP's record of it, and nothing refuses with it any more
+# ported: hist_dtype_deep=int8sr, hist_dtype=int8 and hist_dtype_deep=int8
+# train; the items keep their names for ROADMAP's record of them, and
+# nothing refuses with them any more.  SAMPLING still refuses extra_trees
+# (bagging and feature fraction train)
 INT8 = "int8sr histograms"
 INT8_PLAIN = "plain int8 histograms"
 HIST_METHODS = "histogram methods onehot and bench"
@@ -540,12 +543,6 @@ _UNPORTED = (
      "boosting={v} (GOSS, DART, RF)", BREADTH),
     ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
      "tree_learner={v}", PARALLEL),
-    ("bagging_freq", lambda c: (c.bagging_freq > 0 and (
-        c.bagging_fraction < 1.0 or c.pos_bagging_fraction < 1.0
-        or c.neg_bagging_fraction < 1.0)), "bagging", SAMPLING),
-    ("feature_fraction", lambda c: (c.feature_fraction < 1.0
-                                    or c.feature_fraction_bynode < 1.0),
-     "feature_fraction < 1", SAMPLING),
     ("extra_trees", lambda c: c.extra_trees, "extra_trees", SAMPLING),
     ("early_stopping_round", lambda c: c.early_stopping_round > 0,
      "early stopping", CALLBACKS),
@@ -560,17 +557,13 @@ _UNPORTED = (
      "categorical features", BREADTH),
     ("hist_method", lambda c: c.hist_method in ("onehot", "bench"),
      "hist_method={v}", HIST_METHODS),
-    ("hist_dtype", lambda c: c.hist_dtype == "int8", "hist_dtype=int8",
-     INT8_PLAIN),
-    ("hist_dtype_deep", lambda c: c.hist_dtype_deep == "int8",
-     "hist_dtype_deep={v}", INT8_PLAIN),
 )
 
 
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (SAMPLING, ("bagging_seed", "feature_fraction_seed", "extra_seed")),
+    (SAMPLING, ("extra_seed",)),
     (CALLBACKS, ("first_metric_only",)),
     (BREADTH, ("alpha", "fair_c", "poisson_max_delta_step",
                "tweedie_variance_power", "objective_seed", "auc_mu_weights",

@@ -23,7 +23,17 @@
 // merge, rounded to f32 once at the output (exact below 2^24, where the
 // Pallas kernel's f32 adds of its tiles' int32 products are exact too).
 // The rows stay (N, 3) f32, so the leg reads what the others read; its
-// integer adds are exact in any order.
+// integer adds are exact in any order.  "int8" (the Pallas kernel's
+// precision="int8", hist_dtype=int8 / hist_dtype_deep=int8) takes the
+// rows rounded to nearest under one scale a row tile of `qtile` rows
+// (csrc/quantize.cu lgbm_rn_quantize, T the Pallas kernel's own row tile
+// for the call) and the tiles' scales: each cell sums a scale tile's
+// integers as int32 and flushes fma(float(sum), scale, f32 sum) when a
+// row of a later tile comes (hist_tile.cuh), so one chunk's cell is the
+// Pallas kernel's sum over the chunk's tiles, and the plan keeps every
+// scale tile in one chunk.  It reads the same bytes as the f32 leg, plus
+// 12 bytes a tile of scales; its integer adds and one fma a cell and
+// tile are still far below the card's rates.
 //
 // What bounds it on this card.  The function reads each bin byte, each
 // g3 row and each slot id once and writes the histogram once (about
@@ -93,10 +103,10 @@ template <int PREC, int NC, bool PACKED>
 int launch(const uint8_t* binned, const float* g3, const int* leaf_id,
            float* partial, float* out, int n, int nf, int nl, int nl_add,
            int nb, int nb_out, int ls_max, int n_chunks, int chunk_rows,
-           cudaStream_t stream) {
+           const float* qscale, int qtile, cudaStream_t stream) {
   const int err = launch_hist_partial<PREC, NC, PACKED>(
       binned, g3, leaf_id, partial, n, nf, nl, nl_add, nb, ls_max, n_chunks,
-      chunk_rows, stream);
+      chunk_rows, qscale, qtile, stream);
   if (err != 0) return err;
   const size_t total = static_cast<size_t>(nl) * nf * nb_out * 3;
   if (total == 0) return 0;
@@ -110,27 +120,28 @@ template <bool PACKED>
 int dispatch(int precision, const uint8_t* bn, const float* g,
              const int* lid, float* p, float* o, int n, int nf, int nl,
              int nl_add, int nb, int nb_out, int ls_max, int n_chunks,
-             int chunk_rows, cudaStream_t st) {
+             int chunk_rows, const float* qs, int qt, cudaStream_t st) {
+#define LGBM_HIST(P, C)                                                   \
+  launch<P, C, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add, nb, nb_out,    \
+                       ls_max, n_chunks, chunk_rows, qs, qt, st)
   switch (precision) {
     case kF32:
-      return launch<kF32, 3, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add, nb,
-                                     nb_out, ls_max, n_chunks, chunk_rows,
-                                     st);
+      return LGBM_HIST(kF32, 3);
     case kBf16:
-      return launch<kBf16, 3, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
-                                      nb, nb_out, ls_max, n_chunks,
-                                      chunk_rows, st);
+      return LGBM_HIST(kBf16, 3);
     case kBf16x2:
-      return launch<kBf16x2, 6, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
-                                        nb, nb_out, ls_max, n_chunks,
-                                        chunk_rows, st);
+      return LGBM_HIST(kBf16x2, 6);
     case kInt8sr:
-      return launch<kInt8sr, 3, PACKED>(bn, g, lid, p, o, n, nf, nl, nl_add,
-                                        nb, nb_out, ls_max, n_chunks,
-                                        chunk_rows, st);
+      return LGBM_HIST(kInt8sr, 3);
+    case kInt8:
+      // a scale tile never splits across chunks, nor a chunk's end
+      if (!qs || qt <= 0 || chunk_rows % qt != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return LGBM_HIST(kInt8, 3);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef LGBM_HIST
 }
 
 }  // namespace
@@ -138,29 +149,33 @@ int dispatch(int precision, const uint8_t* bn, const float* g,
 extern "C" {
 
 // Returns the cudaError_t of the launches (0 = both launched).  `partial`
-// is (n_chunks, nf, nl, nb, 6 or 3) f32 (int8sr: int32) scratch; `out` is (nl, nf, nb_out,
-// 3) f32 with nb_out <= nb (the bins past nb_out are dropped).  Rows of
-// slots [nl_add, nl) add nothing (0 <= nl_add <= nl).  `binned` is (nf,
-// n) bytes, or with `packed` != 0 the (ceil(nf/2), n) packed bytes of the
-// nf features (nb must then be 16).
+// is (n_chunks, nf, nl, nb, 6 or 3) f32 (int8sr: int32) scratch; `out` is
+// (nl, nf, nb_out, 3) f32 with nb_out <= nb (the bins past nb_out are
+// dropped).  Rows of slots [nl_add, nl) add nothing (0 <= nl_add <= nl).
+// `binned` is (nf, n) bytes, or with `packed` != 0 the (ceil(nf/2), n)
+// packed bytes of the nf features (nb must then be 16).  int8: `g3` holds
+// the rounded rows and `qscale` the (ceil(n / qtile), 3) scales of their
+// qtile-row tiles (chunk_rows a multiple of qtile); null / 0 otherwise.
 int lgbm_hist_leaves(const void* binned, const void* g3, const void* leaf_id,
                      void* partial, void* out, int n, int nf, int nl,
                      int nl_add, int nb, int nb_out, int ls_max, int n_chunks,
                      int chunk_rows, int precision, int packed,
-                     void* stream) {
+                     const void* qscale, int qtile, void* stream) {
   const uint8_t* bn = static_cast<const uint8_t*>(binned);
   const float* g = static_cast<const float*>(g3);
   const int* lid = static_cast<const int*>(leaf_id);
   float* p = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* qs = static_cast<const float*>(qscale);
   if (packed) {
     if (nb != 16) return static_cast<int>(cudaErrorInvalidValue);
     return dispatch<true>(precision, bn, g, lid, p, o, n, nf, nl, nl_add, nb,
-                          nb_out, ls_max, n_chunks, chunk_rows, st);
+                          nb_out, ls_max, n_chunks, chunk_rows, qs, qtile,
+                          st);
   }
   return dispatch<false>(precision, bn, g, lid, p, o, n, nf, nl, nl_add, nb,
-                         nb_out, ls_max, n_chunks, chunk_rows, st);
+                         nb_out, ls_max, n_chunks, chunk_rows, qs, qtile, st);
 }
 
 }  // extern "C"

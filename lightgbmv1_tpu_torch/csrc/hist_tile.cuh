@@ -34,6 +34,29 @@
 // it becomes f32 once, at the merge.  The Pallas kernel adds each row
 // tile's int32 product into an f32 output, exact while every cell stays
 // below 2^24 in magnitude; the two agree there.
+// "int8" (hist_dtype=int8 / hist_dtype_deep=int8, the Pallas kernel's
+// precision="int8", round to nearest under one scale a row tile of T
+// rows) takes the rows q rounded to exact integers under their tile's
+// scales (ops/quantize.rn_quantize; f32 holding integers) and the
+// (ceil(n / T), 3) scales.  The Pallas kernel sums each tile's integers
+// exactly (int32) and adds float(sum) * scale into its f32 output, tile
+// after tile (an fma where XLA contracts the product and the add, as it
+// does on the CPU).  Here each cell keeps an int32 sum of its current
+// scale tile, an f32 sum and the tile's id (7 words a cell); a row of a
+// later tile first flushes the cell, f = fma(float(i), scale, f), and
+// restarts the integer sum, and the item's end flushes every cell.  The
+// rows come in row order, so a cell sees its tiles in order, and a tile
+// in which the cell has no row adds an exact 0 in the Pallas kernel: the
+// f32 sum of one row chunk is the Pallas kernel's sum over the chunk's
+// tiles, bit for bit.  The plan never splits a scale tile across chunks
+// (ops/hist_cuda.plan), and the chunks' f32 partials merge in chunk order
+// as the float legs' do: with one chunk the histogram is the Pallas
+// kernel's bit for bit, else the sums of its tiles are associated by
+// chunk.  T is the Pallas kernel's own row tile for the call (128 to
+// 1024), not this kernel's 256-row tile: a 256-row tile may hold two
+// scale tiles, and the flush follows the rows' scale tiles, wherever
+// they fall.  The list walk (K2, K6) sees only a chunk's listed rows,
+// but the scales come from all the tile's rows, from the quantize pass.
 //
 // Bins: (nf, n) bytes, or (PACKED, bin_layout=packed4) the (ceil(nf/2), n)
 // bytes of two features each, lo nibble = feature 2p, hi = 2p + 1
@@ -53,9 +76,19 @@ namespace lgbm {
 constexpr int kThreads = 256;  // = rows a tile
 constexpr int kWarps = kThreads / 32;
 
-enum Precision { kF32 = 0, kBf16 = 1, kBf16x2 = 2, kInt8sr = 3 };
+enum Precision { kF32 = 0, kBf16 = 1, kBf16x2 = 2, kInt8sr = 3, kInt8 = 4 };
 
-// The accumulator of a precision: int32 for int8sr, f32 otherwise.  The
+// The 4-byte words a cell takes in the shared sub-histograms and a row
+// in a tile's compacted values: NC, or at int8 a cell's int32 sums of
+// its current scale tile, its f32 sums and the tile's id (7), a row's
+// three integers and its scale tile (4, within the 7 reserved).
+template <int PREC, int NC>
+__host__ __device__ constexpr int cell_words() {
+  return PREC == kInt8 ? 7 : NC;
+}
+
+// The accumulator of a precision: int32 for int8sr, f32 otherwise (int8's
+// partials are f32; its shared cells are read through both types).  The
 // shared sub-histograms, a tile's compacted values and the partials are
 // 4-byte words either way, read through this type.
 template <int PREC>
@@ -72,8 +105,8 @@ __device__ __forceinline__ float bf16_rn(float v) {
 }
 
 // Dynamic shared memory of one hist_partial_kernel block: the
-// sub-histograms and one tile's compacted rows (NC values and a key each),
-// 4-byte words whatever the accumulator.
+// sub-histograms and one tile's compacted rows (nc = hist_words values
+// and a key each), 4-byte words whatever the accumulator.
 inline size_t hist_partial_smem(int ls_max, int nb, int nc) {
   return (static_cast<size_t>(ls_max) * nb * nc +
           static_cast<size_t>(kThreads) * nc) * sizeof(float) +
@@ -112,7 +145,8 @@ constexpr int kDepth = 4;
 // has cell key `key` (-1: adds nothing) and values `v` (read only for a
 // row that adds).  Compacts the tile's adding rows by owner warp, stably,
 // into tkey / tval[NC][tile], then each warp adds its rows to its cells of
-// `hist`, 32 at a time.
+// `hist`, 32 at a time.  int8: `qt` is the row's scale tile and `qscale`
+// the tiles' (3,) scales (see the head note; unread by the other legs).
 // Opens with a block barrier and leaves the warps unsynchronised: the next
 // tile's barrier orders its writes of wcnt, tkey and tval after this one's
 // reads.
@@ -120,7 +154,8 @@ template <int PREC, int NC>
 __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
                                               float* hist_words,
                                               float* tval_words, int* tkey,
-                                              int wcells) {
+                                              int wcells, int qt,
+                                              const float* qscale) {
   using A = typename AccOf<PREC>::T;
   A* hist = reinterpret_cast<A*>(hist_words);
   A* tval = reinterpret_cast<A*>(tval_words);
@@ -174,8 +209,8 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
     tkey[p] = key;
 #pragma unroll
     for (int c = 0; c < 3; ++c) {
-      if constexpr (PREC == kInt8sr) {
-        tval[c * kThreads + p] = __float2int_rn(v[c]);
+      if constexpr (PREC == kInt8sr || PREC == kInt8) {
+        reinterpret_cast<int*>(tval)[c * kThreads + p] = __float2int_rn(v[c]);
       } else if constexpr (PREC == kF32) {
         tval[c * kThreads + p] = v[c];
       } else {
@@ -184,8 +219,63 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
         if (PREC == kBf16x2) tval[(3 + c) * kThreads + p] = bf16_rn(v[c] - hi);
       }
     }
+    if constexpr (PREC == kInt8)
+      reinterpret_cast<int*>(tval)[3 * kThreads + p] = qt;
   }
   __syncthreads();
+
+  if constexpr (PREC == kInt8) {
+    // a cell: int32 sums [0, 3), f32 sums [3, 6), its scale tile 6 (-1:
+    // none yet), each a channel of wcells words
+    int* hi = reinterpret_cast<int*>(hist_words) +
+              static_cast<size_t>(warp) * 7 * wcells;
+    float* hf = hist_words + static_cast<size_t>(warp) * 7 * wcells;
+    const int* tv = reinterpret_cast<const int*>(tval_words);
+    for (int b0 = 0; b0 < cnt; b0 += 32) {
+      const int i = b0 + lane;
+      const int k = i < cnt ? tkey[base + i] : -1;
+      const unsigned grp = __match_any_sync(0xffffffffu, k);
+      if (k >= 0 && (grp & lt_mask) == 0) {  // the group's lowest lane
+        const int cell = k / kWarps;
+        int ia[3];
+        float fa[3];
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          ia[c] = hi[c * wcells + cell];
+          fa[c] = hf[(3 + c) * wcells + cell];
+        }
+        int ct = hi[6 * wcells + cell];
+        unsigned m = grp;
+        while (m) {  // the group's lanes in order (= row order)
+          const int p = base + b0 + __ffs(m) - 1;
+          m &= m - 1u;
+          const int t = tv[3 * kThreads + p];
+          if (t != ct) {  // a later scale tile: flush the cell's sum
+            if (ct >= 0) {
+#pragma unroll
+              for (int c = 0; c < 3; ++c)
+                fa[c] = __fmaf_rn(__int2float_rn(ia[c]), qscale[3 * ct + c],
+                                  fa[c]);
+            }
+#pragma unroll
+            for (int c = 0; c < 3; ++c) ia[c] = 0;
+            ct = t;
+          }
+#pragma unroll
+          for (int c = 0; c < 3; ++c) ia[c] += tv[c * kThreads + p];
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c) {
+          hi[c * wcells + cell] = ia[c];
+          hf[(3 + c) * wcells + cell] = fa[c];
+        }
+        hi[6 * wcells + cell] = ct;
+      }
+      // the next batch's lanes read what this batch's lowest lanes stored
+      __syncwarp();
+    }
+    return;
+  }
 
   // ---- each warp adds its rows, 32 at a time, in row order -------------
   A* hw = hist + static_cast<size_t>(warp) * NC * wcells;
@@ -227,6 +317,45 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
   }
 }
 
+// Zeroes the sub-histograms of `cells` cells (int8: the scale tiles -1).
+template <int PREC, int NC>
+__device__ __forceinline__ void hist_clear(float* hist, int cells,
+                                           int wcells) {
+  constexpr int HW = cell_words<PREC, NC>();
+  int* w = reinterpret_cast<int*>(hist);
+  for (int i = threadIdx.x; i < cells * HW; i += kThreads)
+    w[i] = PREC == kInt8 && (i / wcells) % HW == 6 ? -1 : 0;
+}
+
+// Writes the sub-histograms of `cells` cells to a partial, [cell][NC]
+// (int8: each cell's f32 sums after the last flush of its integer sums).
+template <int PREC, int NC>
+__device__ __forceinline__ void hist_write(const float* hist, int cells,
+                                           int wcells, float* out_words,
+                                           const float* qscale) {
+  using A = typename AccOf<PREC>::T;
+  constexpr int HW = cell_words<PREC, NC>();
+  A* out = reinterpret_cast<A*>(out_words);
+  const A* hacc = reinterpret_cast<const A*>(hist);
+  const int* hi = reinterpret_cast<const int*>(hist);
+  for (int i = threadIdx.x; i < cells * NC; i += kThreads) {
+    const int k = i / NC;
+    const int c = i - k * NC;
+    const size_t cell = static_cast<size_t>(k % kWarps) * HW * wcells +
+                        k / kWarps;
+    if constexpr (PREC == kInt8) {
+      float f = hist[cell + (3 + c) * wcells];
+      const int ct = hi[cell + 6 * wcells];
+      if (ct >= 0)
+        f = __fmaf_rn(__int2float_rn(hi[cell + c * wcells]),
+                      qscale[3 * ct + c], f);
+      out[i] = f;
+    } else {
+      out[i] = hacc[cell + c * wcells];
+    }
+  }
+}
+
 // One work item of the partial stage: the sub-histograms of feature `f`,
 // row chunk `chunk` and slot group `group` (slots [group * ls_max, ...)),
 // written to partial[chunk][f][slot][bin][NC].  Run by all kThreads
@@ -235,6 +364,8 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
 // Only rows whose slot is in [0, nl_add) and whose bin is < nb add; the
 // cells of slots [nl_add, nl) are written as 0 (a wave round's dead slot:
 // its rows are dropped at the load, before any list, value or walk).
+// int8 (`qscale` the (ceil(n / qtile), 3) scales of the rows' qtile-row
+// scale tiles): the cells flush at the rows' scale tiles (head note).
 // `leaf_id` and `partial` carry no __restrict__: the persistent loop
 // (wave_loop.cu) rewrites the labels and re-reads the partials between
 // grid barriers of one launch, so they must not go through the
@@ -244,23 +375,22 @@ __device__ __forceinline__ void hist_partial_item(
     int f, int chunk, int group, const uint8_t* __restrict__ binned,
     const float* __restrict__ g3, const int* leaf_id, float* partial, int n,
     int nf, int nl, int nl_add, int nb, int ls_max, int chunk_rows,
-    float* smem) {
+    float* smem, const float* qscale, int qtile) {
   const int s0 = group * ls_max;
   const int ls = min(ls_max, nl - s0);
   const int s_add = min(ls, nl_add - s0);
   const int cells = ls * nb;
   const int wcells = cells / kWarps;  // the cells a warp owns (nb % 8 == 0)
-  using A = typename AccOf<PREC>::T;
+  constexpr int HW = cell_words<PREC, NC>();
 
   // hist[owner warp][channel][key / kWarps]: a warp's lanes hold distinct
   // keys of one residue mod 8, so key / 8 spreads them over the banks
   float* hist = smem;
-  float* tval = hist + static_cast<size_t>(ls_max) * nb * NC;  // [NC][tile]
-  int* tkey = reinterpret_cast<int*>(tval + kThreads * NC);     // [tile]
-  A* hacc = reinterpret_cast<A*>(hist);
+  float* tval = hist + static_cast<size_t>(ls_max) * nb * HW;  // [HW][tile]
+  int* tkey = reinterpret_cast<int*>(tval + kThreads * HW);     // [tile]
   const int tid = threadIdx.x;
 
-  for (int i = tid; i < cells * NC; i += kThreads) hacc[i] = A(0);
+  hist_clear<PREC, NC>(hist, cells, wcells);
 
   const int r_begin = chunk * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
@@ -306,20 +436,18 @@ __device__ __forceinline__ void hist_partial_item(
         const int rf = min(r + kDepth * kThreads, r_end - 1);
         lf[d] = leaf_id[rf];
         bn[d] = brow[rf];
-        hist_add_tile<PREC, NC>(key[cur], v[cur], hist, tval, tkey, wcells);
+        hist_add_tile<PREC, NC>(key[cur], v[cur], hist, tval, tkey, wcells,
+                                PREC == kInt8 ? r / qtile : 0, qscale);
       }
     }
   }
   __syncthreads();
 
   // ---- this block's partial: partial[chunk][f][s0 + s][b][NC] ---------
-  A* out = reinterpret_cast<A*>(partial) +
-           ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
-  for (int i = tid; i < cells * NC; i += kThreads) {
-    const int k = i / NC;
-    const int c = i - k * NC;
-    out[i] = hacc[((k % kWarps) * NC + c) * wcells + k / kWarps];
-  }
+  hist_write<PREC, NC>(
+      hist, cells, wcells,
+      partial + ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC,
+      qscale);
 }
 
 // The same work item over a row chunk's list of live rows (K2 and K6).
@@ -340,25 +468,27 @@ __device__ __forceinline__ void hist_partial_list_item(
     int f, int chunk, int group, const uint8_t* __restrict__ binned,
     const float* g3, const int* lrow, const int* lslot,
     const int* lcnt, float* partial, int n, int nf, int nl, int nb,
-    int ls_max, int chunk_rows, float* smem) {
+    int ls_max, int chunk_rows, float* smem, const float* qscale,
+    int qtile) {
   const int s0 = group * ls_max;
   const int ls = min(ls_max, nl - s0);
   const int cells = ls * nb;
   const int wcells = cells / kWarps;
   const int tid = threadIdx.x;
   using A = typename AccOf<PREC>::T;
-  A* out = reinterpret_cast<A*>(partial) +
-           ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
+  constexpr int HW = cell_words<PREC, NC>();
+  float* pout =
+      partial + ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC;
   const int cnt = lcnt[chunk];
   if (cnt == 0) {
+    A* out = reinterpret_cast<A*>(pout);
     for (int i = tid; i < cells * NC; i += kThreads) out[i] = A(0);
     return;
   }
   float* hist = smem;
-  float* tval = hist + static_cast<size_t>(ls_max) * nb * NC;
-  int* tkey = reinterpret_cast<int*>(tval + kThreads * NC);
-  A* hacc = reinterpret_cast<A*>(hist);
-  for (int i = tid; i < cells * NC; i += kThreads) hacc[i] = A(0);
+  float* tval = hist + static_cast<size_t>(ls_max) * nb * HW;
+  int* tkey = reinterpret_cast<int*>(tval + kThreads * HW);
+  hist_clear<PREC, NC>(hist, cells, wcells);
 
   const size_t base = static_cast<size_t>(chunk) * chunk_rows;
   const int* rows = lrow + base;
@@ -395,19 +525,17 @@ __device__ __forceinline__ void hist_partial_list_item(
         bn = brow[rn];
         for (int c = 0; c < 3; ++c) vn[c] = g3[static_cast<size_t>(rn) * 3 + c];
       }
+      // the row's scale tile (int8), read before the slot is refilled
+      const int qt = PREC == kInt8 && rw[d] >= 0 ? rw[d] / qtile : 0;
       // refill ring slot d with the entry kDepth tiles ahead
       const int j = t0 + (d + kDepth) * kThreads + tid;
       rw[d] = j < cnt ? rows[j] : -1;
       sl[d] = j < cnt ? slots[j] : 0;
-      hist_add_tile<PREC, NC>(key, v, hist, tval, tkey, wcells);
+      hist_add_tile<PREC, NC>(key, v, hist, tval, tkey, wcells, qt, qscale);
     }
   }
   __syncthreads();
-  for (int i = tid; i < cells * NC; i += kThreads) {
-    const int k = i / NC;
-    const int c = i - k * NC;
-    out[i] = hacc[((k % kWarps) * NC + c) * wcells + k / kWarps];
-  }
+  hist_write<PREC, NC>(hist, cells, wcells, pout, qscale);
 }
 
 // The partial stage as a kernel: one block a work item on the grid
@@ -420,12 +548,13 @@ hist_partial_kernel(const uint8_t* __restrict__ binned,
                     const float* __restrict__ g3,
                     const int* __restrict__ leaf_id,
                     float* __restrict__ partial, int n, int nf, int nl,
-                    int nl_add, int nb, int ls_max, int chunk_rows) {
+                    int nl_add, int nb, int ls_max, int chunk_rows,
+                    const float* __restrict__ qscale, int qtile) {
   extern __shared__ float smem[];
   hist_partial_item<PREC, NC, PACKED>(blockIdx.x, blockIdx.y, blockIdx.z,
                                       binned, g3, leaf_id, partial, n, nf,
                                       nl, nl_add, nb, ls_max, chunk_rows,
-                                      smem);
+                                      smem, qscale, qtile);
 }
 
 // The list walk as a kernel, on the grid (nf, n_chunks, slot groups).
@@ -437,16 +566,18 @@ hist_partial_list_kernel(const uint8_t* __restrict__ binned,
                          const int* __restrict__ lslot,
                          const int* __restrict__ lcnt,
                          float* __restrict__ partial, int n, int nf, int nl,
-                         int nb, int ls_max, int chunk_rows) {
+                         int nb, int ls_max, int chunk_rows,
+                         const float* __restrict__ qscale, int qtile) {
   extern __shared__ float smem[];
   hist_partial_list_item<PREC, NC, PACKED>(
       blockIdx.x, blockIdx.y, blockIdx.z, binned, g3, lrow, lslot, lcnt,
-      partial, n, nf, nl, nb, ls_max, chunk_rows, smem);
+      partial, n, nf, nl, nb, ls_max, chunk_rows, smem, qscale, qtile);
 }
 
 // One channel of one cell, summed over the chunks in chunk order: the hi
 // partials, plus (bf16x2) the same sum of the lo partials; int8sr sums the
-// int32 partials and rounds the sum to f32 once.  `p` points at the
+// int32 partials and rounds the sum to f32 once; int8's partials are f32
+// and add as f32's.  `p` points at the
 // cell's channel in chunk 0; `stride` is one chunk's partial size.
 template <int PREC, int NC>
 __device__ __forceinline__ float merge_cell(const float* p, size_t stride,
@@ -470,14 +601,16 @@ __device__ __forceinline__ float merge_cell(const float* p, size_t stride,
 constexpr size_t kManySmem = 44 * 1024;
 
 // Sets the partial kernel's shared memory and launches it on the grid
-// (nf, n_chunks, slot groups): nl slots of which [0, nl_add) add.
+// (nf, n_chunks, slot groups): nl slots of which [0, nl_add) add.  int8:
+// `qscale` and `qtile`, the rows' scale tiles (hist_partial_item).
 // Returns the cudaError_t.
 template <int PREC, int NC, bool PACKED>
 int launch_hist_partial(const uint8_t* binned, const float* g3,
                         const int* leaf_id, float* partial, int n, int nf,
                         int nl, int nl_add, int nb, int ls_max, int n_chunks,
-                        int chunk_rows, cudaStream_t stream) {
-  const size_t smem = hist_partial_smem(ls_max, nb, NC);
+                        int chunk_rows, const float* qscale, int qtile,
+                        cudaStream_t stream) {
+  const size_t smem = hist_partial_smem(ls_max, nb, cell_words<PREC, NC>());
   const auto kernel = smem <= kManySmem
                           ? hist_partial_kernel<PREC, NC, true, PACKED>
                           : hist_partial_kernel<PREC, NC, false, PACKED>;
@@ -489,7 +622,7 @@ int launch_hist_partial(const uint8_t* binned, const float* g3,
   dim3 grid(nf, n_chunks, groups);
   kernel<<<grid, kThreads, smem, stream>>>(binned, g3, leaf_id, partial, n,
                                            nf, nl, nl_add, nb, ls_max,
-                                           chunk_rows);
+                                           chunk_rows, qscale, qtile);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -500,8 +633,9 @@ int launch_hist_partial_list(const uint8_t* binned, const float* g3,
                              const int* lrow, const int* lslot,
                              const int* lcnt, float* partial, int n, int nf,
                              int nl, int nb, int ls_max, int n_chunks,
-                             int chunk_rows, cudaStream_t stream) {
-  const size_t smem = hist_partial_smem(ls_max, nb, NC);
+                             int chunk_rows, const float* qscale, int qtile,
+                             cudaStream_t stream) {
+  const size_t smem = hist_partial_smem(ls_max, nb, cell_words<PREC, NC>());
   const auto kernel = smem <= kManySmem
                           ? hist_partial_list_kernel<PREC, NC, true, PACKED>
                           : hist_partial_list_kernel<PREC, NC, false, PACKED>;
@@ -513,7 +647,7 @@ int launch_hist_partial_list(const uint8_t* binned, const float* g3,
   dim3 grid(nf, n_chunks, groups);
   kernel<<<grid, kThreads, smem, stream>>>(binned, g3, lrow, lslot, lcnt,
                                            partial, n, nf, nl, nb, ls_max,
-                                           chunk_rows);
+                                           chunk_rows, qscale, qtile);
   return static_cast<int>(cudaGetLastError());
 }
 

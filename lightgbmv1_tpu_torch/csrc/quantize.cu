@@ -1,6 +1,5 @@
-// The stochastic-rounding quantize kernel for Hopper (sm_90a), built by
-// ops/_build.py with nvcc into a shared library with a plain C interface,
-// loaded by ctypes.
+// The quantize kernels for Hopper (sm_90a), built by ops/_build.py with
+// nvcc into a shared library with a plain C interface, loaded by ctypes.
 //
 // lgbm_sr_quantize — the draw and rounding of
 //    lightgbmv1_tpu/ops/quantize.py sr_quantize_g3 (XLA in the JAX
@@ -26,6 +25,30 @@
 // no uniform is written to device memory, the (N, 2) draw of the JAX
 // package exists only as the counters of the rows' threads.
 
+//
+// lgbm_rn_quantize — the round-to-nearest quantization inside
+//    lightgbmv1_tpu/ops/hist_pallas.py _kernel at precision="int8"
+//    (hist_pallas.py:144-154; the same body is K2's and K6's tile of
+//    adds): per row tile of T rows, amax = max |g| of each of the two
+//    value channels over the tile's rows, inv = 127 / amax (IEEE
+//    division), scale = amax * fl(1/127) (XLA compiles the kernel's
+//    amax / 127 as a product with the float32 reciprocal), both 0 where
+//    amax is 0; q = rint(g * inv) (half to even) and the count channel
+//    rint(c * 64) under the scale 1/64.  Out: q (N, 3) f32 holding exact
+//    integers in [-127, 127] (counts 64 or 0), which K1's, K2's and K6's
+//    int8 legs read through the same f32 loads as their other legs, and
+//    the (ceil(N / T), 3) scales.  The TPU kernel recomputes this inside
+//    every histogram pass and every feature block; the rows of a tree are
+//    fixed, so here it runs once a tree and row tile
+//    (ops/quantize.NearestRows).
+//    One block a tile: a max reduction over the tile's rows (exact in any
+//    order), then each thread scales and rounds its rows.
+//
+// What bounds it on this card.  It reads 12 bytes a row and writes 12
+// (and 12 bytes a tile of scales): 25.2 MB at 1,048,576 rows, 7.5 us at
+// 3.35 TB/s.  Its arithmetic (a max, a multiply and a rounding a value)
+// is far below any rate of the card, so the bound is the bytes'.
+
 #include <cuda_runtime.h>
 
 #include "prng.cuh"
@@ -48,9 +71,70 @@ sr_quantize_kernel(const float* __restrict__ zq, float* __restrict__ q3,
   }
 }
 
+// fl(1/127), the JAX kernel's scale factor, and the count channel's scale
+constexpr float kInvQmax = 0x1.020408p-7f;
+constexpr float kCountScale = 64.f;
+
+__global__ void __launch_bounds__(256)
+rn_quantize_kernel(const float* __restrict__ g3, float* __restrict__ q3,
+                   float* __restrict__ scale, int n, int tile) {
+  __shared__ float red[2][8];
+  const int r0 = blockIdx.x * tile;
+  const int r1 = min(n, r0 + tile);
+  const int tid = threadIdx.x;
+  float m0 = 0.f, m1 = 0.f;
+  for (int r = r0 + tid; r < r1; r += blockDim.x) {
+    m0 = fmaxf(m0, fabsf(g3[static_cast<size_t>(r) * 3]));
+    m1 = fmaxf(m1, fabsf(g3[static_cast<size_t>(r) * 3 + 1]));
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  if ((tid & 31) == 0) {
+    red[0][tid >> 5] = m0;
+    red[1][tid >> 5] = m1;
+  }
+  __syncthreads();
+  m0 = red[0][0];
+  m1 = red[1][0];
+  for (int w = 1; w < 8; ++w) {
+    m0 = fmaxf(m0, red[0][w]);
+    m1 = fmaxf(m1, red[1][w]);
+  }
+  const float inv0 = m0 > 0.f ? __fdiv_rn(127.f, m0) : 0.f;
+  const float inv1 = m1 > 0.f ? __fdiv_rn(127.f, m1) : 0.f;
+  if (tid == 0) {
+    float* sc = scale + static_cast<size_t>(blockIdx.x) * 3;
+    sc[0] = m0 > 0.f ? __fmul_rn(m0, kInvQmax) : 0.f;
+    sc[1] = m1 > 0.f ? __fmul_rn(m1, kInvQmax) : 0.f;
+    sc[2] = 1.f / kCountScale;
+  }
+  for (int r = r0 + tid; r < r1; r += blockDim.x) {
+    const float* g = g3 + static_cast<size_t>(r) * 3;
+    float* q = q3 + static_cast<size_t>(r) * 3;
+    q[0] = rintf(__fmul_rn(g[0], inv0));
+    q[1] = rintf(__fmul_rn(g[1], inv1));
+    q[2] = rintf(__fmul_rn(g[2], kCountScale));
+  }
+}
+
 }  // namespace
 
 extern "C" {
+
+// Returns the cudaError_t of the launch (0 = launched).  `g3` and `q3` are
+// (n, 3) f32, `scale` (ceil(n / tile), 3) f32; `tile` is the row tile T.
+int lgbm_rn_quantize(const void* g3, void* q3, void* scale, int n, int tile,
+                     void* stream) {
+  if (tile <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (n <= 0) return 0;
+  rn_quantize_kernel<<<(n + tile - 1) / tile, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(g3), static_cast<float*>(q3),
+      static_cast<float*>(scale), n, tile);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // Returns the cudaError_t of the launch (0 = launched).  `zq` and `q3` are
 // (n, 3) f32; (k0, k1) the round key's two uint32 words.

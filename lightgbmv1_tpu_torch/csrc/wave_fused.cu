@@ -44,6 +44,13 @@
 //    smaller child before the subtraction, or pool-free the prefix sums
 //    after the cumulative sum (scan_item, wave_round.cuh).  `scale` also
 //    carries the ones of a quantized grow's other rounds.
+//    int8 rounds (hist_dtype=int8 / hist_dtype_deep=int8; the Pallas
+//    kernel's precision="int8"): (c) runs K1's int8 leg on the listed
+//    rows, read from the rows rounded under one scale a tile of `qtile`
+//    rows (csrc/quantize.cu lgbm_rn_quantize; `qtile` the Pallas round's
+//    own row tile), with the tiles' scales `qscale`, taken over all of a
+//    tile's rows whether listed or not, as the Pallas kernel's tile amax
+//    is; (d) merges the f32 partials as the float legs do.
 //    The constrained legs (the Pallas kernel's use_mc / monotone_penalty,
 //    has_contri, path smoothing and max_delta_step; `opts`, kOpt* of
 //    wave_round.cuh): (d) runs scan_child with them compiled in (the
@@ -209,8 +216,8 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
                  const float* parent, const float* scale, float* residue,
                  float* hsmall, int n, int nf, int S, int nslots, int nb,
                  int B, int ls_max, int n_chunks, int chunk_rows,
-                 const ScanParams& prm, const ScanLegs& legs,
-                 cudaStream_t stream) {
+                 const float* qscale, int qtile, const ScanParams& prm,
+                 const ScanLegs& legs, cudaStream_t stream) {
   if (chunk_rows % kThreads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int tiles = (n + kThreads - 1) / kThreads;
@@ -235,7 +242,7 @@ int launch_round(const uint8_t* binned, const float* g3, const int* oleaf,
   const int nl = nslots + 1;  // slot nslots: the rows of no split, unlisted
   err = launch_hist_partial_list<PREC, NC, PACKED>(
       binned, g3, w.lrow, w.lslot, w.lcnt, w.partial, n, nf, nl, nb, ls_max,
-      n_chunks, chunk_rows, stream);
+      n_chunks, chunk_rows, qscale, qtile, stream);
   if (err != 0) return err;
   dim3 grid(S, nf);
   const auto scan = prm.opts ? scan_kernel<PREC, NC, SUB, kOptAll>
@@ -255,14 +262,16 @@ int dispatch_precision(int precision, const uint8_t* binned, const float* g3,
                        const float* parent, const float* scale,
                        float* residue, float* hsmall, int n, int nf, int S,
                        int nslots, int nb, int B, int ls_max, int n_chunks,
-                       int chunk_rows, const ScanParams& prm,
-                       const ScanLegs& legs, cudaStream_t stream) {
+                       int chunk_rows, const float* qscale, int qtile,
+                       const ScanParams& prm, const ScanLegs& legs,
+                       cudaStream_t stream) {
 #define LGBM_ROUND(P, C)                                                   \
   launch_round<P, C, SUB, PACKED>(binned, g3, oleaf, feats, rmeta, label,  \
                                   new_leaf, w, fmeta, mask, csums, sml,     \
                                   parent, scale, residue, hsmall, n, nf, S, \
                                   nslots, nb, B, ls_max, n_chunks,          \
-                                  chunk_rows, prm, legs, stream)
+                                  chunk_rows, qscale, qtile, prm, legs,     \
+                                  stream)
   switch (precision) {
     case kF32:
       return LGBM_ROUND(kF32, 3);
@@ -272,6 +281,11 @@ int dispatch_precision(int precision, const uint8_t* binned, const float* g3,
       return LGBM_ROUND(kBf16x2, 6);
     case kInt8sr:
       return LGBM_ROUND(kInt8sr, 3);
+    case kInt8:
+      // a scale tile never splits across chunks, nor a chunk's end
+      if (!qscale || qtile <= 0 || chunk_rows % qtile != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+      return LGBM_ROUND(kInt8, 3);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -296,7 +310,9 @@ extern "C" {
 // of the nf features (nb must then be 16).  `opts` (kOpt*, wave_round.cuh)
 // names the scan's constrained legs and `constr` (2S, 2), `pfac` (2S,),
 // `pout` (2S,), `mono` (nf,) i32, `contri` (nf,) their inputs, null
-// where a leg is off (`pfac` also without a monotone penalty).
+// where a leg is off (`pfac` also without a monotone penalty).  int8:
+// `g3` holds the rows rounded under `qtile`-row scale tiles and `qscale`
+// their (ceil(N / qtile), 3) scales; null / 0 otherwise.
 int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      const void* feats, const void* rmeta, void* label,
                      void* new_leaf, void* tile_cnt, void* lrow, void* lslot,
@@ -310,7 +326,8 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      int chunk_rows, int precision, int sub, int packed,
                      float l1, float l2, float min_data, float min_hess,
                      float min_gain, float max_delta_step, float path_smooth,
-                     float monotone_penalty, int opts, void* stream) {
+                     float monotone_penalty, int opts, const void* qscale,
+                     int qtile, void* stream) {
   if (B > kMaxBins || S <= 0 || (packed && nb != 16) || opts < 0 ||
       opts > kOptAll ||
       ((opts & kOptMc) &&
@@ -349,7 +366,8 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                                  : dispatch_precision<false, false>);
   return run(precision, bn, g, ol, ft, rm, lab, nlf, w, fm, mk, cs, sm, pr,
              sc, res, hs, n, nf, S, sub ? S : 2 * S, nb, B, ls_max, n_chunks,
-             chunk_rows, prm, legs, st);
+             chunk_rows, static_cast<const float*>(qscale), qtile, prm, legs,
+             st);
 }
 
 // K3.  (N,) leaf ids of `binned`'s rows after the S splits of `rmeta`

@@ -59,6 +59,16 @@
 //    after the cumulative sum).  The other rounds of the segment run at
 //    the launch's precision with ones scales, as the single round of a
 //    quantized grow does; shared memory is sized for the larger leg.
+//    int8 (hist_dtype=int8, the Pallas kernel's precision="int8"): every
+//    round runs K2's int8 leg at its bucket's scale tile (the Pallas
+//    round's own row tile at the bucket's slots, `qtile` of the tables),
+//    on the tree's rows rounded under that tile (`q8`, one pointer pair a
+//    bucket: ops/quantize.NearestRows, made before the launch), so a
+//    round is the single round bit for bit.  The JAX loop runs one tile
+//    for the whole ladder and its planner refuses a ladder whose tiles
+//    differ; the card's loop has no such constraint.  No int8 launch
+//    also quantizes int8sr buckets (the planner refuses it, as the JAX
+//    planner refuses int8sr off an f32 base).
 //    The constrained legs (the Pallas kernel's has_contri, path
 //    smoothing and max_delta_step; `opts`, at most kLoopOpts): stage 0
 //    also makes each child's output, leaf_output clamped to
@@ -96,6 +106,14 @@
 
 #include "prng.cuh"
 #include "wave_round.cuh"
+
+// The launch precisions this library instantiates: the float legs (f32,
+// bf16, bf16x2, with or without int8sr buckets), or with LGBM_LOOP_INT8
+// the int8 leg alone (csrc/wave_loop_int8.cu includes this file so), two
+// libraries whose nvcc's build in parallel.
+#ifndef LGBM_LOOP_INT8
+#define LGBM_LOOP_INT8 0
+#endif
 
 namespace cg = cooperative_groups;
 using namespace lgbm;
@@ -164,6 +182,10 @@ struct LoopArgs {
   int scan_groups;           // scan groups a block runs at once
   int ladder[kMaxLadder], ls_max[kMaxLadder], n_chunks[kMaxLadder],
       chunk_rows[kMaxLadder], quant[kMaxLadder];
+  // int8: each bucket's rounded rows (n, 3), their scales and scale tile
+  const float* q8[kMaxLadder];
+  const float* q8scale[kMaxLadder];
+  int qtile[kMaxLadder];
   ScanParams prm;            // opts: kLoopOpts bits at most
   const float* contri;       // (nf,) feature_contri, or null
 };
@@ -440,12 +462,13 @@ wave_loop_kernel(LoopArgs a) {
         hist_partial_list_item<kInt8sr, 3, PACKED>(
             w % nf, (w / nf) % n_chunks, w / (nf * n_chunks), a.binned,
             a.q3, a.lrow, a.lslot, a.lcnt, a.partial, a.n, nf, nlh, a.nb,
-            ls_max, chunk_rows, smem);
+            ls_max, chunk_rows, smem, nullptr, 0);
       } else {
         hist_partial_list_item<PREC, NC, PACKED>(
             w % nf, (w / nf) % n_chunks, w / (nf * n_chunks), a.binned,
-            a.g3, a.lrow, a.lslot, a.lcnt, a.partial, a.n, nf, nlh, a.nb,
-            ls_max, chunk_rows, smem);
+            PREC == kInt8 ? a.q8[bi] : a.g3, a.lrow, a.lslot, a.lcnt,
+            a.partial, a.n, nf, nlh, a.nb, ls_max, chunk_rows, smem,
+            a.q8scale[bi], a.qtile[bi]);
       }
     }
     grid.sync();
@@ -480,12 +503,29 @@ using LoopKernel = void (*)(LoopArgs);
 
 template <bool SUB, bool PACKED, bool QUANT>
 LoopKernel kernel_of(int precision) {
-  switch (precision) {
-    case kF32: return wave_loop_kernel<kF32, 3, SUB, PACKED, QUANT>;
-    case kBf16: return wave_loop_kernel<kBf16, 3, SUB, PACKED, QUANT>;
-    case kBf16x2: return wave_loop_kernel<kBf16x2, 6, SUB, PACKED, QUANT>;
-    default: return nullptr;
+  if constexpr (LGBM_LOOP_INT8) {
+    // never beside int8sr buckets (the planner refuses it)
+    if constexpr (QUANT) {
+      return nullptr;
+    } else {
+      return precision == kInt8 ? wave_loop_kernel<kInt8, 3, SUB, PACKED,
+                                                   false>
+                                : nullptr;
+    }
+  } else {
+    switch (precision) {
+      case kF32: return wave_loop_kernel<kF32, 3, SUB, PACKED, QUANT>;
+      case kBf16: return wave_loop_kernel<kBf16, 3, SUB, PACKED, QUANT>;
+      case kBf16x2: return wave_loop_kernel<kBf16x2, 6, SUB, PACKED, QUANT>;
+      default: return nullptr;
+    }
   }
+}
+
+// The shared-memory words a cell of the partial stage takes at a launch
+// precision (cell_words, hist_tile.cuh).
+int cell_words_of(int precision) {
+  return precision == kBf16x2 ? 6 : precision == kInt8 ? 7 : 3;
 }
 
 template <bool QUANT>
@@ -579,15 +619,19 @@ int lgbm_wave_loop_limits(int precision, int sub, int packed_bins, int nb,
   const LoopKernel kern = kernel_for(precision, sub, packed_bins,
                                      any_quant(n_buckets, quant));
   if (!kern) return static_cast<int>(cudaErrorInvalidValue);
-  const int nc = precision == kBf16x2 ? 6 : 3;
-  return limits(kern, loop_smem(nc, nb, L, K, n_buckets, ls_max, quant),
+  return limits(kern,
+                loop_smem(cell_words_of(precision), nb, L, K, n_buckets,
+                          ls_max, quant),
                 out);
 }
 
 // K6.  Returns the cudaError_t of the launch (0 = launched).  `tables`
-// (host) holds 5 rows of n_buckets ints: the slot ladder, each bucket's
+// (host) holds 6 rows of n_buckets ints: the slot ladder, each bucket's
 // ls_max, n_chunks and chunk_rows (ops/hist_cuda.plan at its nslots + 1
-// slots, int8sr for a quantized bucket) and whether it quantizes.  With
+// slots, int8sr for a quantized bucket), whether it quantizes and (int8)
+// its scale tile.  int8: `q8` (host) holds 2 n_buckets pointers, each
+// bucket's rounded rows (n, 3) f32 and then each bucket's scales (ceil(n
+// / tile), 3) f32; null otherwise.  With
 // a quantized bucket `zq` (n, 3) holds the prequantized rows, `q3` (n, 3)
 // is scratch (after the launch: the last quantized round's rows),
 // `qscale` (12,) f32 the round scales twice and then six ones, and
@@ -612,6 +656,7 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
                          void* label, void* tile_cnt, void* lrow, void* lslot,
                          void* lcnt, void* partial, void* residue, void* bnd,
                          void* debug, const void* tables, const void* contri,
+                         const void* const* q8,
                          int n, int nf, int B, int nb,
                          int L, int K, int R, int num_leaves, int max_depth,
                          int n_buckets, int precision, int sub,
@@ -668,16 +713,24 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
     a.n_chunks[b] = t[2 * n_buckets + b];
     a.chunk_rows[b] = t[3 * n_buckets + b];
     a.quant[b] = t[4 * n_buckets + b];
+    a.qtile[b] = t[5 * n_buckets + b];
+    a.q8[b] = q8 ? static_cast<const float*>(q8[b]) : nullptr;
+    a.q8scale[b] = q8 ? static_cast<const float*>(q8[n_buckets + b])
+                      : nullptr;
     if (a.ladder[b] > K || a.ls_max[b] < 1 ||
         a.chunk_rows[b] % kThreads != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    if (precision == kInt8 &&
+        (!a.q8[b] || !a.q8scale[b] || a.qtile[b] <= 0 ||
+         a.chunk_rows[b] % a.qtile[b] != 0))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   a.prm = ScanParams{l1,        l2,          min_data,
                      min_hess,  min_gain,    max_delta_step,
                      path_smooth, monotone_penalty, opts};
   a.contri = static_cast<const float*>(contri);
-  const int nc = precision == kBf16x2 ? 6 : 3;
-  const size_t smem = loop_smem(nc, nb, L, K, n_buckets, a.ls_max, a.quant);
+  const size_t smem = loop_smem(cell_words_of(precision), nb, L, K,
+                                n_buckets, a.ls_max, a.quant);
   int lim[4];
   int err = limits(kern, smem, lim);
   if (err != 0) return err;

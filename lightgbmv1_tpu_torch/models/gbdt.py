@@ -17,16 +17,40 @@ and level-wise growers' valid sets walk each tree on their bins
 (``tree_predict_binned``, JAX :405).  Each tree's key is the JAX
 package's ``fold_in(PRNGKey(seed), iteration * num_class + k)`` (JAX
 :257, :378; utils/prng.py), which the wave grower folds into the int8sr
-rounds' rounding keys.  Where ``select_bin_layout`` picks
-``packed4`` the training matrix is packed once (``pack4bit``, JAX
-:143-153) and every valid matrix with it (:674-678).  DART, GOSS,
-RF, bagging, feature fraction, rollback and checkpoints are not ported
+rounds' rounding keys and every grower into its per-node feature masks.
+Where ``select_bin_layout`` picks ``packed4`` the training matrix is
+packed once (``pack4bit``, JAX :143-153) and every valid matrix with it
+(:674-678).
+
+Sampling draws the JAX package's streams, so the same seeds train the
+same trees:
+
+* bagging (``_bagging_mask``, JAX :699-724, and the step's traced twin
+  :332-355): every ``bagging_freq`` iterations a Bernoulli row mask,
+  ``bernoulli(fold_in(PRNGKey(bagging_seed), iteration //
+  bagging_freq), bagging_fraction, (N,))``; binary with
+  ``pos_bagging_fraction`` / ``neg_bagging_fraction`` < 1 draws the
+  positives from that key and the negatives from ``fold_in(key, 1)``.
+  An out-of-bag row's gradient and hessian are zeroed and its count is
+  0 (``_sample_g3``, :752-761), so ``min_data_in_leaf`` counts in-bag
+  rows;
+* the per-tree feature mask (``_tree_feature_mask``, :684-697):
+  ``ceil(feature_fraction * n)`` of the n usable features, drawn without
+  replacement by ``numpy.random.RandomState(feature_fraction_seed)
+  .choice``, one draw a class tree in class order, as the JAX step draws
+  them before its class loop (:602-604).  It is the tree's
+  ``base_mask``, and ``feature_fraction_bynode`` samples from it per
+  node in the growers.
+
+DART, GOSS, RF, extra_trees, rollback and checkpoints are not ported
 (the config refuses them).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional
+
+import math
 
 import numpy as np
 import torch
@@ -39,7 +63,7 @@ from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
 from ..utils.log import log_info, log_warning
-from ..utils.prng import fold_in, prng_key
+from ..utils.prng import bernoulli, fold_in, prng_key
 from .tree import (HostTree, TreeArrays, host_tree_from_arrays, leaf_lookup,
                    tree_predict_binned)
 
@@ -98,6 +122,10 @@ class GBDT:
         # the per-tree feature mask at feature_fraction 1: usable features
         self._base_mask = self.meta.usable
         self._rng_key = prng_key(config.seed)
+        # sampling: the per-tree feature stream and the kept bag
+        self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
+        self._usable_h = self.meta.usable.cpu().numpy()
+        self._bag_mask: Optional[torch.Tensor] = None
 
         # initial scores (reference BoostFromAverage gbdt.cpp:312-335)
         self._init_scores = np.zeros(self.num_class, dtype=np.float64)
@@ -155,6 +183,46 @@ class GBDT:
         self._valid_metrics.append(metrics)
 
     # ------------------------------------------------------------------
+    def _tree_feature_mask(self) -> torch.Tensor:
+        """The tree's (F,) feature mask (JAX ``_tree_feature_mask``):
+        the usable features, or at ``feature_fraction < 1`` a draw of
+        ``ceil(fraction * n)`` of them from the per-tree stream."""
+        frac = self.config.feature_fraction
+        if frac >= 1.0:
+            return self._base_mask
+        idx = np.flatnonzero(self._usable_h)
+        k = max(1, int(math.ceil(frac * len(idx))))
+        chosen = self._feat_rng.choice(idx, size=k, replace=False)
+        mask = np.zeros_like(self._usable_h)
+        mask[chosen] = True
+        return torch.as_tensor(mask, device=self.device)
+
+    def _bagging_mask(self, iteration: int) -> Optional[torch.Tensor]:
+        """(N,) f32 in-bag mask of ``iteration``, or None without bagging
+        (JAX ``_bagging_mask``): a new draw at every ``bagging_freq``
+        boundary, kept between them."""
+        cfg = self.config
+        use_pos_neg = cfg.objective == "binary" and (
+            cfg.pos_bagging_fraction < 1.0 or cfg.neg_bagging_fraction < 1.0)
+        if cfg.bagging_freq <= 0 or (cfg.bagging_fraction >= 1.0
+                                     and not use_pos_neg):
+            return None
+        if self._bag_mask is not None and iteration % cfg.bagging_freq != 0:
+            return self._bag_mask
+        key = fold_in(prng_key(cfg.bagging_seed),
+                      iteration // max(cfg.bagging_freq, 1))
+        N, dev = self.num_data, self.device
+        if use_pos_neg:
+            pos = bernoulli(key, cfg.pos_bagging_fraction, N, dev)
+            neg = bernoulli(fold_in(key, 1), cfg.neg_bagging_fraction, N,
+                            dev)
+            mask = torch.where(self.objective.label > 0, pos, neg)
+        else:
+            mask = bernoulli(key, cfg.bagging_fraction, N, dev)
+        self._bag_mask = mask.to(torch.float32)
+        return self._bag_mask
+
+    # ------------------------------------------------------------------
     def _step(self) -> List[TreeArrays]:
         """One iteration: gradients, then per class one tree and its
         score updates (the JAX ``_build_step`` body, run eagerly)."""
@@ -165,19 +233,26 @@ class GBDT:
             score[:, 0] if K == 1 else score)
         if grad.ndim == 1:
             grad, hess = grad[:, None], hess[:, None]
+        bag = self._bagging_mask(self.iter)
+        # the class trees' feature masks, drawn before the class loop
+        masks = [self._tree_feature_mask() for _ in range(K)]
         trees, train_preds = [], []
         valid_preds = [[] for _ in self._valid_binned]
         for k in range(K):
-            g3 = torch.stack([grad[:, k], hess[:, k],
-                              torch.ones_like(grad[:, k])], dim=1)
+            if bag is None:
+                g3 = torch.stack([grad[:, k], hess[:, k],
+                                  torch.ones_like(grad[:, k])], dim=1)
+            else:
+                g3 = torch.stack([grad[:, k] * bag, hess[:, k] * bag, bag],
+                                 dim=1)
+            key = fold_in(self._rng_key, self.iter * K + k)
             if getattr(self._grow, "routes_valids", False):
                 tree, leaf_id, _, vlids = self._grow(
-                    self.binned, g3.contiguous(), self._base_mask,
-                    valids=self._valid_binned,
-                    key=fold_in(self._rng_key, self.iter * K + k))
+                    self.binned, g3.contiguous(), masks[k],
+                    valids=self._valid_binned, key=key)
             else:
                 tree, leaf_id, _ = self._grow(self.binned, g3.contiguous(),
-                                              self._base_mask)
+                                              masks[k], key=key)
                 vlids = None
             shrunk = tree._replace(leaf_value=tree.leaf_value * rate)
             train_preds.append(leaf_lookup(shrunk.leaf_value, leaf_id))

@@ -47,9 +47,20 @@ depths (the sequential grower's own, the level's on the level-wise one,
 as the JAX package passes them) and current outputs (path smoothing).
 The root's output is smoothed toward 0 under ``path_smooth``.
 
-Forced splits, CEGB, interaction constraints, per-node feature sampling
-and extra_trees are not ported (the config refuses them): every node's
-feature mask is the tree's.
+Per-node feature sampling (``feature_fraction_bynode < 1``, JAX :139
+``_node_feature_mask``) draws each node's mask from the tree's features
+(``base_mask``, the per-tree sample) with the JAX package's stream:
+``uniform(fold_in(tree_key, uid), (F,))``, the k smallest of the tree's
+features kept, k = max(1, ceil(fraction * n)) in float32; the uids are
+the JAX growers' (the sequential grower's root 0 and step s's children
+2s + 1 and 2s + 2; the level-wise grower's d * 2L + i for leaf i of
+level d), and ``grow`` takes the tree's ``key``.  The level-wise
+grower's int8 passes (``hist_dtype=int8``) read the tree's rows rounded
+once a row tile (``quantize.NearestRows``); the sequential grower masks
+its rows to a leaf first, so its passes round their own rows.
+
+Forced splits, CEGB, interaction constraints and extra_trees are not
+ported (the config refuses them).
 """
 
 from __future__ import annotations
@@ -60,9 +71,11 @@ from typing import Callable
 import torch
 
 from ..ops.hist_cuda import bins_of_feat, bins_of_rows
+from ..ops.quantize import NearestRows
 from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output, smooth_output)
+from ..utils import prng
 from ..utils.log import log_info
 from .tree import empty_tree
 
@@ -76,6 +89,32 @@ def root_sums(g3):
     package's ``sums_fn``, rounded in the device's own order (the one
     place a grower sums rows outside K1)."""
     return g3.sum(dim=0)
+
+
+def node_feature_masks(key, uids, base_mask: torch.Tensor,
+                       fraction: float) -> torch.Tensor:
+    """(C, F) per-node feature masks of the nodes ``uids`` (C,) (JAX
+    ``_node_feature_mask``, :139, one node a row): ``base_mask`` itself
+    at ``fraction >= 1``; else each node's F uniforms
+    ``uniform(fold_in(key, uid), (F,))`` over the features of
+    ``base_mask`` (others +inf), and the ones at or below the k-th
+    smallest kept, k = max(1, ceil(fraction * n_allowed)) in float32 as
+    the JAX package computes it."""
+    F = base_mask.shape[0]
+    if fraction >= 1.0:
+        return base_mask[None, :].expand(len(uids), F)
+    dev = base_mask.device
+    uids = torch.as_tensor(uids, dtype=torch.int64, device=dev).reshape(-1)
+    if key is None:
+        raise ValueError("feature_fraction_bynode < 1 needs the tree key")
+    scores = prng.uniform_folded(key, uids, F)
+    scores = torch.where(base_mask[None, :], scores,
+                         torch.full_like(scores, float("inf")))
+    n_allowed = base_mask.sum().to(torch.float32)
+    k = int(torch.clamp(torch.ceil(torch.tensor(
+        fraction, dtype=torch.float32, device=dev) * n_allowed), min=1.0))
+    thresh = torch.sort(scores, dim=1).values[:, k - 1:k]
+    return base_mask[None, :] & (scores <= thresh)
 
 
 def root_output(root_sum, params: SplitParams):
@@ -116,8 +155,10 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                          meta: FeatureMeta, params: SplitParams,
                          hist_fn: Callable, max_depth: int = -1,
                          partition: bool = True, hist_pool_mb: float = -1.0,
-                         packed: bool = False):
-    """Build ``grow(binned, g3, base_mask) -> (tree, leaf_id, root_sum)``.
+                         packed: bool = False,
+                         feature_fraction_bynode: float = 1.0):
+    """Build ``grow(binned, g3, base_mask, key=None) -> (tree, leaf_id,
+    root_sum)``; ``key`` is the tree's (per-node feature sampling).
 
     ``hist_fn(binned, g3, leaf_id, target) -> (F, B, 3)``: the histogram
     of the rows whose leaf id is ``target`` (ops/histogram.hist_one_leaf,
@@ -135,17 +176,17 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                  "pool-free growth (children histograms rebuilt per split)")
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
-             base_mask: torch.Tensor):
+             base_mask: torch.Tensor, key=None):
         dev = binned.device
         N = binned.shape[1]
-        F = base_mask.shape[0]
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
         hist0 = hist_fn(binned, g3, leaf_id, 0)
         root_sum = root_sums(g3)
-        masks2 = base_mask[None, :].expand(2, F)
         out0 = root_output(root_sum, params)
+        mask0 = node_feature_masks(key, [0], base_mask,
+                                   feature_fraction_bynode)
         res0 = find_best_split(hist0[None], root_sum[None], meta,
-                               base_mask[None], params,
+                               mask0, params,
                                depth=torch.zeros(1, dtype=torch.int64,
                                                  device=dev),
                                parent_output=out0[None])
@@ -250,6 +291,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                     pconstr, couts[0:1], couts[1:2],
                     meta.monotone_type[feat][None], intermediate=False)
                 cconstr = torch.cat([c_l, c_r])
+            masks2 = node_feature_masks(key, [2 * node + 1, 2 * node + 2],
+                                        base_mask, feature_fraction_bynode)
             res = find_best_split(
                 torch.stack([h_left, h_right]), csums, meta, masks2, params,
                 constraint=cconstr,
@@ -306,12 +349,15 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
 def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                           meta: FeatureMeta, params: SplitParams,
                           hist_frontier_fn: Callable, max_depth: int = -1,
-                          packed: bool = False):
-    """Build ``grow(binned, g3, base_mask) -> (tree, leaf_id, root_sum)``.
+                          packed: bool = False,
+                          feature_fraction_bynode: float = 1.0):
+    """Build ``grow(binned, g3, base_mask, key=None) -> (tree, leaf_id,
+    root_sum)``; ``key`` is the tree's (per-node feature sampling).
 
-    ``hist_frontier_fn(binned, g3, label, L, live_slots=None) -> (L, F,
-    B, 3)``: every slot's histogram in one pass, only the rows of the
-    slots below ``live_slots`` adding (ops/histogram.hist_frontier)."""
+    ``hist_frontier_fn(binned, g3, label, L, live_slots=None, rows8=None)
+    -> (L, F, B, 3)``: every slot's histogram in one pass, only the rows
+    of the slots below ``live_slots`` adding (ops/histogram.hist_frontier;
+    ``rows8`` the tree's rounded rows for an int8 pass)."""
     L = num_leaves
     levels = math.ceil(math.log2(max(L, 2)))
     if max_depth > 0:
@@ -319,11 +365,11 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
     use_mc = meta.monotone_type is not None
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
-             base_mask: torch.Tensor):
+             base_mask: torch.Tensor, key=None):
         dev = binned.device
         N = binned.shape[1]
-        F = base_mask.shape[0]
         f32 = torch.float32
+        rows8 = NearestRows(g3)
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
         root_sum = root_sums(g3)
         tree = empty_tree(L, dev)
@@ -340,7 +386,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
         for d in range(levels):
             Ld = min(1 << d, L)
             if prev is None:
-                hist = hist_frontier_fn(binned, g3, leaf_id, Ld)
+                hist = hist_frontier_fn(binned, g3, leaf_id, Ld, rows8=rows8)
                 use_sub = L * hist[0].numel() * 4 <= _POOL_AUTO_BYTES
             else:
                 # the smaller child of each last-level split takes its
@@ -353,7 +399,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                 slot_of[small] = p_sel.to(torch.int32)
                 label = slot_of[leaf_id.long()]
                 h_small = hist_frontier_fn(binned, g3, label, Lp + 1,
-                                           live_slots=Lp)[:Lp]
+                                           live_slots=Lp, rows8=rows8)[:Lp]
                 smL = p_sml[:, None, None, None]
                 h_left = torch.where(smL, h_small, p_hist - h_small)
                 h_right = p_hist - h_left
@@ -366,8 +412,11 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                 hist[p_new[p_sel]] = h_right[p_sel]
             # the whole level in one batched scan (JAX
             # find_best_split_batch, a vmap)
+            masks = node_feature_masks(
+                key, d * (2 * L) + torch.arange(Ld, device=dev), base_mask,
+                feature_fraction_bynode)
             res = find_best_split(
-                hist, leaf_sums[:Ld], meta, base_mask[None, :].expand(Ld, F),
+                hist, leaf_sums[:Ld], meta, masks,
                 params, constraint=leaf_constr[:Ld] if use_mc else None,
                 depth=torch.full((Ld,), d, dtype=torch.int64, device=dev),
                 parent_output=leaf_out[:Ld])

@@ -80,9 +80,20 @@ bounds, depths and outputs feed the scan (staged and fused).  Path
 smoothing, ``max_delta_step`` and ``feature_contri`` are the scan's and
 ``clamp_out``'s; the root's output is smoothed toward 0.
 
-Categorical splits, CEGB, per-node feature sampling and interaction
-constraints are not ported (the config refuses them): every child's
-feature mask is the tree's, and the split scan and the root sums are the
+Plain int8 rounds (``hist_dtype=int8`` / ``hist_dtype_deep=int8``): the
+histograms of the root pass and of the staged, fused and looped rounds
+at int8 read the tree's rows rounded to nearest under each kernel's scale
+tile (``quantize.NearestRows``, made once a grow, each tile's rows once).
+
+Per-node feature sampling (``feature_fraction_bynode < 1``, JAX
+:881-884, :901, :1176-1197): the root's mask is node 0's and each
+child's is drawn for its uid, 2 node + 1 (left) and 2 node + 2 (right)
+(``grower.node_feature_masks``, the tree's ``key``); the persistent loop
+does not run it (the trainer refuses it, as the JAX grower keeps the
+loop off).
+
+Categorical splits, CEGB and interaction constraints are not ported (the
+config refuses them), and the split scan and the root sums are the
 serial learner's own (the JAX version's ``split_fn`` / ``sums_fn`` hooks
 carry the cross-chip reductions, which the port has not).
 """
@@ -94,13 +105,13 @@ from typing import Callable, List, Optional, Sequence
 import torch
 
 from ..ops.hist_cuda import bins_of_rows
-from ..ops.quantize import prequantize_rows
+from ..ops.quantize import NearestRows, prequantize_rows
 from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output, smooth_output)
 from ..ops.wave_fused import subtract_children, unpack_children
 from ..utils.prng import fold_in
-from .grower import child_constraints, root_sums
+from .grower import child_constraints, node_feature_masks, root_sums
 from .tree import TreeArrays
 
 # Slot bucketing starts at this many rows (each bucket is one more
@@ -370,14 +381,18 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      fused_round_fn: Optional[Callable] = None,
                      fused_loop_fn: Optional[Callable] = None,
                      hist_wave_quant_fn: Optional[Callable] = None,
-                     packed: bool = False, monotone_mode: str = "basic"):
+                     packed: bool = False, monotone_mode: str = "basic",
+                     feature_fraction_bynode: float = 1.0):
     """Build ``grow(binned, g3, base_mask, valids=(), key=None)``.
 
-    ``hist_wave_fn(binned, g3, label, nslots, deep=False) -> (nslots, F,
-    B, 3)``: histograms of the rows labelled 0..nslots-1 (``nslots`` is
-    dead); ``deep`` marks a sustained round that may run the cheaper deep
-    precision.  ``fused_round_fn`` (ops/wave_fused.make_fused_round) runs
-    every round after the root as one routed fused round; with
+    ``hist_wave_fn(binned, g3, label, nslots, deep=False, rows8=None) ->
+    (nslots, F, B, 3)``: histograms of the rows labelled 0..nslots-1
+    (``nslots`` is dead); ``deep`` marks a sustained round that may run
+    the cheaper deep precision; ``rows8`` is the tree's
+    ``quantize.NearestRows`` for an int8 pass (the fused round and the
+    loop take it too).  ``fused_round_fn``
+    (ops/wave_fused.make_fused_round) runs every round after the root as
+    one routed fused round; with
     ``fused_loop_fn`` (ops/wave_fused.make_fused_wave_loop, which the
     trainer builds only where its plan is eligible) the rounds run as
     segments of ``fused_loop_fn.rounds`` rounds a launch, replayed here
@@ -396,7 +411,9 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     ``grow``'s per-tree ``key`` (two uint32 words, utils/prng.py).
     ``monotone_mode`` (``basic`` / ``intermediate``, as the trainer
     resolved it) is read when ``meta.monotone_type`` is set; the
-    persistent loop does not run them (the trainer refuses it)."""
+    persistent loop does not run them (the trainer refuses it).
+    ``feature_fraction_bynode < 1`` draws every node's feature mask from
+    ``key`` (the persistent loop does not run it)."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
@@ -404,6 +421,10 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     use_inter = use_mc and monotone_mode == "intermediate"
     if use_mc and fused_loop_fn is not None:
         raise ValueError("the persistent loop runs no monotone constraints")
+    bynode = feature_fraction_bynode
+    if bynode < 1.0 and fused_loop_fn is not None:
+        raise ValueError("the persistent loop runs no per-node feature "
+                         "sampling")
     inter_feats = inter_types = ()
     if use_inter:
         mono_h = meta.monotone_type.cpu()
@@ -436,16 +457,20 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             qrows = quant[1].expand(2 * K, 3).contiguous()
             scale_rows = (qrows, torch.ones_like(qrows))
         store = _PackedStore(L, L1, dev, use_mc)
+        # int8 passes: the tree's rows rounded once a scale tile
+        rows8 = NearestRows(g3)
 
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
-        hist0 = hist_wave_fn(binned, g3, leaf_id, 1, deep=False)[0]
+        hist0 = hist_wave_fn(binned, g3, leaf_id, 1, deep=False,
+                             rows8=rows8)[0]
         use_sub = L * hist0.numel() * 4 <= _SUB_STATE_CAP_BYTES
         root_sum = root_sums(g3)
         out0 = leaf_output(root_sum[0], root_sum[1], params)
         if params.path_smooth > 0:
             out0 = smooth_output(out0, root_sum[2], 0.0, params)
         res0 = find_best_split(hist0[None], root_sum[None], meta,
-                               base_mask[None], params,
+                               node_feature_masks(key, [0], base_mask,
+                                                  bynode), params,
                                depth=torch.zeros(1, dtype=torch.int64,
                                                  device=dev),
                                parent_output=out0[None])
@@ -519,7 +544,11 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 b["cconstr"] = torch.stack([c_l, c_r], dim=1) \
                     .reshape(2 * n, 2)
             b["cdepth"] = (rd["pdepth"] + 1).repeat_interleave(2)
-            b["cmask"] = base_mask[None, :].expand(2 * n, F)
+            # each child's mask: its uid's draw (left 2 node + 1, right
+            # 2 node + 2), or the tree's
+            b["cmask"] = node_feature_masks(
+                key, torch.stack([2 * b["nodes"] + 1, 2 * b["nodes"] + 2],
+                                 dim=1).reshape(2 * n), base_mask, bynode)
             b["S"] = slot_buckets[sum(n > s for s in slot_buckets[:-1])]
             return b
 
@@ -568,7 +597,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     K=K, slot_buckets=slot_buckets,
                     quant_buckets=quant_buckets, quant=quant,
                     max_depth=max_depth,
-                    base_mask=base_mask, pool=leaf_hist)
+                    base_mask=base_mask, pool=leaf_hist, rows8=rows8)
                 counts = n_split.tolist()        # the segment's host read
                 for r, n in enumerate(counts):
                     if n == 0:
@@ -621,7 +650,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     constr=(to_slot(b["cconstr"], 0.0, 2 * S) if use_mc
                             else None),
                     depth=to_slot(b["cdepth"], 1, 2 * S),
-                    pout=to_slot(b["couts"], 0.0, 2 * S))
+                    pout=to_slot(b["couts"], 0.0, 2 * S), rows8=rows8)
                 vlids = [fused_round_fn.route_rows(vb, vl, **rt)
                          for vb, vl in zip(valids, vlids)]
                 if use_sub:
@@ -655,7 +684,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     h_slot = hist_wave_quant_fn(binned, quant[0], label, nsl,
                                                 rkey)
                 else:
-                    h_slot = hist_wave_fn(binned, g3, label, nsl, deep=deep)
+                    h_slot = hist_wave_fn(binned, g3, label, nsl, deep=deep,
+                                          rows8=rows8)
                 leaf_id = new_leaf_id
 
                 if use_sub:

@@ -3,11 +3,12 @@
 At first use every ``csrc/<name>.cu`` the caller asks for is compiled by
 ``nvcc`` for ``sm_90a`` into ``lightgbmv1_tpu_torch/build/lib<name>_<hash>.so``
 (a plain C interface, no PyTorch headers, so a build takes seconds) and
-loaded with ``ctypes``.  The hash covers the source, every ``csrc/*.cuh``
-header it includes, directly or through another header (``hist_tile.cuh``
-is shared by ``hist.cu`` and, through ``wave_round.cuh``, by
-``wave_fused.cu`` and ``wave_loop.cu``) and the flags, so an edited
-source or header is rebuilt and a stale library is never loaded.
+loaded with ``ctypes``.  The hash covers the source, every ``csrc/`` file
+it includes, directly or through another (``hist_tile.cuh`` is shared by
+``hist.cu`` and, through ``wave_round.cuh``, by ``wave_fused.cu`` and
+``wave_loop.cu``, which ``wave_loop_int8.cu`` includes whole) and the
+flags, so an edited source or header is rebuilt and a stale library is
+never loaded.
 Sources that are built together start together: one ``nvcc`` per source.
 
 A build or load error raises; nothing falls back.

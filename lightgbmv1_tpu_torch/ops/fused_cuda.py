@@ -42,6 +42,15 @@ multiply the prefix sums after the integer cumulative sum
 (``child_scale``).  Every scale is a power of two, so each multiply is
 exact.
 
+int8 rounds (``precision="int8"``, ``hist_dtype=int8`` /
+``hist_dtype_deep=int8``): K2 takes the f32 rows, and they are rounded to
+nearest under one scale a tile of the Pallas round's own row tile
+(``hist_cuda.round_row_tile`` at nslots + 1 slots; the quantize kernel,
+or a tree's ``rows8``, ``quantize.NearestRows``); the list walk sums
+them as K1's int8 leg does, and the scales are every row's of a tile,
+listed or not.  The plain version sums the label's rows in the Pallas
+kernel's order (``hist_cuda.int8_hist``).
+
 4-bit packed bins (``packed=True``, ``bin_layout=packed4``): both
 kernels take the (ceil(F/2), N) bytes of ``hist_cuda.pack4bit`` and
 decode the nibble at the load; F is the real feature count (the mask's
@@ -120,7 +129,8 @@ def live_rows_ref(label, nslots, n_chunks, chunk_rows):
 def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, mask, csums,
                     route, sml=None, parent=None, packed=False, scale=None,
-                    constraint=None, pfac=None, parent_output=None):
+                    constraint=None, pfac=None, parent_output=None,
+                    rows8=None):
     """Plain version of ``fused_round``: the route (``route_tile``), K1's
     plain histogram of the label, the subtraction and
     ``split.scan_residue``."""
@@ -130,13 +140,13 @@ def fused_round_ref(binned, g3, *, nslots, num_bins, precision,
                      mask=mask, csums=csums, route=route, sml=sml,
                      parent=parent, packed=packed, scale=scale,
                      constraint=constraint, pfac=pfac,
-                     parent_output=parent_output)
+                     parent_output=parent_output, rows8=rows8)
 
 
 def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
               params: SplitParams, mask, csums, route, sml=None,
               parent=None, packed=False, scale=None, constraint=None,
-              pfac=None, parent_output=None):
+              pfac=None, parent_output=None, rows8=None):
     """``fused_round_ref`` uncounted: the round the persistent loop's plain
     version (ops/loop_cuda.py) runs R times.  The histograms sum the
     listed rows only, in row order (``live_rows_ref`` under K2's plan):
@@ -150,13 +160,22 @@ def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
     new_leaf, label = wf.route_tile(dbin, route["oleaf"], route["rmeta"],
                                     nslots=nslots, sub=sub)
     F, N = binned.shape
-    p = hist_cuda.plan(N, F, nslots + 1, num_bins, precision)
-    rows, _ = live_rows_ref(label, nslots, p["n_chunks"], p["chunk_rows"])
-    rows = rows[rows >= 0].long()
-    h = hist_cuda.index_add_hist(
-        binned[:, rows], [v[rows] for v in hist_cuda.split_parts(g3,
-                                                                 precision)],
-        label[rows], nslots + 1, num_bins)[:nslots]
+    if precision == "int8":
+        # the label's rows in the Pallas kernel's tile order, under the
+        # scales of every row of a tile
+        T = hist_cuda.round_row_tile(nslots, F, num_bins)
+        q, qscale = hist_cuda.int8_rows(g3, T, rows8)
+        h = hist_cuda.int8_hist(binned, q, qscale, T, label, nslots + 1,
+                                num_bins, live_slots=nslots)[:nslots]
+    else:
+        p = hist_cuda.plan(N, F, nslots + 1, num_bins, precision)
+        rows, _ = live_rows_ref(label, nslots, p["n_chunks"],
+                                p["chunk_rows"])
+        rows = rows[rows >= 0].long()
+        h = hist_cuda.index_add_hist(
+            binned[:, rows],
+            [v[rows] for v in hist_cuda.split_parts(g3, precision)],
+            label[rows], nslots + 1, num_bins)[:nslots]
     hc = wf.subtract_children(h, parent, sml, scale) if sub else h
     residue = scan_residue(hc, mask, csums, meta=meta, params=params,
                            hist_scale=None if sub else scale,
@@ -172,7 +191,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 def _lib() -> ctypes.CDLL:
     lib = _build.load("wave_fused")
     lib.lgbm_fused_round.argtypes = [_P] * 25 + [_I] * 11 + [_F] * 8 \
-        + [_I, _P]
+        + [_I, _P, _I, _P]
     lib.lgbm_fused_round.restype = _I
     lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 3 + [_P]
     lib.lgbm_route_rows.restype = _I
@@ -248,7 +267,7 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False):
 def fused_round(binned, g3, *, nslots, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, mask, csums, route,
                 sml=None, parent=None, fmeta=None, packed=False, scale=None,
-                constraint=None, pfac=None, parent_output=None):
+                constraint=None, pfac=None, parent_output=None, rows8=None):
     """K2: one wave round -> ``(residue (2S, F, RES_COLS), hsmall (S, F,
     B, 3) or None, new_leaf (N,), label (N,))``.
 
@@ -268,7 +287,10 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     (2S,) and ``parent_output`` (2S,): the children's inputs of the scan's
     constrained legs (``split.scan_inputs``), None where a leg is off;
     the legs themselves follow ``meta`` and ``params``
-    (``scan_cuda.scan_options``)."""
+    (``scan_cuda.scan_options``).  ``precision="int8"``: ``g3`` holds the
+    f32 rows, rounded under the round's scale tiles
+    (``hist_cuda.round_row_tile``) by the quantize kernel or taken from
+    ``rows8`` (a tree's ``quantize.NearestRows``)."""
     if binned.device.type == "cpu":
         return fused_round_ref(binned, g3, nslots=nslots,
                                num_bins=num_bins, precision=precision,
@@ -276,7 +298,7 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
                                csums=csums, route=route, sml=sml,
                                parent=parent, packed=packed, scale=scale,
                                constraint=constraint, pfac=pfac,
-                               parent_output=parent_output)
+                               parent_output=parent_output, rows8=rows8)
     from .scan_cuda import leg_args, scan_floats
     F = mask.shape[1]
     _, N = _check_bins(binned, packed, F)
@@ -307,7 +329,11 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     _need(route["rmeta"], "rmeta", torch.int32, (S, wf.RMETA_COLS), dev)
     label = torch.empty(N, dtype=torch.int32, device=dev)
     new_leaf = torch.empty(N, dtype=torch.int32, device=dev)
-    p = hist_cuda.plan(N, F, nslots + 1, B, precision)
+    qscale, T = None, 0
+    if precision == "int8":
+        T = hist_cuda.round_row_tile(nslots, F, B)
+        g3, qscale = hist_cuda.int8_rows(g3, T, rows8)
+    p = hist_cuda.plan(N, F, nslots + 1, B, precision, T)
     lists = list_scratch(N, p["n_chunks"], p["n_chunks"] * p["chunk_rows"],
                          dev)
     partial = torch.empty((p["n_chunks"], F, nslots + 1, p["nb"], p["nc"]),
@@ -339,7 +365,8 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
             legs["mono"], legs["contri"], N, F, S, p["nb"], B, p["ls_max"],
             p["n_chunks"],
             p["chunk_rows"], hist_cuda.PREC_ID[precision], int(sub),
-            int(packed), *scan_floats(params), opts, stream)
+            int(packed), *scan_floats(params), opts,
+            0 if qscale is None else qscale.data_ptr(), T, stream)
     _raise_on(err, "fused_round")
     with _count_lock:
         launch_counts["fused_round_packed" if packed else "fused_round"] += 1

@@ -31,6 +31,14 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
   the one its root pass runs (the wave rounds' fused dispatch is in
   parallel/trainer.py).
 
+``precision="int8"`` (``hist_dtype=int8`` / ``hist_dtype_deep=int8``)
+runs K1's int8 leg on ``pallas``: the rows rounded to nearest under one
+scale a row tile (ops/quantize.rn_quantize); ``rows8``, a tree's
+``quantize.NearestRows``, holds them for each row tile the tree's passes
+use, so they are quantized once a tree.  ``hist_one_leaf`` masks the rows
+to its leaf first, so its rows are quantized a call.  ``scatter`` sums
+the f32 rows at every precision, as the JAX package's scatter does.
+
 ``packed`` / ``num_features``: ``binned`` holds the (ceil(F/2), N) 4-bit
 packed bytes of F features (``bin_layout=packed4``); only ``pallas``
 reads them (K1's packed leg), ``scatter`` refuses them, as in the JAX
@@ -61,14 +69,14 @@ def hist_frontier(binned: torch.Tensor, g3: torch.Tensor,
                   leaf_id: torch.Tensor, num_leaves: int, num_bins: int,
                   method: str = "scatter", precision: str = "bf16x2",
                   live_slots=None, packed: bool = False,
-                  num_features=None) -> torch.Tensor:
+                  num_features=None, rows8=None) -> torch.Tensor:
     """All slots' histograms in a single pass; with ``live_slots`` only
     the rows of the slots below it add."""
     if method == "pallas":
         return hist_cuda.hist_leaves(binned, g3, leaf_id, num_leaves,
                                      num_bins, precision=precision,
                                      live_slots=live_slots, packed=packed,
-                                     num_features=num_features)
+                                     num_features=num_features, rows8=rows8)
     if packed:
         raise ValueError("4-bit packed bins require the pallas hist method")
     if method == "scatter":
@@ -94,13 +102,13 @@ def hist_one_leaf(binned: torch.Tensor, g3: torch.Tensor,
 def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,
               nslots: int, num_bins: int, method: str = "scatter",
               precision: str = "bf16x2", packed: bool = False,
-              num_features=None) -> torch.Tensor:
+              num_features=None, rows8=None) -> torch.Tensor:
     """(nslots, F, B, 3) histograms of the rows labelled 0..nslots-1;
     rows labelled ``nslots`` (not in this wave) contribute nothing."""
     return hist_frontier(binned, g3, label, nslots + 1, num_bins,
                          method=method, precision=precision,
                          live_slots=nslots, packed=packed,
-                         num_features=num_features)[:nslots]
+                         num_features=num_features, rows8=rows8)[:nslots]
 
 
 def hist_wave_quant(binned: torch.Tensor, zq: torch.Tensor,

@@ -32,6 +32,13 @@ scales (ones where it did not quantize), as the single round does.
 ``loop_rounds`` quantizes each such round with ``quantize.sr_quantize``
 (its plain version under the plain round) before the round.
 
+int8 (``precision="int8"``, ``hist_dtype=int8``): each round runs K2's
+int8 leg at its bucket's scale tile (``hist_cuda.round_row_tile`` at the
+bucket's slots) on the tree's rows rounded under it (``rows8``, a tree's
+``quantize.NearestRows``, made before the launch: one (q, scale) pair a
+distinct tile), so the loop is R single rounds bit for bit.  An int8
+launch never runs int8sr buckets (``plan_wave_loop`` refuses it).
+
 4-bit packed bins (``packed=True``, ``bin_layout=packed4``): the kernel's
 packed leg runs the packed route and list walk of K2's device code on the
 (ceil(F/2), N) bytes of ``hist_cuda.pack4bit``; its plans are the real F's
@@ -70,9 +77,11 @@ from . import wave_fused as wf
 from .split import (NEG_INF, FeatureMeta, SplitParams, child_leaf_output,
                     gain_shift, pick_pack)
 
-# plan_wave_loop's reason word for word (JAX wave_fused.py:876-877)
+# plan_wave_loop's reasons word for word (JAX wave_fused.py:876-882)
 MONOTONE_REASON = ("monotone constraints propagate per-round bounds "
                    "outside the kernel")
+INT8SR_REASON = ("int8sr-in-loop needs the exact-integer f32 accumulate "
+                 "(hist_dtype=f32)")
 
 # the stages of a round in the kernel's debug stamps, in order: each
 # ends at a grid barrier ("pick": the pick, the commit and the next
@@ -98,7 +107,7 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                 slot_buckets, max_depth, base_mask, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, pool=None,
                 round_fn=fused_cuda.round_ref, packed=False, key=None,
-                quant_buckets=(), quant=None):
+                quant_buckets=(), quant=None, rows8=None):
     """``rounds`` wave rounds from the frontier ``ft12`` (L, 12) at
     ``num_leaves`` leaves, each through ``round_fn`` (a fused round's
     signature, given ``packed``) -> ``(packed (R, 2K, PACK_COLS),
@@ -110,7 +119,8 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     the split store's.  A round of a bucket in ``quant_buckets`` runs on
     the prequantized rows ``quant = (zq, scale3)`` rounded under
     ``fold_in(key, 8_000_011 + nl)`` at ``int8sr``; with quantized
-    buckets every round carries scales."""
+    buckets every round carries scales.  ``rows8``: the int8 rounds' rows
+    (``quantize.NearestRows``)."""
     from ..models.grower_wave import _topk_by_rank
 
     dev = binned.device
@@ -181,7 +191,7 @@ def loop_rounds(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             parent=to_slot(pool[leafs], 0.0) if sub else None,
             route=dict(oleaf=leaf, feats=feats_s.to(torch.int32), rmeta=rmeta,
                        num_leaves=L), packed=packed, scale=scale,
-            parent_output=pout_s)
+            parent_output=pout_s, rows8=rows8)
         pk = pick_pack(residue, gain_shift(csums_s, params, pout_s), csums_s,
                        meta, num_bins)
         picks[r, :2 * S] = pk
@@ -219,9 +229,12 @@ _P, _I, _F, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, \
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("wave_loop")
-    lib.lgbm_fused_wave_loop.argtypes = [_P] * 10 + [_U] * 2 + [_P] * 13 \
+def _lib(int8: bool = False) -> ctypes.CDLL:
+    """K6's library: ``csrc/wave_loop.cu`` (the float legs), or with
+    ``int8`` ``csrc/wave_loop_int8.cu`` (the int8 leg), built apart so the
+    two build in parallel."""
+    lib = _build.load("wave_loop_int8" if int8 else "wave_loop")
+    lib.lgbm_fused_wave_loop.argtypes = [_P] * 10 + [_U] * 2 + [_P] * 14 \
         + [_I] * 13 + [_F] * 8 + [_I, _P]
     lib.lgbm_fused_wave_loop.restype = _I
     lib.lgbm_wave_loop_limits.argtypes = [_I] * 7 + [_P, _P, _P]
@@ -259,14 +272,23 @@ def stage_split(debug: torch.Tensor, n_split) -> list:
     return out
 
 
+def bucket_tiles(F, num_bins, precision, slot_buckets, sub) -> list:
+    """Each ladder bucket's int8 scale tile (``hist_cuda.round_row_tile``
+    at its nslots), or 0 at another precision."""
+    return [hist_cuda.round_row_tile(S if sub else 2 * S, F, num_bins)
+            if precision == "int8" else 0 for S in slot_buckets]
+
+
 def bucket_plans(N, F, num_bins, precision, slot_buckets, sub,
                  quant_buckets=()) -> list:
     """K2's histogram plan (``hist_cuda.plan``) at each ladder bucket's
-    nslots + 1 slots and precision (``int8sr`` for a quantized bucket):
-    the loop runs a round under its bucket's plan."""
+    nslots + 1 slots, precision (``int8sr`` for a quantized bucket) and
+    int8 scale tile: the loop runs a round under its bucket's plan."""
+    tiles = bucket_tiles(F, num_bins, precision, slot_buckets, sub)
     return [hist_cuda.plan(N, F, (S if sub else 2 * S) + 1, num_bins,
-                           "int8sr" if S in quant_buckets else precision)
-            for S in slot_buckets]
+                           "int8sr" if S in quant_buckets else precision,
+                           T or None)
+            for S, T in zip(slot_buckets, tiles)]
 
 
 def partial_floats(N, F, num_bins, precision, slot_buckets, sub,
@@ -301,8 +323,9 @@ def limits(device, *, precision, sub, num_bins, N, F, L, K, slot_buckets,
     quant = (ctypes.c_int * len(plans))(*[int(S in quant_buckets)
                                           for S in slot_buckets])
     out = (ctypes.c_int * 4)()
+    lib = _lib(precision == "int8")
     with torch.cuda.device(device):
-        fused_cuda._raise_on(_lib().lgbm_wave_loop_limits(
+        fused_cuda._raise_on(lib.lgbm_wave_loop_limits(
             hist_cuda.PREC_ID[precision], int(sub), int(packed),
             hist_cuda.kernel_width(num_bins), L, K, len(plans), ls_max,
             quant, out), "fused_wave_loop limits")
@@ -317,7 +340,7 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                     slot_buckets, max_depth, base_mask, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, pool=None,
                     fmeta=None, debug=None, packed=False, key=None,
-                    quant_buckets=(), quant=None, q3=None):
+                    quant_buckets=(), quant=None, q3=None, rows8=None):
     """K6: ``rounds`` wave rounds in one launch -> ``(packed (R, 2K,
     PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``, as
     ``loop_rounds`` computes them.
@@ -337,7 +360,9 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     (the rows ``zq`` (N, 3) and the scales (3,)); ``q3`` (card only): an
     (N, 3) f32 buffer for the
     quantized rows, which after the launch holds the last quantized
-    round's."""
+    round's.  ``precision="int8"``: ``rows8`` (a tree's
+    ``quantize.NearestRows``; None: quantized now) gives each bucket's
+    rows rounded under its scale tile."""
     if (debug is not None or q3 is not None) \
             and binned.device.type != "cuda":
         raise ValueError("debug / q3: the card kernel's buffers")
@@ -349,13 +374,15 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         raise ValueError(f"quant_buckets={quant_buckets}: need the tree "
                          f"key, the prequantized rows and buckets of the "
                          f"ladder {slot_buckets}")
+    if quant_buckets and precision == "int8":
+        raise ValueError(f"fused_wave_loop: {INT8SR_REASON}")
     if binned.device.type == "cpu":
         return fused_wave_loop_ref(
             binned, g3, leaf_id, ft12, num_leaves, rounds=rounds, K=K,
             slot_buckets=slot_buckets, max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
             meta=meta, params=params, pool=pool, packed=packed, key=key,
-            quant_buckets=quant_buckets, quant=quant)
+            quant_buckets=quant_buckets, quant=quant, rows8=rows8)
     F = base_mask.shape[0]
     _, N = fused_cuda._check_bins(binned, packed, F)
     if not packed and binned.shape[0] != F:
@@ -363,10 +390,10 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                          f"{F}")
     if packed and num_bins > 16:
         raise ValueError(f"num_bins={num_bins}: packed bins hold <= 16")
-    if precision not in hist_cuda.FLOAT_PRECISIONS:
+    if precision not in hist_cuda.FLOAT_PRECISIONS + ("int8",):
         raise ValueError(f"precision={precision!r}: expected one of "
-                         f"{hist_cuda.FLOAT_PRECISIONS} (a quantized "
-                         "bucket's rounds: quant_buckets)")
+                         f"{hist_cuda.FLOAT_PRECISIONS + ('int8',)} (a "
+                         "quantized bucket's rounds: quant_buckets)")
     L, B, C, R, dev = ft12.shape[0], int(num_bins), 2 * K, int(rounds), \
         binned.device
     sub = pool is not None
@@ -381,15 +408,24 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         fused_cuda._need(pool, "pool", torch.float32, (L, F, B, 3), dev)
     if debug is not None:
         fused_cuda._need(debug, "debug", torch.int64,
-                         (_lib().lgbm_wave_loop_debug_words(R),), dev)
+                         (_lib(precision == "int8")
+                          .lgbm_wave_loop_debug_words(R),), dev)
         debug.zero_()
     plans = bucket_plans(N, F, B, precision, slot_buckets, sub,
                          quant_buckets)
-    tables = (ctypes.c_int * (5 * len(plans)))(
+    tiles = bucket_tiles(F, B, precision, slot_buckets, sub)
+    tables = (ctypes.c_int * (6 * len(plans)))(
         *slot_buckets, *[p["ls_max"] for p in plans],
         *[p["n_chunks"] for p in plans], *[p["chunk_rows"] for p in plans],
-        *[int(S in quant_buckets) for S in slot_buckets])
-    lib = _lib()
+        *[int(S in quant_buckets) for S in slot_buckets], *tiles)
+    q8 = None
+    if precision == "int8":
+        if rows8 is None:
+            rows8 = quantize.NearestRows(g3)
+        qs = [rows8(T) for T in tiles]
+        q8 = (ctypes.c_void_p * (2 * len(qs)))(
+            *[q.data_ptr() for q, _ in qs], *[sc.data_ptr() for _, sc in qs])
+    lib = _lib(precision == "int8")
     f32, i32 = torch.float32, torch.int32
     new_leaf = leaf_id.clone()
     ft = ft12.clone()
@@ -441,7 +477,7 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
             n_split.data_ptr(), label.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
             residue.data_ptr(), bnd.data_ptr(),
-            0 if debug is None else debug.data_ptr(), tables, contri,
+            0 if debug is None else debug.data_ptr(), tables, contri, q8,
             N, F, B, hist_cuda.kernel_width(B), L, K, R, int(num_leaves),
             int(max_depth), len(plans), hist_cuda.PREC_ID[precision],
             int(sub), int(packed), *scan_cuda.scan_floats(params), opts,

@@ -1,6 +1,23 @@
-"""Stochastic-rounded gradient quantization for the int8sr histogram pass.
+"""Gradient quantization for the int8 histogram passes.
 
-Port of lightgbmv1_tpu/ops/quantize.py (``hist_dtype_deep=int8sr``).  A
+Two legs.  Round to nearest (``hist_dtype=int8`` / ``hist_dtype_deep=int8``,
+the JAX package's ``hist_pallas._kernel`` ``precision="int8"``,
+hist_pallas.py:144-154): each row tile of T rows has one scale a channel,
+``amax = max |g|`` over the tile's rows, and the rows are rounded half to
+even, ``q = round(g * 127 / amax)``; the count channel is scaled by 64
+(``_COUNT_SCALE``).  The scale is ``amax / 127`` as the JAX kernel runs
+it: XLA compiles a division by the constant 127 as a product with the
+float32 reciprocal ``1/127`` (``INV_QMAX``), while ``127 / amax`` stays an
+IEEE division.  ``rn_quantize`` (the CUDA kernel ``lgbm_rn_quantize`` of
+``csrc/quantize.cu`` on a CUDA tensor, ``rn_quantize_ref`` on a CPU one)
+gives the rows q (N, 3), float32 holding exact integers in [-127, 127]
+(the count 64 or 0): the histogram kernels read them through the same
+(N, 3) float32 loads as every other leg, and K6 reads them in place of
+g3.  T is each histogram kernel's own row tile (``hist_cuda.row_tile_for``),
+so ``NearestRows`` quantizes a tree's rows once for each T its rounds use.
+
+Stochastic rounding (``hist_dtype_deep=int8sr``), the port of
+lightgbmv1_tpu/ops/quantize.py.  A
 quantized wave round histograms integer rows: each row's gradient and
 hessian are scaled by a power of two and rounded down or up with
 probability equal to the fractional part, ``q = clip(floor(z + u), -127,
@@ -36,8 +53,9 @@ port keeps the design.  Everywhere else the two agree bit for bit
 (tests/test_torch_int8sr.py pins both sides).
 
 The rows stay f32 holding exact integers, as in the JAX package.  Each
-kernel launch adds one to ``launch_counts["sr_quantize"]``; each plain
-call one to ``plain_counts["sr_quantize"]``.
+kernel launch adds one to ``launch_counts["sr_quantize"]`` (the
+round-to-nearest leg's to ``["rn_quantize"]``); each plain call one to
+``plain_counts`` under the same name.
 """
 
 from __future__ import annotations
@@ -52,16 +70,21 @@ from ..utils import prng
 from . import _build
 
 INT8_QMAX = 127.0
+# the float32 reciprocal of 127 (0x1.020408p-7), the JAX kernel's scale
+# factor, and the count channel's scale (hist_pallas.py:58)
+INV_QMAX = float.fromhex("0x1.020408p-7")
+COUNT_SCALE = 64.0
 
-launch_counts = {"sr_quantize": 0}
-plain_counts = {"sr_quantize": 0}
+launch_counts = {"sr_quantize": 0, "rn_quantize": 0}
+plain_counts = {"sr_quantize": 0, "rn_quantize": 0}
 _count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        launch_counts["sr_quantize"] = 0
-        plain_counts["sr_quantize"] = 0
+        for d in (launch_counts, plain_counts):
+            for k in d:
+                d[k] = 0
 
 
 def floor_log2(y: torch.Tensor) -> torch.Tensor:
@@ -135,6 +158,32 @@ def sr_quantize_ref(zq: torch.Tensor, key) -> torch.Tensor:
     return torch.cat([q, zq[:, 2:3]], dim=1).contiguous()
 
 
+def rn_quantize_ref(g3: torch.Tensor, row_tile: int):
+    """Plain version of ``rn_quantize``: the rows rounded to nearest under
+    their tile's scale, ``(q (N, 3) f32, scale (ceil(N / T), 3) f32)``."""
+    with _count_lock:
+        plain_counts["rn_quantize"] += 1
+    T, N = int(row_tile), g3.shape[0]
+    nt = -(-N // T)
+    g = g3.to(torch.float32)
+    a = torch.zeros((nt * T, 2), dtype=torch.float32, device=g.device)
+    a[:N] = g[:, :2].abs()
+    amax = a.view(nt, T, 2).amax(dim=1)                      # (nt, 2)
+    pos = amax > 0
+    zero = torch.zeros_like(amax)
+    inv = torch.where(pos, torch.full_like(amax, INT8_QMAX)
+                      / torch.where(pos, amax, torch.ones_like(amax)), zero)
+    scale = torch.where(pos, amax * torch.tensor(
+        INV_QMAX, dtype=torch.float32, device=g.device), zero)
+    q = torch.empty((N, 3), dtype=torch.float32, device=g.device)
+    q[:, :2] = torch.round(g[:, :2] * inv.repeat_interleave(T, dim=0)[:N])
+    q[:, 2] = torch.round(g[:, 2] * COUNT_SCALE)
+    scale3 = torch.cat([scale, torch.full((nt, 1), 1.0 / COUNT_SCALE,
+                                          dtype=torch.float32,
+                                          device=g.device)], dim=1)
+    return q, scale3.contiguous()
+
+
 _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
 
 
@@ -143,7 +192,60 @@ def _lib() -> ctypes.CDLL:
     lib = _build.load("quantize")
     lib.lgbm_sr_quantize.argtypes = [_P, _P, _I, _U, _U, _P]
     lib.lgbm_sr_quantize.restype = _I
+    lib.lgbm_rn_quantize.argtypes = [_P, _P, _P, _I, _I, _P]
+    lib.lgbm_rn_quantize.restype = _I
     return lib
+
+
+ROW_TILES = (128, 256, 512, 1024)
+
+
+def rn_quantize(g3: torch.Tensor, row_tile: int):
+    """The rows ``g3`` (N, 3) rounded to nearest under one scale a tile of
+    ``row_tile`` = T rows (128, 256, 512 or 1024) -> ``(q (N, 3) f32
+    exact integers, scale (ceil(N / T), 3) f32)``: the kernel on a CUDA
+    tensor, the plain version on a CPU one."""
+    if int(row_tile) not in ROW_TILES:
+        raise ValueError(f"row_tile={row_tile}: expected one of {ROW_TILES}")
+    if g3.device.type == "cpu":
+        return rn_quantize_ref(g3, row_tile)
+    if g3.device.type != "cuda":
+        raise ValueError(f"g3 on {g3.device}: expected cpu or cuda")
+    if g3.dtype != torch.float32 or g3.dim() != 2 or g3.shape[1] != 3 \
+            or not g3.is_contiguous():
+        raise ValueError("g3 must be a contiguous (N, 3) float32 tensor")
+    N, T = g3.shape[0], int(row_tile)
+    if N >= 2 ** 31:
+        raise ValueError("g3 exceeds the kernel's int32 row indexing")
+    q = torch.empty_like(g3)
+    scale = torch.empty((-(-N // T), 3), dtype=torch.float32,
+                        device=g3.device)
+    with torch.cuda.device(g3.device):
+        stream = torch.cuda.current_stream(g3.device).cuda_stream
+        err = _lib().lgbm_rn_quantize(g3.data_ptr(), q.data_ptr(),
+                                      scale.data_ptr(), N, T, stream)
+    if err != 0:
+        raise RuntimeError(f"rn_quantize: CUDA launch failed (cudaError "
+                           f"{err})")
+    with _count_lock:
+        launch_counts["rn_quantize"] += 1
+    return q, scale
+
+
+class NearestRows:
+    """A tree's rows ``g3`` rounded to nearest under each row tile T that
+    its histograms ask for, each T's ``rn_quantize`` made once (g3 is fixed
+    for the whole tree): ``rows(T) -> (q, scale)``."""
+
+    def __init__(self, g3: torch.Tensor):
+        self.g3 = g3
+        self._by_tile = {}
+
+    def __call__(self, row_tile: int):
+        T = int(row_tile)
+        if T not in self._by_tile:
+            self._by_tile[T] = rn_quantize(self.g3, T)
+        return self._by_tile[T]
 
 
 def sr_quantize(zq: torch.Tensor, key) -> torch.Tensor:

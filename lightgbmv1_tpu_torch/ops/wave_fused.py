@@ -38,7 +38,11 @@ quantized round histograms the stochastically rounded rows
 the subtraction (``apply_scale``, the slots' scales) or, pool-free, into
 the scan after its integer cumulative sum (``child_scale``); the loop
 draws a quantized round's uniforms in its kernel from the same stream
-(``quant_buckets``).  The
+(``quant_buckets``).  The plain int8
+rounds (``hist_dtype=int8`` / ``hist_dtype_deep=int8``) histogram the
+rows rounded to nearest under one scale a tile of the Pallas round's row
+tile (``hist_cuda.round_row_tile``), which a grow keeps in ``rows8``
+(``quantize.NearestRows``, once a tree and tile).  The
 JAX package's (1, T) row tiles are 1-D (T,) rows, and its per-child
 ``vmap`` is the leading batch axis C, as in ops/split.py.  There is no
 counterpart of ``backend_lowers_fused``: the kernel builds and launches,
@@ -200,6 +204,9 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       (path smoothing), in child-slot order, dead children filled as the
       JAX ``to_cslot`` fills them (0.0, 1, 0.0); read only by the legs
       ``meta`` and ``params`` turn on (``split.scan_inputs``).
+    * ``rows8`` — the tree's ``quantize.NearestRows`` of ``g3``, read by
+      a round at ``int8`` (its rows rounded under the round's scale tile);
+      None quantizes them in the round.
     """
     from . import fused_cuda, quantize
 
@@ -207,7 +214,7 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
 
     def fused_round(binned, g3, S, *, deep=False, quant_key=None, zq=None,
                     scale=None, mask, csums, sml=None, parent=None, route,
-                    constr=None, depth=None, pout=None):
+                    constr=None, depth=None, pout=None, rows8=None):
         nslots = S if parent is not None else 2 * S
         if quant_key is not None:
             g3u, prec = quantize.sr_quantize(zq, quant_key), "int8sr"
@@ -226,7 +233,7 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
             binned, g3u, nslots=nslots, num_bins=num_bins, precision=prec,
             meta=meta, params=params, mask=mask, csums=csums, sml=sml,
             parent=parent, route=route_in, fmeta=fmeta, packed=packed,
-            scale=scale, **legs)
+            scale=scale, rows8=rows8, **legs)
         shift = gain_shift(csums, params, legs["parent_output"])
         return pick_pack(residue, shift, csums, meta, num_bins), hsmall, \
             new_leaf
@@ -256,7 +263,8 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
     ``hist_dtype=f32`` is a fact of its f32 MXU accumulate: the card's
     kernel runs a quantized bucket's rounds on its int32 leg beside the
     launch's precision (``quant_buckets``), its shared memory sized for
-    the larger of the two legs.
+    the larger of the two legs.  An int8 launch has no int8sr leg beside
+    it, so ``precision="int8"`` with quantized buckets keeps the JAX reason.
 
     Replaced: the JAX lane, row-tile and VMEM gates are facts of Pallas on
     a TPU.  The card's own stand in their place when ``limits``
@@ -264,9 +272,10 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
     resident block an SM at the kernel's shared memory, and the resident
     state and scratch within the device's free memory.  The row-tile gate
     has no counterpart: the loop runs each round at the bucket the single
-    round picks and under that bucket's histogram plan, so its sums are
-    partitioned exactly as K2's.  Without ``limits`` (the plain version on
-    the CPU) the card's gates are not asked.  ``packed`` (as the JAX
+    round picks and under that bucket's histogram plan (at int8 also its
+    scale tile), so its sums are partitioned exactly as K2's.  Without
+    ``limits`` (the plain version on the CPU) the card's gates are not
+    asked.  ``packed`` (as the JAX
     planner): the resident bins are the packed bytes (``binned_bytes``);
     the plans stay the real F's, so packed and u8 loops share their
     partition."""
@@ -304,6 +313,10 @@ def plan_wave_loop(*, rounds, N, F, num_bins, K, L, use_sub, slot_buckets,
     if use_mc:
         plan["reason"] = ("monotone constraints propagate per-round "
                           "bounds outside the kernel")
+        return plan
+    if quant_buckets and precision == "int8":
+        plan["reason"] = ("int8sr-in-loop needs the exact-integer f32 "
+                          "accumulate (hist_dtype=f32)")
         return plan
     if (not quant_buckets and K >= 32 and len(slot_buckets) > 1
             and deep_precision != precision):
@@ -353,7 +366,8 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     the ``quant_buckets`` (int8sr) run quantized under ``fold_in(key,
     8_000_011 + num_leaves)``, ``key`` the tree's, drawn in the kernel
     from ``quant`` = ``quantize.prequantize_rows(g3)``, made once a
-    tree.
+    tree.  ``rows8`` (a tree's ``quantize.NearestRows``): the int8
+    rounds' rows.
 
     ``fused_loop.rounds`` is R; ``fused_loop.plan(N=, F=, K=, L=,
     use_sub=, slot_buckets=, device=, quant_buckets=())`` is
@@ -368,13 +382,14 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
 
     def fused_loop(binned, g3, leaf_id, ft12, num_leaves, key=None, *, K,
                    slot_buckets, quant_buckets=(), quant=None, max_depth,
-                   base_mask, pool=None):
+                   base_mask, pool=None, rows8=None):
         return loop_cuda.fused_wave_loop(
             binned, g3, leaf_id, ft12.contiguous(), num_leaves, rounds=R,
             K=K, slot_buckets=tuple(slot_buckets), max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
             meta=meta, params=params, pool=pool, fmeta=fmeta, packed=packed,
-            key=key, quant_buckets=tuple(quant_buckets), quant=quant)
+            key=key, quant_buckets=tuple(quant_buckets), quant=quant,
+            rows8=rows8)
 
     def plan(*, N, F, K, L, use_sub, slot_buckets, device,
              quant_buckets=()):

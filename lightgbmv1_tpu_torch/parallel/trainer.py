@@ -40,12 +40,24 @@ Monotone constraints resolve their mode as the JAX package does (JAX
 <= 7`` too, at a wave of 1) and, on the level-wise grower, falls back to
 ``basic``.  These decide the trees, so they are reproduced, not refused.
 
-What the JAX package routes elsewhere raises here, naming its ROADMAP
-item: the plain int8 precision; ``hist_method=fused`` on the sequential
-or level-wise grower raises with the JAX reason, and so does the
-persistent loop under monotone constraints (JAX :669-672).  The loop's
-other JAX fallbacks (interaction constraints, ``feature_fraction_bynode``)
-are refused before, by ``config.unported_reason``.
+``hist_dtype=int8`` and ``hist_dtype_deep=int8`` (round to nearest under
+one scale a row tile) run the kernels' int8 legs on every grower; the
+deep rounds of ``hist_dtype=int8`` are int8 too (``resolve_deep_dtype``),
+``gpu_use_dp`` maps ``hist_dtype=int8`` to f32 in the config (JAX
+config.py:945), and the persistent loop keeps the JAX planner's refusals
+(a deep-precision drop, int8sr buckets beside an int8 base).
+
+Sampling (bagging, ``feature_fraction``, ``feature_fraction_bynode``) is
+the boosting loop's and the growers' (models/gbdt.py, models/grower.py,
+models/grower_wave.py); the trainer hands the growers
+``feature_fraction_bynode``.
+
+What the JAX package routes elsewhere raises here, with its reason:
+``hist_method=fused`` on the sequential or level-wise grower, the
+persistent loop under monotone constraints (JAX :669-672) or under
+per-node feature sampling (JAX grower_wave.py:881-884 keeps the loop off
+there).  The loop's other JAX fallback (interaction constraints) is
+refused before, by ``config.unported_reason``.
 """
 
 from __future__ import annotations
@@ -54,7 +66,7 @@ from typing import Callable
 
 import torch
 
-from ..config import INT8_PLAIN, Config, not_ported
+from ..config import Config
 from ..models import grower_wave
 from ..models.grower import make_leafwise_grower, make_levelwise_grower
 from ..models.grower_wave import (auto_wave_size, make_wave_grower,
@@ -131,8 +143,6 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     F = meta.num_bins.shape[0]
     bins = dict(packed=packed, num_features=F)
     precision = config.hist_dtype
-    if precision not in ("f32", "bf16", "bf16x2"):
-        raise not_ported(f"hist_dtype={precision}", INT8_PLAIN)
     deep_precision = resolve_deep_dtype(config.hist_dtype_deep, precision,
                                         torch.device(device).type)
     # int8sr: the quantized buckets run hist_wave_quant; every other
@@ -146,10 +156,9 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
         deep_precision = "f32"
     elif use_int8sr:
         deep_precision = precision
-    if deep_precision == "int8":
-        raise not_ported(f"hist_dtype_deep={deep_precision}", INT8_PLAIN)
 
     levelwise = config.tree_growth == "levelwise"
+    bynode = config.feature_fraction_bynode
     wave_size = config.leafwise_wave_size
     if wave_size == 0:
         # auto: num_leaves // 4; K = 1 (num_leaves <= 7) is the sequential
@@ -176,10 +185,10 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                     f"(tree_growth={config.tree_growth})")
         mono_mode = "basic"
 
-    def local_wave(binned, g3, label, nslots, deep=False):
+    def local_wave(binned, g3, label, nslots, deep=False, rows8=None):
         return hist_wave(binned, g3, label, nslots, num_bins, method=method,
                          precision=deep_precision if deep else precision,
-                         **bins)
+                         rows8=rows8, **bins)
 
     def local_wave_quant(binned, zq, label, nslots, key):
         return hist_wave_quant(binned, zq, label, nslots, num_bins, key,
@@ -205,6 +214,11 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                 f"wave_loop_rounds={config.wave_loop_rounds}: monotone "
                 "constraints propagate child bounds between rounds outside "
                 "the kernel")
+        if config.wave_loop_rounds > 1 and bynode < 1.0:
+            raise NotImplementedError(
+                f"wave_loop_rounds={config.wave_loop_rounds}: "
+                f"feature_fraction_bynode={bynode} draws each child's "
+                "feature mask between rounds, outside the kernel")
         if config.wave_loop_rounds > 1:
             # ---- the persistent wave loop (K6), planned at this shape ---
             fused_loop = make_fused_wave_loop(
@@ -227,12 +241,14 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                     f"{plan['reason']}")
 
     common = dict(num_leaves=config.num_leaves, num_bins=num_bins, meta=meta,
-                  params=params, max_depth=config.max_depth)
+                  params=params, max_depth=config.max_depth,
+                  feature_fraction_bynode=bynode)
     if levelwise:
-        def local_frontier(binned, g3, label, L, live_slots=None):
+        def local_frontier(binned, g3, label, L, live_slots=None,
+                           rows8=None):
             return hist_frontier(binned, g3, label, L, num_bins,
                                  method=method, precision=precision,
-                                 live_slots=live_slots, **bins)
+                                 live_slots=live_slots, rows8=rows8, **bins)
 
         return make_levelwise_grower(hist_frontier_fn=local_frontier,
                                      packed=packed, **common)

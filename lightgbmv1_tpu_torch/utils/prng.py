@@ -16,7 +16,11 @@ default threefry2x32 generator, with ``jax_threefry_partitionable`` on
   ``jax.random.uniform(key, (n_rows, 2))``: element ``i = 2 row +
   channel`` hashes the counter ``(i >> 32, i & 0xffffffff)``, XORs the
   two output words, keeps the top 23 bits as a mantissa of [1, 2) and
-  subtracts 1.
+  subtracts 1.  ``uniform_1d(key, n)`` is the (n,) draw
+  ``jax.random.uniform(key, (n,))``, element i from counter i, and
+  ``bernoulli(key, p, n)`` is ``jax.random.bernoulli(key, p, (n,))``,
+  ``uniform_1d(key, n) < p`` with ``p`` as a float32 (the bagging masks
+  and the per-node feature sampling of the JAX package).
 
 ``threefry2x32`` is the 20-round Random123 function (rotations
 [13, 15, 26, 6] / [17, 29, 16, 24], key-schedule constant 0x1BD11BDA).
@@ -66,11 +70,38 @@ def fold_in(key: tuple, data: int) -> tuple:
     return threefry2x32(int(key[0]), int(key[1]), 0, int(data) & MASK32)
 
 
+def _uniform_bits(k0, k1, i: torch.Tensor) -> torch.Tensor:
+    """float32 uniforms of the counters ``i`` (int64) under the key words
+    ``(k0, k1)`` (ints, or int64 tensors broadcast against ``i``)."""
+    b0, b1 = threefry2x32(k0, k1, i >> 32, i & MASK32)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    return bits.to(torch.int32).view(torch.float32) - 1.0
+
+
+def uniform_1d(key: tuple, n: int, device=None) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,))``: (n,) float32 in [0, 1), element
+    i from counter i."""
+    i = torch.arange(int(n), dtype=torch.int64, device=device)
+    return _uniform_bits(int(key[0]), int(key[1]), i)
+
+
+def uniform_folded(key: tuple, data: torch.Tensor, n: int) -> torch.Tensor:
+    """(C, n): row c is ``uniform_1d(fold_in(key, data[c]), n)`` for the
+    (C,) int64 tensor ``data``, every key and draw in one pass."""
+    d = data.to(torch.int64) & MASK32
+    k0, k1 = threefry2x32(int(key[0]), int(key[1]), torch.zeros_like(d), d)
+    i = torch.arange(int(n), dtype=torch.int64, device=data.device)
+    return _uniform_bits(k0[:, None], k1[:, None], i[None, :])
+
+
 def uniform(key: tuple, n_rows: int, device=None) -> torch.Tensor:
     """``jax.random.uniform(key, (n_rows, 2))``: (n_rows, 2) float32 in
     [0, 1), element ``(row, c)`` from counter ``2 row + c``."""
-    i = torch.arange(2 * int(n_rows), dtype=torch.int64, device=device)
-    b0, b1 = threefry2x32(int(key[0]), int(key[1]), i >> 32, i & MASK32)
-    bits = ((b0 ^ b1) >> 9) | 0x3F800000
-    one = bits.to(torch.int32).view(torch.float32)
-    return (one - 1.0).reshape(int(n_rows), 2)
+    return uniform_1d(key, 2 * int(n_rows), device).reshape(int(n_rows), 2)
+
+
+def bernoulli(key: tuple, p: float, n: int, device=None) -> torch.Tensor:
+    """``jax.random.bernoulli(key, p, (n,))``: (n,) bool, ``uniform_1d <
+    p`` with ``p`` rounded to float32 as the JAX package's weak float."""
+    return uniform_1d(key, n, device) < torch.tensor(
+        float(p), dtype=torch.float32, device=device)

@@ -97,7 +97,8 @@ def test_every_jax_knob_and_alias_is_known():
             "lambdarank_norm", "label_gain", "eval_at", "multi_error_top_k",
             "max_delta_step", "path_smooth", "monotone_constraints",
             "monotone_constraints_method", "monotone_penalty",
-            "feature_contri"}
+            "feature_contri", "bagging_freq", "feature_fraction",
+            "bagging_seed", "feature_fraction_seed", "hist_dtype_deep"}
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -148,8 +149,9 @@ def test_unknown_name_warns(capsys):
 
 
 @pytest.mark.parametrize("gpu_use_dp", [False, True])
-@pytest.mark.parametrize("deep", ["", "auto", "f32", "bf16", "bf16x2"])
-@pytest.mark.parametrize("dtype", ["f32", "bf16", "bf16x2"])
+@pytest.mark.parametrize("deep", ["", "auto", "f32", "bf16", "bf16x2",
+                                  "int8"])
+@pytest.mark.parametrize("dtype", ["f32", "bf16", "bf16x2", "int8"])
 def test_gpu_use_dp_resolves_as_jax(dtype, deep, gpu_use_dp):
     """gpu_use_dp maps onto f32 histograms, deep rounds included unless
     hist_dtype_deep is explicit: the JAX Config's resolved values."""
@@ -184,8 +186,13 @@ def test_gpu_use_dp_keeps_byte_bins_and_f32_deep_rounds(capsys):
     assert "int8sr disabled, deep rounds run f32" in capsys.readouterr().err
     assert unported_reason(Config.from_dict(
         {"objective": "binary", "hist_dtype_deep": "int8sr"})) is None
-    assert "plain int8 histograms" in unported_reason(Config.from_dict(
-        {"objective": "binary", "hist_dtype_deep": "int8"}))
+    # plain int8 trains; gpu_use_dp maps hist_dtype=int8 to f32 (JAX
+    # config.py:945) and keeps an explicit int8 deep precision
+    assert unported_reason(Config.from_dict(
+        {"objective": "binary", "hist_dtype_deep": "int8"})) is None
+    i8 = Config.from_dict({"objective": "binary", "gpu_use_dp": True,
+                           "hist_dtype": "int8", "hist_dtype_deep": "int8"})
+    assert (i8.hist_dtype, i8.hist_dtype_deep) == ("f32", "int8")
 
 
 def test_gpu_use_dp_trains_the_f32_model():

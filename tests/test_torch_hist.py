@@ -112,7 +112,9 @@ def test_plain_version_is_deterministic():
 
 def test_precision_parts_round_to_nearest_even():
     """hi = bf16_rn(v), lo = bf16_rn(v - hi): the split the kernel and
-    the Pallas kernel make, checked on values that sit on a tie."""
+    the Pallas kernel make, checked on values that sit on a tie; int8
+    rounds half to even too, under its tile's scale (127 / amax = 1 here,
+    so the rows' own ties)."""
     v = torch.tensor([[1.0 + 2 ** -8, 1.0 + 3 * 2 ** -8, -2.5, 0.1]],
                      dtype=torch.float32).T.repeat(1, 3)
     hi, lo = hist_cuda.split_parts(v, "bf16x2")
@@ -120,8 +122,13 @@ def test_precision_parts_round_to_nearest_even():
     assert torch.equal((hi + lo)[:3], v[:3])      # 16 bits hold these
     assert float((hi + lo - v)[3].abs().max()) <= 0.1 * 2 ** -15
     assert torch.equal(hist_cuda.split_parts(v, "bf16")[0], hi)
-    with pytest.raises(ValueError):
-        hist_cuda.split_parts(v, "int8")
+    ties = torch.tensor([0.5, 1.5, 2.5, -0.5, -3.5, 127.0],
+                        dtype=torch.float32)[:, None].repeat(1, 3)
+    ties[:, 2] = 1.0
+    q, scale = hist_cuda.int8_rows(ties, 128)
+    assert q[:, 0].tolist() == [0.0, 2.0, 2.0, -0.0, -4.0, 127.0]
+    assert q[:, 2].tolist() == [64.0] * 6
+    assert scale[0, 2] == 1 / 64 and scale[0, 0] == np.float32(127 / 127)
 
 
 @pytest.mark.parametrize("method", ["scatter", "pallas"])
@@ -174,8 +181,15 @@ def test_wrapper_refuses_other_devices_and_precisions():
     binned, g3, leaf = map(torch.from_numpy, _inputs(5, 16, 2))
     with pytest.raises(ValueError, match="cpu or cuda"):
         hist_cuda.hist_leaves(binned.to("meta"), g3, leaf, 2, 16)
+    # int8 is a precision of the wrapper now: on a CPU tensor its plain
+    # version, the Pallas kernel's order at K1's scale tile
+    q, scale = hist_cuda.int8_rows(g3, hist_cuda.hist_row_tile(2, 5, 16))
+    assert torch.equal(
+        hist_cuda.hist_leaves(binned, g3, leaf, 2, 16, precision="int8"),
+        hist_cuda.int8_hist(binned, q, scale, hist_cuda.hist_row_tile(
+            2, 5, 16), leaf, 2, 16))
     with pytest.raises(ValueError):
-        hist_cuda.hist_leaves(binned, g3, leaf, 2, 16, precision="int8")
+        hist_cuda.hist_leaves(binned, g3, leaf, 2, 16, precision="int4")
     with pytest.raises(ValueError):
         hist_cuda.kernel_width(257)
     assert [hist_cuda.kernel_width(b) for b in (8, 16, 32, 64, 128, 256)] \
