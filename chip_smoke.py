@@ -313,10 +313,12 @@ Phases (any failure exits non-zero with no ``ok`` line):
               its plain version on the card and the CPU at every scale
               tile (128, 256, 512, 1024 rows; out-of-bag zero rows, an
               all-zero tile, an odd N); K1's int8 leg (L = 2, 17, 64; byte
-              bins, and 16-bin byte and packed bins) bit for bit its
-              row-order plain version, counts exact and values within the
-              order bound of the Pallas kernel's order, the packed leg
-              the u8 leg; K2's (S = 16, 63, pool-free, sparse-live, and
+              bins, and 16-bin byte and packed bins; L = 64 at every
+              scale tile) bit for bit its row-order plain version, counts
+              exact and values within the order bound of the Pallas
+              kernel's order, the packed leg the u8 leg; K2's (S = 16,
+              63, pool-free, sparse-live, listed rows spaced 37 and 613
+              rows apart so that a warp batch crosses scale tiles, and
               the 16-bin packed leg the u8 leg) with hsmall the row-order
               int8 histogram of its label and the residue the CPU plain
               scan's; K6's (R = 4 on an int8 tree's segment, subtraction
@@ -328,10 +330,12 @@ Phases (any failure exits non-zero with no ``ok`` line):
               only at the sustained 63-slot bucket); looped text = fused
               = staged, deep staged = deep fused, a second staged
               training the same text; valid AUC above INT8_AUC_MIN beside
-              the JAX package's figure (int8_auc.py); each model served
-              through K4.  Then each int8 leg and the quantize kernel
-              timed beside its int8sr and bf16 / bf16x2 legs on the same
-              inputs.
+              the JAX package's figure (int8_auc.py); each model's max
+              |leaf| beside phase 10's bf16x2 model's; each model served
+              through K4.  Then each int8 leg timed beside its int8sr and
+              bf16 / bf16x2 legs on the same inputs, in turns, five
+              rounds (medians and the int8 leg's ratios), and the
+              quantize kernel beside its plain version.
 36. sampling training — bagging 0.8 every 5 iterations, feature
               fraction 0.9 and feature_fraction_bynode 0.8, staged =
               fused byte for byte; bagging with the per-tree mask looped
@@ -1179,9 +1183,16 @@ def phase_train(ds, dv, Xv, iters, dev):
     log(f"  split-scan launches: {out['split_scan']['launches']} "
         f"({out['split_scan']['per_tree']:.2f} a tree)")
     out.update(text_hash(booster.model_to_string(), "staged"))
+    out["max_abs_leaf"] = max_abs_leaf(booster)
     out["served_max_abs_err"] = serve_trained(booster, Xv, dev,
                                               "trained_model.txt")
     return out, rec
+
+
+def max_abs_leaf(booster) -> float:
+    """The largest |leaf value| of a booster's trees."""
+    return max(float(np.abs(t.leaf_value).max())
+               for t in booster._all_trees())
 
 
 def text_hash(text: str, tag: str) -> dict:
@@ -4245,22 +4256,25 @@ def int8_bound(binned, g3, lid, L, B, T, live=None):
 
 
 def check_k1_int8(tag, binned, g3, lid, L, B=64, packed=None,
-                  live=None) -> dict:
+                  live=None, T=None) -> dict:
     """K1's int8 leg against its plain version in the kernel's order
     (``hist_leaves_roworder_ref``): bit for bit; counts exact and values
     within ``int8_bound`` of the Pallas kernel's order; two launches
     equal; the dead slot; with ``packed`` (the pack4bit bytes of
     ``binned``) its packed leg bitwise the u8 leg (F even: one scale
-    tile for both)."""
-    T = hc.hist_row_tile(L, binned.shape[0], B)
-    got = hc.hist_leaves(binned, g3, lid, L, B, "int8", live)
+    tile for both).  ``T``: the scale tile (default the kernel's own,
+    ``hist_row_tile``)."""
+    T = T or hc.hist_row_tile(L, binned.shape[0], B)
+    got = hc.hist_leaves(binned, g3, lid, L, B, "int8", live, row_tile=T)
     check(same_bits(got, hc.hist_leaves(binned, g3, lid, L, B, "int8",
-                                        live)),
+                                        live, row_tile=T)),
           f"K1 int8 {tag}: two launches differ")
-    row = hc.hist_leaves_roworder_ref(binned, g3, lid, L, B, "int8", live)
+    row = hc.hist_leaves_roworder_ref(binned, g3, lid, L, B, "int8", live,
+                                      row_tile=T)
     check(same_bits(got, row), f"K1 int8 {tag}: not bitwise the row-order "
           f"version ({int((got != row).sum())} cells differ)")
-    want = hc.hist_leaves_ref(binned, g3, lid, L, B, "int8", live)
+    want = hc.hist_leaves_ref(binned, g3, lid, L, B, "int8", live,
+                              row_tile=T)
     check(torch.equal(got[..., 2], want[..., 2]), f"K1 int8 {tag}: counts "
           "differ from the Pallas kernel's order")
     diff = (got - want).abs()
@@ -4268,22 +4282,25 @@ def check_k1_int8(tag, binned, g3, lid, L, B=64, packed=None,
     over = int((diff > tol).sum())
     check(over == 0, f"K1 int8 {tag}: {over} cells past the order bound")
     if L > 1:
-        dead = hc.hist_leaves(binned, g3, lid, L, B, "int8", L - 1)
+        dead = hc.hist_leaves(binned, g3, lid, L, B, "int8", L - 1,
+                              row_tile=T)
         check(same_bits(dead[:L - 1], got[:L - 1])
               and not bool(dead[L - 1].view(torch.int32).any()),
               f"K1 int8 {tag}: the dead slot changed a live cell or is "
               "not 0")
     if packed is not None:
         pk = hc.hist_leaves(packed, g3, lid, L, B, "int8", live, packed=True,
-                            num_features=binned.shape[0])
+                            num_features=binned.shape[0], row_tile=T)
         check(same_bits(pk, got), f"K1 int8 {tag}: the packed leg differs "
               "from the u8 leg")
     p = hc.plan(g3.shape[0], binned.shape[0], L, B, "int8", T)
-    log(f"  K1 int8 {tag}: T={T}, {p['n_chunks']} chunks of "
+    log(f"  K1 int8 {tag}: T={T}, {p['groups']} slot group(s), "
+        f"{p['n_chunks']} chunks of "
         f"{p['chunk_rows']} rows; bitwise the row-order version, "
         f"repeatable{', packed leg the u8 leg' if packed is not None else ''}"
         f"; vs the Pallas order max_abs_err {float(diff.max()):.3e}")
-    return {"case": tag, "T": T, "n_chunks": p["n_chunks"],
+    return {"case": tag, "T": T, "groups": p["groups"],
+            "n_chunks": p["n_chunks"],
             "max_abs_err": 0.0, "max_err_vs_pallas_order": float(diff.max()),
             "packed": packed is not None}
 
@@ -4335,13 +4352,22 @@ def check_k2_int8(tag, binned, g3, kw, packed=None) -> dict:
                                           "new leaf ids", "label")):
             check(a is None or bool(same_value(a, b).all()),
                   f"K2 int8 {tag}: the packed leg differs in {what}")
-    live = int((label < ns).sum())
-    log(f"  K2 int8 {tag}: T={T}, {live} live rows; leaf ids, labels, K3 "
+    rows = (label < ns).nonzero()[:, 0]
+    live = int(rows.numel())
+    # the scale tiles a 256-entry run of the listed rows meets, on average
+    # (the list walk's tiles; its chunks start new runs, ignored here)
+    tiles = rows // T
+    steps = torch.ones_like(tiles, dtype=torch.bool)
+    steps[1:] = tiles[1:] != tiles[:-1]
+    steps[::256] = True
+    span = float(steps.sum()) / max(1, -(-live // 256))
+    log(f"  K2 int8 {tag}: T={T}, {live} live rows, {span:.1f} scale tiles "
+        "a 256-row list tile; leaf ids, labels, K3 "
         "exact; hsmall the row-order int8 histogram; residue the CPU plain "
         "scan's; repeatable"
         + ("; packed leg the u8 leg" if packed is not None else ""))
     return {"case": tag, "T": T, "rows_in_slots": live, "max_abs_err": 0.0,
-            "packed": packed is not None}
+            "tiles_per_list_tile": span, "packed": packed is not None}
 
 
 def check_k6_int8(tag, args, min_rounds=2) -> dict:
@@ -4395,11 +4421,13 @@ def int8_segment(binned, meta, B, rng, packed=False):
 def phase_int8_kernels(binned, meta, rng, packed_ds) -> dict:
     """Phase 34: the round-to-nearest quantize kernel at every scale tile
     (out-of-bag zero rows, an all-zero tile, an odd N); K1's int8 leg at
-    L = 2, 17, 64 on byte bins and (16 bins) packed bins; K2's at S = 16
-    and 63 in subtraction mode, 63 pool-free, the sparse-live rounds and
-    (16 bins) its packed leg; K6 at R = 4 on a segment of a headline int8
-    tree, subtraction and pool-free, and its packed leg on a 16-bin
-    tree's segment."""
+    L = 2, 17, 64 on byte bins and (16 bins) packed bins, and at L = 64 at
+    every scale tile; K2's at S = 16 and 63 in subtraction mode, 63
+    pool-free, the sparse-live rounds, two rounds whose listed rows are
+    spaced so that a warp batch crosses scale tiles, and (16 bins) its
+    packed leg; K6 at R = 4 on a segment of a headline int8 tree,
+    subtraction and pool-free, and its packed leg on a 16-bin tree's
+    segment."""
     Fn, N = binned.shape
     dev = binned.device
     out = {"quantize": [], "k1": [], "k2": [], "k6": []}
@@ -4417,6 +4445,13 @@ def phase_int8_kernels(binned, meta, rng, packed_ds) -> dict:
         out["k1"].append(check_k1_int8(f"L={L} B=64", binned, g3, lid, L))
         out["k1"].append(check_k1_int8(f"L={L} B=16", b16, g3, lid, L, 16,
                                        p16))
+    # L = 64 at every scale tile: T = 128 puts two in a 256-row tile, 1024
+    # spans four, so a warp's rows cross tiles within and across batches
+    lid = torch.from_numpy(rng.randint(0, 64, N).astype(np.int32)).to(dev)
+    g3 = bagged_rows(rng, N, dev)
+    for T in qz.ROW_TILES:
+        out["k1"].append(check_k1_int8(f"L=64 B=64 T={T}", binned, g3, lid,
+                                       64, T=T))
     for S, sub in ((16, True), (63, True), (63, False)):
         g3, kw = round_inputs(binned, meta, S, S, sub, "int8", rng)
         g3 = g3 * bagged_rows(rng, N, dev)[:, 2:3]
@@ -4432,6 +4467,15 @@ def phase_int8_kernels(binned, meta, rng, packed_ds) -> dict:
         out["k2"].append(check_k2_int8(
             f"sparse {case}, S=16 {'sub' if sub else 'pool-free'}", binned,
             g3, kw))
+    # one live row every `stride`: a list tile's 256 rows span many scale
+    # tiles, so each warp batch crosses several (613: nearly one a row)
+    for stride in (37, 613):
+        oleaf = np.zeros(N, np.int64)
+        oleaf[stride // 2::stride] = 1
+        g3, kw = round_inputs(binned, meta, 16, 1, False, "int8", rng,
+                              oleaf=oleaf, leafs=[1])
+        out["k2"].append(check_k2_int8(
+            f"spaced every {stride} rows, S=16 pool-free", binned, g3, kw))
     # 16 bins: a packed dataset's meta, so every split is one of its bins
     pb = torch.as_tensor(packed_ds.binned, device=dev).contiguous()
     pmeta = make_feature_meta(packed_ds, dev)
@@ -4519,14 +4563,15 @@ def check_int8_launches(name, counts):
           f"int8 {name}: legs {prec}")
 
 
-def phase_int8_train(ds, dv, Xv, iters, dev):
+def phase_int8_train(ds, dv, Xv, iters, dev, bf16x2_leaf=None):
     """Phase 35, the int8 training main path at the headline: staged,
     fused and looped at hist_dtype=int8, staged and fused at
     hist_dtype_deep=int8, each with its launch counts reset around it and
     only its int8 legs; the looped text the fused one, the staged text
     the fused one (K1's and K2's scale tiles and plans agree on byte
     bins) and a second staged training the same text; the valid AUC
-    beside the JAX package's figure; each model served through K4."""
+    beside the JAX package's figure; each model's largest |leaf| beside
+    ``bf16x2_leaf`` (phase 10's); each model served through K4."""
     out, recs, texts = {}, {}, {}
     for name, params in INT8_RUNS:
         bst, secs, ev, counts, plain, rec = recorded_run(params, ds, dv,
@@ -4545,6 +4590,9 @@ def phase_int8_train(ds, dv, Xv, iters, dev):
             f"{JAX_INT8_AUC_65K[0]} / {JAX_INT8_AUC_65K[1]}; int8_auc.py)")
         check(auc > INT8_AUC_MIN, f"int8 {name}: valid AUC {auc} <= "
               f"{INT8_AUC_MIN}")
+        r["max_abs_leaf"] = max_abs_leaf(bst)
+        log(f"  int8 {name}: max |leaf| {r['max_abs_leaf']:.6g} beside "
+            f"bf16x2's {bf16x2_leaf} (phase 10)")
         r["served_max_abs_err"] = serve_trained(
             bst, Xv, dev, f"int8_{name.replace(' ', '_')}_model.txt")
         out[name] = r
@@ -4577,11 +4625,36 @@ def int8_ops(binned, lid, L, B, T, live=None):
     return 3 * rows.numel() * Fn, 3 * cells
 
 
+INT8_TIMING_ROUNDS = 5
+
+
+def legs_in_turns(fns, reps=10, rounds=INT8_TIMING_ROUNDS) -> dict:
+    """Each leg of ``fns`` (name -> launch; the first is int8) timed by
+    ``time_ms`` over ``reps`` launches, the legs in turns, ``rounds``
+    times, the order reversed every other round (so a drift of the card's
+    clock falls on every leg alike).  Returns the int8 leg's median as
+    ``ms``, each other leg's as ``<name>_ms``, every round's times and
+    the int8 leg's ratio to each other leg's median."""
+    runs = {k: [] for k in fns}
+    order = list(fns)
+    for i in range(rounds):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            runs[k].append(time_ms(fns[k], reps))
+    med = {k: float(np.median(v)) for k, v in runs.items()}
+    first = order[0]
+    return {"ms": med[first],
+            **{f"{k}_ms": med[k] for k in order[1:]},
+            "rounds_ms": runs,
+            "ratios": {f"{first}/{k}": med[first] / med[k]
+                       for k in order[1:]}}
+
+
 def phase_int8_timing(recs, trained) -> dict:
     """Each int8 leg on phase 35's last inputs at its largest bucket beside
-    its int8sr and bf16 / bf16x2 legs on the same inputs, its plain
-    version and, for K1, one ``index_add_`` of the integer rows; the
-    quantize kernel beside its plain version.  Bounds: bytes (each input
+    its int8sr and bf16 / bf16x2 legs on the same inputs, in turns
+    (``legs_in_turns``: medians and ratios), its plain version and, for
+    K1, one ``index_add_`` of the integer rows; the quantize kernel
+    beside its plain version.  Bounds: bytes (each input
     read once, each output written once) at 3.35 TB/s, and operations
     (integer adds at the int32 rate, one fma a non-empty cell and scale
     tile at the f32 rate).  The int8 legs run on the tree's rounded rows
@@ -4607,14 +4680,15 @@ def phase_int8_timing(recs, trained) -> dict:
         "at": f"L={L} int8 T={T}", "N": N,
         "launches": sum(v for k, v in k1.items() if k.endswith(":int8")),
         "launches_by_bucket": k1,
-        "ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B, "int8",
-                                             live, rows8=rows8), 10),
-        "int8sr_ms": time_ms(lambda: hc.hist_leaves(binned, q3, lid, L, B,
-                                                    "int8sr", live), 10),
-        "bf16_ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B,
-                                                  "bf16", live), 10),
-        "bf16x2_ms": time_ms(lambda: hc.hist_leaves(binned, g3, lid, L, B,
-                                                    "bf16x2", live), 10),
+        **legs_in_turns({
+            "int8": lambda: hc.hist_leaves(binned, g3, lid, L, B, "int8",
+                                           live, rows8=rows8),
+            "int8sr": lambda: hc.hist_leaves(binned, q3, lid, L, B,
+                                             "int8sr", live),
+            "bf16": lambda: hc.hist_leaves(binned, g3, lid, L, B, "bf16",
+                                           live),
+            "bf16x2": lambda: hc.hist_leaves(binned, g3, lid, L, B,
+                                             "bf16x2", live)}),
         "plain_ms": time_ms(lambda: hc.hist_leaves_ref(
             binned, g3, lid, L, B, "int8", live, rows8=rows8), 1),
         "library_ms": time_ms(lambda: iacc.index_add_(0, flat, ivals), 5),
@@ -4645,9 +4719,10 @@ def phase_int8_timing(recs, trained) -> dict:
     out["fused_round"] = {
         "at": f"S={S} int8 {mode} T={T}", "N": N,
         "launches": sum(v for k, v in k2.items() if ":int8:" in k),
-        "ms": time_ms(lambda: fc.fused_round(binned, g3, **kw), 10),
-        "int8sr_ms": time_ms(lambda: fc.fused_round(binned, q3, **skw), 10),
-        "bf16x2_ms": time_ms(lambda: fc.fused_round(binned, g3, **bkw), 10),
+        **legs_in_turns({
+            "int8": lambda: fc.fused_round(binned, g3, **kw),
+            "int8sr": lambda: fc.fused_round(binned, q3, **skw),
+            "bf16x2": lambda: fc.fused_round(binned, g3, **bkw)}),
         "plain_ms": time_ms(lambda: fc.fused_round_ref(
             binned, g3, **plain_kw(kw)), 1),
         "library_ms": None, "live_rows": n_live,
@@ -4671,9 +4746,10 @@ def phase_int8_timing(recs, trained) -> dict:
     out["fused_wave_loop"] = {
         "R": kw["rounds"], "rounds": rounds, "N": N,
         "launches": sum(k6.values()),
-        "ms": time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10),
-        "int8sr_ms": time_ms(lambda: lc.fused_wave_loop(*pos, **qkw), 10),
-        "bf16x2_ms": time_ms(lambda: lc.fused_wave_loop(*pos, **bkw), 10),
+        **legs_in_turns({
+            "int8": lambda: lc.fused_wave_loop(*pos, **kw),
+            "int8sr": lambda: lc.fused_wave_loop(*pos, **qkw),
+            "bf16x2": lambda: lc.fused_wave_loop(*pos, **bkw)}),
         "plain_ms": time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 1),
         "library_ms": None,
         "live_bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3,
@@ -4700,8 +4776,11 @@ def phase_int8_timing(recs, trained) -> dict:
     for name, r in list(out.items()) + [("rn_quantize", qrow)]:
         legs = ", ".join(f"{k} {r[k]:.4f} ms" for k in
                          ("int8sr_ms", "bf16_ms", "bf16x2_ms") if k in r)
+        ratios = ", ".join(f"{k} {v:.3f}" for k, v in
+                           r.get("ratios", {}).items())
         log(f"  {name} int8 ({r.get('at', '')}): {r['ms']:.4f} ms"
-            + (f" beside {legs}" if legs else "")
+            + (f" beside {legs} (medians of {INT8_TIMING_ROUNDS} rounds in "
+               f"turns; ratios {ratios})" if legs else "")
             + f", plain {r['plain_ms']:.2f} ms, bound {r['bound_ms']:.5f} ms "
             f"by {r['bound_by']}, library {r['library_ms']}; "
             f"{r['launches']} launches on phase 35's path")
@@ -5107,7 +5186,8 @@ def main(argv=None) -> int:
     del binned, dq, Xq, yq
 
     log("== phase 35: int8 training (main path; launch counts reset)")
-    int8, qrecs = phase_int8_train(ds, dv, Xv, args.iters, dev)
+    int8, qrecs = phase_int8_train(ds, dv, Xv, args.iters, dev,
+                                   trained["max_abs_leaf"])
     qrow8, rnrow = phase_int8_timing(qrecs, int8)
     del qrecs
     k1_row["int8"] = dict(qrow8["hist_leaves"], max_abs_err=0.0,

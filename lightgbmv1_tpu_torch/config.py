@@ -181,7 +181,6 @@ class Config:
     interaction_constraints: str = ""
     forcedsplits_filename: str = ""
     cegb_penalty_split: float = 0.0
-    linear_tree: bool = False
     # -- tree growth and histograms (JAX config.py:306-366) ---------------
     tree_growth: str = "leafwise"
     # 0 = auto (num_leaves // 4; the sequential grower below 8 leaves,
@@ -310,6 +309,8 @@ class Config:
     task: str = "train"
     data: str = ""
     valid: List[str] = field(default_factory=list)
+    # accepted: it changes no trained model (in the JAX package it reaches
+    # only file loading and the native predictor, basic.py:201, :826)
     num_threads: int = 0
     output_model: str = "LightGBM_model.txt"
     input_model: str = ""
@@ -552,7 +553,6 @@ _UNPORTED = (
      "forced splits", BREADTH),
     ("cegb_penalty_split", lambda c: c.cegb_penalty_split > 0, "CEGB",
      BREADTH),
-    ("linear_tree", lambda c: c.linear_tree, "linear_tree", BREADTH),
     ("categorical_feature", lambda c: bool(c.categorical_feature),
      "categorical features", BREADTH),
     ("hist_method", lambda c: c.hist_method in ("onehot", "bench"),
@@ -578,7 +578,7 @@ _REFUSED = (
     (HIST_METHODS, ("force_col_wise", "force_row_wise")),
     (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
                 "pred_early_stop_margin")),
-    (CLI, ("config", "task", "data", "valid", "num_threads", "output_model",
+    (CLI, ("config", "task", "data", "valid", "output_model",
            "input_model", "output_result", "initscore_filename",
            "valid_data_initscores", "two_round", "save_binary", "header",
            "label_column", "weight_column", "group_column", "ignore_column",

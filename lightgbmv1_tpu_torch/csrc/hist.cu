@@ -27,13 +27,18 @@
 // precision="int8", hist_dtype=int8 / hist_dtype_deep=int8) takes the
 // rows rounded to nearest under one scale a row tile of `qtile` rows
 // (csrc/quantize.cu lgbm_rn_quantize, T the Pallas kernel's own row tile
-// for the call) and the tiles' scales: each cell sums a scale tile's
-// integers as int32 and flushes fma(float(sum), scale, f32 sum) when a
-// row of a later tile comes (hist_tile.cuh), so one chunk's cell is the
-// Pallas kernel's sum over the chunk's tiles, and the plan keeps every
-// scale tile in one chunk.  It reads the same bytes as the f32 leg, plus
-// 12 bytes a tile of scales; its integer adds and one fma a cell and
-// tile are still far below the card's rates.
+// for the call) and the tiles' scales: a cell takes 6 shared words, the
+// int32 sums of its owner warp's current scale tile and the f32 sums, so
+// 64 slots of 64 bins fit one slot group and L = 64 reads each row once,
+// as bf16x2 does.  The warp adds its rows as int8sr does and, where its
+// rows cross into a later scale tile (a ballot a batch of 32), first
+// flushes fma(float(sum), scale, f32 sum) into the cells it touched in
+// the closing tile, found in a per-warp mask (hist_tile.cuh), so the
+// serial add loop stays integer and one chunk's cell is the Pallas
+// kernel's sum over the chunk's tiles; the plan keeps every scale tile in
+// one chunk.  It reads the same bytes as the f32 leg, plus 12 bytes a
+// tile of scales; its integer adds and one fma a touched cell and tile
+// are still far below the card's rates.
 //
 // What bounds it on this card.  The function reads each bin byte, each
 // g3 row and each slot id once and writes the histogram once (about

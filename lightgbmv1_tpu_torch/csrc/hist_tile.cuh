@@ -41,21 +41,33 @@
 // (ceil(n / T), 3) scales.  The Pallas kernel sums each tile's integers
 // exactly (int32) and adds float(sum) * scale into its f32 output, tile
 // after tile (an fma where XLA contracts the product and the add, as it
-// does on the CPU).  Here each cell keeps an int32 sum of its current
-// scale tile, an f32 sum and the tile's id (7 words a cell); a row of a
-// later tile first flushes the cell, f = fma(float(i), scale, f), and
-// restarts the integer sum, and the item's end flushes every cell.  The
-// rows come in row order, so a cell sees its tiles in order, and a tile
-// in which the cell has no row adds an exact 0 in the Pallas kernel: the
-// f32 sum of one row chunk is the Pallas kernel's sum over the chunk's
-// tiles, bit for bit.  The plan never splits a scale tile across chunks
-// (ops/hist_cuda.plan), and the chunks' f32 partials merge in chunk order
-// as the float legs' do: with one chunk the histogram is the Pallas
-// kernel's bit for bit, else the sums of its tiles are associated by
-// chunk.  T is the Pallas kernel's own row tile for the call (128 to
-// 1024), not this kernel's 256-row tile: a 256-row tile may hold two
-// scale tiles, and the flush follows the rows' scale tiles, wherever
-// they fall.  The list walk (K2, K6) sees only a chunk's listed rows,
+// does on the CPU); a tile in which a cell has no row adds an exact 0.
+// Here a cell takes 6 words, the int32 sums of the current scale tile and
+// the f32 sums, so 64 slots of 64 bins fit one group, as at bf16x2.  The
+// scale tile is the warp's, not the cell's: a warp owns its cells (key %
+// 8) and takes its compacted rows in row order, across the item's 256-row
+// tiles, so it keeps one current scale tile in a warp-uniform register
+// (Int8Warp) and every pending integer sum of its cells belongs to it.
+// Before each batch of 32 rows a ballot over the rows' tiles (a row's 4th
+// compacted word) splits the batch into segments of one scale tile (two
+// at T = 128 in a 256-row tile; a sparse list may cross several).  Each
+// segment runs int8sr's integer adds, two loads ahead, grouped over the
+// segment's lanes; when a segment opens a later tile the warp first
+// flushes the cells it touched in the closing one, f = fma(float(i),
+// scale, f), and restarts their integer sums.  The touched cells are a
+// per-warp mask of 32 words (cell c: word c % 32, bit c / 32, so each lane
+// flushes the cells of its own bank), kept in the 5th of the 6 words of a
+// row's compacted values; a touched cell whose sums came to 0 adds an
+// exact 0, as in the Pallas kernel.  The item's end flushes what is
+// pending.  So a cell still sees its tiles in order and one fma a tile,
+// and the f32 sum of one row chunk is the Pallas kernel's sum over the
+// chunk's tiles, bit for bit, while the serial add loop stays integer.
+// The plan never splits a scale tile across chunks (ops/hist_cuda.plan),
+// and the chunks' f32 partials merge in chunk order as the float legs'
+// do: with one chunk the histogram is the Pallas kernel's bit for bit,
+// else the sums of its tiles are associated by chunk.  T is the Pallas
+// kernel's own row tile for the call (128 to 1024), not this kernel's
+// 256-row tile.  The list walk (K2, K6) sees only a chunk's listed rows,
 // but the scales come from all the tile's rows, from the quantize pass.
 //
 // Bins: (nf, n) bytes, or (PACKED, bin_layout=packed4) the (ceil(nf/2), n)
@@ -80,11 +92,60 @@ enum Precision { kF32 = 0, kBf16 = 1, kBf16x2 = 2, kInt8sr = 3, kInt8 = 4 };
 
 // The 4-byte words a cell takes in the shared sub-histograms and a row
 // in a tile's compacted values: NC, or at int8 a cell's int32 sums of
-// its current scale tile, its f32 sums and the tile's id (7), a row's
-// three integers and its scale tile (4, within the 7 reserved).
+// its warp's current scale tile and its f32 sums (6); a row's three
+// integers and its scale tile take 4 of a row's 6, the warps' touched
+// cells the 5th (int8_masks).
 template <int PREC, int NC>
 __host__ __device__ constexpr int cell_words() {
-  return PREC == kInt8 ? 7 : NC;
+  return PREC == kInt8 ? 6 : NC;
+}
+
+// int8: a warp's state across the tiles of one item, uniform over its
+// lanes: the scale tile whose integer sums its cells hold (-1: none yet)
+// and that tile's (3,) scales, loaded when the tile opens so that its
+// flush does not wait on them.
+struct Int8Warp {
+  int tile;
+  float s[3];
+};
+
+// int8: the cells a warp can mark in its 32 mask words of 32 bits.
+constexpr int kInt8MaxWarpCells = 32 * 32;
+
+// int8: the warps' touched-cell masks, 32 words a warp, in the 5th of the
+// 6 words of a row in `tval` (hist_partial_item's tile scratch).
+__device__ __forceinline__ unsigned* int8_masks(float* tval) {
+  return reinterpret_cast<unsigned*>(tval) + 4 * kThreads;
+}
+
+// int8: the warp flushes the cells it touched in its current scale tile,
+// f = fma(float(int32 sum), scale, f), restarts their integer sums and
+// clears its mask.  `hi` is the warp's cells (int32 sums [0, 3), f32
+// sums [3, 6), each a channel of wcells words).  Lane l takes mask word
+// l, the cells l + 32 b, so the lanes' cells fall in distinct banks.
+// Called by all 32 lanes of the warp.
+__device__ __forceinline__ void int8_flush(int* hi, int wcells,
+                                           unsigned* mask,
+                                           const Int8Warp& q8) {
+  __syncwarp();  // the segment's stores of the sums and the mask
+  const int lane = threadIdx.x & 31;
+  unsigned bits = mask[lane];
+  if (bits) {
+    mask[lane] = 0u;
+    float* hf = reinterpret_cast<float*>(hi) + 3 * static_cast<size_t>(wcells);
+    do {
+      const int cell = (__ffs(bits) - 1) * 32 + lane;
+      bits &= bits - 1u;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        int* ic = hi + c * wcells + cell;
+        float* fc = hf + c * wcells + cell;
+        *fc = __fmaf_rn(__int2float_rn(*ic), q8.s[c], *fc);
+        *ic = 0;
+      }
+    } while (bits);
+  }
+  __syncwarp();  // before the next segment reads the cells
 }
 
 // The accumulator of a precision: int32 for int8sr, f32 otherwise (int8's
@@ -141,12 +202,41 @@ __device__ __forceinline__ int bin_of(int byte, int f) {
 // (even: see hist_partial_item).
 constexpr int kDepth = 4;
 
+// A cell group's lowest lane adds its peers' values to `acc`: the lanes
+// of `grp` in order (= row order), two loads ahead, each lane j's values
+// at tv[c * kThreads + j].
+template <typename A, int NC>
+__device__ __forceinline__ void add_group(A (&acc)[NC], const A* tv,
+                                          unsigned grp) {
+  unsigned m = grp;
+  while (m) {
+    int j[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      j[u] = m ? __ffs(m) - 1 : -1;
+      m &= m - 1u;
+    }
+    A x[2][NC];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (j[u] >= 0)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) x[u][c] = tv[c * kThreads + j[u]];
+#pragma unroll
+    for (int u = 0; u < 2; ++u)
+      if (j[u] >= 0)
+#pragma unroll
+        for (int c = 0; c < NC; ++c) acc[c] += x[u][c];
+  }
+}
+
 // One tile of the partial stage (see hist_partial_item): the thread's row
 // has cell key `key` (-1: adds nothing) and values `v` (read only for a
 // row that adds).  Compacts the tile's adding rows by owner warp, stably,
 // into tkey / tval[NC][tile], then each warp adds its rows to its cells of
-// `hist`, 32 at a time.  int8: `qt` is the row's scale tile and `qscale`
-// the tiles' (3,) scales (see the head note; unread by the other legs).
+// `hist`, 32 at a time.  int8: `qt` is the row's scale tile, `qscale` the
+// tiles' (3,) scales and `q8` the warp's state (see the head note; unread
+// by the other legs).
 // Opens with a block barrier and leaves the warps unsynchronised: the next
 // tile's barrier orders its writes of wcnt, tkey and tval after this one's
 // reads.
@@ -155,7 +245,8 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
                                               float* hist_words,
                                               float* tval_words, int* tkey,
                                               int wcells, int qt,
-                                              const float* qscale) {
+                                              const float* qscale,
+                                              Int8Warp& q8) {
   using A = typename AccOf<PREC>::T;
   A* hist = reinterpret_cast<A*>(hist_words);
   A* tval = reinterpret_cast<A*>(tval_words);
@@ -225,54 +316,45 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
   __syncthreads();
 
   if constexpr (PREC == kInt8) {
-    // a cell: int32 sums [0, 3), f32 sums [3, 6), its scale tile 6 (-1:
-    // none yet), each a channel of wcells words
+    // the warp's cells: int32 sums [0, 3), f32 sums [3, 6), each a
+    // channel of wcells words; a batch splits into segments of one scale
+    // tile, each flushing the closing tile's cells when it opens a later
+    // one, then adding as int8sr does (head note)
     int* hi = reinterpret_cast<int*>(hist_words) +
-              static_cast<size_t>(warp) * 7 * wcells;
-    float* hf = hist_words + static_cast<size_t>(warp) * 7 * wcells;
-    const int* tv = reinterpret_cast<const int*>(tval_words);
+              static_cast<size_t>(warp) * 6 * wcells;
+    unsigned* mask = int8_masks(tval_words) + warp * 32;
+    const int* tv = reinterpret_cast<const int*>(tval_words) + base;
     for (int b0 = 0; b0 < cnt; b0 += 32) {
       const int i = b0 + lane;
-      const int k = i < cnt ? tkey[base + i] : -1;
-      const unsigned grp = __match_any_sync(0xffffffffu, k);
-      if (k >= 0 && (grp & lt_mask) == 0) {  // the group's lowest lane
-        const int cell = k / kWarps;
-        int ia[3];
-        float fa[3];
+      const int k = i < cnt ? tkey[base + i] : -1;  // -1: an idle lane
+      const int t = i < cnt ? tv[3 * kThreads + i] : -1;
+      unsigned left = __ballot_sync(0xffffffffu, k >= 0);
+      while (left) {  // the batch's scale tiles rise with its lanes
+        const int t0 = __shfl_sync(0xffffffffu, t, __ffs(left) - 1);
+        if (t0 != q8.tile) {
+          int8_flush(hi, wcells, mask, q8);
+          q8.tile = t0;
 #pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          ia[c] = hi[c * wcells + cell];
-          fa[c] = hf[(3 + c) * wcells + cell];
+          for (int c = 0; c < 3; ++c) q8.s[c] = qscale[3 * t0 + c];
         }
-        int ct = hi[6 * wcells + cell];
-        unsigned m = grp;
-        while (m) {  // the group's lanes in order (= row order)
-          const int p = base + b0 + __ffs(m) - 1;
-          m &= m - 1u;
-          const int t = tv[3 * kThreads + p];
-          if (t != ct) {  // a later scale tile: flush the cell's sum
-            if (ct >= 0) {
+        const bool in = k >= 0 && t == t0;
+        left &= ~__ballot_sync(0xffffffffu, in);
+        const int cell = in ? k / kWarps : 0;
+        int* h = hi + cell;
+        int acc[3];
 #pragma unroll
-              for (int c = 0; c < 3; ++c)
-                fa[c] = __fmaf_rn(__int2float_rn(ia[c]), qscale[3 * ct + c],
-                                  fa[c]);
-            }
+        for (int c = 0; c < 3; ++c) acc[c] = in ? h[c * wcells] : 0;
+        const unsigned grp = __match_any_sync(0xffffffffu, in ? k : -1);
+        if (in && (grp & lt_mask) == 0) {  // the group's lowest lane
+          add_group<int, 3>(acc, tv + b0, grp);
 #pragma unroll
-            for (int c = 0; c < 3; ++c) ia[c] = 0;
-            ct = t;
-          }
-#pragma unroll
-          for (int c = 0; c < 3; ++c) ia[c] += tv[c * kThreads + p];
+          for (int c = 0; c < 3; ++c) h[c * wcells] = acc[c];
+          atomicOr(mask + (cell & 31), 1u << (cell >> 5));
         }
-#pragma unroll
-        for (int c = 0; c < 3; ++c) {
-          hi[c * wcells + cell] = ia[c];
-          hf[(3 + c) * wcells + cell] = fa[c];
-        }
-        hi[6 * wcells + cell] = ct;
+        // the next segment's lanes read what this one's lowest lanes
+        // stored
+        __syncwarp();
       }
-      // the next batch's lanes read what this batch's lowest lanes stored
-      __syncwarp();
     }
     return;
   }
@@ -288,27 +370,7 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
     for (int c = 0; c < NC; ++c) acc[c] = k >= 0 ? h[c * wcells] : A(0);
     const unsigned grp = __match_any_sync(0xffffffffu, k);
     if (k >= 0 && (grp & lt_mask) == 0) {  // the group's lowest lane
-      const A* tv = tval + base + b0;
-      unsigned m = grp;
-      while (m) {  // the group's lanes in order, two loads ahead
-        int j[2];
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          j[u] = m ? __ffs(m) - 1 : -1;
-          m &= m - 1u;
-        }
-        A x[2][NC];
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          if (j[u] >= 0)
-#pragma unroll
-            for (int c = 0; c < NC; ++c) x[u][c] = tv[c * kThreads + j[u]];
-#pragma unroll
-        for (int u = 0; u < 2; ++u)
-          if (j[u] >= 0)
-#pragma unroll
-            for (int c = 0; c < NC; ++c) acc[c] += x[u][c];
-      }
+      add_group<A, NC>(acc, tval + base + b0, grp);
 #pragma unroll
       for (int c = 0; c < NC; ++c) h[c * wcells] = acc[c];
     }
@@ -317,42 +379,44 @@ __device__ __forceinline__ void hist_add_tile(int key, const float (&v)[3],
   }
 }
 
-// Zeroes the sub-histograms of `cells` cells (int8: the scale tiles -1).
+// Zeroes the sub-histograms of `cells` cells (int8: and the warps'
+// touched-cell masks in the tile scratch `tval`).
 template <int PREC, int NC>
-__device__ __forceinline__ void hist_clear(float* hist, int cells,
-                                           int wcells) {
+__device__ __forceinline__ void hist_clear(float* hist, float* tval,
+                                           int cells) {
   constexpr int HW = cell_words<PREC, NC>();
   int* w = reinterpret_cast<int*>(hist);
-  for (int i = threadIdx.x; i < cells * HW; i += kThreads)
-    w[i] = PREC == kInt8 && (i / wcells) % HW == 6 ? -1 : 0;
+  for (int i = threadIdx.x; i < cells * HW; i += kThreads) w[i] = 0;
+  static_assert(kWarps * 32 == kThreads, "one mask word a thread");
+  if (PREC == kInt8) int8_masks(tval)[threadIdx.x] = 0u;
+}
+
+// int8: each warp flushes the cells its current scale tile left pending
+// (the item's end; all kThreads threads).
+__device__ __forceinline__ void int8_finish(float* hist, float* tval,
+                                            int wcells, const Int8Warp& q8) {
+  const int warp = threadIdx.x >> 5;
+  int8_flush(reinterpret_cast<int*>(hist) +
+                 static_cast<size_t>(warp) * 6 * wcells,
+             wcells, int8_masks(tval) + warp * 32, q8);
 }
 
 // Writes the sub-histograms of `cells` cells to a partial, [cell][NC]
-// (int8: each cell's f32 sums after the last flush of its integer sums).
+// (int8: each cell's f32 sums, after int8_finish).
 template <int PREC, int NC>
 __device__ __forceinline__ void hist_write(const float* hist, int cells,
-                                           int wcells, float* out_words,
-                                           const float* qscale) {
+                                           int wcells, float* out_words) {
   using A = typename AccOf<PREC>::T;
   constexpr int HW = cell_words<PREC, NC>();
+  constexpr int OFF = PREC == kInt8 ? 3 : 0;  // int8: the f32 channels
   A* out = reinterpret_cast<A*>(out_words);
   const A* hacc = reinterpret_cast<const A*>(hist);
-  const int* hi = reinterpret_cast<const int*>(hist);
   for (int i = threadIdx.x; i < cells * NC; i += kThreads) {
     const int k = i / NC;
     const int c = i - k * NC;
     const size_t cell = static_cast<size_t>(k % kWarps) * HW * wcells +
                         k / kWarps;
-    if constexpr (PREC == kInt8) {
-      float f = hist[cell + (3 + c) * wcells];
-      const int ct = hi[cell + 6 * wcells];
-      if (ct >= 0)
-        f = __fmaf_rn(__int2float_rn(hi[cell + c * wcells]),
-                      qscale[3 * ct + c], f);
-      out[i] = f;
-    } else {
-      out[i] = hacc[cell + c * wcells];
-    }
+    out[i] = hacc[cell + (OFF + c) * wcells];
   }
 }
 
@@ -365,7 +429,8 @@ __device__ __forceinline__ void hist_write(const float* hist, int cells,
 // cells of slots [nl_add, nl) are written as 0 (a wave round's dead slot:
 // its rows are dropped at the load, before any list, value or walk).
 // int8 (`qscale` the (ceil(n / qtile), 3) scales of the rows' qtile-row
-// scale tiles): the cells flush at the rows' scale tiles (head note).
+// scale tiles): each warp flushes its cells at its rows' scale-tile
+// boundaries and at the item's end (head note).
 // `leaf_id` and `partial` carry no __restrict__: the persistent loop
 // (wave_loop.cu) rewrites the labels and re-reads the partials between
 // grid barriers of one launch, so they must not go through the
@@ -390,7 +455,8 @@ __device__ __forceinline__ void hist_partial_item(
   int* tkey = reinterpret_cast<int*>(tval + kThreads * HW);     // [tile]
   const int tid = threadIdx.x;
 
-  hist_clear<PREC, NC>(hist, cells, wcells);
+  hist_clear<PREC, NC>(hist, tval, cells);
+  Int8Warp q8{-1, {0.f, 0.f, 0.f}};
 
   const int r_begin = chunk * chunk_rows;
   const int r_end = min(n, r_begin + chunk_rows);
@@ -437,17 +503,17 @@ __device__ __forceinline__ void hist_partial_item(
         lf[d] = leaf_id[rf];
         bn[d] = brow[rf];
         hist_add_tile<PREC, NC>(key[cur], v[cur], hist, tval, tkey, wcells,
-                                PREC == kInt8 ? r / qtile : 0, qscale);
+                                PREC == kInt8 ? r / qtile : 0, qscale, q8);
       }
     }
   }
+  if constexpr (PREC == kInt8) int8_finish(hist, tval, wcells, q8);
   __syncthreads();
 
   // ---- this block's partial: partial[chunk][f][s0 + s][b][NC] ---------
   hist_write<PREC, NC>(
       hist, cells, wcells,
-      partial + ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC,
-      qscale);
+      partial + ((static_cast<size_t>(chunk) * nf + f) * nl + s0) * nb * NC);
 }
 
 // The same work item over a row chunk's list of live rows (K2 and K6).
@@ -488,7 +554,8 @@ __device__ __forceinline__ void hist_partial_list_item(
   float* hist = smem;
   float* tval = hist + static_cast<size_t>(ls_max) * nb * HW;
   int* tkey = reinterpret_cast<int*>(tval + kThreads * HW);
-  hist_clear<PREC, NC>(hist, cells, wcells);
+  hist_clear<PREC, NC>(hist, tval, cells);
+  Int8Warp q8{-1, {0.f, 0.f, 0.f}};
 
   const size_t base = static_cast<size_t>(chunk) * chunk_rows;
   const int* rows = lrow + base;
@@ -531,11 +598,13 @@ __device__ __forceinline__ void hist_partial_list_item(
       const int j = t0 + (d + kDepth) * kThreads + tid;
       rw[d] = j < cnt ? rows[j] : -1;
       sl[d] = j < cnt ? slots[j] : 0;
-      hist_add_tile<PREC, NC>(key, v, hist, tval, tkey, wcells, qt, qscale);
+      hist_add_tile<PREC, NC>(key, v, hist, tval, tkey, wcells, qt, qscale,
+                              q8);
     }
   }
+  if constexpr (PREC == kInt8) int8_finish(hist, tval, wcells, q8);
   __syncthreads();
-  hist_write<PREC, NC>(hist, cells, wcells, pout, qscale);
+  hist_write<PREC, NC>(hist, cells, wcells, pout);
 }
 
 // The partial stage as a kernel: one block a work item on the grid
@@ -610,6 +679,8 @@ int launch_hist_partial(const uint8_t* binned, const float* g3,
                         int nl, int nl_add, int nb, int ls_max, int n_chunks,
                         int chunk_rows, const float* qscale, int qtile,
                         cudaStream_t stream) {
+  if (PREC == kInt8 && ls_max * nb > kWarps * kInt8MaxWarpCells)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = hist_partial_smem(ls_max, nb, cell_words<PREC, NC>());
   const auto kernel = smem <= kManySmem
                           ? hist_partial_kernel<PREC, NC, true, PACKED>
@@ -635,6 +706,8 @@ int launch_hist_partial_list(const uint8_t* binned, const float* g3,
                              int nl, int nb, int ls_max, int n_chunks,
                              int chunk_rows, const float* qscale, int qtile,
                              cudaStream_t stream) {
+  if (PREC == kInt8 && ls_max * nb > kWarps * kInt8MaxWarpCells)
+    return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = hist_partial_smem(ls_max, nb, cell_words<PREC, NC>());
   const auto kernel = smem <= kManySmem
                           ? hist_partial_list_kernel<PREC, NC, true, PACKED>

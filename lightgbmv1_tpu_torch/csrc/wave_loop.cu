@@ -525,7 +525,7 @@ LoopKernel kernel_of(int precision) {
 // The shared-memory words a cell of the partial stage takes at a launch
 // precision (cell_words, hist_tile.cuh).
 int cell_words_of(int precision) {
-  return precision == kBf16x2 ? 6 : precision == kInt8 ? 7 : 3;
+  return precision == kBf16x2 || precision == kInt8 ? 6 : 3;
 }
 
 template <bool QUANT>
@@ -722,7 +722,8 @@ int lgbm_fused_wave_loop(const void* binned, const void* g3, void* leaf,
       return static_cast<int>(cudaErrorInvalidValue);
     if (precision == kInt8 &&
         (!a.q8[b] || !a.q8scale[b] || a.qtile[b] <= 0 ||
-         a.chunk_rows[b] % a.qtile[b] != 0))
+         a.chunk_rows[b] % a.qtile[b] != 0 ||
+         a.ls_max[b] * nb > kWarps * kInt8MaxWarpCells))
       return static_cast<int>(cudaErrorInvalidValue);
   }
   a.prm = ScanParams{l1,        l2,          min_data,

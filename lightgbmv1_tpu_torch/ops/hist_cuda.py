@@ -491,9 +491,10 @@ def _lib() -> ctypes.CDLL:
 
 def cell_words(precision: str) -> int:
     """4-byte words a cell of the shared sub-histograms takes (the
-    kernel's ``cell_words``): 6 at bf16x2, 7 at int8 (a scale tile's
-    int32 sums, the f32 sums and the tile), else 3."""
-    return {"bf16x2": 6, "int8": 7}.get(precision, 3)
+    kernel's ``cell_words``): 6 at bf16x2 (hi and lo) and at int8 (the
+    int32 sums of its warp's current scale tile and the f32 sums), else
+    3."""
+    return 6 if precision in ("bf16x2", "int8") else 3
 
 
 def plan(N: int, F: int, L: int, num_bins: int, precision: str,

@@ -104,7 +104,7 @@ def test_every_jax_knob_and_alias_is_known():
     inert = {"device_type", "deterministic", "is_enable_sparse",
              "gpu_platform_id", "gpu_device_id", "fused_bookkeeping",
              "async_wave_pipeline", "donate_buffers",
-             "predict_cache_entries"}
+             "predict_cache_entries", "num_threads"}
     assert set(_FIELDS) - handled - runs - inert == set()
     assert not inert & handled
 
@@ -146,6 +146,58 @@ def test_training_refuses_a_dropped_knob():
 def test_unknown_name_warns(capsys):
     Config.from_dict({"no_such_knob": 1})
     assert "Unknown parameter: no_such_knob" in capsys.readouterr().err
+
+
+def _tiny_binary():
+    rng = np.random.RandomState(4)
+    X = rng.randn(600, 4)
+    y = (X[:, 0] - 0.5 * X[:, 2] + rng.randn(600) > 0).astype(float)
+    return X, y
+
+
+_TINY = {"objective": "binary", "num_leaves": 7, "max_bin": 15,
+         "verbosity": 0}
+
+
+@pytest.mark.parametrize("extra", [
+    {"linear_tree": True}, {"num_threads": 4}, {"n_jobs": -1},
+    {"nthread": 2}], ids=["linear_tree", "num_threads", "n_jobs", "nthread"])
+def test_model_neutral_keys_train_the_same_text(extra, capsys):
+    """``linear_tree`` is no knob of the JAX package: it warns as an
+    unknown name and trains.  ``num_threads`` (and its aliases, which the
+    JAX sklearn wrapper sends) is accepted and changes no model.  Either
+    way the model text is the one trained without the key."""
+    X, y = _tiny_binary()
+
+    def text(params):
+        return train(params, Dataset(X, label=y), 3,
+                     device="cpu").model_to_string()
+
+    base = text(dict(_TINY))
+    capsys.readouterr()
+    assert text(dict(_TINY, **extra)) == base
+    unknown = "Unknown parameter: linear_tree" in capsys.readouterr().err
+    assert unknown == ("linear_tree" in extra)
+    assert unported_reason(Config.from_dict(dict(_TINY, **extra))) is None
+
+
+def test_jax_package_trains_through_linear_tree_and_num_threads(capsys):
+    """The JAX package on the same data: ``linear_tree`` warns as an
+    unknown name, ``num_threads`` is accepted, and both train the text of
+    the training without them, as the port does."""
+    import lightgbmv1_tpu as lj
+    X, y = _tiny_binary()
+
+    def text(params):
+        return lj.train(params, lj.Dataset(X, label=y),
+                        3).model_to_string()
+
+    base = text(dict(_TINY))
+    capsys.readouterr()
+    assert text(dict(_TINY, linear_tree=True)) == base
+    assert "Unknown parameter: linear_tree" in capsys.readouterr().err
+    assert text(dict(_TINY, num_threads=4)) == base
+    assert "Unknown parameter" not in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("gpu_use_dp", [False, True])

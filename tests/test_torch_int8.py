@@ -213,9 +213,49 @@ def test_k1_int8_dead_slot_and_plan():
     for T in (128, 256, 512, 1024):
         p = hist_cuda.plan(1 << 20, 28, 64, 64, "int8", T)
         assert p["chunk_rows"] % T == 0 and p["chunk_rows"] % 256 == 0
-        assert p["ls_max"] == hist_cuda.HIST_SMEM_BUDGET // (64 * 7 * 4)
+        assert p["ls_max"] == hist_cuda.HIST_SMEM_BUDGET // (64 * 6 * 4)
     with pytest.raises(ValueError, match="scale tile"):
         hist_cuda.plan(N, F, L, B, "int8")
+
+
+def test_int8_cell_words():
+    """An int8 cell takes 6 shared words, as a bf16x2 one: the int32 sums
+    of its warp's current scale tile and the f32 sums (no per-cell tile)."""
+    assert hist_cuda.cell_words("int8") == 6
+    assert hist_cuda.cell_words("bf16x2") == 6
+    assert hist_cuda.cell_words("int8sr") == 3
+
+
+@pytest.mark.parametrize("T", [128, 256, 512, 1024])
+def test_int8_headline_plans_one_group(T):
+    """At the headline width (F = 28, B = 64) K1 at L = 64, and K2's and
+    K6's plans at nslots + 1 = 64 slots, hold every slot in one group, so
+    each row is read once, at every scale tile."""
+    N, F, B = 1 << 20, 28, 64
+    k1 = hist_cuda.plan(N, F, 64, B, "int8", T)
+    assert (k1["ls_max"], k1["groups"]) == (64, 1)
+    assert k1["ls_max"] * k1["nb"] * hist_cuda.cell_words("int8") * 4 \
+        <= hist_cuda.HIST_SMEM_BUDGET
+    assert hist_cuda.plan(N, F, 63 + 1, B, "int8", T)["groups"] == 1
+    # K6's subtraction ladder at the headline: every bucket one group
+    for p in loop_cuda.bucket_plans(N, F, B, "int8", (4, 16, 63), True):
+        assert p["groups"] == 1
+
+
+def test_int8_staged_and_fused_plans_agree():
+    """K1's plan at L = 64 and K2's at nslots + 1 = 64, each at its own
+    scale tile, agree chunk for chunk at the headline's N, F and T: the
+    staged and fused int8 trainings sum the same rows in the same chunks,
+    so they write one model text."""
+    N, F, B = 1 << 20, 28, 64
+    T1 = hist_cuda.hist_row_tile(64, F, B)
+    T2 = hist_cuda.round_row_tile(63, F, B)
+    assert T1 == T2 == 512
+    k1 = hist_cuda.plan(N, F, 64, B, "int8", T1)
+    k2 = hist_cuda.plan(N, F, 63 + 1, B, "int8", T2)
+    assert k1 == k2
+    assert (k1["groups"], k1["n_chunks"]) == (1, 19)
+    assert k1["chunk_rows"] % T1 == 0
 
 
 # ---------------------------------------------------------------------------
