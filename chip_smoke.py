@@ -96,8 +96,10 @@ Phases (any failure exits non-zero with no ``ok`` line):
               residue against the plain scan run on the CPU on the same
               histograms (bitwise equality reported) and against the
               plain version on the card: picks identical outside ties,
-              values within four tie bands; two launches bitwise equal.
-              Then sparse-live rounds (S = 4, one split of leaf 1): one
+              values within four tie bands; two launches bitwise equal;
+              the pick kernel on K2's residue (``scan_cuda.split_pick``)
+              bit for bit ``pick_pack`` run on the CPU on the same
+              residue.  Then sparse-live rounds (S = 4, one split of leaf 1): one
               live row, the live rows of one row chunk, none, and every
               row (a root-sized round), each held as above and to its
               live-row count.
@@ -105,8 +107,9 @@ Phases (any failure exits non-zero with no ``ok`` line):
               ``train`` at the headline configuration with
               ``hist_method=fused`` for ``--iters`` iterations with the
               valid set.  K2 launched once a non-root round (its launches
-              by bucket add up), K3 once a round, K1 and the split-scan
-              kernel once a tree, no plain version called; s/iter, M
+              by bucket add up), K3 and the pick kernel once a round, K1
+              and the split-scan kernel once a tree, no plain version
+              called; s/iter, M
               row-trees/s, AUC > 0.90 and within 2e-3 of phase 10's, the
               model text's sha256 and length, which must be phase 10's
               (the staged scan is the split-scan kernel, K2's scan stage:
@@ -122,7 +125,10 @@ Phases (any failure exits non-zero with no ``ok`` line):
 17. timing  — K2 at each slot bucket and K3 on the main path's last
               inputs, beside their plain versions and bounds (K2: the
               all-rows bound and the live-row bound, from the inputs'
-              live rows).
+              live rows); then the pick kernel on K2's residue at each
+              bucket, by events and on the device, with the device
+              kernels a pick runs (profiler), beside K2 with its pick and
+              K2 alone, its plain version and its bound by bytes.
 18. profile — five fused headline iterations, as phase 13.
 19. K6      — the persistent wave loop's plan at the headline shape
               (eligible), then K6 on the headline bins and phase 14's
@@ -263,28 +269,39 @@ Phases (any failure exits non-zero with no ``ok`` line):
               in waves of 32) with hist_dtype_deep=int8sr, each run
               through its int8sr legs: every split identical, leaves
               within 2e-3 of max(1, |leaf|).
-31. scan    — the split-scan kernel (``ops/scan_cuda.split_scan``,
-              ``csrc/split_scan.cu``: K2's scan stage, ``scan_child``, on
-              staged histograms) bit for bit the plain scan run on the
-              CPU on the same inputs: on a real round of a monotone
+31. scan    — the split-scan kernel (``ops/scan_cuda.split_scan_pick``,
+              ``csrc/split_scan.cu``: one launch a ``find_best_split``,
+              K2's scan stage ``scan_child`` a warp a feature, then K6's
+              pick ``pick_child``, on staged histograms): its packed rows
+              bit for bit ``pick_pack`` on the plain scan run on the CPU
+              on the same inputs, and its residue (``split_scan``) bit
+              for bit the plain scan: on a real round of a monotone
               training (its bounds bind), then at C in {1, 2, 8, 32, 126},
               B in {16, 64, 256}, F = 28 and 27, NaN- and zero-missing
               features, with no option, each option alone (monotone
               bounds — the real round's —, monotone_penalty=1.0 at depths
               1-8, contri, path_smooth=1.0, max_delta_step=0.7) and all
-              of them, and with int8sr scales.  K2's constrained legs at
-              S = 4 / 16 / 63 (subtraction; S = 63 pool-free and each
-              option alone) and phase 14's sparse-live rounds: leaf ids,
-              labels and K3 exact, hsmall K1's, the residue bit for bit
-              the CPU plain scan of the children with the same legs.  K6
+              of them, with int8sr scales, and with every option but no
+              bounds or parent outputs (the kernel's NO_CONSTRAINT and 0);
+              at C = 2, B = 16 with 37 features more than a block's
+              shared memory holds (the residue in global memory).
+              K2's constrained legs at S = 4 / 16 / 63 (subtraction;
+              S = 63 pool-free and each option alone; S = 4 with null
+              bounds and parent outputs) and phase 14's
+              sparse-live rounds: leaf ids, labels and K3 exact, hsmall
+              K1's, the residue bit for bit the CPU plain scan of the
+              children with the same legs, the pick kernel on it bit for
+              bit the CPU ``pick_pack``.  K6
               with contri / smooth / max output on a segment of a
               headline tree grown with them (R = 4, subtraction and
               pool-free) and a sparse-live segment: bit for bit R K2
               rounds, each round's residue and pick the CPU plain scan's.
-              Then the split-scan kernel timed on phase 10's last inputs
-              at C = 8 / 32 / 126 beside its plain version and its bound
-              by bytes, with its launches a tree on phases 10, 15, 20 and
-              22-25.
+              Then on phase 10's last inputs at C = 1 / 8 / 32 / 126 the
+              whole ``find_best_split`` and the kernel's wrapper timed by
+              events, the kernel's device time and the device kernels a
+              ``find_best_split`` runs (profiler), beside its plain
+              version and its bound by bytes, with its launches a tree on
+              phases 10, 15, 20 and 22-25.
 32. constrained training — the slice's main path, launch counts reset
               around each training: the headline configuration with
               monotone_constraints = [1, -1, 0, 0, 1] + [0] * 23 (the
@@ -345,12 +362,15 @@ Phases (any failure exits non-zero with no ``ok`` line):
               hist_dtype=int8 (the CPU in K1's order) and with the
               sampling of phase 36 (f32): every split identical.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
-              kernels, the split-scan kernel, K4, K5) is printed; K1's row
-              carries phases 22-25's K1 shapes too (``paths``), K1, K2, K3
-              and K6 a ``packed`` record, K1, K2 and K6 an ``int8sr`` one
-              and an ``int8`` one, and K2 and K6 a ``constrained`` one.
+              kernels, the split-scan kernel, the pick kernel, K4, K5) is
+              printed; K1's row carries phases 22-25's K1 shapes too
+              (``paths``), K1, K2, K3 and K6 a ``packed`` record, K1, K2
+              and K6 an ``int8sr`` one and an ``int8`` one, and K2 and K6
+              a ``constrained`` one.
 
-The last line is ``{"ok": true, "device": {...}}``.
+At the default arguments every model text named in ``TEXT_SHA`` must
+keep its sha256 (a gate: the kernels claim the same bits).  The last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -360,6 +380,7 @@ import contextlib
 import hashlib
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -385,11 +406,12 @@ from lightgbmv1_tpu_torch.ops import scan_cuda as sc
 from lightgbmv1_tpu_torch.ops import wave_fused as wf
 from lightgbmv1_tpu_torch.ops.split import (NO_CONSTRAINT, TIE_RTOL,
                                             FeatureMeta, SplitParams,
-                                            child_leaf_output, gain_shift,
+                                            child_leaf_output,
+                                            find_best_split, gain_shift,
                                             go_left_rule, make_feature_meta,
                                             pick_pack, scan_direction_gains,
                                             scan_inputs, scan_left_sums,
-                                            scan_residue)
+                                            scan_residue, with_tables)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
 from lightgbmv1_tpu_torch.serve import ServeConfig, Server
 from lightgbmv1_tpu_torch.utils import prng
@@ -832,26 +854,77 @@ def lane_efficiency(steps: torch.Tensor, tree_tile: int, K: int) -> float:
     return int(steps.sum()) / slots
 
 
+PROFILE_TRIES = 3    # a profiler run now and then sees no device work
+
+
+def kernel_name(mangled: str) -> str:
+    """``name<template ints>`` of a mangled kernel symbol: its last
+    nested name that is not an anonymous namespace (the symbol as is if
+    it does not parse)."""
+    i = 3 if mangled.startswith("_ZN") else 2
+    parts = []
+    while True:
+        d = re.match(r"\d+", mangled[i:])
+        if not d:
+            break
+        j = i + d.end()
+        parts.append(mangled[j: j + int(d.group())])
+        i = j + int(d.group())
+    names = [p for p in parts if not p.startswith("_GLOBAL__N")]
+    if not mangled.startswith("_Z") or not names:
+        return mangled
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[i:])
+    return names[-1] + ("<" + ",".join(re.findall(
+        r"L[ib](\d+)E", args.group(1))) + ">" if args else "")
+
+
+def ptxas_kernels(log: str) -> list:
+    """Each function of nvcc's ``-Xptxas -v`` output: ``{"kernel",
+    "registers", "spill_stores", "spill_loads", "stack"}`` (bytes)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = {"kernel": kernel_name(m.group(1))}
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur is not None:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+            continue
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur is not None:
+            cur["registers"] = int(m.group(1))
+            out.append(cur)
+            cur = None
+    return out
+
+
 def kernel_device_ms(fn, names, reps: int = 20) -> dict:
     """The device time a call of the kernels whose names hold each of
     ``names``, by torch.profiler over ``reps`` calls after a warm-up (CUDA
-    events around a small call also count the host's launch gaps)."""
+    events around a small call also count the host's launch gaps); a
+    profile that saw none of them is taken again, up to PROFILE_TRIES."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    out = dict.fromkeys(names, 0.0)
-    for e in prof.key_averages():
-        us = float(getattr(e, "self_device_time_total",
-                           getattr(e, "self_cuda_time_total", 0.0)))
-        for name in names:
-            if name in e.key:
-                out[name] += us / reps / 1e3
-                break
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        out = dict.fromkeys(names, 0.0)
+        for e in prof.key_averages():
+            us = float(getattr(e, "self_device_time_total",
+                               getattr(e, "self_cuda_time_total", 0.0)))
+            for name in names:
+                if name in e.key:
+                    out[name] += us / reps / 1e3
+                    break
+        if any(out.values()):
+            break
     return out
 
 
@@ -1195,13 +1268,42 @@ def max_abs_leaf(booster) -> float:
                for t in booster._all_trees())
 
 
+# The model texts' sha256 (first 8 hex digits) a run at the default
+# arguments writes, since the int8 legs' chunk count moved the int8 ones
+# (lightgbmv1_tpu_torch/PERF.md §6): a kernel change that claims the same
+# bits must keep every one.  main() gates on them at its defaults only.
+TEXT_SHA = {
+    "staged": "2f70fd68", "fused": "2f70fd68", "looped": "ab555744",
+    **{f"int8sr {p}": "9cb41f19" for p in ("staged", "fused", "looped")},
+    "packed staged": "2d313420", "packed fused": "3879b939",
+    "packed looped": "cd0e138f", "regression": "edfe5496",
+    "levelwise": "c8964080", "multiclass": "897fdf12",
+    "lambdarank": "bbde5513",
+    **{f"basic {p}": "466d723f" for p in ("staged", "fused")},
+    **{f"intermediate {p}": "a97a6b24" for p in ("staged", "fused")},
+    **{f"contri+smooth+max_output {p}": "94cb7dfb"
+       for p in ("staged", "fused", "looped")},
+    **{f"int8 {p}": "72e55fbf" for p in ("staged", "fused", "looped")},
+    **{f"int8 deep {p}": "7d766b41" for p in ("staged", "fused")},
+    **{f"sampled {p}": "394caec2" for p in ("staged", "fused")},
+    **{f"sampled bag+tree {p}": "bba170e4" for p in ("fused", "looped")},
+}
+GATE_TEXT_SHA = False       # main() sets it at its default arguments
+
+
 def text_hash(text: str, tag: str) -> dict:
     """The sha256 and length of a model text: the same bits from another
-    build of the kernels give the same hash."""
+    build of the kernels give the same hash.  Under ``GATE_TEXT_SHA`` a
+    text of ``TEXT_SHA`` must keep its hash."""
     out = {"model_text_sha256": hashlib.sha256(text.encode()).hexdigest(),
            "model_text_bytes": len(text)}
     log(f"  {tag} model text: sha256 {out['model_text_sha256']}, "
         f"{out['model_text_bytes']} bytes")
+    want = TEXT_SHA.get(tag)
+    if GATE_TEXT_SHA and want is not None:
+        check(out["model_text_sha256"].startswith(want),
+              f"the {tag} model text's sha256 moved from {want}...")
+        out["model_text_sha256_kept"] = True
     return out
 
 
@@ -1463,12 +1565,6 @@ def round_inputs(binned, meta, S, n_live, sub, prec, rng, oleaf=None,
     return g3, kw
 
 
-def plain_kw(kw) -> dict:
-    """K2's keyword arguments as its plain version takes them (the
-    kernel's feature table is the kernel's own)."""
-    return {k: v for k, v in kw.items() if k != "fmeta"}
-
-
 def same_value(a, b) -> torch.Tensor:
     """Elementwise: equal, or both NaN."""
     return (a == b) | (torch.isnan(a) & torch.isnan(b))
@@ -1493,15 +1589,35 @@ def gain_bound(left2, csums, gains, shift, lbound, params) -> torch.Tensor:
     return b.amax(dim=(1, 3)) + 1e-6
 
 
+def check_pick(tag, res, kw) -> int:
+    """The pick kernel on a K2 round's residue ``res`` bit for bit its
+    plain version (``pick_pack``) run on the CPU on the same residue, and
+    two launches bitwise equal; returns the children with a finite
+    gain."""
+    pkw = dict(meta=kw["meta"], params=kw["params"],
+               parent_output=kw.get("parent_output"),
+               num_bins=kw["num_bins"])
+    got = sc.split_pick(res, kw["csums"], **pkw)
+    again = sc.split_pick(res, kw["csums"], **pkw)
+    check(bool(same_value(got, again).all()),
+          f"pick {tag}: two launches differ")
+    want = sc.pick_ref(res.cpu(), kw["csums"].cpu(), **to_cpu(pkw))
+    bad = int((~same_value(got.cpu(), want)).sum())
+    check(bad == 0, f"pick {tag}: {bad} packed values differ from the CPU "
+          "pick_pack")
+    return int(torch.isfinite(want[:, 0]).sum())
+
+
 def check_k2(tag, binned, g3, kw) -> dict:
     """K2 (and K3 on the same rows) against the plain versions on one
-    round's inputs; returns what was measured."""
+    round's inputs, and the pick kernel on K2's residue bit for bit the
+    CPU pick; returns what was measured."""
     S = kw["nslots"] if kw.get("parent") is not None else kw["nslots"] // 2
     C, F, B = 2 * S, binned.shape[0], kw["num_bins"]
     prec, meta, params = kw["precision"], kw["meta"], kw["params"]
     got = fc.fused_round(binned, g3, **kw)
     again = fc.fused_round(binned, g3, **kw)
-    want = fc.fused_round_ref(binned, g3, **plain_kw(kw))
+    want = fc.fused_round_ref(binned, g3, **kw)
     res, hsm, nleaf, label = got
     for a, b, what in zip(got, again, ("residue", "hsmall", "new leaf ids",
                                        "label")):
@@ -1570,6 +1686,7 @@ def check_k2(tag, binned, g3, kw) -> dict:
     check(not bool(feat_off.any()), f"K2 {tag}: {int(feat_off.sum())} "
           "children pick another feature outside the tie band")
     out = {"case": tag, "residue_bitwise_cpu_plain": bitwise_cpu,
+           "pick_finite": check_pick(f"K2 {tag}", res, kw),
            "sel_diff_in_band": int((sel_k != sel_p).sum()),
            "feature_diff_in_band": int((fk != fp).sum()),
            "max_gain_err": float(err_g.max()),
@@ -1579,7 +1696,8 @@ def check_k2(tag, binned, g3, kw) -> dict:
         "K3 exact; hsmall "
         f"{'== K1' if hsm is not None else '(pool-free)'}; residue "
         f"{'bitwise equal to' if bitwise_cpu else 'differs from'} the CPU "
-        f"plain scan; vs the card's plain version {out['sel_diff_in_band']}"
+        "plain scan; the pick kernel on it bit for bit the CPU pick; vs "
+        f"the card's plain version {out['sel_diff_in_band']}"
         f" picks / {out['feature_diff_in_band']} features differ in the "
         f"tie band, max gain err {out['max_gain_err']:.2e}, left "
         f"{out['max_left_err']:.2e}")
@@ -1730,11 +1848,14 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     k1 = hc.launch_counts["hist_leaves"]
     buckets = {f"{ns}:{prec}:{mode}": v for (ns, prec, mode), v
                in sorted(fc.bucket_launch_counts.items())}
+    picks = sc.launch_counts["split_pick"]
     plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
-             **{f"fused.{k}": v for k, v in fc.plain_counts.items()}}
+             **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
+             **{f"scan.{k}": v for k, v in sc.plain_counts.items()}}
     trees = booster.num_trees()
     log(f"  launches on the fused path: K2 {k2} ({json.dumps(buckets)}), "
-        f"K3 {k3}, K1 {k1}; plain-version calls: {plain}")
+        f"K3 {k3}, K1 {k1}, the pick kernel {picks}; plain-version calls: "
+        f"{plain}")
     check(trees == iters, f"{trees} trees for {iters} iterations")
     check(k2 > 0, "K2 never launched on the fused path")
     check(sum(buckets.values()) == k2,
@@ -1743,6 +1864,8 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
           f"K2 was called at {sorted(rec.last)} but launched at "
           f"{sorted(fc.bucket_launch_counts)}")
     check(k3 == k2, f"K3 launched {k3} times for {k2} rounds")
+    check(picks == k2, f"the pick kernel launched {picks} times for {k2} "
+          "rounds")
     check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
     check(not any(plain.values()), "a plain version ran on the fused path")
     scan = scan_launches(trees)
@@ -1760,7 +1883,8 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
            "auc_minus_staged": auc - staged["valid_auc"], "trees": trees,
            "k2_launches": k2, "k2_launches_by_bucket": buckets,
            "k2_launches_per_tree": k2 / trees, "k3_launches": k3,
-           "k1_launches": k1, "live_share": live}
+           "k1_launches": k1, "split_pick_launches": picks,
+           "live_share": live}
     log(f"  {iters} fused iterations of {n} rows in {secs:.2f} s: "
         f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
         f"row-trees/s; valid AUC {auc:.5f} (staged {staged['valid_auc']:.5f}"
@@ -1806,7 +1930,7 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
         S = ns if mode == "sub" else ns // 2
         ms = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
         plain_ms = time_ms(
-            lambda: fc.fused_round_ref(binned, g3, **plain_kw(kw)), 2)
+            lambda: fc.fused_round_ref(binned, g3, **kw), 2)
         _, _, _, label = fc.fused_round(binned, g3, **kw)
         live = int((label < ns).sum())
         hist = S * Fn * B * 3 * 4
@@ -1909,7 +2033,6 @@ class LoopRecorder:
 
         def wrapped(binned, g3, leaf_id, ft12, num_leaves, **kw):
             if self.k2_rounds:
-                kw.pop("fmeta", None)
                 out = lc.loop_rounds(binned, g3, leaf_id, ft12, num_leaves,
                                      round_fn=fc.fused_round, **kw)
             else:
@@ -1941,7 +2064,6 @@ def loop_call(args, **over):
     """K6's keyword arguments of a recorded call, with ``over``."""
     binned, g3, leaf_id, ft12, num_leaves, kw = args
     kw = dict(kw, **over)
-    kw.pop("fmeta", None)
     return (binned, g3, leaf_id, ft12, num_leaves), kw
 
 
@@ -2654,7 +2776,7 @@ def check_packed_k2(tag, u8, packed, g3, kw) -> dict:
             check(a is None or bool(same_value(a, b).all()),
                   f"K2 packed {tag}: {name} differ from {what}")
     res, hsm, nleaf, label = got
-    plain = fc.fused_round_ref(packed, g3, **plain_kw(pkw))
+    plain = fc.fused_round_ref(packed, g3, **pkw)
     check(torch.equal(nleaf, plain[2]) and torch.equal(label, plain[3]),
           f"K2 packed {tag}: leaf ids or labels differ from the plain "
           "version")
@@ -2908,7 +3030,7 @@ def phase_packed_timing(recs, trained) -> dict:
         "ms": time_ms(lambda: fc.fused_round(binned, g3, **kw), 10),
         "u8_ms": time_ms(lambda: fc.fused_round(u8, g3, **ukw), 10),
         "plain_ms": time_ms(lambda: fc.fused_round_ref(
-            binned, g3, **plain_kw(kw)), 2),
+            binned, g3, **kw), 2),
         "library_ms": None, "unpack_ms": unpack_ms, "live_rows": n_live,
         "live_bound_ms": (live_row_bytes(N, Fb, n_live) + other)
         / HBM_BYTES_PER_S * 1e3,
@@ -3060,7 +3182,7 @@ def check_k2_int8sr(tag, binned, q3, kw) -> dict:
         check(a is None or bool(same_value(a, b).all()),
               f"K2 int8sr {tag}: two launches differ in {what}")
     res, hsm, nleaf, label = got
-    want = fc.fused_round_ref(binned, q3, **plain_kw(kw))
+    want = fc.fused_round_ref(binned, q3, **kw)
     check(torch.equal(nleaf, want[2]) and torch.equal(label, want[3]),
           f"K2 int8sr {tag}: leaf ids or labels differ from the plain "
           "version")
@@ -3453,7 +3575,7 @@ def phase_int8sr_timing(recs, trained) -> dict:
         "ms": time_ms(lambda: fc.fused_round(binned, q3, **kw), 10),
         "bf16x2_ms": time_ms(lambda: fc.fused_round(binned, q3, **bkw), 10),
         "plain_ms": time_ms(lambda: fc.fused_round_ref(
-            binned, q3, **plain_kw(kw)), 2),
+            binned, q3, **kw), 2),
         "library_ms": None, "live_rows": n_live,
         "live_bound_ms": (live_row_bytes(N, Fn, n_live) + other)
         / HBM_BYTES_PER_S * 1e3,
@@ -3569,7 +3691,7 @@ def option_meta(meta, opts):
     contri = torch.tensor(([1.0] * 5 + [0.5] * F_)[:F_],
                           dtype=torch.float32, device=dev) \
         if contri_on else None
-    return meta._replace(monotone_type=mono, contri=contri)
+    return with_tables(meta._replace(monotone_type=mono, contri=contri))
 
 
 def option_params(opts, **kw) -> SplitParams:
@@ -3619,9 +3741,9 @@ def scan_children(C, F_, B, rng, dev, scaled=False):
     nanb = np.where(mt == 2, nb - 1, -1)
     zb = np.where(mt == 1, np.minimum(3, nb - 1), 0)
     t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
-    meta = FeatureMeta(num_bins=t(nb), missing_type=t(mt), nan_bin=t(nanb),
-                       zero_bin=t(zb),
-                       usable=torch.ones(F_, dtype=torch.bool, device=dev))
+    meta = with_tables(FeatureMeta(
+        num_bins=t(nb), missing_type=t(mt), nan_bin=t(nanb), zero_bin=t(zb),
+        usable=torch.ones(F_, dtype=torch.bool, device=dev)))
     N = 200 * C
     rows = signed_rows(rng, N, dev)
     child = torch.as_tensor(rng.randint(0, C, N), device=dev)
@@ -3642,41 +3764,57 @@ def scan_children(C, F_, B, rng, dev, scaled=False):
 
 
 class ScanRecorder:
-    """Keeps the inputs of the last split-scan call at each child count C
-    of a run (the main path's own, for the checks and the timing after
-    it).  It counts nothing; the wrapper counts its launches."""
+    """Keeps the inputs of the last split-scan call (``split_scan_pick``,
+    every ``find_best_split``'s) at each child count C of a run (the main
+    path's own, for the checks and the timing after it).  It counts
+    nothing; the wrapper counts its launches."""
 
     def __init__(self):
         self.last = {}
 
     def __enter__(self):
-        self._orig = sc.split_scan
+        self._orig = sc.split_scan_pick
 
         def wrapped(hist, mask, csums, **kw):
             self.last[hist.shape[0]] = (hist, mask, csums, kw)
             return self._orig(hist, mask, csums, **kw)
 
-        sc.split_scan = wrapped
+        sc.split_scan_pick = wrapped
         return self
 
     def __exit__(self, *exc):
-        sc.split_scan = self._orig
+        sc.split_scan_pick = self._orig
 
 
 def check_scan(tag, hist, mask, csums, kw) -> dict:
-    """The split-scan kernel bit for bit the plain scan run on the CPU on
-    the same inputs (copied there), and two launches bitwise equal."""
-    got = sc.split_scan(hist, mask, csums, **kw)
-    again = sc.split_scan(hist, mask, csums, **kw)
+    """The split-scan kernel's packed rows (one launch: scan and pick) bit
+    for bit its plain version run on the CPU on the same inputs (copied
+    there), ``pick_pack`` on ``scan_residue``; its residue (the same
+    kernel writing the scan's half) bit for bit ``scan_residue``; two
+    launches of each bitwise equal."""
+    got = sc.split_scan_pick(hist, mask, csums, **kw)
+    again = sc.split_scan_pick(hist, mask, csums, **kw)
     check(bool(same_value(got, again).all()),
           f"split scan {tag}: two launches differ")
-    ckw = to_cpu({k: v for k, v in kw.items() if k != "fmeta"})
-    want = sc.split_scan_ref(hist.cpu(), mask.cpu(), csums.cpu(), **ckw)
+    res = sc.split_scan(hist, mask, csums, **kw)
+    check(bool(same_value(res, sc.split_scan(hist, mask, csums, **kw))
+               .all()), f"split scan {tag}: two residue launches differ")
+    ckw = to_cpu(kw)
+    cs = csums.cpu()
+    want_res = scan_residue(hist.cpu(), mask.cpu(), cs, **ckw)
+    want = pick_pack(want_res, gain_shift(cs, ckw["params"],
+                                          ckw.get("parent_output")),
+                     cs, ckw["meta"], hist.shape[2])
     bad = int((~same_value(got.cpu(), want)).sum())
+    check(bad == 0, f"split scan {tag}: {bad} packed values differ from "
+          "the CPU plain scan and pick")
+    bad = int((~same_value(res.cpu(), want_res)).sum())
     check(bad == 0, f"split scan {tag}: {bad} residue values differ from "
           "the CPU plain scan")
-    return {"case": tag, "finite": int(torch.isfinite(want[..., 0]).sum()),
-            "cells": int(want[..., 0].numel())}
+    return {"case": tag, "finite": int(torch.isfinite(want_res[..., 0])
+                                       .sum()),
+            "cells": int(want_res[..., 0].numel()),
+            "finite_picks": int(torch.isfinite(want[:, 0]).sum())}
 
 
 def scan_case_kw(meta, opts, csums, rng, scale=None, constr=None):
@@ -3690,8 +3828,10 @@ def phase_scan_kernels(ds, binned, meta, rng, dev) -> dict:
     """Phase 31: the split-scan kernel against the CPU plain scan on a
     real round's inputs and on synthetic children at C in {1, 2, 8, 32,
     126}, B in {16, 64, 256}, F = 28 and 27, each option set and with
-    int8sr scales; K2's constrained legs at S = 4 / 16 / 63 and on
-    phase 14's sparse-live rounds; K6's contri / smooth / max-output
+    int8sr scales, null legs, a broadcast mask row and, at C = 2, F past
+    the features a block's shared memory holds (the residue through
+    global memory); K2's constrained legs at S = 4 / 16 / 63 (also with
+    null legs) and on phase 14's sparse-live rounds; K6's contri / smooth / max-output
     legs against R K2 rounds and the plain scan.  Every check bit for
     bit."""
     out = {"scan": [], "k2": [], "k6": []}
@@ -3733,6 +3873,29 @@ def phase_scan_kernels(ds, binned, meta, rng, dev) -> dict:
         out["scan"].append(check_scan(
             f"C=32 B=64 F={F - 1} {name}", hist, mask, csums,
             scan_case_kw(m, SCAN_OPTIONS[name], csums, rng)))
+    for C in (1, 126):      # the kernel's defaults for absent legs
+        hist, csums, mask, m, _ = scan_children(C, F, 64, rng, dev)
+        ckw = scan_case_kw(m, SCAN_OPTIONS["all"], csums, rng)
+        out["scan"].append(check_scan(
+            f"C={C} B=64 F={F} all, no bounds or parent outputs (null: "
+            "NO_CONSTRAINT, 0)", hist, mask, csums,
+            dict(ckw, constraint=None, parent_output=None)))
+        row = mask[0].clone()       # one mask row for every child, as
+        row[2] = False              # node_feature_masks expands it
+        for name in ("none", "all"):
+            out["scan"].append(check_scan(
+                f"C={C} B=64 F={F} {name}, one broadcast mask row", hist,
+                row[None, :].expand(C, F), csums,
+                scan_case_kw(m, SCAN_OPTIONS[name], csums, rng)))
+    for name in ("none", "all"):    # a residue past shared memory
+        opts = SCAN_OPTIONS[name]
+        m_opts = sc.scan_options(option_meta(meta, opts), option_params(opts))
+        F_big = 37 + (sc.resident_features(dev.index, 16, m_opts)
+                      if dev.type == "cuda" else 64)   # a CPU rehearsal
+        hist, csums, mask, m, _ = scan_children(2, F_big, 16, rng, dev)
+        out["scan"].append(check_scan(
+            f"C=2 B=16 F={F_big} {name}, the residue in global memory",
+            hist, mask, csums, scan_case_kw(m, opts, csums, rng)))
     fin = sum(c["finite"] for c in out["scan"])
     log(f"  split scan: {len(out['scan'])} cases bit for bit the CPU plain "
         f"scan ({fin} finite feature picks)")
@@ -3748,6 +3911,11 @@ def phase_scan_kernels(ds, binned, meta, rng, dev) -> dict:
             out["k2"].append(check_k2_legs(
                 f"S={S} {'sub' if sub else 'pool-free'} {name}", binned,
                 g3, legs_kw(kw, SCAN_OPTIONS[name], rng)))
+    g3, kw = round_inputs(binned, meta, 4, 4, True, "bf16x2", rng)
+    out["k2"].append(check_k2_legs(     # null legs: NO_CONSTRAINT and 0
+        "S=4 sub all, no bounds or parent outputs", binned, g3,
+        dict(legs_kw(kw, SCAN_OPTIONS["all"], rng), constraint=None,
+             parent_output=None)))
     for case, sub in SPARSE_CASES:
         chunk_rows = hc.plan(N, F, (4 if sub else 8) + 1, 64,
                              "bf16x2")["chunk_rows"]
@@ -3787,7 +3955,7 @@ def check_k2_legs(tag, binned, g3, kw) -> dict:
         check(a is None or bool(same_value(a, b).all()),
               f"K2 {tag}: two launches differ in {what}")
     res, hsm, nleaf, label = got
-    want = fc.fused_round_ref(binned, g3, **plain_kw(kw))
+    want = fc.fused_round_ref(binned, g3, **kw)
     check(torch.equal(nleaf, want[2]) and torch.equal(label, want[3]),
           f"K2 {tag}: leaf ids or labels differ from the plain version")
     route = kw["route"]
@@ -3809,10 +3977,12 @@ def check_k2_legs(tag, binned, g3, kw) -> dict:
     bad = int((~same_value(res.cpu(), res_cpu)).sum())
     check(bad == 0, f"K2 {tag}: {bad} residue values differ from the CPU "
           "plain scan")
+    fin = check_pick(f"K2 legs {tag}", res, kw)
     live = int((label < kw["nslots"]).sum())
     log(f"  K2 legs {tag}: {live} live rows; leaf ids, labels, K3 exact; "
-        "hsmall == K1; residue bit for bit the CPU plain scan")
-    return {"case": tag, "live_rows": live}
+        "hsmall == K1; residue bit for bit the CPU plain scan, the pick "
+        f"kernel on it the CPU pick ({fin} finite gains)")
+    return {"case": tag, "live_rows": live, "pick_finite": fin}
 
 
 def check_k6_legs(tag, args, min_rounds=2) -> dict:
@@ -3892,44 +4062,88 @@ def loop_legs_kernels(binned, meta, rng) -> list:
     return out
 
 
+def cuda_kernels(fn, reps: int = 20) -> list:
+    """The names of the device kernels (and copies) one call of ``fn``
+    runs, each as often as it ran a call: torch.profiler's device events
+    over ``reps`` calls after a warm-up (CUDA activity alone, as
+    ``kernel_device_ms``: with the CPU's too a profile of one short call
+    may hold no device event); a profile that saw no device work is taken
+    again, up to PROFILE_TRIES."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = Counter(e.name for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA)
+        if seen:
+            break
+    return [name for name, n in sorted(seen.items())
+            for _ in range(round(n / reps))]
+
+
 def scan_timing(last: dict, launches: dict) -> dict:
-    """Phase 31's timing: the split-scan kernel on phase 10's last inputs
-    at C = 8, 32 and 126 (the staged rounds of 4, 16 and 63 splits)
-    beside its plain version on the card and its bound by bytes (each
-    histogram cell read once, the residue written once); its launches a
-    tree on the main paths.  No single PyTorch call computes a split
-    scan."""
+    """Phase 31's timing: on phase 10's last inputs at C = 1, 8, 32 and
+    126 (the root and the staged rounds of 4, 16 and 63 splits) the whole
+    ``find_best_split`` and the split-scan kernel's wrapper by events, the
+    kernel's device time, the device kernels one ``find_best_split``
+    runs (profiler), its plain version on the card and its bound by bytes
+    (each histogram cell read once, the packed rows written once); its
+    launches a tree on the main paths.  No single PyTorch call computes a
+    split scan."""
     rows = []
-    for C in (8, 32, 126):
+    for C in (1, 8, 32, 126):
         if C not in last:
             continue
         hist, mask, csums, kw = last[C]
         _, F_, B, _ = hist.shape
-        ms = time_ms(lambda: sc.split_scan(hist, mask, csums, **kw), 20)
-        device_ms = kernel_device_ms(lambda: sc.split_scan(
+
+        def fbs():
+            return find_best_split(
+                hist, csums, kw["meta"], mask, kw["params"],
+                hist_scale=kw["hist_scale"], constraint=kw["constraint"],
+                parent_output=kw["parent_output"])
+
+        fbs_ms = time_ms(fbs, 50)
+        ms = time_ms(lambda: sc.split_scan_pick(hist, mask, csums, **kw), 50)
+        device_ms = kernel_device_ms(lambda: sc.split_scan_pick(
             hist, mask, csums, **kw), ("split_scan_kernel",))[
                 "split_scan_kernel"] or None   # None: the profiler saw none
-        plain_ms = time_ms(lambda: sc.split_scan_ref(hist, mask, csums,
+        kernels = cuda_kernels(fbs)
+        plain_ms = time_ms(lambda: sc.split_pick_ref(hist, mask, csums,
                                                      **kw), 3)
-        nbytes = C * F_ * B * 12 + C * F_ * 24 + C * 12 + C * F_
+        nbytes = (C * F_ * B * 12 + C * F_ + C * 12 + 5 * F_ * 4
+                  + C * sc.PACK_COLS * 4)
         ops = 2 * C * F_ * B * 20
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = ops / F32_OPS_PER_S * 1e3
-        rows.append({"C": C, "ms": ms, "device_ms": device_ms,
-                     "plain_ms": plain_ms,
+        rows.append({"C": C, "find_best_split_ms": fbs_ms, "ms": ms,
+                     "device_ms": device_ms, "plain_ms": plain_ms,
+                     "kernels_a_call": len(kernels),
+                     "kernel_names": sorted(set(kernels)),
                      "bound_ms": max(t_bytes, t_ops),
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations", "bytes": nbytes, "ops": ops})
-        log(f"  split scan C={C} (F={F_}, B={B}): {ms:.4f} ms, device "
-            f"{device_ms} ms (plain "
+        log(f"  find_best_split C={C} (F={F_}, B={B}): {fbs_ms:.4f} ms by "
+            f"events, {len(kernels)} device kernels a call "
+            f"({', '.join(sorted(set(k[:40] for k in kernels)))}); the "
+            f"kernel's wrapper {ms:.4f} ms, device {device_ms} ms (plain "
             f"{plain_ms:.3f} ms on the card, bound {rows[-1]['bound_ms']:.5f}"
             f" ms by {rows[-1]['bound_by']})")
     top = rows[-1]
     log(f"  split-scan launches a tree: {json.dumps(launches)}")
     return {"name": "split_scan", "route": "cuda", "source": SCAN_SRC,
-            "replaces": "lightgbmv1_tpu/ops/split.py:459 scan_left_sums, "
-            ":533 scan_direction_gains, :636 scan_pick_feature (XLA; "
-            "ops/wave_fused.py:215 child_scan_residue inside K2)",
+            "replaces": "lightgbmv1_tpu/ops/split.py:437 find_best_split: "
+            ":459 scan_left_sums, :533 scan_direction_gains, :636 "
+            "scan_pick_feature and the cross-feature pick (XLA; "
+            "ops/wave_fused.py:215 child_scan_residue inside K2, :610 "
+            "_pick_pack)",
             "launches": int(launches["staged"]["launches"]),
             "max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
@@ -3938,12 +4152,64 @@ def scan_timing(last: dict, launches: dict) -> dict:
             "buckets": rows, "launches_per_tree": launches}
 
 
+def pick_timing(rec, trained: dict) -> dict:
+    """The pick kernel on phase 15's last K2 inputs at each bucket: K2's
+    round with its pick by events, the pick alone by events and on the
+    device, the device kernels one pick runs (profiler), its plain
+    version on the card and its bound by bytes (the residue read once,
+    the packed rows written once); its launches on the fused path."""
+    rows = []
+    for (ns, prec, mode), (binned, g3, kw) in sorted(rec.last.items()):
+        res = fc.fused_round(binned, g3, **kw)[0]
+        C, F_, _ = res.shape
+        pkw = dict(meta=kw["meta"], params=kw["params"],
+                   parent_output=kw.get("parent_output"),
+                   num_bins=kw["num_bins"])
+
+        def round_pick():
+            r = fc.fused_round(binned, g3, **kw)[0]
+            return sc.split_pick(r, kw["csums"], **pkw)
+
+        round_ms = time_ms(round_pick, 10)
+        k2_ms = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
+        ms = time_ms(lambda: sc.split_pick(res, kw["csums"], **pkw), 50)
+        device_ms = kernel_device_ms(lambda: sc.split_pick(
+            res, kw["csums"], **pkw), ("split_pick_kernel",))[
+                "split_pick_kernel"] or None
+        kernels = cuda_kernels(lambda: sc.split_pick(res, kw["csums"], **pkw))
+        plain_ms = time_ms(lambda: sc.pick_ref(res, kw["csums"], **pkw), 10)
+        nbytes = C * F_ * sc.RES_COLS * 4 + C * 12 + C * 4 + 5 * F_ * 4 \
+            + C * sc.PACK_COLS * 4
+        rows.append({"nslots": ns, "precision": prec, "mode": mode, "C": C,
+                     "ms": ms, "device_ms": device_ms, "plain_ms": plain_ms,
+                     "k2_ms": k2_ms, "round_with_pick_ms": round_ms,
+                     "kernels_a_call": len(kernels),
+                     "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+                     "bound_by": "bytes", "bytes": nbytes})
+        log(f"  pick after K2 nslots={ns} {prec} {mode} (C={C}): {ms:.4f} "
+            f"ms by events, device {device_ms} ms, {len(kernels)} device "
+            f"kernels a call (plain {plain_ms:.3f} ms, bound "
+            f"{rows[-1]['bound_ms']:.6f} ms by bytes); K2 with its pick "
+            f"{round_ms:.4f} ms, K2 alone {k2_ms:.4f} ms")
+    top = max(rows, key=lambda r: r["C"])
+    return {"name": "split_pick", "route": "cuda", "source": SCAN_SRC,
+            "replaces": "lightgbmv1_tpu/ops/wave_fused.py:610 _pick_pack "
+            "(XLA, after the Pallas kernel K2)",
+            "launches": int(trained["split_pick_launches"]),
+            "max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": None, "library_note": "none: no single PyTorch "
+            "call computes a tie-band pick", "at": f"C={top['C']}",
+            "buckets": rows}
+
+
 def scan_launches(trees) -> dict:
     """The split-scan launches since the counts were reset, and a tree's;
     no plain scan ran."""
     n = sc.launch_counts["split_scan"]
     check(n > 0, "the split-scan kernel never launched")
-    check(sc.plain_counts["split_scan"] == 0, "a plain scan ran on the path")
+    check(not any(sc.plain_counts.values()),
+          f"a plain scan or pick ran on the path: {sc.plain_counts}")
     return {"launches": n, "per_tree": n / trees,
             "by_opts": {str(k): v for k, v in
                         sorted(sc.opt_launch_counts.items())}}
@@ -4055,11 +4321,10 @@ def legs_timing(recs) -> dict:
         frec = recs[key][0]
         ns, prec, mode = max(frec.last)
         binned, g3, kw = frec.last[(ns, prec, mode)]
-        plain = dict(kw, meta=kw["meta"]._replace(monotone_type=None,
-                                                  contri=None),
+        plain = dict(kw, meta=with_tables(kw["meta"]._replace(
+                         monotone_type=None, contri=None)),
                      params=SplitParams(*kw["params"][:5]), constraint=None,
                      pfac=None, parent_output=None)
-        plain.pop("fmeta", None)
         ms = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
         ms0 = time_ms(lambda: fc.fused_round(binned, g3, **plain), 10)
         ms_b = time_ms(lambda: fc.fused_round(binned, g3, **kw), 10)
@@ -4069,7 +4334,7 @@ def legs_timing(recs) -> dict:
             f" beside {ms0:.4f} ms unconstrained on the same inputs")
     lrec = recs[(name, "looped")][1]
     pos, kw = loop_call(lrec.last)
-    plain = dict(kw, meta=kw["meta"]._replace(contri=None),
+    plain = dict(kw, meta=with_tables(kw["meta"]._replace(contri=None)),
                  params=SplitParams(*kw["params"][:5]))
     ms = time_ms(lambda: lc.fused_wave_loop(*pos, **kw), 10)
     ms0 = time_ms(lambda: lc.fused_wave_loop(*pos, **plain), 10)
@@ -4319,7 +4584,7 @@ def check_k2_int8(tag, binned, g3, kw, packed=None) -> dict:
         check(a is None or bool(same_value(a, b).all()),
               f"K2 int8 {tag}: two launches differ in {what}")
     res, hsm, nleaf, label = got
-    want = fc.fused_round_ref(binned, g3, **plain_kw(kw))
+    want = fc.fused_round_ref(binned, g3, **kw)
     check(torch.equal(nleaf, want[2]) and torch.equal(label, want[3]),
           f"K2 int8 {tag}: leaf ids or labels differ from the plain version")
     r = kw["route"]
@@ -4513,7 +4778,8 @@ def plain_calls() -> dict:
     return {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
             **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
             **{f"loop.{k}": v for k, v in lc.plain_counts.items()},
-            **{f"quantize.{k}": v for k, v in qz.plain_counts.items()}}
+            **{f"quantize.{k}": v for k, v in qz.plain_counts.items()},
+            **{f"scan.{k}": v for k, v in sc.plain_counts.items()}}
 
 
 def recorded_run(params, ds, dv, iters, dev):
@@ -4724,7 +4990,7 @@ def phase_int8_timing(recs, trained) -> dict:
             "int8sr": lambda: fc.fused_round(binned, q3, **skw),
             "bf16x2": lambda: fc.fused_round(binned, g3, **bkw)}),
         "plain_ms": time_ms(lambda: fc.fused_round_ref(
-            binned, g3, **plain_kw(kw)), 1),
+            binned, g3, **kw), 1),
         "library_ms": None, "live_rows": n_live,
         "live_bound_ms": (live_row_bytes(N, Fn, n_live) + other)
         / HBM_BYTES_PER_S * 1e3,
@@ -4855,6 +5121,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this runs "
               "the port on a CUDA card", file=sys.stderr)
         return 2
+    global GATE_TEXT_SHA
+    GATE_TEXT_SHA = all(v == ap.get_default(k) for k, v in vars(args).items())
     t_start = time.perf_counter()
     dev = torch.device("cuda")
     rng = np.random.RandomState(args.seed)
@@ -4870,9 +5138,10 @@ def main(argv=None) -> int:
                          "wave_loop_int8", "quantize", "split_scan"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
-        for line in rec["log"].splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"    {line.strip()}")
+        for k in ptxas_kernels(rec["log"]):
+            log(f"    {k['kernel']}: {k.get('registers')} registers, "
+                f"{k.get('spill_stores')} / {k.get('spill_loads')} bytes "
+                f"spilled / reloaded, {k.get('stack')} bytes of stack")
     log(f"  built: {sorted(secs) or 'already built'}")
 
     log("== phase 3: model")
@@ -4967,8 +5236,12 @@ def main(argv=None) -> int:
         "fused": (dict(PARITY_PARAMS, hist_method="fused"), dev),
         "staged": (PARITY_PARAMS, dev)})
 
-    log("== phase 17: K2 and K3 timing at the main path's buckets")
+    log("== phase 17: K2 and K3 timing at the main path's buckets, and the "
+        "pick after K2")
     fused_rows = phase_fused_timing(frec, fused, k2_checks)
+    pick_row = pick_timing(frec, fused)
+    pick_row["checks"] = [{"case": c["case"], "finite": c["pick_finite"]}
+                          for c in k2_checks]
     del frec
 
     log("== phase 18: where a fused training iteration's time goes")
@@ -5229,8 +5502,11 @@ def main(argv=None) -> int:
                     "int8_train": int8, "sampled_train": sampled,
                     "int8_sampled_parity": qparity,
                     "seconds": time.perf_counter() - t_start}))
+    pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
+                           for c in schecks["k2"]]
     print(json.dumps({"kernels": [k1_row] + fused_rows
-                      + [k6_row, qrow, rnrow, scan_row] + rows}), flush=True)
+                      + [k6_row, qrow, rnrow, scan_row, pick_row] + rows}),
+          flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

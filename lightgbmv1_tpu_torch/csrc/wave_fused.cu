@@ -308,9 +308,10 @@ extern "C" {
 // slots' dequantization; `residue` (2S, nf, 6).  `binned` is
 // (nf, N) bytes, or with `packed` != 0 the (ceil(nf/2), N) packed bytes
 // of the nf features (nb must then be 16).  `opts` (kOpt*, wave_round.cuh)
-// names the scan's constrained legs and `constr` (2S, 2), `pfac` (2S,),
-// `pout` (2S,), `mono` (nf,) i32, `contri` (nf,) their inputs, null
-// where a leg is off (`pfac` also without a monotone penalty).  int8:
+// names the scan's constrained legs and `constr` (2S, 2) (null:
+// NO_CONSTRAINT), `pfac` (2S,), `pout` (2S,) (null: 0), `mono` (nf,) i32,
+// `contri` (nf,) their inputs, null where a leg is off (`pfac` also
+// without a monotone penalty).  int8:
 // `g3` holds the rows rounded under `qtile`-row scale tiles and `qscale`
 // their (ceil(N / qtile), 3) scales; null / 0 otherwise.
 int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
@@ -330,9 +331,8 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
                      int qtile, void* stream) {
   if (B > kMaxBins || S <= 0 || (packed && nb != 16) || opts < 0 ||
       opts > kOptAll ||
-      ((opts & kOptMc) &&
-       (!constr || !mono || (monotone_penalty > 0.f && !pfac))) ||
-      ((opts & kOptSmooth) && !pout) || ((opts & kOptContri) && !contri))
+      ((opts & kOptMc) && (!mono || (monotone_penalty > 0.f && !pfac))) ||
+      ((opts & kOptContri) && !contri))
     return static_cast<int>(cudaErrorInvalidValue);
   const ScanParams prm{l1, l2, min_data, min_hess, min_gain,
                        max_delta_step, path_smooth, monotone_penalty, opts};

@@ -79,10 +79,12 @@
 //    the unconstrained one else.  Monotone constraints stay out of the
 //    loop, as the JAX planner keeps them.
 //
-// Numbers.  Stage 5 is written with __fadd_rn / __fsub_rn / __fmul_rn /
-// __fdiv_rn, one rounding an op, as the PyTorch ops of _pick_pack and the
-// grower's commit each round once: the packed rows equal the pick the
-// single round runs on the card, bit for bit.
+// Numbers.  Stage 5's pick is pick_child (wave_round.cuh), the function
+// the single round's pick kernel runs after K2 (csrc/split_scan.cu),
+// written with __fadd_rn / __fsub_rn / __fmul_rn / __fdiv_rn, one
+// rounding an op, as the PyTorch ops of _pick_pack and the grower's
+// commit each round once: the packed rows equal the pick the single round
+// runs on the card, bit for bit.
 //
 // What bounds it on this card.  A round moves what K2 moves at its bucket
 // (about 49 MB at 1,048,576 rows x 28 features and 63 slots of 64 bins,
@@ -122,7 +124,6 @@ namespace {
 
 constexpr int kMaxLadder = 8;
 constexpr int kFtCols = 12;
-constexpr int kPackCols = 10;
 // n_split, S, bucket, leaf count, the partial stage's next item
 constexpr int kBndHdr = 5;
 // The opt-in debug buffer: [0] block 0's entry, [1] the first boundary's
@@ -264,8 +265,9 @@ __device__ void boundary(const LoopArgs& a, int nl, float* sm) {
     mask[i] = i / nf < 2 * n ? (a.base_mask[i % nf] != 0) : 0;
 }
 
-// Stage 4 of round r, by block 0: _pick_pack on the children's residue,
-// then the live children's frontier rows.
+// Stage 5 of round r, by block 0: _pick_pack on the children's residue
+// (pick_child, one thread a child), then the live children's frontier
+// rows.
 __device__ void pick_commit(const LoopArgs& a, int r) {
   const int n = a.bnd[0], S = a.bnd[1], nl = a.bnd[3], nf = a.nf;
   const Slot* slots = reinterpret_cast<const Slot*>(a.bnd + kBndHdr);
@@ -276,37 +278,10 @@ __device__ void pick_commit(const LoopArgs& a, int r) {
       reinterpret_cast<const float*>(a.bnd + bnd_couts_off(a.K));
   float* out = a.packed + static_cast<size_t>(r) * 2 * a.K * kPackCols;
   for (int c = threadIdx.x; c < 2 * S; c += blockDim.x) {
-    const float* res = a.residue + static_cast<size_t>(c) * nf * 6;
-    const float* cs = csums + 3 * c;
-    float gbest = res[0];
-    for (int f = 1; f < nf; ++f) gbest = nan_max(gbest, res[f * 6]);
-    const float shift = gain_shift<kLoopOpts>(cs[0], cs[1], couts[c], a.prm);
-    const float babs = isfinite(gbest) ? fabsf(gbest) : 0.f;
-    const float floor_g =
-        __fsub_rn(gbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
-    int feature = 0;  // the first feature in the band (0 if none)
-    for (int f = 0; f < nf; ++f) {
-      if (res[f * 6] >= floor_g) {
-        feature = f;
-        break;
-      }
-    }
-    const float* rf = res + feature * 6;
-    const float best = rf[1];
-    const int sc = static_cast<int>(rf[2]);
-    const int dir = sc / a.B;
-    const int mt = a.fmeta[nf + feature];
-    const bool dl = (mt == kMissingNan || mt == kMissingZero) && dir == 1;
-    float row[kPackCols] = {isfinite(best) ? best : -INFINITY,
-                            static_cast<float>(feature),
-                            static_cast<float>(sc % a.B),
-                            dl ? 1.f : 0.f,
-                            rf[3],
-                            rf[4],
-                            rf[5],
-                            __fsub_rn(cs[0], rf[3]),
-                            __fsub_rn(cs[1], rf[4]),
-                            __fsub_rn(cs[2], rf[5])};
+    float row[kPackCols];
+    pick_child<kLoopOpts>(a.residue + static_cast<size_t>(c) * nf * 6,
+                          csums + 3 * c, couts[c], a.fmeta, nf, a.B, a.prm,
+                          row);
     for (int k = 0; k < kPackCols; ++k) out[c * kPackCols + k] = row[k];
     if (c < 2 * n) {
       const int s = c >> 1;

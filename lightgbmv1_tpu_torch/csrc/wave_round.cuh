@@ -222,7 +222,12 @@ struct ScanParams {
 // factors (C,) (ops/split.py monotone_penalty_factors, read when
 // ScanParams::monotone_penalty > 0), the parents' outputs (C,) the
 // children smooth toward, the features' monotone types (nf,) i32
-// (kOptMc) and contri multipliers (nf,).
+// (kOptMc) and contri multipliers (nf,).  A null `constr` under kOptMc
+// is [kNoConstraintLo, kNoConstraintHi] (ops/split.py NO_CONSTRAINT)
+// and a null `pout` under kOptSmooth 0, as ops/split.py scan_inputs
+// leaves them.
+constexpr float kNoConstraintLo = -3.0e38f;
+constexpr float kNoConstraintHi = 3.0e38f;
 struct ScanLegs {
   const float* constr;
   const float* pfac;
@@ -367,9 +372,11 @@ __device__ __forceinline__ void scan_child(
   const bool mc = leg_on<OPTS>(prm, kOptMc);
   const bool smooth = leg_on<OPTS>(prm, kOptSmooth);
   const float tg = cs[0], th = cs[1], tc = cs[2];
-  const float pout = smooth ? legs.pout[child] : 0.f;
-  const float lo = mc ? legs.constr[2 * child] : 0.f;
-  const float hi = mc ? legs.constr[2 * child + 1] : 0.f;
+  const float pout = smooth && legs.pout ? legs.pout[child] : 0.f;
+  const float lo = !mc ? 0.f
+                  : legs.constr ? legs.constr[2 * child] : kNoConstraintLo;
+  const float hi = !mc ? 0.f
+                  : legs.constr ? legs.constr[2 * child + 1] : kNoConstraintHi;
   const int mono = mc ? legs.mono[f] : 0;
   // the relative-gain multipliers of finite gains: contri, then the
   // monotone depth penalty on a monotone feature
@@ -457,6 +464,58 @@ __device__ __forceinline__ void scan_child(
     r[4] = left[dir][t][1];
     r[5] = left[dir][t][2];
   }
+}
+
+// The columns of a packed split row (ops/split.py pick_pack): gain,
+// feature, threshold, default left, left g/h/c, right g/h/c.
+constexpr int kPackCols = 10;
+
+// One child's cross-feature pick by one thread: ops/split.py pick_pack on
+// its (nf, 6) residue `res` (scan_child's rows), its sums `cs` and its
+// parent output `pout` (the shift's, read under kOptSmooth) -> its packed
+// row `row` [kPackCols].  The shift is gain_shift's, the tie band
+// kTieRtol's as in scan_child; the first feature in the band wins (0 when
+// none is: a NaN best), and a non-finite gain there becomes -inf.  Every
+// f32 op rounds once, as each PyTorch op of pick_pack does, so the row is
+// pick_pack's bit for bit.  The split-scan kernel's pick (split_scan.cu,
+// on the residue in shared memory), its pick-only kernel (the fused
+// round's) and K6's stage 5 run this one function.
+template <int OPTS>
+__device__ __forceinline__ void pick_child(const float* res, const float* cs,
+                                           float pout,
+                                           const int* __restrict__ fmeta,
+                                           int nf, int B,
+                                           const ScanParams& prm,
+                                           float* row) {
+  float gbest = res[0];
+  for (int f = 1; f < nf; ++f) gbest = nan_max(gbest, res[f * 6]);
+  const float shift = gain_shift<OPTS>(cs[0], cs[1], pout, prm);
+  const float babs = isfinite(gbest) ? fabsf(gbest) : 0.f;
+  const float floor_g =
+      __fsub_rn(gbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
+  int feature = 0;  // the first feature in the band (0 if none)
+  for (int f = 0; f < nf; ++f) {
+    if (res[f * 6] >= floor_g) {
+      feature = f;
+      break;
+    }
+  }
+  const float* rf = res + feature * 6;
+  const float best = rf[1];
+  const int sc = static_cast<int>(rf[2]);
+  const int dir = sc / B;
+  const int mt = fmeta[nf + feature];
+  const bool dl = (mt == kMissingNan || mt == kMissingZero) && dir == 1;
+  row[0] = isfinite(best) ? best : -INFINITY;
+  row[1] = static_cast<float>(feature);
+  row[2] = static_cast<float>(sc % B);
+  row[3] = dl ? 1.f : 0.f;
+  row[4] = rf[3];
+  row[5] = rf[4];
+  row[6] = rf[5];
+  row[7] = __fsub_rn(cs[0], rf[3]);
+  row[8] = __fsub_rn(cs[1], rf[4]);
+  row[9] = __fsub_rn(cs[2], rf[5]);
 }
 
 // Shared memory of scan_item: h2 [2][kMaxBins][3], left2

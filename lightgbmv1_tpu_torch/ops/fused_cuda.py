@@ -198,15 +198,6 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def feature_table(meta: FeatureMeta) -> torch.Tensor:
-    """The (5, F) int32 feature table the scans of K2, K6 and the
-    split-scan kernel read: num_bins, missing_type, nan_bin, zero_bin,
-    usable."""
-    return torch.stack([meta.num_bins, meta.missing_type, meta.nan_bin,
-                        meta.zero_bin, meta.usable.long()]) \
-        .to(torch.int32).contiguous()
-
-
 def _need(t, name, dtype, shape, device):
     if t is None or t.dtype != dtype or tuple(t.shape) != tuple(shape) \
             or not t.is_contiguous() or t.device != device:
@@ -266,7 +257,7 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False):
 
 def fused_round(binned, g3, *, nslots, num_bins, precision,
                 meta: FeatureMeta, params: SplitParams, mask, csums, route,
-                sml=None, parent=None, fmeta=None, packed=False, scale=None,
+                sml=None, parent=None, packed=False, scale=None,
                 constraint=None, pfac=None, parent_output=None, rows8=None):
     """K2: one wave round -> ``(residue (2S, F, RES_COLS), hsmall (S, F,
     B, 3) or None, new_leaf (N,), label (N,))``.
@@ -276,18 +267,18 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     pool-free (``nslots = 2S``).  ``route`` (dict ``oleaf`` (N,) i32,
     ``feats`` (S,) i32, ``rmeta`` (S, RMETA_COLS) i32, ``num_leaves``)
     gives the label and the new leaf ids from the current ones.  ``mask``
-    (2S, F) bool and ``csums`` (2S, 3) f32 are the children's.
-    ``fmeta`` is ``feature_table(meta)``, made once by a caller that runs
-    many rounds.  ``packed``: ``binned`` holds the (ceil(F/2), N) packed
-    bytes of the F = ``mask.shape[1]`` features (num_bins <= 16).
+    (2S, F) bool and ``csums`` (2S, 3) f32 are the children's; the scan
+    reads the meta's feature table (``split.with_tables``).  ``packed``:
+    ``binned`` holds the (ceil(F/2), N) packed bytes of the F =
+    ``mask.shape[1]`` features (num_bins <= 16).
     ``scale`` (nslots, 3) f32: the slots' dequantization (the subtraction
     mode's smaller children, or pool-free every child after its integer
     cumulative sum); ``precision="int8sr"``: ``g3`` holds quantized rows
     and the histograms are integer.  ``constraint`` (2S, 2), ``pfac``
     (2S,) and ``parent_output`` (2S,): the children's inputs of the scan's
-    constrained legs (``split.scan_inputs``), None where a leg is off;
-    the legs themselves follow ``meta`` and ``params``
-    (``scan_cuda.scan_options``).  ``precision="int8"``: ``g3`` holds the
+    constrained legs (``split.scan_inputs``), None where a leg is off or
+    at its default (``NO_CONSTRAINT``, 0); the legs themselves follow
+    ``meta`` and ``params`` (``scan_cuda.scan_options``).  ``precision="int8"``: ``g3`` holds the
     f32 rows, rounded under the round's scale tiles
     (``hist_cuda.round_row_tile``) by the quantize kernel or taken from
     ``rows8`` (a tree's ``quantize.NearestRows``)."""
@@ -343,9 +334,7 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
                           device=dev)
     hsmall = torch.empty((S, F, B, 3), dtype=torch.float32, device=dev) \
         if sub else None
-    if fmeta is None:
-        fmeta = feature_table(meta)
-    _need(fmeta, "fmeta", torch.int32, (5, F), dev)
+    _need(meta.table, "meta.table", torch.int32, (5, F), dev)
     opts, legs = leg_args(meta, params, C, dev, constraint, pfac,
                           parent_output)
 
@@ -359,7 +348,7 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
             route["feats"].data_ptr(), route["rmeta"].data_ptr(),
             label.data_ptr(), new_leaf.data_ptr(),
             *[t.data_ptr() for t in lists], partial.data_ptr(),
-            fmeta.data_ptr(), mask.data_ptr(), csums.data_ptr(), ptr(sml),
+            meta.table.data_ptr(), mask.data_ptr(), csums.data_ptr(), ptr(sml),
             ptr(parent), ptr(scale), residue.data_ptr(), ptr(hsmall),
             legs["constraint"], legs["pfac"], legs["parent_output"],
             legs["mono"], legs["contri"], N, F, S, p["nb"], B, p["ls_max"],

@@ -339,7 +339,7 @@ def limits(device, *, precision, sub, num_bins, N, F, L, K, slot_buckets,
 def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
                     slot_buckets, max_depth, base_mask, num_bins, precision,
                     meta: FeatureMeta, params: SplitParams, pool=None,
-                    fmeta=None, debug=None, packed=False, key=None,
+                    debug=None, packed=False, key=None,
                     quant_buckets=(), quant=None, q3=None, rows8=None):
     """K6: ``rounds`` wave rounds in one launch -> ``(packed (R, 2K,
     PACK_COLS), new_leaf (N,), pool or None, n_split (R,) i32)``, as
@@ -349,8 +349,8 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     .. depth), ``num_leaves`` the leaf count, ``base_mask`` (F,) bool the
     features a child may split on, ``slot_buckets`` the ladder; ``pool``
     (L, F, B, 3) f32 selects the subtraction mode.  The inputs are not
-    modified.  ``fmeta`` is ``fused_cuda.feature_table(meta)``, made once
-    by a caller that launches many times.  ``debug`` (card only): a
+    modified; the scans read the meta's feature table
+    (``split.with_tables``).  ``debug`` (card only): a
     ``debug_buffer(rounds, ...)`` that receives the stage stamps and live
     rows ``stage_split`` reads.  ``packed``: ``binned`` holds the
     (ceil(F/2), N) packed bytes of the F = ``base_mask.shape[0]``
@@ -456,9 +456,7 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     bnd = torch.empty(lib.lgbm_wave_loop_bnd_ints(K, F), dtype=i32,
                       device=dev)
     mask = base_mask.to(torch.uint8)
-    if fmeta is None:
-        fmeta = fused_cuda.feature_table(meta)
-    fused_cuda._need(fmeta, "fmeta", torch.int32, (5, F), dev)
+    fused_cuda._need(meta.table, "meta.table", torch.int32, (5, F), dev)
     # the scan's legs; the kernel makes the children's outputs it smooths
     # toward (no monotone leg: refused above)
     opts = scan_cuda.scan_options(meta, params)
@@ -471,7 +469,7 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
         err = lib.lgbm_fused_wave_loop(
             binned.data_ptr(), g3.data_ptr(), new_leaf.data_ptr(),
             ft.data_ptr(), pool_out.data_ptr() if sub else 0,
-            fmeta.data_ptr(), mask.data_ptr(),
+            meta.table.data_ptr(), mask.data_ptr(),
             *[0 if t is None else t.data_ptr() for t in (zq, q3, qscale)],
             *key_words, picks.data_ptr(),
             n_split.data_ptr(), label.data_ptr(),

@@ -1,36 +1,54 @@
-"""The split-scan kernel on the card, and its plain version.
+"""The split-scan kernel and the pick kernel on the card, and their plain
+versions.
 
 The JAX package computes the staged split scan in XLA
-(lightgbmv1_tpu/ops/split.py:459-661: ``scan_left_sums``,
-``scan_direction_gains``, ``scan_pick_feature``); the Pallas kernel K2
-runs the same stages on its VMEM accumulator (``child_scan_residue``,
-wave_fused.py:215).  ``split_scan`` is that per-feature half of the scan
-as a CUDA kernel written by hand (``csrc/split_scan.cu``): (C, F, B, 3)
-f32 child histograms -> the (C, F, 6) residue K2 writes [best gain, gain
-at the pick, pick = direction * B + threshold, left g/h/c there].  Its
-device code is K2's and K6's scan stage (``scan_child`` in
-``csrc/wave_round.cuh``), so every ``find_best_split`` on the card — the
-staged rounds, the root of every path, the sequential and level-wise
-growers — sums its prefixes in K2's order: each prefix accumulated in
-double and rounded to f32, which is what PyTorch's CPU cumulative sum
-does.  The staged and fused paths then pick from the same bits.
+(lightgbmv1_tpu/ops/split.py:437 ``find_best_split``, vmapped:
+``scan_left_sums``, ``scan_direction_gains``, ``scan_pick_feature`` and
+the cross-feature pick); the Pallas kernel K2 runs the per-feature stages
+on its VMEM accumulator (``child_scan_residue``, wave_fused.py:215) and
+leaves the pick to ``_pick_pack`` (:610).  Here both are CUDA kernels
+written by hand (``csrc/split_scan.cu``):
+
+* ``split_scan_pick``: (C, F, B, 3) f32 child histograms -> the (C, 10)
+  packed rows ``split.pick_pack`` writes [gain, feature, threshold,
+  default_left, left g/h/c, right g/h/c], in one launch: one block a
+  child, each warp scanning a feature with ``scan_child`` (K2's and K6's
+  scan stage, ``csrc/wave_round.cuh``) into shared memory, then one
+  thread picking across the features with ``pick_child`` (K6's pick).  So
+  every ``find_best_split`` on the card — the staged rounds, the root of
+  every path, the sequential and level-wise growers — sums its prefixes
+  in K2's order (each prefix accumulated in double and rounded to f32,
+  which is what PyTorch's CPU cumulative sum does) and picks as
+  ``pick_pack`` does, bit for bit.  Its plain version ``split_pick_ref``
+  is ``pick_pack`` on ``split.scan_residue``.
+* ``split_scan``: the same kernel writing the (C, F, 6) residue K2 writes
+  [best gain, gain at the pick, pick = direction * B + threshold, left
+  g/h/c] instead of (or beside) the rows; plain version ``split_scan_ref``
+  (``split.scan_residue``).  The main path does not call it: it holds the
+  kernel's scan half to the plain scan.
+* ``split_pick``: the fused round's pick after K2, (2S, F, 6) residue ->
+  (2S, 10) rows (``pick_child`` a thread); plain version ``pick_ref``
+  (``pick_pack`` with ``split.gain_shift``).
 
 The constrained legs are compile-time options of the device code
 (``OPT_*``, the reference ``GetSplitGains<USE_MC, USE_MAX_OUTPUT,
 USE_SMOOTHING>`` plus the contri multiply): monotone constraints (the
-children's bounds ``constraint`` (C, 2), the monotone type of each
-feature and, with ``monotone_penalty``, the children's penalty factors
-``pfac`` (C,), ``split.monotone_penalty_factors``), path smoothing (the
-parents' outputs ``parent_output`` (C,)), ``max_delta_step`` and
-``feature_contri`` (``meta.contri``).  The kernel is instantiated for
+children's bounds ``constraint`` (C, 2) (None: ``NO_CONSTRAINT``), the
+monotone type of each feature and, with ``monotone_penalty``, the
+children's penalty factors ``pfac`` (C,),
+``split.monotone_penalty_factors``), path smoothing (the parents' outputs
+``parent_output`` (C,), None: 0), ``max_delta_step`` and
+``feature_contri`` (``meta.contri``).  The kernels are instantiated for
 each of the 16 option sets and launched at the one the meta and params
-select (``scan_options``).
+select (``scan_options``).  The feature table and the int32 monotone
+types are the meta's own (``split.with_tables``), so an unconstrained
+scan runs no PyTorch op before its launch (``scan_args``).
 
-``split_scan_ref`` is the plain version, ``split.scan_residue``: a CPU
-tensor takes it; a CUDA tensor launches the kernel or raises.  Each
-launch adds one to ``launch_counts["split_scan"]`` and to
-``opt_launch_counts[opts]``; each plain call one to
-``plain_counts["split_scan"]``.
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.  Each scan launch adds one to ``launch_counts["split_scan"]``
+and to ``opt_launch_counts[opts]``, each pick launch one to
+``launch_counts["split_pick"]``; each plain call one to its
+``plain_counts`` entry.
 """
 
 from __future__ import annotations
@@ -42,24 +60,27 @@ import threading
 import torch
 
 from . import _build
-from .fused_cuda import _need, _raise_on, feature_table
-from .split import FeatureMeta, SplitParams, scan_residue
+from .fused_cuda import _need, _raise_on
+from .split import (FeatureMeta, SplitParams, gain_shift, pick_pack,
+                    scan_residue)
 
 RES_COLS = 6
+PACK_COLS = 10
 # the option bits of csrc/wave_round.cuh (kOpt*)
 OPT_MC, OPT_SMOOTH, OPT_MAXOUT, OPT_CONTRI = 1, 2, 4, 8
 
-launch_counts = {"split_scan": 0}
-# the launches by option bits
+launch_counts = {"split_scan": 0, "split_pick": 0}
+# the scan launches by option bits
 opt_launch_counts: dict = {}
-plain_counts = {"split_scan": 0}
+plain_counts = {"split_scan": 0, "split_pick": 0}
 _count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        launch_counts["split_scan"] = 0
-        plain_counts["split_scan"] = 0
+        for counts in (launch_counts, plain_counts):
+            for k in counts:
+                counts[k] = 0
         opt_launch_counts.clear()
 
 
@@ -71,15 +92,41 @@ def scan_options(meta: FeatureMeta, params: SplitParams) -> int:
             | (OPT_CONTRI if meta.contri is not None else 0))
 
 
+def _plain(name: str) -> None:
+    with _count_lock:
+        plain_counts[name] += 1
+
+
 def split_scan_ref(hist, mask, csums, *, meta: FeatureMeta,
                    params: SplitParams, hist_scale=None, constraint=None,
                    pfac=None, parent_output=None):
     """Plain version of ``split_scan``: ``split.scan_residue``."""
-    with _count_lock:
-        plain_counts["split_scan"] += 1
+    _plain("split_scan")
     return scan_residue(hist, mask, csums, meta=meta, params=params,
                         hist_scale=hist_scale, constraint=constraint,
                         pfac=pfac, parent_output=parent_output)
+
+
+def pick_ref(residue, csums, *, meta: FeatureMeta, params: SplitParams,
+             parent_output=None, num_bins: int):
+    """Plain version of ``split_pick``: ``pick_pack`` with the children's
+    ``gain_shift``."""
+    _plain("split_pick")
+    return pick_pack(residue, gain_shift(csums, params, parent_output), csums,
+                     meta, num_bins)
+
+
+def split_pick_ref(hist, mask, csums, *, meta: FeatureMeta,
+                   params: SplitParams, hist_scale=None, constraint=None,
+                   pfac=None, parent_output=None):
+    """Plain version of ``split_scan_pick``: ``pick_pack`` on
+    ``scan_residue``, the staged scan's composition."""
+    _plain("split_scan")
+    residue = scan_residue(hist, mask, csums, meta=meta, params=params,
+                           hist_scale=hist_scale, constraint=constraint,
+                           pfac=pfac, parent_output=parent_output)
+    return pick_pack(residue, gain_shift(csums, params, parent_output), csums,
+                     meta, hist.shape[2])
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -88,36 +135,41 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = _build.load("split_scan")
-    lib.lgbm_split_scan.argtypes = [_P] * 11 + [_I] * 3 + [_F] * 8 + [_I, _P]
+    lib.lgbm_split_scan.argtypes = [_P] * 12 + [_I] * 4 + [_F] * 8 + [_I, _P]
     lib.lgbm_split_scan.restype = _I
+    lib.lgbm_split_scan_resident.argtypes = [_I, _I]
+    lib.lgbm_split_scan_resident.restype = _I
+    lib.lgbm_split_pick.argtypes = [_P] * 5 + [_I] * 3 + [_F] * 8 + [_I, _P]
+    lib.lgbm_split_pick.restype = _I
     return lib
 
 
 def leg_args(meta: FeatureMeta, params: SplitParams, C, dev, constraint,
              pfac, parent_output):
     """The option bits and the legs' pointers (0 where off) of a scan of
-    C children on ``dev``, each leg's tensor checked: the split-scan
-    kernel's and K2's arguments (``mono``: the features' monotone types
-    as int32, its tensor kept under ``"_keep"`` until the launch)."""
+    C children on ``dev``, each given leg's tensor checked: the
+    split-scan kernel's and K2's arguments (``mono``: the meta's int32
+    monotone types).  A None ``constraint`` or ``parent_output``
+    (``split.scan_inputs``' default) passes a null pointer, which the
+    kernels read as ``NO_CONSTRAINT`` and 0."""
     opts = scan_options(meta, params)
     f32 = torch.float32
     ptrs = {"constraint": 0, "pfac": 0, "parent_output": 0, "mono": 0,
             "contri": 0}
+    F = meta.num_bins.shape[0]
     if opts & OPT_MC:
-        _need(constraint, "constraint", f32, (C, 2), dev)
-        ptrs["constraint"] = constraint.data_ptr()
-        F = meta.num_bins.shape[0]
-        mono = meta.monotone_type.to(torch.int32).contiguous()
-        _need(mono, "meta.monotone_type", torch.int32, (F,), dev)
-        ptrs["mono"], ptrs["_keep"] = mono.data_ptr(), mono
+        if constraint is not None:
+            _need(constraint, "constraint", f32, (C, 2), dev)
+            ptrs["constraint"] = constraint.data_ptr()
+        _need(meta.mono32, "meta.mono32", torch.int32, (F,), dev)
+        ptrs["mono"] = meta.mono32.data_ptr()
         if params.monotone_penalty > 0:
             _need(pfac, "pfac", f32, (C,), dev)
             ptrs["pfac"] = pfac.data_ptr()
-    if opts & OPT_SMOOTH:
+    if opts & OPT_SMOOTH and parent_output is not None:
         _need(parent_output, "parent_output", f32, (C,), dev)
         ptrs["parent_output"] = parent_output.data_ptr()
     if opts & OPT_CONTRI:
-        F = meta.num_bins.shape[0]
         _need(meta.contri, "meta.contri", f32, (F,), dev)
         ptrs["contri"] = meta.contri.data_ptr()
     return opts, ptrs
@@ -131,49 +183,147 @@ def scan_floats(params: SplitParams) -> list:
             params.monotone_penalty]
 
 
-def split_scan(hist, mask, csums, *, meta: FeatureMeta, params: SplitParams,
-               hist_scale=None, constraint=None, pfac=None,
-               parent_output=None, fmeta=None):
-    """The split-scan kernel: ``hist`` (C, F, B, 3) f32, ``mask`` (C, F)
-    bool, ``csums`` (C, 3) f32 -> the (C, F, RES_COLS) residue.
-    ``hist_scale`` (C, 3): ``hist`` holds integer sums, dequantized after
-    the cumulative sum.  The legs (``split.scan_inputs``) as the options
-    of ``meta`` and ``params`` need them.  ``fmeta`` is
-    ``fused_cuda.feature_table(meta)``, made once by a caller that scans
-    many times."""
-    if hist.device.type == "cpu":
-        return split_scan_ref(hist, mask, csums, meta=meta, params=params,
-                              hist_scale=hist_scale, constraint=constraint,
-                              pfac=pfac, parent_output=parent_output)
-    if hist.device.type != "cuda":
-        raise ValueError(f"hist on {hist.device}: expected cpu or cuda")
+def _need_rows(t, name, dtype, shape, device):
+    """``_need`` for a (C, F) tensor whose rows may be one row broadcast
+    (row stride 0, ``expand``'s view)."""
+    if t is not None and t.stride() == (0, 1) and t.dtype == dtype \
+            and tuple(t.shape) == tuple(shape) and t.device == device:
+        return
+    _need(t, name, dtype, shape, device)
+
+
+def scan_args(hist, mask, csums, *, meta: FeatureMeta, params: SplitParams,
+              hist_scale=None, constraint=None, pfac=None,
+              parent_output=None):
+    """The split-scan kernel's inputs, checked: ``(opts, head, tail)``,
+    ``head`` its pointers before the outputs, ``tail`` its sizes, floats
+    and option bits after them.  It reads the meta's tables
+    (``split.with_tables``) and takes a mask of one row broadcast to the
+    children as it is (row stride 0), so it runs no PyTorch op."""
     C, F, B, _ = hist.shape
     dev = hist.device
     if B > 256 or C < 1 or F < 1:
-        raise ValueError(f"hist {tuple(hist.shape)}: expected C, F >= 1 and "
-                         "at most 256 bins")
+        raise ValueError(f"hist {tuple(hist.shape)}: expected C >= 1, "
+                         "F >= 1 and at most 256 bins")
     _need(hist, "hist", torch.float32, (C, F, B, 3), dev)
-    _need(mask, "mask", torch.bool, (C, F), dev)
+    _need_rows(mask, "mask", torch.bool, (C, F), dev)
     _need(csums, "csums", torch.float32, (C, 3), dev)
     if hist_scale is not None:
         _need(hist_scale, "hist_scale", torch.float32, (C, 3), dev)
-    if fmeta is None:
-        fmeta = feature_table(meta)
-    _need(fmeta, "fmeta", torch.int32, (5, F), dev)
+    _need(meta.table, "meta.table", torch.int32, (5, F), dev)
     opts, ptrs = leg_args(meta, params, C, dev, constraint, pfac,
                           parent_output)
-    residue = torch.empty((C, F, RES_COLS), dtype=torch.float32, device=dev)
+    head = (hist.data_ptr(),
+            0 if hist_scale is None else hist_scale.data_ptr(),
+            csums.data_ptr(), mask.data_ptr(), meta.table.data_ptr(),
+            ptrs["constraint"], ptrs["pfac"], ptrs["parent_output"],
+            ptrs["mono"], ptrs["contri"])
+    tail = (C, F, B, mask.stride(0) if C > 1 else F, *scan_floats(params),
+            opts)
+    return opts, head, tail
+
+
+@functools.cache
+def resident_features(device_index: int, B: int, opts: int) -> int:
+    """The most features whose residue a scan block at ``B`` bins keeps in
+    shared memory on the card ``device_index`` (past it the residue goes
+    through global memory)."""
+    with torch.cuda.device(device_index):
+        n = _lib().lgbm_split_scan_resident(B, opts)
+    if n < 0:
+        raise RuntimeError(f"split_scan: no shared-memory size at B = {B}")
+    return n
+
+
+def _scan_launch(hist, kw, residue, packed):
+    """Launch the split-scan kernel on ``hist`` into ``residue`` and / or
+    ``packed``; a child's residue too large for shared memory goes
+    through a (C, F, RES_COLS) buffer made here."""
+    if hist.device.type != "cuda":
+        raise ValueError(f"hist on {hist.device}: expected cpu or cuda")
+    opts, head, tail = scan_args(hist, **kw)
+    C, F, B, _ = hist.shape
+    dev = hist.device
+    if residue is None and F > resident_features(dev.index, B, opts):
+        residue = torch.empty((C, F, RES_COLS), dtype=torch.float32,
+                              device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().lgbm_split_scan(
-            hist.data_ptr(),
-            0 if hist_scale is None else hist_scale.data_ptr(),
-            csums.data_ptr(), mask.data_ptr(), fmeta.data_ptr(),
-            ptrs["constraint"], ptrs["pfac"], ptrs["parent_output"],
-            ptrs["mono"], ptrs["contri"], residue.data_ptr(), C, F, B,
-            *scan_floats(params), opts, stream)
+            *head, 0 if residue is None else residue.data_ptr(),
+            0 if packed is None else packed.data_ptr(), *tail, stream)
     _raise_on(err, "split_scan")
     with _count_lock:
         launch_counts["split_scan"] += 1
         opt_launch_counts[opts] = opt_launch_counts.get(opts, 0) + 1
+
+
+def split_scan_pick(hist, mask, csums, *, meta: FeatureMeta,
+                    params: SplitParams, hist_scale=None, constraint=None,
+                    pfac=None, parent_output=None):
+    """The split-scan kernel: ``hist`` (C, F, B, 3) f32, ``mask`` (C, F)
+    bool, ``csums`` (C, 3) f32 -> the children's (C, PACK_COLS) packed
+    rows, one launch.  ``hist_scale`` (C, 3): ``hist`` holds integer
+    sums, dequantized after the cumulative sum.  The legs as the options
+    of ``meta`` and ``params`` need them (``constraint`` None:
+    ``NO_CONSTRAINT``; ``parent_output`` None: 0)."""
+    kw = dict(mask=mask, csums=csums, meta=meta, params=params,
+              hist_scale=hist_scale, constraint=constraint, pfac=pfac,
+              parent_output=parent_output)
+    if hist.device.type == "cpu":
+        return split_pick_ref(hist, **kw)
+    packed = torch.empty((hist.shape[0], PACK_COLS), dtype=torch.float32,
+                         device=hist.device)
+    _scan_launch(hist, kw, None, packed)
+    return packed
+
+
+def split_scan(hist, mask, csums, *, meta: FeatureMeta, params: SplitParams,
+               hist_scale=None, constraint=None, pfac=None,
+               parent_output=None):
+    """The split-scan kernel's residue: the inputs of ``split_scan_pick``
+    -> the (C, F, RES_COLS) residue K2 writes, one launch."""
+    kw = dict(mask=mask, csums=csums, meta=meta, params=params,
+              hist_scale=hist_scale, constraint=constraint, pfac=pfac,
+              parent_output=parent_output)
+    if hist.device.type == "cpu":
+        return split_scan_ref(hist, **kw)
+    C, F = hist.shape[:2]
+    residue = torch.empty((C, F, RES_COLS), dtype=torch.float32,
+                          device=hist.device)
+    _scan_launch(hist, kw, residue, None)
     return residue
+
+
+def split_pick(residue, csums, *, meta: FeatureMeta, params: SplitParams,
+               parent_output=None, num_bins: int):
+    """The pick kernel: the children's (C, F, RES_COLS) residue (K2's),
+    sums (C, 3) and, under path smoothing, parent outputs (C,) (None: 0)
+    -> their (C, PACK_COLS) packed rows, one launch."""
+    if residue.device.type == "cpu":
+        return pick_ref(residue, csums, meta=meta, params=params,
+                        parent_output=parent_output, num_bins=num_bins)
+    if residue.device.type != "cuda":
+        raise ValueError(f"residue on {residue.device}: expected cpu or "
+                         "cuda")
+    C, F, _ = residue.shape
+    dev = residue.device
+    _need(residue, "residue", torch.float32, (C, F, RES_COLS), dev)
+    _need(csums, "csums", torch.float32, (C, 3), dev)
+    _need(meta.table, "meta.table", torch.int32, (5, F), dev)
+    pout = 0
+    if parent_output is not None:
+        _need(parent_output, "parent_output", torch.float32, (C,), dev)
+        pout = parent_output.data_ptr()
+    opts = scan_options(meta, params)
+    packed = torch.empty((C, PACK_COLS), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().lgbm_split_pick(
+            residue.data_ptr(), csums.data_ptr(), pout, meta.table.data_ptr(),
+            packed.data_ptr(), C, F, int(num_bins), *scan_floats(params),
+            opts, stream)
+    _raise_on(err, "split_pick")
+    with _count_lock:
+        launch_counts["split_pick"] += 1
+    return packed

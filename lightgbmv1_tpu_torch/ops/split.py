@@ -31,10 +31,12 @@ the tree.
 ``find_best_split`` is the per-feature residue (``scan_residue``: the
 scan's stages up to ``scan_pick_feature``) and the cross-feature pick on
 it (``pick_pack``), the two halves the fused round splits the same way.
-On a CUDA tensor the residue is the split-scan kernel
+On a CUDA tensor both are one launch of the split-scan kernel
 (``ops/scan_cuda.py``, ``csrc/split_scan.cu``), which sums each prefix
-in K2's order, the order PyTorch's CPU cumulative sum takes; on a CPU
-tensor it is the plain version here.  The monotone penalty factor of a
+in K2's order, the order PyTorch's CPU cumulative sum takes, and picks
+as ``pick_pack`` does, bit for bit; on a CPU tensor they are the plain
+versions here.  The kernels read the feature meta's int32 tables, made
+once with the meta (``with_tables``).  The monotone penalty factor of a
 depth is one table made on the host (``monotone_penalty_factors``), so
 the kernel and the plain version multiply by the same bits.
 Categorical splits, CEGB and extra_trees are not ported (the config
@@ -43,6 +45,7 @@ refuses them).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -171,17 +174,23 @@ def monotone_penalty_factor(depth: int, penalization: float) -> np.float32:
     return f32(f32(1.0) - f32(2.0) ** (p - f32(1.0) - d)) + eps
 
 
+@functools.lru_cache(maxsize=16)
+def _penalty_table(penalization: float, device: torch.device) -> torch.Tensor:
+    n = int(np.ceil(max(penalization, 0.0))) + 66
+    return torch.as_tensor(
+        np.array([monotone_penalty_factor(d, penalization) for d in range(n)],
+                 np.float32), device=device)
+
+
 def monotone_penalty_factors(depth: torch.Tensor,
                              penalization: float) -> torch.Tensor:
     """(C,) f32 factors of the children's depths (C,), from one table made
-    on the host: the split-scan kernel, K2 and the plain scan multiply by
-    the same bits on any device.  Past ``penalization + 64`` every factor
-    is 1.0 in f32, so the table stops there."""
-    n = int(np.ceil(max(penalization, 0.0))) + 66
-    table = torch.as_tensor(
-        np.array([monotone_penalty_factor(d, penalization) for d in range(n)],
-                 np.float32), device=depth.device)
-    return table[depth.long().clamp(0, n - 1)]
+    on the host (once a penalization and device): the split-scan kernel,
+    K2 and the plain scan multiply by the same bits on any device.  Past
+    ``penalization + 64`` every factor is 1.0 in f32, so the table stops
+    there."""
+    table = _penalty_table(float(penalization), depth.device)
+    return table[depth.long().clamp(0, table.shape[0] - 1)]
 
 
 class FeatureMeta(NamedTuple):
@@ -196,15 +205,41 @@ class FeatureMeta(NamedTuple):
     monotone_type: Optional[torch.Tensor] = None
     # (F,) f32 feature_contri gain multipliers; None: not set
     contri: Optional[torch.Tensor] = None
+    # what the kernels read, made once from the fields above by
+    # ``with_tables`` (``make_feature_meta`` calls it): the (5, F) int32
+    # feature table (``feature_table``) and the int32 monotone types (None
+    # without constraints).  The card's wrappers refuse a meta without
+    # them; a ``_replace`` of a field above goes through ``with_tables``
+    # again.
+    table: Optional[torch.Tensor] = None
+    mono32: Optional[torch.Tensor] = None
+
+
+def feature_table(meta: FeatureMeta) -> torch.Tensor:
+    """The (5, F) int32 feature table the scans of K2, K6 and the
+    split-scan kernel read: num_bins, missing_type, nan_bin, zero_bin,
+    usable."""
+    return torch.stack([meta.num_bins, meta.missing_type, meta.nan_bin,
+                        meta.zero_bin, meta.usable.long()]) \
+        .to(torch.int32).contiguous()
+
+
+def with_tables(meta: FeatureMeta) -> FeatureMeta:
+    """``meta`` with the kernels' int32 tables made from its fields, so a
+    scan on the card runs no PyTorch op before its launch."""
+    mono = meta.monotone_type
+    return meta._replace(
+        table=feature_table(meta),
+        mono32=None if mono is None else mono.to(torch.int32).contiguous())
 
 
 def make_feature_meta(dataset, device, monotone_constraints=None,
                       feature_contri=None) -> FeatureMeta:
-    """The dataset's feature meta (JAX :173).  ``monotone_type`` is None
-    unless a constraint is nonzero (the JAX package's ``use_mc``), so a
-    caller reads the monotone leg from the meta without a device read;
-    ``contri`` is set whenever ``feature_contri`` is (ones past its
-    length)."""
+    """The dataset's feature meta (JAX :173), with its kernel tables
+    (``with_tables``).  ``monotone_type`` is None unless a constraint is
+    nonzero (the JAX package's ``use_mc``), so a caller reads the monotone
+    leg from the meta without a device read; ``contri`` is set whenever
+    ``feature_contri`` is (ones past its length)."""
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -221,12 +256,11 @@ def make_feature_meta(dataset, device, monotone_constraints=None,
         fc = np.asarray(list(feature_contri), np.float32)[:F]
         c[:len(fc)] = fc
         contri = t(c, torch.float32)
-    return FeatureMeta(num_bins=t(dataset.num_bins),
-                       missing_type=t(dataset.missing_types),
-                       nan_bin=t(dataset.nan_bins),
-                       zero_bin=t(dataset.zero_bins),
-                       usable=t(~np.asarray(dataset.is_trivial), torch.bool),
-                       monotone_type=mono, contri=contri)
+    return with_tables(FeatureMeta(
+        num_bins=t(dataset.num_bins), missing_type=t(dataset.missing_types),
+        nan_bin=t(dataset.nan_bins), zero_bin=t(dataset.zero_bins),
+        usable=t(~np.asarray(dataset.is_trivial), torch.bool),
+        monotone_type=mono, contri=contri))
 
 
 def scan_left_sums(hist: torch.Tensor, meta: FeatureMeta,
@@ -455,9 +489,11 @@ def pick_pack(residue_c, shift_c, parent_sum_c, meta: FeatureMeta,
 
 
 def unpack_children(packed: torch.Tensor, num_bins: int) -> SplitResult:
-    """(C, 10) packed rows (``pick_pack``) -> batched SplitResult."""
-    return SplitResult(gain=packed[:, 0], feature=packed[:, 1].long(),
-                       threshold_bin=packed[:, 2].long(),
+    """(C, 10) packed rows (``pick_pack``) -> batched SplitResult: views
+    of the rows and two casts (feature and threshold in one)."""
+    ints = packed[:, 1:3].long()
+    return SplitResult(gain=packed[:, 0], feature=ints[:, 0],
+                       threshold_bin=ints[:, 1],
                        default_left=packed[:, 3] != 0,
                        left_sum=packed[:, 4:7], right_sum=packed[:, 7:10])
 
@@ -466,26 +502,24 @@ def scan_inputs(meta: FeatureMeta, params: SplitParams, C, dev,
                 constraint=None, depth=None, parent_output=None) -> dict:
     """The constrained legs' per-child inputs of a scan of C children, as
     the split-scan kernel, K2 and the plain versions take them:
-    ``constraint`` (C, 2) and the penalty factors ``pfac`` (C,) under
-    monotone constraints (``pfac`` None without ``monotone_penalty``),
-    ``parent_output`` (C,) under path smoothing; None where a leg is off.
-    ``constraint`` None is ``NO_CONSTRAINT``, ``depth`` None 0,
-    ``parent_output`` None 0."""
+    ``constraint`` (C, 2) f32 and the penalty factors ``pfac`` (C,)
+    under monotone constraints (``pfac`` only with ``monotone_penalty``,
+    ``depth`` None: 0), ``parent_output`` (C,) f32 under path smoothing.
+    None where a leg is off or not given: the kernels and the plain
+    versions read a None ``constraint`` as ``NO_CONSTRAINT`` and a None
+    ``parent_output`` as 0.  Without constraints, penalty or given legs
+    it runs no PyTorch op."""
     f32 = torch.float32
     out = dict(constraint=None, pfac=None, parent_output=None)
     if meta.monotone_type is not None:
-        out["constraint"] = (constraint.to(f32).contiguous()
-                             if constraint is not None
-                             else torch.tensor(NO_CONSTRAINT, dtype=f32,
-                                               device=dev).repeat(C, 1))
+        if constraint is not None:
+            out["constraint"] = constraint.to(f32).contiguous()
         if params.monotone_penalty > 0:
             d = (depth if depth is not None
                  else torch.zeros(C, dtype=torch.int64, device=dev))
             out["pfac"] = monotone_penalty_factors(d, params.monotone_penalty)
-    if params.path_smooth > 0:
-        out["parent_output"] = (parent_output.to(f32).contiguous()
-                                if parent_output is not None
-                                else torch.zeros(C, dtype=f32, device=dev))
+    if params.path_smooth > 0 and parent_output is not None:
+        out["parent_output"] = parent_output.to(f32).contiguous()
     return out
 
 
@@ -497,20 +531,23 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
     ``parent_sum`` (C, 3), ``feature_mask`` (C, F) bool; ``hist_scale``
     (C, 3): ``hist`` holds quantized integer sums, dequantized after the
     cumulative sum (``scan_left_sums``).  ``constraint`` (C, 2) [min, max]
-    output bounds and ``depth`` (C,) (the monotone penalty) are read
-    under monotone constraints, ``parent_output`` (C,) the leaves'
-    current outputs under path smoothing (JAX :437, vmapped).  The
-    residue is the split-scan kernel on a CUDA tensor, the plain version
-    on a CPU one; the pick is ``pick_pack`` either way."""
+    output bounds (None: ``NO_CONSTRAINT``) and ``depth`` (C,) (the
+    monotone penalty; None: 0) are read under monotone constraints,
+    ``parent_output`` (C,) the leaves' current outputs (None: 0) under
+    path smoothing (JAX :437, vmapped).  On a CUDA tensor one launch of
+    the split-scan kernel computes the residue and the pick
+    (``scan_cuda.split_scan_pick``); on a CPU tensor its plain version,
+    ``pick_pack`` on ``scan_residue``."""
     from . import scan_cuda
 
     C, _, B, _ = hist.shape
     legs = scan_inputs(meta, params, C, hist.device, constraint, depth,
                        parent_output)
-    residue = scan_cuda.split_scan(
-        hist.contiguous(), feature_mask.contiguous(),
-        parent_sum.contiguous(), meta=meta, params=params,
+    if feature_mask.stride() != (0, 1):      # a broadcast row stays so
+        feature_mask = feature_mask.contiguous()
+    packed = scan_cuda.split_scan_pick(
+        hist.contiguous(), feature_mask, parent_sum.contiguous(),
+        meta=meta, params=params,
         hist_scale=None if hist_scale is None else hist_scale.contiguous(),
         **legs)
-    shift = gain_shift(parent_sum, params, legs["parent_output"])
-    return unpack_children(pick_pack(residue, shift, parent_sum, meta, B), B)
+    return unpack_children(packed, B)

@@ -9,8 +9,10 @@ split scan runs per feature.  Only an O(F) residue a child (``RES_COLS``
 floats a feature) leaves the scan; the cross-feature half of the pick
 runs on it outside.  On the card that round is the hand-written CUDA
 kernel K2 and the valid-set routing K3 (``ops/fused_cuda.py``,
-``csrc/wave_fused.cu``); the functions here are the plain arithmetic both
-share with the staged path, so a fused tree equals a staged one.  The
+``csrc/wave_fused.cu``), and the pick after it the pick kernel
+(``ops/scan_cuda.split_pick``, ``csrc/split_scan.cu``); the functions
+here are the plain arithmetic both share with the staged path, so a
+fused tree equals a staged one.  The
 persistent loop (``wave_loop_rounds > 1``) runs R such rounds in one
 launch, the hand-written kernel K6 on the card (``ops/loop_cuda.py``,
 ``csrc/wave_loop.cu``).
@@ -56,8 +58,8 @@ import functools
 import torch
 
 from .hist_cuda import bins_of_rows
-from .split import (FeatureMeta, SplitParams, SplitResult, gain_shift,
-                    go_left_rule, pick_pack, scan_inputs)
+from .split import (FeatureMeta, SplitParams, SplitResult, go_left_rule,
+                    scan_inputs)
 from .split import unpack_children  # noqa: F401  (the fused path's name)
 
 RES_COLS = 6    # fbest, gain_at_sel, sel (direction*B+thr), left g/h/c
@@ -208,9 +210,7 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       a round at ``int8`` (its rows rounded under the round's scale tile);
       None quantizes them in the round.
     """
-    from . import fused_cuda, quantize
-
-    fmeta = fused_cuda.feature_table(meta)
+    from . import fused_cuda, quantize, scan_cuda
 
     def fused_round(binned, g3, S, *, deep=False, quant_key=None, zq=None,
                     scale=None, mask, csums, sml=None, parent=None, route,
@@ -232,11 +232,12 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
         residue, hsmall, new_leaf, _ = fused_cuda.fused_round(
             binned, g3u, nslots=nslots, num_bins=num_bins, precision=prec,
             meta=meta, params=params, mask=mask, csums=csums, sml=sml,
-            parent=parent, route=route_in, fmeta=fmeta, packed=packed,
+            parent=parent, route=route_in, packed=packed,
             scale=scale, rows8=rows8, **legs)
-        shift = gain_shift(csums, params, legs["parent_output"])
-        return pick_pack(residue, shift, csums, meta, num_bins), hsmall, \
-            new_leaf
+        packed_rows = scan_cuda.split_pick(
+            residue, csums, meta=meta, params=params,
+            parent_output=legs["parent_output"], num_bins=num_bins)
+        return packed_rows, hsmall, new_leaf
 
     fused_round.supports_route = True
     fused_round.route_rows = functools.partial(fused_route_rows, meta=meta,
@@ -375,9 +376,8 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     knobs bound here and, on a CUDA device, the card's limits.  ``rounds
     == 1`` is never built: the trainer runs the single round.  ``packed``:
     ``binned`` holds 4-bit packed bytes, and K6 runs its packed leg."""
-    from . import fused_cuda, loop_cuda
+    from . import loop_cuda
 
-    fmeta = fused_cuda.feature_table(meta)
     R = int(min(rounds, _LOOP_MAX_ROUNDS))
 
     def fused_loop(binned, g3, leaf_id, ft12, num_leaves, key=None, *, K,
@@ -387,7 +387,7 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
             binned, g3, leaf_id, ft12.contiguous(), num_leaves, rounds=R,
             K=K, slot_buckets=tuple(slot_buckets), max_depth=max_depth,
             base_mask=base_mask, num_bins=num_bins, precision=precision,
-            meta=meta, params=params, pool=pool, fmeta=fmeta, packed=packed,
+            meta=meta, params=params, pool=pool, packed=packed,
             key=key, quant_buckets=tuple(quant_buckets), quant=quant,
             rows8=rows8)
 

@@ -25,7 +25,8 @@ from lightgbmv1_tpu_torch import Booster, Dataset, train
 from lightgbmv1_tpu_torch import config as tconfig
 from lightgbmv1_tpu_torch import metrics as tmetrics
 from lightgbmv1_tpu_torch.config import Config, unported_reason
-from lightgbmv1_tpu_torch.ops.split import FeatureMeta, SplitParams
+from lightgbmv1_tpu_torch.ops.split import (FeatureMeta, SplitParams,
+                                            with_tables)
 from lightgbmv1_tpu_torch.parallel.trainer import (build_trainer,
                                                    select_bin_layout)
 
@@ -232,8 +233,8 @@ def test_gpu_use_dp_keeps_byte_bins_and_f32_deep_rounds(capsys):
     sr = Config.from_dict({"objective": "binary", "gpu_use_dp": True,
                            "hist_dtype_deep": "int8sr", "num_leaves": 15})
     assert unported_reason(sr) is None
-    meta = FeatureMeta(*(torch.zeros(2, dtype=torch.int64),) * 4,
-                       usable=torch.ones(2, dtype=torch.bool))
+    meta = with_tables(FeatureMeta(*(torch.zeros(2, dtype=torch.int64),) * 4,
+                                   usable=torch.ones(2, dtype=torch.bool)))
     build_trainer(sr, meta, SplitParams(), 64, CPU)
     assert "int8sr disabled, deep rounds run f32" in capsys.readouterr().err
     assert unported_reason(Config.from_dict(

@@ -91,7 +91,7 @@ def _metas(F, B, opts, rng):
         is_categorical=jnp.zeros(F, bool), usable=jnp.ones(F, bool),
         monotone_type=jnp.asarray(mono, jnp.int32),
         contri=None if contri is None else jnp.asarray(contri))
-    t = tsplit.FeatureMeta(
+    t = tsplit.with_tables(tsplit.FeatureMeta(
         num_bins=torch.as_tensor(nb, dtype=torch.int64),
         missing_type=torch.as_tensor(mt, dtype=torch.int64),
         nan_bin=torch.as_tensor(nan_bin, dtype=torch.int64),
@@ -99,7 +99,7 @@ def _metas(F, B, opts, rng):
         usable=torch.ones(F, dtype=torch.bool),
         monotone_type=(torch.as_tensor(mono, dtype=torch.int64)
                        if mono_on else None),
-        contri=None if contri is None else torch.from_numpy(contri))
+        contri=None if contri is None else torch.from_numpy(contri)))
     return j, t, nb
 
 

@@ -74,12 +74,12 @@ def _metas(F, B, rng):
         zero_bin=jnp.asarray(zero_bin, jnp.int32),
         is_categorical=jnp.zeros(F, bool), usable=jnp.asarray(usable),
         monotone_type=jnp.zeros(F, jnp.int32))
-    t = tsplit.FeatureMeta(
+    t = tsplit.with_tables(tsplit.FeatureMeta(
         num_bins=torch.as_tensor(nb, dtype=torch.int64),
         missing_type=torch.as_tensor(mt, dtype=torch.int64),
         nan_bin=torch.as_tensor(nan_bin, dtype=torch.int64),
         zero_bin=torch.as_tensor(zero_bin, dtype=torch.int64),
-        usable=torch.as_tensor(usable))
+        usable=torch.as_tensor(usable)))
     return j, t, nb
 
 
@@ -509,7 +509,8 @@ def test_wrappers_take_the_plain_version_on_the_cpu_only():
                               t(r["feats"]), None, r["num_leaves"])
     fused_cuda.reset_launch_counts()
     assert not any(fused_cuda.plain_counts.values())
-    table = fused_cuda.feature_table(r["tmeta"])
+    table = r["tmeta"].table
+    assert torch.equal(table, tsplit.feature_table(r["tmeta"]))
     assert table.dtype == torch.int32 and table.shape == (5, 5)
     assert table[3].tolist() == r["tmeta"].zero_bin.tolist()
 
@@ -523,8 +524,9 @@ def test_fused_ineligible_reason():
         == "int16 bins exceed the uint8 one-hot kernel family"
     assert twf.fused_ineligible_reason(bin_dtype=torch.uint8, num_bins=512) \
         == "num_bins > 256 exceeds the uint8 kernel family"
-    meta = tsplit.FeatureMeta(*(torch.zeros(2, dtype=torch.int64),) * 4,
-                              usable=torch.ones(2, dtype=torch.bool))
+    meta = tsplit.with_tables(tsplit.FeatureMeta(
+        *(torch.zeros(2, dtype=torch.int64),) * 4,
+        usable=torch.ones(2, dtype=torch.bool)))
     with pytest.raises(NotImplementedError,
                        match="int16 bins exceed the uint8 one-hot kernel "
                        "family"):

@@ -46,7 +46,8 @@ from lightgbmv1_tpu_torch.ops import hist_cuda, loop_cuda
 from lightgbmv1_tpu_torch.ops import quantize as tq
 from lightgbmv1_tpu_torch.ops import split as tsplit
 from lightgbmv1_tpu_torch.ops import wave_fused as twf
-from lightgbmv1_tpu_torch.ops.split import FeatureMeta, SplitParams
+from lightgbmv1_tpu_torch.ops.split import (FeatureMeta, SplitParams,
+                                            with_tables)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
 
 from test_torch_fused import _round
@@ -387,8 +388,8 @@ def test_loop_int8_refusals():
                               "accumulate (hist_dtype=f32)")
     assert twf.plan_wave_loop(precision="int8", deep_precision="int8",
                               **plan)["eligible"]
-    meta = FeatureMeta(*(torch.zeros(2, dtype=torch.int64),) * 4,
-                       usable=torch.ones(2, dtype=torch.bool))
+    meta = with_tables(FeatureMeta(*(torch.zeros(2, dtype=torch.int64),) * 4,
+                                   usable=torch.ones(2, dtype=torch.bool)))
     cfg = Config.from_dict({"objective": "binary", "num_leaves": 255,
                             "hist_method": "fused", "wave_loop_rounds": 4,
                             "hist_dtype_deep": "int8"})

@@ -96,12 +96,12 @@ def _metas(F, B, rng):
         zero_bin=jnp.asarray(zero_bin, jnp.int32),
         is_categorical=jnp.zeros(F, bool), usable=jnp.ones(F, bool),
         monotone_type=jnp.zeros(F, jnp.int32))
-    t = tsplit.FeatureMeta(
+    t = tsplit.with_tables(tsplit.FeatureMeta(
         num_bins=torch.as_tensor(nb, dtype=torch.int64),
         missing_type=torch.as_tensor(mt, dtype=torch.int64),
         nan_bin=torch.as_tensor(nan_bin, dtype=torch.int64),
         zero_bin=torch.as_tensor(zero_bin, dtype=torch.int64),
-        usable=torch.ones(F, dtype=torch.bool))
+        usable=torch.ones(F, dtype=torch.bool)))
     return j, t
 
 
