@@ -28,7 +28,11 @@ Phases (any failure exits non-zero with no ``ok`` line):
               raw scores bitwise equal at every row-tiles-a-block the
               wrapper picks for the buckets 256 ... 131,072 and at the
               extremes, and for rows scored as a 256-row bucket or
-              inside the 131,072-row chunk.  K5's leaf ids exact.
+              inside the 131,072-row chunk.  K5's leaf ids exact at
+              u8, u16 and i32 codes at 131,072, 1,001 and 256 rows on
+              each model, on the headline model cut to 499 trees with
+              three of one leaf (a ragged last group), on rows of 29 B
+              and of 48 KB, and at other launch plans.
 5. bulk     — the main path, launch counts reset first:
               ``Booster.predict(X, predict_method="fused", raw_score=True)``
               on ``--rows`` rows with NaNs and zeros, ``pred_leaf`` on a
@@ -45,7 +49,9 @@ Phases (any failure exits non-zero with no ``ok`` line):
               with its device time by torch.profiler (walk and combine),
               the walks' load bound (walk_loads), K4's own shared-memory
               words and its lane efficiency (thread steps over 32 x warp
-              steps under its mapping, from the per-walk step counts).
+              steps under its mapping, from the per-walk step counts);
+              K5 at the same sizes beside K4's leaf mode, with its device
+              time and the lane efficiency of its mapping.
 8. data     — ``--train-rows`` x 28 training rows and 131,072 valid rows
               from the port's copy of bench.py:42 make_data, binned at
               max_bin=63 (B = 64) by ``Dataset.construct``.
@@ -377,6 +383,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import functools
 import hashlib
 import json
 import os
@@ -533,22 +540,22 @@ def leaf_depths(trees, L):
 
 def walk_counts(tables, codes, n_steps, zero_code, nan_code,
                 chunk=16384):
-    """Leaf ids (N, T), and the steps and extra zero-bin loads of every
-    (row, tree) walk of ``codes`` (each (N, T) int16), counted as
-    walk_tree in predict_walk.cu makes them: each step loads the split
-    feature, the row's code, the missing type and the child; then
-    default_left for a missing value, else the threshold bin and, for a
-    NaN or zero code, the zero bin."""
+    """Leaf ids (N, T), and the steps and extra loads of every (row, tree)
+    walk of ``codes`` (each (N, T) int16), counted as the decision needs
+    them: each step loads the split feature, the row's code, the threshold
+    bin (default_left in its place for a missing value) and the child it
+    takes; a NaN or zero code also the missing type, and where it is not
+    missing the zero bin (the extra loads)."""
     T, L1 = tables.split_feature.shape
     off = torch.arange(T, device=codes.device)[None, :] * L1
     feat, tbin, zbin, dl, mt, lc, rc = (a.reshape(-1) for a in tables[1:8])
     root = (tables.num_leaves > 1).long() - 1          # 0, or -1: leaf 0
-    leaves, steps, zloads = [], [], []
+    leaves, steps, extras = [], [], []
     for lo in range(0, codes.shape[0], chunk):
         c = codes[lo: lo + chunk].long()
         node = root.expand(c.shape[0], T)
         st = torch.zeros(node.shape, dtype=torch.int16, device=c.device)
-        zl = torch.zeros_like(st)
+        ex = torch.zeros_like(st)
         for _ in range(max(int(n_steps), 1)):
             act = node >= 0
             i = node.clamp(min=0) + off
@@ -561,24 +568,30 @@ def walk_counts(tables, codes, n_steps, zero_code, nan_code,
             left = torch.where(missing, dl[i] != 0,
                                torch.where(special, zbin[i], b) <= tbin[i])
             st += act.to(torch.int16)
-            zl += (act & ~missing & special).to(torch.int16)
+            ex += (act & special).to(torch.int16)
+            ex += (act & ~missing & special).to(torch.int16)
             node = torch.where(act, torch.where(left, lc[i], rc[i]).long(),
                                node)
         leaves.append((-node - 1).to(torch.int32))
         steps.append(st)
-        zloads.append(zl)
-    return torch.cat(leaves), torch.cat(steps), torch.cat(zloads)
+        extras.append(ex)
+    return torch.cat(leaves), torch.cat(steps), torch.cat(extras)
+
+
+def load_count(steps, extra) -> int:
+    """Four-byte table and code loads of the walks walk_counts counted: 4
+    a step and the extra loads of NaN and zero codes."""
+    return 4 * int(steps.sum()) + int(extra.sum())
 
 
 def walk_loads(tables, codes, n_steps, zero_code, nan_code,
                chunk=16384):
     """Leaf ids, steps and four-byte table/code loads of every (row, tree)
-    walk of ``codes`` (walk_counts): 5 loads a step, 6 where the zero bin
-    is read."""
-    leaf, steps, zloads = walk_counts(tables, codes, n_steps, zero_code,
-                                      nan_code, chunk)
-    n = int(steps.sum())
-    return leaf, n, 5 * n + int(zloads.sum())
+    walk of ``codes`` (walk_counts, load_count): 4 loads a step, 5 where a
+    NaN or zero code is missing at the node, 6 where it is not."""
+    leaf, steps, extra = walk_counts(tables, codes, n_steps, zero_code,
+                                     nan_code, chunk)
+    return leaf, int(steps.sum()), load_count(steps, extra)
 
 
 # ---------------------------------------------------------------------------
@@ -663,13 +676,86 @@ def phase_kernels(models, dev, n_rows, rng, n_features=F) -> dict:
         leaf_tables = pc.walk_tables(bp.arrays)
         kw5 = dict(n_steps=bp.depth, zero_code=bp.binner.zero_code,
                    nan_code=bp.binner.nan_code)
-        got = pc.serving_leaf(leaf_tables, unpacked, **kw5)
-        want = pc.serving_leaf_ref(leaf_tables, unpacked, **kw5)
-        check(torch.equal(got, want), f"K5 {name} leaf ids differ")
-        check(torch.equal(pc.serving_leaf(leaf_tables, unpacked[:1001], **kw5),
-                          want[:1001]), f"K5 {name} ragged leaf ids differ")
-        log(f"  K5 {name} leaf: exact ({tuple(got.shape)})")
+        check_k5(name, leaf_tables, unpacked, kw5)
     return err
+
+
+def check_k5(name, tables, codes, kw, sizes=(None, 1001, 256)) -> None:
+    """K5's leaf ids exactly its plain version's on the same card inputs:
+    u8, u16 and i32 codes (the plain version once, on the u8 codes), at
+    every row count of ``sizes`` (None: all rows)."""
+    want = pc.serving_leaf_ref(tables, codes, **kw)
+    n_rows = codes.shape[0]
+    for dtype in (torch.uint8, torch.uint16, torch.int32):
+        wide = codes.to(dtype)
+        for n in sizes:
+            n = n_rows if n is None else n
+            got = pc.serving_leaf(tables, wide[:n], **kw)
+            check(torch.equal(got, want[:n]), f"K5 {name} "
+                  f"{str(dtype)[6:]} at {n} rows: leaf ids differ")
+    plan = pc.plan_leaf_walk(T=tables.split_feature.shape[0],
+                             L1=tables.split_feature.shape[1],
+                             F=codes.shape[1], code_bytes=1)
+    log(f"  K5 {name} leaf ids exact at u8 / u16 / i32, "
+        f"{sorted({n_rows if n is None else n for n in sizes})} rows "
+        f"(group {plan['group']} of {tables.split_feature.shape[0]} trees, "
+        f"{plan['rows']} rows a block)")
+
+
+def phase_leaf_shapes(bp, dev, rng) -> None:
+    """K5 on shapes the headline model does not give it, each exactly its
+    plain version: trees of one leaf (parked at the root, their node rows
+    zeroed as a pad tree's) in a model of 499 trees, so the last group is
+    shorter than the others; codes rows of an odd byte width
+    (staged a byte at a time) and rows of 48 KB of int32 codes (four rows
+    a block, in dynamic shared memory past 48 KB); and other launch plans
+    (the group, the row tile and the threads given), which must not change
+    a leaf id."""
+    X = make_rows(rng, 4096)
+    codes = torch.from_numpy(bp.binner.prebin(X)).to(dev)
+    kw = dict(n_steps=bp.depth, zero_code=bp.binner.zero_code,
+              nan_code=bp.binner.nan_code)
+    full = pc.walk_tables(bp.arrays)
+    T = full.split_feature.shape[0] - 1
+    one = [0, T // 2, T - 1]
+    parts = {}
+    for key, a in full._asdict().items():
+        if torch.is_tensor(a):
+            a = a[:T].clone()
+            if key == "num_leaves":
+                a[one] = 1
+            elif key != "leaf_value":
+                a[one] = 0
+        parts[key] = a
+    tables = pc.WalkTables(**parts)
+    check_k5(f"one-leaf trees, T = {T}", tables, codes, kw,
+             sizes=(None, 1001, 256, 1))
+    ref = pc.serving_leaf_ref(full, codes[:300], **kw)
+    cases = {"u8 rows of 29 B": torch.cat(
+        [codes[:300], torch.zeros((300, 1), dtype=torch.uint8,
+                                  device=dev)], 1)}
+    wide = torch.zeros((300, 12 * 1024), dtype=torch.int32, device=dev)
+    wide[:, : codes.shape[1]] = codes[:300]
+    cases["i32 rows of 48 KB"] = wide
+    for name, c in cases.items():
+        plan = pc.plan_leaf_walk(T=T + 1, L1=full.split_feature.shape[1],
+                                 F=c.shape[1], code_bytes=c.element_size())
+        check(torch.equal(pc.serving_leaf(full, c, **kw), ref),
+              f"K5 {name}: leaf ids differ ({plan})")
+        smem = plan["rows"] * (plan["stride_bytes"] + 4 * (plan["group"] + 1))
+        log(f"  K5 {name}: exact ({plan['rows']} rows a block, {smem} B of "
+            "shared memory)")
+    u8 = codes[:1001]
+    want = pc.serving_leaf_ref(full, u8, **kw)
+    stride = 4 * ((-(-u8.shape[1] // 4)) | 1)
+    for group, rows, threads in ((4, 256, 256), (16, 128, 128),
+                                 (32, 32, 32), (5, 7, 32), (3, 64, 96)):
+        plan = dict(group=group, rows=rows, threads=threads,
+                    stride_bytes=stride)
+        check(torch.equal(pc.serving_leaf(full, u8, plan=plan, **kw), want),
+              f"K5 at plan {plan}: leaf ids differ")
+    log("  K5 exact at groups 4 / 16 / 32 / 5 / 3 and row tiles 256 / 128 / "
+        "32 / 7 / 64")
 
 
 def phase_bulk(booster, trees, n_rows, rng) -> dict:
@@ -940,12 +1026,36 @@ def k4_device_ms(fn, reps: int = 20) -> dict:
     return out
 
 
+def k5_device_ms(fn, reps: int = 20):
+    """K5's device time a call by torch.profiler (None: the profiler saw
+    no kernel)."""
+    ms = kernel_device_ms(fn, ("serving_leaf_kernel",), reps)
+    return ms["serving_leaf_kernel"] or None
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
+def leaf_lane_efficiency(steps: torch.Tensor) -> float:
+    """Thread steps over 32 x warp steps under K5's mapping: a warp is 32
+    neighbouring rows of a row tile (whole warps at the headline), walking
+    one tree at a time until its deepest lane is done; a tree of one leaf
+    takes no step."""
+    N, T = steps.shape
+    n32 = -(-N // 32) * 32
+    s = torch.zeros((n32, T), dtype=steps.dtype, device=steps.device)
+    s[:N] = steps
+    return int(steps.sum()) / (32 * int(s.view(-1, 32, T).amax(1).sum()))
+
+
 def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     """Each kernel at the main path's chunk shape (131,072 rows of u8
     codes of the 500-tree model) beside its plain version and bound; K4
-    also at the server's 256-, 512- and 1,024-row buckets, each size with
-    its walk_loads bound, K4's own shared-memory words and the lane
-    efficiency of its mapping."""
+    and K5 also at the server's 256-, 512- and 1,024-row buckets, each
+    size with its walk_loads bound, its device time and the lane
+    efficiency of its mapping (K4 also its own shared-memory words, K5
+    K4's leaf mode beside it)."""
     bp = booster._device_predictor(trees, 1, 0, "fused", {})
     n = bp.chunk_rows
     codes = torch.from_numpy(bp.encode(make_rows(rng, n))).to(dev)
@@ -996,17 +1106,20 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     # K4 at the server's buckets and the bulk chunk: the seven-table
     # walk's bound formula (walk_loads) beside K4's own words a step (a
     # 16-byte record and the code; a leaf value a walk) and its lanes'
-    # use of the steps
-    sizes = []
+    # use of the steps; K5 at the same sizes beside K4's leaf mode, each
+    # with its device time and the lane efficiency of its mapping
+    leaf_plan = pc.plan_leaf_walk(T=T, L1=L1, F=codes.shape[1],
+                                  code_bytes=codes.element_size())
+    sizes, leaf_sizes = [], []
     for m in (256, 512, 1024, n):
         sub = codes[:m]
-        _, st, zl = walk_counts(leaf_tables, sub, **kw)
+        reps = 10 if m == n else 50
+        _, st, ex = walk_counts(leaf_tables, sub, **kw)
         m_steps = int(st.sum())
-        m_walk = 5 * m_steps + int(zl.sum())
+        m_walk = load_count(st, ex)
         per_walk = kernel_steps(leaf_tables, st, t_pad)
         k_steps = int(per_walk.sum())
-        ms = time_ms(lambda: pc.serving_fused(tables, sub, **fkw),
-                     10 if m == n else 50)
+        ms = time_ms(lambda: pc.serving_fused(tables, sub, **fkw), reps)
         rec = {"rows": m, "ms": ms,
                "bound_ms": (m_walk + m * T) / GATHERS_PER_S * 1e3,
                "walk_loads": m_walk, "walk_steps": m_steps,
@@ -1026,8 +1139,29 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
             "tiles a block")
         sizes.append(rec)
         rows[0][f"ms_at_{m}_rows"] = ms
+        k5 = functools.partial(pc.serving_leaf, leaf_tables, sub, **kw)
+        k4_leaf = functools.partial(pc.serving_fused, tables, sub,
+                                    mode="leaf", **fkw)
+        lrec = {"rows": m, "ms": time_ms(k5, reps),
+                "k4_leaf_ms": time_ms(k4_leaf, reps),
+                "bound_ms": m_walk / GATHERS_PER_S * 1e3,
+                "walk_loads": m_walk, "walk_steps": m_steps,
+                "lane_efficiency": leaf_lane_efficiency(st)}
+        lrec["device_ms"] = k5_device_ms(k5)
+        lrec["k4_leaf_device_ms"] = k4_device_ms(k4_leaf)["device_ms"]
+        log(f"  serving_leaf at {m} rows: {lrec['ms']:.4f} ms a call, "
+            f"{fmt_ms(lrec['device_ms'])} on the device; K4's leaf mode "
+            f"{lrec['k4_leaf_ms']:.4f} ms, {fmt_ms(lrec['k4_leaf_device_ms'])}"
+            f" on the device; bound {lrec['bound_ms']:.4f} ms, lane "
+            f"efficiency {lrec['lane_efficiency']:.3f}")
+        leaf_sizes.append(lrec)
+        rows[1][f"ms_at_{m}_rows"] = lrec["ms"]
     rows[0]["sizes"] = sizes
     rows[0]["lane_efficiency"] = sizes[-1]["lane_efficiency"]
+    rows[1]["sizes"] = leaf_sizes
+    rows[1]["device_ms"] = leaf_sizes[-1]["device_ms"]
+    rows[1]["lane_efficiency"] = leaf_sizes[-1]["lane_efficiency"]
+    rows[1]["plan"] = leaf_plan
     rows[0]["plan"] = bp.fused_plan
     return rows
 
@@ -5168,6 +5302,8 @@ def main(argv=None) -> int:
         "B(packed,K=1)": (text_b, trees_b, 1, {}),
         "C(u8,K=3)": (text_c, trees_c, 3, {}),
     }, dev, 1 << 17, rng)          # the bulk path's chunk shape
+    phase_leaf_shapes(BatchPredictor(trees_a, 1, F, method="pallas",
+                                     device=dev), dev, rng)
 
     log("== phase 5: bulk predict (main path; launch counts reset)")
     pc.reset_launch_counts()

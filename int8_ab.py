@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The int8 legs of K1 and K2 of two checkouts of the port, timed on one
-NVIDIA card in the order A, B, B, A.
+NVIDIA card in the order A, B, B, A
+(``ab_driver.py``).
 
     python3 int8_ab.py A_ROOT B_ROOT [--iters 50] [--train-rows 1048576]
 
@@ -28,14 +29,13 @@ text, 2 without a card.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
 import inspect
-import json
 import os
-import subprocess
 import sys
 import time
+
+import ab_driver
 
 LIBS = ["hist", "wave_fused", "quantize", "split_scan"]
 ROUNDS = 5
@@ -136,57 +136,29 @@ def child(root: str, iters: int, rows: int) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("roots", nargs="*")
-    ap.add_argument("--child", default=None)
+def add_args(ap) -> None:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--train-rows", type=int, default=1 << 20)
-    args = ap.parse_args(argv)
-    import torch
 
-    if not torch.cuda.is_available():
-        print("int8_ab: torch.cuda.is_available() is False — this times "
-              "the int8 legs on a CUDA card", file=sys.stderr)
-        return 2
-    if args.child:
-        print(json.dumps(child(args.child, args.iters, args.train_rows)),
-              flush=True)
-        return 0
-    if len(args.roots) != 2:
-        ap.error("expected two checkout roots, A and B")
-    a, b = args.roots
-    res = []
-    for root in (a, b, b, a):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", root,
-             "--iters", str(args.iters), "--train-rows",
-             str(args.train_rows)], capture_output=True, text=True)
-        sys.stderr.write(proc.stderr[-4000:])
-        if proc.returncode != 0:
-            print(f"int8_ab: {root} exited {proc.returncode}",
-                  file=sys.stderr)
-            return proc.returncode
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        res.append(json.loads(line))
+
+def summarize(res, pair):
+    """Each leg's times; ok: no check failed and each staged text equals
+    its fused text."""
     ok = all(not r["fails"] and r["staged_sha256"] == r["fused_sha256"]
              for r in res)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    summary = {"A": a, "B": b, "ok": ok, "card": card.stdout.strip()}
-    for leg, keys in (("k1", ("own_tile", "T128")), ("k2", (None,))):
-        for key in keys:
+    keys = {}
+    for leg, names in (("k1", ("own_tile", "T128")), ("k2", (None,))):
+        for key in names:
             pick = (lambda r: r[leg][key]) if key else (lambda r: r[leg])
-            summary[f"{leg}{'_' + key if key else ''}"] = {
-                k: {"A": [pick(res[0])[k], pick(res[3])[k]],
-                    "B": [pick(res[1])[k], pick(res[2])[k]]}
+            keys[f"{leg}{'_' + key if key else ''}"] = {
+                k: pair(lambda r: pick(r)[k])
                 for k in pick(res[0]) if k.startswith("int8")
                 or k in ("bf16x2",)}
-    print(json.dumps(summary), flush=True)
-    return 0 if ok else 1
+    return keys, ok
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_driver.main(
+        __file__, __doc__, "the int8 legs",
+        lambda root, args: child(root, args.iters, args.train_rows),
+        summarize, add_args))

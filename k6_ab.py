@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The persistent wave loop (K6) of two checkouts of the port, timed on one
-NVIDIA card in the order A, B, B, A.
+NVIDIA card in the order A, B, B, A
+(``ab_driver.py``).
 
     python3 k6_ab.py A_ROOT B_ROOT [--iters 50] [--train-rows 1048576]
 
@@ -21,13 +22,12 @@ checkouts write different model texts, 2 without a card.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
-import json
 import os
-import subprocess
 import sys
 import time
+
+import ab_driver
 
 LIBS = ["hist", "wave_fused", "wave_loop", "quantize"]
 
@@ -75,54 +75,26 @@ def child(root: str, iters: int, rows: int) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("roots", nargs="*")
-    ap.add_argument("--child", default=None)
+def add_args(ap) -> None:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--train-rows", type=int, default=1 << 20)
-    args = ap.parse_args(argv)
-    import torch
 
-    if not torch.cuda.is_available():
-        print("k6_ab: torch.cuda.is_available() is False — this times K6 "
-              "on a CUDA card", file=sys.stderr)
-        return 2
-    if args.child:
-        print(json.dumps(child(args.child, args.iters, args.train_rows)),
-              flush=True)
-        return 0
-    if len(args.roots) != 2:
-        ap.error("expected two checkout roots, A and B")
-    a, b = args.roots
-    res = []
-    for root in (a, b, b, a):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", root,
-             "--iters", str(args.iters), "--train-rows",
-             str(args.train_rows)], capture_output=True, text=True)
-        sys.stderr.write(proc.stderr[-4000:])
-        if proc.returncode != 0:
-            print(f"k6_ab: {root} exited {proc.returncode}", file=sys.stderr)
-            return proc.returncode
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        res.append(json.loads(line))
-    summary = {"A": a, "B": b}
-    same = True
+
+def summarize(res, pair):
+    """Each training's texts equal across the checkouts, and its times."""
+    keys, same = {}, True
     for name in ("bf16x2", "int8sr"):
         shas = {r[name]["sha256"] for r in res}
         same &= len(shas) == 1
-        summary[name] = {"texts_equal": len(shas) == 1,
-                         "sha256": sorted(shas)}
+        keys[name] = {"texts_equal": len(shas) == 1, "sha256": sorted(shas)}
         for key in ("ms", "unquantized_ms", "s_per_iter"):
             if key in res[0][name]:
-                summary[name][key] = {
-                    "A": [res[0][name][key], res[3][name][key]],
-                    "B": [res[1][name][key], res[2][name][key]]}
-    print(json.dumps(summary), flush=True)
-    return 0 if same else 1
+                keys[name][key] = pair(lambda r: r[name][key])
+    return keys, same
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_driver.main(
+        __file__, __doc__, "K6",
+        lambda root, args: child(root, args.iters, args.train_rows),
+        summarize, add_args))

@@ -14,11 +14,15 @@
 // node's split feature, then the child.  Codes in and scores out are
 // ~32 B a row, so HBM is idle; the work is the loads of every (row, tree)
 // walk, which an SM serves at 32 four-byte words a clock.  chip_smoke.py
-// prices the bound with the seven-table walk's load count (walk_loads: 5
-// or 6 words a step) over 132 SMs x 32 words x 1.98 GHz, the same formula
-// for every version of K4, and reports K4's own words a step beside it.
+// prices the bound with the loads the decision needs (walk_loads: 4
+// words a step, 5 or 6 for a NaN or zero code, which also reads the
+// missing type and then default_left or the zero bin) over 132 SMs x 32
+// words x 1.98 GHz, the same formula for K4 and K5, and reports K4's own
+// words a step beside it.
 // Below that rate a walk is latency-bound: each step waits for its node,
-// then for its code, and a warp steps until its deepest lane is done.
+// then for its code, and a warp steps until its deepest lane is done
+// (the lanes that are done idle: the lane efficiency chip_smoke.py
+// reports).
 //
 // K4 design.
 //  * The tree axis is cut into G fixed groups of tree_tile consecutive
@@ -52,11 +56,44 @@
 //    do not depend on N, on the chunking or on the block order, and a
 //    server's answer equals Booster.predict bit for bit.
 //
-// K5 design.  The node tables stay in global memory (the 500-tree model's
-// 3.5 MB sit in the 50 MB L2, and hot upper levels in L1); a block stages
-// the codes of R rows in shared memory and its threads walk the R x T
-// (row, tree) pairs with neighbouring threads on neighbouring trees of
-// one row, so the (N, T) leaf-id stores are contiguous.
+// K5 design.  K5 reads the seven int32 node tables as they are, from
+// global memory, so it serves every model whose tables the wrapper takes
+// (no 16-byte records, no 16-bit children, no shared-memory copy of the
+// tables, so no size refusal); it wins by the order of its walks.
+//  * A warp walks one tree at a time: the grid is tree groups x row
+//    tiles (ops/predict_cuda.plan_leaf_walk: the group size from the
+//    model's table bytes, the row tile from the code width and the card's
+//    shared memory, never from the batch), one thread a row of the tile.
+//    All 32 lanes of a warp are on the same tree at the same step, so a
+//    root load is one broadcast and a step at depth d touches at most 2^d
+//    nodes of one tree's table row (1,016 B at 255 leaves: 8 lines), not
+//    32 lines of 32 trees.  The group's tables (7 x 4 x L1 bytes a tree)
+//    are read through the read-only path and stay in L1 for all the
+//    tile's rows and for the next tiles of the same group, which the
+//    block order (row tile fastest) puts on the same SMs.
+//  * A step loads the node's split feature, threshold bin and both
+//    children at once (independent loads of one node), then the row's
+//    code from shared memory, and picks the child in registers: two
+//    dependent round trips a step, not three.  The missing type,
+//    default_left and the zero bin are read only for a NaN or zero code
+//    (another code is never missing).
+//  * One walk a thread: a warp runs each tree until its deepest lane is
+//    done, and every walk a thread interleaves widens that wait to the
+//    deepest of all of them, so on the headline model one walk a thread
+//    ran fastest (k5_ab.py on an H100: 1.49 ms at 131,072 rows against
+//    1.67 / 1.99 / 2.00 / 3.6 ms for 2 / 3 / 4 / 8 trees a thread and 2.30
+//    / 2.75 ms for 2 / 4 rows a thread; latency is hidden by the 8 warps a
+//    block and the blocks an SM instead).
+//  * The decision (walk_trees / next_node) is K4's, one device function
+//    templated on where a node's fields come from: TableNodes here,
+//    RecordNodes (the 16-byte shared records) in K4.
+//  * The codes of the tile are staged in shared memory with a row stride
+//    of an odd number of words, so the lanes' code loads of one feature
+//    fall in 32 different banks at every code width; the leaf ids gather
+//    in a (rows x group) tile in shared memory and leave as each row's
+//    group of ids, contiguous words, so the (N, T) stores coalesce.
+//    A ragged last group (T not a multiple of the group) and a ragged
+//    last row tile are masked.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,39 +120,6 @@ __device__ __forceinline__ int code_of(const CodeT* row, int f) {
     return ((f & 1) ? (byte >> 4) : byte) & 15;
   }
   return static_cast<int>(row[f]);
-}
-
-// One root-to-leaf walk (K5) of the tree whose nodes start at index
-// `base` of the seven tables; exactly the decision of the Pallas kernels
-// (and of models/predict.serving_leaf_binned): NaN and zero ride two
-// reserved codes, a missing value goes default_left, any other compares
-// its code (NaN/zero taken as the bin of 0.0) with the node's threshold
-// bin.  A tree of <= 1 leaf parks on leaf 0.  At most n_steps decisions.
-template <typename CodeT, bool PACKED>
-__device__ __forceinline__ int walk_tree(
-    const int* __restrict__ feat, const int* __restrict__ tbin,
-    const int* __restrict__ zbin, const int* __restrict__ dl,
-    const int* __restrict__ mt, const int* __restrict__ lc,
-    const int* __restrict__ rc, int base, int num_leaves,
-    const CodeT* row, int n_steps, int zero_code, int nan_code) {
-  int node = num_leaves > 1 ? 0 : -1;
-  for (int s = 0; s < n_steps && node >= 0; ++s) {
-    const int i = base + node;
-    const int b = code_of<CodeT, PACKED>(row, feat[i]);
-    const bool is_nan = b == nan_code;
-    const bool is_zero = b == zero_code;
-    const int m = mt[i];
-    const bool missing =
-        (m == kMissingNan) ? is_nan : (m == kMissingZero && (is_nan || is_zero));
-    bool left;
-    if (missing) {
-      left = dl[i] != 0;
-    } else {
-      left = ((is_nan || is_zero) ? zbin[i] : b) <= tbin[i];
-    }
-    node = left ? lc[i] : rc[i];
-  }
-  return -node - 1;
 }
 
 // ---------------------------------------------------------------- K4 ----
@@ -161,62 +165,162 @@ inline size_t fused_smem_bytes(int tree_tile, int l1, int lp, int row_bytes) {
          2 * static_cast<size_t>(codes_buf_bytes(row_bytes));
 }
 
-// Walks one row through `count` <= kWalks trees of the staged group, tree
-// j0 + w * stride for walk w, the walks' steps interleaved so that their
-// independent loads overlap.  The decision is walk_tree's; a parked tree
-// (bit 31 of its root's word 0) takes its first step to leaf 0.
-// leaf[w] = -node - 1, as the Pallas kernel writes it.
-template <typename CodeT, bool PACKED>
-__device__ __forceinline__ void walk_trees(const int4* __restrict__ s_rec,
-                                           int l1, int j0, int stride,
-                                           int count, const CodeT* row,
-                                           int n_steps, int zero_code,
-                                           int nan_code, int (&leaf)[kWalks]) {
-  int node[kWalks];
-  int off[kWalks];
+// Where a walk step reads a node's fields.  Each source gives the node of
+// index `node` of the tree whose nodes start at `base`, and that node's
+// fields; a field the decision may not need is read only when asked for.
+//
+// K4: the 16-byte records staged in shared memory (ops/predict_cuda
+// node_records); a tree of <= 1 leaf parks through bit 31 of its root's
+// word 0 at its first step.
+struct RecordNodes {
+  const int4* rec;
+  int l1;
+  struct Node {
+    int4 r;
+  };
+  __device__ __forceinline__ int base(int tree) const { return tree * l1; }
+  __device__ __forceinline__ int root(int) const { return 0; }
+  __device__ __forceinline__ Node load(int b, int node) const {
+    return {rec[b + node]};
+  }
+  __device__ __forceinline__ int feature(const Node& n) const {
+    return n.r.x & kFeatMask;
+  }
+  __device__ __forceinline__ int threshold(const Node& n) const {
+    return n.r.y;
+  }
+  __device__ __forceinline__ int zero_bin(const Node& n) const {
+    return n.r.z;
+  }
+  __device__ __forceinline__ int missing_type(const Node& n) const {
+    return (n.r.x >> 28) & 3;
+  }
+  __device__ __forceinline__ bool default_left(const Node& n) const {
+    return ((n.r.x >> 30) & 1) != 0;
+  }
+  __device__ __forceinline__ int child(const Node& n, bool left) const {
+    const int c = left ? static_cast<int>(static_cast<short>(n.r.w & 0xFFFF))
+                       : (n.r.w >> 16);
+    return n.r.x < 0 ? -1 : c;
+  }
+};
+
+// K5: the seven int32 (T, L1) tables and num_leaves in global memory,
+// read through the read-only path; a tree of <= 1 leaf parks at its root.
+struct TableNodes {
+  const int* __restrict__ nl;
+  const int* __restrict__ feat;
+  const int* __restrict__ tbin;
+  const int* __restrict__ zbin;
+  const int* __restrict__ dl;
+  const int* __restrict__ mt;
+  const int* __restrict__ lc;
+  const int* __restrict__ rc;
+  int l1;
+  struct Node {
+    int i;
+    int feat;
+    int tbin;
+    int left;
+    int right;
+  };
+  __device__ __forceinline__ int base(int tree) const { return tree * l1; }
+  __device__ __forceinline__ int root(int tree) const {
+    return __ldg(nl + tree) > 1 ? 0 : -1;
+  }
+  __device__ __forceinline__ Node load(int b, int node) const {
+    const int i = b + node;
+    return {i, __ldg(feat + i), __ldg(tbin + i), __ldg(lc + i),
+            __ldg(rc + i)};
+  }
+  __device__ __forceinline__ int feature(const Node& n) const {
+    return n.feat;
+  }
+  __device__ __forceinline__ int threshold(const Node& n) const {
+    return n.tbin;
+  }
+  __device__ __forceinline__ int zero_bin(const Node& n) const {
+    return __ldg(zbin + n.i);
+  }
+  __device__ __forceinline__ int missing_type(const Node& n) const {
+    return __ldg(mt + n.i);
+  }
+  __device__ __forceinline__ bool default_left(const Node& n) const {
+    return __ldg(dl + n.i) != 0;
+  }
+  __device__ __forceinline__ int child(const Node& n, bool left) const {
+    return left ? n.left : n.right;
+  }
+};
+
+// One decision, the Pallas kernels' (and models/predict
+// .serving_leaf_binned's): NaN and zero ride two reserved codes; such a
+// code goes default_left where the node's missing type takes it as
+// missing, else compares as the bin of 0.0 (the zero bin); any other
+// code compares with the node's threshold bin.  A code that is neither
+// is never missing, so only the reserved codes read the missing type.
+template <typename Nodes>
+__device__ __forceinline__ int next_node(const Nodes& nodes,
+                                         const typename Nodes::Node& nd,
+                                         int b, int zero_code, int nan_code) {
+  const bool is_nan = b == nan_code;
+  bool left;
+  if (is_nan || b == zero_code) {
+    const int m = nodes.missing_type(nd);
+    const bool missing = (m == kMissingNan) ? is_nan : (m == kMissingZero);
+    left = missing ? nodes.default_left(nd)
+                   : nodes.zero_bin(nd) <= nodes.threshold(nd);
+  } else {
+    left = b <= nodes.threshold(nd);
+  }
+  return nodes.child(nd, left);
+}
+
+// Walks one row through `count` <= W trees, tree j0 + w * stride for walk
+// w, the walks' steps interleaved so that their independent loads overlap
+// (K4: W = kWalks; K5: W = 1); at most n_steps decisions a walk.  leaf[w]
+// = -node - 1, as the Pallas kernels write it (a walk cut by n_steps
+// keeps its internal node).
+template <typename Nodes, typename CodeT, bool PACKED, int W = kWalks>
+__device__ __forceinline__ void walk_trees(const Nodes& nodes, int j0,
+                                           int stride, int count,
+                                           const CodeT* row, int n_steps,
+                                           int zero_code, int nan_code,
+                                           int (&leaf)[W]) {
+  int node[W];
+  int base[W];
 #pragma unroll
-  for (int w = 0; w < kWalks; ++w) {
-    node[w] = w < count ? 0 : -1;
-    off[w] = (j0 + w * stride) * l1;
+  for (int w = 0; w < W; ++w) {
+    const int tree = j0 + w * stride;
+    base[w] = nodes.base(tree);
+    node[w] = w < count ? nodes.root(tree) : -1;
   }
   for (int s = 0; s < n_steps; ++s) {
-    bool act[kWalks];
+    bool act[W];
     bool any = false;
 #pragma unroll
-    for (int w = 0; w < kWalks; ++w) {
+    for (int w = 0; w < W; ++w) {
       act[w] = node[w] >= 0;
       any = any || act[w];
     }
     if (!any) break;
-    int4 r[kWalks];
+    typename Nodes::Node nd[W];
 #pragma unroll
-    for (int w = 0; w < kWalks; ++w) {
-      if (act[w]) r[w] = s_rec[off[w] + node[w]];
+    for (int w = 0; w < W; ++w) {
+      if (act[w]) nd[w] = nodes.load(base[w], node[w]);
     }
-    int b[kWalks];
+    int b[W];
 #pragma unroll
-    for (int w = 0; w < kWalks; ++w) {
-      if (act[w]) b[w] = code_of<CodeT, PACKED>(row, r[w].x & kFeatMask);
+    for (int w = 0; w < W; ++w) {
+      if (act[w]) b[w] = code_of<CodeT, PACKED>(row, nodes.feature(nd[w]));
     }
 #pragma unroll
-    for (int w = 0; w < kWalks; ++w) {
-      if (!act[w]) continue;
-      const int x = r[w].x;
-      const bool is_nan = b[w] == nan_code;
-      const bool is_zero = b[w] == zero_code;
-      const int m = (x >> 28) & 3;
-      const bool missing = (m == kMissingNan)
-                               ? is_nan
-                               : (m == kMissingZero && (is_nan || is_zero));
-      const bool left = missing ? ((x >> 30) & 1) != 0
-                                : ((is_nan || is_zero) ? r[w].z : b[w]) <= r[w].y;
-      const int child = left ? static_cast<int>(static_cast<short>(r[w].w & 0xFFFF))
-                             : (r[w].w >> 16);
-      node[w] = x < 0 ? -1 : child;
+    for (int w = 0; w < W; ++w) {
+      if (act[w]) node[w] = next_node(nodes, nd[w], b[w], zero_code, nan_code);
     }
   }
 #pragma unroll
-  for (int w = 0; w < kWalks; ++w) leaf[w] = -node[w] - 1;
+  for (int w = 0; w < W; ++w) leaf[w] = -node[w] - 1;
 }
 
 // Block (g, c): tree group g (trees g * tree_tile ...) over the row tiles
@@ -241,6 +345,7 @@ __global__ void __launch_bounds__(kRowTile) serving_fused_kernel(
   const int tile0 = blockIdx.y * tiles_per_block;
   const int tile_end = min(tile0 + tiles_per_block, n_tiles);
   const int t_base = g * tree_tile;
+  const RecordNodes nodes{s_rec, l1};
 
   auto stage_codes = [&](int tile, unsigned char* dst) {
     const int rows = min(kRowTile, n - tile * kRowTile);
@@ -270,9 +375,9 @@ __global__ void __launch_bounds__(kRowTile) serving_fused_kernel(
       if (LEAF) {
         int* out = leaves + static_cast<int64_t>(row) * t_pad + t_base;
         for (int j = 0; j < tree_tile; j += kWalks) {
-          walk_trees<CodeT, PACKED>(s_rec, l1, j, 1,
-                                    min(kWalks, tree_tile - j), my, n_steps,
-                                    zero_code, nan_code, leaf);
+          walk_trees<RecordNodes, CodeT, PACKED>(
+              nodes, j, 1, min(kWalks, tree_tile - j), my, n_steps,
+              zero_code, nan_code, leaf);
 #pragma unroll
           for (int w = 0; w < kWalks; ++w) {
             if (j + w < tree_tile) out[j + w] = leaf[w];
@@ -286,8 +391,9 @@ __global__ void __launch_bounds__(kRowTile) serving_fused_kernel(
           float acc = 0.f;
           for (int j = j0; j < tree_tile; j += kWalks * k) {
             const int count = min(kWalks, (tree_tile - j + k - 1) / k);
-            walk_trees<CodeT, PACKED>(s_rec, l1, j, k, count, my, n_steps,
-                                      zero_code, nan_code, leaf);
+            walk_trees<RecordNodes, CodeT, PACKED>(nodes, j, k, count, my,
+                                                   n_steps, zero_code,
+                                                   nan_code, leaf);
 #pragma unroll
             for (int w = 0; w < kWalks; ++w) {
               if (w < count) acc += s_lv[(j + w * k) * lp + max(leaf[w], 0)];
@@ -405,47 +511,117 @@ cudaError_t launch_walk_kind(int code_kind, const int4* rec, const float* lv,
 
 // ---------------------------------------------------------------- K5 ----
 
-template <typename CodeT>
-__global__ void serving_leaf_kernel(
-    const int* __restrict__ nl, const int* __restrict__ feat,
-    const int* __restrict__ tbin, const int* __restrict__ zbin,
-    const int* __restrict__ dl, const int* __restrict__ mt,
-    const int* __restrict__ lc, const int* __restrict__ rc,
-    const CodeT* __restrict__ codes, int* __restrict__ out, int n, int f,
-    int t, int l1, int rows_per_block, int n_steps, int zero_code,
-    int nan_code) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  CodeT* s_codes = reinterpret_cast<CodeT*>(smem);
-  const int row0 = blockIdx.x * rows_per_block;
-  const int n_rows = min(rows_per_block, n - row0);
-  const int64_t code_base = static_cast<int64_t>(row0) * f;
-  for (int i = threadIdx.x; i < n_rows * f; i += blockDim.x) {
-    s_codes[i] = codes[code_base + i];
-  }
-  __syncthreads();
-  int* out_block = out + static_cast<int64_t>(row0) * t;
-  const int work = n_rows * t;
-  for (int idx = threadIdx.x; idx < work; idx += blockDim.x) {
-    const int r = idx / t;
-    const int tree = idx - r * t;
-    out_block[idx] = walk_tree<CodeT, false>(
-        feat, tbin, zbin, dl, mt, lc, rc, tree * l1, nl[tree],
-        s_codes + r * f, n_steps, zero_code, nan_code);
+// K5's block: one thread a row of the row tile, at most kLeafThreads
+// (ops/predict_cuda.LEAF_ROWS)
+constexpr int kLeafThreads = 256;
+
+// Copies n_rows rows of `units` U's each, src_stride U's apart in `src`,
+// to rows dst_stride U's apart in `dst`, with the block's threads, each
+// stepping its (row, column) by the block's size (no division a unit).
+template <typename U>
+__device__ __forceinline__ void copy_rows(U* __restrict__ dst,
+                                          int64_t dst_stride,
+                                          const U* __restrict__ src,
+                                          int src_stride, int n_rows,
+                                          int units) {
+  const int dr = blockDim.x / units;
+  const int dc = blockDim.x - dr * units;
+  int r = threadIdx.x / units;
+  int c = threadIdx.x - r * units;
+  while (r < n_rows) {
+    dst[r * dst_stride + c] = src[r * src_stride + c];
+    r += dr;
+    c += dc;
+    if (c >= units) {
+      c -= units;
+      ++r;
+    }
   }
 }
 
+// Block b: row tile b % n_tiles of tree group b / n_tiles (the row tile
+// fastest, so the blocks that run together share the group's tables in
+// L1).  Shared memory: the tile's codes (`rows` rows, stride_bytes
+// apart), then its (rows, group + 1) int32 leaf ids.
 template <typename CodeT>
-cudaError_t launch_leaf(const int* nl, const int* feat, const int* tbin,
-                        const int* zbin, const int* dl, const int* mt,
-                        const int* lc, const int* rc, const void* codes,
-                        int* out, int n, int f, int t, int l1,
-                        int rows_per_block, int threads, int n_steps,
+__global__ void __launch_bounds__(kLeafThreads) serving_leaf_kernel(
+    TableNodes nodes, const unsigned char* __restrict__ codes,
+    int* __restrict__ out, int n, int row_bytes, int t, int group, int rows,
+    int stride_bytes, int n_tiles, int n_steps, int zero_code,
+    int nan_code) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int tile = static_cast<int>(blockIdx.x % n_tiles);
+  const int g = static_cast<int>(blockIdx.x / n_tiles);
+  const int row0 = tile * rows;
+  const int n_rows = min(rows, n - row0);
+  const int t0 = g * group;
+  const int g_count = min(group, t - t0);
+  const int lstride = group + 1;  // odd for even groups: no bank conflict
+  int* s_leaf = reinterpret_cast<int*>(smem + rows * stride_bytes);
+
+  const unsigned char* src = codes + static_cast<int64_t>(row0) * row_bytes;
+  if (row_bytes == 0) {
+    // no codes: every tree parks at its root
+  } else if ((row_bytes & 3) == 0 &&
+             (reinterpret_cast<uintptr_t>(src) & 3) == 0) {
+    copy_rows(reinterpret_cast<uint32_t*>(smem), stride_bytes >> 2,
+              reinterpret_cast<const uint32_t*>(src), row_bytes >> 2, n_rows,
+              row_bytes >> 2);
+  } else {
+    const int size = static_cast<int>(sizeof(CodeT));
+    copy_rows(reinterpret_cast<CodeT*>(smem), stride_bytes / size,
+              reinterpret_cast<const CodeT*>(src), row_bytes / size, n_rows,
+              row_bytes / size);
+  }
+  __syncthreads();
+
+  // one thread a row, through each tree of the group in turn
+  const int r = threadIdx.x;
+  if (r < n_rows) {
+    const CodeT* my = reinterpret_cast<const CodeT*>(smem + r * stride_bytes);
+    int leaf[1];
+    for (int j = 0; j < g_count; ++j) {
+      walk_trees<TableNodes, CodeT, false, 1>(nodes, t0 + j, 1, 1, my,
+                                              n_steps, zero_code, nan_code,
+                                              leaf);
+      s_leaf[r * lstride + j] = leaf[0];
+    }
+  }
+  __syncthreads();
+
+  // each row's g_count ids are contiguous words of the output
+  copy_rows(out + static_cast<int64_t>(row0) * t + t0, t, s_leaf, lstride,
+            n_rows, g_count);
+}
+
+template <typename CodeT>
+cudaError_t launch_leaf(const TableNodes& nodes, const void* codes, int* out,
+                        int n, int row_bytes, int t, int group, int rows,
+                        int threads, int stride_bytes, int n_steps,
                         int zero_code, int nan_code, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(rows_per_block) * f * sizeof(CodeT);
-  const dim3 grid((n + rows_per_block - 1) / rows_per_block);
-  serving_leaf_kernel<CodeT><<<grid, threads, smem, stream>>>(
-      nl, feat, tbin, zbin, dl, mt, lc, rc, static_cast<const CodeT*>(codes),
-      out, n, f, t, l1, rows_per_block, n_steps, zero_code, nan_code);
+  const size_t smem = static_cast<size_t>(rows) * stride_bytes +
+                      static_cast<size_t>(rows) * (group + 1) * 4;
+  // raise the instance's shared-memory cap once a device, not every call
+  static size_t cap[kMaxDevices] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > 48 * 1024 && smem > cap[device]) {
+    err = cudaFuncSetAttribute(serving_leaf_kernel<CodeT>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+    cap[device] = smem;
+  }
+  const int n_tiles = (n + rows - 1) / rows;
+  const int64_t blocks =
+      static_cast<int64_t>(n_tiles) * ((t + group - 1) / group);
+  if (blocks > 0x7FFFFFFF) return cudaErrorInvalidConfiguration;
+  serving_leaf_kernel<CodeT><<<static_cast<unsigned>(blocks), threads, smem,
+                               stream>>>(
+      nodes, static_cast<const unsigned char*>(codes), out, n, row_bytes, t,
+      group, rows, stride_bytes, n_tiles, n_steps, zero_code, nan_code);
   return cudaGetLastError();
 }
 
@@ -489,32 +665,43 @@ int lgbm_serving_fused(const void* rec, const void* lv, const void* codes,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Returns the cudaError_t of the launch (0 = launched).  The launch plan
+// (group, rows, threads, stride_bytes) is ops/predict_cuda.plan_leaf_walk:
+// threads >= rows, threads <= kLeafThreads, stride_bytes >= row_bytes and
+// a multiple of 4.
 int lgbm_serving_leaf(const void* nl, const void* feat, const void* tbin,
                       const void* zbin, const void* dl, const void* mt,
                       const void* lc, const void* rc, const void* codes,
-                      int code_kind, void* out, int n, int f, int t, int l1,
-                      int rows_per_block, int threads, int n_steps,
-                      int zero_code, int nan_code, void* stream) {
-  if (n <= 0) return 0;
-  const int* a[8] = {static_cast<const int*>(nl), static_cast<const int*>(feat),
-                     static_cast<const int*>(tbin), static_cast<const int*>(zbin),
-                     static_cast<const int*>(dl), static_cast<const int*>(mt),
-                     static_cast<const int*>(lc), static_cast<const int*>(rc)};
+                      int code_kind, void* out, int n, int row_bytes, int t,
+                      int l1, int group, int rows, int threads,
+                      int stride_bytes, int n_steps, int zero_code,
+                      int nan_code, void* stream) {
+  if (n <= 0 || t <= 0) return 0;
+  if (group <= 0 || rows <= 0 || threads < rows || threads > kLeafThreads ||
+      stride_bytes < row_bytes || (stride_bytes & 3)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const TableNodes nodes{
+      static_cast<const int*>(nl),   static_cast<const int*>(feat),
+      static_cast<const int*>(tbin), static_cast<const int*>(zbin),
+      static_cast<const int*>(dl),   static_cast<const int*>(mt),
+      static_cast<const int*>(lc),   static_cast<const int*>(rc),
+      l1};
   int* o = static_cast<int*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (code_kind) {
     case kU8:
-      return launch_leaf<uint8_t>(a[0], a[1], a[2], a[3], a[4], a[5], a[6],
-                                  a[7], codes, o, n, f, t, l1, rows_per_block,
-                                  threads, n_steps, zero_code, nan_code, st);
+      return launch_leaf<uint8_t>(nodes, codes, o, n, row_bytes, t, group,
+                                  rows, threads, stride_bytes, n_steps,
+                                  zero_code, nan_code, st);
     case kU16:
-      return launch_leaf<uint16_t>(a[0], a[1], a[2], a[3], a[4], a[5], a[6],
-                                   a[7], codes, o, n, f, t, l1, rows_per_block,
-                                   threads, n_steps, zero_code, nan_code, st);
+      return launch_leaf<uint16_t>(nodes, codes, o, n, row_bytes, t, group,
+                                   rows, threads, stride_bytes, n_steps,
+                                   zero_code, nan_code, st);
     case kI32:
-      return launch_leaf<int32_t>(a[0], a[1], a[2], a[3], a[4], a[5], a[6],
-                                  a[7], codes, o, n, f, t, l1, rows_per_block,
-                                  threads, n_steps, zero_code, nan_code, st);
+      return launch_leaf<int32_t>(nodes, codes, o, n, row_bytes, t, group,
+                                  rows, threads, stride_bytes, n_steps,
+                                  zero_code, nan_code, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

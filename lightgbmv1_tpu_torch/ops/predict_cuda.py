@@ -19,9 +19,16 @@ note says what bounds them and how the designs answer it):
   combine adds the partials in group order from 0.f, so the raw scores
   have the same bits at every N and launch shape.
 * ``serving_leaf`` (K5) replaces ``predict_pallas._kernel``
-  (``serving_leaf_pallas``): (N, F) codes -> (N, T) leaf ids with the
-  node tables read from global memory (L2-resident) and neighbouring
-  threads writing neighbouring trees of one row.
+  (``serving_leaf_pallas``): (N, F) codes -> (N, T) leaf ids from the
+  seven node tables as they are, read from global memory through L1.
+  ``plan_leaf_walk`` cuts the tree axis into groups (from the model's
+  table bytes) and the rows into tiles (from the code width and the
+  card's shared memory), never from the batch; a block walks one group
+  for one tile of rows, a thread a row, so a warp's 32 lanes walk the
+  same tree at the same step and the group's tables stay in L1.  The
+  leaf ids leave through a tile in shared memory, each row's group of ids
+  as contiguous words.  The decision is K4's device function, read from
+  the tables.
 
 Beside each wrapper is its plain PyTorch version (``serving_fused_ref``,
 ``serving_leaf_ref``): the same decisions and, for K4, the same order of
@@ -45,7 +52,7 @@ from . import _build
 
 # K4's group size: the largest tree count whose block (records, leaf
 # values and two code buffers) fits this budget, so four blocks (32
-# warps) share an SM's 228 KB
+# warps) share an SM's 228 KB; K5's row tile fits it the same way
 SMEM_BUDGET = 56 * 1024
 # K4's refusal line, the most shared memory a block may have on the card:
 # a model whose one-tree block exceeds it takes the staged walk.  A
@@ -59,8 +66,17 @@ ROW_TILE = 256
 WALKS = 4
 # the node record's split-feature field: bits 0-27 of word 0
 _FEAT_BITS = 28
-# the leaf kernel's block: 256 threads over (row, tree) pairs
-LEAF_THREADS = 256
+# K5's plan (plan_leaf_walk): a group's seven tables (28 B a node) fill
+# at most LEAF_TABLE_BUDGET, which the SM's L1 holds for two groups
+# beside the blocks' shared memory (8 trees of 255 leaves); a group holds
+# at most LEAF_GROUP_MAX trees (its leaf-id tile); the row tile is at
+# most LEAF_ROWS rows (one thread a row; kLeafThreads in
+# csrc/predict_walk.cu) and whole warps whose codes and leaf-id tile fit
+# SMEM_BUDGET; rows too wide for one warp there take fewer, down to one
+# row, within SMEM_LIMIT
+LEAF_TABLE_BUDGET = 56 * 1024
+LEAF_GROUP_MAX = 32
+LEAF_ROWS = 256
 
 launch_counts = {"serving_fused": 0, "serving_leaf": 0}
 _count_lock = threading.Lock()
@@ -253,6 +269,40 @@ def plan_predict_tiles(*, T, L1, L, F, K, depth, has_cat=False,
     return plan
 
 
+def plan_leaf_walk(*, T, L1, F, code_bytes, smem_limit=SMEM_LIMIT) -> dict:
+    """K5's launch plan, from the model (T trees of L1 node slots, F code
+    columns of ``code_bytes`` each) and the card (``smem_limit``), never
+    from the batch.
+
+    ``group``: the trees a block walks, the most trees whose seven int32
+    tables fit LEAF_TABLE_BUDGET (8 at L1 = 254), within [1,
+    LEAF_GROUP_MAX], and at most T; the last group may be shorter (the
+    kernel masks it).  ``stride_bytes``: a staged row of codes, rounded
+    up to an odd number of words (the lanes' loads of one feature hit 32
+    banks).  ``rows``: the row tile, one thread a row, the most whole
+    warps up to LEAF_ROWS whose codes and (rows, group + 1) leaf-id tile
+    fit SMEM_BUDGET; a row too wide for a warp there takes up to 32 rows
+    within ``smem_limit``.  ``threads``: ``rows`` rounded up to whole
+    warps.  Raises ValueError only where one row's codes and ids exceed
+    ``smem_limit``."""
+    T, L1 = max(int(T), 1), max(int(L1), 1)
+    row_bytes = int(F) * int(code_bytes)
+    group = min(max(LEAF_TABLE_BUDGET // (7 * 4 * L1), 1), LEAF_GROUP_MAX,
+                T)
+    words = -(-row_bytes // 4)
+    stride = 4 * (words | 1)
+    per_row = stride + 4 * (group + 1)
+    if per_row > smem_limit:
+        raise ValueError(f"serving_leaf: one row's codes ({row_bytes} B) "
+                         f"and leaf ids exceed the card's {smem_limit} B "
+                         "of shared memory a block")
+    rows = min(LEAF_ROWS, SMEM_BUDGET // per_row) // 32 * 32
+    if rows == 0:
+        rows = min(32, smem_limit // per_row)
+    return dict(group=int(group), rows=int(rows),
+                threads=-(-rows // 32) * 32, stride_bytes=int(stride))
+
+
 # ---------------------------------------------------------------------------
 # plain PyTorch versions (the kernels' decisions and order of adds)
 # ---------------------------------------------------------------------------
@@ -342,7 +392,7 @@ def _lib() -> ctypes.CDLL:
     lib.lgbm_serving_fused.argtypes = ([_P] * 3 + [_I] + [_P] * 3
                                        + [_I] * 12 + [_P])
     lib.lgbm_serving_fused.restype = _I
-    lib.lgbm_serving_leaf.argtypes = [_P] * 9 + [_I, _P] + [_I] * 9 + [_P]
+    lib.lgbm_serving_leaf.argtypes = [_P] * 9 + [_I, _P] + [_I] * 11 + [_P]
     lib.lgbm_serving_leaf.restype = _I
     return lib
 
@@ -504,9 +554,14 @@ def serving_fused(records: NodeRecords, codes: torch.Tensor, *,
 
 
 def serving_leaf(tables: WalkTables, codes: torch.Tensor, *, n_steps: int,
-                 zero_code: int, nan_code: int) -> torch.Tensor:
-    """K5: (N, F) serving codes -> (N, T) int32 leaf ids, node tables read
-    from global memory; the leaf-value sum happens outside."""
+                 zero_code: int, nan_code: int,
+                 plan: Optional[dict] = None) -> torch.Tensor:
+    """K5: (N, F) serving codes -> (N, T) int32 leaf ids, the seven node
+    tables read from global memory; the leaf-value sum happens outside.
+    ``plan`` (group, rows, threads, stride_bytes) overrides
+    ``plan_leaf_walk``'s, as ``tiles_per_block`` overrides K4's launch
+    shape: a hook to check and time other plans (the result is the
+    same)."""
     _check_width(tables.max_feature, codes, False, "serving_leaf")
     if codes.device.type == "cpu":
         return serving_leaf_ref(tables, codes, n_steps=n_steps,
@@ -515,22 +570,21 @@ def serving_leaf(tables: WalkTables, codes: torch.Tensor, *, n_steps: int,
     _check_tables(tables, codes.device)
     N, F = codes.shape
     T, L1 = tables.split_feature.shape
-    row_bytes = F * codes.element_size()
-    # up to 8 rows of codes a block, inside the 48 KB static window
-    rows_per_block = max(1, min(8, (48 * 1024) // max(row_bytes, 1)))
-    if rows_per_block * row_bytes > 48 * 1024:
-        raise ValueError(f"serving_leaf: one row's codes ({row_bytes} B) "
-                         "exceed the kernel's 48 KB shared-memory window")
+    if plan is None:
+        plan = plan_leaf_walk(T=T, L1=L1, F=F,
+                              code_bytes=codes.element_size())
     out = torch.empty((N, T), dtype=torch.int32, device=codes.device)
-    if N == 0:
+    if N == 0 or T == 0:
         return out                               # nothing to launch
     lib = _lib()
     with torch.cuda.device(codes.device):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.lgbm_serving_leaf(
             *(a.data_ptr() for a in tables[:8]), codes.data_ptr(), kind,
-            out.data_ptr(), N, F, T, L1, rows_per_block, LEAF_THREADS,
-            max(int(n_steps), 1), int(zero_code), int(nan_code), stream)
+            out.data_ptr(), N, F * codes.element_size(), T, L1,
+            plan["group"], plan["rows"], plan["threads"],
+            plan["stride_bytes"], max(int(n_steps), 1), int(zero_code),
+            int(nan_code), stream)
     _raise_on(err, "serving_leaf")
     _count("serving_leaf")
     return out

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """The split scan and the fused round's pick of two checkouts of the port,
-timed on one NVIDIA card in the order A, B, B, A.
+timed on one NVIDIA card in the order A, B, B, A
+(``ab_driver.py``).
 
     python3 scan_ab.py A_ROOT B_ROOT [--iters 50] [--train-rows 1048576]
 
@@ -27,13 +28,12 @@ a checkout's staged text differs from its fused text), 2 without a card.
 
 from __future__ import annotations
 
-import argparse
 import hashlib
-import json
 import os
-import subprocess
 import sys
 import time
+
+import ab_driver
 
 LIBS = ["hist", "wave_fused", "split_scan"]
 REPEATS = 5
@@ -186,70 +186,37 @@ def child(root: str, iters: int, rows: int) -> dict:
     return out
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("roots", nargs="*")
-    ap.add_argument("--child", default=None)
+def add_args(ap) -> None:
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--train-rows", type=int, default=1 << 20)
-    args = ap.parse_args(argv)
-    import torch
 
-    if not torch.cuda.is_available():
-        print("scan_ab: torch.cuda.is_available() is False — this times "
-              "the split scan on a CUDA card", file=sys.stderr)
-        return 2
-    if args.child:
-        print(json.dumps(child(args.child, args.iters, args.train_rows)),
-              flush=True)
-        return 0
-    if len(args.roots) != 2:
-        ap.error("expected two checkout roots, A and B")
-    a, b = args.roots
-    res = []
-    for root in (a, b, b, a):
-        proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--child", root,
-             "--iters", str(args.iters), "--train-rows",
-             str(args.train_rows)], capture_output=True, text=True)
-        sys.stderr.write(proc.stderr[-4000:])
-        if proc.returncode != 0:
-            print(f"scan_ab: {root} exited {proc.returncode}",
-                  file=sys.stderr)
-            return proc.returncode
-        line = proc.stdout.strip().splitlines()[-1]
-        print(line, flush=True)
-        res.append(json.loads(line))
+
+def summarize(res, pair):
+    """The times side by side; ok: one staged and one fused text across
+    the checkouts, each checkout's staged text its fused one."""
     shas = {(r["staged_sha256"], r["fused_sha256"]) for r in res}
     ok = len(shas) == 1 and all(r["staged_sha256"] == r["fused_sha256"]
                                 for r in res)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-
-    def pair(get):
-        return {"A": [get(res[0]), get(res[3])],
-                "B": [get(res[1]), get(res[2])]}
-
-    summary = {"A": a, "B": b, "ok": ok, "card": card.stdout.strip(),
-               "staged_s_per_iter": pair(lambda r: r["staged_s_per_iter"]),
-               "fused_s_per_iter": pair(lambda r: r["fused_s_per_iter"])}
+    keys = {"staged_s_per_iter": pair(lambda r: r["staged_s_per_iter"]),
+            "fused_s_per_iter": pair(lambda r: r["fused_s_per_iter"])}
     for C in res[0]["find_best_split"]:
         for k in res[0]["find_best_split"][C]:
-            summary[f"find_best_split C={C} {k}"] = pair(
+            keys[f"find_best_split C={C} {k}"] = pair(
                 lambda r: r["find_best_split"][C][k])
     for key in res[0]["pick"]:
         for k in res[0]["pick"][key]:
-            summary[f"pick {key} {k}"] = pair(lambda r: r["pick"][key][k])
+            keys[f"pick {key} {k}"] = pair(lambda r: r["pick"][key][k])
     for key in res[0]["scan_device_ms_by_features"]:
-        summary[f"scan device ms {key}"] = pair(
+        keys[f"scan device ms {key}"] = pair(
             lambda r: r["scan_device_ms_by_features"].get(key))
     for name, r in (("A", res[0]), ("B", res[1])):
         if "ptxas" in r:
-            summary[f"ptxas {name}"] = r["ptxas"]
-    print(json.dumps(summary), flush=True)
-    return 0 if ok else 1
+            keys[f"ptxas {name}"] = r["ptxas"]
+    return keys, ok
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(ab_driver.main(
+        __file__, __doc__, "the split scan",
+        lambda root, args: child(root, args.iters, args.train_rows),
+        summarize, add_args))

@@ -78,6 +78,8 @@ def _codes(e, layout):
     c = e["codes"]
     if layout == "u16":
         return c.astype(np.uint16)
+    if layout == "i32":
+        return c.astype(np.int32)
     if layout == "packed":
         return port_predict.pack_serving_codes(c)
     return c
@@ -110,7 +112,7 @@ def test_fused_plain_matches_pallas(ens, layout, mode):
         np.testing.assert_allclose(got, want, rtol=0, atol=atol)
 
 
-@pytest.mark.parametrize("layout", ["u8", "u16"])
+@pytest.mark.parametrize("layout", ["u8", "u16", "i32"])
 def test_leaf_plain_matches_pallas(ens, layout):
     e = ens
     codes = _codes(e, layout)
@@ -304,8 +306,9 @@ def test_launch_shape_fills_the_card(ens, monkeypatch):
 def test_smoke_load_count_matches_the_paths_walked(ens):
     """chip_smoke.walk_loads, which prices the kernels' bound, reaches the
     plain K5's leaves, and its step and load counts equal those of the
-    root-to-leaf paths: 5 loads a node, 6 where a NaN/zero code is not
-    missing there (the zero-bin load)."""
+    root-to-leaf paths: 4 loads a node (feature, code, threshold or
+    default-left, child), 5 where a NaN/zero code is missing there (its
+    missing type), 6 where it is not (also the zero bin)."""
     e = ens
     tables = pc.walk_tables(e["parr"])
     codes = torch.from_numpy(e["codes"])
@@ -313,6 +316,7 @@ def test_smoke_load_count_matches_the_paths_walked(ens):
     leaf, steps, loads = chip_smoke.walk_loads(tables, codes, chunk=24, **kw)
     assert torch.equal(leaf, pc.serving_leaf_ref(tables, codes, **kw))
     want_steps = want_loads = 0
+    kinds = {4: 0, 5: 0, 6: 0}
     for ti, t in enumerate(e["trees"]):
         up = {}                                 # child code -> parent node
         for i in range(t.num_leaves - 1):
@@ -324,11 +328,13 @@ def test_smoke_load_count_matches_the_paths_walked(ens):
                 is_nan, special = b == e["nc"], b in (e["nc"], e["zc"])
                 missing = (is_nan if t.missing_type[node] == 2 else
                            t.missing_type[node] == 1 and special)
+                n = 4 + special + (special and not missing)
                 want_steps += 1
-                want_loads += 6 if special and not missing else 5
+                want_loads += n
+                kinds[n] += 1
                 node = up.get(node)
     assert (steps, loads) == (want_steps, want_loads)
-    assert 5 * steps < loads                    # the zero-bin case occurs
+    assert all(kinds.values())                  # every kind of step occurs
 
 
 def test_wrappers_refuse_other_devices_and_bad_tiles(ens):
@@ -432,3 +438,84 @@ def test_plan_refusal_reasons(kw, reason):
     else:   # the same reason line as the JAX package's planner
         jplan = predict_pallas.plan_predict_tiles(**{**FULL, **kw})
         assert plan["reason"] == jplan["reason"]
+
+
+# ---------------------------------------------------------------------------
+# plan_leaf_walk: K5's groups and row tiles
+# ---------------------------------------------------------------------------
+
+# the headline serving model: 500 trees of 255 leaves (254 node slots)
+LEAF_FULL = dict(T=500, L1=254, F=F, code_bytes=1)
+
+
+def test_leaf_plan_full_width_model():
+    """Eight trees a group (their seven tables, 56,896 B, fill the L1
+    budget), so a last group of four; 256 rows a block, one thread a row;
+    28 B rows keep their 7-word stride (odd)."""
+    p = pc.plan_leaf_walk(**LEAF_FULL)
+    assert p == dict(group=8, rows=256, threads=256, stride_bytes=28)
+    assert 500 % p["group"] == 4
+    assert 8 * 7 * 4 * 254 <= pc.LEAF_TABLE_BUDGET < 9 * 7 * 4 * 254
+
+
+def test_leaf_plan_takes_no_batch_size():
+    """The plan is decided from the model and the card: no row count."""
+    import inspect
+    assert set(inspect.signature(pc.plan_leaf_walk).parameters) == {
+        "T", "L1", "F", "code_bytes", "smem_limit"}
+
+
+@pytest.mark.parametrize("code_bytes", [1, 2, 4])
+def test_leaf_plan_refuses_no_width_served_before(code_bytes):
+    """Every row of up to 48 KB of codes (the old kernel's static window)
+    plans, at any tree count and tree size: whole warps of rows where
+    they fit the block budget, else fewer rows within the card's shared
+    memory, and a row stride of an odd word count that holds the row."""
+    for F_ in sorted({1, 2, 3, 27, 28, 29, 255, 1000, 4097,
+                      48 * 1024 // code_bytes}):
+        for T, L1 in ((1, 1), (3, 14), (7, 254), (500, 254),
+                      (100_000, 30), (2, 1 << 15)):
+            p = pc.plan_leaf_walk(T=T, L1=L1, F=F_, code_bytes=code_bytes)
+            row_bytes = F_ * code_bytes
+            assert p["stride_bytes"] >= row_bytes
+            assert p["stride_bytes"] % 8 == 4          # odd word count
+            assert 1 <= p["group"] <= min(T, pc.LEAF_GROUP_MAX)
+            assert 1 <= p["rows"] <= pc.LEAF_ROWS
+            assert p["rows"] % 32 == 0 or p["rows"] < 32
+            assert p["rows"] <= p["threads"] < p["rows"] + 32
+            assert p["threads"] <= pc.LEAF_ROWS
+            assert p["threads"] % 32 == 0
+            smem = p["rows"] * (p["stride_bytes"] + 4 * (p["group"] + 1))
+            assert smem <= pc.SMEM_LIMIT
+            assert smem <= pc.SMEM_BUDGET or p["rows"] <= 32
+    wide = pc.plan_leaf_walk(T=500, L1=254, F=48 * 1024 // code_bytes,
+                             code_bytes=code_bytes)
+    assert wide["rows"] == 4
+    assert wide["rows"] * wide["stride_bytes"] > 48 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        pc.plan_leaf_walk(T=500, L1=254, F=pc.SMEM_LIMIT // code_bytes,
+                          code_bytes=code_bytes)
+
+
+@pytest.mark.parametrize("T", [1, 4, 7, 13, 500])
+def test_leaf_plan_groups_small_trees_by_their_bytes(T):
+    """Smaller trees take larger groups (up to LEAF_GROUP_MAX, at most
+    T): 15-leaf trees' tables are 392 B, so 32 fit the budget; a tree of
+    4,096 leaves walks alone."""
+    p = pc.plan_leaf_walk(T=T, L1=14, F=F, code_bytes=1)
+    assert p["group"] == min(T, pc.LEAF_GROUP_MAX)
+    big = pc.plan_leaf_walk(T=T, L1=4095, F=F, code_bytes=1)
+    assert big["group"] == 1
+
+
+def test_smoke_leaf_lane_efficiency_counts_warp_steps():
+    """chip_smoke.leaf_lane_efficiency: thread steps over 32 x the warp
+    steps of K5's mapping, each warp (32 neighbouring rows; the last one
+    padded) running a tree until its deepest lane is done."""
+    rng = np.random.RandomState(7)
+    steps = torch.from_numpy(rng.randint(0, 12, (70, 5)).astype(np.int16))
+    steps[:, 2] = 0                             # a tree of one leaf
+    warp_steps = sum(int(steps[w: w + 32, t].max())
+                     for w in range(0, 70, 32) for t in range(5))
+    assert chip_smoke.leaf_lane_efficiency(steps) == \
+        int(steps.sum()) / (32 * warp_steps)
