@@ -76,7 +76,9 @@ Phases (any failure exits non-zero with no ``ok`` line):
               ``train`` on the headline configuration (binary, 255 leaves,
               max_bin 63, defaults) for ``--iters`` iterations with the
               valid set; K1 launched (its launches by slot count and
-              precision add up) and no plain histogram; s/iter,
+              precision add up), K3 once a tree (the valid set routed
+              through all of a tree's rounds in one launch) and no plain
+              version; s/iter,
               M row-trees/s, the held-out AUC (> 0.90) and the model
               text's sha256 and length.  Then K1 is held to its plain
               versions, as in phase 9, on the inputs of the path's last
@@ -97,8 +99,9 @@ Phases (any failure exits non-zero with no ``ok`` line):
               plain versions on the card, on phase 8's bins with signed,
               varied rows: S in {4, 16, 63} in subtraction mode and S = 63
               pool-free, each in bf16x2 / bf16 / f32.  New leaf ids,
-              labels and K3 exact (K3 also equal to K2's own new leaf
-              ids); hsmall bitwise equal to K1 on the emitted label; the
+              labels and K3 at one round exact (K3 also equal to K2's own
+              new leaf ids); hsmall bitwise equal to K1 on the emitted
+              label; the
               residue against the plain scan run on the CPU on the same
               histograms (bitwise equality reported) and against the
               plain version on the card: picks identical outside ties,
@@ -108,13 +111,19 @@ Phases (any failure exits non-zero with no ``ok`` line):
               residue.  Then sparse-live rounds (S = 4, one split of leaf 1): one
               live row, the live rows of one row chunk, none, and every
               row (a root-sized round), each held as above and to its
-              live-row count.
+              live-row count.  Then K3 on synthetic trees grown in rounds
+              on 131,072 and 1,001 of the rows: one of 2,295 splits in 16
+              rounds, whose tables pass a block's shared memory (read
+              from device memory), and one of 10 rounds of up to 63:
+              leaf ids bitwise its plain version round after round, R
+              single-round launches and the tree walk
+              (``tree_leaf_index_binned``).
 15. fused   — the fused training main path, launch counts reset first:
               ``train`` at the headline configuration with
               ``hist_method=fused`` for ``--iters`` iterations with the
               valid set.  K2 launched once a non-root round (its launches
-              by bucket add up), K3 and the pick kernel once a round, K1
-              and the split-scan kernel once a tree, no plain version
+              by bucket add up), the pick kernel once a round, K1, K3 and
+              the split-scan kernel once a tree, no plain version
               called; s/iter, M
               row-trees/s, AUC > 0.90 and within 2e-3 of phase 10's, the
               model text's sha256 and length, which must be phase 10's
@@ -129,9 +138,14 @@ Phases (any failure exits non-zero with no ``ok`` line):
               against ``pallas``: the same split feature and threshold at
               every node of every tree; the largest leaf-value difference.
 17. timing  — K2 at each slot bucket and K3 on the main path's last
-              inputs, beside their plain versions and bounds (K2: the
-              all-rows bound and the live-row bound, from the inputs'
-              live rows); then the pick kernel on K2's residue at each
+              inputs (K3: the last tree's valid routing), beside their
+              plain versions and bounds (K2: the all-rows bound and the
+              live-row bound, from the inputs' live rows; K3: each row's
+              leaf id read and written and a bin byte for each round its
+              leaf splits in, counted on this run's rows); K3 there held
+              at 131,072 and 1,001 rows to its plain version, R
+              single-round launches and the tree walk of the trained
+              tree; then the pick kernel on K2's residue at each
               bucket, by events and on the device, with the device
               kernels a pick runs (profiler), beside K2 with its pick and
               K2 alone, its plain version and its bound by bytes.
@@ -156,7 +170,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               ``hist_method=fused, hist_dtype_deep=bf16x2,
               wave_loop_rounds=4`` for ``--iters`` iterations with the
               valid set.  K6 launched once a segment (at least once a
-              tree), K2 never, K3 once a replayed round, K1 once a tree, no
+              tree), K2 never, K3 and K1 once a tree, no
               plain version; the model text byte-identical to the single
               round's with the same knobs, trained in the same phase (one
               run each: s/iter, M row-trees/s); AUC > 0.90; the model
@@ -228,14 +242,17 @@ Phases (any failure exits non-zero with no ``ok`` line):
               iterations, ``hist_method=fused`` and the looped fused path
               (``hist_dtype_deep=bf16x2, wave_loop_rounds=4``) for 20
               each; each stores a (14, N) matrix, launches only the
-              packed legs (K1; K2 and K3; K6 and K3) and no plain
+              packed legs (K1 and K3; K2 and K3; K6 and K3) and no plain
               version, and writes the model text of the same training
               with bin_layout=u8 byte for byte (s/iteration of both
               printed); the staged model's AUC > 0.90 and served through
               K4.  Then each packed leg timed on the path's last inputs
               beside its u8 leg, its plain version, the unpack alone and
               (K1) one ``index_add_`` on the unpacked bins, with its
-              bound (the bins stream at ceil(F/2) bytes a row).
+              bound (the bins stream at ceil(F/2) bytes a row); K3's
+              packed leg on the fused run's last tree held at 131,072 and
+              1,001 rows to its u8 leg, its plain version, R single-round
+              launches and the tree walk.
 28. int8sr  — stochastic-rounded int8 histograms
               (hist_dtype_deep=int8sr) against their plain versions: the
               quantize kernel bit for bit its plain version on the card
@@ -335,7 +352,9 @@ Phases (any failure exits non-zero with no ``ok`` line):
 34. int8 kernels — the round-to-nearest quantize kernel bit for bit
               its plain version on the card and the CPU at every scale
               tile (128, 256, 512, 1024 rows; out-of-bag zero rows, an
-              all-zero tile, an odd N); K1's int8 leg (L = 2, 17, 64; byte
+              all-zero tile, an odd N, and N = 1, 3, T - 1, T + 1 and
+              4T + 3, the tails its 16-byte loads mask); K1's int8 leg
+              (L = 2, 17, 64; byte
               bins, and 16-bin byte and packed bins; L = 64 at every
               scale tile) bit for bit its row-order plain version, counts
               exact and values within the order bound of the Pallas
@@ -358,7 +377,8 @@ Phases (any failure exits non-zero with no ``ok`` line):
               through K4.  Then each int8 leg timed beside its int8sr and
               bf16 / bf16x2 legs on the same inputs, in turns, five
               rounds (medians and the int8 leg's ratios), and the
-              quantize kernel beside its plain version.
+              quantize kernel at T = 512 and 128 by events and on the
+              device beside its plain version.
 36. sampling training — bagging 0.8 every 5 iterations, feature
               fraction 0.9 and feature_fraction_bynode 0.8, staged =
               fused byte for byte; bagging with the per-tree mask looped
@@ -403,7 +423,8 @@ from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
 from lightgbmv1_tpu_torch.models import grower_wave
 from lightgbmv1_tpu_torch.models.predict import BatchPredictor
-from lightgbmv1_tpu_torch.models.tree import HostTree
+from lightgbmv1_tpu_torch.models.tree import (HostTree, empty_tree,
+                                              tree_leaf_index_binned)
 from lightgbmv1_tpu_torch.ops import _build, hist_cuda as hc
 from lightgbmv1_tpu_torch.ops import fused_cuda as fc
 from lightgbmv1_tpu_torch.ops import loop_cuda as lc
@@ -457,26 +478,36 @@ def log(msg: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def child_pointers(split_leafs, n_leaves):
+    """The child pointers of a tree whose node j splits leaf
+    ``split_leafs[j]`` (the split leaf keeps its index on the left, the
+    new leaf j + 1 goes right — the reference's numbering; a leaf is
+    ~leaf): ``(left, right, leaf_parent)``."""
+    n_nodes = len(split_leafs)
+    lc = np.zeros(n_nodes, np.int32)
+    rc = np.zeros(n_nodes, np.int32)
+    parent = np.full(n_leaves, -1, np.int64)   # node holding each leaf
+    is_right = np.zeros(n_leaves, bool)
+    for node, leaf in enumerate(split_leafs):
+        p = parent[leaf]
+        if p >= 0:
+            (rc if is_right[leaf] else lc)[p] = node
+        lc[node], rc[node] = ~leaf, ~(node + 1)
+        parent[leaf], is_right[leaf] = node, False
+        parent[node + 1], is_right[node + 1] = node, True
+    return lc, rc, parent
+
+
 def make_trees(rng, n_trees, n_leaves, n_features, grid):
-    """Trees grown leaf-wise by splitting a random existing leaf (the new
-    leaf goes right, the split leaf keeps its index on the left — the
-    reference's numbering); features, grid thresholds, missing types and
+    """Trees grown leaf-wise by splitting a random existing leaf
+    (``child_pointers``); features, grid thresholds, missing types and
     default_left drawn at random."""
     trees = []
     n_nodes = n_leaves - 1
     for _ in range(n_trees):
-        lc = np.zeros(n_nodes, np.int32)
-        rc = np.zeros(n_nodes, np.int32)
-        parent = np.full(n_leaves, -1, np.int64)   # node holding each leaf
-        is_right = np.zeros(n_leaves, bool)
-        for node in range(n_nodes):
-            leaf = rng.randint(node + 1)           # leaves 0..node exist
-            p = parent[leaf]
-            if p >= 0:
-                (rc if is_right[leaf] else lc)[p] = node
-            lc[node], rc[node] = ~leaf, ~(node + 1)
-            parent[leaf], is_right[leaf] = node, False
-            parent[node + 1], is_right[node + 1] = node, True
+        # leaves 0..node exist when node splits
+        lc, rc, parent = child_pointers(
+            [rng.randint(node + 1) for node in range(n_nodes)], n_leaves)
         feat = rng.randint(n_features, size=n_nodes).astype(np.int32)
         thr = grid[feat, rng.randint(grid.shape[1], size=n_nodes)]
         leaf_count = rng.randint(1, 1000, size=n_leaves)
@@ -1014,6 +1045,21 @@ def kernel_device_ms(fn, names, reps: int = 20) -> dict:
     return out
 
 
+L2_FLUSH_BYTES = 256 << 20     # five times the H100's 50 MB L2
+
+
+def cold_device_ms(fn, names, reps: int = 20) -> dict:
+    """``kernel_device_ms`` with the L2 cleared before each call of
+    ``fn``: a write of L2_FLUSH_BYTES on the same stream, whose kernel is
+    not among ``names``, so each call reads its inputs from HBM."""
+    flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
+
+    def flushed():
+        flush.zero_()
+        return fn()
+    return kernel_device_ms(flushed, names, reps)
+
+
 def k4_device_ms(fn, reps: int = 20) -> dict:
     """K4's device time a call: its walk and combine kernels apart."""
     d = kernel_device_ms(fn, ("serving_fused_kernel", "serving_combine"),
@@ -1360,9 +1406,14 @@ def phase_train(ds, dv, Xv, iters, dev):
     launches = hc.launch_counts["hist_leaves"]
     buckets = {f"{L}:{prec}": v for (L, prec), v
                in sorted(hc.bucket_launch_counts.items())}
-    plain = dict(hc.plain_counts)
+    plain = {**dict(hc.plain_counts),
+             **{f"fused.{k}": v for k, v in fc.plain_counts.items()}}
+    k3 = fc.launch_counts["route_rows"]
     log(f"  K1 launches on the training path: {launches} "
-        f"({json.dumps(buckets)}); plain-version calls: {plain}")
+        f"({json.dumps(buckets)}), K3 {k3}; plain-version calls: {plain}")
+    want_k3 = k3_expected(booster, 1)
+    check(k3 == want_k3, f"K3 launched {k3} times for {want_k3} trees of "
+          "more than one leaf (one valid set)")
     check(launches > 0, "K1 never launched on the training path")
     check(sum(buckets.values()) == launches,
           "K1's launches by bucket do not add up to its launches")
@@ -1370,7 +1421,7 @@ def phase_train(ds, dv, Xv, iters, dev):
           f"K1 was called at {sorted(rec.last)} but launched at "
           f"{sorted(hc.bucket_launch_counts)}")
     check(not any(plain.values()),
-          "a plain histogram ran on the training path")
+          "a plain version ran on the training path")
     n = ds.num_data()
     trees = booster.num_trees()
     auc = ev["valid_0"]["auc"][-1]
@@ -1379,7 +1430,8 @@ def phase_train(ds, dv, Xv, iters, dev):
            "valid_auc": auc, "valid_logloss": ev["valid_0"]["binary_logloss"][-1],
            "trees": trees, "leaves": [int(t.num_leaves) for t in
                                       booster._gbdt._device_trees[:3]],
-           "k1_launches": launches, "k1_launches_by_bucket": buckets}
+           "k1_launches": launches, "k1_launches_by_bucket": buckets,
+           "k3_launches": k3}
     log(f"  {iters} iterations of {n} rows in {secs:.2f} s: "
         f"{out['s_per_iter']:.3f} s/iter, {out['M_row_trees_per_s']:.2f} M "
         f"row-trees/s; valid AUC {auc:.5f} logloss "
@@ -1855,6 +1907,166 @@ def sparse_leaves(N, chunk_rows, case):
     return oleaf
 
 
+# K3 routes a row set from the root through all of a tree's rounds in one
+# launch: rows a synthetic tree, the recorded trees and their 1,001-row
+# heads are held to
+K3_HEAD_ROWS = 1001
+
+
+def synthetic_rounds(rng, round_sizes, meta, dev):
+    """A tree grown in rounds: round q splits up to ``round_sizes[q]`` of
+    the leaves so far, picked at random, on random features and bins
+    inside each feature's bin count, leaf j + 1 the right child of node j
+    (the grower's numbering).  Returns ``(feats, thrs, dls, leafs, nls)``
+    int32 in round order, the (R + 1,) offsets and the leaf count."""
+    nb = meta.num_bins.cpu().numpy()
+    leafs, sizes, nl = [], [], 1
+    for want in round_sizes:
+        n = min(want, nl)
+        leafs.append(rng.choice(nl, n, replace=False))
+        sizes.append(n)
+        nl += n
+    leafs = np.concatenate(leafs)
+    P = leafs.shape[0]
+    feats = rng.randint(0, nb.shape[0], P)
+    thrs = np.array([rng.randint(0, max(int(nb[f]) - 1, 1)) for f in feats])
+
+    def t(a):
+        return torch.as_tensor(np.asarray(a), dtype=torch.int32, device=dev)
+
+    return ((t(feats), t(thrs), t(rng.rand(P) < 0.5), t(leafs),
+             t(np.arange(1, P + 1))), t(np.cumsum([0] + sizes)), nl)
+
+
+def tree_of_rounds(feats, thrs, dls, leafs, meta) -> "TreeArrays":
+    """The tree whose node j is split j of the rounds (it splits leaf
+    ``leafs[j]`` into that leaf and leaf j + 1), with the child pointers
+    ``tree_leaf_index_binned`` walks."""
+    P = feats.shape[0]
+    left, right, _ = child_pointers(leafs.tolist(), P + 1)
+    dev = feats.device
+    i32 = torch.int32
+    return empty_tree(P + 1, dev)._replace(
+        num_leaves=torch.tensor(P + 1, dtype=i32, device=dev),
+        split_feature=feats, threshold_bin=thrs, default_left=dls != 0,
+        missing_type=meta.missing_type[feats.long()].to(i32),
+        left_child=torch.from_numpy(left).to(dev),
+        right_child=torch.from_numpy(right).to(dev))
+
+
+def single_rounds(binned, lids, feats, rmeta, offsets, num_leaves,
+                  packed=False):
+    """K3 launched once a round, R launches (the routing as it ran before
+    a tree's rounds took one launch)."""
+    bounds = offsets.tolist()
+    for o0, o1 in zip(bounds[:-1], bounds[1:]):
+        lids = fc.route_rows(binned, lids, feats[o0:o1].contiguous(),
+                             rmeta[o0:o1].contiguous(), num_leaves,
+                             packed=packed)
+    return lids
+
+
+def check_k3_tree(tag, binned, feats, rmeta, offsets, num_leaves, tree,
+                  meta, packed=False, u8=None) -> list:
+    """K3 on one tree's rounds from the root, at all of ``binned``'s rows
+    and at its first K3_HEAD_ROWS: leaf ids bitwise its plain version run
+    round after round on the card, R single-round launches, the tree walk
+    of ``tree`` and a second launch; packed, also its u8 leg on ``u8``."""
+    out = []
+    P, R = rmeta.shape[0], offsets.shape[0] - 1
+    # the kernel's leg: the tables in each block's shared memory up to
+    # K3_SMEM_BYTES, past it built once in device memory (the CPU's plain
+    # version has none)
+    smem = 4 * (P * (wf.RMETA_COLS + 3) + R + 1) <= K3_SMEM_BYTES \
+        if binned.is_cuda else None
+    for n in (binned.shape[1], K3_HEAD_ROWS):
+        b = binned[:, :n].contiguous()
+        lids = torch.zeros(n, dtype=torch.int32, device=b.device)
+        args = (b, lids, feats, rmeta, num_leaves)
+        got = fc.route_rows(*args, packed=packed, offsets=offsets)
+        check(torch.equal(got, fc.route_rows(*args, packed=packed,
+                                             offsets=offsets)),
+              f"K3 {tag} N={n}: two launches differ")
+        check(torch.equal(got, fc.route_rows_ref(*args, packed, offsets)),
+              f"K3 {tag} N={n}: differs from its plain version")
+        check(torch.equal(got, single_rounds(*args[:4], offsets, num_leaves,
+                                             packed)),
+              f"K3 {tag} N={n}: differs from {R} single-round launches")
+        walk = tree_leaf_index_binned(tree, b, meta.nan_bin,
+                                      meta.missing_type, meta.zero_bin,
+                                      packed)
+        check(torch.equal(got, walk.to(torch.int32)),
+              f"K3 {tag} N={n}: differs from the tree walk")
+        if u8 is not None:
+            check(torch.equal(got, fc.route_rows(
+                u8[:, :n].contiguous(), lids, feats, rmeta, num_leaves,
+                offsets=offsets)), f"K3 {tag} N={n}: differs from the u8 leg")
+        moved = int((got != 0).sum())
+        where = {True: "tables in shared memory", None: "plain version",
+                 False: "tables in device memory"}[smem]
+        log(f"  K3 {tag}, {n} rows, {P} splits in {R} rounds ({where}): "
+            f"{moved} rows off the root; bitwise the plain version, R single-round "
+            "launches, the tree walk" + (", the u8 leg" if u8 is not None else ""))
+        out.append({"case": f"{tag} N={n}", "splits": P, "rounds": R,
+                    "tables_in_shared_memory": smem, "rows_moved": moved,
+                    "max_abs_err": 0.0})
+    return out
+
+
+def phase_k3_synthetic(binned, meta, rng) -> list:
+    """K3 on two synthetic trees at VALID_ROWS of ``binned``'s rows: 2,295
+    splits in 16 rounds (1, 2, 4, ... 128, then 255 a round: tables past
+    a block's shared memory) and 10 rounds of up to 63 splits."""
+    out = []
+    b = binned[:, :VALID_ROWS].contiguous()
+    for tag, sizes in (("synthetic 2,295 splits",
+                        [1, 2, 4, 8, 16, 32, 64, 128] + [255] * 8),
+                       ("synthetic 10 rounds", [1, 2, 4, 8, 16, 32, 63, 63,
+                                                63, 2])):
+        (feats, thrs, dls, leafs, nls), offsets, nl = synthetic_rounds(
+            rng, sizes, meta, b.device)
+        rmeta = wf.pack_route_meta(feats, thrs, dls, leafs, nls, meta)
+        out += check_k3_tree(tag, b, feats, rmeta, offsets, nl,
+                             tree_of_rounds(feats, thrs, dls, leafs, meta),
+                             meta)
+    check(out[0]["tables_in_shared_memory"] is False
+          and out[2]["tables_in_shared_memory"] is True,
+          "the synthetic trees do not take both of K3's legs")
+    return out
+
+
+K3_SMEM_BYTES = 48 * 1024     # csrc/wave_fused.cu kRouteSmemBytes
+
+
+def k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=False):
+    """K3's bound by bytes on one call from the root: each row's leaf id
+    read (4 B) and written (4 B), one bin byte for each round in which
+    its leaf splits (this run's rows, counted round by round with the
+    plain version), and the tables read once (feats, rmeta, offsets)."""
+    N = binned.shape[1]
+    lids = torch.zeros(N, dtype=torch.int32, device=binned.device)
+    bounds = offsets.tolist()
+    reads = 0
+    for o0, o1 in zip(bounds[:-1], bounds[1:]):
+        splits = torch.zeros(num_leaves + 1, dtype=torch.bool,
+                             device=binned.device)
+        splits[rmeta[o0:o1, 0].long()] = True
+        reads += int(splits[lids.long()].sum())
+        lids = fc.route_rows_ref(binned, lids, feats[o0:o1], rmeta[o0:o1],
+                                 num_leaves, packed)
+    nbytes = N * 8 + reads + 4 * (feats.numel() + rmeta.numel()
+                                  + offsets.numel())
+    return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+            "bytes": nbytes, "bin_reads": reads}
+
+
+def k3_expected(booster, n_valid) -> int:
+    """K3's launches on a wave-grown training: one a tree of more than
+    one leaf and valid set."""
+    return n_valid * sum(int(t.num_leaves) > 1
+                         for t in booster._gbdt._device_trees)
+
+
 def phase_fused_kernels(binned, meta, rng) -> list:
     """K2 and K3 against their plain versions on the headline bins; then
     the sparse-live rounds (``sparse_leaves``: one live row, live rows in
@@ -1887,7 +2099,9 @@ def phase_fused_kernels(binned, meta, rng) -> list:
 
 class FusedRecorder:
     """Keeps the inputs of the last K2 call at each (nslots, precision,
-    mode) of a run, and of the last K3 call: the main path's own shapes
+    mode) of a run, and of the last K3 call (the last tree's valid
+    routing, with ``offsets``; ``tree`` / ``meta`` that tree, set by the
+    caller): the main path's own shapes
     and data, for the checks and the timing after it; and, with ``live``,
     each K2 launch's live rows (label below nslots: the rows its
     histograms add), in launch order, summed on the card: a probe that
@@ -1897,6 +2111,7 @@ class FusedRecorder:
     def __init__(self, live=False):
         self.last = {}
         self.route = self.packed_route = None
+        self.tree = self.meta = None   # the run's last tree and its meta
         self.count_live = live
         self.live = []      # (nslots, precision, mode), live rows, N
 
@@ -1914,13 +2129,14 @@ class FusedRecorder:
                                   binned.shape[1]))
             return out
 
-        def route(binned, lids, feats, rmeta, num_leaves, packed=False):
-            args = (binned, lids, feats, rmeta, num_leaves)
+        def route(binned, lids, feats, rmeta, num_leaves, packed=False,
+                  offsets=None):
+            args = (binned, lids, feats, rmeta, num_leaves, offsets)
             if packed:
                 self.packed_route = args
             else:
                 self.route = args
-            return self._orig[1](*args, packed=packed)
+            return self._orig[1](*args[:5], packed=packed, offsets=offsets)
 
         fc.fused_round, fc.route_rows = fused, route
         return self
@@ -1980,6 +2196,7 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     k2 = fc.launch_counts["fused_round"]
     k3 = fc.launch_counts["route_rows"]
     k1 = hc.launch_counts["hist_leaves"]
+    rec.tree, rec.meta = booster._gbdt._device_trees[-1], booster._gbdt.meta
     buckets = {f"{ns}:{prec}:{mode}": v for (ns, prec, mode), v
                in sorted(fc.bucket_launch_counts.items())}
     picks = sc.launch_counts["split_pick"]
@@ -1997,7 +2214,9 @@ def phase_fused_train(ds, dv, Xv, iters, dev, staged):
     check(set(rec.last) == set(fc.bucket_launch_counts),
           f"K2 was called at {sorted(rec.last)} but launched at "
           f"{sorted(fc.bucket_launch_counts)}")
-    check(k3 == k2, f"K3 launched {k3} times for {k2} rounds")
+    want_k3 = k3_expected(booster, 1)
+    check(k3 == want_k3, f"K3 launched {k3} times for {want_k3} trees of "
+          "more than one leaf (one valid set)")
     check(picks == k2, f"the pick kernel launched {picks} times for {k2} "
           "rounds")
     check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
@@ -2109,31 +2328,49 @@ def phase_fused_timing(rec: FusedRecorder, trained: dict, checks: list
         "residue_bitwise_cpu_plain": all(c["residue_bitwise_cpu_plain"]
                                          for c in checks),
         "buckets": buckets, "checks": checks})
-    binned, lids, feats, rmeta, num_leaves = rec.route
-    N = binned.shape[1]
-    ms = time_ms(lambda: fc.route_rows(binned, lids, feats, rmeta,
-                                       num_leaves), 20)
-    plain_ms = time_ms(lambda: fc.route_rows_ref(binned, lids, feats, rmeta,
-                                                 num_leaves), 2)
-    device_ms = kernel_device_ms(lambda: fc.route_rows(
-        binned, lids, feats, rmeta, num_leaves), ("route_kernel",))[
-            "route_kernel"] or None         # None: the profiler saw none
-    # one decision byte and one leaf id read, one leaf id written a row;
-    # the round's splits read once
-    nbytes = N * (1 + 4 + 4) + rmeta.numel() * 4 + feats.numel() * 4
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    binned, lids, feats, rmeta, num_leaves, offsets = rec.route
+    N, P, R = binned.shape[1], rmeta.shape[0], offsets.shape[0] - 1
+    k3_checks = check_k3_tree("recorded headline tree", binned, feats, rmeta,
+                              offsets, num_leaves, rec.tree, rec.meta)
+
+    def k3():
+        return fc.route_rows(binned, lids, feats, rmeta, num_leaves,
+                             offsets=offsets)
+
+    def per_round():
+        return single_rounds(binned, lids, feats, rmeta, offsets,
+                             num_leaves)
+
+    ms = time_ms(k3, 20)
+    rounds_ms = time_ms(per_round, 20)
+    plain_ms = time_ms(lambda: fc.route_rows_ref(
+        binned, lids, feats, rmeta, num_leaves, offsets=offsets), 2)
+    names = ("route_kernel", "route_global_kernel", "route_tables_kernel")
+    # None: the profiler saw no kernel
+    device_ms = sum(kernel_device_ms(k3, names).values()) or None
+    rounds_device_ms = sum(kernel_device_ms(per_round, names).values()) \
+        or None
+    cold_ms = sum(cold_device_ms(k3, names).values()) or None
+    rounds_cold_ms = sum(cold_device_ms(per_round, names).values()) or None
+    bound = k3_bound(binned, feats, rmeta, offsets, num_leaves)
     rows.append({
         "name": "route_rows", "route": "cuda", "source": FUSED_SRC,
         "replaces": "lightgbmv1_tpu/ops/wave_fused.py:558",
         "launches": int(trained["k3_launches"]), "max_abs_err": 0.0,
-        "ms": ms, "plain_ms": plain_ms, "bound_ms": t_bytes,
-        "bound_by": "bytes", "library_ms": None,
+        "ms": ms, "plain_ms": plain_ms, **bound, "library_ms": None,
         "library_note": "none: no single PyTorch call routes rows through "
-        "a tree's splits", "rows": N, "slots": int(rmeta.shape[0]),
-        "device_ms": device_ms})
-    log(f"  K3 on {N} valid rows, {rmeta.shape[0]} slots: {ms:.4f} ms, "
-        f"device {device_ms} ms (plain {plain_ms:.2f} ms, bound "
-        f"{t_bytes:.5f} ms by bytes)")
+        "a tree's splits", "rows": N, "splits": P, "rounds": R,
+        "device_ms": device_ms, "cold_device_ms": cold_ms,
+        "single_round_launches_ms": rounds_ms,
+        "single_round_launches_device_ms": rounds_device_ms,
+        "single_round_launches_cold_device_ms": rounds_cold_ms,
+        "checks": k3_checks})
+    log(f"  K3 on {N} valid rows, the last tree's {P} splits in {R} rounds:"
+        f" {ms:.4f} ms, device {device_ms} ms (L2 cleared: {cold_ms}); {R} "
+        f"single-round launches {rounds_ms:.4f} ms, device "
+        f"{rounds_device_ms} ms (L2 cleared: {rounds_cold_ms}) (plain "
+        f"{plain_ms:.2f} ms, bound {bound['bound_ms']:.5f} ms by bytes, "
+        f"{bound['bin_reads']} bin reads)")
     return rows
 
 
@@ -2450,7 +2687,9 @@ def phase_loop_train(ds, dv, Xv, iters, dev):
     check(k6 == len(rec.n_split) and k6 >= trees,
           f"K6 launched {k6} times, {len(rec.n_split)} calls, {trees} trees")
     check(k2 == 0, f"K2 launched {k2} times on the looped path")
-    check(k3 == replayed, f"K3 launched {k3} times for {replayed} rounds")
+    want_k3 = k3_expected(booster, 1)
+    check(k3 == want_k3, f"K3 launched {k3} times for {want_k3} trees of "
+          "more than one leaf (one valid set)")
     check(k1 == trees, f"K1 launched {k1} times for {trees} root passes")
     check(not any(plain.values()), "a plain version ran on the looped path")
     scan = scan_launches(trees)
@@ -3035,12 +3274,14 @@ def packed_run(params, ds, dv, iters, dev):
     plain = {**{f"hist.{k}": v for k, v in hc.plain_counts.items()},
              **{f"fused.{k}": v for k, v in fc.plain_counts.items()},
              **{f"loop.{k}": v for k, v in lc.plain_counts.items()}}
+    frec.tree, frec.meta = booster._gbdt._device_trees[-1], booster._gbdt.meta
     return booster, secs, ev, launches, plain, (hrec, frec, lrec)
 
 
 # the packed launches each training must show, and the u8 ones it must not
 PACKED_LEGS = {
-    "staged": (("hist_leaves_packed",), ("hist_leaves",)),
+    "staged": (("hist_leaves_packed", "route_rows_packed"),
+               ("hist_leaves", "route_rows")),
     "fused": (("hist_leaves_packed", "fused_round_packed",
                "route_rows_packed"),
               ("hist_leaves", "fused_round", "route_rows")),
@@ -3171,21 +3412,28 @@ def phase_packed_timing(recs, trained) -> dict:
         **packed_bound(Fb * N + N * 12 + N * 4 + 2 * N * 4 + other,
                        (2 if prec == "bf16x2" else 1) * 3 * n_live * Fn
                        + 2 * S * Fn * B * 2 * 12)}
-    binned, lids, feats, rmeta, num_leaves = frec.packed_route
+    binned, lids, feats, rmeta, num_leaves, offsets = frec.packed_route
     Fb, N = binned.shape
     u8 = hc.unpack4bit(binned, Fn)
+    checks = check_k3_tree("packed, the fused run's last tree", binned,
+                           feats, rmeta, offsets, num_leaves, frec.tree,
+                           frec.meta, packed=True, u8=u8)
+    kw3 = dict(offsets=offsets)
     out["route_rows"] = {
-        "N": N, "slots": int(rmeta.shape[0]), "stored_columns": Fb,
+        "N": N, "splits": int(rmeta.shape[0]),
+        "rounds": int(offsets.shape[0] - 1), "stored_columns": Fb,
         "launches": int(trained["fused"]["launches"]["route_rows_packed"]),
+        "launches_by_path": {k: int(v["launches"]["route_rows_packed"])
+                             for k, v in trained.items()},
         "ms": time_ms(lambda: fc.route_rows(binned, lids, feats, rmeta,
-                                            num_leaves, packed=True), 20),
+                                            num_leaves, packed=True, **kw3),
+                      20),
         "u8_ms": time_ms(lambda: fc.route_rows(u8, lids, feats, rmeta,
-                                               num_leaves), 20),
+                                               num_leaves, **kw3), 20),
         "plain_ms": time_ms(lambda: fc.route_rows_ref(
-            binned, lids, feats, rmeta, num_leaves, True), 2),
-        "library_ms": None,
-        **packed_bound(N * (1 + 4 + 4) + rmeta.numel() * 4
-                       + feats.numel() * 4, 0)}
+            binned, lids, feats, rmeta, num_leaves, True, **kw3), 2),
+        "library_ms": None, "checks": checks,
+        **k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=True)}
     pos, kw = loop_call(recs["looped"][2].last)
     Fn = kw["base_mask"].shape[0]
     u8 = hc.unpack4bit(pos[0], Fn)
@@ -4836,6 +5084,18 @@ def phase_int8_kernels(binned, meta, rng, packed_ds) -> dict:
     odd = (N * 3 // 4) | 1
     out["quantize"].append(check_rn_quantize(
         f"N={odd} T=512", bagged_rows(rng, odd, dev), 512))
+    # the tails the kernel's 16-byte loads and stores mask
+    for T in qz.ROW_TILES:
+        for n in (1, 3, T - 1, T + 1, 4 * T + 3):
+            out["quantize"].append(check_rn_quantize(
+                f"N={n} T={T}", bagged_rows(rng, n, dev), T))
+    # rows a float past a 16-byte boundary: the kernel's scalar leg
+    n = 4 * 512 + 3
+    buf = torch.empty(3 * n + 1, dtype=torch.float32, device=dev)
+    buf[1:] = bagged_rows(np.random.RandomState(34), n, dev).reshape(-1)
+    for T in (128, 512):
+        out["quantize"].append(check_rn_quantize(
+            f"N={n} T={T} off 16 B", buf[1:].view(n, 3), T))
     b16 = (binned % 16).to(torch.uint8).contiguous()
     p16 = hc.pack4bit(b16)
     for L in (2, 17, 64):
@@ -5158,6 +5418,15 @@ def phase_int8_timing(recs, trained) -> dict:
                                     if k[1] == "int8")][1]
     N = g3.shape[0]
     T = 512
+
+    def rn_times(T):
+        def fn():
+            return qz.rn_quantize(g3, T)
+        name = ("rn_quantize_kernel",)
+        return {"ms": time_ms(fn, 20),
+                "device_ms": kernel_device_ms(fn, name)[name[0]] or None,
+                "cold_device_ms": cold_device_ms(fn, name)[name[0]] or None}
+
     qrow = {
         "name": "rn_quantize", "route": "cuda", "source": QUANT_SRC,
         "replaces": "lightgbmv1_tpu/ops/hist_pallas.py:144 _kernel "
@@ -5168,11 +5437,15 @@ def phase_int8_timing(recs, trained) -> dict:
         "launches": int(trained["staged"]["launches"]["rn_quantize"]),
         "launches_by_path": {k: int(v["launches"]["rn_quantize"])
                              for k, v in trained.items()},
-        "max_abs_err": 0.0,
-        "ms": time_ms(lambda: qz.rn_quantize(g3, T), 20),
+        "max_abs_err": 0.0, **rn_times(T), "T128": rn_times(128),
         "plain_ms": time_ms(lambda: qz.rn_quantize_ref(g3, T), 1),
         "library_ms": None,
         **int8sr_bound(N * 24 + -(-N // T) * 12, N * 8, 0)}
+    log(f"  rn_quantize at {N} rows: T=512 {qrow['ms']:.4f} ms, device "
+        f"{qrow['device_ms']} ms (L2 cleared: {qrow['cold_device_ms']}); "
+        f"T=128 {qrow['T128']['ms']:.4f} ms, device "
+        f"{qrow['T128']['device_ms']} ms (L2 cleared: "
+        f"{qrow['T128']['cold_device_ms']})")
     for name, r in list(out.items()) + [("rn_quantize", qrow)]:
         legs = ", ".join(f"{k} {r[k]:.4f} ms" for k in
                          ("int8sr_ms", "bf16_ms", "bf16x2_ms") if k in r)
@@ -5358,9 +5631,10 @@ def main(argv=None) -> int:
 
     log("== phase 14: K2 and K3 against their plain versions")
     binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
-    k2_checks = phase_fused_kernels(binned, make_feature_meta(ds._binned,
-                                                              dev), rng)
-    del binned
+    meta = make_feature_meta(ds._binned, dev)
+    k2_checks = phase_fused_kernels(binned, meta, rng)
+    k3_checks = phase_k3_synthetic(binned, meta, rng)
+    del binned, meta
 
     log("== phase 15: fused training (main path; launch counts reset)")
     fused, frec = phase_fused_train(ds, dv, Xv, args.iters, dev, trained)
@@ -5375,6 +5649,7 @@ def main(argv=None) -> int:
     log("== phase 17: K2 and K3 timing at the main path's buckets, and the "
         "pick after K2")
     fused_rows = phase_fused_timing(frec, fused, k2_checks)
+    fused_rows[1]["checks"] = k3_checks + fused_rows[1]["checks"]
     pick_row = pick_timing(frec, fused)
     pick_row["checks"] = [{"case": c["case"], "finite": c["pick_finite"]}
                           for c in k2_checks]
@@ -5398,6 +5673,9 @@ def main(argv=None) -> int:
     log("== phase 21: K6 timing and where a looped iteration's time goes")
     k6_row = phase_loop_timing(lrec, drec, looped, k6_checks)
     k6_row["plan"] = plan
+    fused_rows[1]["launches_by_path"] = {
+        "staged": trained["k3_launches"], "fused": fused["k3_launches"],
+        "looped": looped["k3_launches"]}
     del lrec, drec
     lprof = phase_profile(ds, 5, dev, LOOP_PARAMS)
 

@@ -60,9 +60,29 @@
 //    kernel (split_scan.cu) runs the same scan_child on staged
 //    histograms, so every pick on the card is made from K2's bits.
 // K3 lgbm_route_rows — replaces wave_fused.py _route_only_kernel (reached
-//    through fused_route_rows): the valid set routed through one round's
-//    splits by launch (a)'s row function (route_row, the same binary
-//    search) without the label or the tile counts.
+//    through fused_route_rows): a row set routed from its leaf ids through
+//    a tree's rounds of splits in one launch.  The TPU kernel routes the
+//    valid set through one round at a time, a launch a round; nobody
+//    reads the valid leaf ids before the tree is grown, and the routing is
+//    integer, so routing each row through all R rounds at once gives the
+//    same ids.  In: the P splits in round order (rmeta (P, 8) and their
+//    features) and the rounds' offsets (R + 1,); no offsets is one round.
+//    The tables (each split's Slot and its place in its round's
+//    leaf-sorted order, the order sort_slots gives, and the offsets) sit
+//    in the block's shared memory, each split placed by a thread of its
+//    own; one thread a row keeps the row's leaf id in a register across
+//    the rounds, a round one binary search (route_leaf, the decision K2
+//    and K6 run) and a bin load where its leaf splits, so the ids are
+//    read and written once.  A tree whose tables pass kRouteSmemBytes has
+//    them built once in device memory by route_tables_kernel and read
+//    from there (through L1) by every block; on an H100 that leg routes a
+//    254-split tree about 1.4x slower than the blocks' own shared copies,
+//    so both stay.  What bounds K3: 8 bytes a
+//    row and a bin byte for each round its leaf splits in, under a
+//    microsecond at 131,072 rows; but a row's rounds are a chain of
+//    dependent loads (the next round's feature follows this round's
+//    leaf), so its time is that chain's latency, about one L2 round trip
+//    a round, and the blocks' table set-up.
 // Both take 4-bit packed bins (`packed`, the Pallas kernels' `fpb > 0` /
 //    `decision_bins(packed=True)` legs, bin_layout=packed4): (ceil(F/2), N)
 //    bytes of two features each.  Only the loads in (a) and (c) differ
@@ -118,26 +138,131 @@ int route_blocks(int tiles) {
 // leaf-sorted order (leaf, slot)
 constexpr size_t kRouteSlotBytes = sizeof(Slot) + 2 * sizeof(int);
 
-// K3: route_tile on the rows of the grid (route_row, wave_round.cuh),
-// without the label.
+// K3's tables: P Slots; each round's leaf-sorted order, as P leaves and
+// then P round-local slots (round q's at its offset); the R + 1 offsets.
+// In shared memory up to kRouteSmemBytes, past it in the caller's device
+// scratch, P (kRmetaCols + 3) + R + 1 ints (fused_cuda.route_rows).
+constexpr size_t kRouteSmemBytes = 48 * 1024;
+static_assert(sizeof(Slot) == (kRmetaCols + 1) * sizeof(int),
+              "a Slot is an rmeta row and its feature");
+
+size_t route_table_bytes(int P, int R) {
+  return static_cast<size_t>(P) * kRouteSlotBytes +
+         static_cast<size_t>(R + 1) * sizeof(int);
+}
+
+struct RouteTables {
+  Slot* slots;
+  int* sleaf;
+  int* sidx;
+  int* off;
+};
+
+__device__ __forceinline__ RouteTables route_tables(int* base, int P) {
+  Slot* slots = reinterpret_cast<Slot*>(base);
+  int* sleaf = reinterpret_cast<int*>(slots + P);
+  return RouteTables{slots, sleaf, sleaf + P, sleaf + 2 * P};
+}
+
+// Round q's split range; a null `offs` is one round of the P splits.
+__device__ __forceinline__ int round_offset(const int* offs, int q, int P) {
+  return offs ? offs[q] : (q ? P : 0);
+}
+
+// Split s of P in R rounds (round q: round_offset(q) .. round_offset(q +
+// 1), rising): its place in its round's leaf order, ties in slot order
+// (slot_rank on the leaves leaf0[t * stride], the order sort_slots gives),
+// written to the tables with its round-local slot.
+__device__ __forceinline__ void place_split(int s, const int* offs, int P,
+                                            int R, const int* leaf0,
+                                            int stride,
+                                            const RouteTables& tb) {
+  // s's round: the last q with off(q) <= s (off(R) = P > s), past any
+  // empty round at the same offset
+  int lo = 0, hi = R - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (round_offset(offs, mid, P) <= s) {
+      lo = mid;
+    } else {
+      hi = mid - 1;
+    }
+  }
+  const int o = round_offset(offs, lo, P);
+  const int rank = slot_rank(leaf0 + static_cast<size_t>(o) * stride, stride,
+                             round_offset(offs, lo + 1, P) - o, s - o);
+  tb.sleaf[o + rank] = leaf0[static_cast<size_t>(s) * stride];
+  tb.sidx[o + rank] = s - o;
+}
+
+// Each row of the grid from its leaf id through the R rounds of `tb`.
+template <bool PACKED>
+__device__ __forceinline__ void route_rounds(
+    const uint8_t* __restrict__ binned, const int* __restrict__ oleaf,
+    const RouteTables& tb, int* __restrict__ new_leaf, int n, int R) {
+  const int step = gridDim.x * blockDim.x;
+  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += step) {
+    int lf = oleaf[r];
+    for (int q = 0; q < R; ++q) {
+      const int o = tb.off[q];
+      int dlab = 0;
+      lf = route_leaf<false, false, PACKED>(r, lf, binned, tb.slots + o,
+                                            tb.sleaf + o, tb.sidx + o, n,
+                                            tb.off[q + 1] - o, 0, dlab);
+    }
+    new_leaf[r] = lf;
+  }
+}
+
+// K3 on tables in shared memory: each block loads the P slots and the
+// offsets, places each split in its round's leaf order (a thread a
+// split), then routes its rows.
 template <bool PACKED>
 __global__ void __launch_bounds__(kThreads)
 route_kernel(const uint8_t* __restrict__ binned,
              const int* __restrict__ oleaf, const int* __restrict__ feats,
-             const int* __restrict__ rmeta, int* __restrict__ new_leaf, int n,
-             int ns) {
+             const int* __restrict__ rmeta, const int* __restrict__ offs,
+             int* __restrict__ new_leaf, int n, int P, int R) {
   extern __shared__ int route_smem[];
-  Slot* slots = reinterpret_cast<Slot*>(route_smem);
-  int* sleaf = reinterpret_cast<int*>(slots + ns);
-  int* sidx = sleaf + ns;
-  load_slots(rmeta, feats, ns, slots);
+  const RouteTables tb = route_tables(route_smem, P);
+  load_slots(rmeta, feats, P, tb.slots);
+  for (int q = threadIdx.x; q <= R; q += blockDim.x)
+    tb.off[q] = round_offset(offs, q, P);
   __syncthreads();
-  sort_slots(slots, ns, sleaf, sidx);
+  constexpr int kSlotInts = sizeof(Slot) / sizeof(int);
+  for (int s = threadIdx.x; s < P; s += blockDim.x)
+    place_split(s, offs, P, R, &tb.slots[0].leaf, kSlotInts, tb);
   __syncthreads();
+  route_rounds<PACKED>(binned, oleaf, tb, new_leaf, n, R);
+}
+
+// The tables of a tree past kRouteSmemBytes, built once in device memory
+// `tab`: one thread a split writes its Slot and places it in its round
+// (on rmeta's leaf column).
+__global__ void __launch_bounds__(kThreads)
+route_tables_kernel(const int* __restrict__ feats,
+                    const int* __restrict__ rmeta,
+                    const int* __restrict__ offs, int* __restrict__ tab,
+                    int P, int R) {
+  const RouteTables tb = route_tables(tab, P);
   const int step = gridDim.x * blockDim.x;
-  for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += step)
-    route_row<false, false, PACKED>(r, binned, oleaf, slots, sleaf, sidx, n,
-                                    ns, 0, new_leaf, nullptr);
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  for (int q = g; q <= R; q += step) tb.off[q] = round_offset(offs, q, P);
+  for (int s = g; s < P; s += step) {
+    const int* m = rmeta + static_cast<size_t>(s) * kRmetaCols;
+    tb.slots[s] = Slot{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+                       feats[s]};
+    place_split(s, offs, P, R, rmeta, kRmetaCols, tb);
+  }
+}
+
+// K3 on the tables `route_tables_kernel` built in device memory.
+template <bool PACKED>
+__global__ void __launch_bounds__(kThreads)
+route_global_kernel(const uint8_t* __restrict__ binned,
+                    const int* __restrict__ oleaf, int* __restrict__ tab,
+                    int* __restrict__ new_leaf, int n, int P, int R) {
+  route_rounds<PACKED>(binned, oleaf, route_tables(tab, P), new_leaf, n, R);
 }
 
 // K2 (a): route_label_tile on the tiles of the grid: new leaf ids, the
@@ -370,19 +495,41 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
              st);
 }
 
-// K3.  (N,) leaf ids of `binned`'s rows after the S splits of `rmeta`
-// (`packed` != 0: `binned` holds packed bytes).
+// K3.  (N,) leaf ids of `binned`'s rows, from `oleaf`, after the P
+// splits of `rmeta` (P, 8) on the features `feats` (P,), round q's splits
+// rows offs[q] .. offs[q + 1] (`offs` (R + 1,), rising; null: one round,
+// R = 1).  `packed` != 0: `binned` holds packed bytes.  `tab`: device
+// scratch of P (kRmetaCols + 3) + R + 1 ints, used where the tables pass
+// kRouteSmemBytes.
 int lgbm_route_rows(const void* binned, const void* oleaf, const void* feats,
-                    const void* rmeta, void* out, int n, int S, int packed,
-                    void* stream) {
+                    const void* rmeta, const void* offs, void* out, void* tab,
+                    int n, int P, int R, int packed, void* stream) {
+  if (P < 0 || R < 1 || (!offs && R != 1) || !tab)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const auto kernel = packed ? route_kernel<true> : route_kernel<false>;
-  kernel<<<route_blocks((n + kThreads - 1) / kThreads), kThreads,
-           static_cast<size_t>(S) * kRouteSlotBytes,
-           static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint8_t*>(binned), static_cast<const int*>(oleaf),
-      static_cast<const int*>(feats), static_cast<const int*>(rmeta),
-      static_cast<int*>(out), n, S);
+  const auto* bn = static_cast<const uint8_t*>(binned);
+  const auto* ol = static_cast<const int*>(oleaf);
+  const auto* ft = static_cast<const int*>(feats);
+  const auto* rm = static_cast<const int*>(rmeta);
+  const auto* of = static_cast<const int*>(offs);
+  auto* o = static_cast<int*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const int blocks = route_blocks((n + kThreads - 1) / kThreads);
+  if (route_table_bytes(P, R) <= kRouteSmemBytes) {
+    const auto kernel = packed ? route_kernel<true> : route_kernel<false>;
+    kernel<<<blocks, kThreads, route_table_bytes(P, R), st>>>(
+        bn, ol, ft, rm, of, o, n, P, R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  auto* tb = static_cast<int*>(tab);
+  const int splits = P > R + 1 ? P : R + 1;
+  route_tables_kernel<<<route_blocks((splits + kThreads - 1) / kThreads),
+                        kThreads, 0, st>>>(ft, rm, of, tb, P, R);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  const auto kernel =
+      packed ? route_global_kernel<true> : route_global_kernel<false>;
+  kernel<<<blocks, kThreads, 0, st>>>(bn, ol, tb, o, n, P, R);
   return static_cast<int>(cudaGetLastError());
 }
 

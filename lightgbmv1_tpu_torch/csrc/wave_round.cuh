@@ -1,13 +1,13 @@
 // The device code of one wave round, shared by the fused round K2 / K3
 // (csrc/wave_fused.cu) and the persistent wave loop K6
 // (csrc/wave_loop.cu).  Each stage is a __device__ function that takes its
-// work item as an argument — a row or a 256-row tile (route_row,
-// route_label_tile, list_tile), a (feature, chunk, slot group)
+// work item as an argument — a row or a 256-row tile (route_leaf,
+// route_row, route_label_tile, list_tile), a (feature, chunk, slot group)
 // (hist_partial_list_item, in hist_tile.cuh) or a (slot, feature)
 // (scan_item) — so the kernels compute the same values from the same
 // inputs whatever grid runs them.  ops/_build.py hashes every csrc/*.cuh
 // a source includes into the library's name.  The two stages that read
-// bins (route_row's decision bin, hist_partial_list_item's ring) take a
+// bins (route_leaf's decision bin, hist_partial_list_item's ring) take a
 // PACKED leg for 4-bit packed bins (bin_layout=packed4); every stage after
 // the load is the same code.
 //
@@ -56,18 +56,27 @@ __device__ __forceinline__ bool go_left(int bin, const Slot& m) {
   return na ? m.dl != 0 : bin <= m.thr;
 }
 
+// The place of slot s among ns slots in leaf order, ties in slot order:
+// the slots' leaves are leaf0[t * stride], t < ns.
+__device__ __forceinline__ int slot_rank(const int* leaf0, int stride, int ns,
+                                         int s) {
+  const int lf = leaf0[static_cast<size_t>(s) * stride];
+  int rank = 0;
+  for (int t = 0; t < ns; ++t) {
+    const int o = leaf0[static_cast<size_t>(t) * stride];
+    rank += o < lf || (o == lf && t < s);
+  }
+  return rank;
+}
+
 // The leaf-sorted order of a round's ns slots, by the block: sleaf[k] is
 // the k-th smallest slot leaf (ties in slot order), sidx[k] its slot.
 __device__ __forceinline__ void sort_slots(const Slot* slots, int ns,
                                            int* sleaf, int* sidx) {
+  constexpr int kSlotInts = sizeof(Slot) / sizeof(int);
   for (int s = threadIdx.x; s < ns; s += blockDim.x) {
-    const int lf = slots[s].leaf;
-    int rank = 0;
-    for (int t = 0; t < ns; ++t) {
-      const int o = slots[t].leaf;
-      rank += o < lf || (o == lf && t < s);
-    }
-    sleaf[rank] = lf;
+    const int rank = slot_rank(&slots[0].leaf, kSlotInts, ns, s);
+    sleaf[rank] = slots[s].leaf;
     sidx[rank] = s;
   }
 }
@@ -89,22 +98,19 @@ __device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
   }
 }
 
-// route_tile on row r: the sums over the slots its leaf matches (one at
-// most: live slots hold distinct leaves, dead slots a leaf no row has),
-// term for term, those slots found by a binary search of the leaf-sorted
-// order (sort_slots), so a row costs log2(ns) steps, not ns.  Reads the
-// row's leaf id before it writes the new one, so `new_leaf` may be
-// `oleaf`.  WANT_LABEL (K2 and K6; K3 routes without it) also writes and
-// returns the label: the smaller child's slot in subtraction mode, 2s +
-// right pool-free, nslots for a row of no split.  PACKED: `binned` holds
-// the packed bytes, and the decision bin is the nibble of the slot's
-// feature (bin_column / bin_of, hist_tile.cuh).
+// route_tile on row r of leaf lf: the sums over the slots its leaf
+// matches (one at most: live slots hold distinct leaves, dead slots a leaf
+// no row has), term for term, those slots found by a binary search of the
+// leaf-sorted order (sort_slots), so a row costs log2(ns) steps, not ns.
+// Returns the row's new leaf id and adds the label's terms to `dlab`
+// (WANT_LABEL).  PACKED: `binned` holds the packed bytes, and the
+// decision bin is the nibble of the slot's feature (bin_column / bin_of,
+// hist_tile.cuh).  The one decision of K2, K3 and K6.
 template <bool WANT_LABEL, bool SUB, bool PACKED>
-__device__ __forceinline__ int route_row(
-    int r, const uint8_t* __restrict__ binned, const int* oleaf,
-    const Slot* slots, const int* sleaf, const int* sidx, int n, int ns,
-    int nslots, int* new_leaf, int* label) {
-  const int lf = oleaf[r];
+__device__ __forceinline__ int route_leaf(
+    int r, int lf, const uint8_t* __restrict__ binned, const Slot* slots,
+    const int* sleaf, const int* sidx, int n, int ns, int nslots,
+    int& dlab) {
   int lo = 0, hi = ns;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -114,7 +120,7 @@ __device__ __forceinline__ int route_row(
       hi = mid;
     }
   }
-  int dleaf = 0, dlab = 0;
+  int dleaf = 0;
   for (int p = lo; p < ns && sleaf[p] == lf; ++p) {
     const int s = sidx[p];
     const Slot& m = slots[s];
@@ -122,7 +128,21 @@ __device__ __forceinline__ int route_row(
         s, m, bin_of<PACKED>(bin_column<PACKED>(binned, m.feat, n)[r], m.feat),
         lf, nslots, dleaf, dlab);
   }
-  new_leaf[r] = lf + dleaf;
+  return lf + dleaf;
+}
+
+// route_leaf on row r of the leaf ids `oleaf`.  Reads the row's leaf id
+// before it writes the new one, so `new_leaf` may be `oleaf`.  WANT_LABEL
+// (K2 and K6) also writes and returns the label: the smaller child's slot
+// in subtraction mode, 2s + right pool-free, nslots for a row of no split.
+template <bool WANT_LABEL, bool SUB, bool PACKED>
+__device__ __forceinline__ int route_row(
+    int r, const uint8_t* __restrict__ binned, const int* oleaf,
+    const Slot* slots, const int* sleaf, const int* sidx, int n, int ns,
+    int nslots, int* new_leaf, int* label) {
+  int dlab = 0;
+  new_leaf[r] = route_leaf<WANT_LABEL, SUB, PACKED>(
+      r, oleaf[r], binned, slots, sleaf, sidx, n, ns, nslots, dlab);
   if (WANT_LABEL) label[r] = nslots + dlab;
   return nslots + dlab;
 }

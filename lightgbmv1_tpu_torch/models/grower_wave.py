@@ -34,24 +34,31 @@ computed there and dropped, so the values kept are the same.  The
 partition is written per row (each row looks up its leaf's slot) instead
 of the JAX version's (S, N) compare: the same integer decisions.
 
+The valid sets are routed once a tree, after its last round: their leaf
+ids are read only then (the score update), and the routing is integer, so
+routing each row through all of the tree's rounds at once gives the ids a
+routing round by round gives.  The splits come from the store's node rows
+(``_PackedStore.split_rows``, node order being round order) with each
+round's split count, and ``route_valid_sets`` routes each set in one
+launch of K3 on the card, on every path (staged, fused, looped).
+
 With ``fused_round_fn`` (``hist_method=fused``, ops/wave_fused.py) a
 round is the JAX package's single-pass routed round (JAX :787-799,
 :1258-1272, :1318-1370, :1402-1429): no separate partition and histogram
 pass — the fused round (the CUDA kernel K2 on the card) routes the rows,
 histograms the label it made, subtracts and scans, and returns the new
-leaf ids and the packed SplitInfo of the 2S slot children; the valid sets
-go through ``fused_round_fn.route_rows`` (K3).  Dead slots carry leaf id
-``L`` and child sums 1.0, as the JAX ``to_slot`` / ``to_cslot`` fill them;
-a round's slot k is its rank k, so the slot -> rank gather is a prefix.
-The root pass stays on ``hist_wave_fn`` (K1).
+leaf ids and the packed SplitInfo of the 2S slot children.  Dead slots
+carry leaf id ``L`` and child sums 1.0, as the JAX ``to_slot`` /
+``to_cslot`` fill them; a round's slot k is its rank k, so the slot ->
+rank gather is a prefix.  The root pass stays on ``hist_wave_fn`` (K1).
 
 With ``fused_loop_fn`` as well (``wave_loop_rounds > 1``) the rounds run
 as segments (JAX :1547-1659): one launch of the persistent loop (K6 on
 the card) runs R rounds from the frontier columns of the store, and the
 grower reads the segment's split counts once and replays each round that
-split through the same boundary, valid-set routing and store commit as
-the single round, from the round's packed SplitInfo.  The segments end at
-a round of no split or at ``num_leaves``.
+split through the same boundary and store commit as the single round,
+from the round's packed SplitInfo.  The segments end at a round of no
+split or at ``num_leaves``.
 
 Quantized rounds (``hist_dtype_deep=int8sr``, JAX :49-58, :855-863,
 :1078-1085, :1371-1465): with ``hist_wave_quant_fn`` the sustained
@@ -102,6 +109,7 @@ from __future__ import annotations
 
 from typing import Callable, List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from ..ops.hist_cuda import bins_of_rows
@@ -109,7 +117,8 @@ from ..ops.quantize import NearestRows, prequantize_rows
 from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
                          child_leaf_output, find_best_split, go_left_rule,
                          leaf_output, smooth_output)
-from ..ops.wave_fused import subtract_children, unpack_children
+from ..ops.wave_fused import (fused_route_rows, subtract_children,
+                               unpack_children)
 from ..utils.prng import fold_in
 from .grower import child_constraints, node_feature_masks, root_sums
 from .tree import TreeArrays
@@ -241,10 +250,11 @@ def defer_adjacent(valid, boxes, mono_feats):
 class _PackedStore:
     """The per-leaf frontier + tree-leaf state in one (L, 17) f32 table
     (19 with monotone constraints: their bounds) and the per-node tree
-    state in one (L1, 10) f32 table (JAX :472).  Ids, bins, depths and
-    child indices ride as exact small f32 values; a round commits with
-    one 2K-row frontier write, one K-row node write and one child-pointer
-    fixup."""
+    state in one (L1, 11) f32 table (JAX :472, and the leaf each node
+    split, which the valid routing reads at the tree's end).  Ids, bins,
+    depths and child indices ride as exact small f32 values; a round
+    commits with one 2K-row frontier write, one K-row node write and one
+    child-pointer fixup."""
 
     # frontier-table columns (per leaf)
     GAIN, FEAT, BIN, DL = 0, 1, 2, 3
@@ -253,7 +263,8 @@ class _PackedStore:
     LVAL, LWEIGHT, LCNT, LPAR = 13, 14, 15, 16
     CMIN, CMAX = 17, 18              # only with monotone constraints
     # node-table columns (per internal node)
-    NFEAT, NBIN, NDL, NMT, NGAIN, NIVAL, NIW, NIC, NLC, NRC = range(10)
+    NFEAT, NBIN, NDL, NMT, NGAIN, NIVAL, NIW, NIC, NLC, NRC, NLEAF = \
+        range(11)
 
     # The grower owns the tables, so a round's commit writes them in place
     # (the JAX version's functional update would copy both a round).
@@ -276,7 +287,7 @@ class _PackedStore:
             res0.threshold_bin[0].float(), res0.default_left[0].float(),
             *res0.left_sum[0], *res0.right_sum[0],
             out0, z, z, z, z, z, z - 1.0])
-        nt = torch.zeros((self.L1, 10), dtype=torch.float32,
+        nt = torch.zeros((self.L1, 11), dtype=torch.float32,
                          device=self.device)
         nt[:, self.NLC] = -1.0
         nt[:, self.NRC] = -2.0
@@ -324,7 +335,8 @@ class _PackedStore:
             r["vals"][:, None], r["pout"][:, None],
             r["psum"][:, 1:2], r["psum"][:, 2:3],
             (-(r["leafs"] + 1)).to(f32)[:, None],
-            (-(r["nls"] + 1)).to(f32)[:, None]], dim=1)
+            (-(r["nls"] + 1)).to(f32)[:, None],
+            r["leafs"].to(f32)[:, None]], dim=1)
         nt = s["nt"]
         # parents are strictly older nodes than this round's new rows, so
         # the pointer fixup and the row write never collide
@@ -336,6 +348,17 @@ class _PackedStore:
         nt[p[fl], self.NLC] = nodes_f[fl]
         nt[p[fr], self.NRC] = nodes_f[fr]
         nt[r["nidx"]] = nrows
+
+    def split_rows(self, s, n_splits):
+        """The tree's ``n_splits`` splits in node order, which is round
+        order (a round's nodes are ``nl - 1 + rank``): ``(feats, thrs,
+        dls, leafs, nls)`` int32, the leaf each split and the new leaf
+        its right child took (node j's is j + 1)."""
+        rows = s["nt"][:n_splits]
+        i32 = torch.int32
+        fbd = rows[:, self.NFEAT:self.NDL + 1].to(i32)
+        return (fbd[:, 0], fbd[:, 1], fbd[:, 2], rows[:, self.NLEAF].to(i32),
+                torch.arange(1, n_splits + 1, dtype=i32, device=self.device))
 
     def finalize(self, s, num_leaves) -> TreeArrays:
         ft, nt = s["ft"], s["nt"]
@@ -375,6 +398,29 @@ def _topk_by_rank(gains: torch.Tensor, K: int):
     return vals, leafs
 
 
+def route_valid_sets(store: _PackedStore, st, round_splits, valids, *,
+                     num_leaves, meta: FeatureMeta, packed=False):
+    """Each valid set's leaf ids, from the root through all of a grown
+    tree's rounds at once (K3 on the card, a launch a set): nothing reads
+    them before the tree ends.  ``round_splits``: each round's split
+    count, in order; the splits are the store's node rows."""
+    dev = store.device
+    vlids = [torch.zeros(v.shape[1], dtype=torch.int32, device=dev)
+             for v in valids]
+    if not valids or not round_splits:
+        return vlids
+    feats, thrs, dls, leafs, nls = store.split_rows(st, sum(round_splits))
+    offsets = torch.tensor(np.cumsum([0] + list(round_splits)),
+                           dtype=torch.int32)
+    if dev.type == "cuda":
+        # from pinned memory the copy need not wait for the stream
+        offsets = offsets.pin_memory().to(dev, non_blocking=True)
+    return fused_route_rows(list(zip(valids, vlids)), feats=feats, thrs=thrs,
+                            dls=dls, leafs=leafs, nls=nls,
+                            num_leaves=num_leaves, meta=meta, packed=packed,
+                            offsets=offsets)
+
+
 def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      params: SplitParams, hist_wave_fn: Callable,
                      max_depth: int = -1, wave_size: int = 32,
@@ -396,13 +442,13 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     ``fused_loop_fn`` (ops/wave_fused.make_fused_wave_loop, which the
     trainer builds only where its plan is eligible) the rounds run as
     segments of ``fused_loop_fn.rounds`` rounds a launch, replayed here
-    from their packed SplitInfo (JAX :1547-1659), and ``fused_round_fn``
-    routes the valid sets.  ``grow`` returns ``(tree, leaf_id, root_sum,
-    valid_leaf_ids)``: each valid set's rows routed through the same
-    splits, so its score update is a leaf-value gather.  ``packed``:
-    ``binned`` and the valid sets hold 4-bit packed bytes, which the
-    staged round's partition and valid routing decode
-    (``hist_cuda.bins_of_rows``); the callables read them themselves.
+    from their packed SplitInfo (JAX :1547-1659).  ``grow`` returns
+    ``(tree, leaf_id, root_sum, valid_leaf_ids)``: each valid set's rows
+    routed through the same splits, once the tree is grown, so its score
+    update is a leaf-value gather.  ``packed``: ``binned`` and the valid
+    sets hold 4-bit packed bytes, which the staged round's partition
+    decodes (``hist_cuda.bins_of_rows``) and the callables and the valid
+    routing read themselves.
     ``hist_wave_quant_fn(binned, zq, label, nslots, key) -> hist_q``
     (``hist_dtype_deep=int8sr``) runs the quantized buckets' staged
     rounds on the tree's prequantized rows ``zq``
@@ -485,19 +531,18 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             leaf_hist = torch.zeros((L,) + tuple(hist0.shape),
                                     dtype=torch.float32, device=dev)
             leaf_hist[0] = hist0
-        vlids = [torch.zeros(v.shape[1], dtype=torch.int32, device=dev)
-                 for v in valids]
         kiota = torch.arange(K, device=dev)
         nl = 1
+        round_splits = []           # each round's split count, in order
 
-        def route(matrix, lid, feats, thrs, dls, leafs, nls, slot_of):
-            """This round's splits applied to (F, rows) bins + leaf ids:
+        def route(lid, feats, thrs, dls, nls, slot_of):
+            """This round's splits applied to the train rows' leaf ids:
             the new leaf ids and each row's go-left decision and slot."""
             row_slot = slot_of[lid.long()]
             in_split = row_slot >= 0
             rs = row_slot.clamp(min=0)
             f_row = feats[rs]
-            b_row = bins_of_rows(matrix, f_row, packed).long()
+            b_row = bins_of_rows(binned, f_row, packed).long()
             gl = go_left_rule(b_row, thrs[rs], dls[rs],
                               meta.missing_type[f_row], meta.nan_bin[f_row],
                               meta.zero_bin[f_row])
@@ -554,8 +599,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
 
         def slot_route(b):
             """The round's splits as (S,) slot arrays, the fused round's
-            and the valid sets' routing input (dead slots carry leaf id L,
-            the JAX ``to_slot`` fill)."""
+            routing input (dead slots carry leaf id L, the JAX ``to_slot``
+            fill)."""
             S = b["S"]
             return dict(feats=to_slot(b["feats"], 0, S),
                         thrs=to_slot(b["thrs"], 0, S),
@@ -565,6 +610,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
 
         def commit(b, res):
             """Tree assembly + frontier commit of a round's children."""
+            round_splits.append(b["leafs"].shape[0])
             depth_ok = (max_depth <= 0) | (b["cdepth"] < max_depth)
             cgain = torch.where(depth_ok, res.gain,
                                 torch.full_like(res.gain, NEG_INF))
@@ -604,9 +650,6 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                         break
                     vals, leafs = _topk_by_rank(store.gains(st), K)
                     b = boundary(vals[:n], leafs[:n])
-                    rt = slot_route(b)
-                    vlids = [fused_round_fn.route_rows(vb, vl, **rt)
-                             for vb, vl in zip(valids, vlids)]
                     commit(b, unpack_children(packed_r[r][:2 * n],
                                               num_bins))
                     nl += n
@@ -636,7 +679,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             # did not quantize), the dequantization never a pass of its own
             scale = scale_rows[rkey is None][:nsl] if quant_buckets else None
             if fused_round_fn is not None:
-                # ---- the routed fused round (K2) + valid routing (K3) ----
+                # ---- the routed fused round (K2) ------------------------
                 rt = slot_route(b)
                 picks, h_slot, leaf_id = fused_round_fn(
                     binned, g3, S, deep=deep, quant_key=rkey,
@@ -651,8 +694,6 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                             else None),
                     depth=to_slot(b["cdepth"], 1, 2 * S),
                     pout=to_slot(b["couts"], 0.0, 2 * S), rows8=rows8)
-                vlids = [fused_round_fn.route_rows(vb, vl, **rt)
-                         for vb, vl in zip(valids, vlids)]
                 if use_sub:
                     # the subtraction the round ran, again on the emitted
                     # smaller children, for the per-leaf state
@@ -668,7 +709,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                                      device=dev)
                 slot_of[leafs] = order
                 new_leaf_id, gl, in_split, rs = route(
-                    binned, leaf_id, feats, thrs, dls, leafs, nls, slot_of)
+                    leaf_id, feats, thrs, dls, nls, slot_of)
                 if use_sub:
                     # label only the SMALLER child of each split
                     in_small = gl == sm_left[rs]
@@ -676,8 +717,6 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 else:
                     label = torch.where(in_split, 2 * rs + (~gl).long(),
                                         2 * S)
-                vlids = [route(vb, vl, feats, thrs, dls, leafs, nls,
-                               slot_of)[0] for vb, vl in zip(valids, vlids)]
                 label = label.to(torch.int32).contiguous()
                 if rkey is not None:
                     # stochastic-rounded integer histograms
@@ -708,6 +747,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             nl += n
 
         tree = store.finalize(st, nl)
+        vlids = route_valid_sets(store, st, round_splits, valids,
+                                 num_leaves=L, meta=meta, packed=packed)
         return tree, leaf_id, root_sum, vlids
 
     grow.routes_valids = True

@@ -8,19 +8,22 @@ go-left decisions -> new leaf ids and the row -> slot label, each row
 chunk's list of live rows (label below nslots), the slots' histograms over
 those lists, the parent subtraction and each child's per-feature split
 scan -> a (2S, F, ``RES_COLS``) residue.  ``route_rows`` replaces
-``_route_only_kernel`` (``fused_route_rows``): a valid set routed through
-one round's splits.  Both are written by hand in CUDA C++
-(``csrc/wave_fused.cu``; its head note says what bounds them and how the
-design answers it).  K2's histograms are K1's device code on the same
-label under K1's plan (``hist_cuda.plan`` at nslots + 1 slots), walking
-only the listed rows in row order, so they equal K1's bit for bit.
+``_route_only_kernel`` (``fused_route_rows``): a row set routed through a
+tree's rounds of splits in one launch, where the TPU kernel takes one
+round a launch (the ids are integers and nobody reads them between the
+rounds, so all rounds at once give the same ids).  Both are written by
+hand in CUDA C++ (``csrc/wave_fused.cu``; its head note says what bounds
+them and how the design answers it).  K2's histograms are K1's device
+code on the same label under K1's plan (``hist_cuda.plan`` at nslots + 1
+slots), walking only the listed rows in row order, so they equal K1's bit
+for bit.
 
 ``fused_round_ref`` and ``route_rows_ref`` are the plain PyTorch versions:
-``route_tile`` on the decision bins, the list (``live_rows_ref``), K1's
-plain histogram of the listed rows (``hist_cuda.index_add_hist`` on the
-precision's parts), the subtraction and the staged scan's stages
-(``split.scan_residue``).  A CPU tensor takes them; a CUDA tensor
-launches the kernel or raises.
+``route_tile`` on the decision bins (round after round for K3), the list
+(``live_rows_ref``), K1's plain histogram of the listed rows
+(``hist_cuda.index_add_hist`` on the precision's parts), the subtraction
+and the staged scan's stages (``split.scan_residue``).  A CPU tensor
+takes them; a CUDA tensor launches the kernel or raises.
 
 The constrained legs (JAX :346-357, :440-475: ``use_mc`` with
 ``monotone_penalty``, path smoothing, ``max_delta_step``, ``has_contri``)
@@ -98,14 +101,18 @@ def count_plain(name: str) -> None:
         plain_counts[name] += 1
 
 
-def route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed=False):
+def route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed=False,
+                   offsets=None):
     """Plain version of ``route_rows``: ``route_tile`` on each row's
-    decision bin."""
+    decision bin, round after round (``offsets``; None: one round)."""
     count_plain("route_rows")
-    dbin = wf.decision_bins(binned, lids, feats, rmeta[:, 0], num_leaves,
-                            packed=packed)
-    return wf.route_tile(dbin, lids, rmeta, nslots=0, sub=False,
-                         want_label=False)[0]
+    bounds = [0, rmeta.shape[0]] if offsets is None else offsets.tolist()
+    for o0, o1 in zip(bounds[:-1], bounds[1:]):
+        dbin = wf.decision_bins(binned, lids, feats[o0:o1], rmeta[o0:o1, 0],
+                                num_leaves, packed=packed)
+        lids = wf.route_tile(dbin, lids, rmeta[o0:o1], nslots=0, sub=False,
+                             want_label=False)[0]
+    return lids
 
 
 def live_rows_ref(label, nslots, n_chunks, chunk_rows):
@@ -193,7 +200,7 @@ def _lib() -> ctypes.CDLL:
     lib.lgbm_fused_round.argtypes = [_P] * 25 + [_I] * 11 + [_F] * 8 \
         + [_I, _P, _I, _P]
     lib.lgbm_fused_round.restype = _I
-    lib.lgbm_route_rows.argtypes = [_P] * 5 + [_I] * 3 + [_P]
+    lib.lgbm_route_rows.argtypes = [_P] * 7 + [_I] * 4 + [_P]
     lib.lgbm_route_rows.restype = _I
     return lib
 
@@ -230,25 +237,40 @@ def list_scratch(N, n_chunks, span, device) -> list:
             for n in list_scratch_sizes(N, n_chunks, span)]
 
 
-def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False):
-    """K3: (N,) leaf ids of ``binned``'s rows after the splits of
-    ``rmeta`` (S, RMETA_COLS) on the features ``feats`` (S,); ``packed``:
-    ``binned`` holds packed bytes."""
+def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
+               offsets=None):
+    """K3: (N,) leaf ids of ``binned``'s rows, from ``lids``, after the
+    splits of ``rmeta`` (P, RMETA_COLS) on the features ``feats`` (P,),
+    in rounds: round q's splits are rows ``offsets[q]:offsets[q + 1]``
+    (``offsets`` (R + 1,) i32, rising from 0 to P; None: one round, R =
+    1).  ``packed``: ``binned`` holds packed bytes."""
     if binned.device.type == "cpu":
-        return route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed)
+        return route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed,
+                              offsets)
     _, N = _check_bins(binned)
-    S = rmeta.shape[0]
+    P = rmeta.shape[0]
     dev = binned.device
     _need(lids, "lids", torch.int32, (N,), dev)
-    _need(feats, "feats", torch.int32, (S,), dev)
-    _need(rmeta, "rmeta", torch.int32, (S, wf.RMETA_COLS), dev)
+    _need(feats, "feats", torch.int32, (P,), dev)
+    _need(rmeta, "rmeta", torch.int32, (P, wf.RMETA_COLS), dev)
+    R = 1
+    if offsets is not None:
+        R = offsets.shape[0] - 1
+        _need(offsets, "offsets", torch.int32, (R + 1,), dev)
+        if R < 1:
+            raise ValueError("offsets must hold R + 1 >= 2 round bounds")
     out = torch.empty(N, dtype=torch.int32, device=dev)
+    # scratch for the kernel's tables where they pass a block's shared
+    # memory: P Slots (an rmeta row and its feature), each round's leaf
+    # order (2 P), the R + 1 offsets
+    tab = torch.empty(P * (wf.RMETA_COLS + 3) + R + 1, dtype=torch.int32,
+                      device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().lgbm_route_rows(binned.data_ptr(), lids.data_ptr(),
-                                     feats.data_ptr(), rmeta.data_ptr(),
-                                     out.data_ptr(), N, S, int(packed),
-                                     stream)
+        err = _lib().lgbm_route_rows(
+            binned.data_ptr(), lids.data_ptr(), feats.data_ptr(),
+            rmeta.data_ptr(), 0 if offsets is None else offsets.data_ptr(),
+            out.data_ptr(), tab.data_ptr(), N, P, R, int(packed), stream)
     _raise_on(err, "route_rows")
     with _count_lock:
         launch_counts["route_rows_packed" if packed else "route_rows"] += 1

@@ -53,8 +53,6 @@ or the run raises.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from .hist_cuda import bins_of_rows
@@ -145,20 +143,23 @@ def subtract_children(hsm, parent, sml, slot_scale=None):
         (2 * hsm.shape[0],) + tuple(hsm.shape[1:]))
 
 
-def fused_route_rows(binned, lids, *, feats, thrs, dls, leafs, nls,
-                     num_leaves, meta: FeatureMeta, packed=False):
-    """Route one row set through a round's committed splits with the same
-    decision stage the round runs on the train rows — the valid-set lane
-    (K3 on the card, ``fused_cuda.route_rows``; ``packed``: its packed
-    leg).  Integer only, so equal to the staged routing."""
+def fused_route_rows(row_sets, *, feats, thrs, dls, leafs, nls, num_leaves,
+                     meta: FeatureMeta, packed=False, offsets=None):
+    """Route row sets through a tree's committed splits with the same
+    decision the round runs on the train rows — the valid-set lane (K3 on
+    the card, ``fused_cuda.route_rows``; ``packed``: its packed leg).
+    ``row_sets``: (bins, leaf ids) pairs; the splits (P,) are in round
+    order, round q's at ``offsets[q]:offsets[q + 1]`` (``offsets`` (R +
+    1,) i32; None: one round, as the JAX function routes).  The splits are
+    packed once and each set routed through every round in one launch.
+    Integer only, so equal to the staged routing round by round."""
     from . import fused_cuda
 
-    if lids.shape[0] == 0:
-        return lids
     rmeta = pack_route_meta(feats, thrs, dls, leafs, nls, meta)
-    return fused_cuda.route_rows(binned, lids,
-                                 feats.to(torch.int32).contiguous(), rmeta,
-                                 num_leaves, packed=packed)
+    feats = feats.to(torch.int32).contiguous()
+    return [lids if lids.shape[0] == 0 else fused_cuda.route_rows(
+        binned, lids, feats, rmeta, num_leaves, packed=packed,
+        offsets=offsets) for binned, lids in row_sets]
 
 
 def pack_children(res: SplitResult) -> torch.Tensor:
@@ -184,8 +185,8 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       the splits' go-left decisions while it sweeps the rows and returns
       the updated leaf ids.  The JAX package's unrouted form (a label
       made outside) has no caller in the port and is not ported.  The
-      callable has ``supports_route = True`` and the valid-set router
-      ``route_rows``.
+      callable has ``supports_route = True``; the valid sets are routed
+      once a tree (``fused_route_rows``).
     * ``parent`` (S, F, B, 3) with ``sml`` (S,) selects the subtraction
       mode (S smaller-child slots, and ``hsmall`` out); without it the
       round is pool-free (2S slots, ``hsmall`` None).
@@ -199,8 +200,8 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
       dequantization scales (ones when it did not quantize), applied in
       the subtraction, or pool-free in the scan (the JAX ``scaled``
       rounds; JAX returns them, here the grower makes them once a tree).
-    * ``packed`` — ``binned`` (and the valid sets) hold 4-bit packed
-      bytes: the round and the valid router run their packed legs.
+    * ``packed`` — ``binned`` holds 4-bit packed bytes: the round runs
+      its packed leg.
     * ``constr`` (2S, 2), ``depth`` (2S,), ``pout`` (2S,) — the children's
       monotone bounds, depths (the monotone penalty) and parent outputs
       (path smoothing), in child-slot order, dead children filled as the
@@ -240,8 +241,6 @@ def make_fused_round(*, meta: FeatureMeta, params: SplitParams, num_bins,
         return packed_rows, hsmall, new_leaf
 
     fused_round.supports_route = True
-    fused_round.route_rows = functools.partial(fused_route_rows, meta=meta,
-                                               packed=packed)
     return fused_round
 
 

@@ -205,8 +205,8 @@ def test_route_rows_matches_jax(seed):
     r = _round(seed, 5, 16, 777, 3, 12, sub=False)
     t = torch.from_numpy
     before = fused_cuda.plain_counts["route_rows"]
-    got = twf.fused_route_rows(
-        t(r["binned"]), t(r["lids"]), feats=t(r["feats"]),
+    got, = twf.fused_route_rows(
+        [(t(r["binned"]), t(r["lids"]))], feats=t(r["feats"]),
         thrs=t(r["thrs"]), dls=t(r["dls"]), leafs=t(r["leafs"]),
         nls=t(r["nls"]), num_leaves=r["num_leaves"], meta=r["tmeta"])
     assert fused_cuda.plain_counts["route_rows"] == before + 1

@@ -170,9 +170,10 @@ def _port_round(r, precision, packed):
              r["S"], mask=t(r["mask"]), csums=t(r["csums"]),
              sml=t(r["sml"]) if r["sub"] else None,
              parent=t(r["parent"]) if r["sub"] else None, route=route)
-    vl = fn.route_rows(t(_pack(r["binned"]) if packed else r["binned"]),
-                       t(r["lids"]), **{k: v for k, v in route.items()
-                                        if k != "leaf_id"})
+    vl, = twf.fused_route_rows(
+        [(t(_pack(r["binned"]) if packed else r["binned"]), t(r["lids"]))],
+        meta=r["tmeta"], packed=packed,
+        **{k: v for k, v in route.items() if k != "leaf_id"})
     return out + (vl,)
 
 
