@@ -387,12 +387,51 @@ Phases (any failure exits non-zero with no ``ok`` line):
 37. int8 and sampled parity — phase 33's card-against-CPU replay at
               hist_dtype=int8 (the CPU in K1's order) and with the
               sampling of phase 36 (f32): every split identical.
+38. new legs — the split-scan kernel's extra_trees leg on phase 10's
+              last inputs (each child count, two extra_seeds) and on
+              synthetic children (B = 64, 256; no options, all; int8sr
+              scales): packed rows and residue bit for bit the CPU plain
+              scan, the thresholds it drew exactly
+              ``split.extra_rand_bins``; its wide leg at B = 512 and
+              1,024 (options, rand, int8sr scales, a residue in global
+              memory) bit for bit, and at B = 64 the 256-bin leg's
+              residue; K3's 16-bit leg on phase 8's bins as int16 (its u8
+              leg's ids) and on 512-value int16 bins, two synthetic trees
+              each (tables in shared and in device memory), bitwise its
+              plain version, R single rounds and the tree walk.  Each
+              leg's device time (L2 cleared) beside its u8 /
+              unrandomized leg and its bound.
+39. extra_trees — the headline staged with extra_trees, 50 iterations
+              (counts reset): every scan with the rand leg, no plain
+              version, K3 a tree; a second training the same text; f32
+              card against CPU (the card's gradients and root sums)
+              splits identical at 65,536 rows; hist_method=fused raises
+              the JAX reason.  s/iteration, AUC, scans a tree.
+40. callbacks — staged headline training of up to 100 iterations with
+              early_stopping_rounds=5, record_evaluation and a
+              reset_parameter learning-rate schedule: best_iteration the
+              JAX rule's on the recorded metrics, predict and
+              model_to_string defaulting to it, each tree's rate the
+              schedule's, the trees not a constant rate's.
+41. onehot, bench, int16 — staged onehot training (bf16x2, 50
+              iterations): AUC > 0.90, the one-hot histograms of the
+              path's last inputs within the scatter's and K1's
+              tolerance, their time beside K1's (a torch.matmul path, not
+              a kernel); hist_method=bench's pick trains the text of that
+              method chosen directly, the candidates' times printed;
+              phase 8's rows at max_bin=511 (int16 bins, binning time),
+              50 staged iterations through onehot, the wide scan and
+              K3's 16-bit leg: AUC > 0.90, K3 launches = trees x valid
+              sets, hist_method=fused raising the JAX reason, f32 card
+              against CPU splits identical at 65,536 rows.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
-              kernels, the split-scan kernel, the pick kernel, K4, K5) is
-              printed; K1's row carries phases 22-25's K1 shapes too
-              (``paths``), K1, K2, K3 and K6 a ``packed`` record, K1, K2
-              and K6 an ``int8sr`` one and an ``int8`` one, and K2 and K6
-              a ``constrained`` one.
+              kernels, the split-scan kernel, the pick kernel, the
+              split scan's extra_trees and wide legs, K3's 16-bit leg,
+              K4, K5) is printed; K1's row carries phases 22-25's K1
+              shapes too (``paths``) and phase 41's one-hot path beside
+              it (``onehot``), K1, K2, K3 and K6 a ``packed`` record, K1,
+              K2 and K6 an ``int8sr`` one and an ``int8`` one, and K2
+              and K6 a ``constrained`` one.
 
 At the default arguments every model text named in ``TEXT_SHA`` must
 keep its sha256 (a gate: the kernels claim the same bits).  The last
@@ -426,6 +465,7 @@ from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import (HostTree, empty_tree,
                                               tree_leaf_index_binned)
 from lightgbmv1_tpu_torch.ops import _build, hist_cuda as hc
+from lightgbmv1_tpu_torch.ops import histogram as hg
 from lightgbmv1_tpu_torch.ops import fused_cuda as fc
 from lightgbmv1_tpu_torch.ops import loop_cuda as lc
 from lightgbmv1_tpu_torch.ops import predict_cuda as pc
@@ -433,8 +473,8 @@ from lightgbmv1_tpu_torch.ops import quantize as qz
 from lightgbmv1_tpu_torch.ops import scan_cuda as sc
 from lightgbmv1_tpu_torch.ops import wave_fused as wf
 from lightgbmv1_tpu_torch.ops.split import (NO_CONSTRAINT, TIE_RTOL,
-                                            FeatureMeta, SplitParams,
-                                            child_leaf_output,
+                                            FeatureMeta, RandLeg, SplitParams,
+                                            child_leaf_output, extra_rand_bins,
                                             find_best_split, gain_shift,
                                             go_left_rule, make_feature_meta,
                                             pick_pack, scan_direction_gains,
@@ -1473,6 +1513,8 @@ TEXT_SHA = {
     **{f"int8 deep {p}": "7d766b41" for p in ("staged", "fused")},
     **{f"sampled {p}": "394caec2" for p in ("staged", "fused")},
     **{f"sampled bag+tree {p}": "bba170e4" for p in ("fused", "looped")},
+    "extra_trees staged": "63a2d740", "callbacks staged": "e3d3bfd1",
+    "onehot staged": "9016f2fc", "int16 staged": "7bef7e87",
 }
 GATE_TEXT_SHA = False       # main() sets it at its default arguments
 
@@ -2180,6 +2222,7 @@ def live_rows_run(params, ds, iters, dev, text):
 def reset_counts() -> None:
     for mod in (hc, fc, pc, lc, qz, sc):
         mod.reset_launch_counts()
+    hg.reset_matmul_counts()
 
 
 def phase_fused_train(ds, dv, Xv, iters, dev, staged):
@@ -5512,6 +5555,668 @@ def phase_sample_train(ds, dv, Xv, iters, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# extra_trees, callbacks, onehot / bench and int16 bins (phases 38-41)
+# ---------------------------------------------------------------------------
+
+SCAN_WIDE_SRC = "lightgbmv1_tpu_torch/csrc/split_scan_wide.cu"
+# a tree key and an extra_seed for the rand leg's checks
+RAND_KEY = prng.fold_in(prng.prng_key(0), 3)
+EXTRA_SEED = 6
+EXTRA_PARAMS = dict(TRAIN_PARAMS, extra_trees=True)
+EXTRA_REASON = "extra_trees draws per-node randomness inside the scan"
+INT16_REASON = "int16 bins exceed the uint8 one-hot kernel family"
+# phase 40: staged training of up to CALLBACK_ITERS iterations stopped
+# after EARLY_STOP rounds of no gain on the valid set, under a
+# learning-rate schedule
+CALLBACK_ITERS = 100
+EARLY_STOP = 5
+
+
+def lr_schedule(i: int) -> float:
+    """Phase 40's learning rate of iteration i: 0.2 growing by 5% an
+    iteration, so the valid metrics turn and early stopping ends the
+    training (a constant rate trains other trees)."""
+    return 0.2 * 1.05 ** i
+
+
+ONEHOT_PARAMS = dict(TRAIN_PARAMS, hist_method="onehot")
+ONEHOT_ITERS = 50
+INT16_PARAMS = dict(TRAIN_PARAMS, max_bin=511)
+# 50 iterations, as phase 10: the headline's valid AUC passes the 0.90
+# gate only past about 30 (0.8884 / 0.8937 / 0.8969 after 10 / 20 / 25 at
+# max_bin 63, the port on the CPU)
+INT16_ITERS = 50
+# the one-hot product against K1 at bf16x2 / bf16: the same rounded parts
+# summed in other orders (k1_tol); against the scatter of the f32 rows also
+# the parts' rounding, 2^-16 of a cell's absolute sum at bf16x2 (hi + lo
+# keep 16 of the 24 bits) and 2^-8 at bf16
+ONEHOT_PART_REL = {"f32": 0.0, "bf16x2": 2.0 ** -16, "bf16": 2.0 ** -8}
+
+
+def rand_leg(C, dev, seed=EXTRA_SEED) -> RandLeg:
+    """C children's extra_trees leg: the uids 2c + 1 under RAND_KEY."""
+    return RandLeg(RAND_KEY, torch.arange(C, dtype=torch.int32,
+                                          device=dev) * 2 + 1, seed)
+
+
+def no_rand(kw) -> dict:
+    """A recorded scan's keyword arguments without its rand leg."""
+    return {k: v for k, v in kw.items() if k != "rand"}
+
+
+def check_scan_leg(tag, hist, mask, csums, kw, rand=None, wide=None
+                   ) -> dict:
+    """The split-scan kernel's ``rand`` / ``wide`` leg (``wide`` None: the
+    one the bin count takes) on one input: packed rows and residue bit for
+    bit the CPU plain scan's, two launches equal, and the thresholds it
+    drew (``rand_out``) exactly ``split.extra_rand_bins``'s."""
+    kw = no_rand(kw)
+    C, F_ = hist.shape[:2]
+    dev = hist.device
+    rout = (torch.full((C, F_), -7, dtype=torch.int32, device=dev)
+            if rand is not None else None)
+    kk = dict(kw, rand=rand, wide=wide)
+    got = sc.split_scan_pick(hist, mask, csums, rand_out=rout, **kk)
+    check(bool(same_value(got, sc.split_scan_pick(hist, mask, csums, **kk))
+               .all()), f"split scan {tag}: two launches differ")
+    res = sc.split_scan(hist, mask, csums, **kk)
+    ckw = to_cpu(kw)
+    crand = None if rand is None else rand._replace(uids=rand.uids.cpu())
+    cs = csums.cpu()
+    want_res = scan_residue(hist.cpu(), mask.cpu(), cs, rand=crand, **ckw)
+    want = pick_pack(want_res, gain_shift(cs, ckw["params"],
+                                          ckw.get("parent_output")),
+                     cs, ckw["meta"], hist.shape[2])
+    bad = int((~same_value(got.cpu(), want)).sum())
+    check(bad == 0, f"split scan {tag}: {bad} packed values differ from "
+          "the CPU plain scan and pick")
+    bad = int((~same_value(res.cpu(), want_res)).sum())
+    check(bad == 0, f"split scan {tag}: {bad} residue values differ from "
+          "the CPU plain scan")
+    out = {"case": tag, "finite": int(torch.isfinite(want_res[..., 0])
+                                      .sum()),
+           "cells": int(want_res[..., 0].numel()),
+           "finite_picks": int(torch.isfinite(want[:, 0]).sum())}
+    if rand is not None:
+        rb = extra_rand_bins(crand, ckw["meta"].num_bins)
+        check(torch.equal(rout.cpu(), rb), f"split scan {tag}: the drawn "
+              "thresholds differ from extra_rand_bins")
+        # every finite pick sits on its feature's drawn threshold
+        fin = torch.isfinite(want_res[..., 0])
+        thr = want_res[..., 2].long() % hist.shape[2]
+        check(bool((thr[fin] == rb.long()[fin]).all()),
+              f"split scan {tag}: a pick off its drawn threshold")
+        out["rand_bins_exact"] = True
+    return out
+
+
+def scan_leg_ms(hist, mask, csums, kw, rand=None, wide=None) -> float:
+    """The split-scan kernel's device ms a launch with the L2 cleared
+    before each (None: the profiler saw none)."""
+    kw = no_rand(kw)
+    return cold_device_ms(lambda: sc.split_scan_pick(
+        hist, mask, csums, rand=rand, wide=wide, **kw),
+        ("split_scan_kernel",))["split_scan_kernel"] or None
+
+
+def scan_bound(C, F_, B, rand=False) -> dict:
+    """The scan's bound (scan_timing's): each histogram cell read once,
+    the mask, sums, table (and uids) read, the packed rows written; by
+    bytes (a rand leg's two threefry hashes a (child, feature), 20 rounds
+    of 4 integer ops each, stay far below the rate)."""
+    nbytes = (C * F_ * B * 12 + C * F_ + C * 12 + 5 * F_ * 4
+              + C * sc.PACK_COLS * 4 + (4 * C if rand else 0))
+    ops = 2 * C * F_ * B * 20 + (2 * C * F_ * 2 * 20 * 4 if rand else 0)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def int16_meta(F_, nb, dev):
+    """A feature meta of F_ features of ``nb`` bins, every missing type in
+    turn (zero at bin 3, NaN at the last bin, none)."""
+    mt = np.array([1, 2, 0] * F_)[:F_]
+    nbs = np.full(F_, nb)
+    t = lambda a: torch.as_tensor(a, dtype=torch.int64, device=dev)
+    return with_tables(FeatureMeta(
+        num_bins=t(nbs), missing_type=t(mt),
+        nan_bin=t(np.where(mt == 2, nbs - 1, -1)),
+        zero_bin=t(np.where(mt == 1, 3, 0)),
+        usable=torch.ones(F_, dtype=torch.bool, device=dev)))
+
+
+def k3_leg_ms(binned, feats, rmeta, offsets, nl) -> float:
+    names = ("route_kernel", "route_global_kernel", "route_tables_kernel")
+    lids = torch.zeros(binned.shape[1], dtype=torch.int32,
+                       device=binned.device)
+    return sum(cold_device_ms(lambda: fc.route_rows(
+        binned, lids, feats, rmeta, nl, offsets=offsets), names).values()) \
+        or None
+
+
+def phase_new_legs(binned, meta, rng, scan_last, dev) -> dict:
+    """Phase 38: the split-scan kernel's extra_trees leg on phase 10's
+    last inputs (each child count) and on synthetic children at B = 64
+    and 256 (no options, all options, int8sr scales); its wide leg at B
+    = 512 and 1,024 (with and without the options and the rand leg), and
+    at B = 64 against the 256-bin leg; K3's 16-bit leg on phase 8's bins
+    as int16 (its u8 leg's ids) and on 512-bin int16 bins, two synthetic
+    trees each.  Every check bit for bit its plain version.  Then each
+    leg's device time (L2 cleared) beside its u8 / unrandomized leg on
+    the same inputs and its bound."""
+    out = {"rand": [], "wide": [], "k3_16": [], "timing": {}}
+    for C in sorted(scan_last):
+        hist, mask, csums, kw = scan_last[C]
+        out["rand"].append(check_scan_leg(
+            f"phase 10 C={C} rand", hist, mask, csums, kw, rand_leg(C, dev)))
+        out["rand"].append(check_scan_leg(
+            f"phase 10 C={C} rand extra_seed=0", hist, mask, csums, kw,
+            rand_leg(C, dev, 0)))
+    for B in (64, 256):
+        for scaled in (False, True):
+            hist, csums, mask, m, scale = scan_children(126, F, B, rng, dev,
+                                                        scaled)
+            for name in ("none", "all"):
+                out["rand"].append(check_scan_leg(
+                    f"C=126 B={B} {name} rand"
+                    + (" int8sr scales" if scaled else ""), hist, mask,
+                    csums, scan_case_kw(m, SCAN_OPTIONS[name], csums, rng,
+                                        scale), rand_leg(126, dev)))
+    log(f"  the split scan's rand leg: {len(out['rand'])} cases bit for "
+        "bit the CPU plain scan, the drawn thresholds exact")
+    for B in (512, 1024):
+        for C in (8, 126):
+            hist, csums, mask, m, _ = scan_children(C, F, B, rng, dev)
+            for name in ("none", "all"):
+                kw = scan_case_kw(m, SCAN_OPTIONS[name], csums, rng)
+                out["wide"].append(check_scan_leg(
+                    f"wide C={C} B={B} {name}", hist, mask, csums, kw))
+            out["wide"].append(check_scan_leg(
+                f"wide C={C} B={B} all rand", hist, mask, csums,
+                scan_case_kw(m, SCAN_OPTIONS["all"], csums, rng),
+                rand_leg(C, dev)))
+        hist, csums, mask, m, scale = scan_children(32, F, B, rng, dev, True)
+        out["wide"].append(check_scan_leg(
+            f"wide C=32 B={B} none int8sr scales", hist, mask, csums,
+            scan_case_kw(m, SCAN_OPTIONS["none"], csums, rng, scale)))
+    F_big = 37 + (sc.resident_features(dev.index, 512, 0, True)
+                  if dev.type == "cuda" else 64)     # a CPU rehearsal
+    hist, csums, mask, m, _ = scan_children(2, F_big, 512, rng, dev)
+    out["wide"].append(check_scan_leg(
+        f"wide C=2 B=512 F={F_big} (the residue in global memory)", hist,
+        mask, csums, scan_case_kw(m, SCAN_OPTIONS["none"], csums, rng)))
+    del hist
+    for C in sorted(scan_last):          # the wide leg at B = 64
+        hist, mask, csums, kw = scan_last[C]
+        out["wide"].append(check_scan_leg(
+            f"wide leg on phase 10 C={C} (B=64)", hist, mask, csums, kw,
+            wide=True))
+        kw = no_rand(kw)
+        check(same_value(sc.split_scan(hist, mask, csums, wide=True, **kw),
+                         sc.split_scan(hist, mask, csums, wide=False, **kw))
+              .all().item(), f"wide leg C={C}: differs from the 256-bin "
+              "leg")
+    log(f"  the split scan's wide leg: {len(out['wide'])} cases bit for bit "
+        "the CPU plain scan (at B = 64 the 256-bin leg's residue too)")
+
+    # K3's 16-bit leg
+    b = binned[:, :VALID_ROWS].contiguous()
+    b16 = b.to(torch.int16)
+    m512 = int16_meta(F, 512, dev)
+    b512 = torch.as_tensor(rng.randint(0, 512, (F, VALID_ROWS)),
+                           dtype=torch.int16, device=dev)
+    trees = {}
+    for tag, sizes in (("2,295 splits", [1, 2, 4, 8, 16, 32, 64, 128]
+                        + [255] * 8),
+                       ("10 rounds", [1, 2, 4, 8, 16, 32, 63, 63, 63, 2])):
+        for bins, m, u8 in ((b16, meta, b), (b512, m512, None)):
+            (feats, thrs, dls, leafs, nls), offsets, nl = synthetic_rounds(
+                rng, sizes, m, dev)
+            rmeta = wf.pack_route_meta(feats, thrs, dls, leafs, nls, m)
+            name = (f"16-bit {tag} " + ("phase 8's bins" if u8 is not None
+                                        else "512 bins"))
+            out["k3_16"] += check_k3_tree(
+                name, bins, feats, rmeta, offsets, nl,
+                tree_of_rounds(feats, thrs, dls, leafs, m), m, u8=u8)
+            trees[name] = (bins, feats, rmeta, offsets, nl, u8)
+    check(fc.int16_launch_counts["route_rows"] > 0,
+          "K3's 16-bit leg never launched")
+
+    # timing: each leg beside its u8 / unrandomized leg on the same inputs
+    C = max(scan_last)
+    hist, mask, csums, kw = scan_last[C]
+    kw = no_rand(kw)
+    _, F_, B, _ = hist.shape
+    t = out["timing"]
+    t["rand"] = {"C": C, "B": B, "device_ms": scan_leg_ms(
+        hist, mask, csums, kw, rand_leg(C, dev)),
+        "unrandomized_device_ms": scan_leg_ms(hist, mask, csums, kw),
+        "ms": time_ms(lambda: sc.split_scan_pick(
+            hist, mask, csums, rand=rand_leg(C, dev), **kw), 50),
+        "plain_ms": time_ms(lambda: sc.split_pick_ref(
+            hist, mask, csums, rand=rand_leg(C, dev), **kw), 3),
+        **scan_bound(C, F_, B, rand=True)}
+    t["wide_b64"] = {"C": C, "B": B, "device_ms": scan_leg_ms(
+        hist, mask, csums, kw, wide=True),
+        "narrow_device_ms": t["rand"]["unrandomized_device_ms"],
+        **scan_bound(C, F_, B)}
+    for Bw in (512, 1024):
+        h, cs_, mk, m, _ = scan_children(126, F, Bw, rng, dev)
+        kw_ = scan_case_kw(m, SCAN_OPTIONS["none"], cs_, rng)
+        t[f"wide_b{Bw}"] = {
+            "C": 126, "B": Bw, "device_ms": scan_leg_ms(h, mk, cs_, kw_),
+            "ms": time_ms(lambda: sc.split_scan_pick(h, mk, cs_, **kw_), 20),
+            "plain_ms": time_ms(lambda: sc.split_pick_ref(h, mk, cs_,
+                                                          **kw_), 2),
+            **scan_bound(126, F, Bw)}
+    for name, (bins, feats, rmeta, offsets, nl, u8) in trees.items():
+        if "10 rounds" not in name:
+            continue
+        row = {"rows": bins.shape[1], "splits": rmeta.shape[0],
+               "device_ms": k3_leg_ms(bins, feats, rmeta, offsets, nl),
+               **k3_bound(bins, feats, rmeta, offsets, nl)}
+        # the bound's bin reads are two bytes each here
+        row["bound_ms"] += row["bin_reads"] / HBM_BYTES_PER_S * 1e3
+        row["bytes"] += row["bin_reads"]
+        if u8 is not None:
+            row["u8_device_ms"] = k3_leg_ms(u8, feats, rmeta, offsets, nl)
+        lids = torch.zeros(bins.shape[1], dtype=torch.int32, device=dev)
+        row["ms"] = time_ms(lambda: fc.route_rows(
+            bins, lids, feats, rmeta, nl, offsets=offsets), 20)
+        row["plain_ms"] = time_ms(lambda: fc.route_rows_ref(
+            bins, lids, feats, rmeta, nl, offsets=offsets), 2)
+        t["k3_16 " + name] = row
+    for k, v in t.items():
+        log(f"  {k}: " + ", ".join(
+            f"{a} {fmt_ms(b) if a.endswith('ms') else b}"
+            for a, b in v.items() if a not in ("bytes", "ops")))
+    return out
+
+
+def phase_extra_trees(ds, dv, Xv, iters, dev, seed) -> dict:
+    """Phase 39: extra_trees at the headline (phase 8's data, staged,
+    ``iters`` iterations; launch counts reset): every split scan with the
+    rand leg, no plain version; a second training writes the same text;
+    f32 card against CPU (the card's gradients and root sums) splits
+    identical at 65,536 rows; hist_method=fused raises the JAX reason.
+    s/iteration, valid AUC, split-scan launches a tree."""
+    bst, secs, ev, counts, plain, _ = recorded_run(EXTRA_PARAMS, ds, dv,
+                                                   iters, dev)
+    check(not any(plain.values()), f"extra_trees: a plain version ran on "
+          f"the path: {plain}")
+    trees = bst.num_trees()
+    scans = scan_launches(trees)
+    check(all(int(k) & sc.OPT_RAND for k in scans["by_opts"]),
+          f"extra_trees: a scan without the rand leg: {scans['by_opts']}")
+    k3 = fc.launch_counts["route_rows"]
+    check(k3 == k3_expected(bst, 1), f"extra_trees: K3 launched {k3} times")
+    text = bst.model_to_string()
+    auc = ev["valid_0"]["auc"][-1]
+    out = {"iters": iters, "s_per_iter": secs / iters, "valid_auc": auc,
+           "split_scan": scans, "k3_launches": k3, "launches": counts,
+           **text_hash(text, "extra_trees staged")}
+    log(f"  extra_trees staged: {iters} iterations, "
+        f"{out['s_per_iter']:.4f} s/iter; valid AUC {auc:.5f}; split scans "
+        f"{scans['per_tree']:.2f} a tree ({json.dumps(scans['by_opts'])})")
+    again = train(EXTRA_PARAMS, ds, iters, **_on(dev))
+    check(again.model_to_string() == text, "extra_trees: a second training "
+          "wrote another model text")
+    try:
+        train(dict(EXTRA_PARAMS, hist_method="fused"), ds, 1, **_on(dev))
+        check(False, "extra_trees: hist_method=fused trained")
+    except NotImplementedError as e:
+        check(EXTRA_REASON in str(e), f"extra_trees fused: {e}")
+    Xp, yp = make_data(PARITY_ROWS, seed + 7)
+    out["parity"] = card_vs_cpu_replay(
+        "extra_trees", dict(PARITY_PARAMS, extra_trees=True), Xp, yp, dev)
+    log("  extra_trees: a second training the same text; hist_method=fused "
+        "raises the JAX reason")
+    return out
+
+
+def jax_rule_best(ev: dict, rounds: int, end: int,
+                  first_metric_only=False):
+    """(best iteration, its scores) of the JAX ``early_stopping`` rule
+    (callback.py:102) replayed on recorded metrics ``ev`` {data: {metric:
+    [...]}} of a training of up to ``end`` iterations: at each iteration
+    each metric's best (higher or lower is better by name) kept in order,
+    and the first metric that has not improved for ``rounds`` iterations,
+    or any at the last iteration, stops with its best."""
+    higher = {"auc": True, "ndcg": True, "map": True}
+    items = [(d, m, v) for d, ms in ev.items() for m, v in ms.items()]
+    n = len(items[0][2])
+    best = [None] * len(items)
+    first = items[0][1]
+    for it in range(n):
+        for i, (d, m, v) in enumerate(items):
+            hb = higher.get(m.split("@")[0], False)
+            if best[i] is None or (v[it] > v[best[i]] if hb
+                                   else v[it] < v[best[i]]):
+                best[i] = it
+            if first_metric_only and m != first:
+                continue
+            if it - best[i] >= rounds or it == end - 1:
+                return best[i] + 1, {mm: vv[best[i]] for _, mm, vv in items}
+    raise AssertionError("no metric recorded")
+
+
+def phase_callbacks(ds, dv, Xv, iters, dev) -> dict:
+    """Phase 40: staged training at the headline for up to ``iters``
+    iterations with early_stopping_rounds=EARLY_STOP on the valid rows,
+    record_evaluation and a reset_parameter learning-rate schedule
+    (launch counts reset).  Gates: best_iteration is the JAX rule's on
+    the recorded metrics; predict, model_to_string and save_model default
+    to it; the schedule's trees differ from a constant rate's and carry
+    its shrinkage; the first trees equal a plain training's at the
+    schedule's first rate."""
+    from lightgbmv1_tpu_torch import callback as cb_mod
+
+    reset_counts()
+    ev = {}
+    t0 = time.perf_counter()
+    bst = train(TRAIN_PARAMS, ds, iters, valid_sets=[dv],
+                early_stopping_rounds=EARLY_STOP,
+                callbacks=[cb_mod.record_evaluation(ev),
+                           cb_mod.reset_parameter(learning_rate=lr_schedule)],
+                **_on(dev))
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    ran = bst.current_iteration()
+    best, scores = jax_rule_best(ev, EARLY_STOP, iters)
+    check(bst.best_iteration == best, f"callbacks: best_iteration "
+          f"{bst.best_iteration}, the JAX rule's {best}")
+    check(bst.best_score["valid_0"] == scores,
+          f"callbacks: best_score {bst.best_score} against {scores}")
+    check(bst.model_to_string() == bst.model_to_string(num_iteration=best),
+          "callbacks: model_to_string() is not the best iteration's")
+    check(bst.model_to_string() != bst.model_to_string(num_iteration=ran)
+          or best == ran, "callbacks: the best iteration's text is all")
+    p = bst.predict(Xv[:4096], raw_score=True)
+    check(np.array_equal(p, bst.predict(Xv[:4096], raw_score=True,
+                                        num_iteration=best)),
+          "callbacks: predict does not default to the best iteration")
+    # each tree's rate (the model text's shrinkage, but the first tree's,
+    # which carries the init score and is written at 1)
+    check(bst._gbdt._model_shrink == [lr_schedule(i) for i in range(ran)],
+          "callbacks: the trees' rates are not the schedule's")
+    const = train(dict(TRAIN_PARAMS, learning_rate=lr_schedule(0)), ds, 3,
+                  **_on(dev))
+    ct, st = const._all_trees(), bst._all_trees()
+    check(np.array_equal(ct[0].leaf_value, st[0].leaf_value),
+          "callbacks: the first tree is not the first rate's")
+    check(any(not np.array_equal(a.leaf_value, b.leaf_value)
+              for a, b in zip(ct[1:], st[1:3])),
+          "callbacks: the schedule's trees equal a constant rate's")
+    out = {"iters_run": ran, "best_iteration": best,
+           "best_score": scores, "s_per_iter": secs / ran,
+           "stopped_early": ran < iters,
+           "valid_auc_at_best": ev["valid_0"]["auc"][best - 1],
+           **text_hash(bst.model_to_string(), "callbacks staged")}
+    log(f"  callbacks: {ran} iterations of {iters} ({secs / ran:.4f} "
+        f"s/iter), best iteration {best} (the JAX rule's), valid AUC there "
+        f"{out['valid_auc_at_best']:.5f}; predict / model_to_string default "
+        f"to it; the schedule's trees are not a constant rate's")
+    return out
+
+
+class OnehotRecorder:
+    """Keeps the inputs of the last one-hot call at each (slots,
+    precision) of a run (the main path's own)."""
+
+    def __init__(self):
+        self.last = {}
+
+    def __enter__(self):
+        self._orig = hg.hist_leaves_onehot
+
+        def wrapped(binned, g3, leaf_id, num_leaves, num_bins,
+                    precision="bf16x2", row_chunk=hg.ONEHOT_ROW_CHUNK,
+                    live_slots=None):
+            self.last[(int(num_leaves), precision)] = (
+                binned, g3, leaf_id, num_bins, live_slots)
+            return self._orig(binned, g3, leaf_id, num_leaves, num_bins,
+                              precision, row_chunk, live_slots)
+
+        hg.hist_leaves_onehot = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        hg.hist_leaves_onehot = self._orig
+
+
+def check_onehot(tag, binned, g3, lid, L, B, prec, live) -> dict:
+    """The one-hot product of one input against the scatter of the f32
+    rows (within k1_tol plus the parts' rounding, ONEHOT_PART_REL of each
+    cell's absolute sum) and, on byte bins, K1 at the same precision
+    (k1_tol: the same parts in another order); counts exact."""
+    got = hg.hist_leaves_onehot(binned, g3, lid, L, B, prec,
+                                live_slots=live)
+    absum = hc.index_add_hist(binned, [g3.abs()], lid, L, B, live)
+    tol = k1_tol(absum, absum[..., 2:3])
+    exact = hg.hist_leaves_scatter(binned, g3, lid, L, B, live)
+    check(torch.equal(got[..., 2], exact[..., 2]),
+          f"onehot {tag}: counts differ from the scatter")
+    d = (got - exact).abs()
+    over = int((d > tol + ONEHOT_PART_REL[prec] * absum).sum())
+    check(over == 0, f"onehot {tag}: {over} cells past the scatter's "
+          "tolerance")
+    out = {"case": tag, "precision": prec,
+           "max_abs_err_vs_scatter": float(d.max()),
+           "max_err_over_abs_sum_vs_scatter":
+           float((d / (absum + 1e-30)).max())}
+    if binned.dtype == torch.uint8:
+        k1 = hc.hist_leaves(binned, g3, lid, L, B, prec, live)
+        dk = (got - k1).abs()
+        over = int((dk > tol).sum())
+        check(over == 0, f"onehot {tag}: {over} cells past K1's tolerance")
+        out["max_abs_err_vs_k1"] = float(dk.max())
+    return out
+
+
+TF32_OPS_PER_S = 495e12     # H100 SXM TF32 tensor cores, dense
+
+
+def onehot_bound(binned, g3, L, B, prec) -> dict:
+    """The one-hot path's least time: its (3 (L + 1), N) x (N, F B)
+    products (two of them at bf16x2) at the rate of their type (f32
+    outside the tensor cores at f32, TF32 for the bf16 legs,
+    ``histogram.onehot_matmul_level``), or the bins and rows read and the
+    histograms written, the larger."""
+    F_, N = binned.shape
+    mults = 2 if prec == "bf16x2" else 1
+    ops = 2 * mults * 3 * (L + 1) * N * F_ * B
+    nbytes = binned.numel() * binned.element_size() + g3.numel() * 4 \
+        + N * 4 + L * F_ * B * 12
+    rate = F32_OPS_PER_S if prec == "f32" else TF32_OPS_PER_S
+    t_ops = ops / rate * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "ops": ops, "bytes": nbytes}
+
+
+def phase_onehot_bench_int16(ds, dv, Xv, X, y, dev, seed, k1_s_per_iter
+                             ) -> dict:
+    """Phase 41: staged onehot training at the headline (bf16x2, at most
+    ONEHOT_ITERS iterations; launch counts reset), AUC > 0.90, the one-hot
+    histograms of the path's last inputs against the scatter and K1;
+    hist_method=bench, whose pick trains the text of that method chosen
+    directly; phase 8's rows binned at max_bin=511, INT16_ITERS staged
+    iterations through onehot (the wide scan, K3's 16-bit leg), AUC >
+    0.90, K3 launches = trees of more than one leaf x valid sets, f32
+    splits card against CPU identical at 65,536 rows (2 iterations: the
+    CPU's one-hot product of 512 bins is slow)."""
+    out = {}
+    with OnehotRecorder() as orec:
+        bst, secs, ev, counts, plain, _ = recorded_run(
+            ONEHOT_PARAMS, ds, dv, ONEHOT_ITERS, dev)
+    auc = ev["valid_0"]["auc"][-1]
+    onehot_calls = hg.matmul_counts["hist_leaves_onehot"]
+    check(onehot_calls > 0 and not counts["k1"] and not any(plain.values()),
+          f"onehot: K1 {counts['k1']}, plain calls {plain}")
+    out["onehot"] = {"iters": ONEHOT_ITERS,
+                     "s_per_iter": secs / ONEHOT_ITERS, "valid_auc": auc,
+                     "k1_s_per_iter": k1_s_per_iter,
+                     "onehot_calls": onehot_calls,
+                     **text_hash(bst.model_to_string(), "onehot staged")}
+    log(f"  onehot staged: {ONEHOT_ITERS} iterations, {secs / ONEHOT_ITERS:.4f}"
+        f" s/iter (K1's staged {k1_s_per_iter:.4f} s/iter, phase 10); valid "
+        f"AUC {auc:.5f}")
+    check(auc > 0.90, f"onehot: valid AUC {auc} <= 0.90")
+    checks, timing = [], []
+    for (L, prec), (b, g3, lid, B, live) in sorted(orec.last.items()):
+        checks.append(check_onehot(f"L={L} {prec}", b, g3, lid, L, B, prec,
+                                   live))
+        if prec == "bf16x2" or L == max(k for k, _ in orec.last):
+            row = {"L": L, "precision": prec, **onehot_bound(b, g3, L, B,
+                                                             prec)}
+            row["ms"] = time_ms(lambda: hg.hist_leaves_onehot(
+                b, g3, lid, L, B, prec, live_slots=live), 5)
+            row["k1_ms"] = time_ms(lambda: hc.hist_leaves(
+                b, g3, lid, L, B, prec, live), 20)
+            row["library_ms"] = time_ms(lambda: hc.index_add_hist(
+                b, [g3], lid, L, B, live), 5)
+            timing.append(row)
+            log(f"  onehot L={L} {prec}: {row['ms']:.3f} ms (K1 "
+                f"{row['k1_ms']:.4f} ms, index_add_ {row['library_ms']:.3f}"
+                f" ms, bound {row['bound_ms']:.4f} ms by {row['bound_by']})")
+    log(f"  onehot histograms on the path's last inputs: {len(checks)} "
+        "within the scatter's and K1's tolerance, counts exact")
+    out["onehot"]["checks"] = checks
+    out["onehot"]["timing"] = timing
+
+    # hist_method=bench: the pick trains the text of the method chosen
+    # directly
+    reset_counts()
+    times = {}
+    bst = train(dict(TRAIN_PARAMS, hist_method="bench"), ds, 5, **_on(dev))
+    pick = bst._gbdt._grow.hist_method
+    times = {k: v * 1e3 for k, v in bst._gbdt._grow.bench_times.items()}
+    check(set(times) == {"pallas", "onehot"}, f"bench timed {times}")
+    direct = train(dict(TRAIN_PARAMS, hist_method=pick), ds, 5, **_on(dev))
+    check(bst.model_to_string() == direct.model_to_string(),
+          f"bench: its pick {pick} trains another text than "
+          f"hist_method={pick}")
+    out["bench"] = {"pick": pick, "candidate_ms": times}
+    log(f"  hist_method=bench: candidates {json.dumps(times)} ms a "
+        f"16-slot pass -> {pick}; its 5-iteration text is "
+        f"hist_method={pick}'s")
+
+    # int16 bins at max_bin=511
+    t0 = time.perf_counter()
+    d16 = Dataset(X, label=y, params=INT16_PARAMS)
+    d16v = Dataset(Xv, label=dv.get_label(), reference=d16)
+    d16.construct()
+    d16v.construct()
+    bin_s = time.perf_counter() - t0
+    nb = d16._binned.padded_bin
+    check(d16._binned.binned.dtype == np.int16 and nb == 512,
+          f"max_bin=511: {d16._binned.binned.dtype} bins, axis {nb}")
+    log(f"  phase 8's rows binned at max_bin=511 in {bin_s:.1f} s "
+        f"(int16 bins, bin axis {nb})")
+    bst, secs, ev, counts, plain, _ = recorded_run(
+        INT16_PARAMS, d16, d16v, INT16_ITERS, dev)
+    auc = ev["valid_0"]["auc"][-1]
+    k3 = fc.int16_launch_counts["route_rows"]
+    scans = scan_launches(bst.num_trees())
+    check(k3 == k3_expected(bst, 1) and fc.launch_counts["route_rows"] == 0,
+          f"int16: K3's 16-bit leg launched {k3} times (u8 leg "
+          f"{fc.launch_counts['route_rows']})")
+    check(sc.launch_counts["split_scan_wide"] == scans["launches"],
+          "int16: a split scan off the wide leg")
+    check(hg.matmul_counts["hist_leaves_onehot"] > 0 and not counts["k1"]
+          and not any(plain.values()),
+          f"int16: K1 {counts['k1']}, plain calls {plain}")
+    check(auc > 0.90, f"int16: valid AUC {auc} <= 0.90")
+    try:
+        train(dict(INT16_PARAMS, hist_method="fused"), d16, 1, **_on(dev))
+        check(False, "int16: hist_method=fused trained")
+    except NotImplementedError as e:
+        check(INT16_REASON in str(e), f"int16 fused: {e}")
+    out["int16"] = {"binning_s": bin_s, "bin_axis": nb,
+                    "iters": INT16_ITERS, "s_per_iter": secs / INT16_ITERS,
+                    "valid_auc": auc, "k3_16_launches": k3,
+                    "split_scan_wide": scans,
+                    **text_hash(bst.model_to_string(), "int16 staged")}
+    log(f"  int16 staged: {INT16_ITERS} iterations, "
+        f"{secs / INT16_ITERS:.4f} s/iter; valid AUC {auc:.5f}; K3 16-bit "
+        f"{k3} launches; wide split scans {scans['per_tree']:.2f} a tree")
+    Xp, yp = make_data(PARITY_ROWS, seed + 7)
+    out["int16"]["parity"] = onehot_vs_cpu("int16", dict(
+        PARITY_PARAMS, max_bin=511, hist_method="onehot"), Xp, yp, dev,
+        iters=2)
+    return out
+
+
+def onehot_vs_cpu(tag, params, X, y, dev, iters=5) -> dict:
+    """``card_vs_cpu_replay`` on the one-hot path at f32 (int16 bins have
+    no K1): the CPU training takes the card's gradients and root sums;
+    every split identical, leaves within PARITY_LEAF_TOL."""
+    p = dict(params, hist_dtype="f32", hist_method="onehot")
+    log(f"  {tag}, card against CPU (onehot f32, the card's gradients and "
+        f"root sums): {len(X)} rows, {iters} iterations")
+    rounding = CardRounding()
+    saved = grower_wave._BUCKET_MIN_N
+    grower_wave._BUCKET_MIN_N = 1
+    try:
+        with rounding.record():
+            card = train(p, Dataset(X, label=y), iters, **_on(dev))
+            _sync(dev)
+        with rounding.replay():
+            cpu = train(p, Dataset(X, label=y), iters, device="cpu")
+    finally:
+        grower_wave._BUCKET_MIN_N = saved
+    return compare_splits(tag, card, cpu, ("card", "CPU"), PARITY_LEAF_TOL)
+
+
+def new_leg_rows(legs: dict, extra: dict, int16: dict) -> list:
+    """The kernels line's rows of the three legs of phases 38-41."""
+    t = legs["timing"]
+    r = t["rand"]
+    rand_row = {
+        "name": "split_scan:extra_trees", "route": "cuda",
+        "source": SCAN_SRC, "replaces": "lightgbmv1_tpu/ops/split.py:602 "
+        "find_best_split's extra_trees draw (XLA, inside the staged scan)",
+        "launches": int(extra["split_scan"]["launches"]), "max_abs_err": 0.0,
+        "ms": r["ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": None, "library_note": "none: no single PyTorch call "
+        "computes a split scan", "device_ms": r["device_ms"],
+        "unrandomized_device_ms": r["unrandomized_device_ms"],
+        "at": f"C={r['C']} B={r['B']}", "checks": legs["rand"]}
+    w = t["wide_b512"]
+    wide_row = {
+        "name": "split_scan:wide", "route": "cuda", "source": SCAN_WIDE_SRC,
+        "replaces": "lightgbmv1_tpu/ops/split.py:437 find_best_split on "
+        "int16 histograms (XLA)",
+        "launches": int(int16["split_scan_wide"]["launches"]),
+        "max_abs_err": 0.0, "ms": w["ms"], "plain_ms": w["plain_ms"],
+        "bound_ms": w["bound_ms"], "bound_by": w["bound_by"],
+        "library_ms": None, "library_note": "none: no single PyTorch call "
+        "computes a split scan", "device_ms": w["device_ms"],
+        "at": "C=126 B=512", "b1024": t["wide_b1024"],
+        "b64_vs_256_bin_leg": t["wide_b64"], "checks": legs["wide"]}
+    k = next(v for n, v in t.items() if n.startswith("k3_16")
+             and "phase 8" in n)
+    k512 = next(v for n, v in t.items() if n.startswith("k3_16")
+                and "512 bins" in n)
+    k3_row = {
+        "name": "route_rows:int16", "route": "cuda", "source": FUSED_SRC,
+        "replaces": "lightgbmv1_tpu/ops/wave_fused.py:558 (the routing the "
+        "JAX staged path runs with XLA route() on int16 bins)",
+        "launches": int(int16["k3_16_launches"]), "max_abs_err": 0.0,
+        "ms": k["ms"], "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"], "library_ms": None,
+        "library_note": "none: no single PyTorch call routes rows through "
+        "a tree's splits", "device_ms": k["device_ms"],
+        "u8_device_ms": k.get("u8_device_ms"), "bins_512": k512,
+        "checks": legs["k3_16"]}
+    return [rand_row, wide_row, k3_row]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -5542,7 +6247,8 @@ def main(argv=None) -> int:
 
     log("== phase 2: build")
     secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop",
-                         "wave_loop_int8", "quantize", "split_scan"])
+                         "wave_loop_int8", "quantize", "split_scan",
+                         "split_scan_wide"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for k in ptxas_kernels(rec["log"]):
@@ -5897,6 +6603,32 @@ def main(argv=None) -> int:
                                       dev)}
     del Xp, yp
 
+    log("== phase 38: the split scan's extra_trees and wide legs and K3's "
+        "16-bit leg against their plain versions")
+    binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
+    legs38 = phase_new_legs(binned, make_feature_meta(ds._binned, dev), rng,
+                            trained_scan_last, dev)
+    del binned
+
+    log("== phase 39: extra_trees training (main path; launch counts "
+        "reset)")
+    extra = phase_extra_trees(ds, dv, Xv, args.iters, dev, args.seed)
+
+    log("== phase 40: callbacks and early stopping (main path; launch "
+        "counts reset)")
+    callbacks = phase_callbacks(ds, dv, Xv, CALLBACK_ITERS, dev)
+
+    log("== phase 41: onehot, bench and int16 bins (main path; launch "
+        "counts reset)")
+    X, y = make_data(args.train_rows, args.seed)
+    newer = phase_onehot_bench_int16(ds, dv, Xv, X, y, dev, args.seed,
+                                     trained["s_per_iter"])
+    del X, y
+    new_rows = new_leg_rows(legs38, extra, newer["int16"])
+    k1_row["onehot"] = {
+        "note": "a torch.matmul path (the JAX package's XLA one-hot "
+        "product), not a kernel", **newer["onehot"]}
+
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -5915,11 +6647,15 @@ def main(argv=None) -> int:
                     "constrained_parity": cparity,
                     "int8_train": int8, "sampled_train": sampled,
                     "int8_sampled_parity": qparity,
+                    "extra_trees_train": extra, "callbacks_train": callbacks,
+                    "onehot_train": newer["onehot"], "bench": newer["bench"],
+                    "int16_train": newer["int16"],
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]
     print(json.dumps({"kernels": [k1_row] + fused_rows
-                      + [k6_row, qrow, rnrow, scan_row, pick_row] + rows}),
+                      + [k6_row, qrow, rnrow, scan_row, pick_row] + new_rows
+                      + rows}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,8 @@ Ported so far:
 * binary leaf-wise training: ``train(params, Dataset(X, y))`` -> binning
   (``io/binning.py``) -> the wave grower (``models/grower_wave.py``) ->
   the hand-written CUDA histogram kernel (``ops/hist_cuda.py``) -> v3
-  model text.
+  model text; with callbacks and early stopping (``callback.py``) and
+  ``cv``.
 
 Entry points run on the card unless the caller passes ``device="cpu"``;
 without a card they raise instead of falling back.
@@ -25,8 +26,8 @@ from .utils.log import LightGBMError
 
 __version__ = "0.1.0"
 
-__all__ = ["Booster", "Dataset", "LightGBMError", "resolve_device", "train",
-           "__version__"]
+__all__ = ["Booster", "CVBooster", "Dataset", "LightGBMError", "cv",
+           "resolve_device", "train", "__version__"]
 
 
 def __getattr__(name):
@@ -34,8 +35,8 @@ def __getattr__(name):
         from . import basic
 
         return getattr(basic, name)
-    if name == "train":
-        from .engine import train
+    if name in ("train", "cv", "CVBooster"):
+        from . import engine
 
-        return train
+        return getattr(engine, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

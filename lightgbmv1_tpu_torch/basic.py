@@ -5,10 +5,15 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 * ``Dataset`` (:107, ``construct`` :250, ``set_group`` :346): lazy
   binning of a dense numeric matrix with its query groups, a valid set
   sharing its reference's bins and taking its own groups;
+* ``Dataset.subset`` (:396), ``get_label`` / ``get_field`` and their
+  kin, which ``engine.cv`` reads;
 * ``Booster(params, train_set=...)`` (:430) over the GBDT core
-  (models/gbdt.py) with ``update`` (:541), ``eval_valid``,
-  ``model_to_string`` (:947, through io/model_text.model_to_string) and
-  ``save_model`` (:1001);
+  (models/gbdt.py) with ``update`` (:541), ``reset_parameter`` (:611, a
+  new knob reaching the next tree), ``eval_train`` / ``eval_valid``
+  with ``feval`` (:618-640), ``model_to_string`` (:947, through
+  io/model_text.model_to_string) and ``save_model`` (:1001);
+  ``best_iteration`` (set by early stopping) is what ``predict``,
+  ``model_to_string`` and ``save_model`` default to (:704, :952);
 * the serving half (``predict`` :655-800) for a loaded model and for a
   trained one: raw and converted scores, ``pred_leaf``,
   ``start_iteration`` / ``num_iteration`` slicing and ``average_output``.
@@ -133,6 +138,43 @@ class Dataset:
             return self._binned.num_data
         return 0 if self.data is None else self.data.shape[0]
 
+    def num_feature(self) -> int:
+        if self._binned is not None:
+            return self._binned.num_features
+        return 0 if self.data is None else self.data.shape[1]
+
+    def get_field(self, field_name: str):
+        return {"label": self.label, "weight": self.weight,
+                "group": self.group,
+                "init_score": self.init_score}[field_name]
+
+    def get_label(self):
+        return self.label
+
+    def get_weight(self):
+        return self.weight
+
+    def get_group(self):
+        return self.group
+
+    def get_init_score(self):
+        return self.init_score
+
+    def subset(self, used_indices, params=None) -> "Dataset":
+        """The rows ``used_indices`` as a Dataset binned with this set's
+        bins (JAX :396; ``engine.cv``'s folds)."""
+        if self.data is None:
+            raise ValueError("Cannot subset: raw data was freed")
+        idx = np.asarray(used_indices)
+        return Dataset(
+            self.data[idx],
+            label=None if self.label is None else self.label[idx],
+            weight=None if self.weight is None else self.weight[idx],
+            init_score=(None if self.init_score is None
+                        else self.init_score[idx]),
+            params=params or self.params, reference=self,
+            feature_name=self.feature_name)
+
 
 class Booster:
     """A model that trains and predicts on ``device`` (default: the card;
@@ -147,10 +189,14 @@ class Booster:
                  device: DeviceLike = None):
         self.params = dict(params or {})
         self.device = resolve_device(device)
+        self.best_iteration = -1
+        self.best_score: Dict[str, Dict[str, float]] = {}
+        self._train_data_name = "training"
         self._device_pred_cache: Dict[tuple, Any] = {}
         self._gbdt = None
         self._loaded: Optional[LoadedModel] = None
         self._name_valid_sets: List[str] = []
+        self._valid_data: List[Dataset] = []
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("train_set must be a Dataset")
@@ -186,6 +232,7 @@ class Booster:
         data.construct()
         self._gbdt.add_valid(data._binned, name)
         self._name_valid_sets.append(name)
+        self._valid_data.append(data)
         return self
 
     def update(self, train_set: Optional[Dataset] = None,
@@ -200,8 +247,55 @@ class Booster:
             raise not_ported("custom objectives (fobj)", BREADTH)
         return self._gbdt.train_one_iter()
 
-    def eval_valid(self):
-        return self._gbdt.eval_valid()
+    def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
+        """New values of knobs mid-training (JAX :611): the next tree
+        trains under them (``GBDT.reset_config``)."""
+        self.params.update(params)
+        if self._gbdt is not None:
+            self._gbdt.reset_config(params)
+        return self
+
+    def eval_train(self, feval=None):
+        """The training set's metrics (and ``feval``'s) on its current
+        scores, each ``(data name, metric, value, higher is better)``."""
+        out = [("training",) + tuple(r[1:]) for r in self._gbdt.eval_train()]
+        return self._add_feval(out, feval, "training",
+                               self._gbdt.raw_train_scores(), self.train_set)
+
+    def eval_valid(self, feval=None):
+        """Each valid set's metrics (and ``feval``'s, JAX :623)."""
+        out = list(self._gbdt.eval_valid())
+        if feval is not None:
+            for i, name in enumerate(self._name_valid_sets):
+                out = self._add_feval(out, feval, name,
+                                      self._gbdt.raw_valid_scores(i),
+                                      self._valid_data[i])
+        return out
+
+    @staticmethod
+    def _add_feval(out, feval, name, raw_scores, dataset):
+        """``feval(preds, dataset)`` -> (metric, value, higher is better)
+        or a list of them, on the raw scores ((N,) for one class)."""
+        if feval is None:
+            return out
+        fevals = feval if isinstance(feval, (list, tuple)) else [feval]
+        preds = raw_scores[:, 0] if raw_scores.shape[1] == 1 else raw_scores
+        for f in fevals:
+            res = f(preds, dataset)
+            if isinstance(res, tuple):
+                res = [res]
+            for metric_name, value, hb in res:
+                out.append((name, metric_name, value, hb))
+        return out
+
+    def _default_iterations(self, num_iteration, n_trees) -> int:
+        """``num_iteration`` None or < 0: the best iteration where early
+        stopping set one, else every iteration (JAX :704, :952)."""
+        if num_iteration is None or num_iteration < 0:
+            if self.best_iteration and self.best_iteration > 0:
+                return self.best_iteration
+            return n_trees // self.num_model_per_iteration()
+        return num_iteration
 
     def current_iteration(self) -> int:
         if self._gbdt is not None:
@@ -233,11 +327,11 @@ class Booster:
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
                         start_iteration: int = 0) -> str:
-        """v3 model text (reference GBDT::SaveModelToString)."""
+        """v3 model text (reference GBDT::SaveModelToString), by default
+        up to ``best_iteration``."""
         trees = self._all_trees()
         K = self.num_model_per_iteration()
-        if num_iteration is None or num_iteration < 0:
-            num_iteration = len(trees) // K
+        num_iteration = self._default_iterations(num_iteration, len(trees))
         trees = trees[start_iteration * K:
                       (start_iteration + num_iteration) * K]
         if self._gbdt is not None:
@@ -281,7 +375,8 @@ class Booster:
                 num_iteration: Optional[int] = None, raw_score: bool = False,
                 pred_leaf: bool = False, **kwargs) -> np.ndarray:
         """Prediction on raw features (reference basic.py:2816 /
-        Predictor); ``kwargs`` override the ``predict_*`` params."""
+        Predictor), by default up to ``best_iteration``; ``kwargs``
+        override the ``predict_*`` params."""
         for key, what in _NOT_PORTED.items():
             if kwargs.get(key, self.params.get(key, False)):
                 raise not_ported(what, TREESHAP)
@@ -301,8 +396,7 @@ class Booster:
                     f"error, but please be aware what you are doing.")
         trees = self._all_trees()
         K = self.num_model_per_iteration()
-        if num_iteration is None or num_iteration < 0:
-            num_iteration = len(trees) // K
+        num_iteration = self._default_iterations(num_iteration, len(trees))
         trees = trees[start_iteration * K:
                       (start_iteration + num_iteration) * K]
         n = X.shape[0]

@@ -172,9 +172,11 @@ class Config:
     bagging_freq: int = 0
     feature_fraction: float = 1.0
     feature_fraction_bynode: float = 1.0
-    # -- knobs of the JAX package the port refuses (see unported_reason) --
+    # extremely randomized trees: one random threshold a feature a node
     extra_trees: bool = False
+    # callbacks: engine.train's early stopping
     early_stopping_round: int = 0
+    # -- knobs of the JAX package the port refuses (see unported_reason) --
     max_delta_step: float = 0.0
     path_smooth: float = 0.0
     monotone_constraints: List[int] = field(default_factory=list)
@@ -186,10 +188,11 @@ class Config:
     # 0 = auto (num_leaves // 4; the sequential grower below 8 leaves,
     # not ported); >= 1 forces the wave grower at that wave size
     leafwise_wave_size: int = 0
-    # auto | scatter | pallas | fused (onehot and bench are not ported):
-    # auto is the CUDA kernel K1 for a CUDA tensor, the plain scatter for
-    # a CPU one (ops/histogram.default_hist_method); fused runs the wave
-    # rounds through the fused round K2 and the valid routing K3
+    # auto | bench | scatter | onehot | pallas | fused: auto is the CUDA
+    # kernel K1 for a CUDA tensor (the one-hot product for int16 bins),
+    # the plain scatter for a CPU one (ops/histogram.default_hist_method);
+    # bench times the candidates and picks one; fused runs the wave rounds
+    # through the fused round K2 and the valid routing K3
     hist_method: str = "auto"
     # fused rounds a launch: 1 = the single-round kernel K2; > 1 is the
     # persistent wave loop K6 (ops/loop_cuda.py; JAX config.py:402)
@@ -262,11 +265,11 @@ class Config:
     eval_at: List[int] = field(default_factory=lambda: [1, 2, 3, 4, 5])
     multi_error_top_k: int = 1
     auc_mu_weights: List[float] = field(default_factory=list)
-    # sampling seeds (extra_seed refused with extra_trees)
+    # sampling seeds
     bagging_seed: int = 3
     feature_fraction_seed: int = 2
     extra_seed: int = 6
-    # callbacks (item 4)
+    # callbacks: early stopping on the first metric alone
     first_metric_only: bool = False
     # boosting, categorical, constraints, penalties, binning, model
     # lifecycle (item 8)
@@ -296,7 +299,7 @@ class Config:
     finite_guard: str = "off"
     # the sequential grower (item 2)
     histogram_pool_size: float = -1.0
-    # histogram methods (item 7)
+    # histogram build strategies: scatter / onehot under hist_method=auto
     force_col_wise: bool = False
     force_row_wise: bool = False
     # TreeSHAP and prediction early stopping (item 10)
@@ -421,6 +424,18 @@ class Config:
         if self.objective in ("multiclass", "multiclassova") \
                 and self.num_class <= 1:
             raise ValueError("num_class must be >1 for multiclass objectives")
+        if self.force_col_wise and self.force_row_wise:
+            # reference config.cpp CheckParamConflict fatals on both
+            raise ValueError(
+                "Cannot set both force_col_wise and force_row_wise")
+        if self.hist_method == "auto":
+            # the reference's histogram build strategies (JAX
+            # config.py:786-797): col-wise per-feature gathers are the
+            # scatter, row-wise multi-feature tiles the one-hot product
+            if self.force_col_wise:
+                self.hist_method = "scatter"
+            elif self.force_row_wise:
+                self.hist_method = "onehot"
         if self.hist_method not in (
                 "auto", "bench", "scatter", "onehot", "pallas", "fused"):
             raise ValueError(
@@ -480,10 +495,10 @@ class Config:
                              "(the current version is always kept)")
 
     @classmethod
-    def from_dict(cls, params: Dict[str, Any]) -> "Config":
-        """Defaults, then ``params`` (aliases resolved, an explicit name
-        beating its alias) coerced to each field's type; unknown keys warn
-        and are skipped (reference ``Config::Set``)."""
+    def _fields_of(cls, params: Dict[str, Any]) -> Dict[str, Any]:
+        """``params`` as field values: aliases resolved (an explicit name
+        beating its alias), each coerced to its field's type; unknown keys
+        warn and are skipped (reference ``Config::Set``)."""
         resolved: Dict[str, Any] = {}
         for key, value in params.items():
             name = _ALIASES.get(key, key)
@@ -491,13 +506,25 @@ class Config:
                 continue
             resolved[name] = value
         fields = {f.name: f for f in dataclasses.fields(cls)}
-        kwargs = {}
+        out = {}
         for name, value in resolved.items():
             if name not in fields:
                 log_warning(f"Unknown parameter: {name}")
                 continue
-            kwargs[name] = _coerce(value, fields[name], name)
-        return cls(**kwargs)
+            out[name] = _coerce(value, fields[name], name)
+        return out
+
+    @classmethod
+    def from_dict(cls, params: Dict[str, Any]) -> "Config":
+        """Defaults, then ``params`` (``_fields_of``)."""
+        return cls(**cls._fields_of(params))
+
+    def update(self, params: Dict[str, Any]) -> None:
+        """Set ``params`` (``_fields_of``) on this config, as the JAX
+        ``Config.update`` does mid-training (``Booster.reset_parameter``;
+        the caller validates again)."""
+        for name, value in self._fields_of(params).items():
+            setattr(self, name, value)
 
     @property
     def num_tree_per_iteration(self) -> int:
@@ -514,13 +541,14 @@ class Config:
         return [float((1 << i) - 1) for i in range(31)]
 
 
-# ROADMAP queue 1 items that port what the training slice refuses
+# ROADMAP queue 1 items that port what the training slice refuses.
+# Ported: bagging, feature fraction and extra_trees; callbacks and early
+# stopping (engine.py, callback.py); hist_dtype_deep=int8sr, hist_dtype=
+# int8 and hist_dtype_deep=int8; hist_method=onehot|bench, force_col_wise /
+# force_row_wise and int16 bins.  These items keep their names for
+# ROADMAP's record of them, and nothing refuses with them any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
-# ported: hist_dtype_deep=int8sr, hist_dtype=int8 and hist_dtype_deep=int8
-# train; the items keep their names for ROADMAP's record of them, and
-# nothing refuses with them any more.  SAMPLING still refuses extra_trees
-# (bagging and feature fraction train)
 INT8 = "int8sr histograms"
 INT8_PLAIN = "plain int8 histograms"
 HIST_METHODS = "histogram methods onehot and bench"
@@ -544,9 +572,6 @@ _UNPORTED = (
      "boosting={v} (GOSS, DART, RF)", BREADTH),
     ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
      "tree_learner={v}", PARALLEL),
-    ("extra_trees", lambda c: c.extra_trees, "extra_trees", SAMPLING),
-    ("early_stopping_round", lambda c: c.early_stopping_round > 0,
-     "early stopping", CALLBACKS),
     ("interaction_constraints", lambda c: bool(c.interaction_constraints),
      "interaction constraints", BREADTH),
     ("forcedsplits_filename", lambda c: bool(c.forcedsplits_filename),
@@ -555,16 +580,12 @@ _UNPORTED = (
      BREADTH),
     ("categorical_feature", lambda c: bool(c.categorical_feature),
      "categorical features", BREADTH),
-    ("hist_method", lambda c: c.hist_method in ("onehot", "bench"),
-     "hist_method={v}", HIST_METHODS),
 )
 
 
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (SAMPLING, ("extra_seed",)),
-    (CALLBACKS, ("first_metric_only",)),
     (BREADTH, ("alpha", "fair_c", "poisson_max_delta_step",
                "tweedie_variance_power", "objective_seed", "auc_mu_weights",
                "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
@@ -575,7 +596,6 @@ _REFUSED = (
                "cegb_penalty_feature_coupled", "forcedbins_filename",
                "max_bin_by_feature", "saved_feature_importance_type",
                "snapshot_freq", "finite_guard")),
-    (HIST_METHODS, ("force_col_wise", "force_row_wise")),
     (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
                 "pred_early_stop_margin")),
     (CLI, ("config", "task", "data", "valid", "output_model",

@@ -37,6 +37,24 @@
 // The options are compile-time legs (kOpt* of wave_round.cuh); each
 // kernel is instantiated for each of the 16 sets and the launch takes the
 // set `opts` names, so an unconstrained scan runs the unconstrained code.
+// extra_trees (kOptRand; the JAX package's split.py:602-607, the staged
+// scan's random threshold) runs one more instance, kOptAllScan, with every
+// leg compiled in and switched by `opts`: each warp draws its (child,
+// feature)'s threshold with the JAX package's threefry stream (rand_bin:
+// fold_in(tree key, uid + 1_000_003 + extra_seed), the feature's uniform,
+// one f32 multiply by max(num_bins - 1, 1), truncated) and only that
+// threshold stays a candidate; `rbins`, where given, receives the draws.
+// So a node's draw costs two threefry hashes in the kernel, where the
+// per-node masks' PyTorch draw costs about ten small launches.
+//
+// The wide leg (split_scan_wide.cu, which includes this file with
+// LGBM_SCAN_WIDE 1): int16 bins (max_bin > 255, up to 32,768 bins) would
+// need a warp's (2 kMaxBins x 3 + 5 B) floats for any B, 1.4 MB at B =
+// 32,768, past a block's 227 KB.  scan_child_wide walks the feature's row
+// in chunks of kMaxBins with the prefix carried in double, twice (the
+// first pass finds the feature's best gain, the second its preferred
+// candidate in the band), so a warp needs scan_child's scratch at
+// kMaxBins whatever B is, and every value is scan_child's.
 //
 // What bounds them on this card.  A scan reads the histograms once (C x F
 // x B x 12 bytes: 2.7 MB at C = 126, F = 28, B = 64) and writes C x 40
@@ -59,17 +77,26 @@
 
 #include "wave_round.cuh"
 
+// 1: the wide leg (csrc/split_scan_wide.cu includes this file so): every
+// feature's row walked in chunks of kMaxBins by scan_child_wide, so any B
+// runs (int16 bins, max_bin > 255); 0: scan_child at B <= kMaxBins.
+#ifndef LGBM_SCAN_WIDE
+#define LGBM_SCAN_WIDE 0
+#endif
+
 using namespace lgbm;
 
 namespace {
 
+constexpr bool kWide = LGBM_SCAN_WIDE != 0;
 constexpr int kMaxScanWarps = 32;
 constexpr int kPickThreads = 128;
 constexpr int kMaxDevices = 64;
 // a warp's shared memory at B bins: the left sums [2][kMaxBins][3]
-// (scan_child's layout), the row (B, 3) and the gains [2B]
+// (scan_child's layout), the row (B, 3) and the gains [2B]; the wide leg's
+// the left sums and one chunk's row [kMaxBins][3]
 __host__ __device__ inline int warp_floats(int B) {
-  return 2 * kMaxBins * 3 + 5 * B;
+  return kWide ? 2 * kMaxBins * 3 + 3 * kMaxBins : 2 * kMaxBins * 3 + 5 * B;
 }
 
 template <int OPTS>
@@ -80,8 +107,8 @@ split_scan_kernel(const float* __restrict__ hist,
                   const uint8_t* __restrict__ mask,
                   const int* __restrict__ fmeta, ScanLegs legs,
                   float* __restrict__ residue, float* __restrict__ packed,
-                  int nf, int B, int mstride, bool res_shared,
-                  ScanParams prm) {
+                  int* __restrict__ rbins, int nf, int B, int mstride,
+                  bool res_shared, ScanParams prm) {
   // W warps' scratch, then (res_shared) the child's (nf, 6) residue
   extern __shared__ float sm[];
   const int W = blockDim.x >> 5;
@@ -97,21 +124,33 @@ split_scan_kernel(const float* __restrict__ hist,
   const ScanLegs child_legs{legs.constr ? legs.constr + 2 * c : nullptr,
                             legs.pfac ? legs.pfac + c : nullptr,
                             legs.pout ? legs.pout + c : nullptr, legs.mono,
-                            legs.contri};
+                            legs.contri,
+                            legs.uids ? legs.uids + c : nullptr,
+                            legs.key0, legs.key1, legs.extra_seed};
   auto* left = reinterpret_cast<float(*)[kMaxBins][3]>(base);
-  auto* h = reinterpret_cast<const float(*)[3]>(base + 2 * kMaxBins * 3);
+  auto* h = reinterpret_cast<float(*)[3]>(base + 2 * kMaxBins * 3);
   float* gains = base + 2 * kMaxBins * 3 + 3 * B;
   const float* cs = csums + 3 * c;
   const float* sc = hscale ? hscale + 3 * c : nullptr;
   for (int f = warp; f < nf; f += W) {
     const float* src = hist + (static_cast<size_t>(c) * nf + f) * B * 3;
-    float* row = base + 2 * kMaxBins * 3;
-    for (int i = lane; i < B * 3; i += 32) row[i] = src[i];
-    __syncwarp();
     const bool usable = fmeta[4 * nf + f] != 0 &&
                         mask[static_cast<size_t>(c) * mstride + f] != 0;
-    scan_child<OPTS>(h, left, gains, lane, 0, f, nf, B, fmeta, usable, sc,
-                     cs, prm, child_legs, res);
+    if constexpr (kWide) {
+      scan_child_wide<OPTS>(src, h, left, lane, 0, f, nf, B, fmeta, usable,
+                            sc, cs, prm, child_legs, res);
+    } else {
+      float* row = base + 2 * kMaxBins * 3;
+      for (int i = lane; i < B * 3; i += 32) row[i] = src[i];
+      __syncwarp();
+      scan_child<OPTS>(h, left, gains, lane, 0, f, nf, B, fmeta, usable, sc,
+                       cs, prm, child_legs, res);
+    }
+    // the extra_trees threshold the scan drew, where the caller asks
+    if (rbins && lane == 0 && leg_on<OPTS>(prm, kOptRand))
+      rbins[static_cast<size_t>(c) * nf + f] =
+          rand_bin(legs.key0, legs.key1, child_legs.uids[0], legs.extra_seed,
+                   f, fmeta[f]);
     __syncwarp();  // the warp's scratch is read before its next feature
   }
   __syncthreads();  // every residue row, shared or global, is written
@@ -144,12 +183,17 @@ split_pick_kernel(const float* __restrict__ residue,
 
 using ScanKernel = void (*)(const float*, const float*, const float*,
                             const uint8_t*, const int*, ScanLegs, float*,
-                            float*, int, int, int, bool, ScanParams);
+                            float*, int*, int, int, int, bool, ScanParams);
 using PickKernel = void (*)(const float*, const float*, const float*,
                             const int*, float*, int, int, int, ScanParams);
 
+// The scan kernel of option set `opts`: an instance a set of the kOptAll
+// legs; a set with kOptRand runs the kOptAllScan instance, its other legs
+// switched by prm.opts.
 template <int O>
 ScanKernel scan_at(int opts) {
+  if (opts & kOptRand)
+    return opts > kOptAllScan ? nullptr : split_scan_kernel<kOptAllScan>;
   if constexpr (O > kOptAll) {
     return nullptr;
   } else {
@@ -170,7 +214,7 @@ PickKernel pick_at(int opts) {
 // device's largest block less the kernel's static words, opted into once
 // a (device, option set); 0 on an error.
 int scan_smem_cap(ScanKernel kern, int opts) {
-  static std::atomic<int> cap[kMaxDevices][kOptAll + 1];
+  static std::atomic<int> cap[kMaxDevices][kOptAllScan + 1];
   int dev = 0;
   if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= kMaxDevices)
     return 0;
@@ -206,7 +250,7 @@ extern "C" {
 // lives in the `residue` output, which lgbm_split_scan then needs.
 int lgbm_split_scan_resident(int B, int opts) {
   const ScanKernel kern = scan_at<0>(opts);
-  if (!kern || B < 1 || B > kMaxBins) return -1;
+  if (!kern || B < 1 || (!kWide && B > kMaxBins)) return -1;
   const int cap = scan_smem_cap(kern, opts);
   const int left = cap - static_cast<int>(sizeof(float)) * warp_floats(B);
   return cap <= 0 || left < 0 ? -1
@@ -219,23 +263,28 @@ int lgbm_split_scan_resident(int B, int opts) {
 // every child), `fmeta` (5, nf) i32; `constr` (C, 2) (null: NO_CONSTRAINT),
 // `pfac` (C,), `pout` (C,) (null: 0) and `contri` (nf,) f32 and `mono`
 // (nf,) i32, each read only when its option is on (`mono` and `pfac`,
-// under a monotone penalty, must then be given, and `contri`); out:
-// `packed` (C, 10) f32 and `residue` (C, nf, 6) f32, either null (not
-// both; `residue` must be given past lgbm_split_scan_resident's nf).
+// under a monotone penalty, must then be given, and `contri`); under
+// kOptRand (extra_trees) `uids` (C,) i32, the tree key (key0, key1) and
+// extra_seed.  Out: `packed` (C, 10) f32 and `residue` (C, nf, 6) f32,
+// either null (not both; `residue` must be given past
+// lgbm_split_scan_resident's nf), and under kOptRand `rbins` (C, nf) i32,
+// each feature's random threshold, where not null.  B <= kMaxBins, or any
+// B in the wide leg's library.
 int lgbm_split_scan(const void* hist, const void* hscale, const void* csums,
                     const void* mask, const void* fmeta, const void* constr,
                     const void* pfac, const void* pout, const void* mono,
                     const void* contri, void* residue, void* packed, int C,
                     int nf, int B, int mask_stride, float l1, float l2,
-                    float min_data,
-                    float min_hess, float min_gain, float max_delta_step,
-                    float path_smooth, float monotone_penalty, int opts,
+                    float min_data, float min_hess, float min_gain,
+                    float max_delta_step, float path_smooth,
+                    float monotone_penalty, int opts, const void* uids,
+                    void* rbins, unsigned key0, unsigned key1, int extra_seed,
                     void* stream) {
   const ScanKernel kern = scan_at<0>(opts);
-  if (!kern || B < 1 || B > kMaxBins || C < 1 || nf < 1 ||
+  if (!kern || B < 1 || (!kWide && B > kMaxBins) || C < 1 || nf < 1 ||
       (mask_stride != nf && mask_stride != 0) || (!residue && !packed) ||
       ((opts & kOptMc) && (!mono || (monotone_penalty > 0.f && !pfac))) ||
-      ((opts & kOptContri) && !contri))
+      ((opts & kOptContri) && !contri) || ((opts & kOptRand) && !uids))
     return static_cast<int>(cudaErrorInvalidValue);
   const int cap = scan_smem_cap(kern, opts);
   const size_t warp_bytes = sizeof(float) * warp_floats(B);
@@ -253,13 +302,18 @@ int lgbm_split_scan(const void* hist, const void* hscale, const void* csums,
                       static_cast<const float*>(pfac),
                       static_cast<const float*>(pout),
                       static_cast<const int*>(mono),
-                      static_cast<const float*>(contri)};
+                      static_cast<const float*>(contri),
+                      static_cast<const int*>(uids),
+                      key0,
+                      key1,
+                      extra_seed};
   kern<<<C, W * 32, W * warp_bytes + res_bytes,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(hist), static_cast<const float*>(hscale),
       static_cast<const float*>(csums), static_cast<const uint8_t*>(mask),
       static_cast<const int*>(fmeta), legs, static_cast<float*>(residue),
-      static_cast<float*>(packed), nf, B, mask_stride, res_shared,
+      static_cast<float*>(packed), static_cast<int*>(rbins), nf, B,
+      mask_stride, res_shared,
       scan_params(l1, l2, min_data, min_hess, min_gain, max_delta_step,
                   path_smooth, monotone_penalty, opts));
   return static_cast<int>(cudaGetLastError());

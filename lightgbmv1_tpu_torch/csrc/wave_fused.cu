@@ -83,6 +83,10 @@
 //    dependent loads (the next round's feature follows this round's
 //    leaf), so its time is that chain's latency, about one L2 round trip
 //    a round, and the blocks' table set-up.
+// K3 also takes (F, N) int16 bins (`layout` 2, max_bin > 255; the JAX
+//    staged path routes them with XLA's route()): its 16-bit leg reads
+//    each decision bin as an int16 (route_leaf's BinT), every other step
+//    the u8 leg's, so on bins below 256 its ids are the u8 leg's.
 // Both take 4-bit packed bins (`packed`, the Pallas kernels' `fpb > 0` /
 //    `decision_bins(packed=True)` legs, bin_layout=packed4): (ceil(F/2), N)
 //    bytes of two features each.  Only the loads in (a) and (c) differ
@@ -195,10 +199,11 @@ __device__ __forceinline__ void place_split(int s, const int* offs, int P,
   tb.sidx[o + rank] = s - o;
 }
 
-// Each row of the grid from its leaf id through the R rounds of `tb`.
-template <bool PACKED>
+// Each row of the grid from its leaf id through the R rounds of `tb`
+// (BinT: the bins' type, uint8_t or K3's 16-bit leg's int16_t).
+template <bool PACKED, typename BinT>
 __device__ __forceinline__ void route_rounds(
-    const uint8_t* __restrict__ binned, const int* __restrict__ oleaf,
+    const BinT* __restrict__ binned, const int* __restrict__ oleaf,
     const RouteTables& tb, int* __restrict__ new_leaf, int n, int R) {
   const int step = gridDim.x * blockDim.x;
   for (int r = blockIdx.x * blockDim.x + threadIdx.x; r < n; r += step) {
@@ -206,7 +211,7 @@ __device__ __forceinline__ void route_rounds(
     for (int q = 0; q < R; ++q) {
       const int o = tb.off[q];
       int dlab = 0;
-      lf = route_leaf<false, false, PACKED>(r, lf, binned, tb.slots + o,
+      lf = route_leaf<false, false, PACKED, BinT>(r, lf, binned, tb.slots + o,
                                             tb.sleaf + o, tb.sidx + o, n,
                                             tb.off[q + 1] - o, 0, dlab);
     }
@@ -217,9 +222,9 @@ __device__ __forceinline__ void route_rounds(
 // K3 on tables in shared memory: each block loads the P slots and the
 // offsets, places each split in its round's leaf order (a thread a
 // split), then routes its rows.
-template <bool PACKED>
+template <bool PACKED, typename BinT>
 __global__ void __launch_bounds__(kThreads)
-route_kernel(const uint8_t* __restrict__ binned,
+route_kernel(const BinT* __restrict__ binned,
              const int* __restrict__ oleaf, const int* __restrict__ feats,
              const int* __restrict__ rmeta, const int* __restrict__ offs,
              int* __restrict__ new_leaf, int n, int P, int R) {
@@ -233,7 +238,7 @@ route_kernel(const uint8_t* __restrict__ binned,
   for (int s = threadIdx.x; s < P; s += blockDim.x)
     place_split(s, offs, P, R, &tb.slots[0].leaf, kSlotInts, tb);
   __syncthreads();
-  route_rounds<PACKED>(binned, oleaf, tb, new_leaf, n, R);
+  route_rounds<PACKED, BinT>(binned, oleaf, tb, new_leaf, n, R);
 }
 
 // The tables of a tree past kRouteSmemBytes, built once in device memory
@@ -257,12 +262,35 @@ route_tables_kernel(const int* __restrict__ feats,
 }
 
 // K3 on the tables `route_tables_kernel` built in device memory.
-template <bool PACKED>
+template <bool PACKED, typename BinT>
 __global__ void __launch_bounds__(kThreads)
-route_global_kernel(const uint8_t* __restrict__ binned,
+route_global_kernel(const BinT* __restrict__ binned,
                     const int* __restrict__ oleaf, int* __restrict__ tab,
                     int* __restrict__ new_leaf, int n, int P, int R) {
-  route_rounds<PACKED>(binned, oleaf, route_tables(tab, P), new_leaf, n, R);
+  route_rounds<PACKED, BinT>(binned, oleaf, route_tables(tab, P), new_leaf, n,
+                             R);
+}
+
+// K3's launch on bins of type BinT: the tables in each block's shared
+// memory up to kRouteSmemBytes, else built once in `tab`.
+template <bool PACKED, typename BinT>
+int route_launch(const BinT* bn, const int* ol, const int* ft, const int* rm,
+                 const int* of, int* o, int* tb, int n, int P, int R,
+                 cudaStream_t st) {
+  const int blocks = route_blocks((n + kThreads - 1) / kThreads);
+  if (route_table_bytes(P, R) <= kRouteSmemBytes) {
+    route_kernel<PACKED, BinT><<<blocks, kThreads, route_table_bytes(P, R),
+                                 st>>>(bn, ol, ft, rm, of, o, n, P, R);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int splits = P > R + 1 ? P : R + 1;
+  route_tables_kernel<<<route_blocks((splits + kThreads - 1) / kThreads),
+                        kThreads, 0, st>>>(ft, rm, of, tb, P, R);
+  int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  route_global_kernel<PACKED, BinT><<<blocks, kThreads, 0, st>>>(bn, ol, tb,
+                                                                 o, n, P, R);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K2 (a): route_label_tile on the tiles of the grid: new leaf ids, the
@@ -498,39 +526,32 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
 // K3.  (N,) leaf ids of `binned`'s rows, from `oleaf`, after the P
 // splits of `rmeta` (P, 8) on the features `feats` (P,), round q's splits
 // rows offs[q] .. offs[q + 1] (`offs` (R + 1,), rising; null: one round,
-// R = 1).  `packed` != 0: `binned` holds packed bytes.  `tab`: device
-// scratch of P (kRmetaCols + 3) + R + 1 ints, used where the tables pass
-// kRouteSmemBytes.
+// R = 1).  `layout`: 0 (F, N) u8 bins, 1 packed bytes, 2 (F, N) int16
+// bins (the 16-bit leg).  `tab`: device scratch of P (kRmetaCols + 3) +
+// R + 1 ints, used where the tables pass kRouteSmemBytes.
 int lgbm_route_rows(const void* binned, const void* oleaf, const void* feats,
                     const void* rmeta, const void* offs, void* out, void* tab,
-                    int n, int P, int R, int packed, void* stream) {
-  if (P < 0 || R < 1 || (!offs && R != 1) || !tab)
+                    int n, int P, int R, int layout, void* stream) {
+  if (P < 0 || R < 1 || (!offs && R != 1) || !tab || layout < 0 ||
+      layout > 2)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
-  const auto* bn = static_cast<const uint8_t*>(binned);
   const auto* ol = static_cast<const int*>(oleaf);
   const auto* ft = static_cast<const int*>(feats);
   const auto* rm = static_cast<const int*>(rmeta);
   const auto* of = static_cast<const int*>(offs);
   auto* o = static_cast<int*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  const int blocks = route_blocks((n + kThreads - 1) / kThreads);
-  if (route_table_bytes(P, R) <= kRouteSmemBytes) {
-    const auto kernel = packed ? route_kernel<true> : route_kernel<false>;
-    kernel<<<blocks, kThreads, route_table_bytes(P, R), st>>>(
-        bn, ol, ft, rm, of, o, n, P, R);
-    return static_cast<int>(cudaGetLastError());
-  }
   auto* tb = static_cast<int*>(tab);
-  const int splits = P > R + 1 ? P : R + 1;
-  route_tables_kernel<<<route_blocks((splits + kThreads - 1) / kThreads),
-                        kThreads, 0, st>>>(ft, rm, of, tb, P, R);
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const auto kernel =
-      packed ? route_global_kernel<true> : route_global_kernel<false>;
-  kernel<<<blocks, kThreads, 0, st>>>(bn, ol, tb, o, n, P, R);
-  return static_cast<int>(cudaGetLastError());
+  auto st = static_cast<cudaStream_t>(stream);
+  if (layout == 2)
+    return route_launch<false, int16_t>(static_cast<const int16_t*>(binned),
+                                        ol, ft, rm, of, o, tb, n, P, R, st);
+  const auto* bn = static_cast<const uint8_t*>(binned);
+  return layout == 1
+             ? route_launch<true, uint8_t>(bn, ol, ft, rm, of, o, tb, n, P, R,
+                                           st)
+             : route_launch<false, uint8_t>(bn, ol, ft, rm, of, o, tb, n, P,
+                                            R, st);
 }
 
 }  // extern "C"

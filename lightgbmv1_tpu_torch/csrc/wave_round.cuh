@@ -22,6 +22,7 @@
 #include <math.h>
 
 #include "hist_tile.cuh"
+#include "prng.cuh"
 
 namespace lgbm {
 
@@ -105,12 +106,15 @@ __device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
 // Returns the row's new leaf id and adds the label's terms to `dlab`
 // (WANT_LABEL).  PACKED: `binned` holds the packed bytes, and the
 // decision bin is the nibble of the slot's feature (bin_column / bin_of,
-// hist_tile.cuh).  The one decision of K2, K3 and K6.
-template <bool WANT_LABEL, bool SUB, bool PACKED>
+// hist_tile.cuh).  BinT int16_t: `binned` holds (F, n) int16 bins (K3's
+// 16-bit leg, max_bin > 255; never PACKED).  The one decision of K2, K3
+// and K6.
+template <bool WANT_LABEL, bool SUB, bool PACKED, typename BinT = uint8_t>
 __device__ __forceinline__ int route_leaf(
-    int r, int lf, const uint8_t* __restrict__ binned, const Slot* slots,
+    int r, int lf, const BinT* __restrict__ binned, const Slot* slots,
     const int* sleaf, const int* sidx, int n, int ns, int nslots,
     int& dlab) {
+  static_assert(sizeof(BinT) == 1 || !PACKED, "packed bins are bytes");
   int lo = 0, hi = ns;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -124,9 +128,13 @@ __device__ __forceinline__ int route_leaf(
   for (int p = lo; p < ns && sleaf[p] == lf; ++p) {
     const int s = sidx[p];
     const Slot& m = slots[s];
-    slot_terms<WANT_LABEL, SUB>(
-        s, m, bin_of<PACKED>(bin_column<PACKED>(binned, m.feat, n)[r], m.feat),
-        lf, nslots, dleaf, dlab);
+    int bin;
+    if constexpr (sizeof(BinT) == 1) {
+      bin = bin_of<PACKED>(bin_column<PACKED>(binned, m.feat, n)[r], m.feat);
+    } else {
+      bin = static_cast<int>(binned[static_cast<size_t>(m.feat) * n + r]);
+    }
+    slot_terms<WANT_LABEL, SUB>(s, m, bin, lf, nslots, dleaf, dlab);
   }
   return lf + dleaf;
 }
@@ -230,6 +238,12 @@ constexpr int kOptSmooth = 2;  // path_smooth
 constexpr int kOptMaxOut = 4;  // max_delta_step
 constexpr int kOptContri = 8;  // feature_contri
 constexpr int kOptAll = 15;
+// extra_trees: one random threshold a (child, feature), drawn in the
+// kernel (rand_bin).  Only the split-scan kernel compiles it in (its
+// kOptAllScan instance); K2 and K6 stop at kOptAll, as the fused family
+// refuses extra_trees.
+constexpr int kOptRand = 16;
+constexpr int kOptAllScan = kOptAll | kOptRand;
 
 struct ScanParams {
   float l1, l2, min_data, min_hess, min_gain;
@@ -245,7 +259,8 @@ struct ScanParams {
 // (kOptMc) and contri multipliers (nf,).  A null `constr` under kOptMc
 // is [kNoConstraintLo, kNoConstraintHi] (ops/split.py NO_CONSTRAINT)
 // and a null `pout` under kOptSmooth 0, as ops/split.py scan_inputs
-// leaves them.
+// leaves them.  Under kOptRand: the children's uids (C,) i32, the tree's
+// key (key0, key1) and extra_seed (rand_bin).
 constexpr float kNoConstraintLo = -3.0e38f;
 constexpr float kNoConstraintHi = 3.0e38f;
 struct ScanLegs {
@@ -254,6 +269,9 @@ struct ScanLegs {
   const float* pout;
   const int* mono;
   const float* contri;
+  const int* uids;
+  uint32_t key0, key1;
+  int extra_seed;
 };
 
 template <int OPTS>
@@ -345,6 +363,128 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return a > b ? a : b;
 }
 
+// The per-(child, feature) constants of scan_direction_gains: the
+// child's sums, parent output, bounds, shift and multipliers and the
+// feature's missing rules, bins and random threshold (kOptRand; -1: none).
+struct ScanConsts {
+  float tg, th, tc, pout, lo, hi, cf, pf, shift;
+  int nbins_f, mono, rbin;
+  bool mc, smooth, contri, pen, usable, has_miss;
+};
+
+// extra_trees' threshold of feature f for a child whose uid is `uid`
+// (ops/split.py extra_rand_bins, the JAX package's split.py:602-607):
+// uniform(fold_in(tree key, uid + 1_000_003 + extra_seed), (F,))[f] times
+// max(num_bins - 1, 1) in one f32 multiply, truncated.
+__device__ __forceinline__ int rand_bin(uint32_t k0, uint32_t k1, int uid,
+                                        int extra_seed, int f, int nbins_f) {
+  fold_in(k0, k1,
+          static_cast<uint32_t>(uid) + 1000003u +
+              static_cast<uint32_t>(extra_seed));
+  const float u = uniform_at(k0, k1, static_cast<uint64_t>(f));
+  const int m = nbins_f - 1 > 1 ? nbins_f - 1 : 1;
+  return static_cast<int>(__fmul_rn(u, static_cast<float>(m)));
+}
+
+template <int OPTS>
+__device__ __forceinline__ ScanConsts scan_consts(
+    int child, int f, int nf, const int* __restrict__ fmeta, bool usable,
+    const float* cs, const ScanParams& prm, const ScanLegs& legs) {
+  ScanConsts k;
+  k.nbins_f = fmeta[f];
+  const int mt = fmeta[nf + f];
+  k.has_miss = mt == kMissingNan || mt == kMissingZero;
+  k.usable = usable;
+  k.mc = leg_on<OPTS>(prm, kOptMc);
+  k.smooth = leg_on<OPTS>(prm, kOptSmooth);
+  k.tg = cs[0];
+  k.th = cs[1];
+  k.tc = cs[2];
+  k.pout = k.smooth && legs.pout ? legs.pout[child] : 0.f;
+  k.lo = !k.mc ? 0.f : legs.constr ? legs.constr[2 * child] : kNoConstraintLo;
+  k.hi = !k.mc ? 0.f
+               : legs.constr ? legs.constr[2 * child + 1] : kNoConstraintHi;
+  k.mono = k.mc ? legs.mono[f] : 0;
+  // the relative-gain multipliers of finite gains: contri, then the
+  // monotone depth penalty on a monotone feature
+  k.contri = leg_on<OPTS>(prm, kOptContri);
+  k.cf = k.contri ? legs.contri[f] : 1.f;
+  k.pen = k.mc && prm.monotone_penalty > 0.f && k.mono != 0;
+  k.pf = k.pen ? legs.pfac[child] : 1.f;
+  k.shift = gain_shift<OPTS>(k.tg, k.th, k.pout, prm);
+  k.rbin = leg_on<OPTS>(prm, kOptRand)
+               ? rand_bin(legs.key0, legs.key1, legs.uids[child],
+                          legs.extra_seed, f, k.nbins_f)
+               : -1;
+  return k;
+}
+
+// The relative gain of candidate (dir, t) with left sums (lg, lh, lc):
+// scan_direction_gains' value for it, -inf where it is not a candidate or
+// misses a gate.
+template <int OPTS>
+__device__ __forceinline__ float candidate_gain(const ScanConsts& k, int dir,
+                                                int t, float lg, float lh,
+                                                float lc,
+                                                const ScanParams& prm) {
+  const float rg = __fsub_rn(k.tg, lg), rh = __fsub_rn(k.th, lh),
+              rc = __fsub_rn(k.tc, lc);
+  bool ok = lc >= prm.min_data && rc >= prm.min_data && lh >= prm.min_hess &&
+            rh >= prm.min_hess;
+  float gain;
+  if (!k.mc && !k.smooth) {
+    gain = __fadd_rn(leaf_gain<OPTS>(lg, lh, prm), leaf_gain<OPTS>(rg, rh, prm));
+  } else {
+    float ol = leaf_output<OPTS>(lg, lh, prm);
+    float orr = leaf_output<OPTS>(rg, rh, prm);
+    if (k.smooth) {
+      ol = smooth_output(ol, lc, k.pout, prm);
+      orr = smooth_output(orr, rc, k.pout, prm);
+    }
+    if (k.mc) {
+      ol = clamp_nan(ol, k.lo, k.hi);
+      orr = clamp_nan(orr, k.lo, k.hi);
+    }
+    gain = __fadd_rn(leaf_gain_given_output(lg, lh, ol, prm),
+                     leaf_gain_given_output(rg, rh, orr, prm));
+    if (k.mc && ((k.mono > 0 && ol > orr) || (k.mono < 0 && ol < orr)))
+      ok = false;
+  }
+  bool valid = t <= k.nbins_f - 2 && k.usable && (dir == 0 || k.has_miss);
+  if (leg_on<OPTS>(prm, kOptRand)) valid = valid && t == k.rbin;
+  float g = __fsub_rn((valid && ok) ? gain : -INFINITY, k.shift);
+  if (isfinite(g)) {
+    if (k.contri) g = __fmul_rn(g, k.cf);
+    if (k.pen) g = __fmul_rn(g, k.pf);
+  }
+  return g;
+}
+
+// Candidate j's place in scan_pick_feature's preference (the reverse
+// scan's highest threshold first for a missing-none or 2-bin feature,
+// else the forward scan's lowest; direction 1 after them).
+__device__ __forceinline__ int candidate_pref(int j, int B, bool rev_like_a) {
+  const int dir = j >= B;
+  const int t = j - dir * B;
+  return (dir || rev_like_a) ? 2 * B + t : B - 1 - t;
+}
+
+// The tie band's floor of a feature whose best gain is fbest.
+__device__ __forceinline__ float band_floor(float fbest, float shift) {
+  const float babs = isfinite(fbest) ? fabsf(fbest) : 0.f;
+  return __fsub_rn(fbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
+}
+
+// The missing-mass adjustments of both scan directions' left sums at bin
+// b, from the inclusive prefix `cum` of channel ch.
+__device__ __forceinline__ void left_pair(float cum, int b, bool is_nan_f,
+                                          bool is_zero_f, int zb, float nan_c,
+                                          float zero_c, float& l0, float& l1) {
+  l0 = __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
+  l1 = __fadd_rn(cum,
+                 is_nan_f ? nan_c : ((is_zero_f && b < zb) ? zero_c : 0.f));
+}
+
 // One child's split scan of feature f by one warp (lane its thread):
 // ops/split.py scan_residue on the child's (B, 3) row `h` in shared
 // memory, with `left` [2][kMaxBins][3] and `gains` [2 kMaxBins] its
@@ -353,14 +493,13 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // missing-mass reads (an int8sr child pool-free); `cs` its sums.  Writes
 // the residue row [best gain, gain at the pick, pick, left g/h/c] of
 // (child, f).  The split-scan kernel (split_scan.cu), K2 and K6 run this
-// one function.
+// one function; B <= kMaxBins (scan_child_wide takes wider rows).
 template <int OPTS>
 __device__ __forceinline__ void scan_child(
     const float (*h)[3], float (*left)[kMaxBins][3], float* gains, int lane,
     int child, int f, int nf, int B, const int* __restrict__ fmeta,
     bool usable, const float* sc, const float* cs, const ScanParams& prm,
     const ScanLegs& legs, float* residue) {
-  const int nbins_f = fmeta[f];
   const int mt = fmeta[nf + f];
   const int nanb = fmeta[2 * nf + f];
   const int zb = fmeta[3 * nf + f];
@@ -381,67 +520,22 @@ __device__ __forceinline__ void scan_child(
       acc += static_cast<double>(h[b][ch]);
       float cum = static_cast<float>(acc);
       if (sc) cum = __fmul_rn(cum, sc[ch]);
-      left[0][b][ch] = __fsub_rn(cum, (is_zero_f && b >= zb) ? zero_c : 0.f);
-      left[1][b][ch] = __fadd_rn(
-          cum, is_nan_f ? nan_c : ((is_zero_f && b < zb) ? zero_c : 0.f));
+      left_pair(cum, b, is_nan_f, is_zero_f, zb, nan_c, zero_c,
+                left[0][b][ch], left[1][b][ch]);
     }
   }
   __syncwarp();
 
   // ---- scan_direction_gains ---------------------------------------------
-  const bool mc = leg_on<OPTS>(prm, kOptMc);
-  const bool smooth = leg_on<OPTS>(prm, kOptSmooth);
-  const float tg = cs[0], th = cs[1], tc = cs[2];
-  const float pout = smooth && legs.pout ? legs.pout[child] : 0.f;
-  const float lo = !mc ? 0.f
-                  : legs.constr ? legs.constr[2 * child] : kNoConstraintLo;
-  const float hi = !mc ? 0.f
-                  : legs.constr ? legs.constr[2 * child + 1] : kNoConstraintHi;
-  const int mono = mc ? legs.mono[f] : 0;
-  // the relative-gain multipliers of finite gains: contri, then the
-  // monotone depth penalty on a monotone feature
-  const bool contri = leg_on<OPTS>(prm, kOptContri);
-  const float cf = contri ? legs.contri[f] : 1.f;
-  const bool pen = mc && prm.monotone_penalty > 0.f && mono != 0;
-  const float pf = pen ? legs.pfac[child] : 1.f;
-  const float shift = gain_shift<OPTS>(tg, th, pout, prm);
-  const bool has_miss = is_nan_f || is_zero_f;
+  const ScanConsts k =
+      scan_consts<OPTS>(child, f, nf, fmeta, usable, cs, prm, legs);
   float fbest = -INFINITY;
   for (int j = lane; j < 2 * B; j += 32) {
     const int dir = j >= B;
     const int t = j - dir * B;
-    const float lg = left[dir][t][0], lh = left[dir][t][1],
-                lc = left[dir][t][2];
-    const float rg = __fsub_rn(tg, lg), rh = __fsub_rn(th, lh),
-                rc = __fsub_rn(tc, lc);
-    bool ok = lc >= prm.min_data && rc >= prm.min_data &&
-              lh >= prm.min_hess && rh >= prm.min_hess;
-    float gain;
-    if (!mc && !smooth) {
-      gain = __fadd_rn(leaf_gain<OPTS>(lg, lh, prm),
-                       leaf_gain<OPTS>(rg, rh, prm));
-    } else {
-      float ol = leaf_output<OPTS>(lg, lh, prm);
-      float orr = leaf_output<OPTS>(rg, rh, prm);
-      if (smooth) {
-        ol = smooth_output(ol, lc, pout, prm);
-        orr = smooth_output(orr, rc, pout, prm);
-      }
-      if (mc) {
-        ol = clamp_nan(ol, lo, hi);
-        orr = clamp_nan(orr, lo, hi);
-      }
-      gain = __fadd_rn(leaf_gain_given_output(lg, lh, ol, prm),
-                       leaf_gain_given_output(rg, rh, orr, prm));
-      if (mc && ((mono > 0 && ol > orr) || (mono < 0 && ol < orr)))
-        ok = false;
-    }
-    const bool valid = t <= nbins_f - 2 && usable && (dir == 0 || has_miss);
-    float g = __fsub_rn((valid && ok) ? gain : -INFINITY, shift);
-    if (isfinite(g)) {
-      if (contri) g = __fmul_rn(g, cf);
-      if (pen) g = __fmul_rn(g, pf);
-    }
+    const float g = candidate_gain<OPTS>(k, dir, t, left[dir][t][0],
+                                         left[dir][t][1], left[dir][t][2],
+                                         prm);
     gains[j] = g;
     fbest = nan_max(fbest, g);
   }
@@ -450,16 +544,11 @@ __device__ __forceinline__ void scan_child(
   __syncwarp();
 
   // ---- scan_pick_feature: the tie-band preference pick ------------------
-  const float babs = isfinite(fbest) ? fabsf(fbest) : 0.f;
-  const float floor_g =
-      __fsub_rn(fbest, __fmul_rn(kTieRtol, __fadd_rn(fabsf(shift), babs)));
-  const bool rev_like_a = mt == kMissingNone || nbins_f <= 2;
+  const float floor_g = band_floor(fbest, k.shift);
+  const bool rev_like_a = mt == kMissingNone || k.nbins_f <= 2;
   int best_pref = -2, best_j = 0;
   for (int j = lane; j < 2 * B; j += 32) {
-    const int dir = j >= B;
-    const int t = j - dir * B;
-    const int pref = (dir || rev_like_a) ? 2 * B + t : B - 1 - t;
-    const int v = gains[j] >= floor_g ? pref : -1;
+    const int v = gains[j] >= floor_g ? candidate_pref(j, B, rev_like_a) : -1;
     if (v > best_pref) {  // strictly: the first index of the best wins
       best_pref = v;
       best_j = j;
@@ -483,6 +572,112 @@ __device__ __forceinline__ void scan_child(
     r[3] = left[dir][t][0];
     r[4] = left[dir][t][1];
     r[5] = left[dir][t][2];
+  }
+}
+
+// scan_child on a row of any B (int16 bins: B up to 32,768), walking the
+// bins in chunks of kMaxBins with the running prefix (a double a channel)
+// carried across chunks, so its shared scratch is scan_child's at
+// kMaxBins: `row` [kMaxBins][3] stages a chunk of the child's (B, 3) row
+// `hrow` (device memory), `left` is scan_child's.  Two passes:
+// the first takes the feature's best gain over every chunk, the second
+// walks the chunks again (the same prefixes, the same gains) and keeps
+// each lane's preferred in-band candidate with its gain and left sums.
+// Each candidate's value, the best gain and the pick (the highest
+// preference, then the lowest index) are scan_child's, so at B <= kMaxBins
+// the residue row is scan_child's bit for bit.
+template <int OPTS>
+__device__ __forceinline__ void scan_child_wide(
+    const float* __restrict__ hrow, float (*row)[3],
+    float (*left)[kMaxBins][3], int lane, int child, int f,
+    int nf, int B, const int* __restrict__ fmeta, bool usable,
+    const float* sc, const float* cs, const ScanParams& prm,
+    const ScanLegs& legs, float* residue) {
+  const int mt = fmeta[nf + f];
+  const int nanb = fmeta[2 * nf + f];
+  const int zb = fmeta[3 * nf + f];
+  const bool is_nan_f = mt == kMissingNan;
+  const bool is_zero_f = mt == kMissingZero;
+  const ScanConsts k =
+      scan_consts<OPTS>(child, f, nf, fmeta, usable, cs, prm, legs);
+  const bool rev_like_a = mt == kMissingNone || k.nbins_f <= 2;
+  float nan_c = 0.f, zero_c = 0.f;
+  if (lane < 3) {
+    nan_c = hrow[(nanb < 0 ? 0 : nanb) * 3 + lane];
+    zero_c = hrow[zb * 3 + lane];
+    if (sc) {
+      nan_c = __fmul_rn(nan_c, sc[lane]);
+      zero_c = __fmul_rn(zero_c, sc[lane]);
+    }
+  }
+  float fbest = -INFINITY, floor_g = 0.f;
+  int best_pref = -2, best_j = 0;
+  float best_g = 0.f, best_l[3] = {0.f, 0.f, 0.f};
+  for (int pass = 0; pass < 2; ++pass) {
+    double acc = 0.0;
+    for (int c0 = 0; c0 < B; c0 += kMaxBins) {
+      const int cn = B - c0 < kMaxBins ? B - c0 : kMaxBins;
+      for (int i = lane; i < cn * 3; i += 32)
+        (&row[0][0])[i] = hrow[static_cast<size_t>(c0) * 3 + i];
+      __syncwarp();
+      if (lane < 3) {
+        for (int b = 0; b < cn; ++b) {
+          acc += static_cast<double>(row[b][lane]);
+          float cum = static_cast<float>(acc);
+          if (sc) cum = __fmul_rn(cum, sc[lane]);
+          left_pair(cum, c0 + b, is_nan_f, is_zero_f, zb, nan_c, zero_c,
+                    left[0][b][lane], left[1][b][lane]);
+        }
+      }
+      __syncwarp();
+      for (int i = lane; i < 2 * cn; i += 32) {
+        const int dir = i >= cn;
+        const int tl = i - dir * cn;
+        const int t = c0 + tl;
+        const float lg = left[dir][tl][0], lh = left[dir][tl][1],
+                    lc = left[dir][tl][2];
+        const float g = candidate_gain<OPTS>(k, dir, t, lg, lh, lc, prm);
+        if (pass == 0) {
+          fbest = nan_max(fbest, g);
+          continue;
+        }
+        const int j = dir * B + t;
+        const int v = g >= floor_g ? candidate_pref(j, B, rev_like_a) : -1;
+        if (v > best_pref || (v == best_pref && j < best_j)) {
+          best_pref = v;
+          best_j = j;
+          best_g = g;
+          best_l[0] = lg;
+          best_l[1] = lh;
+          best_l[2] = lc;
+        }
+      }
+      __syncwarp();  // the chunk's scratch is read before the next one
+    }
+    if (pass == 0) {
+      for (int o = 16; o > 0; o >>= 1)
+        fbest = nan_max(fbest, __shfl_xor_sync(0xffffffffu, fbest, o));
+      floor_g = band_floor(fbest, k.shift);
+    }
+  }
+  int win_pref = best_pref, win_j = best_j;
+  for (int o = 16; o > 0; o >>= 1) {
+    const int op = __shfl_xor_sync(0xffffffffu, win_pref, o);
+    const int oj = __shfl_xor_sync(0xffffffffu, win_j, o);
+    if (op > win_pref || (op == win_pref && oj < win_j)) {
+      win_pref = op;
+      win_j = oj;
+    }
+  }
+  // the lane that holds the winning candidate writes the row
+  if (best_pref == win_pref && best_j == win_j) {
+    float* r = residue + (static_cast<size_t>(child) * nf + f) * 6;
+    r[0] = fbest;
+    r[1] = best_g;
+    r[2] = static_cast<float>(best_j);
+    r[3] = best_l[0];
+    r[4] = best_l[1];
+    r[5] = best_l[2];
   }
 }
 

@@ -17,7 +17,7 @@ from typing import List, Optional
 
 import numpy as np
 
-from ..config import BREADTH, HIST_METHODS, Config, not_ported
+from ..config import BREADTH, Config, not_ported
 from ..utils.log import log_info
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 
@@ -48,7 +48,7 @@ class Metadata:
 
 class BinnedDataset:
     """Feature-binned training data + metadata; ``binned`` is (F, N)
-    uint8."""
+    uint8, or int16 past 256 bins a feature."""
 
     def __init__(self, binned: np.ndarray, bin_mappers: List[BinMapper],
                  metadata: Metadata,
@@ -140,13 +140,12 @@ class BinnedDataset:
                     filter_cnt=filter_cnt)
                 for j in range(num_features)]
         max_nb = max(m.num_bin for m in mappers) if mappers else 2
-        if max_nb > 256:
-            raise not_ported(f"{max_nb} bins a feature (int16 bins, which "
-                             "the JAX package trains through onehot)",
-                             HIST_METHODS)
-        binned = np.empty((num_features, num_data), dtype=np.uint8)
+        # the reference's DenseBin<uint8_t> / DenseBin<uint16_t> family
+        # (JAX :228): int16 bins past 256 bins a feature
+        dtype = np.uint8 if max_nb <= 256 else np.int16
+        binned = np.empty((num_features, num_data), dtype=dtype)
         for j, m in enumerate(mappers):
-            binned[j] = m.value_to_bin(X[:, j]).astype(np.uint8)
+            binned[j] = m.value_to_bin(X[:, j]).astype(dtype)
 
         meta = Metadata()
         if label is not None:

@@ -42,15 +42,24 @@ same trees:
   ``base_mask``, and ``feature_fraction_bynode`` samples from it per
   node in the growers.
 
-DART, GOSS, RF, extra_trees, rollback and checkpoints are not ported
-(the config refuses them).
+extra_trees reaches the growers through the split params
+(``extra_trees``, ``extra_seed``) and each tree's key.
+``reset_config`` (``Booster.reset_parameter``) changes knobs between
+iterations: the learning rate is read each iteration, any other knob
+rebuilds the grower.  The JAX package's jitted step keeps the learning
+rate it was built with (its ``_model_shrink`` and the model text's
+``shrinkage`` record the new one, its leaves the old); here the next
+tree is shrunk by the new rate, as in the reference.
+
+DART, GOSS, RF, rollback and checkpoints are not ported (the config
+refuses them).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
-
+import dataclasses
 import math
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -106,19 +115,7 @@ class GBDT:
                                       config.monotone_constraints,
                                       config.feature_contri)
         self.num_bins = train_set.padded_bin
-        self.split_params = SplitParams(
-            lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
-            min_data_in_leaf=float(config.min_data_in_leaf),
-            min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
-            min_gain_to_split=config.min_gain_to_split,
-            max_delta_step=float(config.max_delta_step),
-            path_smooth=float(config.path_smooth),
-            monotone_penalty=float(config.monotone_penalty))
-        self._grow = build_trainer(config, self.meta, self.split_params,
-                                   self.num_bins, self.device,
-                                   bin_dtype=self.binned.dtype,
-                                   num_data=self.num_data,
-                                   packed=self._packed)
+        self._build_grower()
         # the per-tree feature mask at feature_fraction 1: usable features
         self._base_mask = self.meta.usable
         self._rng_key = prng_key(config.seed)
@@ -159,6 +156,47 @@ class GBDT:
         self._valid_binned: List[torch.Tensor] = []
         self._valid_scores: List[_ScoreUpdater] = []
         self._valid_metrics: List[List[Metric]] = []
+        self._train_metrics: Optional[List[Metric]] = None
+
+    def _build_grower(self) -> None:
+        """The split params and the grower of the current config; the
+        histogram method a bench picked stays picked."""
+        config = self.config
+        self.split_params = SplitParams(
+            lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
+            min_data_in_leaf=float(config.min_data_in_leaf),
+            min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
+            min_gain_to_split=config.min_gain_to_split,
+            max_delta_step=float(config.max_delta_step),
+            path_smooth=float(config.path_smooth),
+            monotone_penalty=float(config.monotone_penalty),
+            extra_trees=bool(config.extra_trees),
+            extra_seed=int(config.extra_seed))
+        picked = getattr(getattr(self, "_grow", None), "hist_method", None)
+        if config.hist_method == "bench" and picked is not None:
+            config = dataclasses.replace(config, hist_method=picked)
+        self._grow = build_trainer(config, self.meta, self.split_params,
+                                   self.num_bins, self.device,
+                                   bin_dtype=self.binned.dtype,
+                                   num_data=self.num_data,
+                                   packed=self._packed, binned=self.binned)
+
+    def reset_config(self, params) -> None:
+        """New knob values mid-training (JAX ``config.update`` under
+        ``Booster.reset_parameter``): the learning rate is read by every
+        iteration; any other knob rebuilds the split params and the
+        grower, so the next tree trains under it.  A knob the port does
+        not train raises, as at construction."""
+        before = dataclasses.asdict(self.config)
+        self.config.update(params)
+        self.config.__post_init__()
+        why = unported_reason(self.config)
+        if why:
+            raise NotImplementedError(why)
+        after = dataclasses.asdict(self.config)
+        if any(before[k] != after[k] for k in after
+               if k != "learning_rate"):
+            self._build_grower()
 
     # ------------------------------------------------------------------
     def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
@@ -329,3 +367,24 @@ class GBDT:
                                      self._valid_metrics):
             self._eval(name, vs, metrics, out)
         return out
+
+    def eval_train(self):
+        """The training set's metrics on its current scores (JAX
+        :1213)."""
+        if self._train_metrics is None:
+            self._train_metrics = create_metrics(self.config)
+            for m in self._train_metrics:
+                m.init(self.train_set.metadata, self.num_data)
+        out = []
+        self._eval("training", self._train_scores, self._train_metrics, out)
+        return out
+
+    def raw_train_scores(self) -> np.ndarray:
+        """(N, num_class) float64 raw training scores on the host."""
+        return self._train_scores.score.detach().cpu().numpy() \
+            .astype(np.float64)
+
+    def raw_valid_scores(self, i: int) -> np.ndarray:
+        """Valid set ``i``'s (N, num_class) float64 raw scores."""
+        return self._valid_scores[i].score.detach().cpu().numpy() \
+            .astype(np.float64)

@@ -59,8 +59,12 @@ grower's int8 passes (``hist_dtype=int8``) read the tree's rows rounded
 once a row tile (``quantize.NearestRows``); the sequential grower masks
 its rows to a leaf first, so its passes round their own rows.
 
-Forced splits, CEGB, interaction constraints and extra_trees are not
-ported (the config refuses them).
+extra_trees (JAX :246-249, :822-825) draws each scanned node's
+thresholds under the tree's ``key`` for the same uids as the per-node
+masks (``find_best_split(..., key=, uids=)``).
+
+Forced splits, CEGB and interaction constraints are not ported (the
+config refuses them).
 """
 
 from __future__ import annotations
@@ -189,7 +193,7 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                                mask0, params,
                                depth=torch.zeros(1, dtype=torch.int64,
                                                  device=dev),
-                               parent_output=out0[None])
+                               parent_output=out0[None], key=key, uids=[0])
         tree = empty_tree(L, dev)
         f32 = torch.float32
         pool = (torch.zeros((L,) + tuple(hist0.shape), dtype=f32, device=dev)
@@ -291,13 +295,14 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                     pconstr, couts[0:1], couts[1:2],
                     meta.monotone_type[feat][None], intermediate=False)
                 cconstr = torch.cat([c_l, c_r])
-            masks2 = node_feature_masks(key, [2 * node + 1, 2 * node + 2],
-                                        base_mask, feature_fraction_bynode)
+            uids2 = [2 * node + 1, 2 * node + 2]
+            masks2 = node_feature_masks(key, uids2, base_mask,
+                                        feature_fraction_bynode)
             res = find_best_split(
                 torch.stack([h_left, h_right]), csums, meta, masks2, params,
                 constraint=cconstr,
                 depth=torch.full((2,), d, dtype=torch.int64, device=dev),
-                parent_output=couts)
+                parent_output=couts, key=key, uids=uids2)
             gains = (res.gain if max_depth <= 0 or d < max_depth
                      else torch.full_like(res.gain, NEG_INF))
 
@@ -412,14 +417,15 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                 hist[p_new[p_sel]] = h_right[p_sel]
             # the whole level in one batched scan (JAX
             # find_best_split_batch, a vmap)
-            masks = node_feature_masks(
-                key, d * (2 * L) + torch.arange(Ld, device=dev), base_mask,
-                feature_fraction_bynode)
+            # one uid a leaf, not a level (JAX :933-936)
+            uids = d * (2 * L) + torch.arange(Ld, device=dev)
+            masks = node_feature_masks(key, uids, base_mask,
+                                       feature_fraction_bynode)
             res = find_best_split(
                 hist, leaf_sums[:Ld], meta, masks,
                 params, constraint=leaf_constr[:Ld] if use_mc else None,
                 depth=torch.full((Ld,), d, dtype=torch.int64, device=dev),
-                parent_output=leaf_out[:Ld])
+                parent_output=leaf_out[:Ld], key=key, uids=uids)
             gains = torch.where(leaf_active[:Ld], res.gain,
                                 torch.full_like(res.gain, NEG_INF))
             want = gains > 0

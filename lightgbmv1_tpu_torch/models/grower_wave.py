@@ -97,7 +97,15 @@ Per-node feature sampling (``feature_fraction_bynode < 1``, JAX
 child's is drawn for its uid, 2 node + 1 (left) and 2 node + 2 (right)
 (``grower.node_feature_masks``, the tree's ``key``); the persistent loop
 does not run it (the trainer refuses it, as the JAX grower keeps the
-loop off).
+loop off).  extra_trees (JAX :813-816) draws each scanned node's
+thresholds for the same uids under the tree's ``key``
+(``find_best_split(..., key=, uids=)``, the split-scan kernel's rand leg
+on the card); the fused family refuses it (the trainer).
+
+int16 bins (``max_bin > 255``) run the staged rounds: the partition
+reads them as any bins (``bins_of_rows``), the histograms come from the
+trainer's method (the one-hot product on the card), the scan is the
+split-scan kernel's wide leg and the valid routing K3's 16-bit leg.
 
 Categorical splits, CEGB and interaction constraints are not ported (the
 config refuses them), and the split scan and the root sums are the
@@ -519,7 +527,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                                                   bynode), params,
                                depth=torch.zeros(1, dtype=torch.int64,
                                                  device=dev),
-                               parent_output=out0[None])
+                               parent_output=out0[None], key=key, uids=[0])
         st = store.init(res0, out0)
         leaf_box = None
         if use_inter:
@@ -589,11 +597,12 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 b["cconstr"] = torch.stack([c_l, c_r], dim=1) \
                     .reshape(2 * n, 2)
             b["cdepth"] = (rd["pdepth"] + 1).repeat_interleave(2)
-            # each child's mask: its uid's draw (left 2 node + 1, right
-            # 2 node + 2), or the tree's
-            b["cmask"] = node_feature_masks(
-                key, torch.stack([2 * b["nodes"] + 1, 2 * b["nodes"] + 2],
-                                 dim=1).reshape(2 * n), base_mask, bynode)
+            # each child's uid (left 2 node + 1, right 2 node + 2): its
+            # mask's draw, or the tree's mask, and its extra_trees draw
+            b["cuids"] = torch.stack([2 * b["nodes"] + 1, 2 * b["nodes"] + 2],
+                                     dim=1).reshape(2 * n)
+            b["cmask"] = node_feature_masks(key, b["cuids"], base_mask,
+                                            bynode)
             b["S"] = slot_buckets[sum(n > s for s in slot_buckets[:-1])]
             return b
 
@@ -740,7 +749,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                                       params, hist_scale=scale,
                                       constraint=b["cconstr"],
                                       depth=b["cdepth"],
-                                      parent_output=b["couts"])
+                                      parent_output=b["couts"], key=key,
+                                      uids=b["cuids"])
             commit(b, res)
             if use_sub:
                 leaf_hist[b["cleafs"]] = hist

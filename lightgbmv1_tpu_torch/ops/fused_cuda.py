@@ -82,6 +82,8 @@ from .split import FeatureMeta, SplitParams, scan_residue
 
 launch_counts = {"fused_round": 0, "route_rows": 0, "fused_round_packed": 0,
                  "route_rows_packed": 0}
+# K3's 16-bit leg (int16 bins), apart from the byte legs above
+int16_launch_counts = {"route_rows": 0}
 # the launches of K2 by (nslots, precision, mode)
 bucket_launch_counts: dict = {}
 plain_counts = {"fused_round": 0, "route_rows": 0}
@@ -90,7 +92,7 @@ _count_lock = threading.Lock()
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        for d in (launch_counts, plain_counts):
+        for d in (launch_counts, plain_counts, int16_launch_counts):
             for k in d:
                 d[k] = 0
         bucket_launch_counts.clear()
@@ -243,11 +245,20 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
     splits of ``rmeta`` (P, RMETA_COLS) on the features ``feats`` (P,),
     in rounds: round q's splits are rows ``offsets[q]:offsets[q + 1]``
     (``offsets`` (R + 1,) i32, rising from 0 to P; None: one round, R =
-    1).  ``packed``: ``binned`` holds packed bytes."""
+    1).  ``packed``: ``binned`` holds packed bytes.  (F, N) int16 bins
+    (``max_bin > 255``) take the kernel's 16-bit leg
+    (``int16_launch_counts["route_rows"]``)."""
     if binned.device.type == "cpu":
         return route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed,
                               offsets)
-    _, N = _check_bins(binned)
+    wide = binned.dtype == torch.int16
+    if wide:
+        if packed or binned.dim() != 2 or not binned.is_contiguous():
+            raise ValueError("int16 bins must be a contiguous (F, N) tensor "
+                             "(never packed)")
+        N = binned.shape[1]
+    else:
+        _, N = _check_bins(binned)
     P = rmeta.shape[0]
     dev = binned.device
     _need(lids, "lids", torch.int32, (N,), dev)
@@ -270,10 +281,15 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
         err = _lib().lgbm_route_rows(
             binned.data_ptr(), lids.data_ptr(), feats.data_ptr(),
             rmeta.data_ptr(), 0 if offsets is None else offsets.data_ptr(),
-            out.data_ptr(), tab.data_ptr(), N, P, R, int(packed), stream)
+            out.data_ptr(), tab.data_ptr(), N, P, R,
+            2 if wide else int(packed), stream)
     _raise_on(err, "route_rows")
     with _count_lock:
-        launch_counts["route_rows_packed" if packed else "route_rows"] += 1
+        if wide:
+            int16_launch_counts["route_rows"] += 1
+        else:
+            launch_counts["route_rows_packed" if packed
+                          else "route_rows"] += 1
     return out
 
 

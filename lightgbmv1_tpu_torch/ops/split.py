@@ -28,6 +28,14 @@ JAX vmap over a frontier): constraints (C, 2), depths (C,) and parent
 outputs (C,) are per leaf.  The tie-breaking is kept exactly: it decides
 the tree.
 
+extra_trees (JAX :602-607, the numerical leg): each leaf draws one
+threshold a feature, ``uniform(fold_in(tree_key, uid + 1_000_003 +
+extra_seed), (F,))`` times ``max(num_bins - 1, 1)`` in f32, truncated
+(``extra_rand_bins``), and only that threshold is a candidate.
+``find_best_split`` takes the tree key and the leaves' uids for it; the
+split-scan kernel draws the same bits itself (``csrc/wave_round.cuh``
+``rand_bin``).
+
 ``find_best_split`` is the per-feature residue (``scan_residue``: the
 scan's stages up to ``scan_pick_feature``) and the cross-feature pick on
 it (``pick_pack``), the two halves the fused round splits the same way.
@@ -39,8 +47,7 @@ versions here.  The kernels read the feature meta's int32 tables, made
 once with the meta (``with_tables``).  The monotone penalty factor of a
 depth is one table made on the host (``monotone_penalty_factors``), so
 the kernel and the plain version multiply by the same bits.
-Categorical splits, CEGB and extra_trees are not ported (the config
-refuses them).
+Categorical splits and CEGB are not ported (the config refuses them).
 """
 
 from __future__ import annotations
@@ -52,6 +59,7 @@ import numpy as np
 import torch
 
 from ..io.binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
+from ..utils import prng
 
 NEG_INF = float("-inf")
 
@@ -94,6 +102,9 @@ class SplitParams(NamedTuple):
     path_smooth: float = 0.0
     # reference ComputeMonotoneSplitGainPenalty (monotone constraints only)
     monotone_penalty: float = 0.0
+    # reference USE_RAND: one random threshold a feature a node
+    extra_trees: bool = False
+    extra_seed: int = 0
 
 
 class SplitResult(NamedTuple):
@@ -263,6 +274,25 @@ def make_feature_meta(dataset, device, monotone_constraints=None,
         monotone_type=mono, contri=contri))
 
 
+class RandLeg(NamedTuple):
+    """extra_trees' inputs of a scan of C leaves: the tree key (two uint32
+    words, utils/prng.py), the leaves' uids (C,) int32 and extra_seed."""
+
+    key: tuple
+    uids: torch.Tensor
+    extra_seed: int
+
+
+def extra_rand_bins(rand: RandLeg, num_bins: torch.Tensor) -> torch.Tensor:
+    """(C, F) int32 random thresholds (JAX :605-606): row c is
+    ``uniform(fold_in(key, uids[c] + 1_000_003 + extra_seed), (F,))``
+    times ``max(num_bins - 1, 1)``, one f32 multiply, truncated."""
+    d = rand.uids.to(torch.int64) + 1_000_003 + int(rand.extra_seed)
+    u = prng.uniform_folded(rand.key, d, num_bins.shape[0])
+    m = (num_bins - 1).clamp(min=1).to(torch.float32)
+    return (u * m[None, :]).to(torch.int32)
+
+
 def scan_left_sums(hist: torch.Tensor, meta: FeatureMeta,
                    hist_scale=None) -> torch.Tensor:
     """(C, F, B, 3) histograms -> (C, 2, F, B, 3) left sums of both scan
@@ -314,7 +344,7 @@ def gain_shift(parent_sum: torch.Tensor, params: SplitParams,
 
 def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
                          feature_mask, params: SplitParams, constraint=None,
-                         pfac=None, parent_output=None):
+                         pfac=None, parent_output=None, rand_bin=None):
     """(C, 2, F, B) relative gains of every candidate (shift subtracted;
     ``-inf`` where a side misses min_data / min_hessian, the candidate
     does not exist or breaks its feature's monotone direction) and the
@@ -325,7 +355,9 @@ def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
     those outputs (JAX :533-634).  Then, on finite gains, the
     ``meta.contri`` multiply and the monotone depth penalty ``pfac`` (C,)
     (``monotone_penalty_factors`` of the children's depths; None: no
-    penalty) on monotone features."""
+    penalty) on monotone features.  ``rand_bin`` (C, F) (extra_trees,
+    ``extra_rand_bins``): the one threshold of each feature that stays a
+    candidate."""
     C, _, F, B, _ = left2.shape
     dev = left2.device
     use_mc = meta.monotone_type is not None
@@ -367,6 +399,8 @@ def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
         meta.missing_type == MISSING_ZERO)
     base_valid = ((t_idx <= meta.num_bins[:, None] - 2)[None]
                   & (feature_mask & meta.usable[None, :])[:, :, None])
+    if rand_bin is not None:
+        base_valid = base_valid & (t_idx[None] == rand_bin[:, :, None])
     valid2 = torch.stack(
         [base_valid, base_valid & has_miss_dir[None, :, None]], dim=1)
     gains2 = torch.where(valid2 & ok, gain, neg_inf)
@@ -430,7 +464,7 @@ def scan_pick(gains: torch.Tensor, shift: torch.Tensor, meta: FeatureMeta):
 
 def scan_residue(hist, mask, csums, *, meta: FeatureMeta,
                  params: SplitParams, hist_scale=None, constraint=None,
-                 pfac=None, parent_output=None):
+                 pfac=None, parent_output=None, rand=None):
     """The per-feature half of the scan -> the children's (C, F, 6)
     residue: the staged scan's own stages (``scan_left_sums`` ->
     ``scan_direction_gains`` -> ``scan_pick_feature``) on ``hist`` (C, F,
@@ -439,11 +473,14 @@ def scan_residue(hist, mask, csums, *, meta: FeatureMeta,
     best gain, the gain at its pick, the pick ``direction * B +
     threshold`` and the left sums there.  The plain version of the
     split-scan kernel (``ops/scan_cuda.py``) and of the scan stage of K2
-    and K6."""
+    and K6.  ``rand`` (a ``RandLeg``; None: off): extra_trees' thresholds
+    (``extra_rand_bins``)."""
     B = hist.shape[2]
     left2 = scan_left_sums(hist, meta, hist_scale)
+    rand_bin = None if rand is None else extra_rand_bins(rand, meta.num_bins)
     gains, shift = scan_direction_gains(left2, csums, meta, mask, params,
-                                        constraint, pfac, parent_output)
+                                        constraint, pfac, parent_output,
+                                        rand_bin)
     fbest, sel = scan_pick_feature(gains, shift, meta)
     gains_f = torch.cat([gains[:, 0], gains[:, 1]], dim=2)   # (C, F, 2B)
     gsel = torch.gather(gains_f, 2, sel[..., None])[..., 0]
@@ -523,10 +560,25 @@ def scan_inputs(meta: FeatureMeta, params: SplitParams, C, dev,
     return out
 
 
+def rand_leg(params: SplitParams, key, uids, C, dev) -> Optional[RandLeg]:
+    """extra_trees' ``RandLeg`` of a scan of C leaves whose uids are
+    ``uids`` (a (C,) tensor or a sequence) under the tree ``key``; None
+    without extra_trees or without a key (JAX: no ``rand_key``, no
+    draw)."""
+    if not params.extra_trees or key is None or uids is None:
+        return None
+    u = torch.as_tensor(uids, device=dev).to(torch.int32).reshape(-1)
+    if u.shape[0] != C:
+        raise ValueError(f"{u.shape[0]} uids for {C} leaves")
+    return RandLeg((int(key[0]), int(key[1])), u.contiguous(),
+                   int(params.extra_seed))
+
+
 def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
                     meta: FeatureMeta, feature_mask: torch.Tensor,
                     params: SplitParams, hist_scale=None, constraint=None,
-                    depth=None, parent_output=None) -> SplitResult:
+                    depth=None, parent_output=None, key=None,
+                    uids=None) -> SplitResult:
     """Best numerical split of each of C leaves: ``hist`` (C, F, B, 3),
     ``parent_sum`` (C, 3), ``feature_mask`` (C, F) bool; ``hist_scale``
     (C, 3): ``hist`` holds quantized integer sums, dequantized after the
@@ -534,8 +586,10 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
     output bounds (None: ``NO_CONSTRAINT``) and ``depth`` (C,) (the
     monotone penalty; None: 0) are read under monotone constraints,
     ``parent_output`` (C,) the leaves' current outputs (None: 0) under
-    path smoothing (JAX :437, vmapped).  On a CUDA tensor one launch of
-    the split-scan kernel computes the residue and the pick
+    path smoothing, the tree ``key`` and the leaves' ``uids`` (C,) under
+    extra_trees (JAX :437, vmapped, its ``rand_key`` ``fold_in(key, uid +
+    1_000_003 + extra_seed)``).  On a CUDA tensor one launch of the
+    split-scan kernel computes the residue and the pick
     (``scan_cuda.split_scan_pick``); on a CPU tensor its plain version,
     ``pick_pack`` on ``scan_residue``."""
     from . import scan_cuda
@@ -549,5 +603,5 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
         hist.contiguous(), feature_mask, parent_sum.contiguous(),
         meta=meta, params=params,
         hist_scale=None if hist_scale is None else hist_scale.contiguous(),
-        **legs)
+        rand=rand_leg(params, key, uids, C, hist.device), **legs)
     return unpack_children(packed, B)

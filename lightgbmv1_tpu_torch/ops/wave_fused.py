@@ -410,14 +410,16 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     return fused_loop
 
 
-def fused_ineligible_reason(*, bin_dtype, num_bins) -> str:
+def fused_ineligible_reason(*, bin_dtype, num_bins, params=None) -> str:
     """Static eligibility gate (JAX :1356): the reason the fused round
-    cannot run, or ``""``.  The port refuses categorical features, EFB
-    bundles and extra_trees before any round (config.py, io/dataset.py),
-    and packed bins run the kernels' packed legs, so what remains to
-    check is the bin type."""
+    cannot run, or ``""``, in the JAX order.  The port refuses
+    categorical features and EFB bundles before any round (config.py,
+    io/dataset.py), and packed bins run the kernels' packed legs, so what
+    remains to check is the bin type and extra_trees."""
     if torch.iinfo(bin_dtype).bits > 8:
         return "int16 bins exceed the uint8 one-hot kernel family"
     if num_bins > 256:
         return "num_bins > 256 exceeds the uint8 kernel family"
+    if params is not None and params.extra_trees:
+        return "extra_trees draws per-node randomness inside the scan"
     return ""

@@ -52,6 +52,17 @@ the boosting loop's and the growers' (models/gbdt.py, models/grower.py,
 models/grower_wave.py); the trainer hands the growers
 ``feature_fraction_bynode``.
 
+The histogram method (``resolve_hist_method``, JAX :353-393):
+``default_hist_method``'s static pick (K1 on the card, the one-hot
+product for int16 bins, the scatter oracle on the CPU), or under
+``hist_method=bench`` (and ``auto`` on the card past 256 byte-bin
+features) the fastest candidate timed on the training bins;
+``force_col_wise`` / ``force_row_wise`` map to scatter / onehot in the
+config and join an explicit bench's candidates.  int16 bins train on
+every grower (the one-hot product, the split-scan kernel's wide leg and
+K3's 16-bit leg); extra_trees reaches the growers' scans through
+``params`` and each scan's uids.
+
 What the JAX package routes elsewhere raises here, with its reason:
 ``hist_method=fused`` on the sequential or level-wise grower, the
 persistent loop under monotone constraints (JAX :669-672) or under
@@ -71,8 +82,9 @@ from ..models import grower_wave
 from ..models.grower import make_leafwise_grower, make_levelwise_grower
 from ..models.grower_wave import (auto_wave_size, make_wave_grower,
                                   quant_buckets_for, slot_buckets_for)
-from ..ops.histogram import (default_hist_method, hist_frontier,
-                             hist_one_leaf, hist_wave, hist_wave_quant)
+from ..ops.histogram import (benchmark_hist_methods, default_hist_method,
+                             hist_frontier, hist_one_leaf, hist_wave,
+                             hist_wave_quant)
 from ..ops.split import FeatureMeta, SplitParams
 from ..ops.wave_fused import (fused_ineligible_reason, make_fused_round,
                               make_fused_wave_loop)
@@ -102,7 +114,7 @@ def select_bin_layout(config: Config, *, num_total_bin: int,
     refused warns and stores u8."""
     if config.bin_layout == "u8":
         return "u8"
-    method = default_hist_method(config.hist_method, device)
+    method = default_hist_method(config.hist_method, device, bin_dtype)
     reason = ""
     if torch.iinfo(bin_dtype).bits > 8:
         reason = "int16-binned data exceeds the 4-bit nibble"
@@ -129,18 +141,53 @@ def select_bin_layout(config: Config, *, num_total_bin: int,
     return "packed4"
 
 
+def resolve_hist_method(config: Config, device: torch.device,
+                        bin_dtype=torch.uint8, binned=None,
+                        num_bins: int = 0, packed: bool = False,
+                        num_features: int = 0, times_out=None) -> str:
+    """The histogram method the passes run (JAX :353-393): the static
+    pick (``default_hist_method``), or the fastest of the candidates
+    timed on ``binned`` (``benchmark_hist_methods``) under
+    ``hist_method=bench`` and under ``auto`` on the card with byte bins
+    and more than 256 features, where the static choice is ambiguous.  A
+    forced strategy (``force_col_wise`` scatter, ``force_row_wise``
+    onehot) joins an explicit bench's candidates."""
+    method = default_hist_method(config.hist_method, device, bin_dtype)
+    wants_bench = config.hist_method == "bench" or (
+        config.hist_method == "auto"
+        and torch.device(device).type == "cuda"
+        and torch.iinfo(bin_dtype).bits == 8 and num_features > 256)
+    if not wants_bench:
+        return method
+    if binned is None:
+        raise ValueError("hist_method=bench times the methods on the "
+                         "training bins: build_trainer needs them")
+    forced = ("scatter" if config.force_col_wise
+              else "onehot" if config.force_row_wise else None)
+    return benchmark_hist_methods(
+        binned, num_bins, config.hist_dtype, packed, num_features,
+        must_include=forced if config.hist_method == "bench" else None,
+        times_out=times_out)
+
+
 def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                   num_bins: int, device: torch.device,
                   bin_dtype: torch.dtype = torch.uint8,
-                  num_data: int = 0, packed: bool = False) -> Callable:
+                  num_data: int = 0, packed: bool = False,
+                  binned=None) -> Callable:
     """The serial learner's ``grow(binned, g3, base_mask, ...)`` for the
     configured growth over ``num_data`` rows of ``bin_dtype`` bins: the
     wave grower's ``grow(..., valids)`` routes the valid sets too
     (``grow.routes_valids``), the others' return no valid leaf ids.
     ``packed``: the bins are the 4-bit packed bytes of the F =
-    ``meta.num_bins.shape[0]`` features (JAX :497-507)."""
-    method = default_hist_method(config.hist_method, device)
+    ``meta.num_bins.shape[0]`` features (JAX :497-507).  ``binned``: the
+    training bins on ``device``, which ``hist_method=bench`` times the
+    methods on (``resolve_hist_method``; the pick and the candidates'
+    times are ``grow.hist_method`` and ``grow.bench_times``)."""
     F = meta.num_bins.shape[0]
+    bench_times: dict = {}
+    method = resolve_hist_method(config, device, bin_dtype, binned,
+                                 num_bins, packed, F, bench_times)
     bins = dict(packed=packed, num_features=F)
     precision = config.hist_dtype
     deep_precision = resolve_deep_dtype(config.hist_dtype_deep, precision,
@@ -198,7 +245,7 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     fused_fn = fused_loop = None
     if config.hist_method == "fused":
         reason = fused_ineligible_reason(bin_dtype=bin_dtype,
-                                         num_bins=num_bins)
+                                         num_bins=num_bins, params=params)
         if not reason and not use_wave:
             reason = ("the fused kernel is a wave-round kernel; this config "
                       "routes to the " + ("level-wise" if levelwise
@@ -250,22 +297,25 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                                  method=method, precision=precision,
                                  live_slots=live_slots, rows8=rows8, **bins)
 
-        return make_levelwise_grower(hist_frontier_fn=local_frontier,
+        grow = make_levelwise_grower(hist_frontier_fn=local_frontier,
                                      packed=packed, **common)
-    if not use_wave:
+    elif not use_wave:
         def local_hist(binned, g3, leaf_id, target):
             return hist_one_leaf(binned, g3, leaf_id, target, num_bins,
                                  method=method, precision=precision, **bins)
 
-        return make_leafwise_grower(
+        grow = make_leafwise_grower(
             hist_fn=local_hist,
             partition=config.tree_growth != "leafwise_masked",
             hist_pool_mb=config.histogram_pool_size, packed=packed,
             **common)
-    return make_wave_grower(wave_size=wave_size, hist_wave_fn=local_wave,
-                            fused_round_fn=fused_fn,
-                            fused_loop_fn=fused_loop,
-                            hist_wave_quant_fn=(local_wave_quant if use_int8sr
-                                                else None),
-                            packed=packed, monotone_mode=mono_mode, **common)
+    else:
+        grow = make_wave_grower(
+            wave_size=wave_size, hist_wave_fn=local_wave,
+            fused_round_fn=fused_fn, fused_loop_fn=fused_loop,
+            hist_wave_quant_fn=local_wave_quant if use_int8sr else None,
+            packed=packed, monotone_mode=mono_mode, **common)
+    grow.hist_method = method
+    grow.bench_times = bench_times
+    return grow
 

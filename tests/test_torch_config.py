@@ -99,7 +99,10 @@ def test_every_jax_knob_and_alias_is_known():
             "max_delta_step", "path_smooth", "monotone_constraints",
             "monotone_constraints_method", "monotone_penalty",
             "feature_contri", "bagging_freq", "feature_fraction",
-            "bagging_seed", "feature_fraction_seed", "hist_dtype_deep"}
+            "bagging_seed", "feature_fraction_seed", "hist_dtype_deep",
+            "extra_trees", "extra_seed", "early_stopping_round",
+            "first_metric_only", "hist_method", "force_col_wise",
+            "force_row_wise"}
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",

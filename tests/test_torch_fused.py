@@ -542,15 +542,19 @@ def test_library_name_follows_included_headers(tmp_path, monkeypatch):
         (tmp_path / p.name).write_bytes(p.read_bytes())
     monkeypatch.setattr(_build, "CSRC", tmp_path)
     names = ("hist", "wave_fused", "wave_loop", "predict_walk", "quantize")
+    # wave_round.cuh includes prng.cuh (the split scan's extra_trees draw)
     assert [p.name for p in _build.sources("wave_fused")] == [
-        "wave_fused.cu", "wave_round.cuh", "hist_tile.cuh"]
+        "wave_fused.cu", "wave_round.cuh", "hist_tile.cuh", "prng.cuh"]
     assert [p.name for p in _build.sources("wave_loop")] == [
         "wave_loop.cu", "prng.cuh", "wave_round.cuh", "hist_tile.cuh"]
+    assert [p.name for p in _build.sources("split_scan_wide")] == [
+        "split_scan_wide.cu", "split_scan.cu", "wave_round.cuh",
+        "hist_tile.cuh", "prng.cuh"]
     assert [p.name for p in _build.sources("quantize")] == [
         "quantize.cu", "prng.cuh"]
     for hdr, moved in (("hist_tile.cuh", {"hist", "wave_fused", "wave_loop"}),
                        ("wave_round.cuh", {"wave_fused", "wave_loop"}),
-                       ("prng.cuh", {"quantize", "wave_loop"})):
+                       ("prng.cuh", {"quantize", "wave_loop", "wave_fused"})):
         before = {n: _build.lib_path(n) for n in names}
         path = tmp_path / hdr
         path.write_bytes(path.read_bytes() + b"\n// edited\n")
@@ -673,10 +677,12 @@ def test_fused_training_matches_jax_predictions(jax_fused_run):
     ({"hist_method": "fused", "wave_loop_rounds": 2, "num_leaves": 33,
       "leafwise_wave_size": 32},
      "deep-precision drop would change the accumulate dtype mid-loop"),
-    ({"hist_method": "onehot"},
-     "ROADMAP queue 1, histogram methods onehot and bench"),
-    ({"hist_method": "bench"},
-     "ROADMAP queue 1, histogram methods onehot and bench")])
+    # the fused family's JAX gate (wave_fused.py:1366-1374): no per-node
+    # thresholds, no int16 bins
+    ({"hist_method": "fused", "extra_trees": True},
+     "extra_trees draws per-node randomness inside the scan"),
+    ({"hist_method": "fused", "max_bin": 300, "min_data_in_bin": 1},
+     "int16 bins exceed the uint8 one-hot kernel family")])
 def test_unported_fused_configurations_raise(low_buckets, params, match):
     X, y = _data(24, 512)
     with pytest.raises(NotImplementedError, match=match):

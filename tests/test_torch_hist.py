@@ -159,21 +159,27 @@ def test_hist_wave_slices_the_dead_slot(method):
 
 
 def test_default_hist_method_resolution():
-    """auto is the CUDA kernel K1 (method pallas) for a CUDA device and
-    the scatter oracle for the CPU; explicit methods stay; fused is its
-    base method pallas (its root pass); the unported ones raise."""
+    """auto is the CUDA kernel K1 (method pallas) for a CUDA device, the
+    one-hot product there for int16 bins, and the scatter oracle for the
+    CPU; bench's static pick is auto's (the bench itself times the
+    candidates); explicit methods stay; fused is its base method pallas
+    (its root pass), onehot on int16 bins; an unknown method raises."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert default_hist_method("auto", cuda) == "pallas"
     assert default_hist_method("auto", "cuda:0") == "pallas"
     assert default_hist_method("auto", cpu) == "scatter"
-    for m in ("scatter", "pallas"):
+    assert default_hist_method("auto", cuda, torch.int16) == "onehot"
+    assert default_hist_method("auto", cpu, torch.int16) == "scatter"
+    for m in ("scatter", "pallas", "onehot"):
         assert default_hist_method(m, cuda) == m
         assert default_hist_method(m, cpu) == m
     for dev in (cuda, cpu):
         assert default_hist_method("fused", dev) == "pallas"
-    for m in ("onehot", "bench"):
-        with pytest.raises(NotImplementedError, match="onehot and bench"):
-            default_hist_method(m, cuda)
+        assert default_hist_method("fused", dev, torch.int16) == "onehot"
+        assert default_hist_method("bench", dev) == \
+            default_hist_method("auto", dev)
+    with pytest.raises(ValueError):
+        default_hist_method("nope", cuda)
     assert Config().hist_method == "auto"
 
 

@@ -52,6 +52,36 @@ def test_runtime_never_imports_jax():
     assert "isolated" in res.stdout
 
 
+def test_callbacks_and_cv_never_import_jax():
+    """The port's callbacks (its own copy of callback.py), early stopping
+    and cv run without JAX or the JAX package in the process."""
+    code = (
+        "import sys, numpy as np\n"
+        "from lightgbmv1_tpu_torch import Dataset, callback, cv, train\n"
+        "rng = np.random.RandomState(0)\n"
+        "X = rng.randn(600, 4); y = (X[:, 0] + rng.randn(600) > 0) * 1.0\n"
+        "p = {'objective': 'binary', 'num_leaves': 4, 'verbosity': -1,\n"
+        "     'learning_rate': 0.5}\n"
+        "ev = {}\n"
+        "b = train(p, Dataset(X[:400], label=y[:400]), 30,\n"
+        "          valid_sets=[Dataset(X[400:], label=y[400:])],\n"
+        "          early_stopping_rounds=2, device='cpu',\n"
+        "          callbacks=[callback.record_evaluation(ev),\n"
+        "                     callback.reset_parameter(\n"
+        "                         learning_rate=lambda i: 0.5 * 0.9 ** i)])\n"
+        "assert b.best_iteration > 0 and ev['valid_0']\n"
+        "r = cv(p, Dataset(X, label=y), 3, nfold=2, device='cpu')\n"
+        "assert len(r['binary_logloss-mean']) == 3\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'lightgbmv1_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
 def test_sources_import_neither_jax_nor_the_jax_package():
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(PKG):

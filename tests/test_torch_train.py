@@ -392,11 +392,6 @@ def test_golden_zero_as_missing_training_parity():
 _UNPORTED_CASES = [
     ({"objective": "huber"}, tconfig.BREADTH),
     ({"objective": "rank_xendcg"}, tconfig.BREADTH),
-    ({"max_bin": 300, "min_data_in_bin": 1}, tconfig.HIST_METHODS),
-    ({"extra_trees": True}, tconfig.SAMPLING),
-    ({"early_stopping_round": 2}, tconfig.CALLBACKS),
-    ({"hist_method": "onehot"}, tconfig.HIST_METHODS),
-    ({"hist_method": "bench"}, tconfig.HIST_METHODS),
     ({"objective": "poisson"}, tconfig.BREADTH),
     ({"boosting": "dart"}, tconfig.BREADTH),
     ({"boosting": "goss"}, tconfig.BREADTH),
@@ -415,8 +410,7 @@ _UNPORTED_CASES = [
 def test_unported_configurations_raise(params, item):
     """Each refusal names its ROADMAP queue 1 item by its title: the
     objectives the slice does not port and their knobs the breadth item,
-    int16 bins (max_bin > 255) the histogram methods item, which ports the
-    onehot path the JAX package trains them through."""
+    the learners their parallel item."""
     X, y = _data(13, 512)
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP queue 1, {item}") + "$"):
@@ -458,14 +452,48 @@ def test_ported_sampling_and_int8_configurations(params):
     assert b.model_to_string() != plain.model_to_string()
 
 
+# the cases of the list above that the callbacks, extra_trees, histogram
+# methods and int16 slice ports: they train now, through the path the JAX
+# package trains them on
+_NOW_TRAINS = [
+    {"max_bin": 300, "min_data_in_bin": 1},
+    {"extra_trees": True},
+    {"early_stopping_round": 2},
+    {"hist_method": "onehot"},
+    {"hist_method": "bench"}]
+
+
+@pytest.mark.parametrize("params", _NOW_TRAINS, ids=[
+    "int16 bins", "extra_trees", "early stopping", "onehot", "bench"])
+def test_ported_hist_method_and_callback_configurations(params):
+    """int16 bins (max_bin > 255), extra_trees, early stopping through
+    params (without a valid set it stops nothing, as in the JAX
+    package), hist_method onehot and bench train on the CPU; the model
+    differs from the default one where the knob reaches the trees."""
+    X, y = _data(13, 512)
+    b = lt.train({**BASE, "num_leaves": 15, **params},
+                 lt.Dataset(X, label=y), 2, device="cpu")
+    assert np.isfinite(b.predict(X)).all() and b.num_trees() == 2
+    plain = lt.train({**BASE, "num_leaves": 15}, lt.Dataset(X, label=y), 2,
+                     device="cpu")
+    if "max_bin" in params or "extra_trees" in params:
+        assert b.model_to_string() != plain.model_to_string()
+    if "max_bin" in params:
+        assert b._gbdt.binned.dtype == torch.int16
+
+
 def test_unported_entry_points_raise():
     X, y = _data(14, 512)
+    # ported since: early stopping and callbacks run
+    assert lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
+                    early_stopping_rounds=3).num_trees() == 2
+    seen = []
+    lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
+             callbacks=[lambda env: seen.append(env.iteration)])
+    assert seen == [0, 1]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
-                 early_stopping_rounds=3)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
-                 callbacks=[lambda env: None])
+                 fobj=lambda p, d: (p, p))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.Dataset(X, label=y, categorical_feature=[0])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
