@@ -424,6 +424,30 @@ Phases (any failure exits non-zero with no ``ok`` line):
               K3's 16-bit leg: AUC > 0.90, K3 launches = trees x valid
               sets, hist_method=fused raising the JAX reason, f32 card
               against CPU splits identical at 65,536 rows.
+42. boosting — GOSS (defaults), DART (drop_rate 0.1) and RF (bagging
+              0.63 every iteration) at the headline, 30 iterations each
+              (bench.py:2783-2821's knobs), staged and fused, GOSS also
+              looped (all three at hist_dtype_deep=bf16x2): each mode's
+              staged, fused (and looped) model texts one, a second staged
+              DART training the same text; K1, K2, K3 and K6 launched on
+              their paths; RF's text carrying ``average_output`` and its
+              predictions through K4 within the serving tolerance over the
+              iterations of the host walk's; DART's training scores a
+              fresh K4 sum of its saved trees (plus the cache's f32
+              roundings); valid AUC above 0.88 (GOSS, DART), 0.85 (RF);
+              s/iteration beside phase 10's.
+43. objectives — phase 8's rows and bins with the labels swapped by
+              ``Dataset.set_label`` (phase 22's regression target; the
+              exp of its half; its sigmoid) for L1, huber, fair,
+              quantile, mape, poisson, gamma, tweedie and the two
+              cross-entropies, and
+              phase 25's rank data for rank_xendcg: 15 staged iterations
+              each at the headline width, the valid metric printed
+              beside the JAX package's on the same generator
+              (``objective_levels.py``), every saved model served
+              through K4 within the serving tolerance; f32 card against
+              CPU splits identical at 65,536 rows (40,000 ranked rows)
+              for regression_l1 (leaf renewal), poisson and rank_xendcg.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
               kernels, the split-scan kernel, the pick kernel, the
               split scan's extra_trees and wide legs, K3's 16-bit leg,
@@ -460,7 +484,7 @@ from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
                                              MISSING_ZERO)
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
-from lightgbmv1_tpu_torch.models import grower_wave
+from lightgbmv1_tpu_torch.models import gbdt as gbdt_mod, grower_wave
 from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import (HostTree, empty_tree,
                                               tree_leaf_index_binned)
@@ -1515,6 +1539,13 @@ TEXT_SHA = {
     **{f"sampled bag+tree {p}": "bba170e4" for p in ("fused", "looped")},
     "extra_trees staged": "63a2d740", "callbacks staged": "e3d3bfd1",
     "onehot staged": "9016f2fc", "int16 staged": "7bef7e87",
+    **{f"goss {p}": "0a206962" for p in ("staged", "fused", "looped")},
+    **{f"dart {p}": "6599e374" for p in ("staged", "fused")},
+    **{f"rf {p}": "bb38f107" for p in ("staged", "fused")},
+    "regression_l1": "d32a0fd3", "huber": "d32c0780", "fair": "1ecd415e",
+    "quantile": "f783914f", "mape": "48f80f3d", "poisson": "2cc91b29",
+    "gamma": "617c5fde", "tweedie": "7f993b1b", "cross_entropy": "a49356e5",
+    "cross_entropy_lambda": "34ddfe6e", "rank_xendcg": "75d12e91",
 }
 GATE_TEXT_SHA = False       # main() sets it at its default arguments
 
@@ -6217,6 +6248,268 @@ def new_leg_rows(legs: dict, extra: dict, int16: dict) -> list:
     return [rand_row, wide_row, k3_row]
 
 
+# ---------------------------------------------------------------------------
+# GOSS, DART and RF (phase 42); the other objectives (phase 43)
+# ---------------------------------------------------------------------------
+
+BOOST_ITERS = 30
+# bench.py:2783-2821's knobs on the headline configuration; every run at
+# hist_dtype_deep=bf16x2, the looped path's precision (LOOP_PARAMS)
+BOOST_MODES = (
+    ("goss", {"boosting": "goss"}, ("staged", "fused", "looped"), 0.88),
+    ("dart", {"boosting": "dart", "drop_rate": 0.1}, ("staged", "fused"),
+     0.88),
+    ("rf", {"boosting": "rf", "bagging_fraction": 0.63, "bagging_freq": 1},
+     ("staged", "fused"), 0.85))
+BOOST_PATH = {"staged": dict(TRAIN_PARAMS, hist_dtype_deep="bf16x2"),
+              "fused": dict(FUSED_PARAMS, hist_dtype_deep="bf16x2"),
+              "looped": LOOP_PARAMS}
+OBJ_ITERS = 15
+OBJ_PARAMS = {k: v for k, v in TRAIN_PARAMS.items() if k != "metric"}
+BREADTH_OBJECTIVES = ("regression_l1", "huber", "fair", "quantile", "mape",
+                      "poisson", "gamma", "tweedie", "cross_entropy",
+                      "cross_entropy_lambda", "rank_xendcg")
+# objective_levels.py: the JAX package on the CPU (its default histogram
+# method, the f32 scatter), the same generators, rows, iterations and
+# knobs as phase 43: each objective's default valid metric, a quality
+# figure beside the card's, not a gate.  Its poisson training diverges:
+# at 1,048,576 rows the f32 scatter's bin sums carry errors of hundreds,
+# so a 128-row leaf's hessian sum by parent subtraction reads 1.41 for
+# about 425, the leaf 23.7 after shrinkage, and the next tree finds no
+# split (the port's CPU scatter reads 2.11 there, a leaf of 5.55)
+JAX_OBJECTIVE_METRIC = {
+    "regression_l1": 0.9771486916595067, "huber": 0.7175920995546876,
+    "fair": 0.34876330616214296, "quantile": 0.2170630403401027,
+    "mape": 0.5824348782342417, "poisson": 2343649.7165084817,
+    "gamma": 1.1848539160930094, "tweedie": 4.768119765456176,
+    "cross_entropy": 0.5685625031635606,
+    "cross_entropy_lambda": 0.6820183334481955,
+    "rank_xendcg": 0.566487698452287}
+
+
+def objective_label(objective, target):
+    """Phase 43's label of ``objective`` from the regression target: the
+    target, the exp of its half (poisson, gamma, tweedie: the exp of the
+    whole target, a log-normal of sigma about 2, gives gamma's first tree
+    leaves of -43 in both packages, which then stop after 2 iterations
+    with no split left), or its sigmoid (the two cross-entropies)."""
+    if objective in ("poisson", "gamma", "tweedie"):
+        return np.exp(0.5 * target)
+    if objective in ("cross_entropy", "cross_entropy_lambda"):
+        return 1.0 / (1.0 + np.exp(-target))
+    return target
+
+
+def boost_counts() -> dict:
+    return {"k1": hc.launch_counts["hist_leaves"],
+            "k2": fc.launch_counts["fused_round"],
+            "k3": fc.launch_counts["route_rows"],
+            "k6": lc.launch_counts["fused_wave_loop"],
+            "split_scan": sc.launch_counts["split_scan"]}
+
+
+@contextlib.contextmanager
+def recorded_drops():
+    """Each DART iteration's drop list (``DART._select_drops``)."""
+    lists, orig = [], gbdt_mod.DART._select_drops
+
+    def spy(self):
+        lists.append(orig(self))
+        return lists[-1]
+
+    gbdt_mod.DART._select_drops = spy
+    try:
+        yield lists
+    finally:
+        gbdt_mod.DART._select_drops = orig
+
+
+def cache_tol(trees, scores, iters) -> float:
+    """The serving tolerance plus four f32 roundings of the largest score
+    an iteration: a DART cache removes, restores and adds each
+    iteration where a K4 walk sums each tree once."""
+    return raw_tol(trees) + 4 * iters * 2.0 ** -24 * max(
+        1.0, float(np.abs(scores).max()))
+
+
+def phase_boosting(ds, dv, Xv, X, iters, dev, staged10) -> dict:
+    """Phase 42: GOSS, DART and RF at the headline (launch counts reset
+    before each training and read after it)."""
+    out = {}
+    for mode, knobs, paths, auc_min in BOOST_MODES:
+        texts, res = {}, {}
+        for path in paths:
+            params = dict(BOOST_PATH[path], **knobs)
+            reset_counts()
+            ev = {}
+            t0 = time.perf_counter()
+            bst = train(params, ds, iters, valid_sets=[dv], evals_result=ev,
+                        **_on(dev))
+            _sync(dev)
+            secs = time.perf_counter() - t0
+            counts = boost_counts()
+            plain = plain_calls()
+            trees = bst.num_trees()
+            auc = ev["valid_0"]["auc"][-1]
+            texts[path] = bst.model_to_string()
+            res[path] = {"s_per_iter": secs / iters, "valid_auc": auc,
+                         "launches": counts,
+                         **text_hash(texts[path], f"{mode} {path}")}
+            log(f"  {mode} {path}: {iters} iterations, "
+                f"{secs / iters:.4f} s/iter (phase 10 staged "
+                f"{staged10['s_per_iter']:.4f}); valid AUC {auc:.5f} "
+                f"(phase 10 {staged10['valid_auc']:.5f}); launches "
+                f"{json.dumps(counts)}")
+            check(trees == iters, f"{mode} {path}: {trees} trees")
+            check(not any(plain.values()), f"{mode} {path}: a plain version "
+                  f"ran on the path: {plain}")
+            check(auc > auc_min, f"{mode} {path}: valid AUC {auc} <= "
+                  f"{auc_min}")
+            check(counts["k3"] == k3_expected(bst, 1), f"{mode} {path}: K3 "
+                  f"launched {counts['k3']} times")
+            check(counts["k1"] > 0 and counts["split_scan"] > 0,
+                  f"{mode} {path}: K1 or the split scan never launched")
+            if path == "fused":
+                check(counts["k2"] > 0, f"{mode} fused: no K2 launch")
+            if path == "looped":
+                check(counts["k6"] > 0 and counts["k2"] == 0,
+                      f"{mode} looped: K6 {counts['k6']}, K2 {counts['k2']}")
+            if path == "staged":
+                check(counts["k2"] == counts["k6"] == 0,
+                      f"{mode} staged: a fused kernel launched")
+                staged_bst = bst
+        for path in paths[1:]:
+            check(texts[path] == texts["staged"], f"{mode}: the {path} model "
+                  "text differs from the staged one")
+        log(f"  {mode}: the {' / '.join(paths)} model texts are one, byte "
+            "for byte")
+        if mode == "dart":
+            with recorded_drops() as drop_lists:
+                again = train(dict(BOOST_PATH["staged"], **knobs), ds, iters,
+                              **_on(dev))
+            check(again.model_to_string() == texts["staged"], "dart: a "
+                  "second staged training wrote another model text")
+            res["repeat_same_text"] = True
+            res["dropped_trees"] = sum(len(d) for d in drop_lists)
+            res["iterations_with_drops"] = sum(1 for d in drop_lists if d)
+            log(f"  dart: {res['dropped_trees']} trees dropped in "
+                f"{res['iterations_with_drops']} of {iters} iterations (the "
+                "second staged training)")
+            rows = min(len(X), VALID_ROWS)
+            res["train_scores_vs_k4"] = served_vs_cache(
+                texts["staged"], X[:rows],
+                staged_bst._gbdt.raw_train_scores()[:rows, 0], iters, dev,
+                f"the training scores of {rows} rows")
+            res["served_max_abs_err"] = served_vs_cache(
+                texts["staged"], Xv,
+                staged_bst._gbdt.raw_valid_scores(0)[:, 0], iters, dev,
+                "the valid scores")
+        elif mode == "rf":
+            check("average_output" in texts["staged"].splitlines(),
+                  "rf: the model text lacks average_output")
+            card = Booster(model_str=texts["staged"], **_on(dev))
+            cpu = Booster(model_str=texts["staged"], device="cpu")
+            raw = card.predict(Xv, predict_method="fused", raw_score=True)
+            tol = raw_tol(card._all_trees()) / iters
+            e = float(np.abs(raw - cpu.predict(Xv, raw_score=True)).max())
+            log(f"  rf: served through K4 against the CPU host walk, "
+                f"averaged over {iters} iterations: {e:.3e} (tol {tol:.3e})")
+            check(e <= tol, f"rf: K4 against the host walk {e}")
+            check(pc.launch_counts["serving_fused"] > 0, "rf: K4 never "
+                  "launched")
+            res["served_vs_host"] = e
+        else:
+            res["served_max_abs_err"] = serve_trained(
+                staged_bst, Xv, dev, f"{mode}_model.txt")
+        out[mode] = res
+        del staged_bst
+    return out
+
+
+def served_vs_cache(text, X, want, iters, dev, what) -> float:
+    """A saved DART model through K4 against a score cache of the same
+    rows, within ``cache_tol``."""
+    served = Booster(model_str=text, **_on(dev))
+    raw = served.predict(X, predict_method="fused", raw_score=True)
+    tol = cache_tol(served._all_trees(), want, iters)
+    e = float(np.abs(raw - want).max())
+    log(f"  dart: {what} against a fresh K4 sum of the saved trees: "
+        f"{e:.3e} (tol {tol:.3e})")
+    check(e <= tol, f"dart: {what} {e} from the saved trees")
+    return e
+
+
+def phase_objectives(ds, dv, X, Xv, iters, dev, seed, rank) -> dict:
+    """Phase 43: each objective the breadth slice ports at the headline
+    width, 15 staged iterations on phase 8's rows and bins, the labels
+    swapped in with ``Dataset.set_label`` (no binning); rank_xendcg on
+    phase 25's rank data, ``rank``: its binned sets, valid rows and the
+    parity rows with their labels and query sizes.  Launch counts reset
+    before each training."""
+    y_tr, y_va = ds.get_label(), dv.get_label()
+    target = regression_target(X, seed + 2)
+    vtarget = regression_target(Xv, seed + 3)
+    out = {}
+    try:
+        for objective in BREADTH_OBJECTIVES:
+            if objective == "rank_xendcg":
+                continue
+            ds.set_label(objective_label(objective, target))
+            dv.set_label(objective_label(objective, vtarget))
+            out[objective] = objective_run(
+                objective, dict(OBJ_PARAMS, objective=objective), ds, dv, Xv,
+                iters, dev)
+    finally:
+        ds.set_label(y_tr)
+        dv.set_label(y_va)
+    dr, drv, Xrv, Xr, yr, gr = rank
+    out["rank_xendcg"] = objective_run(
+        "rank_xendcg", dict(RANK_PARAMS, objective="rank_xendcg"), dr, drv,
+        Xrv, iters, dev)
+    parity = {}
+    for objective in ("regression_l1", "poisson"):
+        parity[objective] = card_vs_cpu(
+            objective, dict(PARITY_PARAMS, objective=objective),
+            X[:PARITY_ROWS], objective_label(objective,
+                                             target[:PARITY_ROWS]), dev)
+    parity["rank_xendcg"] = card_vs_cpu(
+        "rank_xendcg", dict(PARITY_PARAMS, objective="rank_xendcg"), Xr, yr,
+        dev, group=gr)
+    out["parity"] = parity
+    return out
+
+
+def objective_run(objective, params, ds, dv, Xv, iters, dev) -> dict:
+    reset_counts()
+    ev = {}
+    t0 = time.perf_counter()
+    bst = train(params, ds, iters, valid_sets=[dv], evals_result=ev,
+                **_on(dev))
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    counts, plain = boost_counts(), plain_calls()
+    (metric, values), = ev["valid_0"].items()
+    jax = JAX_OBJECTIVE_METRIC.get(objective)
+    log(f"  {objective}: {iters} iterations of {ds.num_data()} rows, "
+        f"{secs / iters:.4f} s/iter; valid {metric} {values[-1]:.6g} (the "
+        f"JAX package's on the CPU: {jax}); launches {json.dumps(counts)}")
+    check(bst.num_trees() == iters, f"{objective}: {bst.num_trees()} trees")
+    check(not any(plain.values()), f"{objective}: a plain version ran on "
+          f"the path: {plain}")
+    check(counts["k1"] > 0 and counts["split_scan"] > 0,
+          f"{objective}: K1 or the split scan never launched")
+    check(counts["k3"] == k3_expected(bst, 1), f"{objective}: K3 launched "
+          f"{counts['k3']} times")
+    check(all(np.isfinite(v) for v in values), f"{objective}: a non-finite "
+          f"{metric}")
+    res = {"s_per_iter": secs / iters, metric: values[-1], "jax": jax,
+           "launches": counts,
+           **text_hash(bst.model_to_string(), objective)}
+    res["served_max_abs_err"] = serve_trained(bst, Xv, dev,
+                                              f"{objective}_model.txt")
+    return res
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6471,7 +6764,7 @@ def main(argv=None) -> int:
     rk["parity"] = card_vs_cpu("lambdarank", RANK_PARAMS, Xr[:40000],
                                yr[:40000], dev, group=gr[:400])
     paths["lambdarank"] = rk
-    del rec, booster_rk, dr, drv
+    del rec, booster_rk
     k1_row["paths"] = path_k1
 
     log("== phase 26: packed bins: K1, K2, K3 and K6 against their u8 legs "
@@ -6623,11 +6916,26 @@ def main(argv=None) -> int:
     X, y = make_data(args.train_rows, args.seed)
     newer = phase_onehot_bench_int16(ds, dv, Xv, X, y, dev, args.seed,
                                      trained["s_per_iter"])
-    del X, y
     new_rows = new_leg_rows(legs38, extra, newer["int16"])
     k1_row["onehot"] = {
         "note": "a torch.matmul path (the JAX package's XLA one-hot "
         "product), not a kernel", **newer["onehot"]}
+
+    log("== phase 42: GOSS, DART and RF (main path; launch counts reset)")
+    t0 = time.perf_counter()
+    boosting = phase_boosting(ds, dv, Xv, X, BOOST_ITERS, dev, trained)
+    boosting["seconds"] = time.perf_counter() - t0
+    log(f"  phase 42: {boosting['seconds']:.1f} s")
+
+    log("== phase 43: the other objectives (main path; launch counts "
+        "reset)")
+    t0 = time.perf_counter()
+    objectives = phase_objectives(ds, dv, X, Xv, OBJ_ITERS, dev, args.seed,
+                                  (dr, drv, Xrv, Xr[:40000], yr[:40000],
+                                   gr[:400]))
+    objectives["seconds"] = time.perf_counter() - t0
+    log(f"  phase 43: {objectives['seconds']:.1f} s")
+    del X, y, dr, drv
 
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
@@ -6650,6 +6958,8 @@ def main(argv=None) -> int:
                     "extra_trees_train": extra, "callbacks_train": callbacks,
                     "onehot_train": newer["onehot"], "bench": newer["bench"],
                     "int16_train": newer["int16"],
+                    "boosting_train": boosting,
+                    "objectives_train": objectives,
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]

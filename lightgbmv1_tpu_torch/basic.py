@@ -2,30 +2,40 @@
 
 Port of lightgbmv1_tpu/basic.py for the ported paths:
 
-* ``Dataset`` (:107, ``construct`` :250, ``set_group`` :346): lazy
-  binning of a dense numeric matrix with its query groups, a valid set
-  sharing its reference's bins and taking its own groups;
+* ``Dataset`` (:107, ``construct`` :250): lazy binning of a dense
+  numeric matrix with its query groups, a valid set sharing its
+  reference's bins (``create_valid`` :326) and taking its own groups;
+  the setters ``set_label`` / ``set_weight`` / ``set_group`` /
+  ``set_init_score`` / ``set_field`` (:333-365), which reach a
+  constructed set's metadata without binning it again;
 * ``Dataset.subset`` (:396), ``get_label`` / ``get_field`` and their
   kin, which ``engine.cv`` reads;
-* ``Booster(params, train_set=...)`` (:430) over the GBDT core
-  (models/gbdt.py) with ``update`` (:541), ``reset_parameter`` (:611, a
-  new knob reaching the next tree), ``eval_train`` / ``eval_valid``
-  with ``feval`` (:618-640), ``model_to_string`` (:947, through
-  io/model_text.model_to_string) and ``save_model`` (:1001);
-  ``best_iteration`` (set by early stopping) is what ``predict``,
-  ``model_to_string`` and ``save_model`` default to (:704, :952);
+* ``Booster(params, train_set=...)`` (:430) over the trainer of
+  ``models/gbdt.create_boosting`` (GBDT, GOSS, DART, RF) with ``update``
+  (:541), ``reset_parameter`` (:611, a new knob reaching the next tree),
+  ``eval_train`` / ``eval_valid`` with ``feval`` (:618-640),
+  ``model_to_string`` (:947, through io/model_text.model_to_string),
+  ``save_model`` (:1001), ``dump_model`` (:1115), ``feature_importance``
+  (:1137) and ``feature_name`` (:606); ``best_iteration`` (set by early
+  stopping) is what ``predict``, ``model_to_string`` and ``save_model``
+  default to (:704, :952);
 * the serving half (``predict`` :655-800) for a loaded model and for a
   trained one: raw and converted scores, ``pred_leaf``,
-  ``start_iteration`` / ``num_iteration`` slicing and ``average_output``.
+  ``start_iteration`` / ``num_iteration`` slicing and ``average_output``
+  (a loaded RF model's, or a trained RF's: :789-790, :964).
   ``predict_method`` picks the walk with the JAX package's meaning:
   ``auto``/``host`` is the exact host walk (numpy ``HostTree``, float64 in
   tree order), ``depthwise``/``pallas``/``fused`` go through the device
   ``BatchPredictor`` (models/predict.py), cached per (slice, method).
 
 Training and prediction run on ``device`` (default: the card; without one
-they raise — pass ``device="cpu"`` for the CPU).  Files, sparse input,
-categorical features, custom objectives and the native C++ predictor are
-not ported yet (ROADMAP queue 1, items 8 and 9).
+they raise — pass ``device="cpu"`` for the CPU).  Every other public name
+of the JAX ``Dataset`` and ``Booster`` raises ``NotImplementedError``
+naming its ROADMAP queue 1 item: files, sparse input, categorical
+features and custom objectives (item 1), rollback, refit and checkpoints
+(item 1, part 1.4), the native C++ predictor, TreeSHAP, the binary
+dataset cache (CLI), the drift captures and the block caches (parallel
+learners).
 """
 
 from __future__ import annotations
@@ -34,10 +44,12 @@ from typing import Any, Dict, List, Optional
 
 import numpy as np
 
-from .config import BREADTH, NATIVE, TREESHAP, Config, not_ported
+from .config import (BREADTH, CLI, DRIFT, NATIVE, PARALLEL, TREESHAP,
+                     Config, not_ported)
 from .device import DeviceLike, resolve_device
 from .io.dataset import BinnedDataset
-from .io.model_text import LoadedModel, model_from_string, model_to_string
+from .io.model_text import (LoadedModel, dump_model_dict, model_from_string,
+                            model_to_string)
 from .models.tree import HostTree
 from .objectives import convert_output
 
@@ -60,10 +72,11 @@ def _to_2d_numpy(data) -> np.ndarray:
 
 
 def _objective_string(config: Config) -> str:
-    """The model file's objective line, for the objectives the port
-    trains (JAX basic.py:85-104; reference gbdt.cpp ObjectiveName and each
-    objective's ToString): 'binary sigmoid:1', 'multiclass num_class:5',
-    'multiclassova num_class:5 sigmoid:1', 'lambdarank', 'regression'."""
+    """The model file's objective line (JAX basic.py:85-104; reference
+    gbdt.cpp ObjectiveName and each objective's ToString): 'binary
+    sigmoid:1', 'multiclass num_class:5', 'multiclassova num_class:5
+    sigmoid:1', 'quantile alpha:0.9', 'huber alpha:0.9', 'fair c:1',
+    'tweedie tweedie_variance_power:1.5', else the objective's name."""
     obj = config.objective
     if obj == "binary":
         return f"binary sigmoid:{config.sigmoid:g}"
@@ -71,6 +84,13 @@ def _objective_string(config: Config) -> str:
         extra = (f" sigmoid:{config.sigmoid:g}" if obj == "multiclassova"
                  else "")
         return f"{obj} num_class:{config.num_class}{extra}"
+    if obj in ("quantile", "huber"):
+        return f"{obj} alpha:{config.alpha:g}"
+    if obj == "fair":
+        return f"fair c:{config.fair_c:g}"
+    if obj == "tweedie":
+        return ("tweedie tweedie_variance_power:"
+                f"{config.tweedie_variance_power:g}")
     return obj
 
 
@@ -114,6 +134,61 @@ class Dataset:
         if self._binned is not None:
             self._binned.metadata.set_group(self.group)
         return self
+
+    @classmethod
+    def from_binned(cls, binned, params=None) -> "Dataset":
+        """A Dataset over an already binned set (JAX :240, the distributed
+        loader's shards): not ported."""
+        raise not_ported("Dataset.from_binned (process-sharded data)",
+                         PARALLEL)
+
+    def save_binary(self, filename) -> "Dataset":
+        """The binned dataset cache (JAX :303): not ported."""
+        raise not_ported("Dataset.save_binary (the binary dataset cache)",
+                         CLI)
+
+    def save_block_cache(self, path, block_rows=None) -> "Dataset":
+        """The out-of-core block cache (JAX :310): not ported."""
+        raise not_ported("Dataset.save_block_cache (the out-of-core block "
+                         "cache)", PARALLEL)
+
+    def create_valid(self, data, label=None, weight=None, group=None,
+                     init_score=None, params=None) -> "Dataset":
+        """A valid set binned with this set's bins (JAX :326)."""
+        return Dataset(data, label=label, reference=self, weight=weight,
+                       group=group, init_score=init_score,
+                       params=params or self.params)
+
+    def set_label(self, label) -> "Dataset":
+        """New labels (JAX :333); a constructed set takes them without
+        binning again."""
+        self.label = np.asarray(label, dtype=np.float64).ravel()
+        if self._binned is not None:
+            self._binned.metadata.label = self.label.astype(np.float32)
+        return self
+
+    def set_weight(self, weight) -> "Dataset":
+        """New row weights, or None (JAX :339)."""
+        self.weight = (None if weight is None
+                       else np.asarray(weight, dtype=np.float64).ravel())
+        if self._binned is not None:
+            self._binned.metadata.weight = (
+                None if weight is None else self.weight.astype(np.float32))
+        return self
+
+    def set_init_score(self, init_score) -> "Dataset":
+        """New init scores, or None (JAX :352)."""
+        self.init_score = (None if init_score is None
+                           else np.asarray(init_score, np.float64))
+        if self._binned is not None:
+            self._binned.metadata.init_score = self.init_score
+        return self
+
+    def set_field(self, field_name: str, data) -> "Dataset":
+        """``set_<field_name>(data)`` (JAX :358)."""
+        return {"label": self.set_label, "weight": self.set_weight,
+                "group": self.set_group,
+                "init_score": self.set_init_score}[field_name](data)
 
     def construct(self) -> "Dataset":
         if self._binned is not None:
@@ -200,13 +275,14 @@ class Booster:
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("train_set must be a Dataset")
-            from .models.gbdt import GBDT
+            from .models.gbdt import create_boosting
 
             train_set.params = {**train_set.params, **self.params}
             train_set.construct()
             self.train_set = train_set
             self.config = Config.from_dict(self.params)
-            self._gbdt = GBDT(self.config, train_set._binned, self.device)
+            self._gbdt = create_boosting(self.config, train_set._binned,
+                                         self.device)
             return
         if model_file is not None:
             with open(model_file) as fh:
@@ -321,8 +397,20 @@ class Booster:
             return list(self._gbdt.materialize_host_trees())
         return list(self._loaded.trees)
 
+    def feature_name(self) -> List[str]:
+        """The feature names (JAX :606)."""
+        if self._gbdt is not None:
+            return list(self._gbdt.train_set.feature_names)
+        return list(self._loaded.feature_names)
+
     def _average_output(self) -> bool:
-        return self._loaded is not None and self._loaded.average_output
+        """A random forest averages its trees: a loaded model that says
+        so, or a trained RF (JAX :789-790)."""
+        if self._gbdt is not None:
+            from .models.gbdt import RF
+
+            return isinstance(self._gbdt, RF)
+        return self._loaded.average_output
 
     # ------------------------------------------------------------------
     def model_to_string(self, num_iteration: Optional[int] = None,
@@ -342,6 +430,7 @@ class Booster:
                 num_class=cfg.num_class, num_tree_per_iteration=K,
                 feature_names=list(ds.feature_names),
                 feature_infos=ds.feature_infos(),
+                average_output=self._average_output(),
                 parameters={
                     "boosting": cfg.boosting, "objective": cfg.objective,
                     "metric": ",".join(cfg.metric),
@@ -369,6 +458,87 @@ class Booster:
         with open(filename, "w") as fh:
             fh.write(text)
         return self
+
+    def dump_model(self, num_iteration: Optional[int] = None,
+                   start_iteration: int = 0) -> Dict:
+        """The model as a JSON-ready dict (JAX :1115; reference
+        GBDT::DumpModel), every iteration by default."""
+        trees = self._all_trees()
+        K = self.num_model_per_iteration()
+        if num_iteration is None or num_iteration < 0:
+            num_iteration = len(trees) // K
+        trees = trees[start_iteration * K:
+                      (start_iteration + num_iteration) * K]
+        if self._gbdt is not None:
+            ds = self._gbdt.train_set
+            names, infos = list(ds.feature_names), ds.feature_infos()
+            objective_string = _objective_string(self.config)
+            num_class = self.config.num_class
+        else:
+            names = self._loaded.feature_names
+            infos = self._loaded.feature_infos
+            objective_string = self._loaded.objective
+            num_class = self._loaded.num_class
+        return dump_model_dict(
+            trees, objective_string=objective_string, num_class=num_class,
+            num_tree_per_iteration=K, feature_names=names,
+            feature_infos=infos)
+
+    def feature_importance(self, importance_type: str = "split",
+                           iteration: Optional[int] = None) -> np.ndarray:
+        """Each feature's split count (int64) or, for any other
+        ``importance_type``, its total split gain (float64) over the
+        trees of the first ``iteration`` iterations (every tree by
+        default; JAX :1137)."""
+        trees = self._all_trees()
+        if iteration is not None and iteration >= 0:
+            trees = trees[:iteration * self.num_model_per_iteration()]
+        out = np.zeros(self.num_feature(), dtype=np.float64)
+        for t in trees:
+            for i in range(t.num_leaves - 1):
+                out[t.split_feature[i]] += (
+                    1 if importance_type == "split" else t.split_gain[i])
+        if importance_type == "split":
+            return out.astype(np.int64)
+        return out
+
+    def __copy__(self):
+        return self
+
+    def free_dataset(self) -> "Booster":
+        """A no-op, as in the JAX package (:1159)."""
+        return self
+
+    def free_network(self) -> "Booster":
+        """A no-op, as in the JAX package (:1162): the port trains on one
+        card."""
+        return self
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration (JAX :575): not ported."""
+        raise not_ported("Booster.rollback_one_iter", BREADTH)
+
+    def refit(self, data, label, decay_rate: float = 0.9) -> "Booster":
+        """Refit the leaves on new data (JAX :865): not ported."""
+        raise not_ported("Booster.refit", BREADTH)
+
+    def save_checkpoint(self, path, write_file: bool = True,
+                        with_reference: bool = True) -> "Booster":
+        """The trainer's state bundle (JAX :1046): not ported."""
+        raise not_ported("Booster.save_checkpoint", BREADTH)
+
+    def resume_from_checkpoint(self, path_or_bundle) -> "Booster":
+        """Resume from a state bundle (JAX :1090): not ported."""
+        raise not_ported("Booster.resume_from_checkpoint", BREADTH)
+
+    def capture_model_reference(self, score_bins: Optional[int] = None):
+        """The training reference for drift checks (JAX :1013): not
+        ported."""
+        raise not_ported("Booster.capture_model_reference", DRIFT)
+
+    def quality_snapshot(self, top_k: int = 8) -> Dict:
+        """The trainer's quality telemetry (JAX :1035): not ported."""
+        raise not_ported("Booster.quality_snapshot", DRIFT)
 
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,

@@ -12,8 +12,7 @@ Every knob of the JAX ``Config`` is a field here.  Those the port does
 not yet run are known only to refuse them: ``unported_reason`` names the
 ROADMAP item of every one a config sets away from its default (``_UNPORTED``
 and ``_REFUSED``), and the trainer raises ``NotImplementedError`` with it
-instead of training something else (an objective the port does not train
-is refused by ``objectives.create_objective``).  ``gpu_use_dp`` is mapped as there;
+instead of training something else.  ``gpu_use_dp`` is mapped as there;
 a few knobs change no model in the JAX package either and are accepted.
 """
 
@@ -251,8 +250,7 @@ class Config:
     serve_retry_backoff_ms: float = 5.0
     serve_probe_rows: int = 64       # publish-time golden probe rows
     registry_keep_versions: int = 4
-    # -- more knobs of the JAX package the port refuses (_REFUSED): --------
-    # objectives and metrics (items 1 and 8)
+    # -- objectives and metrics ------------------------------------------
     reg_sqrt: bool = False
     alpha: float = 0.9
     fair_c: float = 1.0
@@ -271,8 +269,7 @@ class Config:
     extra_seed: int = 6
     # callbacks: early stopping on the first metric alone
     first_metric_only: bool = False
-    # boosting, categorical, constraints, penalties, binning, model
-    # lifecycle (item 8)
+    # boosting: DART and GOSS
     drop_rate: float = 0.1
     max_drop: int = 50
     skip_drop: float = 0.5
@@ -281,6 +278,8 @@ class Config:
     drop_seed: int = 4
     top_rate: float = 0.2
     other_rate: float = 0.1
+    # -- more knobs of the JAX package the port refuses (_REFUSED):
+    # categorical, constraints, penalties, binning, model lifecycle -------
     min_data_per_group: int = 100
     max_cat_threshold: int = 32
     cat_l2: float = 10.0
@@ -545,7 +544,9 @@ class Config:
 # Ported: bagging, feature fraction and extra_trees; callbacks and early
 # stopping (engine.py, callback.py); hist_dtype_deep=int8sr, hist_dtype=
 # int8 and hist_dtype_deep=int8; hist_method=onehot|bench, force_col_wise /
-# force_row_wise and int16 bins.  These items keep their names for
+# force_row_wise and int16 bins; the Booster and Dataset surface, GOSS,
+# DART and RF, and every objective and metric of the JAX package (parts
+# 1.1-1.3 of BREADTH).  The first five items keep their names for
 # ROADMAP's record of them, and nothing refuses with them any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
@@ -565,11 +566,10 @@ FAILURE = "failure domains of the server"
 OBSERVABILITY = "observability"
 SHARDED_PREDICT = "row-sharded predict"
 PARALLEL = "parallel learners"
+SKLEARN = "sklearn wrappers and plotting"
 
 # knob -> (is it set away from its default?, what it is, ROADMAP item)
 _UNPORTED = (
-    ("boosting", lambda c: c.boosting != "gbdt",
-     "boosting={v} (GOSS, DART, RF)", BREADTH),
     ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
      "tree_learner={v}", PARALLEL),
     ("interaction_constraints", lambda c: bool(c.interaction_constraints),
@@ -586,11 +586,7 @@ _UNPORTED = (
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (BREADTH, ("alpha", "fair_c", "poisson_max_delta_step",
-               "tweedie_variance_power", "objective_seed", "auc_mu_weights",
-               "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
-               "uniform_drop", "drop_seed", "top_rate", "other_rate",
-               "min_data_per_group", "max_cat_threshold", "cat_l2",
+    (BREADTH, ("min_data_per_group", "max_cat_threshold", "cat_l2",
                "cat_smooth", "max_cat_to_onehot",
                "cegb_tradeoff", "cegb_penalty_feature_lazy",
                "cegb_penalty_feature_coupled", "forcedbins_filename",

@@ -5,7 +5,8 @@ Port of lightgbmv1_tpu/io/model_text.py (reference
 ``LoadModelFromString`` :410+; per-tree block ``Tree::ToString``
 src/io/tree.cpp:223).  Text written here is byte-identical to the JAX
 package's for the same trees, and either package loads the other's.
-The JSON dump comes with a later slice.
+``dump_model_dict`` is the JSON dump (JAX :353-413; reference
+``GBDT::DumpModel``, gbdt_model_text.cpp:21-120).
 
 decision_type byte (reference include/LightGBM/tree.h decision-type masks):
 bit0 = categorical, bit1 = default_left, bits 2-3 = missing type
@@ -20,6 +21,7 @@ from typing import Any, Dict, List, Optional
 import numpy as np
 
 from ..models.tree import HostTree, validate_host_tree
+from .binning import MISSING_NAN, MISSING_NONE, MISSING_ZERO
 from ..utils.log import log_fatal, log_warning
 
 _K_CATEGORICAL_MASK = 1
@@ -339,3 +341,62 @@ def model_from_string(model_str: str) -> LoadedModel:
     if not m.trees and "Tree=" in model_str:
         log_warning("Model parsing found no trees")
     return m
+
+
+# ---------------------------------------------------------------------------
+# JSON dump (reference: GBDT::DumpModel, gbdt_model_text.cpp:21-120)
+# ---------------------------------------------------------------------------
+
+
+def _node_to_dict(tree: HostTree, node: int,
+                  feature_names: List[str]) -> Dict:
+    if node < 0:
+        leaf = -node - 1
+        return {"leaf_index": int(leaf),
+                "leaf_value": float(tree.leaf_value[leaf]),
+                "leaf_weight": float(tree.leaf_weight[leaf]),
+                "leaf_count": int(tree.leaf_count[leaf])}
+    mt = {MISSING_NONE: "None", MISSING_ZERO: "Zero", MISSING_NAN: "NaN"}[
+        int(tree.missing_type[node])]
+    return {
+        "split_index": int(node),
+        "split_feature": int(tree.split_feature[node]),
+        "split_gain": float(tree.split_gain[node]),
+        "threshold": float(tree.threshold[node]),
+        "decision_type": "<=",
+        "default_left": bool(tree.default_left[node]),
+        "missing_type": mt,
+        "internal_value": float(tree.internal_value[node]),
+        "internal_weight": float(tree.internal_weight[node]),
+        "internal_count": int(tree.internal_count[node]),
+        "left_child": _node_to_dict(tree, int(tree.left_child[node]),
+                                    feature_names),
+        "right_child": _node_to_dict(tree, int(tree.right_child[node]),
+                                     feature_names),
+    }
+
+
+def dump_model_dict(trees: List[HostTree], *, objective_string: str,
+                    num_class: int, num_tree_per_iteration: int,
+                    feature_names: List[str], feature_infos: List[str],
+                    label_index: int = 0,
+                    average_output: bool = False) -> Dict:
+    """The model as the reference's JSON dump (JAX model_text.py:381)."""
+    return {
+        "name": "tree",
+        "version": "v3",
+        "num_class": num_class,
+        "num_tree_per_iteration": num_tree_per_iteration,
+        "label_index": label_index,
+        "max_feature_idx": len(feature_names) - 1,
+        "objective": objective_string,
+        "average_output": average_output,
+        "feature_names": list(feature_names),
+        "feature_infos": list(feature_infos),
+        "tree_info": [
+            {"tree_index": i, "num_leaves": t.num_leaves, "num_cat": 0,
+             "shrinkage": t.shrinkage,
+             "tree_structure": _node_to_dict(
+                 t, 0 if t.num_leaves > 1 else -1, feature_names)}
+            for i, t in enumerate(trees)],
+    }

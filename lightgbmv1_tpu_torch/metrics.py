@@ -1,16 +1,18 @@
-"""Evaluation metrics of the ported objectives (host numpy float64).
+"""Evaluation metrics (host numpy float64).
 
-Port of lightgbmv1_tpu/metrics.py ``L2Metric`` (:66), ``RMSEMetric``
-(:73), ``BinaryLoglossMetric`` (:159), ``BinaryErrorMetric`` (:167),
-``AUCMetric`` (:174), ``MultiLoglossMetric`` (:263), ``MultiErrorMetric``
-(:272), ``NDCGMetric`` (:294) and ``MapMetric`` (:327) with ``eval_at``,
-and ``create_metrics`` (:415) with each ported objective's default
-metric: the same formulas on the same float64 inputs (reference
-regression_metric.hpp, binary_metric.hpp, multiclass_metric.hpp,
-rank_metric.hpp, map_metric.hpp; AUC exact under ties by the
-grouped-rank formulation).  A metric the JAX package has and the port
-does not yet raises ``NotImplementedError`` with its ROADMAP item; a name
-the JAX package does not know is skipped with a warning, as there (:431).
+Port of lightgbmv1_tpu/metrics.py: every metric there, ``L2Metric``
+(:66) and ``RMSEMetric`` (:73), the regression family ``L1Metric``
+(:80) ... ``TweedieMetric`` (:149), ``BinaryLoglossMetric`` (:159),
+``BinaryErrorMetric`` (:167), ``AUCMetric`` (:174), ``AucMuMetric``
+(:202, on raw scores, with ``auc_mu_weights``), ``MultiLoglossMetric``
+(:263), ``MultiErrorMetric`` (:272), ``CrossEntropyMetric`` (:286),
+``NDCGMetric`` (:294) and ``MapMetric`` (:327) with ``eval_at``, and
+``create_metrics`` (:415) with each objective's default metric: the same
+formulas on the same float64 inputs (reference regression_metric.hpp,
+binary_metric.hpp, multiclass_metric.hpp, rank_metric.hpp,
+map_metric.hpp, xentropy_metric.hpp; AUC exact under ties by the
+grouped-rank formulation).  A name the JAX package does not know is
+skipped with a warning, as there (:431).
 """
 
 from __future__ import annotations
@@ -21,13 +23,15 @@ import math
 
 import numpy as np
 
-from .config import BREADTH, Config, not_ported
+from .config import Config
 from .utils.log import log_fatal, log_warning
 
 
 class Metric:
     name = "metric"
     higher_better = False
+    # evaluated on the raw scores, not the converted predictions
+    wants_raw = False
 
     def __init__(self, config: Config):
         self.config = config
@@ -50,11 +54,19 @@ class Metric:
         return float(losses.mean())
 
 
-class L2Metric(Metric):
-    name = "l2"
+class _PointwiseMetric(Metric):
+    """The weighted mean of a per-row loss ``_loss(label, pred)``."""
 
     def eval(self, pred):
-        return [(self.name, self._avg((self.label - pred) ** 2), False)]
+        return [(self.name, self._avg(self._loss(self.label, pred)),
+                 self.higher_better)]
+
+
+class L2Metric(_PointwiseMetric):
+    name = "l2"
+
+    def _loss(self, y, p):
+        return (y - p) ** 2
 
 
 class RMSEMetric(Metric):
@@ -65,14 +77,97 @@ class RMSEMetric(Metric):
                  False)]
 
 
-class BinaryLoglossMetric(Metric):
+class L1Metric(_PointwiseMetric):
+    name = "l1"
+
+    def _loss(self, y, p):
+        return np.abs(y - p)
+
+
+class QuantileMetric(_PointwiseMetric):
+    name = "quantile"
+
+    def _loss(self, y, p):
+        a = self.config.alpha
+        d = y - p
+        return np.where(d >= 0, a * d, (a - 1) * d)
+
+
+class HuberMetric(_PointwiseMetric):
+    name = "huber"
+
+    def _loss(self, y, p):
+        a = self.config.alpha
+        d = np.abs(y - p)
+        return np.where(d <= a, 0.5 * d * d, a * (d - 0.5 * a))
+
+
+class FairMetric(_PointwiseMetric):
+    name = "fair"
+
+    def _loss(self, y, p):
+        c = self.config.fair_c
+        x = np.abs(y - p)
+        return c * x - c * c * np.log1p(x / c)
+
+
+class PoissonMetric(_PointwiseMetric):
+    name = "poisson"
+
+    def _loss(self, y, p):
+        p = np.maximum(p, 1e-20)
+        return p - y * np.log(p)
+
+
+class MapeMetric(_PointwiseMetric):
+    name = "mape"
+
+    def _loss(self, y, p):
+        return np.abs(y - p) / np.maximum(np.abs(y), 1.0)
+
+
+class GammaMetric(_PointwiseMetric):
+    name = "gamma"
+
+    def _loss(self, y, p):
+        theta = -1.0 / np.maximum(p, 1e-20)
+        a = -np.log(-theta)
+        return -np.log(np.maximum(y, 1e-20)) - y * theta + a
+
+
+class GammaDevianceMetric(_PointwiseMetric):
+    name = "gamma_deviance"
+
+    def _loss(self, y, p):
+        eps = 1e-9
+        r = y / np.maximum(p, eps)
+        return 2.0 * (np.log(np.maximum(1.0 / np.maximum(r, eps), eps))
+                      + r - 1.0)
+
+
+class TweedieMetric(_PointwiseMetric):
+    name = "tweedie"
+
+    def _loss(self, y, p):
+        rho = self.config.tweedie_variance_power
+        p = np.maximum(p, 1e-20)
+        a = y * np.power(p, 1.0 - rho) / (1.0 - rho)
+        b = np.power(p, 2.0 - rho) / (2.0 - rho)
+        return -a + b
+
+
+class BinaryLoglossMetric(_PointwiseMetric):
     name = "binary_logloss"
 
-    def eval(self, pred):
-        p = np.clip(pred, 1e-15, 1 - 1e-15)
-        y = self.label
-        loss = -(y * np.log(p) + (1 - y) * np.log(1 - p))
-        return [(self.name, self._avg(loss), self.higher_better)]
+    def _loss(self, y, p):
+        p = np.clip(p, 1e-15, 1 - 1e-15)
+        return -(y * np.log(p) + (1 - y) * np.log(1 - p))
+
+
+class CrossEntropyMetric(BinaryLoglossMetric):
+    """The log loss of labels in [0, 1]."""
+
+    name = "cross_entropy"
 
 
 class BinaryErrorMetric(Metric):
@@ -110,6 +205,53 @@ class AUCMetric(Metric):
             return [(self.name, 0.5, True)]
         auc = float((posw * credit).sum() / (tot_pos * tot_neg))
         return [(self.name, auc, True)]
+
+
+class AucMuMetric(Metric):
+    """Multiclass AUC-mu (Kleiman & Page 2019; reference AucMuMetric,
+    multiclass_metric.hpp:183-314) on the raw scores: each class pair's
+    AUC along ``v = w_i - w_j`` of the ``auc_mu_weights`` matrix (uniform
+    off the diagonal by default), ties at half credit."""
+
+    name = "auc_mu"
+    higher_better = True
+    wants_raw = True
+
+    def eval(self, pred):
+        K = self.config.num_class
+        y = self.label.astype(np.int64)
+        scores = np.asarray(pred, np.float64).reshape(-1, K)
+        W = self.config.auc_mu_weights
+        if W:
+            cw = np.asarray(W, np.float64).reshape(K, K)
+            np.fill_diagonal(cw, 0.0)
+        else:
+            cw = np.ones((K, K)) - np.eye(K)
+        total = 0.0
+        for i in range(K):
+            for j in range(i + 1, K):
+                mask = (y == i) | (y == j)
+                if not mask.any():
+                    continue
+                yi = y[mask]
+                ni, nj = int((yi == i).sum()), int((yi == j).sum())
+                if ni == 0 or nj == 0:
+                    continue
+                v = cw[i] - cw[j]
+                dist = (v[i] - v[j]) * (scores[mask] @ v)
+                pos = yi == i
+                order = np.argsort(dist, kind="mergesort")
+                d_s, p_s = dist[order], pos[order]
+                new_group = np.empty(len(d_s), dtype=bool)
+                new_group[0] = True
+                new_group[1:] = d_s[1:] != d_s[:-1]
+                gid = np.cumsum(new_group) - 1
+                g_neg = np.bincount(gid, weights=(~p_s).astype(np.float64),
+                                    minlength=gid[-1] + 1)
+                neg_before = np.concatenate([[0.0], np.cumsum(g_neg)])[:-1]
+                credit = neg_before[gid] + 0.5 * g_neg[gid]
+                total += (float(credit[p_s].sum()) / ni) / nj
+        return [(self.name, float((2.0 * total / K) / max(K - 1, 1)), True)]
 
 
 class MultiLoglossMetric(Metric):
@@ -201,6 +343,14 @@ _METRICS = {
                     L2Metric),
     **dict.fromkeys(("rmse", "l2_root", "root_mean_squared_error"),
                     RMSEMetric),
+    **dict.fromkeys(("l1", "mae", "mean_absolute_error", "regression_l1"),
+                    L1Metric),
+    "quantile": QuantileMetric, "huber": HuberMetric, "fair": FairMetric,
+    "poisson": PoissonMetric,
+    **dict.fromkeys(("mape", "mean_absolute_percentage_error"),
+                    MapeMetric),
+    "gamma": GammaMetric, "gamma_deviance": GammaDevianceMetric,
+    "tweedie": TweedieMetric,
     "binary_logloss": BinaryLoglossMetric,
     "binary": BinaryLoglossMetric,
     "binary_error": BinaryErrorMetric,
@@ -208,22 +358,20 @@ _METRICS = {
     **dict.fromkeys(("multi_logloss", "multiclass", "softmax",
                      "multiclassova"), MultiLoglossMetric),
     "multi_error": MultiErrorMetric,
+    "auc_mu": AucMuMetric,
+    **dict.fromkeys(("cross_entropy", "xentropy"), CrossEntropyMetric),
     **dict.fromkeys(("ndcg", "lambdarank", "rank_xendcg"), NDCGMetric),
     **dict.fromkeys(("map", "mean_average_precision"), MapMetric),
 }
 
-# the JAX package's other metric names (its metrics.py:353-389), by the
-# ROADMAP queue 1 item that ports them
-_UNPORTED_METRICS = dict.fromkeys(
-    ("l1", "mae", "mean_absolute_error", "regression_l1", "quantile",
-     "huber", "fair", "poisson", "mape", "mean_absolute_percentage_error",
-     "gamma", "gamma_deviance", "tweedie", "auc_mu", "cross_entropy",
-     "xentropy"), BREADTH)
-
 _DEFAULT_METRIC_FOR_OBJECTIVE = {
-    "regression": "l2", "binary": "binary_logloss",
-    "multiclass": "multi_logloss", "multiclassova": "multi_logloss",
-    "lambdarank": "ndcg"}
+    "regression": "l2", "regression_l1": "l1", "huber": "huber",
+    "fair": "fair", "poisson": "poisson", "quantile": "quantile",
+    "mape": "mape", "gamma": "gamma", "tweedie": "tweedie",
+    "binary": "binary_logloss", "multiclass": "multi_logloss",
+    "multiclassova": "multi_logloss", "cross_entropy": "cross_entropy",
+    "cross_entropy_lambda": "cross_entropy", "lambdarank": "ndcg",
+    "rank_xendcg": "ndcg"}
 
 
 def create_metrics(config: Config) -> List[Metric]:
@@ -240,8 +388,6 @@ def create_metrics(config: Config) -> List[Metric]:
         if name.startswith(("ndcg@", "map@")):
             name, at = name.split("@", 1)
             config.eval_at = [int(x) for x in at.split(",")]
-        if name in _UNPORTED_METRICS:
-            raise not_ported(f"metric={name}", _UNPORTED_METRICS[name])
         if name not in _METRICS:
             log_warning(f"Unknown metric {name}")
             continue

@@ -1,13 +1,17 @@
-"""The GBDT boosting loop (eager PyTorch on the training device).
+"""The boosting loops (eager PyTorch on the training device).
 
-Port of the core of lightgbmv1_tpu/models/gbdt.py: ``_ScoreUpdater``
-(:60) and ``GBDT`` (:76) — ``__init__`` with each class's boost-from-
-average score, the per-iteration step ``_build_step`` (:356) run eagerly
-(gradients of the whole (N,) or (N, K) score -> per class g3 rows -> one
-tree -> score updates), ``train_one_iter`` (:765), ``add_valid`` (:633)
-and ``eval_valid`` (:1223), on the (N, K) scores the objective converts
-(softmax for multiclass) — plus the lazy host-tree materialization
-(:881) the model text is written from.
+Port of lightgbmv1_tpu/models/gbdt.py: ``_ScoreUpdater`` (:60) and
+``GBDT`` (:76) — ``__init__`` with each class's boost-from-average
+score, the per-iteration step ``_build_step`` (:356) run eagerly
+(gradients of the whole (N,) or (N, K) score -> per class g3 rows
+(``_sample_g3``, :751) -> one tree -> leaf renewal -> shrinkage -> score
+updates, ``_finish_tree`` :783), ``train_one_iter`` (:765),
+``add_valid`` (:633) and ``eval_valid`` (:1223), on the (N, K) scores
+the objective converts (softmax for multiclass; a ``wants_raw`` metric
+reads the raw scores) — plus the lazy host-tree materialization (:881)
+the model text is written from; and the boosting variants of
+``create_boosting`` (:1885): ``GOSS`` (:1252), ``DART`` (:1284) and
+``RF`` (:1789).
 
 The JAX step is one jitted dispatch; here it is a Python function whose
 ops run on the card (the histogram through the CUDA kernel K1).  The wave
@@ -51,30 +55,91 @@ rate it was built with (its ``_model_shrink`` and the model text's
 ``shrinkage`` record the new one, its leaves the old); here the next
 tree is shrunk by the new rate, as in the reference.
 
-DART, GOSS, RF, rollback and checkpoints are not ported (the config
-refuses them).
+The objectives that renew their leaves (L1, quantile, mape:
+``renew_percentile``) set each grown tree's leaves to that weighted
+quantile of the residuals ``label - score`` (float64) of its rows
+(``_renew_leaf_values``, JAX :919-945), then shrink it, as the JAX
+package's host path does (:821-879): one sort by (leaf, residual) on the
+training device gives each leaf's rows in order, its cumulative weights
+summed on the host, and a tie of residuals cannot move the value (the
+cumulative weight at either end of a run of equal residuals does not
+depend on their order).
+
+The variants, as the JAX package runs them:
+
+* GOSS keeps the rows whose |g h| reaches the ``top_rate`` threshold (a
+  ``>=`` threshold, so ties keep more), draws the rest at ``other_k /
+  (n - top_k)`` (an f32 quotient) from ``fold_in(PRNGKey(seed + 17),
+  iteration)`` and weighs them by ``(1 - top_rate) / other_rate``, the
+  count channel 0/1, the bag last (JAX :1258-1281); from iteration 0,
+  where LightGBM waits ``1 / learning_rate`` iterations;
+* DART's step (JAX :1508-1641, the fused and host variants in one eager
+  path): the drops drawn by ``_select_drops`` from
+  ``RandomState(drop_seed)`` (one ``rand()`` for ``skip_drop``, then one
+  a tree up to ``max_drop``; weighted by ``_tree_weight`` unless
+  ``uniform_drop``), their bias-carrying trees removed from every score
+  cache, the new trees grown on the rest and shrunk by ``shrink_new``,
+  the dropped trees rescaled by ``old_factor`` (device leaves, shrinkage
+  and bias; a host tree already materialized too) and put back
+  (``_normalization``, ``xgboost_dart_mode``).  A removal gathers each
+  dropped tree's leaf values through the leaf ids recorded at its
+  iteration — the training rows' and, where the wave grower routed them
+  (K3), the valid rows' — under a 1 GB budget in u8 / u16 / i32 (:1296-
+  1322); past it, or for a grower that routes no valid rows, the tree is
+  walked on the bins (``tree_predict_binned``: the same leaf ids);
+* RF trains unshrunk trees on the gradients at the constant init score,
+  each tree carrying the init score as its bias; the score caches hold
+  the running sum, and evaluation reads ``init + (score - init) /
+  iterations`` (JAX :1789-1882).  It needs bagging and refuses init
+  scores, as there.
+
+Rollback, checkpoints and DART's rollback snapshot are not ported
+(ROADMAP queue 1, part 1.4 of the breadth item).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import List, Optional
+from typing import List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..config import Config, unported_reason
+from ..config import PARALLEL, Config, not_ported, unported_reason
 from ..io.dataset import BinnedDataset
 from ..metrics import Metric, create_metrics
 from ..objectives import create_objective
 from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
-from ..utils.log import log_info, log_warning
+from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.prng import bernoulli, fold_in, prng_key
 from .tree import (HostTree, TreeArrays, host_tree_from_arrays, leaf_lookup,
                    tree_predict_binned)
+
+
+def _np_weighted_quantile_sorted(v, w, q):
+    """The first value of the sorted ``v`` whose cumulative float64 weight
+    reaches ``q`` of the total (JAX gbdt.py:52)."""
+    cw = np.cumsum(w)
+    if cw[-1] <= 0:
+        return 0.0
+    idx = int(np.searchsorted(cw, q * cw[-1], side="left"))
+    return float(v[min(idx, len(v) - 1)])
+
+
+class _Grown(NamedTuple):
+    """One iteration's class trees, shrunk, and what they add: the
+    (N, K) training and each valid set's (N_v, K) score deltas, each
+    tree's training leaf ids and (where the grower routes them) valid
+    leaf ids, and the host trees of renewed leaves (else None)."""
+    trees: List[TreeArrays]
+    hosts: List[Optional[HostTree]]
+    train_delta: torch.Tensor
+    valid_deltas: List[torch.Tensor]
+    leaf_ids: List[torch.Tensor]
+    valid_lids: Optional[List[List[torch.Tensor]]]
 
 
 class _ScoreUpdater:
@@ -261,37 +326,65 @@ class GBDT:
         return self._bag_mask
 
     # ------------------------------------------------------------------
-    def _step(self) -> List[TreeArrays]:
-        """One iteration: gradients, then per class one tree and its
-        score updates (the JAX ``_build_step`` body, run eagerly)."""
-        K = self.num_class
-        rate = self.config.learning_rate
-        score = self._train_scores.score
-        grad, hess = self.objective.get_gradients(
-            score[:, 0] if K == 1 else score)
+    def _rate(self) -> float:
+        """The shrinkage of this iteration's trees."""
+        return self.config.learning_rate
+
+    def _gradients(self, score: torch.Tensor
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(N, K) gradients and hessians of the (N, K) ``score``; a
+        stochastic objective (rank_xendcg) takes the iteration (JAX
+        ``_objective_grads``)."""
+        s = score[:, 0] if self.num_class == 1 else score
+        if self.objective.is_stochastic:
+            grad, hess = self.objective.get_gradients(s, iteration=self.iter)
+        else:
+            grad, hess = self.objective.get_gradients(s)
         if grad.ndim == 1:
             grad, hess = grad[:, None], hess[:, None]
+        return grad, hess
+
+    def _sample_g3(self, grad_k, hess_k, bag, iteration) -> torch.Tensor:
+        """The (N, 3) [grad, hess, count] rows of one class tree: an
+        out-of-bag row zeroed, its count 0 (JAX :751-761)."""
+        if bag is None:
+            return torch.stack([grad_k, hess_k, torch.ones_like(grad_k)],
+                               dim=1)
+        return torch.stack([grad_k * bag, hess_k * bag, bag], dim=1)
+
+    def _grow_trees(self, score: torch.Tensor, rate: float) -> _Grown:
+        """One iteration's class trees on the (N, K) ``score`` (the JAX
+        ``_build_step`` body, run eagerly): gradients, then per class its
+        g3 rows, one tree, its renewed leaves, its shrinkage by ``rate``
+        and its score deltas.  The deltas are added by the caller: this
+        iteration's gradients were taken before the class loop, so one
+        (N, K) add a cache after it is exact."""
+        K = self.num_class
+        grad, hess = self._gradients(score)
         bag = self._bagging_mask(self.iter)
         # the class trees' feature masks, drawn before the class loop
         masks = [self._tree_feature_mask() for _ in range(K)]
-        trees, train_preds = [], []
+        q = self.objective.renew_percentile
+        trees, hosts, lids, train_preds = [], [], [], []
         valid_preds = [[] for _ in self._valid_binned]
+        routes = getattr(self._grow, "routes_valids", False)
+        vlids_all = [] if routes else None
         for k in range(K):
-            if bag is None:
-                g3 = torch.stack([grad[:, k], hess[:, k],
-                                  torch.ones_like(grad[:, k])], dim=1)
-            else:
-                g3 = torch.stack([grad[:, k] * bag, hess[:, k] * bag, bag],
-                                 dim=1)
+            g3 = self._sample_g3(grad[:, k], hess[:, k], bag, self.iter)
             key = fold_in(self._rng_key, self.iter * K + k)
-            if getattr(self._grow, "routes_valids", False):
+            if routes:
                 tree, leaf_id, _, vlids = self._grow(
                     self.binned, g3.contiguous(), masks[k],
                     valids=self._valid_binned, key=key)
+                vlids_all.append(vlids)
             else:
                 tree, leaf_id, _ = self._grow(self.binned, g3.contiguous(),
                                               masks[k], key=key)
                 vlids = None
+            host = None
+            if q is not None:
+                tree, host = self._renewed(tree, leaf_id, score[:, k], q,
+                                           rate, k)
             shrunk = tree._replace(leaf_value=tree.leaf_value * rate)
             train_preds.append(leaf_lookup(shrunk.leaf_value, leaf_id))
             for vi, vb in enumerate(self._valid_binned):
@@ -302,31 +395,100 @@ class GBDT:
                                              self.meta.zero_bin,
                                              self._packed))
             trees.append(shrunk)
-        # one (N, K) add per score cache: this iteration's gradients were
-        # taken before the class loop, so deferring is exact
-        self._train_scores.score = score + torch.stack(train_preds, dim=1)
-        for vs, vp in zip(self._valid_scores, valid_preds):
-            vs.score = vs.score + torch.stack(vp, dim=1)
-        return trees
+            hosts.append(host)
+            lids.append(leaf_id)
+        return _Grown(trees, hosts, torch.stack(train_preds, dim=1),
+                      [torch.stack(vp, dim=1) for vp in valid_preds], lids,
+                      vlids_all)
+
+    def _renewed(self, tree: TreeArrays, leaf_id: torch.Tensor,
+                 score_k: torch.Tensor, q: float, rate: float, k: int):
+        """The tree with its leaves renewed to the ``q`` quantile of its
+        rows' residuals (JAX ``_finish_tree`` :821-847), and its host tree
+        (float64 leaves, shrunk by ``rate``, the iteration's bias folded
+        in) that the model text is written from."""
+        host = host_tree_from_arrays(tree)
+        self._fill_real_thresholds(host)
+        if host.num_leaves > 1:
+            vals = self._renew_leaf_values(host, leaf_id, score_k, q)
+            host.leaf_value = vals
+            lv = tree.leaf_value.clone()
+            lv[:host.num_leaves] = torch.as_tensor(
+                vals.astype(np.float32), device=lv.device)
+            tree = tree._replace(leaf_value=lv)
+        host.apply_shrinkage(rate)
+        host.add_bias(self._tree_bias(k))
+        return tree, host
+
+    def _renew_leaf_values(self, host: HostTree, leaf_id: torch.Tensor,
+                           score_k: torch.Tensor, q: float) -> np.ndarray:
+        """Each leaf's weighted ``q`` quantile of ``label - score`` over
+        its rows (JAX ``_renew_leaf_values`` :919-945); a leaf without
+        rows keeps its value.  Two stable sorts on the training device
+        order every leaf's rows by residual at once (ties in row order);
+        each leaf's cumulative weights are summed on the host in that
+        order, as the JAX package sums them."""
+        label, w = self._renew_rows(leaf_id.device)
+        resid = label - score_k.double()
+        lid = leaf_id.long()
+        order = torch.sort(resid, stable=True).indices
+        order = order[torch.sort(lid[order], stable=True).indices]
+        bounds = np.concatenate([[0], np.cumsum(torch.bincount(
+            lid, minlength=host.num_leaves).cpu().numpy())])
+        r_sorted = resid[order].cpu().numpy()
+        w_sorted = None if w is None else w[order].cpu().numpy()
+        out = np.array(host.leaf_value[:host.num_leaves], dtype=np.float64)
+        for leaf in range(host.num_leaves):
+            a, b = bounds[leaf], bounds[leaf + 1]
+            if a == b:
+                continue
+            out[leaf] = _np_weighted_quantile_sorted(
+                r_sorted[a:b],
+                np.ones(b - a) if w_sorted is None else w_sorted[a:b], q)
+        return out
+
+    def _renew_rows(self, device):
+        """The renewal's float64 labels and row weights on ``device``,
+        made once."""
+        if getattr(self, "_renew_cache", None) is None:
+            w = self.objective.renew_weights()
+            self._renew_cache = (
+                torch.as_tensor(self.objective._np_label, dtype=torch.float64,
+                                device=device),
+                None if w is None else torch.as_tensor(
+                    np.asarray(w, np.float64), device=device))
+        return self._renew_cache
+
+    def _record(self, grown: _Grown, rate: float) -> None:
+        """Append the iteration's trees with their shrinkage and bias."""
+        for k, tree in enumerate(grown.trees):
+            self._device_trees.append(tree)
+            self.models.append(grown.hosts[k])
+            self._model_shrink.append(rate)
+            self._model_bias.append(self._tree_bias(k))
+
+    def _stopped(self, trees, check_stop: bool) -> bool:
+        if not check_stop:
+            return False
+        stopped = all(int(t.num_leaves) <= 1 for t in trees)
+        if stopped:
+            log_warning("Stopped training because there are no more "
+                        "leaves that meet the split requirements")
+        return stopped
 
     def train_one_iter(self, check_stop: bool = True) -> bool:
         """One boosting iteration (num_class trees); True when no tree
         could split (reference returns the stop signal when the best gain
         is non-positive)."""
-        trees = self._step()
-        for k, tree in enumerate(trees):
-            self._device_trees.append(tree)
-            self.models.append(None)
-            self._model_shrink.append(self.config.learning_rate)
-            self._model_bias.append(self._tree_bias(k))
+        rate = self._rate()
+        grown = self._grow_trees(self._train_scores.score, rate)
+        self._train_scores.score = self._train_scores.score \
+            + grown.train_delta
+        for vs, d in zip(self._valid_scores, grown.valid_deltas):
+            vs.score = vs.score + d
+        self._record(grown, rate)
         self.iter += 1
-        if check_stop:
-            stopped = all(int(t.num_leaves) <= 1 for t in trees)
-            if stopped:
-                log_warning("Stopped training because there are no more "
-                            "leaves that meet the split requirements")
-            return stopped
-        return False
+        return self._stopped(grown.trees, check_stop)
 
     def _tree_bias(self, k: int) -> float:
         """The init score goes into the first tree of each class
@@ -336,29 +498,47 @@ class GBDT:
         return 0.0
 
     # ------------------------------------------------------------------
+    def _fill_real_thresholds(self, ht: HostTree) -> None:
+        mappers = self.train_set.bin_mappers
+        for n in range(ht.num_leaves - 1):
+            ht.threshold[n] = mappers[ht.split_feature[n]] \
+                .bin_to_threshold(ht.threshold_bin[n])
+
     def materialize_host_trees(self) -> List[HostTree]:
         """Host copies of the trees not yet fetched: real thresholds from
         the bin mappers and the boost-from-average bias folded in."""
-        mappers = self.train_set.bin_mappers
         for i, m in enumerate(self.models):
             if m is not None:
                 continue
             ht = host_tree_from_arrays(self._device_trees[i],
                                        shrinkage=self._model_shrink[i])
-            for n in range(ht.num_leaves - 1):
-                ht.threshold[n] = mappers[ht.split_feature[n]] \
-                    .bin_to_threshold(ht.threshold_bin[n])
+            self._fill_real_thresholds(ht)
             ht.add_bias(self._model_bias[i])
             self.models[i] = ht
         return self.models
 
     # ------------------------------------------------------------------
-    def _eval(self, dataset_name, scores: _ScoreUpdater, metrics, out):
+    def _raw_pred(self, scores: _ScoreUpdater) -> np.ndarray:
+        """The float64 raw scores a ``wants_raw`` metric reads, (N,) for
+        one class (JAX :1191)."""
         raw = scores.score.detach().cpu().numpy().astype(np.float64)
-        pred = self.objective.convert_output(
-            raw[:, 0] if self.num_class == 1 else raw)
+        return raw[:, 0] if self.num_class == 1 else raw
+
+    def _converted_pred(self, scores: _ScoreUpdater) -> np.ndarray:
+        """The objective's output of the raw scores (JAX :1184)."""
+        return np.asarray(self.objective.convert_output(
+            self._raw_pred(scores)), np.float64)
+
+    def _eval(self, dataset_name, scores: _ScoreUpdater, metrics, out):
+        raw = pred = None
         for m in metrics:
-            for name, value, hb in m.eval(np.asarray(pred, np.float64)):
+            if m.wants_raw:
+                raw = self._raw_pred(scores) if raw is None else raw
+                p = raw
+            else:
+                pred = self._converted_pred(scores) if pred is None else pred
+                p = pred
+            for name, value, hb in m.eval(p):
                 out.append((dataset_name, name, value, hb))
 
     def eval_valid(self):
@@ -388,3 +568,295 @@ class GBDT:
         """Valid set ``i``'s (N, num_class) float64 raw scores."""
         return self._valid_scores[i].score.detach().cpu().numpy() \
             .astype(np.float64)
+
+
+# ---------------------------------------------------------------------------
+# GOSS (JAX gbdt.py:1252; reference goss.hpp:25-150)
+# ---------------------------------------------------------------------------
+
+
+class GOSS(GBDT):
+    """Gradient-based one-side sampling: the rows of the largest |g h|
+    kept, a draw of the rest amplified by ``(1 - top_rate) /
+    other_rate``."""
+
+    def _sample_g3(self, grad_k, hess_k, bag, iteration) -> torch.Tensor:
+        cfg = self.config
+        n = self.num_data
+        top_k = max(1, int(cfg.top_rate * n))
+        other_k = max(1, int(cfg.other_rate * n))
+        score = torch.abs(grad_k * hess_k)
+        # the top_k-th largest |g h| (``sort(score)[-top_k]``); every row
+        # at or above it is kept, so ties can keep more than top_k
+        thresh = torch.kthvalue(score, n - top_k + 1).values
+        is_top = score >= thresh
+        # the JAX package divides int32 by int32 into float32
+        rest_prob = float(np.float32(other_k) / np.float32(max(n - top_k,
+                                                               1)))
+        key = fold_in(prng_key(cfg.seed + 17), iteration)
+        sampled = ~is_top & bernoulli(key, rest_prob, n, score.device)
+        amp = (1.0 - cfg.top_rate) / cfg.other_rate
+        w = torch.where(is_top, torch.ones_like(score),
+                        torch.where(sampled, torch.full_like(score, amp),
+                                    torch.zeros_like(score)))
+        cnt = (is_top | sampled).to(torch.float32)
+        if bag is not None:
+            w = w * bag
+            cnt = cnt * bag
+        return torch.stack([grad_k * w, hess_k * w, cnt], dim=1)
+
+
+# ---------------------------------------------------------------------------
+# DART (JAX gbdt.py:1284; reference dart.hpp:23-170)
+# ---------------------------------------------------------------------------
+
+
+class DART(GBDT):
+    """Dropouts meet multiple additive regression trees: each iteration
+    drops some earlier trees, grows on the rest and normalizes."""
+
+    # the budget of recorded leaf ids (JAX :1307)
+    LID_BUDGET_BYTES = 1 << 30
+
+    def __init__(self, config: Config, train_set: BinnedDataset,
+                 device: torch.device):
+        super().__init__(config, train_set, device)
+        self._drop_rng = np.random.RandomState(config.drop_seed)
+        # per-tree weights of the weighted drop (dart.hpp:67-68, 103-115)
+        self._tree_weight: List[float] = []
+        self._sum_weight = 0.0
+        L = config.num_leaves
+        self._lid_dtype = (torch.uint8 if L <= 256 else torch.uint16
+                           if L <= 65536 else torch.int32)
+        # each iteration's (K, N) training leaf ids and, where the grower
+        # routed them, each valid set's (K, N_v): a drop's removal is a
+        # gather of its leaf values through them
+        self._train_lids: List[torch.Tensor] = []
+        self._valid_lids: List[Optional[List[torch.Tensor]]] = []
+        rows = self.num_data
+        self._lid_row_bytes = self.num_class * torch.tensor(
+            [], dtype=self._lid_dtype).element_size()
+        self._lid_bytes = rows * self._lid_row_bytes
+        self._keep_lids = True
+
+    def add_valid(self, valid_set: BinnedDataset, name: str) -> None:
+        super().add_valid(valid_set, name)
+        self._lid_bytes += valid_set.num_data * self._lid_row_bytes
+
+    def _select_drops(self) -> List[int]:
+        """The iterations to drop (JAX ``_select_drops`` :1374; reference
+        DroppingTrees :96-137): one ``rand()`` against ``skip_drop``, then
+        one a tree, ``uniform_drop`` at ``drop_rate`` or weighted by each
+        tree's normalized weight, at most ``max_drop``."""
+        cfg = self.config
+        n_trees = len(self.models) // self.num_class
+        drops: List[int] = []
+        if n_trees > 0 and self._drop_rng.rand() >= cfg.skip_drop:
+            dr = cfg.drop_rate
+            if not cfg.uniform_drop and self._sum_weight > 0:
+                inv_avg = len(self._tree_weight) / self._sum_weight
+                if cfg.max_drop > 0:
+                    dr = min(dr, cfg.max_drop * inv_avg / self._sum_weight)
+                for i in range(n_trees):
+                    if (self._drop_rng.rand()
+                            < dr * self._tree_weight[i] * inv_avg):
+                        drops.append(i)
+                        if cfg.max_drop > 0 and len(drops) >= cfg.max_drop:
+                            break
+            else:
+                if cfg.max_drop > 0:
+                    dr = min(dr, cfg.max_drop / float(n_trees))
+                for i in range(n_trees):
+                    if self._drop_rng.rand() < dr:
+                        drops.append(i)
+                        if cfg.max_drop > 0 and len(drops) >= cfg.max_drop:
+                            break
+        return drops
+
+    def _normalization(self, k_drop: int):
+        """(shrink_new, old_factor, w_dec) (JAX :1402; reference dart.hpp
+        Normalize :158-196, shrinkage_rate_ :138-146)."""
+        lr = self.config.learning_rate
+        if self.config.xgboost_dart_mode:
+            shrink_new = lr if k_drop == 0 else lr / (lr + k_drop)
+            return shrink_new, k_drop / (k_drop + lr), 1.0 / (k_drop + lr)
+        return (lr / (k_drop + 1.0), k_drop / (k_drop + 1.0),
+                1.0 / (k_drop + 1.0))
+
+    def _lids_usable(self) -> bool:
+        return (self._keep_lids and len(self._train_lids)
+                == len(self.models) // self.num_class)
+
+    def _store_lids(self, grown: _Grown) -> None:
+        """Keep the iteration's leaf ids under the budget (JAX
+        ``_maybe_store_lids`` :1324); past it every list is freed."""
+        if not self._keep_lids:
+            return
+        if (len(self._train_lids) + 1) * self._lid_bytes \
+                > self.LID_BUDGET_BYTES:
+            self._keep_lids = False
+            self._train_lids.clear()
+            self._valid_lids.clear()
+            return
+        dt = self._lid_dtype
+        self._train_lids.append(torch.stack(grown.leaf_ids).to(dt))
+        self._valid_lids.append(
+            None if grown.valid_lids is None else
+            [torch.stack([v[vi] for v in grown.valid_lids]).to(dt)
+             for vi in range(len(self._valid_binned))])
+
+    def _dropped_scores(self, drops: List[int]):
+        """The dropped trees' (N, K) sum on the training rows and each
+        valid set's, each tree with its bias (the embedded init score),
+        as the reference drops the saved trees (JAX :1728-1759)."""
+        K = self.num_class
+        use = self._lids_usable()
+        meta = self.meta
+        d_train = torch.zeros_like(self._train_scores.score)
+        d_valid = [torch.zeros_like(vs.score) for vs in self._valid_scores]
+        for it in drops:
+            vl = self._valid_lids[it] if use else None
+            for k in range(K):
+                idx = it * K + k
+                tree = self._device_trees[idx]
+                b = self._model_bias[idx]
+                lv = tree.leaf_value + b if b else tree.leaf_value
+                walk = tree._replace(leaf_value=lv)
+                d_train[:, k] += (
+                    lv[self._train_lids[it][k].long()] if use else
+                    tree_predict_binned(walk, self.binned, meta.nan_bin,
+                                        meta.missing_type, meta.zero_bin,
+                                        self._packed))
+                for vi, vb in enumerate(self._valid_binned):
+                    d_valid[vi][:, k] += (
+                        lv[vl[vi][k].long()] if vl is not None else
+                        tree_predict_binned(walk, vb, meta.nan_bin,
+                                            meta.missing_type,
+                                            meta.zero_bin, self._packed))
+        return d_train, d_valid
+
+    def _rescale_dropped(self, drops: List[int], old_factor: float,
+                         w_dec: float) -> None:
+        """The dropped trees scaled by ``old_factor`` for good: device
+        leaves, shrinkage and bias, and a host tree already materialized
+        (JAX ``_rescale_dropped`` :1431)."""
+        for it in drops:
+            for k in range(self.num_class):
+                idx = it * self.num_class + k
+                if self.models[idx] is not None:
+                    self.models[idx].apply_shrinkage(old_factor)
+                t = self._device_trees[idx]
+                self._device_trees[idx] = t._replace(
+                    leaf_value=t.leaf_value * old_factor)
+                self._model_shrink[idx] *= old_factor
+                self._model_bias[idx] *= old_factor
+            if not self.config.uniform_drop:
+                self._sum_weight -= self._tree_weight[it] * w_dec
+                self._tree_weight[it] *= old_factor
+
+    def train_one_iter(self, check_stop: bool = True) -> bool:
+        """One DART iteration (JAX ``_fused_dart_iter`` :1547 and the
+        no-drop iteration :1623): remove the drops, grow on the rest at
+        ``shrink_new``, restore the drops at ``old_factor``, then add the
+        new trees."""
+        drops = self._select_drops()
+        shrink_new, old_factor, w_dec = self._normalization(len(drops))
+        score = self._train_scores.score
+        vscores = [vs.score for vs in self._valid_scores]
+        if drops:
+            d_train, d_valid = self._dropped_scores(drops)
+            score = score - d_train
+            vscores = [v - d for v, d in zip(vscores, d_valid)]
+        grown = self._grow_trees(score, shrink_new)
+        if drops:
+            score = score + old_factor * d_train
+            vscores = [v + old_factor * d for v, d in zip(vscores, d_valid)]
+        self._train_scores.score = score + grown.train_delta
+        for vs, v, d in zip(self._valid_scores, vscores, grown.valid_deltas):
+            vs.score = v + d
+        self._store_lids(grown)
+        self._record(grown, shrink_new)
+        if drops:
+            self._rescale_dropped(drops, old_factor, w_dec)
+        if not self.config.uniform_drop:
+            self._tree_weight.append(shrink_new)
+            self._sum_weight += shrink_new
+        self.iter += 1
+        return self._stopped(grown.trees, check_stop)
+
+
+# ---------------------------------------------------------------------------
+# RF (JAX gbdt.py:1789; reference rf.hpp:25)
+# ---------------------------------------------------------------------------
+
+
+class RF(GBDT):
+    """Random forest: bagged, unshrunk trees on the gradients at the init
+    score, averaged."""
+
+    def __init__(self, config: Config, train_set: BinnedDataset,
+                 device: torch.device):
+        if config.bagging_freq <= 0 or config.bagging_fraction >= 1.0:
+            log_fatal("RF mode requires bagging "
+                      "(bagging_freq > 0 and bagging_fraction < 1)")
+        if train_set.metadata.init_score is not None:
+            log_fatal("RF mode does not support init_score (reference "
+                      "rf.hpp:44)")
+        self._init_grads = None
+        super().__init__(config, train_set, device)
+
+    def _rate(self) -> float:
+        return 1.0
+
+    def _tree_bias(self, k: int) -> float:
+        # every tree carries the init score; prediction divides the sum
+        # by the iterations (rf.hpp:136)
+        return float(self._init_scores[k])
+
+    def _gradients(self, score):
+        """The gradients at the constant init score, taken once (each
+        iteration for a stochastic objective)."""
+        if self._init_grads is not None:
+            return self._init_grads
+        init = torch.as_tensor(np.broadcast_to(
+            self._init_scores[None, :], (self.num_data, self.num_class))
+            .astype(np.float32), device=self.device)
+        grads = super()._gradients(init)
+        if not self.objective.is_stochastic:
+            self._init_grads = grads
+        return grads
+
+    def _averaged(self, scores: _ScoreUpdater) -> torch.Tensor:
+        """``init + (sum - init) / iterations`` in f32 (JAX :1868)."""
+        init = torch.as_tensor(self._init_scores[None, :].astype(np.float32),
+                               device=self.device)
+        raw = init + (scores.score - init) / max(self.iter, 1)
+        return raw[:, 0] if self.num_class == 1 else raw
+
+    def _raw_pred(self, scores):
+        return self._averaged(scores).detach().cpu().numpy() \
+            .astype(np.float64)
+
+    def _converted_pred(self, scores):
+        # the JAX package converts the f32 average before the host cast
+        return np.asarray(self.objective.convert_output(
+            self._averaged(scores).detach().cpu().numpy()), np.float64)
+
+
+def create_boosting(config: Config, train_set: BinnedDataset,
+                    device: torch.device) -> GBDT:
+    """The trainer of ``config.boosting`` (JAX :1885; reference
+    Boosting::CreateBoosting, boosting.cpp:37-44)."""
+    if config.stream_enable:
+        raise not_ported("stream_enable (the out-of-core row-block "
+                         "trainer)", PARALLEL)
+    kind = config.boosting
+    if kind in ("gbdt", "gbrt"):
+        return GBDT(config, train_set, device)
+    if kind == "dart":
+        return DART(config, train_set, device)
+    if kind == "goss":
+        return GOSS(config, train_set, device)
+    if kind in ("rf", "random_forest"):
+        return RF(config, train_set, device)
+    log_fatal(f"Unknown boosting type: {kind}")

@@ -27,9 +27,9 @@ package's:
   asynchronously and the host encodes the next chunk while the card
   walks the current one.
 
-Not ported yet (ROADMAP queue 1, item 20): ``predict_method=scan`` and
-row-sharded predict (``num_shards > 1``); both raise
-``NotImplementedError``.
+Not ported yet (ROADMAP queue 1, item 13, row-sharded predict):
+``predict_method=scan`` and row-sharded predict (``num_shards > 1``);
+both raise ``NotImplementedError`` naming that item.
 """
 
 from __future__ import annotations

@@ -290,6 +290,13 @@ class HostTree:
                          else [None] * n_nodes)
         self.shrinkage = float(shrinkage)
 
+    def apply_shrinkage(self, rate: float) -> None:
+        """Scale the leaf and internal values (reference Tree::Shrinkage,
+        tree.h:187-196; JAX tree.py:524)."""
+        self.leaf_value = self.leaf_value * rate
+        self.internal_value = self.internal_value * rate
+        self.shrinkage *= rate
+
     def add_bias(self, val: float) -> None:
         """Fold a constant score into the tree (reference Tree::AddBias,
         tree.h:198-211: embeds the boost-from-average score in the saved

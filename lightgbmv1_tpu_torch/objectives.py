@@ -1,27 +1,32 @@
 """Objectives: training gradients and output transforms.
 
-Port of lightgbmv1_tpu/objectives.py for the ported paths, with
-gradients on torch tensors of the training device:
+Port of lightgbmv1_tpu/objectives.py, with gradients on torch tensors of
+the training device:
 
 * ``ObjectiveFunction`` (:54) and ``create_objective`` (:687);
-* ``RegressionL2`` (:117, with ``reg_sqrt`` and the weighted
-  ``average_label`` :106 as its init score; reference
-  regression_objective.hpp);
+* the regression family: ``RegressionL2`` (:117, with ``reg_sqrt`` and
+  the weighted ``average_label`` :106 as its init score), ``RegressionL1``
+  (:141), ``Huber`` (:154), ``Fair`` (:167), ``Poisson`` (:178),
+  ``Quantile`` (:197), ``Mape`` (:216), ``Gamma`` (:241) and ``Tweedie``
+  (:255), with the weighted quantile ``_np_weighted_quantile`` (:39) as
+  the L1, quantile and mape init scores; L1, quantile and mape renew
+  their leaves after a tree is grown (``renew_percentile`` /
+  ``renew_weights``, models/gbdt.py; reference regression_objective.hpp);
 * ``Binary`` (:278 gradients, :324 ``boost_from_score``; reference
-  binary_objective.hpp);
+  binary_objective.hpp), ``CrossEntropy`` (:336) and
+  ``CrossEntropyLambda`` (:358; reference xentropy_objective.hpp);
 * ``MulticlassSoftmax`` (:389: hessian factor K/(K-1), the log class
   prior as init score) and ``MulticlassOVA`` (:438; reference
   multiclass_objective.hpp), on (N, K) scores;
 * ``LambdarankNDCG`` (:520-607) over the length-bucketed query layout
-  ``_bucket_queries`` (:488; ``_pad_queries`` :467 is the flat one), with
-  the JAX package's stable rank of tied scores (reference
-  rank_objective.hpp);
+  ``_bucket_queries`` (:488), with the JAX package's stable rank of tied
+  scores, and ``RankXENDCG`` (:609) over the flat layout ``_pad_queries``
+  (:467), its ``gamma`` drawn each iteration from the JAX package's
+  ``fold_in(PRNGKey(objective_seed), iteration)`` uniforms (utils/prng.py;
+  reference rank_objective.hpp);
 * ``convert_output``, the output transform of every objective a loaded
   model can name, on host numpy float64 exactly as the JAX package
   computes it for a loaded model.
-
-The other training objectives are not ported yet (ROADMAP queue 1,
-breadth of objectives and boosting).
 """
 
 from __future__ import annotations
@@ -35,6 +40,24 @@ import torch
 from .config import BREADTH, Config, not_ported
 from .io.dataset import Metadata
 from .utils.log import log_fatal
+from .utils.prng import fold_in, prng_key, uniform_1d
+
+
+def _np_weighted_quantile(values: np.ndarray,
+                          weights: Optional[np.ndarray], q: float) -> float:
+    """The weighted ``q`` quantile of the labels (JAX objectives.py:39;
+    reference PercentileFun / WeightedPercentileFun): the ``lower``
+    percentile unweighted, else the first sorted value whose cumulative
+    weight reaches ``q`` of the total."""
+    values = np.asarray(values, dtype=np.float64)
+    if weights is None:
+        return float(np.percentile(values, q * 100, method="lower")
+                     if len(values) else 0.0)
+    order = np.argsort(values)
+    v, w = values[order], np.asarray(weights, dtype=np.float64)[order]
+    cw = np.cumsum(w)
+    idx = int(np.searchsorted(cw, q * cw[-1], side="left"))
+    return float(v[min(idx, len(v) - 1)])
 
 
 def _sigmoid(raw, scale: float = 1.0):
@@ -74,6 +97,11 @@ class ObjectiveFunction:
     subclasses define the elementwise ``_grad_hess``."""
 
     name = "custom"
+    # not None: the leaves are renewed to this quantile of the residuals
+    # after each tree (reference RenewTreeOutput)
+    renew_percentile: Optional[float] = None
+    # get_gradients takes the iteration (rank_xendcg's draw)
+    is_stochastic = False
 
     def __init__(self, config: Config):
         self.config = config
@@ -112,6 +140,10 @@ class ObjectiveFunction:
     def convert_output(self, raw):
         return convert_output(self.config, raw)
 
+    def renew_weights(self) -> Optional[np.ndarray]:
+        """The row weights of the leaf renewal (mape overrides)."""
+        return self._np_weight
+
     @property
     def average_label(self) -> float:
         if self._np_weight is None:
@@ -138,6 +170,158 @@ class RegressionL2(ObjectiveFunction):
 
     def boost_from_score(self, class_id=0):
         return self.average_label if self.config.boost_from_average else 0.0
+
+
+class RegressionL1(ObjectiveFunction):
+    """Absolute error: sign gradients, leaves renewed to the residuals'
+    weighted median (reference RegressionL1loss)."""
+
+    name = "regression_l1"
+    renew_percentile = 0.5
+
+    def _grad_hess(self, s):
+        return torch.sign(s - self.label), torch.ones_like(s)
+
+    def boost_from_score(self, class_id=0):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _np_weighted_quantile(self._np_label, self._np_weight, 0.5)
+
+
+class Huber(ObjectiveFunction):
+    """Huber loss: the residual clipped to +-alpha (reference
+    RegressionHuberLoss)."""
+
+    name = "huber"
+
+    def _grad_hess(self, s):
+        a = self.config.alpha
+        return torch.clamp(s - self.label, -a, a), torch.ones_like(s)
+
+    def boost_from_score(self, class_id=0):
+        return self.average_label if self.config.boost_from_average else 0.0
+
+
+class Fair(ObjectiveFunction):
+    """Fair loss with ``fair_c`` (reference RegressionFairLoss)."""
+
+    name = "fair"
+
+    def _grad_hess(self, s):
+        c = self.config.fair_c
+        d = s - self.label
+        grad = c * d / (torch.abs(d) + c)
+        hess = c * c / (torch.abs(d) + c) ** 2
+        return grad, hess
+
+
+class Poisson(ObjectiveFunction):
+    """Poisson regression on the log scale, the hessian scaled by
+    exp(``poisson_max_delta_step``) (reference RegressionPoissonLoss)."""
+
+    name = "poisson"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if (self._np_label < 0).any():
+            log_fatal("[poisson]: labels must be non-negative")
+
+    def _grad_hess(self, s):
+        es = torch.exp(s)
+        return es - self.label, es * math.exp(
+            self.config.poisson_max_delta_step)
+
+    def boost_from_score(self, class_id=0):
+        return math.log(max(self.average_label, 1e-20))
+
+
+class Quantile(ObjectiveFunction):
+    """Pinball loss at ``alpha``, leaves renewed to that quantile of the
+    residuals (reference RegressionQuantileloss)."""
+
+    name = "quantile"
+
+    @property
+    def renew_percentile(self):
+        return self.config.alpha
+
+    def _grad_hess(self, s):
+        a = self.config.alpha
+        d = s - self.label
+        grad = torch.where(d >= 0, torch.full_like(s, 1.0 - a),
+                           torch.full_like(s, -a))
+        return grad, torch.ones_like(s)
+
+    def boost_from_score(self, class_id=0):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _np_weighted_quantile(self._np_label, self._np_weight,
+                                     self.config.alpha)
+
+
+class Mape(ObjectiveFunction):
+    """Absolute percentage error: each row weighted 1 / max(|y|, 1) (times
+    its weight), leaves renewed to the weighted median (reference
+    RegressionMAPELOSS)."""
+
+    name = "mape"
+    renew_percentile = 0.5
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        self._label_weight = 1.0 / np.maximum(np.abs(self._np_label), 1.0)
+        if self._np_weight is not None:
+            self._label_weight = self._label_weight * self._np_weight
+        self._t_label_weight = torch.as_tensor(
+            self._label_weight.astype(np.float32), device=device)
+
+    def get_gradients(self, s):
+        grad = torch.sign(s - self.label) * self._t_label_weight
+        return grad, self._t_label_weight.clone()
+
+    def renew_weights(self):
+        return self._label_weight
+
+    def boost_from_score(self, class_id=0):
+        if not self.config.boost_from_average:
+            return 0.0
+        return _np_weighted_quantile(self._np_label, self._label_weight, 0.5)
+
+
+class Gamma(Poisson):
+    """Gamma regression on the log scale (reference RegressionGammaLoss)."""
+
+    name = "gamma"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        ObjectiveFunction.init(self, metadata, num_data, device)
+        if (self._np_label <= 0).any():
+            log_fatal("[gamma]: labels must be positive")
+
+    def _grad_hess(self, s):
+        e = torch.exp(-s)
+        return 1.0 - self.label * e, self.label * e
+
+
+class Tweedie(Poisson):
+    """Tweedie regression with ``tweedie_variance_power`` (reference
+    RegressionTweedieLoss)."""
+
+    name = "tweedie"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        ObjectiveFunction.init(self, metadata, num_data, device)
+        if (self._np_label < 0).any():
+            log_fatal("[tweedie]: labels must be non-negative")
+
+    def _grad_hess(self, s):
+        rho = self.config.tweedie_variance_power
+        y = self.label
+        e1 = torch.exp((1.0 - rho) * s)
+        e2 = torch.exp((2.0 - rho) * s)
+        grad = -y * e1 + e2
+        hess = -y * (1.0 - rho) * e1 + (2.0 - rho) * e2
+        return grad, hess
 
 
 class Binary(ObjectiveFunction):
@@ -185,6 +369,48 @@ class Binary(ObjectiveFunction):
             return 0.0
         # log(p / (1 - p)) / sigmoid (binary_objective.hpp BoostFromScore)
         return math.log(self._pavg / (1.0 - self._pavg)) / self.config.sigmoid
+
+
+class CrossEntropy(ObjectiveFunction):
+    """Cross-entropy on labels in [0, 1] (reference CrossEntropy)."""
+
+    name = "cross_entropy"
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if ((self._np_label < 0) | (self._np_label > 1)).any():
+            log_fatal("[cross_entropy]: labels must be in [0, 1]")
+
+    def _grad_hess(self, s):
+        p = torch.sigmoid(s)
+        return p - self.label, p * (1.0 - p)
+
+    def boost_from_score(self, class_id=0):
+        p = min(max(self.average_label, 1e-15), 1 - 1e-15)
+        return math.log(p / (1 - p))
+
+
+class CrossEntropyLambda(ObjectiveFunction):
+    """The intensity parameterization z = log1p(exp(s)) of cross-entropy
+    with the JAX package's gradient and its positive hessian surrogate
+    (reference xentropy_objective.hpp:148)."""
+
+    name = "cross_entropy_lambda"
+
+    def _grad_hess(self, s):
+        y = self.label
+        es = torch.exp(s)
+        z = torch.log1p(es)
+        enz = torch.exp(-z)
+        grad = es / (1.0 + es) * (
+            1.0 - y / torch.clamp(z, min=1e-20) * (1 - enz)
+            / torch.clamp(1 - enz + z * enz, min=1e-20))
+        hess = es / (1.0 + es) ** 2 + 1e-6
+        return grad, hess
+
+    def boost_from_score(self, class_id=0):
+        p = min(max(self.average_label, 1e-15), 1 - 1e-15)
+        return math.log(math.expm1(p)) if p > 1e-10 else math.log(p)
 
 
 class MulticlassSoftmax(ObjectiveFunction):
@@ -366,12 +592,73 @@ class LambdarankNDCG(ObjectiveFunction):
         return grad, torch.clamp(hess, min=1e-20)
 
 
-_OBJECTIVES = {"regression": RegressionL2, "binary": Binary,
-               "multiclass": MulticlassSoftmax,
-               "multiclassova": MulticlassOVA, "lambdarank": LambdarankNDCG}
+class RankXENDCG(ObjectiveFunction):
+    """The cross-entropy NDCG surrogate (reference rank_objective.hpp:288):
+    each document's target 2^trunc(label) - gamma with gamma ~ U(0, 1)
+    drawn anew each iteration, ``uniform(fold_in(PRNGKey(objective_seed),
+    iteration), (N,))``, as the JAX package draws it; softmax over each
+    query's scores."""
+
+    name = "rank_xendcg"
+    is_stochastic = True
+
+    def init(self, metadata, num_data, device=torch.device("cpu")):
+        super().init(metadata, num_data, device)
+        if metadata.query_boundaries is None:
+            log_fatal("[rank_xendcg]: query data (group) is required")
+        self.qb = np.asarray(metadata.query_boundaries, dtype=np.int64)
+        idx, mask = _pad_queries(self.qb)
+        self.q_idx = torch.as_tensor(idx, device=device)
+        self.q_mask = torch.as_tensor(mask, device=device)
+        self._pow2 = torch.as_tensor(
+            np.power(2.0, np.trunc(self._np_label)).astype(np.float32),
+            device=device)
+        self._seed_key = prng_key(self.config.objective_seed)
+        self._host_iter = 0
+
+    def get_gradients(self, s, iteration: Optional[int] = None):
+        if iteration is None:        # a caller without an iteration count
+            iteration = self._host_iter
+            self._host_iter += 1
+        gamma = uniform_1d(fold_in(self._seed_key, int(iteration)),
+                           s.shape[0], s.device)
+        phi_doc = self._pow2 - gamma
+        q_idx, q_mask = self.q_idx, self.q_mask
+        scores = torch.where(q_mask, s[q_idx],
+                             torch.full((), float("-inf"), device=s.device))
+        phi = torch.where(q_mask, phi_doc[q_idx],
+                          torch.zeros((), device=s.device))
+        rho = torch.softmax(scores, dim=1)
+        phi_sum = phi.sum(dim=1, keepdim=True)
+        l1 = torch.where(phi_sum > 0, phi / torch.clamp(phi_sum, min=1e-20),
+                         torch.zeros((), device=s.device))
+        grad_q = rho - l1
+        hess_q = rho * (1.0 - rho)
+        grad = torch.zeros_like(s)
+        hess = torch.zeros_like(s)
+        rows = q_idx[q_mask]                   # each row in one query once
+        grad[rows] = grad_q[q_mask]
+        hess[rows] = hess_q[q_mask]
+        return grad, torch.clamp(hess, min=1e-20)
+
+
+_OBJECTIVES = {
+    "regression": RegressionL2, "regression_l1": RegressionL1,
+    "huber": Huber, "fair": Fair, "poisson": Poisson, "quantile": Quantile,
+    "mape": Mape, "gamma": Gamma, "tweedie": Tweedie, "binary": Binary,
+    "multiclass": MulticlassSoftmax, "multiclassova": MulticlassOVA,
+    "cross_entropy": CrossEntropy,
+    "cross_entropy_lambda": CrossEntropyLambda,
+    "lambdarank": LambdarankNDCG, "rank_xendcg": RankXENDCG}
 
 
 def create_objective(config: Config) -> ObjectiveFunction:
+    """The objective of ``config.objective`` (JAX :687); an unknown name
+    is fatal, as there.  The JAX package's objective-less names (``none``,
+    ``custom``, ...) train a custom objective, which is not ported."""
+    if config.objective in ("none", "null", "custom", "na"):
+        raise not_ported(f"objective={config.objective} (custom "
+                         "objectives)", BREADTH)
     if config.objective not in _OBJECTIVES:
-        raise not_ported(f"objective={config.objective}", BREADTH)
+        log_fatal(f"Unknown objective: {config.objective}")
     return _OBJECTIVES[config.objective](config)

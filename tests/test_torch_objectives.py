@@ -1,5 +1,7 @@
-"""The port's regression, multiclass and lambdarank objectives held
-against the JAX package's.
+"""The port's objectives held against the JAX package's: regression
+(L2, L1, huber, fair, poisson, quantile, mape, gamma, tweedie), the two
+cross-entropies, multiclass, lambdarank and rank_xendcg (binary:
+test_torch_train.py).
 
 Both packages see the same numpy labels, weights, query groups and
 scores: the JAX objective on ``jax.numpy`` arrays, the port's on CPU
@@ -51,8 +53,16 @@ def _queries(rng, n):
 def _labels(objective, rng, n):
     if objective in ("multiclass", "multiclassova"):
         return rng.randint(0, 4, n).astype(np.float64)
-    if objective == "lambdarank":
+    if objective in ("lambdarank", "rank_xendcg"):
         return rng.randint(0, 5, n).astype(np.float64)
+    if objective in ("poisson", "tweedie"):        # counts, zeros included
+        return rng.poisson(2.0, n).astype(np.float64)
+    if objective == "gamma":
+        return rng.gamma(2.0, 1.5, n)
+    if objective in ("cross_entropy", "cross_entropy_lambda"):
+        y = rng.rand(n)
+        y[:50] = np.round(y[:50])                 # the ends of [0, 1]
+        return y
     return rng.randn(n) * 3.0 + 1.0
 
 
@@ -61,7 +71,8 @@ def _both(params, seed=0, weighted=False):
     rng = np.random.RandomState(seed)
     y = _labels(params["objective"], rng, N)
     w = rng.rand(N) + 0.5 if weighted else None
-    group = (_queries(rng, N) if params["objective"] == "lambdarank"
+    group = (_queries(rng, N)
+             if params["objective"] in ("lambdarank", "rank_xendcg")
              else None)
     jmeta = JMetadata(label=y.astype(np.float32),
                       weight=None if w is None else w.astype(np.float32))
@@ -194,3 +205,90 @@ def test_convert_output_matches_jax():
         # the JAX reg_sqrt transform runs in jnp's float32
         np.testing.assert_allclose(got, want, rtol=1e-6 if params.get(
             "reg_sqrt") else 1e-12)
+
+
+_BREADTH = [
+    ({"objective": "regression_l1"}, False),
+    ({"objective": "regression_l1"}, True),
+    ({"objective": "regression_l1", "boost_from_average": False}, False),
+    ({"objective": "huber", "alpha": 1.5}, False),
+    ({"objective": "huber"}, True),
+    ({"objective": "fair", "fair_c": 0.5}, True),
+    ({"objective": "poisson"}, False),
+    ({"objective": "poisson", "poisson_max_delta_step": 0.3}, True),
+    ({"objective": "quantile", "alpha": 0.3}, False),
+    ({"objective": "quantile"}, True),
+    ({"objective": "mape"}, False),
+    ({"objective": "mape"}, True),
+    ({"objective": "gamma"}, True),
+    ({"objective": "tweedie", "tweedie_variance_power": 1.2}, False),
+    ({"objective": "cross_entropy"}, True),
+    ({"objective": "cross_entropy_lambda"}, False)]
+
+
+@pytest.mark.parametrize("params,weighted", _BREADTH, ids=[
+    "l1", "l1-weighted", "l1-no-average", "huber-alpha", "huber-weighted",
+    "fair-weighted", "poisson", "poisson-delta-weighted", "quantile-0.3",
+    "quantile-weighted", "mape", "mape-weighted", "gamma-weighted",
+    "tweedie-1.2", "xentropy-weighted", "xentlambda"])
+def test_breadth_gradients_and_boost_from_score_match_jax(params,
+                                                          weighted):
+    """The regression family and the cross-entropies: gradients and
+    hessians at the init score and at random scores, the init score
+    (L1 / quantile / mape: the weighted quantile of the labels) and the
+    leaf-renewal quantile and weights."""
+    jobj, tobj, _ = _both(params, seed=5, weighted=weighted)
+    assert abs(jobj.boost_from_score(0) - tobj.boost_from_score(0)) <= 1e-12
+    assert tobj.renew_percentile == jobj.renew_percentile
+    jw, tw = jobj.renew_weights(), tobj.renew_weights()
+    assert (jw is None) == (tw is None)
+    if jw is not None:
+        np.testing.assert_array_equal(tw, jw)
+    rng = np.random.RandomState(6)
+    init = np.full(N, tobj.boost_from_score(0), np.float32)
+    for s in (init, (rng.randn(N) * 2).astype(np.float32)):
+        _assert_grads(jobj, tobj, s)
+
+
+@pytest.mark.parametrize("iteration", [0, 1, 7])
+def test_rank_xendcg_gradients_match_jax(iteration):
+    """The gamma draw of each iteration (``fold_in(PRNGKey(
+    objective_seed), iteration)``) and the per-query softmax, at random
+    scores and at the tied init score."""
+    params = {"objective": "rank_xendcg", "objective_seed": 11}
+    jobj, tobj, _ = _both(params, seed=7)
+    rng = np.random.RandomState(8)
+    for s in (np.zeros(N, np.float32), rng.randn(N).astype(np.float32)):
+        jg, jh = map(np.asarray, jobj.get_gradients(
+            jnp.asarray(s), iteration=iteration))
+        tg, th = (a.numpy() for a in tobj.get_gradients(
+            torch.from_numpy(s), iteration=iteration))
+        for got, want in ((tg, jg), (th, jh)):
+            np.testing.assert_allclose(got, want, rtol=1e-6,
+                                       atol=1e-7 * float(np.abs(want).max()))
+    assert tobj.is_stochastic and tobj.boost_from_score(0) == 0.0
+
+
+@pytest.mark.parametrize("params,label,group,match", [
+    ({"objective": "poisson"}, [0, 1, -1], None, "non-negative"),
+    ({"objective": "tweedie"}, [0, 1, -1], None, "non-negative"),
+    ({"objective": "gamma"}, [1, 2, 0], None, "positive"),
+    ({"objective": "cross_entropy"}, [0, 0.5, 1.5], None, r"\[0, 1\]"),
+    ({"objective": "rank_xendcg"}, [0, 1, 2], None, "group")],
+    ids=["poisson", "tweedie", "gamma", "xentropy", "xendcg-group"])
+def test_breadth_bad_labels_raise(params, label, group, match):
+    test_bad_labels_raise(params, label, group, match)
+
+
+@pytest.mark.parametrize("objective", [
+    "regression_l1", "huber", "fair", "poisson", "quantile", "mape",
+    "gamma", "tweedie", "cross_entropy", "cross_entropy_lambda",
+    "rank_xendcg"])
+def test_breadth_convert_output_matches_jax(objective):
+    raw = np.random.RandomState(9).randn(200)
+    jobj = jobjectives.create_objective(JConfig.from_dict(
+        {"objective": objective}))
+    np.testing.assert_allclose(
+        tobjectives.convert_output(Config.from_dict({"objective": objective}),
+                                   raw),
+        np.asarray(jobj.convert_output(raw)), rtol=1e-12)

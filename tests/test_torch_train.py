@@ -390,16 +390,16 @@ def test_golden_zero_as_missing_training_parity():
 
 
 _UNPORTED_CASES = [
-    ({"objective": "huber"}, tconfig.BREADTH),
-    ({"objective": "rank_xendcg"}, tconfig.BREADTH),
-    ({"objective": "poisson"}, tconfig.BREADTH),
-    ({"boosting": "dart"}, tconfig.BREADTH),
-    ({"boosting": "goss"}, tconfig.BREADTH),
-    ({"boosting": "rf"}, tconfig.BREADTH),
+    ({"snapshot_freq": 5}, tconfig.BREADTH),
+    ({"finite_guard": "clamp"}, tconfig.BREADTH),
+    ({"saved_feature_importance_type": 1}, tconfig.BREADTH),
+    ({"max_bin_by_feature": [15] * 6}, tconfig.BREADTH),
+    ({"forcedbins_filename": "bins.json"}, tconfig.BREADTH),
+    ({"max_cat_to_onehot": 8}, tconfig.BREADTH),
     ({"tree_learner": "data"}, tconfig.PARALLEL),
     ({"forcedsplits_filename": "forced.json"}, tconfig.BREADTH),
     ({"cegb_penalty_feature_lazy": [0.5] * 6}, tconfig.BREADTH),
-    ({"objective": "huber"}, tconfig.BREADTH),
+    ({"cegb_tradeoff": 0.5}, tconfig.BREADTH),
     ({"interaction_constraints": "[0,1]"}, tconfig.BREADTH),
     ({"cegb_penalty_split": 0.1}, tconfig.BREADTH),
     ({"categorical_feature": "0"}, tconfig.BREADTH)]
@@ -416,6 +416,37 @@ def test_unported_configurations_raise(params, item):
                        match=re.escape(f"ROADMAP queue 1, {item}") + "$"):
         lt.train({**BASE, "num_leaves": 15, **params},
                  lt.Dataset(X, label=y), 2, device="cpu")
+
+
+# the objectives and boosting modes the list above refused until the
+# breadth slice ported them (ROADMAP queue 1, item 1, parts 1.2-1.3):
+# they train now
+_BREADTH_CASES = [
+    {"objective": "huber"},
+    {"objective": "rank_xendcg"},
+    {"objective": "poisson"},
+    {"boosting": "dart"},
+    {"boosting": "goss"},
+    {"boosting": "rf", "bagging_fraction": 0.5, "bagging_freq": 1},
+    {"objective": "huber", "alpha": 0.5}]
+
+
+@pytest.mark.parametrize("params", _BREADTH_CASES, ids=[
+    "huber", "rank_xendcg", "poisson", "dart", "goss", "rf",
+    "huber-alpha"])
+def test_ported_objective_and_boosting_configurations(params):
+    """Two iterations on the CPU with finite predictions, each a model
+    other than the default one (test_torch_boosting.py and
+    test_torch_objective_training.py hold them to the JAX package)."""
+    X, y = _data(13, 512)
+    kw = ({"group": np.full(32, 16)}
+          if params.get("objective") == "rank_xendcg" else {})
+    b = lt.train({**BASE, "num_leaves": 15, **params},
+                 lt.Dataset(X, label=y, **kw), 2, device="cpu")
+    assert np.isfinite(b.predict(X)).all() and b.num_trees() == 2
+    plain = lt.train({**BASE, "num_leaves": 15}, lt.Dataset(X, label=y), 2,
+                     device="cpu")
+    assert b.model_to_string() != plain.model_to_string()
 
 
 # the cases of the list above that this slice ports: they train now (the
