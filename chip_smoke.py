@@ -448,12 +448,40 @@ Phases (any failure exits non-zero with no ``ok`` line):
               through K4 within the serving tolerance; f32 card against
               CPU splits identical at 65,536 rows (40,000 ranked rows)
               for regression_l1 (leaf renewal), poisson and rank_xendcg.
+44. lifecycle — phase 8's bins, the headline staged with
+              finite_guard=raise (which must stay silent): 10 iterations
+              in one go, and 5, ``save_checkpoint``, a fresh Booster
+              ``resume_from_checkpoint`` and 5 more: the model texts byte
+              for byte, the valid scores bit for bit, K1 and K3 (a tree)
+              launched and no plain version; ``rollback_one_iter`` gives
+              the 9-iteration text; ``train(init_model=<5-iteration
+              text>)`` trains 5 more on the card, its score seed through
+              K5; ``refit`` on the valid rows keeps every tree's structure
+              and launches K5.  Checkpoint size and write / resume time.
+45. EFB       — 131,072 + 131,072 rows of ``make_efb_data`` (bench.py's
+              28 features beside 8 one-hot groups of 16 levels, from
+              ``--seed``), binned dense and from ``scipy.sparse`` CSR
+              (host seconds each): fewer bundle columns than features
+              (the CSR set never dense); K1 on the bundle matrix against
+              its plain versions (as in phase 9, at L = 1, 17, 64 and on
+              the path's last inputs); K3's bundle leg on two synthetic
+              trees (tables in shared and in device memory) bitwise its
+              plain version, the u8 leg on the unbundled bins and the
+              tree walk; 10 staged headline iterations on the bundle
+              columns with a bundled valid set: K3's bundle leg once a
+              tree (the u8 leg never), valid AUC within 2e-3 of
+              enable_bundle=false, the CSR construction's model text the
+              dense one's byte for byte; K3's bundle leg timed on the
+              path's last routing (L2 cleared) beside its u8 leg and its
+              bound, K1 at its last 64-slot call beside the unbundled
+              matrix.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
               kernels, the split-scan kernel, the pick kernel, the
-              split scan's extra_trees and wide legs, K3's 16-bit leg,
-              K4, K5) is printed; K1's row carries phases 22-25's K1
-              shapes too (``paths``) and phase 41's one-hot path beside
-              it (``onehot``), K1, K2, K3 and K6 a ``packed`` record, K1,
+              split scan's extra_trees and wide legs, K3's 16-bit and
+              bundle legs, K4, K5) is printed; K1's row carries phases
+              22-25's K1 shapes too (``paths``), phase 41's one-hot path
+              beside it (``onehot``) and phase 45's bundle matrix
+              (``bundle``), K1, K2, K3 and K6 a ``packed`` record, K1,
               K2 and K6 an ``int8sr`` one and an ``int8`` one, and K2
               and K6 a ``constrained`` one.
 
@@ -481,6 +509,7 @@ import torch
 
 from lightgbmv1_tpu_torch import Booster, Dataset, objectives, train
 from lightgbmv1_tpu_torch.config import Config
+from lightgbmv1_tpu_torch.io import bundle as bundle_mod
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
                                              MISSING_ZERO)
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
@@ -2111,11 +2140,14 @@ def phase_k3_synthetic(binned, meta, rng) -> list:
 K3_SMEM_BYTES = 48 * 1024     # csrc/wave_fused.cu kRouteSmemBytes
 
 
-def k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=False):
+def k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=False,
+             bundle=None):
     """K3's bound by bytes on one call from the root: each row's leaf id
     read (4 B) and written (4 B), one bin byte for each round in which
     its leaf splits (this run's rows, counted round by round with the
-    plain version), and the tables read once (feats, rmeta, offsets)."""
+    plain version; a bundle-bin byte under ``bundle``), and the tables
+    read once (feats, rmeta, offsets, and the bundle leg's (5, F)
+    table)."""
     N = binned.shape[1]
     lids = torch.zeros(N, dtype=torch.int32, device=binned.device)
     bounds = offsets.tolist()
@@ -2126,9 +2158,10 @@ def k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=False):
         splits[rmeta[o0:o1, 0].long()] = True
         reads += int(splits[lids.long()].sum())
         lids = fc.route_rows_ref(binned, lids, feats[o0:o1], rmeta[o0:o1],
-                                 num_leaves, packed)
+                                 num_leaves, packed, bundle=bundle)
     nbytes = N * 8 + reads + 4 * (feats.numel() + rmeta.numel()
-                                  + offsets.numel())
+                                  + offsets.numel()) + (
+        0 if bundle is None else 4 * bundle.table.numel())
     return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": nbytes, "bin_reads": reads}
 
@@ -2203,13 +2236,14 @@ class FusedRecorder:
             return out
 
         def route(binned, lids, feats, rmeta, num_leaves, packed=False,
-                  offsets=None):
+                  offsets=None, bundle=None):
             args = (binned, lids, feats, rmeta, num_leaves, offsets)
             if packed:
                 self.packed_route = args
-            else:
+            elif bundle is None:
                 self.route = args
-            return self._orig[1](*args[:5], packed=packed, offsets=offsets)
+            return self._orig[1](*args[:5], packed=packed, offsets=offsets,
+                                 bundle=bundle)
 
         fc.fused_round, fc.route_rows = fused, route
         return self
@@ -6510,6 +6544,411 @@ def objective_run(objective, params, ds, dv, Xv, iters, dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# the model lifecycle (phase 44); EFB on dense and CSR data (phase 45)
+# ---------------------------------------------------------------------------
+
+LIFE_ITERS = 10
+# the headline, staged, with the finite guard armed: it reads one scalar
+# an iteration and must stay silent
+LIFE_PARAMS = dict(TRAIN_PARAMS, finite_guard="raise")
+EFB_ROWS = 131072
+EFB_GROUPS, EFB_LEVELS = 8, 16
+EFB_ITERS = 10
+EFB_AUC_TOL = 2e-3          # bundled beside unbundled valid AUC
+K3_ROUTE_KERNELS = ("route_kernel", "route_global_kernel",
+                    "route_tables_kernel")
+
+
+def grown_trees(booster, skip=0) -> int:
+    """The trees of more than one leaf a booster grew, past the first
+    ``skip`` (restored from a checkpoint, not grown)."""
+    return sum(int(t.num_leaves) > 1
+               for t in booster._gbdt._device_trees[skip:])
+
+
+def same_structures(a, b) -> bool:
+    """Every node of two tree lists splits alike."""
+    return len(a) == len(b) and all(
+        ta.num_leaves == tb.num_leaves and all(
+            np.array_equal(getattr(ta, f), getattr(tb, f))
+            for f in ("split_feature", "threshold_bin", "default_left",
+                      "left_child", "right_child"))
+        for ta, tb in zip(a, b))
+
+
+def phase_lifecycle(ds, dv, iters, dev) -> dict:
+    """Phase 44: on phase 8's bins, the headline staged with
+    finite_guard=raise: ``iters`` iterations in one go; ``iters / 2``, a
+    checkpoint, a fresh Booster resumed for the rest (the model texts
+    byte for byte, the valid scores bit for bit); ``rollback_one_iter``
+    giving the text of ``iters - 1`` iterations; ``init_model`` from the
+    half-way text training on (its score seed through K5); ``refit`` on
+    the valid rows keeping every structure (K5).  Counts reset before
+    each part and read after it."""
+    out = {}
+    reset_counts()
+    t0 = time.perf_counter()
+
+    def booster():
+        b = Booster(LIFE_PARAMS, train_set=ds, **_on(dev))
+        b.add_valid(dv, "v")
+        return b
+
+    straight = booster()
+    for _ in range(iters):
+        straight.update()
+    _sync(dev)
+    out["straight_s"] = time.perf_counter() - t0
+    text = straight.model_to_string()
+    text_before = straight.model_to_string(num_iteration=iters - 1)
+    half = iters // 2
+    part = booster()
+    for _ in range(half):
+        part.update()
+    half_text = part.model_to_string()
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    ckpt = os.path.join(_build.BUILD_DIR, "smoke_state.ckpt")
+    t1 = time.perf_counter()
+    part.save_checkpoint(ckpt)
+    out["checkpoint_write_s"] = time.perf_counter() - t1
+    out["checkpoint_bytes"] = os.path.getsize(ckpt)
+    t1 = time.perf_counter()
+    resumed = booster().resume_from_checkpoint(ckpt)
+    out["checkpoint_resume_s"] = time.perf_counter() - t1
+    for _ in range(iters - half):
+        resumed.update()
+    _sync(dev)
+    counts, plain = boost_counts(), plain_calls()
+    want_k3 = grown_trees(straight) + grown_trees(part) \
+        + grown_trees(resumed, half)
+    check(resumed.model_to_string() == text, "lifecycle: the resumed model "
+          "text differs from the uninterrupted one")
+    check(torch.equal(resumed._gbdt._valid_scores[0].score,
+                      straight._gbdt._valid_scores[0].score),
+          "lifecycle: the resumed valid scores differ")
+    check(counts["k1"] > 0 and counts["k3"] == want_k3,
+          f"lifecycle: K1 {counts['k1']}, K3 {counts['k3']} for {want_k3} "
+          "trees")
+    check(not any(plain.values()), f"lifecycle: a plain version ran: "
+          f"{plain}")
+    log(f"  {iters} iterations straight in {out['straight_s']:.2f} s; "
+        f"{half} + checkpoint ({out['checkpoint_bytes']} bytes, written in "
+        f"{out['checkpoint_write_s']:.2f} s, resumed in "
+        f"{out['checkpoint_resume_s']:.2f} s) + {iters - half}: the model "
+        "text byte for byte, the valid scores bit for bit; "
+        "finite_guard=raise silent; launches " + json.dumps(counts))
+    straight.rollback_one_iter()
+    check(straight.model_to_string() == text_before, "lifecycle: the "
+          f"rolled-back text is not the {iters - 1}-iteration text")
+    log(f"  rollback_one_iter: the {iters - 1}-iteration model text")
+    out.update(text_hash(text, "lifecycle"), resumed_same_text=True,
+               rollback_same_text=True, launches=counts)
+
+    path = os.path.join(_build.BUILD_DIR, "smoke_half.txt")
+    with open(path, "w") as fh:
+        fh.write(half_text)
+    reset_counts()
+    ev = {}
+    t1 = time.perf_counter()
+    cont = train(LIFE_PARAMS, ds, iters - half, init_model=path,
+                 valid_sets=[dv], evals_result=ev, **_on(dev))
+    _sync(dev)
+    counts = dict(boost_counts(), k5=pc.launch_counts["serving_leaf"])
+    auc = ev["valid_0"]["auc"][-1]
+    out["init_model"] = {"seconds": time.perf_counter() - t1,
+                         "valid_auc": auc, "launches": counts}
+    check(cont.num_trees() == iters, f"init_model: {cont.num_trees()} trees")
+    check(counts["k1"] > 0 and counts["k5"] >= 2, "init_model: K1 or the "
+          f"score seed's K5 never launched: {counts}")
+    check(not any(plain_calls().values()), "init_model: a plain version "
+          "ran")
+    log(f"  init_model from the {half}-iteration text: {iters - half} "
+        f"iterations on, valid AUC {auc:.5f}; launches "
+        + json.dumps(counts))
+
+    reset_counts()
+    Xv, yv = dv.data, dv.get_label()
+    t1 = time.perf_counter()
+    refit = straight.refit(Xv, yv, decay_rate=0.9)
+    out["refit"] = {"seconds": time.perf_counter() - t1,
+                    "k5_launches": pc.launch_counts["serving_leaf"]}
+    before, after = straight._all_trees(), refit._all_trees()
+    check(same_structures(before, after), "refit changed a tree's "
+          "structure")
+    check(out["refit"]["k5_launches"] > 0, "refit: K5 never launched")
+    moved = max(float(np.abs(a.leaf_value - b.leaf_value).max())
+                for a, b in zip(before, after))
+    check(np.isfinite(refit.predict(Xv)).all() and moved > 0,
+          "refit: no leaf moved or a prediction is not finite")
+    log(f"  refit on {len(yv)} valid rows in {out['refit']['seconds']:.2f} s:"
+        f" {len(after)} structures kept, leaves moved up to {moved:.3e}; "
+        f"K5 launches {out['refit']['k5_launches']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def make_efb_data(n, seed):
+    """``make_data``'s 28 standard-normal features beside EFB_GROUPS
+    one-hot groups of EFB_LEVELS levels (each row one level a group: the
+    group's columns are exclusive), the label a noisy logit of
+    ``headline_logit`` plus each group's level effect, all from
+    ``seed``."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F).astype(np.float32)
+    cats = rng.randint(0, EFB_LEVELS, (n, EFB_GROUPS))
+    effect = 0.5 * rng.randn(EFB_GROUPS, EFB_LEVELS)
+    onehot = np.zeros((n, EFB_GROUPS * EFB_LEVELS), np.float32)
+    onehot[np.arange(n)[:, None],
+           np.arange(EFB_GROUPS) * EFB_LEVELS + cats] = 1.0
+    logit = headline_logit(X) + effect[np.arange(EFB_GROUPS), cats].sum(1)
+    y = (logit + rng.randn(n) > 0).astype(np.float64)
+    return np.hstack([X, onehot]), y
+
+
+@contextlib.contextmanager
+def last_route_call():
+    """The arguments of the wave grower's last valid routing (a tree's
+    splits, its rounds' offsets, the bundle arrays, the valid bins)."""
+    rec, orig = {}, grower_wave.fused_route_rows
+
+    def spy(row_sets, **kw):
+        rec.update(kw, binned=row_sets[0][0])
+        return orig(row_sets, **kw)
+
+    grower_wave.fused_route_rows = spy
+    try:
+        yield rec
+    finally:
+        grower_wave.fused_route_rows = orig
+
+
+def check_k3_bundle(tag, bundled, binned, ba, feats, rmeta, offsets, nl,
+                    tree, meta) -> list:
+    """K3's bundle leg on one tree's rounds from the root, at all rows and
+    at the first K3_HEAD_ROWS: leaf ids bitwise its plain version (the
+    bundle decode round after round), a second launch, the u8 leg on the
+    unbundled bins and the tree walk through the bundle decode."""
+    out = []
+    P, R = rmeta.shape[0], offsets.shape[0] - 1
+    smem = 4 * (P * (wf.RMETA_COLS + 3 + fc.BUNDLE_DEC_INTS) + R + 1) \
+        <= K3_SMEM_BYTES
+    for n in (bundled.shape[1], K3_HEAD_ROWS):
+        b = bundled[:, :n].contiguous()
+        lids = torch.zeros(n, dtype=torch.int32, device=b.device)
+        args = (b, lids, feats, rmeta, nl)
+        got = fc.route_rows(*args, offsets=offsets, bundle=ba)
+        check(torch.equal(got, fc.route_rows(*args, offsets=offsets,
+                                             bundle=ba)),
+              f"K3 bundle {tag} N={n}: two launches differ")
+        check(torch.equal(got, fc.route_rows_ref(*args, offsets=offsets,
+                                                 bundle=ba)),
+              f"K3 bundle {tag} N={n}: differs from its plain version")
+        check(torch.equal(got, fc.route_rows(
+            binned[:, :n].contiguous(), lids, feats, rmeta, nl,
+            offsets=offsets)), f"K3 bundle {tag} N={n}: differs from the u8 "
+            "leg on the unbundled bins")
+        walk = tree_leaf_index_binned(tree, b, meta.nan_bin,
+                                      meta.missing_type, meta.zero_bin,
+                                      bundle=ba)
+        check(torch.equal(got, walk.to(torch.int32)),
+              f"K3 bundle {tag} N={n}: differs from the tree walk")
+        moved = int((got != 0).sum())
+        log(f"  K3 bundle leg {tag}, {n} rows, {P} splits in {R} rounds "
+            f"(tables in {'shared' if smem else 'device'} memory): {moved} "
+            "rows off the root; bitwise the plain version, the u8 leg and "
+            "the tree walk")
+        out.append({"case": f"{tag} N={n}", "splits": P, "rounds": R,
+                    "tables_in_shared_memory": smem, "rows_moved": moved,
+                    "max_abs_err": 0.0})
+    return out
+
+
+def efb_run(tag, params, dtrain, dvalid, iters, dev):
+    """A recorded EFB training (counts reset before, read after)."""
+    reset_counts()
+    ev = {}
+    with HistRecorder() as rec, last_route_call() as route:
+        t0 = time.perf_counter()
+        bst = train(params, dtrain, iters, valid_sets=[dvalid],
+                    evals_result=ev, **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t0
+    counts = dict(boost_counts(), k3_bundle=fc.bundle_launch_counts[
+        "route_rows"])
+    auc = ev["valid_0"]["auc"][-1]
+    res = {"seconds": secs, "s_per_iter": secs / iters, "valid_auc": auc,
+           "launches": counts, **text_hash(bst.model_to_string(), tag)}
+    log(f"  {tag}: {iters} iterations in {secs:.2f} s, valid AUC "
+        f"{auc:.5f}; launches {json.dumps(counts)}")
+    check(not any(plain_calls().values()), f"{tag}: a plain version ran")
+    check(counts["k1"] > 0, f"{tag}: K1 never launched")
+    return bst, res, rec, route
+
+
+def phase_efb(dev, seed, rng) -> dict:
+    """Phase 45: EFB_ROWS + VALID_ROWS rows of ``make_efb_data`` binned
+    dense and as CSR (host time); bundles form; K1 on the bundle matrix
+    and K3's bundle leg against their plain versions; EFB_ITERS staged
+    iterations at the headline on the bundle columns beside
+    enable_bundle=false (valid AUC), the CSR construction training the
+    dense one's model text; K3's bundle leg launched once a tree."""
+    import scipy.sparse as sps
+
+    out, t0 = {}, time.perf_counter()
+    X, y = make_efb_data(EFB_ROWS, seed + 40)
+    Xv, yv = make_efb_data(VALID_ROWS, seed + 41)
+    t1 = time.perf_counter()
+    ds = Dataset(X, label=y, params=TRAIN_PARAMS).construct()
+    dv = Dataset(Xv, label=yv, reference=ds).construct()
+    out["dense_binning_s"] = time.perf_counter() - t1
+    csr, csrv = sps.csr_matrix(X), sps.csr_matrix(Xv)
+    t1 = time.perf_counter()
+    dcs = Dataset(csr, label=y, params=TRAIN_PARAMS).construct()
+    dcv = Dataset(csrv, label=yv, reference=dcs).construct()
+    out["csr_binning_s"] = time.perf_counter() - t1
+    b = ds._binned
+    BF, Fo = b.bundled.shape[0], b.num_features
+    check(b.bundle_layout is not None and BF < Fo,
+          f"EFB: {BF} bundle columns for {Fo} features")
+    check(dcs._binned.binned is None and dcs._binned.bundled is not None,
+          "EFB: the CSR construction formed a dense matrix")
+    out.update(features=Fo, bundle_columns=BF,
+               bundle_bin_axis=b.padded_bundle_bin)
+    log(f"  {EFB_ROWS} + {VALID_ROWS} rows x {Fo} features ({F} dense, "
+        f"{EFB_GROUPS} one-hot groups of {EFB_LEVELS}): binned dense in "
+        f"{out['dense_binning_s']:.2f} s, from CSR in "
+        f"{out['csr_binning_s']:.2f} s; {BF} bundle columns, bin axis "
+        f"{b.padded_bundle_bin}")
+
+    bundled = torch.as_tensor(b.bundled, device=dev).contiguous()
+    vbundled = torch.as_tensor(dv._binned.bundled, device=dev).contiguous()
+    vbinned = torch.as_tensor(dv._binned.binned, device=dev).contiguous()
+    meta = make_feature_meta(b, dev)
+    ba = bundle_mod.BundleArrays(b.bundle_layout, b.zero_bins, b.num_bins,
+                                 dev)
+    Bh = b.padded_bundle_bin
+    g3 = signed_rows(rng, EFB_ROWS, dev)
+    k1 = []
+    for L in (1, 17, 64):
+        lid = torch.as_tensor(rng.randint(0, L, EFB_ROWS), dtype=torch.int32,
+                              device=dev)
+        k1.append(check_k1(f"bundle matrix L={L}", bundled, g3, lid, L, Bh))
+    k3 = []
+    for tag, sizes in (("synthetic 10 rounds", [1, 2, 4, 8, 16, 32, 63, 63,
+                                                63, 2]),
+                       ("synthetic 2,295 splits",
+                        [1, 2, 4, 8, 16, 32, 64, 128] + [255] * 8)):
+        (feats, thrs, dls, leafs, nls), offsets, nl = synthetic_rounds(
+            rng, sizes, meta, dev)
+        rmeta = wf.pack_route_meta(feats, thrs, dls, leafs, nls, meta)
+        k3 += check_k3_bundle(tag, vbundled, vbinned, ba, feats, rmeta,
+                              offsets, nl,
+                              tree_of_rounds(feats, thrs, dls, leafs, meta),
+                              meta)
+    check(k3[0]["tables_in_shared_memory"]
+          and not k3[2]["tables_in_shared_memory"],
+          "the synthetic trees do not take both of K3's bundle leg's legs")
+
+    efb, res, rec, route = efb_run("efb dense", TRAIN_PARAMS, ds, dv,
+                                   EFB_ITERS, dev)
+    want = k3_expected(efb, 1)
+    check(efb._gbdt._bundle is not None, "EFB: the trainer did not bundle")
+    check(res["launches"]["k3_bundle"] == want
+          and res["launches"]["k3"] == 0,
+          f"EFB: K3's bundle leg launched {res['launches']['k3_bundle']} "
+          f"times (u8 leg {res['launches']['k3']}) for {want} trees")
+    k1 += phase_hist_main_inputs(rec)
+    t1 = time.perf_counter()
+    unb_ds = Dataset(X, label=y, params=dict(TRAIN_PARAMS,
+                                             enable_bundle=False)).construct()
+    unb_dv = Dataset(Xv, label=yv, reference=unb_ds).construct()
+    out["unbundled_binning_s"] = time.perf_counter() - t1
+    _, unb, _, _ = efb_run("efb unbundled", dict(TRAIN_PARAMS,
+                                                 enable_bundle=False),
+                           unb_ds, unb_dv, EFB_ITERS, dev)
+    gap = abs(res["valid_auc"] - unb["valid_auc"])
+    check(gap <= EFB_AUC_TOL, f"EFB: valid AUC {res['valid_auc']} against "
+          f"{unb['valid_auc']} unbundled")
+    csr_bst, cres, _, _ = efb_run("efb csr", TRAIN_PARAMS, dcs, dcv,
+                                  EFB_ITERS, dev)
+    check(cres["model_text_sha256"] == res["model_text_sha256"],
+          "EFB: the CSR construction trained another model text")
+    log(f"  bundled AUC {res['valid_auc']:.5f} beside unbundled "
+        f"{unb['valid_auc']:.5f} (gap {gap:.2e}); the CSR construction's "
+        "model text the dense one's, byte for byte")
+    out.update(train=res, unbundled=unb, csr=cres, k1_checks=k1,
+               k3_checks=k3)
+
+    # the bundle leg on the main path's last routing, and K1 at its last
+    # 64-slot call beside the unbundled matrix's same rows
+    rfeats = route["feats"].to(torch.int32).contiguous()
+    rmeta = wf.pack_route_meta(route["feats"], route["thrs"], route["dls"],
+                               route["leafs"], route["nls"], route["meta"])
+    offs, nl, vb = route["offsets"], route["num_leaves"], route["binned"]
+    lids = torch.zeros(vb.shape[1], dtype=torch.int32, device=dev)
+    row = {"rows": vb.shape[1], "splits": rmeta.shape[0],
+           "rounds": offs.shape[0] - 1,
+           "ms": time_ms(lambda: fc.route_rows(vb, lids, rfeats, rmeta, nl,
+                                               offsets=offs, bundle=ba), 20),
+           "plain_ms": time_ms(lambda: fc.route_rows_ref(
+               vb, lids, rfeats, rmeta, nl, offsets=offs, bundle=ba), 2),
+           "cold_device_ms": sum(cold_device_ms(lambda: fc.route_rows(
+               vb, lids, rfeats, rmeta, nl, offsets=offs, bundle=ba),
+               K3_ROUTE_KERNELS).values()) or None,
+           "u8_cold_device_ms": sum(cold_device_ms(lambda: fc.route_rows(
+               vbinned, lids, rfeats, rmeta, nl, offsets=offs),
+               K3_ROUTE_KERNELS).values()) or None,
+           **k3_bound(vb, rfeats, rmeta, offs, nl, bundle=ba)}
+    check(torch.equal(fc.route_rows(vb, lids, rfeats, rmeta, nl,
+                                    offsets=offs, bundle=ba),
+                      fc.route_rows_ref(vb, lids, rfeats, rmeta, nl,
+                                        offsets=offs, bundle=ba)),
+          "K3 bundle leg: the main path's last routing differs from its "
+          "plain version")
+    out["k3_timing"] = row
+    key = max(rec.last)
+    kb, kg, kl, kB, klive = rec.last[key]
+    plain_b = torch.as_tensor(b.binned, device=dev).contiguous()
+    out["k1_timing"] = {
+        "slots": key[0], "precision": key[1], "bundle_columns": BF,
+        "ms": time_ms(lambda: hc.hist_leaves(kb, kg, kl, key[0], kB, key[1],
+                                             klive), 20),
+        "unbundled_columns": Fo,
+        "unbundled_ms": time_ms(lambda: hc.hist_leaves(
+            plain_b, kg, kl, key[0], 64, key[1], klive), 20)}
+    log(f"  K3 bundle leg on the last tree ({row['splits']} splits, "
+        f"{row['rounds']} rounds, {row['rows']} rows): {fmt_ms(row['ms'])} "
+        f"(L2 cleared {fmt_ms(row['cold_device_ms'])}; the u8 leg on the "
+        f"unbundled bins {fmt_ms(row['u8_cold_device_ms'])}), plain "
+        f"{fmt_ms(row['plain_ms'])}, bound {fmt_ms(row['bound_ms'])}; K1 at "
+        f"L={key[0]} {key[1]}: {BF} bundle columns "
+        f"{fmt_ms(out['k1_timing']['ms'])}, {Fo} unbundled columns "
+        f"{fmt_ms(out['k1_timing']['unbundled_ms'])}")
+    out["seconds"] = time.perf_counter() - t0
+    del csr_bst
+    return out
+
+
+def efb_rows(efb: dict) -> list:
+    """The kernels line's row of K3's bundle leg (phase 45)."""
+    t = efb["k3_timing"]
+    return [{
+        "name": "route_rows:bundle", "route": "cuda", "source": FUSED_SRC,
+        "replaces": "lightgbmv1_tpu/ops/wave_fused.py:595 (fused_route_rows"
+        "' routing; under EFB the JAX staged path decodes with "
+        "io/bundle.py:258 bundle_bins_of_feat)",
+        "launches": int(efb["train"]["launches"]["k3_bundle"]),
+        "max_abs_err": 0.0, "ms": t["ms"], "plain_ms": t["plain_ms"],
+        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+        "library_ms": None, "library_note": "none: no single PyTorch call "
+        "routes rows through a tree's splits",
+        "cold_device_ms": t["cold_device_ms"],
+        "u8_cold_device_ms": t["u8_cold_device_ms"],
+        "at": f"{t['rows']} rows, {t['splits']} splits in {t['rounds']} "
+        "rounds", "checks": efb["k3_checks"]}]
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -6937,6 +7376,19 @@ def main(argv=None) -> int:
     log(f"  phase 43: {objectives['seconds']:.1f} s")
     del X, y, dr, drv
 
+    log("== phase 44: the model lifecycle (main path; launch counts reset)")
+    lifecycle = phase_lifecycle(ds, dv, LIFE_ITERS, dev)
+    log(f"  phase 44: {lifecycle['seconds']:.1f} s")
+
+    log("== phase 45: EFB on dense and CSR data (main path; launch counts "
+        "reset)")
+    efb = phase_efb(dev, args.seed, rng)
+    log(f"  phase 45: {efb['seconds']:.1f} s")
+    k1_row["bundle"] = {
+        "note": "K1 on EFB bundle columns at the bundles' bin axis",
+        "launches": int(efb["train"]["launches"]["k1"]),
+        "checks": efb["k1_checks"], **efb["k1_timing"]}
+
     log(json.dumps({"rows_per_s": {m: bulk[m]["rows_per_s"]
                                    for m in ("fused", "pallas")},
                     "host_prebin_s": bulk["encode_s"],
@@ -6960,12 +7412,15 @@ def main(argv=None) -> int:
                     "int16_train": newer["int16"],
                     "boosting_train": boosting,
                     "objectives_train": objectives,
+                    "lifecycle": lifecycle,
+                    "efb": {k: v for k, v in efb.items()
+                            if k not in ("k1_checks", "k3_checks")},
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]
     print(json.dumps({"kernels": [k1_row] + fused_rows
                       + [k6_row, qrow, rnrow, scan_row, pick_row] + new_rows
-                      + rows}),
+                      + efb_rows(efb) + rows}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,12 @@ Ported so far:
   growers (``models/grower_wave.py``, ``models/grower.py``) -> the
   hand-written CUDA kernels (``ops/hist_cuda.py``, ``ops/fused_cuda.py``,
   ``ops/loop_cuda.py``, ``ops/scan_cuda.py``) -> v3 model text; with
-  callbacks and early stopping (``callback.py``) and ``cv``.
+  callbacks and early stopping (``callback.py``) and ``cv``;
+* the model lifecycle: continued training (``init_model``), rollback,
+  refit, checkpoints (``io/checkpoint.py``), ``finite_guard`` and custom
+  objectives; Dataset input from data files (``io/parser.py``) and
+  scipy sparse rows, with Exclusive Feature Bundling (``io/bundle.py``,
+  K3's bundle leg on the card).
 
 The package's names are the JAX package's (``__all__``); the sklearn
 wrappers and the plotting functions raise ``NotImplementedError`` naming

@@ -3,18 +3,30 @@
 Port of lightgbmv1_tpu/basic.py for the ported paths:
 
 * ``Dataset`` (:107, ``construct`` :250): lazy binning of a dense
-  numeric matrix with its query groups, a valid set sharing its
-  reference's bins (``create_valid`` :326) and taking its own groups;
+  numeric matrix, a scipy sparse matrix (kept as CSR and binned by
+  ``BinnedDataset.from_csr``, never densified) or a data file (csv, tsv,
+  libsvm through ``io/parser.load_data_file`` with the loader knobs of
+  ``params``, or ``load_two_round`` under ``two_round``), with its query
+  groups, a valid set sharing its reference's bins (``create_valid``
+  :326) and taking its own groups;
   the setters ``set_label`` / ``set_weight`` / ``set_group`` /
   ``set_init_score`` / ``set_field`` (:333-365), which reach a
   constructed set's metadata without binning it again;
 * ``Dataset.subset`` (:396), ``get_label`` / ``get_field`` and their
   kin, which ``engine.cv`` reads;
-* ``Booster(params, train_set=...)`` (:430) over the trainer of
-  ``models/gbdt.create_boosting`` (GBDT, GOSS, DART, RF) with ``update``
-  (:541), ``reset_parameter`` (:611, a new knob reaching the next tree),
+* ``Booster(params, train_set=..., init_model=...)`` (:430) over the
+  trainer of ``models/gbdt.create_boosting`` (GBDT, GOSS, DART, RF),
+  continuing a loaded model (text, file or Booster) whose trees seed the
+  score caches by prediction, with ``update`` (:541, ``fobj`` a custom
+  objective's ``(grad, hess)`` of the raw scores), ``rollback_one_iter``
+  (:575), ``refit`` (:865: the trees' leaf ids from the device leaf walk
+  (K5), each leaf re-fitted on the objective's gradients, blended by
+  ``decay_rate``), ``save_checkpoint`` / ``resume_from_checkpoint``
+  (:1046, :1090; io/checkpoint.py), ``reset_parameter`` (:611, a new knob
+  reaching the next tree),
   ``eval_train`` / ``eval_valid`` with ``feval`` (:618-640),
-  ``model_to_string`` (:947, through io/model_text.model_to_string),
+  ``model_to_string`` (:947, through io/model_text.model_to_string, its
+  importance block per ``saved_feature_importance_type``),
   ``save_model`` (:1001), ``dump_model`` (:1115), ``feature_importance``
   (:1137) and ``feature_name`` (:606); ``best_iteration`` (set by early
   stopping) is what ``predict``, ``model_to_string`` and ``save_model``
@@ -22,7 +34,9 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 * the serving half (``predict`` :655-800) for a loaded model and for a
   trained one: raw and converted scores, ``pred_leaf``,
   ``start_iteration`` / ``num_iteration`` slicing and ``average_output``
-  (a loaded RF model's, or a trained RF's: :789-790, :964).
+  (a loaded RF model's, or a trained RF's: :789-790, :964); a data file
+  is read with ``load_data_file`` (its label column dropped where it has
+  one column too many, :677-684).
   ``predict_method`` picks the walk with the JAX package's meaning:
   ``auto``/``host`` is the exact host walk (numpy ``HostTree``, float64 in
   tree order), ``depthwise``/``pallas``/``fused`` go through the device
@@ -31,33 +45,52 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 Training and prediction run on ``device`` (default: the card; without one
 they raise — pass ``device="cpu"`` for the CPU).  Every other public name
 of the JAX ``Dataset`` and ``Booster`` raises ``NotImplementedError``
-naming its ROADMAP queue 1 item: files, sparse input, categorical
-features and custom objectives (item 1), rollback, refit and checkpoints
-(item 1, part 1.4), the native C++ predictor, TreeSHAP, the binary
-dataset cache (CLI), the drift captures and the block caches (parallel
-learners).
+naming its ROADMAP queue 1 item: categorical features (item 1, part
+1.6), the native C++ predictor, TreeSHAP, the binary dataset cache
+(CLI), the drift captures and the block caches (parallel learners).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional
+import copy
+import os
+from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
 from .config import (BREADTH, CLI, DRIFT, NATIVE, PARALLEL, TREESHAP,
                      Config, not_ported)
 from .device import DeviceLike, resolve_device
-from .io.dataset import BinnedDataset
+from .io.dataset import BinnedDataset, Metadata
 from .io.model_text import (LoadedModel, dump_model_dict, model_from_string,
                             model_to_string)
+from .io.parser import load_data_file
 from .models.tree import HostTree
-from .objectives import convert_output
+from .objectives import convert_output, create_objective
+from .utils import fileio
+from .utils.log import LightGBMError, log_fatal
 
 _DEVICE_METHODS = ("depthwise", "pallas", "fused", "scan")
 _NOT_PORTED = {
     "pred_contrib": "predict(pred_contrib=True) (TreeSHAP)",
     "pred_early_stop": "prediction early stopping",
 }
+
+
+def _is_scipy_sparse(data) -> bool:
+    return type(data).__module__.split(".")[0] == "scipy" and hasattr(
+        data, "tocsr")
+
+
+def _is_binary_cache(path: str) -> bool:
+    """A zip holding the JAX binary dataset cache's ``magic`` member."""
+    import zipfile
+
+    try:
+        with zipfile.ZipFile(path) as zf:
+            return "magic.npy" in zf.namelist()
+    except (OSError, zipfile.BadZipFile):
+        return False
 
 
 def _to_2d_numpy(data) -> np.ndarray:
@@ -96,8 +129,9 @@ def _objective_string(config: Config) -> str:
 
 class Dataset:
     """Training or valid data with lazy binning (reference basic.py:909).
-    ``data`` is a dense numeric (rows, features) array; ``group`` the
-    query sizes of a ranking set, in row order."""
+    ``data`` is a dense numeric (rows, features) array, a scipy sparse
+    matrix or the path of a data file; ``group`` the query sizes of a
+    ranking set, in row order."""
 
     def __init__(self, data, label=None, reference: Optional["Dataset"] = None,
                  weight=None, group=None, init_score=None,
@@ -105,10 +139,6 @@ class Dataset:
                  categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = False):
-        if isinstance(data, (str, bytes)) or hasattr(data, "__fspath__"):
-            raise not_ported("loading a Dataset from a file", BREADTH)
-        if type(data).__module__.split(".")[0] == "scipy":
-            raise not_ported("sparse Dataset input", BREADTH)
         if categorical_feature not in ("auto", None, [], ()):
             raise not_ported("categorical features", BREADTH)
         self.params = dict(params or {})
@@ -116,7 +146,15 @@ class Dataset:
         self.free_raw_data = free_raw_data
         self.feature_name = feature_name
         self._binned: Optional[BinnedDataset] = None
-        self.data = _to_2d_numpy(data) if data is not None else None
+        if isinstance(data, (str, os.PathLike)):
+            data, label, weight, group, init_score = self._load_file(
+                str(data), label, weight, group, init_score)
+        if _is_scipy_sparse(data):
+            # kept sparse: construct() bins the CSR triplets into the EFB
+            # bundle columns (reference LGBM_DatasetCreateFromCSR)
+            self.data = data.tocsr()
+        else:
+            self.data = _to_2d_numpy(data) if data is not None else None
         self.label = (None if label is None
                       else np.asarray(label, dtype=np.float64).ravel())
         self.weight = (None if weight is None
@@ -125,6 +163,57 @@ class Dataset:
                            else np.asarray(init_score, dtype=np.float64))
         self.group = (None if group is None
                       else np.asarray(group, dtype=np.int64).ravel())
+        if self._binned is not None:
+            # a two-round load: explicit fields win over the file's
+            meta = self._binned.metadata
+            if label is not None:
+                meta.label = self.label.astype(np.float32)
+            if weight is not None:
+                meta.weight = self.weight.astype(np.float32)
+            meta.set_group(self.group)
+            meta.init_score = self.init_score
+
+    def _load_file(self, path, label, weight, group, init_score):
+        """A data file (JAX :146-215): ``two_round`` streams a training
+        file straight into bins (``load_two_round``), else the file is
+        parsed in memory (``load_data_file``) with the loader knobs of
+        ``params``; the file's columns and siblings fill the fields not
+        given.  Returns the raw data (None after a two-round load) and
+        the fields."""
+        if os.path.isdir(path):
+            raise not_ported("Dataset(<block cache directory>) (the "
+                             "out-of-core block cache)", PARALLEL)
+        if _is_binary_cache(path):
+            raise not_ported("Dataset(<binary dataset cache>)", CLI)
+        cfg = Config.from_dict(self.params)
+        binned = None
+        if cfg.two_round and self.reference is None:
+            from .io.parser import load_two_round
+
+            binned = load_two_round(path, cfg)
+        if binned is not None:
+            self._binned = binned
+            meta = binned.metadata
+            self.feature_name = list(binned.feature_names)
+            return (None,
+                    meta.label if label is None else label,
+                    meta.weight if weight is None else weight,
+                    meta.group if group is None else group,
+                    meta.init_score if init_score is None else init_score)
+        df = load_data_file(
+            path, has_header=cfg.header, label_column=cfg.label_column,
+            weight_column=cfg.weight_column, group_column=cfg.group_column,
+            ignore_column=cfg.ignore_column,
+            # initscore_filename names the training data's scores only
+            init_score_file=(cfg.initscore_filename
+                             if self.reference is None else ""))
+        if df.feature_names and self.feature_name == "auto":
+            self.feature_name = df.feature_names
+        return (df.X,
+                df.label if label is None else label,
+                df.weight if weight is None else weight,
+                df.group if group is None else group,
+                df.init_score if init_score is None else init_score)
 
     def set_group(self, group) -> "Dataset":
         """The query sizes of a ranking set (reference basic.py
@@ -199,11 +288,17 @@ class Dataset:
                if self.reference is not None else None)
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
-        self._binned = BinnedDataset.from_numpy(
-            self.data, label=self.label, weight=self.weight,
-            init_score=self.init_score, group=self.group,
-            config=Config.from_dict(self.params),
-            feature_names=names, reference=ref)
+        fields = dict(label=self.label, weight=self.weight,
+                      init_score=self.init_score, group=self.group,
+                      config=Config.from_dict(self.params),
+                      feature_names=names, reference=ref)
+        if _is_scipy_sparse(self.data):
+            csr = self.data
+            self._binned = BinnedDataset.from_csr(
+                csr.indptr, csr.indices, csr.data, num_data=csr.shape[0],
+                num_features=csr.shape[1], **fields)
+        else:
+            self._binned = BinnedDataset.from_numpy(self.data, **fields)
         if self.free_raw_data:
             self.data = None
         return self
@@ -254,13 +349,14 @@ class Dataset:
 class Booster:
     """A model that trains and predicts on ``device`` (default: the card;
     raises when there is none — pass ``device="cpu"`` for the CPU): from
-    ``train_set`` (training), or loaded from ``model_file`` /
-    ``model_str``."""
+    ``train_set`` (training; continuing ``init_model``, a model text
+    path or a Booster), or loaded from ``model_file`` / ``model_str``."""
 
     def __init__(self, params: Optional[Dict[str, Any]] = None,
                  train_set: Optional[Dataset] = None,
                  model_file: Optional[str] = None,
                  model_str: Optional[str] = None,
+                 init_model: Optional[Union[str, "Booster"]] = None,
                  device: DeviceLike = None):
         self.params = dict(params or {})
         self.device = resolve_device(device)
@@ -270,6 +366,7 @@ class Booster:
         self._device_pred_cache: Dict[tuple, Any] = {}
         self._gbdt = None
         self._loaded: Optional[LoadedModel] = None
+        self._loaded_str: Optional[str] = None   # the text of _loaded
         self._name_valid_sets: List[str] = []
         self._valid_data: List[Dataset] = []
         if train_set is not None:
@@ -281,22 +378,68 @@ class Booster:
             train_set.construct()
             self.train_set = train_set
             self.config = Config.from_dict(self.params)
+            init_raw = None
+            if init_model is not None:
+                # continued training (reference application.cpp:90-93):
+                # the loaded trees' predictions seed the score cache
+                base = (init_model.model_to_string()
+                        if isinstance(init_model, Booster)
+                        else self._read_text(init_model))
+                self._loaded = model_from_string(base)
+                self._loaded_str = base
+                if self._loaded.average_output:
+                    log_fatal("Continued training from an RF "
+                              "(average_output) model is not supported")
+                init_raw = self._loaded_raw_scores(train_set)
             self._gbdt = create_boosting(self.config, train_set._binned,
-                                         self.device)
+                                         self.device,
+                                         init_raw_scores=init_raw)
             return
         if model_file is not None:
-            with open(model_file) as fh:
-                model_str = fh.read()
+            model_str = self._read_text(model_file)
         if model_str is None:
             raise TypeError("Need at least one of train_set, model_file, "
                             "model_str")
         self._loaded = model_from_string(model_str)
+        self._loaded_str = model_str
         cfg = {"objective": self._loaded.objective}
         if self._loaded.num_class > 1:
             cfg["num_class"] = self._loaded.num_class
         if "sigmoid" in self._loaded.objective_params:
             cfg["sigmoid"] = float(self._loaded.objective_params["sigmoid"])
         self.config = Config.from_dict({**cfg, **self.params})
+
+    @staticmethod
+    def _read_text(path) -> str:
+        with fileio.open_file(str(path)) as fh:
+            return fh.read()
+
+    def _loaded_raw_scores(self, dataset: Dataset) -> np.ndarray:
+        """(N, K) raw scores of the loaded trees on a dataset's raw rows
+        (JAX :529), its init scores added (the reference stacks the
+        loaded model on them): the leaf walk (K5 on the card) gives each
+        row's leaves, summed in float64 in tree order as the host walk
+        sums them."""
+        X = dataset.data
+        if X is None:
+            log_fatal("Raw data is required for continued training "
+                      "(dataset was constructed with free_raw_data=True)")
+        K = max(self._loaded.num_tree_per_iteration, 1)
+        trees = self._loaded.trees
+        raw = np.zeros((X.shape[0], K), dtype=np.float64)
+        if trees:
+            from .models.predict import BatchPredictor
+
+            bp = BatchPredictor(trees, K, X.shape[1], method="pallas",
+                                device=self.device)
+            step = 65536        # a sparse set densified a block at a time
+            for lo in range(0, X.shape[0], step):
+                raw[lo:lo + step] = bp.predict_raw(
+                    _to_2d_numpy(X[lo:lo + step]), f64_exact=True)
+        if dataset.init_score is not None:
+            raw = raw + np.asarray(dataset.init_score, np.float64).reshape(
+                raw.shape[0], -1)
+        return raw
 
     # ------------------------------------------------------------------
     def add_valid(self, data: Dataset, name: str) -> "Booster":
@@ -306,7 +449,12 @@ class Booster:
         if data.reference is None and data._binned is None:
             data.reference = self.train_set
         data.construct()
-        self._gbdt.add_valid(data._binned, name)
+        init_raw = None
+        if self._loaded is not None and self._loaded.trees:
+            # continued training: the valid scores start from the loaded
+            # trees too
+            init_raw = self._loaded_raw_scores(data)
+        self._gbdt.add_valid(data._binned, name, init_raw=init_raw)
         self._name_valid_sets.append(name)
         self._valid_data.append(data)
         return self
@@ -314,14 +462,31 @@ class Booster:
     def update(self, train_set: Optional[Dataset] = None,
                fobj=None) -> bool:
         """One boosting iteration; True when no further split is possible
-        (reference basic.py:2315)."""
+        (reference basic.py:2315).  ``fobj(preds, train_set) -> (grad,
+        hess)`` is a custom objective on the raw scores ((N,) for one
+        class), its arrays (N,) or (N, K) (JAX :542-560).  Under
+        ``finite_guard=warn|raise`` the iteration boundary is checked."""
         if self._gbdt is None:
             raise RuntimeError("Cannot update a loaded model")
         if train_set is not None:
             raise ValueError("Resetting train_set is not supported")
-        if fobj is not None:
-            raise not_ported("custom objectives (fobj)", BREADTH)
-        return self._gbdt.train_one_iter()
+        if fobj is None:
+            finished = self._gbdt.train_one_iter()
+        else:
+            preds = self._gbdt.raw_train_scores()
+            if self._gbdt.num_class == 1:
+                preds = preds[:, 0]
+            grad, hess = fobj(preds, self.train_set)
+            finished = self._gbdt.train_one_iter(custom_grad=grad,
+                                                 custom_hess=hess)
+        self._gbdt.check_finite_boundary()
+        return finished
+
+    def rollback_one_iter(self) -> "Booster":
+        """Drop the last iteration (JAX :575; one level deep)."""
+        if self._gbdt is not None:
+            self._gbdt.rollback_one_iter()
+        return self
 
     def reset_parameter(self, params: Dict[str, Any]) -> "Booster":
         """New values of knobs mid-training (JAX :611): the next tree
@@ -374,9 +539,9 @@ class Booster:
         return num_iteration
 
     def current_iteration(self) -> int:
-        if self._gbdt is not None:
-            return self._gbdt.iter
-        return self._loaded.num_iterations
+        """The loaded model's iterations and the trained ones."""
+        n = self._loaded.num_iterations if self._loaded is not None else 0
+        return n + (self._gbdt.iter if self._gbdt is not None else 0)
 
     # ------------------------------------------------------------------
     def num_trees(self) -> int:
@@ -393,9 +558,11 @@ class Booster:
         return self._loaded.max_feature_idx + 1
 
     def _all_trees(self) -> List[HostTree]:
+        """A continued model's loaded trees, then the trained ones."""
+        trees = list(self._loaded.trees) if self._loaded is not None else []
         if self._gbdt is not None:
-            return list(self._gbdt.materialize_host_trees())
-        return list(self._loaded.trees)
+            trees += self._gbdt.materialize_host_trees()
+        return trees
 
     def feature_name(self) -> List[str]:
         """The feature names (JAX :606)."""
@@ -443,7 +610,10 @@ class Booster:
                     "bagging_freq": cfg.bagging_freq,
                     "feature_fraction": cfg.feature_fraction,
                     "lambda_l1": cfg.lambda_l1, "lambda_l2": cfg.lambda_l2,
-                    "max_bin": cfg.max_bin, "seed": cfg.seed})
+                    "max_bin": cfg.max_bin, "seed": cfg.seed},
+                # split counts (0) or total gains (1) in the importance
+                # block (reference gbdt.cpp:779-800)
+                importance_type=cfg.saved_feature_importance_type)
         lm = self._loaded
         return model_to_string(
             trees, objective_string=lm.objective + "".join(
@@ -454,9 +624,11 @@ class Booster:
 
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
-        text = self.model_to_string(num_iteration, start_iteration)
-        with open(filename, "w") as fh:
-            fh.write(text)
+        """The model text, written atomically (a crash leaves the old
+        file)."""
+        fileio.atomic_write_text(
+            str(filename), self.model_to_string(num_iteration,
+                                                start_iteration))
         return self
 
     def dump_model(self, num_iteration: Optional[int] = None,
@@ -514,22 +686,107 @@ class Booster:
         card."""
         return self
 
-    def rollback_one_iter(self) -> "Booster":
-        """Drop the last iteration (JAX :575): not ported."""
-        raise not_ported("Booster.rollback_one_iter", BREADTH)
-
     def refit(self, data, label, decay_rate: float = 0.9) -> "Booster":
-        """Refit the leaves on new data (JAX :865): not ported."""
-        raise not_ported("Booster.refit", BREADTH)
+        """A Booster of this model's trees with their leaves re-fitted on
+        ``data`` / ``label`` (JAX :865; reference GBDT::RefitTree,
+        gbdt.cpp:266-290): tree by tree, each leaf's value becomes
+        ``decay_rate * old + (1 - decay_rate) * new``, ``new`` the leaf's
+        output ``-sign(G) max(|G| - l1, 0) / (H + l2)`` (times the tree's
+        shrinkage) on the objective's gradients at the refitted trees'
+        scores so far.  The rows' leaves come from the device leaf walk
+        (K5 on the card), the gradients from the objective on the
+        device."""
+        import torch
+
+        from .models.predict import BatchPredictor
+
+        X = _to_2d_numpy(data)
+        y = np.asarray(label, dtype=np.float32).ravel()
+        trees = [copy.deepcopy(t) for t in self._all_trees()]
+        if not trees:
+            log_fatal("Cannot refit an empty model")
+        K = self.num_model_per_iteration()
+        cfg = self.config
+        obj = create_objective(cfg)
+        if obj is None:
+            raise LightGBMError("Cannot refit due to null objective "
+                                "function.")
+        meta = Metadata()
+        meta.label = y
+        obj.init(meta, len(y), self.device)
+        leaves = BatchPredictor(trees, K, X.shape[1], method="pallas",
+                                device=self.device).predict_leaf(X)
+        l1, l2 = cfg.lambda_l1, cfg.lambda_l2
+        scores = np.zeros((len(y), K), dtype=np.float64)
+        for i, t in enumerate(trees):
+            k = i % K
+            s = torch.as_tensor((scores[:, 0] if K == 1 else scores)
+                                .astype(np.float32), device=self.device)
+            grad, hess = obj.get_gradients(s)
+            grad = grad.cpu().numpy().reshape(len(y), -1)[:, k]
+            hess = hess.cpu().numpy().reshape(len(y), -1)[:, k]
+            leaf = leaves[:, i].astype(np.int64)
+            sg = np.bincount(leaf, weights=grad, minlength=t.num_leaves)
+            sh = np.bincount(leaf, weights=hess, minlength=t.num_leaves)
+            has = np.bincount(leaf, minlength=t.num_leaves) > 0
+            thr = np.sign(sg) * np.maximum(np.abs(sg) - l1, 0.0)
+            with np.errstate(divide="ignore", invalid="ignore"):
+                # a leaf without rows keeps its value
+                new_out = (-thr / (sh + l2)) * t.shrinkage
+            lv = t.leaf_value[:t.num_leaves]
+            t.leaf_value = np.where(has[:t.num_leaves],
+                                    decay_rate * lv
+                                    + (1.0 - decay_rate) * new_out[
+                                        :t.num_leaves], lv)
+            scores[:, k] += t.leaf_value[leaf]
+        out = Booster(model_str=(self._loaded_str
+                                 if self._gbdt is None and self._loaded_str
+                                 else self.model_to_string()),
+                      params=self.params, device=self.device)
+        out._loaded.trees = trees
+        out.config = cfg
+        return out
 
     def save_checkpoint(self, path, write_file: bool = True,
                         with_reference: bool = True) -> "Booster":
-        """The trainer's state bundle (JAX :1046): not ported."""
-        raise not_ported("Booster.save_checkpoint", BREADTH)
+        """Write the trainer's whole state (io/checkpoint.py; JAX :1046):
+        a run resumed from it (``resume_from_checkpoint``) writes the
+        model text of the run that never stopped, byte for byte.
+        ``write_file=False`` captures without writing (the JAX package's
+        non-writing ranks); the drift reference of ``with_reference``
+        belongs to the drift item and is not written."""
+        if self._gbdt is None:
+            log_fatal("save_checkpoint() requires a training Booster")
+        from .io.checkpoint import write_checkpoint
+
+        manifest, arrays = self._gbdt.capture_state()
+        manifest["num_trees_total"] = self.num_trees()
+        if write_file:
+            write_checkpoint(str(path), manifest, arrays,
+                             model_text=self.model_to_string(),
+                             base_model_text=self._loaded_str or "")
+        return self
 
     def resume_from_checkpoint(self, path_or_bundle) -> "Booster":
-        """Resume from a state bundle (JAX :1090): not ported."""
-        raise not_ported("Booster.resume_from_checkpoint", BREADTH)
+        """Restore a checkpoint (a path, or ``load_checkpoint``'s dict)
+        into this fresh training Booster of the same data, config and
+        valid sets (JAX :1090); the bundle is checked whole before any
+        state is touched, ``CheckpointError`` otherwise."""
+        if self._gbdt is None:
+            log_fatal("resume_from_checkpoint() requires a training "
+                      "Booster (construct with train_set=...)")
+        from .io.checkpoint import load_checkpoint
+
+        bundle = (path_or_bundle if isinstance(path_or_bundle, dict)
+                  else load_checkpoint(str(path_or_bundle)))
+        base = bundle.get("base_model_text", "")
+        if base and self._loaded is None:
+            # the checkpointed run continued a loaded model: its trees
+            # come first again
+            self._loaded = model_from_string(base)
+            self._loaded_str = base
+        self._gbdt.restore_state(bundle["manifest"], bundle["arrays"])
+        return self
 
     def capture_model_reference(self, score_bins: Optional[int] = None):
         """The training reference for drift checks (JAX :1013): not
@@ -550,7 +807,14 @@ class Booster:
         for key, what in _NOT_PORTED.items():
             if kwargs.get(key, self.params.get(key, False)):
                 raise not_ported(what, TREESHAP)
-        X = _to_2d_numpy(data)
+        if isinstance(data, (str, os.PathLike)):
+            X = load_data_file(str(data), is_predict=True).X
+            # a prediction file usually keeps the training file's label
+            # column (JAX :677-684)
+            if X.shape[1] == self.num_feature() + 1:
+                X = X[:, 1:]
+        else:
+            X = _to_2d_numpy(data)
         if X.shape[1] != self.num_feature():
             disable = bool(kwargs.get(
                 "predict_disable_shape_check",
@@ -602,9 +866,13 @@ class Booster:
 
     def _device_predictor(self, trees, K, start_iteration, method, kwargs):
         """Device engine (models/predict.BatchPredictor), cached per (slice
-        start, tree count, method).  A predictor that cannot be built
-        raises: there is no host fallback."""
-        key = (start_iteration, len(trees), method)
+        start, tree count, model version, method): the version moves with
+        every change of the ensemble (an update, a rollback).  A
+        predictor that cannot be built raises: there is no host
+        fallback."""
+        key = (start_iteration, len(trees),
+               self._gbdt.model_version if self._gbdt is not None else -1,
+               method)
         bp = self._device_pred_cache.get(key)
         if bp is not None:
             return bp

@@ -484,6 +484,10 @@ class Config:
             raise ValueError("serve_queue_depth must be >= "
                              "serve_max_batch_rows (admission control "
                              "must admit at least one full batch)")
+        if self.finite_guard not in ("off", "warn", "raise", "clamp"):
+            raise ValueError(
+                f"finite_guard={self.finite_guard!r}: expected "
+                "off | warn | raise | clamp")
         if self.serve_retry_max < 0 or self.serve_retry_backoff_ms < 0:
             raise ValueError("serve_retry_max / serve_retry_backoff_ms "
                              "must be >= 0")
@@ -546,8 +550,14 @@ class Config:
 # int8 and hist_dtype_deep=int8; hist_method=onehot|bench, force_col_wise /
 # force_row_wise and int16 bins; the Booster and Dataset surface, GOSS,
 # DART and RF, and every objective and metric of the JAX package (parts
-# 1.1-1.3 of BREADTH).  The first five items keep their names for
-# ROADMAP's record of them, and nothing refuses with them any more.
+# 1.1-1.3 of BREADTH); the model lifecycle (init_model, rollback, refit,
+# checkpoints, finite_guard, saved_feature_importance_type), Dataset input
+# (EFB on dense and CSR data, files with their loader knobs, custom
+# objectives) and the binning knobs max_bin_by_feature and
+# forcedbins_filename (parts 1.4, 1.5 and 1.7).  BREADTH keeps part 1.6:
+# categorical features, interaction constraints, CEGB and forced splits.
+# The first five items keep their names for ROADMAP's record of them, and
+# nothing refuses with them any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
@@ -589,19 +599,16 @@ _REFUSED = (
     (BREADTH, ("min_data_per_group", "max_cat_threshold", "cat_l2",
                "cat_smooth", "max_cat_to_onehot",
                "cegb_tradeoff", "cegb_penalty_feature_lazy",
-               "cegb_penalty_feature_coupled", "forcedbins_filename",
-               "max_bin_by_feature", "saved_feature_importance_type",
-               "snapshot_freq", "finite_guard")),
+               "cegb_penalty_feature_coupled")),
     (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
                 "pred_early_stop_margin")),
     (CLI, ("config", "task", "data", "valid", "output_model",
-           "input_model", "output_result", "initscore_filename",
-           "valid_data_initscores", "two_round", "save_binary", "header",
-           "label_column", "weight_column", "group_column", "ignore_column",
-           "predict_raw_score", "predict_leaf_index",
+           "input_model", "output_result", "valid_data_initscores",
+           "save_binary", "predict_raw_score", "predict_leaf_index",
            "start_iteration_predict", "num_iteration_predict",
            "convert_model_language", "convert_model", "metric_freq",
-           "is_provide_training_metric", "refit_decay_rate", "snapshot_keep")),
+           "is_provide_training_metric", "refit_decay_rate", "snapshot_keep",
+           "snapshot_freq")),
     (HTTP, ("serve_http_port", "serve_duration_s")),
     (FLEET, ("serve_replicas", "router_health_period_ms",
              "router_eject_after", "router_readmit_after", "router_retry_max",

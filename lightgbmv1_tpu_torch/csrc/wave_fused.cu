@@ -87,6 +87,14 @@
 //    staged path routes them with XLA's route()): its 16-bit leg reads
 //    each decision bin as an int16 (route_leaf's BinT), every other step
 //    the u8 leg's, so on bins below 256 its ids are the u8 leg's.
+// K3's bundle leg (a non-null `btab`, EFB; the JAX staged path decodes
+//    with bundle_bins_of_feat, io/bundle.py): the rows hold the (BF, N)
+//    bundle columns, u8 or int16.  Each split's decode (BundleDec: its
+//    feature's bundle column, offset, bin count, zero bin and whether it
+//    shares the column), read from the (5, F) table, sits in the tables
+//    beside its Slot, so a decision is one bundle-bin load, a subtract
+//    and a range check before the rule every leg applies; still one
+//    launch a tree and valid set.
 // Both take 4-bit packed bins (`packed`, the Pallas kernels' `fpb > 0` /
 //    `decision_bins(packed=True)` legs, bin_layout=packed4): (ceil(F/2), N)
 //    bytes of two features each.  Only the loads in (a) and (c) differ
@@ -143,16 +151,21 @@ int route_blocks(int tiles) {
 constexpr size_t kRouteSlotBytes = sizeof(Slot) + 2 * sizeof(int);
 
 // K3's tables: P Slots; each round's leaf-sorted order, as P leaves and
-// then P round-local slots (round q's at its offset); the R + 1 offsets.
-// In shared memory up to kRouteSmemBytes, past it in the caller's device
-// scratch, P (kRmetaCols + 3) + R + 1 ints (fused_cuda.route_rows).
+// then P round-local slots (round q's at its offset); the R + 1 offsets;
+// the bundle leg's P decodes.  In shared memory up to kRouteSmemBytes,
+// past it in the caller's device scratch, P (kRmetaCols + 3) + R + 1
+// ints and the bundle leg's P (sizeof(BundleDec) / 4) more
+// (fused_cuda.route_rows).
 constexpr size_t kRouteSmemBytes = 48 * 1024;
 static_assert(sizeof(Slot) == (kRmetaCols + 1) * sizeof(int),
               "a Slot is an rmeta row and its feature");
+static_assert(sizeof(BundleDec) == 5 * sizeof(int),
+              "fused_cuda.BUNDLE_DEC_INTS");
 
-size_t route_table_bytes(int P, int R) {
+size_t route_table_bytes(int P, int R, bool bundle) {
   return static_cast<size_t>(P) * kRouteSlotBytes +
-         static_cast<size_t>(R + 1) * sizeof(int);
+         static_cast<size_t>(R + 1) * sizeof(int) +
+         (bundle ? static_cast<size_t>(P) * sizeof(BundleDec) : 0);
 }
 
 struct RouteTables {
@@ -160,12 +173,15 @@ struct RouteTables {
   int* sleaf;
   int* sidx;
   int* off;
+  BundleDec* dec;
 };
 
-__device__ __forceinline__ RouteTables route_tables(int* base, int P) {
+__device__ __forceinline__ RouteTables route_tables(int* base, int P, int R) {
   Slot* slots = reinterpret_cast<Slot*>(base);
   int* sleaf = reinterpret_cast<int*>(slots + P);
-  return RouteTables{slots, sleaf, sleaf + P, sleaf + 2 * P};
+  int* off = sleaf + 2 * P;
+  return RouteTables{slots, sleaf, sleaf + P, off,
+                     reinterpret_cast<BundleDec*>(off + R + 1)};
 }
 
 // Round q's split range; a null `offs` is one round of the P splits.
@@ -200,8 +216,9 @@ __device__ __forceinline__ void place_split(int s, const int* offs, int P,
 }
 
 // Each row of the grid from its leaf id through the R rounds of `tb`
-// (BinT: the bins' type, uint8_t or K3's 16-bit leg's int16_t).
-template <bool PACKED, typename BinT>
+// (BinT: the bins' type, uint8_t or K3's 16-bit leg's int16_t; BUNDLE:
+// the bundle leg, decoding through tb.dec).
+template <bool PACKED, typename BinT, bool BUNDLE>
 __device__ __forceinline__ void route_rounds(
     const BinT* __restrict__ binned, const int* __restrict__ oleaf,
     const RouteTables& tb, int* __restrict__ new_leaf, int n, int R) {
@@ -211,45 +228,51 @@ __device__ __forceinline__ void route_rounds(
     for (int q = 0; q < R; ++q) {
       const int o = tb.off[q];
       int dlab = 0;
-      lf = route_leaf<false, false, PACKED, BinT>(r, lf, binned, tb.slots + o,
-                                            tb.sleaf + o, tb.sidx + o, n,
-                                            tb.off[q + 1] - o, 0, dlab);
+      lf = route_leaf<false, false, PACKED, BinT, BUNDLE>(
+          r, lf, binned, tb.slots + o, tb.sleaf + o, tb.sidx + o, n,
+          tb.off[q + 1] - o, 0, dlab, tb.dec + o);
     }
     new_leaf[r] = lf;
   }
 }
 
-// K3 on tables in shared memory: each block loads the P slots and the
-// offsets, places each split in its round's leaf order (a thread a
-// split), then routes its rows.
-template <bool PACKED, typename BinT>
+// K3 on tables in shared memory: each block loads the P slots, the
+// offsets and (BUNDLE) the splits' decodes from the (5, nf) `btab`,
+// places each split in its round's leaf order (a thread a split), then
+// routes its rows.
+template <bool PACKED, typename BinT, bool BUNDLE>
 __global__ void __launch_bounds__(kThreads)
 route_kernel(const BinT* __restrict__ binned,
              const int* __restrict__ oleaf, const int* __restrict__ feats,
              const int* __restrict__ rmeta, const int* __restrict__ offs,
-             int* __restrict__ new_leaf, int n, int P, int R) {
+             const int* __restrict__ btab, int* __restrict__ new_leaf, int n,
+             int P, int R, int nf) {
   extern __shared__ int route_smem[];
-  const RouteTables tb = route_tables(route_smem, P);
+  const RouteTables tb = route_tables(route_smem, P, R);
   load_slots(rmeta, feats, P, tb.slots);
   for (int q = threadIdx.x; q <= R; q += blockDim.x)
     tb.off[q] = round_offset(offs, q, P);
+  if (BUNDLE)
+    for (int s = threadIdx.x; s < P; s += blockDim.x)
+      tb.dec[s] = bundle_dec(btab, nf, feats[s]);
   __syncthreads();
   constexpr int kSlotInts = sizeof(Slot) / sizeof(int);
   for (int s = threadIdx.x; s < P; s += blockDim.x)
     place_split(s, offs, P, R, &tb.slots[0].leaf, kSlotInts, tb);
   __syncthreads();
-  route_rounds<PACKED, BinT>(binned, oleaf, tb, new_leaf, n, R);
+  route_rounds<PACKED, BinT, BUNDLE>(binned, oleaf, tb, new_leaf, n, R);
 }
 
 // The tables of a tree past kRouteSmemBytes, built once in device memory
-// `tab`: one thread a split writes its Slot and places it in its round
-// (on rmeta's leaf column).
+// `tab`: one thread a split writes its Slot (and, with a `btab`, its
+// decode) and places it in its round (on rmeta's leaf column).
 __global__ void __launch_bounds__(kThreads)
 route_tables_kernel(const int* __restrict__ feats,
                     const int* __restrict__ rmeta,
-                    const int* __restrict__ offs, int* __restrict__ tab,
-                    int P, int R) {
-  const RouteTables tb = route_tables(tab, P);
+                    const int* __restrict__ offs,
+                    const int* __restrict__ btab, int* __restrict__ tab,
+                    int P, int R, int nf) {
+  const RouteTables tb = route_tables(tab, P, R);
   const int step = gridDim.x * blockDim.x;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
   for (int q = g; q <= R; q += step) tb.off[q] = round_offset(offs, q, P);
@@ -257,39 +280,42 @@ route_tables_kernel(const int* __restrict__ feats,
     const int* m = rmeta + static_cast<size_t>(s) * kRmetaCols;
     tb.slots[s] = Slot{m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
                        feats[s]};
+    if (btab) tb.dec[s] = bundle_dec(btab, nf, feats[s]);
     place_split(s, offs, P, R, rmeta, kRmetaCols, tb);
   }
 }
 
 // K3 on the tables `route_tables_kernel` built in device memory.
-template <bool PACKED, typename BinT>
+template <bool PACKED, typename BinT, bool BUNDLE>
 __global__ void __launch_bounds__(kThreads)
 route_global_kernel(const BinT* __restrict__ binned,
                     const int* __restrict__ oleaf, int* __restrict__ tab,
                     int* __restrict__ new_leaf, int n, int P, int R) {
-  route_rounds<PACKED, BinT>(binned, oleaf, route_tables(tab, P), new_leaf, n,
-                             R);
+  route_rounds<PACKED, BinT, BUNDLE>(binned, oleaf, route_tables(tab, P, R),
+                                     new_leaf, n, R);
 }
 
 // K3's launch on bins of type BinT: the tables in each block's shared
 // memory up to kRouteSmemBytes, else built once in `tab`.
-template <bool PACKED, typename BinT>
+template <bool PACKED, typename BinT, bool BUNDLE = false>
 int route_launch(const BinT* bn, const int* ol, const int* ft, const int* rm,
-                 const int* of, int* o, int* tb, int n, int P, int R,
-                 cudaStream_t st) {
+                 const int* of, const int* bt, int* o, int* tb, int n, int P,
+                 int R, int nf, cudaStream_t st) {
   const int blocks = route_blocks((n + kThreads - 1) / kThreads);
-  if (route_table_bytes(P, R) <= kRouteSmemBytes) {
-    route_kernel<PACKED, BinT><<<blocks, kThreads, route_table_bytes(P, R),
-                                 st>>>(bn, ol, ft, rm, of, o, n, P, R);
+  const size_t bytes = route_table_bytes(P, R, BUNDLE);
+  if (bytes <= kRouteSmemBytes) {
+    route_kernel<PACKED, BinT, BUNDLE><<<blocks, kThreads, bytes, st>>>(
+        bn, ol, ft, rm, of, bt, o, n, P, R, nf);
     return static_cast<int>(cudaGetLastError());
   }
   const int splits = P > R + 1 ? P : R + 1;
   route_tables_kernel<<<route_blocks((splits + kThreads - 1) / kThreads),
-                        kThreads, 0, st>>>(ft, rm, of, tb, P, R);
+                        kThreads, 0, st>>>(ft, rm, of, BUNDLE ? bt : nullptr,
+                                           tb, P, R, nf);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  route_global_kernel<PACKED, BinT><<<blocks, kThreads, 0, st>>>(bn, ol, tb,
-                                                                 o, n, P, R);
+  route_global_kernel<PACKED, BinT, BUNDLE><<<blocks, kThreads, 0, st>>>(
+      bn, ol, tb, o, n, P, R);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -527,31 +553,43 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
 // splits of `rmeta` (P, 8) on the features `feats` (P,), round q's splits
 // rows offs[q] .. offs[q + 1] (`offs` (R + 1,), rising; null: one round,
 // R = 1).  `layout`: 0 (F, N) u8 bins, 1 packed bytes, 2 (F, N) int16
-// bins (the 16-bit leg).  `tab`: device scratch of P (kRmetaCols + 3) +
-// R + 1 ints, used where the tables pass kRouteSmemBytes.
+// bins (the 16-bit leg).  `btab` non-null: the bundle leg, `binned` the
+// (BF, N) EFB bundle columns (layout 0 or 2) and `btab` the (5, nf) i32
+// decode table of the nf features.  `tab`: device scratch of
+// P (kRmetaCols + 3) + R + 1 ints (+ 5 P for the bundle leg), used where
+// the tables pass kRouteSmemBytes.
 int lgbm_route_rows(const void* binned, const void* oleaf, const void* feats,
-                    const void* rmeta, const void* offs, void* out, void* tab,
-                    int n, int P, int R, int layout, void* stream) {
+                    const void* rmeta, const void* offs, const void* btab,
+                    void* out, void* tab, int n, int P, int R, int layout,
+                    int nf, void* stream) {
   if (P < 0 || R < 1 || (!offs && R != 1) || !tab || layout < 0 ||
-      layout > 2)
+      layout > 2 || (btab && (layout == 1 || nf < 1)))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
   const auto* ol = static_cast<const int*>(oleaf);
   const auto* ft = static_cast<const int*>(feats);
   const auto* rm = static_cast<const int*>(rmeta);
   const auto* of = static_cast<const int*>(offs);
+  const auto* bt = static_cast<const int*>(btab);
   auto* o = static_cast<int*>(out);
   auto* tb = static_cast<int*>(tab);
   auto st = static_cast<cudaStream_t>(stream);
-  if (layout == 2)
-    return route_launch<false, int16_t>(static_cast<const int16_t*>(binned),
-                                        ol, ft, rm, of, o, tb, n, P, R, st);
+  if (layout == 2) {
+    const auto* bn = static_cast<const int16_t*>(binned);
+    return bt ? route_launch<false, int16_t, true>(bn, ol, ft, rm, of, bt, o,
+                                                   tb, n, P, R, nf, st)
+              : route_launch<false, int16_t>(bn, ol, ft, rm, of, bt, o, tb,
+                                             n, P, R, nf, st);
+  }
   const auto* bn = static_cast<const uint8_t*>(binned);
+  if (bt)
+    return route_launch<false, uint8_t, true>(bn, ol, ft, rm, of, bt, o, tb,
+                                              n, P, R, nf, st);
   return layout == 1
-             ? route_launch<true, uint8_t>(bn, ol, ft, rm, of, o, tb, n, P, R,
-                                           st)
-             : route_launch<false, uint8_t>(bn, ol, ft, rm, of, o, tb, n, P,
-                                            R, st);
+             ? route_launch<true, uint8_t>(bn, ol, ft, rm, of, bt, o, tb, n,
+                                           P, R, nf, st)
+             : route_launch<false, uint8_t>(bn, ol, ft, rm, of, bt, o, tb, n,
+                                            P, R, nf, st);
 }
 
 }  // extern "C"

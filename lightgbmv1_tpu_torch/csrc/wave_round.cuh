@@ -50,6 +50,23 @@ __device__ __forceinline__ void load_slots(const int* rmeta, const int* feats,
   }
 }
 
+// K3's bundle leg: how a split's feature reads its bin out of its EFB
+// bundle column (io/bundle.py bundle_bins_of_feat): bundle column `col`,
+// less `offset`, a value outside [0, nbins) the feature's `zero_bin`; a
+// feature alone in its bundle (`bundled` 0) reads the column as it is.
+struct BundleDec {
+  int col, offset, nbins, zero_bin, bundled;
+};
+
+// The decode of feature f from the (5, nf) i32 table of the bundle leg
+// (rows bundle_of, offset, num_bins, zero_bin, is_bundled;
+// BundleArrays.table).
+__device__ __forceinline__ BundleDec bundle_dec(const int* table, int nf,
+                                                int f) {
+  return BundleDec{table[f], table[nf + f], table[2 * nf + f],
+                   table[3 * nf + f], table[4 * nf + f]};
+}
+
 // ops/split.py go_left_rule on one bin.
 __device__ __forceinline__ bool go_left(int bin, const Slot& m) {
   const bool na = (m.mt == kMissingNan && bin == m.nanb) ||
@@ -107,14 +124,17 @@ __device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
 // (WANT_LABEL).  PACKED: `binned` holds the packed bytes, and the
 // decision bin is the nibble of the slot's feature (bin_column / bin_of,
 // hist_tile.cuh).  BinT int16_t: `binned` holds (F, n) int16 bins (K3's
-// 16-bit leg, max_bin > 255; never PACKED).  The one decision of K2, K3
-// and K6.
-template <bool WANT_LABEL, bool SUB, bool PACKED, typename BinT = uint8_t>
+// 16-bit leg, max_bin > 255; never PACKED).  BUNDLE: `binned` holds the
+// (BF, n) EFB bundle columns and slot s's bin is decoded by dec[s] (K3's
+// bundle leg; never PACKED).  The one decision of K2, K3 and K6.
+template <bool WANT_LABEL, bool SUB, bool PACKED, typename BinT = uint8_t,
+          bool BUNDLE = false>
 __device__ __forceinline__ int route_leaf(
     int r, int lf, const BinT* __restrict__ binned, const Slot* slots,
     const int* sleaf, const int* sidx, int n, int ns, int nslots,
-    int& dlab) {
+    int& dlab, const BundleDec* dec = nullptr) {
   static_assert(sizeof(BinT) == 1 || !PACKED, "packed bins are bytes");
+  static_assert(!(BUNDLE && PACKED), "bundle columns are never packed");
   int lo = 0, hi = ns;
   while (lo < hi) {
     const int mid = (lo + hi) >> 1;
@@ -129,7 +149,14 @@ __device__ __forceinline__ int route_leaf(
     const int s = sidx[p];
     const Slot& m = slots[s];
     int bin;
-    if constexpr (sizeof(BinT) == 1) {
+    if constexpr (BUNDLE) {
+      const BundleDec& d = dec[s];
+      const int bb = static_cast<int>(binned[static_cast<size_t>(d.col) * n
+                                             + r]);
+      const int inner = bb - d.offset;
+      bin = !d.bundled ? bb
+                       : (inner >= 0 && inner < d.nbins ? inner : d.zero_bin);
+    } else if constexpr (sizeof(BinT) == 1) {
       bin = bin_of<PACKED>(bin_column<PACKED>(binned, m.feat, n)[r], m.feat);
     } else {
       bin = static_cast<int>(binned[static_cast<size_t>(m.feat) * n + r]);

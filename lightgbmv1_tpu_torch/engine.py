@@ -11,14 +11,20 @@ them, under its name), then the other callbacks by ``order``
 ``best_score`` and ends the loop.  ``early_stopping_rounds`` (or its
 aliases in ``params``) with ``first_metric_only``, ``evals_result`` and
 ``verbose_eval`` add their callbacks, as there; ``feval`` adds its
-metrics to every evaluation.  ``keep_training_booster=False`` returns a
-prediction-only booster loaded from the model text.
+metrics to every evaluation; ``fobj`` is a custom objective (the
+objective becomes ``none``, each update takes ``fobj``'s gradients);
+``init_model`` continues a model (text path or Booster: its predictions
+seed the scores) or resumes a checkpoint file bit for bit (restored once
+the valid sets are attached: their scores are part of it).
+``keep_training_booster=False`` returns a prediction-only booster loaded
+from the model text.
 
 ``cv`` and ``CVBooster`` (:172-286, with ``_make_n_folds`` :189): the
 folds drawn with ``np.random.RandomState(seed)`` (stratified by label for
 classification), each fold's sets subsets of the full set sharing its
 bins, one booster a fold trained in lock step, the metrics' means and
-standard deviations a round, early stopping on the first metric's mean.
+standard deviations a round, early stopping on the first metric's mean,
+``fobj`` in every fold's update.
 
 Every booster trains on ``device`` (default: the card).
 """
@@ -30,9 +36,10 @@ from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
 
+import os
+
 from . import callback as callback_mod
 from .basic import Booster, Dataset
-from .config import BREADTH, not_ported
 from .device import DeviceLike
 from .utils.log import log_fatal
 
@@ -41,13 +48,6 @@ _ROUND_ALIASES = ("num_iterations", "num_iteration", "n_iter", "num_tree",
                   "n_estimators")
 _STOP_ALIASES = ("early_stopping_round", "early_stopping_rounds",
                  "early_stopping", "n_iter_no_change")
-
-
-def _refuse_unported(fobj, init_model) -> None:
-    if fobj is not None:
-        raise not_ported("custom objectives (fobj)", BREADTH)
-    if init_model is not None:
-        raise not_ported("continued training (init_model)", BREADTH)
 
 
 def train(params: Dict[str, Any], train_set: Dataset,
@@ -64,7 +64,6 @@ def train(params: Dict[str, Any], train_set: Dataset,
           device: DeviceLike = None) -> Booster:
     """Train a model on ``device`` (default: the card) with the callback
     protocol of the JAX ``train`` (reference engine.py:18)."""
-    _refuse_unported(fobj, init_model)
     params = dict(params or {})
     # rounds aliases behave like the reference: params win over the kwarg
     for alias in _ROUND_ALIASES:
@@ -73,8 +72,19 @@ def train(params: Dict[str, Any], train_set: Dataset,
     for alias in _STOP_ALIASES:
         if alias in params and params[alias] is not None:
             early_stopping_rounds = int(params.pop(alias))
+    if fobj is not None:
+        params["objective"] = "none"
+    # a checkpoint file resumes bit for bit once the valid sets are
+    # attached; a model text continues from its predictions
+    ckpt = None
+    if isinstance(init_model, (str, os.PathLike)):
+        from .io.checkpoint import is_checkpoint_file, load_checkpoint
 
-    booster = Booster(params=params, train_set=train_set, device=device)
+        if is_checkpoint_file(init_model):
+            ckpt, init_model = load_checkpoint(str(init_model)), None
+
+    booster = Booster(params=params, train_set=train_set,
+                      init_model=init_model, device=device)
     is_valid_contain_train = False
     train_data_name = "training"
     if valid_sets is not None:
@@ -95,6 +105,8 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 vs.reference = train_set
             booster.add_valid(vs, name)
     booster._train_data_name = train_data_name
+    if ckpt is not None:
+        booster.resume_from_checkpoint(ckpt)
 
     cbs = set(callbacks or [])
     if early_stopping_rounds is not None and early_stopping_rounds > 0:
@@ -120,7 +132,7 @@ def train(params: Dict[str, Any], train_set: Dataset,
                 model=booster, params=params, iteration=i,
                 begin_iteration=0, end_iteration=num_boost_round,
                 evaluation_result_list=None))
-        finished = booster.update()
+        finished = booster.update(fobj=fobj)
 
         evaluation_result_list = []
         if (valid_sets is not None or is_valid_contain_train) and cbs_after:
@@ -215,9 +227,8 @@ def cv(params: Dict[str, Any], train_set: Dataset,
     """K-fold cross-validation on ``device`` (JAX :213, reference
     engine.py:394): ``{"<metric>-mean": [...], "<metric>-stdv": [...]}``
     a round, cut at the best round under early stopping.  As in the JAX
-    package, ``callbacks`` and ``eval_train_metric`` are accepted and
-    unused."""
-    _refuse_unported(fobj, init_model)
+    package, ``init_model``, ``callbacks`` and ``eval_train_metric`` are
+    accepted and unused."""
     params = dict(params or {})
     if metrics is not None:
         params["metric"] = metrics
@@ -246,7 +257,7 @@ def cv(params: Dict[str, Any], train_set: Dataset,
     for i in range(num_boost_round):
         agg = collections.defaultdict(list)
         for booster in cvbooster.boosters:
-            booster.update()
+            booster.update(fobj=fobj)
             for name, metric, value, hb in booster.eval_valid(feval):
                 agg[(metric, hb)].append(value)
         for (metric, hb), values in agg.items():

@@ -8,8 +8,10 @@ search on a sample, the zero-straddling bin, missing handling
 (None / Zero / NaN with a trailing NaN bin) and trivial-feature
 detection, computed in float64 exactly as the JAX package computes them,
 so the boundaries and bins are bit-identical
-(tests/test_torch_train.py).  Categorical features and forced bin bounds
-are not ported yet (ROADMAP queue 1, breadth of objectives and boosting):
+(tests/test_torch_train.py); the forced upper bounds of
+``forcedbins_filename`` (``get_forced_bins`` :309,
+``_find_bin_with_predefined`` :240).  Categorical features are not
+ported yet (ROADMAP queue 1, breadth of objectives and boosting):
 ``find_bin`` raises for them.
 """
 
@@ -17,7 +19,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -203,6 +205,104 @@ def _distinct_with_zero(values_sorted: np.ndarray, zero_cnt: int):
     return np.asarray(out_v, np.float64), np.asarray(out_c, np.int64)
 
 
+def _find_bin_with_predefined(distinct_values: np.ndarray,
+                              counts: np.ndarray, max_bin: int,
+                              total_sample_cnt: int, min_data_in_bin: int,
+                              forced_upper_bounds: Sequence[float]
+                              ) -> List[float]:
+    """Bin boundaries honouring forced upper bounds (JAX :240; reference
+    FindBinWithPredefinedBin, bin.cpp:157-255): the zero-straddle bounds
+    and the forced ones seed the list, then each seeded range is split
+    greedily with a bin budget in proportion to its sample count."""
+    bounds: List[float] = []
+    left_cnt = int(np.searchsorted(distinct_values, -K_ZERO_THRESHOLD,
+                                   side="right"))
+    right_start = int(np.searchsorted(distinct_values, K_ZERO_THRESHOLD,
+                                      side="right"))
+    if max_bin == 2:
+        bounds.append(K_ZERO_THRESHOLD if left_cnt == 0
+                      else -K_ZERO_THRESHOLD)
+    elif max_bin >= 3:
+        if left_cnt > 0:
+            bounds.append(-K_ZERO_THRESHOLD)
+        if right_start < len(distinct_values):
+            bounds.append(K_ZERO_THRESHOLD)
+    bounds.append(math.inf)
+    # the forced bounds away from zero, up to the budget
+    room = max_bin - len(bounds)
+    for b in [b for b in forced_upper_bounds
+              if abs(b) > K_ZERO_THRESHOLD][:max(room, 0)]:
+        bounds.append(float(b))
+    bounds.sort()
+    free_bins = max_bin - len(bounds)
+    to_add: List[float] = []
+    value_ind = 0
+    for i, ub in enumerate(bounds):
+        bin_start = value_ind
+        cnt_in_bin = 0
+        while (value_ind < len(distinct_values)
+               and distinct_values[value_ind] < ub):
+            cnt_in_bin += int(counts[value_ind])
+            value_ind += 1
+        remaining = max_bin - len(bounds) - len(to_add)
+        # std::lround: half away from zero
+        num_sub = int(math.floor(
+            cnt_in_bin * free_bins / max(total_sample_cnt, 1) + 0.5))
+        num_sub = min(num_sub, remaining) + 1
+        if i == len(bounds) - 1:
+            num_sub = remaining + 1
+        if num_sub > 1 and value_ind > bin_start:
+            sub = _greedy_find_bin(distinct_values[bin_start:value_ind],
+                                   counts[bin_start:value_ind], num_sub,
+                                   cnt_in_bin, min_data_in_bin)
+            to_add.extend(sub[:-1])          # the last bound is +inf
+    bounds.extend(to_add)
+    return sorted(set(bounds))
+
+
+def get_forced_bins(path: str, num_total_features: int,
+                    categorical_features=None) -> List[List[float]]:
+    """``forcedbins_filename``'s JSON -> each feature's forced upper
+    bounds (JAX :309; reference DatasetLoader::GetForcedBins,
+    dataset_loader.cpp:1200-1235), ``[{"feature": i, "bin_upper_bound":
+    [...]}, ...]``; a file that cannot be opened is ignored with a
+    warning, consecutive duplicates dropped."""
+    import json
+
+    from ..utils.fileio import open_file
+    from ..utils.log import log_fatal, log_warning
+
+    forced: List[List[float]] = [[] for _ in range(num_total_features)]
+    if not path:
+        return forced
+    categorical = set(categorical_features or [])
+    try:
+        with open_file(path) as fh:
+            spec = json.load(fh)
+    except OSError:
+        log_warning(f"Could not open {path}. Will ignore.")
+        return forced
+    except json.JSONDecodeError as e:
+        log_fatal(f"Forced bins file {path} is not valid JSON: {e}")
+    for entry in spec:
+        f = int(entry["feature"])
+        if f >= num_total_features or f < 0:
+            log_fatal(f"Forced bins feature index {f} is out of range "
+                      f"(num features = {num_total_features})")
+        if f in categorical:
+            log_warning(f"Feature {f} is categorical. Will ignore forced "
+                        "bins for this feature.")
+            continue
+        forced[f] = [float(b) for b in entry["bin_upper_bound"]]
+    for f in range(num_total_features):
+        out: List[float] = []
+        for b in forced[f]:
+            if not out or b != out[-1]:
+                out.append(b)
+        forced[f] = out
+    return forced
+
+
 @dataclass
 class BinMapper:
     """Maps one numerical feature's raw values to small integer bins."""
@@ -238,10 +338,13 @@ class BinMapper:
                  max_bin: int, min_data_in_bin: int = 3,
                  bin_type: int = BIN_NUMERICAL, use_missing: bool = True,
                  zero_as_missing: bool = False, pre_filter: bool = False,
-                 filter_cnt: int = 0) -> "BinMapper":
+                 filter_cnt: int = 0,
+                 forced_bounds: Optional[Sequence[float]] = None
+                 ) -> "BinMapper":
         """BinMapper::FindBin (reference bin.cpp:325-...).  Rows missing
         from ``sample_values`` count as ``total_sample_cnt -
-        len(sample_values)`` implicit zeros."""
+        len(sample_values)`` implicit zeros; ``forced_bounds`` switch the
+        boundary search to ``_find_bin_with_predefined``."""
         if bin_type != BIN_NUMERICAL:
             from ..config import BREADTH, not_ported
 
@@ -283,8 +386,13 @@ class BinMapper:
         else:
             budget, total_eff = max_bin, total_sample_cnt
         budget = max(budget, 2)
-        bounds = _find_bin_with_zero_as_one_bin(
-            distinct, counts, budget, total_eff, min_data_in_bin)
+        if forced_bounds:
+            bounds = _find_bin_with_predefined(
+                distinct, counts, budget, total_eff, min_data_in_bin,
+                forced_bounds)
+        else:
+            bounds = _find_bin_with_zero_as_one_bin(
+                distinct, counts, budget, total_eff, min_data_in_bin)
         if m.missing_type == MISSING_ZERO and len(bounds) == 2:
             # a 2-bin zero-as-missing feature has no missing handling
             m.missing_type = MISSING_NONE

@@ -36,7 +36,13 @@ batched ``ops/split.py`` call a step.
 Both take ``packed``: ``binned`` holds 4-bit packed bytes
 (``bin_layout=packed4``), the histograms' callables read them (K1's packed
 leg) and the partitions decode their split feature's nibble
-(``hist_cuda.bins_of_feat`` / ``bins_of_rows``).
+(``hist_cuda.bins_of_feat`` / ``bins_of_rows``).  Both take ``bundle``
+(EFB, the JAX growers' ``split_fn`` / ``bins_of_fn`` of the bundle
+path): ``binned`` holds the bundle columns, the histograms (and the pool
+and the level's carried histograms) are over them, each scan reads them
+expanded to the original features (``expand_bundle_hist``, on the
+scanned nodes' sums) and the partitions decode their feature's bin from
+its bundle column.
 
 Both run ``basic`` monotone constraints (JAX :549-570, :1053-1073;
 ``intermediate`` runs on the wave grower, the trainer resolves it):
@@ -74,6 +80,7 @@ from typing import Callable
 
 import torch
 
+from ..io.bundle import expand_bundle_hist
 from ..ops.hist_cuda import bins_of_feat, bins_of_rows
 from ..ops.quantize import NearestRows
 from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
@@ -150,6 +157,20 @@ def child_constraints(pconstr, out_l, out_r, mono, intermediate):
             torch.stack([min_r, max_r], dim=1))
 
 
+def scan_view(hist, sums, bundle, num_bins, hist_scale=None):
+    """A batch of histograms as the split scan reads them: under EFB
+    (``bundle``) the (C, BF, Bh, 3) bundle histograms expanded to the
+    (C, F, ``num_bins``, 3) original features on their nodes' (C, 3)
+    ``sums``, a quantized batch dequantized by its ``hist_scale`` first
+    (JAX trainer.py:928-930); else as they are.  Returns the histograms
+    and the scale the scan still applies."""
+    if bundle is None:
+        return hist, hist_scale
+    if hist_scale is not None:
+        hist = hist * hist_scale[:, None, None, :]
+    return expand_bundle_hist(hist, sums, bundle, num_bins), None
+
+
 def no_constraints(n, dev):
     return torch.tensor(NO_CONSTRAINT, dtype=torch.float32,
                         device=dev).repeat(n, 1)
@@ -160,7 +181,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                          hist_fn: Callable, max_depth: int = -1,
                          partition: bool = True, hist_pool_mb: float = -1.0,
                          packed: bool = False,
-                         feature_fraction_bynode: float = 1.0):
+                         feature_fraction_bynode: float = 1.0,
+                         bundle=None):
     """Build ``grow(binned, g3, base_mask, key=None) -> (tree, leaf_id,
     root_sum)``; ``key`` is the tree's (per-node feature sampling).
 
@@ -189,8 +211,9 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
         out0 = root_output(root_sum, params)
         mask0 = node_feature_masks(key, [0], base_mask,
                                    feature_fraction_bynode)
-        res0 = find_best_split(hist0[None], root_sum[None], meta,
-                               mask0, params,
+        res0 = find_best_split(scan_view(hist0[None], root_sum[None],
+                                         bundle, num_bins)[0],
+                               root_sum[None], meta, mask0, params,
                                depth=torch.zeros(1, dtype=torch.int64,
                                                  device=dev),
                                parent_output=out0[None], key=key, uids=[0])
@@ -252,7 +275,7 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             if partition:
                 b0, n_p = begin[leaf], phys[leaf]
                 seg = order[b0:b0 + n_p]
-                bseg = bins_of_feat(binned, feat, packed)[seg].long()
+                bseg = bins_of_feat(binned, feat, packed, bundle)[seg].long()
                 gl = go_left_rule(bseg, thr, dl, mt, nanb, zb)
                 left_rows, right_rows = seg[gl], seg[~gl]    # stable
                 n_l = int(left_rows.shape[0])
@@ -265,8 +288,9 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                 h_large = None if use_pool else hist_rows(lg_b, lg_n)
                 begin[nl], phys[leaf], phys[nl] = b0 + n_l, n_l, n_r
             else:
-                gl = go_left_rule(bins_of_feat(binned, feat, packed).long(),
-                                  thr, dl, mt, nanb, zb)
+                gl = go_left_rule(
+                    bins_of_feat(binned, feat, packed, bundle).long(), thr,
+                    dl, mt, nanb, zb)
                 leaf_id = torch.where((leaf_id == leaf) & ~gl,
                                       torch.full_like(leaf_id, nl), leaf_id)
                 sm_left = bool(lsum[2] <= rsum[2])
@@ -299,7 +323,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             masks2 = node_feature_masks(key, uids2, base_mask,
                                         feature_fraction_bynode)
             res = find_best_split(
-                torch.stack([h_left, h_right]), csums, meta, masks2, params,
+                scan_view(torch.stack([h_left, h_right]), csums, bundle,
+                          num_bins)[0], csums, meta, masks2, params,
                 constraint=cconstr,
                 depth=torch.full((2,), d, dtype=torch.int64, device=dev),
                 parent_output=couts, key=key, uids=uids2)
@@ -355,7 +380,8 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                           meta: FeatureMeta, params: SplitParams,
                           hist_frontier_fn: Callable, max_depth: int = -1,
                           packed: bool = False,
-                          feature_fraction_bynode: float = 1.0):
+                          feature_fraction_bynode: float = 1.0,
+                          bundle=None):
     """Build ``grow(binned, g3, base_mask, key=None) -> (tree, leaf_id,
     root_sum)``; ``key`` is the tree's (per-node feature sampling).
 
@@ -422,7 +448,8 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
             masks = node_feature_masks(key, uids, base_mask,
                                        feature_fraction_bynode)
             res = find_best_split(
-                hist, leaf_sums[:Ld], meta, masks,
+                scan_view(hist, leaf_sums[:Ld], bundle, num_bins)[0],
+                leaf_sums[:Ld], meta, masks,
                 params, constraint=leaf_constr[:Ld] if use_mc else None,
                 depth=torch.full((Ld,), d, dtype=torch.int64, device=dev),
                 parent_output=leaf_out[:Ld], key=key, uids=uids)
@@ -447,7 +474,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
             # partition: the split leaves' rows that go right move
             k = leaf_id.long()
             f_row = res.feature[k]
-            b_row = bins_of_rows(binned, f_row, packed).long()
+            b_row = bins_of_rows(binned, f_row, packed, bundle).long()
             gl = go_left_rule(b_row, res.threshold_bin[k],
                               res.default_left[k], meta.missing_type[f_row],
                               meta.nan_bin[f_row], meta.zero_bin[f_row])

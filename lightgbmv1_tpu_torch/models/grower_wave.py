@@ -128,7 +128,8 @@ from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
 from ..ops.wave_fused import (fused_route_rows, subtract_children,
                                unpack_children)
 from ..utils.prng import fold_in
-from .grower import child_constraints, node_feature_masks, root_sums
+from .grower import (child_constraints, node_feature_masks, root_sums,
+                     scan_view)
 from .tree import TreeArrays
 
 # Slot bucketing starts at this many rows (each bucket is one more
@@ -407,11 +408,13 @@ def _topk_by_rank(gains: torch.Tensor, K: int):
 
 
 def route_valid_sets(store: _PackedStore, st, round_splits, valids, *,
-                     num_leaves, meta: FeatureMeta, packed=False):
+                     num_leaves, meta: FeatureMeta, packed=False,
+                     bundle=None):
     """Each valid set's leaf ids, from the root through all of a grown
-    tree's rounds at once (K3 on the card, a launch a set): nothing reads
-    them before the tree ends.  ``round_splits``: each round's split
-    count, in order; the splits are the store's node rows."""
+    tree's rounds at once (K3 on the card, a launch a set; its bundle leg
+    under EFB): nothing reads them before the tree ends.
+    ``round_splits``: each round's split count, in order; the splits are
+    the store's node rows."""
     dev = store.device
     vlids = [torch.zeros(v.shape[1], dtype=torch.int32, device=dev)
              for v in valids]
@@ -426,7 +429,7 @@ def route_valid_sets(store: _PackedStore, st, round_splits, valids, *,
     return fused_route_rows(list(zip(valids, vlids)), feats=feats, thrs=thrs,
                             dls=dls, leafs=leafs, nls=nls,
                             num_leaves=num_leaves, meta=meta, packed=packed,
-                            offsets=offsets)
+                            offsets=offsets, bundle=bundle)
 
 
 def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
@@ -436,7 +439,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      fused_loop_fn: Optional[Callable] = None,
                      hist_wave_quant_fn: Optional[Callable] = None,
                      packed: bool = False, monotone_mode: str = "basic",
-                     feature_fraction_bynode: float = 1.0):
+                     feature_fraction_bynode: float = 1.0, bundle=None):
     """Build ``grow(binned, g3, base_mask, valids=(), key=None)``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False, rows8=None) ->
@@ -467,7 +470,12 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     resolved it) is read when ``meta.monotone_type`` is set; the
     persistent loop does not run them (the trainer refuses it).
     ``feature_fraction_bynode < 1`` draws every node's feature mask from
-    ``key`` (the persistent loop does not run it)."""
+    ``key`` (the persistent loop does not run it).  ``bundle`` (EFB, the
+    trainer gives neither fused callable then): ``binned`` and the valid
+    sets hold the bundle columns; the histograms, the pool and the
+    subtraction are over them, each scan reads them expanded
+    (``grower.scan_view``), the partition and the valid routing decode
+    the bundle columns."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
@@ -522,7 +530,9 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         out0 = leaf_output(root_sum[0], root_sum[1], params)
         if params.path_smooth > 0:
             out0 = smooth_output(out0, root_sum[2], 0.0, params)
-        res0 = find_best_split(hist0[None], root_sum[None], meta,
+        res0 = find_best_split(scan_view(hist0[None], root_sum[None],
+                                         bundle, num_bins)[0],
+                               root_sum[None], meta,
                                node_feature_masks(key, [0], base_mask,
                                                   bynode), params,
                                depth=torch.zeros(1, dtype=torch.int64,
@@ -550,7 +560,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             in_split = row_slot >= 0
             rs = row_slot.clamp(min=0)
             f_row = feats[rs]
-            b_row = bins_of_rows(binned, f_row, packed).long()
+            b_row = bins_of_rows(binned, f_row, packed, bundle).long()
             gl = go_left_rule(b_row, thrs[rs], dls[rs],
                               meta.missing_type[f_row], meta.nan_bin[f_row],
                               meta.zero_bin[f_row])
@@ -745,7 +755,10 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                     hist = h_slot[:2 * n]        # slot 2s + side = child
                     if scale is not None:
                         scale = scale[:2 * n]
-                res = find_best_split(hist, b["csums"], meta, b["cmask"],
+                # (the pool keeps the bundle-space histograms)
+                h_scan, scale = scan_view(hist, b["csums"], bundle, num_bins,
+                                          scale)
+                res = find_best_split(h_scan, b["csums"], meta, b["cmask"],
                                       params, hist_scale=scale,
                                       constraint=b["cconstr"],
                                       depth=b["cdepth"],
@@ -758,7 +771,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
 
         tree = store.finalize(st, nl)
         vlids = route_valid_sets(store, st, round_splits, valids,
-                                 num_leaves=L, meta=meta, packed=packed)
+                                 num_leaves=L, meta=meta, packed=packed,
+                                 bundle=bundle)
         return tree, leaf_id, root_sum, vlids
 
     grow.routes_valids = True

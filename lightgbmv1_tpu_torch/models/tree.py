@@ -84,9 +84,11 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
                            nan_bins: torch.Tensor,
                            missing_types: torch.Tensor,
                            zero_bins: torch.Tensor,
-                           packed: bool = False) -> torch.Tensor:
+                           packed: bool = False,
+                           bundle=None) -> torch.Tensor:
     """(N,) int64 leaf of each row of (F, N) bins (``packed``: the
-    (ceil(F/2), N) 4-bit packed bytes), walked from the root on the bin
+    (ceil(F/2), N) 4-bit packed bytes; ``bundle``: the EFB bundle columns,
+    each bin decoded), walked from the root on the bin
     thresholds with the NaN and zero-as-missing rows sent their node's
     default way.  Bounded by the node count, so malformed child pointers
     end the walk."""
@@ -100,7 +102,7 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
             break
         nd = node.clamp(min=0)
         f = tree.split_feature.long()[nd]
-        b = bins_of_rows(binned, f, packed).long()
+        b = bins_of_rows(binned, f, packed, bundle).long()
         mt = missing_types[f]
         na = ((mt == MISSING_NAN) & (b == nan_bins[f])) | (
             (mt == MISSING_ZERO) & (b == zero_bins[f]))
@@ -114,10 +116,10 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
 
 def tree_predict_binned(tree: TreeArrays, binned: torch.Tensor,
                         nan_bins, missing_types, zero_bins,
-                        packed: bool = False) -> torch.Tensor:
+                        packed: bool = False, bundle=None) -> torch.Tensor:
     """Each row's leaf value (``tree_leaf_index_binned``)."""
     return tree.leaf_value[tree_leaf_index_binned(
-        tree, binned, nan_bins, missing_types, zero_bins, packed)]
+        tree, binned, nan_bins, missing_types, zero_bins, packed, bundle)]
 
 
 def host_tree_from_arrays(arrays: TreeArrays,

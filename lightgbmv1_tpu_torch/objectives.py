@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .config import BREADTH, Config, not_ported
+from .config import Config
 from .io.dataset import Metadata
 from .utils.log import log_fatal
 from .utils.prng import fold_in, prng_key, uniform_1d
@@ -652,13 +652,13 @@ _OBJECTIVES = {
     "lambdarank": LambdarankNDCG, "rank_xendcg": RankXENDCG}
 
 
-def create_objective(config: Config) -> ObjectiveFunction:
+def create_objective(config: Config) -> Optional[ObjectiveFunction]:
     """The objective of ``config.objective`` (JAX :687); an unknown name
-    is fatal, as there.  The JAX package's objective-less names (``none``,
-    ``custom``, ...) train a custom objective, which is not ported."""
+    is fatal, as there.  The objective-less names (``none``, ``custom``,
+    ...) give None: a custom objective (``fobj``) supplies the
+    gradients."""
     if config.objective in ("none", "null", "custom", "na"):
-        raise not_ported(f"objective={config.objective} (custom "
-                         "objectives)", BREADTH)
+        return None
     if config.objective not in _OBJECTIVES:
         log_fatal(f"Unknown objective: {config.objective}")
     return _OBJECTIVES[config.objective](config)

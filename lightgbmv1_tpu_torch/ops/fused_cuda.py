@@ -62,10 +62,19 @@ the bits, are the u8 leg's.  The plain versions unpack
 (``hist_cuda.unpack4bit``) or decode the decision bins
 (``wave_fused.decision_bins(..., packed=True)``).
 
+EFB bundle columns (``bundle``, an ``io.bundle.BundleArrays``): K3's
+bundle leg routes a valid set's (BF, N) bundle columns, each decision
+decoding its feature's bin from its column (``bundle_bins_of_feat``) by
+the split's decode the launch builds beside its Slot from the (5, F)
+``bundle.table``; the plain version decodes with the same function.  K2
+never sees bundles (the fused family refuses EFB).
+
 Each launch adds one to ``launch_counts[name]`` (the packed leg's to
-``name + "_packed"``), and K2's also to ``bucket_launch_counts[(nslots,
-precision, mode)]`` (mode ``"sub"`` / ``"pool"``, packed ``"sub:packed"``
-/ ``"pool:packed"``); each plain call adds one to ``plain_counts[name]``.
+``name + "_packed"``; K3's 16-bit leg to ``int16_launch_counts``, its
+bundle leg to ``bundle_launch_counts``), and K2's also to
+``bucket_launch_counts[(nslots, precision, mode)]`` (mode ``"sub"`` /
+``"pool"``, packed ``"sub:packed"`` / ``"pool:packed"``); each plain call
+adds one to ``plain_counts[name]``.
 """
 
 from __future__ import annotations
@@ -84,6 +93,8 @@ launch_counts = {"fused_round": 0, "route_rows": 0, "fused_round_packed": 0,
                  "route_rows_packed": 0}
 # K3's 16-bit leg (int16 bins), apart from the byte legs above
 int16_launch_counts = {"route_rows": 0}
+# K3's bundle leg (EFB bundle columns), apart from the legs above
+bundle_launch_counts = {"route_rows": 0}
 # the launches of K2 by (nslots, precision, mode)
 bucket_launch_counts: dict = {}
 plain_counts = {"fused_round": 0, "route_rows": 0}
@@ -92,7 +103,8 @@ _count_lock = threading.Lock()
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        for d in (launch_counts, plain_counts, int16_launch_counts):
+        for d in (launch_counts, plain_counts, int16_launch_counts,
+                  bundle_launch_counts):
             for k in d:
                 d[k] = 0
         bucket_launch_counts.clear()
@@ -104,14 +116,15 @@ def count_plain(name: str) -> None:
 
 
 def route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed=False,
-                   offsets=None):
+                   offsets=None, bundle=None):
     """Plain version of ``route_rows``: ``route_tile`` on each row's
-    decision bin, round after round (``offsets``; None: one round)."""
+    decision bin, round after round (``offsets``; None: one round), the
+    bin decoded from its bundle column under ``bundle``."""
     count_plain("route_rows")
     bounds = [0, rmeta.shape[0]] if offsets is None else offsets.tolist()
     for o0, o1 in zip(bounds[:-1], bounds[1:]):
         dbin = wf.decision_bins(binned, lids, feats[o0:o1], rmeta[o0:o1, 0],
-                                num_leaves, packed=packed)
+                                num_leaves, packed=packed, bundle=bundle)
         lids = wf.route_tile(dbin, lids, rmeta[o0:o1], nslots=0, sub=False,
                              want_label=False)[0]
     return lids
@@ -194,6 +207,9 @@ def round_ref(binned, g3, *, nslots, num_bins, precision, meta: FeatureMeta,
 
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the ints of one split's decode in K3's bundle leg (BundleDec,
+# csrc/wave_round.cuh)
+BUNDLE_DEC_INTS = 5
 
 
 @functools.cache
@@ -202,7 +218,7 @@ def _lib() -> ctypes.CDLL:
     lib.lgbm_fused_round.argtypes = [_P] * 25 + [_I] * 11 + [_F] * 8 \
         + [_I, _P, _I, _P]
     lib.lgbm_fused_round.restype = _I
-    lib.lgbm_route_rows.argtypes = [_P] * 7 + [_I] * 4 + [_P]
+    lib.lgbm_route_rows.argtypes = [_P] * 8 + [_I] * 5 + [_P]
     lib.lgbm_route_rows.restype = _I
     return lib
 
@@ -240,18 +256,24 @@ def list_scratch(N, n_chunks, span, device) -> list:
 
 
 def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
-               offsets=None):
+               offsets=None, bundle=None):
     """K3: (N,) leaf ids of ``binned``'s rows, from ``lids``, after the
     splits of ``rmeta`` (P, RMETA_COLS) on the features ``feats`` (P,),
     in rounds: round q's splits are rows ``offsets[q]:offsets[q + 1]``
     (``offsets`` (R + 1,) i32, rising from 0 to P; None: one round, R =
     1).  ``packed``: ``binned`` holds packed bytes.  (F, N) int16 bins
     (``max_bin > 255``) take the kernel's 16-bit leg
-    (``int16_launch_counts["route_rows"]``)."""
+    (``int16_launch_counts["route_rows"]``).  ``bundle``
+    (``io.bundle.BundleArrays``): ``binned`` holds the (BF, N) EFB bundle
+    columns, and each decision decodes its feature's bin from its
+    column through the (5, F) ``bundle.table`` — the bundle leg
+    (``bundle_launch_counts["route_rows"]``)."""
     if binned.device.type == "cpu":
         return route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed,
-                              offsets)
+                              offsets, bundle)
     wide = binned.dtype == torch.int16
+    if packed and bundle is not None:
+        raise ValueError("EFB bundle columns are never packed")
     if wide:
         if packed or binned.dim() != 2 or not binned.is_contiguous():
             raise ValueError("int16 bins must be a contiguous (F, N) tensor "
@@ -264,6 +286,10 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
     _need(lids, "lids", torch.int32, (N,), dev)
     _need(feats, "feats", torch.int32, (P,), dev)
     _need(rmeta, "rmeta", torch.int32, (P, wf.RMETA_COLS), dev)
+    nf = 0
+    if bundle is not None:
+        nf = bundle.table.shape[1]
+        _need(bundle.table, "bundle.table", torch.int32, (5, nf), dev)
     R = 1
     if offsets is not None:
         R = offsets.shape[0] - 1
@@ -273,19 +299,23 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
     out = torch.empty(N, dtype=torch.int32, device=dev)
     # scratch for the kernel's tables where they pass a block's shared
     # memory: P Slots (an rmeta row and its feature), each round's leaf
-    # order (2 P), the R + 1 offsets
-    tab = torch.empty(P * (wf.RMETA_COLS + 3) + R + 1, dtype=torch.int32,
-                      device=dev)
+    # order (2 P), the R + 1 offsets, and the bundle leg's P decodes
+    tab = torch.empty(P * (wf.RMETA_COLS + 3) + R + 1
+                      + (P * BUNDLE_DEC_INTS if bundle is not None else 0),
+                      dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().lgbm_route_rows(
             binned.data_ptr(), lids.data_ptr(), feats.data_ptr(),
             rmeta.data_ptr(), 0 if offsets is None else offsets.data_ptr(),
+            0 if bundle is None else bundle.table.data_ptr(),
             out.data_ptr(), tab.data_ptr(), N, P, R,
-            2 if wide else int(packed), stream)
+            2 if wide else int(packed), nf, stream)
     _raise_on(err, "route_rows")
     with _count_lock:
-        if wide:
+        if bundle is not None:
+            bundle_launch_counts["route_rows"] += 1
+        elif wide:
             int16_launch_counts["route_rows"] += 1
         else:
             launch_counts["route_rows_packed" if packed

@@ -206,18 +206,31 @@ def packed_bins_of_rows(binned: torch.Tensor,
 
 
 def bins_of_rows(binned: torch.Tensor, f_row: torch.Tensor,
-                 packed: bool = False) -> torch.Tensor:
+                 packed: bool = False, bundle=None) -> torch.Tensor:
     """(N,) int32 bins of feature ``f_row[r]`` at each row r, from byte
-    bins or (``packed``) from the packed bytes."""
+    bins, (``packed``) from the packed bytes or (``bundle``, the
+    ``io.bundle.BundleArrays`` of EFB) decoded from the bundle columns."""
     if packed:
         return packed_bins_of_rows(binned, f_row)
+    if bundle is not None:
+        from ..io.bundle import bundle_bins_of_rows
+
+        return bundle_bins_of_rows(binned, f_row, bundle).to(torch.int32)
     return torch.gather(binned, 0, f_row.long()[None, :])[0].to(torch.int32)
 
 
-def bins_of_feat(binned: torch.Tensor, feat, packed: bool = False):
-    """(N,) bins of feature ``feat``, from byte bins (uint8) or
-    (``packed``) from the packed bytes (int32)."""
-    return packed_bins_of_feat(binned, feat) if packed else binned[feat]
+def bins_of_feat(binned: torch.Tensor, feat, packed: bool = False,
+                 bundle=None):
+    """(N,) bins of feature ``feat``, from byte bins (uint8),
+    (``packed``) from the packed bytes (int32) or (``bundle``) decoded
+    from its bundle column (int64)."""
+    if packed:
+        return packed_bins_of_feat(binned, feat)
+    if bundle is not None:
+        from ..io.bundle import bundle_bins_of_feat
+
+        return bundle_bins_of_feat(binned, feat, bundle)
+    return binned[feat]
 
 
 def _unpacked(binned: torch.Tensor, packed: bool, num_features):

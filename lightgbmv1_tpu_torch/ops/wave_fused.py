@@ -119,14 +119,17 @@ def pack_route_meta(feats, thrs, dls, leafs, nls, meta: FeatureMeta,
         sml.to(i32) if sml is not None else z], dim=1).contiguous()
 
 
-def decision_bins(binned, lids, feats, leafs, num_leaves, packed=False):
+def decision_bins(binned, lids, feats, leafs, num_leaves, packed=False,
+                  bundle=None):
     """Each row's decision bin ``binned[f(leaf(row)), row]`` through a
     leaf -> feature table and one gather; rows of non-splitting leaves
     read feature 0 (their slot mask is False).  ``packed``: the nibble of
-    the feature in its packed byte (``hist_cuda.packed_bins_of_rows``)."""
+    the feature in its packed byte (``hist_cuda.packed_bins_of_rows``);
+    ``bundle``: the feature's bin decoded from its EFB bundle column
+    (``io.bundle.bundle_bins_of_rows``)."""
     tab = torch.zeros(num_leaves + 1, dtype=torch.long, device=lids.device)
     tab[leafs.long()] = feats.long()
-    return bins_of_rows(binned, tab[lids.long()], packed)
+    return bins_of_rows(binned, tab[lids.long()], packed, bundle)
 
 
 def subtract_children(hsm, parent, sml, slot_scale=None):
@@ -144,10 +147,12 @@ def subtract_children(hsm, parent, sml, slot_scale=None):
 
 
 def fused_route_rows(row_sets, *, feats, thrs, dls, leafs, nls, num_leaves,
-                     meta: FeatureMeta, packed=False, offsets=None):
+                     meta: FeatureMeta, packed=False, offsets=None,
+                     bundle=None):
     """Route row sets through a tree's committed splits with the same
     decision the round runs on the train rows — the valid-set lane (K3 on
-    the card, ``fused_cuda.route_rows``; ``packed``: its packed leg).
+    the card, ``fused_cuda.route_rows``; ``packed``: its packed leg;
+    ``bundle``: its bundle leg, the sets holding EFB bundle columns).
     ``row_sets``: (bins, leaf ids) pairs; the splits (P,) are in round
     order, round q's at ``offsets[q]:offsets[q + 1]`` (``offsets`` (R +
     1,) i32; None: one round, as the JAX function routes).  The splits are
@@ -159,7 +164,7 @@ def fused_route_rows(row_sets, *, feats, thrs, dls, leafs, nls, num_leaves,
     feats = feats.to(torch.int32).contiguous()
     return [lids if lids.shape[0] == 0 else fused_cuda.route_rows(
         binned, lids, feats, rmeta, num_leaves, packed=packed,
-        offsets=offsets) for binned, lids in row_sets]
+        offsets=offsets, bundle=bundle) for binned, lids in row_sets]
 
 
 def pack_children(res: SplitResult) -> torch.Tensor:
@@ -410,12 +415,16 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
     return fused_loop
 
 
-def fused_ineligible_reason(*, bin_dtype, num_bins, params=None) -> str:
+def fused_ineligible_reason(*, bin_dtype, num_bins, params=None,
+                            bundled: bool = False) -> str:
     """Static eligibility gate (JAX :1356): the reason the fused round
     cannot run, or ``""``, in the JAX order.  The port refuses
-    categorical features and EFB bundles before any round (config.py,
-    io/dataset.py), and packed bins run the kernels' packed legs, so what
-    remains to check is the bin type and extra_trees."""
+    categorical features before any round (config.py), and packed bins
+    run the kernels' packed legs, so what remains to check is EFB, the
+    bin type and extra_trees."""
+    if bundled:
+        return ("EFB bundle-space histograms expand to original features "
+                "before the scan")
     if torch.iinfo(bin_dtype).bits > 8:
         return "int16 bins exceed the uint8 one-hot kernel family"
     if num_bins > 256:

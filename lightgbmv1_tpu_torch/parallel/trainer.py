@@ -58,7 +58,14 @@ product for int16 bins, the scatter oracle on the CPU), or under
 ``hist_method=bench`` (and ``auto`` on the card past 256 byte-bin
 features) the fastest candidate timed on the training bins;
 ``force_col_wise`` / ``force_row_wise`` map to scatter / onehot in the
-config and join an explicit bench's candidates.  int16 bins train on
+config and join an explicit bench's candidates.  EFB (``bundle``, JAX
+:481-500): the histograms run over the bundle columns at
+``bundle_num_bins`` bins (K1 at its 256-bin rung on the card), every
+grower expands them to the original features before the split scan
+(``io/bundle.expand_bundle_hist``; a quantized round's histograms
+dequantized first, JAX :928-930) and decodes each decision from the
+bundle columns (the growers' partitions, K3's bundle leg for the valid
+sets); the fused family refuses EFB with the JAX reason.  int16 bins train on
 every grower (the one-hot product, the split-scan kernel's wide leg and
 K3's 16-bit leg); extra_trees reaches the growers' scans through
 ``params`` and each scan's uids.
@@ -174,7 +181,8 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                   num_bins: int, device: torch.device,
                   bin_dtype: torch.dtype = torch.uint8,
                   num_data: int = 0, packed: bool = False,
-                  binned=None) -> Callable:
+                  binned=None, bundle=None,
+                  bundle_num_bins=None) -> Callable:
     """The serial learner's ``grow(binned, g3, base_mask, ...)`` for the
     configured growth over ``num_data`` rows of ``bin_dtype`` bins: the
     wave grower's ``grow(..., valids)`` routes the valid sets too
@@ -183,11 +191,16 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     ``meta.num_bins.shape[0]`` features (JAX :497-507).  ``binned``: the
     training bins on ``device``, which ``hist_method=bench`` times the
     methods on (``resolve_hist_method``; the pick and the candidates'
-    times are ``grow.hist_method`` and ``grow.bench_times``)."""
+    times are ``grow.hist_method`` and ``grow.bench_times``).
+    ``bundle`` (``io.bundle.BundleArrays``): ``binned`` holds the EFB
+    bundle columns, whose histograms have ``bundle_num_bins`` bins."""
     F = meta.num_bins.shape[0]
+    # the histograms' bin axis and columns (the bundles' under EFB)
+    Bh = bundle_num_bins if bundle is not None else num_bins
+    FH = bundle.num_bundles if bundle is not None else F
     bench_times: dict = {}
     method = resolve_hist_method(config, device, bin_dtype, binned,
-                                 num_bins, packed, F, bench_times)
+                                 Bh, packed, FH, bench_times)
     bins = dict(packed=packed, num_features=F)
     precision = config.hist_dtype
     deep_precision = resolve_deep_dtype(config.hist_dtype_deep, precision,
@@ -233,19 +246,20 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
         mono_mode = "basic"
 
     def local_wave(binned, g3, label, nslots, deep=False, rows8=None):
-        return hist_wave(binned, g3, label, nslots, num_bins, method=method,
+        return hist_wave(binned, g3, label, nslots, Bh, method=method,
                          precision=deep_precision if deep else precision,
                          rows8=rows8, **bins)
 
     def local_wave_quant(binned, zq, label, nslots, key):
-        return hist_wave_quant(binned, zq, label, nslots, num_bins, key,
+        return hist_wave_quant(binned, zq, label, nslots, Bh, key,
                                method=method, **bins)
 
     # ---- hist_method=fused: the routed fused round (K2, K3) -------------
     fused_fn = fused_loop = None
     if config.hist_method == "fused":
         reason = fused_ineligible_reason(bin_dtype=bin_dtype,
-                                         num_bins=num_bins, params=params)
+                                         num_bins=num_bins, params=params,
+                                         bundled=bundle is not None)
         if not reason and not use_wave:
             reason = ("the fused kernel is a wave-round kernel; this config "
                       "routes to the " + ("level-wise" if levelwise
@@ -289,11 +303,11 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
 
     common = dict(num_leaves=config.num_leaves, num_bins=num_bins, meta=meta,
                   params=params, max_depth=config.max_depth,
-                  feature_fraction_bynode=bynode)
+                  feature_fraction_bynode=bynode, bundle=bundle)
     if levelwise:
         def local_frontier(binned, g3, label, L, live_slots=None,
                            rows8=None):
-            return hist_frontier(binned, g3, label, L, num_bins,
+            return hist_frontier(binned, g3, label, L, Bh,
                                  method=method, precision=precision,
                                  live_slots=live_slots, rows8=rows8, **bins)
 
@@ -301,7 +315,7 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                                      packed=packed, **common)
     elif not use_wave:
         def local_hist(binned, g3, leaf_id, target):
-            return hist_one_leaf(binned, g3, leaf_id, target, num_bins,
+            return hist_one_leaf(binned, g3, leaf_id, target, Bh,
                                  method=method, precision=precision, **bins)
 
         grow = make_leafwise_grower(

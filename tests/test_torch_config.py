@@ -105,7 +105,11 @@ def test_every_jax_knob_and_alias_is_known():
             "force_row_wise", "alpha", "fair_c", "poisson_max_delta_step",
             "tweedie_variance_power", "objective_seed", "auc_mu_weights",
             "drop_rate", "max_drop", "skip_drop", "xgboost_dart_mode",
-            "uniform_drop", "drop_seed", "top_rate", "other_rate"}
+            "uniform_drop", "drop_seed", "top_rate", "other_rate",
+            "max_bin_by_feature", "forcedbins_filename",
+            "saved_feature_importance_type", "finite_guard", "header",
+            "label_column", "weight_column", "group_column",
+            "ignore_column", "two_round", "initscore_filename"}
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -133,7 +137,8 @@ def test_refused_knob_raises_with_its_item(name, item, capsys):
 
 def test_training_refuses_a_dropped_knob():
     """train raises for a refused knob on the Booster's params, and a
-    binning knob on the Dataset's params is refused before it bins."""
+    Dataset with categorical features is refused before it bins (the
+    binning knobs it refused until part 1.7 bin now)."""
     rng = np.random.RandomState(0)
     X = rng.randn(300, 3)
     y = (X[:, 0] > 0).astype(float)
@@ -142,12 +147,11 @@ def test_training_refuses_a_dropped_knob():
                        match="cegb_penalty_feature_lazy"):
         train(dict(params, cegb_penalty_feature_lazy=[1.0, 0.5, 1.0]),
               Dataset(X, label=y), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="max_bin_by_feature"):
-        Dataset(X, label=y, params={"max_bin_by_feature": [15, 15, 15]}
-                ).construct()
-    with pytest.raises(NotImplementedError, match="forcedbins_filename"):
-        Dataset(X, label=y, params={"forcedbins_filename": "bins.json"}
-                ).construct()
+    with pytest.raises(NotImplementedError, match="categorical features"):
+        Dataset(X, label=y, categorical_feature=[0])
+    ds = Dataset(X, label=y, params={"max_bin_by_feature": [15, 15, 15]}
+                 ).construct()
+    assert int(ds._binned.num_bins.max()) <= 15
 
 
 def test_unknown_name_warns(capsys):

@@ -16,7 +16,9 @@ raises ``NotImplementedError`` naming ``ROADMAP queue 1, <title>`` of
 the item that will port it — never ``AttributeError``.
 """
 
+import os
 import re
+import tempfile
 
 import numpy as np
 import pytest
@@ -172,6 +174,13 @@ def _trained():
     return lt.train(PARAMS, ds, 2, device="cpu"), ds, X
 
 
+def _checkpoint(b):
+    """``b``'s checkpoint in a fresh temporary directory."""
+    path = os.path.join(tempfile.mkdtemp(), "state.ckpt")
+    b.save_checkpoint(path)
+    return path
+
+
 _BOOSTER_CALLS = {
     "add_valid": lambda b, ds, X: lt.Booster(
         PARAMS, train_set=ds, device="cpu").add_valid(ds.create_valid(X),
@@ -194,10 +203,11 @@ _BOOSTER_CALLS = {
     "refit": lambda b, ds, X: b.refit(X, ds.get_label()),
     "reset_parameter": lambda b, ds, X: b.reset_parameter(
         {"learning_rate": 0.05}),
-    "resume_from_checkpoint": lambda b, ds, X: b.resume_from_checkpoint(
-        "ckpt"),
+    "resume_from_checkpoint": lambda b, ds, X: lt.Booster(
+        PARAMS, train_set=ds, device="cpu").resume_from_checkpoint(
+            _checkpoint(b)),
     "rollback_one_iter": lambda b, ds, X: b.rollback_one_iter(),
-    "save_checkpoint": lambda b, ds, X: b.save_checkpoint("ckpt"),
+    "save_checkpoint": lambda b, ds, X: _checkpoint(b),
     "save_model": lambda b, ds, X: b.model_to_string(),   # no file here
     "update": lambda b, ds, X: b.update(),
 }
@@ -250,9 +260,6 @@ _TOP_CALLS = {
 _REFUSING = {
     "capture_model_reference": tconfig.DRIFT,
     "quality_snapshot": tconfig.DRIFT,
-    "refit": tconfig.BREADTH, "rollback_one_iter": tconfig.BREADTH,
-    "save_checkpoint": tconfig.BREADTH,
-    "resume_from_checkpoint": tconfig.BREADTH,
     "from_binned": tconfig.PARALLEL, "save_block_cache": tconfig.PARALLEL,
     "save_binary": tconfig.CLI,
     **{name: tconfig.SKLEARN for name in (

@@ -390,11 +390,11 @@ def test_golden_zero_as_missing_training_parity():
 
 
 _UNPORTED_CASES = [
-    ({"snapshot_freq": 5}, tconfig.BREADTH),
-    ({"finite_guard": "clamp"}, tconfig.BREADTH),
-    ({"saved_feature_importance_type": 1}, tconfig.BREADTH),
-    ({"max_bin_by_feature": [15] * 6}, tconfig.BREADTH),
-    ({"forcedbins_filename": "bins.json"}, tconfig.BREADTH),
+    ({"snapshot_freq": 5}, tconfig.CLI),
+    ({"task": "refit"}, tconfig.CLI),
+    ({"min_data_per_group": 50}, tconfig.BREADTH),
+    ({"input_model": "model.txt"}, tconfig.CLI),
+    ({"cat_smooth": 5.0}, tconfig.BREADTH),
     ({"max_cat_to_onehot": 8}, tconfig.BREADTH),
     ({"tree_learner": "data"}, tconfig.PARALLEL),
     ({"forcedsplits_filename": "forced.json"}, tconfig.BREADTH),
@@ -522,16 +522,20 @@ def test_unported_entry_points_raise():
     lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
              callbacks=[lambda env: seen.append(env.iteration)])
     assert seen == [0, 1]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
-                 fobj=lambda p, d: (p, p))
+    # ported since: custom objectives train (test_torch_lifecycle.py)
+    def l2(p, d):
+        return p - d.get_label(), np.ones_like(p)
+
+    assert lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
+                    fobj=l2).num_trees() == 2
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         lt.Dataset(X, label=y, categorical_feature=[0])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.Dataset("train.tsv")
+    # ported since: a data file loads (test_torch_parser.py); a missing
+    # one is fatal
+    with pytest.raises(lt.LightGBMError, match="does not exist"):
+        lt.Dataset("no_such_train.tsv")
     b = lt.Booster(BASE, train_set=lt.Dataset(X, label=y), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.update(fobj=lambda p, d: (p, p))
+    assert b.update(fobj=l2) is False
     # auto bin layout packs 4-bit bins on the card at max_bin <= 15
     assert select_bin_layout(Config.from_dict({"max_bin": 15}),
                              num_total_bin=16,
@@ -544,18 +548,28 @@ def test_unported_entry_points_raise():
 
 
 def test_bundling_data_raises():
-    """Sparse, mutually exclusive features would form an EFB bundle in
-    the JAX package; the port refuses them (dense data forms none)."""
+    """Sparse, mutually exclusive features form an EFB bundle, as in the
+    JAX package, and train on it since part 1.5 (test_torch_efb.py holds
+    the trees); dense data forms none; what still raises there is the
+    fused family, with the JAX reason."""
     rng = np.random.RandomState(15)
     X = np.zeros((2000, 6))
     for j in range(6):
         rows = np.arange(j, 2000, 6)
         X[rows, j] = rng.randn(len(rows))
     y = (rng.rand(2000) < 0.5).astype(float)
-    with pytest.raises(NotImplementedError, match="bundling"):
-        lt.train(BASE, lt.Dataset(X, label=y), 1, device="cpu")
-    lt.train(dict(BASE, enable_bundle=False), lt.Dataset(X, label=y), 1,
-             device="cpu")
+    b = lt.train(BASE, lt.Dataset(X, label=y), 1, device="cpu")
+    assert b._gbdt._bundle is not None
+    assert b._gbdt.binned.shape[0] < 6
+    with pytest.raises(NotImplementedError, match="EFB"):
+        lt.train(dict(BASE, hist_method="fused"), lt.Dataset(X, label=y), 1,
+                 device="cpu")
+    u = lt.train(dict(BASE, enable_bundle=False), lt.Dataset(X, label=y), 1,
+                 device="cpu")
+    assert u._gbdt._bundle is None
+    dense = lt.train(BASE, lt.Dataset(rng.randn(500, 4),
+                                      label=np.zeros(500)), 1, device="cpu")
+    assert dense._gbdt._bundle is None
 
 
 def test_config_aliases_and_carry_errors():
