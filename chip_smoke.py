@@ -494,6 +494,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import functools
 import hashlib
 import json
@@ -1575,6 +1576,10 @@ TEXT_SHA = {
     "quantile": "f783914f", "mape": "48f80f3d", "poisson": "2cc91b29",
     "gamma": "617c5fde", "tweedie": "7f993b1b", "cross_entropy": "a49356e5",
     "cross_entropy_lambda": "34ddfe6e", "rank_xendcg": "75d12e91",
+    "categorical staged": "24108f2d",
+    **{f"interaction {p}": "d85b0b25" for p in ("staged", "fused")},
+    "cegb sequential": "41243922", "forced leafwise": "1dcc9854",
+    "forced levelwise": "903cd43a",
 }
 GATE_TEXT_SHA = False       # main() sets it at its default arguments
 
@@ -2141,13 +2146,13 @@ K3_SMEM_BYTES = 48 * 1024     # csrc/wave_fused.cu kRouteSmemBytes
 
 
 def k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=False,
-             bundle=None):
+             bundle=None, cat=None):
     """K3's bound by bytes on one call from the root: each row's leaf id
     read (4 B) and written (4 B), one bin byte for each round in which
     its leaf splits (this run's rows, counted round by round with the
     plain version; a bundle-bin byte under ``bundle``), and the tables
-    read once (feats, rmeta, offsets, and the bundle leg's (5, F)
-    table)."""
+    read once (feats, rmeta, offsets, the bundle leg's (5, F) table and
+    the bitset leg's (P, 1 + W) rows ``cat``)."""
     N = binned.shape[1]
     lids = torch.zeros(N, dtype=torch.int32, device=binned.device)
     bounds = offsets.tolist()
@@ -2158,10 +2163,12 @@ def k3_bound(binned, feats, rmeta, offsets, num_leaves, packed=False,
         splits[rmeta[o0:o1, 0].long()] = True
         reads += int(splits[lids.long()].sum())
         lids = fc.route_rows_ref(binned, lids, feats[o0:o1], rmeta[o0:o1],
-                                 num_leaves, packed, bundle=bundle)
+                                 num_leaves, packed, bundle=bundle,
+                                 cat=None if cat is None else cat[o0:o1])
     nbytes = N * 8 + reads + 4 * (feats.numel() + rmeta.numel()
                                   + offsets.numel()) + (
-        0 if bundle is None else 4 * bundle.table.numel())
+        0 if bundle is None else 4 * bundle.table.numel()) + (
+        0 if cat is None else 4 * cat.numel())
     return {"bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
             "bytes": nbytes, "bin_reads": reads}
 
@@ -2236,14 +2243,14 @@ class FusedRecorder:
             return out
 
         def route(binned, lids, feats, rmeta, num_leaves, packed=False,
-                  offsets=None, bundle=None):
+                  offsets=None, bundle=None, cat=None):
             args = (binned, lids, feats, rmeta, num_leaves, offsets)
             if packed:
                 self.packed_route = args
-            elif bundle is None:
+            elif bundle is None and cat is None:
                 self.route = args
             return self._orig[1](*args[:5], packed=packed, offsets=offsets,
-                                 bundle=bundle)
+                                 bundle=bundle, cat=cat)
 
         fc.fused_round, fc.route_rows = fused, route
         return self
@@ -6764,6 +6771,22 @@ def check_k3_bundle(tag, bundled, binned, ba, feats, rmeta, offsets, nl,
     return out
 
 
+def unbundled(b):
+    """A binned dataset's plain (F, N) bins without its EFB bundles (the
+    bins and mappers shared)."""
+    out = copy.copy(b)
+    out.bundled = out.bundle_layout = None
+    return out
+
+
+def with_binned(ds, X, y, binned):
+    """A Dataset of ``X`` whose bins are ``binned`` (already made), with
+    ``ds``'s params."""
+    out = Dataset(X, label=y, params=dict(ds.params))
+    out._binned = binned
+    return out
+
+
 def efb_run(tag, params, dtrain, dvalid, iters, dev):
     """A recorded EFB training (counts reset before, read after)."""
     reset_counts()
@@ -6860,9 +6883,9 @@ def phase_efb(dev, seed, rng) -> dict:
           f"times (u8 leg {res['launches']['k3']}) for {want} trees")
     k1 += phase_hist_main_inputs(rec)
     t1 = time.perf_counter()
-    unb_ds = Dataset(X, label=y, params=dict(TRAIN_PARAMS,
-                                             enable_bundle=False)).construct()
-    unb_dv = Dataset(Xv, label=yv, reference=unb_ds).construct()
+    # the same bins, unbundled (no second binning of the same rows)
+    unb_ds = with_binned(ds, X, y, unbundled(ds._binned))
+    unb_dv = with_binned(dv, Xv, yv, unbundled(dv._binned))
     out["unbundled_binning_s"] = time.perf_counter() - t1
     _, unb, _, _ = efb_run("efb unbundled", dict(TRAIN_PARAMS,
                                                  enable_bundle=False),
@@ -6916,7 +6939,8 @@ def phase_efb(dev, seed, rng) -> dict:
                                              klive), 20),
         "unbundled_columns": Fo,
         "unbundled_ms": time_ms(lambda: hc.hist_leaves(
-            plain_b, kg, kl, key[0], 64, key[1], klive), 20)}
+            plain_b, kg, kl, key[0], 64, key[1], klive), 20),
+        **k1_bundle_extra(kb, kg, kl, key[0], kB, key[1], klive)}
     log(f"  K3 bundle leg on the last tree ({row['splits']} splits, "
         f"{row['rounds']} rounds, {row['rows']} rows): {fmt_ms(row['ms'])} "
         f"(L2 cleared {fmt_ms(row['cold_device_ms'])}; the u8 leg on the "
@@ -6928,6 +6952,32 @@ def phase_efb(dev, seed, rng) -> dict:
     out["seconds"] = time.perf_counter() - t0
     del csr_bst
     return out
+
+
+def k1_bundle_extra(binned, g3, label, L, B, prec, live) -> dict:
+    """K1's row on the bundle columns, completed: its plain version on the
+    card, one ``index_add_`` on the same inputs and its bound by K1's rule
+    (phase_hist_timing: the bins, rows and labels read once, the
+    histograms written once, against the live rows' adds)."""
+    Fn, N = binned.shape
+    plain_ms = time_ms(lambda: hc.hist_leaves_ref(binned, g3, label, L, B,
+                                                  prec, live), 2)
+    flat = ((torch.arange(Fn, device=binned.device)[:, None] * L
+             + label.long()[None, :]) * B + binned.long()).reshape(-1)
+    vals = g3.repeat(Fn, 1)
+    acc = torch.zeros((Fn * L * B, 3), dtype=torch.float32,
+                      device=binned.device)
+    library_ms = time_ms(lambda: acc.index_add_(0, flat, vals), 5)
+    lim = L if live is None else int(live)
+    n_live = int(((label >= 0) & (label < lim)).sum())
+    nbytes = Fn * N + N * 12 + N * 4 + L * Fn * B * 3 * 4
+    ops = (2 if prec == "bf16x2" else 1) * 3 * n_live * Fn
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops, "rows": N}
 
 
 def efb_rows(efb: dict) -> list:
@@ -6947,6 +6997,688 @@ def efb_rows(efb: dict) -> list:
         "u8_cold_device_ms": t["u8_cold_device_ms"],
         "at": f"{t['rows']} rows, {t['splits']} splits in {t['rounds']} "
         "rounds", "checks": efb["k3_checks"]}]
+
+
+# ---------------------------------------------------------------------------
+# categorical features (phases 46-47) and the constraints and penalties of
+# item 1's part 1.6 (phase 48)
+# ---------------------------------------------------------------------------
+
+CAT_SRC = "lightgbmv1_tpu_torch/csrc/split_scan_cat.cu"
+CAT_ROWS = 262144
+CAT_ITERS = 20
+# the categorical columns' cardinalities: one-vs-rest (3), the sorted scan
+# (24, 60) and past the bin axis (500: 62 kept, the rest the other bin)
+CAT_CARDS = (3, 24, 60, 500)
+CAT_COLS = list(range(F, F + len(CAT_CARDS)))
+CAT_PARAMS = dict(TRAIN_PARAMS, hist_method="pallas")
+CAT_PARITY = dict(PARITY_PARAMS,
+                  categorical_feature=",".join(map(str, CAT_COLS)))
+CAT_CHILDREN = (1, 8, 32, 126)
+CAT_EFB_ROWS = 65536
+# the JAX package's valid AUC on phase 47's data and configuration, on the
+# CPU (f32 scatter histograms), categorical and the same columns numeric
+# (cat_auc.py): on this data the categorical splits fit the training rows
+# closer and the valid rows less well, in both packages; the card's
+# bf16x2 histograms move the trees, so the gate is a floor
+JAX_CAT_AUC = 0.767555       # cat_auc.py, 262,144 rows, 20 iterations
+JAX_CAT_NUM_AUC = 0.796636
+CAT_AUC_TOL = 3e-3
+P16_ITERS = 5
+# interaction groups of the headline's 28 features; feature 27 in none
+P16_GROUPS = "[0,1,2,3,4,5],[6,7,8,9,10,11,12,13],[14,15,16,17,18,19,20]" \
+    ",[21,22,23,24,25,26]"
+# CEGB: feature 5's coupled cost keeps it out of every tree
+P16_CEGB = dict(TRAIN_PARAMS, cegb_penalty_split=1e-4,
+                cegb_penalty_feature_coupled=[1.0] * 5 + [1e9]
+                + [1.0] * (F - 6),
+                cegb_penalty_feature_lazy=[1e-5] * F)
+P16_FORCED = {"feature": 0, "threshold": 0.0,
+              "left": {"feature": 1, "threshold": 0.5},
+              "right": {"feature": 2, "threshold": -0.5}}
+CAT_LEG_KERNELS = ("split_cat_kernel",)
+
+
+def make_cat_data(n, seed):
+    """``make_data``'s 28 features beside CAT_CARDS categorical columns,
+    each category a random effect (non-ordinal), 3% NaN in the second;
+    the label a noisy logit of ``headline_logit`` and the effects."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, F).astype(np.float32)
+    logit = headline_logit(X)
+    cols = []
+    for card in CAT_CARDS:
+        c = rng.randint(0, card, n)
+        logit = logit + 0.8 * rng.randn(card)[c]
+        cols.append(c.astype(np.float32))
+    Xc = np.column_stack([X] + cols)
+    Xc[rng.rand(n) < 0.03, F + 1] = np.nan
+    y = (logit + rng.randn(n) > 0).astype(np.float64)
+    return Xc, y
+
+
+def cat_meta(meta, cats):
+    """``meta`` with the features ``cats`` categorical (its kernel
+    tables remade)."""
+    is_cat = torch.zeros(meta.num_bins.shape[0], dtype=torch.bool,
+                         device=meta.num_bins.device)
+    is_cat[list(cats)] = True
+    return with_tables(meta._replace(is_categorical=is_cat))
+
+
+class CatRecorder:
+    """Keeps the inputs of the last categorical-leg call (``split_scan_cat``)
+    at each child count C, the numerical rows it merges into copied first
+    (the leg writes them in place)."""
+
+    def __init__(self):
+        self.last = {}
+
+    def __enter__(self):
+        self._orig = sc.split_scan_cat
+
+        def wrapped(hist, mask, csums, packed, **kw):
+            self.last[hist.shape[0]] = (hist, mask, csums, packed.clone(),
+                                        kw)
+            return self._orig(hist, mask, csums, packed, **kw)
+
+        sc.split_scan_cat = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        sc.split_scan_cat = self._orig
+
+
+def check_cat_leg(tag, hist, mask, csums, packed, kw) -> dict:
+    """The categorical leg (merged rows and [is_cat, bitset] rows) bit for
+    bit its plain version run on the CPU on the same inputs, and two
+    launches alike."""
+    got, cat = sc.split_scan_cat(hist, mask, csums, packed.clone(), **kw)
+    again, cat2 = sc.split_scan_cat(hist, mask, csums, packed.clone(), **kw)
+    check(bool(same_value(got, again).all()) and torch.equal(cat, cat2),
+          f"categorical leg {tag}: two launches differ")
+    ckw = to_cpu(kw)
+    if ckw.get("rand") is not None:
+        r = ckw["rand"]
+        ckw["rand"] = RandLeg(r.key, r.uids.cpu(), r.extra_seed)
+    want, wcat = sc.split_cat_ref(hist.cpu(), mask.cpu(), csums.cpu(),
+                                  packed.cpu(), **ckw)
+    bad = int((~same_value(got.cpu(), want)).sum()) + int(
+        (cat.cpu() != wcat).sum())
+    check(bad == 0, f"categorical leg {tag}: {bad} values differ from the "
+          "CPU plain version")
+    return {"case": tag, "C": hist.shape[0],
+            "categorical_picks": int(wcat[:, 0].sum()), "max_abs_err": 0.0}
+
+
+def check_cegb_leg(tag, hist, mask, csums, kw) -> dict:
+    """The split-scan kernel with CEGB penalties bit for bit its plain
+    version on the CPU (packed rows and residue)."""
+    got = sc.split_scan_pick(hist, mask, csums, **kw)
+    res = sc.split_scan(hist, mask, csums, **kw)
+    ckw = to_cpu(kw)
+    if ckw.get("rand") is not None:
+        r = ckw["rand"]
+        ckw["rand"] = RandLeg(r.key, r.uids.cpu(), r.extra_seed)
+    cs = csums.cpu()
+    want_res = scan_residue(hist.cpu(), mask.cpu(), cs, **ckw)
+    want = pick_pack(want_res, gain_shift(cs, ckw["params"],
+                                          ckw.get("parent_output")),
+                     cs, ckw["meta"], hist.shape[2])
+    bad = int((~same_value(got.cpu(), want)).sum()) + int(
+        (~same_value(res.cpu(), want_res)).sum())
+    check(bad == 0, f"CEGB leg {tag}: {bad} values differ from the CPU "
+          "plain scan")
+    return {"case": tag, "C": hist.shape[0], "max_abs_err": 0.0,
+            "finite_picks": int(torch.isfinite(want[:, 0]).sum())}
+
+
+def cat_children(C, rng, dev, F_=32, B=64):
+    """C children's (C, F_, B, 3) histograms binned from 300 signed rows
+    each, four categorical features (3 bins, one-vs-rest; 40, 64 and 64
+    bins, the sorted scan) binned through a permutation of the rows'
+    gradient sign (non-ordinal signal), the rest at random; their sums,
+    mask and meta (``scan_children``'s missing types)."""
+    _, _, _, meta, _ = scan_children(1, F_, B, rng, dev)
+    cats = (3, 6, 17, 30)
+    nb = meta.num_bins.clone()
+    nb[3], nb[6] = 3, 40
+    meta = cat_meta(with_tables(meta._replace(num_bins=nb)), cats)
+    N = 300 * C
+    rows = signed_rows(rng, N, dev)
+    child = torch.as_tensor(rng.randint(0, C, N), device=dev)
+    bins = torch.as_tensor(rng.randint(0, 1 << 16, (F_, N)), device=dev) \
+        % nb[:, None]
+    pos = (rows[:, 0] > 0).long()
+    for f in cats:
+        k = int(nb[f]) - 1                      # the last bin: other
+        perm = torch.as_tensor(rng.permutation(k), device=dev)
+        half = (bins[f] % max(k // 2, 1)) + pos * (k // 2)
+        bins[f] = perm[half.clamp(max=k - 1)]
+    hist = torch.zeros((C, F_, B, 3), dtype=torch.float32, device=dev)
+    for f in range(F_):
+        hist[:, f].index_put_((child, bins[f]), rows, accumulate=True)
+    csums = hist[:, 0].double().sum(dim=1).float()
+    mask = torch.ones((C, F_), dtype=torch.bool, device=dev)
+    mask[C // 2, 2] = False
+    return hist.contiguous(), csums, mask, meta
+
+
+def phase_cat_kernels(rng, dev) -> dict:
+    """Phase 46 (synthetic half): the categorical leg and the CEGB leg at C
+    in CAT_CHILDREN on ``cat_children`` histograms (F = 32, B = 64, four
+    of them categorical), each with and without extra_trees' draw, bit
+    for bit their plain versions."""
+    out = {"cat": [], "cegb": []}
+    for C in CAT_CHILDREN:
+        hist, csums, mask, meta = cat_children(C, rng, dev)
+        for rand in (False, True):
+            params = SplitParams(lambda_l1=0.1, lambda_l2=1.0,
+                                 min_data_in_leaf=5.0,
+                                 min_data_per_group=20.0, cat_smooth=5.0,
+                                 extra_trees=rand, extra_seed=3)
+            rl = (RandLeg((17, 29), torch.arange(C, dtype=torch.int32,
+                                                 device=dev) * 2 + 1, 3)
+                  if rand else None)
+            pen = torch.as_tensor(rng.rand(C, 32).astype(np.float32) * 0.5,
+                                  device=dev)
+            kw = dict(meta=meta, params=params, rand=rl)
+            tag = f"C={C}{' rand' if rand else ''}"
+            packed = sc.split_scan_pick(hist, mask, csums, **kw, cegb=pen)
+            out["cat"].append(check_cat_leg(tag, hist, mask, csums, packed,
+                                            dict(kw, cegb=pen)))
+            out["cegb"].append(check_cegb_leg(tag, hist, mask, csums,
+                                              dict(kw, cegb=pen)))
+    n = sum(c["categorical_picks"] for c in out["cat"])
+    check(n > 0, "phase 46: no synthetic child picked a categorical split")
+    log(f"  categorical leg and CEGB leg at C = {list(CAT_CHILDREN)}, with "
+        f"and without extra_trees' draw: bit for bit their plain versions "
+        f"({n} categorical picks of {sum(c['C'] for c in out['cat'])})")
+    return out
+
+
+def cat_bound(C, F_, B, n_cat, W, onehot, used) -> dict:
+    """The categorical leg's bound: the categorical features' rows read
+    once, the sums, mask and packed rows read, the packed and [is_cat,
+    bitset] rows written; its operations this run's data needs (each
+    sorted feature's B^2 sort compares and about 40 f32 operations a
+    candidate, ``used`` the sorted features' valid bins)."""
+    nbytes = (C * n_cat * B * 12 + C * 12 + C * F_ + 5 * F_ * 4 + n_cat * 4
+              + 2 * C * sc.PACK_COLS * 4 + C * (1 + W) * 4)
+    ops = int(C * (onehot * B * 40 + (n_cat - onehot) * B * B)
+              + 40 * 2 * used)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "ops": ops}
+
+
+def cat_timing(rec: CatRecorder, checks: list) -> list:
+    """Phase 46 (main-path half): the categorical leg on phase 47's last
+    inputs at each child count, bit for bit its plain version, by events,
+    on the device with the L2 cleared, its plain version on the card and
+    its bound."""
+    rows = []
+    for C in sorted(rec.last):
+        hist, mask, csums, packed, kw = rec.last[C]
+        checks.append(check_cat_leg(f"main path C={C}", hist, mask, csums,
+                                    packed, kw))
+        _, F_, B, _ = hist.shape
+        meta = kw["meta"]
+        n_cat = int(meta.cat32.shape[0])
+        nb = meta.num_bins[meta.cat32.long()]
+        onehot = int((nb <= kw["params"].max_cat_to_onehot).sum())
+        used = int((hist[:, meta.cat32.long(), :, 2]
+                    >= kw["params"].cat_smooth).sum())
+        W = -(-B // 32)
+        ms = time_ms(lambda: sc.split_scan_cat(hist, mask, csums,
+                                               packed.clone(), **kw), 30)
+        cold = cold_device_ms(lambda: sc.split_scan_cat(
+            hist, mask, csums, packed.clone(), **kw), CAT_LEG_KERNELS)
+        plain_ms = time_ms(lambda: sc.split_cat_ref(hist, mask, csums,
+                                                    packed.clone(), **kw), 2)
+        b = cat_bound(C, F_, B, n_cat, W, onehot, used)
+        rows.append({"C": C, "F": F_, "B": B, "categorical_features": n_cat,
+                     "ms": ms, "cold_device_ms":
+                     cold["split_cat_kernel"] or None, "plain_ms": plain_ms,
+                     **b})
+        log(f"  categorical leg C={C} ({n_cat} categorical of {F_} "
+            f"features, B={B}): {fmt_ms(ms)} by events, "
+            f"{fmt_ms(rows[-1]['cold_device_ms'])} on the device (L2 "
+            f"cleared), plain {fmt_ms(plain_ms)} on the card, bound "
+            f"{fmt_ms(b['bound_ms'])} by {b['bound_by']}")
+    return rows
+
+
+def cat_route_check(tag, route, dev) -> dict:
+    """K3's bitset leg on a recorded routing (a tree's splits with their
+    categorical rows): leaf ids bitwise its plain version and a second
+    launch; timed by events, on the device with the L2 cleared, the plain
+    version on the card; its bound (``k3_bound`` with the categorical
+    rows' bytes)."""
+    feats = route["feats"].to(torch.int32).contiguous()
+    rmeta = wf.pack_route_meta(route["feats"], route["thrs"], route["dls"],
+                               route["leafs"], route["nls"], route["meta"])
+    offs, nl, vb = route["offsets"], route["num_leaves"], route["binned"]
+    cat, ba = route["cat"], route.get("bundle")
+    check(cat is not None and bool(cat[:, 0].any()),
+          f"K3 bitset {tag}: the last tree has no categorical split")
+    lids = torch.zeros(vb.shape[1], dtype=torch.int32, device=dev)
+    args = (vb, lids, feats, rmeta, nl)
+    kw = dict(offsets=offs, bundle=ba, cat=cat)
+    got = fc.route_rows(*args, **kw)
+    check(torch.equal(got, fc.route_rows(*args, **kw)),
+          f"K3 bitset {tag}: two launches differ")
+    check(torch.equal(got, fc.route_rows_ref(*args, **kw)),
+          f"K3 bitset {tag}: differs from its plain version")
+    b = k3_bound(vb, feats, rmeta, offs, nl, bundle=ba, cat=cat)
+    row = {"case": tag, "rows": vb.shape[1], "splits": rmeta.shape[0],
+           "rounds": offs.shape[0] - 1,
+           "categorical_splits": int(cat[:, 0].sum()),
+           "ms": time_ms(lambda: fc.route_rows(*args, **kw), 20),
+           "cold_device_ms": sum(cold_device_ms(
+               lambda: fc.route_rows(*args, **kw), K3_ROUTE_KERNELS)
+               .values()) or None,
+           "no_cat_cold_device_ms": sum(cold_device_ms(
+               lambda: fc.route_rows(*args, offsets=offs, bundle=ba),
+               K3_ROUTE_KERNELS).values()) or None,
+           "plain_ms": time_ms(lambda: fc.route_rows_ref(*args, **kw), 2),
+           "max_abs_err": 0.0, **b}
+    log(f"  K3 bitset leg {tag} ({row['splits']} splits, "
+        f"{row['categorical_splits']} categorical, {row['rounds']} rounds, "
+        f"{row['rows']} rows): bitwise its plain version; "
+        f"{fmt_ms(row['ms'])} by events, {fmt_ms(row['cold_device_ms'])} "
+        f"on the device (L2 cleared; the same splits without their bitsets "
+        f"{fmt_ms(row['no_cat_cold_device_ms'])}), plain "
+        f"{fmt_ms(row['plain_ms'])}, "
+        f"bound {fmt_ms(row['bound_ms'])}")
+    return row
+
+
+def cat_splits_equal(tag, a, b) -> dict:
+    """Two boosters' trees split identically at every node, categorical
+    nodes' raw-category sets included."""
+    nodes = cats = 0
+    for ta, tb in zip(a._all_trees(), b._all_trees()):
+        n = ta.num_leaves - 1
+        check(ta.num_leaves == tb.num_leaves
+              and np.array_equal(ta.split_feature, tb.split_feature)
+              and np.array_equal(ta.is_cat, tb.is_cat),
+              f"{tag}: the trees split differently")
+        for i in range(n):
+            if ta.is_cat[i]:
+                check(np.array_equal(ta.cat_sets[i], tb.cat_sets[i]),
+                      f"{tag}: node {i}'s categories differ")
+                cats += 1
+            else:
+                check(ta.threshold_bin[i] == tb.threshold_bin[i],
+                      f"{tag}: node {i}'s threshold differs")
+        nodes += n
+    log(f"  {tag}: {nodes} nodes identical ({cats} categorical, their "
+        "category sets equal)")
+    return {"nodes": nodes, "categorical_nodes": cats}
+
+
+def phase_cat_train(dev, seed) -> dict:
+    """Phase 47: CAT_ROWS + VALID_ROWS rows of ``make_cat_data`` (four
+    categorical columns); CAT_ITERS staged iterations at the headline
+    (launch counts reset) beside the same columns taken as numeric (valid
+    AUC); the categorical leg launched, K3's bitset leg once a tree; the
+    text saved, loaded and predicted alike; card against CPU split by
+    split at CAT_PARITY (5 iterations, PARITY_ROWS rows)."""
+    out, t0 = {}, time.perf_counter()
+    X, y = make_cat_data(CAT_ROWS, seed + 50)
+    Xv, yv = make_cat_data(VALID_ROWS, seed + 51)
+    t1 = time.perf_counter()
+    ds = Dataset(X, label=y, params=CAT_PARAMS,
+                 categorical_feature=CAT_COLS).construct()
+    dv = Dataset(Xv, label=yv, reference=ds).construct()
+    out["binning_s"] = time.perf_counter() - t1
+    b = ds._binned
+    check(b.is_categorical.tolist() == [False] * F + [True] * 4,
+          "the categorical columns are not categorical")
+    check(b.padded_bin == 64, f"bin axis {b.padded_bin}, not 64")
+    log(f"  {CAT_ROWS} + {VALID_ROWS} rows x {F} + {len(CAT_CARDS)} "
+        f"categorical columns (cardinalities {list(CAT_CARDS)}; bins "
+        f"{[int(v) for v in b.num_bins[F:]]}) binned in "
+        f"{out['binning_s']:.2f} s")
+    reset_counts()
+    ev = {}
+    with ScanRecorder() as srec, CatRecorder() as crec, \
+            last_route_call() as route:
+        t1 = time.perf_counter()
+        bst = train(CAT_PARAMS, ds, CAT_ITERS, valid_sets=[dv],
+                    evals_result=ev, **_on(dev))
+        _sync(dev)
+        secs = time.perf_counter() - t1
+    counts = dict(boost_counts(),
+                  split_scan_cat=sc.launch_counts["split_scan_cat"],
+                  k3_bitset=fc.cat_launch_counts["route_rows"])
+    res = {"seconds": secs, "s_per_iter": secs / CAT_ITERS,
+           "valid_auc": ev["valid_0"]["auc"][-1], "launches": counts,
+           **text_hash(bst.model_to_string(), "categorical staged")}
+    trees = bst._all_trees()
+    res["categorical_nodes"] = int(sum(t.is_cat.sum() for t in trees))
+    want = k3_expected(bst, 1)
+    check(not any(plain_calls().values()), "categorical: a plain version "
+          "ran")
+    check(counts["split_scan_cat"] == counts["split_scan"] > 0,
+          f"categorical: the categorical leg launched "
+          f"{counts['split_scan_cat']} times for {counts['split_scan']} "
+          "scans")
+    check(counts["k3"] == want and counts["k3_bitset"] == want,
+          f"categorical: K3 launched {counts['k3']} times (bitset leg "
+          f"{counts['k3_bitset']}) for {want} trees")
+    check(res["categorical_nodes"] > 0, "categorical: no categorical split")
+    log(f"  categorical staged: {CAT_ITERS} iterations in {secs:.2f} s, "
+        f"valid AUC {res['valid_auc']:.5f}, {res['categorical_nodes']} "
+        f"categorical nodes; launches {json.dumps(counts)}")
+    # the same columns as numbers: the 28 numeric columns' bins as they
+    # are, the four columns binned as numbers (the same sampled rows a
+    # whole binning would take)
+    t1 = time.perf_counter()
+    nb4 = Dataset(X[:, CAT_COLS], label=y,
+                  params=dict(CAT_PARAMS, enable_bundle=False)).construct()
+    nmap = nb4._binned.bin_mappers
+
+    def numeric(bd, Xs):
+        out = copy.copy(bd)
+        out.bin_mappers = bd.bin_mappers[:F] + nmap
+        out.binned = np.vstack([bd.binned[:F]] + [
+            m.value_to_bin(Xs[:, c]).astype(bd.binned.dtype)[None]
+            for m, c in zip(nmap, CAT_COLS)])
+        out._build_feature_meta()
+        return out
+
+    nds = with_binned(ds, X, y, numeric(ds._binned, X))
+    ndv = with_binned(dv, Xv, yv, numeric(dv._binned, Xv))
+    ev2 = {}
+    num = train(CAT_PARAMS, nds, CAT_ITERS, valid_sets=[ndv],
+                evals_result=ev2, **_on(dev))
+    res["numeric_valid_auc"] = ev2["valid_0"]["auc"][-1]
+    res["numeric_seconds"] = time.perf_counter() - t1
+    log(f"  the same columns as numeric: valid AUC "
+        f"{res['numeric_valid_auc']:.5f} (categorical "
+        f"{res['valid_auc']:.5f}); the JAX package's on the CPU "
+        f"{JAX_CAT_AUC} / {JAX_CAT_NUM_AUC} (cat_auc.py)")
+    check(res["valid_auc"] > JAX_CAT_AUC - CAT_AUC_TOL,
+          f"categorical: valid AUC {res['valid_auc']} below the JAX "
+          f"package's {JAX_CAT_AUC} by more than {CAT_AUC_TOL}")
+    del num, nds, ndv
+    # the text saved, loaded and predicted alike
+    path = os.path.join(_build.BUILD_DIR, "categorical_model.txt")
+    bst.save_model(path)
+    loaded = Booster(model_file=path, **_on(dev))
+    check(loaded.model_to_string() == bst.model_to_string(),
+          "categorical: the loaded model's text differs")
+    head = Xv[:8192]
+    e = float(np.abs(loaded.predict(head, raw_score=True)
+                     - bst.predict(head, raw_score=True)).max())
+    vs = bst._gbdt._valid_scores[0].score[:8192, 0].cpu().numpy()
+    e2 = float(np.abs(loaded.predict(head, raw_score=True) - vs).max())
+    check(e == 0.0 and e2 <= raw_tol(trees),
+          f"categorical: the loaded model predicts {e} / {e2} apart")
+    res["loaded_predict_max_abs_err"] = e
+    res["valid_scores_max_abs_err"] = e2
+    log(f"  text saved, loaded and predicted: equal (max |diff| {e}); "
+        f"against the trainer's valid scores {e2:.3e}")
+    # card against CPU: the CPU training takes the card's gradients and
+    # root sums and sums its histograms in K1's order (``CardRounding``,
+    # ``roworder_plain``): a categorical pick has no tie band (the bins'
+    # sort by g / (h + cat_smooth), the strict compare with the numerical
+    # pick), so it needs the card's bits
+    Xp, yp = X[:PARITY_ROWS], y[:PARITY_ROWS]
+    rounding = CardRounding()
+    saved = grower_wave._BUCKET_MIN_N
+    grower_wave._BUCKET_MIN_N = 1
+    try:
+        with rounding.record():
+            card = train(CAT_PARITY, Dataset(Xp, label=yp), 5, **_on(dev))
+            _sync(dev)
+        with rounding.replay(), roworder_plain():
+            cpu = train(CAT_PARITY, Dataset(Xp, label=yp), 5, device="cpu")
+    finally:
+        grower_wave._BUCKET_MIN_N = saved
+    res["parity"] = dict(
+        cat_splits_equal("categorical card vs CPU", card, cpu),
+        **compare_splits("categorical card vs CPU", card, cpu,
+                         ("card", "CPU"), PARITY_LEAF_TOL))
+    out.update(train=res, scan_last=srec.last, cat_rec=crec, route=route,
+               booster=bst, Xv=Xv)
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def make_cat_efb_data(n, seed):
+    """Four sparse categorical columns (a row non-zero in one of them: EFB
+    bundles them) beside ``make_data``'s first 8 features."""
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 8).astype(np.float32)
+    which = rng.randint(0, 4, n)
+    cat = rng.randint(1, 20, n)
+    C = np.zeros((n, 4), np.float32)
+    C[np.arange(n), which] = cat
+    logit = headline_logit(np.hstack([X, np.zeros((n, 20), np.float32)])) \
+        + 1.5 * rng.randn(4, 20)[which, cat]
+    y = (logit + rng.randn(n) > 0).astype(np.float64)
+    return np.hstack([X, C]), y
+
+
+def phase_cat_efb(dev, seed) -> dict:
+    """Phase 46's bundle half: CAT_EFB_ROWS rows whose four categorical
+    columns bundle; three staged iterations (K3's bundle leg with the
+    bitset leg once a tree), then the bitset leg on the last tree's
+    routing, bundle columns and the unbundled bins alike."""
+    X, y = make_cat_efb_data(CAT_EFB_ROWS, seed + 52)
+    Xv, yv = make_cat_efb_data(16384, seed + 53)
+    cats = [8, 9, 10, 11]
+    ds = Dataset(X, label=y, params=CAT_PARAMS,
+                 categorical_feature=cats).construct()
+    dv = Dataset(Xv, label=yv, reference=ds).construct()
+    check(ds._binned.bundle_layout is not None,
+          "categorical EFB: the categorical columns did not bundle")
+    reset_counts()
+    with last_route_call() as route:
+        bst = train(CAT_PARAMS, ds, 3, valid_sets=[dv], **_on(dev))
+        _sync(dev)
+    want = k3_expected(bst, 1)
+    got = (fc.bundle_launch_counts["route_rows"],
+           fc.cat_launch_counts["route_rows"])
+    check(got == (want, want), f"categorical EFB: K3's bundle / bitset "
+          f"legs launched {got} times for {want} trees")
+    row = cat_route_check("bundle leg", route, dev)
+    vbin = torch.as_tensor(dv._binned.binned, device=dev).contiguous()
+    u8 = cat_route_check("u8 leg, unbundled bins",
+                         dict(route, binned=vbin, bundle=None), dev)
+    lids = torch.zeros(vbin.shape[1], dtype=torch.int32, device=dev)
+    feats = route["feats"].to(torch.int32).contiguous()
+    rmeta = wf.pack_route_meta(route["feats"], route["thrs"], route["dls"],
+                               route["leafs"], route["nls"], route["meta"])
+    check(torch.equal(
+        fc.route_rows(route["binned"], lids, feats, rmeta,
+                      route["num_leaves"], offsets=route["offsets"],
+                      bundle=route["bundle"], cat=route["cat"]),
+        fc.route_rows(vbin, lids, feats, rmeta, route["num_leaves"],
+                      offsets=route["offsets"], cat=route["cat"])),
+        "categorical EFB: the bundle leg differs from the u8 leg")
+    return {"launches": {"k3_bundle": got[0], "k3_bitset": got[1]},
+            "trees": want, "bundle": row, "u8": u8}
+
+
+def p16_run(tag, params, ds, dv, Xv, dev, iters=P16_ITERS):
+    """One headline training of part 1.6's knobs (launch counts reset),
+    its text hash and the numeric model served through K4."""
+    reset_counts()
+    ev = {}
+    t0 = time.perf_counter()
+    bst = train(params, ds, iters, valid_sets=[dv], evals_result=ev,
+                **_on(dev))
+    _sync(dev)
+    secs = time.perf_counter() - t0
+    counts = dict(boost_counts(),
+                  cegb_scans=sc.cegb_launch_counts["split_scan"])
+    res = {"seconds": secs, "s_per_iter": secs / iters,
+           "valid_auc": ev["valid_0"]["auc"][-1], "launches": counts,
+           **text_hash(bst.model_to_string(), tag)}
+    check(not any(plain_calls().values()), f"{tag}: a plain version ran")
+    check(counts["k1"] > 0 and counts["split_scan"] > 0,
+          f"{tag}: K1 or the split scan never launched")
+    res["served_max_abs_err"] = serve_trained(bst, Xv, dev, f"{tag}.txt")
+    log(f"  {tag}: {iters} iterations in {secs:.2f} s, valid AUC "
+        f"{res['valid_auc']:.5f}; launches {json.dumps(counts)}")
+    return bst, res
+
+
+def tree_paths(t) -> list:
+    """Each leaf's split features along its root path (a host tree)."""
+    out, stack = [], [(0, frozenset())] if t.num_leaves > 1 else []
+    while stack:
+        node, feats = stack.pop()
+        if node < 0:
+            out.append(feats)
+            continue
+        f = feats | {int(t.split_feature[node])}
+        stack += [(int(t.left_child[node]), f),
+                  (int(t.right_child[node]), f)]
+    return out
+
+
+def phase_p16(ds, dv, Xv, dev) -> dict:
+    """Phase 48: interaction constraints on the staged and fused paths at
+    the headline (every root-to-leaf path inside one group; the loop
+    refuses them), CEGB split + coupled + lazy on the sequential grower
+    (feature 5's coupled cost keeps it out), forced splits on the
+    sequential and level-wise growers (each tree's top splits the forced
+    ones); each P16_ITERS iterations, a text hash, served through K4."""
+    out, t0 = {}, time.perf_counter()
+    groups = [set(map(int, g.split(","))) for g in
+              re.findall(r"\[([\d,]+)\]", P16_GROUPS)]
+    for path in ("staged", "fused"):
+        p = dict(TRAIN_PARAMS, interaction_constraints=P16_GROUPS,
+                 **PATH_EXTRA[path])
+        bst, res = p16_run(f"interaction {path}", p, ds, dv, Xv, dev)
+        bad = sum(not any(pth <= g for g in groups)
+                  for t in bst._all_trees() for pth in tree_paths(t))
+        check(bad == 0, f"interaction {path}: {bad} paths cross groups")
+        out[f"interaction_{path}"] = res
+    try:
+        train(dict(FUSED_PARAMS, wave_loop_rounds=4,
+                   interaction_constraints=P16_GROUPS), ds, 1, **_on(dev))
+        check(False, "interaction constraints: the loop did not refuse")
+    except NotImplementedError as e:
+        check("interaction constraints re-mask features per split"
+              in str(e), f"the loop refused with another reason: {e}")
+        out["loop_refusal"] = str(e)
+    bst, res = p16_run("cegb sequential", P16_CEGB, ds, dv, Xv, dev)
+    used = set()
+    for t in bst._all_trees():
+        used |= set(t.split_feature[:t.num_leaves - 1].tolist())
+    check(5 not in used, "CEGB: feature 5 split despite its coupled cost")
+    check(res["launches"]["cegb_scans"] == res["launches"]["split_scan"] > 0,
+          "CEGB: a scan ran without its penalties")
+    res["features_used"] = len(used)
+    out["cegb"] = res
+    fpath = os.path.join(_build.BUILD_DIR, "forced_splits.json")
+    with open(fpath, "w") as fh:
+        json.dump(P16_FORCED, fh)
+    for growth in ("leafwise", "levelwise"):
+        p = dict(TRAIN_PARAMS, forcedsplits_filename=fpath,
+                 tree_growth=growth)
+        bst, res = p16_run(f"forced {growth}", p, ds, dv, Xv, dev)
+        top = [(int(t.split_feature[0]), int(t.split_feature[1]))
+               for t in bst._all_trees()]
+        check(all(a == 0 for a, _ in top),
+              f"forced {growth}: a tree's root is not the forced split")
+        out[f"forced_{growth}"] = res
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def p16_rows(cat: dict, cat_train: dict, cat_efb: dict, p16: dict,
+             k3_rows: list) -> list:
+    """The kernels line's rows of the categorical leg, the CEGB leg and
+    K3's bitset leg."""
+    top = max(cat["timing"], key=lambda r: r["C"])
+    rb = k3_rows[0]
+    cegb_top = max(cat["cegb_timing"], key=lambda r: r["C"])
+    return [{
+        "name": "split_scan:cat", "route": "cuda", "source": CAT_SRC,
+        "replaces": "lightgbmv1_tpu/ops/split.py:281 _best_categorical and "
+        "its merge in find_best_split (:721-740), XLA",
+        "launches": int(cat_train["train"]["launches"]["split_scan_cat"]),
+        "max_abs_err": 0.0, "ms": top["ms"], "plain_ms": top["plain_ms"],
+        "bound_ms": top["bound_ms"], "bound_by": top["bound_by"],
+        "library_ms": None, "library_note": "none: no single PyTorch call "
+        "computes a categorical split scan",
+        "cold_device_ms": top["cold_device_ms"], "at": f"C={top['C']}",
+        "buckets": cat["timing"], "checks": cat["cat"]}, {
+        "name": "split_scan:cegb", "route": "cuda", "source": SCAN_SRC,
+        "replaces": "lightgbmv1_tpu/ops/split.py:627-628 (the CEGB penalty "
+        "in find_best_split, XLA)",
+        "launches": int(p16["cegb"]["launches"]["cegb_scans"]),
+        "max_abs_err": 0.0, "ms": cegb_top["ms"],
+        "plain_ms": cegb_top["plain_ms"], "bound_ms": cegb_top["bound_ms"],
+        "bound_by": cegb_top["bound_by"], "library_ms": None,
+        "library_note": "none: no single PyTorch call computes a split "
+        "scan", "cold_device_ms": cegb_top["cold_device_ms"],
+        "at": f"C={cegb_top['C']}", "buckets": cat["cegb_timing"],
+        "checks": cat["cegb"]}, {
+        "name": "route_rows:bitset", "route": "cuda", "source": FUSED_SRC,
+        "replaces": "lightgbmv1_tpu/ops/wave_fused.py:595 (fused_route_rows"
+        "' routing; a categorical split's decision is "
+        "lightgbmv1_tpu/ops/split.py:251 bitset_contains, tree.py:183-189)",
+        "launches": int(cat_train["train"]["launches"]["k3_bitset"]),
+        "max_abs_err": 0.0, "ms": rb["ms"], "plain_ms": rb["plain_ms"],
+        "bound_ms": rb["bound_ms"], "bound_by": rb["bound_by"],
+        "library_ms": None, "library_note": "none: no single PyTorch call "
+        "routes rows through a tree's splits",
+        "cold_device_ms": rb["cold_device_ms"],
+        "at": f"{rb['rows']} rows, {rb['splits']} splits in {rb['rounds']} "
+        "rounds", "cases": k3_rows + [cat_efb["bundle"], cat_efb["u8"]]}]
+
+
+def cegb_timing(last: dict, rng, checks: list) -> list:
+    """The CEGB leg on phase 47's last scan inputs at each child count
+    with random penalties: by events, on the device with the L2 cleared,
+    the plain version on the card, its bound by bytes (the split scan's
+    plus the (C, F) penalties read)."""
+    rows = []
+    for C in sorted(last):
+        hist, mask, csums, kw = last[C]
+        _, F_, B, _ = hist.shape
+        pen = torch.as_tensor(rng.rand(C, F_).astype(np.float32),
+                              device=hist.device)
+        k = dict(kw, cegb=pen)
+        checks.append(check_cegb_leg(f"main path C={C}", hist, mask, csums,
+                                     k))
+        ms = time_ms(lambda: sc.split_scan_pick(hist, mask, csums, **k), 30)
+        cold = cold_device_ms(lambda: sc.split_scan_pick(
+            hist, mask, csums, **k), ("split_scan_kernel",))
+        bare = cold_device_ms(lambda: sc.split_scan_pick(
+            hist, mask, csums, **kw), ("split_scan_kernel",))
+        plain_ms = time_ms(lambda: sc.split_pick_ref(hist, mask, csums, **k),
+                           2)
+        nbytes = (C * F_ * B * 12 + C * F_ + C * 12 + 5 * F_ * 4
+                  + C * F_ * 4 + C * sc.PACK_COLS * 4)
+        ops = 2 * C * F_ * B * 21
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / F32_OPS_PER_S * 1e3
+        rows.append({"C": C, "ms": ms,
+                     "cold_device_ms": cold["split_scan_kernel"] or None,
+                     "no_cegb_cold_device_ms":
+                     bare["split_scan_kernel"] or None,
+                     "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+                     "bound_by": "bytes" if t_bytes >= t_ops
+                     else "operations", "bytes": nbytes, "ops": ops})
+        log(f"  CEGB leg C={C} (F={F_}, B={B}): {fmt_ms(ms)} by events, "
+            f"{fmt_ms(rows[-1]['cold_device_ms'])} on the device (L2 "
+            f"cleared; without penalties "
+            f"{fmt_ms(rows[-1]['no_cegb_cold_device_ms'])}), plain "
+            f"{fmt_ms(plain_ms)}, bound "
+            f"{fmt_ms(rows[-1]['bound_ms'])} by {rows[-1]['bound_by']}")
+    return rows
+
 
 
 def main(argv=None) -> int:
@@ -6980,7 +7712,7 @@ def main(argv=None) -> int:
     log("== phase 2: build")
     secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop",
                          "wave_loop_int8", "quantize", "split_scan",
-                         "split_scan_wide"])
+                         "split_scan_wide", "split_scan_cat"])
     for name, rec in _build.build_log.items():
         log(f"  nvcc {name}.cu: {rec['seconds']:.1f} s")
         for k in ptxas_kernels(rec["log"]):
@@ -7384,6 +8116,34 @@ def main(argv=None) -> int:
         "reset)")
     efb = phase_efb(dev, args.seed, rng)
     log(f"  phase 45: {efb['seconds']:.1f} s")
+
+    log("== phase 46: the categorical leg, the CEGB leg and K3's bitset leg "
+        "against their plain versions")
+    t0 = time.perf_counter()
+    cat = phase_cat_kernels(rng, dev)
+    cat_efb = phase_cat_efb(dev, args.seed)
+    log(f"  phase 46 (synthetic children, categorical EFB): "
+        f"{time.perf_counter() - t0:.1f} s")
+    log("== phase 47: categorical training at the headline (main path; "
+        "launch counts reset)")
+    cat_train = phase_cat_train(dev, args.seed)
+    log(f"  phase 47: {cat_train['seconds']:.1f} s")
+    log("== phase 46 (continued): the legs on phase 47's last inputs")
+    t1 = time.perf_counter()
+    cat["timing"] = cat_timing(cat_train["cat_rec"], cat["cat"])
+    cat["cegb_timing"] = cegb_timing(cat_train["scan_last"], rng,
+                                     cat["cegb"])
+    k3_cat = [cat_route_check("u8 leg, phase 47's last tree",
+                              cat_train["route"], dev)]
+    cat["seconds"] = time.perf_counter() - t1 + (t1 - t0
+                                                 - cat_train["seconds"])
+    log(f"  phase 46: {cat['seconds']:.1f} s in all")
+    del cat_train["booster"], cat_train["cat_rec"], cat_train["scan_last"]
+
+    log("== phase 48: interaction constraints, CEGB and forced splits at "
+        "the headline (main path; launch counts reset)")
+    p16 = phase_p16(ds, dv, Xv, dev)
+    log(f"  phase 48: {p16['seconds']:.1f} s")
     k1_row["bundle"] = {
         "note": "K1 on EFB bundle columns at the bundles' bin axis",
         "launches": int(efb["train"]["launches"]["k1"]),
@@ -7415,12 +8175,18 @@ def main(argv=None) -> int:
                     "lifecycle": lifecycle,
                     "efb": {k: v for k, v in efb.items()
                             if k not in ("k1_checks", "k3_checks")},
+                    "categorical": {"train": cat_train["train"],
+                                    "efb": cat_efb["launches"],
+                                    "seconds": cat["seconds"]},
+                    "part_16": p16,
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]
     print(json.dumps({"kernels": [k1_row] + fused_rows
                       + [k6_row, qrow, rnrow, scan_row, pick_row] + new_rows
-                      + efb_rows(efb) + rows}),
+                      + efb_rows(efb)
+                      + p16_rows(cat, cat_train, cat_efb, p16, k3_cat)
+                      + rows}),
           flush=True)
     print(nvidia_smi(), flush=True)
     print(json.dumps({"ok": True, "device": {

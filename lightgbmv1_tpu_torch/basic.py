@@ -58,8 +58,8 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .config import (BREADTH, CLI, DRIFT, NATIVE, PARALLEL, TREESHAP,
-                     Config, not_ported)
+from .config import (CLI, DRIFT, NATIVE, PARALLEL, TREESHAP, Config,
+                     not_ported)
 from .device import DeviceLike, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .io.model_text import (LoadedModel, dump_model_dict, model_from_string,
@@ -68,7 +68,7 @@ from .io.parser import load_data_file
 from .models.tree import HostTree
 from .objectives import convert_output, create_objective
 from .utils import fileio
-from .utils.log import LightGBMError, log_fatal
+from .utils.log import LightGBMError, log_fatal, log_warning
 
 _DEVICE_METHODS = ("depthwise", "pallas", "fused", "scan")
 _NOT_PORTED = {
@@ -139,9 +139,8 @@ class Dataset:
                  categorical_feature="auto",
                  params: Optional[Dict[str, Any]] = None,
                  free_raw_data: bool = False):
-        if categorical_feature not in ("auto", None, [], ()):
-            raise not_ported("categorical features", BREADTH)
         self.params = dict(params or {})
+        self.categorical_feature = categorical_feature
         self.reference = reference
         self.free_raw_data = free_raw_data
         self.feature_name = feature_name
@@ -187,10 +186,17 @@ class Dataset:
             raise not_ported("Dataset(<binary dataset cache>)", CLI)
         cfg = Config.from_dict(self.params)
         binned = None
+        cats = self._categorical_list()
         if cfg.two_round and self.reference is None:
             from .io.parser import load_two_round
 
-            binned = load_two_round(path, cfg)
+            if any(isinstance(c, str) for c in cats):
+                # names resolve against the header the in-memory loader
+                # reads (JAX :173-180)
+                log_warning("two_round with named categorical_feature "
+                            "columns falls back to the in-memory loader")
+            else:
+                binned = load_two_round(path, cfg, [int(c) for c in cats])
         if binned is not None:
             self._binned = binned
             meta = binned.metadata
@@ -288,10 +294,20 @@ class Dataset:
                if self.reference is not None else None)
         names = (list(self.feature_name)
                  if isinstance(self.feature_name, (list, tuple)) else None)
+        cats = []
+        for c in self._categorical_list():
+            if isinstance(c, str):
+                if names is None or c not in names:
+                    raise ValueError(f"categorical_feature {c!r} is not a "
+                                     "feature name")
+                cats.append(names.index(c))
+            else:
+                cats.append(int(c))
         fields = dict(label=self.label, weight=self.weight,
                       init_score=self.init_score, group=self.group,
                       config=Config.from_dict(self.params),
-                      feature_names=names, reference=ref)
+                      feature_names=names, reference=ref,
+                      categorical_features=cats)
         if _is_scipy_sparse(self.data):
             csr = self.data
             self._binned = BinnedDataset.from_csr(
@@ -302,6 +318,20 @@ class Dataset:
         if self.free_raw_data:
             self.data = None
         return self
+
+    def _categorical_list(self) -> list:
+        """The categorical columns (JAX :257-263): the constructor's
+        ``categorical_feature`` (indices or feature names), or at "auto"
+        the params knob ``categorical_feature`` (its aliases
+        ``cat_feature``, ``categorical_column``, ...: indices, as the JAX
+        CLI reads it, :65-67)."""
+        cf = self.categorical_feature
+        if cf in ("auto", None):
+            knob = str(Config.from_dict(self.params).categorical_feature)
+            return [int(c) for c in knob.replace(",", " ").split()]
+        if isinstance(cf, (str, int)):
+            cf = [cf]
+        return list(cf)
 
     def num_data(self) -> int:
         if self._binned is not None:

@@ -554,16 +554,17 @@ class Config:
 # checkpoints, finite_guard, saved_feature_importance_type), Dataset input
 # (EFB on dense and CSR data, files with their loader knobs, custom
 # objectives) and the binning knobs max_bin_by_feature and
-# forcedbins_filename (parts 1.4, 1.5 and 1.7).  BREADTH keeps part 1.6:
-# categorical features, interaction constraints, CEGB and forced splits.
-# The first five items keep their names for ROADMAP's record of them, and
-# nothing refuses with them any more.
+# forcedbins_filename (parts 1.4, 1.5 and 1.7); categorical features,
+# interaction constraints, CEGB and forced splits (part 1.6).  The first
+# six items keep their names for ROADMAP's record of them, and nothing
+# refuses with them any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
 INT8_PLAIN = "plain int8 histograms"
 HIST_METHODS = "histogram methods onehot and bench"
 BREADTH = "breadth of objectives and boosting"
+CAT_INT16 = "categorical features with int16 bins"
 NATIVE = "native C++ bulk predictor"
 TREESHAP = "TreeSHAP and prediction early stopping"
 CLI = "CLI"
@@ -582,24 +583,12 @@ SKLEARN = "sklearn wrappers and plotting"
 _UNPORTED = (
     ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
      "tree_learner={v}", PARALLEL),
-    ("interaction_constraints", lambda c: bool(c.interaction_constraints),
-     "interaction constraints", BREADTH),
-    ("forcedsplits_filename", lambda c: bool(c.forcedsplits_filename),
-     "forced splits", BREADTH),
-    ("cegb_penalty_split", lambda c: c.cegb_penalty_split > 0, "CEGB",
-     BREADTH),
-    ("categorical_feature", lambda c: bool(c.categorical_feature),
-     "categorical features", BREADTH),
 )
 
 
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (BREADTH, ("min_data_per_group", "max_cat_threshold", "cat_l2",
-               "cat_smooth", "max_cat_to_onehot",
-               "cegb_tradeoff", "cegb_penalty_feature_lazy",
-               "cegb_penalty_feature_coupled")),
     (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
                 "pred_early_stop_margin")),
     (CLI, ("config", "task", "data", "valid", "output_model",

@@ -126,7 +126,10 @@ split_scan_kernel(const float* __restrict__ hist,
                             legs.pout ? legs.pout + c : nullptr, legs.mono,
                             legs.contri,
                             legs.uids ? legs.uids + c : nullptr,
-                            legs.key0, legs.key1, legs.extra_seed};
+                            legs.key0, legs.key1, legs.extra_seed,
+                            legs.cegb ? legs.cegb +
+                                            static_cast<size_t>(c) * nf
+                                      : nullptr};
   auto* left = reinterpret_cast<float(*)[kMaxBins][3]>(base);
   auto* h = reinterpret_cast<float(*)[3]>(base + 2 * kMaxBins * 3);
   float* gains = base + 2 * kMaxBins * 3 + 3 * B;
@@ -265,7 +268,8 @@ int lgbm_split_scan_resident(int B, int opts) {
 // (nf,) i32, each read only when its option is on (`mono` and `pfac`,
 // under a monotone penalty, must then be given, and `contri`); under
 // kOptRand (extra_trees) `uids` (C,) i32, the tree key (key0, key1) and
-// extra_seed.  Out: `packed` (C, 10) f32 and `residue` (C, nf, 6) f32,
+// extra_seed; `cegb` (C, nf) f32 (the CEGB leg) or null.  Out: `packed`
+// (C, 10) f32 and `residue` (C, nf, 6) f32,
 // either null (not both; `residue` must be given past
 // lgbm_split_scan_resident's nf), and under kOptRand `rbins` (C, nf) i32,
 // each feature's random threshold, where not null.  B <= kMaxBins, or any
@@ -279,7 +283,7 @@ int lgbm_split_scan(const void* hist, const void* hscale, const void* csums,
                     float max_delta_step, float path_smooth,
                     float monotone_penalty, int opts, const void* uids,
                     void* rbins, unsigned key0, unsigned key1, int extra_seed,
-                    void* stream) {
+                    const void* cegb, void* stream) {
   const ScanKernel kern = scan_at<0>(opts);
   if (!kern || B < 1 || (!kWide && B > kMaxBins) || C < 1 || nf < 1 ||
       (mask_stride != nf && mask_stride != 0) || (!residue && !packed) ||
@@ -306,7 +310,8 @@ int lgbm_split_scan(const void* hist, const void* hscale, const void* csums,
                       static_cast<const int*>(uids),
                       key0,
                       key1,
-                      extra_seed};
+                      extra_seed,
+                      static_cast<const float*>(cegb)};
   kern<<<C, W * 32, W * warp_bytes + res_bytes,
          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(hist), static_cast<const float*>(hscale),

@@ -95,6 +95,14 @@
 //    beside its Slot, so a decision is one bundle-bin load, a subtract
 //    and a range check before the rule every leg applies; still one
 //    launch a tree and valid set.
+// K3's bitset leg (a non-null `cat`, categorical splits; the JAX staged
+//    path routes them with XLA's route() and bitset_contains,
+//    ops/split.py:251): each split's [is_cat, W bitset words] row sits in
+//    the tables beside its Slot (and its decode), so a categorical
+//    split's decision is its bin's bit (split_left, wave_round.cuh) where
+//    a numerical split's is the threshold rule; it rides any bins' leg
+//    (u8, 16-bit, bundle) as a runtime table, adds no template instance
+//    and stays one launch a tree and valid set.
 // Both take 4-bit packed bins (`packed`, the Pallas kernels' `fpb > 0` /
 //    `decision_bins(packed=True)` legs, bin_layout=packed4): (ceil(F/2), N)
 //    bytes of two features each.  Only the loads in (a) and (c) differ
@@ -152,20 +160,22 @@ constexpr size_t kRouteSlotBytes = sizeof(Slot) + 2 * sizeof(int);
 
 // K3's tables: P Slots; each round's leaf-sorted order, as P leaves and
 // then P round-local slots (round q's at its offset); the R + 1 offsets;
-// the bundle leg's P decodes.  In shared memory up to kRouteSmemBytes,
+// the bundle leg's P decodes; the bitset leg's P categorical rows of
+// 1 + cw words (split_left).  In shared memory up to kRouteSmemBytes,
 // past it in the caller's device scratch, P (kRmetaCols + 3) + R + 1
-// ints and the bundle leg's P (sizeof(BundleDec) / 4) more
-// (fused_cuda.route_rows).
+// ints, the bundle leg's P (sizeof(BundleDec) / 4) more and the bitset
+// leg's P (1 + cw) more (fused_cuda.route_rows).
 constexpr size_t kRouteSmemBytes = 48 * 1024;
 static_assert(sizeof(Slot) == (kRmetaCols + 1) * sizeof(int),
               "a Slot is an rmeta row and its feature");
 static_assert(sizeof(BundleDec) == 5 * sizeof(int),
               "fused_cuda.BUNDLE_DEC_INTS");
 
-size_t route_table_bytes(int P, int R, bool bundle) {
+size_t route_table_bytes(int P, int R, bool bundle, int cw) {
   return static_cast<size_t>(P) * kRouteSlotBytes +
          static_cast<size_t>(R + 1) * sizeof(int) +
-         (bundle ? static_cast<size_t>(P) * sizeof(BundleDec) : 0);
+         (bundle ? static_cast<size_t>(P) * sizeof(BundleDec) : 0) +
+         (cw ? static_cast<size_t>(P) * (cw + 1) * sizeof(uint32_t) : 0);
 }
 
 struct RouteTables {
@@ -174,14 +184,29 @@ struct RouteTables {
   int* sidx;
   int* off;
   BundleDec* dec;
+  uint32_t* cat;  // null without the bitset leg
+  int cw;
 };
 
-__device__ __forceinline__ RouteTables route_tables(int* base, int P, int R) {
+__device__ __forceinline__ RouteTables route_tables(int* base, int P, int R,
+                                                    bool bundle, int cw) {
   Slot* slots = reinterpret_cast<Slot*>(base);
   int* sleaf = reinterpret_cast<int*>(slots + P);
   int* off = sleaf + 2 * P;
-  return RouteTables{slots, sleaf, sleaf + P, off,
-                     reinterpret_cast<BundleDec*>(off + R + 1)};
+  auto* dec = reinterpret_cast<BundleDec*>(off + R + 1);
+  auto* cat = reinterpret_cast<uint32_t*>(dec + (bundle ? P : 0));
+  return RouteTables{slots, sleaf, sleaf + P, off, dec,
+                     cw ? cat : nullptr, cw};
+}
+
+// The bitset leg's rows of the P splits into the tables, by the threads
+// of a block (or of the grid: `g`, `step`).
+__device__ __forceinline__ void load_cat(const uint32_t* __restrict__ cat,
+                                         const RouteTables& tb, int P, int g,
+                                         int step) {
+  if (!tb.cat) return;
+  const int n = P * (tb.cw + 1);
+  for (int i = g; i < n; i += step) tb.cat[i] = cat[i];
 }
 
 // Round q's split range; a null `offs` is one round of the P splits.
@@ -230,26 +255,30 @@ __device__ __forceinline__ void route_rounds(
       int dlab = 0;
       lf = route_leaf<false, false, PACKED, BinT, BUNDLE>(
           r, lf, binned, tb.slots + o, tb.sleaf + o, tb.sidx + o, n,
-          tb.off[q + 1] - o, 0, dlab, tb.dec + o);
+          tb.off[q + 1] - o, 0, dlab, tb.dec + o,
+          tb.cat ? tb.cat + static_cast<size_t>(o) * (tb.cw + 1) : nullptr,
+          tb.cw);
     }
     new_leaf[r] = lf;
   }
 }
 
 // K3 on tables in shared memory: each block loads the P slots, the
-// offsets and (BUNDLE) the splits' decodes from the (5, nf) `btab`,
-// places each split in its round's leaf order (a thread a split), then
-// routes its rows.
+// offsets, (BUNDLE) the splits' decodes from the (5, nf) `btab` and (a
+// non-null `cat`) their categorical rows, places each split in its
+// round's leaf order (a thread a split), then routes its rows.
 template <bool PACKED, typename BinT, bool BUNDLE>
 __global__ void __launch_bounds__(kThreads)
 route_kernel(const BinT* __restrict__ binned,
              const int* __restrict__ oleaf, const int* __restrict__ feats,
              const int* __restrict__ rmeta, const int* __restrict__ offs,
-             const int* __restrict__ btab, int* __restrict__ new_leaf, int n,
-             int P, int R, int nf) {
+             const int* __restrict__ btab, const uint32_t* __restrict__ cat,
+             int* __restrict__ new_leaf, int n, int P, int R, int nf,
+             int cw) {
   extern __shared__ int route_smem[];
-  const RouteTables tb = route_tables(route_smem, P, R);
+  const RouteTables tb = route_tables(route_smem, P, R, BUNDLE, cw);
   load_slots(rmeta, feats, P, tb.slots);
+  load_cat(cat, tb, P, threadIdx.x, blockDim.x);
   for (int q = threadIdx.x; q <= R; q += blockDim.x)
     tb.off[q] = round_offset(offs, q, P);
   if (BUNDLE)
@@ -270,11 +299,13 @@ __global__ void __launch_bounds__(kThreads)
 route_tables_kernel(const int* __restrict__ feats,
                     const int* __restrict__ rmeta,
                     const int* __restrict__ offs,
-                    const int* __restrict__ btab, int* __restrict__ tab,
-                    int P, int R, int nf) {
-  const RouteTables tb = route_tables(tab, P, R);
+                    const int* __restrict__ btab,
+                    const uint32_t* __restrict__ cat, int* __restrict__ tab,
+                    int P, int R, int nf, int cw) {
+  const RouteTables tb = route_tables(tab, P, R, btab != nullptr, cw);
   const int step = gridDim.x * blockDim.x;
   const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  load_cat(cat, tb, P, g, step);
   for (int q = g; q <= R; q += step) tb.off[q] = round_offset(offs, q, P);
   for (int s = g; s < P; s += step) {
     const int* m = rmeta + static_cast<size_t>(s) * kRmetaCols;
@@ -290,32 +321,34 @@ template <bool PACKED, typename BinT, bool BUNDLE>
 __global__ void __launch_bounds__(kThreads)
 route_global_kernel(const BinT* __restrict__ binned,
                     const int* __restrict__ oleaf, int* __restrict__ tab,
-                    int* __restrict__ new_leaf, int n, int P, int R) {
-  route_rounds<PACKED, BinT, BUNDLE>(binned, oleaf, route_tables(tab, P, R),
-                                     new_leaf, n, R);
+                    int* __restrict__ new_leaf, int n, int P, int R,
+                    int cw) {
+  route_rounds<PACKED, BinT, BUNDLE>(
+      binned, oleaf, route_tables(tab, P, R, BUNDLE, cw), new_leaf, n, R);
 }
 
 // K3's launch on bins of type BinT: the tables in each block's shared
 // memory up to kRouteSmemBytes, else built once in `tab`.
 template <bool PACKED, typename BinT, bool BUNDLE = false>
 int route_launch(const BinT* bn, const int* ol, const int* ft, const int* rm,
-                 const int* of, const int* bt, int* o, int* tb, int n, int P,
-                 int R, int nf, cudaStream_t st) {
+                 const int* of, const int* bt, const uint32_t* ct, int* o,
+                 int* tb, int n, int P, int R, int nf, int cw,
+                 cudaStream_t st) {
   const int blocks = route_blocks((n + kThreads - 1) / kThreads);
-  const size_t bytes = route_table_bytes(P, R, BUNDLE);
+  const size_t bytes = route_table_bytes(P, R, BUNDLE, cw);
   if (bytes <= kRouteSmemBytes) {
     route_kernel<PACKED, BinT, BUNDLE><<<blocks, kThreads, bytes, st>>>(
-        bn, ol, ft, rm, of, bt, o, n, P, R, nf);
+        bn, ol, ft, rm, of, bt, ct, o, n, P, R, nf, cw);
     return static_cast<int>(cudaGetLastError());
   }
-  const int splits = P > R + 1 ? P : R + 1;
+  const int splits = P * (cw + 1) > R + 1 ? P * (cw + 1) : R + 1;
   route_tables_kernel<<<route_blocks((splits + kThreads - 1) / kThreads),
                         kThreads, 0, st>>>(ft, rm, of, BUNDLE ? bt : nullptr,
-                                           tb, P, R, nf);
+                                           ct, tb, P, R, nf, cw);
   int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   route_global_kernel<PACKED, BinT, BUNDLE><<<blocks, kThreads, 0, st>>>(
-      bn, ol, tb, o, n, P, R);
+      bn, ol, tb, o, n, P, R, cw);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -555,41 +588,46 @@ int lgbm_fused_round(const void* binned, const void* g3, const void* oleaf,
 // R = 1).  `layout`: 0 (F, N) u8 bins, 1 packed bytes, 2 (F, N) int16
 // bins (the 16-bit leg).  `btab` non-null: the bundle leg, `binned` the
 // (BF, N) EFB bundle columns (layout 0 or 2) and `btab` the (5, nf) i32
-// decode table of the nf features.  `tab`: device scratch of
-// P (kRmetaCols + 3) + R + 1 ints (+ 5 P for the bundle leg), used where
+// decode table of the nf features.  `cat` non-null: the bitset leg, the
+// splits' (P, 1 + cw) rows [is_cat, cw bitset words] (cw >= 1), beside
+// any layout.  `tab`: device scratch of P (kRmetaCols + 3) + R + 1 ints
+// (+ 5 P for the bundle leg, + P (1 + cw) for the bitset leg), used where
 // the tables pass kRouteSmemBytes.
 int lgbm_route_rows(const void* binned, const void* oleaf, const void* feats,
                     const void* rmeta, const void* offs, const void* btab,
-                    void* out, void* tab, int n, int P, int R, int layout,
-                    int nf, void* stream) {
+                    const void* cat, void* out, void* tab, int n, int P,
+                    int R, int layout, int nf, int cw, void* stream) {
   if (P < 0 || R < 1 || (!offs && R != 1) || !tab || layout < 0 ||
-      layout > 2 || (btab && (layout == 1 || nf < 1)))
+      layout > 2 || (btab && (layout == 1 || nf < 1)) || cw < 0 ||
+      (cat && cw < 1))
     return static_cast<int>(cudaErrorInvalidValue);
   if (n == 0) return 0;
+  if (!cat) cw = 0;
   const auto* ol = static_cast<const int*>(oleaf);
   const auto* ft = static_cast<const int*>(feats);
   const auto* rm = static_cast<const int*>(rmeta);
   const auto* of = static_cast<const int*>(offs);
   const auto* bt = static_cast<const int*>(btab);
+  const auto* ct = static_cast<const uint32_t*>(cat);
   auto* o = static_cast<int*>(out);
   auto* tb = static_cast<int*>(tab);
   auto st = static_cast<cudaStream_t>(stream);
   if (layout == 2) {
     const auto* bn = static_cast<const int16_t*>(binned);
-    return bt ? route_launch<false, int16_t, true>(bn, ol, ft, rm, of, bt, o,
-                                                   tb, n, P, R, nf, st)
-              : route_launch<false, int16_t>(bn, ol, ft, rm, of, bt, o, tb,
-                                             n, P, R, nf, st);
+    return bt ? route_launch<false, int16_t, true>(bn, ol, ft, rm, of, bt, ct,
+                                                   o, tb, n, P, R, nf, cw, st)
+              : route_launch<false, int16_t>(bn, ol, ft, rm, of, bt, ct, o,
+                                             tb, n, P, R, nf, cw, st);
   }
   const auto* bn = static_cast<const uint8_t*>(binned);
   if (bt)
-    return route_launch<false, uint8_t, true>(bn, ol, ft, rm, of, bt, o, tb,
-                                              n, P, R, nf, st);
+    return route_launch<false, uint8_t, true>(bn, ol, ft, rm, of, bt, ct, o,
+                                              tb, n, P, R, nf, cw, st);
   return layout == 1
-             ? route_launch<true, uint8_t>(bn, ol, ft, rm, of, bt, o, tb, n,
-                                           P, R, nf, st)
-             : route_launch<false, uint8_t>(bn, ol, ft, rm, of, bt, o, tb, n,
-                                            P, R, nf, st);
+             ? route_launch<true, uint8_t>(bn, ol, ft, rm, of, bt, ct, o, tb,
+                                           n, P, R, nf, cw, st)
+             : route_launch<false, uint8_t>(bn, ol, ft, rm, of, bt, ct, o,
+                                            tb, n, P, R, nf, cw, st);
 }
 
 }  // extern "C"

@@ -99,13 +99,25 @@ __device__ __forceinline__ void sort_slots(const Slot* slots, int ns,
   }
 }
 
-// Slot s's terms of route_tile on a row of leaf lf whose bin of the
-// slot's feature is `bin`: the new leaf id's and, WANT_LABEL, the label's.
+// K3's bitset leg: split s's categorical row of `cat` (1 + cw words a
+// split: is_cat, then the bin-space bitset's cw words; ops/split.py
+// pack_bitset): where is_cat the decision is the bin's bit, default_left
+// off (JAX tree.py:183-189); a null `cat` is every split numerical.
+__device__ __forceinline__ bool split_left(int s, const Slot& m, int bin,
+                                          const uint32_t* cat, int cw) {
+  if (cat) {
+    const uint32_t* c = cat + static_cast<size_t>(s) * (cw + 1);
+    if (c[0]) return ((c[1 + (bin >> 5)] >> (bin & 31)) & 1u) != 0;
+  }
+  return go_left(bin, m);
+}
+
+// Slot s's terms of route_tile on a row of leaf lf whose go-left decision
+// is `g`: the new leaf id's and, WANT_LABEL, the label's.
 template <bool WANT_LABEL, bool SUB>
-__device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
+__device__ __forceinline__ void slot_terms(int s, const Slot& m, bool g,
                                            int lf, int nslots, int& dleaf,
                                            int& dlab) {
-  const bool g = go_left(bin, m);
   if (!g) dleaf += m.nl - lf;
   if (WANT_LABEL) {
     if (SUB) {
@@ -126,13 +138,16 @@ __device__ __forceinline__ void slot_terms(int s, const Slot& m, int bin,
 // hist_tile.cuh).  BinT int16_t: `binned` holds (F, n) int16 bins (K3's
 // 16-bit leg, max_bin > 255; never PACKED).  BUNDLE: `binned` holds the
 // (BF, n) EFB bundle columns and slot s's bin is decoded by dec[s] (K3's
-// bundle leg; never PACKED).  The one decision of K2, K3 and K6.
+// bundle leg; never PACKED).  `cat` (K3's bitset leg, null elsewhere):
+// the slots' categorical rows (split_left).  The one decision of K2, K3
+// and K6.
 template <bool WANT_LABEL, bool SUB, bool PACKED, typename BinT = uint8_t,
           bool BUNDLE = false>
 __device__ __forceinline__ int route_leaf(
     int r, int lf, const BinT* __restrict__ binned, const Slot* slots,
     const int* sleaf, const int* sidx, int n, int ns, int nslots,
-    int& dlab, const BundleDec* dec = nullptr) {
+    int& dlab, const BundleDec* dec = nullptr,
+    const uint32_t* cat = nullptr, int cw = 0) {
   static_assert(sizeof(BinT) == 1 || !PACKED, "packed bins are bytes");
   static_assert(!(BUNDLE && PACKED), "bundle columns are never packed");
   int lo = 0, hi = ns;
@@ -161,7 +176,8 @@ __device__ __forceinline__ int route_leaf(
     } else {
       bin = static_cast<int>(binned[static_cast<size_t>(m.feat) * n + r]);
     }
-    slot_terms<WANT_LABEL, SUB>(s, m, bin, lf, nslots, dleaf, dlab);
+    slot_terms<WANT_LABEL, SUB>(s, m, split_left(s, m, bin, cat, cw), lf,
+                                nslots, dleaf, dlab);
   }
   return lf + dleaf;
 }
@@ -287,7 +303,11 @@ struct ScanParams {
 // is [kNoConstraintLo, kNoConstraintHi] (ops/split.py NO_CONSTRAINT)
 // and a null `pout` under kOptSmooth 0, as ops/split.py scan_inputs
 // leaves them.  Under kOptRand: the children's uids (C,) i32, the tree's
-// key (key0, key1) and extra_seed (rand_bin).
+// key (key0, key1) and extra_seed (rand_bin).  `cegb` (C, nf) f32, null
+// where off (every caller but the split-scan kernel leaves it so): the
+// CEGB penalties, subtracted from the finite gains after the contri
+// multiply (ops/split.py scan_direction_gains), a runtime switch and not
+// an option bit, so it adds no template instance.
 constexpr float kNoConstraintLo = -3.0e38f;
 constexpr float kNoConstraintHi = 3.0e38f;
 struct ScanLegs {
@@ -299,6 +319,7 @@ struct ScanLegs {
   const int* uids;
   uint32_t key0, key1;
   int extra_seed;
+  const float* cegb;
 };
 
 template <int OPTS>
@@ -394,9 +415,9 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // child's sums, parent output, bounds, shift and multipliers and the
 // feature's missing rules, bins and random threshold (kOptRand; -1: none).
 struct ScanConsts {
-  float tg, th, tc, pout, lo, hi, cf, pf, shift;
+  float tg, th, tc, pout, lo, hi, cf, pf, shift, cegb;
   int nbins_f, mono, rbin;
-  bool mc, smooth, contri, pen, usable, has_miss;
+  bool mc, smooth, contri, pen, usable, has_miss, has_cegb;
 };
 
 // extra_trees' threshold of feature f for a child whose uid is `uid`
@@ -438,6 +459,8 @@ __device__ __forceinline__ ScanConsts scan_consts(
   k.cf = k.contri ? legs.contri[f] : 1.f;
   k.pen = k.mc && prm.monotone_penalty > 0.f && k.mono != 0;
   k.pf = k.pen ? legs.pfac[child] : 1.f;
+  k.has_cegb = legs.cegb != nullptr;
+  k.cegb = k.has_cegb ? legs.cegb[static_cast<size_t>(child) * nf + f] : 0.f;
   k.shift = gain_shift<OPTS>(k.tg, k.th, k.pout, prm);
   k.rbin = leg_on<OPTS>(prm, kOptRand)
                ? rand_bin(legs.key0, legs.key1, legs.uids[child],
@@ -482,6 +505,7 @@ __device__ __forceinline__ float candidate_gain(const ScanConsts& k, int dir,
   float g = __fsub_rn((valid && ok) ? gain : -INFINITY, k.shift);
   if (isfinite(g)) {
     if (k.contri) g = __fmul_rn(g, k.cf);
+    if (k.has_cegb) g = __fsub_rn(g, k.cegb);
     if (k.pen) g = __fmul_rn(g, k.pf);
   }
   return g;

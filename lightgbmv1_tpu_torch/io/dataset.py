@@ -14,7 +14,8 @@ valid set takes its reference's layout.  Sparse (CSR) input bins the
 non-zero entries only and builds the bundle matrix straight from them,
 never the dense (F, N) matrix (``binned`` is None then, unless no bundle
 forms and the identity layout's matrix is the plain one).  Categorical
-features are not ported yet and raise.
+features (``categorical_features``, JAX :167, :267) take categorical
+mappers (io/binning.py), and bundle as any feature does.
 """
 
 from __future__ import annotations
@@ -65,22 +66,26 @@ def _sample_rows(num_data: int, config: Config) -> np.ndarray:
 
 
 def _find_mappers(samples, sample_cnt: int, num_data: int,
-                  config: Config) -> List[BinMapper]:
+                  config: Config, categorical=()) -> List[BinMapper]:
     """One bin mapper a feature on its sampled values, each at its
-    ``max_bin_by_feature`` (or ``max_bin``) with its forced bounds."""
+    ``max_bin_by_feature`` (or ``max_bin``) with its forced bounds; the
+    features of ``categorical`` take categorical mappers."""
     from .binning import get_forced_bins
 
     num_features = len(samples)
+    categorical = set(categorical or ())
     max_bins = (list(config.max_bin_by_feature)
                 or [config.max_bin] * num_features)
     if len(max_bins) != num_features:
         log_fatal("max_bin_by_feature length must equal number of features")
-    forced = get_forced_bins(config.forcedbins_filename, num_features)
+    forced = get_forced_bins(config.forcedbins_filename, num_features,
+                             categorical)
     filter_cnt = int(config.min_data_in_leaf * sample_cnt
                      / max(num_data, 1))
     return [BinMapper.find_bin(
         samples[j], total_sample_cnt=sample_cnt, max_bin=max_bins[j],
-        min_data_in_bin=config.min_data_in_bin, bin_type=BIN_NUMERICAL,
+        min_data_in_bin=config.min_data_in_bin,
+        bin_type=BIN_CATEGORICAL if j in categorical else BIN_NUMERICAL,
         use_missing=config.use_missing,
         zero_as_missing=config.zero_as_missing, forced_bounds=forced[j],
         pre_filter=config.feature_pre_filter, filter_cnt=filter_cnt)
@@ -187,12 +192,13 @@ class BinnedDataset:
                    group: Optional[np.ndarray] = None,
                    config: Optional[Config] = None,
                    feature_names: Optional[List[str]] = None,
-                   reference: Optional["BinnedDataset"] = None
-                   ) -> "BinnedDataset":
+                   reference: Optional["BinnedDataset"] = None,
+                   categorical_features=None) -> "BinnedDataset":
         """Bin a dense (rows, features) float matrix.  ``reference``
         reuses another dataset's bin mappers (a valid set shares the
         training bins); ``group`` holds the query sizes of a ranking
-        set, in row order."""
+        set, in row order; ``categorical_features`` the indices of the
+        categorical columns."""
         config = config or Config()
         X = np.asarray(X)
         if X.ndim != 2:
@@ -209,7 +215,7 @@ class BinnedDataset:
             mappers = _find_mappers(
                 [np.asarray(X[sample_idx, j], dtype=np.float64)
                  for j in range(num_features)], len(sample_idx), num_data,
-                config)
+                config, categorical_features)
         max_nb = max(m.num_bin for m in mappers) if mappers else 2
         # the reference's DenseBin<uint8_t> / DenseBin<uint16_t> family
         # (JAX :228): int16 bins past 256 bins a feature
@@ -234,8 +240,8 @@ class BinnedDataset:
                  label=None, weight=None, group=None, init_score=None,
                  config: Optional[Config] = None,
                  feature_names: Optional[List[str]] = None,
-                 reference: Optional["BinnedDataset"] = None
-                 ) -> "BinnedDataset":
+                 reference: Optional["BinnedDataset"] = None,
+                 categorical_features=None) -> "BinnedDataset":
         """Bin CSR triplets without the dense (F, N) matrix (JAX :255;
         reference LGBM_DatasetCreateFromCSR): the mappers from the sampled
         rows' entries (an absent entry an implicit zero), the non-zero
@@ -265,7 +271,8 @@ class BinnedDataset:
                                      np.arange(num_features + 1))
             mappers = _find_mappers(
                 [v_sorted[starts[j]:starts[j + 1]]
-                 for j in range(num_features)], len(samp), num_data, config)
+                 for j in range(num_features)], len(samp), num_data, config,
+                categorical_features)
         ds = cls(None, mappers,
                  _metadata(num_data, label, weight, init_score, group),
                  feature_names, max_bin=config.max_bin, num_data=num_data)

@@ -162,14 +162,13 @@ def load_two_round(path: str, config, categorical_features=None):
     dataset_loader.cpp:208-235): the bin mappers from a reservoir sample
     of the first pass, the (F, N) bins from chunks of the second.  Returns
     a ``BinnedDataset``, or None for libsvm (no streaming path: the caller
-    loads the file in memory)."""
-    from .binning import BIN_NUMERICAL, BinMapper, get_forced_bins
+    loads the file in memory).  ``categorical_features``: the indices of
+    the categorical feature columns (after the metadata columns)."""
+    from .binning import (BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper,
+                          get_forced_bins)
     from .dataset import BinnedDataset, Metadata
 
-    if categorical_features:
-        from ..config import BREADTH, not_ported
-
-        raise not_ported("categorical features", BREADTH)
+    categorical = set(categorical_features or [])
     header_names, fmt, sep = _head(path, config.header)
     if fmt == "libsvm":
         log_warning("two_round loading has no libsvm streaming path; "
@@ -222,10 +221,12 @@ def load_two_round(path: str, config, categorical_features=None):
                 or [config.max_bin] * num_features)
     if len(max_bins) != num_features:
         log_fatal("max_bin_by_feature length must equal number of features")
-    forced = get_forced_bins(config.forcedbins_filename, num_features)
+    forced = get_forced_bins(config.forcedbins_filename, num_features,
+                             categorical)
     mappers = [BinMapper.find_bin(
         sample_mat[:, j], total_sample_cnt=sample_cnt, max_bin=max_bins[j],
-        min_data_in_bin=config.min_data_in_bin, bin_type=BIN_NUMERICAL,
+        min_data_in_bin=config.min_data_in_bin,
+        bin_type=BIN_CATEGORICAL if j in categorical else BIN_NUMERICAL,
         use_missing=config.use_missing,
         zero_as_missing=config.zero_as_missing, forced_bounds=forced[j],
         pre_filter=config.feature_pre_filter,

@@ -135,7 +135,8 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import PARALLEL, Config, not_ported, unported_reason
+from ..config import (CAT_INT16, PARALLEL, Config, not_ported,
+                      unported_reason)
 from ..io.bundle import BundleArrays, apply_bundles_dense
 from ..io.dataset import BinnedDataset
 from ..metrics import Metric, create_metrics
@@ -145,8 +146,9 @@ from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
 from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.prng import bernoulli, fold_in, prng_key
-from .tree import (HostTree, TreeArrays, host_tree_from_arrays, leaf_lookup,
-                   tree_predict_binned)
+from .tree import (HostTree, TreeArrays, host_tree_from_arrays,
+                   leaf_lookup, leaf_path_features, tree_predict_binned,
+                   tree_used_features)
 
 
 class FiniteGuardError(RuntimeError):
@@ -207,9 +209,23 @@ class GBDT:
         if self.objective is not None:
             self.objective.init(train_set.metadata, self.num_data,
                                 self.device)
+        if (train_set.is_categorical.any() and train_set.padded_bin > 256):
+            raise not_ported("categorical features beside more than 256 "
+                             "bins a feature (int16 bins)", CAT_INT16)
         # EFB: the trees speak original features, the histograms and the
-        # decisions read the bundle columns (JAX :107-127)
+        # decisions read the bundle columns (JAX :107-127); forced splits
+        # run on unbundled features
         self._bundle = None
+        if train_set.bundle_layout is not None and \
+                config.forcedsplits_filename:
+            if train_set.binned is None:
+                log_fatal("tree_learner=voting/feature and forced splits do "
+                          "not support EFB-bundled sparse datasets; load "
+                          "dense data or drop the incompatible option")
+            log_warning("EFB disabled (tree_learner=voting/feature and "
+                        "forced splits run on unbundled features)")
+            train_set.bundled = None
+            train_set.bundle_layout = None
         if train_set.bundle_layout is not None:
             self._bundle = BundleArrays(train_set.bundle_layout,
                                         train_set.zero_bins,
@@ -234,6 +250,20 @@ class GBDT:
         self._feat_rng = np.random.RandomState(config.feature_fraction_seed)
         self._usable_h = self.meta.usable.cpu().numpy()
         self._bag_mask: Optional[torch.Tensor] = None
+        # CEGB (JAX :241-256): the model's used features and, with lazy
+        # costs on the sequential grower, the (N, F) rows already charged,
+        # both carried across trees
+        F = train_set.num_features
+        self._cegb_lazy_active = (bool(config.cegb_penalty_feature_lazy)
+                                  and config.tree_growth != "levelwise")
+        self._cegb_enabled = (config.cegb_penalty_split > 0
+                              or bool(config.cegb_penalty_feature_coupled)
+                              or self._cegb_lazy_active)
+        self._cegb_used = torch.zeros(F, dtype=torch.bool,
+                                      device=self.device)
+        self._cegb_marks = (torch.zeros((self.num_data, F), dtype=torch.bool,
+                                        device=self.device)
+                            if self._cegb_lazy_active else None)
 
         # initial scores (reference BoostFromAverage gbdt.cpp:312-335)
         self._init_scores = np.zeros(self.num_class, dtype=np.float64)
@@ -306,7 +336,13 @@ class GBDT:
             path_smooth=float(config.path_smooth),
             monotone_penalty=float(config.monotone_penalty),
             extra_trees=bool(config.extra_trees),
-            extra_seed=int(config.extra_seed))
+            extra_seed=int(config.extra_seed),
+            cat_l2=float(config.cat_l2), cat_smooth=float(config.cat_smooth),
+            max_cat_threshold=int(config.max_cat_threshold),
+            max_cat_to_onehot=int(config.max_cat_to_onehot),
+            min_data_per_group=float(config.min_data_per_group),
+            cegb_tradeoff=float(config.cegb_tradeoff),
+            cegb_penalty_split=float(config.cegb_penalty_split))
         picked = getattr(getattr(self, "_grow", None), "hist_method", None)
         if config.hist_method == "bench" and picked is not None:
             config = dataclasses.replace(config, hist_method=picked)
@@ -315,7 +351,8 @@ class GBDT:
             bin_dtype=self.binned.dtype, num_data=self.num_data,
             packed=self._packed, binned=self.binned, bundle=self._bundle,
             bundle_num_bins=(self.train_set.padded_bundle_bin
-                             if self._bundle is not None else None))
+                             if self._bundle is not None else None),
+            bin_mappers=self.train_set.bin_mappers)
 
     def reset_config(self, params) -> None:
         """New knob values mid-training (JAX ``config.update`` under
@@ -491,9 +528,16 @@ class GBDT:
                     valids=self._valid_binned, key=key)
                 vlids_all.append(vlids)
             else:
+                cegb = None
+                if self._cegb_enabled:
+                    cegb = (self._cegb_used if self._cegb_marks is None
+                            else (self._cegb_used, self._cegb_marks))
                 tree, leaf_id, _ = self._grow(self.binned, g3.contiguous(),
-                                              masks[k], key=key)
+                                              masks[k], key=key,
+                                              cegb_used=cegb)
                 vlids = None
+            if self._cegb_enabled:
+                self._update_cegb_state(tree, leaf_id)
             host = None
             if q is not None:
                 tree, host = self._renewed(tree, leaf_id, score[:, k], q,
@@ -690,6 +734,10 @@ class GBDT:
             iv[r, :m.num_leaves - 1] = m.internal_value
         arrays.update(host_index=np.asarray(host, np.int64),
                       host_leaf_value=lv, host_internal_value=iv)
+        # CEGB's carried state (JAX :1016-1021)
+        arrays["cegb_used"] = self._cegb_used.cpu().numpy()
+        if self._cegb_marks is not None:
+            arrays["cegb_marks"] = self._cegb_marks.cpu().numpy()
         manifest = {
             "iteration": int(self.iter),
             "num_trees": len(self.models),
@@ -763,6 +811,12 @@ class GBDT:
             vs.score = torch.as_tensor(arrays[f"valid_score_{i}"],
                                        device=dev)
         self._feat_rng.set_state(decode_rng_state(manifest["feat_rng"]))
+        if "cegb_used" in arrays:
+            self._cegb_used = torch.as_tensor(arrays["cegb_used"],
+                                              device=dev)
+        if "cegb_marks" in arrays and self._cegb_marks is not None:
+            self._cegb_marks = torch.as_tensor(arrays["cegb_marks"],
+                                               device=dev)
         self._used_init_score = bool(manifest["used_init_score"])
         self._init_scores = np.asarray(manifest["init_scores"], np.float64)
         self._bag_mask = None
@@ -774,11 +828,33 @@ class GBDT:
         """Subclass hook (DART)."""
 
     # ------------------------------------------------------------------
+    def _update_cegb_state(self, tree: TreeArrays,
+                           leaf_id: torch.Tensor) -> None:
+        """After a tree (JAX :735): the model's used features take the
+        tree's split features; the lazy marks take, for each row, the
+        features on its leaf's root path (the union of the per-split
+        marks)."""
+        F = self._cegb_used.shape[0]
+        self._cegb_used = self._cegb_used | tree_used_features(tree, F)
+        if self._cegb_marks is not None:
+            self._cegb_marks = self._cegb_marks | leaf_path_features(
+                tree, F)[leaf_id.long()]
+
     def _fill_real_thresholds(self, ht: HostTree) -> None:
+        """Bin thresholds -> real ones; a categorical node's bin-space
+        bitset -> its raw categories (JAX :904-915, the reference's
+        Tree::SplitCategorical), its threshold 0 (the cat index on
+        save)."""
         mappers = self.train_set.bin_mappers
         for n in range(ht.num_leaves - 1):
-            ht.threshold[n] = mappers[ht.split_feature[n]] \
-                .bin_to_threshold(ht.threshold_bin[n])
+            m = mappers[ht.split_feature[n]]
+            if ht.is_cat[n]:
+                cats = [m.bin_2_categorical[b] for b in ht.cat_bins_of(n)
+                        if b < len(m.bin_2_categorical)]
+                ht.cat_sets[n] = np.asarray(sorted(cats), dtype=np.int64)
+                ht.threshold[n] = 0.0
+            else:
+                ht.threshold[n] = m.bin_to_threshold(ht.threshold_bin[n])
 
     def materialize_host_trees(self) -> List[HostTree]:
         """Host copies of the trees not yet fetched: real thresholds from

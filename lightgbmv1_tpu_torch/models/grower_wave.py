@@ -107,9 +107,16 @@ reads them as any bins (``bins_of_rows``), the histograms come from the
 trainer's method (the one-hot product on the card), the scan is the
 split-scan kernel's wide leg and the valid routing K3's 16-bit leg.
 
-Categorical splits, CEGB and interaction constraints are not ported (the
-config refuses them), and the split scan and the root sums are the
-serial learner's own (the JAX version's ``split_fn`` / ``sums_fn`` hooks
+Categorical splits (JAX :776, :1234-1251): the scan's categorical leg
+picks them, the store keeps each pending and committed split's bitset
+beside its f32 tables (``_PackedStore``: [is_cat, W words] rows), the
+staged partition decides by bin membership and the valid sets route
+through K3's bitset leg; a categorical split cuts no monotone bound and
+keeps its children's boxes.  Interaction constraints (JAX :1176-1197):
+each child's mask is cut to what its branch allows, on the staged and
+fused rounds.  CEGB sends leaf-wise growth to the sequential grower (the
+trainer).  The split scan and the root sums are the serial learner's
+own (the JAX version's ``split_fn`` / ``sums_fn`` hooks
 carry the cross-chip reductions, which the port has not).
 """
 
@@ -123,13 +130,13 @@ import torch
 from ..ops.hist_cuda import bins_of_rows
 from ..ops.quantize import NearestRows, prequantize_rows
 from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
-                         child_leaf_output, find_best_split, go_left_rule,
+                         bitset_words, child_leaf_output, find_best_split,
                          leaf_output, smooth_output)
 from ..ops.wave_fused import (fused_route_rows, subtract_children,
                                unpack_children)
 from ..utils.prng import fold_in
-from .grower import (child_constraints, node_feature_masks, root_sums,
-                     scan_view)
+from .grower import (allowed_features_for, child_constraints,
+                     node_feature_masks, root_sums, scan_view, split_go_left)
 from .tree import TreeArrays
 
 # Slot bucketing starts at this many rows (each bucket is one more
@@ -277,10 +284,15 @@ class _PackedStore:
 
     # The grower owns the tables, so a round's commit writes them in place
     # (the JAX version's functional update would copy both a round).
-    def __init__(self, L, L1, device, use_mc=False):
+    # Categorical splits (``W``: the bitsets' words; 0: no categorical
+    # feature) keep two (L, 1 + W) / (L1, 1 + W) int32 tables beside them,
+    # [is_cat, bitset words], as the JAX store keeps its uint32 bitsets
+    # apart from the f32 table (JAX :488).
+    def __init__(self, L, L1, device, use_mc=False, W=0):
         self.L, self.L1, self.device = L, L1, device
         self.use_mc = use_mc
         self.CF = 19 if use_mc else 17
+        self.W = W
 
     def init(self, res0, out0):
         ft = torch.zeros((self.L, self.CF), dtype=torch.float32,
@@ -300,7 +312,14 @@ class _PackedStore:
                          device=self.device)
         nt[:, self.NLC] = -1.0
         nt[:, self.NRC] = -2.0
-        return {"ft": ft, "nt": nt}
+        s = {"ft": ft, "nt": nt}
+        if self.W:
+            s["fcat"] = torch.zeros((self.L, 1 + self.W), dtype=torch.int32,
+                                    device=self.device)
+            s["ncat"] = torch.zeros((self.L1, 1 + self.W),
+                                    dtype=torch.int32, device=self.device)
+            s["fcat"][0] = _cat_rows(res0)[0]
+        return s
 
     def gains(self, s):
         return s["ft"][:, self.GAIN]
@@ -319,6 +338,7 @@ class _PackedStore:
             parent=rows[:, self.LPAR].long(),
             pconstr=(rows[:, self.CMIN:self.CMAX + 1] if self.use_mc
                      else None),
+            cat=s["fcat"][leafs] if self.W else None,
         )
 
     def write(self, s, r):
@@ -338,6 +358,9 @@ class _PackedStore:
             r["nidx"].repeat_interleave(2).to(f32)[:, None]]
             + ([r["cconstr"]] if self.use_mc else []), dim=1)
         s["ft"][r["cidx"]] = crows
+        if self.W:
+            s["fcat"][r["cidx"]] = _cat_rows(res)
+            s["ncat"][r["nidx"]] = r["cat"]
         nrows = torch.cat([
             r["feats"].to(f32)[:, None], r["thrs"].to(f32)[:, None],
             r["dls"].to(f32)[:, None], r["mtypes"].to(f32)[:, None],
@@ -361,13 +384,16 @@ class _PackedStore:
     def split_rows(self, s, n_splits):
         """The tree's ``n_splits`` splits in node order, which is round
         order (a round's nodes are ``nl - 1 + rank``): ``(feats, thrs,
-        dls, leafs, nls)`` int32, the leaf each split and the new leaf
-        its right child took (node j's is j + 1)."""
+        dls, leafs, nls, cat)`` — int32, the leaf each split and the new
+        leaf its right child took (node j's is j + 1), and the splits'
+        (n, 1 + W) [is_cat, bitset] rows (None without categorical
+        features)."""
         rows = s["nt"][:n_splits]
         i32 = torch.int32
         fbd = rows[:, self.NFEAT:self.NDL + 1].to(i32)
         return (fbd[:, 0], fbd[:, 1], fbd[:, 2], rows[:, self.NLEAF].to(i32),
-                torch.arange(1, n_splits + 1, dtype=i32, device=self.device))
+                torch.arange(1, n_splits + 1, dtype=i32, device=self.device),
+                s["ncat"][:n_splits].contiguous() if self.W else None)
 
     def finalize(self, s, num_leaves) -> TreeArrays:
         ft, nt = s["ft"], s["nt"]
@@ -390,7 +416,28 @@ class _PackedStore:
             leaf_value=ft[:, self.LVAL].clone(),
             leaf_weight=ft[:, self.LWEIGHT].clone(),
             leaf_count=ft[:, self.LCNT].clone(),
-            leaf_parent=ft[:, self.LPAR].to(i32))
+            leaf_parent=ft[:, self.LPAR].to(i32),
+            is_cat=(s["ncat"][:, 0] != 0 if self.W else
+                    torch.zeros(self.L1, dtype=torch.bool,
+                                device=self.device)),
+            cat_bitset=(s["ncat"][:, 1:].clone() if self.W else
+                        torch.zeros((self.L1, 1), dtype=i32,
+                                    device=self.device)))
+
+
+def _split_mono(meta: FeatureMeta, rd) -> torch.Tensor:
+    """The splits' monotone types, 0 on a categorical split (it cuts no
+    bound: JAX :1136, :1155 ``upd``)."""
+    mono = meta.monotone_type[rd["feats"]]
+    if rd["cat"] is None:
+        return mono
+    return torch.where(rd["cat"][:, 0] != 0, torch.zeros_like(mono), mono)
+
+
+def _cat_rows(res) -> torch.Tensor:
+    """A scan's (C, 1 + W) [is_cat, bitset words] rows."""
+    return torch.cat([res.is_cat.to(torch.int32)[:, None], res.cat_bitset],
+                     dim=1)
 
 
 def _topk_by_rank(gains: torch.Tensor, K: int):
@@ -420,7 +467,8 @@ def route_valid_sets(store: _PackedStore, st, round_splits, valids, *,
              for v in valids]
     if not valids or not round_splits:
         return vlids
-    feats, thrs, dls, leafs, nls = store.split_rows(st, sum(round_splits))
+    feats, thrs, dls, leafs, nls, cat = store.split_rows(st,
+                                                         sum(round_splits))
     offsets = torch.tensor(np.cumsum([0] + list(round_splits)),
                            dtype=torch.int32)
     if dev.type == "cuda":
@@ -429,7 +477,7 @@ def route_valid_sets(store: _PackedStore, st, round_splits, valids, *,
     return fused_route_rows(list(zip(valids, vlids)), feats=feats, thrs=thrs,
                             dls=dls, leafs=leafs, nls=nls,
                             num_leaves=num_leaves, meta=meta, packed=packed,
-                            offsets=offsets, bundle=bundle)
+                            offsets=offsets, bundle=bundle, cat=cat)
 
 
 def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
@@ -439,7 +487,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      fused_loop_fn: Optional[Callable] = None,
                      hist_wave_quant_fn: Optional[Callable] = None,
                      packed: bool = False, monotone_mode: str = "basic",
-                     feature_fraction_bynode: float = 1.0, bundle=None):
+                     feature_fraction_bynode: float = 1.0, bundle=None,
+                     interaction_groups=None):
     """Build ``grow(binned, g3, base_mask, valids=(), key=None)``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False, rows8=None) ->
@@ -475,7 +524,13 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     sets hold the bundle columns; the histograms, the pool and the
     subtraction are over them, each scan reads them expanded
     (``grower.scan_view``), the partition and the valid routing decode
-    the bundle columns."""
+    the bundle columns.  ``interaction_groups`` (G, F) bool: each child's
+    mask is cut to the features its branch allows
+    (``grower.allowed_features_for``, JAX :1176-1197), on the staged and
+    the fused rounds (the loop refuses them).  Categorical splits
+    (``meta.is_categorical``) partition by their bitsets, which the store
+    keeps beside each split, and route the valid sets through K3's bitset
+    leg; the fused family refuses them (the trainer)."""
     L = num_leaves
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
@@ -487,6 +542,13 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     if bynode < 1.0 and fused_loop_fn is not None:
         raise ValueError("the persistent loop runs no per-node feature "
                          "sampling")
+    if interaction_groups is not None and fused_loop_fn is not None:
+        raise ValueError("the persistent loop runs no interaction "
+                         "constraints")
+    has_cat = meta.is_categorical is not None
+    if has_cat and (fused_round_fn is not None or fused_loop_fn is not None):
+        raise ValueError("the fused round runs no categorical split")
+    W = bitset_words(num_bins) if has_cat else 0
     inter_feats = inter_types = ()
     if use_inter:
         mono_h = meta.monotone_type.cpu()
@@ -518,7 +580,11 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             # on the others (the JAX ``scaled`` rounds)
             qrows = quant[1].expand(2 * K, 3).contiguous()
             scale_rows = (qrows, torch.ones_like(qrows))
-        store = _PackedStore(L, L1, dev, use_mc)
+        store = _PackedStore(L, L1, dev, use_mc, W)
+        groups = (None if interaction_groups is None else torch.as_tensor(
+            np.asarray(interaction_groups), dtype=torch.bool, device=dev))
+        leaf_used = (torch.zeros((L, F), dtype=torch.bool, device=dev)
+                     if groups is not None else None)
         # int8 passes: the tree's rows rounded once a scale tile
         rows8 = NearestRows(g3)
 
@@ -530,11 +596,13 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         out0 = leaf_output(root_sum[0], root_sum[1], params)
         if params.path_smooth > 0:
             out0 = smooth_output(out0, root_sum[2], 0.0, params)
+        mask0 = node_feature_masks(key, [0], base_mask, bynode)
+        if groups is not None:
+            mask0 = mask0 & allowed_features_for(
+                groups, torch.zeros((1, F), dtype=torch.bool, device=dev))
         res0 = find_best_split(scan_view(hist0[None], root_sum[None],
                                          bundle, num_bins)[0],
-                               root_sum[None], meta,
-                               node_feature_masks(key, [0], base_mask,
-                                                  bynode), params,
+                               root_sum[None], meta, mask0, params,
                                depth=torch.zeros(1, dtype=torch.int64,
                                                  device=dev),
                                parent_output=out0[None], key=key, uids=[0])
@@ -553,17 +621,20 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         nl = 1
         round_splits = []           # each round's split count, in order
 
-        def route(lid, feats, thrs, dls, nls, slot_of):
+        def route(lid, feats, thrs, dls, nls, slot_of, cat=None):
             """This round's splits applied to the train rows' leaf ids:
-            the new leaf ids and each row's go-left decision and slot."""
+            the new leaf ids and each row's go-left decision and slot
+            (``cat``: the splits' [is_cat, bitset] rows)."""
             row_slot = slot_of[lid.long()]
             in_split = row_slot >= 0
             rs = row_slot.clamp(min=0)
             f_row = feats[rs]
             b_row = bins_of_rows(binned, f_row, packed, bundle).long()
-            gl = go_left_rule(b_row, thrs[rs], dls[rs],
-                              meta.missing_type[f_row], meta.nan_bin[f_row],
-                              meta.zero_bin[f_row])
+            gl = split_go_left(b_row, thrs[rs], dls[rs],
+                               meta.missing_type[f_row], meta.nan_bin[f_row],
+                               meta.zero_bin[f_row],
+                               None if cat is None else cat[rs, 0] != 0,
+                               None if cat is None else cat[rs, 1:])
             new = torch.where(in_split & ~gl, nls[rs].to(torch.int32), lid)
             return new, gl, in_split, rs
 
@@ -602,7 +673,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
             b["cconstr"] = None
             if use_mc:
                 c_l, c_r = child_constraints(
-                    pconstr, out_l, out_r, meta.monotone_type[rd["feats"]],
+                    pconstr, out_l, out_r, _split_mono(meta, rd),
                     use_inter)
                 b["cconstr"] = torch.stack([c_l, c_r], dim=1) \
                     .reshape(2 * n, 2)
@@ -613,6 +684,14 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                                      dim=1).reshape(2 * n)
             b["cmask"] = node_feature_masks(key, b["cuids"], base_mask,
                                             bynode)
+            b["cused"] = None
+            if groups is not None:
+                # the children's branch features and what they allow
+                used = leaf_used[b["leafs"]].clone()
+                used[order, rd["feats"]] = True
+                b["cused"] = used.repeat_interleave(2, dim=0)
+                b["cmask"] = b["cmask"] & allowed_features_for(groups,
+                                                               b["cused"])
             b["S"] = slot_buckets[sum(n > s for s in slot_buckets[:-1])]
             return b
 
@@ -641,15 +720,25 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 mtypes=meta.missing_type[b["feats"]], vals=b["vals"],
                 pout=b["pout"], psum=lsums + rsums, csums=b["csums"],
                 couts=b["couts"], cdepth=b["cdepth"], parent=b["parent"],
-                was_left=b["was_left"], cconstr=b["cconstr"]))
+                was_left=b["was_left"], cconstr=b["cconstr"], cat=b["cat"]))
+            if b["cused"] is not None:
+                leaf_used[b["cleafs"]] = b["cused"]
             if use_inter:
                 # the children's boxes: the parent's cut at thr + 1 along
                 # the split feature
                 ki = torch.arange(b["leafs"].shape[0], device=dev)
                 pbox = leaf_box[b["leafs"]]
                 box_l, box_r = pbox.clone(), pbox.clone()
-                box_l[ki, b["feats"], 1] = b["thrs"] + 1
-                box_r[ki, b["feats"], 0] = b["thrs"] + 1
+                cut_hi = cut_lo = b["thrs"] + 1
+                if b["cat"] is not None:
+                    # a categorical split's children keep the parent box
+                    isc = b["cat"][:, 0] != 0
+                    cut_hi = torch.where(isc, pbox[ki, b["feats"], 1],
+                                         cut_hi)
+                    cut_lo = torch.where(isc, pbox[ki, b["feats"], 0],
+                                         cut_lo)
+                box_l[ki, b["feats"], 1] = cut_hi
+                box_r[ki, b["feats"], 0] = cut_lo
                 leaf_box[b["leafs"]] = box_l
                 leaf_box[b["nls"]] = box_r
 
@@ -728,7 +817,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                                      device=dev)
                 slot_of[leafs] = order
                 new_leaf_id, gl, in_split, rs = route(
-                    leaf_id, feats, thrs, dls, nls, slot_of)
+                    leaf_id, feats, thrs, dls, nls, slot_of, b["cat"])
                 if use_sub:
                     # label only the SMALLER child of each split
                     in_small = gl == sm_left[rs]

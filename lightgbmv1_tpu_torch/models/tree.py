@@ -7,7 +7,8 @@ stacked-table helpers the serving walks use (``leaves_to_scores``,
 ``pad_tree_axis``), and the training side's ``TreeArrays`` (:33),
 ``empty_tree`` (:106), ``leaf_lookup`` (:65) and the binned walk
 ``tree_leaf_index_binned`` / ``tree_predict_binned`` (:136, :233; the valid
-sets of the sequential and level-wise growers) in torch, with
+sets of the sequential and level-wise growers, categorical nodes by
+their bin-space bitsets) in torch, with
 ``host_tree_from_arrays`` from a grown tree to its ``HostTree``.
 
 Node encoding follows the reference exactly so the v3 model text
@@ -25,6 +26,7 @@ import torch
 
 from ..io.binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
 from ..ops.hist_cuda import bins_of_rows
+from ..ops.split import cat_go_left
 
 
 class TreeArrays(NamedTuple):
@@ -48,10 +50,16 @@ class TreeArrays(NamedTuple):
     leaf_weight: torch.Tensor      # (L,) float32
     leaf_count: torch.Tensor       # (L,) float32
     leaf_parent: torch.Tensor      # (L,) int32
+    # categorical splits: (L-1,) bool and the (L-1, W) int32 bin-space
+    # bitsets (uint32 words; ops/split.pack_bitset)
+    is_cat: Optional[torch.Tensor] = None
+    cat_bitset: Optional[torch.Tensor] = None
 
 
-def empty_tree(max_leaves: int, device=None) -> TreeArrays:
-    """A one-leaf tree with room for ``max_leaves`` leaves."""
+def empty_tree(max_leaves: int, device=None, cat_words: int = 1
+               ) -> TreeArrays:
+    """A one-leaf tree with room for ``max_leaves`` leaves and
+    ``cat_words``-word categorical bitsets."""
     L = max_leaves
     L1 = max(L - 1, 1)
 
@@ -70,7 +78,8 @@ def empty_tree(max_leaves: int, device=None) -> TreeArrays:
         internal_weight=full(L1, 0.0, f32),
         internal_count=full(L1, 0.0, f32), leaf_value=full(L, 0.0, f32),
         leaf_weight=full(L, 0.0, f32), leaf_count=full(L, 0.0, f32),
-        leaf_parent=full(L, -1, i32))
+        leaf_parent=full(L, -1, i32), is_cat=full(L1, False, torch.bool),
+        cat_bitset=torch.zeros((L1, cat_words), dtype=i32, device=device))
 
 
 def leaf_lookup(table: torch.Tensor, leaf_id: torch.Tensor) -> torch.Tensor:
@@ -90,12 +99,14 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
     (ceil(F/2), N) 4-bit packed bytes; ``bundle``: the EFB bundle columns,
     each bin decoded), walked from the root on the bin
     thresholds with the NaN and zero-as-missing rows sent their node's
-    default way.  Bounded by the node count, so malformed child pointers
+    default way, a categorical node's rows by bitset membership (JAX
+    :183-189).  Bounded by the node count, so malformed child pointers
     end the walk."""
     N = binned.shape[1]
     node = torch.zeros(N, dtype=torch.int64, device=binned.device)
     if int(tree.num_leaves) <= 1:
         return node
+    has_cat = tree.is_cat is not None and bool(tree.is_cat.any())
     for _ in range(int(tree.split_feature.shape[0]) + 1):
         active = node >= 0
         if not bool(active.any()):
@@ -108,6 +119,9 @@ def tree_leaf_index_binned(tree: TreeArrays, binned: torch.Tensor,
             (mt == MISSING_ZERO) & (b == zero_bins[f]))
         go_left = torch.where(na, tree.default_left[nd],
                               b <= tree.threshold_bin.long()[nd])
+        if has_cat:
+            go_left = cat_go_left(b, tree.cat_bitset[nd], tree.is_cat[nd],
+                                  go_left)
         nxt = torch.where(go_left, tree.left_child[nd],
                           tree.right_child[nd]).long()
         node = torch.where(active, nxt, node)
@@ -122,13 +136,54 @@ def tree_predict_binned(tree: TreeArrays, binned: torch.Tensor,
         tree, binned, nan_bins, missing_types, zero_bins, packed, bundle)]
 
 
+def tree_used_features(tree: TreeArrays, num_features: int) -> torch.Tensor:
+    """(F,) bool: the features the tree's internal nodes split on (JAX
+    :291, CEGB's model-level used features)."""
+    n = max(int(tree.num_leaves) - 1, 0)
+    used = torch.zeros(num_features, dtype=torch.bool,
+                       device=tree.split_feature.device)
+    used[tree.split_feature[:n].long()] = True
+    return used
+
+
+def leaf_path_features(tree: TreeArrays, num_features: int) -> torch.Tensor:
+    """(L, F) bool: the features split on along each leaf's root path
+    (JAX :201), the rows CEGB's lazy penalty marks."""
+    L1 = tree.left_child.shape[0]
+    L = tree.leaf_parent.shape[0]
+    dev = tree.left_child.device
+    n_nodes = max(int(tree.num_leaves) - 1, 0)
+    par = torch.full((L1,), -1, dtype=torch.int64, device=dev)
+    for child in (tree.left_child[:n_nodes], tree.right_child[:n_nodes]):
+        c = child.long()
+        inner = c >= 0
+        par[c[inner]] = torch.arange(n_nodes, device=dev)[inner]
+    feats = torch.zeros((L, num_features), dtype=torch.bool, device=dev)
+    node = tree.leaf_parent.long().clone()
+    li = torch.arange(L, device=dev)
+    for _ in range(max(L1, 1)):
+        active = node >= 0
+        if not bool(active.any()):
+            break
+        nd = node.clamp(min=0)
+        f = tree.split_feature.long()[nd]
+        feats[li[active], f[active]] = True
+        node = torch.where(active, par[nd], node)
+    return feats
+
+
 def host_tree_from_arrays(arrays: TreeArrays,
                           shrinkage: float = 1.0) -> "HostTree":
     """A grown tree (on any device) -> its numpy ``HostTree``, cut to its
     node and leaf counts (JAX ``HostTree(arrays)``)."""
     fields = {k: getattr(arrays, k).detach().cpu().numpy()
               for k in HostTree.FIELDS}
-    return HostTree(int(arrays.num_leaves), shrinkage=shrinkage, **fields)
+    cat_bitset = None
+    if arrays.is_cat is not None:
+        fields["is_cat"] = arrays.is_cat.detach().cpu().numpy()
+        cat_bitset = arrays.cat_bitset.detach().cpu().numpy().view(np.uint32)
+    return HostTree(int(arrays.num_leaves), shrinkage=shrinkage,
+                    cat_bitset=cat_bitset, **fields)
 
 
 def leaves_to_scores(leaf_value: torch.Tensor, leaf: torch.Tensor,

@@ -71,7 +71,8 @@ never sees bundles (the fused family refuses EFB).
 
 Each launch adds one to ``launch_counts[name]`` (the packed leg's to
 ``name + "_packed"``; K3's 16-bit leg to ``int16_launch_counts``, its
-bundle leg to ``bundle_launch_counts``), and K2's also to
+bundle leg to ``bundle_launch_counts``; K3 with categorical splits
+(its bitset leg) to ``cat_launch_counts`` too), and K2's also to
 ``bucket_launch_counts[(nslots, precision, mode)]`` (mode ``"sub"`` /
 ``"pool"``, packed ``"sub:packed"`` / ``"pool:packed"``); each plain call
 adds one to ``plain_counts[name]``.
@@ -95,6 +96,9 @@ launch_counts = {"fused_round": 0, "route_rows": 0, "fused_round_packed": 0,
 int16_launch_counts = {"route_rows": 0}
 # K3's bundle leg (EFB bundle columns), apart from the legs above
 bundle_launch_counts = {"route_rows": 0}
+# K3's launches with the bitset leg (categorical splits), whatever the
+# bins' leg (they count there too)
+cat_launch_counts = {"route_rows": 0}
 # the launches of K2 by (nslots, precision, mode)
 bucket_launch_counts: dict = {}
 plain_counts = {"fused_round": 0, "route_rows": 0}
@@ -104,7 +108,7 @@ _count_lock = threading.Lock()
 def reset_launch_counts() -> None:
     with _count_lock:
         for d in (launch_counts, plain_counts, int16_launch_counts,
-                  bundle_launch_counts):
+                  bundle_launch_counts, cat_launch_counts):
             for k in d:
                 d[k] = 0
         bucket_launch_counts.clear()
@@ -116,17 +120,19 @@ def count_plain(name: str) -> None:
 
 
 def route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed=False,
-                   offsets=None, bundle=None):
+                   offsets=None, bundle=None, cat=None):
     """Plain version of ``route_rows``: ``route_tile`` on each row's
     decision bin, round after round (``offsets``; None: one round), the
-    bin decoded from its bundle column under ``bundle``."""
+    bin decoded from its bundle column under ``bundle``, a categorical
+    split's decision its bitset's (``cat``)."""
     count_plain("route_rows")
     bounds = [0, rmeta.shape[0]] if offsets is None else offsets.tolist()
     for o0, o1 in zip(bounds[:-1], bounds[1:]):
         dbin = wf.decision_bins(binned, lids, feats[o0:o1], rmeta[o0:o1, 0],
                                 num_leaves, packed=packed, bundle=bundle)
         lids = wf.route_tile(dbin, lids, rmeta[o0:o1], nslots=0, sub=False,
-                             want_label=False)[0]
+                             want_label=False,
+                             cat=None if cat is None else cat[o0:o1])[0]
     return lids
 
 
@@ -218,7 +224,7 @@ def _lib() -> ctypes.CDLL:
     lib.lgbm_fused_round.argtypes = [_P] * 25 + [_I] * 11 + [_F] * 8 \
         + [_I, _P, _I, _P]
     lib.lgbm_fused_round.restype = _I
-    lib.lgbm_route_rows.argtypes = [_P] * 8 + [_I] * 5 + [_P]
+    lib.lgbm_route_rows.argtypes = [_P] * 9 + [_I] * 6 + [_P]
     lib.lgbm_route_rows.restype = _I
     return lib
 
@@ -256,7 +262,7 @@ def list_scratch(N, n_chunks, span, device) -> list:
 
 
 def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
-               offsets=None, bundle=None):
+               offsets=None, bundle=None, cat=None):
     """K3: (N,) leaf ids of ``binned``'s rows, from ``lids``, after the
     splits of ``rmeta`` (P, RMETA_COLS) on the features ``feats`` (P,),
     in rounds: round q's splits are rows ``offsets[q]:offsets[q + 1]``
@@ -267,10 +273,13 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
     (``io.bundle.BundleArrays``): ``binned`` holds the (BF, N) EFB bundle
     columns, and each decision decodes its feature's bin from its
     column through the (5, F) ``bundle.table`` — the bundle leg
-    (``bundle_launch_counts["route_rows"]``)."""
+    (``bundle_launch_counts["route_rows"]``).  ``cat`` (P, 1 + W) int32
+    [is_cat, bitset words] (``split.pack_bitset``): the bitset leg, a
+    categorical split's rows going left by bin membership, beside any of
+    the legs above (``cat_launch_counts["route_rows"]`` too)."""
     if binned.device.type == "cpu":
         return route_rows_ref(binned, lids, feats, rmeta, num_leaves, packed,
-                              offsets, bundle)
+                              offsets, bundle, cat)
     wide = binned.dtype == torch.int16
     if packed and bundle is not None:
         raise ValueError("EFB bundle columns are never packed")
@@ -296,12 +305,20 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
         _need(offsets, "offsets", torch.int32, (R + 1,), dev)
         if R < 1:
             raise ValueError("offsets must hold R + 1 >= 2 round bounds")
+    cw = 0
+    if cat is not None:
+        cw = cat.shape[1] - 1
+        _need(cat, "cat", torch.int32, (P, cw + 1), dev)
+        if cw < 1:
+            raise ValueError("cat needs at least one bitset word")
     out = torch.empty(N, dtype=torch.int32, device=dev)
     # scratch for the kernel's tables where they pass a block's shared
     # memory: P Slots (an rmeta row and its feature), each round's leaf
-    # order (2 P), the R + 1 offsets, and the bundle leg's P decodes
+    # order (2 P), the R + 1 offsets, the bundle leg's P decodes and the
+    # bitset leg's P categorical rows
     tab = torch.empty(P * (wf.RMETA_COLS + 3) + R + 1
-                      + (P * BUNDLE_DEC_INTS if bundle is not None else 0),
+                      + (P * BUNDLE_DEC_INTS if bundle is not None else 0)
+                      + P * (cw + 1 if cw else 0),
                       dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
@@ -309,10 +326,13 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
             binned.data_ptr(), lids.data_ptr(), feats.data_ptr(),
             rmeta.data_ptr(), 0 if offsets is None else offsets.data_ptr(),
             0 if bundle is None else bundle.table.data_ptr(),
+            0 if cat is None else cat.data_ptr(),
             out.data_ptr(), tab.data_ptr(), N, P, R,
-            2 if wide else int(packed), nf, stream)
+            2 if wide else int(packed), nf, cw, stream)
     _raise_on(err, "route_rows")
     with _count_lock:
+        if cat is not None:
+            cat_launch_counts["route_rows"] += 1
         if bundle is not None:
             bundle_launch_counts["route_rows"] += 1
         elif wide:

@@ -45,6 +45,22 @@ The scan's other legs:
   the same values as the 256-bin scan; ``wide=True`` forces it at any B.
   Its launches count under ``launch_counts["split_scan_wide"]`` too.
 
+* the categorical leg (``split_scan_cat``, ``csrc/split_scan_cat.cu``,
+  a library of its own): a second launch after the numerical scan where
+  the meta has categorical features (``meta.cat32``), the JAX package's
+  ``_best_categorical`` (split.py:281: one-vs-rest, or the bins sorted by
+  g / (h + cat_smooth) and scanned from both ends with
+  ``min_data_per_group`` and ``max_cat_threshold``, the extra_trees
+  draw) merged into the packed rows where strictly better; it writes the
+  (C, 1 + W) [is_cat, bitset] rows.  Its plain version ``split_cat_ref``
+  is ``split.best_categorical`` + ``split.merge_categorical``; its
+  launches count under ``launch_counts["split_scan_cat"]``.
+* the CEGB leg (``cegb`` (C, F) f32 penalties, a nullable pointer of the
+  scan, not an option bit): subtracted from the finite gains after the
+  contri multiply, as the plain ``scan_direction_gains`` does; the
+  categorical leg takes them too.  Scans with it count under
+  ``cegb_launch_counts["split_scan"]`` as well.
+
 The constrained legs are compile-time options of the device code
 (``OPT_*``, the reference ``GetSplitGains<USE_MC, USE_MAX_OUTPUT,
 USE_SMOOTHING>`` plus the contri multiply): monotone constraints (the
@@ -77,8 +93,9 @@ import torch
 
 from . import _build
 from .fused_cuda import _need, _raise_on
-from .split import (FeatureMeta, RandLeg, SplitParams, extra_rand_bins,
-                    gain_shift, pick_pack, scan_residue)
+from .split import (FeatureMeta, RandLeg, SplitParams, best_categorical,
+                    bitset_words, extra_rand_bins, gain_shift,
+                    merge_categorical, pick_pack, scan_residue)
 
 RES_COLS = 6
 PACK_COLS = 10
@@ -87,16 +104,19 @@ OPT_MC, OPT_SMOOTH, OPT_MAXOUT, OPT_CONTRI, OPT_RAND = 1, 2, 4, 8, 16
 # the widest bin axis of the 256-bin scan (kMaxBins); past it the wide leg
 MAX_BINS = 256
 
-launch_counts = {"split_scan": 0, "split_scan_wide": 0, "split_pick": 0}
+launch_counts = {"split_scan": 0, "split_scan_wide": 0, "split_pick": 0,
+                 "split_scan_cat": 0}
 # the scan launches by option bits
 opt_launch_counts: dict = {}
-plain_counts = {"split_scan": 0, "split_pick": 0}
+plain_counts = {"split_scan": 0, "split_pick": 0, "split_scan_cat": 0}
+# the scan launches with the CEGB leg (a non-null penalty pointer)
+cegb_launch_counts = {"split_scan": 0}
 _count_lock = threading.Lock()
 
 
 def reset_launch_counts() -> None:
     with _count_lock:
-        for counts in (launch_counts, plain_counts):
+        for counts in (launch_counts, plain_counts, cegb_launch_counts):
             for k in counts:
                 counts[k] = 0
         opt_launch_counts.clear()
@@ -126,13 +146,15 @@ def _rand_out(rand, rand_out, meta):
 
 def split_scan_ref(hist, mask, csums, *, meta: FeatureMeta,
                    params: SplitParams, hist_scale=None, constraint=None,
-                   pfac=None, parent_output=None, rand=None, rand_out=None):
+                   pfac=None, parent_output=None, rand=None, rand_out=None,
+                   cegb=None):
     """Plain version of ``split_scan``: ``split.scan_residue``."""
     _plain("split_scan")
     _rand_out(rand, rand_out, meta)
     return scan_residue(hist, mask, csums, meta=meta, params=params,
                         hist_scale=hist_scale, constraint=constraint,
-                        pfac=pfac, parent_output=parent_output, rand=rand)
+                        pfac=pfac, parent_output=parent_output, rand=rand,
+                        cegb=cegb)
 
 
 def pick_ref(residue, csums, *, meta: FeatureMeta, params: SplitParams,
@@ -146,14 +168,16 @@ def pick_ref(residue, csums, *, meta: FeatureMeta, params: SplitParams,
 
 def split_pick_ref(hist, mask, csums, *, meta: FeatureMeta,
                    params: SplitParams, hist_scale=None, constraint=None,
-                   pfac=None, parent_output=None, rand=None, rand_out=None):
+                   pfac=None, parent_output=None, rand=None, rand_out=None,
+                   cegb=None):
     """Plain version of ``split_scan_pick``: ``pick_pack`` on
     ``scan_residue``, the staged scan's composition."""
     _plain("split_scan")
     _rand_out(rand, rand_out, meta)
     residue = scan_residue(hist, mask, csums, meta=meta, params=params,
                            hist_scale=hist_scale, constraint=constraint,
-                           pfac=pfac, parent_output=parent_output, rand=rand)
+                           pfac=pfac, parent_output=parent_output, rand=rand,
+                           cegb=cegb)
     return pick_pack(residue, gain_shift(csums, params, parent_output), csums,
                      meta, hist.shape[2])
 
@@ -167,7 +191,7 @@ def _lib(wide: bool = False) -> ctypes.CDLL:
     """The 256-bin library, or (``wide``) the wide leg's."""
     lib = _build.load("split_scan_wide" if wide else "split_scan")
     lib.lgbm_split_scan.argtypes = ([_P] * 12 + [_I] * 4 + [_F] * 8
-                                    + [_I, _P, _P, _U, _U, _I, _P])
+                                    + [_I, _P, _P, _U, _U, _I, _P, _P])
     lib.lgbm_split_scan.restype = _I
     lib.lgbm_split_scan_resident.argtypes = [_I, _I]
     lib.lgbm_split_scan_resident.restype = _I
@@ -227,7 +251,7 @@ def _need_rows(t, name, dtype, shape, device):
 
 def scan_args(hist, mask, csums, *, meta: FeatureMeta, params: SplitParams,
               hist_scale=None, constraint=None, pfac=None,
-              parent_output=None, rand=None, wide=False):
+              parent_output=None, rand=None, cegb=None, wide=False):
     """The split-scan kernel's inputs, checked: ``(opts, head, tail)``,
     ``head`` its pointers before the outputs, ``tail`` its sizes, floats
     and option bits after them (extra_trees' arguments follow,
@@ -254,6 +278,8 @@ def scan_args(hist, mask, csums, *, meta: FeatureMeta, params: SplitParams,
             csums.data_ptr(), mask.data_ptr(), meta.table.data_ptr(),
             ptrs["constraint"], ptrs["pfac"], ptrs["parent_output"],
             ptrs["mono"], ptrs["contri"])
+    if cegb is not None:
+        _need(cegb, "cegb", torch.float32, (C, F), dev)
     tail = (C, F, B, mask.stride(0) if C > 1 else F, *scan_floats(params),
             opts)
     return opts, head, tail
@@ -302,15 +328,18 @@ def _scan_launch(hist, kw, residue, packed, rand_out=None, wide=None):
         residue = torch.empty((C, F, RES_COLS), dtype=torch.float32,
                               device=dev)
     extra = rand_args(kw["rand"], C, dev, rand_out)
+    cegb = kw["cegb"]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib(wide).lgbm_split_scan(
             *head, 0 if residue is None else residue.data_ptr(),
             0 if packed is None else packed.data_ptr(), *tail, *extra,
-            stream)
+            0 if cegb is None else cegb.data_ptr(), stream)
     _raise_on(err, "split_scan_wide" if wide else "split_scan")
     with _count_lock:
         launch_counts["split_scan"] += 1
+        if cegb is not None:
+            cegb_launch_counts["split_scan"] += 1
         if wide:
             launch_counts["split_scan_wide"] += 1
         opt_launch_counts[opts] = opt_launch_counts.get(opts, 0) + 1
@@ -319,7 +348,7 @@ def _scan_launch(hist, kw, residue, packed, rand_out=None, wide=None):
 def split_scan_pick(hist, mask, csums, *, meta: FeatureMeta,
                     params: SplitParams, hist_scale=None, constraint=None,
                     pfac=None, parent_output=None, rand=None, rand_out=None,
-                    wide=None):
+                    cegb=None, wide=None):
     """The split-scan kernel: ``hist`` (C, F, B, 3) f32, ``mask`` (C, F)
     bool, ``csums`` (C, 3) f32 -> the children's (C, PACK_COLS) packed
     rows, one launch.  ``hist_scale`` (C, 3): ``hist`` holds integer
@@ -327,11 +356,12 @@ def split_scan_pick(hist, mask, csums, *, meta: FeatureMeta,
     of ``meta`` and ``params`` need them (``constraint`` None:
     ``NO_CONSTRAINT``; ``parent_output`` None: 0); ``rand`` (a
     ``split.RandLeg``): extra_trees, its thresholds into ``rand_out``
-    (C, F) int32 where given.  Past 256 bins (or ``wide=True``) the wide
-    leg."""
+    (C, F) int32 where given; ``cegb`` (C, F) f32: the CEGB leg, the
+    penalties subtracted from the finite gains after the contri
+    multiply.  Past 256 bins (or ``wide=True``) the wide leg."""
     kw = dict(mask=mask, csums=csums, meta=meta, params=params,
               hist_scale=hist_scale, constraint=constraint, pfac=pfac,
-              parent_output=parent_output, rand=rand)
+              parent_output=parent_output, rand=rand, cegb=cegb)
     if hist.device.type == "cpu":
         return split_pick_ref(hist, rand_out=rand_out, **kw)
     packed = torch.empty((hist.shape[0], PACK_COLS), dtype=torch.float32,
@@ -342,12 +372,13 @@ def split_scan_pick(hist, mask, csums, *, meta: FeatureMeta,
 
 def split_scan(hist, mask, csums, *, meta: FeatureMeta, params: SplitParams,
                hist_scale=None, constraint=None, pfac=None,
-               parent_output=None, rand=None, rand_out=None, wide=None):
+               parent_output=None, rand=None, rand_out=None, cegb=None,
+               wide=None):
     """The split-scan kernel's residue: the inputs of ``split_scan_pick``
     -> the (C, F, RES_COLS) residue K2 writes, one launch."""
     kw = dict(mask=mask, csums=csums, meta=meta, params=params,
               hist_scale=hist_scale, constraint=constraint, pfac=pfac,
-              parent_output=parent_output, rand=rand)
+              parent_output=parent_output, rand=rand, cegb=cegb)
     if hist.device.type == "cpu":
         return split_scan_ref(hist, rand_out=rand_out, **kw)
     C, F = hist.shape[:2]
@@ -389,3 +420,100 @@ def split_pick(residue, csums, *, meta: FeatureMeta, params: SplitParams,
     with _count_lock:
         launch_counts["split_pick"] += 1
     return packed
+
+
+# ---- the categorical leg -------------------------------------------------
+
+def split_cat_ref(hist, mask, csums, packed, *, meta: FeatureMeta,
+                  params: SplitParams, hist_scale=None, constraint=None,
+                  parent_output=None, rand=None, cegb=None):
+    """Plain version of ``split_scan_cat``: ``split.best_categorical`` on
+    the (dequantized) histograms, merged into the numerical rows by
+    ``split.merge_categorical``."""
+    _plain("split_scan_cat")
+    h = hist if hist_scale is None else hist * hist_scale[:, None, None, :]
+    shift = gain_shift(csums, params, parent_output)
+    cgain, cfeat, cleft, cbits = best_categorical(
+        h, csums, meta, mask, params, shift, constraint, parent_output, rand,
+        cegb)
+    return merge_categorical(packed, csums, cgain, cfeat, cleft, cbits)
+
+
+@functools.cache
+def _cat_lib() -> ctypes.CDLL:
+    lib = _build.load("split_scan_cat")
+    lib.lgbm_split_cat.argtypes = ([_P] * 13 + [_I] * 5 + [_F] * 10
+                                   + [_I] * 3 + [_U, _U, _I, _P])
+    lib.lgbm_split_cat.restype = _I
+    return lib
+
+
+def split_scan_cat(hist, mask, csums, packed, *, meta: FeatureMeta,
+                   params: SplitParams, hist_scale=None, constraint=None,
+                   parent_output=None, rand=None, cegb=None):
+    """The split-scan kernel's categorical leg (``csrc/split_scan_cat.cu``,
+    one launch after the numerical scan): the best categorical split of
+    each of C children from ``hist`` (C, F, B, 3) f32 (``hist_scale``
+    (C, 3): integer sums, dequantized at the load), merged into the
+    numerical scan's (C, PACK_COLS) rows ``packed`` where strictly better.
+    The legs as the numerical scan takes them (``constraint`` under
+    monotone constraints, ``parent_output`` under path smoothing, ``rand``
+    extra_trees, ``cegb`` (C, F) the CEGB penalties).  Returns the merged
+    rows and the (C, 1 + W) int32 [is_cat, bitset words]; on the card the
+    rows are ``packed`` itself, written in place."""
+    kw = dict(meta=meta, params=params, hist_scale=hist_scale,
+              constraint=constraint, parent_output=parent_output, rand=rand,
+              cegb=cegb)
+    if hist.device.type == "cpu":
+        return split_cat_ref(hist, mask, csums, packed, **kw)
+    if hist.device.type != "cuda":
+        raise ValueError(f"hist on {hist.device}: expected cpu or cuda")
+    C, F, B, _ = hist.shape
+    dev = hist.device
+    if B > MAX_BINS:
+        raise ValueError(f"hist {tuple(hist.shape)}: the categorical leg "
+                         f"takes at most {MAX_BINS} bins")
+    _need(hist, "hist", torch.float32, (C, F, B, 3), dev)
+    _need_rows(mask, "mask", torch.bool, (C, F), dev)
+    _need(csums, "csums", torch.float32, (C, 3), dev)
+    _need(packed, "packed", torch.float32, (C, PACK_COLS), dev)
+    if hist_scale is not None:
+        _need(hist_scale, "hist_scale", torch.float32, (C, 3), dev)
+    _need(meta.table, "meta.table", torch.int32, (5, F), dev)
+    if meta.cat32 is None:
+        raise ValueError("split_scan_cat: the meta has no categorical "
+                         "feature table (split.with_tables)")
+    n_cat = meta.cat32.shape[0]
+    _need(meta.cat32, "meta.cat32", torch.int32, (n_cat,), dev)
+    # (the categorical gains take no monotone depth penalty)
+    opts, ptrs = leg_args(meta, params._replace(monotone_penalty=0.0), C,
+                          dev, constraint, None, parent_output, rand)
+    if cegb is not None:
+        _need(cegb, "cegb", torch.float32, (C, F), dev)
+    if rand is not None:
+        _need(rand.uids, "rand.uids", torch.int32, (C,), dev)
+    W = bitset_words(B)
+    cat_out = torch.empty((C, 1 + W), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _cat_lib().lgbm_split_cat(
+            hist.data_ptr(),
+            0 if hist_scale is None else hist_scale.data_ptr(),
+            csums.data_ptr(), mask.data_ptr(), meta.table.data_ptr(),
+            meta.cat32.data_ptr(), ptrs["constraint"], ptrs["parent_output"],
+            ptrs["contri"], 0 if cegb is None else cegb.data_ptr(),
+            0 if rand is None else rand.uids.data_ptr(), packed.data_ptr(),
+            cat_out.data_ptr(), C, F, B, n_cat,
+            mask.stride(0) if C > 1 else F,
+            params.lambda_l1, params.lambda_l2, params.min_data_in_leaf,
+            params.min_sum_hessian_in_leaf, params.min_gain_to_split,
+            params.max_delta_step, params.path_smooth,
+            float(params.lambda_l2 + params.cat_l2), params.cat_smooth,
+            params.min_data_per_group, int(params.max_cat_threshold),
+            int(params.max_cat_to_onehot), opts,
+            *(rand_args(rand, C, dev)[2:5] if rand is not None
+              else (0, 0, 0)), stream)
+    _raise_on(err, "split_scan_cat")
+    with _count_lock:
+        launch_counts["split_scan_cat"] += 1
+    return packed, cat_out

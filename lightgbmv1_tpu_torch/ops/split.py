@@ -47,7 +47,16 @@ versions here.  The kernels read the feature meta's int32 tables, made
 once with the meta (``with_tables``).  The monotone penalty factor of a
 depth is one table made on the host (``monotone_penalty_factors``), so
 the kernel and the plain version multiply by the same bits.
-Categorical splits and CEGB are not ported (the config refuses them).
+Categorical splits (JAX :281 ``_best_categorical``, merged at
+:721-740): ``best_categorical`` on each leaf's histograms, one-vs-rest
+or the sorted two-direction scan, its left set packed as a bin-space
+bitset (``pack_bitset``), merged into the numerical pick where strictly
+better (``merge_categorical``); the numerical scan skips categorical
+features (``numerical_usable``).  On the card it is the split-scan
+kernel's categorical leg (``csrc/split_scan_cat.cu``).  CEGB (JAX
+:627-628, :339-340, :399-400): a (C, F) penalty subtracted from the
+finite numerical gains after the contri multiply and from every
+categorical candidate.
 """
 
 from __future__ import annotations
@@ -105,6 +114,16 @@ class SplitParams(NamedTuple):
     # reference USE_RAND: one random threshold a feature a node
     extra_trees: bool = False
     extra_seed: int = 0
+    # categorical splits (reference FindBestThresholdCategoricalInner,
+    # feature_histogram.hpp:278-460)
+    cat_l2: float = 10.0
+    cat_smooth: float = 10.0
+    max_cat_threshold: int = 32
+    max_cat_to_onehot: int = 4
+    min_data_per_group: float = 100.0
+    # CEGB (reference cost_effective_gradient_boosting.hpp DetlaGain)
+    cegb_tradeoff: float = 1.0
+    cegb_penalty_split: float = 0.0
 
 
 class SplitResult(NamedTuple):
@@ -116,6 +135,11 @@ class SplitResult(NamedTuple):
     default_left: torch.Tensor   # (C,) bool — missing-value direction
     left_sum: torch.Tensor       # (C, 3) [grad, hess, count]
     right_sum: torch.Tensor      # (C, 3)
+    # categorical splits (None when the data has no categorical feature):
+    # (C,) bool, and (C, W) int32 bin-space bitsets (uint32 words, bit b
+    # of word w set: bin 32 w + b goes left; W = ceil(B / 32))
+    is_cat: Optional[torch.Tensor] = None
+    cat_bitset: Optional[torch.Tensor] = None
 
 
 def threshold_l1(s, l1: float):
@@ -224,14 +248,28 @@ class FeatureMeta(NamedTuple):
     # again.
     table: Optional[torch.Tensor] = None
     mono32: Optional[torch.Tensor] = None
+    # (F,) bool categorical features; None: the data has none.  Its
+    # kernel table ``cat32`` (the usable categorical features' indices,
+    # (n,) int32) is made by ``with_tables``.
+    is_categorical: Optional[torch.Tensor] = None
+    cat32: Optional[torch.Tensor] = None
+
+
+def numerical_usable(meta: FeatureMeta) -> torch.Tensor:
+    """(F,) bool: the usable features the numerical scan reads (JAX
+    :621 ``numerical_ok``: a categorical feature is scanned by the
+    categorical leg alone)."""
+    if meta.is_categorical is None:
+        return meta.usable
+    return meta.usable & ~meta.is_categorical
 
 
 def feature_table(meta: FeatureMeta) -> torch.Tensor:
     """The (5, F) int32 feature table the scans of K2, K6 and the
     split-scan kernel read: num_bins, missing_type, nan_bin, zero_bin,
-    usable."""
+    and usable for the numerical scan (``numerical_usable``)."""
     return torch.stack([meta.num_bins, meta.missing_type, meta.nan_bin,
-                        meta.zero_bin, meta.usable.long()]) \
+                        meta.zero_bin, numerical_usable(meta).long()]) \
         .to(torch.int32).contiguous()
 
 
@@ -239,9 +277,12 @@ def with_tables(meta: FeatureMeta) -> FeatureMeta:
     """``meta`` with the kernels' int32 tables made from its fields, so a
     scan on the card runs no PyTorch op before its launch."""
     mono = meta.monotone_type
+    cat = meta.is_categorical
     return meta._replace(
         table=feature_table(meta),
-        mono32=None if mono is None else mono.to(torch.int32).contiguous())
+        mono32=None if mono is None else mono.to(torch.int32).contiguous(),
+        cat32=(None if cat is None else (cat & meta.usable).nonzero()[:, 0]
+               .to(torch.int32).contiguous()))
 
 
 def make_feature_meta(dataset, device, monotone_constraints=None,
@@ -250,7 +291,8 @@ def make_feature_meta(dataset, device, monotone_constraints=None,
     (``with_tables``).  ``monotone_type`` is None unless a constraint is
     nonzero (the JAX package's ``use_mc``), so a caller reads the monotone
     leg from the meta without a device read; ``contri`` is set whenever
-    ``feature_contri`` is (ones past its length)."""
+    ``feature_contri`` is (ones past its length); ``is_categorical``
+    where the data has a categorical feature."""
     def t(a, dtype=torch.int64):
         return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -267,11 +309,14 @@ def make_feature_meta(dataset, device, monotone_constraints=None,
         fc = np.asarray(list(feature_contri), np.float32)[:F]
         c[:len(fc)] = fc
         contri = t(c, torch.float32)
+    is_cat = np.asarray(getattr(dataset, "is_categorical",
+                                np.zeros(F, bool)), bool)
     return with_tables(FeatureMeta(
         num_bins=t(dataset.num_bins), missing_type=t(dataset.missing_types),
         nan_bin=t(dataset.nan_bins), zero_bin=t(dataset.zero_bins),
         usable=t(~np.asarray(dataset.is_trivial), torch.bool),
-        monotone_type=mono, contri=contri))
+        monotone_type=mono, contri=contri,
+        is_categorical=t(is_cat, torch.bool) if is_cat.any() else None))
 
 
 class RandLeg(NamedTuple):
@@ -344,7 +389,8 @@ def gain_shift(parent_sum: torch.Tensor, params: SplitParams,
 
 def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
                          feature_mask, params: SplitParams, constraint=None,
-                         pfac=None, parent_output=None, rand_bin=None):
+                         pfac=None, parent_output=None, rand_bin=None,
+                         cegb=None):
     """(C, 2, F, B) relative gains of every candidate (shift subtracted;
     ``-inf`` where a side misses min_data / min_hessian, the candidate
     does not exist or breaks its feature's monotone direction) and the
@@ -353,7 +399,8 @@ def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
     None); with path smoothing they are smoothed toward
     ``parent_output`` (C,) (0 when None); either way the gain is taken at
     those outputs (JAX :533-634).  Then, on finite gains, the
-    ``meta.contri`` multiply and the monotone depth penalty ``pfac`` (C,)
+    ``meta.contri`` multiply, the CEGB penalty ``cegb`` (C, F) subtracted
+    (JAX :627-628) and the monotone depth penalty ``pfac`` (C,)
     (``monotone_penalty_factors`` of the children's depths; None: no
     penalty) on monotone features.  ``rand_bin`` (C, F) (extra_trees,
     ``extra_rand_bins``): the one threshold of each feature that stays a
@@ -398,7 +445,8 @@ def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
     has_miss_dir = (meta.missing_type == MISSING_NAN) | (
         meta.missing_type == MISSING_ZERO)
     base_valid = ((t_idx <= meta.num_bins[:, None] - 2)[None]
-                  & (feature_mask & meta.usable[None, :])[:, :, None])
+                  & (feature_mask & numerical_usable(meta)[None, :])
+                  [:, :, None])
     if rand_bin is not None:
         base_valid = base_valid & (t_idx[None] == rand_bin[:, :, None])
     valid2 = torch.stack(
@@ -410,6 +458,8 @@ def scan_direction_gains(left2, parent_sum, meta: FeatureMeta,
     if meta.contri is not None:
         gains = torch.where(finite, gains * meta.contri[None, None, :, None],
                             gains)
+    if cegb is not None:
+        gains = torch.where(finite, gains - cegb[:, None, :, None], gains)
     if use_mc and pfac is not None:
         mono_f = (meta.monotone_type != 0)[None, None, :, None]
         gains = torch.where(finite & mono_f,
@@ -464,7 +514,7 @@ def scan_pick(gains: torch.Tensor, shift: torch.Tensor, meta: FeatureMeta):
 
 def scan_residue(hist, mask, csums, *, meta: FeatureMeta,
                  params: SplitParams, hist_scale=None, constraint=None,
-                 pfac=None, parent_output=None, rand=None):
+                 pfac=None, parent_output=None, rand=None, cegb=None):
     """The per-feature half of the scan -> the children's (C, F, 6)
     residue: the staged scan's own stages (``scan_left_sums`` ->
     ``scan_direction_gains`` -> ``scan_pick_feature``) on ``hist`` (C, F,
@@ -474,13 +524,13 @@ def scan_residue(hist, mask, csums, *, meta: FeatureMeta,
     threshold`` and the left sums there.  The plain version of the
     split-scan kernel (``ops/scan_cuda.py``) and of the scan stage of K2
     and K6.  ``rand`` (a ``RandLeg``; None: off): extra_trees' thresholds
-    (``extra_rand_bins``)."""
+    (``extra_rand_bins``); ``cegb`` (C, F): the CEGB penalties."""
     B = hist.shape[2]
     left2 = scan_left_sums(hist, meta, hist_scale)
     rand_bin = None if rand is None else extra_rand_bins(rand, meta.num_bins)
     gains, shift = scan_direction_gains(left2, csums, meta, mask, params,
                                         constraint, pfac, parent_output,
-                                        rand_bin)
+                                        rand_bin, cegb)
     fbest, sel = scan_pick_feature(gains, shift, meta)
     gains_f = torch.cat([gains[:, 0], gains[:, 1]], dim=2)   # (C, F, 2B)
     gsel = torch.gather(gains_f, 2, sel[..., None])[..., 0]
@@ -535,6 +585,250 @@ def unpack_children(packed: torch.Tensor, num_bins: int) -> SplitResult:
                        left_sum=packed[:, 4:7], right_sum=packed[:, 7:10])
 
 
+# the hessian nudge of the categorical scan (JAX :295 ``eps``)
+CAT_EPS = 1e-15
+
+
+def bitset_words(num_bins: int) -> int:
+    """W = ceil(num_bins / 32): the uint32 words of a bin-space bitset."""
+    return -(-int(num_bins) // 32)
+
+
+def pack_bitset(member: torch.Tensor) -> torch.Tensor:
+    """(..., B) bool membership -> (..., W) int32 bitset words holding the
+    uint32 bit patterns (JAX ``_pack_bitset`` :242)."""
+    B = member.shape[-1]
+    W = bitset_words(B)
+    m = torch.nn.functional.pad(member.to(torch.int64), (0, W * 32 - B))
+    m = m.reshape(member.shape[:-1] + (W, 32))
+    shifts = torch.arange(32, dtype=torch.int64, device=member.device)
+    words = (m << shifts).sum(dim=-1)
+    return (((words + (1 << 31)) % (1 << 32)) - (1 << 31)).to(torch.int32)
+
+
+def bitset_contains(bitset: torch.Tensor, bins: torch.Tensor) -> torch.Tensor:
+    """Vectorized FindInBitset (JAX ``bitset_contains`` :251): ``bitset``
+    (..., W) int32 words, ``bins`` (...,) -> True where the bin's bit is
+    set."""
+    b = bins.long()
+    words = bitset.long().expand(*b.shape, bitset.shape[-1])
+    word = torch.gather(words, -1, (b >> 5)[..., None])[..., 0]
+    return ((word >> (b & 31)) & 1) == 1
+
+
+def cat_go_left(bins, bitset, is_cat, numeric_left):
+    """The decision of a split on integer bins: bitset membership where
+    ``is_cat``, else the numerical ``numeric_left`` (JAX grower.py
+    :303-315, tree.py:183-189); ``bitset`` (..., W) broadcast against
+    ``bins``."""
+    if is_cat is None:
+        return numeric_left
+    return torch.where(is_cat, bitset_contains(bitset, bins), numeric_left)
+
+
+def cat_rand_draws(rand: RandLeg, F: int) -> torch.Tensor:
+    """(C, 2, F) f32 uniforms of the categorical extra_trees draw (JAX
+    :315-317): ``uniform(fold_in(rand_key, 7), (2, F))`` under each
+    leaf's ``rand_key = fold_in(tree_key, uid + 1_000_003 +
+    extra_seed)``."""
+    d = rand.uids.to(torch.int64) + 1_000_003 + int(rand.extra_seed)
+    return prng.uniform_folded(rand.key, d, 2 * F, then=7).reshape(-1, 2, F)
+
+
+def _cat_split_gain(lg, lh, rg, rh, lc, rc, p: SplitParams, use_mc, lo, hi,
+                    pout):
+    """JAX ``_cat_split_gain`` (:259): the two sides' gains, at their
+    outputs smoothed toward ``pout`` and clamped to [lo, hi] under path
+    smoothing / monotone constraints (no monotone direction check)."""
+    use_smooth = p.path_smooth > 0
+    if not use_mc and not use_smooth:
+        return leaf_gain(lg, lh, p) + leaf_gain(rg, rh, p)
+    out_l = leaf_output(lg, lh, p)
+    out_r = leaf_output(rg, rh, p)
+    if use_smooth:
+        out_l = smooth_output(out_l, lc, pout, p)
+        out_r = smooth_output(out_r, rc, pout, p)
+    if use_mc:
+        out_l = torch.clamp(out_l, lo, hi)
+        out_r = torch.clamp(out_r, lo, hi)
+    return (leaf_gain_given_output(lg, lh, out_l, p)
+            + leaf_gain_given_output(rg, rh, out_r, p))
+
+
+def best_categorical(hist, csums, meta: FeatureMeta, mask,
+                     params: SplitParams, shift, constraint=None,
+                     parent_output=None, rand: Optional[RandLeg] = None,
+                     cegb=None):
+    """The best categorical split of each of C leaves (JAX
+    ``_best_categorical`` :281, vmapped): ``hist`` (C, F, B, 3)
+    (dequantized), ``csums`` (C, 3), ``mask`` (C, F), ``shift`` (C,) the
+    numerical scan's.  One-vs-rest on features of at most
+    ``max_cat_to_onehot`` bins; otherwise the bins of at least
+    ``cat_smooth`` rows sorted by g / (h + cat_smooth) (stable) and
+    scanned from both ends at ``lambda_l2 + cat_l2``, at most
+    ``max_cat_threshold`` positions, a position evaluated once
+    ``min_data_per_group`` rows gathered since the last one.  The
+    trailing bin (other / unseen / NaN) never joins the left set.  The
+    relative gains take the contri multiply and the CEGB penalty ``cegb``
+    (C, F); the first best in the JAX flat order (one-vs-rest, then the
+    forward scan, then the backward, each feature-major) wins.  Returns
+    the gain (C,), feature (C,), left sums (C, 3) and bitset (C, W)."""
+    C, F, B, _ = hist.shape
+    dev = hist.device
+    f32 = torch.float32
+    eps = CAT_EPS
+    use_mc = meta.monotone_type is not None
+    g, h, c = hist[..., 0], hist[..., 1], hist[..., 2]           # (C, F, B)
+    tg = csums[:, 0][:, None, None]
+    th = csums[:, 1][:, None, None]
+    tc = csums[:, 2][:, None, None]
+    lo = hi = None
+    if use_mc:
+        if constraint is None:
+            constraint = torch.tensor(NO_CONSTRAINT, dtype=f32,
+                                      device=dev).expand(C, 2)
+        lo, hi = constraint[:, 0], constraint[:, 1]
+    pout = (parent_output if parent_output is not None
+            else torch.zeros(C, dtype=f32, device=dev))
+    t_idx = torch.arange(B, device=dev)
+    nb = meta.num_bins[None, :, None]
+    fmask = (mask & meta.usable[None, :]
+             & meta.is_categorical[None, :])[:, :, None]
+    bin_ok = (t_idx < nb - 1) & fmask
+    use_onehot = nb <= params.max_cat_to_onehot                  # (1, F, 1)
+    ku = cat_rand_draws(rand, F) if rand is not None else None   # (C, 2, F)
+    neg_inf = torch.full((), NEG_INF, dtype=f32, device=dev)
+    md, mh = params.min_data_in_leaf, params.min_sum_hessian_in_leaf
+
+    # ---- one-vs-rest (JAX :320-349) ---------------------------------------
+    oth_g, oth_h, oth_c = tg - g, th - h, tc - c
+    ok1 = (bin_ok & use_onehot & (c >= md) & (h >= mh) & (oth_c >= md)
+           & ((oth_h - eps) >= mh))
+    if ku is not None:
+        m1 = (meta.num_bins - 1).clamp(min=1).to(f32)
+        rb1 = (ku[:, 0] * m1[None, :]).to(torch.int32)           # (C, F)
+        ok1 = ok1 & (t_idx == rb1[..., None])
+    c3 = (lambda x: x[:, None, None]) if use_mc else (lambda x: None)
+    gain1 = _cat_split_gain(g, h + eps, oth_g, oth_h - eps, c, oth_c, params,
+                            use_mc, c3(lo), c3(hi), pout[:, None, None]) \
+        - shift[:, None, None]
+    if meta.contri is not None:
+        gain1 = gain1 * meta.contri[None, :, None]
+    if cegb is not None:
+        gain1 = gain1 - cegb[:, :, None]
+    gain1 = torch.where(ok1, gain1, neg_inf)
+
+    # ---- the sorted two-direction scan (JAX :351-401) ---------------------
+    l2cat = params._replace(lambda_l2=params.lambda_l2 + params.cat_l2)
+    valid = bin_ok & ~use_onehot & (c >= params.cat_smooth)
+    ratio = torch.where(valid, g / (h + params.cat_smooth),
+                        torch.full((), float("inf"), dtype=f32, device=dev))
+    order = torch.argsort(ratio, dim=2, stable=True)             # valid first
+    used = valid.sum(dim=2)                                      # (C, F)
+    sg = torch.gather(g, 2, order)
+    sh = torch.gather(h, 2, order)
+    sc = torch.gather(c, 2, order)
+    bwd = (used[..., None] - 1 - t_idx).clamp(0, B - 1)
+    sg2 = torch.stack([sg, torch.gather(sg, 2, bwd)], dim=1)      # (C,2,F,B)
+    sh2 = torch.stack([sh, torch.gather(sh, 2, bwd)], dim=1)
+    sc2 = torch.stack([sc, torch.gather(sc, 2, bwd)], dim=1)
+    clg = torch.cumsum(sg2, dim=3)
+    clh = torch.cumsum(sh2, dim=3) + eps
+    clc = torch.cumsum(sc2, dim=3)
+    tg4, th4, tc4 = tg[:, None], th[:, None], tc[:, None]
+    crg, crh, crc = tg4 - clg, th4 - clh, tc4 - clc
+    mnc = torch.clamp((used + 1) // 2, max=int(params.max_cat_threshold))
+    t4 = t_idx[None, None, None, :]
+    pos_ok = ((t4 < mnc[:, None, :, None]) & (t4 < used[:, None, :, None])
+              & (clc >= md) & (clh >= mh) & (crc >= md)
+              & (crc >= params.min_data_per_group) & (crh >= mh))
+    if ku is not None:
+        max_thr = (torch.minimum(mnc, used) - 1).clamp(min=0)
+        rp = (ku[:, 1] * max_thr.clamp(min=1).to(f32)).to(torch.int32)
+        pos_ok = pos_ok & (t4 == rp[:, None, :, None])
+    # min_data_per_group: a position is evaluated once enough rows gathered
+    # since the last evaluated one (JAX :383-392, sequential)
+    n_steps = min(B, int(params.max_cat_threshold))
+    can = torch.zeros_like(pos_ok)
+    grp = torch.zeros((C, 2, F), dtype=f32, device=dev)
+    zero = torch.zeros((), dtype=f32, device=dev)
+    for i in range(n_steps):
+        grp = grp + sc2[..., i]
+        ci = pos_ok[..., i] & (grp >= params.min_data_per_group)
+        grp = torch.where(ci, zero, grp)
+        can[..., i] = ci
+    c4 = (lambda x: x[:, None, None, None]) if use_mc else (lambda x: None)
+    gain2 = _cat_split_gain(clg, clh, crg, crh, clc, crc, l2cat, use_mc,
+                            c4(lo), c4(hi), pout[:, None, None, None]) \
+        - shift[:, None, None, None]
+    if meta.contri is not None:
+        gain2 = gain2 * meta.contri[None, None, :, None]
+    if cegb is not None:
+        gain2 = gain2 - cegb[:, None, :, None]
+    gain2 = torch.where(can, gain2, neg_inf)
+
+    # ---- the pick and its left set (JAX :403-433) --------------------------
+    flat = torch.cat([gain1.reshape(C, -1), gain2.reshape(C, -1)], dim=1)
+    best = torch.argmax(flat, dim=1)
+    ci = torch.arange(C, device=dev)
+    best_gain = flat[ci, best]
+    FB = F * B
+    from_onehot = best < FB
+    idx2 = (best - FB).clamp(min=0)
+    direction = idx2 // FB
+    feat = torch.where(from_onehot, (best // B) % F, (idx2 // B) % F)
+    pos = torch.where(from_onehot, best % B, idx2 % B)
+    left1 = hist[ci, feat, pos] + torch.tensor([0.0, eps, 0.0], dtype=f32,
+                                               device=dev)
+    left2 = torch.stack([clg[ci, direction, feat, pos],
+                         clh[ci, direction, feat, pos],
+                         clc[ci, direction, feat, pos]], dim=1)
+    left = torch.where(from_onehot[:, None], left1, left2)
+    ub = used[ci, feat][:, None]
+    p1 = pos[:, None]
+    member_pos = torch.where(direction[:, None] == 0, t_idx[None] <= p1,
+                             (t_idx[None] >= ub - 1 - p1) & (t_idx[None] < ub))
+    member_sorted = torch.zeros((C, B), dtype=torch.bool, device=dev) \
+        .scatter(1, order[ci, feat], member_pos)
+    member = torch.where(from_onehot[:, None], t_idx[None] == p1,
+                         member_sorted)
+    return best_gain, feat, left, pack_bitset(member)
+
+
+def merge_categorical(packed, csums, cgain, cfeat, cleft, cbits):
+    """The numerical pick's (C, PACK) rows merged with the categorical
+    candidates where they are strictly better (JAX :721-740, ``cgain >
+    best_gain``): gain, feature, threshold 0, default_left off, the left
+    sums and right = sums - left.  Returns the rows and the (C, 1 + W)
+    int32 ``cat_out`` [is_cat, bitset words] (zeros where numerical)."""
+    num_gain = packed[:, 0]
+    use = cgain > num_gain
+    gain = torch.maximum(num_gain, cgain)
+    gain = torch.where(torch.isfinite(gain), gain,
+                       torch.full_like(gain, NEG_INF))
+    u = use[:, None]
+    f32 = torch.float32
+    left = torch.where(u, cleft, packed[:, 4:7])
+    out = torch.cat([
+        gain[:, None],
+        torch.where(use, cfeat.to(f32), packed[:, 1])[:, None],
+        torch.where(use, torch.zeros_like(gain), packed[:, 2])[:, None],
+        torch.where(use, torch.zeros_like(gain), packed[:, 3])[:, None],
+        left, torch.where(u, csums - cleft, packed[:, 7:10])], dim=1)
+    cat_out = torch.cat([use.to(torch.int32)[:, None],
+                         torch.where(u, cbits, torch.zeros_like(cbits))],
+                        dim=1)
+    return out, cat_out
+
+
+def unpack_cat(res: SplitResult, cat_out) -> SplitResult:
+    """``res`` with the categorical leg's (C, 1 + W) ``cat_out`` (None:
+    no categorical feature)."""
+    if cat_out is None:
+        return res
+    return res._replace(is_cat=cat_out[:, 0] != 0, cat_bitset=cat_out[:, 1:])
+
+
 def scan_inputs(meta: FeatureMeta, params: SplitParams, C, dev,
                 constraint=None, depth=None, parent_output=None) -> dict:
     """The constrained legs' per-child inputs of a scan of C children, as
@@ -578,7 +872,7 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
                     meta: FeatureMeta, feature_mask: torch.Tensor,
                     params: SplitParams, hist_scale=None, constraint=None,
                     depth=None, parent_output=None, key=None,
-                    uids=None) -> SplitResult:
+                    uids=None, cegb=None) -> SplitResult:
     """Best numerical split of each of C leaves: ``hist`` (C, F, B, 3),
     ``parent_sum`` (C, 3), ``feature_mask`` (C, F) bool; ``hist_scale``
     (C, 3): ``hist`` holds quantized integer sums, dequantized after the
@@ -588,10 +882,15 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
     ``parent_output`` (C,) the leaves' current outputs (None: 0) under
     path smoothing, the tree ``key`` and the leaves' ``uids`` (C,) under
     extra_trees (JAX :437, vmapped, its ``rand_key`` ``fold_in(key, uid +
-    1_000_003 + extra_seed)``).  On a CUDA tensor one launch of the
-    split-scan kernel computes the residue and the pick
+    1_000_003 + extra_seed)``), the CEGB penalties ``cegb`` (C, F) f32
+    under CEGB (JAX's ``cegb_penalty``, the grower's).  On a CUDA tensor
+    one launch of the split-scan kernel computes the residue and the pick
     (``scan_cuda.split_scan_pick``); on a CPU tensor its plain version,
-    ``pick_pack`` on ``scan_residue``."""
+    ``pick_pack`` on ``scan_residue``.  Where the data has a categorical
+    feature (``meta.is_categorical``), the categorical leg then merges its
+    candidates into the pick (``scan_cuda.split_scan_cat``, a second
+    launch; plain version ``best_categorical`` + ``merge_categorical``)
+    and the result carries ``is_cat`` and ``cat_bitset``."""
     from . import scan_cuda
 
     C, _, B, _ = hist.shape
@@ -599,9 +898,19 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
                        parent_output)
     if feature_mask.stride() != (0, 1):      # a broadcast row stays so
         feature_mask = feature_mask.contiguous()
+    hist = hist.contiguous()
+    csums = parent_sum.contiguous()
+    hscale = None if hist_scale is None else hist_scale.contiguous()
+    rand = rand_leg(params, key, uids, C, hist.device)
+    if cegb is not None:
+        cegb = cegb.to(torch.float32).contiguous()
     packed = scan_cuda.split_scan_pick(
-        hist.contiguous(), feature_mask, parent_sum.contiguous(),
-        meta=meta, params=params,
-        hist_scale=None if hist_scale is None else hist_scale.contiguous(),
-        rand=rand_leg(params, key, uids, C, hist.device), **legs)
-    return unpack_children(packed, B)
+        hist, feature_mask, csums, meta=meta, params=params,
+        hist_scale=hscale, rand=rand, cegb=cegb, **legs)
+    cat_out = None
+    if meta.is_categorical is not None:
+        packed, cat_out = scan_cuda.split_scan_cat(
+            hist, feature_mask, csums, packed, meta=meta, params=params,
+            hist_scale=hscale, constraint=legs["constraint"],
+            parent_output=legs["parent_output"], rand=rand, cegb=cegb)
+    return unpack_cat(unpack_children(packed, B), cat_out)

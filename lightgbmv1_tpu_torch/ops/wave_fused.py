@@ -67,7 +67,8 @@ RMETA_COLS = 8  # leaf, new-leaf, thr, default_left, mtype, nan_bin,
                 # metadata the routing stage reads (int32)
 
 
-def route_tile(dbin, oleaf, rmeta, *, nslots, sub, want_label=True):
+def route_tile(dbin, oleaf, rmeta, *, nslots, sub, want_label=True,
+               cat=None):
     """The decision stage on a set of rows (JAX :134): ``dbin`` (T,) each
     row's decision bin (the bin of its leaf's committed split feature),
     ``oleaf`` (T,) its current leaf, ``rmeta`` (S, RMETA_COLS) the slots'
@@ -77,7 +78,9 @@ def route_tile(dbin, oleaf, rmeta, *, nslots, sub, want_label=True):
     and (``want_label``) the row's histogram slot — the smaller child's
     slot in subtraction mode, ``2s + right`` pool-free, ``nslots`` for a
     row of no split.  Integer only, the JAX package's (S, T) sums term
-    for term."""
+    for term.  ``cat`` (S, 1 + W) int32 [is_cat, bitset words]: a
+    categorical slot's rows go left by bin membership (K3's bitset leg;
+    None: every slot numerical)."""
     dbin = dbin.to(torch.int32)[None, :]
     oleaf = oleaf.to(torch.int32)[None, :]
     leafs, nls, thr = rmeta[:, 0:1], rmeta[:, 1:2], rmeta[:, 2:3]
@@ -86,6 +89,12 @@ def route_tile(dbin, oleaf, rmeta, *, nslots, sub, want_label=True):
     sml = rmeta[:, 7:8] != 0
     mine = oleaf == leafs                                    # (S, T)
     g = go_left_rule(dbin, thr, dl, mt, nanb, zb)            # (S, T)
+    if cat is not None:
+        db = dbin.long()
+        words = cat[:, 1:].long()[torch.arange(cat.shape[0],
+                                               device=cat.device)[:, None],
+                                  db >> 5]
+        g = torch.where(cat[:, :1] != 0, ((words >> (db & 31)) & 1) == 1, g)
     zero = torch.zeros((), dtype=torch.int32, device=rmeta.device)
     new_leaf = (oleaf + torch.where(mine & ~g, nls - oleaf, zero)
                 .sum(dim=0, keepdim=True)).to(torch.int32)[0]
@@ -148,23 +157,26 @@ def subtract_children(hsm, parent, sml, slot_scale=None):
 
 def fused_route_rows(row_sets, *, feats, thrs, dls, leafs, nls, num_leaves,
                      meta: FeatureMeta, packed=False, offsets=None,
-                     bundle=None):
+                     bundle=None, cat=None):
     """Route row sets through a tree's committed splits with the same
     decision the round runs on the train rows — the valid-set lane (K3 on
     the card, ``fused_cuda.route_rows``; ``packed``: its packed leg;
     ``bundle``: its bundle leg, the sets holding EFB bundle columns).
     ``row_sets``: (bins, leaf ids) pairs; the splits (P,) are in round
     order, round q's at ``offsets[q]:offsets[q + 1]`` (``offsets`` (R +
-    1,) i32; None: one round, as the JAX function routes).  The splits are
-    packed once and each set routed through every round in one launch.
-    Integer only, so equal to the staged routing round by round."""
+    1,) i32; None: one round, as the JAX function routes); ``cat`` (P, 1 +
+    W) int32 the splits' [is_cat, bitset] rows (K3's bitset leg; None: no
+    categorical split).  The splits are packed once and each set routed
+    through every round in one launch.  Integer only, so equal to the
+    staged routing round by round."""
     from . import fused_cuda
 
     rmeta = pack_route_meta(feats, thrs, dls, leafs, nls, meta)
     feats = feats.to(torch.int32).contiguous()
     return [lids if lids.shape[0] == 0 else fused_cuda.route_rows(
         binned, lids, feats, rmeta, num_leaves, packed=packed,
-        offsets=offsets, bundle=bundle) for binned, lids in row_sets]
+        offsets=offsets, bundle=bundle, cat=cat)
+        for binned, lids in row_sets]
 
 
 def pack_children(res: SplitResult) -> torch.Tensor:
@@ -416,12 +428,11 @@ def make_fused_wave_loop(*, meta: FeatureMeta, params: SplitParams,
 
 
 def fused_ineligible_reason(*, bin_dtype, num_bins, params=None,
-                            bundled: bool = False) -> str:
+                            bundled: bool = False, meta=None) -> str:
     """Static eligibility gate (JAX :1356): the reason the fused round
-    cannot run, or ``""``, in the JAX order.  The port refuses
-    categorical features before any round (config.py), and packed bins
-    run the kernels' packed legs, so what remains to check is EFB, the
-    bin type and extra_trees."""
+    cannot run, or ``""``, in the JAX order.  Packed bins run the
+    kernels' packed legs, so what remains to check is EFB, the bin type,
+    categorical features (``meta.is_categorical``) and extra_trees."""
     if bundled:
         return ("EFB bundle-space histograms expand to original features "
                 "before the scan")
@@ -429,6 +440,9 @@ def fused_ineligible_reason(*, bin_dtype, num_bins, params=None,
         return "int16 bins exceed the uint8 one-hot kernel family"
     if num_bins > 256:
         return "num_bins > 256 exceeds the uint8 kernel family"
+    if meta is not None and meta.is_categorical is not None:
+        return ("categorical sorted-scan (per-feature argsort) has no "
+                "kernel lowering")
     if params is not None and params.extra_trees:
         return "extra_trees draws per-node randomness inside the scan"
     return ""

@@ -70,18 +70,35 @@ every grower (the one-hot product, the split-scan kernel's wide leg and
 K3's 16-bit leg); extra_trees reaches the growers' scans through
 ``params`` and each scan's uids.
 
+Constraints and penalties (JAX :174-268, :516-585): interaction
+constraints (``parse_interaction_constraints``, a (G, F) group matrix)
+mask every grower's nodes; CEGB (``cegb_penalty_split``, ``_coupled``,
+``_lazy``; ``_cegb_coupled`` / ``_cegb_lazy`` check their sizes, a wrong
+one fatal) sends leaf-wise growth to the sequential grower, as the JAX
+package does (its penalties depend on the features earlier splits of the
+tree used), and the lazy penalty to its masked variant; the level-wise
+grower drops the lazy penalty with the JAX warning.  Forced splits
+(``parse_forced_splits``, the JSON of ``forcedsplits_filename`` in BFS
+order) run on the sequential grower (leaf-wise) and the level-wise one;
+intermediate monotone constraints fall back to basic there with the JAX
+warning.  Categorical features ride the meta
+(``meta.is_categorical``): every staged grower splits them.
+
 What the JAX package routes elsewhere raises here, with its reason:
-``hist_method=fused`` on the sequential or level-wise grower, the
-persistent loop under monotone constraints (JAX :669-672) or under
-per-node feature sampling (JAX grower_wave.py:881-884 keeps the loop off
-there).  The loop's other JAX fallback (interaction constraints) is
-refused before, by ``config.unported_reason``.
+``hist_method=fused`` on the sequential or level-wise grower (CEGB and
+forced splits included) and with categorical features, the persistent
+loop under monotone constraints (JAX :669-672), interaction constraints
+(:662-665) or per-node feature sampling (JAX grower_wave.py:881-884
+keeps the loop off there).
 """
 
 from __future__ import annotations
 
+import json
+import re
 from typing import Callable
 
+import numpy as np
 import torch
 
 from ..config import Config
@@ -95,7 +112,87 @@ from ..ops.histogram import (benchmark_hist_methods, default_hist_method,
 from ..ops.split import FeatureMeta, SplitParams
 from ..ops.wave_fused import (fused_ineligible_reason, make_fused_round,
                               make_fused_wave_loop)
-from ..utils.log import log_info, log_warning
+from ..utils.log import log_fatal, log_info, log_warning
+
+
+def parse_interaction_constraints(spec, num_features: int):
+    """``'[0,1,2],[2,3]'`` -> the (G, F) bool group matrix, or None when
+    unset (JAX :174; reference config.h:517)."""
+    if not spec:
+        return None
+    groups = []
+    for m in re.findall(r"\[([\d,\s]*)\]", str(spec)):
+        idx = [int(x) for x in m.replace(",", " ").split()]
+        row = np.zeros(num_features, bool)
+        row[[i for i in idx if i < num_features]] = True
+        groups.append(row)
+    if not groups:
+        return None
+    return np.stack(groups)
+
+
+def _cegb_lazy(config: Config, num_features: int, levelwise: bool):
+    """``cegb_penalty_feature_lazy`` checked -> (F,) or None (JAX :194):
+    a wrong size is fatal; the level-wise grower drops it with the JAX
+    warning (the per-row marks need the sequential grower)."""
+    pen = config.cegb_penalty_feature_lazy
+    if not pen:
+        return None
+    if len(pen) != num_features:
+        log_fatal("cegb_penalty_feature_lazy should be the same size as "
+                  f"feature number ({len(pen)} vs {num_features})")
+    if levelwise:
+        log_warning("cegb_penalty_feature_lazy requires the serial "
+                    "leaf-wise learner; lazy feature costs are ignored for "
+                    "tree_learner=serial, tree_growth=levelwise")
+        return None
+    return np.asarray(pen, np.float64)
+
+
+def _cegb_coupled(config: Config, num_features: int):
+    """``cegb_penalty_feature_coupled`` checked -> (F,) or None (JAX
+    :217); a wrong size is fatal."""
+    pen = config.cegb_penalty_feature_coupled
+    if not pen:
+        return None
+    if len(pen) != num_features:
+        log_fatal("cegb_penalty_feature_coupled should be the same size as "
+                  f"feature number ({len(pen)} vs {num_features})")
+    return np.asarray(pen, np.float64)
+
+
+def parse_forced_splits(filename: str, bin_mappers, num_leaves: int):
+    """``forcedsplits_filename``'s JSON (``{"feature": f, "threshold": t,
+    "default_left": ..., "left": {...}, "right": {...}}``) -> the (S, 6)
+    int steps [parent step, side, feature, bin, default_left, depth] in
+    BFS order, or None (JAX :228; reference
+    SerialTreeLearner::ForceSplits, serial_tree_learner.cpp:427-539).  A
+    step names its parent step (-1: the root) and the side it splits, so
+    the grower resolves the leaf a skipped step leaves unmade."""
+    if not filename:
+        return None
+    from ..utils.fileio import open_file
+
+    with open_file(filename) as fh:
+        spec = json.load(fh)
+    if not spec:
+        return None
+    out = []
+    queue = [(spec, -1, 0)]
+    while queue and len(out) < num_leaves - 1:
+        node, pstep, side = queue.pop(0)
+        f = int(node["feature"])
+        b = int(bin_mappers[f].value_to_bin(
+            np.asarray([float(node["threshold"])]))[0])
+        depth = 0 if pstep < 0 else int(out[pstep][5]) + 1
+        out.append([pstep, side, f, b,
+                    int(bool(node.get("default_left", False))), depth])
+        step = len(out) - 1
+        if node.get("left"):
+            queue.append((node["left"], step, 0))
+        if node.get("right"):
+            queue.append((node["right"], step, 1))
+    return np.asarray(out, np.int64) if out else None
 
 
 def resolve_deep_dtype(requested: str, precision: str, backend: str) -> str:
@@ -182,7 +279,7 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                   bin_dtype: torch.dtype = torch.uint8,
                   num_data: int = 0, packed: bool = False,
                   binned=None, bundle=None,
-                  bundle_num_bins=None) -> Callable:
+                  bundle_num_bins=None, bin_mappers=None) -> Callable:
     """The serial learner's ``grow(binned, g3, base_mask, ...)`` for the
     configured growth over ``num_data`` rows of ``bin_dtype`` bins: the
     wave grower's ``grow(..., valids)`` routes the valid sets too
@@ -193,7 +290,9 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     methods on (``resolve_hist_method``; the pick and the candidates'
     times are ``grow.hist_method`` and ``grow.bench_times``).
     ``bundle`` (``io.bundle.BundleArrays``): ``binned`` holds the EFB
-    bundle columns, whose histograms have ``bundle_num_bins`` bins."""
+    bundle columns, whose histograms have ``bundle_num_bins`` bins.
+    ``bin_mappers``: the training set's, which bin the forced splits'
+    thresholds (``parse_forced_splits``)."""
     F = meta.num_bins.shape[0]
     # the histograms' bin axis and columns (the bundles' under EFB)
     Bh = bundle_num_bins if bundle is not None else num_bins
@@ -219,6 +318,21 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
 
     levelwise = config.tree_growth == "levelwise"
     bynode = config.feature_fraction_bynode
+    groups = parse_interaction_constraints(config.interaction_constraints, F)
+    coupled = _cegb_coupled(config, F)
+    lazy = _cegb_lazy(config, F, levelwise)
+    # CEGB needs the sequential grower's exact split order (its penalties
+    # depend on the features earlier splits of the tree used; JAX :516)
+    use_cegb = (config.cegb_tradeoff * config.cegb_penalty_split > 0
+                or coupled is not None or lazy is not None)
+    forced = None
+    if config.forcedsplits_filename:
+        if bin_mappers is None:
+            log_warning("forcedsplits_filename requires bin mappers; "
+                        "ignored")
+        else:
+            forced = parse_forced_splits(config.forcedsplits_filename,
+                                         bin_mappers, config.num_leaves)
     wave_size = config.leafwise_wave_size
     if wave_size == 0:
         # auto: num_leaves // 4; K = 1 (num_leaves <= 7) is the sequential
@@ -236,14 +350,19 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     # intermediate-mode monotonicity runs on the wave grower, so it takes
     # it at any wave size (JAX :548-551)
     wants_inter = has_mono and mono_mode == "intermediate"
-    use_wave = config.tree_growth == "leafwise" and (
+    use_wave = config.tree_growth == "leafwise" and not use_cegb and (
         config.leafwise_wave_size >= 1 or wave_size > 1 or wants_inter)
-    if wants_inter and not use_wave:
+    if wants_inter and (not use_wave or forced is not None):
+        # forced splits route leaf-wise growth to the sequential grower
         log_warning("monotone_constraints_method=intermediate is "
                     "implemented by the wave-batched leaf-wise grower; "
                     "falling back to 'basic' for this configuration "
-                    f"(tree_growth={config.tree_growth})")
+                    f"(tree_growth={config.tree_growth}"
+                    + (", forced splits" if forced is not None else "")
+                    + ")")
         mono_mode = "basic"
+    if forced is not None:
+        use_wave = False
 
     def local_wave(binned, g3, label, nslots, deep=False, rows8=None):
         return hist_wave(binned, g3, label, nslots, Bh, method=method,
@@ -259,7 +378,8 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
     if config.hist_method == "fused":
         reason = fused_ineligible_reason(bin_dtype=bin_dtype,
                                          num_bins=num_bins, params=params,
-                                         bundled=bundle is not None)
+                                         bundled=bundle is not None,
+                                         meta=meta)
         if not reason and not use_wave:
             reason = ("the fused kernel is a wave-round kernel; this config "
                       "routes to the " + ("level-wise" if levelwise
@@ -270,6 +390,11 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                                     num_bins=num_bins, precision=precision,
                                     deep_precision=deep_precision,
                                     packed=packed)
+        if config.wave_loop_rounds > 1 and groups is not None:
+            raise NotImplementedError(
+                f"wave_loop_rounds={config.wave_loop_rounds}: interaction "
+                "constraints re-mask features per split; the loop kernel "
+                "freezes the round-0 mask")
         if config.wave_loop_rounds > 1 and has_mono:
             raise NotImplementedError(
                 f"wave_loop_rounds={config.wave_loop_rounds}: monotone "
@@ -303,7 +428,8 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
 
     common = dict(num_leaves=config.num_leaves, num_bins=num_bins, meta=meta,
                   params=params, max_depth=config.max_depth,
-                  feature_fraction_bynode=bynode, bundle=bundle)
+                  feature_fraction_bynode=bynode, bundle=bundle,
+                  interaction_groups=groups)
     if levelwise:
         def local_frontier(binned, g3, label, L, live_slots=None,
                            rows8=None):
@@ -312,16 +438,20 @@ def build_trainer(config: Config, meta: FeatureMeta, params: SplitParams,
                                  live_slots=live_slots, rows8=rows8, **bins)
 
         grow = make_levelwise_grower(hist_frontier_fn=local_frontier,
-                                     packed=packed, **common)
+                                     packed=packed, forced_splits=forced,
+                                     cegb_coupled=coupled, **common)
     elif not use_wave:
         def local_hist(binned, g3, leaf_id, target):
             return hist_one_leaf(binned, g3, leaf_id, target, Bh,
                                  method=method, precision=precision, **bins)
 
+        # per-row lazy costs need the masked variant's leaf ids
         grow = make_leafwise_grower(
             hist_fn=local_hist,
-            partition=config.tree_growth != "leafwise_masked",
+            partition=(config.tree_growth != "leafwise_masked"
+                       and lazy is None),
             hist_pool_mb=config.histogram_pool_size, packed=packed,
+            forced_splits=forced, cegb_coupled=coupled, cegb_lazy=lazy,
             **common)
     else:
         grow = make_wave_grower(

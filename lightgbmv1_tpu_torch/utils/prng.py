@@ -85,11 +85,17 @@ def uniform_1d(key: tuple, n: int, device=None) -> torch.Tensor:
     return _uniform_bits(int(key[0]), int(key[1]), i)
 
 
-def uniform_folded(key: tuple, data: torch.Tensor, n: int) -> torch.Tensor:
+def uniform_folded(key: tuple, data: torch.Tensor, n: int,
+                   then=None) -> torch.Tensor:
     """(C, n): row c is ``uniform_1d(fold_in(key, data[c]), n)`` for the
-    (C,) int64 tensor ``data``, every key and draw in one pass."""
+    (C,) int64 tensor ``data``, every key and draw in one pass; with
+    ``then`` (an int) each key is folded with it once more,
+    ``uniform_1d(fold_in(fold_in(key, data[c]), then), n)``."""
     d = data.to(torch.int64) & MASK32
     k0, k1 = threefry2x32(int(key[0]), int(key[1]), torch.zeros_like(d), d)
+    if then is not None:
+        k0, k1 = threefry2x32(k0, k1, torch.zeros_like(d),
+                              torch.full_like(d, int(then) & MASK32))
     i = torch.arange(int(n), dtype=torch.int64, device=data.device)
     return _uniform_bits(k0[:, None], k1[:, None], i[None, :])
 

@@ -182,7 +182,7 @@ def test_reset_parameter_other_knob_reaches_the_next_tree():
     assert trees[0].num_leaves == 7 and trees[1].num_leaves == 3
     assert b._gbdt.split_params.lambda_l2 == 5.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.reset_parameter({"cegb_tradeoff": 0.5})
+        b.reset_parameter({"tree_learner": "data"})
 
 
 def test_feval_and_training_set_evaluation_match_jax():

@@ -35,6 +35,11 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 _REFUSED = [(name, item) for item, names in tconfig._REFUSED
             for name in names]
 _FIELDS = {f.name: f for f in dataclasses.fields(Config)}
+# the knobs the port refused with its breadth item until that item's
+# part 1.6 ported them (categorical features, CEGB)
+_PART_16 = ["min_data_per_group", "max_cat_threshold", "cat_l2",
+            "cat_smooth", "max_cat_to_onehot", "cegb_tradeoff",
+            "cegb_penalty_feature_lazy", "cegb_penalty_feature_coupled"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -109,7 +114,9 @@ def test_every_jax_knob_and_alias_is_known():
             "max_bin_by_feature", "forcedbins_filename",
             "saved_feature_importance_type", "finite_guard", "header",
             "label_column", "weight_column", "group_column",
-            "ignore_column", "two_round", "initscore_filename"}
+            "ignore_column", "two_round", "initscore_filename",
+            "interaction_constraints", "forcedsplits_filename",
+            "cegb_penalty_split", "categorical_feature"} | set(_PART_16)
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -136,22 +143,60 @@ def test_refused_knob_raises_with_its_item(name, item, capsys):
 
 
 def test_training_refuses_a_dropped_knob():
-    """train raises for a refused knob on the Booster's params, and a
-    Dataset with categorical features is refused before it bins (the
-    binning knobs it refused until part 1.7 bin now)."""
+    """train raises for a refused knob on the Booster's params; the knobs
+    refused until part 1.6 train (a lazy CEGB penalty of the wrong size
+    is fatal, as in the JAX package) and a Dataset with categorical
+    features bins (the binning knobs it refused until part 1.7 bin
+    too)."""
+    from lightgbmv1_tpu_torch.utils.log import LightGBMError
+
     rng = np.random.RandomState(0)
     X = rng.randn(300, 3)
     y = (X[:, 0] > 0).astype(float)
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
-    with pytest.raises(NotImplementedError,
-                       match="cegb_penalty_feature_lazy"):
-        train(dict(params, cegb_penalty_feature_lazy=[1.0, 0.5, 1.0]),
+    with pytest.raises(NotImplementedError, match="pred_early_stop"):
+        train(dict(params, pred_early_stop=True), Dataset(X, label=y), 2,
+              device="cpu")
+    with pytest.raises(LightGBMError, match="cegb_penalty_feature_lazy"):
+        train(dict(params, cegb_penalty_feature_lazy=[1.0, 0.5]),
               Dataset(X, label=y), 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="categorical features"):
-        Dataset(X, label=y, categorical_feature=[0])
+    assert train(dict(params, cegb_penalty_feature_lazy=[.01, .005, .01]),
+                 Dataset(X, label=y), 2, device="cpu").num_trees() == 2
+    Xc = np.column_stack([rng.randint(0, 5, 300), X[:, 1:]])
+    assert Dataset(Xc, label=y, categorical_feature=[0]).construct() \
+        ._binned.bin_mappers[0].bin_2_categorical != []
     ds = Dataset(X, label=y, params={"max_bin_by_feature": [15, 15, 15]}
                  ).construct()
     assert int(ds._binned.num_bins.max()) <= 15
+
+
+@pytest.fixture
+def _keep_verbosity():
+    """A training at verbosity -1 silences the module-wide log level; put
+    it back for the tests after."""
+    from lightgbmv1_tpu_torch.utils import log
+
+    saved = log._level
+    yield
+    log._level = saved
+
+
+@pytest.mark.parametrize("name", _PART_16)
+def test_part_16_knob_trains(name, _keep_verbosity):
+    """A knob refused until part 1.6 is a field the port runs now: no
+    refusal, and two iterations train on categorical data (column 0)."""
+    value = _other_value(name)
+    if name.startswith("cegb_penalty_feature"):
+        value = [0.005, 0.0025, 0.01]
+    cfg = Config.from_dict({"objective": "binary", name: value})
+    assert unported_reason(cfg) is None
+    rng = np.random.RandomState(1)
+    X = np.column_stack([rng.randint(0, 9, 400), rng.randn(400, 2)])
+    y = (np.isin(X[:, 0], [1, 4, 6]) ^ (X[:, 1] > 1)).astype(float)
+    b = train({"objective": "binary", "num_leaves": 7, "verbosity": -1,
+               "min_data_per_group": 10, name: value},
+              Dataset(X, label=y, categorical_feature=[0]), 2, device="cpu")
+    assert b.num_trees() == 2 and np.isfinite(b.predict(X)).all()
 
 
 def test_unknown_name_warns(capsys):

@@ -458,6 +458,9 @@ def test_fused_round_legs_equal_the_staged_scan():
                                  parent_output=t(r["pout"]))
     got = tsplit.unpack_children(ptab, r["B"])
     for name in res._fields:
+        if getattr(res, name) is None:      # no categorical feature
+            assert getattr(got, name) is None, name
+            continue
         assert torch.equal(getattr(got, name), getattr(res, name)), name
 
 
@@ -743,3 +746,340 @@ def test_looped_monotone_is_refused():
             r"bounds between rounds outside the kernel")):
         _text({"monotone_constraints": [1, 0, 0, 0, 0, 0, 0, 0],
                "hist_method": "fused", "wave_loop_rounds": 4})
+
+
+# ---------------------------------------------------------------------------
+# interaction constraints, CEGB and forced splits (item 1, part 1.6)
+#
+# Trainings against the JAX package's: structures identical, leaves within
+# 2e-5, raw predictions within 1.5e-5.  The sequential grower's runs give
+# the port the JAX sequential grower's root sums (rows folded in row
+# order, JAX grower.py:259-268; the port sums in the device's order), as
+# tests/test_torch_categorical.py does.
+# ---------------------------------------------------------------------------
+
+import json  # noqa: E402
+
+import scipy.sparse as sp  # noqa: E402
+
+from lightgbmv1_tpu.models import grower as jgrower  # noqa: E402
+from lightgbmv1_tpu.parallel import trainer as jtrainer  # noqa: E402
+
+from lightgbmv1_tpu_torch.models import grower as tgrower  # noqa: E402
+from lightgbmv1_tpu_torch.parallel import trainer as ttrainer  # noqa: E402
+from lightgbmv1_tpu_torch.utils.log import LightGBMError  # noqa: E402
+
+_P16 = {"objective": "binary", "num_leaves": 15, "min_data_in_leaf": 20,
+        "verbosity": -1, "hist_dtype": "f32", "learning_rate": 0.2}
+
+
+def _p16_data(n=3000, seed=3):
+    rng = np.random.RandomState(seed)
+    X = rng.randn(n, 6)
+    logit = (X[:, 0] - X[:, 1] + 0.5 * X[:, 2] * X[:, 3] + 0.3 * X[:, 4]
+             + 0.2 * X[:, 5])
+    y = (rng.rand(n) < 1 / (1 + np.exp(-logit))).astype(float)
+    return X, y
+
+
+def _row_order_root_sums(g3):
+    return torch.zeros((1, 3), dtype=g3.dtype).index_add_(
+        0, torch.zeros(g3.shape[0], dtype=torch.int64), g3)[0]
+
+
+def _p16_train(growth, extra, n_iter=4, X=None, y=None):
+    if X is None:
+        X, y = _p16_data()
+    p = dict(_P16, tree_growth=growth, **extra)
+    if growth == "leafwise":
+        p.setdefault("leafwise_wave_size", 4)
+    jb = lj.train(p, lj.Dataset(X, label=y), n_iter, verbose_eval=False)
+    # CEGB and forced splits send leaf-wise growth to the sequential grower
+    sequential = growth in ("leafwise_serial", "leafwise_masked") or (
+        growth == "leafwise" and any(k.startswith("cegb") or
+                                     k == "forcedsplits_filename"
+                                     for k in extra))
+    saved = tgrower.root_sums
+    if sequential:
+        tgrower.root_sums = _row_order_root_sums
+    try:
+        tb = lt.train(p, lt.Dataset(X, label=y), n_iter, device="cpu")
+    finally:
+        tgrower.root_sums = saved
+    jtrees = jax.device_get(jb._gbdt._device_trees)
+    assert len(jtrees) == len(tb._gbdt._device_trees)
+    for jt, tt in zip(jtrees, tb._gbdt._device_trees):
+        c = tree_arrays_from_numpy(jt._asdict())
+        n = int(c.num_leaves)
+        assert n == int(tt.num_leaves) > 1
+        for f in ("split_feature", "threshold_bin", "default_left",
+                  "left_child", "right_child"):
+            assert torch.equal(getattr(c, f)[:n - 1],
+                               getattr(tt, f)[:n - 1]), f
+        np.testing.assert_allclose(tt.leaf_value[:n].numpy(),
+                                   c.leaf_value[:n].numpy(), rtol=0,
+                                   atol=2e-5)
+    np.testing.assert_allclose(tb.predict(X, raw_score=True),
+                               jb.predict(X, raw_score=True), rtol=0,
+                               atol=1.5e-5)
+    return jb, tb
+
+
+def _paths(tree):
+    """Each leaf's set of split features along its root path."""
+    out = []
+
+    def walk(node, feats):
+        if node < 0:
+            out.append(feats)
+            return
+        f = feats | {int(tree.split_feature[node])}
+        walk(int(tree.left_child[node]), f)
+        walk(int(tree.right_child[node]), f)
+
+    if tree.num_leaves > 1:
+        walk(0, frozenset())
+    return out
+
+
+_GROUPS = "[0,1],[2,3,4]"
+
+
+@pytest.mark.parametrize("growth,extra", [
+    ("leafwise", {}), ("leafwise_serial", {}), ("levelwise", {}),
+    ("leafwise", {"hist_method": "fused"})],
+    ids=["wave", "sequential", "levelwise", "fused"])
+def test_interaction_constraints_training_matches_jax(growth, extra):
+    """Interaction constraints on each grower (the fused round through its
+    per-child mask): the JAX package's trees, and every root-to-leaf path
+    inside one group (feature 5 in none: never split on)."""
+    jb, tb = _p16_train(growth, dict(extra,
+                                     interaction_constraints=_GROUPS))
+    groups = [{0, 1}, {2, 3, 4}]
+    for t in tb._all_trees():
+        for path in _paths(t):
+            assert any(path <= g for g in groups), path
+
+
+def test_interaction_helpers_match_jax():
+    """``parse_interaction_constraints`` and ``allowed_features_for``
+    (JAX trainer.py:174, grower.py:127) on the same specs and branch
+    features."""
+    for spec in ("[0,1],[2,3,4]", "[1, 2] , [2,9]", "", "[5]"):
+        jg = jtrainer.parse_interaction_constraints(spec, 6)
+        tg = ttrainer.parse_interaction_constraints(spec, 6)
+        if jg is None:
+            assert tg is None
+            continue
+        np.testing.assert_array_equal(tg, jg)
+        rng = np.random.RandomState(1)
+        used = rng.rand(8, 6) < 0.3
+        got = tgrower.allowed_features_for(torch.as_tensor(tg),
+                                           torch.as_tensor(used))
+        want = np.stack([np.asarray(jgrower.allowed_features_for(
+            jnp.asarray(jg), jnp.asarray(u))) for u in used])
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_looped_interaction_constraints_are_refused():
+    """The persistent loop refuses interaction constraints with the JAX
+    reason (JAX trainer.py:662-665)."""
+    X, y = _p16_data(1000)
+    with pytest.raises(NotImplementedError,
+                       match="interaction constraints re-mask features "
+                             "per split"):
+        lt.train(dict(_P16, hist_method="fused", wave_loop_rounds=2,
+                      interaction_constraints=_GROUPS),
+                 lt.Dataset(X, label=y), 1, device="cpu")
+
+
+_CEGB = {
+    "split": ("leafwise", {"cegb_penalty_split": 0.004}),
+    "coupled": ("leafwise", {"cegb_penalty_feature_coupled":
+                             [1.0, 2.0, 3.0, 0.0, 0.0, 5.0],
+                             "cegb_tradeoff": 2.0}),
+    "lazy": ("leafwise", {"cegb_penalty_feature_lazy":
+                          [0.01, 0.02, 0.0, 0.0, 0.05, 0.1],
+                          "cegb_penalty_split": 0.001}),
+    "all": ("leafwise", {"cegb_penalty_split": 0.002,
+                         "cegb_penalty_feature_coupled":
+                         [1.0, 0.5, 0.0, 2.0, 0.0, 1.0],
+                         "cegb_penalty_feature_lazy":
+                         [0.01, 0.0, 0.02, 0.0, 0.05, 0.0]}),
+    "levelwise": ("levelwise", {"cegb_penalty_split": 0.002,
+                                "cegb_penalty_feature_coupled":
+                                [1.0, 2.0, 3.0, 0.0, 0.0, 5.0]}),
+}
+
+
+@pytest.mark.parametrize("name", list(_CEGB))
+def test_cegb_training_matches_jax(name):
+    """CEGB (split, coupled and lazy penalties): leaf-wise growth routes to
+    the sequential grower (the lazy penalty to its masked variant), the
+    model's used features and the lazy row marks carry across trees; the
+    JAX package's trees each time, and a model other than the plain
+    one."""
+    growth, extra = _CEGB[name]
+    seen = []
+    real = tgrower.make_leafwise_grower
+
+    def spy(**kw):
+        seen.append(kw.get("partition"))
+        return real(**kw)
+
+    ttrainer.make_leafwise_grower = spy
+    try:
+        jb, tb = _p16_train(growth, extra)
+    finally:
+        ttrainer.make_leafwise_grower = real
+    if growth == "leafwise":
+        assert seen == [("cegb_penalty_feature_lazy" not in extra)]
+    X, y = _p16_data()
+    plain = lt.train(dict(_P16, tree_growth=growth), lt.Dataset(X, label=y),
+                     4, device="cpu")
+    assert plain.model_to_string() != tb.model_to_string()
+    g = tb._gbdt
+    used = set()
+    for t in tb._all_trees():
+        used |= set(t.split_feature[:t.num_leaves - 1].tolist())
+    assert set(np.flatnonzero(g._cegb_used.numpy()).tolist()) == used
+
+
+def test_cegb_sizes_and_levelwise_lazy(capsys):
+    """A CEGB feature penalty of the wrong size is fatal; the level-wise
+    grower drops the lazy penalty with the JAX warning."""
+    X, y = _p16_data(600)
+    for knob in ("cegb_penalty_feature_lazy",
+                 "cegb_penalty_feature_coupled"):
+        with pytest.raises(LightGBMError, match=knob + " should be the "
+                           "same size as feature number"):
+            lt.train(dict(_P16, **{knob: [1.0, 2.0]}),
+                     lt.Dataset(X, label=y), 1, device="cpu")
+    from lightgbmv1_tpu_torch.utils import log
+
+    saved = log._level
+    try:
+        lt.train(dict(_P16, tree_growth="levelwise", verbosity=0,
+                      cegb_penalty_feature_lazy=[0.01] * 6),
+                 lt.Dataset(X, label=y), 1, device="cpu")
+    finally:
+        log._level = saved
+    assert "lazy feature costs are ignored" in capsys.readouterr().err
+
+
+def _forced_file(tmp_path, spec):
+    path = tmp_path / "forced.json"
+    path.write_text(json.dumps(spec))
+    return str(path)
+
+
+_FORCED = {"feature": 2, "threshold": 0.1,
+           "left": {"feature": 3, "threshold": -0.2},
+           "right": {"feature": 0, "threshold": 0.5,
+                     "right": {"feature": 5, "threshold": 0.3}}}
+
+
+@pytest.mark.parametrize("growth", ["leafwise", "leafwise_serial",
+                                    "levelwise"])
+def test_forced_splits_training_matches_jax(growth, tmp_path):
+    """Forced splits (leaf-wise growth routes to the sequential grower):
+    the JAX package's trees, and each tree's top splits the forced ones
+    in BFS order."""
+    path = _forced_file(tmp_path, _FORCED)
+    jb, tb = _p16_train(growth, {"forcedsplits_filename": path})
+    for t in tb._all_trees():
+        assert int(t.split_feature[0]) == 2
+    steps = ttrainer.parse_forced_splits(
+        path, tb._gbdt.train_set.bin_mappers, 15)
+    jsteps = jtrainer.parse_forced_splits(
+        path, jb._gbdt.train_set.bin_mappers, 15)
+    np.testing.assert_array_equal(steps, jsteps)
+    assert steps.shape == (4, 6)
+
+
+def test_forced_split_with_an_empty_child_is_skipped(tmp_path):
+    """A forced step whose child would be empty is skipped, and so are the
+    steps below it (JAX grower.py:481-504): the JAX trees on the
+    sequential and level-wise growers."""
+    spec = {"feature": 1, "threshold": 40.0,          # every row left
+            "right": {"feature": 0, "threshold": 0.0},
+            "left": {"feature": 4, "threshold": -0.3}}
+    path = _forced_file(tmp_path, spec)
+    for growth in ("leafwise_serial", "levelwise"):
+        _, tb = _p16_train(growth, {"forcedsplits_filename": path}, 2)
+        steps = ttrainer.parse_forced_splits(
+            path, tb._gbdt.train_set.bin_mappers, 15)
+        for t in tb._all_trees():
+            n = t.num_leaves - 1
+            # no node splits at the forced step's bin of feature 1
+            assert not ((t.split_feature[:n] == 1)
+                        & (t.threshold_bin[:n] == steps[0, 3])).any()
+
+
+def test_forced_split_stats_match_jax():
+    """``forced_split_stats`` on a leaf's histogram (NaN, zero-as-missing
+    and no missing type; both default directions)."""
+    from lightgbmv1_tpu.ops.split import SplitParams as JP
+
+    rng = np.random.RandomState(4)
+    B = 16
+    hf = rng.rand(B, 3).astype(np.float32)
+    hf[:, 0] -= 0.5
+    ps = hf.sum(0)
+    for mt, nanb, zb in ((0, -1, 3), (1, -1, 5), (2, B - 1, 2)):
+        jm = jsplit.FeatureMeta(
+            num_bins=jnp.full(1, B, jnp.int32),
+            missing_type=jnp.full(1, mt, jnp.int32),
+            nan_bin=jnp.full(1, nanb, jnp.int32),
+            zero_bin=jnp.full(1, zb, jnp.int32),
+            is_categorical=jnp.zeros(1, bool), usable=jnp.ones(1, bool),
+            monotone_type=jnp.zeros(1, jnp.int32))
+        tm = tsplit.with_tables(tsplit.FeatureMeta(
+            num_bins=torch.full((1,), B), missing_type=torch.full((1,), mt),
+            nan_bin=torch.full((1,), nanb), zero_bin=torch.full((1,), zb),
+            usable=torch.ones(1, dtype=torch.bool)))
+        for fbin in (1, 7):
+            for fdl in (False, True):
+                jl, jr, jg = jgrower.forced_split_stats(
+                    jnp.asarray(hf), jnp.asarray(ps), 0, fbin, fdl, jm,
+                    JP(lambda_l2=1.0))
+                tl, tr, tg = tgrower.forced_split_stats(
+                    torch.as_tensor(hf), torch.as_tensor(ps), 0, fbin, fdl,
+                    tm, tsplit.SplitParams(lambda_l2=1.0))
+                np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
+                                           rtol=1e-6, atol=1e-6)
+                np.testing.assert_allclose(tr.numpy(), np.asarray(jr),
+                                           rtol=1e-6, atol=1e-6)
+                np.testing.assert_allclose(float(tg), float(jg), rtol=1e-5,
+                                           atol=1e-6)
+
+
+def test_forced_splits_disable_efb(tmp_path, capsys):
+    """Under forced splits EFB is disabled with the JAX warning on dense
+    data and is fatal on a bundled sparse set (JAX gbdt.py:113-123)."""
+    rng = np.random.RandomState(0)
+    n = 2000
+    X = np.zeros((n, 10))
+    which = rng.randint(0, 8, n)
+    X[np.arange(n), which] = rng.rand(n) + 0.5
+    X[:, 8:] = rng.randn(n, 2)
+    y = (X[:, 8] + (which % 2) > 0.5).astype(float)
+    path = _forced_file(tmp_path, {"feature": 8, "threshold": 0.0})
+    from lightgbmv1_tpu_torch.utils import log
+
+    saved = log._level
+    try:
+        p = dict(_P16, forcedsplits_filename=path, verbosity=0)
+        ds = lt.Dataset(X, label=y, params=p)
+        assert ds.construct()._binned.bundle_layout is not None
+        b = lt.train(p, ds, 2, device="cpu")
+    finally:
+        log._level = saved
+    assert "EFB disabled" in capsys.readouterr().err
+    assert b._gbdt._bundle is None
+    assert int(b._all_trees()[0].split_feature[0]) == 8
+    dcs = lt.Dataset(sp.csr_matrix(X), label=y, params=p)
+    assert dcs.construct()._binned.binned is None
+    with pytest.raises(LightGBMError, match="forced splits do not support "
+                       "EFB-bundled sparse datasets"):
+        lt.train(dict(p, verbosity=-1), dcs, 1, device="cpu")

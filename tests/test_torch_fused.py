@@ -334,6 +334,8 @@ def test_fused_round_is_the_staged_composition(shape, precision):
     got = twf.unpack_children(ptab, B)
     for name in res._fields:
         a, b = getattr(got, name), getattr(res, name)
+        if a is None and b is None:     # no categorical feature
+            continue
         assert a.dtype == b.dtype, name
         assert torch.equal(a, b), name
     np.testing.assert_array_equal(nleaf.numpy(), r["want_leaf"])
@@ -483,6 +485,9 @@ def test_pack_unpack_roundtrip():
         right_sum=torch.from_numpy(rng.randn(C, 3).astype(np.float32)))
     back = twf.unpack_children(twf.pack_children(res), 64)
     for name in res._fields:
+        if getattr(res, name) is None:      # no categorical feature
+            assert getattr(back, name) is None, name
+            continue
         assert torch.equal(getattr(back, name), getattr(res, name)), name
     assert twf.pack_children(res).shape == (C, twf.PACK_COLS)
 

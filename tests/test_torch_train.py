@@ -392,17 +392,46 @@ def test_golden_zero_as_missing_training_parity():
 _UNPORTED_CASES = [
     ({"snapshot_freq": 5}, tconfig.CLI),
     ({"task": "refit"}, tconfig.CLI),
-    ({"min_data_per_group": 50}, tconfig.BREADTH),
     ({"input_model": "model.txt"}, tconfig.CLI),
-    ({"cat_smooth": 5.0}, tconfig.BREADTH),
-    ({"max_cat_to_onehot": 8}, tconfig.BREADTH),
-    ({"tree_learner": "data"}, tconfig.PARALLEL),
-    ({"forcedsplits_filename": "forced.json"}, tconfig.BREADTH),
-    ({"cegb_penalty_feature_lazy": [0.5] * 6}, tconfig.BREADTH),
-    ({"cegb_tradeoff": 0.5}, tconfig.BREADTH),
-    ({"interaction_constraints": "[0,1]"}, tconfig.BREADTH),
-    ({"cegb_penalty_split": 0.1}, tconfig.BREADTH),
-    ({"categorical_feature": "0"}, tconfig.BREADTH)]
+    ({"tree_learner": "data"}, tconfig.PARALLEL)]
+
+
+# the constraint, penalty and categorical knobs the list above refused
+# until item 1's part 1.6 ported them: they train now, each a model other
+# than the default one (test_torch_categorical.py and
+# test_torch_constraints.py hold them to the JAX package)
+_PART_16_CASES = [
+    {"min_data_per_group": 50, "categorical_feature": "0"},
+    {"cat_smooth": 5.0, "categorical_feature": "0"},
+    {"max_cat_to_onehot": 8, "categorical_feature": "0"},
+    {"forcedsplits_filename": "forced.json"},
+    {"cegb_penalty_feature_lazy": [0.001] * 6},
+    {"cegb_tradeoff": 0.5, "cegb_penalty_split": 0.01},
+    {"interaction_constraints": "[0,1]"},
+    {"cegb_penalty_split": 0.1},
+    {"categorical_feature": "0"}]
+
+
+@pytest.mark.parametrize("params", _PART_16_CASES, ids=[
+    "min_data_per_group", "cat_smooth", "max_cat_to_onehot", "forced",
+    "cegb_lazy", "cegb_tradeoff", "interaction", "cegb_split",
+    "categorical"])
+def test_constraint_and_categorical_configurations_train(params, tmp_path):
+    """Two iterations on the CPU with finite predictions (the
+    ``categorical_feature`` knob bins column 0 as categorical, as the
+    JAX CLI reads it); a forced split's file is made here."""
+    X, y = _data(13, 512)
+    X[:, 0] = np.floor(np.abs(X[:, 0]) * 4)        # categories 0..~12
+    p = {**BASE, "num_leaves": 15, **params}
+    if "forcedsplits_filename" in p:
+        path = tmp_path / "forced.json"
+        path.write_text('{"feature": 1, "threshold": 0.0}')
+        p["forcedsplits_filename"] = str(path)
+    b = lt.train(p, lt.Dataset(X, label=y), 2, device="cpu")
+    assert np.isfinite(b.predict(X)).all() and b.num_trees() == 2
+    plain = lt.train({**BASE, "num_leaves": 15}, lt.Dataset(X, label=y), 2,
+                     device="cpu")
+    assert b.model_to_string() != plain.model_to_string()
 
 
 @pytest.mark.parametrize("params,item", _UNPORTED_CASES, ids=[
@@ -528,8 +557,9 @@ def test_unported_entry_points_raise():
 
     assert lt.train(BASE, lt.Dataset(X, label=y), 2, device="cpu",
                     fobj=l2).num_trees() == 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        lt.Dataset(X, label=y, categorical_feature=[0])
+    # ported since: categorical features (test_torch_categorical.py)
+    assert lt.Dataset(X, label=y, categorical_feature=[0]).construct() \
+        ._binned.is_categorical.tolist() == [True] + [False] * (F - 1)
     # ported since: a data file loads (test_torch_parser.py); a missing
     # one is fatal
     with pytest.raises(lt.LightGBMError, match="does not exist"):
@@ -585,8 +615,12 @@ def test_config_aliases_and_carry_errors():
         Config.from_dict({"hist_method": "nope"})
     with pytest.raises(ValueError):
         bin_mappers_from_numpy([{"num_bin": 3}])
-    with pytest.raises(NotImplementedError):
-        bin_mappers_from_numpy([dict(bin_upper_bound=[np.inf], num_bin=3,
-                                     missing_type=0, bin_type=1,
-                                     is_trivial=False, sparse_rate=0.0,
-                                     min_value=0.0, max_value=1.0)])
+    cat = dict(bin_upper_bound=[np.inf], num_bin=3, missing_type=0,
+               bin_type=1, is_trivial=False, sparse_rate=0.0, min_value=0.0,
+               max_value=1.0)
+    # a categorical mapper carries its categories (ported since part 1.6)
+    with pytest.raises(ValueError, match="bin_2_categorical"):
+        bin_mappers_from_numpy([cat])
+    m = bin_mappers_from_numpy([dict(cat, bin_2_categorical=[4, 1])])[0]
+    assert m.value_to_bin(np.array([1.0, 4.7, 9.0, np.nan])).tolist() \
+        == [1, 0, 2, 2]
