@@ -413,19 +413,19 @@ Phases (any failure exits non-zero with no ``ok`` line):
               JAX rule's on the recorded metrics, predict and
               model_to_string defaulting to it, each tree's rate the
               schedule's, the trees not a constant rate's.
-41. onehot, bench, int16 — staged onehot training (bf16x2, 50
-              iterations): AUC > 0.90, the one-hot histograms of the
+41. onehot, bench, int16 — staged onehot training (bf16x2, 20
+              iterations): AUC > ONEHOT_AUC_MIN, the one-hot histograms of the
               path's last inputs within the scatter's and K1's
               tolerance, their time beside K1's (a torch.matmul path, not
               a kernel); hist_method=bench's pick trains the text of that
               method chosen directly, the candidates' times printed;
               phase 8's rows at max_bin=511 (int16 bins, binning time),
-              50 staged iterations through onehot, the wide scan and
-              K3's 16-bit leg: AUC > 0.90, K3 launches = trees x valid
-              sets, hist_method=fused raising the JAX reason, f32 card
-              against CPU splits identical at 65,536 rows.
+              20 staged iterations through onehot, the wide scan and
+              K3's 16-bit leg: AUC > ONEHOT_AUC_MIN, K3 launches = trees
+              x valid sets, hist_method=fused raising the JAX reason, f32
+              card against CPU splits identical at 65,536 rows.
 42. boosting — GOSS (defaults), DART (drop_rate 0.1) and RF (bagging
-              0.63 every iteration) at the headline, 30 iterations each
+              0.63 every iteration) at the headline, 25 iterations each
               (bench.py:2783-2821's knobs), staged and fused, GOSS also
               looped (all three at hist_dtype_deep=bf16x2): each mode's
               staged, fused (and looped) model texts one, a second staged
@@ -475,6 +475,31 @@ Phases (any failure exits non-zero with no ``ok`` line):
               path's last routing (L2 cleared) beside its u8 leg and its
               bound, K1 at its last 64-slot call beside the unbundled
               matrix.
+46-48.        the categorical, CEGB and bitset legs against their plain
+              versions; categorical training at the headline width;
+              interaction constraints, CEGB and forced splits.
+49. native    — phase 3's model through ``predict_method=native`` (the
+              threaded C++ walk, ``native/predictor.cpp``) at 131,072
+              rows: bitwise the host walk on 2,048 rows, ``auto`` taking
+              it, within the serving tolerance of K4 on the same rows
+              (launched); rows/s of each with the host's threads; the
+              native csv parser bit for bit the Python one on 262,144
+              rows of phase 8's generator, seconds of each.
+50. CLI       — ``cli.main`` in process on the card: ``task=train`` on
+              that csv with a 65,536-row ``valid=`` file at the headline
+              width, 10 iterations (K1 launched, K3 once a tree, a text
+              that loads; s/iteration beside phase 10's),
+              ``task=predict`` with ``predict_method=fused`` (K4, the
+              file equal to ``Booster.predict``), ``task=convert_model``
+              compiled by g++ (raw scores within 1e-12 on 1,000 rows),
+              ``task=refit`` (K5, structures kept), an
+              ``LGBMClassifier`` fit whose ``predict_proba`` is its
+              booster's.
+51. TreeSHAP  — ``pred_contrib`` on 32 rows of phase 10's 50-tree model,
+              each row summing to its raw score within 1e-9 (ms a row and
+              tree); ``pred_early_stop`` (freq 5, margin 4) on the valid
+              rows: the rows that stopped early, seconds beside the full
+              host walk.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
               kernels, the split-scan kernel, the pick kernel, the
               split scan's extra_trees and wide legs, K3's 16-bit and
@@ -509,6 +534,7 @@ import numpy as np
 import torch
 
 from lightgbmv1_tpu_torch import Booster, Dataset, objectives, train
+from lightgbmv1_tpu_torch import native as native_mod
 from lightgbmv1_tpu_torch.config import Config
 from lightgbmv1_tpu_torch.io import bundle as bundle_mod
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
@@ -916,7 +942,8 @@ def phase_bulk(booster, trees, n_rows, rng) -> dict:
     # the numpy HostTree oracle on a subset
     n_sub = min(4096, n_rows)
     sub = X[:n_sub]
-    host_raw = booster.predict(sub, raw_score=True)        # host walk, f64
+    host_raw = booster.predict(sub, raw_score=True,        # host walk, f64
+                               predict_method="host")
     host_leaf = np.stack([t.predict_leaf_index(sub) for t in trees], axis=1)
     check(np.array_equal(leaf[:n_sub], host_leaf), "fused leaf ids != host")
     tol = raw_tol(trees)
@@ -1552,13 +1579,15 @@ def max_abs_leaf(booster) -> float:
 # arguments writes, since the int8 legs' chunk count moved the int8 ones
 # (lightgbmv1_tpu_torch/PERF.md §6): a kernel change that claims the same
 # bits must keep every one.  main() gates on them at its defaults only.
+# level-wise, multiclass, lambdarank, onehot, int16 and GOSS / DART / RF
+# at the depths cut to make room for phases 49-51
 TEXT_SHA = {
     "staged": "2f70fd68", "fused": "2f70fd68", "looped": "ab555744",
     **{f"int8sr {p}": "9cb41f19" for p in ("staged", "fused", "looped")},
     "packed staged": "2d313420", "packed fused": "3879b939",
     "packed looped": "cd0e138f", "regression": "edfe5496",
-    "levelwise": "c8964080", "multiclass": "897fdf12",
-    "lambdarank": "bbde5513",
+    "levelwise": "b1101a6f", "multiclass": "733e6092",
+    "lambdarank": "1ef35dfc",
     **{f"basic {p}": "466d723f" for p in ("staged", "fused")},
     **{f"intermediate {p}": "a97a6b24" for p in ("staged", "fused")},
     **{f"contri+smooth+max_output {p}": "94cb7dfb"
@@ -1568,10 +1597,10 @@ TEXT_SHA = {
     **{f"sampled {p}": "394caec2" for p in ("staged", "fused")},
     **{f"sampled bag+tree {p}": "bba170e4" for p in ("fused", "looped")},
     "extra_trees staged": "63a2d740", "callbacks staged": "e3d3bfd1",
-    "onehot staged": "9016f2fc", "int16 staged": "7bef7e87",
-    **{f"goss {p}": "0a206962" for p in ("staged", "fused", "looped")},
-    **{f"dart {p}": "6599e374" for p in ("staged", "fused")},
-    **{f"rf {p}": "bb38f107" for p in ("staged", "fused")},
+    "onehot staged": "f3bbcb82", "int16 staged": "b7be91ea",
+    **{f"goss {p}": "daba829f" for p in ("staged", "fused", "looped")},
+    **{f"dart {p}": "8c90c892" for p in ("staged", "fused")},
+    **{f"rf {p}": "70a813ce" for p in ("staged", "fused")},
     "regression_l1": "d32a0fd3", "huber": "d32c0780", "fair": "1ecd415e",
     "quantile": "f783914f", "mape": "48f80f3d", "poisson": "2cc91b29",
     "gamma": "617c5fde", "tweedie": "7f993b1b", "cross_entropy": "a49356e5",
@@ -5653,12 +5682,16 @@ def lr_schedule(i: int) -> float:
 
 
 ONEHOT_PARAMS = dict(TRAIN_PARAMS, hist_method="onehot")
-ONEHOT_ITERS = 50
+ONEHOT_ITERS = 20
 INT16_PARAMS = dict(TRAIN_PARAMS, max_bin=511)
-# 50 iterations, as phase 10: the headline's valid AUC passes the 0.90
-# gate only past about 30 (0.8884 / 0.8937 / 0.8969 after 10 / 20 / 25 at
-# max_bin 63, the port on the CPU)
-INT16_ITERS = 50
+# 20 iterations (50 until phases 49-51 needed the room): the headline's
+# valid AUC passes 0.90 only past about 30 (0.8884 / 0.8937 / 0.8969 after
+# 10 / 20 / 25 at max_bin 63, the port on the CPU), so these two gate
+# their AUC at 20 iterations: the card reads 0.89394 (onehot) and 0.89398
+# (int16) there, and the gate keeps the 0.009 margin the 0.90 gate kept
+# below phase 10's 0.908 at 50
+INT16_ITERS = 20
+ONEHOT_AUC_MIN = 0.885
 # the one-hot product against K1 at bf16x2 / bf16: the same rounded parts
 # summed in other orders (k1_tol); against the scatter of the f32 rows also
 # the parts' rounding, 2^-16 of a cell's absolute sum at bf16x2 (hi + lo
@@ -6137,7 +6170,8 @@ def phase_onehot_bench_int16(ds, dv, Xv, X, y, dev, seed, k1_s_per_iter
     log(f"  onehot staged: {ONEHOT_ITERS} iterations, {secs / ONEHOT_ITERS:.4f}"
         f" s/iter (K1's staged {k1_s_per_iter:.4f} s/iter, phase 10); valid "
         f"AUC {auc:.5f}")
-    check(auc > 0.90, f"onehot: valid AUC {auc} <= 0.90")
+    check(auc > ONEHOT_AUC_MIN,
+          f"onehot: valid AUC {auc} <= {ONEHOT_AUC_MIN}")
     checks, timing = [], []
     for (L, prec), (b, g3, lid, B, live) in sorted(orec.last.items()):
         checks.append(check_onehot(f"L={L} {prec}", b, g3, lid, L, B, prec,
@@ -6202,7 +6236,8 @@ def phase_onehot_bench_int16(ds, dv, Xv, X, y, dev, seed, k1_s_per_iter
     check(hg.matmul_counts["hist_leaves_onehot"] > 0 and not counts["k1"]
           and not any(plain.values()),
           f"int16: K1 {counts['k1']}, plain calls {plain}")
-    check(auc > 0.90, f"int16: valid AUC {auc} <= 0.90")
+    check(auc > ONEHOT_AUC_MIN,
+          f"int16: valid AUC {auc} <= {ONEHOT_AUC_MIN}")
     try:
         train(dict(INT16_PARAMS, hist_method="fused"), d16, 1, **_on(dev))
         check(False, "int16: hist_method=fused trained")
@@ -6293,7 +6328,7 @@ def new_leg_rows(legs: dict, extra: dict, int16: dict) -> list:
 # GOSS, DART and RF (phase 42); the other objectives (phase 43)
 # ---------------------------------------------------------------------------
 
-BOOST_ITERS = 30
+BOOST_ITERS = 25           # 30 until phases 49-51 needed the room
 # bench.py:2783-2821's knobs on the headline configuration; every run at
 # hist_dtype_deep=bf16x2, the looped path's precision (LOOP_PARAMS)
 BOOST_MODES = (
@@ -7681,6 +7716,318 @@ def cegb_timing(last: dict, rng, checks: list) -> list:
 
 
 
+# phases 49-51: the host prediction paths and the CLI
+NATIVE_ROWS = 131072        # phase 49's bulk rows (phase 4's chunk shape)
+PARSE_ROWS = 262144         # phase 49's csv of phase 8's generator
+HOST_ROWS = 2048            # the host walk's subset, bitwise the native
+CLI_VALID_ROWS = 32768      # phase 50's valid file and sklearn fit
+CLI_ITERS = 10
+CONVERT_ROWS = 1000
+CONTRIB_ROWS = 32           # TreeSHAP is a host loop a row and tree
+ES_FREQ, ES_MARGIN = 5, 4.0
+ES_ROWS = 32768
+
+
+def threads() -> int:
+    """The cores this process may run on (the native walk's threads)."""
+    return len(os.sched_getaffinity(0))
+
+
+def write_csv(path, X, y) -> float:
+    """A label-first csv with a header line; returns the seconds."""
+    t0 = time.perf_counter()
+    np.savetxt(path, np.column_stack([y, X]), delimiter=",", fmt="%.9g",
+               header=",".join(["label"] + [f"f{j}" for j in
+                                            range(X.shape[1])]),
+               comments="")
+    return time.perf_counter() - t0
+
+
+def phase_native(booster, trees, bulk, n_bulk, rng, seed) -> dict:
+    """Phase 49: the native C++ walk (``predict_method=native``) on phase
+    3's model at NATIVE_ROWS rows: its pack built once (cached), bitwise
+    the host walk in float64 on HOST_ROWS rows, ``auto`` taking it at
+    rows x trees >= ``_NATIVE_PREDICT_MIN_WORK``, within the serving
+    tolerance of K4's raw scores on the same rows (launch counts reset:
+    K4 launched); rows/s beside K4's here and phase 5's, the pack's build
+    timed apart (a one-row call).  Then the native
+    parser against the Python parser on a PARSE_ROWS-row csv of phase 8's
+    generator: equal bit for bit (NaN-aware), seconds of each."""
+    from lightgbmv1_tpu_torch import basic as basic_mod
+    from lightgbmv1_tpu_torch.io.parser import _parse_dense
+    from lightgbmv1_tpu_torch.native import parse_dense_file
+
+    out = {"threads": threads()}
+    X = make_rows(rng, NATIVE_ROWS)
+    t0 = time.perf_counter()
+    first = booster.predict(X[:1], predict_method="native", raw_score=True)
+    out["pack_s"] = time.perf_counter() - t0     # the pack, built once
+    t0 = time.perf_counter()
+    raw = booster.predict(X, predict_method="native", raw_score=True)
+    secs = time.perf_counter() - t0
+    out.update(seconds=secs, rows_per_s=NATIVE_ROWS / secs)
+    check(np.array_equal(first, raw[:1]), "native: two calls differ")
+    host = booster.predict(X[:HOST_ROWS], predict_method="host",
+                           raw_score=True)
+    check(np.array_equal(raw[:HOST_ROWS], host),
+          "native raw scores are not the host walk's bit for bit")
+    check(HOST_ROWS * len(trees) >= basic_mod._NATIVE_PREDICT_MIN_WORK,
+          "the subset is below the native threshold")
+    check(np.array_equal(booster.predict(X[:HOST_ROWS], raw_score=True),
+                         host), "auto: not the native walk's scores")
+    pc.reset_launch_counts()
+    t0 = time.perf_counter()
+    k4 = booster.predict(X, predict_method="fused", raw_score=True)
+    torch.cuda.synchronize()
+    k4_s = time.perf_counter() - t0
+    check(pc.launch_counts["serving_fused"] > 0, "fused: K4 not launched")
+    tol = raw_tol(trees)
+    e = float(np.abs(k4 - raw).max())
+    check(e <= tol, f"native vs K4: {e} > {tol}")
+    out.update(k4_seconds=k4_s, k4_rows_per_s=NATIVE_ROWS / k4_s,
+               k4_launches=pc.launch_counts["serving_fused"],
+               k4_max_abs_err=e,
+               phase5_k4_rows_per_s=bulk["fused"]["rows_per_s"])
+    log(f"  native: {NATIVE_ROWS} rows x {len(trees)} trees in {secs:.3f} s"
+        f" ({out['rows_per_s']:.0f} rows/s, {out['threads']} host threads;"
+        f" the pack {out['pack_s']:.3f} s); K4 fused "
+        f"on the same rows {k4_s:.3f} s ({out['k4_rows_per_s']:.0f} rows/s;"
+        f" phase 5 {out['phase5_k4_rows_per_s']:.0f} rows/s at "
+        f"{n_bulk} rows); bitwise the host walk on {HOST_ROWS} rows,"
+        f" auto the native walk, K4 within {e:.3e} (tol {tol:.3e})")
+
+    Xp, yp = make_data(PARSE_ROWS, seed)
+    path = os.path.join(_build.BUILD_DIR, "smoke_train.csv")
+    out["csv_write_s"] = write_csv(path, Xp, yp)
+    t0 = time.perf_counter()
+    native = parse_dense_file(path, True, ",")
+    out["native_parse_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path) as fh:
+        py = _parse_dense(fh.read().splitlines()[1:], ",")
+    out["python_parse_s"] = time.perf_counter() - t0
+    check(native is not None and native.shape == (PARSE_ROWS, F + 1),
+          f"native parse: {None if native is None else native.shape}")
+    check(np.array_equal(native, py, equal_nan=True),
+          "the native parser differs from the Python parser")
+    out["csv_bytes"] = os.path.getsize(path)
+    log(f"  parse of a {PARSE_ROWS}-row csv ({out['csv_bytes'] / 1e6:.1f} "
+        f"MB): native {out['native_parse_s']:.3f} s, Python "
+        f"{out['python_parse_s']:.3f} s, equal bit for bit (written in "
+        f"{out['csv_write_s']:.1f} s)")
+    return out, path, native
+
+
+def cli_run(args, lines) -> float:
+    """``cli.main(args)`` in process; its log lines into ``lines``;
+    returns the seconds."""
+    from lightgbmv1_tpu_torch import cli
+    from lightgbmv1_tpu_torch.utils.log import register_callback
+
+    register_callback(lines.append)
+    try:
+        t0 = time.perf_counter()
+        rc = cli.main(list(args))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        register_callback(None)
+    check(rc == 0, f"cli {args[0]}: exit {rc}")
+    return secs
+
+
+def logged_seconds(lines, pattern) -> float:
+    """The number the last log line matching ``pattern`` (one group)
+    carries."""
+    hits = [m for m in (re.search(pattern, ln) for ln in lines) if m]
+    check(bool(hits), f"no log line matches {pattern!r}")
+    return float(hits[-1].group(1))
+
+
+def phase_cli(csv_path, parsed, seed, dev) -> dict:
+    """Phase 50: the CLI in process on the card (launch counts reset
+    before each task).  ``task=train`` on phase 49's csv with a
+    CLI_VALID_ROWS-row ``valid=`` file at the headline width
+    (CLI_ITERS iterations): K1 launched, K3 once a tree, no plain version,
+    a model text that loads; ``task=predict`` with
+    ``predict_method=fused``: K4 launched, the output file equal to
+    ``Booster.predict``; ``task=convert_model``: the C++ compiled with
+    g++, its raw scores within 1e-12 of ``predict(raw_score=True)`` on
+    CONVERT_ROWS rows; ``task=refit`` on the valid file: K5 launched,
+    every structure kept; an ``LGBMClassifier`` fit whose
+    ``predict_proba`` is its booster's."""
+    from lightgbmv1_tpu_torch import LGBMClassifier
+
+    out, bd = {}, str(_build.BUILD_DIR)
+    Xv, yv = make_data(CLI_VALID_ROWS, seed + 1)
+    valid = os.path.join(bd, "smoke_valid.csv")
+    write_csv(valid, Xv, yv)
+    model = os.path.join(bd, "cli_model.txt")
+    common = ["header=true", "verbosity=1"]
+    reset_counts()
+    pc.reset_launch_counts()
+    lines = []
+    secs = cli_run(["task=train", f"data={csv_path}", f"valid={valid}",
+                    "objective=binary", "num_leaves=255", "max_bin=63",
+                    "metric=auc", f"num_iterations={CLI_ITERS}",
+                    f"output_model={model}", *common], lines)
+    k1 = hc.launch_counts["hist_leaves"]
+    k3 = fc.launch_counts["route_rows"]
+    plain = {**dict(hc.plain_counts), **dict(fc.plain_counts)}
+    load_s = logged_seconds(lines, r"Finished loading data in ([0-9.]+)")
+    loop_s = logged_seconds(lines, r"([0-9.]+) seconds elapsed, finished "
+                            rf"iteration {CLI_ITERS}\b")
+    auc = logged_seconds(lines, rf"Iteration:{CLI_ITERS}, \S+ auc : "
+                         r"([0-9.]+)")
+    bst = Booster(model_file=model)
+    grown = sum(int(t.num_leaves) > 1 for t in bst._all_trees())
+    check(bst.num_trees() == CLI_ITERS, f"cli train: {bst.num_trees()} "
+          "trees")
+    check(k1 > 0, "cli train: K1 never launched")
+    check(k3 == grown, f"cli train: K3 launched {k3} times for {grown} "
+          "trees (one valid set)")
+    check(not any(plain.values()), f"cli train: plain versions {plain}")
+    check(auc > 0.85, f"cli train: valid AUC {auc}")
+    out["train"] = {"seconds": secs, "load_s": load_s,
+                    "s_per_iter": loop_s / CLI_ITERS, "valid_auc": auc,
+                    "k1_launches": k1, "k3_launches": k3}
+    log(f"  task=train: {secs:.2f} s ({load_s:.2f} s loading {PARSE_ROWS} "
+        f"+ {CLI_VALID_ROWS} rows, {loop_s / CLI_ITERS:.4f} s/iteration); "
+        f"valid AUC {auc:.5f}; K1 {k1}, K3 {k3} launches")
+
+    result = os.path.join(bd, "cli_predict.txt")
+    pc.reset_launch_counts()
+    secs = cli_run(["task=predict", f"data={valid}", f"input_model={model}",
+                    f"output_result={result}", "predict_method=fused",
+                    *common], [])
+    got = np.loadtxt(result)
+    k4 = pc.launch_counts["serving_fused"]
+    want = bst.predict(np.loadtxt(valid, delimiter=",", skiprows=1)[:, 1:],
+                       predict_method="fused")
+    check(k4 > 0, "cli predict: K4 never launched")
+    check(np.array_equal(got, want), "cli predict: the output file is not "
+          "Booster.predict's")
+    out["predict"] = {"seconds": secs, "k4_launches": k4}
+    log(f"  task=predict (fused): {secs:.2f} s for {CLI_VALID_ROWS} rows, "
+        f"K4 {k4} launches, the file equal to Booster.predict")
+
+    cpp = os.path.join(bd, "cli_model.cpp")
+    cli_run(["task=convert_model", f"input_model={model}",
+             f"convert_model={cpp}", *common], [])
+    out["convert"] = convert_check(cpp, bst, parsed[:CONVERT_ROWS, 1:], bd)
+
+    refit = os.path.join(bd, "cli_refit.txt")
+    pc.reset_launch_counts()
+    secs = cli_run(["task=refit", f"data={valid}", f"input_model={model}",
+                    f"output_model={refit}", *common], [])
+    k5 = pc.launch_counts["serving_leaf"]
+    rb = Booster(model_file=refit)
+    check(k5 > 0, "cli refit: K5 never launched")
+    check(same_structures(rb._all_trees(), bst._all_trees()),
+          "cli refit: a tree's structure moved")
+    out["refit"] = {"seconds": secs, "k5_launches": k5}
+    log(f"  task=refit: {secs:.2f} s, K5 {k5} launches, structures kept")
+
+    reset_counts()
+    t0 = time.perf_counter()
+    clf = LGBMClassifier(n_estimators=CLI_ITERS, num_leaves=255,
+                         max_bin=63).fit(Xv, yv)
+    secs = time.perf_counter() - t0
+    proba = clf.predict_proba(Xv)
+    check(proba.shape == (CLI_VALID_ROWS, 2) and np.array_equal(
+        proba[:, 1], clf.booster_.predict(Xv)),
+        "LGBMClassifier: predict_proba is not its booster's")
+    check(hc.launch_counts["hist_leaves"] > 0,
+          "LGBMClassifier: K1 never launched")
+    out["sklearn"] = {"seconds": secs,
+                      "k1_launches": hc.launch_counts["hist_leaves"]}
+    log(f"  LGBMClassifier: fit {secs:.2f} s on the card, predict_proba "
+        "its booster's")
+    return out
+
+
+def convert_check(cpp, bst, X, bd) -> dict:
+    """``task=convert_model``'s code compiled with g++ beside a ``main``
+    that scores rows read from a file: within 1e-12 of the booster's raw
+    scores."""
+    main_cpp = os.path.join(bd, "cli_model_main.cpp")
+    with open(main_cpp, "w") as fh:
+        fh.write('#include <cstdio>\n#include <vector>\n'
+                 'void PredictRaw(const double*, double*);\n'
+                 'int main(int c, char** v) {\n'
+                 '  FILE* f = std::fopen(v[1], "rb");\n'
+                 f'  std::vector<double> row({X.shape[1]});\n'
+                 '  double out;\n'
+                 '  while (std::fread(row.data(), sizeof(double), row.size(),'
+                 ' f) == row.size()) {\n'
+                 '    PredictRaw(row.data(), &out);\n'
+                 '    std::printf("%.17g\\n", out);\n  }\n  return 0;\n}\n')
+    exe = os.path.join(bd, "cli_model_bin")
+    rows = os.path.join(bd, "cli_model_rows.bin")
+    np.ascontiguousarray(X, np.float64).tofile(rows)
+    t0 = time.perf_counter()
+    subprocess.run(["g++", "-O0", "-o", exe, cpp, main_cpp], check=True,
+                   capture_output=True)
+    compile_s = time.perf_counter() - t0
+    res = subprocess.run([exe, rows], check=True, capture_output=True,
+                         text=True)
+    got = np.array([float(v) for v in res.stdout.split()])
+    want = bst.predict(X, raw_score=True)
+    e = float(np.abs(got - want).max())
+    check(len(got) == len(X) and e <= 1e-12,
+          f"convert_model: {len(got)} rows, max err {e}")
+    log(f"  task=convert_model: {os.path.getsize(cpp) / 1e6:.1f} MB of C++,"
+        f" g++ {compile_s:.1f} s, raw scores within {e:.1e} of predict on "
+        f"{len(X)} rows")
+    return {"compile_s": compile_s, "cpp_bytes": os.path.getsize(cpp),
+            "max_abs_err": e}
+
+
+def phase_contrib(Xv) -> dict:
+    """Phase 51: TreeSHAP on CONTRIB_ROWS rows of phase 10's 50-tree
+    headline model (``pred_contrib=True``): (N, F + 1), each row summing
+    to its raw score within 1e-9; ms a row and tree.  Then
+    ``pred_early_stop`` (freq ES_FREQ, margin ES_MARGIN) on ES_ROWS valid
+    rows: the rows whose score stopped short of the full walk's, the
+    seconds beside the full host walk's."""
+    bst = Booster(model_file=os.path.join(_build.BUILD_DIR,
+                                          "trained_model.txt"))
+    T = bst.num_trees()
+    X = np.asarray(Xv[:CONTRIB_ROWS], np.float64)
+    t0 = time.perf_counter()
+    contrib = bst.predict(X, pred_contrib=True)
+    secs = time.perf_counter() - t0
+    raw = bst.predict(X, raw_score=True, predict_method="host")
+    e = float(np.abs(contrib.sum(axis=1) - raw).max())
+    check(contrib.shape == (CONTRIB_ROWS, F + 1) and e <= 1e-9,
+          f"pred_contrib: shape {contrib.shape}, sum off by {e}")
+    out = {"trees": T, "rows": CONTRIB_ROWS, "seconds": secs,
+           "ms_per_row_tree": secs * 1e3 / (CONTRIB_ROWS * T),
+           "sum_max_abs_err": e}
+    log(f"  pred_contrib: {CONTRIB_ROWS} rows x {T} trees in {secs:.2f} s "
+        f"({out['ms_per_row_tree']:.2f} ms a row and tree), rows sum to "
+        f"the raw score within {e:.1e}")
+    Xv = Xv[:ES_ROWS]
+    t0 = time.perf_counter()
+    es = bst.predict(Xv, raw_score=False, pred_early_stop=True,
+                     pred_early_stop_freq=ES_FREQ,
+                     pred_early_stop_margin=ES_MARGIN)
+    es_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    full = bst.predict(Xv, predict_method="host")
+    full_s = time.perf_counter() - t0
+    check(es.shape == full.shape and np.isfinite(es).all(),
+          "pred_early_stop: bad output")
+    retired = int((es != full).sum())
+    out["early_stop"] = {"rows": len(Xv), "freq": ES_FREQ,
+                         "margin": ES_MARGIN, "stopped_rows": retired,
+                         "seconds": es_s, "host_seconds": full_s}
+    log(f"  pred_early_stop (freq {ES_FREQ}, margin {ES_MARGIN}): "
+        f"{retired} of {len(Xv)} rows stopped early, {es_s:.2f} s beside "
+        f"the full host walk's {full_s:.2f} s")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -7689,9 +8036,11 @@ def main(argv=None) -> int:
     ap.add_argument("--train-rows", type=int, default=1 << 20)
     ap.add_argument("--iters", type=int, default=50)
     ap.add_argument("--reg-iters", type=int, default=20)
-    ap.add_argument("--level-iters", type=int, default=100)
-    ap.add_argument("--mc-iters", type=int, default=50)
-    ap.add_argument("--rank-iters", type=int, default=100)
+    # the level-wise, multiclass and lambdarank depths, cut from 100 / 50 /
+    # 100 to make room for phases 49-51
+    ap.add_argument("--level-iters", type=int, default=40)
+    ap.add_argument("--mc-iters", type=int, default=20)
+    ap.add_argument("--rank-iters", type=int, default=40)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this runs "
@@ -7710,6 +8059,17 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 
     log("== phase 2: build")
+    gxx = {}
+
+    def gxx_build(name):
+        t0 = time.perf_counter()
+        native_mod.build(name)
+        gxx[name] = time.perf_counter() - t0
+
+    gxx_threads = [threading.Thread(target=gxx_build, args=(n,))
+                   for n in ("predictor", "text_parser")]
+    for th in gxx_threads:
+        th.start()
     secs = _build.build(["predict_walk", "hist", "wave_fused", "wave_loop",
                          "wave_loop_int8", "quantize", "split_scan",
                          "split_scan_wide", "split_scan_cat"])
@@ -7720,6 +8080,10 @@ def main(argv=None) -> int:
                 f"{k.get('spill_stores')} / {k.get('spill_loads')} bytes "
                 f"spilled / reloaded, {k.get('stack')} bytes of stack")
     log(f"  built: {sorted(secs) or 'already built'}")
+    for th in gxx_threads:
+        th.join()
+    check(set(gxx) == {"predictor", "text_parser"}, f"g++ builds: {gxx}")
+    log("  g++ " + ", ".join(f"{n}.cpp {v:.1f} s" for n, v in gxx.items()))
 
     log("== phase 3: model")
     t0 = time.perf_counter()
@@ -8144,6 +8508,28 @@ def main(argv=None) -> int:
         "the headline (main path; launch counts reset)")
     p16 = phase_p16(ds, dv, Xv, dev)
     log(f"  phase 48: {p16['seconds']:.1f} s")
+    log("== phase 49: the native C++ walk and parser (launch counts reset)")
+    t0 = time.perf_counter()
+    native, csv_path, parsed = phase_native(booster, trees, bulk, args.rows,
+                                            rng, args.seed)
+    native["phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase 49: {native['phase_seconds']:.1f} s")
+    log("== phase 50: the CLI and the sklearn wrapper on the card (main "
+        "path; launch counts reset)")
+    t0 = time.perf_counter()
+    cli_out = phase_cli(csv_path, parsed, args.seed, dev)
+    cli_out["phase_seconds"] = time.perf_counter() - t0
+    cli_out["train"]["phase10_s_per_iter"] = trained["s_per_iter"]
+    log(f"  phase 50: {cli_out['phase_seconds']:.1f} s (CLI training "
+        f"{cli_out['train']['s_per_iter']:.4f} s/iteration at {PARSE_ROWS} "
+        f"rows beside phase 10's {trained['s_per_iter']:.4f} at "
+        f"{args.train_rows})")
+    del parsed
+    log("== phase 51: TreeSHAP and prediction early stopping")
+    t0 = time.perf_counter()
+    contrib = phase_contrib(Xv)
+    contrib["phase_seconds"] = time.perf_counter() - t0
+    log(f"  phase 51: {contrib['phase_seconds']:.1f} s")
     k1_row["bundle"] = {
         "note": "K1 on EFB bundle columns at the bundles' bin axis",
         "launches": int(efb["train"]["launches"]["k1"]),
@@ -8178,7 +8564,8 @@ def main(argv=None) -> int:
                     "categorical": {"train": cat_train["train"],
                                     "efb": cat_efb["launches"],
                                     "seconds": cat["seconds"]},
-                    "part_16": p16,
+                    "part_16": p16, "native": native, "cli": cli_out,
+                    "contrib": contrib,
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]

@@ -20,45 +20,36 @@ Ported so far:
   callbacks and early stopping (``callback.py``) and ``cv``;
 * the model lifecycle: continued training (``init_model``), rollback,
   refit, checkpoints (``io/checkpoint.py``), ``finite_guard`` and custom
-  objectives; Dataset input from data files (``io/parser.py``) and
-  scipy sparse rows, with Exclusive Feature Bundling (``io/bundle.py``,
-  K3's bundle leg on the card).
+  objectives; Dataset input from data files (``io/parser.py``, the
+  native C++ parser first) and scipy sparse rows, with Exclusive Feature
+  Bundling (``io/bundle.py``, K3's bundle leg on the card), and the
+  binned dataset cache (``Dataset.save_binary``);
+* the host prediction paths: the native C++ bulk predictor
+  (``native/``), TreeSHAP (``models/treeshap.py``) and prediction early
+  stopping; the CLI (``python -m lightgbmv1_tpu_torch task=train|predict|
+  refit|convert_model``, ``cli.py``); the sklearn wrappers
+  (``sklearn.py``) and the plotting functions (``plotting.py``).
 
-The package's names are the JAX package's (``__all__``); the sklearn
-wrappers and the plotting functions raise ``NotImplementedError`` naming
-their ROADMAP queue 1 item until they are ported.  Entry points run on
-the card unless the caller passes ``device="cpu"``; without a card they
-raise instead of falling back.
+The package's names are the JAX package's (``__all__``).  Entry points
+run on the card unless the caller passes ``device="cpu"`` (the CLI and
+the sklearn wrappers: ``device_type=cpu``); without a card they raise
+instead of falling back.
 """
 
-from .config import SKLEARN, Config, not_ported
+from .config import Config
 from .device import resolve_device
 from .utils.log import LightGBMError, register_callback, set_verbosity
 
 __version__ = "0.1.0"
 
-_SKLEARN_AND_PLOTTING = (
-    "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
-    "plot_importance", "plot_metric", "plot_split_value_histogram",
-    "plot_tree", "create_tree_digraph")
+_SKLEARN = ("LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker")
+_PLOTTING = ("plot_importance", "plot_metric", "plot_split_value_histogram",
+             "plot_tree", "create_tree_digraph")
 
 __all__ = ["Booster", "CVBooster", "Config", "Dataset", "LightGBMError",
            "cv", "early_stopping", "log_evaluation", "record_evaluation",
            "register_callback", "reset_parameter", "resolve_device",
-           "set_verbosity", "train", "__version__",
-           *_SKLEARN_AND_PLOTTING]
-
-
-def _not_ported_entry(name: str):
-    """A stand-in for the JAX package's ``name``: calling it raises
-    ``NotImplementedError`` naming its ROADMAP item."""
-    def entry(*args, **kwargs):
-        raise not_ported(name, SKLEARN)
-
-    entry.__name__ = entry.__qualname__ = name
-    entry.__doc__ = (f"``{name}`` of the JAX package: not ported yet "
-                     f"(ROADMAP queue 1, {SKLEARN}).")
-    return entry
+           "set_verbosity", "train", "__version__", *_SKLEARN, *_PLOTTING]
 
 
 def __getattr__(name):
@@ -75,6 +66,12 @@ def __getattr__(name):
         from . import callback
 
         return getattr(callback, name)
-    if name in _SKLEARN_AND_PLOTTING:
-        return _not_ported_entry(name)
+    if name in _SKLEARN:
+        from . import sklearn
+
+        return getattr(sklearn, name)
+    if name in _PLOTTING:
+        from . import plotting
+
+        return getattr(plotting, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -6,9 +6,11 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
   numeric matrix, a scipy sparse matrix (kept as CSR and binned by
   ``BinnedDataset.from_csr``, never densified) or a data file (csv, tsv,
   libsvm through ``io/parser.load_data_file`` with the loader knobs of
-  ``params``, or ``load_two_round`` under ``two_round``), with its query
-  groups, a valid set sharing its reference's bins (``create_valid``
-  :326) and taking its own groups;
+  ``params``, or ``load_two_round`` under ``two_round``), or a binned
+  dataset cache (``.bin``, ``save_binary`` :303, either package's), with
+  categorical columns (``categorical_feature``) and its query groups, a
+  valid set sharing its reference's bins (``create_valid`` :326) and
+  taking its own groups;
   the setters ``set_label`` / ``set_weight`` / ``set_group`` /
   ``set_init_score`` / ``set_field`` (:333-365), which reach a
   constructed set's metadata without binning it again;
@@ -37,17 +39,23 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
   (a loaded RF model's, or a trained RF's: :789-790, :964); a data file
   is read with ``load_data_file`` (its label column dropped where it has
   one column too many, :677-684).
-  ``predict_method`` picks the walk with the JAX package's meaning:
-  ``auto``/``host`` is the exact host walk (numpy ``HostTree``, float64 in
-  tree order), ``depthwise``/``pallas``/``fused`` go through the device
+  ``predict_method`` picks the walk with the JAX package's meaning
+  (:725-781): ``host`` is the exact host walk (numpy ``HostTree``,
+  float64 in tree order), ``native`` the threaded C++ walk of the same
+  semantics (``native/predictor.cpp``, its pack cached per slice), and
+  ``auto`` the native walk where rows x trees reach
+  ``_NATIVE_PREDICT_MIN_WORK``, else the host walk;
+  ``depthwise``/``pallas``/``fused`` go through the device
   ``BatchPredictor`` (models/predict.py), cached per (slice, method).
+  ``pred_contrib`` gives exact TreeSHAP contributions (:929,
+  models/treeshap.py) and ``pred_early_stop`` retires rows by margin on
+  the host walk (:750-770; not on raw scores).
 
 Training and prediction run on ``device`` (default: the card; without one
 they raise — pass ``device="cpu"`` for the CPU).  Every other public name
 of the JAX ``Dataset`` and ``Booster`` raises ``NotImplementedError``
-naming its ROADMAP queue 1 item: categorical features (item 1, part
-1.6), the native C++ predictor, TreeSHAP, the binary dataset cache
-(CLI), the drift captures and the block caches (parallel learners).
+naming its ROADMAP queue 1 item: the drift captures (drift) and the block
+caches and binned shards (parallel learners).
 """
 
 from __future__ import annotations
@@ -58,8 +66,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .config import (CLI, DRIFT, NATIVE, PARALLEL, TREESHAP, Config,
-                     not_ported)
+from .config import DRIFT, PARALLEL, Config, not_ported
 from .device import DeviceLike, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .io.model_text import (LoadedModel, dump_model_dict, model_from_string,
@@ -71,26 +78,15 @@ from .utils import fileio
 from .utils.log import LightGBMError, log_fatal, log_warning
 
 _DEVICE_METHODS = ("depthwise", "pallas", "fused", "scan")
-_NOT_PORTED = {
-    "pred_contrib": "predict(pred_contrib=True) (TreeSHAP)",
-    "pred_early_stop": "prediction early stopping",
-}
+# rows x trees from which predict_method=auto takes the native C++ walk
+# (JAX basic.py:35; below it the pack and the threads cost more than they
+# save)
+_NATIVE_PREDICT_MIN_WORK = 500_000
 
 
 def _is_scipy_sparse(data) -> bool:
     return type(data).__module__.split(".")[0] == "scipy" and hasattr(
         data, "tocsr")
-
-
-def _is_binary_cache(path: str) -> bool:
-    """A zip holding the JAX binary dataset cache's ``magic`` member."""
-    import zipfile
-
-    try:
-        with zipfile.ZipFile(path) as zf:
-            return "magic.npy" in zf.namelist()
-    except (OSError, zipfile.BadZipFile):
-        return False
 
 
 def _to_2d_numpy(data) -> np.ndarray:
@@ -177,17 +173,18 @@ class Dataset:
         file straight into bins (``load_two_round``), else the file is
         parsed in memory (``load_data_file``) with the loader knobs of
         ``params``; the file's columns and siblings fill the fields not
-        given.  Returns the raw data (None after a two-round load) and
-        the fields."""
+        given.  A binned dataset cache (``save_binary``, JAX :146-156)
+        is loaded as it is: no parsing, no binning.  Returns the raw data
+        (None after a two-round or cached load) and the fields."""
         if os.path.isdir(path):
             raise not_ported("Dataset(<block cache directory>) (the "
                              "out-of-core block cache)", PARALLEL)
-        if _is_binary_cache(path):
-            raise not_ported("Dataset(<binary dataset cache>)", CLI)
         cfg = Config.from_dict(self.params)
         binned = None
         cats = self._categorical_list()
-        if cfg.two_round and self.reference is None:
+        if BinnedDataset.is_binary_file(path):
+            binned = BinnedDataset.load_binary(path)
+        elif cfg.two_round and self.reference is None:
             from .io.parser import load_two_round
 
             if any(isinstance(c, str) for c in cats):
@@ -209,7 +206,7 @@ class Dataset:
         df = load_data_file(
             path, has_header=cfg.header, label_column=cfg.label_column,
             weight_column=cfg.weight_column, group_column=cfg.group_column,
-            ignore_column=cfg.ignore_column,
+            ignore_column=cfg.ignore_column, num_threads=cfg.num_threads,
             # initscore_filename names the training data's scores only
             init_score_file=(cfg.initscore_filename
                              if self.reference is None else ""))
@@ -238,9 +235,12 @@ class Dataset:
                          PARALLEL)
 
     def save_binary(self, filename) -> "Dataset":
-        """The binned dataset cache (JAX :303): not ported."""
-        raise not_ported("Dataset.save_binary (the binary dataset cache)",
-                         CLI)
+        """Write the binned dataset cache (JAX :303; reference
+        Dataset::SaveBinaryFile): ``Dataset(filename)`` loads it without
+        parsing or binning, in either package."""
+        self.construct()
+        self._binned.save_binary(str(filename))
+        return self
 
     def save_block_cache(self, path, block_rows=None) -> "Dataset":
         """The out-of-core block cache (JAX :310): not ported."""
@@ -394,6 +394,7 @@ class Booster:
         self.best_score: Dict[str, Dict[str, float]] = {}
         self._train_data_name = "training"
         self._device_pred_cache: Dict[tuple, Any] = {}
+        self._native_pred_cache = None        # (key, pack) of the native walk
         self._gbdt = None
         self._loaded: Optional[LoadedModel] = None
         self._loaded_str: Optional[str] = None   # the text of _loaded
@@ -432,12 +433,16 @@ class Booster:
                             "model_str")
         self._loaded = model_from_string(model_str)
         self._loaded_str = model_str
+        # the model's objective line decides the output conversion (JAX
+        # :497-511): a params dict (the CLI passes its whole config) keeps
+        # its other knobs
         cfg = {"objective": self._loaded.objective}
         if self._loaded.num_class > 1:
             cfg["num_class"] = self._loaded.num_class
-        if "sigmoid" in self._loaded.objective_params:
-            cfg["sigmoid"] = float(self._loaded.objective_params["sigmoid"])
-        self.config = Config.from_dict({**cfg, **self.params})
+        for key in ("sigmoid", "alpha"):
+            if key in self._loaded.objective_params:
+                cfg[key] = float(self._loaded.objective_params[key])
+        self.config = Config.from_dict({**self.params, **cfg})
 
     @staticmethod
     def _read_text(path) -> str:
@@ -830,13 +835,13 @@ class Booster:
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,
                 num_iteration: Optional[int] = None, raw_score: bool = False,
-                pred_leaf: bool = False, **kwargs) -> np.ndarray:
+                pred_leaf: bool = False, pred_contrib: bool = False,
+                **kwargs) -> np.ndarray:
         """Prediction on raw features (reference basic.py:2816 /
-        Predictor), by default up to ``best_iteration``; ``kwargs``
-        override the ``predict_*`` params."""
-        for key, what in _NOT_PORTED.items():
-            if kwargs.get(key, self.params.get(key, False)):
-                raise not_ported(what, TREESHAP)
+        Predictor; JAX :655), by default up to ``best_iteration``;
+        ``kwargs`` override the ``predict_*`` and ``pred_early_stop*``
+        params.  ``pred_contrib``: (N, K (F + 1)) TreeSHAP contributions,
+        each class's expected value last."""
         if isinstance(data, (str, os.PathLike)):
             X = load_data_file(str(data), is_predict=True).X
             # a prediction file usually keeps the training file's label
@@ -845,43 +850,48 @@ class Booster:
                 X = X[:, 1:]
         else:
             X = _to_2d_numpy(data)
-        if X.shape[1] != self.num_feature():
-            disable = bool(kwargs.get(
-                "predict_disable_shape_check",
-                self.params.get("predict_disable_shape_check", False)))
-            if not disable:
-                from .utils.log import log_fatal
 
-                log_fatal(
-                    f"The number of features in data ({X.shape[1]}) is not "
-                    f"the same as it was in training data "
-                    f"({self.num_feature()}).\nYou can set "
-                    f"``predict_disable_shape_check=true`` to discard this "
-                    f"error, but please be aware what you are doing.")
+        def p(name, dflt):
+            return kwargs.get(name, self.params.get(name, dflt))
+
+        if X.shape[1] != self.num_feature() and not bool(
+                p("predict_disable_shape_check", False)):
+            log_fatal(
+                f"The number of features in data ({X.shape[1]}) is not "
+                f"the same as it was in training data "
+                f"({self.num_feature()}).\nYou can set "
+                f"``predict_disable_shape_check=true`` to discard this "
+                f"error, but please be aware what you are doing.")
         trees = self._all_trees()
         K = self.num_model_per_iteration()
         num_iteration = self._default_iterations(num_iteration, len(trees))
         trees = trees[start_iteration * K:
                       (start_iteration + num_iteration) * K]
         n = X.shape[0]
-
-        method = str(kwargs.get("predict_method",
-                                self.params.get("predict_method", "auto")))
-        if method == "native":
-            raise not_ported("predict_method=native (the C++ bulk "
-                             "predictor)", NATIVE)
+        early_stop = bool(p("pred_early_stop", False)) and not raw_score
+        method = str(p("predict_method", "auto"))
         raw = None
-        if method in _DEVICE_METHODS and trees:
+        if method in _DEVICE_METHODS and trees and not pred_contrib \
+                and not early_stop:
             bp = self._device_predictor(trees, K, start_iteration, method,
                                         kwargs)
             if pred_leaf:
                 return bp.predict_leaf(X)
-            f64 = bool(kwargs.get(
-                "predict_f64_scores",
-                self.params.get("predict_f64_scores", False)))
-            raw = np.asarray(bp.predict_raw(X, f64_exact=f64), np.float64)
+            raw = np.asarray(bp.predict_raw(
+                X, f64_exact=bool(p("predict_f64_scores", False))),
+                np.float64)
         if pred_leaf:
             return np.stack([t.predict_leaf_index(X) for t in trees], axis=1)
+        if pred_contrib:
+            return self._predict_contrib(X, trees, K)
+        if raw is None and early_stop:
+            raw = self._predict_early_stop(
+                X, trees, K, int(p("pred_early_stop_freq", 10)),
+                float(p("pred_early_stop_margin", 10.0)))
+        if raw is None and (method == "native" or (
+                method != "host"
+                and n * len(trees) >= _NATIVE_PREDICT_MIN_WORK)):
+            raw = self._predict_raw_native(X, trees, K, start_iteration)
         if raw is None:
             raw = np.zeros((n, K), dtype=np.float64)
             for i, t in enumerate(trees):
@@ -893,6 +903,68 @@ class Booster:
             return raw[:, 0] if K == 1 else raw
         return np.asarray(convert_output(self.config,
                                          raw if K > 1 else raw[:, 0]))
+
+    @staticmethod
+    def _predict_early_stop(X, trees, K, freq: int, margin: float
+                            ) -> np.ndarray:
+        """The host walk with prediction early stopping (JAX :750-770;
+        reference PredictionEarlyStopInstance,
+        prediction_early_stop.cpp:75): every ``freq`` iterations the rows
+        whose margin (binary 2 |raw|, multiclass the gap of the top two
+        classes) reaches ``margin`` take no further trees."""
+        n = X.shape[0]
+        raw = np.zeros((n, K), dtype=np.float64)
+        active = np.ones(n, dtype=bool)
+        for it in range(len(trees) // K if K else 0):
+            idx = np.flatnonzero(active)
+            if idx.size == 0:
+                break
+            for k in range(K):
+                raw[idx, k] += trees[it * K + k].predict(X[idx])
+            if (it + 1) % freq == 0:
+                if K == 1:
+                    gap = 2.0 * np.abs(raw[idx, 0])
+                else:
+                    part = np.partition(raw[idx], K - 2, axis=1)
+                    gap = part[:, K - 1] - part[:, K - 2]
+                active[idx[gap >= margin]] = False
+        return raw
+
+    def _predict_raw_native(self, X, trees, K, start_iteration=0):
+        """(n, K) raw scores from the native C++ walk (JAX :801-829); None
+        where the pack cannot hold the model (a categorical node without
+        its raw set) or ``X`` lacks a feature the model splits on (the
+        host walk then raises).  The pack is cached per (slice start,
+        tree count, model version): every change of the ensemble moves
+        the version."""
+        from .native import build_ensemble_pack, predict_ensemble
+
+        key = (start_iteration, len(trees),
+               self._gbdt.model_version if self._gbdt is not None else -1)
+        cached = self._native_pred_cache
+        if cached is None or cached[0] != key:
+            cached = self._native_pred_cache = (
+                key, build_ensemble_pack(trees, K))
+        pack = cached[1]
+        if pack is None or X.shape[1] <= pack["max_feat"]:
+            return None
+        return predict_ensemble(
+            X, pack, num_threads=int(self.params.get("num_threads", 0) or 0))
+
+    @staticmethod
+    def _predict_contrib(X, trees, K) -> np.ndarray:
+        """Exact TreeSHAP contributions (JAX :929-943; reference
+        Tree::PredictContrib, tree.h:138): (N, K (F + 1)) float64, each
+        class's block its features' contributions and its expected value
+        last; a row's block sums to its raw score."""
+        from .models.treeshap import tree_shap
+
+        n, F = X.shape
+        out = np.zeros((n, K * (F + 1)), dtype=np.float64)
+        for ti, t in enumerate(trees):
+            k = ti % K
+            out[:, k * (F + 1):(k + 1) * (F + 1)] += tree_shap(t, X)
+        return out
 
     def _device_predictor(self, trees, K, start_iteration, method, kwargs):
         """Device engine (models/predict.BatchPredictor), cached per (slice

@@ -1,0 +1,326 @@
+"""Command-line application; the port's copy of lightgbmv1_tpu/cli.py.
+
+The counterpart of the reference CLI (``src/main.cpp:11-42`` →
+``src/application/application.cpp``: parameter loading :49-82, LoadData
+:84-162, InitTrain :164-199, Train :201, Predict :213 →
+``src/application/predictor.hpp:29-160``; model conversion
+``ModelToIfElse``, src/boosting/gbdt_model_text.cpp:122-304):
+
+    python -m lightgbmv1_tpu_torch config=train.conf [key=value ...]
+
+Tasks: ``train`` (default; ``save_binary=true`` also writes
+``<data>.bin``, the binned dataset cache; ``snapshot_freq`` writes a
+model text and a checkpoint every so many iterations, and a run whose
+``output_model`` is missing resumes from the newest intact one),
+``predict`` / ``prediction`` / ``test``, ``refit`` and ``convert_model``
+(C++ if-else code).  ``task=serve`` (the HTTP front-end) and
+``task=save_binary`` (the out-of-core block cache of the parallel
+learners) raise, naming their ROADMAP queue 1 items, as every knob the
+port does not run does.
+
+It runs on the card; ``device_type=cpu`` (alias ``device``) runs it on
+the CPU.  No phase-timer report is printed (the JAX CLI's
+``utils/timer`` report belongs to the observability item).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import glob
+import os
+import re
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+
+from .basic import Booster, Dataset
+from .config import HTTP, PARALLEL, Config, not_ported, unported_reason
+from .device import knob_device
+from .io.dataset import BinnedDataset
+from .io.parser import load_data_file
+from .utils import fileio
+from .utils.log import log_fatal, log_info, log_warning
+
+
+def _config_to_params(config: Config) -> dict:
+    """The Config as the params dict the Booster takes."""
+    return dataclasses.asdict(config)
+
+
+def _categorical(config: Config):
+    """The ``categorical_feature`` knob's column indices, or "auto"."""
+    if not config.categorical_feature:
+        return "auto"
+    return [int(x) for x in
+            str(config.categorical_feature).replace(",", " ").split()]
+
+
+def _load_dataset(config: Config, path: str,
+                  reference: Optional[Dataset] = None,
+                  init_score_file: str = "") -> Dataset:
+    """A data file as a Dataset (JAX :45): a binned cache (or a block
+    cache directory, which raises) as it is, ``two_round`` streamed into
+    bins, else parsed with the loader knobs.  The file's init scores
+    reach the Dataset (the JAX CLI drops them)."""
+    params = _config_to_params(config)
+    if os.path.isdir(path) or BinnedDataset.is_binary_file(path):
+        return Dataset(path, params=params, reference=reference)
+    if config.two_round and reference is None:
+        return Dataset(path, params=params, reference=reference,
+                       categorical_feature=_categorical(config))
+    df = load_data_file(
+        path, has_header=config.header, label_column=config.label_column,
+        weight_column=config.weight_column,
+        group_column=config.group_column,
+        ignore_column=config.ignore_column, num_threads=config.num_threads,
+        init_score_file=init_score_file)
+    return Dataset(df.X, label=df.label, weight=df.weight, group=df.group,
+                   init_score=df.init_score, params=params,
+                   reference=reference,
+                   feature_name=df.feature_names or "auto",
+                   categorical_feature=_categorical(config))
+
+
+def _iter_artifacts(output_model: str):
+    """``[(iteration, kind, path)]`` of the resume artifacts on disk:
+    ``ckpt`` (the trainer's whole state, a bit-exact resume) or
+    ``snapshot`` (model text, continued training)."""
+    out = []
+    for kind, tag in (("ckpt", ".ckpt_iter_"),
+                      ("snapshot", ".snapshot_iter_")):
+        for p in glob.glob(glob.escape(output_model) + tag + "*"):
+            m = re.search(r"_iter_(\d+)$", p)
+            if m:
+                out.append((int(m.group(1)), kind, p))
+    return out
+
+
+def _find_resume_point(output_model: str):
+    """The newest intact resume artifact as ``(kind, path, done_iters,
+    bundle)``, ``(None, None, 0, None)`` when none is (JAX :116): every
+    checkpoint comes before every snapshot, newest first, and each is
+    validated before it is chosen, so a torn newest file gives way to
+    the one before it."""
+    from .io.checkpoint import load_checkpoint
+    from .io.model_text import model_from_string
+
+    arts = _iter_artifacts(output_model)
+    arts.sort(key=lambda t: (t[1] == "ckpt", t[0]), reverse=True)
+    for it, kind, path in arts:
+        try:
+            if kind == "ckpt":
+                bundle = load_checkpoint(path)
+                return (kind, path, int(bundle["manifest"]["iteration"]),
+                        bundle)
+            with fileio.open_file(path) as fh:
+                model_from_string(fh.read())
+            return kind, path, it, None
+        except Exception as e:  # noqa: BLE001 — the next one, loudly
+            log_warning(f"Ignoring invalid {kind} {path} "
+                        f"({type(e).__name__}: {e})")
+    return None, None, 0, None
+
+
+def _prune_snapshots(output_model: str, keep: int) -> None:
+    """Keep the newest ``keep`` artifacts of each kind (at least 2, so a
+    torn newest one always has an intact predecessor)."""
+    by_kind = {"ckpt": [], "snapshot": []}
+    for it, kind, path in _iter_artifacts(output_model):
+        by_kind[kind].append((it, path))
+    for arts in by_kind.values():
+        arts.sort(reverse=True)
+        for _, path in arts[max(keep, 2):]:
+            try:
+                os.remove(path)
+            except OSError:
+                pass
+
+
+def run_train(config: Config) -> Booster:
+    """Train on ``data`` with the ``valid`` files (JAX :188; reference
+    Application::InitTrain + Train, application.cpp:164-211)."""
+    if not config.data:
+        log_fatal("No training data: set data=<file>")
+    dev = knob_device(config.device_type)
+    t0 = time.time()
+    train_set = _load_dataset(config, config.data,
+                              init_score_file=config.initscore_filename)
+    if config.save_binary:
+        # reference: is_save_binary_file -> SaveBinaryFile(data + ".bin")
+        train_set.save_binary(config.data + ".bin")
+    init_model = config.input_model or None
+    done_iters, resume_bundle = 0, None
+    if init_model is None and config.snapshot_freq > 0 \
+            and not os.path.exists(config.output_model):
+        # a run that died before its final model resumes from its newest
+        # intact artifact; a finished run's snapshots never start a new one
+        kind, snap, done_iters, resume_bundle = _find_resume_point(
+            config.output_model)
+        if kind == "ckpt":
+            log_info(f"Resuming bit-exactly from checkpoint {snap} "
+                     f"({done_iters} iterations already trained)")
+        elif kind == "snapshot":
+            log_info(f"Resuming from snapshot {snap} ({done_iters} "
+                     "iterations already trained)")
+            init_model = snap
+    booster = Booster(params=_config_to_params(config), train_set=train_set,
+                      init_model=init_model, device=dev)
+    for i, vpath in enumerate(config.valid):
+        vinit = (config.valid_data_initscores[i]
+                 if i < len(config.valid_data_initscores) else "")
+        booster.add_valid(_load_dataset(config, vpath, reference=train_set,
+                                        init_score_file=vinit),
+                          os.path.basename(vpath))
+    if resume_bundle is not None:
+        # after add_valid: the valid score caches are part of the bundle
+        booster.resume_from_checkpoint(resume_bundle)
+    log_info(f"Finished loading data in {time.time() - t0:.6f} seconds")
+
+    t0 = time.time()
+    for i in range(max(config.num_iterations - done_iters, 0)):
+        finished = booster.update()
+        if config.metric_freq > 0 and (i + 1) % config.metric_freq == 0:
+            # the training metric only under is_provide_training_metric
+            # (reference gbdt.cpp:413-434)
+            rows = list(booster.eval_valid())
+            if config.is_provide_training_metric:
+                rows = list(booster.eval_train()) + rows
+            for data_name, metric, value, _ in rows:
+                log_info(f"Iteration:{i + 1}, {data_name} {metric} : "
+                         f"{value:g}")
+        log_info(f"{time.time() - t0:.6f} seconds elapsed, finished "
+                 f"iteration {i + 1}")
+        total_i = done_iters + i + 1
+        if config.snapshot_freq > 0 and total_i % config.snapshot_freq == 0:
+            # reference GBDT::Train, gbdt.cpp:258-262; both written
+            # atomically, so a kill leaves only intact files
+            snap = f"{config.output_model}.snapshot_iter_{total_i}"
+            booster.save_model(snap)
+            booster.save_checkpoint(f"{config.output_model}.ckpt_iter_"
+                                    f"{total_i}")
+            log_info(f"Saved snapshot to {snap} (+ checkpoint bundle)")
+            _prune_snapshots(config.output_model, keep=config.snapshot_keep)
+        if finished:
+            break
+    if config.output_model:
+        booster.save_model(config.output_model)
+    log_info("Finished training")
+    return booster
+
+
+def run_predict(config: Config) -> np.ndarray:
+    """Predict ``data`` with ``input_model`` into ``output_result``, one
+    row a line, tab-separated (JAX :347; reference Application::Predict
+    -> Predictor, predictor.hpp:29-160); ``predict_method`` and the other
+    ``predict_*`` knobs reach ``Booster.predict``."""
+    if not config.input_model:
+        log_fatal("No model file: set input_model=<file>")
+    if not config.data:
+        log_fatal("No prediction data: set data=<file>")
+    booster = Booster(params=_config_to_params(config),
+                      model_file=config.input_model,
+                      device=knob_device(config.device_type))
+    log_info("Finished initializing prediction, total used "
+             f"{booster.current_iteration()} iterations")
+    t0 = time.time()
+    df = load_data_file(
+        config.data, has_header=config.header,
+        label_column=config.label_column, weight_column=config.weight_column,
+        group_column=config.group_column, ignore_column=config.ignore_column,
+        is_predict=True)
+    X = df.X
+    if X.shape[1] == booster.num_feature() + 1:
+        X = X[:, 1:]        # a prediction file may keep the label column
+    t_parse = time.time()
+    out = np.asarray(booster.predict(
+        X, raw_score=config.predict_raw_score,
+        pred_leaf=config.predict_leaf_index,
+        pred_contrib=config.predict_contrib,
+        start_iteration=config.start_iteration_predict,
+        num_iteration=(config.num_iteration_predict
+                       if config.num_iteration_predict > 0 else None),
+        pred_early_stop=config.pred_early_stop,
+        pred_early_stop_freq=config.pred_early_stop_freq,
+        pred_early_stop_margin=config.pred_early_stop_margin,
+        predict_disable_shape_check=config.predict_disable_shape_check))
+    t_pred = time.time()
+    if out.ndim == 1:
+        out = out[:, None]
+    np.savetxt(config.output_result, out,
+               fmt="%d" if config.predict_leaf_index else "%.18g",
+               delimiter="\t")
+    log_info(f"Prediction window: parse {t_parse - t0:.3f}s, predict "
+             f"{t_pred - t_parse:.3f}s ({config.predict_method}), write "
+             f"{time.time() - t_pred:.3f}s ({X.shape[0]} rows)")
+    log_info("Finished prediction")
+    return out
+
+
+def run_refit(config: Config) -> Booster:
+    """Re-fit ``input_model``'s leaves on ``data`` into ``output_model``
+    (JAX :557; reference Application task=refit)."""
+    if not config.input_model:
+        log_fatal("No model file: set input_model=<file>")
+    booster = Booster(model_file=config.input_model,
+                      device=knob_device(config.device_type))
+    df = load_data_file(config.data, has_header=config.header,
+                        label_column=config.label_column)
+    refitted = booster.refit(df.X, df.label,
+                             decay_rate=config.refit_decay_rate)
+    refitted.save_model(config.output_model)
+    log_info(f"Finished refit; model saved to {config.output_model}")
+    return refitted
+
+
+def run_convert_model(config: Config) -> str:
+    """``input_model`` as standalone C++ if-else code in
+    ``convert_model`` (JAX :571; reference GBDT::SaveModelToIfElse)."""
+    from .io.model_codegen import model_to_cpp
+
+    if not config.input_model:
+        log_fatal("No model file: set input_model=<file>")
+    if config.convert_model_language not in ("", "cpp"):
+        log_fatal(f"convert_model_language="
+                  f"{config.convert_model_language} is not supported; "
+                  "only 'cpp' code generation is available")
+    booster = Booster(model_file=config.input_model,
+                      device=knob_device(config.device_type))
+    out = config.convert_model or "gbdt_prediction.cpp"
+    with fileio.open_file(out, "w") as fh:
+        fh.write(model_to_cpp(booster._loaded))
+    log_info(f"Converted model to C++ code at {out}")
+    return out
+
+
+_TASKS = {"train": run_train, "predict": run_predict,
+          "prediction": run_predict, "test": run_predict,
+          "refit": run_refit, "convert_model": run_convert_model}
+
+
+def main(argv: Optional[List[str]] = None) -> int:
+    """Run the task of ``key=value`` arguments (JAX :592); the module's
+    usage with none."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if not argv:
+        print(__doc__)
+        return 1
+    config = Config.from_cli(argv)
+    task = config.task
+    if task == "serve":
+        raise not_ported("task=serve (the HTTP front-end)", HTTP)
+    if task == "save_binary":
+        raise not_ported("task=save_binary (the out-of-core block cache)",
+                         PARALLEL)
+    if task not in _TASKS:
+        log_fatal(f"Unknown task: {task}")
+    why = unported_reason(config)
+    if why is not None:
+        raise NotImplementedError(why)
+    _TASKS[task](config)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -237,7 +237,7 @@ class Config:
     predict_code_layout: str = "auto"
     predict_bucket_min: int = 256    # smallest power-of-two row bucket
     predict_chunk_rows: int = 131072  # streaming chunk (bounds device memory)
-    predict_num_shards: int = 0      # >1: row-sharded predict (item 20)
+    predict_num_shards: int = 0      # >1: row-sharded predict (item 13)
     # reconstruct raw scores host-side in float64 from device leaf ids
     # (bit-identical to the host walk); off = the on-device f32 sum
     predict_f64_scores: bool = False
@@ -296,23 +296,23 @@ class Config:
     saved_feature_importance_type: int = 0
     snapshot_freq: int = -1
     finite_guard: str = "off"
-    # the sequential grower (item 2)
+    # the sequential grower
     histogram_pool_size: float = -1.0
     # histogram build strategies: scatter / onehot under hist_method=auto
     force_col_wise: bool = False
     force_row_wise: bool = False
-    # TreeSHAP and prediction early stopping (item 10)
+    # TreeSHAP and prediction early stopping (item 3; Booster.predict)
     predict_contrib: bool = False
     pred_early_stop: bool = False
     pred_early_stop_freq: int = 10
     pred_early_stop_margin: float = 10.0
-    # the CLI and file I/O (item 11)
+    # the CLI and file I/O (item 4; cli.py)
     config: str = ""
     task: str = "train"
     data: str = ""
     valid: List[str] = field(default_factory=list)
-    # accepted: it changes no trained model (in the JAX package it reaches
-    # only file loading and the native predictor, basic.py:201, :826)
+    # it changes no trained model: it caps the threads of the native parser
+    # and predictor, as in the JAX package (basic.py:201, :826)
     num_threads: int = 0
     output_model: str = "LightGBM_model.txt"
     input_model: str = ""
@@ -336,10 +336,10 @@ class Config:
     is_provide_training_metric: bool = False
     refit_decay_rate: float = 0.9
     snapshot_keep: int = 2
-    # HTTP front-end (item 13)
+    # HTTP front-end (item 6)
     serve_http_port: int = 8080
     serve_duration_s: float = 0.0
-    # fleet and router (item 14)
+    # fleet and router (item 7)
     serve_replicas: int = 1
     router_health_period_ms: float = 25.0
     router_eject_after: int = 2
@@ -347,19 +347,19 @@ class Config:
     router_retry_max: int = 2
     router_hedge_ms: float = 0.0
     router_deadline_ms: float = 0.0
-    # tenants and placement (item 15)
+    # tenants and placement (item 8)
     tenant_manifest: str = ""
     placement_replicas_per_tenant: int = 0
     placement_burn_threshold: float = 2.0
     placement_occupancy_frac: float = 0.75
     placement_cooldown_s: float = 30.0
-    # SLOs (item 16)
+    # SLOs (item 9)
     serve_slo_availability_target: float = 0.999
     serve_slo_latency_ms: float = 50.0
     serve_slo_latency_target: float = 0.99
     serve_slo_fast_window_s: float = 60.0
     serve_slo_slow_window_s: float = 600.0
-    # drift (item 17)
+    # drift (item 10)
     drift_sample_rows: int = 0
     drift_per_batch_rows: int = 64
     drift_min_rows: int = 256
@@ -368,11 +368,11 @@ class Config:
     drift_psi_groups: int = 16
     drift_sample_stride: int = 4
     drift_score_bins: int = 16
-    # failure domains of the server (item 18)
+    # failure domains of the server (item 11)
     serve_degrade_trees: int = 0
     serve_breaker_failures: int = 3
     serve_watchdog_ms: float = 0.0
-    # observability (item 19)
+    # observability (item 12)
     profile_dir: str = ""
     obs_trace: bool = False
     trace_out: str = ""
@@ -380,7 +380,7 @@ class Config:
     obs_event_ring: int = 4096
     crash_dir: str = ""
     obs_dir: str = ""
-    # parallel learners, streaming, elastic (item 21)
+    # parallel learners, streaming, elastic (item 14)
     top_k: int = 20
     num_machines: int = 1
     local_listen_port: int = 12400
@@ -529,6 +529,41 @@ class Config:
         for name, value in self._fields_of(params).items():
             setattr(self, name, value)
 
+    @staticmethod
+    def kv2map(args: List[str]) -> Dict[str, str]:
+        """``key=value`` strings as a dict (JAX :1000; reference
+        Config::KV2Map, config.h:80): ``#`` starts a comment, blank
+        strings are skipped, a string without ``=`` warns."""
+        out: Dict[str, str] = {}
+        for arg in args:
+            arg = arg.split("#", 1)[0].strip()
+            if not arg:
+                continue
+            if "=" not in arg:
+                log_warning(f"Unknown option: {arg}")
+                continue
+            k, v = arg.split("=", 1)
+            out[k.strip()] = v.strip()
+        return out
+
+    @classmethod
+    def from_cli(cls, argv: List[str]) -> "Config":
+        """The command line's ``key=value`` arguments over the lines of
+        its ``config=<file>`` (alias ``config_file``), as the JAX CLI
+        reads them (JAX :1015; reference application.cpp:49-82)."""
+        from .utils.fileio import open_file
+
+        kv = cls.kv2map(argv)
+        config_file = kv.get("config", kv.get("config_file", ""))
+        file_kv: Dict[str, str] = {}
+        if config_file:
+            with open_file(config_file) as fh:
+                file_kv = cls.kv2map(fh.read().splitlines())
+        file_kv.update(kv)
+        file_kv.pop("config", None)
+        file_kv.pop("config_file", None)
+        return cls.from_dict(file_kv)
+
     @property
     def num_tree_per_iteration(self) -> int:
         if self.objective in ("multiclass", "multiclassova"):
@@ -555,9 +590,11 @@ class Config:
 # (EFB on dense and CSR data, files with their loader knobs, custom
 # objectives) and the binning knobs max_bin_by_feature and
 # forcedbins_filename (parts 1.4, 1.5 and 1.7); categorical features,
-# interaction constraints, CEGB and forced splits (part 1.6).  The first
-# six items keep their names for ROADMAP's record of them, and nothing
-# refuses with them any more.
+# interaction constraints, CEGB and forced splits (part 1.6); the native
+# C++ predictor and parser, TreeSHAP and prediction early stopping, the
+# CLI, and the sklearn wrappers and plotting (items 2-5).  Those items keep
+# their names for ROADMAP's record of them, and nothing refuses with them
+# any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
@@ -589,15 +626,6 @@ _UNPORTED = (
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (TREESHAP, ("predict_contrib", "pred_early_stop", "pred_early_stop_freq",
-                "pred_early_stop_margin")),
-    (CLI, ("config", "task", "data", "valid", "output_model",
-           "input_model", "output_result", "valid_data_initscores",
-           "save_binary", "predict_raw_score", "predict_leaf_index",
-           "start_iteration_predict", "num_iteration_predict",
-           "convert_model_language", "convert_model", "metric_freq",
-           "is_provide_training_metric", "refit_decay_rate", "snapshot_keep",
-           "snapshot_freq")),
     (HTTP, ("serve_http_port", "serve_duration_s")),
     (FLEET, ("serve_replicas", "router_health_period_ms",
              "router_eject_after", "router_readmit_after", "router_retry_max",

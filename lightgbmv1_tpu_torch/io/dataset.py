@@ -16,17 +16,27 @@ never the dense (F, N) matrix (``binned`` is None then, unless no bundle
 forms and the identity layout's matrix is the plain one).  Categorical
 features (``categorical_features``, JAX :167, :267) take categorical
 mappers (io/binning.py), and bundle as any feature does.
+
+The binned dataset cache (``save_binary`` / ``is_binary_file`` /
+``load_binary``, JAX :414-606; reference Dataset::SaveBinaryFile,
+DatasetLoader::LoadFromBinFile) keeps the JAX package's npz layout, magic
+and format version 2 with its per-section SHA-256 digests, so a ``.bin``
+either package writes loads in the other.
 """
 
 from __future__ import annotations
 
+import hashlib
+import io
+import zipfile
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 
 from ..config import Config
-from ..utils.log import log_fatal, log_info
+from ..utils.fileio import atomic_write_bytes, exists, open_file
+from ..utils.log import LightGBMError, log_fatal, log_info, log_warning
 from .binning import BIN_CATEGORICAL, BIN_NUMERICAL, BinMapper
 
 
@@ -184,6 +194,172 @@ class BinnedDataset:
 
     def feature_infos(self) -> List[str]:
         return [m.feature_info_str() for m in self.bin_mappers]
+
+    # the JAX package's cache identity (JAX :414-419): a version-1 cache
+    # (no digests) loads with a warning, a newer version is refused
+    BINARY_MAGIC = "lightgbmv1_tpu.dataset.v1"
+    BINARY_FORMAT_VERSION = 2
+
+    @staticmethod
+    def _section_digest(arr: np.ndarray) -> str:
+        return hashlib.sha256(np.ascontiguousarray(arr).tobytes()
+                              ).hexdigest()
+
+    def save_binary(self, path: str) -> None:
+        """Write the binned cache to ``path`` atomically (JAX :428): the
+        bins (or, for sparse input that bundled, the bundle matrix; a
+        dense set's bundle matrix is derived again at load), the bundle
+        layout, the mappers as flat arrays, the metadata, each section
+        under its digest."""
+        ubounds = [np.asarray(m.bin_upper_bound, np.float64)
+                   for m in self.bin_mappers]
+        cats = [np.asarray(m.bin_2_categorical, np.int64)
+                for m in self.bin_mappers]
+        meta, bl = self.metadata, self.bundle_layout
+        sections = dict(
+            magic=np.frombuffer(self.BINARY_MAGIC.encode(), dtype=np.uint8),
+            binned=(self.binned if self.binned is not None
+                    else np.zeros((0, 0), np.uint8)),
+            bundled=(self.bundled
+                     if self.bundled is not None and self.binned is None
+                     else np.zeros((0, 0), np.uint8)),
+            bundle_of=(bl.bundle_of if bl is not None
+                       else np.zeros(0, np.int32)),
+            bundle_offset=(bl.offset if bl is not None
+                           else np.zeros(0, np.int32)),
+            bundle_is_bundled=(bl.is_bundled if bl is not None
+                               else np.zeros(0, bool)),
+            bundle_nbins=(bl.bundle_nbins if bl is not None
+                          else np.zeros(0, np.int32)),
+            num_data=np.int64(self.num_data),
+            max_bin=np.int64(self.max_bin),
+            feature_names=np.array(self.feature_names),
+            mapper_scalars=np.array(
+                [[m.num_bin, m.missing_type, m.bin_type, int(m.is_trivial)]
+                 for m in self.bin_mappers], dtype=np.int64),
+            mapper_floats=np.array(
+                [[m.sparse_rate, m.min_value, m.max_value]
+                 for m in self.bin_mappers], dtype=np.float64),
+            ubound_flat=np.concatenate(ubounds) if ubounds else np.zeros(0),
+            ubound_offsets=np.cumsum([0] + [len(u) for u in ubounds]),
+            cat_flat=np.concatenate(cats) if cats else np.zeros(0, np.int64),
+            cat_offsets=np.cumsum([0] + [len(c) for c in cats]),
+            label=meta.label if meta.label is not None else np.zeros(0),
+            weight=meta.weight if meta.weight is not None else np.zeros(0),
+            group=(meta.group if meta.group is not None
+                   else np.zeros(0, np.int64)),
+            init_score=(meta.init_score if meta.init_score is not None
+                        else np.zeros(0)),
+        )
+        digest_keys = sorted(k for k in sections if k != "magic")
+        fh = io.BytesIO()       # savez appends .npz to a bare string path
+        np.savez_compressed(
+            fh, format_version=np.int64(self.BINARY_FORMAT_VERSION),
+            digest_keys=np.array(digest_keys),
+            digest_values=np.array([self._section_digest(sections[k])
+                                    for k in digest_keys]),
+            **sections)
+        atomic_write_bytes(path, fh.getvalue())
+        log_info(f"Saved binary dataset cache to {path} (format "
+                 f"v{self.BINARY_FORMAT_VERSION}, {len(digest_keys)} "
+                 "digest-pinned sections)")
+
+    @classmethod
+    def is_binary_file(cls, path: str) -> bool:
+        """A zip whose ``magic`` member is the cache's (JAX :501)."""
+        if not exists(path):
+            return False
+        try:
+            with open_file(path, "rb") as fh:
+                if not zipfile.is_zipfile(fh):
+                    return False
+                fh.seek(0)
+                with np.load(fh, allow_pickle=False) as z:
+                    return ("magic" in z and bytes(z["magic"]).decode()
+                            == cls.BINARY_MAGIC)
+        except Exception:               # any unreadable file is not one
+            return False
+
+    @classmethod
+    def load_binary(cls, path: str) -> "BinnedDataset":
+        """The dataset a cache holds (JAX :519); a torn, corrupt or newer
+        cache is fatal."""
+        try:
+            return cls._load_binary(path)
+        except LightGBMError:
+            raise
+        except (zipfile.BadZipFile, ValueError, OSError, KeyError,
+                EOFError) as e:
+            log_fatal(f"{path}: torn or corrupt binary dataset cache "
+                      f"({type(e).__name__}: {e}); re-create it with "
+                      "save_binary")
+
+    @classmethod
+    def _load_binary(cls, path: str) -> "BinnedDataset":
+        from .bundle import BundleLayout, apply_bundles_dense
+
+        with open_file(path, "rb") as fh, \
+                np.load(fh, allow_pickle=False) as z:
+            if bytes(z["magic"]).decode() != cls.BINARY_MAGIC:
+                log_fatal(f"{path} is not a lightgbmv1_tpu binary dataset")
+            version = (int(z["format_version"]) if "format_version" in z
+                       else 1)
+            if version > cls.BINARY_FORMAT_VERSION:
+                log_fatal(f"{path}: binary cache format v{version} is "
+                          "newer than this build reads "
+                          f"(v{cls.BINARY_FORMAT_VERSION}); re-create it "
+                          "with save_binary")
+            if version >= 2:
+                for k, want in zip(z["digest_keys"], z["digest_values"]):
+                    k = str(k)
+                    if k not in z or cls._section_digest(z[k]) != str(want):
+                        log_fatal(f"{path}: binary cache section {k!r} "
+                                  "digest mismatch — torn or corrupt "
+                                  "cache; re-create it with save_binary")
+            else:
+                log_warning(f"{path}: legacy v1 binary cache (no section "
+                            "digests); re-save to enable corruption "
+                            "detection")
+            sc, fl = z["mapper_scalars"], z["mapper_floats"]
+            uoff, coff = z["ubound_offsets"], z["cat_offsets"]
+            mappers = []
+            for j in range(sc.shape[0]):
+                cats = [int(c) for c in z["cat_flat"][coff[j]:coff[j + 1]]]
+                mappers.append(BinMapper(
+                    bin_upper_bound=np.asarray(
+                        z["ubound_flat"][uoff[j]:uoff[j + 1]], np.float64),
+                    num_bin=int(sc[j, 0]), missing_type=int(sc[j, 1]),
+                    bin_type=int(sc[j, 2]), is_trivial=bool(sc[j, 3]),
+                    sparse_rate=float(fl[j, 0]), min_value=float(fl[j, 1]),
+                    max_value=float(fl[j, 2]), bin_2_categorical=cats,
+                    categorical_2_bin={c: i for i, c in enumerate(cats)}))
+            meta = Metadata()
+            if z["label"].size:
+                meta.label = z["label"].astype(np.float32)
+            if z["weight"].size:
+                meta.weight = z["weight"].astype(np.float32)
+            if z["group"].size:
+                meta.set_group(z["group"])
+            if z["init_score"].size:
+                meta.init_score = z["init_score"]
+            ds = cls(z["binned"] if z["binned"].size else None, mappers,
+                     meta, feature_names=[str(s)
+                                          for s in z["feature_names"]],
+                     max_bin=int(z["max_bin"]),
+                     num_data=(int(z["num_data"]) if "num_data" in z
+                               else z["binned"].shape[1]))
+            if "bundle_of" in z and z["bundle_of"].size:
+                ds.bundle_layout = BundleLayout(
+                    bundle_of=z["bundle_of"], offset=z["bundle_offset"],
+                    is_bundled=z["bundle_is_bundled"],
+                    bundle_nbins=z["bundle_nbins"])
+                ds.bundled = (z["bundled"] if z["bundled"].size
+                              else apply_bundles_dense(
+                                  ds.binned, ds.zero_bins,
+                                  ds.bundle_layout))
+        log_info(f"Loaded binary dataset cache from {path}: "
+                 f"{ds.num_data} rows, {ds.num_features} features")
+        return ds
 
     @classmethod
     def from_numpy(cls, X: np.ndarray, label: Optional[np.ndarray] = None,

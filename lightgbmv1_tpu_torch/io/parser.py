@@ -12,11 +12,12 @@ dense file twice: a reservoir sample of ``bin_construct_sample_cnt``
 rows for the bin mappers, then the rows binned chunk by chunk, so the
 float64 matrix never exists.
 
-The JAX package reaches a native C++ parser first (native/text_parser.cpp)
-and keeps this Python parser as its semantics reference and fallback; the
-port has the Python parser only (the native one is ROADMAP queue 1, the
-native C++ item).  The JAX loader's rank-sharded loading belongs to the
-parallel learners and is not ported.
+A dense file (csv, tsv, whitespace) on local disk goes through the
+native C++ parser first (``native/text_parser.cpp``, threaded), as in the
+JAX package (:389-396); this Python parser is its semantics reference and
+takes the files the native one hands back: libsvm, remote paths, and
+ragged or malformed rows, which it reports.  The JAX loader's
+rank-sharded loading belongs to the parallel learners and is not ported.
 """
 
 from __future__ import annotations
@@ -282,23 +283,31 @@ def load_two_round(path: str, config, categorical_features=None):
 def load_data_file(path: str, *, has_header: bool = False,
                    label_column: str = "", weight_column: str = "",
                    group_column: str = "", ignore_column: str = "",
-                   is_predict: bool = False,
+                   is_predict: bool = False, num_threads: int = 0,
                    init_score_file: str = "") -> DataFile:
     """A training or prediction file with the reference loader's
     conventions (JAX :315; reference DatasetLoader::LoadFromFile,
     dataset_loader.cpp:167).  ``is_predict``: no label column unless
-    one is named."""
+    one is named; ``num_threads`` caps the native parser's threads (<= 0:
+    every core)."""
     header_names, fmt, sep = _head(path, has_header)
-    with fileio.open_file(path) as fh:
-        lines = fh.read().splitlines()
-    if has_header and lines:
-        lines = lines[1:]
+
+    def all_lines():
+        with fileio.open_file(path) as fh:
+            lines = fh.read().splitlines()
+        return lines[1:] if has_header and lines else lines
+
     label = weight = group = None
     feature_names = None
     if fmt == "libsvm":
-        X, label = _parse_libsvm(lines)
+        X, label = _parse_libsvm(all_lines())
     else:
-        data = _parse_dense(lines, sep)
+        from ..native import parse_dense_file
+
+        data = (None if fileio.is_remote_path(path) else
+                parse_dense_file(path, has_header, sep, num_threads))
+        if data is None:
+            data = _parse_dense(all_lines(), sep)
         label_idx, weight_idx, group_idx, ignore = _meta_columns(
             header_names, label_column, weight_column, group_column,
             ignore_column, None if is_predict else 0)

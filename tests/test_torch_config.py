@@ -35,6 +35,17 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 _REFUSED = [(name, item) for item, names in tconfig._REFUSED
             for name in names]
 _FIELDS = {f.name: f for f in dataclasses.fields(Config)}
+# the knobs the port refused until the CLI (ROADMAP queue 1, item 4) and
+# TreeSHAP and prediction early stopping (item 3) ported them
+_CLI_AND_TREESHAP = [
+    "predict_contrib", "pred_early_stop", "pred_early_stop_freq",
+    "pred_early_stop_margin", "config", "task", "data", "valid",
+    "output_model", "input_model", "output_result", "valid_data_initscores",
+    "save_binary", "predict_raw_score", "predict_leaf_index",
+    "start_iteration_predict", "num_iteration_predict",
+    "convert_model_language", "convert_model", "metric_freq",
+    "is_provide_training_metric", "refit_decay_rate", "snapshot_keep",
+    "snapshot_freq"]
 # the knobs the port refused with its breadth item until that item's
 # part 1.6 ported them (categorical features, CEGB)
 _PART_16 = ["min_data_per_group", "max_cat_threshold", "cat_l2",
@@ -116,7 +127,8 @@ def test_every_jax_knob_and_alias_is_known():
             "label_column", "weight_column", "group_column",
             "ignore_column", "two_round", "initscore_filename",
             "interaction_constraints", "forcedsplits_filename",
-            "cegb_penalty_split", "categorical_feature"} | set(_PART_16)
+            "cegb_penalty_split", "categorical_feature"} | set(_PART_16) \
+        | set(_CLI_AND_TREESHAP)
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -125,6 +137,20 @@ def test_every_jax_knob_and_alias_is_known():
              "predict_cache_entries", "num_threads"}
     assert set(_FIELDS) - handled - runs - inert == set()
     assert not inert & handled
+
+
+@pytest.mark.parametrize("name", _CLI_AND_TREESHAP)
+def test_cli_and_treeshap_knob_is_accepted(name, capsys):
+    """A knob refused until items 3-4 ported it: a field the JAX package
+    knows, set without a warning, and a config that sets it is not
+    refused."""
+    value = _other_value(name)
+    assert name in {f.name for f in dataclasses.fields(JaxConfig)}
+    assert name not in {n for n, _ in _REFUSED}
+    cfg = Config.from_dict({"objective": "binary", name: value})
+    assert "Unknown parameter" not in capsys.readouterr().err
+    assert getattr(cfg, name) == value
+    assert unported_reason(cfg) is None
 
 
 @pytest.mark.parametrize("name,item", _REFUSED,
@@ -143,7 +169,8 @@ def test_refused_knob_raises_with_its_item(name, item, capsys):
 
 
 def test_training_refuses_a_dropped_knob():
-    """train raises for a refused knob on the Booster's params; the knobs
+    """train raises for a refused knob on the Booster's params (the
+    prediction early stopping it refused until item 3 trains); the knobs
     refused until part 1.6 train (a lazy CEGB penalty of the wrong size
     is fatal, as in the JAX package) and a Dataset with categorical
     features bins (the binning knobs it refused until part 1.7 bin
@@ -154,9 +181,11 @@ def test_training_refuses_a_dropped_knob():
     X = rng.randn(300, 3)
     y = (X[:, 0] > 0).astype(float)
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="pred_early_stop"):
-        train(dict(params, pred_early_stop=True), Dataset(X, label=y), 2,
+    with pytest.raises(NotImplementedError, match="obs_trace"):
+        train(dict(params, obs_trace=True), Dataset(X, label=y), 2,
               device="cpu")
+    assert train(dict(params, pred_early_stop=True), Dataset(X, label=y), 2,
+                 device="cpu").num_trees() == 2
     with pytest.raises(LightGBMError, match="cegb_penalty_feature_lazy"):
         train(dict(params, cegb_penalty_feature_lazy=[1.0, 0.5]),
               Dataset(X, label=y), 2, device="cpu")
@@ -377,10 +406,24 @@ def test_unknown_metric_warns(capsys):
     assert "Unknown metric no_such_metric" in capsys.readouterr().err
 
 
+@pytest.mark.parametrize("kw", [
+    {"pred_contrib": True}, {"pred_early_stop": True},
+    {"predict_method": "native"}], ids=["pred_contrib", "pred_early_stop",
+                                        "native"])
+def test_prediction_knobs_refused_until_ported_work(kw):
+    """TreeSHAP, prediction early stopping and the native walk, refused
+    until items 2-3 ported them, give the JAX package's predictions."""
+    from lightgbmv1_tpu import Booster as JaxBooster
+
+    path = os.path.join(DATA, "golden_zero_model.txt")
+    pb, jb = Booster(model_file=path, device="cpu"), JaxBooster(
+        model_file=path)
+    X = np.random.RandomState(0).randn(16, pb.num_feature())
+    np.testing.assert_allclose(pb.predict(X, **kw), jb.predict(X, **kw),
+                               rtol=0, atol=1e-12)
+
+
 @pytest.mark.parametrize("kw,item", [
-    ({"pred_contrib": True}, tconfig.TREESHAP),
-    ({"pred_early_stop": True}, tconfig.TREESHAP),
-    ({"predict_method": "native"}, tconfig.NATIVE),
     ({"predict_method": "scan"}, tconfig.SHARDED_PREDICT),
     ({"predict_method": "fused", "predict_num_shards": 2},
      tconfig.SHARDED_PREDICT)])

@@ -223,7 +223,7 @@ _DATASET_CALLS = {
     "get_weight": lambda ds, X: ds.get_weight(),
     "num_data": lambda ds, X: ds.num_data(),
     "num_feature": lambda ds, X: ds.num_feature(),
-    "save_binary": lambda ds, X: ds.save_binary("train.bin"),
+    "save_binary": lambda ds, X: _binary_round_trip(ds),
     "save_block_cache": lambda ds, X: ds.save_block_cache("cache"),
     "set_field": lambda ds, X: ds.set_field("weight", None),
     "set_group": lambda ds, X: ds.set_group(None),
@@ -232,6 +232,77 @@ _DATASET_CALLS = {
     "set_weight": lambda ds, X: ds.set_weight(None),
     "subset": lambda ds, X: ds.subset(np.arange(10)),
 }
+
+
+def _binary_round_trip(ds):
+    """``ds``'s binned cache in a fresh temporary directory, loaded
+    back."""
+    path = os.path.join(tempfile.mkdtemp(), "train.bin")
+    ds.save_binary(path)
+    back = lt.Dataset(path).construct()
+    np.testing.assert_array_equal(back._binned.binned, ds._binned.binned)
+
+
+class _Digraph:
+    """A stand-in for graphviz.Digraph (installed on neither machine)."""
+
+    def __init__(self, **kwargs):
+        self.nodes = []
+
+    def attr(self, **kwargs):
+        pass
+
+    def node(self, name, **kwargs):
+        self.nodes.append(name)
+
+    def edge(self, tail, head, label=None):
+        pass
+
+    def pipe(self, format="png"):
+        import io
+
+        import matplotlib.pyplot as plt
+
+        buf = io.BytesIO()
+        plt.imsave(buf, np.zeros((4, 4, 3)), format=format)
+        return buf.getvalue()
+
+
+def _with_graphviz(call):
+    """``call()`` with the stand-in importable as ``graphviz``."""
+    import sys
+    import types
+
+    import matplotlib
+
+    matplotlib.use("Agg")
+    mod = types.ModuleType("graphviz")
+    mod.Digraph = _Digraph
+    saved = sys.modules.get("graphviz")
+    sys.modules["graphviz"] = mod
+    try:
+        return call()
+    finally:
+        if saved is None:
+            del sys.modules["graphviz"]
+        else:
+            sys.modules["graphviz"] = saved
+
+
+def _plotted(call):
+    """``call()`` under matplotlib's Agg backend, its figures closed."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    try:
+        return call()
+    finally:
+        plt.close("all")
+
+
+_EST = dict(num_leaves=7, n_estimators=2, device_type="cpu")
 
 _TOP_CALLS = {
     "Config": lambda: lt.Config.from_dict({"eta": 0.2}),
@@ -249,11 +320,22 @@ _TOP_CALLS = {
     "log_evaluation": lambda: lt.log_evaluation(),
     "record_evaluation": lambda: lt.record_evaluation({}),
     "reset_parameter": lambda: lt.reset_parameter(learning_rate=[0.1]),
-    **{name: (lambda name=name: getattr(lt, name)())
-       for name in ("LGBMModel", "LGBMRegressor", "LGBMClassifier",
-                    "LGBMRanker", "plot_importance", "plot_metric",
-                    "plot_split_value_histogram", "plot_tree",
-                    "create_tree_digraph")},
+    "LGBMModel": lambda: lt.LGBMModel(**_EST).fit(*_data(8, 256)),
+    "LGBMRegressor": lambda: lt.LGBMRegressor(**_EST).fit(*_data(8, 256)),
+    "LGBMClassifier": lambda: lt.LGBMClassifier(**_EST).fit(
+        *_data(8, 256)).predict_proba(_data(8, 256)[0]),
+    "LGBMRanker": lambda: lt.LGBMRanker(**_EST).fit(
+        *_data(8, 256), group=[64] * 4),
+    "plot_importance": lambda: _plotted(
+        lambda: lt.plot_importance(_trained()[0])),
+    "plot_metric": lambda: _plotted(
+        lambda: lt.plot_metric({"v": {"auc": [0.6, 0.7]}})),
+    "plot_split_value_histogram": lambda: _plotted(
+        lambda: lt.plot_split_value_histogram(_trained()[0], 0)),
+    "plot_tree": lambda: _plotted(lambda: _with_graphviz(
+        lambda: lt.plot_tree(_trained()[0]))),
+    "create_tree_digraph": lambda: _with_graphviz(
+        lambda: lt.create_tree_digraph(_trained()[0])),
 }
 
 # the names that refuse, by the title of their ROADMAP queue 1 item
@@ -261,11 +343,6 @@ _REFUSING = {
     "capture_model_reference": tconfig.DRIFT,
     "quality_snapshot": tconfig.DRIFT,
     "from_binned": tconfig.PARALLEL, "save_block_cache": tconfig.PARALLEL,
-    "save_binary": tconfig.CLI,
-    **{name: tconfig.SKLEARN for name in (
-        "LGBMModel", "LGBMRegressor", "LGBMClassifier", "LGBMRanker",
-        "plot_importance", "plot_metric", "plot_split_value_histogram",
-        "plot_tree", "create_tree_digraph")},
 }
 
 
