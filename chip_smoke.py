@@ -93,7 +93,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
 12. timing  — K1 at each slot bucket of the main path (its own last
               inputs, recorded in phase 10) beside its plain version, one
               ``index_add_`` and its bound.
-13. profile — five headline iterations under torch.profiler: device time
+13. profile — three headline iterations under torch.profiler: device time
               by kernel and the device's busy share.
 14. K2/K3   — the fused round K2 and the valid routing K3 against their
               plain versions on the card, on phase 8's bins with signed,
@@ -149,7 +149,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               bucket, by events and on the device, with the device
               kernels a pick runs (profiler), beside K2 with its pick and
               K2 alone, its plain version and its bound by bytes.
-18. profile — five fused headline iterations, as phase 13.
+18. profile — three fused headline iterations, as phase 13.
 19. K6      — the persistent wave loop's plan at the headline shape
               (eligible), then K6 on the headline bins and phase 14's
               signed, varied rows from a frontier captured after the root
@@ -186,7 +186,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               each bucket); K6 on the main path's last inputs beside its
               plain version, R K2 rounds on the same inputs, its all-rows
               and live-row bounds, and one round alone against K2 alone
-              on that round's inputs; five looped iterations profiled, as
+              on that round's inputs; three looped iterations profiled, as
               phase 13.
 22. regression — the sequential grower's main path, launch counts reset
               first: phase 8's rows with a continuous target (make_data's
@@ -199,7 +199,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               its segment), no plain version; s/iteration, s/tree, K1
               launches a tree, the valid l2, the model text's hash, the
               model served through K4.  Then K1 against its plain
-              versions on the path's last inputs and timed there; five
+              versions on the path's last inputs and timed there; three
               iterations profiled; and the path in f32 on the card and on
               the CPU on 65,536 of the rows, the CPU's K1 the row-order
               plain version (``card_vs_cpu`` says why): every split
@@ -500,6 +500,27 @@ Phases (any failure exits non-zero with no ``ok`` line):
               tree); ``pred_early_stop`` (freq 5, margin 4) on the valid
               rows: the rows that stopped early, seconds beside the full
               host walk.
+52. serving   — ``cli.run_serve`` in process on the card: phase 3's
+              model A behind the HTTP front-end on a port of 127.0.0.1
+              the system picks (``predict_method`` at its default, the
+              f64 lane, a two-tenant manifest, ``trace_out``, watchdog
+              and breaker armed); 8 client threads POST 200 requests of
+              1-256 rows
+              while model B is published and rolled back, every answer
+              bit for bit ``Booster.predict(raw_score=True)`` of its
+              version; requests/s, p50 / p99 ms, batches and mean batch
+              rows; each tenant its own version (``/tenants``); ``/slo``
+              burn rates; the Prometheus view parsed; a ``replica_wedge``
+              stall answered 503, a dispatcher killed and restarted, two
+              failed batches opening the breaker (a rollback); the
+              sampled responses' trace ids in the exported trace.  Then a
+              degrading server (the first 100 trees, answered by K4 under
+              a forced backlog) and a drift-armed one (PSI under the
+              threshold on the training distribution, over it on shifted
+              rows).  Every version any of them publishes walks with K4
+              (its predictor and its degrade predictor), and K4's
+              launches are exactly the servers' batches plus each
+              publish's warm batches and its two probe batches.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
               kernels, the split-scan kernel, the pick kernel, the
               split scan's extra_trees and wide legs, K3's 16-bit and
@@ -561,7 +582,7 @@ from lightgbmv1_tpu_torch.ops.split import (NO_CONSTRAINT, TIE_RTOL,
                                             scan_inputs, scan_left_sums,
                                             scan_residue, with_tables)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
-from lightgbmv1_tpu_torch.serve import ServeConfig, Server
+from lightgbmv1_tpu_torch.serve import ServeConfig, ServeHTTP, Server
 from lightgbmv1_tpu_torch.utils import prng
 
 F = 28                      # features of the bench headline model
@@ -3070,6 +3091,9 @@ JAX_RANK_NDCG10, REF_RANK_NDCG10 = 0.61497, 0.613977
 # 3.9e-4 on the binary path)
 PARITY_LEAF_TOL = 2e-3
 PARITY_ROWS = 65536
+# iterations under torch.profiler in phases 13, 18, 21 and 22-25 (no gate
+# reads them; five until phase 52 needed the room)
+PROFILE_ITERS = 3
 
 
 def regression_target(X, seed):
@@ -8028,6 +8052,452 @@ def phase_contrib(Xv) -> dict:
     return out
 
 
+SERVE_CLIENTS = 8           # phase 52's HTTP client threads
+SERVE_HTTP_REQUESTS = 200   # its main window's requests (1-256 rows each)
+SERVE_DEGRADE_TREES = 100   # the truncated ensemble of the degrade check
+DRIFT_ROWS = 32768          # the drift check's training rows
+
+
+class PreparedVersions:
+    """Records every version a serving registry prepares (its build,
+    warm batches and golden probe) while active, with the probe's rows."""
+
+    def __enter__(self):
+        from lightgbmv1_tpu_torch.serve.registry import ModelRegistry
+
+        self.versions = []
+        self._cls, self._orig = ModelRegistry, ModelRegistry.prepare
+        orig, seen = self._orig, self.versions
+
+        def prepare(reg, model, **kw):
+            mv = orig(reg, model, **kw)
+            seen.append((mv, int(kw.get("probe_rows", 64))))
+            return mv
+
+        ModelRegistry.prepare = prepare
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.prepare = self._orig
+
+
+def check_k4_serving(what, prepared, batches) -> dict:
+    """Every version prepared so far walks with K4 (its predictor and
+    its degrade predictor), and K4's launches since the counts were reset
+    are exactly the servers' ``batches`` plus each version's warm batches
+    and, where it was probed, its two probe batches (the f64 lane's leaf
+    mode and the f32 lane): no serving batch took another walk."""
+    walks = [bp for mv, _ in prepared.versions
+             for bp in (mv.predictor, mv.degraded) if bp is not None]
+    unfused = [bp.method for bp in walks if not bp._fused_engaged()]
+    check(walks and not unfused,
+          f"{what}: {len(unfused)} of {len(walks)} serving predictors not "
+          f"on K4 ({unfused[:3]})")
+    warm = sum(mv.meta["n_warm"] for mv, _ in prepared.versions)
+    probe = sum(2 for _, rows in prepared.versions if rows > 0)
+    launches = int(pc.launch_counts["serving_fused"])
+    check(launches == batches + warm + probe
+          and pc.launch_counts["serving_leaf"] == 0,
+          f"{what}: K4 {launches} launches, want {batches} batches + "
+          f"{warm} warm + {probe} probe; K5 "
+          f"{pc.launch_counts['serving_leaf']}")
+    return {"launches": launches, "batches": batches, "warm": warm,
+            "probe": probe, "versions": len(prepared.versions),
+            "predictors": len(walks)}
+
+
+def http_call(port, path, payload=None, headers=None):
+    """``(status, headers, body bytes)`` of one request to the local
+    front-end (a POST when ``payload`` is given)."""
+    import urllib.error
+    import urllib.request
+
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}{path}", data=data,
+        headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def http_predict(port, rows, **extra):
+    code, hdr, body = http_call(port, "/predict",
+                                {"rows": np.asarray(rows).tolist(), **extra})
+    return code, hdr, json.loads(body)
+
+
+def serve_traffic(port, srv, booster_b, n_requests, rng):
+    """SERVE_CLIENTS threads POST 1-256-row requests; a publish of model
+    B and a rollback to A happen in mid-traffic.  Returns the answers
+    ``(rows, version, values, latency_ms, trace_id)``, the tags and the
+    window's seconds."""
+    seeds = rng.randint(1 << 30, size=SERVE_CLIENTS)
+    answers, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(seed):
+        r = np.random.RandomState(seed)
+        try:
+            while not stop.is_set():
+                rows = make_rows(r, r.randint(1, 257))
+                t0 = time.perf_counter()
+                code, hdr, body = http_predict(port, rows)
+                lat = (time.perf_counter() - t0) * 1e3
+                if code != 200:
+                    raise RuntimeError(f"HTTP {code}: {body}")
+                with lock:
+                    answers.append((rows, body["version"],
+                                    np.asarray(body["values"]), lat,
+                                    hdr["X-Trace-Id"]))
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            errors.append(e)
+
+    def more(n):
+        goal = len(answers) + n
+        while len(answers) < goal and not errors:
+            time.sleep(0.002)
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in seeds]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    more(n_requests // 3)
+    tag_b = srv.publish(booster_b)
+    more(n_requests // 3)
+    tag_a = srv.rollback()
+    more(n_requests - 2 * (n_requests // 3))
+    stop.set()
+    for t in threads:
+        t.join(timeout=300)
+    secs = time.perf_counter() - t0
+    check(not errors, f"HTTP client errors: {errors[:3]}")
+    check(not any(t.is_alive() for t in threads), "an HTTP client hung")
+    return answers, (tag_a, tag_b), secs
+
+
+def check_answers(answers, by_tag, what):
+    """Every answer equals ``Booster.predict(raw_score=True)`` of the
+    version it names, bit for bit (the f64 lane)."""
+    for tag, booster in by_tag.items():
+        mine = [(rows, vals) for rows, t, vals, *_ in answers if t == tag]
+        check(bool(mine), f"{what}: no answer tagged {tag}")
+        X = np.concatenate([rows for rows, _ in mine])
+        want = booster.predict(X, raw_score=True)
+        got = np.concatenate([vals[:, 0] for _, vals in mine])
+        e = float(np.abs(got - want).max())
+        check(np.array_equal(got, want),
+              f"{what}: answers of {tag} differ from Booster.predict by {e}")
+        log(f"  {what}: {len(mine)} answers tagged {tag}, bit for bit "
+            "Booster.predict(raw_score=True)")
+
+
+PROM_LINE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? '
+                       r'(-?[0-9.eE+-]+|\+Inf|NaN)$')
+
+
+def parse_prometheus(text: str) -> dict:
+    """Prometheus text exposition 0.0.4 -> ``{series: value}``; every
+    sample line must parse."""
+    out = {}
+    for ln in text.splitlines():
+        if not ln or ln.startswith("#"):
+            continue
+        m = PROM_LINE.match(ln)
+        check(m is not None, f"unparsable exposition line {ln!r}")
+        out[m.group(1) + (m.group(2) or "")] = float(m.group(3))
+    return out
+
+
+def serve_failure_domains(port, srv, booster_a, booster_b, rng):
+    """On the serving window's server (watchdog 1 s, breaker after 2
+    failed batches, no retries): a ``replica_wedge`` stall answers 503
+    and the next request 200; a dispatcher killed by ``exit_thread`` is
+    restarted and the next request answered; two failed batches after a
+    publish open the breaker, which rolls back to the previous
+    version."""
+    from lightgbmv1_tpu_torch.utils import faults
+
+    X = make_rows(rng, 16)
+    out = {}
+    with faults.inject(faults.FaultSpec("replica_wedge", mode="stall",
+                                        stall_s=1.5, match="server")):
+        code, _, body = http_predict(port, X)
+    check(code == 503 and "DispatcherStalled" in body.get("error", ""),
+          f"a wedged batch answered {code}: {body}")
+    deadline = time.monotonic() + 30.0
+    while srv.wedged() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    code, _, body = http_predict(port, X)
+    check(code == 200, f"after the wedge: HTTP {code} {body}")
+    out["wedge"] = {"status": 503, "after": code,
+                    "watchdog_failures": srv.metrics.value(
+                        "watchdog_failures")}
+    with faults.inject(faults.FaultSpec("dispatch", mode="exit_thread")):
+        code, _, body = http_predict(port, X)
+    check(code == 503, f"a dying dispatcher answered {code}: {body}")
+    deadline = time.monotonic() + 30.0
+    while not srv.dispatcher_alive() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    code, _, body = http_predict(port, X)
+    restarts = srv.metrics.value("dispatcher_restarts")
+    check(code == 200 and restarts >= 1,
+          f"after the restart: HTTP {code}, {restarts} restarts")
+    out["restart"] = {"status": 503, "after": code, "restarts": restarts}
+    before = srv.version()
+    tag = srv.publish(booster_b)
+    with faults.inject(faults.FaultSpec("dispatch", mode="raise", count=2)):
+        codes = [http_predict(port, X)[0] for _ in range(2)]
+    code, _, body = http_predict(port, X)
+    trips = srv.metrics.value("breaker_trips")
+    check(codes == [503, 503] and trips == 1 and srv.version() == before
+          and body.get("version") == before,
+          f"breaker: {codes}, {trips} trips, serving {srv.version()} "
+          f"(published {tag}, previous {before})")
+    want = booster_a.predict(X, raw_score=True)
+    check(np.array_equal(np.asarray(body["values"])[:, 0], want),
+          "the rolled-back version's answer differs from Booster.predict")
+    out["breaker"] = {"failed": codes, "trips": trips, "published": tag,
+                      "rolled_back_to": before}
+    log(f"  failure domains: {json.dumps(out)}")
+    return out
+
+
+def serve_degrade(booster, dev, rng):
+    """A server with ``degrade_trees=SERVE_DEGRADE_TREES``: a first batch
+    stalled by a ``dispatch`` plan while four 128-row requests queue;
+    the next batch leaves 256 rows backlogged (a quarter of the queue)
+    and is answered ``degraded`` by K4 on the truncated tables, equal to
+    ``Booster.predict(num_iteration=SERVE_DEGRADE_TREES)``; the last
+    batch, with no backlog, by the whole ensemble."""
+    from lightgbmv1_tpu_torch.utils import faults
+
+    srv = Server(booster, ServeConfig(
+        max_batch_rows=256, max_batch_delay_ms=1.0, queue_depth_rows=1024,
+        degrade_trees=SERVE_DEGRADE_TREES, degrade_queue_frac=0.25,
+        f64_scores=True), device=dev)
+    try:
+        mv = srv.registry.current()
+        deg = mv.degraded
+        check(deg is not None and deg.T == SERVE_DEGRADE_TREES
+              and deg._fused_engaged(),
+              f"degrade predictor: {deg and deg.T} trees, fused "
+              f"{deg is not None and deg._fused_engaged()}")
+        calls0 = deg.call_count
+        Xs = [make_rows(rng, 128) for _ in range(4)]
+        res = {}
+        with faults.inject(faults.FaultSpec("dispatch", mode="stall",
+                                            stall_s=1.0)) as plan:
+            first = threading.Thread(target=lambda: res.setdefault(
+                "first", srv.submit(make_rows(rng, 8))))
+            first.start()
+            deadline = time.monotonic() + 60.0
+            while not plan.fired and time.monotonic() < deadline:
+                time.sleep(0.002)
+            ths = [threading.Thread(target=lambda i=i: res.setdefault(
+                i, srv.submit(Xs[i]))) for i in range(4)]
+            for t in ths:
+                t.start()
+                time.sleep(0.05)
+            for t in [first] + ths:
+                t.join(timeout=300)
+        flags = [res[i].degraded for i in range(4)]
+        check(flags == [True, True, False, False],
+              f"degraded flags {flags}")
+        for i in range(4):
+            want = booster.predict(
+                Xs[i], raw_score=True,
+                num_iteration=SERVE_DEGRADE_TREES if flags[i] else None)
+            check(np.array_equal(res[i].values[:, 0], want),
+                  f"degraded request {i} differs from Booster.predict")
+        check(deg.call_count > calls0, "the degrade predictor never ran")
+        out = {"flags": flags, "degrade_trees": deg.T,
+               "degrade_calls": deg.call_count - calls0,
+               "degraded": srv.metrics.value("degraded"),
+               "batches": srv.metrics.value("batches")}
+    finally:
+        srv.close()
+    log(f"  degradation: {json.dumps(out)}")
+    return out
+
+
+def serve_drift(dev, seed):
+    """Drift: a model trained on DRIFT_ROWS rows of phase 8's generator,
+    published with its training reference into a server sampling every
+    batch; ``GET /drift`` stays under the PSI threshold on fresh rows of
+    the same generator and goes over it on rows with feature 0 shifted
+    by 3."""
+    Xr, yr = make_data(DRIFT_ROWS, seed + 21)
+    bref = train(TRAIN_PARAMS, Dataset(Xr, label=yr, params=TRAIN_PARAMS),
+                 3, device=dev)
+    ref = bref.capture_model_reference()
+    srv = Server(None, ServeConfig(
+        max_batch_rows=1024, max_batch_delay_ms=1.0, queue_depth_rows=8192,
+        drift_sample_rows=8192, drift_per_batch_rows=1024,
+        drift_min_rows=2048, drift_sample_stride=1), device=dev)
+    http = ServeHTTP(srv, port=0).start()
+    try:
+        srv.publish(bref, model_reference=ref)
+        Xc, _ = make_data(8192, seed + 22)
+        for lo in range(0, 8192, 1024):
+            srv.submit(Xc[lo:lo + 1024])
+        _, _, body = http_call(http.port, "/drift")
+        clean = json.loads(body)
+        Xs = Xc.copy()
+        Xs[:, 0] += 3.0
+        for lo in range(0, 8192, 1024):
+            srv.submit(Xs[lo:lo + 1024])
+        _, _, body = http_call(http.port, "/drift")
+        shifted = json.loads(body)
+    finally:
+        http.shutdown()
+        srv.close()
+    batches = srv.metrics.value("batches")
+    thr = clean.get("psi_threshold")
+    check(clean.get("armed") and clean.get("evaluated")
+          and clean["psi_max"] < thr,
+          f"drift on training-distribution rows: {clean.get('psi_max')} "
+          f"(threshold {thr}, {clean.get('reason', '')})")
+    check(shifted["psi_max"] >= thr and "Column_0" in shifted["alerting"],
+          f"drift on shifted rows: {shifted['psi_max']} "
+          f"{shifted['alerting']}")
+    out = {"reference_digest": ref.digest[:16], "threshold": thr,
+           "clean_psi_max": clean["psi_max"],
+           "shifted_psi_max": shifted["psi_max"],
+           "alerting": shifted["alerting"], "batches": batches}
+    log(f"  drift: {json.dumps(out)}")
+    return out
+
+
+def phase_serve_http(path_a, booster_a, booster_b, dev, rng, seed) -> dict:
+    """Phase 52: ``cli.run_serve`` in process on the card (phase 5's
+    model, f64 lane, ``predict_method`` at its default), HTTP on a port of
+    127.0.0.1 the system picks: SERVE_CLIENTS threads of 1-256-row
+    requests with a publish and a rollback in mid-traffic, tenants, SLOs,
+    metrics, tracing and the failure domains; then degradation and drift
+    on servers of their own.  Launch counts are reset just before and
+    read after each server (``check_k4_serving``)."""
+    from lightgbmv1_tpu_torch import cli
+
+    t_phase = time.perf_counter()
+    trace_out = os.path.join(_build.BUILD_DIR, "serve_trace.json")
+    config = Config.from_cli([
+        "task=serve", f"input_model={path_a}", "serve_http_port=0",
+        "serve_duration_s=900", "predict_f64_scores=true",
+        "serve_queue_depth=65536", "serve_watchdog_ms=1000",
+        "serve_breaker_failures=2", "serve_retry_max=0",
+        "tenant_manifest=acme,globex", f"trace_out={trace_out}",
+        "verbosity=0"])
+    pc.reset_launch_counts()
+    with PreparedVersions() as prepared:
+        box, ready, stop, failed = {}, threading.Event(), threading.Event(), []
+
+        def on_ready(server, http):
+            box.update(server=server, http=http)
+            ready.set()
+
+        def run():
+            try:
+                cli.run_serve(config, ready=on_ready, stop=stop)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                failed.append(e)
+                ready.set()
+
+        th = threading.Thread(target=run, name="run-serve")
+        try:
+            th.start()
+            ready.wait(600)
+            check(not failed and "server" in box, f"run_serve: {failed}")
+            srv, port = box["server"], box["http"].port
+            t_up = time.perf_counter() - t_phase
+            code, _, body = http_call(port, "/healthz")
+            check(code == 200, f"/healthz {code}: {body}")
+            answers, (tag_a, tag_b), secs = serve_traffic(
+                port, srv, booster_b, SERVE_HTTP_REQUESTS, rng)
+            check_answers(answers, {tag_a: booster_a, tag_b: booster_b},
+                          "HTTP")
+            snap = srv.metrics_snapshot()
+            lat = sorted(a[3] for a in answers)
+            line = {"requests": len(answers), "seconds": secs,
+                    "requests_per_s": len(answers) / secs,
+                    "p50_ms": lat[len(lat) // 2],
+                    "p99_ms": lat[min(int(0.99 * len(lat)), len(lat) - 1)],
+                    "batches": snap["batches"],
+                    "mean_batch_rows": snap["mean_batch_rows"],
+                    "server_p50_ms": snap["p50_ms"],
+                    "server_p99_ms": snap["p99_ms"]}
+            log(f"  HTTP serving: {json.dumps(line)}")
+            # tenants: each answers with its own version
+            tag_g = srv.publish(booster_b, tenant="globex")
+            Xt = make_rows(rng, 64)
+            for tenant, tag, booster in (("acme", "v1", booster_a),
+                                         ("globex", tag_g, booster_b)):
+                code, _, body = http_predict(port, Xt, tenant=tenant)
+                check(code == 200 and body["version"] == tag
+                      and body.get("tenant") == tenant
+                      and np.array_equal(np.asarray(body["values"])[:, 0],
+                                         booster.predict(Xt, raw_score=True)),
+                      f"tenant {tenant}: HTTP {code}, version "
+                      f"{body.get('version')} (want {tag})")
+            _, _, body = http_call(port, "/tenants")
+            tenants = json.loads(body)["tenants"]
+            check({"acme", "globex"} <= set(tenants),
+                  f"/tenants lists {sorted(tenants)}")
+            # SLOs and the Prometheus view of the one store
+            _, _, body = http_call(port, "/slo")
+            slo = json.loads(body)
+            fast = slo["availability"]["windows"]["fast"]
+            check(fast["total"] >= len(answers) and "burn_rate" in fast
+                  and "burn_rate" in slo["latency"]["windows"]["slow"],
+                  f"/slo: {fast}")
+            now = srv.metrics_snapshot()      # no request in flight here
+            code, hdr, body = http_call(port, "/metrics?format=prometheus")
+            series = parse_prometheus(body.decode())
+            check(code == 200 and hdr["Content-Type"].startswith("text/plain")
+                  and series.get("serve_completed_total") == now["completed"]
+                  >= len(answers)
+                  and series.get("serve_batches_total") == now["batches"],
+                  "Prometheus view: "
+                  f"{ {k: v for k, v in series.items() if 'total' in k} }")
+            domains = serve_failure_domains(port, srv, booster_a, booster_b,
+                                            rng)
+        finally:
+            stop.set()
+            th.join(timeout=300)
+        check(not th.is_alive() and not failed, f"run_serve did not end: "
+              f"{failed}")
+        batches = srv.metrics_snapshot()["batches"]
+        k4 = {"task=serve": check_k4_serving("task=serve", prepared,
+                                             batches)}
+        doc = json.load(open(trace_out))
+        walked = {e["args"]["trace_id"] for e in doc["traceEvents"]
+                  if e.get("name") == "serve.walk"}
+        sample = [a[4] for a in answers[::max(len(answers) // 50, 1)]]
+        missing = [t for t in sample if t not in walked]
+        check(not missing, f"{len(missing)} sampled trace ids not in the "
+              f"exported trace (e.g. {missing[:3]})")
+        log(f"  K4: {json.dumps(k4['task=serve'])}; {len(sample)} sampled "
+            f"trace ids in the {len(doc['traceEvents'])}-event trace; up "
+            f"in {t_up:.1f} s")
+        degrade = serve_degrade(booster_a, dev, rng)
+        batches += degrade["batches"]
+        k4["degrade"] = check_k4_serving("degradation", prepared, batches)
+        drift = serve_drift(dev, seed)
+        batches += drift["batches"]
+        k4["drift"] = check_k4_serving("drift", prepared, batches)
+    log(f"  K4 over the phase: {json.dumps(k4['drift'])}")
+    out = {**line, "launches": dict(pc.launch_counts), "k4": k4,
+           "server_batches": batches,
+           "slo_fast_burn": fast["burn_rate"], "tenants": sorted(tenants),
+           "failure_domains": domains, "degrade": degrade, "drift": drift,
+           "trace_events": len(doc["traceEvents"]),
+           "seconds": time.perf_counter() - t_phase}
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -8161,7 +8631,7 @@ def main(argv=None) -> int:
     del rec
 
     log("== phase 13: where a training iteration's time goes")
-    prof = phase_profile(ds, 5, dev)
+    prof = phase_profile(ds, PROFILE_ITERS, dev)
 
     log("== phase 14: K2 and K3 against their plain versions")
     binned = torch.as_tensor(ds._binned.binned, device=dev).contiguous()
@@ -8190,7 +8660,7 @@ def main(argv=None) -> int:
     del frec
 
     log("== phase 18: where a fused training iteration's time goes")
-    fprof = phase_profile(ds, 5, dev, FUSED_PARAMS)
+    fprof = phase_profile(ds, PROFILE_ITERS, dev, FUSED_PARAMS)
 
     log("== phase 19: K6 against R K2 rounds and its plain version")
     plan = loop_plan(ds, dev)
@@ -8211,7 +8681,7 @@ def main(argv=None) -> int:
         "staged": trained["k3_launches"], "fused": fused["k3_launches"],
         "looped": looped["k3_launches"]}
     del lrec, drec
-    lprof = phase_profile(ds, 5, dev, LOOP_PARAMS)
+    lprof = phase_profile(ds, PROFILE_ITERS, dev, LOOP_PARAMS)
 
     paths, path_k1 = {}, []
     log("== phase 22: regression, the sequential grower (main path; launch "
@@ -8230,7 +8700,7 @@ def main(argv=None) -> int:
     check(all(L == 1 for L, _ in rec.last),
           f"the sequential grower called K1 at {sorted(rec.last)}")
     path_k1.append(phase_path_kernels("sequential", rec, reg, []))
-    reg["profile"] = phase_profile(dreg, 5, dev, REG_PARAMS)
+    reg["profile"] = phase_profile(dreg, PROFILE_ITERS, dev, REG_PARAMS)
     reg["parity"] = card_vs_cpu("sequential", REG_PARAMS, X[:PARITY_ROWS],
                                 y_reg[:PARITY_ROWS], dev)
     paths["regression"] = reg
@@ -8245,7 +8715,7 @@ def main(argv=None) -> int:
         f" 100 iterations of 1,000,000 rows; a quality figure)")
     check(lvl["auc"] > 0.90, f"level-wise valid AUC {lvl['auc']} <= 0.90")
     path_k1.append(phase_path_kernels("level-wise", rec, lvl, []))
-    lvl["profile"] = phase_profile(ds, 5, dev, LEVEL_PARAMS)
+    lvl["profile"] = phase_profile(ds, PROFILE_ITERS, dev, LEVEL_PARAMS)
     lvl["parity"] = card_vs_cpu("level-wise", LEVEL_PARAMS, X[:PARITY_ROWS],
                                 y[:PARITY_ROWS], dev)
     paths["levelwise"] = lvl
@@ -8270,7 +8740,7 @@ def main(argv=None) -> int:
         "quality figures)")
     mc["served"] = phase_trained_k4(booster_mc, Xmv, dev, rng, "multiclass")
     path_k1.append(phase_path_kernels("multiclass", rec, mc, []))
-    mc["profile"] = phase_profile(dm, 5, dev, MC_PARAMS)
+    mc["profile"] = phase_profile(dm, PROFILE_ITERS, dev, MC_PARAMS)
     mc["parity"] = card_vs_cpu("multiclass", MC_PARAMS, Xm[:PARITY_ROWS],
                                ym[:PARITY_ROWS], dev, iters=2)
     paths["multiclass"] = mc
@@ -8295,7 +8765,7 @@ def main(argv=None) -> int:
         "quality figures)")
     rk["served"] = phase_trained_k4(booster_rk, Xrv, dev, rng, "lambdarank")
     path_k1.append(phase_path_kernels("lambdarank", rec, rk, []))
-    rk["profile"] = phase_profile(dr, 5, dev, RANK_PARAMS)
+    rk["profile"] = phase_profile(dr, PROFILE_ITERS, dev, RANK_PARAMS)
     rk["parity"] = card_vs_cpu("lambdarank", RANK_PARAMS, Xr[:40000],
                                yr[:40000], dev, group=gr[:400])
     paths["lambdarank"] = rk
@@ -8530,6 +9000,17 @@ def main(argv=None) -> int:
     contrib = phase_contrib(Xv)
     contrib["phase_seconds"] = time.perf_counter() - t0
     log(f"  phase 51: {contrib['phase_seconds']:.1f} s")
+    log("== phase 52: online serving over HTTP (task=serve in process; "
+        "launch counts reset)")
+    serve52 = phase_serve_http(path, booster, booster_b, dev, rng,
+                               args.seed)
+    log(f"  phase 52: {serve52['seconds']:.1f} s")
+    rows[0]["serve_http"] = {
+        "launches": serve52["launches"]["serving_fused"],
+        "server_batches": serve52["server_batches"],
+        "note": "K4's launches in phase 52, counts reset just before it: "
+        "every batch of task=serve and of the degrade and drift servers, "
+        "and each publish's warm and probe batches"}
     k1_row["bundle"] = {
         "note": "K1 on EFB bundle columns at the bundles' bin axis",
         "launches": int(efb["train"]["launches"]["k1"]),
@@ -8566,6 +9047,8 @@ def main(argv=None) -> int:
                                     "seconds": cat["seconds"]},
                     "part_16": p16, "native": native, "cli": cli_out,
                     "contrib": contrib,
+                    "serve_http": {k: v for k, v in serve52.items()
+                                   if k != "launches"},
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]

@@ -30,7 +30,12 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
   ``model_to_string`` (:947, through io/model_text.model_to_string, its
   importance block per ``saved_feature_importance_type``),
   ``save_model`` (:1001), ``dump_model`` (:1115), ``feature_importance``
-  (:1137) and ``feature_name`` (:606); ``best_iteration`` (set by early
+  (:1137) and ``feature_name`` (:606); ``capture_model_reference``
+  (:1013; obs/model.py: the training bins' occupancy, NaN rates and
+  score distribution that drift checks read, carried by
+  ``save_checkpoint``) and ``quality_snapshot`` (:1035); each ``update``
+  observes its wall time (``train_iteration_ms``) and, with the tracer
+  armed, records an iteration span (obs/trace.py); ``best_iteration`` (set by early
   stopping) is what ``predict``, ``model_to_string`` and ``save_model``
   default to (:704, :952);
 * the serving half (``predict`` :655-800) for a loaded model and for a
@@ -54,8 +59,8 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 Training and prediction run on ``device`` (default: the card; without one
 they raise — pass ``device="cpu"`` for the CPU).  Every other public name
 of the JAX ``Dataset`` and ``Booster`` raises ``NotImplementedError``
-naming its ROADMAP queue 1 item: the drift captures (drift) and the block
-caches and binned shards (parallel learners).
+naming its ROADMAP queue 1 item: the block caches and binned shards
+(parallel learners).
 """
 
 from __future__ import annotations
@@ -66,7 +71,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .config import DRIFT, PARALLEL, Config, not_ported
+from .config import PARALLEL, Config, not_ported
 from .device import DeviceLike, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .io.model_text import (LoadedModel, dump_model_dict, model_from_string,
@@ -376,6 +381,37 @@ class Dataset:
             feature_name=self.feature_name)
 
 
+class _IterObs:
+    """Per-iteration training telemetry in the default registry."""
+
+    __slots__ = ("hist", "count")
+
+    def __init__(self):
+        from .obs.metrics import default_registry
+
+        reg = default_registry()
+        self.hist = reg.histogram(
+            "train_iteration_ms", "Wall time of one boosting iteration",
+            buckets=(1, 2, 5, 10, 20, 50, 100, 200, 500, 1000, 2000,
+                     5000, 10000, 60000))
+        self.count = reg.counter(
+            "train_iterations_total", "Boosting iterations completed")
+
+    def observe(self, ms: float) -> None:
+        self.hist.observe(ms)
+        self.count.inc()
+
+
+_iter_obs: Optional[_IterObs] = None
+
+
+def _iteration_metrics() -> _IterObs:
+    global _iter_obs
+    if _iter_obs is None:
+        _iter_obs = _IterObs()
+    return _iter_obs
+
+
 class Booster:
     """A model that trains and predicts on ``device`` (default: the card;
     raises when there is none — pass ``device="cpu"`` for the CPU): from
@@ -400,6 +436,11 @@ class Booster:
         self._loaded_str: Optional[str] = None   # the text of _loaded
         self._name_valid_sets: List[str] = []
         self._valid_data: List[Dataset] = []
+        # the metric curves the training loop records
+        # ({"dataset:metric": [values]}, quality_snapshot reads them) and
+        # capture_model_reference()'s result
+        self._metric_history: Dict[str, List[float]] = {}
+        self._model_reference = None
         if train_set is not None:
             if not isinstance(train_set, Dataset):
                 raise TypeError("train_set must be a Dataset")
@@ -501,10 +542,13 @@ class Booster:
         hess)`` is a custom objective on the raw scores ((N,) for one
         class), its arrays (N,) or (N, K) (JAX :542-560).  Under
         ``finite_guard=warn|raise`` the iteration boundary is checked."""
+        from .obs import trace
+
         if self._gbdt is None:
             raise RuntimeError("Cannot update a loaded model")
         if train_set is not None:
             raise ValueError("Resetting train_set is not supported")
+        t0_ns = trace.now_ns()
         if fobj is None:
             finished = self._gbdt.train_one_iter()
         else:
@@ -515,6 +559,11 @@ class Booster:
             finished = self._gbdt.train_one_iter(custom_grad=grad,
                                                  custom_hess=hess)
         self._gbdt.check_finite_boundary()
+        # the iteration's host wall time (its device work is enqueued,
+        # not waited for) into the default registry, and its span
+        _iteration_metrics().observe((trace.now_ns() - t0_ns) / 1e6)
+        if trace.enabled():
+            trace.iteration_span_end(t0_ns, self._gbdt.iter - 1)
         return finished
 
     def rollback_one_iter(self) -> "Booster":
@@ -788,8 +837,9 @@ class Booster:
         a run resumed from it (``resume_from_checkpoint``) writes the
         model text of the run that never stopped, byte for byte.
         ``write_file=False`` captures without writing (the JAX package's
-        non-writing ranks); the drift reference of ``with_reference``
-        belongs to the drift item and is not written."""
+        non-writing ranks); ``with_reference`` writes the training
+        reference (``capture_model_reference``) into the bundle, so a
+        resumed or served model keeps its drift baseline."""
         if self._gbdt is None:
             log_fatal("save_checkpoint() requires a training Booster")
         from .io.checkpoint import write_checkpoint
@@ -797,9 +847,18 @@ class Booster:
         manifest, arrays = self._gbdt.capture_state()
         manifest["num_trees_total"] = self.num_trees()
         if write_file:
+            ref_bytes = b""
+            if with_reference:
+                try:
+                    ref_bytes = self.capture_model_reference().to_bytes()
+                except Exception as e:  # noqa: BLE001 — CSR data bundled
+                    # by EFB keeps no per-feature matrix
+                    log_warning(f"checkpoint: reference capture skipped "
+                                f"({type(e).__name__}: {e})")
             write_checkpoint(str(path), manifest, arrays,
                              model_text=self.model_to_string(),
-                             base_model_text=self._loaded_str or "")
+                             base_model_text=self._loaded_str or "",
+                             reference_bytes=ref_bytes)
         return self
 
     def resume_from_checkpoint(self, path_or_bundle) -> "Booster":
@@ -824,13 +883,33 @@ class Booster:
         return self
 
     def capture_model_reference(self, score_bins: Optional[int] = None):
-        """The training reference for drift checks (JAX :1013): not
-        ported."""
-        raise not_ported("Booster.capture_model_reference", DRIFT)
+        """The training reference for drift checks (JAX :1013;
+        obs/model.py): one pass over the binned training matrix records
+        each feature's bin occupancy over the ensemble's own bins, its
+        NaN rate, and the raw training-score distribution in
+        ``score_bins`` bins (default ``drift_score_bins``).  Cached on
+        the Booster and returned; publish it with
+        ``Server.publish(booster, model_reference=ref)``."""
+        if self._gbdt is None:
+            log_fatal("capture_model_reference() requires a training "
+                      "Booster")
+        from .obs.model import capture_reference
+
+        if score_bins is None:
+            score_bins = self.config.drift_score_bins
+        self._model_reference = capture_reference(
+            self._gbdt.train_set, self._gbdt.raw_train_scores(),
+            score_bins=score_bins)
+        return self._model_reference
 
     def quality_snapshot(self, top_k: int = 8) -> Dict:
-        """The trainer's quality telemetry (JAX :1035): not ported."""
-        raise not_ported("Booster.quality_snapshot", DRIFT)
+        """The trainer's quality telemetry (JAX :1035; obs/model.py): the
+        split gains, leaves and depths a tree and an iteration, gain and
+        split importance and the recorded metric curves, from the host
+        trees after the fact."""
+        from .obs.model import quality_snapshot
+
+        return quality_snapshot(self, top_k=top_k)
 
     # ------------------------------------------------------------------
     def predict(self, data, start_iteration: int = 0,

@@ -336,7 +336,7 @@ class Config:
     is_provide_training_metric: bool = False
     refit_decay_rate: float = 0.9
     snapshot_keep: int = 2
-    # HTTP front-end (item 6)
+    # the HTTP front-end of task=serve
     serve_http_port: int = 8080
     serve_duration_s: float = 0.0
     # fleet and router (item 7)
@@ -347,19 +347,19 @@ class Config:
     router_retry_max: int = 2
     router_hedge_ms: float = 0.0
     router_deadline_ms: float = 0.0
-    # tenants and placement (item 8)
+    # tenants; placement acts on the router's map (item 7)
     tenant_manifest: str = ""
     placement_replicas_per_tenant: int = 0
     placement_burn_threshold: float = 2.0
     placement_occupancy_frac: float = 0.75
     placement_cooldown_s: float = 30.0
-    # SLOs (item 9)
+    # SLOs
     serve_slo_availability_target: float = 0.999
     serve_slo_latency_ms: float = 50.0
     serve_slo_latency_target: float = 0.99
     serve_slo_fast_window_s: float = 60.0
     serve_slo_slow_window_s: float = 600.0
-    # drift (item 10)
+    # drift
     drift_sample_rows: int = 0
     drift_per_batch_rows: int = 64
     drift_min_rows: int = 256
@@ -368,11 +368,11 @@ class Config:
     drift_psi_groups: int = 16
     drift_sample_stride: int = 4
     drift_score_bins: int = 16
-    # failure domains of the server (item 11)
+    # failure domains of the server
     serve_degrade_trees: int = 0
     serve_breaker_failures: int = 3
     serve_watchdog_ms: float = 0.0
-    # observability (item 12)
+    # observability (profile_dir and obs_dir: item 12)
     profile_dir: str = ""
     obs_trace: bool = False
     trace_out: str = ""
@@ -496,6 +496,48 @@ class Config:
         if self.registry_keep_versions < 1:
             raise ValueError("registry_keep_versions must be >= 1 "
                              "(the current version is always kept)")
+        if self.serve_breaker_failures < 0:
+            raise ValueError("serve_breaker_failures must be >= 0 "
+                             "(0 disables the circuit breaker)")
+        if self.serve_watchdog_ms < 0:
+            raise ValueError("serve_watchdog_ms must be >= 0 "
+                             "(0 disables the watchdog)")
+        if self.obs_ring_events < 16:
+            raise ValueError("obs_ring_events must be >= 16")
+        if self.obs_event_ring < 16:
+            raise ValueError("obs_event_ring must be >= 16")
+        for name in ("serve_slo_availability_target",
+                     "serve_slo_latency_target"):
+            v = getattr(self, name)
+            if not 0.0 < v < 1.0:
+                raise ValueError(f"{name} must be in (0, 1), got {v}")
+        if self.serve_slo_latency_ms <= 0:
+            raise ValueError("serve_slo_latency_ms must be > 0")
+        if not 0 < self.serve_slo_fast_window_s \
+                <= self.serve_slo_slow_window_s:
+            raise ValueError(
+                "serve_slo windows need 0 < fast_window_s <= "
+                "slow_window_s (the page rule evaluates both)")
+        if self.drift_sample_rows < 0:
+            raise ValueError("drift_sample_rows must be >= 0 (0 = off)")
+        if self.drift_per_batch_rows < 1:
+            raise ValueError("drift_per_batch_rows must be >= 1")
+        if self.drift_min_rows < 1:
+            raise ValueError("drift_min_rows must be >= 1")
+        if self.drift_psi_threshold <= 0:
+            raise ValueError("drift_psi_threshold must be > 0")
+        if self.drift_top_k < 1:
+            raise ValueError("drift_top_k must be >= 1")
+        if self.drift_score_bins < 2:
+            raise ValueError("drift_score_bins must be >= 2")
+        if self.drift_psi_groups < 2:
+            raise ValueError("drift_psi_groups must be >= 2")
+        if self.drift_sample_stride < 1:
+            raise ValueError("drift_sample_stride must be >= 1")
+        if self.trace_out:
+            # the artifact path is the arming intent (the JAX package's
+            # precedence: trace_out implies obs_trace)
+            self.obs_trace = True
 
     @classmethod
     def _fields_of(cls, params: Dict[str, Any]) -> Dict[str, Any]:
@@ -592,9 +634,14 @@ class Config:
 # forcedbins_filename (parts 1.4, 1.5 and 1.7); categorical features,
 # interaction constraints, CEGB and forced splits (part 1.6); the native
 # C++ predictor and parser, TreeSHAP and prediction early stopping, the
-# CLI, and the sklearn wrappers and plotting (items 2-5).  Those items keep
+# CLI, and the sklearn wrappers and plotting (items 2-5); the HTTP
+# front-end, tenants, SLOs, drift and the failure domains of the server
+# (items 6 and 8-11) and the observability core (obs_trace / trace_out,
+# the event and span rings, crash_dir: part of item 12).  Those items keep
 # their names for ROADMAP's record of them, and nothing refuses with them
-# any more.
+# any more.  Placement acts only on the router's placement map, so its
+# knobs wait with the fleet (item 7); profile_dir and obs_dir are item
+# 12's remaining part.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
@@ -626,24 +673,12 @@ _UNPORTED = (
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (HTTP, ("serve_http_port", "serve_duration_s")),
     (FLEET, ("serve_replicas", "router_health_period_ms",
              "router_eject_after", "router_readmit_after", "router_retry_max",
-             "router_hedge_ms", "router_deadline_ms")),
-    (TENANTS, ("tenant_manifest", "placement_replicas_per_tenant",
-               "placement_burn_threshold", "placement_occupancy_frac",
-               "placement_cooldown_s")),
-    (SLOS, ("serve_slo_availability_target", "serve_slo_latency_ms",
-            "serve_slo_latency_target", "serve_slo_fast_window_s",
-            "serve_slo_slow_window_s")),
-    (DRIFT, ("drift_sample_rows", "drift_per_batch_rows", "drift_min_rows",
-             "drift_psi_threshold", "drift_top_k", "drift_psi_groups",
-             "drift_sample_stride", "drift_score_bins")),
-    (FAILURE, ("serve_degrade_trees", "serve_breaker_failures",
-               "serve_watchdog_ms")),
-    (OBSERVABILITY, ("profile_dir", "obs_trace", "trace_out",
-                     "obs_ring_events", "obs_event_ring", "crash_dir",
-                     "obs_dir")),
+             "router_hedge_ms", "router_deadline_ms",
+             "placement_replicas_per_tenant", "placement_burn_threshold",
+             "placement_occupancy_frac", "placement_cooldown_s")),
+    (OBSERVABILITY, ("profile_dir", "obs_dir")),
     (PARALLEL, ("top_k", "num_machines", "local_listen_port", "machines",
                 "time_out", "machine_list_filename", "pre_partition",
                 "data_parallel_collective", "num_shards", "num_hosts",

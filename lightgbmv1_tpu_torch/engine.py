@@ -141,6 +141,10 @@ def train(params: Dict[str, Any], train_set: Dataset,
                     [(train_data_name,) + r[1:]
                      for r in booster.eval_train(feval)])
             evaluation_result_list.extend(booster.eval_valid(feval))
+            # the metric curves quality_snapshot reads (obs/model.py)
+            for ds_name, metric, value, _ in evaluation_result_list:
+                booster._metric_history.setdefault(
+                    f"{ds_name}:{metric}", []).append(float(value))
         try:
             for cb in cbs_after:
                 cb(callback_mod.CallbackEnv(

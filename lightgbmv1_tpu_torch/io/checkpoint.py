@@ -12,13 +12,16 @@ per-iteration streams (bagging, GOSS, extra_trees, the tree keys) are
 
 The file: one zip, written atomically (``fileio.atomic_write_bytes``),
 holding ``manifest.json``, ``model.txt``, an optional ``base_model.txt``
-(continued training) and ``arrays.npz``.  The manifest carries the
+(continued training), ``arrays.npz`` and an optional ``reference.bin``
+(the training reference of obs/model.py, for drift checks of the served
+model).  The manifest carries the
 SHA-256 digests of the other members; ``load_checkpoint`` checks them
 before it trusts an array and raises ``CheckpointError`` on a torn or
 flipped file.  The state is the port's own (its trees are the port's
-``TreeArrays``): a checkpoint of the JAX package is not read here.  The
-JAX module's timing histograms and drift reference belong to the
-observability and drift items and are not ported.
+``TreeArrays``): a checkpoint of the JAX package is not read here.
+Each write observes its wall time in the default registry's
+``checkpoint_save_ms`` histogram and, with the tracer armed, records a
+``checkpoint.save`` span.
 """
 
 from __future__ import annotations
@@ -60,8 +63,28 @@ def decode_rng_state(d: Dict[str, Any]) -> tuple:
 
 def write_checkpoint(path: str, manifest: Dict[str, Any],
                      arrays: Dict[str, np.ndarray], model_text: str,
-                     base_model_text: str = "") -> None:
-    """Serialize one bundle and write it atomically."""
+                     base_model_text: str = "",
+                     reference_bytes: bytes = b"") -> None:
+    """Serialize one bundle and write it atomically; ``reference_bytes``
+    (``ModelReference.to_bytes``) rides as the digest-checked member
+    ``reference.bin``."""
+    from ..obs import trace
+    from ..obs.metrics import default_registry
+
+    t0_ns = trace.now_ns()
+    _write_checkpoint(path, manifest, arrays, model_text, base_model_text,
+                      reference_bytes)
+    default_registry().histogram(
+        "checkpoint_save_ms", "Wall time of one checkpoint-bundle write",
+        buckets=(5, 10, 20, 50, 100, 200, 500, 1000, 2000, 5000, 10000)
+    ).observe((trace.now_ns() - t0_ns) / 1e6)
+    if trace.enabled():
+        trace.add_span("checkpoint.save", t0_ns, trace.now_ns() - t0_ns,
+                       cat="checkpoint", args={"path": str(path)})
+
+
+def _write_checkpoint(path, manifest, arrays, model_text, base_model_text,
+                      reference_bytes) -> None:
     buf = io.BytesIO()
     np.savez(buf, **arrays)
     arrays_bytes = buf.getvalue()
@@ -74,6 +97,8 @@ def write_checkpoint(path: str, manifest: Dict[str, Any],
                            "model.txt": _digest(model_bytes)}
     if base_bytes:
         manifest["digests"]["base_model.txt"] = _digest(base_bytes)
+    if reference_bytes:
+        manifest["digests"]["reference.bin"] = _digest(reference_bytes)
     out = io.BytesIO()
     with zipfile.ZipFile(out, "w", zipfile.ZIP_STORED) as zf:
         zf.writestr("manifest.json", json.dumps(manifest))
@@ -81,7 +106,9 @@ def write_checkpoint(path: str, manifest: Dict[str, Any],
         if base_bytes:
             zf.writestr("base_model.txt", base_bytes)
         zf.writestr("arrays.npz", arrays_bytes)
-    fileio.atomic_write_bytes(path, out.getvalue())
+        if reference_bytes:
+            zf.writestr("reference.bin", reference_bytes)
+    fileio.atomic_write_bytes(path, out.getvalue(), site=path)
 
 
 def is_checkpoint_file(path) -> bool:
@@ -99,7 +126,8 @@ def is_checkpoint_file(path) -> bool:
 
 def load_checkpoint(path: str) -> Dict[str, Any]:
     """Read and check a bundle: ``{"manifest", "arrays", "model_text",
-    "base_model_text"}``.  Raises ``CheckpointError`` on a torn zip, a
+    "base_model_text", "reference_bytes"}`` (the last empty when the
+    bundle carries no reference).  Raises ``CheckpointError`` on a torn zip, a
     digest that does not match, a missing member, model text whose trees
     fail ``validate_host_tree`` or a tree count other than the
     manifest's, or a score cache that is not finite."""
@@ -154,7 +182,8 @@ def load_checkpoint(path: str) -> Dict[str, Any]:
                 and not np.isfinite(a).all():
             raise CheckpointError(f"{path}: non-finite values in {k}")
     return {"manifest": manifest, "arrays": arrays,
-            "model_text": model_text, "base_model_text": base_text}
+            "model_text": model_text, "base_model_text": base_text,
+            "reference_bytes": members.get("reference.bin", b"")}
 
 
 def validate_checkpoint(path: str) -> Dict[str, Any]:

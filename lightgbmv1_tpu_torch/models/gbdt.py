@@ -124,6 +124,12 @@ uploads the bundle columns and its ``BundleArrays``; the growers take the
 histograms over them at ``padded_bundle_bin`` bins and decode each
 decision (parallel/trainer.py), a valid set is bundled with the training
 layout, and DART's tree walks decode the same way.
+
+The phase timer's scopes (utils/timer.global_timer, the JAX package's
+names): ``GBDT::TrainOneIter(dispatch)`` (``DART::`` for DART) around an
+iteration's tree growth, ``GBDT::MaterializeHostTrees``,
+``GBDT::EvalTrain`` and ``GBDT::EvalValid``; host wall time, no device
+synchronization added.
 """
 
 from __future__ import annotations
@@ -144,8 +150,10 @@ from ..objectives import create_objective
 from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
+from ..obs import trace as obs_trace
 from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.prng import bernoulli, fold_in, prng_key
+from ..utils.timer import global_timer
 from .tree import (HostTree, TreeArrays, host_tree_from_arrays,
                    leaf_lookup, leaf_path_features, tree_predict_binned,
                    tree_used_features)
@@ -643,7 +651,8 @@ class GBDT:
         self._save_rollback_state()
         grads = (None if custom_grad is None
                  else self._custom_grads(custom_grad, custom_hess))
-        grown = self._grow_trees(self._train_scores.score, rate, grads)
+        with global_timer.section("GBDT::TrainOneIter(dispatch)"):
+            grown = self._grow_trees(self._train_scores.score, rate, grads)
         self._train_scores.score = self._train_scores.score \
             + grown.train_delta
         for vs, d in zip(self._valid_scores, grown.valid_deltas):
@@ -859,14 +868,18 @@ class GBDT:
     def materialize_host_trees(self) -> List[HostTree]:
         """Host copies of the trees not yet fetched: real thresholds from
         the bin mappers and the boost-from-average bias folded in."""
-        for i, m in enumerate(self.models):
-            if m is not None:
-                continue
-            ht = host_tree_from_arrays(self._device_trees[i],
-                                       shrinkage=self._model_shrink[i])
-            self._fill_real_thresholds(ht)
-            ht.add_bias(self._model_bias[i])
-            self.models[i] = ht
+        if all(m is not None for m in self.models):
+            return self.models
+        with obs_trace.span("train.materialize_host_trees", cat="train"), \
+                global_timer.section("GBDT::MaterializeHostTrees"):
+            for i, m in enumerate(self.models):
+                if m is not None:
+                    continue
+                ht = host_tree_from_arrays(self._device_trees[i],
+                                           shrinkage=self._model_shrink[i])
+                self._fill_real_thresholds(ht)
+                ht.add_bias(self._model_bias[i])
+                self.models[i] = ht
         return self.models
 
     # ------------------------------------------------------------------
@@ -898,9 +911,11 @@ class GBDT:
 
     def eval_valid(self):
         out = []
-        for name, vs, metrics in zip(self._valid_names, self._valid_scores,
-                                     self._valid_metrics):
-            self._eval(name, vs, metrics, out)
+        with global_timer.section("GBDT::EvalValid"):
+            for name, vs, metrics in zip(self._valid_names,
+                                         self._valid_scores,
+                                         self._valid_metrics):
+                self._eval(name, vs, metrics, out)
         return out
 
     def eval_train(self):
@@ -911,7 +926,9 @@ class GBDT:
             for m in self._train_metrics:
                 m.init(self.train_set.metadata, self.num_data)
         out = []
-        self._eval("training", self._train_scores, self._train_metrics, out)
+        with global_timer.section("GBDT::EvalTrain"):
+            self._eval("training", self._train_scores, self._train_metrics,
+                       out)
         return out
 
     def raw_train_scores(self) -> np.ndarray:
@@ -1134,7 +1151,8 @@ class DART(GBDT):
             vscores = [v - d for v, d in zip(vscores, d_valid)]
         grads = (None if custom_grad is None
                  else self._custom_grads(custom_grad, custom_hess))
-        grown = self._grow_trees(score, shrink_new, grads)
+        with global_timer.section("DART::TrainOneIter(dispatch)"):
+            grown = self._grow_trees(score, shrink_new, grads)
         if drops:
             score = score + old_factor * d_train
             vscores = [v + old_factor * d for v, d in zip(vscores, d_valid)]

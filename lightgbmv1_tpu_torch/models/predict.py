@@ -25,7 +25,13 @@ package's:
 * **BatchPredictor** — power-of-two row buckets and chunked streaming.
   PyTorch runs eagerly, so there is no compile cache; kernels launch
   asynchronously and the host encodes the next chunk while the card
-  walks the current one.
+  walks the current one.  What the port builds per ensemble SHAPE is
+  K4's tile plan; with ``shared_cache=True`` (the tenant platform's
+  predictors) it comes from a cache keyed by the shape, never the model
+  or the tenant, so same-shape tenants share it (``shared_cache_stats``,
+  the counterpart of the JAX package's shared executable cache).
+* **Fault seam** — ``h2d`` (utils/faults.py) fires before each chunk
+  goes to the device, in ``predict_leaf`` and ``predict_raw``.
 
 Not ported yet (ROADMAP queue 1, item 13, row-sharded predict):
 ``predict_method=scan`` and row-sharded predict (``num_shards > 1``);
@@ -34,8 +40,10 @@ both raise ``NotImplementedError`` naming that item.
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, List, NamedTuple, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -46,6 +54,7 @@ from ..io.binning import K_ZERO_THRESHOLD, MISSING_NAN, MISSING_ZERO
 from ..ops.predict_cuda import (apply_transform, node_records,
                                 plan_predict_tiles, serving_fused,
                                 serving_leaf, walk_tables)
+from ..utils import faults
 from ..utils.log import log_info, log_warning
 from .tree import (HostTree, host_tree_depth, leaves_to_scores,
                    pad_tree_axis, validate_host_tree)
@@ -377,6 +386,54 @@ def serving_leaf_binned(sm: ServingArrays, codes: torch.Tensor, n_steps: int,
 # ---------------------------------------------------------------------------
 
 
+# the cross-instance plan cache: predictors of the same shape (tree count,
+# table geometry, code width, depth, K4's plan inputs) share ONE tile
+# plan.  The key is the shape, never the model or the tenant; opt-in per
+# predictor (``shared_cache=True``), LRU-bounded
+_SHARED_CACHE_CAPACITY = 256
+_shared_lock = threading.RLock()
+_shared_cache: "OrderedDict[tuple, Any]" = OrderedDict()
+_shared_stats = {"hits": 0, "misses": 0, "evictions": 0}
+
+
+def shared_cache_stats() -> Dict[str, int]:
+    """Point read of the cross-instance plan cache: ``hits``,
+    ``misses``, ``evictions``, ``entries`` and ``capacity``."""
+    with _shared_lock:
+        out = dict(_shared_stats)
+        out["entries"] = len(_shared_cache)
+        out["capacity"] = _SHARED_CACHE_CAPACITY
+    return out
+
+
+def reset_shared_cache() -> None:
+    """Drop every shared plan and zero the counters (tests and probes;
+    live predictors keep the plans they hold)."""
+    with _shared_lock:
+        _shared_cache.clear()
+        for k in _shared_stats:
+            _shared_stats[k] = 0
+
+
+def _shared_plan(key: tuple, build):
+    """Fetch-or-build one per-shape plan through the shared cache."""
+    with _shared_lock:
+        ent = _shared_cache.get(key)
+        if ent is not None:
+            _shared_cache.move_to_end(key)
+            _shared_stats["hits"] += 1
+            return ent
+    ent = build()
+    with _shared_lock:
+        _shared_stats["misses"] += 1
+        _shared_cache[key] = ent
+        _shared_cache.move_to_end(key)
+        while len(_shared_cache) > _SHARED_CACHE_CAPACITY:
+            _shared_cache.popitem(last=False)
+            _shared_stats["evictions"] += 1
+    return ent
+
+
 def _next_pow2(n: int) -> int:
     return 1 << max(int(n) - 1, 0).bit_length()
 
@@ -393,7 +450,7 @@ class BatchPredictor:
                  method: str = "depthwise", prebin: str = "auto",
                  code_layout: str = "auto", num_shards: int = 0,
                  bucket_min: int = 256, chunk_rows: int = 1 << 17,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, shared_cache: bool = False):
         if not trees:
             raise ValueError("BatchPredictor needs at least one tree")
         if method == "scan":
@@ -415,6 +472,7 @@ class BatchPredictor:
         self.T = len(trees)
         self.F = int(num_features)
         self.method = method
+        self.shared_cache = bool(shared_cache)
         self.bucket_min = max(int(bucket_min), 8)
         self.chunk_rows = max(int(chunk_rows), self.bucket_min)
         self.binner = build_serving_binner(trees, num_features)
@@ -474,12 +532,17 @@ class BatchPredictor:
         self.fused_plan = None
         self._fused_tables = None
         if method == "fused":
-            code_bytes = np.dtype(self.binner.dtype).itemsize
-            self.fused_plan = plan_predict_tiles(
+            shape = dict(
                 T=self.T, L1=self.arrays.split_feature.shape[1], L=L,
                 F=self.F, K=self.K, depth=self.depth, has_cat=self.has_cat,
                 prebin=self.prebin, packed=self.packed,
-                code_bytes=code_bytes)
+                code_bytes=np.dtype(self.binner.dtype).itemsize)
+            if self.shared_cache:
+                self.fused_plan = _shared_plan(
+                    ("fused",) + tuple(sorted(shape.items())),
+                    lambda: plan_predict_tiles(**shape))
+            else:
+                self.fused_plan = plan_predict_tiles(**shape)
             if self.fused_plan["eligible"]:
                 self._fused_tables = node_records(
                     pad_tree_axis(walk_tables(self.arrays),
@@ -542,11 +605,16 @@ class BatchPredictor:
             out = out[:, : self.T]        # slice the tree-tile pad away
         return out
 
-    def _chunks(self, X: np.ndarray, chunk_rows: Optional[int] = None):
+    def _chunks(self, X: np.ndarray, chunk_rows: Optional[int] = None,
+                site: str = "predict_raw"):
         chunk_rows = chunk_rows or self.chunk_rows
         for lo in range(0, X.shape[0], chunk_rows):
             chunk = X[lo: lo + chunk_rows]
             bucket = self.bucket_for(chunk.shape[0])
+            # fault seam: a transient host->device failure lands here,
+            # before the chunk's copy and walk; the server's retry loop
+            # absorbs it
+            faults.fire("h2d", site=site)
             self.call_count += 1
             yield self._to_device(chunk, bucket), chunk.shape[0]
 
@@ -560,7 +628,7 @@ class BatchPredictor:
         """(N, T) int32 leaf index per (row, tree) — node-exact against
         the host walk on the prebinned path (the raw walk compares f32)."""
         pending = []
-        for xb, m in self._chunks(np.asarray(X)):
+        for xb, m in self._chunks(np.asarray(X), site="predict_leaf"):
             leaf = (self._fused(xb, mode="leaf") if self._fused_engaged()
                     else self._walk_leaf(xb))
             pending.append((leaf, m))

@@ -1,1 +1,2 @@
-"""Logging helpers (copied from the JAX package)."""
+"""Utilities: logging, file IO, fault injection, the phase timer and the
+threefry stream (the port's copies of the JAX package's)."""

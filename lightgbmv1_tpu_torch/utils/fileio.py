@@ -5,8 +5,10 @@ opened through ``fsspec``; a plain path through the builtin ``open``.
 Without ``fsspec`` a remote path raises ``LightGBMError``, as the JAX
 module does (:26-38).  ``atomic_write_bytes`` writes a local file
 crash-consistently (a temporary file in the target directory, fsync,
-rename, directory fsync).  The JAX module's fault-injection seam belongs
-to the observability item and is not ported.
+rename, directory fsync).  Its ``file_write`` fault seam
+(utils/faults.py) makes torn files (``truncate``), flipped bytes
+(``corrupt``) and a crash before the rename (``kill``), so the readers
+of these files are tested against each.
 """
 
 from __future__ import annotations
@@ -42,11 +44,22 @@ def open_file(path, mode: str = "r", **kwargs) -> IO:
     return _fsspec(path).open(path, mode, **kwargs).open()
 
 
-def atomic_write_bytes(path, data: bytes) -> None:
+def atomic_write_bytes(path, data: bytes, site: str = "") -> None:
     """Write ``data`` to ``path`` so that a crash at any point leaves the
     old file or the new one, never a torn one; a remote path is one
-    streamed write (an object store commits whole objects)."""
+    streamed write (an object store commits whole objects).  ``site``
+    names the write to a fault plan (default: the path)."""
+    from . import faults
+
     path = str(path)
+    sp = faults.fire("file_write", site=site or path)
+    if sp is not None and sp.mode == "truncate":
+        # a torn write: half the payload at the final path, no rename
+        with open(path, "wb") as fh:
+            fh.write(data[: max(len(data) // 2, 1)])
+        return
+    if sp is not None and sp.mode == "corrupt":
+        data = faults.current_plan().corrupt_bytes(data)
     if is_remote_path(path):
         with open_file(path, "wb") as fh:
             fh.write(data)
@@ -58,6 +71,19 @@ def atomic_write_bytes(path, data: bytes) -> None:
             fh.write(data)
             fh.flush()
             os.fsync(fh.fileno())
+        if sp is not None and sp.mode == "kill":
+            # a crash between the temporary write and the rename: the old
+            # file survives; the armed flight recorder dumps first (not
+            # when the write is its own bundle)
+            if "forensics_bundle" not in (site or path):
+                try:
+                    from ..obs import dump
+
+                    dump.dump("fault_kill",
+                              error=f"file_write kill at {site or path}")
+                except Exception:   # noqa: BLE001
+                    pass
+            os._exit(137)
         os.replace(tmp, path)
         try:
             dfd = os.open(d, os.O_RDONLY)
@@ -72,8 +98,8 @@ def atomic_write_bytes(path, data: bytes) -> None:
             os.remove(tmp)
 
 
-def atomic_write_text(path, text: str) -> None:
-    atomic_write_bytes(path, text.encode("utf-8"))
+def atomic_write_text(path, text: str, site: str = "") -> None:
+    atomic_write_bytes(path, text.encode("utf-8"), site=site)
 
 
 def exists(path) -> bool:

@@ -8,15 +8,24 @@ serving tolerance, the contributions within 1e-12), ``task=convert_model``
 (the C++ byte for byte, and compiled it scores as ``predict``),
 ``task=refit`` (leaves within 2e-5), ``config=<file>``, snapshots with a
 bit-exact resume, ``save_binary=true`` and the ``.bin`` cache read by
-either package, ``python -m lightgbmv1_tpu_torch``; ``task=serve`` and
-``task=save_binary`` refused naming their items.
+either package, ``python -m lightgbmv1_tpu_torch``; ``obs_trace`` /
+``trace_out`` on ``task=train`` (the iteration spans the JAX CLI writes)
+and ``task=serve`` answering over HTTP (tests/test_torch_http.py holds
+the serving surface to the JAX package's); ``task=save_binary``, the
+fleet's knobs, ``profile_dir`` and ``obs_dir`` refused naming their
+items.
 """
 
+import json
 import os
 import re
 import shutil
 import subprocess
 import sys
+import threading
+import time
+import urllib.error
+import urllib.request
 
 import numpy as np
 import pytest
@@ -287,15 +296,104 @@ def test_binary_cache_is_checked(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["task=serve", "input_model=m.txt"], tconfig.HTTP),
     (["task=save_binary", "data=d.tsv"], tconfig.PARALLEL),
-    (["task=train", "data=d.tsv", "obs_trace=true"], tconfig.OBSERVABILITY),
-    (["task=predict", "num_machines=2"], tconfig.PARALLEL)],
-    ids=["serve", "save_binary", "obs_trace", "num_machines"])
+    (["task=predict", "num_machines=2"], tconfig.PARALLEL),
+    (["task=serve", "input_model=m.txt", "serve_replicas=2"], tconfig.FLEET),
+    (["task=serve", "input_model=m.txt", "tenant_manifest=a,b",
+      "placement_replicas_per_tenant=1"], tconfig.FLEET),
+    (["task=train", "data=d.tsv", "profile_dir=prof"], tconfig.OBSERVABILITY),
+    (["task=serve", "input_model=m.txt", "obs_dir=obs"],
+     tconfig.OBSERVABILITY)],
+    ids=["save_binary", "num_machines", "serve_replicas", "placement",
+         "profile_dir", "obs_dir"])
 def test_unported_tasks_and_knobs_raise(args, item):
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP queue 1, {item}") + "$"):
         _port(args)
+
+
+def test_obs_trace_writes_the_train_spans(tmp_path):
+    """``task=train trace_out=...`` (which implies ``obs_trace``): both
+    CLIs write a Chrome trace holding one ``train.iteration`` span an
+    iteration, numbered alike, and disarm the tracer at the end."""
+    from lightgbmv1_tpu.obs import trace as jtrace
+    from lightgbmv1_tpu_torch.obs import trace as ttrace
+
+    data = _write(tmp_path)
+    spans = {}
+    for tag, run in (("t", _port), ("j", jcli.main)):
+        out = str(tmp_path / f"trace_{tag}.json")
+        assert run([f"data={data}", *TRAIN, f"trace_out={out}",
+                    f"output_model={tmp_path / (tag + '.txt')}"]) == 0
+        doc = json.load(open(out))
+        spans[tag] = sorted(e["args"]["iteration"]
+                            for e in doc["traceEvents"]
+                            if e.get("name") == "train.iteration")
+    assert spans["t"] == spans["j"] == list(range(5))
+    assert not ttrace.enabled() and not jtrace.enabled()
+
+
+def test_task_serve_answers_over_http(model, tmp_path):
+    """``task=serve`` on the CPU: the port's CLI loads the model, serves
+    it over HTTP on the port it logs for the bounded window, answers a
+    request with ``Booster.predict``'s raw scores (bit for bit on the
+    f64 lane) under version ``v1``, and returns at the window's end."""
+    from lightgbmv1_tpu_torch.utils.log import register_callback
+
+    _, path = model
+    lines = []
+    register_callback(lines.append)
+    try:
+        th = threading.Thread(target=_port, args=([
+            "task=serve", f"input_model={path}", "serve_http_port=0",
+            "serve_duration_s=4", "predict_f64_scores=true",
+            "verbosity=1"],))
+        th.start()
+        port = _wait_for_port(lines, th)
+        X = np.random.RandomState(5).randn(7, 5)
+        code, body = _http_post(port, {"rows": X.tolist()})
+        th.join(timeout=60)
+    finally:
+        register_callback(None)
+    assert not th.is_alive()
+    assert code == 200 and body["version"] == "v1"
+    want = Booster(model_file=path, device="cpu").predict(X, raw_score=True)
+    np.testing.assert_array_equal(np.asarray(body["values"])[:, 0], want)
+    assert any("serve: final metrics" in ln for ln in lines)
+
+
+def _wait_for_port(lines, th, timeout=60.0):
+    """The HTTP port ``task=serve`` logs, once its ``/healthz`` answers
+    200; polled for the whole window, never a fixed start-up sleep."""
+    t_end = time.monotonic() + timeout
+    port = None
+    while time.monotonic() < t_end and th.is_alive():
+        for ln in list(lines):
+            m = re.search(r"HTTP listening on 127\.0\.0\.1:(\d+)", ln)
+            if m:
+                port = int(m.group(1))
+        if port is not None:
+            try:
+                with urllib.request.urlopen(
+                        f"http://127.0.0.1:{port}/healthz", timeout=5) as r:
+                    if r.status == 200:
+                        return port
+            except OSError:
+                pass
+        time.sleep(0.02)
+    raise AssertionError(f"task=serve never became healthy: {lines[-5:]}")
+
+
+def _http_post(port, payload):
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/predict",
+        data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=30) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
 
 
 def test_usage_and_unknown_task(capsys):

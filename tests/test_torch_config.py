@@ -46,6 +46,19 @@ _CLI_AND_TREESHAP = [
     "convert_model_language", "convert_model", "metric_freq",
     "is_provide_training_metric", "refit_decay_rate", "snapshot_keep",
     "snapshot_freq"]
+# the knobs the port refused until the HTTP front-end, tenants, SLOs,
+# drift, the server's failure domains and the observability core (ROADMAP
+# queue 1 items 6 and 8-11, part of 12) ported them
+_SERVE_AND_OBS = [
+    "serve_http_port", "serve_duration_s", "tenant_manifest",
+    "serve_slo_availability_target", "serve_slo_latency_ms",
+    "serve_slo_latency_target", "serve_slo_fast_window_s",
+    "serve_slo_slow_window_s", "drift_sample_rows", "drift_per_batch_rows",
+    "drift_min_rows", "drift_psi_threshold", "drift_top_k",
+    "drift_psi_groups", "drift_sample_stride", "drift_score_bins",
+    "serve_degrade_trees", "serve_breaker_failures", "serve_watchdog_ms",
+    "obs_trace", "trace_out", "obs_ring_events", "obs_event_ring",
+    "crash_dir"]
 # the knobs the port refused with its breadth item until that item's
 # part 1.6 ported them (categorical features, CEGB)
 _PART_16 = ["min_data_per_group", "max_cat_threshold", "cat_l2",
@@ -128,7 +141,7 @@ def test_every_jax_knob_and_alias_is_known():
             "ignore_column", "two_round", "initscore_filename",
             "interaction_constraints", "forcedsplits_filename",
             "cegb_penalty_split", "categorical_feature"} | set(_PART_16) \
-        | set(_CLI_AND_TREESHAP)
+        | set(_CLI_AND_TREESHAP) | set(_SERVE_AND_OBS)
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -145,6 +158,21 @@ def test_cli_and_treeshap_knob_is_accepted(name, capsys):
     knows, set without a warning, and a config that sets it is not
     refused."""
     value = _other_value(name)
+    assert name in {f.name for f in dataclasses.fields(JaxConfig)}
+    assert name not in {n for n, _ in _REFUSED}
+    cfg = Config.from_dict({"objective": "binary", name: value})
+    assert "Unknown parameter" not in capsys.readouterr().err
+    assert getattr(cfg, name) == value
+    assert unported_reason(cfg) is None
+
+
+@pytest.mark.parametrize("name", _SERVE_AND_OBS)
+def test_serve_and_obs_knob_is_accepted(name, capsys):
+    """A knob refused until items 6 and 8-11 (and part of 12) ported it:
+    a field the JAX package knows, set without a warning, and a config
+    that sets it is not refused (an SLO target stays inside (0, 1))."""
+    value = {"serve_slo_availability_target": 0.99,
+             "serve_slo_latency_target": 0.9}.get(name, _other_value(name))
     assert name in {f.name for f in dataclasses.fields(JaxConfig)}
     assert name not in {n for n, _ in _REFUSED}
     cfg = Config.from_dict({"objective": "binary", name: value})
@@ -170,7 +198,8 @@ def test_refused_knob_raises_with_its_item(name, item, capsys):
 
 def test_training_refuses_a_dropped_knob():
     """train raises for a refused knob on the Booster's params (the
-    prediction early stopping it refused until item 3 trains); the knobs
+    prediction early stopping it refused until item 3 trains, and the
+    span tracer it refused until item 11 ported it); the knobs
     refused until part 1.6 train (a lazy CEGB penalty of the wrong size
     is fatal, as in the JAX package) and a Dataset with categorical
     features bins (the binning knobs it refused until part 1.7 bin
@@ -181,9 +210,11 @@ def test_training_refuses_a_dropped_knob():
     X = rng.randn(300, 3)
     y = (X[:, 0] > 0).astype(float)
     params = {"objective": "binary", "num_leaves": 15, "verbosity": -1}
-    with pytest.raises(NotImplementedError, match="obs_trace"):
-        train(dict(params, obs_trace=True), Dataset(X, label=y), 2,
+    with pytest.raises(NotImplementedError, match="obs_dir"):
+        train(dict(params, obs_dir="obs"), Dataset(X, label=y), 2,
               device="cpu")
+    assert train(dict(params, obs_trace=True), Dataset(X, label=y), 2,
+                 device="cpu").num_trees() == 2
     assert train(dict(params, pred_early_stop=True), Dataset(X, label=y), 2,
                  device="cpu").num_trees() == 2
     with pytest.raises(LightGBMError, match="cegb_penalty_feature_lazy"):

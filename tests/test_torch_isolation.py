@@ -37,6 +37,10 @@ def test_runtime_never_imports_jax():
         "with Server(b, ServeConfig(predictor_kwargs={'method': 'fused'}),\n"
         "            device='cpu') as s:\n"
         "    assert s.submit(X[:3]).version == 'v1'\n"
+        "    from lightgbmv1_tpu_torch.serve import ServeHTTP, TenantRegistry\n"
+        "    from lightgbmv1_tpu_torch import obs, cli\n"
+        "    TenantRegistry(s).add_manifest('acme:2')\n"
+        "    h = ServeHTTP(s).start(); h.shutdown()\n"
         "from lightgbmv1_tpu_torch import Dataset, train\n"
         "y = (X[:, 0] > 0).astype(float)\n"
         "t = train({'objective': 'binary', 'num_leaves': 8, 'verbosity': -1},\n"

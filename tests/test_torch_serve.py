@@ -330,3 +330,29 @@ def test_serve_config_from_and_build_server(two_versions):
                 {"predict_code_layout": "u4"}):
         with pytest.raises(ValueError):
             Config.from_dict(bad)
+
+
+@pytest.mark.parametrize("device,given,want", [
+    ("cuda", {}, "fused"),
+    ("cuda", {"method": "pallas"}, "pallas"),
+    ("cuda", {"method": "depthwise"}, "depthwise"),
+    ("cpu", {}, None),
+])
+def test_registry_walk_defaults_to_k4_on_the_card(monkeypatch, device,
+                                                   given, want):
+    """On the card a version's predictor and its degrade predictor walk
+    with K4 (``method="fused"``) unless the caller names another walk,
+    so ``task=serve`` at ``predict_method=auto`` never takes the staged
+    walk there; on the CPU the JAX package's default stands."""
+    from lightgbmv1_tpu_torch.serve import registry as reg_mod
+
+    built = []
+    monkeypatch.setattr(reg_mod, "resolve_device",
+                        lambda d: torch.device(device))
+    monkeypatch.setattr(reg_mod, "BatchPredictor",
+                        lambda trees, K, F, **kw: built.append(kw))
+    auto = serve_config_from(Config()).predictor_kwargs
+    reg = reg_mod.ModelRegistry(predictor_kwargs={**auto, **given})
+    reg._build([object()] * 4, 1, 28, degrade_trees=2)
+    assert len(built) == 2
+    assert [kw.get("method") for kw in built] == [want, want]

@@ -340,8 +340,6 @@ _TOP_CALLS = {
 
 # the names that refuse, by the title of their ROADMAP queue 1 item
 _REFUSING = {
-    "capture_model_reference": tconfig.DRIFT,
-    "quality_snapshot": tconfig.DRIFT,
     "from_binned": tconfig.PARALLEL, "save_block_cache": tconfig.PARALLEL,
 }
 
