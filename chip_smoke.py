@@ -520,7 +520,31 @@ Phases (any failure exits non-zero with no ``ok`` line):
               rows).  Every version any of them publishes walks with K4
               (its predictor and its degrade predictor), and K4's
               launches are exactly the servers' batches plus each
-              publish's warm batches and its two probe batches.
+              publish's warm batches and its two probe batches.  Its
+              artifacts go to ``build/obs`` (phase 54).
+53. fleet     — ``cli.run_serve`` with ``serve_replicas=3`` in process:
+              the first 250 trees of model A on three replicas of the
+              one card behind the router (health poll 15 ms, two
+              retries, hedges after 50 ms), two tenants under
+              ``placement_replicas_per_tenant=2``; 6 client threads POST
+              2-row requests for 2.5 s and r1 closes at 40% of the
+              window: no client error, timeout or shed, every answer bit
+              for bit ``Booster.predict(raw_score=True)``, r1 ejected
+              within 3 s; then model A whole published fleet-wide (one
+              tag on every replica) and each tenant answered on its two
+              pinned replicas; requests/s, p50 / p99 ms, retries,
+              ``hedge_frac``; K4's launches exactly every replica's
+              batches plus every version's warm and probe batches, K5
+              none.
+54. obs       — ``task=train`` through the CLI at the headline width
+              (phase 50's 32,768-row valid file, 3 iterations) with
+              ``profile_dir``,
+              ``obs_dir`` and ``obs_trace``, then ``aggregate_dir`` over
+              phases 52-54's artifacts and the capture: a lane a
+              process role and a device lane with K1's and K3's CUDA
+              kernels and their ``lgbm.*`` scopes, the anchor read, the
+              device-memory gauges set, the kernel counters equal to the
+              launch tables, every ``nvcc`` build's seconds present.
               Then the ``kernels`` line (K1, K2, K3, K6, the two quantize
               kernels, the split-scan kernel, the pick kernel, the
               split scan's extra_trees and wide legs, K3's 16-bit and
@@ -546,6 +570,7 @@ import hashlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import threading
@@ -582,6 +607,10 @@ from lightgbmv1_tpu_torch.ops.split import (NO_CONSTRAINT, TIE_RTOL,
                                             scan_inputs, scan_left_sums,
                                             scan_residue, with_tables)
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
+from lightgbmv1_tpu_torch.obs import agg as obs_agg
+from lightgbmv1_tpu_torch.obs import device as obs_device
+from lightgbmv1_tpu_torch.obs import events as obs_events
+from lightgbmv1_tpu_torch.obs import trace as obs_trace
 from lightgbmv1_tpu_torch.serve import ServeConfig, ServeHTTP, Server
 from lightgbmv1_tpu_torch.utils import prng
 
@@ -8052,6 +8081,7 @@ def phase_contrib(Xv) -> dict:
     return out
 
 
+OBS_DIR = os.path.join(_build.BUILD_DIR, "obs")   # phases 52-54's artifacts
 SERVE_CLIENTS = 8           # phase 52's HTTP client threads
 SERVE_HTTP_REQUESTS = 200   # its main window's requests (1-256 rows each)
 SERVE_DEGRADE_TREES = 100   # the truncated ensemble of the degrade check
@@ -8086,7 +8116,12 @@ def check_k4_serving(what, prepared, batches) -> dict:
     its degrade predictor), and K4's launches since the counts were reset
     are exactly the servers' ``batches`` plus each version's warm batches
     and, where it was probed, its two probe batches (the f64 lane's leaf
-    mode and the f32 lane): no serving batch took another walk."""
+    mode and the f32 lane): no serving batch took another walk.
+    ``batches`` is a count, or the servers (a fleet's replicas) whose
+    batches it sums: a hedged request counts on each replica it
+    reached."""
+    if not isinstance(batches, int):
+        batches = sum(s.metrics_snapshot()["batches"] for s in batches)
     walks = [bp for mv, _ in prepared.versions
              for bp in (mv.predictor, mv.degraded) if bp is not None]
     unfused = [bp.method for bp in walks if not bp._fused_engaged()]
@@ -8378,7 +8413,7 @@ def phase_serve_http(path_a, booster_a, booster_b, dev, rng, seed) -> dict:
     127.0.0.1 the system picks: SERVE_CLIENTS threads of 1-256-row
     requests with a publish and a rollback in mid-traffic, tenants, SLOs,
     metrics, tracing and the failure domains; then degradation and drift
-    on servers of their own.  Launch counts are reset just before and
+    on servers of their own.  Its artifacts go to OBS_DIR (phase 54).  Launch counts are reset just before and
     read after each server (``check_k4_serving``)."""
     from lightgbmv1_tpu_torch import cli
 
@@ -8390,7 +8425,8 @@ def phase_serve_http(path_a, booster_a, booster_b, dev, rng, seed) -> dict:
         "serve_queue_depth=65536", "serve_watchdog_ms=1000",
         "serve_breaker_failures=2", "serve_retry_max=0",
         "tenant_manifest=acme,globex", f"trace_out={trace_out}",
-        "verbosity=0"])
+        f"obs_dir={OBS_DIR}", "verbosity=0"])
+    obs_events.set_identity(role="serve-http")    # its artifacts' label
     pc.reset_launch_counts()
     with PreparedVersions() as prepared:
         box, ready, stop, failed = {}, threading.Event(), threading.Event(), []
@@ -8495,6 +8531,321 @@ def phase_serve_http(path_a, booster_a, booster_b, dev, rng, seed) -> dict:
            "failure_domains": domains, "degrade": degrade, "drift": drift,
            "trace_events": len(doc["traceEvents"]),
            "seconds": time.perf_counter() - t_phase}
+    return out
+
+
+FLEET_REPLICAS = 3          # phase 53's replicas on the one card
+FLEET_TREES = 250           # its first model: phase 3's first half
+FLEET_CLIENTS = 6           # its client threads of 2-row requests
+FLEET_WINDOW_S = 2.5        # its traffic window; r1 closes at 40% of it
+FLEET_EJECT_S = 3.0         # the gate on r1's ejection after its close
+
+
+class CapturedFleets:
+    """Records every ``Fleet`` built while active (``run_serve`` builds
+    the one it serves and hands out only its router)."""
+
+    def __enter__(self):
+        from lightgbmv1_tpu_torch.serve import fleet as fleet_mod
+
+        self.fleets = []
+        self._cls, self._orig = fleet_mod.Fleet, fleet_mod.Fleet.__init__
+        orig, seen = self._orig, self.fleets
+
+        def init(fleet, *a, **kw):
+            orig(fleet, *a, **kw)
+            seen.append(fleet)
+
+        fleet_mod.Fleet.__init__ = init
+        return self
+
+    def __exit__(self, *exc):
+        self._cls.__init__ = self._orig
+
+
+def fleet_traffic(port, router, fleet, rng):
+    """FLEET_CLIENTS threads POST 2-row requests for FLEET_WINDOW_S; at
+    40% of the window replica r1 closes and the router's health view is
+    polled until it names r1 ejected.  Returns the answers ``(rows,
+    version, values, latency_ms)``, the window's seconds and the seconds
+    from the close to the ejection (None: not within FLEET_EJECT_S)."""
+    seeds = rng.randint(1 << 30, size=FLEET_CLIENTS)
+    answers, errors = [], []
+    lock = threading.Lock()
+    stop = threading.Event()
+
+    def client(seed):
+        r = np.random.RandomState(seed)
+        try:
+            while not stop.is_set():
+                rows = make_rows(r, 2)
+                t0 = time.perf_counter()
+                code, _, body = http_predict(port, rows)
+                lat = (time.perf_counter() - t0) * 1e3
+                if code != 200:
+                    raise RuntimeError(f"HTTP {code}: {body}")
+                with lock:
+                    answers.append((rows, body["version"],
+                                    np.asarray(body["values"]), lat))
+        except Exception as e:  # noqa: BLE001 — reported and failed below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(s,)) for s in seeds]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    time.sleep(0.4 * FLEET_WINDOW_S)
+    fleet.replica("r1").close()
+    t_close = time.perf_counter()
+    eject_s = None
+    while time.perf_counter() - t_close < FLEET_EJECT_S:
+        if "r1" in router.health()["ejected_replicas"]:
+            eject_s = time.perf_counter() - t_close
+            break
+        time.sleep(0.005)
+    time.sleep(max(FLEET_WINDOW_S - (time.perf_counter() - t0), 0.0))
+    stop.set()
+    for t in threads:
+        t.join(timeout=300)
+    secs = time.perf_counter() - t0
+    check(not errors, f"fleet: client errors {errors[:3]}")
+    check(not any(t.is_alive() for t in threads), "fleet: a client hung")
+    return answers, secs, eject_s
+
+
+def phase_fleet(booster, dev, rng) -> dict:
+    """Phase 53: ``cli.run_serve`` with ``serve_replicas=3`` in process
+    on the card, over HTTP (``measure_fleet``'s cell): the first
+    FLEET_TREES trees of phase 3's model on the f64 lane, the router's
+    health poll at 15 ms, two retries and hedges after 50 ms,
+    FLEET_CLIENTS threads of 2-row requests for FLEET_WINDOW_S with r1
+    closed at 40% of it; then the whole model published fleet-wide and
+    two tenants pinned to two replicas each.  Gates: no client error,
+    timeout or shed; every answer ``Booster.predict(raw_score=True)`` bit
+    for bit; r1 ejected within FLEET_EJECT_S; one version tag on every
+    replica after the publish; each tenant on 2 replicas; every replica's
+    versions on K4, and K4's launches the replicas' batches plus the warm
+    and probe batches (``check_k4_serving``), K5 none."""
+    from lightgbmv1_tpu_torch import cli
+    from lightgbmv1_tpu_torch.serve.router import hedge_frac
+
+    t_phase = time.perf_counter()
+    half_path = os.path.join(_build.BUILD_DIR, "fleet_model.txt")
+    booster.save_model(half_path, num_iteration=FLEET_TREES)
+    half = Booster(model_file=half_path)
+    check(half.num_trees() == FLEET_TREES, "fleet: the half model")
+    config = Config.from_cli([
+        "task=serve", f"input_model={half_path}", "serve_http_port=0",
+        "serve_duration_s=900", "predict_f64_scores=true",
+        f"serve_replicas={FLEET_REPLICAS}", "router_health_period_ms=15",
+        "router_retry_max=2", "router_hedge_ms=50",
+        "tenant_manifest=acme,globex", "placement_replicas_per_tenant=2",
+        f"obs_dir={OBS_DIR}", "verbosity=0"])
+    obs_events.set_identity(role="serve-fleet")
+    obs_trace.reset()       # phase 52's spans are its own artifact's
+    pc.reset_launch_counts()
+    with PreparedVersions() as prepared, CapturedFleets() as captured:
+        box, ready, stop, failed = {}, threading.Event(), threading.Event(), []
+
+        def on_ready(server, http):
+            box.update(router=server, http=http)
+            ready.set()
+
+        def run():
+            try:
+                cli.run_serve(config, ready=on_ready, stop=stop)
+            except BaseException as e:  # noqa: BLE001 — reported below
+                failed.append(e)
+                ready.set()
+
+        th = threading.Thread(target=run, name="run-serve-fleet")
+        try:
+            th.start()
+            ready.wait(600)
+            check(not failed and "router" in box, f"run_serve: {failed}")
+            router, port = box["router"], box["http"].port
+            fleet = captured.fleets[-1]
+            check(type(router).__name__ == "Router"
+                  and fleet.names() == ["r0", "r1", "r2"],
+                  f"fleet: {type(router).__name__} over {fleet.names()}")
+            t_up = time.perf_counter() - t_phase
+            tag_half = router.version()
+            answers, secs, eject_s = fleet_traffic(port, router, fleet, rng)
+            snap = router.metrics_snapshot()
+            check(eject_s is not None, f"fleet: r1 not ejected within "
+                  f"{FLEET_EJECT_S} s of its close")
+            check(snap["errors"] == snap["timeouts"] == snap["shed"] == 0,
+                  f"fleet: router errors {snap['errors']}, timeouts "
+                  f"{snap['timeouts']}, shed {snap['shed']}")
+            check(all(a[1] == tag_half for a in answers),
+                  f"fleet: answers not all tagged {tag_half}")
+            check_answers(answers, {tag_half: half}, "fleet")
+            lat = sorted(a[3] for a in answers)
+            line = {"requests": len(answers), "seconds": secs,
+                    "requests_per_s": len(answers) / secs,
+                    "p50_ms": lat[len(lat) // 2],
+                    "p99_ms": lat[min(int(0.99 * len(lat)), len(lat) - 1)],
+                    "retries": snap["retries"],
+                    "hedges": snap["router"]["hedges"],
+                    "hedge_wins": snap["router"]["hedge_wins"],
+                    "hedge_frac": hedge_frac(snap), "eject_s": eject_s,
+                    "replica_batches": {
+                        r.name: r.metrics_snapshot()["batches"]
+                        for r in fleet.replicas}}
+            log(f"  fleet over HTTP: {json.dumps(line)}")
+            # the whole model, two-phase, on every replica (r1 included:
+            # a closed replica's registry still prepares and commits)
+            tag_full = fleet.publish(booster)
+            tags = {r.name: r.tenant_registry().current_tag()
+                    for r in fleet.replicas}
+            check(set(tags.values()) == {tag_full}
+                  and router.version() == tag_full,
+                  f"fleet: tags after the publish {tags}")
+            X = make_rows(rng, 64)
+            code, _, body = http_predict(port, X)
+            check(code == 200 and body["version"] == tag_full
+                  and np.array_equal(np.asarray(body["values"])[:, 0],
+                                     booster.predict(X, raw_score=True)),
+                  f"fleet: after the publish HTTP {code}, "
+                  f"{body.get('version')}")
+            placement = router.placement()
+            check(sorted(placement) == ["acme", "globex"]
+                  and all(len(v) == 2 for v in placement.values()),
+                  f"fleet: placement {placement}")
+            for tenant in ("acme", "globex"):
+                code, _, body = http_predict(port, X[:2], tenant=tenant)
+                check(code == 200 and body["version"] == tag_half
+                      and np.array_equal(np.asarray(body["values"])[:, 0],
+                                         half.predict(X[:2],
+                                                      raw_score=True)),
+                      f"fleet: tenant {tenant} HTTP {code}, "
+                      f"{body.get('version')}")
+            health = router.health()
+        finally:
+            stop.set()
+            th.join(timeout=300)
+        check(not th.is_alive() and not failed,
+              f"run_serve (fleet) did not end: {failed}")
+        k4 = check_k4_serving("fleet", prepared, fleet.replicas)
+    log(f"  publish {tag_half} -> {tag_full} on {sorted(tags)}; placement "
+        f"{json.dumps(placement)}; K4 {json.dumps(k4)}; up in {t_up:.1f} s")
+    return {**line, "k4": k4, "launches": dict(pc.launch_counts),
+            "version": tag_full, "placement": placement,
+            "ejected": health["ejected_replicas"],
+            "seconds": time.perf_counter() - t_phase}
+
+
+OBS_ITERS = 3               # phase 54's training iterations
+# the profiler's names of K1's partial stage and of K3's route kernels
+# ("void lgbm::hist_partial_kernel<1, 3, false, false>(...)")
+K1_KERNEL = re.compile(r"\bhist_partial(_list)?_kernel\b")
+K3_KERNEL = re.compile(r"\broute(_global)?_kernel\b")
+
+
+def phase_obs() -> dict:
+    """Phase 54: ``task=train`` through the CLI at the headline width
+    (phase 50's 32,768-row valid file as the data and the valid set, so
+    that the host binning stays short; OBS_ITERS iterations) with
+    ``profile_dir``, ``obs_dir`` and ``obs_trace``, then ``aggregate_dir``
+    over OBS_DIR (phases 52-54's artifacts) and the capture.  Gates: the
+    merged trace has a lane for each process role and a device lane
+    holding K1's and K3's CUDA kernels and their ``lgbm.*`` scopes on the
+    card's timeline; the anchor is read; the memory gauges are set; the
+    kernel counters equal the launch tables and every nvcc build's
+    seconds are in the registry.  A capture that saw no kernel is taken
+    again, up to PROFILE_TRIES (a profiler run now and then sees no
+    device work)."""
+    t_phase = time.perf_counter()
+    bd = str(_build.BUILD_DIR)
+    prof = os.path.join(bd, "profile")
+    valid = os.path.join(bd, "smoke_valid.csv")
+    model = os.path.join(bd, "obs_model.txt")
+    for attempt in range(PROFILE_TRIES):
+        shutil.rmtree(prof, ignore_errors=True)
+        reset_counts()
+        secs = cli_run(["task=train", f"data={valid}", f"valid={valid}",
+                        "objective=binary", "num_leaves=255", "max_bin=63",
+                        f"num_iterations={OBS_ITERS}",
+                        f"output_model={model}", f"profile_dir={prof}",
+                        f"obs_dir={OBS_DIR}", "obs_trace=true",
+                        "header=true", "verbosity=0"], [])
+        docs = obs_agg.load_profiler_traces(prof)
+        kernels = {e["name"] for _, d in docs for e in d["traceEvents"]
+                   if e.get("cat") == "kernel"}
+        scopes = {e["name"] for _, d in docs for e in d["traceEvents"]
+                  if e.get("cat") == "gpu_user_annotation"}
+        k1 = sorted(k for k in kernels if K1_KERNEL.search(k))
+        k3 = sorted(k for k in kernels if K3_KERNEL.search(k))
+        if k1 and k3:
+            break
+        log(f"  capture {attempt + 1}: {len(kernels)} kernels, K1 {k1}, "
+            f"K3 {k3}; again")
+    check(len(docs) == 1 and k1 and k3,
+          f"obs: the device lane lacks K1 ({k1}) or K3 ({k3}) after "
+          f"{attempt + 1} captures")
+    check({"lgbm.hist_leaves", "lgbm.route_rows"} <= scopes,
+          f"obs: kernel scopes on the card's timeline {sorted(scopes)}")
+    anchor = obs_device.read_anchor(prof)
+    check(anchor is not None and anchor["identity"]["pid"] == os.getpid()
+          and os.path.exists(os.path.join(prof, anchor["trace"])),
+          f"obs: anchor {anchor}")
+    t0 = time.perf_counter()
+    summary = obs_agg.aggregate_dir(OBS_DIR, profile_dir=prof)
+    agg_s = time.perf_counter() - t0
+    with open(summary["merged_trace"]) as fh:
+        merged = json.load(fh)
+    with open(summary["merged_metrics"]) as fh:
+        metrics = json.load(fh)
+    roles = {s["role"]: s["lane"] for s in merged["otherData"]["sources"]}
+    lanes = {e["pid"] for e in merged["traceEvents"] if e.get("ph") == "X"}
+    check({"serve-http", "serve-fleet", "train", "device"} <= set(roles)
+          and len(set(roles.values())) == len(roles)
+          and {roles["serve-http"], roles["train"], roles["device"]}
+          <= lanes and summary["device_lanes"] == 1,
+          f"obs: lanes {roles}, {summary}")
+    dev_lane = [e for e in merged["traceEvents"]
+                if e.get("pid") == roles["device"]
+                and e.get("cat") == "kernel"]
+    check(any(K1_KERNEL.search(e["name"]) for e in dev_lane)
+          and any(K3_KERNEL.search(e["name"]) for e in dev_lane),
+          "obs: the merged device lane lacks K1's or K3's kernels")
+    train_label = [k for k in metrics["processes"]
+                   if k.startswith("train-")]
+    check(len(train_label) == 1, f"obs: processes {metrics['processes']}")
+    snap = metrics["processes"][train_label[0]]
+    mem = obs_device.device_memory_stats()
+    check(mem is not None and snap.get("device_bytes_in_use", 0) > 0
+          and snap.get("device_peak_bytes_in_use", 0) > 0
+          and snap.get("device_bytes_limit", 0) > 0,
+          f"obs: memory gauges {mem}, "
+          f"{ {k: v for k, v in snap.items() if k.startswith('device_')} }")
+    bad = []
+    for name, table in obs_device.launch_tables():
+        for key, value in table.items():
+            kernel = key if isinstance(key, str) else repr(key)
+            got = snap.get(f'kernel_launches_total{{table="{name}",'
+                           f'kernel="{kernel}"}}')
+            if got != value:
+                bad.append((name, kernel, got, value))
+    check(not bad, f"obs: kernel counters against the tables {bad[:5]}")
+    builds = {lib: snap.get(f'kernel_build_seconds{{library="{lib}"}}')
+              for lib in _build.build_log}
+    check(builds and all(v is not None and v > 0 for v in builds.values()),
+          f"obs: nvcc build gauges {builds}")
+    out = {"captures": attempt + 1, "train_s": secs,
+           "sources": summary["sources"], "lanes": summary["lanes"],
+           "trace_events": summary["trace_events"],
+           "device_kernel_rows": len(dev_lane), "k1_kernels": k1,
+           "k3_kernels": k3, "merged_events": summary["merged_events"],
+           "aggregate_s": agg_s,
+           "memory": {k: snap.get(k) for k in ("device_bytes_in_use",
+                                               "device_peak_bytes_in_use",
+                                               "device_bytes_limit")},
+           "kernel_counters": sum(len(t) for _, t in
+                                  obs_device.launch_tables()),
+           "nvcc_seconds": builds,
+           "seconds": time.perf_counter() - t_phase}
+    log(f"  obs: {json.dumps(out)}")
     return out
 
 
@@ -9005,12 +9356,26 @@ def main(argv=None) -> int:
     serve52 = phase_serve_http(path, booster, booster_b, dev, rng,
                                args.seed)
     log(f"  phase 52: {serve52['seconds']:.1f} s")
+    log("== phase 53: a fleet of replicas behind the router over HTTP "
+        "(task=serve serve_replicas=3 in process; launch counts reset)")
+    fleet53 = phase_fleet(booster, dev, rng)
+    log(f"  phase 53: {fleet53['seconds']:.1f} s")
+    log("== phase 54: observability: a profiled task=train and the merged "
+        "artifacts")
+    obs54 = phase_obs()
+    log(f"  phase 54: {obs54['seconds']:.1f} s")
     rows[0]["serve_http"] = {
         "launches": serve52["launches"]["serving_fused"],
         "server_batches": serve52["server_batches"],
         "note": "K4's launches in phase 52, counts reset just before it: "
         "every batch of task=serve and of the degrade and drift servers, "
         "and each publish's warm and probe batches"}
+    rows[0]["serve_fleet"] = {
+        "launches": fleet53["launches"]["serving_fused"],
+        "replica_batches": fleet53["replica_batches"],
+        "note": "K4's launches in phase 53, counts reset just before it: "
+        "every batch of the three replicas, and each replica's warm and "
+        "probe batches of every version"}
     k1_row["bundle"] = {
         "note": "K1 on EFB bundle columns at the bundles' bin axis",
         "launches": int(efb["train"]["launches"]["k1"]),
@@ -9049,6 +9414,9 @@ def main(argv=None) -> int:
                     "contrib": contrib,
                     "serve_http": {k: v for k, v in serve52.items()
                                    if k != "launches"},
+                    "serve_fleet": {k: v for k, v in fleet53.items()
+                                    if k != "launches"},
+                    "obs": obs54,
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]

@@ -18,15 +18,24 @@ model text and a checkpoint every so many iterations, and a run whose
 (``POST /predict``, ``GET /metrics``, ``/slo``, ``/drift``, ``/tenants``,
 ``/healthz``; ``tenant_manifest`` hosts named tenants beside the
 default one) for ``serve_duration_s`` seconds (0: until interrupted).
+``serve_replicas > 1`` serves a fleet of that many replicas on the one
+device (serve/fleet.py, two-phase publish) behind the router
+(serve/router.py: the ``router_*`` knobs), through the same front-end;
+``placement_replicas_per_tenant`` pins each manifest tenant to that many
+replicas and moves the hot ones once a second (serve/placement.py).
 ``task=save_binary`` (the out-of-core block cache of the parallel
-learners) and ``serve_replicas > 1`` (the fleet) raise, naming their
-ROADMAP queue 1 items, as every knob the port does not run does.
+learners) raises, naming its ROADMAP queue 1 item, as every knob the
+port does not run does.
 
 ``obs_trace`` / ``trace_out`` arm the span tracer over a training or
 serving run (``trace_out`` gets the Chrome trace at its end);
-``crash_dir`` arms the crash-dump recorder for the process; at
-``verbosity >= 1`` the phase timer's report is logged at exit.  The
-``snapshot`` fault seam (utils/faults.py) fires after each snapshot.
+``profile_dir`` captures the train, predict or serve window with
+``torch.profiler`` (obs/device.py); after every task the process's
+trace, metrics and events go to ``obs_dir`` (or ``LGBMV1_OBS_DIR``) for
+obs/agg.py to merge; ``crash_dir`` arms the crash-dump recorder for the
+process; at ``verbosity >= 1`` the phase timer's report is logged at
+exit.  The ``snapshot`` fault seam (utils/faults.py) fires after each
+snapshot.
 
 It runs on the card; ``device_type=cpu`` (alias ``device``) runs it on
 the CPU.
@@ -175,6 +184,29 @@ def _finish_trace(config: Config, tracing: bool) -> None:
     obs_trace.disarm()
 
 
+def _arm_profiler(config: Config):
+    """Arm the ``profile_dir`` capture (obs/device.py) for this task's
+    window and return its export-once finisher (JAX :166-184): safe to
+    call from every exit path, only the first call stops the capture
+    and writes the trace and the wall-clock anchor sidecar."""
+    if not config.profile_dir:
+        return lambda: None
+    from .obs import device as obs_device
+
+    session = obs_device.start_profiler(config.profile_dir)
+
+    def finish():
+        if obs_device.stop_profiler(session):
+            log_info(f"Wrote device trace to {config.profile_dir} (merge "
+                     "the lane with obs.agg.aggregate_dir(obs_dir, "
+                     f"profile_dir={config.profile_dir!r}))")
+    return finish
+
+
+def _obs_dir(config: Config) -> str:
+    return config.obs_dir or os.environ.get("LGBMV1_OBS_DIR", "")
+
+
 def run_train(config: Config) -> Booster:
     """Train on ``data`` with the ``valid`` files (JAX :188; reference
     Application::InitTrain + Train, application.cpp:164-211)."""
@@ -217,6 +249,7 @@ def run_train(config: Config) -> Booster:
 
     t0 = time.time()
     tracing = _arm_trace(config)
+    finish_profile = _arm_profiler(config)
     try:
         for i in range(max(config.num_iterations - done_iters, 0)):
             finished = booster.update()
@@ -256,6 +289,7 @@ def run_train(config: Config) -> Booster:
 
         obs_dump.dump("train_crash", exc=e)
         _finish_trace(config, tracing)
+        finish_profile()    # a dying run still gets its partial capture
         raise
     try:
         if config.output_model:
@@ -263,6 +297,7 @@ def run_train(config: Config) -> Booster:
             booster.save_model(config.output_model)
     finally:
         _finish_trace(config, tracing)
+        finish_profile()
     log_info("Finished training")
     return booster
 
@@ -281,33 +316,38 @@ def run_predict(config: Config) -> np.ndarray:
                       device=knob_device(config.device_type))
     log_info("Finished initializing prediction, total used "
              f"{booster.current_iteration()} iterations")
+    finish_profile = _arm_profiler(config)
     t0 = time.time()
-    df = load_data_file(
-        config.data, has_header=config.header,
-        label_column=config.label_column, weight_column=config.weight_column,
-        group_column=config.group_column, ignore_column=config.ignore_column,
-        is_predict=True)
-    X = df.X
-    if X.shape[1] == booster.num_feature() + 1:
-        X = X[:, 1:]        # a prediction file may keep the label column
-    t_parse = time.time()
-    out = np.asarray(booster.predict(
-        X, raw_score=config.predict_raw_score,
-        pred_leaf=config.predict_leaf_index,
-        pred_contrib=config.predict_contrib,
-        start_iteration=config.start_iteration_predict,
-        num_iteration=(config.num_iteration_predict
-                       if config.num_iteration_predict > 0 else None),
-        pred_early_stop=config.pred_early_stop,
-        pred_early_stop_freq=config.pred_early_stop_freq,
-        pred_early_stop_margin=config.pred_early_stop_margin,
-        predict_disable_shape_check=config.predict_disable_shape_check))
-    t_pred = time.time()
-    if out.ndim == 1:
-        out = out[:, None]
-    np.savetxt(config.output_result, out,
-               fmt="%d" if config.predict_leaf_index else "%.18g",
-               delimiter="\t")
+    try:
+        df = load_data_file(
+            config.data, has_header=config.header,
+            label_column=config.label_column,
+            weight_column=config.weight_column,
+            group_column=config.group_column,
+            ignore_column=config.ignore_column, is_predict=True)
+        X = df.X
+        if X.shape[1] == booster.num_feature() + 1:
+            X = X[:, 1:]    # a prediction file may keep the label column
+        t_parse = time.time()
+        out = np.asarray(booster.predict(
+            X, raw_score=config.predict_raw_score,
+            pred_leaf=config.predict_leaf_index,
+            pred_contrib=config.predict_contrib,
+            start_iteration=config.start_iteration_predict,
+            num_iteration=(config.num_iteration_predict
+                           if config.num_iteration_predict > 0 else None),
+            pred_early_stop=config.pred_early_stop,
+            pred_early_stop_freq=config.pred_early_stop_freq,
+            pred_early_stop_margin=config.pred_early_stop_margin,
+            predict_disable_shape_check=config.predict_disable_shape_check))
+        t_pred = time.time()
+        if out.ndim == 1:
+            out = out[:, None]
+        np.savetxt(config.output_result, out,
+                   fmt="%d" if config.predict_leaf_index else "%.18g",
+                   delimiter="\t")
+    finally:
+        finish_profile()    # the partial capture lands on a failure too
     log_info(f"Prediction window: parse {t_parse - t0:.3f}s, predict "
              f"{t_pred - t_parse:.3f}s ({config.predict_method}), write "
              f"{time.time() - t_pred:.3f}s ({X.shape[0]} rows)")
@@ -316,12 +356,20 @@ def run_predict(config: Config) -> np.ndarray:
 
 
 def run_serve(config: Config, ready=None, stop=None):
-    """Online serving (JAX :415-553, one replica): load ``input_model``,
-    publish it into a warm :class:`~lightgbmv1_tpu_torch.serve.Server` on
-    the device, with the manifest's tenants each published the same
-    model, and listen on the HTTP front-end until ``serve_duration_s``
-    (0: until interrupted).  Returns ``(server, http)``, both shut down,
-    with the final metrics logged.
+    """Online serving (JAX :415-553): load ``input_model``, publish it
+    into a warm :class:`~lightgbmv1_tpu_torch.serve.Server` on the
+    device, with the manifest's tenants each published the same model,
+    and listen on the HTTP front-end until ``serve_duration_s`` (0: until
+    interrupted).  ``serve_replicas > 1`` stands up a
+    :class:`~lightgbmv1_tpu_torch.serve.Fleet` of that many replicas on
+    the one device behind a :class:`~lightgbmv1_tpu_torch.serve.Router`
+    (the ``router_*`` and ``serve_slo_*`` knobs), which the front-end
+    serves and this returns as the "server"; with a manifest and
+    ``placement_replicas_per_tenant`` a placement controller pins the
+    tenants and is stepped once a second.  Returns ``(server, http)``,
+    both shut down, with the final metrics logged and, under ``obs_dir``
+    or ``LGBMV1_OBS_DIR``, the process's artifacts written with the
+    server's (or the router's) registry.
 
     A caller that embeds the run passes ``ready(server, http)``, called
     once the front-end listens (it may publish, roll back or read the
@@ -333,25 +381,43 @@ def run_serve(config: Config, ready=None, stop=None):
     if not config.input_model:
         log_fatal("No model file: set input_model=<file>")
     tracing = _arm_trace(config)
+    finish_profile = _arm_profiler(config)
+    fleet = placement = None
     try:
         dev = knob_device(config.device_type)
         booster = Booster(params=_config_to_params(config),
                           model_file=config.input_model, device=dev)
-        server = build_server(booster, config, device=dev)
+        if config.serve_replicas > 1:
+            fleet, server = _build_fleet(booster, config, dev)
+        else:
+            server = build_server(booster, config, device=dev)
     except BaseException:
+        finish_profile()
         _finish_trace(config, tracing)
         raise
     try:
         if config.tenant_manifest:
-            tenreg = TenantRegistry(server)
+            tenreg = TenantRegistry(fleet if fleet is not None else server)
             specs = tenreg.add_manifest(config.tenant_manifest)
             for spec in specs:
                 tenreg.publish(spec.name, booster)
             log_info(f"serve: {len(specs)} tenant(s) published "
                      f"({', '.join(sp.name for sp in specs)})")
+            if fleet is not None and config.placement_replicas_per_tenant:
+                from .serve import PlacementConfig, PlacementController
+
+                placement = PlacementController(fleet, server, PlacementConfig(
+                    replicas_per_tenant=config.placement_replicas_per_tenant,
+                    burn_threshold=config.placement_burn_threshold,
+                    occupancy_frac=config.placement_occupancy_frac,
+                    cooldown_s=config.placement_cooldown_s))
+                placement.assign()
         http = ServeHTTP(server, port=config.serve_http_port).start()
     except BaseException:
         server.close()
+        if fleet is not None:
+            fleet.close()
+        finish_profile()
         _finish_trace(config, tracing)
         raise
     log_info(f"serve: HTTP listening on 127.0.0.1:{http.port} "
@@ -362,12 +428,15 @@ def run_serve(config: Config, ready=None, stop=None):
         deadline = (time.monotonic() + config.serve_duration_s
                     if config.serve_duration_s > 0 else None)
         while deadline is None or time.monotonic() < deadline:
-            step = (3600.0 if deadline is None
-                    else max(deadline - time.monotonic(), 0.0))
+            step = 3600.0 if placement is None else 1.0
+            if deadline is not None:
+                step = min(step, max(deadline - time.monotonic(), 0.0))
             if stop is None:
                 time.sleep(step)
             elif stop.wait(step):
                 break
+            if placement is not None:
+                placement.step()
     except KeyboardInterrupt:
         log_info("serve: interrupted")
     finally:
@@ -375,10 +444,53 @@ def run_serve(config: Config, ready=None, stop=None):
 
         http.shutdown()
         snap = server.metrics_snapshot()
+        obs_dir = _obs_dir(config)
+        if obs_dir:
+            # with THIS server's (or router's) registry, so the merged
+            # snapshot carries its serve counters (JAX :531-540)
+            from .obs import agg as obs_agg
+
+            obs_agg.export_process_artifacts(
+                obs_dir, registry=server.metrics.registry)
+            log_info(f"serve: wrote obs artifacts to {obs_dir}")
         server.close()
+        if fleet is not None:
+            fleet.close()
+        finish_profile()
         _finish_trace(config, tracing)
         log_info("serve: final metrics " + json.dumps(snap))
     return server, http
+
+
+def _build_fleet(booster: Booster, config: Config, dev):
+    """``(fleet, router)``: ``serve_replicas`` replicas of the serving
+    knobs on ``dev``, ``booster`` published fleet-wide, behind a router
+    with the ``router_*`` and ``serve_slo_*`` knobs (JAX :465-509)."""
+    from .serve import (Fleet, Router, RouterConfig, SLOConfig,
+                        serve_config_from)
+
+    fleet = Fleet(booster, n_replicas=config.serve_replicas,
+                  config=serve_config_from(config), device=dev)
+    try:
+        router = Router(fleet, RouterConfig(
+            health_period_ms=config.router_health_period_ms,
+            eject_after=config.router_eject_after,
+            readmit_after=config.router_readmit_after,
+            retry_max=config.router_retry_max,
+            hedge_ms=config.router_hedge_ms,
+            deadline_ms=config.router_deadline_ms,
+            slo=SLOConfig(
+                availability_target=config.serve_slo_availability_target,
+                latency_ms=config.serve_slo_latency_ms,
+                latency_target=config.serve_slo_latency_target,
+                fast_window_s=config.serve_slo_fast_window_s,
+                slow_window_s=config.serve_slo_slow_window_s)))
+    except BaseException:
+        fleet.close()
+        raise
+    log_info(f"serve: fleet of {config.serve_replicas} replicas "
+             f"({fleet.version()}) behind the router")
+    return fleet, router
 
 
 def run_refit(config: Config) -> Booster:
@@ -457,6 +569,15 @@ def main(argv: Optional[List[str]] = None) -> int:
 
         obs_dump.arm(crash_dir, config=_config_to_params(config))
     _TASKS[task](config)
+    obs_dir = _obs_dir(config)
+    if obs_dir and task != "serve":   # serve exports its own, with its
+        # server's registry, inside run_serve's shutdown (JAX :636-643)
+        from .obs import agg as obs_agg
+
+        paths = obs_agg.export_process_artifacts(obs_dir)
+        log_info(f"Wrote obs artifacts to {obs_dir} "
+                 f"({', '.join(sorted(paths))}; merge with "
+                 "obs.agg.aggregate_dir)")
     if global_timer.enabled and global_timer.totals:
         log_info(global_timer.report())
     return 0

@@ -636,12 +636,11 @@ class Config:
 # C++ predictor and parser, TreeSHAP and prediction early stopping, the
 # CLI, and the sklearn wrappers and plotting (items 2-5); the HTTP
 # front-end, tenants, SLOs, drift and the failure domains of the server
-# (items 6 and 8-11) and the observability core (obs_trace / trace_out,
-# the event and span rings, crash_dir: part of item 12).  Those items keep
-# their names for ROADMAP's record of them, and nothing refuses with them
-# any more.  Placement acts only on the router's placement map, so its
-# knobs wait with the fleet (item 7); profile_dir and obs_dir are item
-# 12's remaining part.
+# (items 6 and 8-11), the observability core (obs_trace / trace_out, the
+# event and span rings, crash_dir), the fleet, the router and placement
+# (item 7) and the rest of observability (obs_dir / LGBMV1_OBS_DIR and
+# profile_dir: item 12).  Those items keep their names for ROADMAP's
+# record of them, and nothing refuses with them any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
@@ -673,12 +672,6 @@ _UNPORTED = (
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (FLEET, ("serve_replicas", "router_health_period_ms",
-             "router_eject_after", "router_readmit_after", "router_retry_max",
-             "router_hedge_ms", "router_deadline_ms",
-             "placement_replicas_per_tenant", "placement_burn_threshold",
-             "placement_occupancy_frac", "placement_cooldown_s")),
-    (OBSERVABILITY, ("profile_dir", "obs_dir")),
     (PARALLEL, ("top_k", "num_machines", "local_listen_port", "machines",
                 "time_out", "machine_list_filename", "pre_partition",
                 "data_parallel_collective", "num_shards", "num_hosts",

@@ -151,6 +151,7 @@ from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
 from ..parallel.trainer import build_trainer, select_bin_layout
 from ..obs import trace as obs_trace
+from ..utils import faults
 from ..utils.log import log_fatal, log_info, log_warning
 from ..utils.prng import bernoulli, fold_in, prng_key
 from ..utils.timer import global_timer
@@ -312,6 +313,9 @@ class GBDT:
         # the finite guard's second detector)
         self._prev_state = None
         self._finite_warned = False
+        # an armed grad_poison fault (utils/faults.py), read once here as
+        # the JAX trainer reads it at trace time
+        self._poison_iter = faults.grad_poison_iteration()
         self._valid_sets: List[BinnedDataset] = []
         self._valid_names: List[str] = []
         self._valid_binned: List[torch.Tensor] = []
@@ -473,7 +477,9 @@ class GBDT:
         """(N, K) gradients and hessians of the (N, K) ``score`` at
         ``iteration`` (a stochastic objective, rank_xendcg, draws from
         it; JAX ``_objective_grads``), under ``finite_guard=clamp`` with
-        the non-finite entries zeroed (JAX ``_guard_grads``)."""
+        the non-finite entries zeroed (JAX ``_guard_grads``).  At an armed
+        ``grad_poison`` fault's iteration every 13th row's gradient and
+        hessian are NaN on every class column first."""
         if self.objective is None:
             log_fatal("objective=none trains on a custom objective: pass "
                       "fobj")
@@ -484,6 +490,11 @@ class GBDT:
             grad, hess = self.objective.get_gradients(s)
         if grad.ndim == 1:
             grad, hess = grad[:, None], hess[:, None]
+        if self._poison_iter is not None and iteration == self._poison_iter:
+            rows = (torch.arange(grad.shape[0], device=grad.device)
+                    % 13 == 0)[:, None]
+            grad = grad.masked_fill(rows, float("nan"))
+            hess = hess.masked_fill(rows, float("nan"))
         if self.config.finite_guard == "clamp":
             finite = torch.isfinite(grad) & torch.isfinite(hess)
             zero = torch.zeros((), dtype=grad.dtype, device=grad.device)

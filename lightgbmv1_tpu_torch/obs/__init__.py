@@ -19,15 +19,19 @@ lightgbmv1_tpu/obs/.
   quality telemetry.
 * :mod:`~lightgbmv1_tpu_torch.obs.drift` — train/serve skew detection
   on sampled serving rows (``GET /drift``).
-
-The JAX package's ``obs/agg.py`` (merging artifacts across processes)
-and ``obs/xla.py`` (compile and device-memory accounting) are ROADMAP
-queue 1 item 12's remaining part.
+* :mod:`~lightgbmv1_tpu_torch.obs.agg` — per-process artifacts
+  (``obs_dir`` / ``LGBMV1_OBS_DIR``) and crash bundles merged into one
+  Perfetto trace with pid lanes, one snapshot and one event log, with a
+  ``torch.profiler`` capture as the device lane.
+* :mod:`~lightgbmv1_tpu_torch.obs.device` — the card's counterpart of
+  the JAX ``obs/xla.py``: the ``profile_dir`` capture with its
+  wall-clock anchor, device-memory gauges, and the kernels' launch and
+  build gauges.
 """
 
-from . import drift, dump, events, metrics, model, trace
+from . import agg, device, drift, dump, events, metrics, model, trace
 from .metrics import Registry, default_registry
 from .trace import span
 
-__all__ = ["drift", "dump", "events", "metrics", "model", "trace",
-           "Registry", "default_registry", "span"]
+__all__ = ["agg", "device", "drift", "dump", "events", "metrics", "model",
+           "trace", "Registry", "default_registry", "span"]

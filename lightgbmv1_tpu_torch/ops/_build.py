@@ -16,6 +16,7 @@ A build or load error raises; nothing falls back.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +41,27 @@ _libs: Dict[str, ctypes.CDLL] = {}
 # name -> {"seconds": wall of its nvcc, "log": nvcc's output (ptxas
 # registers / shared memory / spills per kernel)}
 build_log: Dict[str, dict] = {}
+
+# True only while a profiler capture is armed (obs/device.py): then each
+# kernel wrapper's launch runs inside a ``record_function("lgbm.<kernel>")``
+# scope; otherwise ``kernel_scope`` hands back one shared no-op context
+_scopes = False
+_NO_SCOPE = contextlib.nullcontext()
+
+
+def set_kernel_scopes(on: bool) -> None:
+    global _scopes
+    _scopes = bool(on)
+
+
+def kernel_scope(name: str):
+    """The profiler scope of one kernel launch: ``lgbm.<name>`` while a
+    capture is armed, a no-op context otherwise."""
+    if not _scopes:
+        return _NO_SCOPE
+    import torch
+
+    return torch.profiler.record_function("lgbm." + name)
 
 
 def nvcc_path() -> str:

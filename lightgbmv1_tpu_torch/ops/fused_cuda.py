@@ -320,7 +320,7 @@ def route_rows(binned, lids, feats, rmeta, num_leaves, packed=False,
                       + (P * BUNDLE_DEC_INTS if bundle is not None else 0)
                       + P * (cw + 1 if cw else 0),
                       dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("route_rows"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().lgbm_route_rows(
             binned.data_ptr(), lids.data_ptr(), feats.data_ptr(),
@@ -429,7 +429,7 @@ def fused_round(binned, g3, *, nslots, num_bins, precision,
     def ptr(t):
         return 0 if t is None else t.data_ptr()
 
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("fused_round"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().lgbm_fused_round(
             binned.data_ptr(), g3.data_ptr(), route["oleaf"].data_ptr(),

@@ -590,7 +590,7 @@ def hist_leaves(binned: torch.Tensor, g3: torch.Tensor,
                           device=binned.device)
     if L == 0 or F == 0:
         return out.zero_()
-    with torch.cuda.device(binned.device):
+    with torch.cuda.device(binned.device), _build.kernel_scope("hist_leaves"):
         stream = torch.cuda.current_stream(binned.device).cuda_stream
         err = _lib().lgbm_hist_leaves(
             binned.data_ptr(), g3.data_ptr(), leaf_id.data_ptr(),

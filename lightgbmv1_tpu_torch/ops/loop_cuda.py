@@ -464,7 +464,7 @@ def fused_wave_loop(binned, g3, leaf_id, ft12, num_leaves, *, rounds, K,
     if opts & scan_cuda.OPT_CONTRI:
         fused_cuda._need(meta.contri, "meta.contri", f32, (F,), dev)
         contri = meta.contri.data_ptr()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("fused_wave_loop"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lgbm_fused_wave_loop(
             binned.data_ptr(), g3.data_ptr(), new_leaf.data_ptr(),

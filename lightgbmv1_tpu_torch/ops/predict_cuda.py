@@ -541,7 +541,7 @@ def serving_fused(records: NodeRecords, codes: torch.Tensor, *,
     if N == 0:
         return out                               # nothing to launch
     lib = _lib()
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("serving_fused"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.lgbm_serving_fused(
             records.records.data_ptr(), records.leaf_value.data_ptr(),
@@ -577,7 +577,7 @@ def serving_leaf(tables: WalkTables, codes: torch.Tensor, *, n_steps: int,
     if N == 0 or T == 0:
         return out                               # nothing to launch
     lib = _lib()
-    with torch.cuda.device(codes.device):
+    with torch.cuda.device(codes.device), _build.kernel_scope("serving_leaf"):
         stream = torch.cuda.current_stream(codes.device).cuda_stream
         err = lib.lgbm_serving_leaf(
             *(a.data_ptr() for a in tables[:8]), codes.data_ptr(), kind,

@@ -220,7 +220,7 @@ def rn_quantize(g3: torch.Tensor, row_tile: int):
     q = torch.empty_like(g3)
     scale = torch.empty((-(-N // T), 3), dtype=torch.float32,
                         device=g3.device)
-    with torch.cuda.device(g3.device):
+    with torch.cuda.device(g3.device), _build.kernel_scope("rn_quantize"):
         stream = torch.cuda.current_stream(g3.device).cuda_stream
         err = _lib().lgbm_rn_quantize(g3.data_ptr(), q.data_ptr(),
                                       scale.data_ptr(), N, T, stream)
@@ -263,7 +263,7 @@ def sr_quantize(zq: torch.Tensor, key) -> torch.Tensor:
     if N >= 2 ** 31:
         raise ValueError("zq exceeds the kernel's int32 row indexing")
     q3 = torch.empty_like(zq)
-    with torch.cuda.device(zq.device):
+    with torch.cuda.device(zq.device), _build.kernel_scope("sr_quantize"):
         stream = torch.cuda.current_stream(zq.device).cuda_stream
         err = _lib().lgbm_sr_quantize(zq.data_ptr(), q3.data_ptr(), N,
                                       int(key[0]) & prng.MASK32,

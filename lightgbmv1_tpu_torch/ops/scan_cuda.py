@@ -329,7 +329,7 @@ def _scan_launch(hist, kw, residue, packed, rand_out=None, wide=None):
                               device=dev)
     extra = rand_args(kw["rand"], C, dev, rand_out)
     cegb = kw["cegb"]
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("split_scan"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib(wide).lgbm_split_scan(
             *head, 0 if residue is None else residue.data_ptr(),
@@ -410,7 +410,7 @@ def split_pick(residue, csums, *, meta: FeatureMeta, params: SplitParams,
         pout = parent_output.data_ptr()
     opts = scan_options(meta, params)
     packed = torch.empty((C, PACK_COLS), dtype=torch.float32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("split_pick"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _lib().lgbm_split_pick(
             residue.data_ptr(), csums.data_ptr(), pout, meta.table.data_ptr(),
@@ -494,7 +494,7 @@ def split_scan_cat(hist, mask, csums, packed, *, meta: FeatureMeta,
         _need(rand.uids, "rand.uids", torch.int32, (C,), dev)
     W = bitset_words(B)
     cat_out = torch.empty((C, 1 + W), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
+    with torch.cuda.device(dev), _build.kernel_scope("split_scan_cat"):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = _cat_lib().lgbm_split_cat(
             hist.data_ptr(),

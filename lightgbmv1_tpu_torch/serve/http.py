@@ -1,5 +1,8 @@
-"""Stdlib HTTP front-end over :class:`~lightgbmv1_tpu_torch.serve.Server`;
-the port's copy of lightgbmv1_tpu/serve/http.py.
+"""Stdlib HTTP front-end over :class:`~lightgbmv1_tpu_torch.serve.Server`
+or a fleet's :class:`~lightgbmv1_tpu_torch.serve.Router` (the same calls:
+``submit``, ``health``, ``metrics``, ``metrics_snapshot``,
+``slo_snapshot``, ``drift_snapshot``, ``tenants_snapshot``); the port's
+copy of lightgbmv1_tpu/serve/http.py.
 
 ``http.server`` and ``json`` only: a handler thread decodes the rows,
 blocks in ``Server.submit()`` like any in-process caller (so HTTP
@@ -125,7 +128,8 @@ def _make_handler(server: Server):
                     # the multi-tenant control surface: per-tenant
                     # version, fair-share occupancy, shed/error counts
                     # and SLO page/burn summary (serve/server.py
-                    # tenants_snapshot)
+                    # tenants_snapshot; on a router, per-replica views
+                    # plus the placement map)
                     self._reply(200, server.tenants_snapshot())
                 elif route == "/healthz":
                     health = server.health()

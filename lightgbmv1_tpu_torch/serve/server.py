@@ -39,8 +39,8 @@ All device work happens on the one dispatcher thread; ``submit()`` is
 thread-safe and blocks its caller until the rows come back, tagged with
 the model version that computed them (registry.py holds the hot-swap
 contract).  Predictors run on ``device`` (default: the card; raises when
-there is none).  A fleet of replicas behind a router is ROADMAP queue 1
-item 7.
+there is none).  A fleet of replicas behind a router is serve/fleet.py
+and serve/router.py.
 """
 
 from __future__ import annotations
@@ -398,6 +398,12 @@ class Server:
                 f"no tenant {tenant!r} on this server "
                 f"(hosted: {sorted(self._tenants) or ['<default>']})")
         return st
+
+    def tenant_registry(self, tenant: str = DEFAULT_TENANT
+                        ) -> ModelRegistry:
+        """The named tenant's registry (fleet.py's two-phase publish
+        drives prepare/commit on it directly)."""
+        return self._tenant_state(tenant).registry
 
     def _slo_record(self, st: "_TenantState", ok: bool,
                     latency_ms: Optional[float] = None,

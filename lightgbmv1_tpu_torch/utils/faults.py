@@ -24,6 +24,10 @@ kind                      site / effect
 ``file_write``            utils/fileio.py atomic writer — ``truncate`` (torn
                           file), ``corrupt`` (flipped bytes), ``kill`` (die
                           after the temporary write, before the rename)
+``grad_poison``           models/gbdt.py ``GBDT._gradients`` — NaN on the
+                          gradient and hessian of every 13th row at iteration
+                          ``payload`` (read once at build with ``peek``, so it
+                          counts no event), before ``finite_guard=clamp``
 ``dispatch``              serve/server.py — ``raise`` (a failed device batch),
                           ``stall`` (wedge for ``stall_s``), ``exit_thread``
                           (the dispatcher thread dies)
@@ -35,11 +39,17 @@ kind                      site / effect
                           the atomic swap
 ``snapshot``              cli.py — after the Nth snapshot / checkpoint write
                           (``kill`` crashes the training process there)
+``rpc_drop``              serve/router.py — per routed attempt, site = the
+                          replica's name; ``raise`` drops the link to that
+                          replica before dispatch (the router retries
+                          elsewhere)
+``rpc_delay``             serve/router.py — the same site; ``stall`` is a slow
+                          link (drives hedging)
 ========================  =====================================================
 
-The JAX package's ``grad_poison`` (its jitted step), ``peer_dead``
-(elastic training) and ``rpc_drop`` / ``rpc_delay`` (the router) have no
-site in the port yet: their plans parse and count, and fire nowhere.
+The JAX package's ``peer_dead`` (elastic training, ROADMAP queue 1 item 14)
+has no site in the port: arming a plan that holds it (``activate``, and so
+``inject`` and ``LGBMV1_FAULTS``) raises, naming that item.
 """
 
 from __future__ import annotations
@@ -72,7 +82,7 @@ class FaultSpec:
     """One scripted fault: fire on the ``at``-th matching event (1-based)
     and the following ``count - 1`` events."""
 
-    kind: str                 # h2d | file_write | dispatch | ...
+    kind: str                 # h2d | file_write | grad_poison | dispatch | ...
     mode: str = "raise"       # raise | truncate | corrupt | kill | stall |
                               # exit_thread | nan
     at: int = 1               # 1-based index of the first firing event
@@ -113,6 +123,14 @@ class FaultPlan:
                     self.fired.append((kind, site, sp.mode))
         return hit
 
+    def peek(self, kind: str) -> Optional[FaultSpec]:
+        """First spec of a kind WITHOUT counting an event — for faults
+        read once at build (grad_poison)."""
+        for sp in self.specs:
+            if sp.kind == kind:
+                return sp
+        return None
+
     def corrupt_bytes(self, data: bytes, event_index: int = 0) -> bytes:
         """Seeded byte flips in the middle third of the payload."""
         import numpy as np
@@ -144,8 +162,20 @@ def current_plan() -> Optional[FaultPlan]:
     return _ACTIVE
 
 
+# kinds of the JAX package whose site the port lacks
+_UNPORTED_KINDS = ("peer_dead",)
+
+
 def activate(plan: Optional[FaultPlan]) -> None:
+    """Arm ``plan`` (None disarms); a plan holding a kind with no site in
+    the port raises ``NotImplementedError`` naming its ROADMAP item."""
     global _ACTIVE
+    for sp in (plan.specs if plan is not None else ()):
+        if sp.kind in _UNPORTED_KINDS:
+            from ..config import PARALLEL, not_ported
+
+            raise not_ported(f"a {sp.kind} fault plan (the elastic "
+                             "workers' site)", PARALLEL)
     _ACTIVE = plan
 
 
@@ -246,3 +276,13 @@ def fire(kind: str, site: str = "") -> Optional[FaultSpec]:
         raise ThreadKilled(f"injected {kind} thread death at {site}")
     return sp
 
+
+
+def grad_poison_iteration() -> Optional[int]:
+    """Iteration index of an armed ``grad_poison`` fault, or None.  Read
+    once at trainer build: the poison fires at that iteration only."""
+    plan = _ACTIVE
+    if plan is None:
+        return None
+    sp = plan.peek("grad_poison")
+    return int(sp.payload) if sp is not None else None

@@ -11,9 +11,9 @@ bit-exact resume, ``save_binary=true`` and the ``.bin`` cache read by
 either package, ``python -m lightgbmv1_tpu_torch``; ``obs_trace`` /
 ``trace_out`` on ``task=train`` (the iteration spans the JAX CLI writes)
 and ``task=serve`` answering over HTTP (tests/test_torch_http.py holds
-the serving surface to the JAX package's); ``task=save_binary``, the
-fleet's knobs, ``profile_dir`` and ``obs_dir`` refused naming their
-items.
+the serving surface to the JAX package's); ``task=save_binary``, streaming, the
+parallel learners and row-sharded predict refused naming their items,
+and the fleet's and observability's knobs accepted.
 """
 
 import json
@@ -35,7 +35,7 @@ from lightgbmv1_tpu import Booster as JBooster
 from lightgbmv1_tpu import Dataset as JDataset
 from lightgbmv1_tpu import cli as jcli
 
-from lightgbmv1_tpu_torch import Booster, Dataset
+from lightgbmv1_tpu_torch import Booster, Dataset, train
 from lightgbmv1_tpu_torch import cli
 from lightgbmv1_tpu_torch import config as tconfig
 
@@ -298,18 +298,42 @@ def test_binary_cache_is_checked(tmp_path):
 @pytest.mark.parametrize("args,item", [
     (["task=save_binary", "data=d.tsv"], tconfig.PARALLEL),
     (["task=predict", "num_machines=2"], tconfig.PARALLEL),
-    (["task=serve", "input_model=m.txt", "serve_replicas=2"], tconfig.FLEET),
-    (["task=serve", "input_model=m.txt", "tenant_manifest=a,b",
-      "placement_replicas_per_tenant=1"], tconfig.FLEET),
-    (["task=train", "data=d.tsv", "profile_dir=prof"], tconfig.OBSERVABILITY),
-    (["task=serve", "input_model=m.txt", "obs_dir=obs"],
-     tconfig.OBSERVABILITY)],
-    ids=["save_binary", "num_machines", "serve_replicas", "placement",
-         "profile_dir", "obs_dir"])
-def test_unported_tasks_and_knobs_raise(args, item):
+    (["task=train", "data=d.tsv", "stream_enable=true"], tconfig.PARALLEL),
+    (["task=predict", "data=d.tsv", "input_model=m.txt",
+      "output_result=p.txt", "predict_method=depthwise",
+      "predict_num_shards=2"],
+     tconfig.SHARDED_PREDICT),
+    (["task=train", "data=d.tsv", "tree_learner=data"], tconfig.PARALLEL),
+    (["task=predict", "data=d.tsv", "input_model=m.txt",
+      "output_result=p.txt", "predict_method=scan"],
+     tconfig.SHARDED_PREDICT)],
+    ids=["save_binary", "num_machines", "stream_enable",
+         "predict_num_shards", "tree_learner", "predict_method_scan"])
+def test_unported_tasks_and_knobs_raise(args, item, tmp_path, monkeypatch):
+    """What the port does not run raises naming its item, from the
+    configuration (before any file is read) or, for row-sharded predict,
+    where the predictor is built."""
+    monkeypatch.chdir(tmp_path)
+    X = np.random.RandomState(0).randn(50, 3)
+    y = (X[:, 0] > 0).astype(float)
+    np.savetxt("d.tsv", np.column_stack([y, X]), delimiter="\t")
+    train({"objective": "binary", "num_leaves": 4, "verbosity": -1},
+          Dataset(X, label=y), 2, device="cpu").save_model("m.txt")
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP queue 1, {item}") + "$"):
         _port(args)
+
+
+def test_fleet_and_observability_knobs_are_accepted():
+    """The fleet's, the router's and placement's knobs, ``profile_dir``
+    and ``obs_dir`` (items 7 and 12) are no longer refused."""
+    cfg = tconfig.Config.from_cli([
+        "task=serve", "input_model=m.txt", "serve_replicas=3",
+        "router_hedge_ms=50", "router_retry_max=2",
+        "router_health_period_ms=15", "tenant_manifest=a,b",
+        "placement_replicas_per_tenant=2", "profile_dir=prof",
+        "obs_dir=obs"])
+    assert tconfig.unported_reason(cfg) is None
 
 
 def test_obs_trace_writes_the_train_spans(tmp_path):
