@@ -553,7 +553,34 @@ Phases (any failure exits non-zero with no ``ok`` line):
               beside it (``onehot``) and phase 45's bundle matrix
               (``bundle``), K1, K2, K3 and K6 a ``packed`` record, K1,
               K2 and K6 an ``int8sr`` one and an ``int8`` one, and K2
-              and K6 a ``constrained`` one.
+              and K6 a ``constrained`` one; K1's row also a ``stream``
+              record (phase 55).
+55. stream    — out-of-core training at bench.py's measure_stream
+              configuration: 200,000 rows of phase 8's generator (binary,
+              31 leaves, ``tree_growth=leafwise_masked``, bagging 0.8
+              every 2, ``feature_fraction`` 0.9, seed 7), 3 iterations,
+              blocks of 4,096 rows (49, the last of 3,392).  (a) resident
+              training; (b) ``save_block_cache`` then ``Dataset(dir)``
+              trained with ``stream_prefetch`` on (launch counts reset,
+              the allocator's peak reset) and off; (c) ``stream_enable``
+              with one block of 262,144 rows; (d) ``task=save_binary`` on
+              phase 50's 32,768-row valid file, then ``task=train
+              data=<dir>`` (2 iterations).  Gates: (c) is (a)'s model
+              text byte for byte; (b)'s two texts equal; K1's launches
+              in (b) are 49 x (1 + the tree's splits) a tree (the pool
+              kept), the split scan's a tree's root and splits, and no
+              plain histogram or scan ran; K1 on (b)'s last full block
+              and on the tail
+              block bit for bit its row-order version (``check_k1``); the
+              ledger's peak and the allocator's peak over (b) within
+              measure_stream's bound (bench.py:1877-1880); (d) streams
+              through K1 and writes the Python API's model text; (b)'s
+              AUC on 65,536 held-out rows served by K4 within 1e-3 of
+              (a)'s.  Prints the streamed and resident s/iteration and
+              their ratio, the peaks and the ledger's tags, the resident
+              matrix bytes, the cache write seconds, the bytes a pass
+              uploads, and the host's time in the ``stream.*`` spans of
+              the prefetch-off run (the tracer armed for it alone).
 
 At the default arguments every model text named in ``TEXT_SHA`` must
 keep its sha256 (a gate: the kernels claim the same bits).  The last
@@ -586,7 +613,9 @@ from lightgbmv1_tpu_torch.io import bundle as bundle_mod
 from lightgbmv1_tpu_torch.io.binning import (K_ZERO_THRESHOLD, MISSING_NAN,
                                              MISSING_ZERO)
 from lightgbmv1_tpu_torch.io.model_text import model_to_string
+from lightgbmv1_tpu_torch.data import load_manifest
 from lightgbmv1_tpu_torch.models import gbdt as gbdt_mod, grower_wave
+from lightgbmv1_tpu_torch.models import gbdt_stream
 from lightgbmv1_tpu_torch.models.predict import BatchPredictor
 from lightgbmv1_tpu_torch.models.tree import (HostTree, empty_tree,
                                               tree_leaf_index_binned)
@@ -8849,6 +8878,307 @@ def phase_obs() -> dict:
     return out
 
 
+STREAM_ROWS = 200_000       # phase 55's rows (bench.py:1836 measure_stream)
+STREAM_HELD_ROWS = 65536    # its held-out rows, scored through K4
+STREAM_BLOCK_ROWS = 4096    # 49 blocks, the last of 3,392 rows
+STREAM_ONE_BLOCK = 262144   # (c): stream_enable with one block of them all
+STREAM_ITERS = 3
+STREAM_CLI_ITERS = 2
+STREAM_AUC_TOL = 1e-3
+# bench.py:1843-1849, measure_stream's own parameters
+STREAM_PARAMS = {"objective": "binary", "num_leaves": 31, "max_bin": 63,
+                 "learning_rate": 0.1, "min_data_in_leaf": 20,
+                 "verbosity": -1, "tree_growth": "leafwise_masked",
+                 "seed": 7, "bagging_fraction": 0.8, "bagging_freq": 2,
+                 "feature_fraction": 0.9}
+
+
+def auc_of(y, p) -> float:
+    """The ROC AUC of scores ``p`` for labels ``y`` (ties share their
+    mean rank)."""
+    order = np.argsort(p, kind="mergesort")
+    ps = p[order]
+    ranks = np.empty(len(p), np.float64)
+    edges = np.flatnonzero(np.r_[True, ps[1:] != ps[:-1], True])
+    for a, b in zip(edges[:-1], edges[1:]):
+        ranks[order[a:b]] = 0.5 * (a + b - 1) + 1.0
+    pos = y > 0
+    n_pos, n_neg = int(pos.sum()), int((~pos).sum())
+    return float((ranks[pos].sum() - n_pos * (n_pos + 1) / 2)
+                 / (n_pos * n_neg))
+
+
+class BlockRecorder:
+    """Clones the inputs of K1's last one-slot call at each row count
+    (a full block and the tail block): the block buffers are reused by
+    the next upload, so the call's own tensors are gone by the end."""
+
+    def __init__(self, sizes):
+        self.sizes, self.last = set(sizes), {}
+
+    def __enter__(self):
+        self._orig = hc.hist_leaves
+
+        def wrapped(binned, g3, leaf_id, num_leaves, num_bins, *a, **kw):
+            n = int(binned.shape[1])
+            if int(num_leaves) == 1 and n in self.sizes:
+                self.last[n] = (binned.clone(), g3.clone(), leaf_id.clone(),
+                                int(num_bins))
+            return self._orig(binned, g3, leaf_id, num_leaves, num_bins,
+                              *a, **kw)
+
+        hc.hist_leaves = wrapped
+        return self
+
+    def __exit__(self, *exc):
+        hc.hist_leaves = self._orig
+
+
+def stream_bound(n, F_, B, L, block_rows) -> int:
+    """bench.py:1877-1880, measure_stream's device bound in bytes: the
+    leaf-sized state (the pool and three accumulators), two blocks in
+    flight four times over (bins, g3, leaf ids), one (N,) draw a bagging
+    period and a MiB of small state."""
+    return ((L + 3) * F_ * B * 3 * 4 + 4 * block_rows * (F_ + 12 + 4)
+            + 8 * n + (1 << 20))
+
+
+def stream_k1_launches(booster, n_blocks) -> int:
+    """K1's launches a streamed training makes: each tree's root pass and
+    each split's pass fold every block once (twice without the pool)."""
+    per_split = 1 if booster._gbdt._grow.use_pool else 2
+    return sum(n_blocks * (1 + (int(t.num_leaves) - 1) * per_split)
+               for t in booster._gbdt._device_trees)
+
+
+def stream_spans(ring, iters, s_per_iter) -> dict:
+    """The host's time in each ``stream.*`` span of a traced streamed
+    training (obs/trace.py): count, ms an iteration and us a span, and
+    the share of the iteration's wall they cover together."""
+    check(ring["dropped"] == 0, f"stream: the tracer dropped "
+          f"{ring['dropped']} spans")
+    tot, cnt = {}, {}
+    for name, _cat, _t0, dur, _tid, _args in ring["events"]:
+        if name.startswith("stream."):
+            tot[name] = tot.get(name, 0) + dur
+            cnt[name] = cnt.get(name, 0) + 1
+    out = {n: {"count": cnt[n], "ms_per_iter": tot[n] / iters / 1e6,
+               "us_per_span": tot[n] / cnt[n] / 1e3} for n in sorted(tot)}
+    out["share_of_wall"] = sum(tot.values()) / 1e9 / (iters * s_per_iter)
+    return out
+
+
+def stream_k1_row(rec, launches) -> dict:
+    """K1 on (b)'s last full block and tail block: bit for bit the
+    row-order version in every precision (``check_k1``), then timed at
+    the full block beside its plain version, one ``index_add_`` and its
+    bound: by events (at this size mostly the wrapper's enqueue) and its
+    two kernels' device time by torch.profiler, warm and with the L2
+    cleared (None where a profile saw no kernel)."""
+    checks = [check_k1(f"streamed block N={n} L=1", binned, g3, lid, 1, B)
+              for n, (binned, g3, lid, B) in sorted(rec.last.items())]
+    binned, g3, lid, B = rec.last[STREAM_BLOCK_ROWS]
+    Fn, N = binned.shape
+    k1 = functools.partial(hc.hist_leaves, binned, g3, lid, 1, B)
+    ms = time_ms(k1, 50)
+    names = ("hist_partial_kernel", "hist_merge_kernel")
+    device_ms = sum(kernel_device_ms(k1, names).values()) or None
+    cold_ms = sum(cold_device_ms(k1, names).values()) or None
+    plain_ms = time_ms(lambda: hc.hist_leaves_ref(binned, g3, lid, 1, B), 5)
+    flat = (torch.arange(Fn, device=binned.device)[:, None] * B
+            + binned.long()).reshape(-1)
+    vals = g3.repeat(Fn, 1)
+    acc = torch.zeros((Fn * B, 3), dtype=torch.float32,
+                      device=binned.device)
+    library_ms = time_ms(lambda: acc.index_add_(0, flat, vals), 20)
+    nbytes = Fn * N + N * 12 + N * 4 + Fn * B * 3 * 4
+    ops = 2 * 3 * N * Fn
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_OPS_PER_S * 1e3
+    row = {"N": N, "L": 1, "precision": "bf16x2", "ms": ms,
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bytes": nbytes, "ops": ops, "launches": launches,
+           "device_ms": device_ms, "device_ms_l2_cleared": cold_ms,
+           "max_abs_err": max(c["max_abs_err"] for c in checks),
+           "checks": checks}
+    log(f"  K1 at a streamed block (N={N}, L=1): {ms:.4f} ms by events, "
+        f"device {fmt_ms(device_ms)}, L2 cleared {fmt_ms(cold_ms)} (plain "
+        f"{plain_ms:.2f} ms, index_add_ {library_ms:.4f} ms, bound "
+        f"{row['bound_ms']:.5f} ms by {row['bound_by']}); {launches} "
+        "launches in (b)")
+    return row
+
+
+def phase_stream(seed, dev) -> dict:
+    """Phase 55: out-of-core streaming training on the card at
+    measure_stream's configuration (STREAM_ROWS rows of the bench
+    generator, STREAM_PARAMS, STREAM_ITERS iterations, blocks of
+    STREAM_BLOCK_ROWS rows).  (a) resident training; (b) the block cache
+    written (``save_block_cache``) and trained from (``Dataset(dir)``),
+    ``stream_prefetch`` on (timed, launch counts and the allocator's peak
+    taken) and then off (K1's block inputs recorded); (c)
+    ``stream_enable`` with one block of them all; (d) ``task=save_binary``
+    on phase 50's 32,768-row valid file (8 blocks), then ``task=train
+    data=<dir>``.  Gates: (c) is (a)
+    byte for byte; (b)'s two runs agree byte for byte; K1's launches in
+    (b) are every block of every pass and no plain histogram ran; K1 on a
+    full and the tail block bit for bit its row-order version; the
+    ledger's peak and the allocator's peak over (b) within
+    measure_stream's bound; (d) streams through K1 and writes the Python
+    API's text; (b)'s held-out AUC, served by K4, within STREAM_AUC_TOL of
+    (a)'s."""
+    t_phase = time.perf_counter()
+    bd = str(_build.BUILD_DIR)
+    params = dict(STREAM_PARAMS)
+    X, y = make_data(STREAM_ROWS, seed + 13)
+    Xh, yh = make_data(STREAM_HELD_ROWS, seed + 14)
+    ds = Dataset(X, label=y, params=params)
+    ds.construct()
+    matrix_bytes = int(ds._binned.binned.nbytes)
+    out = {"rows": STREAM_ROWS, "block_rows": STREAM_BLOCK_ROWS,
+           "iters": STREAM_ITERS, "resident_matrix_bytes": matrix_bytes}
+
+    def timed_train(p, data, iters=STREAM_ITERS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        b = train(dict(p), data, iters)
+        torch.cuda.synchronize()
+        return b, (time.perf_counter() - t0) / iters
+
+    reset_counts()
+    b_res, res_s = timed_train(params, ds)
+    text_res = b_res.model_to_string()
+    check(hc.launch_counts["hist_leaves"] > 0, "stream (a): K1 never "
+          "launched")
+
+    b_one, _ = timed_train(dict(params, stream_enable=True,
+                                stream_block_rows=STREAM_ONE_BLOCK), ds)
+    check(isinstance(b_one._gbdt, gbdt_stream.StreamingGBDT)
+          and b_one._gbdt._source.num_blocks == 1,
+          "stream (c): not one streamed block")
+    check(b_one.model_to_string() == text_res,
+          "stream (c): one streamed block is not the resident model text")
+    del b_one
+
+    cache = os.path.join(bd, "stream.blocks")
+    shutil.rmtree(cache, ignore_errors=True)
+    t0 = time.perf_counter()
+    ds.save_block_cache(cache, block_rows=STREAM_BLOCK_ROWS)
+    out["cache_write_s"] = time.perf_counter() - t0
+    sds = Dataset(cache, params=params)
+    source = sds.construct()._binned.source
+    nb = source.num_blocks
+    check(nb == 49 and source.ranges[-1][1] - source.ranges[-1][0] == 3392,
+          f"stream (b): {nb} blocks, last {source.ranges[-1]}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts()
+    b_str, str_s = timed_train(params, sds)
+    alloc_peak = torch.cuda.max_memory_allocated() - base
+    launches = hc.launch_counts["hist_leaves"]
+    plain = {k: v for k, v in hc.plain_counts.items() if v}
+    scans = scan_launches(STREAM_ITERS)
+    text_str = b_str.model_to_string()
+    gb = b_str._gbdt
+    check(isinstance(gb, gbdt_stream.StreamingGBDT), "stream (b): not the "
+          "streaming trainer")
+    want = stream_k1_launches(b_str, nb)
+    check(launches == want, f"stream (b): K1 launched {launches} times, "
+          f"every block of every pass is {want}")
+    check(not plain, f"stream (b): plain histograms ran {plain}")
+    # the root's scan and one a split (both children in one launch)
+    want_scans = sum(int(t.num_leaves) for t in gb._device_trees)
+    check(scans["launches"] == want_scans, f"stream (b): the split scan "
+          f"launched {scans['launches']} times, a tree's root and splits "
+          f"are {want_scans}")
+    obs_trace.reset()
+    obs_trace.arm(1 << 16)
+    with BlockRecorder((STREAM_BLOCK_ROWS, 3392)) as rec:
+        b_off, off_s = timed_train(dict(params, stream_prefetch=False), sds)
+    spans = stream_spans(obs_trace.drain(), STREAM_ITERS, off_s)
+    obs_trace.reset()
+    check(b_off.model_to_string() == text_str,
+          "stream (b): prefetch on and off differ")
+    check(sorted(rec.last) == [3392, STREAM_BLOCK_ROWS],
+          f"stream (b): K1 block shapes {sorted(rec.last)}")
+    bound = stream_bound(STREAM_ROWS, F, 64, params["num_leaves"],
+                         STREAM_BLOCK_ROWS)
+    peak = gb.stream_peak_device_bytes
+    check(peak <= bound, f"stream (b): ledger peak {peak} > bound {bound}")
+    check(alloc_peak <= bound, f"stream (b): allocator peak {alloc_peak} "
+          f"> bound {bound}")
+    h2d_root = STREAM_ROWS * (F + 12)
+    h2d_split = STREAM_ROWS * (F + 12 + 4)
+    out.update({
+        "resident_s_per_iter": res_s, "stream_s_per_iter": str_s,
+        "stream_noprefetch_s_per_iter": off_s,
+        "stream_vs_resident_ratio": str_s / res_s,
+        "ledger_peak_bytes": peak, "ledger_peak_tags": dict(gb._ledger
+                                                            .peak_tags),
+        "allocator_peak_bytes": int(alloc_peak), "bound_bytes": int(bound),
+        "blocks": nb, "k1_launches": launches,
+        "split_scan_launches": scans["launches"],
+        "noprefetch_host_spans": spans,
+        "h2d_bytes_root_pass": h2d_root, "h2d_bytes_split_pass": h2d_split,
+        "splits": [int(t.num_leaves) - 1 for t in gb._device_trees]})
+    out["k1"] = stream_k1_row(rec, launches)
+    del rec, b_off
+
+    pc.reset_launch_counts()
+    p_res = b_res.predict(Xh, predict_method="fused")
+    p_str = b_str.predict(Xh, predict_method="fused")
+    check(pc.launch_counts["serving_fused"] > 0, "stream: K4 never served "
+          "the held-out rows")
+    auc_res, auc_str = auc_of(yh, p_res), auc_of(yh, p_str)
+    check(abs(auc_str - auc_res) <= STREAM_AUC_TOL,
+          f"stream (b): held-out AUC {auc_str} vs resident {auc_res}")
+    out.update({"resident_auc": auc_res, "stream_auc": auc_str})
+    del b_res, b_str, sds, ds
+
+    csv_path = os.path.join(bd, "smoke_valid.csv")
+    cli_cache = os.path.join(bd, "stream_cli.blocks")
+    shutil.rmtree(cli_cache, ignore_errors=True)
+    model = os.path.join(bd, "stream_cli_model.txt")
+    knobs = [f"{k}={v}" for k, v in params.items() if k != "verbosity"]
+    save_s = cli_run(["task=save_binary", f"data={csv_path}", "header=true",
+                      "max_bin=63", f"stream_cache_dir={cli_cache}",
+                      f"stream_block_rows={STREAM_BLOCK_ROWS}",
+                      "verbosity=1"], [])
+    reset_counts()
+    lines = []
+    train_s = cli_run(["task=train", f"data={cli_cache}", *knobs,
+                       f"num_iterations={STREAM_CLI_ITERS}",
+                       f"output_model={model}", "verbosity=1"], lines)
+    k1 = hc.launch_counts["hist_leaves"]
+    plain = {k: v for k, v in hc.plain_counts.items() if v}
+    check(any("Streaming trainer:" in ln for ln in lines),
+          "stream (d): task=train did not stream the cache")
+    check(k1 > 0 and not plain, f"stream (d): K1 {k1}, plain {plain}")
+    api = train(dict(params), Dataset(cli_cache, params=params),
+                STREAM_CLI_ITERS)
+    with open(model) as fh:
+        check(fh.read() == api.model_to_string(),
+              "stream (d): the CLI's model is not the Python API's")
+    out["cli"] = {"save_binary_s": save_s, "train_s": train_s,
+                  "k1_launches": k1,
+                  "blocks": len(load_manifest(cli_cache)["blocks"])}
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  stream: {json.dumps({k: v for k, v in out.items() if k != 'k1'})}")
+    log(f"  streamed {str_s:.4f} s/iteration (prefetch off {off_s:.4f}), "
+        f"resident {res_s:.4f}, ratio {str_s / res_s:.2f}; ledger peak "
+        f"{peak} B, allocator peak {alloc_peak} B, bound {bound} B, "
+        f"resident matrix {matrix_bytes} B")
+    log("  host spans of the prefetch-off run: " + ", ".join(
+        f"{n} {v['ms_per_iter']:.1f} ms/iteration ({v['count']} x "
+        f"{v['us_per_span']:.1f} us)" for n, v in spans.items()
+        if n != "share_of_wall")
+        + f"; {spans['share_of_wall']:.3f} of the wall")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9364,6 +9694,18 @@ def main(argv=None) -> int:
         "artifacts")
     obs54 = phase_obs()
     log(f"  phase 54: {obs54['seconds']:.1f} s")
+    log("== phase 55: out-of-core streaming training (main path; launch "
+        "counts reset)")
+    stream55 = phase_stream(args.seed, dev)
+    log(f"  phase 55: {stream55['seconds']:.1f} s")
+    k1_row["stream"] = {
+        "note": "K1 at one slot on phase 55's streamed blocks: launches "
+        "in (b), counts reset just before it; timed at a full block",
+        **stream55["k1"]}
+    scan_row["stream"] = {
+        "launches": stream55["split_scan_launches"],
+        "note": "the split scan on phase 55's streamed trees in (b), counts "
+        "reset just before it: a tree's root and one a split"}
     rows[0]["serve_http"] = {
         "launches": serve52["launches"]["serving_fused"],
         "server_batches": serve52["server_batches"],
@@ -9417,6 +9759,8 @@ def main(argv=None) -> int:
                     "serve_fleet": {k: v for k, v in fleet53.items()
                                     if k != "launches"},
                     "obs": obs54,
+                    "stream": {k: v for k, v in stream55.items()
+                               if k != "k1"},
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]

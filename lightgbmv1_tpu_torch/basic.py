@@ -7,7 +7,9 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
   ``BinnedDataset.from_csr``, never densified) or a data file (csv, tsv,
   libsvm through ``io/parser.load_data_file`` with the loader knobs of
   ``params``, or ``load_two_round`` under ``two_round``), or a binned
-  dataset cache (``.bin``, ``save_binary`` :303, either package's), with
+  dataset cache (``.bin``, ``save_binary`` :303, either package's) or a
+  block cache directory (``save_block_cache`` :310, either package's:
+  a ``StreamingDataset`` the out-of-core trainer streams), with
   categorical columns (``categorical_feature``) and its query groups, a
   valid set sharing its reference's bins (``create_valid`` :326) and
   taking its own groups;
@@ -59,8 +61,8 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 Training and prediction run on ``device`` (default: the card; without one
 they raise — pass ``device="cpu"`` for the CPU).  Every other public name
 of the JAX ``Dataset`` and ``Booster`` raises ``NotImplementedError``
-naming its ROADMAP queue 1 item: the block caches and binned shards
-(parallel learners).
+naming its ROADMAP queue 1 item: ``from_binned``, the process-sharded
+data of the parallel learners.
 """
 
 from __future__ import annotations
@@ -174,20 +176,26 @@ class Dataset:
             meta.init_score = self.init_score
 
     def _load_file(self, path, label, weight, group, init_score):
-        """A data file (JAX :146-215): ``two_round`` streams a training
+        """A data file (JAX :130-215): ``two_round`` streams a training
         file straight into bins (``load_two_round``), else the file is
         parsed in memory (``load_data_file``) with the loader knobs of
         ``params``; the file's columns and siblings fill the fields not
         given.  A binned dataset cache (``save_binary``, JAX :146-156)
-        is loaded as it is: no parsing, no binning.  Returns the raw data
-        (None after a two-round or cached load) and the fields."""
-        if os.path.isdir(path):
-            raise not_ported("Dataset(<block cache directory>) (the "
-                             "out-of-core block cache)", PARALLEL)
+        is loaded as it is: no parsing, no binning.  A block cache
+        directory (``save_block_cache``, JAX :130-140) opens as a
+        ``data.streaming.StreamingDataset``: its metadata resident, its
+        bins streamed block by block by the training
+        (models/gbdt_stream.py); a directory that is not one raises
+        ``BlockCacheError``.  Returns the raw data (None after a
+        two-round or cached load) and the fields."""
         cfg = Config.from_dict(self.params)
         binned = None
         cats = self._categorical_list()
-        if BinnedDataset.is_binary_file(path):
+        if os.path.isdir(path):
+            from .data.streaming import StreamingDataset
+
+            binned = StreamingDataset(path)
+        elif BinnedDataset.is_binary_file(path):
             binned = BinnedDataset.load_binary(path)
         elif cfg.two_round and self.reference is None:
             from .io.parser import load_two_round
@@ -248,9 +256,20 @@ class Dataset:
         return self
 
     def save_block_cache(self, path, block_rows=None) -> "Dataset":
-        """The out-of-core block cache (JAX :310): not ported."""
-        raise not_ported("Dataset.save_block_cache (the out-of-core block "
-                         "cache)", PARALLEL)
+        """Write the block cache (JAX :310; data/block_cache.py) at the
+        directory ``path``, ``block_rows`` rows a block
+        (``stream_block_rows`` when None) in the ``bin_layout`` of
+        ``params``: ``Dataset(path)`` trains from it out of core, in
+        either package."""
+        from .data.block_cache import write_block_cache
+
+        self.construct()
+        cfg = Config.from_dict(self.params)
+        write_block_cache(self._binned, str(path),
+                          block_rows=(cfg.stream_block_rows
+                                      if block_rows is None else block_rows),
+                          bin_layout=cfg.bin_layout)
+        return self
 
     def create_valid(self, data, label=None, weight=None, group=None,
                      init_score=None, params=None) -> "Dataset":

@@ -23,9 +23,12 @@ device (serve/fleet.py, two-phase publish) behind the router
 (serve/router.py: the ``router_*`` knobs), through the same front-end;
 ``placement_replicas_per_tenant`` pins each manifest tenant to that many
 replicas and moves the hot ones once a second (serve/placement.py).
-``task=save_binary`` (the out-of-core block cache of the parallel
-learners) raises, naming its ROADMAP queue 1 item, as every knob the
-port does not run does.
+``task=save_binary`` parses and bins ``data`` once and writes the
+out-of-core block cache (data/block_cache.py) to ``stream_cache_dir``
+or ``<data>.blocks``, ``stream_block_rows`` rows a block; ``task=train
+data=<that directory>`` detects it and trains through the row-block
+streaming trainer (models/gbdt_stream.py), as ``stream_enable=true``
+does on any data.
 
 ``obs_trace`` / ``trace_out`` arm the span tracer over a training or
 serving run (``trace_out`` gets the Chrome trace at its end);
@@ -54,7 +57,7 @@ from typing import List, Optional
 import numpy as np
 
 from .basic import Booster, Dataset
-from .config import PARALLEL, Config, not_ported, unported_reason
+from .config import Config, unported_reason
 from .device import knob_device
 from .io.dataset import BinnedDataset
 from .io.parser import load_data_file
@@ -79,10 +82,10 @@ def _categorical(config: Config):
 def _load_dataset(config: Config, path: str,
                   reference: Optional[Dataset] = None,
                   init_score_file: str = "") -> Dataset:
-    """A data file as a Dataset (JAX :45): a binned cache (or a block
-    cache directory, which raises) as it is, ``two_round`` streamed into
-    bins, else parsed with the loader knobs.  The file's init scores
-    reach the Dataset (the JAX CLI drops them)."""
+    """A data file as a Dataset (JAX :45): a binned cache or a block
+    cache directory (JAX :50-56, streamed by the training) as it is,
+    ``two_round`` streamed into bins, else parsed with the loader knobs.
+    The file's init scores reach the Dataset (the JAX CLI drops them)."""
     params = _config_to_params(config)
     if os.path.isdir(path) or BinnedDataset.is_binary_file(path):
         return Dataset(path, params=params, reference=reference)
@@ -529,10 +532,28 @@ def run_convert_model(config: Config) -> str:
     return out
 
 
+def run_save_binary(config: Config) -> str:
+    """``task=save_binary`` (JAX :328-345; reference Application task
+    save_binary -> Dataset::SaveBinaryFile): parse and bin ``data``, then
+    write the block cache that ``task=train data=<dir>`` streams without
+    parsing again; to ``stream_cache_dir`` or ``<data>.blocks``.
+    Returns the directory."""
+    if not config.data:
+        log_fatal("No data to convert: set data=<file>")
+    out = config.stream_cache_dir or (config.data + ".blocks")
+    t0 = time.time()
+    train_set = _load_dataset(config, config.data,
+                              init_score_file=config.initscore_filename)
+    train_set.save_block_cache(out, block_rows=config.stream_block_rows)
+    log_info(f"Finished save_binary in {time.time() - t0:.3f}s: "
+             f"train with data={out}")
+    return out
+
+
 _TASKS = {"train": run_train, "predict": run_predict,
           "prediction": run_predict, "test": run_predict,
           "refit": run_refit, "convert_model": run_convert_model,
-          "serve": run_serve}
+          "serve": run_serve, "save_binary": run_save_binary}
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -544,9 +565,6 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     config = Config.from_cli(argv)
     task = config.task
-    if task == "save_binary":
-        raise not_ported("task=save_binary (the out-of-core block cache)",
-                         PARALLEL)
     if task not in _TASKS:
         log_fatal(f"Unknown task: {task}")
     why = unported_reason(config)

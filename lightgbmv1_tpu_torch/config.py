@@ -638,9 +638,11 @@ class Config:
 # front-end, tenants, SLOs, drift and the failure domains of the server
 # (items 6 and 8-11), the observability core (obs_trace / trace_out, the
 # event and span rings, crash_dir), the fleet, the router and placement
-# (item 7) and the rest of observability (obs_dir / LGBMV1_OBS_DIR and
-# profile_dir: item 12).  Those items keep their names for ROADMAP's
-# record of them, and nothing refuses with them any more.
+# (item 7), the rest of observability (obs_dir / LGBMV1_OBS_DIR and
+# profile_dir: item 12) and out-of-core streaming (stream_enable,
+# stream_block_rows, stream_prefetch, stream_cache_dir: item 14.1, whose
+# PARALLEL title stays for 14.2).  Those items keep their names for
+# ROADMAP's record of them, and nothing refuses with them any more.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
@@ -676,8 +678,7 @@ _REFUSED = (
                 "time_out", "machine_list_filename", "pre_partition",
                 "data_parallel_collective", "num_shards", "num_hosts",
                 "hier_ici_gbps", "hier_dcn_gbps", "elastic_lease_timeout_s",
-                "elastic_max_restarts", "stream_enable", "stream_block_rows",
-                "stream_prefetch", "stream_cache_dir")),
+                "elastic_max_restarts")),
 )
 
 

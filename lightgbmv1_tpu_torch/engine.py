@@ -17,7 +17,12 @@ objective becomes ``none``, each update takes ``fobj``'s gradients);
 seed the scores) or resumes a checkpoint file bit for bit (restored once
 the valid sets are attached: their scores are part of it).
 ``keep_training_booster=False`` returns a prediction-only booster loaded
-from the model text.
+from the model text.  A block-cache dataset (``Dataset(<dir>)``) and any
+dataset under ``stream_enable=true`` train through the out-of-core
+row-block trainer (models/gbdt_stream.py): the device holds a block of
+``stream_block_rows`` rows and the leaf-sized state, never the (F, N)
+bins; at one block the model text is the resident
+``tree_growth=leafwise_masked`` one byte for byte.
 
 ``cv`` and ``CVBooster`` (:172-286, with ``_make_n_folds`` :189): the
 folds drawn with ``np.random.RandomState(seed)`` (stratified by label for

@@ -120,6 +120,54 @@ def _metadata(num_data, label, weight, init_score, group) -> Metadata:
     return meta
 
 
+def mapper_sections(bin_mappers: List[BinMapper]) -> dict:
+    """The bin mappers as the flat arrays both dataset caches store (the
+    ``.bin`` cache and the block cache's ``meta.npz``, JAX
+    data/block_cache.py ``_mapper_arrays``)."""
+    ubounds = [np.asarray(m.bin_upper_bound, np.float64) for m in bin_mappers]
+    cats = [np.asarray(m.bin_2_categorical, np.int64) for m in bin_mappers]
+    return dict(
+        mapper_scalars=np.array(
+            [[m.num_bin, m.missing_type, m.bin_type, int(m.is_trivial)]
+             for m in bin_mappers], dtype=np.int64),
+        mapper_floats=np.array(
+            [[m.sparse_rate, m.min_value, m.max_value]
+             for m in bin_mappers], dtype=np.float64),
+        ubound_flat=np.concatenate(ubounds) if ubounds else np.zeros(0),
+        ubound_offsets=np.cumsum([0] + [len(u) for u in ubounds]),
+        cat_flat=np.concatenate(cats) if cats else np.zeros(0, np.int64),
+        cat_offsets=np.cumsum([0] + [len(c) for c in cats]))
+
+
+def metadata_sections(meta: Metadata) -> dict:
+    """The metadata as the caches store it (an absent field empty)."""
+    return dict(
+        label=meta.label if meta.label is not None else np.zeros(0),
+        weight=meta.weight if meta.weight is not None else np.zeros(0),
+        group=(meta.group if meta.group is not None
+               else np.zeros(0, np.int64)),
+        init_score=(meta.init_score if meta.init_score is not None
+                    else np.zeros(0)))
+
+
+def mappers_from_sections(z) -> List[BinMapper]:
+    """``mapper_sections``' inverse, from a loaded npz (or dict)."""
+    sc, fl = z["mapper_scalars"], z["mapper_floats"]
+    uoff, coff = z["ubound_offsets"], z["cat_offsets"]
+    mappers = []
+    for j in range(sc.shape[0]):
+        cats = [int(c) for c in z["cat_flat"][coff[j]:coff[j + 1]]]
+        mappers.append(BinMapper(
+            bin_upper_bound=np.asarray(
+                z["ubound_flat"][uoff[j]:uoff[j + 1]], np.float64),
+            num_bin=int(sc[j, 0]), missing_type=int(sc[j, 1]),
+            bin_type=int(sc[j, 2]), is_trivial=bool(sc[j, 3]),
+            sparse_rate=float(fl[j, 0]), min_value=float(fl[j, 1]),
+            max_value=float(fl[j, 2]), bin_2_categorical=cats,
+            categorical_2_bin={c: i for i, c in enumerate(cats)}))
+    return mappers
+
+
 class BinnedDataset:
     """Feature-binned training data + metadata; ``binned`` is (F, N)
     uint8, or int16 past 256 bins a feature (None for sparse input that
@@ -211,10 +259,6 @@ class BinnedDataset:
         dense set's bundle matrix is derived again at load), the bundle
         layout, the mappers as flat arrays, the metadata, each section
         under its digest."""
-        ubounds = [np.asarray(m.bin_upper_bound, np.float64)
-                   for m in self.bin_mappers]
-        cats = [np.asarray(m.bin_2_categorical, np.int64)
-                for m in self.bin_mappers]
         meta, bl = self.metadata, self.bundle_layout
         sections = dict(
             magic=np.frombuffer(self.BINARY_MAGIC.encode(), dtype=np.uint8),
@@ -234,22 +278,8 @@ class BinnedDataset:
             num_data=np.int64(self.num_data),
             max_bin=np.int64(self.max_bin),
             feature_names=np.array(self.feature_names),
-            mapper_scalars=np.array(
-                [[m.num_bin, m.missing_type, m.bin_type, int(m.is_trivial)]
-                 for m in self.bin_mappers], dtype=np.int64),
-            mapper_floats=np.array(
-                [[m.sparse_rate, m.min_value, m.max_value]
-                 for m in self.bin_mappers], dtype=np.float64),
-            ubound_flat=np.concatenate(ubounds) if ubounds else np.zeros(0),
-            ubound_offsets=np.cumsum([0] + [len(u) for u in ubounds]),
-            cat_flat=np.concatenate(cats) if cats else np.zeros(0, np.int64),
-            cat_offsets=np.cumsum([0] + [len(c) for c in cats]),
-            label=meta.label if meta.label is not None else np.zeros(0),
-            weight=meta.weight if meta.weight is not None else np.zeros(0),
-            group=(meta.group if meta.group is not None
-                   else np.zeros(0, np.int64)),
-            init_score=(meta.init_score if meta.init_score is not None
-                        else np.zeros(0)),
+            **mapper_sections(self.bin_mappers),
+            **metadata_sections(meta),
         )
         digest_keys = sorted(k for k in sections if k != "magic")
         fh = io.BytesIO()       # savez appends .npz to a bare string path
@@ -320,19 +350,7 @@ class BinnedDataset:
                 log_warning(f"{path}: legacy v1 binary cache (no section "
                             "digests); re-save to enable corruption "
                             "detection")
-            sc, fl = z["mapper_scalars"], z["mapper_floats"]
-            uoff, coff = z["ubound_offsets"], z["cat_offsets"]
-            mappers = []
-            for j in range(sc.shape[0]):
-                cats = [int(c) for c in z["cat_flat"][coff[j]:coff[j + 1]]]
-                mappers.append(BinMapper(
-                    bin_upper_bound=np.asarray(
-                        z["ubound_flat"][uoff[j]:uoff[j + 1]], np.float64),
-                    num_bin=int(sc[j, 0]), missing_type=int(sc[j, 1]),
-                    bin_type=int(sc[j, 2]), is_trivial=bool(sc[j, 3]),
-                    sparse_rate=float(fl[j, 0]), min_value=float(fl[j, 1]),
-                    max_value=float(fl[j, 2]), bin_2_categorical=cats,
-                    categorical_2_bin={c: i for i, c in enumerate(cats)}))
+            mappers = mappers_from_sections(z)
             meta = Metadata()
             if z["label"].size:
                 meta.label = z["label"].astype(np.float32)

@@ -141,7 +141,7 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import (CAT_INT16, PARALLEL, Config, not_ported,
+from ..config import (CAT_INT16, Config, not_ported,
                       unported_reason)
 from ..io.bundle import BundleArrays, apply_bundles_dense
 from ..io.dataset import BinnedDataset
@@ -203,6 +203,11 @@ class GBDT:
     """Gradient Boosting Decision Tree trainer (reference class GBDT,
     gbdt.h:34), training on ``device``."""
 
+    # the out-of-core row-block trainer (models/gbdt_stream.py) sets it
+    # (JAX :79-81): the bins never go to the device whole, and the per-row
+    # state (scores, gradients, leaf ids, the bag) lives on the host
+    _is_streaming = False
+
     def __init__(self, config: Config, train_set: BinnedDataset,
                  device: torch.device,
                  init_raw_scores: Optional[np.ndarray] = None):
@@ -211,13 +216,16 @@ class GBDT:
             raise NotImplementedError(why)
         self.config = config
         self.device = torch.device(device)
+        # where the (N, ...) per-row state lives
+        self._row_device = (torch.device("cpu") if self._is_streaming
+                            else self.device)
         self.train_set = train_set
         self.num_data = train_set.num_data
         self.num_class = config.num_tree_per_iteration
         self.objective = create_objective(config)
         if self.objective is not None:
             self.objective.init(train_set.metadata, self.num_data,
-                                self.device)
+                                self._row_device)
         if (train_set.is_categorical.any() and train_set.padded_bin > 256):
             raise not_ported("categorical features beside more than 256 "
                              "bins a feature (int16 bins)", CAT_INT16)
@@ -235,18 +243,25 @@ class GBDT:
                         "forced splits run on unbundled features)")
             train_set.bundled = None
             train_set.bundle_layout = None
-        if train_set.bundle_layout is not None:
+        # the streamed blocks are the plain bins (JAX :110)
+        if train_set.bundle_layout is not None and not self._is_streaming:
             self._bundle = BundleArrays(train_set.bundle_layout,
                                         train_set.zero_bins,
                                         train_set.num_bins, self.device)
 
-        binned = torch.as_tensor(train_set.train_matrix,
-                                 device=self.device).contiguous()
-        self._packed = select_bin_layout(
-            config, num_total_bin=train_set.num_total_bin,
-            device=self.device, bin_dtype=binned.dtype,
-            bundled=self._bundle is not None) == "packed4"
-        self.binned = pack4bit(binned) if self._packed else binned
+        if self._is_streaming:
+            # the blocks stream per pass in their stored layout (JAX
+            # :135-154); valid sets are packed to match a packed cache
+            self.binned = None
+            self._packed = self._source.bin_layout == "packed4"
+        else:
+            binned = torch.as_tensor(train_set.train_matrix,
+                                     device=self.device).contiguous()
+            self._packed = select_bin_layout(
+                config, num_total_bin=train_set.num_total_bin,
+                device=self.device, bin_dtype=binned.dtype,
+                bundled=self._bundle is not None) == "packed4"
+            self.binned = pack4bit(binned) if self._packed else binned
         self.meta = make_feature_meta(train_set, self.device,
                                       config.monotone_constraints,
                                       config.feature_contri)
@@ -282,7 +297,7 @@ class GBDT:
             self._train_scores = _ScoreUpdater(
                 self.num_data, self.num_class,
                 np.asarray(init_raw_scores, np.float64).reshape(
-                    self.num_data, self.num_class), self.device)
+                    self.num_data, self.num_class), self._row_device)
             self._used_init_score = True
         elif meta_init is not None:
             init = np.asarray(meta_init, np.float64).reshape(
@@ -290,7 +305,7 @@ class GBDT:
             base = np.zeros((self.num_data, self.num_class))
             base[:, :init.shape[1]] = init
             self._train_scores = _ScoreUpdater(self.num_data, self.num_class,
-                                               base, self.device)
+                                               base, self._row_device)
             self._used_init_score = True
         else:
             for k in range(self.num_class if self.objective is not None
@@ -301,7 +316,7 @@ class GBDT:
                     f"{s:.6f}" for s in self._init_scores))
             self._train_scores = _ScoreUpdater(
                 self.num_data, self.num_class, self._init_scores[None, :],
-                self.device)
+                self._row_device)
             self._used_init_score = False
 
         self.models: List[Optional[HostTree]] = []   # iter-major
@@ -339,7 +354,21 @@ class GBDT:
         """The split params and the grower of the current config; the
         histogram method a bench picked stays picked."""
         config = self.config
-        self.split_params = SplitParams(
+        self.split_params = self._make_split_params()
+        picked = getattr(getattr(self, "_grow", None), "hist_method", None)
+        if config.hist_method == "bench" and picked is not None:
+            config = dataclasses.replace(config, hist_method=picked)
+        self._grow = build_trainer(
+            config, self.meta, self.split_params, self.num_bins, self.device,
+            bin_dtype=self.binned.dtype, num_data=self.num_data,
+            packed=self._packed, binned=self.binned, bundle=self._bundle,
+            bundle_num_bins=(self.train_set.padded_bundle_bin
+                             if self._bundle is not None else None),
+            bin_mappers=self.train_set.bin_mappers)
+
+    def _make_split_params(self) -> SplitParams:
+        config = self.config
+        return SplitParams(
             lambda_l1=config.lambda_l1, lambda_l2=config.lambda_l2,
             min_data_in_leaf=float(config.min_data_in_leaf),
             min_sum_hessian_in_leaf=config.min_sum_hessian_in_leaf,
@@ -355,16 +384,6 @@ class GBDT:
             min_data_per_group=float(config.min_data_per_group),
             cegb_tradeoff=float(config.cegb_tradeoff),
             cegb_penalty_split=float(config.cegb_penalty_split))
-        picked = getattr(getattr(self, "_grow", None), "hist_method", None)
-        if config.hist_method == "bench" and picked is not None:
-            config = dataclasses.replace(config, hist_method=picked)
-        self._grow = build_trainer(
-            config, self.meta, self.split_params, self.num_bins, self.device,
-            bin_dtype=self.binned.dtype, num_data=self.num_data,
-            packed=self._packed, binned=self.binned, bundle=self._bundle,
-            bundle_num_bins=(self.train_set.padded_bundle_bin
-                             if self._bundle is not None else None),
-            bin_mappers=self.train_set.bin_mappers)
 
     def reset_config(self, params) -> None:
         """New knob values mid-training (JAX ``config.update`` under
@@ -456,7 +475,7 @@ class GBDT:
             return self._bag_mask
         key = fold_in(prng_key(cfg.bagging_seed),
                       iteration // max(cfg.bagging_freq, 1))
-        N, dev = self.num_data, self.device
+        N, dev = self.num_data, self._row_device
         if use_pos_neg:
             pos = bernoulli(key, cfg.pos_bagging_fraction, N, dev)
             neg = bernoulli(fold_in(key, 1), cfg.neg_bagging_fraction, N,
@@ -483,15 +502,22 @@ class GBDT:
         if self.objective is None:
             log_fatal("objective=none trains on a custom objective: pass "
                       "fobj")
+        return self._guarded_gradients(self.objective, score, iteration, 0)
+
+    def _guarded_gradients(self, objective, score: torch.Tensor,
+                           iteration: int, row0: int):
+        """``_gradients`` of ``objective`` on the rows of ``score``, the
+        first of them row ``row0`` of the training set (the poisoned rows
+        are the set's)."""
         s = score[:, 0] if self.num_class == 1 else score
-        if self.objective.is_stochastic:
-            grad, hess = self.objective.get_gradients(s, iteration=iteration)
+        if objective.is_stochastic:
+            grad, hess = objective.get_gradients(s, iteration=iteration)
         else:
-            grad, hess = self.objective.get_gradients(s)
+            grad, hess = objective.get_gradients(s)
         if grad.ndim == 1:
             grad, hess = grad[:, None], hess[:, None]
         if self._poison_iter is not None and iteration == self._poison_iter:
-            rows = (torch.arange(grad.shape[0], device=grad.device)
+            rows = ((torch.arange(grad.shape[0], device=grad.device) + row0)
                     % 13 == 0)[:, None]
             grad = grad.masked_fill(rows, float("nan"))
             hess = hess.masked_fill(rows, float("nan"))
@@ -562,7 +588,8 @@ class GBDT:
                 tree, host = self._renewed(tree, leaf_id, score[:, k], q,
                                            rate, k)
             shrunk = tree._replace(leaf_value=tree.leaf_value * rate)
-            train_preds.append(leaf_lookup(shrunk.leaf_value, leaf_id))
+            train_preds.append(leaf_lookup(
+                shrunk.leaf_value.to(leaf_id.device), leaf_id))
             for vi, vb in enumerate(self._valid_binned):
                 valid_preds[vi].append(
                     shrunk.leaf_value[vlids[vi].long()] if vlids is not None
@@ -826,7 +853,7 @@ class GBDT:
             ht.shrinkage = float(manifest["host_shrinkage"][r])
             self.models[i] = ht
         self._train_scores.score = torch.as_tensor(arrays["train_score"],
-                                                   device=dev)
+                                                   device=self._row_device)
         for i, vs in enumerate(self._valid_scores):
             vs.score = torch.as_tensor(arrays[f"valid_score_{i}"],
                                        device=dev)
@@ -1108,10 +1135,8 @@ class DART(GBDT):
                 lv = tree.leaf_value + b if b else tree.leaf_value
                 walk = tree._replace(leaf_value=lv)
                 d_train[:, k] += (
-                    lv[self._train_lids[it][k].long()] if use else
-                    tree_predict_binned(walk, self.binned, meta.nan_bin,
-                                        meta.missing_type, meta.zero_bin,
-                                        self._packed, self._bundle))
+                    lv.to(self._row_device)[self._train_lids[it][k].long()]
+                    if use else self._train_walk(walk))
                 for vi, vb in enumerate(self._valid_binned):
                     d_valid[vi][:, k] += (
                         lv[vl[vi][k].long()] if vl is not None else
@@ -1120,6 +1145,14 @@ class DART(GBDT):
                                             meta.zero_bin, self._packed,
                                             self._bundle))
         return d_train, d_valid
+
+    def _train_walk(self, tree: TreeArrays) -> torch.Tensor:
+        """Each training row's leaf value of ``tree``, walked on the
+        bins."""
+        meta = self.meta
+        return tree_predict_binned(tree, self.binned, meta.nan_bin,
+                                   meta.missing_type, meta.zero_bin,
+                                   self._packed, self._bundle)
 
     def _rescale_dropped(self, drops: List[int], old_factor: float,
                          w_dec: float) -> None:
@@ -1258,7 +1291,7 @@ class DART(GBDT):
                 if d["valid_lids"] else None
             for i in range(lids.shape[0]):
                 self._train_lids.append(
-                    torch.as_tensor(lids[i], device=self.device).to(dt))
+                    torch.as_tensor(lids[i], device=self._row_device).to(dt))
                 self._valid_lids.append(None if vl is None else [
                     torch.as_tensor(v[i], device=self.device).to(dt)
                     for v in vl])
@@ -1335,9 +1368,14 @@ def create_boosting(config: Config, train_set: BinnedDataset,
     Boosting::CreateBoosting, boosting.cpp:37-44); ``init_raw_scores``:
     a loaded model's raw scores on the training rows (continued
     training)."""
-    if config.stream_enable:
-        raise not_ported("stream_enable (the out-of-core row-block "
-                         "trainer)", PARALLEL)
+    if getattr(train_set, "is_streaming", False) or config.stream_enable:
+        # the out-of-core row-block trainer (JAX :1888-1894): a block
+        # cache streams from disk, stream_enable cuts resident bins into
+        # the same blocks
+        from .gbdt_stream import create_streaming_boosting
+
+        return create_streaming_boosting(config, train_set, device,
+                                         init_raw_scores)
     kind = config.boosting
     classes = {"gbdt": GBDT, "gbrt": GBDT, "dart": DART, "goss": GOSS,
                "rf": RF, "random_forest": RF}

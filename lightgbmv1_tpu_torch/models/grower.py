@@ -20,9 +20,13 @@ batched ``ops/split.py`` call a step.
   where the JAX package slices a static capacity picked by ``lax.switch``
   and zeroes the rows past the count.  ``partition=False``
   (``tree_growth=leafwise_masked``) masks the rows of all ``N`` to the
-  child instead.  The JAX ``fori_loop`` with its latched ``done`` flag
-  becomes a Python loop that reads each step's best gain on the host and
-  stops at the first that is not positive.
+  child instead.  The two passes over the rows (the root's, and each
+  split's routing and children's histograms) are objects,
+  ``PartitionRows`` and ``MaskedRows``; the out-of-core trainer grows
+  the same trees with its own, which fold the masked passes over row
+  blocks (models/grower_stream.py).  The JAX ``fori_loop`` with its
+  latched ``done`` flag becomes a Python loop that reads each step's
+  best gain on the host and stops at the first that is not positive.
 * **Level-wise** (depth-wise, the whole frontier at once): a level's
   leaves are histogrammed in one K1 pass, each split scanned in one
   batched call, and the positive gains ranked under the ``num_leaves``
@@ -98,6 +102,7 @@ import torch
 
 from ..io.bundle import expand_bundle_hist
 from ..ops.hist_cuda import bins_of_feat, bins_of_rows
+from ..ops.histogram import root_sums
 from ..ops.quantize import NearestRows
 from ..io.binning import MISSING_NAN, MISSING_ZERO
 from ..ops.split import (NEG_INF, NO_CONSTRAINT, FeatureMeta, SplitParams,
@@ -111,13 +116,6 @@ from .tree import empty_tree
 # the auto cap of the sequential grower's histogram pool and of the
 # level-wise grower's carried level histograms (JAX :281, :878)
 _POOL_AUTO_BYTES = 512.0 * (1 << 20)
-
-
-def root_sums(g3):
-    """The rows' (3,) [g, h, c] sums: an f32 reduction, as the JAX
-    package's ``sums_fn``, rounded in the device's own order (the one
-    place a grower sums rows outside K1)."""
-    return g3.sum(dim=0)
 
 
 def node_feature_masks(key, uids, base_mask: torch.Tensor,
@@ -276,6 +274,111 @@ def split_go_left(bins, thr, dl, mt, nanb, zb, is_cat=None, bitset=None):
                        go_left_rule(bins, thr, dl, mt, nanb, zb))
 
 
+class MaskedRows:
+    """The masked sequential grower's O(N) passes over resident rows
+    (``partition=False``): ``leaf_id`` holds every row's leaf; a split
+    routes the split leaf's rows and histograms its children over all
+    ``N`` rows masked to each.  A pass object answers ``root() -> (hist0,
+    root_sum)``, ``split(leaf, nl, rule, lsum, rsum, need_large) ->
+    (smaller_is_left, h_small, h_large)`` and ``leaf_ids()``; the
+    streamed trainer's (models/grower_stream.py) folds the same passes
+    over row blocks."""
+
+    def __init__(self, binned, g3, hist_fn, packed=False, bundle=None):
+        self.binned, self.g3, self.hist_fn = binned, g3, hist_fn
+        self.packed, self.bundle = packed, bundle
+        self.device, self.num_rows = binned.device, binned.shape[1]
+        self.leaf_id = torch.zeros(self.num_rows, dtype=torch.int32,
+                                   device=self.device)
+
+    def root(self):
+        return (self.hist_fn(self.binned, self.g3, self.leaf_id, 0),
+                root_sums(self.g3))
+
+    def split(self, leaf, nl, rule, lsum, rsum, need_large):
+        """``rule`` = (feat, thr, dl, missing type, nan bin, zero bin,
+        is_cat, bitset) of the split."""
+        gl = split_go_left(
+            bins_of_feat(self.binned, rule[0], self.packed,
+                         self.bundle).long(), *rule[1:])
+        self.leaf_id = torch.where((self.leaf_id == leaf) & ~gl,
+                                   torch.full_like(self.leaf_id, nl),
+                                   self.leaf_id)
+        sm_left = bool(lsum[2] <= rsum[2])
+        small, large = (leaf, nl) if sm_left else (nl, leaf)
+        h_small = self.hist_fn(self.binned, self.g3, self.leaf_id, small)
+        h_large = (self.hist_fn(self.binned, self.g3, self.leaf_id, large)
+                   if need_large else None)
+        return sm_left, h_small, h_large
+
+    def leaf_ids(self):
+        return self.leaf_id
+
+
+class PartitionRows:
+    """The partitioned sequential grower's passes (``partition=True``,
+    reference DataPartition): the rows kept grouped by leaf in one row
+    order, a split partitioning its leaf's segment stably and the smaller
+    child histogrammed on its segment's rows, gathered."""
+
+    def __init__(self, binned, g3, hist_fn, packed=False, bundle=None):
+        self.binned, self.g3, self.hist_fn = binned, g3, hist_fn
+        self.packed, self.bundle = packed, bundle
+        self.device, self.num_rows = binned.device, binned.shape[1]
+        self.order = torch.arange(self.num_rows, dtype=torch.long,
+                                  device=self.device)
+        # each leaf's segment: its first position in ``order``, its rows
+        self.begin, self.phys = {0: 0}, {0: self.num_rows}
+
+    def root(self):
+        zeros = torch.zeros(self.num_rows, dtype=torch.int32,
+                            device=self.device)
+        self.hist0 = self.hist_fn(self.binned, self.g3, zeros, 0)
+        return self.hist0, root_sums(self.g3)
+
+    def _hist_rows(self, b, n):
+        """K1 at one slot over a segment's rows, gathered: (F, n) bins and
+        (n, 3) values."""
+        if n == 0:
+            return torch.zeros_like(self.hist0)
+        rows = self.order[b:b + n]
+        return self.hist_fn(self.binned[:, rows].contiguous(),
+                            self.g3[rows].contiguous(),
+                            torch.zeros(n, dtype=torch.int32,
+                                        device=self.device), 0)
+
+    def split(self, leaf, nl, rule, lsum, rsum, need_large):
+        b0, n_p = self.begin[leaf], self.phys[leaf]
+        seg = self.order[b0:b0 + n_p]
+        bseg = bins_of_feat(self.binned, rule[0], self.packed,
+                            self.bundle)[seg].long()
+        gl = split_go_left(bseg, *rule[1:])
+        left_rows, right_rows = seg[gl], seg[~gl]    # stable
+        n_l = int(left_rows.shape[0])
+        self.order[b0:b0 + n_p] = torch.cat([left_rows, right_rows])
+        n_r = n_p - n_l
+        sm_left = n_l <= n_r
+        sm_b, sm_n = (b0, n_l) if sm_left else (b0 + n_l, n_r)
+        lg_b, lg_n = (b0 + n_l, n_r) if sm_left else (b0, n_l)
+        h_small = self._hist_rows(sm_b, sm_n)
+        h_large = self._hist_rows(lg_b, lg_n) if need_large else None
+        self.begin[nl], self.phys[leaf], self.phys[nl] = b0 + n_l, n_l, n_r
+        return sm_left, h_small, h_large
+
+    def leaf_ids(self):
+        """Each row's leaf from the segments (the splits never touched
+        per-row leaf ids)."""
+        by_begin = sorted(self.begin, key=lambda k: self.begin[k])
+        pos_leaf = torch.repeat_interleave(
+            torch.tensor(by_begin, dtype=torch.int32, device=self.device),
+            torch.tensor([self.phys[k] for k in by_begin],
+                         device=self.device))
+        leaf_id = torch.empty(self.num_rows, dtype=torch.int32,
+                              device=self.device)
+        leaf_id[self.order] = pos_leaf
+        return leaf_id
+
+
 def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                          meta: FeatureMeta, params: SplitParams,
                          hist_fn: Callable, max_depth: int = -1,
@@ -285,9 +388,13 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                          bundle=None, interaction_groups=None,
                          forced_splits=None, cegb_coupled=None,
                          cegb_lazy=None):
-    """Build ``grow(binned, g3, base_mask, key=None, cegb_used=None) ->
-    (tree, leaf_id, root_sum)``; ``key`` is the tree's (per-node feature
-    sampling).
+    """Build ``grow(binned, g3, base_mask, key=None, cegb_used=None,
+    rows=None) -> (tree, leaf_id, root_sum)``; ``key`` is the tree's
+    (per-node feature sampling).  ``rows``: the O(N) passes, by default
+    ``PartitionRows`` (or, ``partition=False``, ``MaskedRows``) over
+    ``binned`` and ``g3``; the streamed trainer passes its row-block
+    passes (models/grower_stream.py) and no ``binned`` / ``g3``.
+    ``grow.use_pool``: whether the histogram pool is kept.
 
     ``hist_fn(binned, g3, leaf_id, target) -> (F, B, 3)``: the histogram
     of the rows whose leaf id is ``target`` (ops/histogram.hist_one_leaf,
@@ -321,9 +428,11 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                  "pool-free growth (children histograms rebuilt per split)")
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
-             base_mask: torch.Tensor, key=None, cegb_used=None):
-        dev = binned.device
-        N = binned.shape[1]
+             base_mask: torch.Tensor, key=None, cegb_used=None, rows=None):
+        if rows is None:
+            rows = (PartitionRows if partition else MaskedRows)(
+                binned, g3, hist_fn, packed, bundle)
+        dev, N = rows.device, rows.num_rows
         F = base_mask.shape[0]
         groups = (None if interaction_groups is None else torch.as_tensor(
             np.asarray(interaction_groups), dtype=torch.bool, device=dev))
@@ -338,9 +447,7 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             # the tree's own copy: each split charges its leaf's rows
             marks = (torch.zeros((N, F), dtype=torch.bool, device=dev)
                      if marks is None else marks.clone())
-        leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
-        hist0 = hist_fn(binned, g3, leaf_id, 0)
-        root_sum = root_sums(g3)
+        hist0, root_sum = rows.root()
         out0 = root_output(root_sum, params)
         mask0 = node_feature_masks(key, [0], base_mask,
                                    feature_fraction_bynode)
@@ -395,22 +502,10 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
 
         store_best(torch.zeros(1, dtype=torch.long, device=dev), res0,
                    res0.gain)
-        # host state: depths, parents and sides, the partition's segments,
-        # each applied forced step's [left, right] leaves
+        # host state: depths, parents and sides, each applied forced
+        # step's [left, right] leaves
         depth, parent, is_left = [0] * L, [-1] * L, [False] * L
-        order = torch.arange(N, dtype=torch.long, device=dev)
-        begin, phys = [0] * L, [0] * L
-        phys[0] = N
         forced_leaf = [[-1, -1] for _ in range(S_forced)]
-
-        def hist_rows(b, n):
-            """K1 at one slot over a segment's rows, gathered: (F, n) bins
-            and (n, 3) values."""
-            if n == 0:
-                return torch.zeros_like(hist0)
-            rows = order[b:b + n]
-            return hist_fn(binned[:, rows].contiguous(), g3[rows].contiguous(),
-                           torch.zeros(n, dtype=torch.int32, device=dev), 0)
 
         nl = 1
         while nl < L:
@@ -449,34 +544,10 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             node = nl - 1
             mt, nanb, zb = (meta.missing_type[feat], meta.nan_bin[feat],
                             meta.zero_bin[feat])
-            lid_before = leaf_id
-            if partition:
-                b0, n_p = begin[leaf], phys[leaf]
-                seg = order[b0:b0 + n_p]
-                bseg = bins_of_feat(binned, feat, packed, bundle)[seg].long()
-                gl = split_go_left(bseg, thr, dl, mt, nanb, zb, iscat, bits)
-                left_rows, right_rows = seg[gl], seg[~gl]    # stable
-                n_l = int(left_rows.shape[0])
-                order[b0:b0 + n_p] = torch.cat([left_rows, right_rows])
-                n_r = n_p - n_l
-                sm_left = n_l <= n_r
-                sm_b, sm_n = (b0, n_l) if sm_left else (b0 + n_l, n_r)
-                lg_b, lg_n = (b0 + n_l, n_r) if sm_left else (b0, n_l)
-                h_small = hist_rows(sm_b, sm_n)
-                h_large = None if use_pool else hist_rows(lg_b, lg_n)
-                begin[nl], phys[leaf], phys[nl] = b0 + n_l, n_l, n_r
-            else:
-                gl = split_go_left(
-                    bins_of_feat(binned, feat, packed, bundle).long(), thr,
-                    dl, mt, nanb, zb, iscat, bits)
-                leaf_id = torch.where((leaf_id == leaf) & ~gl,
-                                      torch.full_like(leaf_id, nl), leaf_id)
-                sm_left = bool(lsum[2] <= rsum[2])
-                h_small = hist_fn(binned, g3, leaf_id,
-                                  leaf if sm_left else nl)
-                h_large = (None if use_pool else
-                           hist_fn(binned, g3, leaf_id,
-                                   nl if sm_left else leaf))
+            lid_before = getattr(rows, "leaf_id", None)
+            sm_left, h_small, h_large = rows.split(
+                leaf, nl, (feat, thr, dl, mt, nanb, zb, iscat, bits), lsum,
+                rsum, need_large=not use_pool)
             if use_pool:
                 # the larger child by subtraction, as the JAX package
                 # forms it: right = parent - left whichever was measured
@@ -522,7 +593,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                     # package's f32 product of 0 / 1 values)
                     marks[:, feat] |= lid_before == leaf
                     unmk = torch.stack([
-                        (~marks[leaf_id == c]).sum(dim=0) for c in (leaf, nl)
+                        (~marks[rows.leaf_id == c]).sum(dim=0)
+                        for c in (leaf, nl)
                     ]).to(f32)
                 pen2 = cegb.penalty(csums[:, 2], cegb_used, unmk)
             res = find_best_split(
@@ -568,19 +640,11 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             is_left[leaf], is_left[nl] = True, False
             nl += 1
 
-        if partition:
-            # each row's leaf from the segments (the loop never touched
-            # the per-row leaf ids)
-            by_begin = sorted(range(nl), key=lambda k: begin[k])
-            pos_leaf = torch.repeat_interleave(
-                torch.tensor(by_begin, dtype=torch.int32, device=dev),
-                torch.tensor([phys[k] for k in by_begin], device=dev))
-            leaf_id = torch.empty(N, dtype=torch.int32, device=dev)
-            leaf_id[order] = pos_leaf
         tree = tree._replace(num_leaves=torch.tensor(
             nl, dtype=torch.int32, device=dev))
-        return tree, leaf_id, root_sum
+        return tree, rows.leaf_ids(), root_sum
 
+    grow.use_pool = use_pool
     return grow
 
 

@@ -234,11 +234,22 @@ class ModelReference:
 
 def _occupancy_counts(dataset) -> List[np.ndarray]:
     """Per-feature bin occupancy over the (already binned) (F, N)
-    matrix: one int64 bincount a feature (the JAX package's resident
-    path; the port has no streamed datasets)."""
+    matrix: one int64 bincount a feature, or a streaming dataset's
+    blocks folded one by one (a packed block decoded first): exact
+    integer sums, so both give the same reference bytes."""
     nb = [int(m.num_bin) for m in dataset.bin_mappers]
     F = dataset.num_features
     counts = [np.zeros(n, np.int64) for n in nb]
+    if getattr(dataset, "is_streaming", False):
+        from ..data.block_cache import unpack4bit
+
+        packed = dataset.source.bin_layout == "packed4"
+        for _, _, blk in dataset.iter_blocks():
+            blk = unpack4bit(blk, F) if packed else blk
+            for f in range(F):
+                counts[f] += np.bincount(
+                    blk[f].astype(np.int64), minlength=nb[f])[: nb[f]]
+        return counts
     binned = dataset.binned
     if binned is None:
         raise ModelReferenceError(

@@ -11,6 +11,13 @@ Port of lightgbmv1_tpu/ops/histogram.py for the wave grower's passes:
   the method the trainer resolved: ``pallas`` is the hand-written CUDA
   kernel K1 (``ops/hist_cuda.hist_leaves``, whose plain version a CPU
   tensor takes), ``scatter`` the oracle above;
+* ``hist_one_leaf_accum`` / ``sums_accum`` (:196-262) — the streamed
+  trainer's folds over row blocks (models/grower_stream.py): a block's
+  one-leaf histogram into a running accumulator (``acc + K1(block)`` on
+  ``pallas``, the one-hot chunks started from it on ``onehot``, a
+  continued ``index_add_`` on ``scatter``) and its row sums into the
+  root sum (``acc + root_sums(block)``); ``root_sums`` is the resident
+  growers' f32 reduction of the rows;
 * ``hist_wave`` (:312) — the wave round's ``nslots`` histograms: rows
   labelled ``nslots`` are dead; the histogram runs at ``nslots + 1``
   slots (the plan, so the bits, of the JAX package's sacrificial slot)
@@ -151,14 +158,16 @@ def hist_leaves_onehot(binned: torch.Tensor, g3: torch.Tensor,
                        leaf_id: torch.Tensor, num_leaves: int,
                        num_bins: int, precision: str = "bf16x2",
                        row_chunk: int = ONEHOT_ROW_CHUNK,
-                       live_slots=None) -> torch.Tensor:
+                       live_slots=None, init=None) -> torch.Tensor:
     """(L, F, B, 3) histograms as the JAX package's one-hot product
     (:98-150): chunks of ``min(row_chunk, max(256, N))`` rows, each the
     (3 (L + 1), C) leaf-masked rows [g, h, c] (a row of a leaf outside
     [0, L] adds nothing; slot L is the JAX sacrificial slot) times the
     (C, F B) one-hot of every feature's bin, accumulated in f32 in chunk
     order.  ``binned`` (F, N) uint8 or int16.  With ``live_slots`` the
-    slots from it on are zeroed (``hist_frontier``'s contract)."""
+    slots from it on are zeroed (``hist_frontier``'s contract).  ``init``
+    (L, F, B, 3): the sums the chunks add to (a streamed fold's running
+    histograms; zero when None)."""
     matmul_counts["hist_leaves_onehot"] += 1
     F, N = binned.shape
     L, B = int(num_leaves), int(num_bins)
@@ -166,6 +175,8 @@ def hist_leaves_onehot(binned: torch.Tensor, g3: torch.Tensor,
     dev = binned.device
     C = min(int(row_chunk), max(256, N))
     acc = torch.zeros((Lp * 3, F * B), dtype=torch.float32, device=dev)
+    if init is not None:
+        acc[:L * 3] = init.permute(0, 3, 1, 2).reshape(L * 3, F * B)
     slots = torch.arange(Lp, device=dev)[:, None]
     offs = (torch.arange(F, device=dev) * B)[None, :]
     g3 = g3.to(torch.float32)
@@ -222,6 +233,83 @@ def hist_one_leaf(binned: torch.Tensor, g3: torch.Tensor,
     return hist_frontier(binned, g3m, torch.zeros_like(leaf_id), 1,
                          num_bins, method=method, precision=precision,
                          packed=packed, num_features=num_features)[0]
+
+
+def root_sums(g3):
+    """The rows' (3,) [g, h, c] sums: an f32 reduction, as the JAX
+    package's ``sums_fn``, rounded in the device's own order (the one
+    place a grower sums rows outside K1)."""
+    return g3.sum(dim=0)
+
+
+def sums_accum(acc, g3: torch.Tensor) -> torch.Tensor:
+    """A streamed root sum: ``acc + root_sums(g3)``, the blocks folded in
+    block order; ``acc`` None (the first block) gives ``root_sums(g3)``
+    itself, so one block is the resident sum bit for bit and more blocks
+    are deterministic, but not the resident's single reduction (the JAX
+    package's scatter fold, JAX :265, continues the resident row order
+    instead)."""
+    s = root_sums(g3)
+    return s if acc is None else acc + s
+
+
+def _scatter_accum(acc: torch.Tensor, binned: torch.Tensor,
+                   g3m: torch.Tensor, num_bins: int) -> torch.Tensor:
+    """``acc`` (F, B, 3) with one block's rows ``index_add_``-ed into it:
+    the cells' adds continue the resident scatter's row order."""
+    F, B = acc.shape[0], int(num_bins)
+    dump = F * B
+    bins = binned.to(torch.int64)
+    cell = torch.arange(F, device=acc.device)[:, None] * B + bins
+    idx = torch.where(bins < B, cell,
+                      torch.full_like(cell, dump)).reshape(-1)
+    flat = torch.cat([acc.reshape(dump, 3), acc.new_zeros((1, 3))])
+    flat.index_add_(0, idx, g3m.repeat(F, 1))
+    hist_cuda.count_plain("hist_leaves_scatter")
+    return flat[:dump].reshape(F, B, 3)
+
+
+def hist_one_leaf_accum(acc, binned: torch.Tensor, g3: torch.Tensor,
+                        leaf_id: torch.Tensor, target_leaf: int,
+                        num_bins: int, method: str = "scatter",
+                        precision: str = "bf16x2", packed: bool = False,
+                        num_features=None) -> torch.Tensor:
+    """``hist_one_leaf`` over a row block, folded into the running (F, B,
+    3) ``acc`` (None on the first block, whose histogram is then the
+    resident pass's over the same rows).  By method (JAX :209-262):
+
+    * ``pallas``: ``acc + K1(block)``, K1 at one slot over the block's
+      masked rows (the packed leg on packed bytes): the blocks' partial
+      sums added in block order, deterministic at a fixed block order but
+      not the resident pass's bits past one block;
+    * ``onehot``: the one-hot product's chunks started from ``acc``: the
+      resident bits where the blocks are whole 16,384-row chunks (one
+      block of any size included);
+    * ``scatter``: ``index_add_`` into ``acc``, continuing the fold: on
+      the CPU each cell adds its rows in row order across the blocks, so
+      the streamed histogram is the resident one bit for bit (adding a
+      fresh partial would re-associate the f32 adds).  On CUDA
+      ``index_add_`` adds with atomics, so a streamed scatter, as the
+      resident scatter, is not repeatable there."""
+    if acc is None:
+        return hist_one_leaf(binned, g3, leaf_id, target_leaf, num_bins,
+                             method=method, precision=precision,
+                             packed=packed, num_features=num_features)
+    mask = (leaf_id == target_leaf).to(torch.float32)
+    g3m = (g3 * mask[:, None]).contiguous()
+    if method == "pallas":
+        return acc + hist_frontier(
+            binned, g3m, torch.zeros_like(leaf_id), 1, num_bins,
+            method=method, precision=precision, packed=packed,
+            num_features=num_features)[0]
+    if packed:
+        raise ValueError("4-bit packed bins require the pallas hist method")
+    if method == "onehot":
+        return hist_leaves_onehot(binned, g3m, torch.zeros_like(leaf_id), 1,
+                                  num_bins, precision, init=acc[None])[0]
+    if method == "scatter":
+        return _scatter_accum(acc, binned, g3m, num_bins)
+    raise ValueError(f"hist method {method!r}: expected one of {METHODS}")
 
 
 def hist_wave(binned: torch.Tensor, g3: torch.Tensor, label: torch.Tensor,

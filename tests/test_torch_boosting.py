@@ -324,5 +324,5 @@ def test_create_boosting_kinds_and_refusals():
                               ds._binned, "cpu")
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue 1, parallel learners$"):
-        tgbdt.create_boosting(Config.from_dict({"stream_enable": True}),
+        tgbdt.create_boosting(Config.from_dict({"num_machines": 2}),
                               ds._binned, "cpu")

@@ -11,9 +11,11 @@ bit-exact resume, ``save_binary=true`` and the ``.bin`` cache read by
 either package, ``python -m lightgbmv1_tpu_torch``; ``obs_trace`` /
 ``trace_out`` on ``task=train`` (the iteration spans the JAX CLI writes)
 and ``task=serve`` answering over HTTP (tests/test_torch_http.py holds
-the serving surface to the JAX package's); ``task=save_binary``, streaming, the
-parallel learners and row-sharded predict refused naming their items,
-and the fleet's and observability's knobs accepted.
+the serving surface to the JAX package's); the parallel learners (also
+beside ``task=save_binary`` and ``stream_enable``, which run) and
+row-sharded predict refused naming their items, and the fleet's and
+observability's knobs accepted (``task=save_binary`` and streamed
+training: tests/test_torch_block_cache.py).
 """
 
 import json
@@ -296,9 +298,11 @@ def test_binary_cache_is_checked(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["task=save_binary", "data=d.tsv"], tconfig.PARALLEL),
+    (["task=save_binary", "data=d.tsv", "tree_learner=voting"],
+     tconfig.PARALLEL),
     (["task=predict", "num_machines=2"], tconfig.PARALLEL),
-    (["task=train", "data=d.tsv", "stream_enable=true"], tconfig.PARALLEL),
+    (["task=train", "data=d.tsv", "stream_enable=true",
+      "machines=a:1,b:2"], tconfig.PARALLEL),
     (["task=predict", "data=d.tsv", "input_model=m.txt",
       "output_result=p.txt", "predict_method=depthwise",
       "predict_num_shards=2"],

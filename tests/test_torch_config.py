@@ -68,6 +68,10 @@ _FLEET_AND_OBS = [
     "router_deadline_ms", "placement_replicas_per_tenant",
     "placement_burn_threshold", "placement_occupancy_frac",
     "placement_cooldown_s", "profile_dir", "obs_dir"]
+# the knobs the port refused with the parallel learners' item until
+# out-of-core streaming (ROADMAP queue 1 item 14.1) ported them
+_STREAM = ["stream_enable", "stream_block_rows", "stream_prefetch",
+           "stream_cache_dir"]
 # the knobs the port refused with its breadth item until that item's
 # part 1.6 ported them (categorical features, CEGB)
 _PART_16 = ["min_data_per_group", "max_cat_threshold", "cat_l2",
@@ -151,7 +155,7 @@ def test_every_jax_knob_and_alias_is_known():
             "interaction_constraints", "forcedsplits_filename",
             "cegb_penalty_split", "categorical_feature"} | set(_PART_16) \
         | set(_CLI_AND_TREESHAP) | set(_SERVE_AND_OBS) \
-        | set(_FLEET_AND_OBS)
+        | set(_FLEET_AND_OBS) | set(_STREAM)
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -181,6 +185,20 @@ def test_fleet_and_obs_knob_is_accepted(name, capsys):
     """A knob refused until items 7 and 12 ported it: a field the JAX
     package knows, set without a warning, and a config that sets it is
     not refused."""
+    value = _other_value(name)
+    assert name in {f.name for f in dataclasses.fields(JaxConfig)}
+    assert name not in {n for n, _ in _REFUSED}
+    cfg = Config.from_dict({"objective": "binary", name: value})
+    assert "Unknown parameter" not in capsys.readouterr().err
+    assert getattr(cfg, name) == value
+    assert unported_reason(cfg) is None
+
+
+@pytest.mark.parametrize("name", _STREAM)
+def test_stream_knob_is_accepted(name, capsys):
+    """A knob refused until item 14.1 ported out-of-core streaming: a
+    field the JAX package knows, set without a warning, and a config that
+    sets it is not refused."""
     value = _other_value(name)
     assert name in {f.name for f in dataclasses.fields(JaxConfig)}
     assert name not in {n for n, _ in _REFUSED}
@@ -222,10 +240,11 @@ def test_refused_knob_raises_with_its_item(name, item, capsys):
 
 def test_training_refuses_a_dropped_knob():
     """train raises for a refused knob on the Booster's params (the
-    streaming of item 14; the prediction early stopping it refused until
-    item 3 trains, the span tracer it refused until item 11 ported it,
-    and ``obs_dir`` / ``profile_dir``, CLI knobs since item 12 ported
-    them, are accepted and ignored, as by the JAX library); the knobs
+    parallel learners' ``machines`` of item 14.2; the prediction early
+    stopping it refused until item 3 trains, the span tracer it refused
+    until item 11 ported it, and ``obs_dir`` / ``profile_dir``, CLI knobs
+    since item 12 ported them, are accepted and ignored, as by the JAX
+    library); the knobs
     refused until part 1.6 train (a lazy CEGB penalty of the wrong size
     is fatal, as in the JAX package) and a Dataset with categorical
     features bins (the binning knobs it refused until part 1.7 bin
@@ -239,7 +258,7 @@ def test_training_refuses_a_dropped_knob():
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP queue 1, "
                                        f"{tconfig.PARALLEL}") + "$"):
-        train(dict(params, stream_enable=True), Dataset(X, label=y), 2,
+        train(dict(params, machines="a:1,b:2"), Dataset(X, label=y), 2,
               device="cpu")
     assert train(dict(params, obs_dir="obs", profile_dir="prof"),
                  Dataset(X, label=y), 2, device="cpu").num_trees() == 2
