@@ -93,8 +93,8 @@ Phases (any failure exits non-zero with no ``ok`` line):
 12. timing  — K1 at each slot bucket of the main path (its own last
               inputs, recorded in phase 10) beside its plain version, one
               ``index_add_`` and its bound.
-13. profile — three headline iterations under torch.profiler: device time
-              by kernel and the device's busy share.
+13. profile — one headline iteration under torch.profiler, after a
+              warm-up: device time by kernel and the device's busy share.
 14. K2/K3   — the fused round K2 and the valid routing K3 against their
               plain versions on the card, on phase 8's bins with signed,
               varied rows: S in {4, 16, 63} in subtraction mode and S = 63
@@ -149,7 +149,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               bucket, by events and on the device, with the device
               kernels a pick runs (profiler), beside K2 with its pick and
               K2 alone, its plain version and its bound by bytes.
-18. profile — three fused headline iterations, as phase 13.
+18. profile — one fused headline iteration, as phase 13.
 19. K6      — the persistent wave loop's plan at the headline shape
               (eligible), then K6 on the headline bins and phase 14's
               signed, varied rows from a frontier captured after the root
@@ -186,7 +186,7 @@ Phases (any failure exits non-zero with no ``ok`` line):
               each bucket); K6 on the main path's last inputs beside its
               plain version, R K2 rounds on the same inputs, its all-rows
               and live-row bounds, and one round alone against K2 alone
-              on that round's inputs; three looped iterations profiled, as
+              on that round's inputs; one looped iteration profiled, as
               phase 13.
 22. regression — the sequential grower's main path, launch counts reset
               first: phase 8's rows with a continuous target (make_data's
@@ -199,8 +199,8 @@ Phases (any failure exits non-zero with no ``ok`` line):
               its segment), no plain version; s/iteration, s/tree, K1
               launches a tree, the valid l2, the model text's hash, the
               model served through K4.  Then K1 against its plain
-              versions on the path's last inputs and timed there; three
-              iterations profiled; and the path in f32 on the card and on
+              versions on the path's last inputs and timed there; one
+              iteration profiled; and the path in f32 on the card and on
               the CPU on 65,536 of the rows, the CPU's K1 the row-order
               plain version (``card_vs_cpu`` says why): every split
               identical, leaves within 2e-3 of max(1, |leaf|).
@@ -581,6 +581,36 @@ Phases (any failure exits non-zero with no ``ok`` line):
               matrix bytes, the cache write seconds, the bytes a pass
               uploads, and the host's time in the ``stream.*`` spans of
               the prefetch-off run (the tracer armed for it alone).
+56. parallel  — the data, voting and feature learners over two gloo
+              ranks on the one card (two processes of this script,
+              ``--parallel-rank``, started before phase 55 and waiting
+              for phase 56's job).  (a) the serial learner at the
+              headline width, 262,144 rows, 5 iterations, in process;
+              then each rank takes its rows of the same binned set and
+              trains (b) data with reduce_scatter, (c) data with
+              allreduce, (d) voting at top_k 5 (2k = 10 < 28), (e) voting
+              at top_k 28, (f) feature, counts reset just before each;
+              then the CLI's ``task=train tree_learner=data
+              num_machines=2`` through its machine list on phase 50's
+              32,768-row file.  Gates: the two ranks' model texts byte
+              for byte in every leg; (b), (c), (e), (f) one structure and
+              (b) (a)'s; each rank's K1 and split-scan launches non-zero,
+              equal across the ranks and, for (b), (c), (e), (f), (a)'s;
+              after (b) (a 131,072-row shard) and (f) (this rank's 14
+              features, a view of the bins at its storage offset), K1 on
+              each rank's last inputs at every slot bucket of the leg bit
+              for bit its row-order plain version, and the split scan on
+              its last inputs at every child count, masked to the rank's
+              columns, bit for bit the CPU plain scan (``check_scan``); no
+              plain histogram or scan on a leg; every collective call's
+              payload
+              the analytic table's (``obs/metrics.comm_table_per_round``);
+              each leg's held-out AUC on 65,536 rows served by K4 within
+              1e-3 of (a)'s; the CLI's ranks launched K1 and wrote a
+              model of its trees; every collective call handed gloo a
+              CUDA tensor (none staged through the host).  Prints each
+              leg's s/iteration beside (a)'s with the card's name and
+              power limit, and the collectives' calls and bytes.
 
 At the default arguments every model text named in ``TEXT_SHA`` must
 keep its sha256 (a gate: the kernels claim the same bits).  The last
@@ -590,6 +620,7 @@ line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import argparse
+import atexit
 import contextlib
 import copy
 import functools
@@ -635,6 +666,7 @@ from lightgbmv1_tpu_torch.ops.split import (NO_CONSTRAINT, TIE_RTOL,
                                             pick_pack, scan_direction_gains,
                                             scan_inputs, scan_left_sums,
                                             scan_residue, with_tables)
+from lightgbmv1_tpu_torch.parallel.cluster import find_free_port
 from lightgbmv1_tpu_torch.parallel.trainer import build_trainer
 from lightgbmv1_tpu_torch.obs import agg as obs_agg
 from lightgbmv1_tpu_torch.obs import device as obs_device
@@ -665,11 +697,37 @@ VALID_ROWS = 131072
 _T0 = time.perf_counter()
 
 
+# the seconds the timing helpers (``timing_budget``) spend, by phase and
+# helper: what the run's timing repetitions cost, beside its gates
+TIMING_SECONDS: dict = {}
+_PHASE = ["0"]
+_TIMING_DEPTH = [0]
+
+
 def log(msg: str) -> None:
     """Print a line; a phase's heading also gets the run's seconds so far."""
     if msg.startswith("== phase"):
+        _PHASE[0] = msg.split()[2].rstrip(":")
         msg += f" [{time.perf_counter() - _T0:.0f} s]"
     print(msg, flush=True)
+
+
+def timing_budget(fn):
+    """Add the wall seconds of each outermost call of ``fn`` (a timing
+    helper) to ``TIMING_SECONDS[<phase>:<fn>]``."""
+    @functools.wraps(fn)
+    def run(*a, **kw):
+        _TIMING_DEPTH[0] += 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            _TIMING_DEPTH[0] -= 1
+            if _TIMING_DEPTH[0] == 0:
+                key = f"{_PHASE[0]}:{fn.__name__}"
+                TIMING_SECONDS[key] = (TIMING_SECONDS.get(key, 0.0)
+                                       + time.perf_counter() - t0)
+    return run
 
 
 # ---------------------------------------------------------------------------
@@ -1125,6 +1183,23 @@ def phase_server(booster_a, booster_b, n_requests, rng, dev) -> dict:
     return snap
 
 
+@timing_budget
+def time_once_ms(fn) -> float:
+    """The ms of one call of ``fn`` by CUDA events, no warm-up: for the
+    plain versions that take a second or so a call, where a warm-up call
+    costs as much as the timing and an allocator's first growth is a
+    small share of it."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop)
+
+
+@timing_budget
 def time_ms(fn, reps: int) -> float:
     """Mean ms of ``fn()`` over ``reps`` launches after one warm-up, by
     CUDA events around the whole run."""
@@ -1218,6 +1293,7 @@ def ptxas_kernels(log: str) -> list:
     return out
 
 
+@timing_budget
 def kernel_device_ms(fn, names, reps: int = 20) -> dict:
     """The device time a call of the kernels whose names hold each of
     ``names``, by torch.profiler over ``reps`` calls after a warm-up (CUDA
@@ -1248,6 +1324,7 @@ def kernel_device_ms(fn, names, reps: int = 20) -> dict:
 L2_FLUSH_BYTES = 256 << 20     # five times the H100's 50 MB L2
 
 
+@timing_budget
 def cold_device_ms(fn, names, reps: int = 20) -> dict:
     """``kernel_device_ms`` with the L2 cleared before each call of
     ``fn``: a write of L2_FLUSH_BYTES on the same stream, whose kernel is
@@ -1335,7 +1412,7 @@ def phase_timing(booster, trees, dev, launches, errs, rng) -> list:
     ]
     for name, replaces, kern, plain, nbytes, gathers in specs:
         ms = time_ms(kern, 10)
-        plain_ms = time_ms(plain, 2)
+        plain_ms = time_once_ms(plain)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = gathers / GATHERS_PER_S * 1e3
         row = {"name": name, "route": "cuda", "source": SRC,
@@ -1534,10 +1611,14 @@ class HistRecorder:
     """Keeps the inputs of the last K1 call at each (slots, precision) of a
     run: the main path's own shapes and data, at its latest iteration, for
     the checks and the timing after it.  It counts nothing; the wrapper
-    counts its launches."""
+    counts its launches.  With ``clone`` each call's rows and leaf ids are
+    kept as copies (the bins as given: a view stays a view), so later
+    rounds' writes to the grower's buffers leave them as the call saw
+    them."""
 
-    def __init__(self):
+    def __init__(self, clone=False):
         self.last = {}
+        self.clone = clone
         # the packed leg's calls: (binned, g3, leaf_id, num_bins,
         # live_slots, num_features)
         self.packed_last = {}
@@ -1554,6 +1635,9 @@ class HistRecorder:
             if packed:
                 self.packed_last[key] = (binned, g3, leaf_id, num_bins,
                                          live_slots, num_features)
+            elif self.clone:
+                self.last[key] = (binned, g3.clone(), leaf_id.clone(),
+                                  num_bins, live_slots)
             else:
                 self.last[key] = (binned, g3, leaf_id, num_bins, live_slots)
             if precision == "int8":
@@ -1860,6 +1944,7 @@ def phase_hist_timing(rec: HistRecorder, trained: dict, checks: list
             "library_ms": top["library_ms"], "at": f"L={top['L']} "
             f"{top['precision']}", "buckets": buckets, "checks": checks}
 
+@timing_budget
 def phase_profile(ds, iters, dev, params=TRAIN_PARAMS) -> dict:
     """Where an iteration's time goes: ``iters`` headline iterations
     under torch.profiler (after one warm-up), device time by kernel and
@@ -3149,9 +3234,10 @@ JAX_RANK_NDCG10, REF_RANK_NDCG10 = 0.61497, 0.613977
 # 3.9e-4 on the binary path)
 PARITY_LEAF_TOL = 2e-3
 PARITY_ROWS = 65536
-# iterations under torch.profiler in phases 13, 18, 21 and 22-25 (no gate
-# reads them; five until phase 52 needed the room)
-PROFILE_ITERS = 3
+# iterations under torch.profiler in phases 13, 18, 21 and 22-25, after
+# one warm-up (no gate reads them; five until phase 52 needed the room,
+# three until phase 56 did)
+PROFILE_ITERS = 1
 
 
 def regression_target(X, seed):
@@ -5514,6 +5600,7 @@ def int8_ops(binned, lid, L, B, T, live=None):
 INT8_TIMING_ROUNDS = 5
 
 
+@timing_budget
 def legs_in_turns(fns, reps=10, rounds=INT8_TIMING_ROUNDS) -> dict:
     """Each leg of ``fns`` (name -> launch; the first is int8) timed by
     ``time_ms`` over ``reps`` launches, the legs in turns, ``rounds``
@@ -5575,8 +5662,8 @@ def phase_int8_timing(recs, trained) -> dict:
                                            live),
             "bf16x2": lambda: hc.hist_leaves(binned, g3, lid, L, B,
                                              "bf16x2", live)}),
-        "plain_ms": time_ms(lambda: hc.hist_leaves_ref(
-            binned, g3, lid, L, B, "int8", live, rows8=rows8), 1),
+        "plain_ms": time_once_ms(lambda: hc.hist_leaves_ref(
+            binned, g3, lid, L, B, "int8", live, rows8=rows8)),
         "library_ms": time_ms(lambda: iacc.index_add_(0, flat, ivals), 5),
         **int8sr_bound(Fn * N + N * 12 + N * 4 + -(-N // T) * 12
                        + L * Fn * B * 3 * 4, 2 * fmas, iadd)}
@@ -5609,8 +5696,8 @@ def phase_int8_timing(recs, trained) -> dict:
             "int8": lambda: fc.fused_round(binned, g3, **kw),
             "int8sr": lambda: fc.fused_round(binned, q3, **skw),
             "bf16x2": lambda: fc.fused_round(binned, g3, **bkw)}),
-        "plain_ms": time_ms(lambda: fc.fused_round_ref(
-            binned, g3, **kw), 1),
+        "plain_ms": time_once_ms(lambda: fc.fused_round_ref(
+            binned, g3, **kw)),
         "library_ms": None, "live_rows": n_live,
         "live_bound_ms": (live_row_bytes(N, Fn, n_live) + other)
         / HBM_BYTES_PER_S * 1e3,
@@ -5636,7 +5723,8 @@ def phase_int8_timing(recs, trained) -> dict:
             "int8": lambda: lc.fused_wave_loop(*pos, **kw),
             "int8sr": lambda: lc.fused_wave_loop(*pos, **qkw),
             "bf16x2": lambda: lc.fused_wave_loop(*pos, **bkw)}),
-        "plain_ms": time_ms(lambda: lc.fused_wave_loop_ref(*pos, **kw), 1),
+        "plain_ms": time_once_ms(lambda: lc.fused_wave_loop_ref(*pos,
+                                                                **kw)),
         "library_ms": None,
         "live_bound_ms": live_bytes / HBM_BYTES_PER_S * 1e3,
         **int8sr_bound(nbytes, f32_ops, int_ops)}
@@ -9179,6 +9267,487 @@ def phase_stream(seed, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the data, voting and feature learners over two gloo ranks (phase 56)
+# ---------------------------------------------------------------------------
+
+PAR_ROWS = 262144           # phase 56's rows, each rank taking half
+PAR_HELD_ROWS = 65536       # its held-out rows, served through K4
+PAR_ITERS = 5
+PAR_CLI_ITERS = 2
+PAR_AUC_TOL = 1e-3
+PAR_WORLD = 2               # two ranks on the one card: gloo
+PAR_TIMEOUT_S = 300         # a rank's work from the job file to its exit
+PAR_WAIT_S = 1200           # a rank's wait for the job file
+# (b)-(f): the learners and collectives, each over the two ranks
+PAR_LEGS = (("b", {"tree_learner": "data"}),
+            ("c", {"tree_learner": "data",
+                   "data_parallel_collective": "allreduce"}),
+            ("d", {"tree_learner": "voting", "top_k": 5}),
+            ("e", {"tree_learner": "voting", "top_k": 28}),
+            ("f", {"tree_learner": "feature"}))
+# the legs that grow (a)'s trees: one K1 launch a round, one scan a round
+PAR_SAME_TREES = ("b", "c", "e", "f")
+# the legs whose last K1 and scan inputs each rank holds against the plain
+# versions: a row shard (b) and a feature slice, a view of the bins (f)
+PAR_CHECKED = ("b", "f")
+_BIND_RACE = ("address already in use", "errno 98", "eaddrinuse")
+
+
+def tree_structure(text) -> list:
+    """Each tree's (leaves, split features, thresholds) of a model text."""
+    from lightgbmv1_tpu_torch.io.model_text import model_from_string
+
+    return [(t.num_leaves, tuple(int(f) for f in t.split_feature),
+             tuple(float(v) for v in t.threshold))
+            for t in model_from_string(text).trees]
+
+
+def first_split_diff(text_a, text_b):
+    """The first node whose split differs between two model texts, with
+    both gains (None where the structures agree)."""
+    from lightgbmv1_tpu_torch.io.model_text import model_from_string
+
+    ta, tb = (model_from_string(t).trees for t in (text_a, text_b))
+    for i, (a, b) in enumerate(zip(ta, tb)):
+        n = min(a.num_leaves, b.num_leaves) - 1
+        for j in range(n):
+            if (a.split_feature[j], a.threshold[j]) != \
+                    (b.split_feature[j], b.threshold[j]):
+                return (f"tree {i} node {j}: feature {a.split_feature[j]} "
+                        f"at {a.threshold[j]!r} gain {a.split_gain[j]!r} "
+                        f"vs feature {b.split_feature[j]} at "
+                        f"{b.threshold[j]!r} gain {b.split_gain[j]!r}")
+        if a.num_leaves != b.num_leaves:
+            return f"tree {i}: {a.num_leaves} vs {b.num_leaves} leaves"
+    return None if len(ta) == len(tb) else "tree counts differ"
+
+
+def comm_mismatches(calls, learner, collective, F_, B, top_k, world):
+    """The collective calls of a leg whose payload is not the analytic
+    table's (obs/metrics.comm_table_per_round) at the call's width: a
+    histogram reduction of k slots (voting: of 2k children), a SplitInfo
+    election or a vote of 2k children, a root sum."""
+    from lightgbmv1_tpu_torch.obs.metrics import comm_table_per_round
+
+    kw = dict(F=F_, B=B, ndev=world)
+    if learner == "voting":
+        kw["sel_k"] = min(2 * max(1, min(top_k, F_)), F_)
+    bad, checked = [], 0
+    for op, part, shape, nbytes in calls:
+        if part == "hist":
+            lead = shape[0] if len(shape) == 4 else 1
+            k, key = (lead / 2 if learner == "voting" else lead), \
+                "hist_bytes"
+        elif part in ("split_sync", "vote"):
+            k, key = shape[0] / 2, part + "_bytes"
+        elif part == "g3":
+            k, key = 1, "g3_bytes_per_tree"
+        else:
+            continue
+        want = comm_table_per_round(learner, collective, k=k, **kw)[key]
+        checked += 1
+        if nbytes != want:
+            bad.append([op, part, list(shape), nbytes, want])
+    return bad, checked
+
+
+def rank_kernel_checks(name, rank, world, hrec, srec, F_, rows) -> dict:
+    """On one rank after leg ``name``: K1 on its last inputs at each
+    (slots, precision) of the leg's ladder bit for bit the row-order plain
+    version, and the split scan on its last inputs at each child count
+    bit for bit the CPU plain scan (``check_scan``).  The shapes are the
+    leg's own: (b) a shard of ``rows`` rows and all F features, (f) all
+    rows and this rank's F/D features, a view of the bins at their
+    storage offset; every scan's mask keeps this rank's columns only."""
+    F_loc = -(-F_ // world)
+    lo = rank * F_loc
+    k1 = []
+    check(hrec.last, f"parallel ({name}) rank {rank}: no K1 call recorded")
+    for (L, prec), (binned, g3, lid, B, live) in sorted(hrec.last.items()):
+        check(prec in hc.FLOAT_PRECISIONS, f"parallel ({name}): K1 at {prec}")
+        Fb, N = binned.shape
+        want_shape = (F_loc, rows) if name == "f" else (F_, rows)
+        check((Fb, N) == want_shape, f"parallel ({name}) rank {rank}: K1 on "
+              f"{(Fb, N)} bins, not {want_shape}")
+        if name == "f":
+            check(binned.storage_offset() == lo * N and binned.is_contiguous(),
+                  f"parallel (f) rank {rank}: K1's bins are not the view of "
+                  f"features {lo}-{lo + F_loc} (offset "
+                  f"{binned.storage_offset()})")
+        got = hc.hist_leaves(binned, g3, lid, L, B, prec, live)
+        row = hc.hist_leaves_roworder_ref(binned, g3, lid, L, B, prec, live)
+        check(same_bits(got, row), f"parallel ({name}) rank {rank}: K1 at "
+              f"L={L} {prec} not bitwise the row-order version "
+              f"({int((got != row).sum())} cells differ)")
+        k1.append({"L": int(L), "precision": prec, "bins": [Fb, N],
+                   "offset": int(binned.storage_offset()),
+                   "live": None if live is None else int(live)})
+    scans = []
+    check(srec.last, f"parallel ({name}) rank {rank}: no scan recorded")
+    for C, (hist, mask, csums, kw) in sorted(srec.last.items()):
+        cols = mask.reshape(-1, mask.shape[-1]).any(dim=0).nonzero()
+        cols = [int(c) for c in cols.flatten()]
+        check(cols and all(lo <= c < lo + F_loc for c in cols),
+              f"parallel ({name}) rank {rank}: the scan at C={C} searched "
+              f"features {cols}, not within {lo}-{lo + F_loc}")
+        scans.append(dict(check_scan(f"parallel ({name}) rank {rank} C={C}",
+                                     hist, mask, csums, kw),
+                          C=int(C), features=[cols[0], cols[-1]]))
+    return {"k1": k1, "scan": scans}
+
+
+def parallel_rank(rank: int, job_path: str) -> int:
+    """One rank of phase 56 (``chip_smoke.py --parallel-rank R
+    --parallel-job J``): joins the group, trains each leg of the job on
+    its rows of the binned set, counts (reset just before each leg) K1's
+    and the split scan's launches, the plain versions' and the
+    collectives' calls, holds every collective call to the analytic
+    table, then runs the CLI leg (``task=train tree_learner=data
+    num_machines=2`` through the machine list) and writes its results."""
+    from lightgbmv1_tpu_torch import cli
+    from lightgbmv1_tpu_torch.parallel import cluster
+    from lightgbmv1_tpu_torch.parallel import collectives as coll
+
+    # started before phase 55: the context on the card, then the job
+    torch.zeros(1, device="cuda")
+    deadline = time.perf_counter() + PAR_WAIT_S
+    while not os.path.exists(job_path):
+        if time.perf_counter() > deadline:
+            print(f"rank {rank}: no job file {job_path}", flush=True)
+            return 3
+        time.sleep(0.05)
+    with open(job_path) as fh:
+        job = json.load(fh)
+    group = cluster.init_cluster(
+        coordinator_address=f"127.0.0.1:{job['port']}",
+        num_processes=PAR_WORLD, process_id=rank, device="cuda")
+    params = dict(job["params"])
+    ds = Dataset(job["bin"], params=params)
+    ds.construct()
+    B = int(ds._binned.padded_bin)
+    out = {"rank": rank, "backend": group.backend, "legs": {}}
+    # one untimed iteration first: the ranks' first collectives and
+    # kernel loads are no leg's
+    train(dict(params, tree_learner="data"), ds, 1)
+    for name, extra in job["legs"]:
+        p = dict(params, **extra)
+        reset_counts()
+        coll.reset_counts()
+        coll.call_log = []
+        torch.cuda.synchronize()
+        group.barrier()
+        with HistRecorder(clone=name in PAR_CHECKED) as hrec, \
+                ScanRecorder() as srec:
+            t0 = time.perf_counter()
+            booster = train(p, ds, job["iters"])
+            torch.cuda.synchronize()
+            s_iter = (time.perf_counter() - t0) / job["iters"]
+        calls = list(coll.call_log)
+        coll.call_log = None
+        path = os.path.join(job["out"], f"par_{name}.rank{rank}.txt")
+        with open(path, "w") as fh:
+            fh.write(booster.model_to_string())
+        bad, checked = comm_mismatches(
+            calls, p["tree_learner"],
+            p.get("data_parallel_collective", "reduce_scatter"), F, B,
+            p.get("top_k", 20), group.world)
+        out["legs"][name] = {
+            "text": path, "s_per_iter": s_iter,
+            "k1": hc.launch_counts["hist_leaves"],
+            "split_scan": sc.launch_counts["split_scan"],
+            "plain": {k: v for k, v in list(hc.plain_counts.items())
+                      + list(sc.plain_counts.items()) if v},
+            "collectives": {k: dict(v) for k, v in coll.counts.items()},
+            "part_bytes": dict(coll.part_bytes),
+            "comm_calls_checked": checked, "comm_mismatches": bad[:5],
+            "comm_mismatch_count": len(bad)}
+        if name in PAR_CHECKED:         # after the leg's counts are read
+            out["legs"][name]["checks"] = rank_kernel_checks(
+                name, rank, group.world, hrec, srec, F,
+                -(-ds.num_data() // group.world) if name != "f"
+                else ds.num_data())
+        del booster, hrec, srec
+    cluster.shutdown()
+    c = job["cli"]
+    reset_counts()
+    t0 = time.perf_counter()
+    rc = cli.main(["task=train", f"data={c['csv']}", "header=true",
+                   "tree_learner=data", f"num_machines={PAR_WORLD}",
+                   "machines=" + ",".join(f"127.0.0.1:{p}"
+                                          for p in c["ports"]),
+                   f"local_listen_port={c['ports'][rank]}",
+                   f"num_iterations={c['iters']}",
+                   f"output_model={c['model']}", "max_bin=63",
+                   "num_leaves=255", "objective=binary", "verbosity=-1"])
+    torch.cuda.synchronize()
+    out["cli"] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                  "k1": hc.launch_counts["hist_leaves"],
+                  "split_scan": sc.launch_counts["split_scan"],
+                  "plain": {k: v for k, v in hc.plain_counts.items() if v}}
+    with open(os.path.join(job["out"], f"par_result_{rank}.json"),
+              "w") as fh:
+        json.dump(out, fh)
+    return 0
+
+
+PAR_GRACE_S = 20            # the other ranks' time to end once one failed
+
+
+def _stop(procs) -> None:
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def _rank_log(job_path: str, r: int) -> str:
+    return os.path.join(os.path.dirname(job_path), f"par_rank{r}.log")
+
+
+def start_ranks(job_path: str) -> list:
+    """Phase 56's two rank processes (this script with --parallel-rank),
+    started before phase 55 so that their start-up (the interpreter,
+    torch, the port, a context on the card) runs beside it; each waits
+    for ``job_path``, which phase 56 writes, and writes its output to its
+    log beside it.  Whatever happens, they are stopped when this process
+    exits."""
+    for stale in [job_path] + [os.path.join(os.path.dirname(job_path),
+                                            f"par_result_{r}.json")
+                               for r in range(PAR_WORLD)]:
+        if os.path.exists(stale):
+            os.remove(stale)
+    here = os.path.abspath(__file__)
+    procs = []
+    for r in range(PAR_WORLD):
+        with open(_rank_log(job_path, r), "w") as fh:
+            procs.append(subprocess.Popen(
+                [sys.executable, here, "--parallel-rank", str(r),
+                 "--parallel-job", job_path], cwd=os.path.dirname(here),
+                stdout=fh, stderr=subprocess.STDOUT, text=True))
+    atexit.register(_stop, procs)
+    return procs
+
+
+def join_ranks(procs, job_path: str) -> list:
+    """Each rank's (exit code, output) once all have exited: a rank that
+    fails leaves the others PAR_GRACE_S (a rank whose peer is gone waits
+    on it), a rank still running PAR_TIMEOUT_S after the job was written
+    is stopped."""
+    deadline = time.perf_counter() + PAR_TIMEOUT_S
+    while any(p.poll() is None for p in procs):
+        if any(p.poll() not in (None, 0) for p in procs):
+            deadline = min(deadline, time.perf_counter() + PAR_GRACE_S)
+        if time.perf_counter() > deadline:
+            break
+        time.sleep(0.1)
+    _stop(procs)
+    outs = []
+    for r, p in enumerate(procs):
+        with open(_rank_log(job_path, r)) as fh:
+            outs.append((p.returncode, fh.read()))
+    return outs
+
+
+def distinct_free_ports(n: int) -> list:
+    """``n`` ports free now and distinct from each other."""
+    ports = []
+    while len(ports) < n:
+        p = find_free_port()
+        if p not in ports:
+            ports.append(p)
+    return ports
+
+
+def run_ranks(ranks, job, job_path: str) -> list:
+    """Writes ``job`` with fresh ports (the group's and the CLI's two, all
+    distinct) for the waiting ``ranks`` and returns their results.  A port
+    taken between its pick and a rank's bind fails that rank with
+    EADDRINUSE: then two new ranks run the job once more on new ports.  A
+    rank that fails otherwise fails the phase."""
+    for attempt in range(2):
+        group_port, *cli_ports = distinct_free_ports(1 + PAR_WORLD)
+        job = dict(job, port=group_port, cli=dict(job["cli"],
+                                                  ports=cli_ports))
+        with open(job_path + ".tmp", "w") as fh:
+            json.dump(job, fh)
+        os.replace(job_path + ".tmp", job_path)
+        outs = join_ranks(ranks, job_path)
+        race = any(rc != 0 and any(w in o.lower() for w in _BIND_RACE)
+                   for rc, o in outs)
+        if not race or attempt:
+            break
+        log("  parallel: a port was taken before a rank bound it; the "
+            "ranks run again on new ports")
+        ranks = start_ranks(job_path)
+    for r, (rc, o) in enumerate(outs):
+        check(rc == 0, f"parallel: rank {r} exited {rc}:\n{o[-4000:]}")
+    res = []
+    for r in range(PAR_WORLD):
+        with open(os.path.join(os.path.dirname(job_path),
+                               f"par_result_{r}.json")) as fh:
+            res.append(json.load(fh))
+    return res
+
+
+def phase_parallel(seed, dev, ranks, job_path) -> dict:
+    """Phase 56: the parallel learners over two gloo ranks on the one
+    card.  (a) the serial learner at the headline width (PAR_ROWS rows,
+    TRAIN_PARAMS, PAR_ITERS iterations) in this process; then one spawn
+    of two ranks, each taking its rows of the same binned set, trains
+    (b) data with reduce_scatter, (c) data with allreduce, (d) voting at
+    top_k 5 (2k = 10 < 28, a real vote), (e) voting at top_k 28, (f)
+    feature, and runs the CLI (``task=train tree_learner=data
+    num_machines=2``) on phase 50's 32,768-row file.  Gates: the ranks'
+    texts byte for byte in every leg; (b), (c), (e) and (f) structurally
+    identical to each other and (b) to (a); each rank's K1 and
+    split-scan launches non-zero, equal across ranks, and for (b), (c),
+    (e), (f) (a)'s; after (b) and (f) each rank's last K1 and scan inputs
+    held against the plain versions bit for bit (``rank_kernel_checks``);
+    no plain histogram or scan on a leg; every collective's payload the
+    analytic table's; each leg's held-out AUC, served by K4, within
+    PAR_AUC_TOL of (a)'s; the CLI's ranks launched K1 and wrote a model
+    that loads.  ``ranks``: the processes ``start_ranks(job_path)``
+    started, waiting for the job this writes (``run_ranks``)."""
+    t_phase = time.perf_counter()
+    bd = str(_build.BUILD_DIR)
+    card = nvidia_smi()
+    params = dict(TRAIN_PARAMS)
+    X, y = make_data(PAR_ROWS, seed + 21)
+    Xh, yh = make_data(PAR_HELD_ROWS, seed + 22)
+    ds = Dataset(X, label=y, params=params)
+    ds.construct()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    serial = train(dict(params), ds, PAR_ITERS)
+    torch.cuda.synchronize()
+    serial_s = (time.perf_counter() - t0) / PAR_ITERS
+    k1_a = hc.launch_counts["hist_leaves"]
+    scan_a = sc.launch_counts["split_scan"]
+    check(k1_a > 0 and scan_a > 0, f"parallel (a): K1 {k1_a}, scan "
+          f"{scan_a}")
+    text_a = serial.model_to_string()
+    pc.reset_launch_counts()
+    auc_a = auc_of(yh, serial.predict(Xh, predict_method="fused"))
+    check(pc.launch_counts["serving_fused"] > 0, "parallel (a): K4 never "
+          "served the held-out rows")
+    del serial
+    bin_path = os.path.join(bd, "par_train.bin")
+    ds.save_binary(bin_path)
+    del ds, X
+    model_cli = os.path.join(bd, "par_cli_model.txt")
+    if os.path.exists(model_cli):
+        os.remove(model_cli)
+    job = {"bin": bin_path, "params": params,
+           "iters": PAR_ITERS, "legs": [[n, e] for n, e in PAR_LEGS],
+           "out": bd,
+           "cli": {"csv": os.path.join(bd, "smoke_valid.csv"),
+                   "model": model_cli,
+                   "iters": PAR_CLI_ITERS}}
+    t_spawn = time.perf_counter()
+    res = run_ranks(ranks, job, job_path)
+    spawn_s = time.perf_counter() - t_spawn
+    check([r["backend"] for r in res] == ["gloo"] * PAR_WORLD,
+          f"parallel: backends {[r['backend'] for r in res]}")
+    out = {"rows": PAR_ROWS, "iters": PAR_ITERS, "card": card,
+           "serial": {"s_per_iter": serial_s, "k1": k1_a,
+                      "split_scan": scan_a, "auc": auc_a},
+           "legs": {}, "ranks_seconds": spawn_s}
+    log(f"  (a) serial: {serial_s:.4f} s/iteration, K1 {k1_a}, split scan "
+        f"{scan_a}, held-out AUC {auc_a:.6f} ({card})")
+    struct_a = tree_structure(text_a)
+    structs = {}
+    for name, extra in PAR_LEGS:
+        legs = [r["legs"][name] for r in res]
+        texts = []
+        for leg in legs:
+            with open(leg["text"]) as fh:
+                texts.append(fh.read())
+        check(texts[0] == texts[1], f"parallel ({name}): the ranks' model "
+              "texts differ")
+        structs[name] = tree_structure(texts[0])
+        for r, leg in enumerate(legs):
+            check(leg["k1"] > 0 and leg["split_scan"] > 0,
+                  f"parallel ({name}) rank {r}: K1 {leg['k1']}, scan "
+                  f"{leg['split_scan']}")
+            check(not leg["plain"], f"parallel ({name}) rank {r}: plain "
+                  f"versions ran {leg['plain']}")
+            check(leg["comm_calls_checked"] > 0
+                  and leg["comm_mismatch_count"] == 0,
+                  f"parallel ({name}) rank {r}: collective payloads off "
+                  f"the table: {leg['comm_mismatches']}")
+        check(legs[0]["k1"] == legs[1]["k1"]
+              and legs[0]["split_scan"] == legs[1]["split_scan"],
+              f"parallel ({name}): launches differ across ranks")
+        pc.reset_launch_counts()
+        auc = auc_of(yh, Booster(model_str=texts[0]).predict(
+            Xh, predict_method="fused"))
+        check(pc.launch_counts["serving_fused"] > 0, f"parallel ({name}): "
+              "K4 never served the held-out rows")
+        check(abs(auc - auc_a) <= PAR_AUC_TOL, f"parallel ({name}): "
+              f"held-out AUC {auc} vs (a)'s {auc_a}")
+        on_cuda = {op: c["cuda"] for op, c in legs[0]["collectives"].items()
+                   if c["cuda"]}
+        check(all(c["cuda"] == c["calls"]
+                  for op, c in legs[0]["collectives"].items()
+                  if op != "all_gather_object"),
+              f"parallel ({name}): a collective left the card: "
+              f"{legs[0]['collectives']}")
+        out["legs"][name] = {
+            "params": extra, "s_per_iter": [lg["s_per_iter"] for lg in legs],
+            "k1": [lg["k1"] for lg in legs],
+            "split_scan": [lg["split_scan"] for lg in legs],
+            "auc": auc, "collectives": legs[0]["collectives"],
+            "part_bytes": legs[0]["part_bytes"], "gloo_cuda": on_cuda,
+            "comm_calls_checked": legs[0]["comm_calls_checked"]}
+        log(f"  ({name}) {json.dumps(extra)}: "
+            f"{max(lg['s_per_iter'] for lg in legs):.4f} s/iteration beside "
+            f"(a)'s {serial_s:.4f} ({card}); K1 {legs[0]['k1']}, split scan "
+            f"{legs[0]['split_scan']} a rank; AUC {auc:.6f}; gloo took "
+            f"CUDA tensors for {on_cuda or 'no call'} (none staged through "
+            f"the host); bytes by part {legs[0]['part_bytes']}")
+    for name in PAR_CHECKED:
+        chk = [r["legs"][name].get("checks") for r in res]
+        check(all(c and c["k1"] and c["scan"] for c in chk),
+              f"parallel ({name}): a rank held no K1 or scan input against "
+              "its plain version")
+        out["legs"][name]["checks"] = chk
+        log(f"  ({name}) K1 bit for bit its row-order version on each "
+            f"rank's last inputs: " + "; ".join(
+                f"rank {r} L={[k['L'] for k in c['k1']]} bins "
+                f"{c['k1'][0]['bins']} at offset {c['k1'][0]['offset']}"
+                for r, c in enumerate(chk)) + "; the split scan bit for "
+            "bit the CPU plain scan at C=" + "; ".join(
+                f"rank {r} {[x['C'] for x in c['scan']]} on features "
+                f"{c['scan'][0]['features']}" for r, c in enumerate(chk)))
+    for name in PAR_SAME_TREES:
+        check(structs[name] == structs["b"], f"parallel ({name}): not (b)'s "
+              "trees")
+        legs = [r["legs"][name] for r in res]
+        check(legs[0]["k1"] == k1_a and legs[0]["split_scan"] == scan_a,
+              f"parallel ({name}): K1 {legs[0]['k1']} / scan "
+              f"{legs[0]['split_scan']} a rank against (a)'s {k1_a} / "
+              f"{scan_a} on the same trees")
+    with open(res[0]["legs"]["b"]["text"]) as fh:
+        diff = first_split_diff(text_a, fh.read())
+    out["b_vs_a_first_diff"] = diff
+    check(structs["b"] == struct_a, f"parallel (b): not (a)'s trees: {diff}")
+    for r, c in enumerate(r_["cli"] for r_ in res):
+        check(c["rc"] == 0 and c["k1"] > 0 and not c["plain"],
+              f"parallel CLI rank {r}: {c}")
+    cli_text = open(model_cli).read()
+    check(len(Booster(model_str=cli_text)._all_trees()) == PAR_CLI_ITERS,
+          "parallel CLI: the model does not hold its trees")
+    out["cli"] = [r["cli"] for r in res]
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"  CLI task=train tree_learner=data num_machines=2: "
+        f"{max(c['seconds'] for c in out['cli']):.2f} s ({card}), K1 "
+        f"{[c['k1'] for c in out['cli']]}; the ranks' work "
+        f"{spawn_s:.1f} s of the phase's {out['seconds']:.1f} s ({card})")
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -9192,11 +9761,17 @@ def main(argv=None) -> int:
     ap.add_argument("--level-iters", type=int, default=40)
     ap.add_argument("--mc-iters", type=int, default=20)
     ap.add_argument("--rank-iters", type=int, default=40)
+    # phase 56 starts this script as its ranks with these two
+    ap.add_argument("--parallel-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--parallel-job", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this runs "
               "the port on a CUDA card", file=sys.stderr)
         return 2
+    if args.parallel_rank is not None:
+        return parallel_rank(args.parallel_rank, args.parallel_job)
     global GATE_TEXT_SHA
     GATE_TEXT_SHA = all(v == ap.get_default(k) for k, v in vars(args).items())
     t_start = time.perf_counter()
@@ -9694,10 +10269,38 @@ def main(argv=None) -> int:
         "artifacts")
     obs54 = phase_obs()
     log(f"  phase 54: {obs54['seconds']:.1f} s")
+    job56 = os.path.join(_build.BUILD_DIR, "par_job.json")
+    ranks56 = start_ranks(str(job56))
     log("== phase 55: out-of-core streaming training (main path; launch "
         "counts reset)")
     stream55 = phase_stream(args.seed, dev)
     log(f"  phase 55: {stream55['seconds']:.1f} s")
+    log("== phase 56: the data, voting and feature learners over two "
+        "gloo ranks (main path; launch counts reset)")
+    par56 = phase_parallel(args.seed, dev, ranks56, str(job56))
+    log(f"  phase 56: {par56['seconds']:.1f} s")
+    k1_row["parallel"] = {
+        "launches": {n: v["k1"] for n, v in par56["legs"].items()},
+        "serial_launches": par56["serial"]["k1"],
+        "note": "K1's launches a rank in phase 56's legs (b)-(f), counts "
+        "reset just before each: each rank's row shard (data, voting) or "
+        "feature slice (feature); (b), (c), (e), (f) equal to (a)'s; "
+        "after (b) and (f) each rank's last inputs at every slot bucket "
+        "bit for bit the row-order plain version",
+        "checked_buckets": {n: [[k["L"] for k in c["k1"]]
+                                for c in par56["legs"][n]["checks"]]
+                            for n in PAR_CHECKED}}
+    scan_row["parallel"] = {
+        "launches": {n: v["split_scan"] for n, v in par56["legs"].items()},
+        "serial_launches": par56["serial"]["split_scan"],
+        "note": "the split scan's launches a rank in phase 56's legs, "
+        "counts reset just before each: one a find_best_split, masked to "
+        "the rank's features (reduce_scatter, feature) or the elected "
+        "ones (voting); after (b) and (f) each rank's last inputs at "
+        "every child count bit for bit the CPU plain scan",
+        "checked_children": {n: [[x["C"] for x in c["scan"]]
+                                 for c in par56["legs"][n]["checks"]]
+                             for n in PAR_CHECKED}}
     k1_row["stream"] = {
         "note": "K1 at one slot on phase 55's streamed blocks: launches "
         "in (b), counts reset just before it; timed at a full block",
@@ -9761,9 +10364,21 @@ def main(argv=None) -> int:
                     "obs": obs54,
                     "stream": {k: v for k, v in stream55.items()
                                if k != "k1"},
+                    "parallel": par56,
+                    "timing_seconds": TIMING_SECONDS,
                     "seconds": time.perf_counter() - t_start}))
     pick_row["checks"] += [{"case": c["case"], "finite": c["pick_finite"]}
                            for c in schecks["k2"]]
+    by_phase: dict = {}
+    for key, secs in TIMING_SECONDS.items():
+        by_phase[key.split(":")[0]] = by_phase.get(key.split(":")[0],
+                                                   0.0) + secs
+    log(f"  timing helpers: {sum(TIMING_SECONDS.values()):.1f} s of the "
+        f"run's {time.perf_counter() - t_start:.1f} s; by phase "
+        + json.dumps({k: round(v, 2) for k, v in by_phase.items()})
+        + "; the largest " + json.dumps(dict(sorted(
+            ((k, round(v, 2)) for k, v in TIMING_SECONDS.items()),
+            key=lambda kv: -kv[1])[:25])))
     print(json.dumps({"kernels": [k1_row] + fused_rows
                       + [k6_row, qrow, rnrow, scan_row, pick_row] + new_rows
                       + efb_rows(efb)

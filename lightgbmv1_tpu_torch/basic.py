@@ -61,8 +61,9 @@ Port of lightgbmv1_tpu/basic.py for the ported paths:
 Training and prediction run on ``device`` (default: the card; without one
 they raise — pass ``device="cpu"`` for the CPU).  Every other public name
 of the JAX ``Dataset`` and ``Booster`` raises ``NotImplementedError``
-naming its ROADMAP queue 1 item: ``from_binned``, the process-sharded
-data of the parallel learners.
+naming its ROADMAP queue 1 item.  ``Dataset.from_binned`` (:240) wraps a
+binned set, the distributed loader's shard; a booster trained by the
+ranks of a parallel learner saves its model from rank 0 alone.
 """
 
 from __future__ import annotations
@@ -73,7 +74,7 @@ from typing import Any, Dict, List, Optional, Union
 
 import numpy as np
 
-from .config import PARALLEL, Config, not_ported
+from .config import Config
 from .device import DeviceLike, resolve_device
 from .io.dataset import BinnedDataset, Metadata
 from .io.model_text import (LoadedModel, dump_model_dict, model_from_string,
@@ -241,11 +242,14 @@ class Dataset:
         return self
 
     @classmethod
-    def from_binned(cls, binned, params=None) -> "Dataset":
-        """A Dataset over an already binned set (JAX :240, the distributed
-        loader's shards): not ported."""
-        raise not_ported("Dataset.from_binned (process-sharded data)",
-                         PARALLEL)
+    def from_binned(cls, binned: BinnedDataset, params=None) -> "Dataset":
+        """A Dataset over an already binned set (JAX :240): the
+        distributed loader's shard (``parallel/dist_data.py``), which the
+        Booster trains without parsing or binning again;
+        ``construct()`` is a no-op."""
+        ds = cls(None, params=params)
+        ds._binned = binned
+        return ds
 
     def save_binary(self, filename) -> "Dataset":
         """Write the binned dataset cache (JAX :303; reference
@@ -728,7 +732,10 @@ class Booster:
     def save_model(self, filename, num_iteration: Optional[int] = None,
                    start_iteration: int = 0) -> "Booster":
         """The model text, written atomically (a crash leaves the old
-        file)."""
+        file).  A booster trained by the ranks of a parallel learner
+        writes from rank 0 alone (every rank holds the same text)."""
+        if self._gbdt is not None and self._gbdt._group.rank != 0:
+            return self
         fileio.atomic_write_text(
             str(filename), self.model_to_string(num_iteration,
                                                 start_iteration))
@@ -856,7 +863,8 @@ class Booster:
         a run resumed from it (``resume_from_checkpoint``) writes the
         model text of the run that never stopped, byte for byte.
         ``write_file=False`` captures without writing (the JAX package's
-        non-writing ranks); ``with_reference`` writes the training
+        non-writing ranks; a parallel learner's ranks past 0 write
+        nothing either); ``with_reference`` writes the training
         reference (``capture_model_reference``) into the bundle, so a
         resumed or served model keeps its drift baseline."""
         if self._gbdt is None:
@@ -865,7 +873,7 @@ class Booster:
 
         manifest, arrays = self._gbdt.capture_state()
         manifest["num_trees_total"] = self.num_trees()
-        if write_file:
+        if write_file and self._gbdt._group.rank == 0:
             ref_bytes = b""
             if with_reference:
                 try:

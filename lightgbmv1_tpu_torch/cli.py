@@ -40,6 +40,15 @@ process; at ``verbosity >= 1`` the phase timer's report is logged at
 exit.  The ``snapshot`` fault seam (utils/faults.py) fires after each
 snapshot.
 
+``num_machines=N machines=host:port,...`` (or ``machine_list_filename``)
+runs the task as one rank of N (JAX :615-620; reference
+Application::InitTrain -> Network::Init): ``parallel/cluster.init_cluster``
+makes the group first, this rank found by its ``local_listen_port``,
+``task=train`` then loads this rank's shard of ``data`` through
+``parallel/dist_data.load_distributed`` (the whole file under
+``tree_learner=feature``, this rank's file under ``pre_partition``), and
+rank 0 alone writes the model, its snapshots and the binary cache.
+
 It runs on the card; ``device_type=cpu`` (alias ``device``) runs it on
 the CPU.
 """
@@ -87,6 +96,15 @@ def _load_dataset(config: Config, path: str,
     ``two_round`` streamed into bins, else parsed with the loader knobs.
     The file's init scores reach the Dataset (the JAX CLI drops them)."""
     params = _config_to_params(config)
+    if reference is None and _distributed():
+        from .parallel.dist_data import load_distributed
+
+        return Dataset.from_binned(
+            load_distributed(path, config,
+                             categorical_features=(
+                                 None if _categorical(config) == "auto"
+                                 else _categorical(config))),
+            params=params)
     if os.path.isdir(path) or BinnedDataset.is_binary_file(path):
         return Dataset(path, params=params, reference=reference)
     if config.two_round and reference is None:
@@ -103,6 +121,19 @@ def _load_dataset(config: Config, path: str,
                    reference=reference,
                    feature_name=df.feature_names or "auto",
                    categorical_feature=_categorical(config))
+
+
+def _distributed() -> bool:
+    """Whether this process is one rank of a group of more than one."""
+    from .parallel.collectives import current_group
+
+    return current_group().world > 1
+
+
+def _rank() -> int:
+    from .parallel.collectives import current_group
+
+    return current_group().rank
 
 
 def _iter_artifacts(output_model: str):
@@ -219,7 +250,7 @@ def run_train(config: Config) -> Booster:
     t0 = time.time()
     train_set = _load_dataset(config, config.data,
                               init_score_file=config.initscore_filename)
-    if config.save_binary:
+    if config.save_binary and _rank() == 0:
         # reference: is_save_binary_file -> SaveBinaryFile(data + ".bin")
         train_set.save_binary(config.data + ".bin")
     init_model = config.input_model or None
@@ -586,7 +617,19 @@ def main(argv: Optional[List[str]] = None) -> int:
         from .obs import dump as obs_dump
 
         obs_dump.arm(crash_dir, config=_config_to_params(config))
-    _TASKS[task](config)
+    cluster = None
+    if config.num_machines > 1 or config.machines \
+            or config.machine_list_filename:
+        # reference Application::InitTrain -> Network::Init (JAX
+        # :615-620): the group before the task
+        from .parallel import cluster
+
+        cluster.init_cluster(config, device=knob_device(config.device_type))
+    try:
+        _TASKS[task](config)
+    finally:
+        if cluster is not None:
+            cluster.shutdown()
     obs_dir = _obs_dir(config)
     if obs_dir and task != "serve":   # serve exports its own, with its
         # server's registry, inside run_serve's shutdown (JAX :636-643)

@@ -459,6 +459,14 @@ class Config:
             self.hist_dtype = "f32"
         if self.num_leaves < 2:
             raise ValueError("num_leaves must be >= 2")
+        if self.data_parallel_collective not in (
+                "reduce_scatter", "allreduce", "hierarchical"):
+            raise ValueError(
+                f"data_parallel_collective="
+                f"{self.data_parallel_collective!r}: expected "
+                "reduce_scatter | allreduce | hierarchical")
+        if self.num_hosts < 0:
+            raise ValueError("num_hosts must be >= 0 (0 = auto-detect)")
         if self.wave_loop_rounds < 1:
             raise ValueError("wave_loop_rounds must be >= 1 (1 = the "
                              "single-round fused kernel)")
@@ -639,10 +647,14 @@ class Config:
 # (items 6 and 8-11), the observability core (obs_trace / trace_out, the
 # event and span rings, crash_dir), the fleet, the router and placement
 # (item 7), the rest of observability (obs_dir / LGBMV1_OBS_DIR and
-# profile_dir: item 12) and out-of-core streaming (stream_enable,
-# stream_block_rows, stream_prefetch, stream_cache_dir: item 14.1, whose
-# PARALLEL title stays for 14.2).  Those items keep their names for
-# ROADMAP's record of them, and nothing refuses with them any more.
+# profile_dir: item 12), out-of-core streaming (stream_enable,
+# stream_block_rows, stream_prefetch, stream_cache_dir: item 14.1) and the
+# data, feature and voting learners with the cluster bring-up (item 14.2:
+# tree_learner, top_k, num_machines, machines, local_listen_port,
+# time_out, machine_list_filename, pre_partition, data_parallel_collective
+# reduce_scatter / allreduce, num_shards).  Those items keep their names
+# for ROADMAP's record of them; PARALLEL stays the title of the elastic
+# knobs (item 14.3), PARALLEL_LEGS names item 14.2b.
 SAMPLING = "bagging and feature fraction"
 CALLBACKS = "callbacks and early stopping"
 INT8 = "int8sr histograms"
@@ -662,23 +674,34 @@ FAILURE = "failure domains of the server"
 OBSERVABILITY = "observability"
 SHARDED_PREDICT = "row-sharded predict"
 PARALLEL = "parallel learners"
+PARALLEL_LEGS = "parallel learners' quantized and hierarchical legs"
 SKLEARN = "sklearn wrappers and plotting"
+
+
+def _parallel(c) -> bool:
+    return c.tree_learner not in ("serial", "")
+
 
 # knob -> (is it set away from its default?, what it is, ROADMAP item)
 _UNPORTED = (
-    ("tree_learner", lambda c: c.tree_learner not in ("serial", ""),
-     "tree_learner={v}", PARALLEL),
+    ("hist_dtype", lambda c: _parallel(c) and c.hist_dtype == "int8",
+     "hist_dtype={v} under a parallel learner (the integer-domain reduce)",
+     PARALLEL_LEGS),
+    ("hist_dtype_deep", lambda c: _parallel(c) and c.hist_dtype_deep in (
+        "int8", "int8sr"),
+     "hist_dtype_deep={v} under a parallel learner (the global-scale pmax "
+     "and the integer-domain reduce)", PARALLEL_LEGS),
+    ("data_parallel_collective",
+     lambda c: c.data_parallel_collective == "hierarchical",
+     "data_parallel_collective={v} (the two-level mesh)", PARALLEL_LEGS),
 )
 
 
 # the other knobs of the JAX package the port does not run, by ROADMAP
 # item: each is refused when a config sets it away from its default
 _REFUSED = (
-    (PARALLEL, ("top_k", "num_machines", "local_listen_port", "machines",
-                "time_out", "machine_list_filename", "pre_partition",
-                "data_parallel_collective", "num_shards", "num_hosts",
-                "hier_ici_gbps", "hier_dcn_gbps", "elastic_lease_timeout_s",
-                "elastic_max_restarts")),
+    (PARALLEL_LEGS, ("num_hosts", "hier_ici_gbps", "hier_dcn_gbps")),
+    (PARALLEL, ("elastic_lease_timeout_s", "elastic_max_restarts")),
 )
 
 

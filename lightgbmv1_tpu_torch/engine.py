@@ -31,6 +31,15 @@ bins, one booster a fold trained in lock step, the metrics' means and
 standard deviations a round, early stopping on the first metric's mean,
 ``fobj`` in every fold's update.
 
+A parallel learner (``tree_learner`` data, voting or feature) trains on
+the ``torch.distributed`` group when one is initialized
+(``parallel/cluster.init_cluster``, or the caller's
+``init_process_group``): every rank calls ``train`` with the same
+arguments, each on its rows (a ``Dataset`` of every row, of which the
+trainer takes the rank's, or ``Dataset.from_binned`` of
+``parallel/dist_data.load_distributed``'s shard), and every rank returns
+the same model; with no group it trains as a group of one.
+
 Every booster trains on ``device`` (default: the card).
 """
 

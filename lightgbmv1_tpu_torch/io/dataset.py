@@ -387,12 +387,16 @@ class BinnedDataset:
                    config: Optional[Config] = None,
                    feature_names: Optional[List[str]] = None,
                    reference: Optional["BinnedDataset"] = None,
-                   categorical_features=None) -> "BinnedDataset":
+                   categorical_features=None,
+                   bin_finder=None) -> "BinnedDataset":
         """Bin a dense (rows, features) float matrix.  ``reference``
         reuses another dataset's bin mappers (a valid set shares the
         training bins); ``group`` holds the query sizes of a ranking
         set, in row order; ``categorical_features`` the indices of the
-        categorical columns."""
+        categorical columns.  ``bin_finder(samples, sample_cnt, max_bins,
+        categorical, config, num_data) -> mappers`` (JAX :170) finds the
+        mappers instead: the distributed loader's, which agrees them
+        across the ranks (``parallel/dist_data.find_bins_distributed``)."""
         config = config or Config()
         X = np.asarray(X)
         if X.ndim != 2:
@@ -406,10 +410,17 @@ class BinnedDataset:
                                  f"reference's {len(mappers)}")
         else:
             sample_idx = _sample_rows(num_data, config)
-            mappers = _find_mappers(
-                [np.asarray(X[sample_idx, j], dtype=np.float64)
-                 for j in range(num_features)], len(sample_idx), num_data,
-                config, categorical_features)
+            samples = [np.asarray(X[sample_idx, j], dtype=np.float64)
+                       for j in range(num_features)]
+            if bin_finder is not None:
+                max_bins = (list(config.max_bin_by_feature)
+                            or [config.max_bin] * num_features)
+                mappers = bin_finder(samples, len(sample_idx), max_bins,
+                                     set(categorical_features or ()),
+                                     config, num_data)
+            else:
+                mappers = _find_mappers(samples, len(sample_idx), num_data,
+                                        config, categorical_features)
         max_nb = max(m.num_bin for m in mappers) if mappers else 2
         # the reference's DenseBin<uint8_t> / DenseBin<uint16_t> family
         # (JAX :228): int16 bins past 256 bins a feature

@@ -16,8 +16,15 @@ A dense file (csv, tsv, whitespace) on local disk goes through the
 native C++ parser first (``native/text_parser.cpp``, threaded), as in the
 JAX package (:389-396); this Python parser is its semantics reference and
 takes the files the native one hands back: libsvm, remote paths, and
-ragged or malformed rows, which it reports.  The JAX loader's
-rank-sharded loading belongs to the parallel learners and is not ported.
+ragged or malformed rows, which it reports.
+
+``load_data_file(rank=, num_machines=)`` (JAX :315-425) parses only this
+rank's contiguous shard of the data lines (``shard_rows``, JAX :119, the
+reference loader's pre-partition, dataset_loader.cpp:167), on the Python
+parser, with the sibling weight and init-score files cut alike.  As in
+the JAX package a libsvm file cannot be loaded by shards (a shard's
+largest feature index need not be another's); query data cannot either
+(a query would straddle two ranks), where the JAX package warns.
 """
 
 from __future__ import annotations
@@ -116,6 +123,14 @@ def _resolve_column(spec: str, header_names: Optional[List[str]],
             log_fatal(f"{what} column {name} not found in header")
         return header_names.index(name)
     return int(spec)
+
+
+def shard_rows(num_rows: int, rank: int, world: int):
+    """Rank ``rank``'s contiguous ``[lo, hi)`` of ``num_rows`` rows cut in
+    ``world`` shards of ceil(rows / world) (JAX :119; the last shorter)."""
+    per = -(-num_rows // world)
+    lo = min(rank * per, num_rows)
+    return lo, min(lo + per, num_rows)
 
 
 def _head(path: str, has_header: bool):
@@ -284,27 +299,42 @@ def load_data_file(path: str, *, has_header: bool = False,
                    label_column: str = "", weight_column: str = "",
                    group_column: str = "", ignore_column: str = "",
                    is_predict: bool = False, num_threads: int = 0,
-                   init_score_file: str = "") -> DataFile:
+                   init_score_file: str = "", rank: Optional[int] = None,
+                   num_machines: int = 1) -> DataFile:
     """A training or prediction file with the reference loader's
     conventions (JAX :315; reference DatasetLoader::LoadFromFile,
     dataset_loader.cpp:167).  ``is_predict``: no label column unless
     one is named; ``num_threads`` caps the native parser's threads (<= 0:
-    every core)."""
+    every core).  ``rank`` / ``num_machines``: only that rank's shard of
+    the data lines is parsed (``shard_rows``)."""
     header_names, fmt, sep = _head(path, has_header)
+    sharded = rank is not None and num_machines > 1
+    shard = [0, None]
 
     def all_lines():
         with fileio.open_file(path) as fh:
             lines = fh.read().splitlines()
-        return lines[1:] if has_header and lines else lines
+        lines = lines[1:] if has_header and lines else lines
+        if sharded:
+            data_idx = [i for i, ln in enumerate(lines)
+                        if ln.split("#", 1)[0].strip()]
+            shard[0], shard[1] = shard_rows(len(data_idx), rank,
+                                            num_machines)
+            lines = [lines[i] for i in data_idx[shard[0]:shard[1]]]
+        return lines
 
     label = weight = group = None
     feature_names = None
     if fmt == "libsvm":
+        if sharded:
+            log_fatal("rank-sharded loading of libsvm files is not "
+                      "supported; use a dense format or pre-partitioned "
+                      "files")
         X, label = _parse_libsvm(all_lines())
     else:
         from ..native import parse_dense_file
 
-        data = (None if fileio.is_remote_path(path) else
+        data = (None if sharded or fileio.is_remote_path(path) else
                 parse_dense_file(path, has_header, sep, num_threads))
         if data is None:
             data = _parse_dense(all_lines(), sep)
@@ -323,17 +353,29 @@ def load_data_file(path: str, *, has_header: bool = False,
         if weight_idx is not None:
             weight = data[:, weight_idx]
         if group_idx is not None:
+            if sharded:
+                log_fatal("group_column with rank-sharded loading: a query "
+                          "would straddle two ranks (query-aligned "
+                          "sharding is not implemented)")
             group = _query_sizes(data[:, group_idx])
     wfile, qfile = path + ".weight", path + ".query"
     if weight is None and os.path.exists(wfile):
         weight = np.loadtxt(wfile, dtype=np.float64, ndmin=1)
+        if sharded:
+            weight = weight[shard[0]:shard[1]]
         log_info(f"Loading weights from {wfile}")
     if group is None and os.path.exists(qfile):
+        if sharded:
+            log_fatal(f"{qfile} with rank-sharded loading: a query would "
+                      "straddle two ranks (query-aligned sharding is not "
+                      "implemented)")
         group = np.loadtxt(qfile, dtype=np.int64, ndmin=1)
         log_info(f"Loading query boundaries from {qfile}")
     ifile = init_score_file or (path + ".init")
     init_score = None
     if os.path.exists(ifile):
         init_score = np.loadtxt(ifile, dtype=np.float64)
+        if sharded:
+            init_score = init_score[shard[0]:shard[1]]
         log_info(f"Loading initial scores from {ifile}")
     return DataFile(X, label, weight, group, feature_names, init_score)

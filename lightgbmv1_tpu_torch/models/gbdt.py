@@ -125,6 +125,23 @@ histograms over them at ``padded_bundle_bin`` bins and decode each
 decision (parallel/trainer.py), a valid set is bundled with the training
 layout, and DART's tree walks decode the same way.
 
+Row shards (the data and voting learners over a group of more than one
+rank, or a process-sharded set; JAX :110-162, where a device mesh holds
+the row shards): each rank keeps the bins, gradients, leaf ids and scores
+of its own rows (``RowShard``).  What is global is reduced over the
+group, so every rank writes the same model text: the objective's
+statistics and the boost-from-average score come from an objective
+initialised on the global rows, whose per-row tensors each rank slices
+(``gbdt_stream._ObjectiveSlicer``; a ranking objective on its whole
+queries); the root sums are all-reduced in the grower; the bagging and
+GOSS draws are made over the global rows from the shared seeds, each rank
+taking its slice (GOSS's threshold over the gathered |g h|); renewed
+leaves, training metrics and ``raw_train_scores`` gather the rows; the
+finite guard all-reduces its check.  Valid sets are every rank's whole.
+A row-sharded trainer's checkpoints are item 14.3's (elastic training).
+For voting and feature learners EFB is off, with the JAX warning (JAX
+:113-122).
+
 The phase timer's scopes (utils/timer.global_timer, the JAX package's
 names): ``GBDT::TrainOneIter(dispatch)`` (``DART::`` for DART) around an
 iteration's tree growth, ``GBDT::MaterializeHostTrees``,
@@ -141,15 +158,18 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import (CAT_INT16, Config, not_ported,
+from ..config import (CAT_INT16, PARALLEL, Config, not_ported,
                       unported_reason)
 from ..io.bundle import BundleArrays, apply_bundles_dense
-from ..io.dataset import BinnedDataset
+from ..io.dataset import BinnedDataset, Metadata
+from ..io.parser import shard_rows
 from ..metrics import Metric, create_metrics
 from ..objectives import create_objective
 from ..ops.hist_cuda import pack4bit
 from ..ops.split import SplitParams, make_feature_meta
-from ..parallel.trainer import build_trainer, select_bin_layout
+from ..parallel.collectives import Group, current_group
+from ..parallel.trainer import (PARALLEL_LEARNERS, ROW_SHARDED,
+                                build_trainer, select_bin_layout)
 from ..obs import trace as obs_trace
 from ..utils import faults
 from ..utils.log import log_fatal, log_info, log_warning
@@ -199,6 +219,98 @@ class _ScoreUpdater:
             device=device).contiguous()
 
 
+def _metadata_rows(meta: Metadata, lo: int, hi: int,
+                   keep: Optional[np.ndarray] = None) -> Metadata:
+    """Rows ``[lo, hi)`` of ``meta`` (or, with ``keep``, the rows
+    ``keep``): labels, weights, init scores and, for a range that starts
+    and ends on query boundaries, its queries."""
+    def rows(a, cols=False):
+        if a is None:
+            return None
+        a = np.asarray(a)
+        if cols:
+            a = a.reshape(len(meta.label), -1)
+        return a[keep] if keep is not None else a[lo:hi]
+
+    out = Metadata(label=rows(meta.label), weight=rows(meta.weight),
+                   init_score=rows(meta.init_score, cols=True))
+    if meta.query_boundaries is not None and keep is None:
+        qb = np.asarray(meta.query_boundaries)
+        q0, q1 = np.searchsorted(qb, [lo, hi])
+        out.set_group(np.diff(qb[q0:q1 + 1]))
+    return out
+
+
+class RowShard:
+    """This rank's rows under a row-sharded learner (``tree_learner`` data
+    or voting; JAX gbdt.py:110-162, where the device mesh holds the row
+    shards): the global view of the set (``gmeta``, the real rows of every
+    rank in rank order, ``n_global`` of them) and this rank's ``[lo,
+    hi)`` of it.  The cut is the JAX learner's (JAX trainer.py:1003):
+    ceil(N / D) contiguous rows a rank; query data is cut at the query
+    boundary at or after each even cut, so every query stays on one rank.
+    A process-sharded set (``parallel/dist_data.make_process_sharded``)
+    holds this rank's rows already, padded to a common count: its real
+    rows are the leading ``row_valid`` ones."""
+
+    def __init__(self, train_set: BinnedDataset, group: Group):
+        self.group = group
+        rank, world = group.rank, group.world
+        meta = train_set.metadata
+        if getattr(train_set, "is_row_sharded", False):
+            R = int(train_set.local_rows)
+            valid = np.asarray(train_set.row_valid, bool)
+            self.counts = [int(c) for c in valid.reshape(world, R).sum(1)]
+            self.gmeta = _metadata_rows(meta, 0, 0, np.flatnonzero(valid))
+            self.lo = sum(self.counts[:rank])
+            self.cols = slice(0, self.counts[rank])
+        else:
+            N = train_set.num_data
+            cuts = [shard_rows(N, r, world)[0] for r in range(world)] + [N]
+            if meta.query_boundaries is not None:
+                qb = np.asarray(meta.query_boundaries)
+                cuts = [int(qb[np.searchsorted(qb, c)]) for c in cuts]
+            self.counts = [cuts[r + 1] - cuts[r] for r in range(world)]
+            self.gmeta = meta
+            self.lo = cuts[rank]
+            self.cols = slice(cuts[rank], cuts[rank + 1])
+        self.n = self.counts[rank]
+        self.hi = self.lo + self.n
+        self.n_global = sum(self.counts)
+        # the slot-bucket ladder's rows: the JAX shard's, ceil(N / D)
+        self.bucket_rows = -(-self.n_global // world)
+        self.local_meta = _metadata_rows(self.gmeta, self.lo, self.hi)
+
+    def gather_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """Every rank's (n_r, ...) rows of ``t`` in rank order: the
+        (n_global, ...) global rows, on every rank."""
+        pad = max(self.counts) - t.shape[0]
+        if pad:
+            t = torch.cat([t, t.new_zeros((pad,) + tuple(t.shape[1:]))])
+        allt = self.group.all_gather(t.contiguous())
+        return torch.cat([allt[r, :c] for r, c in enumerate(self.counts)])
+
+
+def row_shard_for(config: Config, train_set: BinnedDataset
+                  ) -> Tuple[Group, Optional[RowShard]]:
+    """The learner's group and, for a row-sharded learner over more than
+    one rank (or a process-sharded set), this rank's ``RowShard``."""
+    if config.tree_learner not in PARALLEL_LEARNERS:
+        if getattr(train_set, "is_row_sharded", False):
+            log_fatal("process-sharded datasets require tree_learner=data "
+                      "or voting")
+        return Group.solo(), None
+    group = current_group()
+    sharded = getattr(train_set, "is_row_sharded", False)
+    if sharded and config.tree_learner not in ROW_SHARDED:
+        log_fatal("process-sharded datasets require tree_learner=data or "
+                  "voting (tree_learner=feature holds every row on every "
+                  "rank)")
+    if config.tree_learner in ROW_SHARDED and (group.world > 1 or sharded):
+        return group, RowShard(train_set, group)
+    return group, None
+
+
 class GBDT:
     """Gradient Boosting Decision Tree trainer (reference class GBDT,
     gbdt.h:34), training on ``device``."""
@@ -220,12 +332,35 @@ class GBDT:
         self._row_device = (torch.device("cpu") if self._is_streaming
                             else self.device)
         self.train_set = train_set
-        self.num_data = train_set.num_data
+        # a row-sharded learner's rank holds its rows only (``RowShard``)
+        self._group, self._shard = (
+            (Group.solo(), None) if self._is_streaming
+            else row_shard_for(config, train_set))
+        shard = self._shard
+        self.num_data = train_set.num_data if shard is None else shard.n
         self.num_class = config.num_tree_per_iteration
         self.objective = create_objective(config)
+        self._objective_global = self.objective
         if self.objective is not None:
-            self.objective.init(train_set.metadata, self.num_data,
-                                self._row_device)
+            if shard is None:
+                self.objective.init(train_set.metadata, self.num_data,
+                                    self._row_device)
+            elif shard.gmeta.query_boundaries is not None:
+                # a ranking objective's statistics are its queries', whole
+                # on each rank
+                self.objective.init(shard.local_meta, shard.n,
+                                    self._row_device)
+            else:
+                # the global statistics (class weights, the average a
+                # boost starts from) over every rank's rows, the per-row
+                # tensors this rank's rows of them
+                from .gbdt_stream import _ObjectiveSlicer
+
+                self.objective.init(shard.gmeta, shard.n_global,
+                                    self._row_device)
+                self.objective = _ObjectiveSlicer(
+                    self.objective, shard.n_global,
+                    self._row_device).sliced(shard.lo, shard.hi)
         if (train_set.is_categorical.any() and train_set.padded_bin > 256):
             raise not_ported("categorical features beside more than 256 "
                              "bins a feature (int16 bins)", CAT_INT16)
@@ -233,8 +368,9 @@ class GBDT:
         # decisions read the bundle columns (JAX :107-127); forced splits
         # run on unbundled features
         self._bundle = None
-        if train_set.bundle_layout is not None and \
-                config.forcedsplits_filename:
+        if train_set.bundle_layout is not None and (
+                config.tree_learner in ("voting", "feature")
+                or config.forcedsplits_filename):
             if train_set.binned is None:
                 log_fatal("tree_learner=voting/feature and forced splits do "
                           "not support EFB-bundled sparse datasets; load "
@@ -255,8 +391,10 @@ class GBDT:
             self.binned = None
             self._packed = self._source.bin_layout == "packed4"
         else:
-            binned = torch.as_tensor(train_set.train_matrix,
-                                     device=self.device).contiguous()
+            matrix = train_set.train_matrix
+            if shard is not None:
+                matrix = matrix[:, shard.cols]
+            binned = torch.as_tensor(matrix, device=self.device).contiguous()
             self._packed = select_bin_layout(
                 config, num_total_bin=train_set.num_total_bin,
                 device=self.device, bin_dtype=binned.dtype,
@@ -291,7 +429,13 @@ class GBDT:
 
         # initial scores (reference BoostFromAverage gbdt.cpp:312-335)
         self._init_scores = np.zeros(self.num_class, dtype=np.float64)
-        meta_init = train_set.metadata.init_score
+        meta_init = (train_set.metadata if shard is None
+                     else shard.local_meta).init_score
+        if init_raw_scores is not None and shard is not None:
+            raw = np.asarray(init_raw_scores, np.float64).reshape(
+                -1, self.num_class)
+            if raw.shape[0] == shard.n_global:
+                init_raw_scores = raw[shard.lo:shard.hi]
         if init_raw_scores is not None:
             # continued training: the loaded model's raw predictions
             self._train_scores = _ScoreUpdater(
@@ -310,7 +454,8 @@ class GBDT:
         else:
             for k in range(self.num_class if self.objective is not None
                            else 0):
-                self._init_scores[k] = self.objective.boost_from_score(k)
+                self._init_scores[k] = \
+                    self._objective_global.boost_from_score(k)
             if any(self._init_scores):
                 log_info("Start training from score " + " ".join(
                     f"{s:.6f}" for s in self._init_scores))
@@ -364,7 +509,11 @@ class GBDT:
             packed=self._packed, binned=self.binned, bundle=self._bundle,
             bundle_num_bins=(self.train_set.padded_bundle_bin
                              if self._bundle is not None else None),
-            bin_mappers=self.train_set.bin_mappers)
+            bin_mappers=self.train_set.bin_mappers,
+            group=(self._group if config.tree_learner in PARALLEL_LEARNERS
+                   else None),
+            bucket_rows=(self._shard.bucket_rows
+                         if self._shard is not None else None))
 
     def _make_split_params(self) -> SplitParams:
         config = self.config
@@ -392,6 +541,11 @@ class GBDT:
         grower, so the next tree trains under it.  A knob the port does
         not train raises, as at construction."""
         before = dataclasses.asdict(self.config)
+        learner = self.config._fields_of(params).get("tree_learner")
+        if learner is not None and learner != self.config.tree_learner:
+            raise ValueError("tree_learner cannot change mid-training: the "
+                             "rows each rank holds are set when the "
+                             "trainer is built")
         self.config.update(params)
         self.config.__post_init__()
         why = unported_reason(self.config)
@@ -475,16 +629,28 @@ class GBDT:
             return self._bag_mask
         key = fold_in(prng_key(cfg.bagging_seed),
                       iteration // max(cfg.bagging_freq, 1))
-        N, dev = self.num_data, self._row_device
+        # drawn over the global rows; a row shard takes its slice
+        N, dev = self._global_rows(), self._row_device
         if use_pos_neg:
-            pos = bernoulli(key, cfg.pos_bagging_fraction, N, dev)
-            neg = bernoulli(fold_in(key, 1), cfg.neg_bagging_fraction, N,
-                            dev)
+            pos = self._rows(bernoulli(key, cfg.pos_bagging_fraction, N,
+                                       dev))
+            neg = self._rows(bernoulli(fold_in(key, 1),
+                                       cfg.neg_bagging_fraction, N, dev))
             mask = torch.where(self.objective.label > 0, pos, neg)
         else:
-            mask = bernoulli(key, cfg.bagging_fraction, N, dev)
+            mask = self._rows(bernoulli(key, cfg.bagging_fraction, N, dev))
         self._bag_mask = mask.to(torch.float32)
         return self._bag_mask
+
+    def _global_rows(self) -> int:
+        """The training set's rows over every rank."""
+        return self.num_data if self._shard is None else self._shard.n_global
+
+    def _rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global (N, ...) draw."""
+        if self._shard is None:
+            return t
+        return t[self._shard.lo:self._shard.hi]
 
     # ------------------------------------------------------------------
     def _rate(self) -> float:
@@ -530,10 +696,15 @@ class GBDT:
 
     def _custom_grads(self, custom_grad, custom_hess):
         """A custom objective's host gradients as the (N, K) f32 device
-        pair the trees take (JAX :791-793)."""
-        return tuple(torch.as_tensor(
-            np.asarray(a, np.float32).reshape(self.num_data, -1),
-            device=self.device) for a in (custom_grad, custom_hess))
+        pair the trees take (JAX :791-793); under a row shard, of the
+        global rows, this rank's are taken."""
+        out = []
+        for a in (custom_grad, custom_hess):
+            a = np.asarray(a, np.float32).reshape(self._global_rows(), -1)
+            if self._shard is not None:
+                a = a[self._shard.lo:self._shard.hi]
+            out.append(torch.as_tensor(a, device=self.device))
+        return tuple(out)
 
     def _sample_g3(self, grad_k, hess_k, bag, iteration) -> torch.Tensor:
         """The (N, 3) [grad, hess, count] rows of one class tree: an
@@ -631,6 +802,10 @@ class GBDT:
         order every leaf's rows by residual at once (ties in row order);
         each leaf's cumulative weights are summed on the host in that
         order, as the JAX package sums them."""
+        if self._shard is not None:
+            # each leaf's rows over every rank, in the global row order
+            leaf_id = self._shard.gather_rows(leaf_id)
+            score_k = self._shard.gather_rows(score_k)
         label, w = self._renew_rows(leaf_id.device)
         resid = label - score_k.double()
         lid = leaf_id.long()
@@ -654,9 +829,10 @@ class GBDT:
         """The renewal's float64 labels and row weights on ``device``,
         made once."""
         if getattr(self, "_renew_cache", None) is None:
-            w = self.objective.renew_weights()
+            obj = self._objective_global        # the global rows' arrays
+            w = obj.renew_weights()
             self._renew_cache = (
-                torch.as_tensor(self.objective._np_label, dtype=torch.float64,
+                torch.as_tensor(obj._np_label, dtype=torch.float64,
                                 device=device),
                 None if w is None else torch.as_tensor(
                     np.asarray(w, np.float64), device=device))
@@ -742,6 +918,8 @@ class GBDT:
                 and self.iter > 0:
             g, h = self._gradients(self._prev_state[0], self.iter - 1)
             total = total + g.sum() + h.sum()
+        if self._shard is not None:
+            total = self._group.all_reduce(total)      # every rank decides
         if bool(torch.isfinite(total)):
             return
         msg = (f"non-finite gradient/score state at iteration {self.iter} "
@@ -759,6 +937,8 @@ class GBDT:
         """``(manifest, arrays)`` of the trainer for
         ``io.checkpoint.write_checkpoint`` (JAX :1004)."""
         from ..io.checkpoint import encode_rng_state
+
+        self._refuse_sharded_checkpoint()
 
         arrays = {}
         for f in TreeArrays._fields:
@@ -808,12 +988,21 @@ class GBDT:
     def _capture_extra(self, manifest, arrays) -> None:
         """Subclass hook (DART)."""
 
+    def _refuse_sharded_checkpoint(self) -> None:
+        """A row-sharded trainer's state is spread over its ranks: its
+        checkpoint belongs to elastic training (ROADMAP item 14.3)."""
+        if self._shard is not None:
+            raise not_ported("checkpoints of a row-sharded learner "
+                             "(tree_learner=data or voting over ranks)",
+                             PARALLEL)
+
     def restore_state(self, manifest, arrays) -> None:
         """A captured state into this fresh trainer, built on the same
         data and config with the same valid sets (JAX :1056); raises
         ``CheckpointError`` where they do not fit."""
         from ..io.checkpoint import CheckpointError, decode_rng_state
 
+        self._refuse_sharded_checkpoint()
         if self.iter != 0 or self.models:
             raise CheckpointError(
                 "restore_state() needs a fresh trainer (training already "
@@ -959,20 +1148,30 @@ class GBDT:
     def eval_train(self):
         """The training set's metrics on its current scores (JAX
         :1213)."""
+        meta, n, scores = (self.train_set.metadata, self.num_data,
+                           self._train_scores)
+        if self._shard is not None:
+            # the global rows' scores, on every rank (a collective)
+            meta, n = self._shard.gmeta, self._shard.n_global
+            scores = _ScoreUpdater.__new__(_ScoreUpdater)
+            scores.score = self._shard.gather_rows(self._train_scores.score)
         if self._train_metrics is None:
             self._train_metrics = create_metrics(self.config)
             for m in self._train_metrics:
-                m.init(self.train_set.metadata, self.num_data)
+                m.init(meta, n)
         out = []
         with global_timer.section("GBDT::EvalTrain"):
-            self._eval("training", self._train_scores, self._train_metrics,
-                       out)
+            self._eval("training", scores, self._train_metrics, out)
         return out
 
     def raw_train_scores(self) -> np.ndarray:
-        """(N, num_class) float64 raw training scores on the host."""
-        return self._train_scores.score.detach().cpu().numpy() \
-            .astype(np.float64)
+        """(N, num_class) float64 raw training scores on the host; under a
+        row shard every rank's rows, gathered (a collective: every rank
+        calls it)."""
+        score = self._train_scores.score
+        if self._shard is not None:
+            score = self._shard.gather_rows(score)
+        return score.detach().cpu().numpy().astype(np.float64)
 
     def raw_valid_scores(self, i: int) -> np.ndarray:
         """Valid set ``i``'s (N, num_class) float64 raw scores."""
@@ -992,19 +1191,23 @@ class GOSS(GBDT):
 
     def _sample_g3(self, grad_k, hess_k, bag, iteration) -> torch.Tensor:
         cfg = self.config
-        n = self.num_data
+        n = self._global_rows()
         top_k = max(1, int(cfg.top_rate * n))
         other_k = max(1, int(cfg.other_rate * n))
         score = torch.abs(grad_k * hess_k)
-        # the top_k-th largest |g h| (``sort(score)[-top_k]``); every row
-        # at or above it is kept, so ties can keep more than top_k
-        thresh = torch.kthvalue(score, n - top_k + 1).values
+        # the top_k-th largest |g h| (``sort(score)[-top_k]``) of the
+        # global rows; every row at or above it is kept, so ties can keep
+        # more than top_k
+        every = (score if self._shard is None
+                 else self._shard.gather_rows(score))
+        thresh = torch.kthvalue(every, n - top_k + 1).values
         is_top = score >= thresh
         # the JAX package divides int32 by int32 into float32
         rest_prob = float(np.float32(other_k) / np.float32(max(n - top_k,
                                                                1)))
         key = fold_in(prng_key(cfg.seed + 17), iteration)
-        sampled = ~is_top & bernoulli(key, rest_prob, n, score.device)
+        sampled = ~is_top & self._rows(bernoulli(key, rest_prob, n,
+                                                 score.device))
         amp = (1.0 - cfg.top_rate) / cfg.other_rate
         w = torch.where(is_top, torch.ones_like(score),
                         torch.where(sampled, torch.full_like(score, amp),

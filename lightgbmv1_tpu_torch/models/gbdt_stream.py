@@ -44,8 +44,8 @@ Refused, with the JAX package's words (``_check_streamable`` :92-115,
 ``StreamingGBDT.__init__`` :131-142, ``create_streaming_boosting``
 :583-593): level-wise growth, forced splits, CEGB, query groups, EFB
 bundle-only data, objectives that renew leaves, stochastic objectives,
-custom ``fobj``, boosting other than gbdt / dart.  ``tree_learner``
-other than serial raises its ROADMAP item (the parallel learners).
+custom ``fobj``, boosting other than gbdt / dart, and ``tree_learner``
+other than serial (JAX :93).
 ``hist_method=fused`` raises where the JAX package drops to the staged
 method with a warning: the fused round needs the resident wave grower.
 """
@@ -93,6 +93,10 @@ class _ObjectiveSlicer:
 
 
 def _check_streamable(config: Config, train_set) -> None:
+    if config.tree_learner not in ("serial", ""):
+        log_fatal(f"streaming training requires tree_learner=serial "
+                  f"(got {config.tree_learner}); ROADMAP item 1 composes "
+                  "multi-host loading with this path")
     if config.tree_growth == "levelwise":
         log_fatal("streaming training implements the sequential leaf-wise "
                   "schedule; tree_growth=levelwise is resident-only")

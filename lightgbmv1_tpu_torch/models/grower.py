@@ -387,7 +387,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                          feature_fraction_bynode: float = 1.0,
                          bundle=None, interaction_groups=None,
                          forced_splits=None, cegb_coupled=None,
-                         cegb_lazy=None):
+                         cegb_lazy=None, split_fn: Callable = None,
+                         sums_fn: Callable = None):
     """Build ``grow(binned, g3, base_mask, key=None, cegb_used=None,
     rows=None) -> (tree, leaf_id, root_sum)``; ``key`` is the tree's
     (per-node feature sampling).  ``rows``: the O(N) passes, by default
@@ -404,8 +405,12 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
     (S, 6) int (``parse_forced_splits``), ``cegb_coupled`` / ``cegb_lazy``
     (F,) (the lazy penalty needs ``partition=False``: per-row leaf ids);
     ``cegb_used`` is the model's used features (F,) bool, or with lazy
-    costs ``(used, marks)`` with the (N, F) bool rows already charged."""
+    costs ``(used, marks)`` with the (N, F) bool rows already charged.
+    ``split_fn`` (``find_best_split``'s signature) and ``sums_fn(g3) ->
+    (3,)`` take the scans and the root sums where given: the parallel
+    learners' cross-rank reductions (JAX's hooks of the same names)."""
     L = num_leaves
+    scan = find_best_split if split_fn is None else split_fn
     pool_bytes = float(L) * int(meta.num_bins.shape[0]) * num_bins * 3 * 4
     cap_bytes = (hist_pool_mb * (1 << 20) if hist_pool_mb > 0
                  else _POOL_AUTO_BYTES)
@@ -448,6 +453,8 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             marks = (torch.zeros((N, F), dtype=torch.bool, device=dev)
                      if marks is None else marks.clone())
         hist0, root_sum = rows.root()
+        if sums_fn is not None:
+            root_sum = sums_fn(g3)
         out0 = root_output(root_sum, params)
         mask0 = node_feature_masks(key, [0], base_mask,
                                    feature_fraction_bynode)
@@ -459,13 +466,11 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
             unmk0 = (None if cegb.lazy is None
                      else (~marks).sum(dim=0).to(torch.float32)[None, :])
             pen0 = cegb.penalty(root_sum[2:3], cegb_used, unmk0)
-        res0 = find_best_split(scan_view(hist0[None], root_sum[None],
-                                         bundle, num_bins)[0],
-                               root_sum[None], meta, mask0, params,
-                               depth=torch.zeros(1, dtype=torch.int64,
-                                                 device=dev),
-                               parent_output=out0[None], key=key, uids=[0],
-                               cegb=pen0)
+        res0 = scan(scan_view(hist0[None], root_sum[None], bundle,
+                              num_bins)[0],
+                    root_sum[None], meta, mask0, params,
+                    depth=torch.zeros(1, dtype=torch.int64, device=dev),
+                    parent_output=out0[None], key=key, uids=[0], cegb=pen0)
         tree = empty_tree(L, dev, W)
         f32 = torch.float32
         pool = (torch.zeros((L,) + tuple(hist0.shape), dtype=f32, device=dev)
@@ -597,7 +602,7 @@ def make_leafwise_grower(*, num_leaves: int, num_bins: int,
                         for c in (leaf, nl)
                     ]).to(f32)
                 pen2 = cegb.penalty(csums[:, 2], cegb_used, unmk)
-            res = find_best_split(
+            res = scan(
                 scan_view(torch.stack([h_left, h_right]), csums, bundle,
                           num_bins)[0], csums, meta, masks2, params,
                 constraint=cconstr,
@@ -654,10 +659,13 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                           packed: bool = False,
                           feature_fraction_bynode: float = 1.0,
                           bundle=None, interaction_groups=None,
-                          forced_splits=None, cegb_coupled=None):
+                          forced_splits=None, cegb_coupled=None,
+                          split_fn: Callable = None,
+                          sums_fn: Callable = None):
     """Build ``grow(binned, g3, base_mask, key=None, cegb_used=None) ->
     (tree, leaf_id, root_sum)``; ``key`` is the tree's (per-node feature
-    sampling).
+    sampling); ``split_fn`` / ``sums_fn`` as the sequential grower takes
+    them.
 
     ``hist_frontier_fn(binned, g3, label, L, live_slots=None, rows8=None)
     -> (L, F, B, 3)``: every slot's histogram in one pass, only the rows
@@ -686,6 +694,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
             if int(fs[st, 5]) < levels:
                 steps_at_depth.setdefault(int(fs[st, 5]), []).append(st)
     use_cegb = Cegb.active(params, cegb_coupled, None)
+    scan = find_best_split if split_fn is None else split_fn
 
     def grow(binned: torch.Tensor, g3: torch.Tensor,
              base_mask: torch.Tensor, key=None, cegb_used=None):
@@ -702,7 +711,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
             cegb_used = torch.zeros(F, dtype=torch.bool, device=dev)
         rows8 = NearestRows(g3)
         leaf_id = torch.zeros(N, dtype=torch.int32, device=dev)
-        root_sum = root_sums(g3)
+        root_sum = root_sums(g3) if sums_fn is None else sums_fn(g3)
         tree = empty_tree(L, dev, W)
         leaf_sums = torch.zeros((L, 3), dtype=f32, device=dev)
         leaf_sums[0] = root_sum
@@ -754,7 +763,7 @@ def make_levelwise_grower(*, num_leaves: int, num_bins: int,
                 masks = masks & allowed_features_for(groups, leaf_used[:Ld])
             pen = (None if cegb is None
                    else cegb.penalty(leaf_sums[:Ld, 2], cegb_used))
-            res = find_best_split(
+            res = scan(
                 scan_view(hist, leaf_sums[:Ld], bundle, num_bins)[0],
                 leaf_sums[:Ld], meta, masks,
                 params, constraint=leaf_constr[:Ld] if use_mc else None,

@@ -116,8 +116,11 @@ keeps its children's boxes.  Interaction constraints (JAX :1176-1197):
 each child's mask is cut to what its branch allows, on the staged and
 fused rounds.  CEGB sends leaf-wise growth to the sequential grower (the
 trainer).  The split scan and the root sums are the serial learner's
-own (the JAX version's ``split_fn`` / ``sums_fn`` hooks
-carry the cross-chip reductions, which the port has not).
+unless the trainer hands ``split_fn`` / ``sums_fn`` (JAX :667-700): the
+parallel learners' (parallel/trainer.py), whose scans reduce or elect
+across the ranks of a ``torch.distributed`` group.  Every rank then
+makes the same decisions from the same reduced values, so each issues
+the same collectives in the same order.
 """
 
 from __future__ import annotations
@@ -488,7 +491,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                      hist_wave_quant_fn: Optional[Callable] = None,
                      packed: bool = False, monotone_mode: str = "basic",
                      feature_fraction_bynode: float = 1.0, bundle=None,
-                     interaction_groups=None):
+                     interaction_groups=None, split_fn: Callable = None,
+                     sums_fn: Callable = None, bucket_rows: int = None):
     """Build ``grow(binned, g3, base_mask, valids=(), key=None)``.
 
     ``hist_wave_fn(binned, g3, label, nslots, deep=False, rows8=None) ->
@@ -530,8 +534,14 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
     the fused rounds (the loop refuses them).  Categorical splits
     (``meta.is_categorical``) partition by their bitsets, which the store
     keeps beside each split, and route the valid sets through K3's bitset
-    leg; the fused family refuses them (the trainer)."""
+    leg; the fused family refuses them (the trainer).  ``split_fn``
+    (``find_best_split``'s signature) and ``sums_fn(g3) -> (3,)`` take
+    the staged scans and the root sums where given, and ``bucket_rows``
+    the slot-bucket ladder's row count (default: ``binned``'s): the
+    parallel learners' cross-rank reductions, every rank on one ladder
+    (JAX's ``split_fn`` / ``sums_fn`` hooks; the shard's rows)."""
     L = num_leaves
+    scan = find_best_split if split_fn is None else split_fn
     L1 = max(L - 1, 1)
     K = max(1, min(wave_size, L1))
     use_mc = meta.monotone_type is not None
@@ -566,7 +576,8 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         dev = binned.device
         N = binned.shape[1]
         F = base_mask.shape[0]
-        slot_buckets = slot_buckets_for(K, N)
+        slot_buckets = slot_buckets_for(
+            K, N if bucket_rows is None else bucket_rows)
         quant_buckets = quant_buckets_for(slot_buckets, K) \
             if hist_wave_quant_fn is not None else ()
         if quant_buckets and key is None:
@@ -592,7 +603,7 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         hist0 = hist_wave_fn(binned, g3, leaf_id, 1, deep=False,
                              rows8=rows8)[0]
         use_sub = L * hist0.numel() * 4 <= _SUB_STATE_CAP_BYTES
-        root_sum = root_sums(g3)
+        root_sum = root_sums(g3) if sums_fn is None else sums_fn(g3)
         out0 = leaf_output(root_sum[0], root_sum[1], params)
         if params.path_smooth > 0:
             out0 = smooth_output(out0, root_sum[2], 0.0, params)
@@ -600,12 +611,11 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
         if groups is not None:
             mask0 = mask0 & allowed_features_for(
                 groups, torch.zeros((1, F), dtype=torch.bool, device=dev))
-        res0 = find_best_split(scan_view(hist0[None], root_sum[None],
-                                         bundle, num_bins)[0],
-                               root_sum[None], meta, mask0, params,
-                               depth=torch.zeros(1, dtype=torch.int64,
-                                                 device=dev),
-                               parent_output=out0[None], key=key, uids=[0])
+        res0 = scan(scan_view(hist0[None], root_sum[None], bundle,
+                              num_bins)[0],
+                    root_sum[None], meta, mask0, params,
+                    depth=torch.zeros(1, dtype=torch.int64, device=dev),
+                    parent_output=out0[None], key=key, uids=[0])
         st = store.init(res0, out0)
         leaf_box = None
         if use_inter:
@@ -847,12 +857,10 @@ def make_wave_grower(*, num_leaves: int, num_bins: int, meta: FeatureMeta,
                 # (the pool keeps the bundle-space histograms)
                 h_scan, scale = scan_view(hist, b["csums"], bundle, num_bins,
                                           scale)
-                res = find_best_split(h_scan, b["csums"], meta, b["cmask"],
-                                      params, hist_scale=scale,
-                                      constraint=b["cconstr"],
-                                      depth=b["cdepth"],
-                                      parent_output=b["couts"], key=key,
-                                      uids=b["cuids"])
+                res = scan(h_scan, b["csums"], meta, b["cmask"], params,
+                           hist_scale=scale, constraint=b["cconstr"],
+                           depth=b["cdepth"], parent_output=b["couts"],
+                           key=key, uids=b["cuids"])
             commit(b, res)
             if use_sub:
                 leaf_hist[b["cleafs"]] = hist

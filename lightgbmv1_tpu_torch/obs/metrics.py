@@ -19,6 +19,11 @@ it while the bucket counts feed Prometheus.  A labeled metric holds at
 most ``label_cardinality`` children: a new label combination past the
 cap collapses into one ``_overflow`` child, and each such write counts
 in ``obs_label_overflow_total{metric=...}``.
+
+The parallel learners' analytic comm accounting lives here too
+(``split_pack_floats``, ``collective_bytes``, ``comm_table_per_round``,
+``publish_comm_metrics``: the port's copy of lightgbmv1_tpu/parallel/
+cluster.py :247-345).
 """
 
 from __future__ import annotations
@@ -456,3 +461,103 @@ def default_registry() -> Registry:
         if _default is None:
             _default = Registry()
         return _default
+
+
+# ---------------------------------------------------------------------------
+# The parallel learners' analytic comm accounting (JAX parallel/cluster.py
+# :247-345).  Every figure is the output payload one collective
+# materializes on each rank — an all-reduced histogram lands F B 3 values
+# on every rank, a reduce-scattered one F / D of them — computed from the
+# shapes and element sizes: the convention ``parallel/collectives.py``
+# counts its calls in, so a run's bytes can be held to these tables.
+# ---------------------------------------------------------------------------
+
+HIST_CH = 3             # [sum_grad, sum_hess, count] channels a bin
+F32 = 4                 # bytes of an f32 (and of the int32 integer domain)
+
+
+def split_pack_floats(num_bins: int) -> int:
+    """f32 words of one packed SplitInfo (``parallel/trainer.pack_split``):
+    [gain, feature, threshold, default_left, is_cat], the left and right
+    (3,) sums and the categorical bitset's ceil(B / 32) words."""
+    return 11 + (-(-num_bins // 32))
+
+
+def collective_bytes(n_elems: int, ndev: int, kind: str,
+                     itemsize: int = F32) -> int:
+    """Payload bytes on each rank of one collective over ``ndev`` ranks:
+    ``psum`` (all-reduce) the whole array, ``psum_scatter`` its 1/D
+    slice, ``all_gather`` D arrays; 0 on one rank."""
+    if ndev <= 1:
+        return 0
+    if kind == "psum":
+        return n_elems * itemsize
+    if kind == "psum_scatter":
+        return (n_elems // ndev) * itemsize
+    if kind == "all_gather":
+        return n_elems * ndev * itemsize
+    raise ValueError(f"unknown collective kind: {kind}")
+
+
+def comm_table_per_round(learner: str, collective: str, *, k: float,
+                         F: int, B: int, ndev: int,
+                         sel_k: Optional[int] = None,
+                         int8sr: bool = False) -> dict:
+    """Per-round payloads of one wave round with ``k`` histogram slots and
+    2k children searched (JAX :265): ``hist_bytes`` the histogram
+    reduction (an all-reduce of (k, F, B, 3) under ``allreduce``, a
+    reduce-scatter of the F-padded array under ``reduce_scatter``; the
+    voting learner's over its 2k children's ``sel_k`` elected features),
+    ``split_sync_bytes`` the SplitInfo all-gather of the 2k children
+    (none under ``allreduce``, where every rank scans the whole
+    histogram), ``vote_bytes`` the voting learner's (2k, F) vote
+    all-reduce, ``g3_bytes_per_tree`` the root sums' all-reduce, once a
+    tree; ``hist_dtype`` int32 where quantized rounds cross as
+    integers."""
+    F_pad = -(-F // ndev) * ndev
+    spf = split_pack_floats(B)
+    sync = collective_bytes(int(round(2 * k)) * spf, ndev, "all_gather")
+    out = {"g3_bytes_per_tree": collective_bytes(HIST_CH, ndev, "psum"),
+           "hist_dtype": "int32" if int8sr else "float32"}
+    if learner == "feature":
+        out.update(hist_bytes=0, split_sync_bytes=sync)
+    elif learner == "voting":
+        nsel = sel_k if sel_k is not None else F
+        vote = collective_bytes(int(round(2 * k)) * F, ndev, "psum")
+        if collective == "reduce_scatter":
+            nsel_pad = -(-nsel // ndev) * ndev
+            hist = collective_bytes(
+                int(round(2 * k)) * nsel_pad * B * HIST_CH, ndev,
+                "psum_scatter")
+            out.update(hist_bytes=hist, split_sync_bytes=sync,
+                       vote_bytes=vote)
+        else:
+            hist = collective_bytes(
+                int(round(2 * k)) * nsel * B * HIST_CH, ndev, "psum")
+            out.update(hist_bytes=hist, split_sync_bytes=0,
+                       vote_bytes=vote)
+    elif collective == "reduce_scatter":
+        hist = collective_bytes(
+            int(round(k)) * F_pad * B * HIST_CH, ndev, "psum_scatter")
+        out.update(hist_bytes=hist, split_sync_bytes=sync)
+    else:
+        hist = collective_bytes(
+            int(round(k)) * F * B * HIST_CH, ndev, "psum")
+        out.update(hist_bytes=hist, split_sync_bytes=0)
+    out["total_bytes"] = (out["hist_bytes"] + out["split_sync_bytes"]
+                          + out.get("vote_bytes", 0))
+    return out
+
+
+def publish_comm_metrics(learner: str, table: dict) -> None:
+    """One learner's per-round table as ``comm_bytes_per_round`` gauges
+    labelled ``{learner, part}`` in the default registry (JAX :330)."""
+    g = default_registry().gauge(
+        "comm_bytes_per_round",
+        "Analytic per-device collective payload per wave round",
+        label_names=("learner", "part"))
+    for part in ("hist_bytes", "split_sync_bytes", "vote_bytes",
+                 "total_bytes"):
+        if table.get(part) is not None:
+            g.labels(learner=learner,
+                     part=part[:-6]).set(float(table[part]))

@@ -57,6 +57,11 @@ kernel's categorical leg (``csrc/split_scan_cat.cu``).  CEGB (JAX
 :627-628, :339-340, :399-400): a (C, F) penalty subtracted from the
 finite numerical gains after the contri multiply and from every
 categorical candidate.
+
+``per_feature_best_gain`` (JAX :767) is the voting learner's score: each
+feature's best numerical gain relative to the parent's, under the
+reference's plain gain (no constraint or smoothing of the children),
+contri applied; plain PyTorch, as the JAX package runs it in XLA.
 """
 
 from __future__ import annotations
@@ -914,3 +919,50 @@ def find_best_split(hist: torch.Tensor, parent_sum: torch.Tensor,
             hist_scale=hscale, constraint=legs["constraint"],
             parent_output=legs["parent_output"], rand=rand, cegb=cegb)
     return unpack_cat(unpack_children(packed, B), cat_out)
+
+
+def per_feature_best_gain(hist: torch.Tensor, parent_sum: torch.Tensor,
+                          meta: FeatureMeta, feature_mask: torch.Tensor,
+                          params: SplitParams, parent_output=None
+                          ) -> torch.Tensor:
+    """(C, F) best numerical split gain of each feature of each of C
+    leaves (-inf where none), relative to the parent's gain plus
+    ``min_gain_to_split`` and times ``meta.contri`` (JAX :767, the PV-Tree
+    vote's score; reference voting_parallel_tree_learner.cpp:300-310):
+    ``hist`` (C, F, B, 3), ``parent_sum`` (C, 3), ``feature_mask`` (C, F),
+    ``parent_output`` (C,) (path smoothing; None: 0).  Both missing-value
+    directions are scanned as the full search scans them."""
+    C, F, B, _ = hist.shape
+    dev = hist.device
+    tg, th = parent_sum[:, 0, None, None], parent_sum[:, 1, None, None]
+    tc = parent_sum[:, 2, None, None]
+    t_idx = torch.arange(B, device=dev)[None, :]
+    nb = meta.num_bins[:, None]
+    is_nan_f = (meta.missing_type == MISSING_NAN)[:, None]
+    is_zero_f = (meta.missing_type == MISSING_ZERO)[:, None]
+
+    def gains_for(left):
+        lg, lh, lc = left[..., 0], left[..., 1], left[..., 2]
+        rg, rh, rc = tg - lg, th - lh, tc - lc
+        ok = ((lc >= params.min_data_in_leaf)
+              & (rc >= params.min_data_in_leaf)
+              & (lh >= params.min_sum_hessian_in_leaf)
+              & (rh >= params.min_sum_hessian_in_leaf))
+        gain = leaf_gain(lg, lh, params) + leaf_gain(rg, rh, params)
+        return torch.where(ok, gain, torch.full_like(gain, NEG_INF))
+
+    usable = numerical_usable(meta)
+    valid = ((t_idx <= nb - 2) & usable[:, None])[None] \
+        & feature_mask[:, :, None]
+    left = scan_left_sums(hist, meta)
+    neg = torch.full((), NEG_INF, dtype=hist.dtype, device=dev)
+    ga = torch.where(valid, gains_for(left[:, 0]), neg)
+    gb = torch.where(valid & (is_nan_f | is_zero_f)[None],
+                     gains_for(left[:, 1]), neg)
+    best = torch.maximum(ga.max(dim=2).values, gb.max(dim=2).values)
+    shift = gain_shift(parent_sum, params, parent_output)[:, None]
+    fin = torch.isfinite(best)
+    best = torch.where(fin, best - shift, best)
+    if meta.contri is not None:
+        best = torch.where(fin, best * meta.contri[None, :], best)
+    return best

@@ -242,7 +242,10 @@ def test_goss_g3_bit_for_bit(case):
     jself = types.SimpleNamespace(config=JConfig.from_dict(params),
                                   num_data=n)
     tself = types.SimpleNamespace(config=Config.from_dict(params),
-                                  num_data=n)
+                                  num_data=n, _shard=None)
+    for name in ("_global_rows", "_rows"):
+        setattr(tself, name, types.MethodType(getattr(tgbdt.GBDT, name),
+                                              tself))
     want = np.asarray(jgbdt.GOSS._sample_g3(
         jself, jnp.asarray(g), jnp.asarray(h),
         None if bag is None else jnp.asarray(bag), iteration))
@@ -324,5 +327,5 @@ def test_create_boosting_kinds_and_refusals():
                               ds._binned, "cpu")
     with pytest.raises(NotImplementedError,
                        match="ROADMAP queue 1, parallel learners$"):
-        tgbdt.create_boosting(Config.from_dict({"num_machines": 2}),
+        tgbdt.create_boosting(Config.from_dict({"elastic_max_restarts": 5}),
                               ds._binned, "cpu")

@@ -182,6 +182,8 @@ def test_reset_parameter_other_knob_reaches_the_next_tree():
     assert trees[0].num_leaves == 7 and trees[1].num_leaves == 3
     assert b._gbdt.split_params.lambda_l2 == 5.0
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b.reset_parameter({"elastic_max_restarts": 5})
+    with pytest.raises(ValueError, match="tree_learner"):
         b.reset_parameter({"tree_learner": "data"})
 
 

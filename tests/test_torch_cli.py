@@ -298,16 +298,18 @@ def test_binary_cache_is_checked(tmp_path):
 
 
 @pytest.mark.parametrize("args,item", [
-    (["task=save_binary", "data=d.tsv", "tree_learner=voting"],
-     tconfig.PARALLEL),
-    (["task=predict", "num_machines=2"], tconfig.PARALLEL),
+    (["task=save_binary", "data=d.tsv", "tree_learner=voting",
+      "elastic_max_restarts=5"], tconfig.PARALLEL),
+    (["task=predict", "num_machines=2", "num_hosts=2"],
+     tconfig.PARALLEL_LEGS),
     (["task=train", "data=d.tsv", "stream_enable=true",
-      "machines=a:1,b:2"], tconfig.PARALLEL),
+      "elastic_lease_timeout_s=1"], tconfig.PARALLEL),
     (["task=predict", "data=d.tsv", "input_model=m.txt",
       "output_result=p.txt", "predict_method=depthwise",
       "predict_num_shards=2"],
      tconfig.SHARDED_PREDICT),
-    (["task=train", "data=d.tsv", "tree_learner=data"], tconfig.PARALLEL),
+    (["task=train", "data=d.tsv", "tree_learner=data",
+      "hist_dtype_deep=int8sr"], tconfig.PARALLEL_LEGS),
     (["task=predict", "data=d.tsv", "input_model=m.txt",
       "output_result=p.txt", "predict_method=scan"],
      tconfig.SHARDED_PREDICT)],

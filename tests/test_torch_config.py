@@ -72,6 +72,13 @@ _FLEET_AND_OBS = [
 # out-of-core streaming (ROADMAP queue 1 item 14.1) ported them
 _STREAM = ["stream_enable", "stream_block_rows", "stream_prefetch",
            "stream_cache_dir"]
+# the knobs the port refused with the parallel learners' item until the
+# data, feature and voting learners and the cluster bring-up (ROADMAP
+# queue 1 item 14.2) ported them; data_parallel_collective's
+# ``hierarchical`` and the quantized legs stay refused (item 14.2b)
+_PARALLEL_142 = ["top_k", "num_machines", "local_listen_port", "machines",
+                 "time_out", "machine_list_filename", "pre_partition",
+                 "data_parallel_collective", "num_shards"]
 # the knobs the port refused with its breadth item until that item's
 # part 1.6 ported them (categorical features, CEGB)
 _PART_16 = ["min_data_per_group", "max_cat_threshold", "cat_l2",
@@ -155,7 +162,7 @@ def test_every_jax_knob_and_alias_is_known():
             "interaction_constraints", "forcedsplits_filename",
             "cegb_penalty_split", "categorical_feature"} | set(_PART_16) \
         | set(_CLI_AND_TREESHAP) | set(_SERVE_AND_OBS) \
-        | set(_FLEET_AND_OBS) | set(_STREAM)
+        | set(_FLEET_AND_OBS) | set(_STREAM) | set(_PARALLEL_142)
     runs |= {n for n in _FIELDS if n.startswith(("predict_", "serve_",
                                                  "registry_"))} - refused
     inert = {"device_type", "deterministic", "is_enable_sparse",
@@ -208,6 +215,40 @@ def test_stream_knob_is_accepted(name, capsys):
     assert unported_reason(cfg) is None
 
 
+@pytest.mark.parametrize("name", _PARALLEL_142)
+def test_parallel_knob_is_accepted(name, capsys):
+    """A knob refused until item 14.2 ported the parallel learners: a
+    field the JAX package knows, set without a warning, and a config
+    that sets it is not refused (``data_parallel_collective`` at
+    ``allreduce``, its other flat collective)."""
+    value = {"data_parallel_collective": "allreduce"}.get(
+        name, _other_value(name))
+    assert name in {f.name for f in dataclasses.fields(JaxConfig)}
+    assert name not in {n for n, _ in _REFUSED}
+    cfg = Config.from_dict({"objective": "binary", name: value})
+    assert "Unknown parameter" not in capsys.readouterr().err
+    assert getattr(cfg, name) == value
+    assert unported_reason(cfg) is None
+
+
+@pytest.mark.parametrize("params", [
+    {"data_parallel_collective": "hierarchical"},
+    {"tree_learner": "data", "hist_dtype": "int8"},
+    {"tree_learner": "voting", "hist_dtype_deep": "int8"},
+    {"tree_learner": "feature", "hist_dtype_deep": "int8sr"}],
+    ids=["hierarchical", "int8", "int8-deep", "int8sr"])
+def test_parallel_legs_refused_with_their_item(params):
+    """The parallel learners' quantized and hierarchical legs name item
+    14.2b; the same precisions train the serial learner."""
+    why = unported_reason(Config.from_dict(dict(params,
+                                                objective="binary")))
+    assert why is not None and why.endswith(
+        f"ROADMAP queue 1, {tconfig.PARALLEL_LEGS}")
+    serial = {k: v for k, v in params.items() if k != "tree_learner"}
+    if "data_parallel_collective" not in serial:
+        assert unported_reason(Config.from_dict(serial)) is None
+
+
 @pytest.mark.parametrize("name", _SERVE_AND_OBS)
 def test_serve_and_obs_knob_is_accepted(name, capsys):
     """A knob refused until items 6 and 8-11 (and part of 12) ported it:
@@ -240,7 +281,8 @@ def test_refused_knob_raises_with_its_item(name, item, capsys):
 
 def test_training_refuses_a_dropped_knob():
     """train raises for a refused knob on the Booster's params (the
-    parallel learners' ``machines`` of item 14.2; the prediction early
+    elastic knob ``elastic_max_restarts`` of the parallel learners' item,
+    14.3; the prediction early
     stopping it refused until item 3 trains, the span tracer it refused
     until item 11 ported it, and ``obs_dir`` / ``profile_dir``, CLI knobs
     since item 12 ported them, are accepted and ignored, as by the JAX
@@ -258,8 +300,8 @@ def test_training_refuses_a_dropped_knob():
     with pytest.raises(NotImplementedError,
                        match=re.escape(f"ROADMAP queue 1, "
                                        f"{tconfig.PARALLEL}") + "$"):
-        train(dict(params, machines="a:1,b:2"), Dataset(X, label=y), 2,
-              device="cpu")
+        train(dict(params, elastic_max_restarts=5), Dataset(X, label=y),
+              2, device="cpu")
     assert train(dict(params, obs_dir="obs", profile_dir="prof"),
                  Dataset(X, label=y), 2, device="cpu").num_trees() == 2
     assert not os.path.exists("obs") and not os.path.exists("prof")

@@ -103,6 +103,35 @@ def test_sources_import_neither_jax_nor_the_jax_package():
     assert not _FORBIDDEN.search("from lightgbmv1_tpu_torch import Booster")
 
 
+def test_parallel_modules_import_no_jax():
+    """The parallel learners' modules are among the scanned sources, and
+    a two-rank-free import and a group-of-one training through them leave
+    no JAX module in the process."""
+    scanned = set()
+    for d, _, names in os.walk(PKG):
+        scanned |= {os.path.relpath(os.path.join(d, n), PKG) for n in names}
+    for mod in ("collectives", "cluster", "dist_data", "trainer"):
+        assert os.path.join("parallel", mod + ".py") in scanned
+    code = (
+        "import sys, numpy as np\n"
+        "from lightgbmv1_tpu_torch.parallel import (cluster, collectives,\n"
+        "                                           dist_data, trainer)\n"
+        "from lightgbmv1_tpu_torch import Dataset, train\n"
+        "X = np.random.RandomState(0).randn(200, 4)\n"
+        "y = (X[:, 0] > 0).astype(float)\n"
+        "for learner in ('data', 'voting', 'feature'):\n"
+        "    train({'objective': 'binary', 'tree_learner': learner,\n"
+        "           'verbosity': -1}, Dataset(X, label=y), 1, device='cpu')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'lightgbmv1_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('isolated')\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=_env(),
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert "isolated" in res.stdout
+
+
 def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     import numpy as np
 

@@ -150,7 +150,8 @@ def test_renewed_leaf_values_match_jax(objective, weighted):
         if objective == "mape":
             obj._label_weight = 1.0 / np.maximum(np.abs(label), 1.0) * (
                 1.0 if w is None else w)
-        self = types.SimpleNamespace(objective=obj)
+        self = types.SimpleNamespace(objective=obj, _objective_global=obj,
+                                     _shard=None)
         self._renew_rows = types.MethodType(tgbdt.GBDT._renew_rows, self)
         tree = types.SimpleNamespace(num_leaves=L,
                                      leaf_value=leaf_value.copy())

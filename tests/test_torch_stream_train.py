@@ -463,9 +463,12 @@ def test_stream_rejects_unsupported_configs(tmp_path):
               group=np.full(8, 25))
     with pytest.raises(LightGBMError, match="fobj"):
         build({}, fobj=lambda preds, d: (preds, np.ones_like(preds)))
+    with pytest.raises(LightGBMError, match="streaming training requires "
+                       "tree_learner=serial"):
+        build({"tree_learner": "data"})
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP queue 1, {PARALLEL}$"):
-        build({"tree_learner": "data"})
+        build({"elastic_max_restarts": 5})
     # EFB bundle-only data: CSR rows of exclusive features bundle with no
     # dense bins
     rng = np.random.RandomState(0)

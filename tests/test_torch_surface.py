@@ -215,7 +215,7 @@ _BOOSTER_CALLS = {
 _DATASET_CALLS = {
     "construct": lambda ds, X: ds.construct(),
     "create_valid": lambda ds, X: ds.create_valid(X),
-    "from_binned": lambda ds, X: lt.Dataset.from_binned(ds._binned),
+    "from_binned": lambda ds, X: _from_binned(ds),
     "get_field": lambda ds, X: ds.get_field("label"),
     "get_group": lambda ds, X: ds.get_group(),
     "get_init_score": lambda ds, X: ds.get_init_score(),
@@ -348,9 +348,21 @@ _TOP_CALLS = {
         lambda: lt.create_tree_digraph(_trained()[0])),
 }
 
+def _from_binned(ds):
+    """A Dataset over the binned set trains the model of the set itself;
+    its data-parallel training at the two-level mesh (``num_hosts``)
+    raises item 14.2b's title."""
+    p = dict(PARAMS, verbosity=-1)
+    a = lt.train(p, lt.Dataset.from_binned(ds._binned), 2, device="cpu")
+    assert a.model_to_string() == lt.train(p, ds, 2, device="cpu") \
+        .model_to_string()
+    lt.train(dict(p, tree_learner="data", num_hosts=2),
+             lt.Dataset.from_binned(ds._binned), 1, device="cpu")
+
+
 # the names that refuse, by the title of their ROADMAP queue 1 item
 _REFUSING = {
-    "from_binned": tconfig.PARALLEL,
+    "from_binned": tconfig.PARALLEL_LEGS,
 }
 
 

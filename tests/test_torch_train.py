@@ -390,7 +390,10 @@ def test_golden_zero_as_missing_training_parity():
 
 
 _UNPORTED_CASES = [
-    ({"tree_learner": "data"}, tconfig.PARALLEL)]
+    ({"tree_learner": "data", "hist_dtype_deep": "int8sr"},
+     tconfig.PARALLEL_LEGS),
+    ({"tree_learner": "voting", "elastic_max_restarts": 5},
+     tconfig.PARALLEL)]
 
 # the CLI's knobs the list above refused until the CLI was ported (ROADMAP
 # queue 1, item 4): ``train`` does not read them, as in the JAX package,
